@@ -1,0 +1,149 @@
+"""Build and bind the port's CUDA kernels (``src/repro_torch/csrc/*.cu``).
+
+Each source file has a plain C launcher (``extern "C" int ...``) that takes
+raw device pointers, ``int`` sizes, ``float`` thresholds and the CUDA stream,
+launches its kernel and returns ``cudaGetLastError()``.  At first use the
+sources are compiled by ``nvcc`` for ``sm_90a`` -- one ``nvcc`` process per
+source, all started together -- linked into one shared library named by a
+hash of the sources and flags, and loaded with :mod:`ctypes`.
+
+``-fmad=false`` (and no ``--use_fast_math``) keeps every multiply and add
+separately rounded and every division correctly rounded, which is what lets
+the region filter and the crop gather equal their plain PyTorch versions on
+the card bit for bit.
+
+A missing ``nvcc``, a failed build or a nonzero launch return code raises;
+nothing here falls back to the plain versions.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+SOURCES = ("iou_filter.cu", "crop_gather.cu", "onevsall.cu")
+BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+CFLAGS = ["-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
+          "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# launcher name -> argtypes (pointers and the stream as c_void_p: a bare
+# Python int would be passed as a 32-bit int and cut the pointer)
+SIGNATURES = {
+    "vpaas_region_filter_mask_batch":
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P],
+    "vpaas_crop_gather":
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "vpaas_onevsall_scores":
+        [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+build_log = ""
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                           "from src/repro_torch/csrc at first use")
+    return path
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(ARCH + CFLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the sources (if this hash is not built yet); return the .so."""
+    global build_log
+    out = BUILD_DIR / f"libvpaas_kernels-{_digest()}.so"
+    if out.exists():
+        return out
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{os.getpid()}"
+    objs, procs = [], []
+    for name in SOURCES:
+        obj = BUILD_DIR / f"{Path(name).stem}-{tag}.o"
+        objs.append(obj)
+        procs.append((name, subprocess.Popen(
+            [nvcc, *ARCH, *CFLAGS, "-c", str(CSRC / name), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for name, p in procs:
+        text, _ = p.communicate()
+        logs.append(f"== {name}\n{text}")
+        if p.returncode != 0:
+            failed.append(name)
+    build_log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+    tmp = BUILD_DIR / f"libvpaas_kernels-{tag}.so.tmp"
+    link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp),
+                           *map(str, objs)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+    os.replace(tmp, out)             # atomic: concurrent builds agree
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for fn, argtypes in SIGNATURES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.vpaas_error_string.argtypes = [ctypes.c_int]
+        lib.vpaas_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def launch(fn: str, *args) -> None:
+    """Call one C launcher on the current stream; raise on a nonzero code.
+
+    ``args`` excludes the trailing stream argument."""
+    lib = library()
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = getattr(lib, fn)(*args, stream)
+    if rc != 0:
+        msg = lib.vpaas_error_string(rc).decode()
+        raise RuntimeError(f"{fn} failed to launch: CUDA error {rc} ({msg})")
+
+
+def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
+               shape=None) -> None:
+    """Validate a kernel operand before its pointer goes to native code."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

@@ -1,0 +1,72 @@
+"""Device dispatch over the port's CUDA kernels and their plain versions.
+
+There is no ``impl`` knob: a wrapper launches the hand-written CUDA kernel
+for a CUDA tensor and computes the plain PyTorch version only for a tensor
+that lies on the CPU.  No path runs the plain version on a CUDA tensor, and
+nothing falls back when a kernel fails to build or launch -- it raises.
+
+Each kernel module keeps a plain-integer launch count (``launches``), bumped
+where the kernel is launched and nowhere else; :func:`launch_counts` and
+:func:`reset_launch_counts` read and zero them, so a run can show that the
+serving path went through the kernels.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import crop_gather as _cg
+from repro_torch.kernels import iou_filter as _ik
+from repro_torch.kernels import onevsall as _ov
+
+KERNELS = {"region_filter_mask_batch": _ik, "crop_gather": _cg,
+           "onevsall_scores": _ov}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: mod.launches for name, mod in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for mod in KERNELS.values():
+        mod.launches = 0
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    if t.is_cuda:
+        return True
+    if t.device.type != "cpu":
+        raise ValueError(f"no kernel for device {t.device}")
+    return False
+
+
+def region_filter_mask_batch(proposals, prop_valid, accepted, acc_valid,
+                             loc_scores, *, theta_loc: float,
+                             theta_iou: float, theta_back: float,
+                             frame_area: float = 1.0) -> torch.Tensor:
+    """Whole-flush §IV.B filter over a (F, N) region grid (K1)."""
+    kw = dict(theta_loc=theta_loc, theta_iou=theta_iou,
+              theta_back=theta_back, frame_area=frame_area)
+    if _on_card(proposals):
+        return _ik.region_filter_mask_batch(proposals, prop_valid, accepted,
+                                            acc_valid, loc_scores, **kw)
+    return _ik.region_filter_mask_batch_ref(proposals, prop_valid, accepted,
+                                            acc_valid, loc_scores, **kw)
+
+
+def crop_gather(frames, boxes, idxs, *,
+                out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Compacted crop gather (K2): (F,H,W,C) x (F,N,4) x (>=2,B) ->
+    (B,oh,ow,C)."""
+    if _on_card(frames):
+        return _cg.crop_gather(frames, boxes, idxs, out_hw=out_hw)
+    return _cg.crop_gather_ref(frames, boxes, idxs, out_hw=out_hw)
+
+
+def onevsall_scores(x, ws, widx: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """One-vs-all readout (K3): sigmoid(x @ ws[widx]) per row."""
+    if _on_card(x):
+        return _ov.onevsall_scores(x, ws, widx)
+    return _ov.onevsall_scores_ref(x, ws, widx)

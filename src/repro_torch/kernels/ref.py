@@ -1,0 +1,183 @@
+"""Plain PyTorch versions of the video path's kernels (the video subset of
+``repro.kernels.ref``).
+
+These are the semantic ground truth of the port's CUDA kernels: the CPU
+tests run them against the JAX package, and ``chip_smoke.py`` holds each
+kernel against them on the card.  The kernel wrappers in
+:mod:`repro_torch.kernels.ops` run them only for tensors on the CPU.
+
+Every op here is a separate eager PyTorch op, so each multiply and add is
+rounded on its own -- the property the crop gather and region filter
+kernels reproduce bit for bit.
+"""
+from __future__ import annotations
+
+import functools
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Pairwise IoU + region filter mask (the paper's §IV.B filter hot spot)
+# ---------------------------------------------------------------------------
+def iou_matrix(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """boxes: (..., N, 4) as (x1, y1, x2, y2). Returns (..., N, M)."""
+    a = boxes_a.float()
+    b = boxes_b.float()
+    ax1, ay1, ax2, ay2 = [a[..., :, None, i] for i in range(4)]
+    bx1, by1, bx2, by2 = [b[..., None, :, i] for i in range(4)]
+    iw = (torch.minimum(ax2, bx2) - torch.maximum(ax1, bx1)).clamp_min(0.0)
+    ih = (torch.minimum(ay2, by2) - torch.maximum(ay1, by1)).clamp_min(0.0)
+    inter = iw * ih
+    area_a = (ax2 - ax1).clamp_min(0.0) * (ay2 - ay1).clamp_min(0.0)
+    area_b = (bx2 - bx1).clamp_min(0.0) * (by2 - by1).clamp_min(0.0)
+    union = area_a + area_b - inter
+    return inter / union.clamp_min(1e-9)
+
+
+def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+             iou_threshold: float = 0.45) -> torch.Tensor:
+    """Greedy non-maximum suppression over the last axis; fixed shape.
+
+    boxes (..., N, 4), scores (..., N), valid (..., N) -> keep (..., N).
+    The greedy loop runs N steps on whole (..., N) tensors -- every frame of
+    a flush advances together, and nothing reads back to the host."""
+    n = boxes.shape[-2]
+    iou = iou_matrix(boxes, boxes)                       # (..., N, N)
+    neg = torch.full((), NEG_INF, dtype=scores.dtype, device=scores.device)
+    ar = torch.arange(n, device=boxes.device)
+    keep = torch.zeros_like(valid)
+    alive = valid.clone()
+    for _ in range(n):
+        masked = torch.where(alive, scores, neg)
+        idx = masked.argmax(-1, keepdim=True)            # (..., 1) first max
+        has = masked.gather(-1, idx) > neg               # (..., 1)
+        sel = ar == idx                                  # (..., N)
+        keep |= has & sel
+        row = iou.gather(-2, idx[..., None].expand(*idx.shape, n))[..., 0, :]
+        suppress = (row >= iou_threshold) | sel
+        alive = torch.where(has, alive & ~suppress, alive)
+    return keep
+
+
+def region_filter_mask(
+    proposals: torch.Tensor,     # (..., N, 4)
+    prop_valid: torch.Tensor,    # (..., N) bool
+    accepted: torch.Tensor,      # (..., M, 4)
+    acc_valid: torch.Tensor,     # (..., M) bool
+    loc_scores: torch.Tensor,    # (..., N)
+    *,
+    theta_loc: float,
+    theta_iou: float,
+    theta_back: float,
+    frame_area: float = 1.0,
+) -> torch.Tensor:
+    """The paper's three-stage filter as one fused mask computation.
+
+    Leading axes broadcast, so a (F, N) flush is one call: this is the plain
+    version of the batched kernel as well as of the single-frame filter."""
+    keep = prop_valid & (loc_scores >= theta_loc)
+    iou = iou_matrix(proposals, accepted)                # (..., N, M)
+    iou = torch.where(acc_valid[..., None, :], iou, 0.0)
+    keep &= iou.amax(-1).clamp_min(0.0) < theta_iou      # initial=0.0
+    w = (proposals[..., 2] - proposals[..., 0]).clamp_min(0.0)
+    h = (proposals[..., 3] - proposals[..., 1]).clamp_min(0.0)
+    keep &= (w * h / frame_area) <= theta_back
+    return keep
+
+
+# ---------------------------------------------------------------------------
+# Bilinear crop gather (the compacted classify path's crop stage)
+# ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _crop_lin(n: int) -> np.ndarray:
+    """The [0, 1] sample grid as a host-computed float32 literal -- the same
+    fixed bit pattern the JAX package bakes in (``np.linspace``, never an
+    on-device linspace whose rounding may differ)."""
+    return np.linspace(0.0, 1.0, n, dtype=np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def _crop_lin_on(n: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_crop_lin(n)).to(device)
+
+
+def crop_lin(n: int, device) -> torch.Tensor:
+    """``_crop_lin(n)`` on ``device``, uploaded once per (n, device)."""
+    return _crop_lin_on(n, torch.device(device))
+
+
+def bilinear_crops(frames: torch.Tensor,    # (F, H, W, C)
+                   fmap: torch.Tensor,      # (K,) in-range frame index
+                   boxes: torch.Tensor,     # (K, 4) xyxy in [0, 1]
+                   out_hw: Tuple[int, int],
+                   *,
+                   lin_y: Optional[torch.Tensor] = None,
+                   lin_x: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Bilinear-resample K boxes to ``out_hw``; returns (K, oh, ow, C).
+
+    Follows ``repro.kernels.ref.bilinear_crops`` tap for tap: the baked
+    float32 sample grid, sample positions ``ya + yb``, floor and clip,
+    zero-valued out-of-frame taps, weights ``(wy * wx) * tap`` and the sum
+    order ``((t00 + t01) + t10) + t11``, each op rounded on its own."""
+    f, h_img, w_img, ch = frames.shape
+    k = boxes.shape[0]
+    oh, ow = out_hw
+    if lin_y is None:
+        lin_y = crop_lin(oh, frames.device)
+    if lin_x is None:
+        lin_x = crop_lin(ow, frames.device)
+    x1, y1, x2, y2 = boxes[:, 0], boxes[:, 1], boxes[:, 2], boxes[:, 3]
+    ya = (y1 * (h_img - 1))[:, None]                        # (K, 1)
+    yb = ((y2 - y1) * (h_img - 1))[:, None] * lin_y          # (K, oh)
+    xa = (x1 * (w_img - 1))[:, None]
+    xb = ((x2 - x1) * (w_img - 1))[:, None] * lin_x
+    ys = ya + yb
+    xs = xa + xb
+    yy = ys[:, :, None].expand(k, oh, ow).reshape(k, oh * ow)
+    xx = xs[:, None, :].expand(k, oh, ow).reshape(k, oh * ow)
+    y_lo_f = torch.floor(yy)
+    x_lo_f = torch.floor(xx)
+    wy_hi = yy - y_lo_f
+    wy_lo = 1 - wy_hi
+    wx_hi = xx - x_lo_f
+    wx_lo = 1 - wx_hi
+    y_lo = y_lo_f.to(torch.int64)
+    x_lo = x_lo_f.to(torch.int64)
+    y_hi = y_lo + 1
+    x_hi = x_lo + 1
+    fk = fmap.to(torch.int64)[:, None]
+
+    def term(yi, wy, xi, wx):
+        # mode='constant': out-of-frame taps contribute 0
+        valid = (yi >= 0) & (yi < h_img) & (xi >= 0) & (xi < w_img)
+        yc = yi.clamp(0, h_img - 1)
+        xc = xi.clamp(0, w_img - 1)
+        contrib = torch.where(valid[..., None], frames[fk, yc, xc], 0.0)
+        return (wy * wx)[..., None] * contrib
+
+    t00 = term(y_lo, wy_lo, x_lo, wx_lo)
+    t01 = term(y_lo, wy_lo, x_hi, wx_hi)
+    t10 = term(y_hi, wy_hi, x_lo, wx_lo)
+    t11 = term(y_hi, wy_hi, x_hi, wx_hi)
+    out = ((t00 + t01) + t10) + t11
+    return out.reshape(k, oh, ow, ch)
+
+
+def crop_gather(frames: torch.Tensor,       # (F, H, W, C) HQ frames
+                boxes: torch.Tensor,        # (F, N, 4) proposal boxes
+                idxs: torch.Tensor,         # (>=2, B) compaction indices
+                *, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Plain compacted crop gather: (B, oh, ow, C).
+
+    ``idxs[0] / idxs[1]`` are the flush's (frame, region) rows; pad rows
+    carry the out-of-bounds frame index F and clip to the last frame."""
+    f, n = boxes.shape[0], boxes.shape[1]
+    fidx = idxs[0].long().clamp(0, f - 1)
+    ridx = idxs[1].long().clamp(0, n - 1)
+    return bilinear_crops(frames, fidx, boxes[fidx, ridx], out_hw)
+

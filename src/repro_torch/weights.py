@@ -1,0 +1,114 @@
+"""Model parameters for the port: random init, conversion from the JAX
+package's parameters, and a flat ``.npz`` save/restore.
+
+The port's parameters are nested dicts of tensors with the JAX package's
+keys (``conv0/w``, ``head/b``, ``proj``, ``W``).  The one layout difference:
+conv weights are OIHW here (``F.conv2d``), HWIO in the JAX package.  Every
+4-d leaf is a conv weight, so conversion is by rank.
+
+Sources of weights:
+
+* :func:`init_detector` / :func:`init_classifier` — seeded random init from
+  a ``torch.Generator``, following ``repro.models.schema`` (zeros for
+  biases; ``normal / sqrt(fan_in)`` for the rest, with fan_in the
+  second-to-last HWIO axis, i.e. ``cin`` for a conv — not ``9 * cin``);
+* :func:`from_numpy_tree` — the JAX package's in-memory parameter pytree
+  (nested dicts of numpy or JAX arrays, copied through numpy, so this
+  module never imports JAX);
+* :func:`load_npz` — the flat ``.npz`` that ``repro.training.checkpoint``
+  writes (keys like ``conv0/w``, HWIO);
+* :func:`save_npz` writes the same flat format back (HWIO), so checkpoints
+  move between the two packages in both directions.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.vpaas_video import ClassifierConfig, DetectorConfig
+from repro_torch.models import classifier as clf_mod
+from repro_torch.models import detector as det_mod
+
+
+def _hwio_to_oihw(a: torch.Tensor) -> torch.Tensor:
+    return a.permute(3, 2, 0, 1).contiguous() if a.dim() == 4 else a
+
+
+def _oihw_to_hwio(a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(a.transpose(2, 3, 1, 0)) if a.ndim == 4 else a
+
+
+def _init_tree(shapes, gen: torch.Generator, device) -> Dict[str, Any]:
+    out = {}
+    for key, val in shapes.items():
+        if isinstance(val, dict):
+            out[key] = _init_tree(val, gen, device)
+        elif key == "b":
+            out[key] = torch.zeros(val, device=device)
+        else:
+            fan_in = val[-2] if len(val) > 1 else 1
+            w = torch.randn(val, generator=gen) / math.sqrt(max(fan_in, 1))
+            out[key] = _hwio_to_oihw(w).to(device)
+    return out
+
+
+def init_detector(cfg: DetectorConfig, gen: torch.Generator,
+                  device="cuda") -> Dict[str, Any]:
+    return _init_tree(det_mod.param_shapes(cfg), gen, device)
+
+
+def init_classifier(cfg: ClassifierConfig, gen: torch.Generator,
+                    device="cuda") -> Dict[str, Any]:
+    return _init_tree(clf_mod.param_shapes(cfg), gen, device)
+
+
+def from_numpy_tree(tree, device="cuda") -> Dict[str, Any]:
+    """JAX-package parameter pytree (nested dicts of arrays) -> port params."""
+    if isinstance(tree, dict):
+        return {k: from_numpy_tree(v, device) for k, v in tree.items()}
+    t = torch.from_numpy(np.array(tree, dtype=np.float32, copy=True))
+    return _hwio_to_oihw(t).to(device)
+
+
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    flat = {}
+    for key, val in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(val, dict):
+            flat.update(_flatten(val, path + "/"))
+        else:
+            arr = (val.detach().cpu().numpy() if isinstance(val, torch.Tensor)
+                   else np.asarray(val))
+            flat[path] = _oihw_to_hwio(arr)
+    return flat
+
+
+def save_npz(path: str, params, metadata: Optional[Dict[str, Any]] = None
+             ) -> None:
+    """Flat ``.npz`` in the JAX checkpoint's format (HWIO convs)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tree = params if isinstance(params, dict) else {"params": params}
+    np.savez(path, **_flatten(tree))
+    if metadata is not None:
+        with open(path + ".meta.json", "w") as f:
+            json.dump(metadata, f, indent=2, default=str)
+
+
+def load_npz(path: str, device="cuda") -> Dict[str, Any]:
+    """Restore a flat ``.npz`` (``conv0/w`` keys, HWIO) as port params."""
+    if not path.endswith(".npz"):
+        path = path + ".npz"
+    tree: Dict[str, Any] = {}
+    with np.load(path) as data:
+        for key in data.files:
+            node = tree
+            *parents, leaf = key.split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = data[key]
+    return from_numpy_tree(tree, device)

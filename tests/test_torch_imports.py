@@ -1,0 +1,44 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+``torch``, never ``jax`` and nothing of the JAX package ``repro``."""
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "src" / "repro_torch"
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["repro"] = None        # ... and so does the JAX package
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke                  # imported, not run
+assert callable(chip_smoke.main)
+print(len(names))
+"""
+
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)",
+                        re.MULTILINE)
+
+
+def test_port_imports_with_jax_blocked():
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[-1]) >= 25      # every module imported
+
+
+def test_no_jax_or_reference_imports_in_port_sources():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    offenders = {str(f.relative_to(ROOT)): m.group(0).strip()
+                 for f in files
+                 for m in _FORBIDDEN.finditer(f.read_text())}
+    assert not offenders, offenders
