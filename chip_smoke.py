@@ -159,6 +159,29 @@ def phase_region_filter(torch, np, card):
     return row
 
 
+def crop_tap_pixels(np, boxes, idxs, hw, out_hw) -> int:
+    """The distinct in-frame pixels that the bilinear taps of the bucket
+    rows ``idxs`` touch: the least the crop gather must read."""
+    f, n = boxes.shape[:2]
+    fi = idxs[0].clip(0, f - 1)
+    bx = boxes[fi, idxs[1].clip(0, n - 1)]
+    lo = []
+    for ax, (size, out) in enumerate(zip(hw, out_hw)):
+        a, b = bx[:, 1 - ax], bx[:, 3 - ax]      # y1, y2 then x1, x2
+        lin = np.linspace(0.0, 1.0, out, dtype=np.float32)
+        m = np.float32(size - 1)
+        pos = a[:, None] * m + ((b - a) * m)[:, None] * lin
+        lo.append(np.floor(pos).astype(np.int64))
+    touched = np.zeros((f, *hw), bool)
+    for dy in (0, 1):
+        for dx in (0, 1):
+            yy, xx = lo[0][:, :, None] + dy, lo[1][:, None, :] + dx
+            ff, yy, xx = np.broadcast_arrays(fi[:, None, None], yy, xx)
+            ok = (yy >= 0) & (yy < hw[0]) & (xx >= 0) & (xx < hw[1])
+            touched[ff[ok], yy[ok], xx[ok]] = True
+    return int(touched.sum())
+
+
 def phase_crop_gather(torch, np, card):
     import torch.nn.functional as F
 
@@ -202,11 +225,11 @@ def phase_crop_gather(torch, np, card):
             src, grid, mode="bilinear", padding_mode="zeros",
             align_corners=True))
         out_el = b * out_hw[0] * out_hw[1] * 3
-        distinct = len(set(idxs[0].clip(0, f - 1).tolist()))
-        # touched frame bytes: the referenced frames, or four taps per
-        # output element, whichever is less
-        nbytes = (4 * out_el + min(distinct * hw[0] * hw[1] * 3, 4 * out_el)
-                  * 4 + b * 16 + 2 * b * 4 + 4 * sum(out_hw))
+        # read bytes: each distinct in-frame tap pixel once, plus the boxes,
+        # the index rows and the sample grid
+        taps = crop_tap_pixels(np, boxes.cpu().numpy(), idxs, hw, out_hw)
+        nbytes = (4 * out_el + taps * 3 * 4 + b * 16 + 2 * b * 4
+                  + 4 * sum(out_hw))
         ops = b * out_hw[0] * out_hw[1] * (14 + 7 * 3)
         row = _row("crop_gather", "src/repro_torch/csrc/crop_gather.cu",
                    "src/repro/kernels/crop_gather.py:42",
@@ -224,7 +247,7 @@ def phase_onevsall(torch, np, card):
     d1, c = 129, 8
     rng = np.random.default_rng(SEED + 2)
     main_row = None
-    for b, g in ((1024, 1), (128, 8)):
+    for b, g in ((1024, 1), (128, 8), (128, 64)):
         # features are relu outputs plus the bias-absorbing 1
         x = np.maximum(rng.normal(0, 1, (b, d1)), 0).astype(np.float32)
         x[:, -1] = 1.0
@@ -247,7 +270,9 @@ def phase_onevsall(torch, np, card):
         if g == 1:
             w0 = ws_t[0]
             lib = time_ms(torch, lambda: torch.sigmoid(torch.mm(x_t, w0)))
-        nbytes = (b * d1 + g * d1 * c + b * c) * 4 + (b * 4 if g > 1 else 0)
+        used = 1 if widx is None else int(widx.unique().numel())
+        nbytes = ((b * d1 + used * d1 * c + b * c) * 4
+                  + (b * 4 if g > 1 else 0))
         ops = b * c * (2 * d1 + 4)
         row = _row("onevsall_scores", "src/repro_torch/csrc/onevsall.cu",
                    "src/repro/kernels/onevsall.py:35",

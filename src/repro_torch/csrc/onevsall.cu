@@ -6,47 +6,42 @@
 // per-row readout index widx (B,), so the cross-stream compacted classify
 // (repro.models.classifier.classify_multi, einsum("bd,bdc->bc", x, Ws[widx]))
 // runs through the same kernel as the full-budget classify (G = 1, widx
-// null = readout 0).
+// null = readout 0).  G is one readout per stream in a flush (up to the
+// pack bucket's 64) or G * T snapshots on the ensemble path, unbounded.
 //
 // What bounds it on the card: at the serving path's shapes (B up to 1024
 // rows, D1 = 129, C = 8) the product is ~2 MFLOP over ~0.5 MB of X, well
 // under a microsecond of either resource, so a launch costs more than the
 // work and tensor cores would buy nothing yet (K = 129 is also not a
-// multiple of any MMA depth).  The design keeps it one simple pass: a block
-// per 128-row tile stages all G readouts in shared memory (129 x 8 x 4 B =
-// 4 KB each), and each thread produces (row, class) outputs with an fp32
-// fmaf dot product over the unpadded K = 129, then 1 / (1 + expf(-z)).
-// Consecutive threads take consecutive classes of a row, so the output
-// writes are coalesced and the X loads broadcast within a row.
+// multiple of any MMA depth).  The design keeps it one simple pass with one
+// thread per (row, class) output, so B = 1024 rows spread over 64 blocks:
+// an fp32 fmaf dot product over the unpadded K = 129, then
+// 1 / (1 + expf(-z)).  The readouts are read from global memory through the
+// read-only cache (one readout is 4 KB and the rows of a block share a few),
+// so any G fits; consecutive threads take consecutive classes of a row, so
+// the W loads and output writes are coalesced and the X loads broadcast
+// within a row.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 128;
+constexpr int kThreads = 128;
 
 __global__ void __launch_bounds__(kThreads)
 onevsall_kernel(const float* __restrict__ x, const float* __restrict__ ws,
                 const int32_t* __restrict__ widx, float* __restrict__ out,
                 int B, int D1, int C, int G) {
-  extern __shared__ float s_w[];              // (G, D1, C)
-  const int total = G * D1 * C;
-  for (int i = threadIdx.x; i < total; i += kThreads) s_w[i] = ws[i];
-  __syncthreads();
-
-  const int row0 = blockIdx.x * kRows;
-  const int rows = min(kRows, B - row0);
-  for (int p = threadIdx.x; p < rows * C; p += kThreads) {
-    const int r = row0 + p / C;
-    const int c = p % C;
-    const int g = widx ? min(max(widx[r], 0), G - 1) : 0;
-    const float* xr = x + (size_t)r * D1;
-    const float* wg = s_w + (size_t)g * D1 * C + c;
-    float z = 0.f;
-    for (int k = 0; k < D1; ++k) z = fmaf(xr[k], wg[k * C], z);
-    out[(size_t)r * C + c] = 1.f / (1.f + expf(-z));
-  }
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= B * C) return;
+  const int r = p / C;
+  const int c = p - r * C;
+  const int g = widx ? min(max(__ldg(widx + r), 0), G - 1) : 0;
+  const float* xr = x + (size_t)r * D1;
+  const float* wg = ws + (size_t)g * D1 * C + c;
+  float z = 0.f;
+  for (int k = 0; k < D1; ++k) z = fmaf(__ldg(xr + k), __ldg(wg + k * C), z);
+  out[p] = 1.f / (1.f + expf(-z));
 }
 
 }  // namespace
@@ -56,16 +51,8 @@ extern "C" int vpaas_onevsall_scores(const void* x, const void* ws,
                                      const void* widx, void* out, int B,
                                      int D1, int C, int G, void* stream) {
   if (B == 0) return 0;
-  const size_t smem = (size_t)G * D1 * C * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        onevsall_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int blocks = (B + kRows - 1) / kRows;
-  onevsall_kernel<<<blocks, kThreads, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
+  const int blocks = (B * C + kThreads - 1) / kThreads;
+  onevsall_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(ws),
       static_cast<const int32_t*>(widx), static_cast<float*>(out), B, D1, C,
       G);

@@ -111,6 +111,17 @@ def test_onevsall_widx_matches_classify_multi_einsum():
     np.testing.assert_allclose(got, want, atol=ONEVSALL_ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("g", [64, 320])
+def test_onevsall_many_readouts_match_classify_multi_einsum(g):
+    # a 64-stream flush stacks 64 readouts; the ensemble path flattens
+    # G * T snapshots
+    x, ws, widx = onevsall_case(256, 129, 8, g=g, seed=4)
+    want = np.asarray(jax.nn.sigmoid(jnp.einsum(
+        "bd,bdc->bc", jnp.asarray(x), jnp.asarray(ws)[jnp.asarray(widx)])))
+    got = ops.onevsall_scores(*_t((x, ws, widx))).numpy()
+    np.testing.assert_allclose(got, want, atol=ONEVSALL_ATOL, rtol=0)
+
+
 # ---------------------------------------------------------------------------
 # dispatch and the plain NMS loop
 # ---------------------------------------------------------------------------

@@ -114,6 +114,35 @@ def test_fused_matches_sync_within_port(runs):
                                        atol=MODEL_ATOL, rtol=0)
 
 
+def test_fused_flush_of_64_streams_matches_jax(models, monkeypatch):
+    # one flush packs a chunk of each of 64 streams, and every stream keeps
+    # its own readout: the compacted classify stacks G = 64 readouts
+    jd, jc, td, tc = models
+    streams = [_chunks(200 + i, 1) for i in range(64)]
+    stacked = []
+    readout = ops.onevsall_scores
+
+    def spy(x, ws, widx=None):
+        stacked.append(ws.shape[0])
+        return readout(x, ws, widx)
+
+    monkeypatch.setattr(ops, "onevsall_scores", spy)
+    kw = dict(max_batch_chunks=64, batch_window=0.05, hot_path="fused")
+    jm = JMulti(JProtocol(DET, CLF), jd, jc, streams, **kw)
+    tm = TMulti(TProtocol(T_DET, T_CLF, device="cpu"), td, tc, streams,
+                device="cpu", **kw)
+    jres, tres = jm.run(learn=False), tm.run(learn=False)
+    assert tm.scheduler.hot_path_stats["flushes"] == 1
+    assert stacked == [64]
+    for name in jres:
+        assert jres[name].f1 == tres[name].f1, name
+        (_, r1, _), = jm.scheduler.streams[name].results
+        (_, r2, _), = tm.scheduler.streams[name].results
+        np.testing.assert_array_equal(r2.prop_valid, r1.prop_valid)
+        np.testing.assert_allclose(r2.fog_scores, r1.fog_scores,
+                                   atol=MODEL_ATOL, rtol=0)
+
+
 def test_cpu_run_launches_no_kernel(models):
     _, _, td, tc = models
     ops.reset_launch_counts()
