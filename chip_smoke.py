@@ -6,14 +6,17 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
-kernel against its plain PyTorch version on the card at the serving path's
-shapes, times kernel, plain version and a library yardstick with CUDA
-events, drives the full-width video serving path (``MultiStreamCoordinator``
-with the ``vpaas_video`` models, random weights from a seed) on both hot
-paths with the kernels' launch counts zeroed just before and read just
-after, and checks its outputs against the port's CPU path on a small input.
-Any failed check raises; nothing is caught.  The last three lines are the
-card's name and power limit, one JSON object describing the kernels, and
+kernel against its plain PyTorch version on the card at its serving path's
+shapes, and times kernel, plain version and a library yardstick with CUDA
+events.  It then drives both serving paths with the kernels' launch counts
+zeroed just before and read just after each: the full-width video path
+(``MultiStreamCoordinator`` with the ``vpaas_video`` models) on both hot
+paths, and the LLM path (``LLMServer`` over full-width ``zamba2-7b``);
+weights are random from a seed.  Each path's outputs are checked against
+the port's CPU path (the kernels' plain versions) on a small input: one
+video chunk, and ``zamba2-7b`` cut to 9 layers.  Any failed check raises;
+nothing is caught.  The last three lines are the card's name and power
+limit, one JSON object describing the kernels, and
 ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the repository's ``src/repro_torch`` next
@@ -37,6 +40,9 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
 SEED = 0
+
+# the kernels the video path runs
+VIDEO_KERNELS = ("region_filter_mask_batch", "crop_gather", "onevsall_scores")
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -63,6 +69,12 @@ def time_ms(torch, fn, reps: int = 30, warmup: int = 5) -> float:
 
 
 def _self_device_us(event) -> float:
+    """Device time of one kernel or copy event.  A host-side op (``aten::mm``)
+    also reports a self device time, the time of the kernels it launched,
+    which the profiler lists again as their own events: counting both
+    doubles the device time, so a host-side op counts 0 here."""
+    if str(getattr(event, "device_type", "")).endswith("CPU"):
+        return 0.0
     for attr in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(event, attr):
             return float(getattr(event, attr))
@@ -95,6 +107,24 @@ def measure(torch, fn, reps: int = 30):
 
 def fmt(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def ptxas_summary(build_log: str):
+    """One line per compiled kernel: its name with the template arguments,
+    then ptxas's register, barrier, shared-memory and spill report."""
+    import re
+    name, spill = None, ""
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '_Z\w*?([a-z][a-z_]*_kernel)"
+                      r"(?:I((?:Li-?\d+E)+)E)?", line)
+        if m:
+            args = re.findall(r"Li(-?\d+)E", m.group(2) or "")
+            name = m.group(1) + (f"<{', '.join(args)}>" if args else "")
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and name:
+            yield f"{name}: {line.split(':', 1)[1].strip()}; {spill}"
+            name = None
 
 
 def card_line() -> str:
@@ -389,8 +419,8 @@ def phase_main_path(torch, np, card):
               f"launches {counts} [{card}]")
         runs[hot_path] = (multi, out, results, counts, wall)
     fused_counts, sync_counts = runs["fused"][3], runs["sync"][3]
-    for name, cnt in fused_counts.items():
-        if cnt == 0:
+    for name in VIDEO_KERNELS:
+        if fused_counts[name] == 0:
             raise AssertionError(f"fused path launched no {name} kernel")
     for name in ("region_filter_mask_batch", "onevsall_scores"):
         if sync_counts[name] == 0:
@@ -493,6 +523,400 @@ def phase_reference(torch, np, card):
           f"equal, classify scores within 1e-4 ({ties} tie(s)) [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# the LLM path's kernels: K6 flash attention, K7 decode attention, K8 SSD
+# ---------------------------------------------------------------------------
+def _attn_ops_per_pair(d, softcap):
+    # q.k and p.v (2d each), scale, running max, exp, sum; softcap adds a
+    # division, a tanh and a multiply
+    return 4 * d + 5 + (3 if softcap else 0)
+
+
+def phase_flash_attention(torch, np, card):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.testing import ATTN_ATOL, attention_case
+    main_row = None
+    # the zamba2 cache prefill (a 384-token prompt against the 512-slot
+    # cache, q_offset 0), then a GQA / window / softcap case at d = 256
+    for b, s_q, s_kv, n_q, n_kv, d, window, cap in (
+            (1, 384, 512, 32, 32, 112, None, None),
+            (1, 384, 512, 32, 16, 256, 64, 50.0)):
+        q, k, v = (torch.as_tensor(a, device="cuda") for a in
+                   attention_case(b, s_q, s_kv, n_q, n_kv, d, seed=SEED))
+        off = torch.zeros((), dtype=torch.int32, device="cuda")
+        kw = dict(causal=True, window=window, softcap=cap, q_offset=off)
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not (err <= ATTN_ATOL and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"K6 at d={d}: max abs error {err} exceeds "
+                                 f"{ATTN_ATOL}")
+        timed = measure(torch, lambda: fa.flash_attention(q, k, v, **kw))
+        plain = measure(torch, lambda: fa.flash_attention_ref(q, k, v, **kw))
+        lib = None
+        if cap is None and window is None:
+            # the same function: causal from the top-left corner is
+            # q_offset 0; (b, heads, seq, d) layout made outside the timing
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True))
+        qp = np.arange(s_q)[:, None]
+        kp = np.arange(s_kv)[None, :]
+        mask = qp >= kp
+        if window is not None:
+            mask &= qp - kp < window
+        pairs = int(mask.sum()) * b
+        keys = int(mask.any(0).sum())            # cache rows any query reads
+        nbytes = 4 * (2 * b * s_q * n_q * d + 2 * b * keys * n_kv * d) + 4 * b
+        ops = pairs * n_q * _attn_ops_per_pair(d, cap)
+        row = _row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+                   "src/repro/kernels/flash_attention.py:86",
+                   f"b={b} s_q={s_q} s_kv={s_kv} heads={n_q}/{n_kv} d={d} "
+                   f"window={window} softcap={cap}", err, timed, plain, lib,
+                   nbytes, ops)
+        _report(f"K6 flash_attention s_q={s_q} s_kv={s_kv} {n_q}/{n_kv} "
+                f"heads d={d} window={window} softcap={cap}: max abs err "
+                f"{err:.3e}", row, card, "sdpa" if lib is not None else None)
+        if main_row is None:
+            main_row = row
+    return main_row
+
+
+def phase_decode_attention(torch, np, card):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.testing import ATTN_ATOL, decode_case
+    main_row = None
+    # four slots at the main path's decode lengths, then GQA / window /
+    # softcap at d = 256
+    for b, S, n_q, n_kv, d, clen, window, cap in (
+            (4, 512, 32, 32, 112, [385, 390, 395, 399], None, None),
+            (4, 512, 32, 16, 256, [385, 390, 395, 399], 64, 50.0)):
+        q, kc, vc = (torch.as_tensor(a, device="cuda") for a in
+                     decode_case(b, S, n_q, n_kv, d, seed=SEED))
+        cl = torch.as_tensor(clen, dtype=torch.int32, device="cuda")
+        kw = dict(window=window, softcap=cap)
+        got = da.decode_attention(q, kc, vc, cl, **kw)
+        want = da.decode_attention_ref(q, kc, vc, cl, **kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not (err <= ATTN_ATOL and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"K7 at d={d}: max abs error {err} exceeds "
+                                 f"{ATTN_ATOL}")
+        timed = measure(torch, lambda: da.decode_attention(q, kc, vc, cl,
+                                                           **kw))
+        plain = measure(torch, lambda: da.decode_attention_ref(q, kc, vc, cl,
+                                                               **kw))
+        lib = None
+        if cap is None and window is None:
+            valid = (torch.arange(S, device="cuda")[None, :]
+                     < cl[:, None].long())[:, None, None, :]
+            qt = q[:, :, None, :]
+            kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
+            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=valid))
+        lens = np.asarray(clen)
+        lo = np.maximum(0, lens - window) if window else np.zeros_like(lens)
+        rows = int((np.minimum(lens, S) - lo).sum())     # valid cache rows
+        nbytes = 4 * (2 * b * n_q * d + 2 * rows * n_kv * d) + 4 * b
+        ops = rows * n_q * _attn_ops_per_pair(d, cap)
+        row = _row("decode_attention",
+                   "src/repro_torch/csrc/decode_attention.cu",
+                   "src/repro/kernels/decode_attention.py:73",
+                   f"b={b} S={S} heads={n_q}/{n_kv} d={d} lens={clen} "
+                   f"window={window} softcap={cap}", err, timed, plain, lib,
+                   nbytes, ops)
+        _report(f"K7 decode_attention b={b} S={S} {n_q}/{n_kv} heads d={d} "
+                f"window={window} softcap={cap}: max abs err {err:.3e}", row,
+                card, "sdpa" if lib is not None else None)
+        if main_row is None:
+            main_row = row
+    return main_row
+
+
+def ssd_ops(b, s, h, p, n) -> int:
+    """Floating-point operations the SSD scan's function needs: the plain
+    recurrence, per (row, head, step), the decay exp(dt A), u = dt x (p),
+    the state update S <- exp(dt A) S + u B^T (3pn) and y = C S (2pn).  The
+    chunked form the kernel runs does more; it is the TPU kernel's choice
+    for its matrix units, not what the function costs."""
+    return b * h * s * (5 * p * n + p + 2)
+
+
+def phase_ssd_scan(torch, np, card):
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.testing import SSD_RTOL, rel_err, ssd_case
+    main_row = None
+    # the zamba2 prefill (one full and one partial 256-step chunk), the
+    # same with Mamba2's weakly decaying dt and an initial state, then a
+    # carried initial state at mamba2's state width n = 128
+    for b, s, h, p, n, chunk, init, weak in (
+            (1, 384, 112, 64, 64, 256, False, False),
+            (1, 384, 112, 64, 64, 256, True, True),
+            (1, 384, 80, 64, 128, 256, True, False)):
+        x, dt, A, B, C, st = (None if a is None else
+                              torch.as_tensor(a, device="cuda") for a in
+                              ssd_case(b, s, h, p, n, init, seed=SEED,
+                                       weak=weak))
+        kw = dict(chunk=chunk, initial_state=st)
+        y, fin = sk.ssd_scan(x, dt, A, B, C, **kw)
+        y_ref, fin_ref = sk.ssd_scan_ref(x, dt, A, B, C, **kw)
+        torch.cuda.synchronize()
+        err = max(rel_err(y.cpu(), y_ref.cpu()),
+                  rel_err(fin.cpu(), fin_ref.cpu()))
+        if not (err <= SSD_RTOL and bool(torch.isfinite(y).all())):
+            raise AssertionError(f"K8 at n={n} weak_decay={weak}: error "
+                                 f"{err} of the output "
+                                 f"scale exceeds {SSD_RTOL}")
+        timed = measure(torch, lambda: sk.ssd_scan(x, dt, A, B, C, **kw))
+        plain = measure(torch, lambda: sk.ssd_scan_ref(x, dt, A, B, C, **kw))
+        nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n
+                      + (2 if init else 1) * b * h * p * n)
+        row = _row("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+                   "src/repro/kernels/ssd_scan.py:74",
+                   f"b={b} s={s} h={h} p={p} n={n} chunk={chunk} "
+                   f"initial_state={init} weak_decay={weak}", err, timed,
+                   plain, None, nbytes, ssd_ops(b, s, h, p, n))
+        _report(f"K8 ssd_scan s={s} h={h} p={p} n={n} chunk={chunk} "
+                f"initial_state={init} weak_decay={weak}: error {err:.3e} of "
+                f"the output scale", row, card)
+        if main_row is None:
+            main_row = row
+    return main_row
+
+
+# ---------------------------------------------------------------------------
+# the LLM serving path: full-width zamba2-7b behind LLMServer
+# ---------------------------------------------------------------------------
+LLM_ARCH = "zamba2-7b"
+LLM_SLOTS, LLM_MAX_SEQ, LLM_REQUESTS, LLM_PROMPT, LLM_NEW = 4, 512, 8, 384, 16
+
+
+class StepTimer:
+    """Wall time of each prefill and decode step the server makes, read by
+    wrapping the two functions it calls (a synchronise before and after,
+    where the server synchronises anyway to read its tokens)."""
+
+    def __init__(self, torch, tfm):
+        self.torch, self.tfm, self.times = torch, tfm, {}
+        self.orig = {n: getattr(tfm, n) for n in ("prefill", "decode_step")}
+
+    def __enter__(self):
+        for name, fn in self.orig.items():
+            self.times[name] = []
+            setattr(self.tfm, name, self._wrap(name, fn))
+        return self
+
+    def _wrap(self, name, fn):
+        def timed(*args, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            self.torch.cuda.synchronize()
+            self.times[name].append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.tfm, name, fn)
+        return False
+
+
+def llm_requests(np, cfg, n, prompt_len, max_new, seed=0):
+    from repro_torch.serving.server import Request
+    rng = np.random.default_rng(seed)
+    return [Request(i, rng.integers(0, cfg.vocab_size, prompt_len),
+                    max_new_tokens=max_new) for i in range(n)]
+
+
+def phase_llm_main_path(torch, np, card):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import schema as sch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.server import LLMServer
+    cfg = get_config(LLM_ARCH)
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, SEED, "cuda")
+    torch.cuda.synchronize()
+    nbytes = sch.param_bytes(tfm.model_schema(cfg))
+    print(f"{LLM_ARCH} at full width: {nbytes / 4e9:.3f} B parameters, "
+          f"{nbytes / 1e9:.2f} GB float32, drawn on the card in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    # warm-up: one request through the same server shape (allocator)
+    warm = LLMServer(cfg, params, num_slots=LLM_SLOTS, max_seq=LLM_MAX_SEQ,
+                     eos_token=-1)
+    for req in llm_requests(np, cfg, 1, LLM_PROMPT, 3, seed=99):
+        warm.submit(req)
+    warm.run_until_drained()
+    del warm
+
+    server = LLMServer(cfg, params, num_slots=LLM_SLOTS, max_seq=LLM_MAX_SEQ,
+                       eos_token=-1)
+    for req in llm_requests(np, cfg, LLM_REQUESTS, LLM_PROMPT, LLM_NEW):
+        server.submit(req)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    with StepTimer(torch, tfm) as timer:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        finished = server.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    prefills = len(timer.times["prefill"])
+    steps = len(timer.times["decode_step"])
+    if len(finished) != LLM_REQUESTS or prefills != LLM_REQUESTS:
+        raise AssertionError(f"served {len(finished)} of {LLM_REQUESTS} "
+                             f"requests with {prefills} prefills")
+    for req in finished:
+        if (len(req.output) != LLM_NEW
+                or not all(0 <= t < cfg.padded_vocab for t in req.output)
+                or not 0.0 < req.confidence <= 1.0):
+            raise AssertionError(f"request {req.request_id}: {req.output} "
+                                 f"confidence {req.confidence}")
+    n_shared = cfg.num_blocks            # one shared-attention occurrence
+    n_ssm = len(cfg.prefix_layers) + cfg.num_blocks * sum(
+        k == "ssm" for k in cfg.block_pattern)
+    want = {"flash_attention": n_shared * prefills,
+            "decode_attention": n_shared * steps,
+            "ssd_scan": n_ssm * prefills}
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"LLM path launched {name} {counts[name]} "
+                                 f"times, expected {n}")
+    tokens = sum(len(r.output) for r in finished)
+    pre, dec = timer.times["prefill"], timer.times["decode_step"]
+    print(f"LLM main path: {LLM_ARCH} full width, {LLM_SLOTS} slots, "
+          f"max_seq {LLM_MAX_SEQ}, {LLM_REQUESTS} requests x {LLM_PROMPT}"
+          f"-token prompts x {LLM_NEW} new tokens: {wall:.3f} s wall, "
+          f"{tokens} tokens, {tokens / wall:.2f} tokens/s; prefill "
+          f"{statistics.median(pre) * 1e3:.2f} ms per request (median of "
+          f"{prefills}, min {min(pre) * 1e3:.2f}), decode "
+          f"{statistics.median(dec) * 1e3:.2f} ms per step (median of "
+          f"{steps}, min {min(dec) * 1e3:.2f}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+          f"{ {k: counts[k] for k in want} } [{card}]")
+    profile_llm(torch, np, card, cfg, params)
+    del params, server
+    torch.cuda.empty_cache()
+    return counts
+
+
+def profile_llm(torch, np, card, cfg, params):
+    """Where one prefill and one 4-slot decode step spend the card's time
+    (their wall time is inflated by the tracing; the shares count)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.kv_cache import CachePool
+    pool = CachePool(cfg, LLM_SLOTS, LLM_MAX_SEQ, "cuda")
+    toks = torch.as_tensor(llm_requests(np, cfg, 1, LLM_PROMPT, 1)[0].prompt,
+                           device="cuda")[None]
+    last = torch.zeros((LLM_SLOTS, 1), dtype=torch.long, device="cuda")
+    idx = torch.full((LLM_SLOTS,), LLM_PROMPT, device="cuda")
+    for what, fn in (
+            ("prefill", lambda: tfm.prefill(
+                cfg, params, toks, tfm.init_cache(cfg, 1, LLM_MAX_SEQ,
+                                                  "cuda"))),
+            ("decode step", lambda: tfm.decode_step(cfg, params, last,
+                                                    pool.cache, idx))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        avgs = prof.key_averages()
+        busy = sum(_self_device_us(e) for e in avgs) / 1e3
+        top = sorted(avgs, key=_self_device_us, reverse=True)[:8]
+        print(f"LLM {what} under the profiler: {wall * 1e3:.1f} ms wall, "
+              f"device busy {busy:.2f} ms ({busy / (wall * 1e3):.1%}), "
+              f"{sum(e.count for e in avgs if _self_device_us(e) > 0)} device "
+              f"kernels/copies [{card}]")
+        print("  top device time: " + "; ".join(
+            f"{e.key[:48]} {_self_device_us(e) / 1e3:.3f} ms x{e.count}"
+            for e in top))
+
+
+def phase_llm_reference(torch, np, card):
+    """zamba2-7b at full width cut to 9 layers (the prefix and one block),
+    the same weights on the card and on the CPU: prefill logits of four
+    40-token prompts, then six teacher-forced lockstep decode steps through
+    a 4-slot pool with per-slot cache indices, the server's calls."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import schema as sch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.kv_cache import CachePool
+    from repro_torch.testing import LLM_RTOL, rel_err
+    full = get_config(LLM_ARCH)
+    cfg = dataclasses.replace(full, name=LLM_ARCH + "-9-layers",
+                              num_layers=9, num_blocks=1)
+    params = {"cuda": tfm.init_params(cfg, SEED, "cuda")}
+    params["cpu"] = sch.tree_map(lambda t: t.cpu(), params["cuda"])
+    reqs = llm_requests(np, cfg, 4, 40, 1, seed=1)
+    worst, ties, compared = 0.0, 0, 0
+
+    def check(what, got, want):
+        nonlocal worst, ties, compared
+        got, want = got.cpu().numpy(), want.numpy()
+        if not np.isfinite(got).all():
+            raise AssertionError(f"{what}: non-finite logits on the card")
+        err = rel_err(got, want)
+        worst = max(worst, err)
+        if err > LLM_RTOL:
+            raise AssertionError(f"{what}: card vs CPU logits differ by "
+                                 f"{err:.2e} of their scale (> {LLM_RTOL})")
+        scale = max(1.0, float(np.abs(want).max()))
+        top2 = np.sort(want, -1)[..., -2:]
+        near = (top2[..., 1] - top2[..., 0]) < LLM_RTOL * scale
+        same = got.argmax(-1) == want.argmax(-1)
+        if (~same & ~near).any():
+            raise AssertionError(f"{what}: greedy token differs away from a "
+                                 "top-2 tie")
+        ties += int(near.sum())
+        compared += same.size
+
+    pools = {d: CachePool(cfg, 4, 64, d) for d in ("cuda", "cpu")}
+    nxt = np.zeros((4, 1), np.int64)
+    for slot, req in enumerate(reqs):
+        out = {}
+        for d in ("cuda", "cpu"):
+            toks = torch.as_tensor(req.prompt, device=d)[None]
+            logits, one = tfm.prefill(cfg, params[d], toks,
+                                      tfm.init_cache(cfg, 1, 64, d))
+            pools[d].write_prefill(slot, one, len(req.prompt))
+            out[d] = logits
+        check(f"prefill {slot}", out["cuda"], out["cpu"])
+        nxt[slot, 0] = int(out["cuda"][0].argmax())
+    lens = np.asarray([len(r.prompt) for r in reqs])
+    for step in range(6):
+        out = {}
+        for d in ("cuda", "cpu"):
+            out[d], pools[d].cache = tfm.decode_step(
+                cfg, params[d], torch.as_tensor(nxt, device=d),
+                pools[d].cache, torch.as_tensor(lens + step, device=d))
+        check(f"decode step {step}", out["cuda"][:, 0], out["cpu"][:, 0])
+        nxt[:, 0] = out["cuda"][:, 0].argmax(-1).cpu().numpy()
+    print(f"LLM card vs CPU reference, {cfg.name} at full width "
+          f"({sch.param_bytes(tfm.model_schema(cfg)) / 4e9:.3f} B "
+          f"parameters): 4 prefills + 6 decode steps, logits within "
+          f"{worst:.2e} of their scale (tolerance {LLM_RTOL}), greedy tokens "
+          f"equal at {compared - ties} of {compared} positions ({ties} "
+          f"top-2 tie(s) exempt) [{card}]")
+    del params, pools
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         raise SystemExit("chip_smoke.py: src/repro_torch not found next to "
@@ -512,19 +936,26 @@ def main() -> int:
     _build.library()
     print(f"built {_build.build()} in "
           f"{time.perf_counter() - t_start:.1f} s [{card}]")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or line.startswith("=="):
-            print(f"  {line.strip()}")
+    for line in ptxas_summary(_build.build_log):
+        print(f"  {line}")
 
-    rows = [phase_region_filter(torch, np, card),
-            phase_crop_gather(torch, np, card),
-            phase_onevsall(torch, np, card)]
+    video_rows = [phase_region_filter(torch, np, card),
+                  phase_crop_gather(torch, np, card),
+                  phase_onevsall(torch, np, card)]
+    llm_rows = [phase_flash_attention(torch, np, card),
+                phase_decode_attention(torch, np, card),
+                phase_ssd_scan(torch, np, card)]
     phase_nms(torch, np, card)
     phase_reference(torch, np, card)
     fused_counts, sync_counts, _ = phase_main_path(torch, np, card)
-    for row in rows:
+    for row in video_rows:
         row["launches"] = fused_counts[row["name"]]
         row["launches_sync"] = sync_counts[row["name"]]
+    phase_llm_reference(torch, np, card)
+    llm_counts = phase_llm_main_path(torch, np, card)
+    for row in llm_rows:
+        row["launches"] = llm_counts[row["name"]]
+    rows = video_rows + llm_rows
     print(f"chip_smoke.py finished its checks in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -29,7 +29,8 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("iou_filter.cu", "crop_gather.cu", "onevsall.cu")
+SOURCES = ("iou_filter.cu", "crop_gather.cu", "onevsall.cu",
+           "flash_attention.cu", "decode_attention.cu", "ssd_scan.cu")
 BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -47,6 +48,12 @@ SIGNATURES = {
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "vpaas_onevsall_scores":
         [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "vpaas_flash_attention":
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "vpaas_decode_attention":
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "vpaas_ssd_scan":
+        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,0 +1,73 @@
+"""K6: flash attention (prefill) as a hand-written CUDA kernel.
+
+Port of the Pallas kernel ``repro.kernels.flash_attention.flash_attention``
+(source: ``csrc/flash_attention.cu``): GQA attention with an online softmax,
+causal mask, optional sliding window and logit softcap, float32.  The query
+offset is a device array read at run time (a scalar is broadcast to one
+entry per batch row), so the cache prefill's per-row cache index takes the
+kernel too.  The plain PyTorch version is :func:`flash_attention_ref`
+(``ref.flash_attention``); the kernel agrees with it within
+``testing.ATTN_ATOL``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+launches = 0          # kernel launches since the last reset (ops.py)
+
+flash_attention_ref = ref.flash_attention
+
+MAX_HEAD_DIM = 256
+
+
+def row_array(value, b: int, device, name: str) -> torch.Tensor:
+    """An int, 0-d or (b,) integer tensor as a contiguous (b,) int32 tensor
+    on ``device`` (one entry per batch row)."""
+    t = torch.as_tensor(value, device=device)
+    if t.is_floating_point():
+        raise ValueError(f"{name}: expected integers, got {t.dtype}")
+    t = t.to(torch.int32).reshape(-1)
+    if t.numel() == 1:
+        t = t.expand(b)
+    if t.shape != (b,):
+        raise ValueError(f"{name}: expected a scalar or ({b},), got "
+                         f"{tuple(t.shape)}")
+    return t.contiguous()
+
+
+def check_options(window: Optional[int], softcap: Optional[float]) -> None:
+    if window is not None and window <= 0:
+        raise ValueError(f"window must be positive, got {window}")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"softcap must be positive, got {softcap}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    q_offset=0) -> torch.Tensor:
+    """q (b, s_q, n_q, d), k and v (b, s_kv, n_kv, d) -> (b, s_q, n_q, d)."""
+    global launches
+    b, s_q, n_q, d = q.shape
+    s_kv, n_kv = k.shape[1], k.shape[2]
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _build.check_cuda("q", q, torch.float32)
+    _build.check_cuda("k", k, torch.float32, (b, s_kv, n_kv, d))
+    _build.check_cuda("v", v, torch.float32, (b, s_kv, n_kv, d))
+    if n_kv == 0 or n_q % n_kv or not 0 < d <= MAX_HEAD_DIM or s_kv == 0:
+        raise ValueError(f"flash_attention: unsupported heads {n_q}/{n_kv}, "
+                         f"head dim {d} or {s_kv} keys")
+    check_options(window, softcap)
+    off = row_array(q_offset, b, q.device, "q_offset")
+    out = torch.empty_like(q)
+    if b and s_q:
+        _build.launch("vpaas_flash_attention", q.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), off.data_ptr(), out.data_ptr(), b, s_q,
+                      s_kv, n_q, n_kv, d, int(causal), window or 0,
+                      float(softcap or 0.0), d ** -0.5)
+        launches += 1
+    return out

@@ -17,11 +17,16 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import crop_gather as _cg
+from repro_torch.kernels import decode_attention as _da
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import iou_filter as _ik
 from repro_torch.kernels import onevsall as _ov
+from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _sk
 
 KERNELS = {"region_filter_mask_batch": _ik, "crop_gather": _cg,
-           "onevsall_scores": _ov}
+           "onevsall_scores": _ov, "flash_attention": _fa,
+           "decode_attention": _da, "ssd_scan": _sk}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -70,3 +75,39 @@ def onevsall_scores(x, ws, widx: Optional[torch.Tensor] = None
     if _on_card(x):
         return _ov.onevsall_scores(x, ws, widx)
     return _ov.onevsall_scores_ref(x, ws, widx)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    q_offset=0) -> torch.Tensor:
+    """GQA prefill attention (K6); ``q_offset`` an int, 0-d or (b,)."""
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset)
+    if _on_card(q):
+        return _fa.flash_attention(q, k, v, **kw)
+    return _fa.flash_attention_ref(q, k, v, **kw)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, *,
+                     window: Optional[int] = None,
+                     softcap: Optional[float] = None) -> torch.Tensor:
+    """One token against the cache (K7); ``cache_len`` scalar or (b,)."""
+    kw = dict(window=window, softcap=softcap)
+    if _on_card(q):
+        return _da.decode_attention(q, k_cache, v_cache, cache_len, **kw)
+    return _da.decode_attention_ref(q, k_cache, v_cache, cache_len, **kw)
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 64, initial_state=None):
+    """Mamba2 SSD chunked scan (K8) -> (y, final_state)."""
+    kw = dict(chunk=chunk, initial_state=initial_state)
+    if _on_card(x):
+        return _sk.ssd_scan(x, dt, A, B, C, **kw)
+    return _sk.ssd_scan_ref(x, dt, A, B, C, **kw)
+
+
+def ssd_step(x, dt, A, B, C, state):
+    """Single recurrent SSD step (decode).  Plain PyTorch on every device:
+    the JAX package has no Pallas kernel for it either."""
+    return ref.ssd_step(x, dt, A, B, C, state)

@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the video path's kernels (the video subset of
-``repro.kernels.ref``).
+"""Plain PyTorch versions of the port's kernels (``repro.kernels.ref``: the
+video path's region filter, crop gather and NMS, and the LLM path's flash
+attention, decode attention and Mamba2 SSD scan).
 
 These are the semantic ground truth of the port's CUDA kernels: the CPU
 tests run them against the JAX package, and ``chip_smoke.py`` holds each
@@ -181,3 +182,172 @@ def crop_gather(frames: torch.Tensor,       # (F, H, W, C) HQ frames
     ridx = idxs[1].long().clamp(0, n - 1)
     return bilinear_crops(frames, fidx, boxes[fidx, ridx], out_hw)
 
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (prefill), GQA, causal, optional sliding window + softcap
+# ---------------------------------------------------------------------------
+def _softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    return x if cap is None else cap * torch.tanh(x / cap)
+
+
+def flash_attention(
+    q: torch.Tensor,            # (b, s_q, n_q, d)
+    k: torch.Tensor,            # (b, s_kv, n_kv, d)
+    v: torch.Tensor,            # (b, s_kv, n_kv, d)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+    q_offset=0,                 # int, 0-d or (b,) tensor
+) -> torch.Tensor:
+    """``repro.kernels.ref.flash_attention``; masked logits are the finite
+    NEG_INF, so a row with every key masked averages V uniformly.  A (b,)
+    ``q_offset`` gives each batch row its own query positions (the
+    reference adds the offset to ``arange(s_q)`` and is right only for a
+    scalar)."""
+    b, s_q, n_q, d = q.shape
+    _, s_kv, n_kv, _ = k.shape
+    d_v = v.shape[-1]
+    groups = n_q // n_kv
+    scale = d ** -0.5
+    qf = q.float().reshape(b, s_q, n_kv, groups, d)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * scale
+    logits = _softcap(logits, softcap)
+    off = torch.as_tensor(q_offset, device=q.device).long().reshape(-1, 1)
+    q_pos = torch.arange(s_q, device=q.device)[None, :] + off   # (b|1, s_q)
+    k_pos = torch.arange(s_kv, device=q.device)
+    rel = q_pos[:, :, None] - k_pos[None, None, :]             # (b|1, sq, sk)
+    mask = torch.ones_like(rel, dtype=torch.bool)
+    if causal:
+        mask &= rel >= 0
+    if window is not None:
+        mask &= rel < window
+    logits = torch.where(mask[:, None, None], logits,
+                         torch.full((), NEG_INF, device=q.device))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    return out.reshape(b, s_q, n_q, d_v).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decode attention: one query token vs a (possibly partially filled) cache
+# ---------------------------------------------------------------------------
+def decode_attention(
+    q: torch.Tensor,            # (b, n_q, d)
+    k_cache: torch.Tensor,      # (b, S, n_kv, d)
+    v_cache: torch.Tensor,      # (b, S, n_kv, d)
+    cache_len,                  # int, 0-d or (b,): number of valid slots
+    *,
+    window: Optional[int] = None,
+    softcap: Optional[float] = None,
+) -> torch.Tensor:
+    b, n_q, d = q.shape
+    _, S, n_kv, _ = k_cache.shape
+    d_v = v_cache.shape[-1]
+    groups = n_q // n_kv
+    scale = d ** -0.5
+    qf = q.float().reshape(b, n_kv, groups, d)
+    logits = torch.einsum("bhgd,bkhd->bhgk", qf, k_cache.float()) * scale
+    logits = _softcap(logits, softcap)
+    pos = torch.arange(S, device=q.device)
+    clen = torch.as_tensor(cache_len, device=q.device).long().reshape(-1, 1)
+    valid = pos[None, :] < clen                           # (b|1, S)
+    if window is not None:
+        valid &= pos[None, :] >= (clen - window)
+    valid = valid.expand(b, S)
+    logits = torch.where(valid[:, None, None, :], logits,
+                         torch.full((), NEG_INF, device=q.device))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", probs, v_cache.float())
+    return out.reshape(b, n_q, d_v).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD (state-space duality) chunked scan
+# ---------------------------------------------------------------------------
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """Stable segment-sum: out[..., i, j] = sum_{j < k <= i} x[..., k]."""
+    t = x.shape[-1]
+    cum = torch.cumsum(x, dim=-1)
+    out = cum[..., :, None] - cum[..., None, :]
+    mask = torch.tril(torch.ones((t, t), dtype=torch.bool, device=x.device))
+    return out.masked_fill(~mask, float("-inf"))
+
+
+def ssd_scan(
+    x: torch.Tensor,            # (b, s, h, p)   head inputs
+    dt: torch.Tensor,           # (b, s, h)      softplus'd step sizes
+    A: torch.Tensor,            # (h,)           negative decay rates
+    B: torch.Tensor,            # (b, s, n)      input maps (n_groups=1)
+    C: torch.Tensor,            # (b, s, n)      output maps
+    *,
+    chunk: int = 64,
+    initial_state: Optional[torch.Tensor] = None,   # (b, h, p, n)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Returns (y (b,s,h,p), final_state (b,h,p,n)): the reference's chunked
+    SSD algorithm with the sequence zero-padded to a chunk multiple."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    dtype = x.dtype
+    pad = (-s) % chunk
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        B = torch.nn.functional.pad(B, (0, 0, 0, pad))
+        C = torch.nn.functional.pad(C, (0, 0, 0, pad))
+    s_pad = x.shape[1]
+    c = s_pad // chunk
+
+    xf = x.float().reshape(b, c, chunk, h, p)
+    dtf = dt.float().reshape(b, c, chunk, h)
+    Bf = B.float().reshape(b, c, chunk, n)
+    Cf = C.float().reshape(b, c, chunk, n)
+    dA = (dtf * A.float()[None, None, None, :]).movedim(-1, 2)  # (b,c,h,q)
+
+    # 1. intra-chunk (diagonal blocks)
+    L = torch.exp(_segsum(dA))                          # (b,c,h,q,q)
+    scores = torch.einsum("bcqn,bckn->bcqk", Cf, Bf)    # (b,c,q,k)
+    dtx = xf * dtf[..., None]                           # (b,c,k,h,p)
+    w = scores[:, :, None] * L                          # (b,c,h,q,k)
+    y_diag = torch.einsum("bchqk,bckhp->bcqhp", w, dtx)
+
+    # 2. chunk states: decay from position k to the chunk's end
+    cums = torch.cumsum(dA, dim=-1)                     # (b,c,h,q)
+    decay_states = torch.exp(cums[..., -1:] - cums)     # (b,c,h,q)
+    states = torch.einsum("bckn,bchk,bckhp->bchpn", Bf, decay_states, dtx)
+
+    # 3. inter-chunk recurrence over chunk states
+    chunk_decay = torch.exp(cums[..., -1])              # (b,c,h)
+    st = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+          if initial_state is None else initial_state.float())
+    prev = []
+    for i in range(c):
+        prev.append(st)                                 # state entering i
+        st = st * chunk_decay[:, i, :, None, None] + states[:, i]
+    prev_states = torch.stack(prev, 1)                  # (b,c,h,p,n)
+
+    # 4. inter-chunk output: y_off[q] = C_q . (decay_in(q) * prev_state)
+    decay_in = torch.exp(cums)                          # (b,c,h,q)
+    y_off = torch.einsum("bcqn,bchq,bchpn->bcqhp", Cf, decay_in, prev_states)
+
+    y = (y_diag + y_off).reshape(b, s_pad, h, p)[:, :s]
+    return y.to(dtype), st
+
+
+def ssd_step(
+    x: torch.Tensor,            # (b, h, p)
+    dt: torch.Tensor,           # (b, h)
+    A: torch.Tensor,            # (h,)
+    B: torch.Tensor,            # (b, n)
+    C: torch.Tensor,            # (b, n)
+    state: torch.Tensor,        # (b, h, p, n)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single recurrent step (decode).  No kernel: the JAX package runs
+    this plain on every backend too."""
+    xf, dtf = x.float(), dt.float()
+    dA = torch.exp(dtf * A[None, :])                    # (b,h)
+    upd = torch.einsum("bhp,bn->bhpn", xf * dtf[..., None], B.float())
+    new_state = state * dA[..., None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", new_state, C.float())
+    return y.to(x.dtype), new_state

@@ -1,5 +1,14 @@
-"""Serving launcher, video mode: N camera streams through the function graph
-with cross-stream batched cloud inference + autoscaling, on the card.
+"""Serving launcher: LLM continuous batching or the video function graph,
+on the card.
+
+LLM mode (continuous-batching server over ``--arch <id>``, random weights
+from a ``torch.Generator`` on the device, seed 0):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
+      --requests 8 --slots 4 --max-seq 512 --prompt-len 384
+
+Video mode (N camera streams through the function graph with cross-stream
+batched cloud inference + autoscaling):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --video-streams 8 \\
       --video-chunks 4
@@ -10,10 +19,9 @@ batching, detector replica sharding, weighted-fair stream priorities):
   PYTHONPATH=src python -m repro_torch.launch.serve --video-streams 8 \\
       --video-replicas 2 --video-slo 0.4 --video-weights 4,1
 
-PyTorch port of the video mode of ``repro.launch.serve`` (the LLM mode and
-the continual-learning plane come with later slices).  ``--device``
-defaults to ``cuda``; float32 means float32 there (TF32 off, see
-:func:`repro_torch.set_reference_precision`).
+PyTorch port of ``repro.launch.serve`` (the continual-learning plane comes
+with a later slice).  ``--device`` defaults to ``cuda``; float32 means
+float32 there (TF32 off, see :func:`repro_torch.set_reference_precision`).
 """
 from __future__ import annotations
 
@@ -24,6 +32,41 @@ import numpy as np
 import torch
 
 from repro_torch import require_device, set_reference_precision
+
+
+def serve_llm(args) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serving.server import LLMServer, Request
+
+    cfg = get_config(args.arch)
+    if cfg.num_ctx_tokens:
+        raise SystemExit(f"{cfg.name} needs frontend embeddings, which the "
+                         "port does not serve yet")
+    device = require_device(args.device)
+    set_reference_precision()
+    params = tfm.init_params(cfg, 0, device)
+    server = LLMServer(cfg, params, num_slots=args.slots,
+                       max_seq=args.max_seq, eos_token=-1)
+
+    rng = np.random.default_rng(0)
+    for i in range(args.requests):
+        server.submit(Request(i, rng.integers(0, cfg.vocab_size,
+                                              args.prompt_len),
+                              max_new_tokens=args.max_new))
+    t0 = time.time()
+    finished = server.run_until_drained()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.time() - t0
+    tokens = sum(len(r.output) for r in finished)
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "CPU")
+    print(f"{cfg.name}: served {len(finished)} requests, {tokens} tokens "
+          f"in {dt:.1f}s ({tokens / dt:.1f} tok/s on {where})")
+    for r in finished[:3]:
+        print(f"  req {r.request_id}: {len(r.output)} tokens, "
+              f"min-confidence {r.confidence:.3f}")
 
 
 def serve_video(args) -> None:
@@ -105,9 +148,16 @@ def main() -> None:
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cuda' runs the hand-written kernels, "
                          "'cpu' their plain PyTorch versions")
+    ap.add_argument("--arch", default=None,
+                    help="LLM arch id (LLM serving mode)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--prompt-len", type=int, default=12)
     ap.add_argument("--video-streams", type=int, default=0,
                     help="serve N synthetic camera streams through the "
-                         "video function graph")
+                         "video function graph instead of an LLM")
     ap.add_argument("--video-chunks", type=int, default=4)
     ap.add_argument("--video-frames", type=int, default=4)
     ap.add_argument("--video-replicas", type=int, default=1,
@@ -131,9 +181,12 @@ def main() -> None:
                          "flush, compacted cross-stream classify); 'sync' "
                          "= the pre-fusion baseline for A/B comparison")
     args = ap.parse_args()
-    if args.video_streams <= 0:
-        raise SystemExit("pass --video-streams N")
-    serve_video(args)
+    if args.video_streams > 0:
+        serve_video(args)
+    elif args.arch:
+        serve_llm(args)
+    else:
+        raise SystemExit("pass --arch <id> (LLM) or --video-streams N")
 
 
 if __name__ == "__main__":

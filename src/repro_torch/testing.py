@@ -27,6 +27,24 @@ CROP_ATOL = 2.0 ** -17
 # one-vs-all readout: the kernel's fmaf dot product sums K = d+1 terms in
 # another order than a BLAS matmul
 ONEVSALL_ATOL = 1e-6
+# flash / decode attention: the q.k dot products over d and the softmax
+# sums over the keys run in another order (online, tile by tile) than the
+# plain version's einsum and softmax; logits are O(1), outputs averages of
+# O(1) values
+ATTN_ATOL = 1e-5
+# SSD scan, as a fraction of the output's largest magnitude: every decay
+# exp(cum_i - cum_j) is a difference of two in-chunk cumulative sums, each
+# rounded to float32, so a decay carries a relative error of about one ulp
+# of |cum| (cumsums summed in another order: a parallel scan, a serial
+# float sum, or a double sum rounded once)
+SSD_RTOL = 1e-4
+# LLM logits, as a fraction of the largest reference logit: float32 through
+# a whole model (SSM decays as above in every Mamba2 layer, matmuls of
+# thousands of terms summed in another order, renormalised by RMSNorm), so
+# each package's float32 forward is itself this far from a float64 one;
+# greedy tokens are compared wherever the top-2 logit gap exceeds this
+# share of the scale
+LLM_RTOL = 1e-3
 # simulated latencies and byte counts derived from the codec's bytes
 LATENCY_RTOL = 1e-4
 # a discrete output (valid, label, source) may differ only where the float
@@ -111,3 +129,85 @@ def onevsall_case(b: int, d: int, c: int, g: int = 1, seed: int = 0):
     ws = (rng.normal(size=(g, d, c)) / np.sqrt(d)).astype(np.float32)
     widx = rng.integers(0, g, b).astype(np.int32)
     return x, ws, widx
+
+
+# ---------------------------------------------------------------------------
+# K6 flash attention cases:
+# (b, s_q, s_kv, n_q, n_kv, d, causal, window, softcap, q_offset)
+# ---------------------------------------------------------------------------
+FLASH_CASES = [
+    (2, 64, 64, 4, 2, 64, True, None, None, 0),        # GQA, causal
+    (1, 48, 96, 2, 2, 112, True, None, None, 0),       # cache prefill, d=112
+    (2, 40, 80, 4, 2, 32, True, 16, 20.0, 24),         # window, softcap, offset
+    (1, 24, 40, 4, 2, 256, False, None, None, 0),      # non-causal, d=256
+    (1, 16, 16, 2, 1, 64, True, 4, None, 30),          # rows fully masked
+]
+
+
+def attention_case(b, s_q, s_kv, n_q, n_kv, d, seed=0):
+    """Unit-normal q, k, v: (b, s_q, n_q, d), (b, s_kv, n_kv, d) x 2."""
+    rng = np.random.default_rng(seed + 31 * s_q + d)
+    return (rng.normal(size=(b, s_q, n_q, d)).astype(np.float32),
+            rng.normal(size=(b, s_kv, n_kv, d)).astype(np.float32),
+            rng.normal(size=(b, s_kv, n_kv, d)).astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# K7 decode attention cases: (b, S, n_q, n_kv, d, cache_len, window, softcap)
+# ---------------------------------------------------------------------------
+DECODE_CASES = [
+    (2, 128, 8, 2, 64, [37, 128], None, None),          # per-row lengths
+    (3, 96, 6, 3, 32, [1, 50, 96], None, 30.0),         # softcap
+    (2, 160, 4, 4, 112, 100, 32, None),                 # scalar len, window
+    (1, 64, 4, 2, 256, [64], None, 50.0),               # d=256
+    (2, 32, 2, 1, 64, [0, 5], None, None),              # an empty row
+]
+
+
+def decode_case(b, S, n_q, n_kv, d, seed=0):
+    """Unit-normal q (b, n_q, d) and caches (b, S, n_kv, d)."""
+    rng = np.random.default_rng(seed + 17 * S + d)
+    return (rng.normal(size=(b, n_q, d)).astype(np.float32),
+            rng.normal(size=(b, S, n_kv, d)).astype(np.float32),
+            rng.normal(size=(b, S, n_kv, d)).astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# K8 SSD scan cases: (b, s, h, p, n, chunk, with_initial_state, weak_decay)
+# ---------------------------------------------------------------------------
+SSD_CASES = [
+    (2, 64, 3, 8, 16, 16, True, False),
+    (1, 100, 2, 16, 8, 32, False, False),   # s not a multiple of the chunk
+    (2, 37, 4, 4, 4, 16, True, False),
+    (1, 80, 2, 64, 64, 64, True, False),    # zamba2's p = n = 64, partial chunk
+    # zamba2's prefill with Mamba2's own dt range: the decay reaches across
+    # the kernel's 64-step tiles, the two chunks and the initial state
+    (1, 384, 112, 64, 64, 256, True, True),
+]
+
+
+def ssd_case(b, s, h, p, n, init=True, seed=0, weak=False):
+    """(x, dt, A, B, C, initial_state or None) with the JAX package's test
+    distributions: dt = softplus(N(0,1)), A = -exp(N(0,1)), B and C
+    0.5 N(0,1), an initial state 0.1 N(0,1).  ``weak`` draws dt instead
+    log-uniform in [1e-3, 0.1], as Mamba2 initialises it, so that a typical
+    head decays by about 1/e only every few dozen steps."""
+    rng = np.random.default_rng(seed + 13 * s + p)
+    x = rng.normal(size=(b, s, h, p)).astype(np.float32)
+    if weak:
+        dt = np.exp(rng.uniform(np.log(1e-3), np.log(0.1), size=(b, s, h)))
+    else:
+        dt = np.log1p(np.exp(rng.normal(size=(b, s, h))))
+    dt = dt.astype(np.float32)
+    A = -np.exp(rng.normal(size=(h,))).astype(np.float32)
+    B = (0.5 * rng.normal(size=(b, s, n))).astype(np.float32)
+    C = (0.5 * rng.normal(size=(b, s, n))).astype(np.float32)
+    st = ((0.1 * rng.normal(size=(b, h, p, n))).astype(np.float32)
+          if init else None)
+    return x, dt, A, B, C, st
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| as a share of max(1, max |want|)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))

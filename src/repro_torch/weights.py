@@ -19,6 +19,11 @@ Sources of weights:
   writes (keys like ``conv0/w``, HWIO);
 * :func:`save_npz` writes the same flat format back (HWIO), so checkpoints
   move between the two packages in both directions.
+
+The LLM stack's parameters (``repro_torch.models.transformer``) are a
+separate case: :func:`llm_from_numpy_tree` copies the JAX ``init_params``
+pytree leaf for leaf, with no transposes -- stacked block leaves are 4-d
+without being convs, and matmul weights keep the ``(in, out)`` layout.
 """
 from __future__ import annotations
 
@@ -73,6 +78,16 @@ def from_numpy_tree(tree, device="cuda") -> Dict[str, Any]:
         return {k: from_numpy_tree(v, device) for k, v in tree.items()}
     t = torch.from_numpy(np.array(tree, dtype=np.float32, copy=True))
     return _hwio_to_oihw(t).to(device)
+
+
+def llm_from_numpy_tree(tree, device="cuda") -> Dict[str, Any]:
+    """JAX-package LLM parameter (or cache) pytree -> the port's tree, every
+    leaf as a float32 tensor of the same shape; empty sub-trees stay empty
+    dicts."""
+    if isinstance(tree, dict):
+        return {k: llm_from_numpy_tree(v, device) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, dtype=np.float32,
+                                     copy=True)).to(device)
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:

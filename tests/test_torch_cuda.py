@@ -11,16 +11,26 @@ import pytest
 import torch
 
 from repro_torch import set_reference_precision, weights
+from repro_torch.configs import get_config
 from repro_torch.configs import vpaas_video as cfg
 from repro_torch.core.coordinator import MultiStreamCoordinator
 from repro_torch.core.protocol import HighLowProtocol
 from repro_torch.kernels import crop_gather as cg
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import iou_filter as ik
 from repro_torch.kernels import onevsall as ov
 from repro_torch.kernels import ops
-from repro_torch.testing import (FILTER_CASES, FILTER_KW, MODEL_ATOL,
-                                 ONEVSALL_ATOL, crop_cases, filter_case,
-                                 onevsall_case)
+from repro_torch.kernels import ssd_scan as sk
+from repro_torch.models import schema as sch
+from repro_torch.models import transformer as tfm
+from repro_torch.serving.server import LLMServer, Request
+from repro_torch.testing import (ATTN_ATOL, DECODE_CASES, FILTER_CASES,
+                                 FILTER_KW, FLASH_CASES, LLM_RTOL, MODEL_ATOL,
+                                 ONEVSALL_ATOL, SSD_CASES, SSD_RTOL,
+                                 attention_case, crop_cases, decode_case,
+                                 filter_case, onevsall_case, rel_err,
+                                 ssd_case)
 from repro_torch.video import synthetic
 
 pytestmark = pytest.mark.cuda
@@ -79,6 +89,11 @@ def test_dispatch_launches_kernels_on_the_card(cuda):
     ops.region_filter_mask_batch(*_t(filter_case(1, 8, 8), cuda), **FILTER_KW)
     frames, boxes, idxs, out_hw = CROP_CASES["oob-pad-rows"]
     ops.crop_gather(*_t((frames, boxes, idxs), cuda), out_hw=out_hw)
+    ops.flash_attention(*_t(attention_case(1, 8, 8, 2, 1, 32), cuda))
+    q, kc, vc = _t(decode_case(1, 8, 2, 1, 32), cuda)
+    ops.decode_attention(q, kc, vc, 4)
+    x, dt, A, B, C, _ = ssd_case(1, 8, 2, 4, 4, init=False)
+    ops.ssd_scan(*_t((x, dt, A, B, C), cuda), chunk=4)
     assert ops.launch_counts() == {name: 1 for name in ops.KERNELS}
 
 
@@ -129,3 +144,97 @@ def test_kernel_rejects_bad_operands(cuda):
         ov.onevsall_scores(*_t((x.astype(np.float64), ws), cuda))
     with pytest.raises(ValueError, match="CUDA"):
         ov.onevsall_scores(torch.as_tensor(x), torch.as_tensor(ws, device=cuda))
+
+
+def _sync_err(got, want):
+    torch.cuda.synchronize()
+    return float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("case", FLASH_CASES + [
+    (1, 384, 512, 32, 32, 112, True, None, None, 0),      # zamba2 prefill
+    (1, 128, 192, 8, 4, 256, True, 64, 50.0, 0),          # GQA/window/cap
+    (3, 24, 64, 4, 2, 64, True, 20, 30.0, [0, 17, 40])])  # per-row offset
+def test_flash_attention_kernel_matches_plain(cuda, case):
+    b, s_q, s_kv, n_q, n_kv, d, causal, window, cap, off = case
+    q, k, v = _t(attention_case(b, s_q, s_kv, n_q, n_kv, d), cuda)
+    kw = dict(causal=causal, window=window, softcap=cap,
+              q_offset=torch.as_tensor(off, device=cuda))
+    got = fa.flash_attention(q, k, v, **kw)
+    assert _sync_err(got, fa.flash_attention_ref(q, k, v, **kw)) <= ATTN_ATOL
+
+
+@pytest.mark.parametrize("case", DECODE_CASES + [
+    (4, 512, 32, 32, 112, [384, 390, 1, 500], None, None),  # zamba2 decode
+    (4, 512, 16, 8, 256, [384, 1, 64, 512], 64, 50.0),      # GQA/window/cap
+    (2, 96, 16, 1, 64, [96, 40], None, None)])              # group of 16
+def test_decode_attention_kernel_matches_plain(cuda, case):
+    b, S, n_q, n_kv, d, clen, window, cap = case
+    q, kc, vc = _t(decode_case(b, S, n_q, n_kv, d), cuda)
+    cl = torch.as_tensor(clen, dtype=torch.int32, device=cuda)
+    kw = dict(window=window, softcap=cap)
+    got = da.decode_attention(q, kc, vc, cl, **kw)
+    want = da.decode_attention_ref(q, kc, vc, cl, **kw)
+    assert _sync_err(got, want) <= ATTN_ATOL
+
+
+@pytest.mark.parametrize("case", SSD_CASES + [
+    (1, 384, 112, 64, 64, 256, False, False),     # zamba2 prefill
+    (2, 300, 8, 64, 128, 256, True, False)])      # mamba2's state width
+def test_ssd_scan_kernel_matches_plain(cuda, case):
+    b, s, h, p, n, chunk, init, weak = case
+    x, dt, A, B, C, st = ssd_case(b, s, h, p, n, init, weak=weak)
+    args = _t((x, dt, A, B, C), cuda)
+    st = None if st is None else torch.as_tensor(st, device=cuda)
+    y, fin = sk.ssd_scan(*args, chunk=chunk, initial_state=st)
+    y_ref, fin_ref = sk.ssd_scan_ref(*args, chunk=chunk, initial_state=st)
+    torch.cuda.synchronize()
+    assert rel_err(y.cpu(), y_ref.cpu()) <= SSD_RTOL
+    assert rel_err(fin.cpu(), fin_ref.cpu()) <= SSD_RTOL
+
+
+def test_llm_kernels_reject_bad_operands(cuda):
+    q, k, v = _t(attention_case(1, 8, 8, 2, 1, 32), cuda)
+    with pytest.raises(ValueError, match="window"):
+        fa.flash_attention(q, k, v, window=0)
+    with pytest.raises(ValueError, match="q_offset"):
+        fa.flash_attention(q, k, v, q_offset=torch.zeros(3, device=cuda,
+                                                         dtype=torch.int32))
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros(1, 8, 2, 288, device=cuda)
+        fa.flash_attention(big, big[:, :, :1], big[:, :, :1])
+    x, dt, A, B, C, _ = ssd_case(1, 8, 2, 80, 4, init=False)
+    with pytest.raises(ValueError, match="head dim"):
+        sk.ssd_scan(*_t((x, dt, A, B, C), cuda), chunk=4)
+
+
+def test_zamba2_smoke_served_on_the_card_matches_cpu(cuda):
+    # the same weights (drawn on the CPU, copied to the card) and requests
+    # through LLMServer on both devices
+    set_reference_precision()
+    cfg_llm = get_config("zamba2-7b-smoke")
+    cpu_params = tfm.init_params(cfg_llm, 0, "cpu")
+    runs = {}
+    for dev, p in (("cpu", cpu_params),
+                   ("cuda", sch.tree_map(lambda t: t.to(cuda), cpu_params))):
+        srv = LLMServer(cfg_llm, p, num_slots=2, max_seq=64, eos_token=-1)
+        rng = np.random.default_rng(0)
+        for i in range(3):
+            srv.submit(Request(i, rng.integers(0, cfg_llm.vocab_size, 40),
+                               max_new_tokens=5))
+        ops.reset_launch_counts()
+        done = srv.run_until_drained()
+        runs[dev] = (done, ops.launch_counts(),
+                     len(srv.monitor.series["active_requests"]))
+    (cpu_done, cpu_counts, _), (done, counts, steps) = runs["cpu"], runs["cuda"]
+    assert cpu_counts == {name: 0 for name in ops.KERNELS}    # plain on CPU
+    # one shared-attention block: K6 per prefill, K7 per decode step; eight
+    # Mamba2 layers: K8 eight times per prefill
+    assert steps > 0
+    assert counts["flash_attention"] == 3
+    assert counts["decode_attention"] == steps
+    assert counts["ssd_scan"] == 8 * 3
+    assert len(done) == 3
+    for a, b in zip(done, cpu_done):
+        assert a.output == b.output
+        assert abs(a.confidence - b.confidence) <= LLM_RTOL

@@ -33,7 +33,7 @@ def test_port_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 25      # every module imported
+    assert int(proc.stdout.split()[-1]) >= 58      # every module imported
 
 
 def test_no_jax_or_reference_imports_in_port_sources():
