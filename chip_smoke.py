@@ -6,17 +6,21 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
-kernel against its plain PyTorch version on the card at its serving path's
-shapes, and times kernel, plain version and a library yardstick with CUDA
-events.  It then drives both serving paths with the kernels' launch counts
-zeroed just before and read just after each: the full-width video path
+kernel against its plain PyTorch version on the card at its path's shapes,
+and times kernel, plain version and a library yardstick with CUDA events.
+It then drives three paths with the kernels' launch counts zeroed just
+before and read just after each: the full-width video path
 (``MultiStreamCoordinator`` with the ``vpaas_video`` models) on both hot
-paths, and the LLM path (``LLMServer`` over full-width ``zamba2-7b``);
-weights are random from a seed.  Each path's outputs are checked against
-the port's CPU path (the kernels' plain versions) on a small input: one
-video chunk, and ``zamba2-7b`` cut to 9 layers.  Any failed check raises;
-nothing is caught.  The last three lines are the card's name and power
-limit, one JSON object describing the kernels, and
+paths; the continual-learning path on the same models (the per-site
+``ContinualLearningPlane`` of ``serve --per-site-learning
+--ensemble-serving``, whose background trainer runs every proximal step
+through the update kernel, then the inline ``IncrementalLearner``); and
+the LLM path (``LLMServer`` over full-width ``zamba2-7b``).  Weights are
+random from a seed.  Each path's outputs are checked against the port's
+CPU path (the kernels' plain versions) on a small input: one video chunk,
+a 2-stream learning run, and ``zamba2-7b`` cut to 9 layers.  Any failed
+check raises; nothing is caught.  The last three lines are the card's name
+and power limit, one JSON object describing the kernels, and
 ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or without the repository's ``src/repro_torch`` next
@@ -315,6 +319,65 @@ def phase_onevsall(torch, np, card):
     return main_row
 
 
+# K5 at the learner's shape (one row per step), one full label-budget
+# replay, the trainer's max_buffer, and a ragged case
+UPDATE_SHAPES = ((1, 129, 8), (256, 129, 8), (2048, 129, 8), (130, 17, 10))
+
+
+def update_tile_bytes(c: int) -> int:
+    """The K5 launcher's dynamic shared memory: one tile of residuals,
+    max(1, min(32, 256 // C)) rows of C floats."""
+    return 4 * c * max(1, min(32, 256 // c))
+
+
+def phase_onevsall_update(torch, np, card):
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import onevsall_update as ou
+    from repro_torch.testing import (UPDATE_ETA, UPDATE_RTOL, rel_err,
+                                     update_case)
+    ptxas = [line for line in ptxas_summary(_build.build_log)
+             if line.startswith("onevsall_update_kernel")]
+    main_row = None
+    for b, d1, c in UPDATE_SHAPES:
+        x, y, w = (torch.as_tensor(a, device="cuda")
+                   for a in update_case(b, d1, c, seed=SEED))
+        got = ou.onevsall_update(x, y, w, eta=UPDATE_ETA)
+        again = ou.onevsall_update(x, y, w, eta=UPDATE_ETA)
+        want = ou.onevsall_update_ref(x, y, w, eta=UPDATE_ETA)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"K5 at B={b}: two launches on the same "
+                                 "inputs differ")
+        err = float((got - want).abs().max())
+        rel = rel_err(got.cpu(), want.cpu())
+        if not (rel <= UPDATE_RTOL and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"K5 at B={b} D1={d1} C={c}: error {rel} "
+                                 f"of the output scale exceeds {UPDATE_RTOL}")
+        timed = measure(torch, lambda: ou.onevsall_update(x, y, w,
+                                                          eta=UPDATE_ETA))
+        plain = measure(torch, lambda: ou.onevsall_update_ref(
+            x, y, w, eta=UPDATE_ETA))
+        # library yardstick: the same function as a cuBLAS addmm over a
+        # matmul, a sigmoid and a subtraction (four launches, not one call)
+        lib = time_ms(torch, lambda: torch.addmm(
+            w, x.t(), torch.sigmoid(x @ w) - y, alpha=-UPDATE_ETA))
+        nbytes = 4 * (b * d1 + b * c + 2 * d1 * c)
+        ops = 4 * b * d1 * c + 2 * d1 * c
+        row = _row("onevsall_update",
+                   "src/repro_torch/csrc/onevsall_update.cu",
+                   "src/repro/kernels/onevsall.py:86", f"B={b} D1={d1} C={c}",
+                   err, timed, plain, lib, nbytes, ops)
+        _report(f"K5 onevsall_update B={b} D1={d1} C={c}: max abs err "
+                f"{err:.3e} ({rel:.2e} of the output scale), bit-identical "
+                f"run to run, {update_tile_bytes(c)} B dyn. smem", row, card,
+                "cuBLAS composition addmm(w, x^T, sigmoid(x w) - y)")
+        if main_row is None:                  # the learner's shape
+            main_row = row
+    for line in ptxas:
+        print(f"  K5 ptxas: {line}")
+    return main_row
+
+
 def phase_nms(torch, np, card):
     """Plain greedy NMS (no kernel yet) at the fused flush's shape."""
     from repro_torch.kernels import ref
@@ -391,16 +454,21 @@ def run_path(torch, np, hot_path, params, streams):
     return multi, out, results, counts, wall
 
 
-def phase_main_path(torch, np, card):
+def video_params(torch, device):
+    """The full-width vpaas_video models, random from seeds SEED and
+    SEED + 1 (drawn on the CPU, so every device gets the same weights)."""
     from repro_torch import weights
     from repro_torch.configs.vpaas_video import CLASSIFIER, DETECTOR
+    return (weights.init_detector(
+                DETECTOR, torch.Generator().manual_seed(SEED), device),
+            weights.init_classifier(
+                CLASSIFIER, torch.Generator().manual_seed(SEED + 1), device))
+
+
+def phase_main_path(torch, np, card):
+    from repro_torch.configs.vpaas_video import CLASSIFIER
     n_streams, n_chunks, n_frames = 8, 4, 4
-    params = (weights.init_detector(DETECTOR,
-                                    torch.Generator().manual_seed(SEED),
-                                    "cuda"),
-              weights.init_classifier(CLASSIFIER,
-                                      torch.Generator().manual_seed(SEED + 1),
-                                      "cuda"))
+    params = video_params(torch, "cuda")
     # warm-up (cuDNN algorithm selection, allocator) on a one-chunk workload
     warm = make_streams(np, n_streams, 1, n_frames)
     for hot_path in ("fused", "sync"):
@@ -521,6 +589,238 @@ def phase_reference(torch, np, card):
     print(f"card vs CPU reference, one full-width chunk: encode within "
           f"1e-5 (bytes rel {rel:.1e}), detector within 1e-4, split masks "
           f"equal, classify scores within 1e-4 ({ties} tie(s)) [{card}]")
+
+
+# ---------------------------------------------------------------------------
+# the continual-learning path: the plane (per-site, Eq. 9 ensemble serving)
+# and the inline learner on the full-width video path; K5 in the trainer
+# ---------------------------------------------------------------------------
+LEARN_STREAMS, LEARN_CHUNKS, LEARN_FRAMES = 8, 4, 4
+# the episode's detector thresholds (LearningConfig.adapt_theta_*): a
+# stricter direct-acceptance bar and a lower location bar route more of
+# cam0's regions to the fog classifier, where the episode harvests its
+# labels; with them set, every flush holding cam0 takes the dynamic split
+# through K1
+ADAPT_THETA = dict(adapt_theta_cls=0.9, adapt_theta_loc=0.4)
+
+
+def learning_workload(n_streams, n_chunks, n_frames):
+    """The drifted streams and the LearningConfig of ``serve --learning
+    --per-site-learning --ensemble-serving`` (camera 0 drifts in its second
+    half), plus the episode thresholds.  The drift detector's warm-up is
+    raised to the run's chunk count: with random weights its statistic
+    (sentinel-verified accuracy) is noise, so cam0's episode is opened by
+    hand (``testing.open_episode``) and no noise event may open another."""
+    import argparse
+    import dataclasses
+
+    from repro_torch.launch import serve
+    args = argparse.Namespace(
+        video_streams=n_streams, video_chunks=n_chunks,
+        video_frames=n_frames, learning=True, per_site_learning=True,
+        ensemble_serving=True, label_budget=256, drift_window=8)
+    base = serve.learning_config(args)
+    cfg = dataclasses.replace(
+        base, drift=dataclasses.replace(base.drift, warmup=n_chunks),
+        **ADAPT_THETA)
+    return serve.drifted_streams(args), cfg
+
+
+class RoundTimer:
+    """Wall time of each background training round: wraps
+    ``BackgroundTrainer.maybe_train`` with a synchronise before and after,
+    keeping only the calls that trained."""
+
+    def __init__(self, torch):
+        from repro_torch.learning import trainer
+        self.torch, self.cls, self.times = torch, trainer.BackgroundTrainer, []
+        self.orig = self.cls.maybe_train
+
+    def __enter__(self):
+        orig, times, torch = self.orig, self.times, self.torch
+
+        def timed(trainer, *args, **kw):
+            if trainer.device.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec = orig(trainer, *args, **kw)
+            if trainer.device.type == "cuda":
+                torch.cuda.synchronize()
+            if rec is not None:
+                times.append(time.perf_counter() - t0)
+            return rec
+
+        self.cls.maybe_train = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.maybe_train = self.orig
+        return False
+
+
+def run_learning(torch, device, params, streams, cfg, *, inline=False):
+    """One forced-adapt run of the continual-learning plane (or, with
+    ``inline``, of per-stream IncrementalLearners and no plane) on
+    ``device``; launch counts zeroed just before the run, read just after."""
+    from repro_torch.configs.vpaas_video import CLASSIFIER, DETECTOR
+    from repro_torch.core.coordinator import (MultiStreamCoordinator,
+                                              StreamSpec)
+    from repro_torch.core.hitl import OracleAnnotator
+    from repro_torch.core.incremental import IncrementalLearner
+    from repro_torch.core.protocol import HighLowProtocol
+    from repro_torch.kernels import ops
+    from repro_torch.learning import ContinualLearningPlane
+    from repro_torch.testing import open_episode
+    plane = None
+    if inline:
+        streams = [StreamSpec(name=f"cam{i}", chunks=chunks,
+                              learner=IncrementalLearner(
+                                  num_classes=CLASSIFIER.num_classes,
+                                  rule="proximal"),
+                              annotator=OracleAnnotator(iou_threshold=0.0))
+                   for i, chunks in enumerate(streams)]
+    else:
+        plane = ContinualLearningPlane(
+            CLASSIFIER.num_classes, cfg,
+            annotator=OracleAnnotator(iou_threshold=0.0,
+                                      budget=cfg.label_budget))
+    multi = MultiStreamCoordinator(
+        HighLowProtocol(DETECTOR, CLASSIFIER, device=device), *params,
+        streams, max_batch_chunks=len(streams), batch_window=0.05,
+        learning_plane=plane, device=device)
+    if plane is not None:
+        open_episode(plane, multi.scheduler, "cam0")
+    W0 = {name: st.W.copy() for name, st in multi.scheduler.streams.items()}
+    if device == "cuda":
+        torch.cuda.synchronize()
+    with RoundTimer(torch) as rounds:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        multi.run(learn=True)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    return plane, multi, counts, wall, W0, rounds.times
+
+
+def phase_learning_main_path(torch, np, card):
+    from repro_torch.launch.serve import print_learning_summary
+    from repro_torch.testing import replayed_instances
+    streams, cfg = learning_workload(LEARN_STREAMS, LEARN_CHUNKS,
+                                     LEARN_FRAMES)
+    params = video_params(torch, "cuda")
+    plane, multi, counts, wall, W0, rounds = run_learning(
+        torch, "cuda", params, streams, cfg)
+    sched = multi.scheduler
+    zoo = sched.graph.zoo
+    s = plane.summary()
+    replayed = replayed_instances(zoo, "fog-classifier[cam0]")
+    steps = cfg.passes * replayed
+    print(f"learning main path: {LEARN_STREAMS} streams x {LEARN_CHUNKS} "
+          f"chunks x {LEARN_FRAMES} frames of drifted traffic, full "
+          f"vpaas_video width, per-site plane with Eq. 9 ensemble serving, "
+          f"cam0's episode opened by hand: {wall:.3f} s wall, "
+          f"{sched.hot_path_stats['flushes']} flushes, "
+          f"{sched.hot_path_stats['host_syncs']} host syncs; launches K1 "
+          f"{counts['region_filter_mask_batch']}, K3 "
+          f"{counts['onevsall_scores']}, K5 {counts['onevsall_update']} "
+          f"(= {cfg.passes} passes x {replayed} replayed) [{card}]")
+    print_learning_summary(s)
+    print("  trainer wall per round: " + (", ".join(
+        f"{t * 1e3:.2f} ms" for t in rounds) or "no round") + f" [{card}]")
+    if not counts["onevsall_update"] == steps > 0:
+        raise AssertionError(f"K5 launched {counts['onevsall_update']} "
+                             f"times; cam0's rounds replayed {replayed} "
+                             f"instances x {cfg.passes} passes")
+    for name in ("region_filter_mask_batch", "crop_gather",
+                 "onevsall_scores"):
+        if counts[name] == 0:
+            raise AssertionError(f"learning path launched no {name} kernel")
+    for name, st in sched.streams.items():
+        if name == "cam0":
+            continue
+        if not np.array_equal(st.W, W0[name]) or st.ensemble is not None:
+            raise AssertionError(f"{name}'s readout changed outside cam0's "
+                                 "episode")
+        if zoo.versions(f"fog-classifier[{name}]") != [1]:
+            raise AssertionError(f"{name}'s lineage grew: "
+                                 f"{zoo.versions(f'fog-classifier[{name}]')}")
+    if s["labels_charged"] > cfg.label_budget:
+        raise AssertionError(f"{s['labels_charged']} labels charged over a "
+                             f"budget of {cfg.label_budget}")
+    if s["hot_swaps"] < 1 or sched.monitor.counters.get("hot_swaps", 0) < 1:
+        raise AssertionError("the learning run made no hot swap")
+    # the plane reads the hand-off fields from the flush bundles, which the
+    # scheduler counts as downloads, not blocking reads: host_syncs stays
+    # one per flush, as the JAX package shows on the same scenario
+    # (tests/test_torch_learning.py compares the two)
+    hps = sched.hot_path_stats
+    if hps["host_syncs"] != hps["flushes"]:
+        raise AssertionError(f"learning path: {hps['host_syncs']} host syncs "
+                             f"for {hps['flushes']} flushes")
+
+    # the same scenario with the inline learner and no plane
+    _, imulti, icounts, iwall, _, irounds = run_learning(
+        torch, "cuda", params, streams, cfg, inline=True)
+    learners = [st.learner for st in imulti.scheduler.streams.values()]
+    consumed = sum(ln.labels_used - ln.buffered for ln in learners)
+    passes = learners[0].passes
+    print(f"inline learner (StreamSpec.learner, no plane), same workload: "
+          f"{iwall:.3f} s wall, {sum(ln.updates_done for ln in learners)} "
+          f"updates over {consumed} instances; K5 launches "
+          f"{icounts['onevsall_update']} (= {passes} passes x {consumed}) "
+          f"[{card}]")
+    if not icounts["onevsall_update"] == passes * consumed > 0:
+        raise AssertionError(f"inline learner: K5 launched "
+                             f"{icounts['onevsall_update']} times for "
+                             f"{consumed} instances x {passes} passes")
+    return counts
+
+
+def phase_learning_reference(torch, np, card):
+    """The same forced-adapt scenario at a small size (2 streams x 2 chunks
+    x 2 frames, full-width models, the same weights) on the card and on the
+    port's CPU path: equal discrete outcomes, cam0's W within LEARN_RTOL."""
+    from repro_torch.testing import LEARN_RTOL, rel_err, replayed_instances
+    streams, cfg = learning_workload(2, 2, 2)
+    runs = {d: run_learning(torch, d, video_params(torch, d), streams, cfg)
+            for d in ("cuda", "cpu")}
+
+    def outcome(run):
+        plane, multi, counts, *_ = run
+        s, zoo = plane.summary(), multi.scheduler.graph.zoo
+        return {
+            "labels_charged": s["labels_charged"],
+            "rounds": {n: site["trainer"]["rounds"]
+                       for n, site in s["sites"].items()},
+            "versions": {n: zoo.versions(f"fog-classifier[{n}]")
+                         for n in multi.scheduler.streams},
+            "promotions": s["promotions"], "rollbacks": s["rollbacks"],
+            "ensemble_promotions": s["ensemble_promotions"],
+            "hot_swaps": s["hot_swaps"],
+            "events": [e["event"] for e in multi.scheduler.monitor.events],
+            "replayed": replayed_instances(zoo, "fog-classifier[cam0]")}
+
+    card_out, cpu_out = outcome(runs["cuda"]), outcome(runs["cpu"])
+    for key in card_out:
+        if card_out[key] != cpu_out[key]:
+            raise AssertionError(f"learning reference: {key} on the card "
+                                 f"{card_out[key]} vs CPU {cpu_out[key]}")
+    W = runs["cuda"][1].scheduler.streams["cam0"].W
+    W_cpu = runs["cpu"][1].scheduler.streams["cam0"].W
+    err = rel_err(W, W_cpu)
+    if not (np.isfinite(W).all() and err <= LEARN_RTOL):
+        raise AssertionError(f"cam0's W: card vs CPU {err:.2e} of its scale "
+                             f"(tolerance {LEARN_RTOL})")
+    k5 = runs["cuda"][2]["onevsall_update"]
+    print(f"learning card vs CPU reference, 2 streams x 2 chunks x 2 frames "
+          f"at full width: labels {card_out['labels_charged']}, rounds "
+          f"{card_out['rounds']}, promotions {card_out['promotions']}, "
+          f"rollbacks {card_out['rollbacks']}, hot swaps "
+          f"{card_out['hot_swaps']}, zoo versions and event kinds equal; "
+          f"K5 launches on the card {k5}; cam0's W within {err:.2e} of its "
+          f"scale (tolerance {LEARN_RTOL}) [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -942,6 +1242,7 @@ def main() -> int:
     video_rows = [phase_region_filter(torch, np, card),
                   phase_crop_gather(torch, np, card),
                   phase_onevsall(torch, np, card)]
+    update_row = phase_onevsall_update(torch, np, card)
     llm_rows = [phase_flash_attention(torch, np, card),
                 phase_decode_attention(torch, np, card),
                 phase_ssd_scan(torch, np, card)]
@@ -951,11 +1252,14 @@ def main() -> int:
     for row in video_rows:
         row["launches"] = fused_counts[row["name"]]
         row["launches_sync"] = sync_counts[row["name"]]
+    phase_learning_reference(torch, np, card)
+    learn_counts = phase_learning_main_path(torch, np, card)
+    update_row["launches"] = learn_counts["onevsall_update"]
     phase_llm_reference(torch, np, card)
     llm_counts = phase_llm_main_path(torch, np, card)
     for row in llm_rows:
         row["launches"] = llm_counts[row["name"]]
-    rows = video_rows + llm_rows
+    rows = video_rows + [update_row] + llm_rows
     print(f"chip_smoke.py finished its checks in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(card)

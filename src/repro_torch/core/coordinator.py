@@ -14,14 +14,15 @@ detector.  The coordinators here only wire streams into that graph:
 
 PyTorch port of ``repro.core.coordinator``.  Both coordinators run on the
 protocol's device (``device="cuda"`` by default; the tests pass "cpu").
-The incremental learner stays duck-typed (``collect`` / ``maybe_update`` /
-``labels_used`` / ``updates_done`` / ``budget_exhausted``): its port is the
-learning slice, and with ``learn=False`` or no learner nothing calls it.
+A stream's inline learner is the port's
+:class:`~repro_torch.core.incremental.IncrementalLearner`: the scheduler's
+``hitl.collect`` stage hands it the stream's device-resident readout, so
+its proximal updates launch the fused update kernel K5 on the card.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -29,6 +30,7 @@ import torch
 from repro_torch.configs.vpaas_video import FALLBACK_DETECTOR
 from repro_torch.core.bandwidth import LatencyBreakdown, NetworkModel
 from repro_torch.core.hitl import OracleAnnotator
+from repro_torch.core.incremental import IncrementalLearner
 from repro_torch.core.protocol import ChunkResult, HighLowProtocol, to_host
 from repro_torch.kernels.ref import nms_mask
 from repro_torch.models import detector as det_mod
@@ -100,7 +102,7 @@ class CloudFogCoordinator:
 
     def __init__(self, protocol: HighLowProtocol, det_params, clf_params,
                  *, fallback_params=None, fallback_cfg=None,
-                 learner: Any = None,
+                 learner: Optional[IncrementalLearner] = None,
                  annotator: OracleAnnotator = None,
                  network: NetworkModel = None, monitor: Monitor = None,
                  hot_path: str = "fused", learning_plane=None,
@@ -191,7 +193,7 @@ class StreamSpec:
     fair-queueing weight (higher = more detector service under backlog)."""
     name: str
     chunks: Sequence
-    learner: Any = None
+    learner: Optional[IncrementalLearner] = None
     annotator: Optional[OracleAnnotator] = None
     slo: Optional[float] = None
     weight: float = 1.0

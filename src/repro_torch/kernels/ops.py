@@ -21,12 +21,13 @@ from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import iou_filter as _ik
 from repro_torch.kernels import onevsall as _ov
+from repro_torch.kernels import onevsall_update as _ou
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as _sk
 
 KERNELS = {"region_filter_mask_batch": _ik, "crop_gather": _cg,
-           "onevsall_scores": _ov, "flash_attention": _fa,
-           "decode_attention": _da, "ssd_scan": _sk}
+           "onevsall_scores": _ov, "onevsall_update": _ou,
+           "flash_attention": _fa, "decode_attention": _da, "ssd_scan": _sk}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -75,6 +76,13 @@ def onevsall_scores(x, ws, widx: Optional[torch.Tensor] = None
     if _on_card(x):
         return _ov.onevsall_scores(x, ws, widx)
     return _ov.onevsall_scores_ref(x, ws, widx)
+
+
+def onevsall_update(x, y, w, *, eta: float) -> torch.Tensor:
+    """Fused proximal step (K5): w - eta * x^T (sigmoid(x w) - y)."""
+    if _on_card(x):
+        return _ou.onevsall_update(x, y, w, eta=eta)
+    return _ou.onevsall_update_ref(x, y, w, eta=eta)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

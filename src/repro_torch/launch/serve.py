@@ -19,13 +19,22 @@ batching, detector replica sharding, weighted-fair stream priorities):
   PYTHONPATH=src python -m repro_torch.launch.serve --video-streams 8 \\
       --video-replicas 2 --video-slo 0.4 --video-weights 4,1
 
-PyTorch port of ``repro.launch.serve`` (the continual-learning plane comes
-with a later slice).  ``--device`` defaults to ``cuda``; float32 means
-float32 there (TF32 off, see :func:`repro_torch.set_reference_precision`).
+Continual-learning plane (drift is injected into the second half of each
+stream; the plane detects it, labels under --label-budget, trains in the
+background -- each proximal step one launch of the fused update kernel --
+and hot-swaps promoted fog models mid-run):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --video-streams 4 \\
+      --video-chunks 6 --learning --label-budget 256 --drift-window 8
+
+PyTorch port of ``repro.launch.serve``.  ``--device`` defaults to ``cuda``;
+float32 means float32 there (TF32 off, see
+:func:`repro_torch.set_reference_precision`).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -69,6 +78,40 @@ def serve_llm(args) -> None:
               f"min-confidence {r.confidence:.3f}")
 
 
+def drifted_streams(args):
+    """The continual-learning demo's workload: the second half of each
+    stream drifts -- with per-site learning only camera 0 drifts, so the
+    demo shows a single-site episode leaving every other camera's readout
+    alone."""
+    from repro_torch.video import synthetic
+
+    def _chunk(rng, i, j):
+        drifts = (i == 0) if args.per_site_learning else True
+        drift = 1.0 if drifts and j >= args.video_chunks // 2 else 0.0
+        return synthetic.drifted_chunk(rng, "traffic", drift=drift,
+                                       num_frames=args.video_frames)
+    return [[_chunk(np.random.default_rng(50 + i + 97 * j), i, j)
+             for j in range(args.video_chunks)]
+            for i in range(args.video_streams)]
+
+
+def learning_config(args):
+    """The ``LearningConfig`` of ``--learning``: warmup and the EWMA span
+    must fit inside the per-stream chunk count, and short demos can't
+    afford multi-observation patience."""
+    from repro_torch.learning import DriftConfig, LearningConfig
+    pre = max(1, args.video_chunks // 2)
+    return LearningConfig(
+        label_budget=args.label_budget, sentinel_per_chunk=2,
+        labels_per_round=16, min_batch=8, min_holdout=4,
+        per_site=args.per_site_learning,
+        ensemble_serving=args.ensemble_serving,
+        sentinel_mode=("active" if args.per_site_learning else "uniform"),
+        drift=DriftConfig(window=min(args.drift_window, max(2, pre)),
+                          warmup=max(2, pre // 2), patience=1,
+                          threshold=0.4, cooldown=4))
+
+
 def serve_video(args) -> None:
     """Video function-graph serving demo: synthetic cameras, random-init
     models (throughput/scheduling demo — accuracy needs trained weights)."""
@@ -86,11 +129,28 @@ def serve_video(args) -> None:
         DETECTOR, torch.Generator().manual_seed(0), device)
     clf_params = weights.init_classifier(
         CLASSIFIER, torch.Generator().manual_seed(1), device)
-    streams = [[synthetic.make_chunk(np.random.default_rng(50 + i),
-                                     "traffic",
-                                     num_frames=args.video_frames)
-                for _ in range(args.video_chunks)]
-               for i in range(args.video_streams)]
+    if args.learning:
+        # drift detection watches oracle-verified accuracy, so it needs a
+        # *trained* classifier; reuse the benchmark artifacts when present
+        art = os.path.join(os.path.dirname(__file__), "..", "..", "..",
+                           "artifacts")
+        det_path = os.path.join(art, "det_params.npz")
+        clf_path = os.path.join(art, "clf_params.npz")
+        if os.path.exists(det_path) and os.path.exists(clf_path):
+            det_params = weights.load_npz(det_path, device)
+            clf_params = weights.load_npz(clf_path, device)
+        else:
+            print("note: no trained artifacts/ found — with random-init "
+                  "weights the drift statistic carries no signal, so the "
+                  "plane will stay in monitor state (run benchmarks first "
+                  "to train, or see benchmarks/bench_drift_recovery.py)")
+        streams = drifted_streams(args)
+    else:
+        streams = [[synthetic.make_chunk(np.random.default_rng(50 + i),
+                                         "traffic",
+                                         num_frames=args.video_frames)
+                    for _ in range(args.video_chunks)]
+                   for i in range(args.video_streams)]
 
     weights_wfq = [1.0] * args.video_streams
     if args.video_weights:
@@ -103,15 +163,20 @@ def serve_video(args) -> None:
     scaler = Autoscaler(min_devices=1, max_devices=8, cooldown_s=0.5,
                         unit="replicas" if args.video_replicas > 1
                         else "devices")
+    plane = None
+    if args.learning:
+        from repro_torch.learning import ContinualLearningPlane
+        plane = ContinualLearningPlane(CLASSIFIER.num_classes,
+                                       learning_config(args))
     multi = MultiStreamCoordinator(
         HighLowProtocol(DETECTOR, CLASSIFIER, device=device), det_params,
         clf_params, specs, max_batch_chunks=args.video_streams,
         batch_window=args.video_window,
         cloud_replicas=args.video_replicas, autoscaler=scaler,
         cold_start_s=args.video_cold_start,
-        hot_path=args.video_hot_path, device=device)
+        hot_path=args.video_hot_path, learning_plane=plane, device=device)
     t0 = time.time()
-    out = multi.run(learn=False)
+    out = multi.run(learn=args.learning)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.time() - t0
@@ -137,10 +202,31 @@ def serve_video(args) -> None:
         print(f"  SLO {args.video_slo*1e3:.0f} ms: attainment "
               f"{rep.get('slo_attainment', 0.0):.2f}, p99 latency "
               f"{mon.percentile('latency', 99)*1e3:.0f} ms")
+    if plane is not None:
+        print_learning_summary(plane.summary())
     for name, r in list(out.items())[:3]:
         print(f"  {name}: wan {r.bandwidth/1e3:.1f} kB, cost "
               f"{r.cloud_cost:.0f}, mean latency "
               f"{np.mean(r.latencies)*1e3:.0f} ms")
+
+
+def print_learning_summary(s) -> None:
+    print(f"  learning plane [{s['state']}]: {s['drift_events']} drift "
+          f"event(s), {s['labels_charged']}/{s['label_budget']} labels, "
+          f"{s['trainer'].get('rounds', 0)} train round(s), "
+          f"{s['promotions']} promotion(s), {s['rollbacks']} "
+          f"rollback(s), {s['hot_swaps']} hot-swap(s)"
+          + ("" if s["per_site"] else
+             f", live model v{s['live_version']}"))
+    if s["per_site"]:
+        for name, site in sorted(s.get("sites", {}).items()):
+            print(f"    site {name} [{site['state']}]: "
+                  f"{site['episodes']} episode(s), "
+                  f"{site['promotions']} promotion(s), "
+                  f"{site['ensemble_promotions']} ensemble "
+                  f"promotion(s), live v{site['live_version']}, "
+                  f"{s['sentinel_by_stream'].get(name, 0)} sentinel "
+                  f"label(s)")
 
 
 def main() -> None:
@@ -180,7 +266,31 @@ def main() -> None:
                          "detect+split dispatch and one host sync per "
                          "flush, compacted cross-stream classify); 'sync' "
                          "= the pre-fusion baseline for A/B comparison")
+    ap.add_argument("--learning", action="store_true",
+                    help="attach the continual-learning plane (drift "
+                         "detection, budgeted labeling, background "
+                         "training, fog-model hot-swap) and inject drift "
+                         "into the second half of each stream")
+    ap.add_argument("--per-site-learning", action="store_true",
+                    help="per-camera learning lineages: a drift episode in "
+                         "one stream trains, shadow-evaluates, and "
+                         "hot-swaps only that stream's readout (drift is "
+                         "then injected into camera 0 only); sentinel "
+                         "spot-checks are actively scheduled by per-stream "
+                         "health uncertainty")
+    ap.add_argument("--ensemble-serving", action="store_true",
+                    help="at episode close, serve the Eq. 9 snapshot "
+                         "ensemble (fog.classify_ensemble) when it beats "
+                         "the latest promoted readout on the holdout")
+    ap.add_argument("--label-budget", type=int, default=256,
+                    help="human labor budget tau for the learning plane")
+    ap.add_argument("--drift-window", type=int, default=8,
+                    help="EWMA span (observations) of the drift detector")
     args = ap.parse_args()
+    if args.per_site_learning or args.ensemble_serving:
+        # both flags configure the learning plane; without it they would
+        # silently do nothing
+        args.learning = True
     if args.video_streams > 0:
         serve_video(args)
     elif args.arch:

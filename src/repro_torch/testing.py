@@ -27,6 +27,29 @@ CROP_ATOL = 2.0 ** -17
 # one-vs-all readout: the kernel's fmaf dot product sums K = d+1 terms in
 # another order than a BLAS matmul
 ONEVSALL_ATOL = 1e-6
+# K5 proximal update, as a fraction of the output's scale (rel_err): the
+# kernel sums each residual's d+1 products and the gradient's B rows in
+# another order than the plain version's two matmuls; one step, nothing
+# compounds
+UPDATE_RTOL = 1e-5
+# the learner's readout W after a whole replay (2 passes over up to 2048
+# instances, one K5 step each) or a whole learning-plane run, as a fraction
+# of W's scale (rel_err): each step's rounding differences carry into the
+# next, and the steps are large at full width (the classifier's features
+# have |x|^2 ~ 1.1e3, so eta |x|^2 ~ 330 and a logit near 0 moves its
+# head's update by the features' own float error).  Measured on the CPU
+# against the JAX package (tests/test_torch_learning.py): 4.8e-7 for
+# batch_update over 2048 clustered instances x 2 passes, 1.3e-6 for the
+# reduced plane runs, 4.5e-6 for the full-width plane run
+LEARN_RTOL = 1e-4
+# anything downstream of the Eq. 9 ridge solve (omega, the ensemble's
+# scores), as a fraction of its scale: A and b are sums over N x C products
+# taken in another order, and the solve multiplies their rounding by the
+# condition number of A + vI, which is large because the snapshots of one
+# learner's trajectory are nearly collinear.  Measured on the CPU against
+# the JAX package (tests/test_torch_learning.py, 5 snapshots, cond 3.3e4):
+# omega 1.8e-3 apart, the ensemble's scores 4.6e-5, top-1 labels equal
+OMEGA_RTOL = 1e-2
 # flash / decode attention: the q.k dot products over d and the softmax
 # sums over the keys run in another order (online, tile by tile) than the
 # plain version's einsum and softmax; logits are O(1), outputs averages of
@@ -132,6 +155,22 @@ def onevsall_case(b: int, d: int, c: int, g: int = 1, seed: int = 0):
 
 
 # ---------------------------------------------------------------------------
+# K5 proximal update cases: (x, y, w) -- the learner's features (ReLU
+# outputs plus the bias-absorbing 1), one-hot labels, a fan-in scaled W
+# ---------------------------------------------------------------------------
+UPDATE_ETA = 0.3          # the learner's default step
+
+
+def update_case(b: int, d1: int, c: int, seed: int = 0):
+    rng = np.random.default_rng(seed + 11 * b + d1)
+    x = np.maximum(rng.normal(size=(b, d1)), 0.0).astype(np.float32)
+    x[:, -1] = 1.0
+    y = np.eye(c, dtype=np.float32)[rng.integers(0, c, b)]
+    w = (rng.normal(size=(d1, c)) / np.sqrt(d1)).astype(np.float32)
+    return x, y, w
+
+
+# ---------------------------------------------------------------------------
 # K6 flash attention cases:
 # (b, s_q, s_kv, n_q, n_kv, d, causal, window, softcap, q_offset)
 # ---------------------------------------------------------------------------
@@ -205,6 +244,29 @@ def ssd_case(b, s, h, p, n, init=True, seed=0, weak=False):
     st = ((0.1 * rng.normal(size=(b, h, p, n))).astype(np.float32)
           if init else None)
     return x, dt, A, B, C, st
+
+
+def open_episode(plane, scheduler, name: str, t: float = 0.0):
+    """Force stream ``name``'s learning site into adaptation as a drift event
+    opens an episode: the pre-episode readout anchors Eq. 9's snapshot
+    lineage and the episode's detector thresholds apply.  Random-init models
+    give the drift detector no signal, so the tests and the on-card checks
+    open the episode by hand (as the JAX package's own plane tests force
+    the adaptation state).  Works on either package's plane."""
+    site = plane._site_for(scheduler.streams[name])
+    site.state = "adapt"
+    site.episodes += 1
+    site.trainer.seed_snapshot(plane._live_W(site), plane._live_version(site))
+    plane._apply_theta(site, scheduler, name, t)
+    return site
+
+
+def replayed_instances(zoo, model: str) -> int:
+    """Instances the background trainer replayed over all of ``model``'s
+    rounds (its candidates' ``lineage["replayed"]``): each costs one K5 step
+    per pass."""
+    return sum(zoo.get_version(model, v).lineage.get("replayed", 0)
+               for v in zoo.versions(model))
 
 
 def rel_err(got, want) -> float:

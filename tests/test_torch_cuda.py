@@ -14,23 +14,28 @@ from repro_torch import set_reference_precision, weights
 from repro_torch.configs import get_config
 from repro_torch.configs import vpaas_video as cfg
 from repro_torch.core.coordinator import MultiStreamCoordinator
+from repro_torch.core.hitl import OracleAnnotator
 from repro_torch.core.protocol import HighLowProtocol
 from repro_torch.kernels import crop_gather as cg
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import iou_filter as ik
 from repro_torch.kernels import onevsall as ov
+from repro_torch.kernels import onevsall_update as ou
 from repro_torch.kernels import ops
 from repro_torch.kernels import ssd_scan as sk
 from repro_torch.models import schema as sch
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.server import LLMServer, Request
+from repro_torch.learning import ContinualLearningPlane, LearningConfig
 from repro_torch.testing import (ATTN_ATOL, DECODE_CASES, FILTER_CASES,
-                                 FILTER_KW, FLASH_CASES, LLM_RTOL, MODEL_ATOL,
-                                 ONEVSALL_ATOL, SSD_CASES, SSD_RTOL,
+                                 FILTER_KW, FLASH_CASES, LEARN_RTOL, LLM_RTOL,
+                                 MODEL_ATOL, ONEVSALL_ATOL, SSD_CASES,
+                                 SSD_RTOL, UPDATE_ETA, UPDATE_RTOL,
                                  attention_case, crop_cases, decode_case,
-                                 filter_case, onevsall_case, rel_err,
-                                 ssd_case)
+                                 filter_case, onevsall_case, open_episode,
+                                 rel_err, replayed_instances, ssd_case,
+                                 update_case)
 from repro_torch.video import synthetic
 
 pytestmark = pytest.mark.cuda
@@ -94,6 +99,7 @@ def test_dispatch_launches_kernels_on_the_card(cuda):
     ops.decode_attention(q, kc, vc, 4)
     x, dt, A, B, C, _ = ssd_case(1, 8, 2, 4, 4, init=False)
     ops.ssd_scan(*_t((x, dt, A, B, C), cuda), chunk=4)
+    ops.onevsall_update(*_t(update_case(1, 8, 4), cuda), eta=UPDATE_ETA)
     assert ops.launch_counts() == {name: 1 for name in ops.KERNELS}
 
 
@@ -136,6 +142,74 @@ def test_fused_flush_of_64_streams_on_the_card(cuda, monkeypatch):
         np.testing.assert_array_equal(a.prop_valid, b.prop_valid)
         np.testing.assert_allclose(a.fog_scores, b.fog_scores,
                                    atol=MODEL_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("b,d1,c", [(1, 129, 8), (256, 129, 8),
+                                    (2048, 129, 8), (130, 17, 10),
+                                    (300, 65, 4)])
+def test_onevsall_update_kernel_matches_plain(cuda, b, d1, c):
+    # the learner's single-row step, a label-budget replay, the trainer's
+    # max_buffer, ragged tiles at C = 10, and a K5 shape of the JAX tests
+    x, y, w = _t(update_case(b, d1, c), cuda)
+    got = ou.onevsall_update(x, y, w, eta=UPDATE_ETA)
+    want = ou.onevsall_update_ref(x, y, w, eta=UPDATE_ETA)
+    torch.cuda.synchronize()
+    assert rel_err(got.cpu(), want.cpu()) <= UPDATE_RTOL
+
+
+def test_onevsall_update_kernel_is_bit_identical_run_to_run(cuda):
+    # no float atomics: the gate and rollback compare and restore W bits
+    x, y, w = _t(update_case(2048, 129, 8), cuda)
+    first = ou.onevsall_update(x, y, w, eta=UPDATE_ETA)
+    for _ in range(5):
+        assert torch.equal(ou.onevsall_update(x, y, w, eta=UPDATE_ETA),
+                           first)
+
+
+def test_learning_plane_on_the_card_matches_cpu(cuda):
+    # the per-site plane with Eq. 9 ensemble serving and threshold
+    # adaptation on the reduced configs: cam0's episode trains through K5
+    # on the card, and every discrete outcome equals the CPU run's
+    set_reference_precision()
+    det = cfg.DetectorConfig(name="d", image_hw=(32, 32), widths=(8, 16))
+    clf = cfg.ClassifierConfig(name="c", crop_hw=(16, 16), widths=(8, 16),
+                               feature_dim=16)
+    streams = [[synthetic.drifted_chunk(np.random.default_rng(1300 + i),
+                                        "traffic", drift=float(i == 0),
+                                        num_frames=2, hw=(32, 32))
+                for _ in range(4)] for i in range(3)]
+    lcfg = LearningConfig(label_budget=36, labels_per_round=8,
+                          sentinel_per_chunk=1, min_batch=2, min_holdout=2,
+                          per_site=True, ensemble_serving=True,
+                          sentinel_mode="active", adapt_theta_cls=0.3,
+                          adapt_theta_loc=0.3)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        plane = ContinualLearningPlane(
+            clf.num_classes, lcfg,
+            annotator=OracleAnnotator(iou_threshold=0.0, budget=36))
+        multi = MultiStreamCoordinator(
+            HighLowProtocol(det, clf, device=dev),
+            weights.init_detector(det, torch.Generator().manual_seed(0), dev),
+            weights.init_classifier(clf, torch.Generator().manual_seed(1),
+                                    dev),
+            streams, max_batch_chunks=3, batch_window=0.05,
+            learning_plane=plane, device=dev)
+        open_episode(plane, multi.scheduler, "cam0")
+        ops.reset_launch_counts()
+        multi.run(learn=True)
+        runs[dev] = (plane, multi.scheduler, ops.launch_counts())
+    (plane, sched, counts), (cpu_plane, cpu_sched, cpu_counts) = (
+        runs["cuda"], runs["cpu"])
+    assert plane.summary() == cpu_plane.summary()
+    assert [e["event"] for e in sched.monitor.events] == [
+        e["event"] for e in cpu_sched.monitor.events]
+    steps = lcfg.passes * replayed_instances(sched.graph.zoo,
+                                             "fog-classifier[cam0]")
+    assert counts["onevsall_update"] == steps > 0
+    assert cpu_counts == {name: 0 for name in ops.KERNELS}
+    for name, st in sched.streams.items():
+        assert rel_err(st.W, cpu_sched.streams[name].W) <= LEARN_RTOL
 
 
 def test_kernel_rejects_bad_operands(cuda):

@@ -29,12 +29,14 @@ from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import iou_filter as ik
 from repro_torch.kernels import onevsall as ov
+from repro_torch.kernels import onevsall_update as ou
 from repro_torch.kernels import ssd_scan as sk
 from repro_torch.testing import (ATTN_ATOL, DECODE_CASES, FILTER_KW,
                                  FLASH_CASES, ONEVSALL_ATOL, SSD_CASES,
-                                 SSD_RTOL, attention_case, crop_cases,
-                                 decode_case, filter_case, onevsall_case,
-                                 rel_err, ssd_case)
+                                 SSD_RTOL, UPDATE_ETA, UPDATE_RTOL,
+                                 attention_case, crop_cases, decode_case,
+                                 filter_case, onevsall_case, rel_err,
+                                 ssd_case, update_case)
 
 EMU_HEADER = r"""
 #pragma once
@@ -207,6 +209,19 @@ def test_onevsall_source_matches_plain(emulated, b, d, c, g):
     got = ov.onevsall_scores(x, ws, widx)
     assert float((got - ov.onevsall_scores_ref(x, ws, widx)).abs().max()) \
         <= ONEVSALL_ATOL
+
+
+@pytest.mark.parametrize("b", [1, 130, 300])
+@pytest.mark.parametrize("d1,c", [(129, 8), (17, 10)])
+def test_onevsall_update_source_matches_plain(emulated, b, d1, c):
+    # the learner's single-row step, a ragged row tile (130 = 4 x 32 + 2 at
+    # C = 8; 25-row tiles at C = 10) and more rows than one tile
+    x, y, w = _t(update_case(b, d1, c))
+    got = ou.onevsall_update(x, y, w, eta=UPDATE_ETA)
+    want = ou.onevsall_update_ref(x, y, w, eta=UPDATE_ETA)
+    assert rel_err(got, want) <= UPDATE_RTOL
+    # the same bits on a second launch: no atomics, fixed summation order
+    assert torch.equal(ou.onevsall_update(x, y, w, eta=UPDATE_ETA), got)
 
 
 @pytest.mark.parametrize("case", FLASH_CASES,
