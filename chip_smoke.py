@@ -8,17 +8,20 @@ Run from the repository root on a machine with one NVIDIA H100:
 It builds the port's CUDA kernels from ``src/repro_torch/csrc``, holds each
 kernel against its plain PyTorch version on the card at its path's shapes,
 and times kernel, plain version and a library yardstick with CUDA events.
-It then drives three paths with the kernels' launch counts zeroed just
+It then drives four paths with the kernels' launch counts zeroed just
 before and read just after each: the full-width video path
 (``MultiStreamCoordinator`` with the ``vpaas_video`` models) on both hot
-paths; the continual-learning path on the same models (the per-site
+paths; the paper's comparison baselines (MPEG, Glimpse, CloudSeg, DDS)
+beside VPaaS through ``default_policies()`` on the same models; the
+continual-learning path on the same models (the per-site
 ``ContinualLearningPlane`` of ``serve --per-site-learning
 --ensemble-serving``, whose background trainer runs every proximal step
 through the update kernel, then the inline ``IncrementalLearner``); and
 the LLM path (``LLMServer`` over full-width ``zamba2-7b``).  Weights are
 random from a seed.  Each path's outputs are checked against the port's
 CPU path (the kernels' plain versions) on a small input: one video chunk,
-a 2-stream learning run, and ``zamba2-7b`` cut to 9 layers.  Any failed
+the four baselines on 2 chunks x 4 frames of each content type, a
+2-stream learning run, and ``zamba2-7b`` cut to 9 layers.  Any failed
 check raises; nothing is caught.  The last three lines are the card's name
 and power limit, one JSON object describing the kernels, and
 ``{"ok": true, "device": {...}}``.
@@ -45,8 +48,9 @@ FP32_FLOP_PER_S = 67e12
 
 SEED = 0
 
-# the kernels the video path runs
-VIDEO_KERNELS = ("region_filter_mask_batch", "crop_gather", "onevsall_scores")
+# the kernels the video path runs (K4a through its two NMS per flush)
+VIDEO_KERNELS = ("region_filter_mask_batch", "crop_gather", "onevsall_scores",
+                 "iou_matrix")
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -378,9 +382,78 @@ def phase_onevsall_update(torch, np, card):
     return main_row
 
 
+# K4a at the flush's NMS shape, then shapes of the JAX package's IoU sweep
+IOU_SHAPES = ((32, 256, 256), (1, 200, 100), (1, 13, 7))
+# K4b at the region budget, then a ragged case
+FRAME_FILTER_SHAPES = ((256, 256), (130, 70))
+
+
+def phase_iou_matrix(torch, np, card):
+    from repro_torch.kernels import iou_matrix as im
+    from repro_torch.testing import iou_case
+    main_row = None
+    for b, n, m in IOU_SHAPES:
+        a, c = (torch.as_tensor(x, device="cuda")
+                for x in iou_case(b, n, m, seed=SEED))
+        got = im.iou_matrix(a, c)
+        want = im.iou_matrix_ref(a, c)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"K4a at B={b} N={n} M={m} differs from the plain version "
+                f"at {int((got != want).sum())} of {got.numel()} entries")
+        timed = measure(torch, lambda: im.iou_matrix(a, c))
+        plain = measure(torch, lambda: im.iou_matrix_ref(a, c))
+        # each box read once, the matrix written once; 13 ops per pair
+        # (two overlaps, the product, the union, its floor, the division)
+        # and 5 per box area
+        nbytes = 4 * (4 * b * (n + m) + b * n * m)
+        ops = 13 * b * n * m + 5 * b * (n + m)
+        row = _row("iou_matrix", "src/repro_torch/csrc/iou_filter.cu",
+                   "src/repro/kernels/iou_filter.py:45",
+                   f"B={b} N={n} M={m}", 0.0, timed, plain, None, nbytes,
+                   ops)
+        _report(f"K4a iou_matrix B={b} N={n} M={m}: bit-equal", row, card)
+        if main_row is None:                # the flush's NMS shape
+            main_row = row
+    return main_row
+
+
+def phase_frame_filter(torch, np, card):
+    from repro_torch.kernels import region_filter_mask as rf
+    from repro_torch.testing import FILTER_KW, frame_filter_case
+    main_row = None
+    for n, m in FRAME_FILTER_SHAPES:
+        args = [torch.as_tensor(x, device="cuda")
+                for x in frame_filter_case(n, m, seed=SEED)]
+        got = rf.region_filter_mask(*args, **FILTER_KW)
+        want = rf.region_filter_mask_ref(*args, **FILTER_KW)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"K4b at N={n} M={m}: mask differs from the plain version "
+                f"at {int((got != want).sum())} of {n} proposals")
+        timed = measure(torch, lambda: rf.region_filter_mask(*args,
+                                                             **FILTER_KW))
+        plain = measure(torch, lambda: rf.region_filter_mask_ref(
+            *args, **FILTER_KW))
+        pairs = int(args[3].sum()) * n     # the kernel skips invalid boxes
+        nbytes = n * (16 + 1 + 4 + 1) + m * (16 + 1)
+        ops = 14 * pairs + 5 * (n + m) + 5 * n
+        row = _row("region_filter_mask", "src/repro_torch/csrc/iou_filter.cu",
+                   "src/repro/kernels/iou_filter.py:99", f"N={n} M={m}", 0.0,
+                   timed, plain, None, nbytes, ops)
+        _report(f"K4b region_filter_mask N={n} M={m}: masks equal", row,
+                card)
+        if main_row is None:                # the region budget
+            main_row = row
+    return main_row
+
+
 def phase_nms(torch, np, card):
-    """Plain greedy NMS (no kernel yet) at the fused flush's shape."""
-    from repro_torch.kernels import ref
+    """Greedy NMS at the fused flush's shape: ``ops.nms_mask`` (K4a, then
+    the plain greedy loop) beside the plain ``ref.nms_mask``."""
+    from repro_torch.kernels import ops, ref
     from repro_torch.testing import rand_boxes
     f, n = 32, 256
     rng = np.random.default_rng(SEED + 3)
@@ -388,11 +461,23 @@ def phase_nms(torch, np, card):
     scores = torch.as_tensor(rng.random((f, n), dtype=np.float32),
                              device="cuda")
     valid = torch.as_tensor(rng.random((f, n)) > 0.5, device="cuda")
-    ms = time_ms(torch, lambda: ref.nms_mask(boxes, scores, valid), reps=10,
-                 warmup=2)
-    dev, _ = profile_device(torch, lambda: ref.nms_mask(boxes, scores, valid))
-    print(f"nms_mask (plain PyTorch, {n} greedy steps) F={f} N={n}: "
-          f"{ms:.3f} ms per call ({fmt(dev)} on the device) [{card}]")
+    got = ops.nms_mask(boxes, scores, valid)
+    if not torch.equal(got, ref.nms_mask(boxes, scores, valid)):
+        raise AssertionError("NMS through K4a differs from the plain NMS")
+    # in turns (kernel, plain, plain, kernel): the greedy loop is
+    # host-bound, and the host's speed drifts within a run
+    fns = {"ops.nms_mask (K4a + greedy loop)": ops.nms_mask,
+           "ref.nms_mask (plain)": ref.nms_mask}
+    times = {what: [] for what in fns}
+    for what in list(fns) + list(fns)[::-1]:
+        times[what].append(time_ms(torch, lambda: fns[what](
+            boxes, scores, valid), reps=10, warmup=2))
+    for what, fn in fns.items():
+        dev, _ = profile_device(torch, lambda: fn(boxes, scores, valid))
+        print(f"{what}, {n} greedy steps, F={f} N={n}: "
+              f"{statistics.mean(times[what]):.3f} ms per call (two turns: "
+              f"{', '.join(f'{t:.3f}' for t in times[what])}; {fmt(dev)} on "
+              f"the device); masks equal [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -490,7 +575,7 @@ def phase_main_path(torch, np, card):
     for name in VIDEO_KERNELS:
         if fused_counts[name] == 0:
             raise AssertionError(f"fused path launched no {name} kernel")
-    for name in ("region_filter_mask_batch", "onevsall_scores"):
+    for name in ("region_filter_mask_batch", "onevsall_scores", "iou_matrix"):
         if sync_counts[name] == 0:
             raise AssertionError(f"sync path launched no {name} kernel")
     hps = runs["fused"][0].scheduler.hot_path_stats
@@ -589,6 +674,165 @@ def phase_reference(torch, np, card):
     print(f"card vs CPU reference, one full-width chunk: encode within "
           f"1e-5 (bytes rel {rel:.1e}), detector within 1e-4, split masks "
           f"equal, classify scores within 1e-4 ({ties} tie(s)) [{card}]")
+
+
+# ---------------------------------------------------------------------------
+# the paper's comparison baselines (§VI, Fig. 9) beside VPaaS, through the
+# policy manager: every policy's NMS runs K4a, DDS's round 1 runs K4b
+# ---------------------------------------------------------------------------
+BASE_CHUNKS, BASE_FRAMES = 2, 8
+REF_CHUNKS, REF_FRAMES = 2, 4         # the card vs CPU reference
+BASE_DATA_SEED = 2024                 # bench_protocol's dataset seed
+# MPEG first: the other policies' bytes are normalised to it
+POLICIES = ("mpeg", "glimpse", "cloudseg", "dds", "vpaas-highlow")
+
+
+def baseline_workload(n_chunks, n_frames):
+    """bench_protocol's workload: ``n_chunks`` chunks of each content type."""
+    from repro_torch.video import synthetic
+    return {name: synthetic.dataset(BASE_DATA_SEED + i, name, n_chunks,
+                                    num_frames=n_frames)
+            for i, name in enumerate(synthetic.CONTENT_TYPES)}
+
+
+def run_policy(torch, name, system, params, chunks):
+    """One policy over ``chunks``, as a user calls it; launch counts zeroed
+    just before and read just after."""
+    from repro_torch.kernels import ops
+    det_params, clf_params = params
+    cuda = system.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    if name == "vpaas-highlow":
+        results = [system.process_chunk(det_params, clf_params, c.frames)
+                   for c in chunks]
+    else:
+        results = [system.process_chunk(det_params, c.frames)
+                   for c in chunks]
+    if cuda:
+        torch.cuda.synchronize()
+    return results, ops.launch_counts(), time.perf_counter() - t0
+
+
+def phase_baselines_main_path(torch, np, card):
+    from repro_torch.configs.vpaas_video import CLASSIFIER, DETECTOR
+    from repro_torch.core.protocol import detections_for_metrics
+    from repro_torch.serving.policies import default_policies
+    from repro_torch.video.metrics import F1Accumulator
+    params = video_params(torch, "cuda")
+    pm = default_policies()
+    systems = {name: pm.build(name, DETECTOR, CLASSIFIER, device="cuda")
+               for name in POLICIES}
+    data = baseline_workload(BASE_CHUNKS, BASE_FRAMES)
+    # warm-up (cuDNN algorithm selection at each policy's shapes)
+    for name, system in systems.items():
+        run_policy(torch, name, system, params, data["traffic"][:1])
+    totals = {name: {} for name in POLICIES}
+    print(f"baselines main path: {BASE_CHUNKS} chunks x {BASE_FRAMES} frames"
+          f" of each content type, full vpaas_video width, the five "
+          f"policies of default_policies(); F1 against the synthetic ground "
+          f"truth is meaningless with random weights [{card}]")
+    for content, chunks in data.items():
+        mpeg_bytes = None
+        for name in POLICIES:
+            results, counts, wall = run_policy(torch, name, systems[name],
+                                               params, chunks)
+            frames = sum(c.frames.shape[0] for c in chunks)
+            acc = F1Accumulator()
+            for res, c in zip(results, chunks):
+                if res.boxes.shape != (c.frames.shape[0], 256, 4) or not (
+                        np.isfinite(res.boxes).all()
+                        and res.latency.total > 0 and res.wan_bytes > 0):
+                    raise AssertionError(f"{name} on {content}: malformed "
+                                         "result")
+                for t in range(c.frames.shape[0]):
+                    boxes, labels = (detections_for_metrics(res, t)
+                                     if name == "vpaas-highlow"
+                                     else res.detections(t))
+                    acc.update(boxes, labels, c.gt_boxes[t],
+                               c.gt_labels[t])
+            nbytes = sum(r.wan_bytes for r in results)
+            mpeg_bytes = mpeg_bytes or nbytes
+            rounds = (float(np.mean([r.cloud_rounds for r in results]))
+                      if name != "vpaas-highlow" else 1.0)
+            print(f"  {content}/{name}: {wall:.3f} s wall, "
+                  f"{frames / wall:.1f} frames/s, WAN {nbytes:.0f} B "
+                  f"({nbytes / mpeg_bytes:.3f} of MPEG), cloud frames "
+                  f"{sum(r.cloud_frames for r in results)}, rounds "
+                  f"{rounds:.3f}, F1 {acc.f1:.3f}; launches "
+                  f"{ {k: v for k, v in counts.items() if v} } [{card}]")
+            if counts["iou_matrix"] == 0:
+                raise AssertionError(f"{name} launched no K4a")
+            if name == "dds":
+                if counts["region_filter_mask"] != frames:
+                    raise AssertionError(
+                        f"DDS launched K4b {counts['region_filter_mask']} "
+                        f"times for {frames} frames")
+                if counts["region_filter_mask_batch"]:
+                    raise AssertionError("DDS launched K1")
+            elif counts["region_filter_mask"]:
+                raise AssertionError(f"{name} launched K4b")
+            if name == "vpaas-highlow":
+                for k in VIDEO_KERNELS:
+                    if counts[k] == 0:
+                        raise AssertionError(f"VPaaS launched no {k}")
+            for k, v in counts.items():
+                totals[name][k] = totals[name].get(k, 0) + v
+    return totals
+
+
+def phase_baselines_reference(torch, np, card):
+    """The four baselines at REF_CHUNKS chunks x REF_FRAMES frames per
+    content type, full width, the same weights, on the card and on the
+    port's CPU path: equal valid / labels away from threshold ties, boxes
+    within MODEL_ATOL,
+    equal cloud frames and rounds, bytes and latencies within their
+    tolerances.  The CPU run takes the card's decoded frames
+    (``testing.CodecTap``) so that a half-step tie in the codec cannot
+    move the detector; the tap checks any codec difference is a tie."""
+    from repro_torch.configs.vpaas_video import DETECTOR
+    from repro_torch.serving.policies import default_policies
+    from repro_torch.testing import (CodecTap, DetectorTies,
+                                     assert_baseline_results_match)
+    params = {d: video_params(torch, d) for d in ("cuda", "cpu")}
+    pm = default_policies()
+    compared = flips = exempt_n = 0
+    launches = {}
+    for name in ("mpeg", "glimpse", "cloudseg", "dds"):
+        card_sys = pm.build(name, DETECTOR, device="cuda")
+        cpu_sys = pm.build(name, DETECTOR, device="cpu")
+        for content, chunks in baseline_workload(REF_CHUNKS,
+                                                 REF_FRAMES).items():
+            for chunk in chunks:
+                with CodecTap() as rec:
+                    (want,), counts, _ = run_policy(
+                        torch, name, card_sys, params["cuda"], [chunk])
+                for k, v in counts.items():
+                    launches[k] = launches.get(k, 0) + v
+                with CodecTap(lambda kind, f, r, q, i: rec.frames[i]) as tap, \
+                        DetectorTies(cpu_sys.theta_loc,
+                                     cpu_sys.theta_cls) as ties:
+                    (got,), _, _ = run_policy(torch, name, cpu_sys,
+                                              params["cpu"], [chunk])
+                flips += tap.tie_flips()
+                exempt = ties.exempt(got.valid.shape)
+                exempt_n += int(exempt.sum())
+                assert_baseline_results_match(got, want, exempt,
+                                              f"card vs CPU {name} {content}")
+                compared += 1
+    if launches["iou_matrix"] == 0 or launches["region_filter_mask"] == 0:
+        raise AssertionError(f"baselines reference launches {launches}")
+    print(f"baselines card vs CPU reference, MPEG / Glimpse / CloudSeg / DDS "
+          f"x {REF_CHUNKS} chunks x {REF_FRAMES} frames of each content type "
+          f"at full width: "
+          f"{compared} chunk results equal (valid, labels, cloud frames and "
+          f"rounds; boxes within MODEL_ATOL, bytes and latencies within "
+          f"their tolerances; {exempt_n} tie position(s) exempt, {flips} "
+          f"codec call(s) with a half-step tie); card launches K4a "
+          f"{launches['iou_matrix']}, K4b {launches['region_filter_mask']} "
+          f"[{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -733,8 +977,7 @@ def phase_learning_main_path(torch, np, card):
         raise AssertionError(f"K5 launched {counts['onevsall_update']} "
                              f"times; cam0's rounds replayed {replayed} "
                              f"instances x {cfg.passes} passes")
-    for name in ("region_filter_mask_batch", "crop_gather",
-                 "onevsall_scores"):
+    for name in VIDEO_KERNELS:
         if counts[name] == 0:
             raise AssertionError(f"learning path launched no {name} kernel")
     for name, st in sched.streams.items():
@@ -1243,23 +1486,31 @@ def main() -> int:
                   phase_crop_gather(torch, np, card),
                   phase_onevsall(torch, np, card)]
     update_row = phase_onevsall_update(torch, np, card)
+    iou_row = phase_iou_matrix(torch, np, card)
+    frame_row = phase_frame_filter(torch, np, card)
     llm_rows = [phase_flash_attention(torch, np, card),
                 phase_decode_attention(torch, np, card),
                 phase_ssd_scan(torch, np, card)]
     phase_nms(torch, np, card)
     phase_reference(torch, np, card)
     fused_counts, sync_counts, _ = phase_main_path(torch, np, card)
-    for row in video_rows:
+    for row in video_rows + [iou_row]:
         row["launches"] = fused_counts[row["name"]]
         row["launches_sync"] = sync_counts[row["name"]]
+    phase_baselines_reference(torch, np, card)
+    base_counts = phase_baselines_main_path(torch, np, card)
+    iou_row["launches_baselines"] = {
+        name: c["iou_matrix"] for name, c in base_counts.items()}
+    frame_row["launches"] = base_counts["dds"]["region_filter_mask"]
     phase_learning_reference(torch, np, card)
     learn_counts = phase_learning_main_path(torch, np, card)
     update_row["launches"] = learn_counts["onevsall_update"]
+    iou_row["launches_learning"] = learn_counts["iou_matrix"]
     phase_llm_reference(torch, np, card)
     llm_counts = phase_llm_main_path(torch, np, card)
     for row in llm_rows:
         row["launches"] = llm_counts[row["name"]]
-    rows = video_rows + [update_row] + llm_rows
+    rows = video_rows + [iou_row, frame_row, update_row] + llm_rows
     print(f"chip_smoke.py finished its checks in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -27,12 +27,12 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch.baselines.common import threshold_detections
 from repro_torch.configs.vpaas_video import FALLBACK_DETECTOR
 from repro_torch.core.bandwidth import LatencyBreakdown, NetworkModel
 from repro_torch.core.hitl import OracleAnnotator
 from repro_torch.core.incremental import IncrementalLearner
 from repro_torch.core.protocol import ChunkResult, HighLowProtocol, to_host
-from repro_torch.kernels.ref import nms_mask
 from repro_torch.models import detector as det_mod
 from repro_torch.serving.batching import CrossStreamBatcher
 from repro_torch.serving.fault import FaultTolerantCoordinator
@@ -49,17 +49,6 @@ class CoordinatorResult:
     latencies: List[float]
     modes: List[str]
     learner_summary: Dict[str, float]
-
-
-def threshold_detections(det, theta_loc: float = 0.5,
-                         theta_cls: float = 0.5, nms_iou: float = 0.45):
-    """Plain cloud-only acceptance rule (+NMS) for fallback detectors; port
-    of ``repro.baselines.common.threshold_detections``."""
-    loc, probs, boxes = det["loc_scores"], det["cls_probs"], det["boxes"]
-    labels = to_host(probs.argmax(-1)).astype(np.int64)
-    valid = (loc >= theta_loc) & (probs.amax(-1) >= theta_cls)
-    keep = nms_mask(boxes, loc * probs.amax(-1), valid, nms_iou)
-    return to_host(boxes), labels, to_host(keep)
 
 
 def _check_device(protocol: HighLowProtocol, device) -> None:

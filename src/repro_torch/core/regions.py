@@ -3,11 +3,12 @@ PyTorch port of ``repro.core.regions``.
 
 Everything is fixed-shape: each frame carries a constant region budget N
 with validity masks, so a whole flush is filtered in one pass.  The filter
-runs the region-filter kernel (K1) and every crop runs the crop-gather
-kernel (K2) through :mod:`repro_torch.kernels.ops`.  Greedy NMS has no
-Pallas kernel in the reference either: its plain loop
-(:func:`repro_torch.kernels.ref.nms_mask`) runs on whatever device it is
-given.
+runs the whole-flush region-filter kernel (K1), or the single-frame one
+(K4b) once per frame in :func:`split_regions_framewise`, and every crop
+runs the crop-gather kernel (K2), all through
+:mod:`repro_torch.kernels.ops`.  Greedy NMS (``ops.nms_mask``) takes its
+IoU matrix from the IoU kernel (K4a); its greedy loop has no Pallas kernel
+in the reference either and stays plain PyTorch on every device.
 """
 from __future__ import annotations
 
@@ -17,7 +18,6 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import nms_mask
 
 NMS_IOU = 0.45
 
@@ -45,14 +45,46 @@ def split_regions(
     labels = probs.argmax(dim=-1).to(torch.int32)    # first max, as jnp
 
     acc_raw = (loc >= theta_loc) & (cls_conf >= theta_cls)
-    acc_valid = nms_mask(boxes, loc * cls_conf, acc_raw,
-                         iou_threshold=NMS_IOU)
+    acc_valid = ops.nms_mask(boxes, loc * cls_conf, acc_raw,
+                             iou_threshold=NMS_IOU)
     # ONE whole-flush filter pass over the (F, N) grid
     keep = ops.region_filter_mask_batch(
         boxes, loc >= theta_loc, boxes, acc_valid, loc,
         theta_loc=theta_loc, theta_iou=theta_iou, theta_back=theta_back)
     keep = keep & ~acc_valid       # accepted regions don't go to the fog
-    prop_valid = nms_mask(boxes, loc, keep, iou_threshold=NMS_IOU)
+    prop_valid = ops.nms_mask(boxes, loc, keep, iou_threshold=NMS_IOU)
+    return RegionSplit(boxes, labels, acc_valid, boxes, prop_valid)
+
+
+def split_regions_framewise(
+    det: Dict[str, torch.Tensor],
+    *,
+    theta_cls: float,
+    theta_loc: float,
+    theta_iou: float,
+    theta_back: float,
+) -> RegionSplit:
+    """:func:`split_regions` with the §IV.B filter run frame by frame.
+
+    The ``impl="ref"`` branch of ``repro.core.regions.split_regions``: the
+    accepted-set NMS runs over the chunk (one K4a launch), each frame is
+    filtered by the single-frame kernel (K4b, one launch per frame), then
+    the proposal NMS runs over the chunk (one K4a launch), as JAX's
+    ``vmap`` batches it.  The masks equal :func:`split_regions`'s bit for
+    bit."""
+    boxes, loc, probs = det["boxes"], det["loc_scores"], det["cls_probs"]
+    cls_conf = probs.amax(dim=-1)
+    labels = probs.argmax(dim=-1).to(torch.int32)    # first max, as jnp
+
+    acc_raw = (loc >= theta_loc) & (cls_conf >= theta_cls)
+    acc_valid = ops.nms_mask(boxes, loc * cls_conf, acc_raw,
+                             iou_threshold=NMS_IOU)
+    keep = torch.stack([ops.region_filter_mask(
+        boxes[t], loc[t] >= theta_loc, boxes[t], acc_valid[t], loc[t],
+        theta_loc=theta_loc, theta_iou=theta_iou, theta_back=theta_back)
+        for t in range(boxes.shape[0])])
+    keep = keep & ~acc_valid       # accepted regions don't go to the fog
+    prop_valid = ops.nms_mask(boxes, loc, keep, iou_threshold=NMS_IOU)
     return RegionSplit(boxes, labels, acc_valid, boxes, prop_valid)
 
 
@@ -81,13 +113,13 @@ def split_regions_dynamic(
     tl = theta_loc.to(loc.device)[:, None]
 
     acc_raw = (loc >= tl) & (cls_conf >= tc)
-    acc_valid = nms_mask(boxes, loc * cls_conf, acc_raw,
-                         iou_threshold=NMS_IOU)
+    acc_valid = ops.nms_mask(boxes, loc * cls_conf, acc_raw,
+                             iou_threshold=NMS_IOU)
     keep = ops.region_filter_mask_batch(
         boxes, loc >= tl, boxes, acc_valid, loc, theta_loc=float("-inf"),
         theta_iou=theta_iou, theta_back=theta_back)
     keep = keep & ~acc_valid       # accepted regions don't go to the fog
-    prop_valid = nms_mask(boxes, loc, keep, iou_threshold=NMS_IOU)
+    prop_valid = ops.nms_mask(boxes, loc, keep, iou_threshold=NMS_IOU)
     return RegionSplit(boxes, labels, acc_valid, boxes, prop_valid)
 
 

@@ -45,6 +45,10 @@ _F = ctypes.c_float
 SIGNATURES = {
     "vpaas_region_filter_mask_batch":
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P],
+    "vpaas_region_filter_mask":
+        [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P],
+    "vpaas_iou_matrix":
+        [_P, _P, _P, _I, _I, _I, _P],
     "vpaas_crop_gather":
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "vpaas_onevsall_scores":
@@ -143,6 +147,12 @@ def launch(fn: str, *args) -> None:
     if rc != 0:
         msg = lib.vpaas_error_string(rc).decode()
         raise RuntimeError(f"{fn} failed to launch: CUDA error {rc} ({msg})")
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, copied if its data is not 16-byte aligned: the box kernels
+    load boxes as ``float4``, and a view at an odd offset is not."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,

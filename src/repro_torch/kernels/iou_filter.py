@@ -17,11 +17,6 @@ launches = 0          # kernel launches since the last reset (ops.py)
 region_filter_mask_batch_ref = ref.region_filter_mask
 
 
-def _aligned16(t: torch.Tensor) -> torch.Tensor:
-    # the kernel loads boxes as float4; a view at an odd offset is copied
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def region_filter_mask_batch(proposals: torch.Tensor,
                              prop_valid: torch.Tensor,
                              accepted: torch.Tensor, acc_valid: torch.Tensor,
@@ -32,8 +27,8 @@ def region_filter_mask_batch(proposals: torch.Tensor,
     global launches
     f, n = proposals.shape[0], proposals.shape[1]
     m = accepted.shape[1]
-    proposals = _aligned16(proposals.contiguous())
-    accepted = _aligned16(accepted.contiguous())
+    proposals = _build.aligned16(proposals.contiguous())
+    accepted = _build.aligned16(accepted.contiguous())
     prop_valid = prop_valid.contiguous()
     acc_valid = acc_valid.contiguous()
     loc_scores = loc_scores.contiguous()

@@ -20,13 +20,16 @@ from repro_torch.kernels import crop_gather as _cg
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import iou_filter as _ik
+from repro_torch.kernels import iou_matrix as _im
 from repro_torch.kernels import onevsall as _ov
 from repro_torch.kernels import onevsall_update as _ou
 from repro_torch.kernels import ref
+from repro_torch.kernels import region_filter_mask as _rf
 from repro_torch.kernels import ssd_scan as _sk
 
 KERNELS = {"region_filter_mask_batch": _ik, "crop_gather": _cg,
-           "onevsall_scores": _ov, "onevsall_update": _ou,
+           "onevsall_scores": _ov, "iou_matrix": _im,
+           "region_filter_mask": _rf, "onevsall_update": _ou,
            "flash_attention": _fa, "decode_attention": _da, "ssd_scan": _sk}
 
 
@@ -59,6 +62,36 @@ def region_filter_mask_batch(proposals, prop_valid, accepted, acc_valid,
                                             acc_valid, loc_scores, **kw)
     return _ik.region_filter_mask_batch_ref(proposals, prop_valid, accepted,
                                             acc_valid, loc_scores, **kw)
+
+
+def iou_matrix(boxes_a, boxes_b) -> torch.Tensor:
+    """Pairwise IoU (K4a): (..., N, 4) x (..., M, 4) -> (..., N, M)."""
+    if _on_card(boxes_a):
+        return _im.iou_matrix(boxes_a, boxes_b)
+    return _im.iou_matrix_ref(boxes_a, boxes_b)
+
+
+def nms_mask(boxes, scores, valid, iou_threshold: float = 0.45
+             ) -> torch.Tensor:
+    """Greedy NMS over the last axis: the IoU matrix through K4a, then the
+    greedy loop, which is plain PyTorch on every device (the JAX package
+    has no kernel for it either)."""
+    return ref.nms_greedy(iou_matrix(boxes, boxes), scores, valid,
+                          iou_threshold)
+
+
+def region_filter_mask(proposals, prop_valid, accepted, acc_valid,
+                       loc_scores, *, theta_loc: float, theta_iou: float,
+                       theta_back: float, frame_area: float = 1.0
+                       ) -> torch.Tensor:
+    """Single-frame §IV.B filter (K4b): (N, 4) vs (M, 4) -> (N,) bool."""
+    kw = dict(theta_loc=theta_loc, theta_iou=theta_iou,
+              theta_back=theta_back, frame_area=frame_area)
+    if _on_card(proposals):
+        return _rf.region_filter_mask(proposals, prop_valid, accepted,
+                                      acc_valid, loc_scores, **kw)
+    return _rf.region_filter_mask_ref(proposals, prop_valid, accepted,
+                                      acc_valid, loc_scores, **kw)
 
 
 def crop_gather(frames, boxes, idxs, *,

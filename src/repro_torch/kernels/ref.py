@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the port's kernels (``repro.kernels.ref``: the
-video path's region filter, crop gather and NMS, and the LLM path's flash
-attention, decode attention and Mamba2 SSD scan).
+video path's IoU matrix, region filter, crop gather and NMS, and the LLM
+path's flash attention, decode attention and Mamba2 SSD scan).
 
 These are the semantic ground truth of the port's CUDA kernels: the CPU
 tests run them against the JAX package, and ``chip_smoke.py`` holds each
@@ -8,7 +8,7 @@ kernel against them on the card.  The kernel wrappers in
 :mod:`repro_torch.kernels.ops` run them only for tensors on the CPU.
 
 Every op here is a separate eager PyTorch op, so each multiply and add is
-rounded on its own -- the property the crop gather and region filter
+rounded on its own -- the property the IoU, region filter and crop gather
 kernels reproduce bit for bit.
 """
 from __future__ import annotations
@@ -40,17 +40,18 @@ def iou_matrix(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
     return inter / union.clamp_min(1e-9)
 
 
-def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
-             iou_threshold: float = 0.45) -> torch.Tensor:
-    """Greedy non-maximum suppression over the last axis; fixed shape.
+def nms_greedy(iou: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+               iou_threshold: float = 0.45) -> torch.Tensor:
+    """The greedy loop of non-maximum suppression over a given IoU matrix.
 
-    boxes (..., N, 4), scores (..., N), valid (..., N) -> keep (..., N).
-    The greedy loop runs N steps on whole (..., N) tensors -- every frame of
-    a flush advances together, and nothing reads back to the host."""
-    n = boxes.shape[-2]
-    iou = iou_matrix(boxes, boxes)                       # (..., N, N)
+    iou (..., N, N), scores (..., N), valid (..., N) -> keep (..., N).
+    The loop runs N steps on whole (..., N) tensors -- every frame of a
+    flush advances together, and nothing reads back to the host.  The JAX
+    package has no kernel for it either: it is plain PyTorch on every
+    device."""
+    n = iou.shape[-1]
     neg = torch.full((), NEG_INF, dtype=scores.dtype, device=scores.device)
-    ar = torch.arange(n, device=boxes.device)
+    ar = torch.arange(n, device=iou.device)
     keep = torch.zeros_like(valid)
     alive = valid.clone()
     for _ in range(n):
@@ -63,6 +64,15 @@ def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
         suppress = (row >= iou_threshold) | sel
         alive = torch.where(has, alive & ~suppress, alive)
     return keep
+
+
+def nms_mask(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
+             iou_threshold: float = 0.45) -> torch.Tensor:
+    """Greedy non-maximum suppression over the last axis; fixed shape.
+
+    boxes (..., N, 4), scores (..., N), valid (..., N) -> keep (..., N):
+    the plain IoU matrix, then :func:`nms_greedy`."""
+    return nms_greedy(iou_matrix(boxes, boxes), scores, valid, iou_threshold)
 
 
 def region_filter_mask(

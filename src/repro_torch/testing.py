@@ -3,11 +3,13 @@ tests against the JAX package and the on-card kernel tests) and
 ``chip_smoke.py``.  Each tolerance states why it is not zero."""
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.regions import compaction_indices
+from repro_torch.video import codec
 
 # codec frames: a resize + DCT round trip; PyTorch and XLA sum the
 # antialiased resize taps and the 8x8 transforms in different orders
@@ -95,6 +97,31 @@ def filter_case(f: int, n: int, m: int, seed: int = 0):
     return (rand_boxes(rng, (f, n)), rng.random((f, n)) > 0.2,
             rand_boxes(rng, (f, m)), rng.random((f, m)) > 0.2,
             rng.random((f, n), dtype=np.float32))
+
+
+def frame_filter_case(n: int, m: int, seed: int = 0):
+    """One frame's K4b case: ``filter_case`` at F = 1, frame axis dropped."""
+    return tuple(a[0] for a in filter_case(1, n, m, seed))
+
+
+# ---------------------------------------------------------------------------
+# K4a IoU cases: (B, N, M) -- the JAX package's IoU sweep (B = 1) and the
+# flush's NMS shape
+# ---------------------------------------------------------------------------
+IOU_CASES = [(1, 64, 32), (1, 200, 100), (1, 13, 7), (1, 256, 256),
+             (4, 256, 256)]
+
+
+def iou_case(b: int, n: int, m: int, seed: int = 0):
+    """(boxes_a (B, N, 4), boxes_b (B, M, 4)), with exact duplicates,
+    nested boxes and zero-area boxes among them (IoU 1, and the union's
+    1e-9 floor)."""
+    rng = np.random.default_rng(seed + 7 * n + m)
+    a, c = rand_boxes(rng, (b, n)), rand_boxes(rng, (b, m))
+    k = min(n, m) // 4
+    a[:, k:2 * k, 2:] = a[:, k:2 * k, :2]                # zero-area
+    c[:, :2 * k] = a[:, :2 * k]                          # duplicates
+    return a, c
 
 
 # ---------------------------------------------------------------------------
@@ -267,6 +294,152 @@ def replayed_instances(zoo, model: str) -> int:
     per pass."""
     return sum(zoo.get_version(model, v).lineage.get("replayed", 0)
                for v in zoo.versions(model))
+
+
+class CodecTap:
+    """Hand the port's codec calls a reference's decoded frames.
+
+    The codec rounds every 8x8 DCT coefficient to its quantisation step.
+    A coefficient within float error of a half-step (measured: 3.9e-8 of a
+    step, on a full-width chunk at QP 10) rounds one step apart in two
+    programs that sum the transform in another order; that moves one
+    block's pixels by up to a quarter step and the detector's outputs far
+    past ``MODEL_ATOL``.  To compare what follows the codec, each call of
+    ``codec.encode`` / ``codec.encode_inter`` inside the tap runs the port's
+    codec as usual (its bytes are kept) and, when ``reference`` is given,
+    returns ``reference(kind, frames, r, q, i)``'s frames for its i-th call
+    instead, recording how far the port's own frames were from them.
+    ``frames`` collects the port's own decoded frames, on the host."""
+
+    def __init__(self, reference: Optional[Callable] = None):
+        self.reference = reference
+        self.frames: List[np.ndarray] = []
+        self.calls: List[dict] = []
+        self._saved = {}
+
+    def __enter__(self):
+        for kind in ("encode", "encode_inter"):
+            self._saved[kind] = getattr(codec, kind)
+            setattr(codec, kind, self._tap(kind, self._saved[kind]))
+        return self
+
+    def __exit__(self, *exc):
+        for kind, fn in self._saved.items():
+            setattr(codec, kind, fn)
+        return False
+
+    def _tap(self, kind, fn):
+        def tapped(frames, r, q):
+            enc = fn(frames, r, q)
+            own = enc.frames.detach().cpu().numpy()
+            self.frames.append(own)
+            if self.reference is None:
+                return enc
+            ref = np.array(self.reference(kind, frames, r, q,
+                                          len(self.frames) - 1),
+                           np.float32)
+            diff = np.abs(own - ref)
+            self.calls.append(dict(kind=kind, r=r, q=q,
+                                   max_diff=float(diff.max()),
+                                   share=float((diff > CODEC_ATOL).mean()),
+                                   step=codec.qp_to_step(q)))
+            return enc._replace(
+                frames=torch.as_tensor(ref, device=enc.frames.device))
+        return tapped
+
+    def tie_flips(self) -> int:
+        """The calls whose frames were more than ``CODEC_ATOL`` from the
+        reference's.  Raises where the difference is more than a flipped
+        coefficient can make: over one quantisation step, or on more than
+        1% of the pixels."""
+        flips = 0
+        for c in self.calls:
+            if c["max_diff"] <= CODEC_ATOL:
+                continue
+            if c["max_diff"] > c["step"] or c["share"] > 0.01:
+                raise AssertionError(f"codec frames differ beyond a tie: "
+                                     f"{c}")
+            flips += 1
+        return flips
+
+
+class DetectorTies:
+    """Record the tie positions of every detector pass that the baselines
+    make inside the context: the (F, N) positions whose location score or
+    class confidence lies within ``THRESHOLD_TIE`` of the baseline's
+    ``theta_loc`` / ``theta_cls``, where another summation order may
+    decide the other way.  :meth:`exempt` takes the union of the passes
+    recorded since its last call."""
+
+    MODULES = ("mpeg", "glimpse", "cloudseg", "dds")
+
+    def __init__(self, theta_loc: float, theta_cls: float):
+        self.theta_loc, self.theta_cls = theta_loc, theta_cls
+        self.masks: List[np.ndarray] = []
+        self._saved = {}
+
+    def __enter__(self):
+        import importlib
+        for name in self.MODULES:
+            mod = importlib.import_module(f"repro_torch.baselines.{name}")
+            self._saved[mod] = mod.run_detector
+            mod.run_detector = self._spy(mod.run_detector)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn in self._saved.items():
+            mod.run_detector = fn
+        return False
+
+    def _spy(self, run):
+        def spy(det_cfg, params, frames):
+            det = run(det_cfg, params, frames)
+            loc = det["loc_scores"].detach().cpu().numpy()
+            conf = det["cls_probs"].amax(-1).detach().cpu().numpy()
+            self.masks.append(
+                (np.abs(loc - self.theta_loc) <= THRESHOLD_TIE)
+                | (np.abs(conf - self.theta_cls) <= THRESHOLD_TIE))
+            return det
+        return spy
+
+    def exempt(self, shape) -> np.ndarray:
+        out = np.zeros(shape, bool)
+        for m in self.masks:
+            out |= m              # a one-frame pass: every frame it reaches
+        self.masks = []
+        return out
+
+
+def assert_baseline_results_match(want, got, exempt: np.ndarray,
+                                  what: str = "") -> None:
+    """Two ``BaselineResult``s of one chunk: ``valid`` and ``labels`` equal
+    away from the ``exempt`` tie positions (which must stay under a
+    quarter of the grid), boxes within ``MODEL_ATOL``, the same cloud
+    frames and rounds, bytes within ``NBYTES_RTOL``, every latency field
+    within ``LATENCY_RTOL``; boxes finite."""
+    import dataclasses
+    if not np.isfinite(got.boxes).all():
+        raise AssertionError(f"{what}: non-finite boxes")
+    if got.boxes.shape != want.boxes.shape:
+        raise AssertionError(f"{what}: boxes {got.boxes.shape} vs "
+                             f"{want.boxes.shape}")
+    if exempt.sum() >= exempt.size // 4:
+        raise AssertionError(f"{what}: {int(exempt.sum())} tie positions")
+    for k in ("valid", "labels"):
+        if ((getattr(want, k) != getattr(got, k)) & ~exempt).any():
+            raise AssertionError(f"{what}: {k} differs away from ties")
+    np.testing.assert_allclose(got.boxes, want.boxes, atol=MODEL_ATOL,
+                               rtol=0, err_msg=what)
+    if (got.cloud_frames, got.cloud_rounds) != (want.cloud_frames,
+                                                want.cloud_rounds):
+        raise AssertionError(f"{what}: cloud frames / rounds "
+                             f"{got.cloud_frames}/{got.cloud_rounds} vs "
+                             f"{want.cloud_frames}/{want.cloud_rounds}")
+    np.testing.assert_allclose(got.wan_bytes, want.wan_bytes,
+                               rtol=NBYTES_RTOL, err_msg=what)
+    for k, v in dataclasses.asdict(want.latency).items():
+        np.testing.assert_allclose(getattr(got.latency, k), v,
+                                   rtol=LATENCY_RTOL, err_msg=f"{what} {k}")
 
 
 def rel_err(got, want) -> float:

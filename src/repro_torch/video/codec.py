@@ -75,7 +75,7 @@ def _pad_to_block(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int]]:
     return x, (h, w)
 
 
-def _resize(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+def resize(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
     """``jax.image.resize(..., "linear")`` on NHWC: half-pixel bilinear
     that antialiases when it downsamples (a triangle filter widened by the
     scale factor) -- ``antialias=True`` in torch."""
@@ -114,7 +114,7 @@ def _shrink(frames: torch.Tensor, r: float) -> torch.Tensor:
     if r == 1.0:
         return frames
     hs, ws = max(BLOCK, int(h0 * r)), max(BLOCK, int(w0 * r))
-    return _resize(frames, (hs, ws))
+    return resize(frames, (hs, ws))
 
 
 def encode(frames: torch.Tensor, r: float, q: int) -> EncodedChunk:
@@ -130,7 +130,7 @@ def encode(frames: torch.Tensor, r: float, q: int) -> EncodedChunk:
     rec = _idct(quant * step) + 0.5
     rec = _unblockify(rec)[:, :h, :w]
     if r != 1.0:
-        rec = _resize(rec, (h0, w0))
+        rec = resize(rec, (h0, w0))
     rec = rec.clamp(0.0, 1.0)
     return EncodedChunk(rec, nbits / 8.0, r, int(q))
 
@@ -156,7 +156,7 @@ def encode_inter(frames: torch.Tensor, r: float, q: int) -> EncodedChunk:
         recs.append(prev)
     out = torch.stack(recs)[:, :h, :w]
     if r != 1.0:
-        out = _resize(out, (h0, w0))
+        out = resize(out, (h0, w0))
     return EncodedChunk(out.clamp(0.0, 1.0), torch.stack(bits).sum() / 8.0,
                         r, int(q))
 

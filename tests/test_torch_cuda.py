@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro_torch import set_reference_precision, weights
+from repro_torch.baselines import DDSBaseline, GlimpseBaseline
 from repro_torch.configs import get_config
 from repro_torch.configs import vpaas_video as cfg
 from repro_torch.core.coordinator import MultiStreamCoordinator
@@ -20,22 +21,26 @@ from repro_torch.kernels import crop_gather as cg
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import iou_filter as ik
+from repro_torch.kernels import iou_matrix as im
 from repro_torch.kernels import onevsall as ov
 from repro_torch.kernels import onevsall_update as ou
 from repro_torch.kernels import ops
+from repro_torch.kernels import region_filter_mask as rf
 from repro_torch.kernels import ssd_scan as sk
 from repro_torch.models import schema as sch
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.server import LLMServer, Request
 from repro_torch.learning import ContinualLearningPlane, LearningConfig
 from repro_torch.testing import (ATTN_ATOL, DECODE_CASES, FILTER_CASES,
-                                 FILTER_KW, FLASH_CASES, LEARN_RTOL, LLM_RTOL,
-                                 MODEL_ATOL, ONEVSALL_ATOL, SSD_CASES,
-                                 SSD_RTOL, UPDATE_ETA, UPDATE_RTOL,
+                                 FILTER_KW, FLASH_CASES, IOU_CASES,
+                                 LEARN_RTOL, LLM_RTOL, MODEL_ATOL,
+                                 ONEVSALL_ATOL, SSD_CASES, SSD_RTOL,
+                                 UPDATE_ETA, UPDATE_RTOL, CodecTap,
+                                 DetectorTies, assert_baseline_results_match,
                                  attention_case, crop_cases, decode_case,
-                                 filter_case, onevsall_case, open_episode,
-                                 rel_err, replayed_instances, ssd_case,
-                                 update_case)
+                                 filter_case, frame_filter_case, iou_case,
+                                 onevsall_case, open_episode, rel_err,
+                                 replayed_instances, ssd_case, update_case)
 from repro_torch.video import synthetic
 
 pytestmark = pytest.mark.cuda
@@ -61,6 +66,61 @@ def test_region_filter_kernel_matches_plain(cuda, f, n, m):
     want = ik.region_filter_mask_batch_ref(*args, **FILTER_KW)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,n,m", IOU_CASES + [(32, 256, 256)])
+def test_iou_matrix_kernel_matches_plain(cuda, b, n, m):
+    a, c = _t(iou_case(b, n, m), cuda)
+    got = im.iou_matrix(a, c)
+    want = im.iou_matrix_ref(a, c)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)              # bit for bit
+    if b == 1:
+        assert torch.equal(im.iou_matrix(a[0], c[0]), want[0])
+
+
+@pytest.mark.parametrize("n,m", [(64, 32), (130, 70), (256, 256)])
+def test_frame_filter_kernel_matches_plain(cuda, n, m):
+    args = _t(frame_filter_case(n, m), cuda)
+    got = rf.region_filter_mask(*args, **FILTER_KW)
+    want = rf.region_filter_mask_ref(*args, **FILTER_KW)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["dds", "glimpse"])
+def test_baseline_chunk_on_the_card_matches_cpu(cuda, name):
+    # one full-width chunk: the card's run launches K4a (and, for DDS, K4b
+    # once per frame) and equals the port's CPU run, which takes the
+    # card's decoded frames so a codec half-step tie cannot move it
+    set_reference_precision()
+    det = cfg.DETECTOR
+    chunk = synthetic.make_chunk(np.random.default_rng(14), "traffic",
+                                 num_frames=4)
+    cls = {"dds": DDSBaseline, "glimpse": GlimpseBaseline}[name]
+    kw = (dict(theta_loc=0.45) if name == "dds"
+          else dict(diff_threshold=0.05))
+    res = {}
+    for dev in ("cuda", "cpu"):
+        system = cls(det, device=dev, **kw)
+        params = weights.init_detector(det, torch.Generator().manual_seed(0),
+                                       dev)
+        ops.reset_launch_counts()
+        if dev == "cuda":
+            with CodecTap() as rec:
+                res[dev] = system.process_chunk(params, chunk.frames)
+            counts = ops.launch_counts()
+            assert counts["iou_matrix"] > 0
+            assert counts["region_filter_mask"] == (4 if name == "dds" else 0)
+            assert counts["region_filter_mask_batch"] == 0
+        else:
+            with CodecTap(lambda kind, f, r, q, i: rec.frames[i]) as tap, \
+                    DetectorTies(system.theta_loc, system.theta_cls) as ties:
+                res[dev] = system.process_chunk(params, chunk.frames)
+            assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
+            tap.tie_flips()
+    assert_baseline_results_match(res["cpu"], res["cuda"],
+                                  ties.exempt(res["cpu"].valid.shape), name)
 
 
 @pytest.mark.parametrize("case", sorted(CROP_CASES))
@@ -100,7 +160,13 @@ def test_dispatch_launches_kernels_on_the_card(cuda):
     x, dt, A, B, C, _ = ssd_case(1, 8, 2, 4, 4, init=False)
     ops.ssd_scan(*_t((x, dt, A, B, C), cuda), chunk=4)
     ops.onevsall_update(*_t(update_case(1, 8, 4), cuda), eta=UPDATE_ETA)
+    ops.iou_matrix(*_t(iou_case(2, 8, 8), cuda))
+    ops.region_filter_mask(*_t(frame_filter_case(8, 8), cuda), **FILTER_KW)
     assert ops.launch_counts() == {name: 1 for name in ops.KERNELS}
+    boxes, _ = _t(iou_case(2, 8, 8), cuda)
+    ops.nms_mask(boxes, torch.rand(2, 8, device=cuda),
+                 torch.ones(2, 8, dtype=torch.bool, device=cuda))
+    assert ops.launch_counts()["iou_matrix"] == 2    # NMS runs K4a
 
 
 def test_fused_flush_of_64_streams_on_the_card(cuda, monkeypatch):

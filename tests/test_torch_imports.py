@@ -20,6 +20,12 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke                  # imported, not run
 assert callable(chip_smoke.main)
+from repro_torch.baselines import (BaselineResult, CloudSegBaseline,
+                                   DDSBaseline, GlimpseBaseline, MPEGBaseline)
+from repro_torch.serving.policies import default_policies
+assert default_policies().list() == ["cloudseg", "dds", "glimpse", "mpeg",
+                                     "vpaas-highlow"]
+print(" ".join(names))
 print(len(names))
 """
 
@@ -33,7 +39,12 @@ def test_port_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 66      # every module imported
+    assert int(proc.stdout.split()[-1]) >= 74      # every module imported
+    names = proc.stdout.split()
+    for mod in ("baselines.common", "baselines.mpeg", "baselines.glimpse",
+                "baselines.cloudseg", "baselines.dds", "serving.policies",
+                "kernels.iou_matrix", "kernels.region_filter_mask"):
+        assert f"repro_torch.{mod}" in names, mod
 
 
 def test_no_jax_or_reference_imports_in_port_sources():

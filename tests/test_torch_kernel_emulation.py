@@ -28,15 +28,18 @@ from repro_torch.kernels import crop_gather as cg
 from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import iou_filter as ik
+from repro_torch.kernels import iou_matrix as im
 from repro_torch.kernels import onevsall as ov
 from repro_torch.kernels import onevsall_update as ou
+from repro_torch.kernels import region_filter_mask as rf
 from repro_torch.kernels import ssd_scan as sk
 from repro_torch.testing import (ATTN_ATOL, DECODE_CASES, FILTER_KW,
-                                 FLASH_CASES, ONEVSALL_ATOL, SSD_CASES,
-                                 SSD_RTOL, UPDATE_ETA, UPDATE_RTOL,
+                                 FLASH_CASES, IOU_CASES, ONEVSALL_ATOL,
+                                 SSD_CASES, SSD_RTOL, UPDATE_ETA, UPDATE_RTOL,
                                  attention_case, crop_cases, decode_case,
-                                 filter_case, onevsall_case, rel_err,
-                                 ssd_case, update_case)
+                                 filter_case, frame_filter_case, iou_case,
+                                 onevsall_case, rel_err, ssd_case,
+                                 update_case)
 
 EMU_HEADER = r"""
 #pragma once
@@ -192,6 +195,23 @@ def test_region_filter_source_matches_plain(emulated, f, n, m):
     args = _t(filter_case(f, n, m))
     assert torch.equal(ik.region_filter_mask_batch(*args, **FILTER_KW),
                        ik.region_filter_mask_batch_ref(*args, **FILTER_KW))
+
+
+@pytest.mark.parametrize("b,n,m", IOU_CASES)
+def test_iou_matrix_source_matches_plain(emulated, b, n, m):
+    a, c = _t(iou_case(b, n, m))
+    assert torch.equal(im.iou_matrix(a, c), im.iou_matrix_ref(a, c))
+    if b == 1:                             # the JAX kernel's 2-D form
+        assert torch.equal(im.iou_matrix(a[0], c[0]),
+                           im.iou_matrix_ref(a[0], c[0]))
+
+
+@pytest.mark.parametrize("n,m", [(64, 32), (130, 70), (256, 256)])
+def test_frame_filter_source_matches_plain(emulated, n, m):
+    args = _t(frame_filter_case(n, m))
+    got = rf.region_filter_mask(*args, **FILTER_KW)
+    assert got.shape == (n,)
+    assert torch.equal(got, rf.region_filter_mask_ref(*args, **FILTER_KW))
 
 
 @pytest.mark.parametrize("case", ["sweep-6x9", "oob-pad-rows", "bucket-5"])

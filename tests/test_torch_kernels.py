@@ -8,13 +8,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import iou_filter as jik
 from repro.kernels import onevsall as jov
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.testing import (CROP_ATOL, FILTER_CASES, FILTER_KW,
-                                 ONEVSALL_ATOL, crop_cases, filter_case,
+                                 IOU_CASES, ONEVSALL_ATOL, crop_cases,
+                                 filter_case, frame_filter_case, iou_case,
                                  onevsall_case, rand_boxes)
 
 torch.set_num_threads(1)
@@ -57,6 +59,35 @@ def test_region_filter_runtime_thresholds_match_static():
         b, l_ >= torch.as_tensor(tl)[:, None], a, av_, l_,
         theta_loc=float("-inf"), theta_iou=0.3, theta_back=0.5)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# K4a iou_matrix and K4b region_filter_mask (single frame)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("b,n,m", IOU_CASES)
+def test_iou_matrix_plain_matches_jax(b, n, m):
+    a, c = iou_case(b, n, m)
+    got = ops.iou_matrix(*_t((a, c))).numpy()
+    assert got.shape == (b, n, m) and got.dtype == np.float32
+    want_ref = np.asarray(jref.iou_matrix(jnp.asarray(a), jnp.asarray(c)))
+    np.testing.assert_allclose(got, want_ref, atol=1e-6, rtol=0)
+    for i in range(b):                     # the Pallas kernel is 2-D
+        want_kernel = np.asarray(jik.iou_matrix(
+            jnp.asarray(a[i]), jnp.asarray(c[i]), bn=64, bm=64,
+            interpret=True))
+        np.testing.assert_allclose(got[i], want_kernel, atol=1e-6, rtol=0)
+    assert ops.iou_matrix(*_t((a[0], c[0]))).shape == (n, m)
+
+
+@pytest.mark.parametrize("n,m", [(64, 32), (130, 70)])
+def test_frame_filter_plain_matches_jax(n, m):
+    case = frame_filter_case(n, m)
+    want = np.asarray(jik.region_filter_mask(
+        *(jnp.asarray(a) for a in case), bn=64, bm=64, interpret=True,
+        **FILTER_KW))
+    got = ops.region_filter_mask(*_t(case), **FILTER_KW).numpy()
+    assert got.shape == (n,) and got.dtype == np.bool_
+    np.testing.assert_array_equal(got, want)
 
 
 # ---------------------------------------------------------------------------
@@ -132,6 +163,10 @@ def test_cpu_tensors_launch_no_kernel():
     ops.region_filter_mask_batch(*_t(filter_case(1, 8, 8)), **FILTER_KW)
     frames, boxes, idxs, out_hw = CROP_CASES["oob-pad-rows"]
     ops.crop_gather(*_t((frames, boxes, idxs)), out_hw=out_hw)
+    ops.iou_matrix(*_t(iou_case(2, 8, 8)))
+    ops.region_filter_mask(*_t(frame_filter_case(8, 8)), **FILTER_KW)
+    boxes = torch.as_tensor(rand_boxes(np.random.default_rng(0), (2, 8)))
+    ops.nms_mask(boxes, torch.rand(2, 8), torch.ones(2, 8, dtype=bool))
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
 
 
@@ -145,3 +180,22 @@ def test_nms_plain_matches_jax():
         0.45)) for i in range(3)])
     got = tref.nms_mask(*_t((boxes, scores, valid)), 0.45)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("f,n", [(3, 40), (2, 256)])
+def test_nms_through_dispatch_matches_jax(f, n):
+    # ops.nms_mask (the IoU matrix through ops.iou_matrix, then the greedy
+    # loop) against the JAX reference mapped over frames; duplicate boxes
+    # with equal scores exercise the first-max tie-break
+    rng = np.random.default_rng(11 + n)
+    boxes = rand_boxes(rng, (f, n))
+    boxes[:, 1] = boxes[:, 0]
+    scores = rng.random((f, n), dtype=np.float32)
+    scores[:, 1] = scores[:, 0]
+    valid = rng.random((f, n)) > 0.3
+    want = np.asarray(jax.vmap(lambda b, s, v: jops.nms_mask(
+        b, s, v, iou_threshold=0.45))(*map(jnp.asarray,
+                                           (boxes, scores, valid))))
+    got = ops.nms_mask(*_t((boxes, scores, valid)), 0.45)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(got, tref.nms_mask(*_t((boxes, scores, valid)), 0.45))
