@@ -41,10 +41,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and fp32 outside the
-# tensor cores -- the rates the bounds below divide by
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, fp32 outside the
+# tensor cores and dense TF32 on them -- the rates the bounds below divide by
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 
 SEED = 0
 
@@ -55,6 +56,16 @@ VIDEO_KERNELS = ("region_filter_mask_batch", "crop_gather", "onevsall_scores",
 
 def bound_ms(nbytes: float, ops: float):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def tc_bound_ms(nbytes: float, mma_flops: float, simt_ops: float):
+    """The bound of a kernel whose products run on the tensor cores in
+    3xTF32 (three TF32 products for each fp32 one) and the rest on the CUDA
+    cores: the larger of the bytes' time and the two units' times summed."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 3 * mma_flops / TF32_FLOP_PER_S + simt_ops / FP32_FLOP_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -106,11 +117,55 @@ def profile_device(torch, fn, reps: int = 1):
     return (total_us / reps / 1e3 if total_us > 0 else None), avgs
 
 
+def in_turns(fns, timer):
+    """Each of ``fns`` (name -> callable) timed by ``timer(fn)`` in turns,
+    forward then backward (a, b, b, a): the host's speed drifts within a
+    run.  Returns name -> [turn times]."""
+    times = {name: [] for name in fns}
+    for name in list(fns) + list(fns)[::-1]:
+        times[name].append(timer(fns[name]))
+    return times
+
+
+def host_us(torch, fn, calls: int = 1000) -> float:
+    """Host time per call of ``fn`` in microseconds over ``calls`` calls
+    (perf_counter, no synchronisation inside the window)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def measure(torch, fn, reps: int = 30):
     """(per-call time from CUDA events, device time per call from the
     profiler).  The first includes the host's launch path whenever the
     card waits for it; the second is the kernels' own execution time."""
     return time_ms(torch, fn, reps), profile_device(torch, fn, reps)[0]
+
+
+def versus_library(torch, kernel, library, reps: int = 30):
+    """A kernel and its library yardstick timed in turns (kernel, library,
+    library, kernel), each with its device time from the profiler:
+    ((kernel ms per call, device ms), (library ms, device ms), turns)."""
+    turns = in_turns({"kernel": kernel, "library": library},
+                     lambda fn: time_ms(torch, fn, reps))
+    return ((statistics.mean(turns["kernel"]),
+             profile_device(torch, kernel, reps)[0]),
+            (statistics.mean(turns["library"]),
+             profile_device(torch, library, reps)[0]), turns)
+
+
+def _report_turns(tag, turns, lib_timed, lib_name, card):
+    k, lib = turns["kernel"], turns["library"]
+    print(f"{tag} in turns (kernel, {lib_name}, {lib_name}, kernel): kernel "
+          f"{k[0]:.4f}, {k[1]:.4f} ms per call; {lib_name} {lib[0]:.4f}, "
+          f"{lib[1]:.4f} ms per call ({fmt(lib_timed[1])} on the device) "
+          f"[{card}]")
 
 
 def fmt(ms) -> str:
@@ -124,9 +179,9 @@ def ptxas_summary(build_log: str):
     name, spill = None, ""
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '_Z\w*?([a-z][a-z_]*_kernel)"
-                      r"(?:I((?:Li-?\d+E)+)E)?", line)
+                      r"(?:I((?:L[ib]-?\d+E)+)E)?", line)
         if m:
-            args = re.findall(r"Li(-?\d+)E", m.group(2) or "")
+            args = re.findall(r"L[ib](-?\d+)E", m.group(2) or "")
             name = m.group(1) + (f"<{', '.join(args)}>" if args else "")
         elif "spill stores" in line:
             spill = line.strip()
@@ -301,26 +356,68 @@ def phase_onevsall(torch, np, card):
         if not err <= 1e-6:
             raise AssertionError(f"K3 at B={b} G={g}: max abs error {err} "
                                  "exceeds 1e-6")
-        timed = measure(torch, lambda: ov.onevsall_scores(x_t, ws_t, widx))
+        kernel = lambda: ov.onevsall_scores(x_t, ws_t, widx)  # noqa: E731
         plain = measure(torch, lambda: ov.onevsall_scores_ref(x_t, ws_t,
                                                               widx))
-        lib = None
+        lib = turns = None
         if g == 1:
             w0 = ws_t[0]
-            lib = time_ms(torch, lambda: torch.sigmoid(torch.mm(x_t, w0)))
+            timed, lib, turns = versus_library(
+                torch, kernel, lambda: torch.sigmoid(torch.mm(x_t, w0)))
+        else:
+            timed = measure(torch, kernel)
         used = 1 if widx is None else int(widx.unique().numel())
         nbytes = ((b * d1 + used * d1 * c + b * c) * 4
                   + (b * 4 if g > 1 else 0))
         ops = b * c * (2 * d1 + 4)
         row = _row("onevsall_scores", "src/repro_torch/csrc/onevsall.cu",
                    "src/repro/kernels/onevsall.py:35",
-                   f"B={b} G={g} D1={d1} C={c}", err, timed, plain, lib,
-                   nbytes, ops)
-        _report(f"K3 onevsall_scores B={b} G={g} D1={d1} C={c}: max abs err "
-                f"{err:.3e}", row, card, "sigmoid(mm)" if g == 1 else None)
+                   f"B={b} G={g} D1={d1} C={c}", err, timed, plain,
+                   None if lib is None else lib[0], nbytes, ops)
+        tag = f"K3 onevsall_scores B={b} G={g} D1={d1} C={c}"
+        _report(f"{tag}: max abs err {err:.3e}", row, card,
+                "sigmoid(mm)" if g == 1 else None)
         if g == 1:                          # the full-budget classify batch
+            _report_turns(tag, turns, lib, "sigmoid(mm)", card)
+            row.update(library_device_ms=lib[1], turns_ms=turns,
+                       host_us=phase_k3_host_path(torch, np, card))
             main_row = row
     return main_row
+
+
+def phase_k3_host_path(torch, np, card, calls: int = 1000):
+    """Where K3's call time goes on the host at B = 1024: the wrapper, the
+    shared launch path ``_build.launch`` alone, the bare ctypes call with
+    the stream handle read once, and the per-call stream read the launch
+    path made before (a ``torch.cuda.Stream`` object), in microseconds per
+    call over ``calls`` calls; ``sigmoid(mm)`` beside them."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import onevsall as ov
+    b, d1, c = 1024, 129, 8
+    rng = np.random.default_rng(SEED + 2)
+    x = torch.as_tensor(rng.normal(0, 1, (b, d1)).astype(np.float32),
+                        device="cuda")
+    ws = torch.as_tensor(rng.normal(0, 1, (1, d1, c)).astype(np.float32),
+                         device="cuda")
+    w0 = ws[0]
+    out = torch.empty((b, c), device="cuda")
+    name = "vpaas_onevsall_scores"
+    args = (x.data_ptr(), ws.data_ptr(), None, out.data_ptr(), b, d1, c, 1)
+    bare = getattr(_build.library(), name)
+    stream = torch.cuda.current_stream().cuda_stream
+    turns = in_turns({
+        "wrapper": lambda: ov.onevsall_scores(x, ws),
+        "_build.launch": lambda: _build.launch(name, *args),
+        "bare ctypes call": lambda: bare(*args, stream),
+        "current_stream().cuda_stream":
+            lambda: torch.cuda.current_stream().cuda_stream,
+        "sigmoid(mm)": lambda: torch.sigmoid(torch.mm(x, w0))},
+        lambda fn: host_us(torch, fn, calls))
+    us = {what: statistics.mean(t) for what, t in turns.items()}
+    print(f"K3 host path B={b} D1={d1} C={c}, us per call over {calls} "
+          f"calls (two turns): " + ", ".join(
+              f"{what} {t:.2f}" for what, t in us.items()) + f" [{card}]")
+    return us
 
 
 # K5 at the learner's shape (one row per step), one full label-budget
@@ -468,10 +565,9 @@ def phase_nms(torch, np, card):
     # host-bound, and the host's speed drifts within a run
     fns = {"ops.nms_mask (K4a + greedy loop)": ops.nms_mask,
            "ref.nms_mask (plain)": ref.nms_mask}
-    times = {what: [] for what in fns}
-    for what in list(fns) + list(fns)[::-1]:
-        times[what].append(time_ms(torch, lambda: fns[what](
-            boxes, scores, valid), reps=10, warmup=2))
+    times = in_turns({what: (lambda fn=fn: fn(boxes, scores, valid))
+                      for what, fn in fns.items()},
+                     lambda fn: time_ms(torch, fn, reps=10, warmup=2))
     for what, fn in fns.items():
         dev, _ = profile_device(torch, lambda: fn(boxes, scores, valid))
         print(f"{what}, {n} greedy steps, F={f} N={n}: "
@@ -1097,15 +1193,18 @@ def phase_flash_attention(torch, np, card):
         if not (err <= ATTN_ATOL and bool(torch.isfinite(got).all())):
             raise AssertionError(f"K6 at d={d}: max abs error {err} exceeds "
                                  f"{ATTN_ATOL}")
-        timed = measure(torch, lambda: fa.flash_attention(q, k, v, **kw))
+        kernel = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
         plain = measure(torch, lambda: fa.flash_attention_ref(q, k, v, **kw))
-        lib = None
+        lib = turns = None
         if cap is None and window is None:
             # the same function: causal from the top-left corner is
             # q_offset 0; (b, heads, seq, d) layout made outside the timing
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True))
+            timed, lib, turns = versus_library(
+                torch, kernel, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True))
+        else:
+            timed = measure(torch, kernel)
         qp = np.arange(s_q)[:, None]
         kp = np.arange(s_kv)[None, :]
         mask = qp >= kp
@@ -1118,11 +1217,24 @@ def phase_flash_attention(torch, np, card):
         row = _row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                    "src/repro/kernels/flash_attention.py:86",
                    f"b={b} s_q={s_q} s_kv={s_kv} heads={n_q}/{n_kv} d={d} "
-                   f"window={window} softcap={cap}", err, timed, plain, lib,
-                   nbytes, ops)
-        _report(f"K6 flash_attention s_q={s_q} s_kv={s_kv} {n_q}/{n_kv} "
-                f"heads d={d} window={window} softcap={cap}: max abs err "
-                f"{err:.3e}", row, card, "sdpa" if lib is not None else None)
+                   f"window={window} softcap={cap}", err, timed, plain,
+                   None if lib is None else lib[0], nbytes, ops)
+        tc = ""
+        if d <= fa.MMA_HEAD_DIM:
+            # the products (QK^T and PV, 4d per pair) on the tensor cores in
+            # 3xTF32, the softmax on the CUDA cores
+            row["bound_tc_ms"], row["bound_tc_by"] = tc_bound_ms(
+                nbytes, pairs * n_q * 4 * d,
+                pairs * n_q * (_attn_ops_per_pair(d, cap) - 4 * d))
+            tc = (f", tensor-core bound {row['bound_tc_ms']:.6f} ms "
+                  f"({row['bound_tc_by']})")
+        tag = (f"K6 flash_attention s_q={s_q} s_kv={s_kv} {n_q}/{n_kv} heads "
+               f"d={d} window={window} softcap={cap}")
+        _report(f"{tag}: max abs err {err:.3e}{tc}", row, card,
+                "sdpa" if lib is not None else None)
+        if turns is not None:
+            _report_turns(tag, turns, lib, "sdpa", card)
+            row.update(library_device_ms=lib[1], turns_ms=turns)
         if main_row is None:
             main_row = row
     return main_row

@@ -5,7 +5,14 @@ raw device pointers, ``int`` sizes, ``float`` thresholds and the CUDA stream,
 launches its kernel and returns ``cudaGetLastError()``.  At first use the
 sources are compiled by ``nvcc`` for ``sm_90a`` -- one ``nvcc`` process per
 source, all started together -- linked into one shared library named by a
-hash of the sources and flags, and loaded with :mod:`ctypes`.
+hash of every file under ``csrc/`` (sources and headers) and the flags, and
+loaded with :mod:`ctypes`.
+
+The launch path is short because the small kernels' calls are host-bound:
+each launcher's ctypes function is bound once, when the library loads;
+:func:`check_operands` validates all of a kernel's operands in one pass;
+:func:`current_stream` reads the current stream's raw handle anew on every
+launch without building a ``torch.cuda.Stream`` object.
 
 ``-fmad=false`` (and no ``--use_fast_math``) keeps every multiply and add
 separately rounded and every division correctly rounded, which is what lets
@@ -23,7 +30,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -64,6 +71,7 @@ SIGNATURES = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
+_fns: Dict[str, ctypes._CFuncPtr] = {}   # launcher name -> bound function
 build_log = ""
 
 
@@ -77,11 +85,14 @@ def _nvcc() -> str:
     return path
 
 
-def _digest() -> str:
+def _digest(csrc: Path = CSRC) -> str:
+    """A hash of the flags and of every source and header under ``csrc``:
+    a changed ``.cuh`` rebuilds the library as a changed ``.cu`` does."""
     h = hashlib.sha256(" ".join(ARCH + CFLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+    files = sorted(p for p in csrc.rglob("*") if p.suffix in (".cu", ".cuh"))
+    for path in files:
+        h.update(str(path.relative_to(csrc)).encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -124,28 +135,39 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call), every launcher's
+    ctypes function bound once."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         for fn, argtypes in SIGNATURES.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+            _fns[fn] = f
         lib.vpaas_error_string.argtypes = [ctypes.c_int]
         lib.vpaas_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
 
+def current_stream() -> int:
+    """The raw handle of the current device's current CUDA stream, read on
+    every call (nothing is cached across streams or devices): what
+    ``torch.cuda.current_stream().cuda_stream`` gives, without building a
+    Stream object, read as PyTorch's own Triton launcher reads it."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+
+
 def launch(fn: str, *args) -> None:
     """Call one C launcher on the current stream; raise on a nonzero code.
 
     ``args`` excludes the trailing stream argument."""
-    lib = library()
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(lib, fn)(*args, stream)
+    if _lib is None:
+        library()
+    rc = _fns[fn](*args, current_stream())
     if rc != 0:
-        msg = lib.vpaas_error_string(rc).decode()
+        msg = _lib.vpaas_error_string(rc).decode()
         raise RuntimeError(f"{fn} failed to launch: CUDA error {rc} ({msg})")
 
 
@@ -155,15 +177,27 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
-               shape=None) -> None:
-    """Validate a kernel operand before its pointer goes to native code."""
-    if not t.is_cuda:
-        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
+Operand = Sequence      # (name, tensor, dtype, shape or None)
+
+
+def check_operands(*operands: Operand) -> None:
+    """Validate a kernel's operands, in one pass, before their pointers go
+    to native code: each ``(name, tensor, dtype, shape or None)`` must be a
+    contiguous CUDA tensor of that dtype (and shape) on the current device,
+    the device whose current stream :func:`launch` launches on."""
+    device = None
+    for name, t, dtype, shape in operands:
+        if not t.is_cuda:
+            raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+        if shape is not None and t.shape != shape:
+            raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                             f"got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous tensor")
+        if device is None:
+            device = torch.cuda.current_device()
+        if t.get_device() != device:
+            raise ValueError(f"{name}: on cuda:{t.get_device()}, expected "
+                             f"the current device cuda:{device}")

@@ -33,9 +33,9 @@ def crop_gather(frames: torch.Tensor, boxes: torch.Tensor,
     frames = frames.contiguous()
     boxes = boxes.contiguous()
     idxs = idxs.contiguous()
-    _build.check_cuda("frames", frames, torch.float32)
-    _build.check_cuda("boxes", boxes, torch.float32, (f, n, 4))
-    _build.check_cuda("idxs", idxs, torch.int32)
+    _build.check_operands(("frames", frames, torch.float32, None),
+                          ("boxes", boxes, torch.float32, (f, n, 4)),
+                          ("idxs", idxs, torch.int32, None))
     if idxs.dim() != 2 or idxs.shape[0] < 2:
         raise ValueError(f"idxs: expected (>=2, B), got {tuple(idxs.shape)}")
     if f == 0 or n == 0:

@@ -35,9 +35,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     S, n_kv = k_cache.shape[1], k_cache.shape[2]
     q = q.contiguous()
     k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
-    _build.check_cuda("q", q, torch.float32)
-    _build.check_cuda("k_cache", k_cache, torch.float32, (b, S, n_kv, d))
-    _build.check_cuda("v_cache", v_cache, torch.float32, (b, S, n_kv, d))
+    _build.check_operands(
+        ("q", q, torch.float32, None),
+        ("k_cache", k_cache, torch.float32, (b, S, n_kv, d)),
+        ("v_cache", v_cache, torch.float32, (b, S, n_kv, d)))
     if n_kv == 0 or n_q % n_kv or not 0 < d <= MAX_HEAD_DIM or S == 0:
         raise ValueError(f"decode_attention: unsupported heads {n_q}/{n_kv},"
                          f" head dim {d} or {S} cache slots")

@@ -2,10 +2,11 @@
 
 Port of the Pallas kernel ``repro.kernels.flash_attention.flash_attention``
 (source: ``csrc/flash_attention.cu``): GQA attention with an online softmax,
-causal mask, optional sliding window and logit softcap, float32.  The query
-offset is a device array read at run time (a scalar is broadcast to one
-entry per batch row), so the cache prefill's per-row cache index takes the
-kernel too.  The plain PyTorch version is :func:`flash_attention_ref`
+causal mask, optional sliding window and logit softcap, float32, its two
+products on the tensor cores in 3xTF32 for head dims up to 128 (CUDA cores
+above).  The query offset is a device array read at run time (a scalar is
+broadcast to one entry per batch row), so the cache prefill's per-row cache
+index takes the kernel too.  The plain PyTorch version is :func:`flash_attention_ref`
 (``ref.flash_attention``); the kernel agrees with it within
 ``testing.ATTN_ATOL``.
 """
@@ -22,11 +23,15 @@ launches = 0          # kernel launches since the last reset (ops.py)
 flash_attention_ref = ref.flash_attention
 
 MAX_HEAD_DIM = 256
+MMA_HEAD_DIM = 128    # up to here the tensor-core kernel, above the SIMT one
 
 
 def row_array(value, b: int, device, name: str) -> torch.Tensor:
     """An int, 0-d or (b,) integer tensor as a contiguous (b,) int32 tensor
     on ``device`` (one entry per batch row)."""
+    if (isinstance(value, torch.Tensor) and value.dtype == torch.int32
+            and value.device == device and value.numel() == 1 and b == 1):
+        return value.reshape(1)      # the prefill's own case: no copy
     t = torch.as_tensor(value, device=device)
     if t.is_floating_point():
         raise ValueError(f"{name}: expected integers, got {t.dtype}")
@@ -55,9 +60,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, s_q, n_q, d = q.shape
     s_kv, n_kv = k.shape[1], k.shape[2]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    _build.check_cuda("q", q, torch.float32)
-    _build.check_cuda("k", k, torch.float32, (b, s_kv, n_kv, d))
-    _build.check_cuda("v", v, torch.float32, (b, s_kv, n_kv, d))
+    _build.check_operands(("q", q, torch.float32, None),
+                          ("k", k, torch.float32, (b, s_kv, n_kv, d)),
+                          ("v", v, torch.float32, (b, s_kv, n_kv, d)))
     if n_kv == 0 or n_q % n_kv or not 0 < d <= MAX_HEAD_DIM or s_kv == 0:
         raise ValueError(f"flash_attention: unsupported heads {n_q}/{n_kv}, "
                          f"head dim {d} or {s_kv} keys")

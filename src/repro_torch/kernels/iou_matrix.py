@@ -34,8 +34,8 @@ def iou_matrix(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
                          .contiguous())
     c = _build.aligned16(boxes_b.reshape(b, m, boxes_b.shape[-1])
                          .contiguous())
-    _build.check_cuda("boxes_a", a, torch.float32, (b, n, 4))
-    _build.check_cuda("boxes_b", c, torch.float32, (b, m, 4))
+    _build.check_operands(("boxes_a", a, torch.float32, (b, n, 4)),
+                          ("boxes_b", c, torch.float32, (b, m, 4)))
     out = torch.empty((b, n, m), dtype=torch.float32, device=a.device)
     if b and n and m:
         _build.launch("vpaas_iou_matrix", a.data_ptr(), c.data_ptr(),

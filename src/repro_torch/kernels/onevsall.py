@@ -6,9 +6,9 @@ features X (B, d+1) with the bias-absorbing 1.  The kernel takes a stack of
 G readouts ``Ws`` (G, d+1, C) and an optional per-row readout index ``widx``
 (B,), so the full-budget classify (G = 1, no ``widx``) and the compacted
 cross-stream classify (one readout per stream, any number of streams)
-share it.  The plain PyTorch
-version is :func:`onevsall_scores_ref`; the kernel agrees with it within
-1e-6 (the dot products sum in another order).
+share it.  One warp computes one row.  The plain PyTorch version is
+:func:`onevsall_scores_ref`; the kernel agrees with it within
+``testing.ONEVSALL_ATOL`` (the dot products sum in another order).
 """
 from __future__ import annotations
 
@@ -40,12 +40,15 @@ def onevsall_scores(x: torch.Tensor, ws: torch.Tensor,
     g, _, c = ws.shape
     x = x.contiguous()
     ws = ws.contiguous()
-    _build.check_cuda("x", x, torch.float32)
-    _build.check_cuda("ws", ws, torch.float32, (g, d1, c))
-    if widx is not None:
+    if widx is None:
+        _build.check_operands(("x", x, torch.float32, None),
+                              ("ws", ws, torch.float32, (g, d1, c)))
+    else:
         widx = widx.to(torch.int32).contiguous()
-        _build.check_cuda("widx", widx, torch.int32, (b,))
-    out = torch.empty((b, c), dtype=torch.float32, device=x.device)
+        _build.check_operands(("x", x, torch.float32, None),
+                              ("ws", ws, torch.float32, (g, d1, c)),
+                              ("widx", widx, torch.int32, (b,)))
+    out = x.new_empty((b, c))
     if b:
         _build.launch("vpaas_onevsall_scores", x.data_ptr(), ws.data_ptr(),
                       None if widx is None else widx.data_ptr(),

@@ -45,9 +45,9 @@ def onevsall_update(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor, *,
         raise ValueError(f"onevsall_update: {c} classes exceed the kernel's "
                          f"{MAX_CLASSES}")
     x, y, w = x.contiguous(), y.contiguous(), w.contiguous()
-    _build.check_cuda("x", x, torch.float32)
-    _build.check_cuda("y", y, torch.float32, (b, c))
-    _build.check_cuda("w", w, torch.float32, (d1, c))
+    _build.check_operands(("x", x, torch.float32, None),
+                          ("y", y, torch.float32, (b, c)),
+                          ("w", w, torch.float32, (d1, c)))
     out = torch.empty_like(w)
     _build.launch("vpaas_onevsall_update", x.data_ptr(), y.data_ptr(),
                   w.data_ptr(), out.data_ptr(), b, d1, c, float(eta))

@@ -32,11 +32,12 @@ def region_filter_mask(proposals: torch.Tensor, prop_valid: torch.Tensor,
     prop_valid = prop_valid.contiguous()
     acc_valid = acc_valid.contiguous()
     loc_scores = loc_scores.contiguous()
-    _build.check_cuda("proposals", proposals, torch.float32, (n, 4))
-    _build.check_cuda("prop_valid", prop_valid, torch.bool, (n,))
-    _build.check_cuda("accepted", accepted, torch.float32, (m, 4))
-    _build.check_cuda("acc_valid", acc_valid, torch.bool, (m,))
-    _build.check_cuda("loc_scores", loc_scores, torch.float32, (n,))
+    _build.check_operands(
+        ("proposals", proposals, torch.float32, (n, 4)),
+        ("prop_valid", prop_valid, torch.bool, (n,)),
+        ("accepted", accepted, torch.float32, (m, 4)),
+        ("acc_valid", acc_valid, torch.bool, (m,)),
+        ("loc_scores", loc_scores, torch.float32, (n,)))
     keep = torch.empty((n,), dtype=torch.bool, device=proposals.device)
     if n:
         _build.launch("vpaas_region_filter_mask",

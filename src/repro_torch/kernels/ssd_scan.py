@@ -35,15 +35,16 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     n = B.shape[-1]
     x, dt, A = x.contiguous(), dt.contiguous(), A.contiguous()
     B, C = B.contiguous(), C.contiguous()
-    _build.check_cuda("x", x, torch.float32)
-    _build.check_cuda("dt", dt, torch.float32, (b, s, h))
-    _build.check_cuda("A", A, torch.float32, (h,))
-    _build.check_cuda("B", B, torch.float32, (b, s, n))
-    _build.check_cuda("C", C, torch.float32, (b, s, n))
+    operands = [("x", x, torch.float32, None),
+                ("dt", dt, torch.float32, (b, s, h)),
+                ("A", A, torch.float32, (h,)),
+                ("B", B, torch.float32, (b, s, n)),
+                ("C", C, torch.float32, (b, s, n))]
     if initial_state is not None:
         initial_state = initial_state.contiguous()
-        _build.check_cuda("initial_state", initial_state, torch.float32,
-                          (b, h, p, n))
+        operands.append(("initial_state", initial_state, torch.float32,
+                         (b, h, p, n)))
+    _build.check_operands(*operands)
     if not (0 < p <= MAX_HEAD_DIM and 0 < n <= MAX_STATE and chunk > 0):
         raise ValueError(f"ssd_scan: unsupported head dim {p}, state {n} "
                          f"or chunk {chunk}")

@@ -210,6 +210,16 @@ FLASH_CASES = [
 ]
 
 
+# s_q and s_kv not multiples of the tensor-core kernel's 64-row query tile
+# and 32-key tile; d = 36 and d = 18 padded with zeros to 64 and 32 (d = 18
+# also takes the 4-byte cp.async path)
+FLASH_RAGGED_CASES = [
+    (2, 70, 45, 4, 2, 36, True, None, None, 0),
+    (1, 67, 99, 2, 2, 112, False, None, None, 0),
+    (1, 65, 97, 2, 1, 18, True, 24, 15.0, 33),
+]
+
+
 def attention_case(b, s_q, s_kv, n_q, n_kv, d, seed=0):
     """Unit-normal q, k, v: (b, s_q, n_q, d), (b, s_kv, n_kv, d) x 2."""
     rng = np.random.default_rng(seed + 31 * s_q + d)

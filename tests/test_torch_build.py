@@ -1,0 +1,57 @@
+"""The port's kernel build and launch path (``repro_torch.kernels._build``)
+on the CPU: what names the built library, and the one-pass operand check
+that guards every pointer handed to native code."""
+import shutil
+import types
+
+import pytest
+import torch
+
+from repro_torch.kernels import _build
+
+
+def test_digest_covers_headers_as_well_as_sources(tmp_path):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    assert _build._digest(csrc) == _build._digest()
+    header = csrc / "primitives.cuh"
+    header.write_text(header.read_text() + "\n// changed\n")
+    changed = _build._digest(csrc)
+    assert changed != _build._digest()
+    (csrc / "flash_attention.cu").write_text(
+        (csrc / "flash_attention.cu").read_text() + "\n")
+    assert _build._digest(csrc) != changed
+    (csrc / "notes.txt").write_text("not a source")
+    assert _build._digest(csrc) == _build._digest(csrc)
+
+
+def _fake(shape=(2, 3), dtype=torch.float32, contiguous=True, device=0,
+          cuda=True):
+    """A stand-in for a CUDA tensor: the attributes the check reads."""
+    return types.SimpleNamespace(
+        is_cuda=cuda, dtype=dtype, shape=torch.Size(shape),
+        device=f"cuda:{device}" if cuda else "cpu",
+        is_contiguous=lambda: contiguous, get_device=lambda: device)
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(cuda=False), "CUDA"),
+    (dict(dtype=torch.float64), "float32"),
+    (dict(shape=(3, 2)), "shape"),
+    (dict(contiguous=False), "contiguous"),
+    (dict(device=1), "current device"),
+])
+def test_operand_check_rejects_each_fault(monkeypatch, bad, match):
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    good = ("x", _fake(), torch.float32, (2, 3))
+    _build.check_operands(good, ("y", _fake(), torch.float32, None))
+    with pytest.raises(ValueError, match=match):
+        _build.check_operands(good, ("y", _fake(**bad), torch.float32,
+                                     (2, 3)))
+
+
+def test_operand_check_rejects_cpu_tensors():
+    # what the on-card rejection tests see for a tensor left on the host
+    x = torch.zeros(4, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        _build.check_operands(("x", x, torch.float32, (4, 3)))

@@ -45,6 +45,47 @@ def test_bound_takes_the_slower_of_bytes_and_operations():
     assert by == "operations" and ms == pytest.approx(2.0)
 
 
+def test_tensor_core_bound_counts_three_tf32_products_per_fp32_one():
+    # 165 GFLOP of fp32 products are 495 GFLOP of TF32: 1 ms; 67 GFLOP of
+    # softmax on the CUDA cores: 1 ms more
+    ms, by = chip_smoke.tc_bound_ms(1.0, 165e9, 67e9)
+    assert by == "operations" and ms == pytest.approx(2.0)
+    ms, by = chip_smoke.tc_bound_ms(3.35e10, 165e9, 0.0)   # 10 ms of bytes
+    assert by == "bytes" and ms == pytest.approx(10.0)
+    # zamba2's prefill (73,920 causal pairs x 32 heads at d = 112): 6.6 us
+    # with the products on the tensor cores, 16.0 us on the CUDA cores
+    pairs = 384 * 385 // 2 * 32
+    nbytes = 4 * (2 * 384 * 32 * 112 + 2 * 384 * 32 * 112) + 4
+    ms, by = chip_smoke.tc_bound_ms(nbytes, pairs * 4 * 112, pairs * 5)
+    assert by == "operations" and ms == pytest.approx(0.006599, abs=1e-6)
+    assert chip_smoke.bound_ms(nbytes, pairs * (4 * 112 + 5))[0] == \
+        pytest.approx(0.015993, abs=1e-6)
+
+
+def test_in_turns_alternates_and_keeps_each_turn():
+    calls = []
+
+    def timer(fn):
+        calls.append(fn())
+        return float(len(calls))
+
+    times = chip_smoke.in_turns({"kernel": lambda: "k",
+                                 "library": lambda: "l"}, timer)
+    assert calls == ["k", "l", "l", "k"]
+    assert times == {"kernel": [1.0, 4.0], "library": [2.0, 3.0]}
+
+
+def test_versus_library_reports_both_device_times(monkeypatch):
+    monkeypatch.setattr(chip_smoke, "time_ms",
+                        lambda torch, fn, reps=30, warmup=5: fn())
+    monkeypatch.setattr(chip_smoke, "profile_device",
+                        lambda torch, fn, reps=1: (fn() / 10, None))
+    timed, lib, turns = chip_smoke.versus_library(None, lambda: 2.0,
+                                                  lambda: 4.0)
+    assert timed == (2.0, 0.2) and lib == (4.0, 0.4)
+    assert turns == {"kernel": [2.0, 2.0], "library": [4.0, 4.0]}
+
+
 def test_ssd_ops_counts_the_partial_chunk_by_its_length():
     # the count is the recurrence's, step by step: a sequence one step
     # longer than a chunk costs one more step, not a second full chunk,
@@ -83,3 +124,19 @@ def test_ptxas_summary_names_each_template_instance():
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ssd_scan_kernel: Used 128 registers, used 1 barriers; 56 bytes "
         "stack frame, 56 bytes spill stores, 104 bytes spill loads"]
+
+
+def test_ptxas_summary_names_bool_template_instances():
+    # K3's two instances, onevsall_kernel<true> (the staged readout) and
+    # <false>, mangle their argument as Lb1E / Lb0E
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115"
+        "onevsall_kernelILb0EEEvPKfS2_PKiPfiiii' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 61 registers, used 0 barriers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115"
+        "onevsall_kernelILb1EEEvPKfS2_PKiPfiiii' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 1 barriers"])
+    assert [line.split(":")[0] for line in chip_smoke.ptxas_summary(log)] \
+        == ["onevsall_kernel<0>", "onevsall_kernel<1>"]

@@ -32,7 +32,8 @@ from repro_torch.models import transformer as tfm
 from repro_torch.serving.server import LLMServer, Request
 from repro_torch.learning import ContinualLearningPlane, LearningConfig
 from repro_torch.testing import (ATTN_ATOL, DECODE_CASES, FILTER_CASES,
-                                 FILTER_KW, FLASH_CASES, IOU_CASES,
+                                 FILTER_KW, FLASH_CASES, FLASH_RAGGED_CASES,
+                                 IOU_CASES,
                                  LEARN_RTOL, LLM_RTOL, MODEL_ATOL,
                                  ONEVSALL_ATOL, SSD_CASES, SSD_RTOL,
                                  UPDATE_ETA, UPDATE_RTOL, CodecTap,
@@ -136,7 +137,9 @@ def test_crop_gather_kernel_matches_plain(cuda, case):
 @pytest.mark.parametrize("b,d,c,g", [(64, 17, 10, 1), (130, 33, 21, 1),
                                      (1024, 129, 8, 1), (128, 129, 8, 8),
                                      (300, 129, 8, 40), (128, 129, 8, 64),
-                                     (512, 129, 8, 320)])
+                                     (512, 129, 8, 320), (1024, 129, 8, 64),
+                                     (1024, 129, 8, 320), (13, 129, 8, 1),
+                                     (37, 33, 21, 5)])
 def test_onevsall_kernel_matches_plain(cuda, b, d, c, g):
     x, ws, widx = onevsall_case(b, d, c, g)
     x_t, ws_t = _t((x, ws), cuda)
@@ -284,6 +287,37 @@ def test_kernel_rejects_bad_operands(cuda):
         ov.onevsall_scores(*_t((x.astype(np.float64), ws), cuda))
     with pytest.raises(ValueError, match="CUDA"):
         ov.onevsall_scores(torch.as_tensor(x), torch.as_tensor(ws, device=cuda))
+    with pytest.raises(ValueError, match="shape"):
+        ov.onevsall_scores(*_t((x, ws), cuda),
+                           torch.zeros(3, dtype=torch.int32, device=cuda))
+
+
+def test_launch_lands_on_the_current_stream(cuda):
+    # the launch path reads the current stream's raw handle on every call:
+    # on a side stream the kernel queues behind that stream's work (x2 is
+    # written only after a sleep there), and inside a CUDA graph capture it
+    # is captured, so a replay recomputes it from new inputs
+    x, ws, _ = onevsall_case(1024, 129, 8)
+    x_t, ws_t = _t((x, ws), cuda)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(100_000_000)
+        x2 = x_t * 2
+        got = ov.onevsall_scores(x2, ws_t)
+    s.synchronize()
+    assert float((got - ov.onevsall_scores_ref(x_t * 2, ws_t)).abs().max()) \
+        <= ONEVSALL_ATOL
+    graph = torch.cuda.CUDAGraph()
+    ov.onevsall_scores(x_t, ws_t)                  # warm-up off the graph
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        out = ov.onevsall_scores(x_t, ws_t)
+    x_t.mul_(-0.5)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert float((out - ov.onevsall_scores_ref(x_t, ws_t)).abs().max()) \
+        <= ONEVSALL_ATOL
 
 
 def _sync_err(got, want):
@@ -291,10 +325,12 @@ def _sync_err(got, want):
     return float((got - want).abs().max())
 
 
-@pytest.mark.parametrize("case", FLASH_CASES + [
+@pytest.mark.parametrize("case", FLASH_CASES + FLASH_RAGGED_CASES + [
     (1, 384, 512, 32, 32, 112, True, None, None, 0),      # zamba2 prefill
     (1, 128, 192, 8, 4, 256, True, 64, 50.0, 0),          # GQA/window/cap
-    (3, 24, 64, 4, 2, 64, True, 20, 30.0, [0, 17, 40])])  # per-row offset
+    (3, 24, 64, 4, 2, 64, True, 20, 30.0, [0, 17, 40]),   # per-row offset
+    (1, 384, 512, 32, 16, 128, True, 64, 50.0, 0),        # d = 128
+    (2, 130, 300, 8, 2, 96, True, None, None, [170, 0])])
 def test_flash_attention_kernel_matches_plain(cuda, case):
     b, s_q, s_kv, n_q, n_kv, d, causal, window, cap, off = case
     q, k, v = _t(attention_case(b, s_q, s_kv, n_q, n_kv, d), cuda)

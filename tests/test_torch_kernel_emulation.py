@@ -5,7 +5,12 @@ against a small emulation of the CUDA runtime written below: a block's
 threads run as ``std::thread``s, ``__syncthreads``/``__syncwarp`` are
 barriers, warp shuffles go through a per-warp buffer, shared memory starts
 as NaNs (so a read before a write shows), and each ``<<<...>>>`` launch
-becomes a call that runs the grid block by block.  The Python wrappers then
+becomes a call that runs the grid block by block.  The primitives of
+``csrc/primitives.cuh`` have host versions here: ``mma.sync`` m16n8k8 tf32
+gathers the warp's fragments through a per-warp buffer in the PTX ISA's
+layout and sums each output's eight exact products in double,
+``cvt.rna.tf32`` rounds the bits, ``cp.async`` copies at once (commit and
+wait do nothing).  The Python wrappers then
 call the C launchers exactly as on the card, on CPU tensors, and the
 results are held against the plain versions with the on-card tolerances.
 This checks each kernel's indexing, masking and arithmetic here (a
@@ -34,7 +39,8 @@ from repro_torch.kernels import onevsall_update as ou
 from repro_torch.kernels import region_filter_mask as rf
 from repro_torch.kernels import ssd_scan as sk
 from repro_torch.testing import (ATTN_ATOL, DECODE_CASES, FILTER_KW,
-                                 FLASH_CASES, IOU_CASES, ONEVSALL_ATOL,
+                                 FLASH_CASES, FLASH_RAGGED_CASES, IOU_CASES,
+                                 ONEVSALL_ATOL,
                                  SSD_CASES, SSD_RTOL, UPDATE_ETA, UPDATE_RTOL,
                                  attention_case, crop_cases, decode_case,
                                  filter_case, frame_filter_case, iou_case,
@@ -54,6 +60,7 @@ EMU_HEADER = r"""
 using std::max; using std::min;
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __restrict__
 #define __launch_bounds__(...)
@@ -73,9 +80,12 @@ inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
+// ex2.approx of the rounded product, as the card computes __expf
+inline float __expf(float x) { return std::exp2(x * 1.44269504f); }
 struct EmuBlock { std::barrier<>* bar;
   std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
-  std::vector<double> xchg; std::vector<char> dyn; };
+  std::vector<double> xchg; std::vector<uint32_t> mma;
+  std::vector<char> dyn; };
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline thread_local EmuBlock* emu_blk;
 inline void __syncthreads() { emu_blk->bar->arrive_and_wait(); }
@@ -105,6 +115,7 @@ inline void emu_launch(dim3 g, dim3 b, size_t smem, std::function<void()> fn) {
     for (int w = 0; w < (nt + 31) / 32; ++w)
       blk.warp_bar.emplace_back(new std::barrier<>(32));
     blk.xchg.assign(((nt + 31) / 32) * 32, 0.0);
+    blk.mma.assign(((nt + 31) / 32) * 32 * 6, 0u);
     blk.dyn.assign(smem + 16, 0);
     float nan = NAN;
     for (size_t i = 0; i + 4 <= blk.dyn.size(); i += 4)
@@ -117,12 +128,49 @@ inline void emu_launch(dim3 g, dim3 b, size_t smem, std::function<void()> fn) {
     for (auto& th : ts) th.join();
   } }
 #define EMU_DYN_SMEM(T, name) T* name = reinterpret_cast<T*>(emu_blk->dyn.data())
+// csrc/primitives.cuh
+inline float __uint_as_float(uint32_t u) {
+  float f; std::memcpy(&f, &u, 4); return f; }
+inline uint32_t __float_as_uint(float f) {
+  uint32_t u; std::memcpy(&u, &f, 4); return u; }
+inline uint32_t tf32_rna(float x) {       // round half away from zero
+  uint32_t u = __float_as_uint(x);
+  if ((u & 0x7f800000u) == 0x7f800000u) return u;          // inf, nan
+  return (u + 0x1000u) & 0xffffe000u; }
+inline void mma_tf32_m16n8k8(float d[4], const uint32_t a[4],
+                             const uint32_t b[2]) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  uint32_t* buf = emu_blk->mma.data() + (threadIdx.x / 32) * 32 * 6;
+  for (int i = 0; i < 4; ++i) buf[lane * 6 + i] = a[i];
+  buf[lane * 6 + 4] = b[0]; buf[lane * 6 + 5] = b[1];
+  __syncwarp();
+  // A[r][k] lives in lane (r % 8) * 4 + k % 4, register r / 8 + 2 (k / 4);
+  // B[k][n] in lane n * 4 + k % 4, register k / 4; the tensor core reads
+  // only the tf32 bits of each
+  auto tf = [](uint32_t u) {
+    return (double)__uint_as_float(u & 0xffffe000u); };
+  for (int i = 0; i < 4; ++i) {
+    const int r = g + 8 * (i / 2), c = 2 * t + i % 2;
+    double acc = d[i];
+    for (int k = 0; k < 8; ++k)
+      acc += tf(buf[((r % 8) * 4 + k % 4) * 6 + r / 8 + 2 * (k / 4)]) *
+             tf(buf[(c * 4 + k % 4) * 6 + 4 + k / 4]);
+    d[i] = (float)acc;
+  }
+  __syncwarp(); }
+inline void cp_async_16(void* s, const void* g, bool pred) {
+  if (pred) std::memcpy(s, g, 16); else std::memset(s, 0, 16); }
+inline void cp_async_4(void* s, const void* g, bool pred) {
+  if (pred) std::memcpy(s, g, 4); else std::memset(s, 0, 4); }
+inline void cp_async_commit() {}
+template <int N> void cp_async_wait() {}
 """
 
 
 def _to_cpp(src: str) -> str:
     """A .cu source as C++ for the emulation header."""
     src = src.replace("#include <cuda_runtime.h>", '#include "cuda_emu.h"')
+    src = src.replace('#include "primitives.cuh"', "")   # in cuda_emu.h
     src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
                  r"EMU_DYN_SMEM(\1, \2);", src)
     src = src.replace("__shared__", "static")   # one block runs at a time
@@ -137,30 +185,42 @@ def _to_cpp(src: str) -> str:
                   flags=re.S)
 
 
+def _compile(cxx, out, name, source):
+    """Start g++ on one .cu source against the emulation header."""
+    header = out / "cuda_emu.h"
+    if not header.exists():        # other compiles may be reading it
+        header.write_text(EMU_HEADER)
+    cpp = out / name.replace(".cu", ".cpp")
+    cpp.write_text(_to_cpp(source))
+    lib = out / ("lib" + name.replace(".cu", ".so"))
+    return name, lib, subprocess.Popen(
+        [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+         "-pthread", "-I", str(out), "-o", str(lib), str(cpp)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _load(name, lib, proc):
+    log, _ = proc.communicate(timeout=300)
+    assert proc.returncode == 0, f"{name} does not compile:\n{log}"
+    return ctypes.CDLL(str(lib))
+
+
+def _cxx():
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler to emulate the CUDA kernels")
+    return cxx
+
+
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
     """Compile every source; patch the wrappers' launch and operand check
     to the emulated launchers for CPU tensors."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("needs a host C++ compiler to emulate the CUDA kernels")
+    cxx = _cxx()
     out = tmp_path_factory.mktemp("cuda_emu")
-    (out / "cuda_emu.h").write_text(EMU_HEADER)
-    procs = []
-    for name in _build.SOURCES:
-        cpp = out / name.replace(".cu", ".cpp")
-        cpp.write_text(_to_cpp((_build.CSRC / name).read_text()))
-        lib = out / ("lib" + name.replace(".cu", ".so"))
-        procs.append((name, lib, subprocess.Popen(
-            [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC",
-             "-shared", "-pthread", "-I", str(out), "-o", str(lib),
-             str(cpp)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    libs = []
-    for name, lib, proc in procs:
-        log, _ = proc.communicate(timeout=300)
-        assert proc.returncode == 0, f"{name} does not compile:\n{log}"
-        libs.append(ctypes.CDLL(str(lib)))
+    procs = [_compile(cxx, out, name, (_build.CSRC / name).read_text())
+             for name in _build.SOURCES]
+    libs = [_load(*p) for p in procs]
     fns = {}
     for fn, argtypes in _build.SIGNATURES.items():
         lib = next(lib for lib in libs if hasattr(lib, fn))
@@ -172,18 +232,76 @@ def emulated(tmp_path_factory):
         rc = fns[fn](*args, None)
         assert rc == 0, f"{fn} returned {rc}"
 
-    def check(name, t, dtype, shape=None):
-        if t.dtype != dtype:
-            raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
-        if shape is not None and tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name}: expected shape {tuple(shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: expected a contiguous tensor")
+    def check(*operands):
+        # _build.check_operands without the device checks (CPU tensors)
+        for name, t, dtype, shape in operands:
+            if t.dtype != dtype:
+                raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+            if shape is not None and tuple(t.shape) != tuple(shape):
+                raise ValueError(f"{name}: expected shape {tuple(shape)}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name}: expected a contiguous tensor")
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(_build, "launch", launch)
-        mp.setattr(_build, "check_cuda", check)
+        mp.setattr(_build, "check_operands", check)
         yield
+
+
+MMA_PROBE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include "primitives.cuh"
+// one warp: fragments of row-major A (16x8), B (8x8), C (16x8) loaded in
+// the layout csrc/primitives.cuh states, D = C + A B stored row-major
+__global__ void mma_probe_kernel(const float* A, const float* B,
+                                 const float* C, float* D, uint32_t* R) {
+  const int lane = threadIdx.x, g = lane / 4, t = lane % 4;
+  const uint32_t a[4] = {tf32_rna(A[g * 8 + t]), tf32_rna(A[(g + 8) * 8 + t]),
+                         tf32_rna(A[g * 8 + t + 4]),
+                         tf32_rna(A[(g + 8) * 8 + t + 4])};
+  const uint32_t b[2] = {tf32_rna(B[t * 8 + g]), tf32_rna(B[(t + 4) * 8 + g])};
+  float d[4] = {C[g * 8 + 2 * t], C[g * 8 + 2 * t + 1],
+                C[(g + 8) * 8 + 2 * t], C[(g + 8) * 8 + 2 * t + 1]};
+  mma_tf32_m16n8k8(d, a, b);
+  D[g * 8 + 2 * t] = d[0];
+  D[g * 8 + 2 * t + 1] = d[1];
+  D[(g + 8) * 8 + 2 * t] = d[2];
+  D[(g + 8) * 8 + 2 * t + 1] = d[3];
+  for (int i = lane; i < 128; i += 32) R[i] = tf32_rna(A[i]);
+}
+extern "C" int mma_probe(const float* A, const float* B, const float* C,
+                         float* D, uint32_t* R) {
+  mma_probe_kernel<<<1, 32>>>(A, B, C, D, R);
+  return 0;
+}
+"""
+
+
+def _tf32(a: np.ndarray) -> np.ndarray:
+    """cvt.rna.tf32.f32 in numpy: round the 13 low mantissa bits off, ties
+    away from zero (the bits are sign-magnitude)."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((u + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_emulated_mma_tf32_matches_numpy(tmp_path):
+    lib = _load(*_compile(_cxx(), tmp_path, "mma_probe.cu", MMA_PROBE))
+    rng = np.random.default_rng(3)
+    a = rng.normal(size=(16, 8)).astype(np.float32)
+    a[0, :4] = [1 + 2.0 ** -11, -(1 + 2.0 ** -11),       # ties: away
+                1 + 2.0 ** -11 - 2.0 ** -23, 3.0]        # below: down
+    b = _tf32(rng.normal(size=(8, 8)).astype(np.float32))
+    c = rng.normal(size=(16, 8)).astype(np.float32)
+    d = np.empty((16, 8), np.float32)
+    r = np.empty((16, 8), np.uint32)
+    ptr = lambda x: x.ctypes.data_as(ctypes.c_void_p)     # noqa: E731
+    assert lib.mma_probe(ptr(a), ptr(b), ptr(c), ptr(d), ptr(r)) == 0
+    assert np.array_equal(r.view(np.float32), _tf32(a))
+    assert list(r.view(np.float32)[0, :4]) == [1 + 2.0 ** -10,
+                                               -(1 + 2.0 ** -10), 1.0, 3.0]
+    want = c.astype(np.float64) + _tf32(a).astype(np.float64) @ b
+    np.testing.assert_allclose(d, want.astype(np.float32), rtol=0, atol=1e-6)
 
 
 def _t(arrays):
@@ -222,13 +340,20 @@ def test_crop_gather_source_matches_plain(emulated, case):
                        cg.crop_gather_ref(*args, out_hw=out_hw))
 
 
-@pytest.mark.parametrize("b,d,c,g", [(64, 17, 10, 1), (40, 129, 8, 9)])
+@pytest.mark.parametrize("b,d,c,g", [
+    (64, 17, 10, 1), (40, 129, 8, 9),
+    (13, 129, 8, 1),            # B not a multiple of a block's 8 rows
+    (0, 129, 8, 1),             # no rows: no launch
+    (37, 33, 21, 1), (21, 33, 21, 5),    # C = 21: three class chunks
+    (50, 129, 8, 320)])         # G = 320 readouts (the ensemble's G x T)
 def test_onevsall_source_matches_plain(emulated, b, d, c, g):
     x, ws, widx = _t(onevsall_case(b, d, c, g))
     widx = None if g == 1 else widx
     got = ov.onevsall_scores(x, ws, widx)
-    assert float((got - ov.onevsall_scores_ref(x, ws, widx)).abs().max()) \
-        <= ONEVSALL_ATOL
+    assert got.shape == (b, c)
+    if b:
+        assert float((got - ov.onevsall_scores_ref(x, ws, widx)).abs()
+                     .max()) <= ONEVSALL_ATOL
 
 
 @pytest.mark.parametrize("b", [1, 130, 300])
@@ -244,8 +369,9 @@ def test_onevsall_update_source_matches_plain(emulated, b, d1, c):
     assert torch.equal(ou.onevsall_update(x, y, w, eta=UPDATE_ETA), got)
 
 
-@pytest.mark.parametrize("case", FLASH_CASES,
-                         ids=[f"flash{i}" for i in range(len(FLASH_CASES))])
+@pytest.mark.parametrize("case", FLASH_CASES + FLASH_RAGGED_CASES,
+                         ids=[f"flash{i}" for i in range(
+                             len(FLASH_CASES) + len(FLASH_RAGGED_CASES))])
 def test_flash_attention_source_matches_plain(emulated, case):
     b, s_q, s_kv, n_q, n_kv, d, causal, window, cap, off = case
     q, k, v = _t(attention_case(b, s_q, s_kv, n_q, n_kv, d))
