@@ -26,6 +26,11 @@ check raises; nothing is caught.  The last three lines are the card's name
 and power limit, one JSON object describing the kernels, and
 ``{"ok": true, "device": {...}}``.
 
+``--parent DIR`` names another checkout (the parent commit unpacked with
+``git archive``): its K7 and K8 phases then run in a subprocess before and
+after this tree's, on the same card, and their device times are printed
+beside this tree's.
+
 Without a CUDA device, or without the repository's ``src/repro_torch`` next
 to it, the script exits non-zero and prints no result.
 """
@@ -100,6 +105,21 @@ def _self_device_us(event) -> float:
     return 0.0
 
 
+def device_us_per_call(avgs, reps: int) -> float:
+    """Device time of one call from a profile of ``reps`` identical calls:
+    each kernel's mean duration times its launches per call, rounded to a
+    whole number.  The profiler can drop a few kernel events of a window
+    (3 of 20 in a run of K7, 3 of 30 of K8); dividing the plain sum by
+    ``reps`` would count them as time the card did not spend."""
+    total = 0.0
+    for e in avgs:
+        us = _self_device_us(e)
+        if us > 0:
+            per_call = round(e.count / reps) or e.count / reps
+            total += us / e.count * per_call
+    return total
+
+
 def profile_device(torch, fn, reps: int = 1):
     """Run ``fn`` ``reps`` times under torch.profiler (CUPTI); return the
     device time per call in ms and the key averages (None when the
@@ -113,8 +133,8 @@ def profile_device(torch, fn, reps: int = 1):
             fn()
         torch.cuda.synchronize()
     avgs = prof.key_averages()
-    total_us = sum(_self_device_us(e) for e in avgs)
-    return (total_us / reps / 1e3 if total_us > 0 else None), avgs
+    total_us = device_us_per_call(avgs, reps)
+    return (total_us / 1e3 if total_us > 0 else None), avgs
 
 
 def in_turns(fns, timer):
@@ -1240,6 +1260,29 @@ def phase_flash_attention(torch, np, card):
     return main_row
 
 
+def device_kernels(avgs, reps: int):
+    """The device kernels of a profiled call: ((name, launches per call as
+    the profiler counted them), ...) by device time, and the number of
+    distinct kernels."""
+    dev = sorted((e for e in avgs if _self_device_us(e) > 0),
+                 key=_self_device_us, reverse=True)
+    return [(e.key, e.count / reps) for e in dev], len(dev)
+
+
+def decode_rows(lens, S, window) -> int:
+    """Valid cache rows of a K7 call: slots [len - window, len) or
+    [0, len) of each batch row, within the S slots."""
+    lens = [max(0, min(n, S)) for n in lens]
+    return sum(n - (max(0, n - window) if window else 0) for n in lens)
+
+
+def decode_nbytes(b, n_q, n_kv, d, lens, S, window) -> int:
+    """Bytes K7's function must move: q and the output, each valid K and V
+    row once, the lengths."""
+    rows = decode_rows(lens, S, window)
+    return 4 * (2 * b * n_q * d + 2 * rows * n_kv * d) + 4 * b
+
+
 def phase_decode_attention(torch, np, card):
     import torch.nn.functional as F
 
@@ -1262,32 +1305,49 @@ def phase_decode_attention(torch, np, card):
         if not (err <= ATTN_ATOL and bool(torch.isfinite(got).all())):
             raise AssertionError(f"K7 at d={d}: max abs error {err} exceeds "
                                  f"{ATTN_ATOL}")
-        timed = measure(torch, lambda: da.decode_attention(q, kc, vc, cl,
-                                                           **kw))
+        if not torch.equal(da.decode_attention(q, kc, vc, cl, **kw), got):
+            raise AssertionError(f"K7 at d={d}: not bit-identical run to run")
+        kernel = lambda: da.decode_attention(q, kc, vc, cl, **kw)  # noqa: E731
         plain = measure(torch, lambda: da.decode_attention_ref(q, kc, vc, cl,
                                                                **kw))
-        lib = None
+        lib = turns = sdpa_kernels = None
         if cap is None and window is None:
             valid = (torch.arange(S, device="cuda")[None, :]
                      < cl[:, None].long())[:, None, None, :]
             qt = q[:, :, None, :]
             kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
-            lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=valid))
-        lens = np.asarray(clen)
-        lo = np.maximum(0, lens - window) if window else np.zeros_like(lens)
-        rows = int((np.minimum(lens, S) - lo).sum())     # valid cache rows
-        nbytes = 4 * (2 * b * n_q * d + 2 * rows * n_kv * d) + 4 * b
-        ops = rows * n_q * _attn_ops_per_pair(d, cap)
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, attn_mask=valid)
+            timed, lib, turns = versus_library(torch, kernel, sdpa)
+            # SDPA picks its backend itself for an fp32 boolean mask
+            sdpa_kernels = device_kernels(profile_device(torch, sdpa, 10)[1],
+                                          10)[0]
+        else:
+            timed = measure(torch, kernel)
+        names, per_call = device_kernels(profile_device(torch, kernel, 10)[1],
+                                         10)
+        nbytes = decode_nbytes(b, n_q, n_kv, d, clen, S, window)
+        ops = decode_rows(clen, S, window) * n_q * _attn_ops_per_pair(d, cap)
         row = _row("decode_attention",
                    "src/repro_torch/csrc/decode_attention.cu",
                    "src/repro/kernels/decode_attention.py:73",
                    f"b={b} S={S} heads={n_q}/{n_kv} d={d} lens={clen} "
-                   f"window={window} softcap={cap}", err, timed, plain, lib,
-                   nbytes, ops)
-        _report(f"K7 decode_attention b={b} S={S} {n_q}/{n_kv} heads d={d} "
-                f"window={window} softcap={cap}: max abs err {err:.3e}", row,
-                card, "sdpa" if lib is not None else None)
+                   f"window={window} softcap={cap}", err, timed, plain,
+                   None if lib is None else lib[0], nbytes, ops)
+        per, nsplit = da.splits(b, S, n_kv, window)
+        row.update(splits=nsplit, device_kernels_per_call=per_call)
+        tag = (f"K7 decode_attention b={b} S={S} {n_q}/{n_kv} heads d={d} "
+               f"window={window} softcap={cap}")
+        _report(f"{tag}: max abs err {err:.3e}, {nsplit} splits of {per} "
+                f"slots, {per_call:g} device kernels per call "
+                f"({', '.join(n[:40] for n, _ in names)})", row, card,
+                "sdpa" if lib is not None else None)
+        if turns is not None:
+            _report_turns(tag, turns, lib, "sdpa", card)
+            print("  sdpa's device kernels: " + "; ".join(
+                f"{n[:80]} x{c:g}" for n, c in sdpa_kernels))
+            row.update(library_device_ms=lib[1], turns_ms=turns,
+                       library_kernels=[n for n, _ in sdpa_kernels])
         if main_row is None:
             main_row = row
     return main_row
@@ -1300,6 +1360,21 @@ def ssd_ops(b, s, h, p, n) -> int:
     chunked form the kernel runs does more; it is the TPU kernel's choice
     for its matrix units, not what the function costs."""
     return b * h * s * (5 * p * n + p + 2)
+
+
+def ssd_tc_ops(b, s, h, p, n, chunk):
+    """(matrix-product flops, other flops) of the chunked form K8 runs on
+    the tensor cores: per (row, head), C B^T and W U on each chunk's causal
+    triangle (2n and 2p per pair), the chunk states U^T (B o decay) and the
+    incoming C S^T (2pn per step each); besides them the decay weights
+    (a difference, an exp and a product per pair), per step u = x dt and
+    its decay (2p), exp(cum_i) C S added to y (2p), the cumsum and decays
+    (5), and the recurrence across chunks (2pn per chunk)."""
+    lens = [min(chunk, s - c0) for c0 in range(0, s, chunk)]
+    pairs = sum(n_ * (n_ + 1) // 2 for n_ in lens)
+    mma = b * h * (2 * (n + p) * pairs + 4 * s * p * n)
+    other = b * h * (3 * pairs + s * (4 * p + 5) + 2 * p * n * len(lens))
+    return mma, other
 
 
 def phase_ssd_scan(torch, np, card):
@@ -1327,8 +1402,14 @@ def phase_ssd_scan(torch, np, card):
             raise AssertionError(f"K8 at n={n} weak_decay={weak}: error "
                                  f"{err} of the output "
                                  f"scale exceeds {SSD_RTOL}")
-        timed = measure(torch, lambda: sk.ssd_scan(x, dt, A, B, C, **kw))
+        y2, fin2 = sk.ssd_scan(x, dt, A, B, C, **kw)
+        if not (torch.equal(y2, y) and torch.equal(fin2, fin)):
+            raise AssertionError(f"K8 at n={n}: not bit-identical run to run")
+        kernel = lambda: sk.ssd_scan(x, dt, A, B, C, **kw)  # noqa: E731
+        timed = measure(torch, kernel)
         plain = measure(torch, lambda: sk.ssd_scan_ref(x, dt, A, B, C, **kw))
+        names, per_call = device_kernels(profile_device(torch, kernel, 10)[1],
+                                         10)
         nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n
                       + (2 if init else 1) * b * h * p * n)
         row = _row("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
@@ -1336,12 +1417,57 @@ def phase_ssd_scan(torch, np, card):
                    f"b={b} s={s} h={h} p={p} n={n} chunk={chunk} "
                    f"initial_state={init} weak_decay={weak}", err, timed,
                    plain, None, nbytes, ssd_ops(b, s, h, p, n))
+        mma, other = ssd_tc_ops(b, s, h, p, n, chunk)
+        row["bound_tc_ms"], row["bound_tc_by"] = tc_bound_ms(nbytes, mma,
+                                                             other)
+        row.update(path=sk.path(p, n), device_kernels_per_call=per_call)
         _report(f"K8 ssd_scan s={s} h={h} p={p} n={n} chunk={chunk} "
                 f"initial_state={init} weak_decay={weak}: error {err:.3e} of "
-                f"the output scale", row, card)
+                f"the output scale, {row['path']} path, {per_call:g} device "
+                f"kernels per call ({', '.join(n_[:40] for n_, _ in names)}),"
+                f" tensor-core bound {row['bound_tc_ms']:.6f} ms "
+                f"({row['bound_tc_by']}; {mma / 1e9:.3f} GFLOP of products)",
+                row, card)
         if main_row is None:
             main_row = row
     return main_row
+
+
+PARENT_PHASES = """
+import sys
+sys.path[:0] = [{root!r}, {src!r}]
+import numpy as np
+import torch
+import chip_smoke as cs
+from repro_torch import set_reference_precision
+set_reference_precision()
+card = cs.card_line()
+cs.phase_decode_attention(torch, np, card)
+cs.phase_ssd_scan(torch, np, card)
+"""
+
+
+def parent_device_ms(root: str, card: str):
+    """Run the K7 and K8 phases of another checkout (the parent commit,
+    unpacked with ``git archive``) in a subprocess on this card; relay its
+    lines and return the device ms of its zamba2 rows, K7 then K8."""
+    import re
+    code = PARENT_PHASES.format(root=os.path.abspath(root),
+                                src=os.path.join(os.path.abspath(root),
+                                                 "src"))
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=900)
+    if run.returncode != 0:
+        raise RuntimeError(f"the parent's K7/K8 phases failed:\n"
+                           f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+    found = {}
+    for line in run.stdout.splitlines():
+        m = re.match(r"(K[78]) .*?ms per call \((\d+\.\d+) ms on the device",
+                     line)
+        if m:
+            print(f"  parent: {line}")
+            found.setdefault(m.group(1), float(m.group(2)))
+    return found.get("K7"), found.get("K8")
 
 
 # ---------------------------------------------------------------------------
@@ -1573,6 +1699,13 @@ def phase_llm_reference(torch, np, card):
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", metavar="DIR",
+                    help="another checkout (e.g. the parent commit from git "
+                         "archive): its K7 and K8 phases run before and "
+                         "after this tree's, on the same card")
+    args = ap.parse_args()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         raise SystemExit("chip_smoke.py: src/repro_torch not found next to "
                          "this script; run it from a checkout of the repo")
@@ -1600,9 +1733,18 @@ def main() -> int:
     update_row = phase_onevsall_update(torch, np, card)
     iou_row = phase_iou_matrix(torch, np, card)
     frame_row = phase_frame_filter(torch, np, card)
-    llm_rows = [phase_flash_attention(torch, np, card),
-                phase_decode_attention(torch, np, card),
-                phase_ssd_scan(torch, np, card)]
+    llm_rows = [phase_flash_attention(torch, np, card)]
+    before = parent_device_ms(args.parent, card) if args.parent else None
+    llm_rows += [phase_decode_attention(torch, np, card),
+                 phase_ssd_scan(torch, np, card)]
+    after = parent_device_ms(args.parent, card) if args.parent else None
+    for row, i in ((llm_rows[1], 0), (llm_rows[2], 1)):
+        row["parent_device_ms"] = (None if before is None
+                                   else [before[i], after[i]])
+        print(f"{row['name']} {row['shape']}: parent's device time "
+              + ("not measured (no --parent)" if before is None else
+                 f"{before[i]} ms before, {after[i]} ms after this tree's, "
+                 f"this tree {fmt(row['device_ms'])}") + f" [{card}]")
     phase_nms(torch, np, card)
     phase_reference(torch, np, card)
     fused_counts, sync_counts, _ = phase_main_path(torch, np, card)

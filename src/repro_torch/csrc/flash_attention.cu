@@ -93,12 +93,6 @@ size_t smem_bytes(int DP) {
   return sizeof(float) * (size_t)row_stride(DP) * (kBQ + 4 * kBK);
 }
 
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
 // Copy rows [0, nrows) of a slab (row r at src + r * stride, D floats) into
 // shared rows of row_stride(DP) floats through cp.async; rows >= valid and
 // columns >= D are filled with zeros.  Every thread of the block calls it.

@@ -12,6 +12,13 @@
 //
 // tf32_rna: cvt.rna.tf32.f32, fp32 -> tf32 rounded to nearest, ties away
 // from zero, as a float bit pattern with the low 13 mantissa bits zero.
+// split_tf32: x as hi = tf32(x) and lo = tf32(x - hi), the two halves of
+// 3xTF32 (a product a b is taken as lo_a hi_b + hi_a lo_b + hi_a hi_b,
+// about as accurate as an fp32 FMA; the dropped lo_a lo_b is ~2^-22 |a b|).
+// split_tf32_trunc: the same halves without rounding: hi is x itself,
+// which the tensor core truncates to its tf32 bits, and lo = x - trunc(x)
+// is exact in fp32 (and truncated in turn); two instructions instead of
+// three, at ~3 x 2^-20 |a b| of error per product instead of ~2^-22.
 //
 // cp_async_16 / cp_async_4: cp.async of 16 or 4 bytes from global to shared
 // memory; with ``pred`` false nothing is read and the destination is filled
@@ -30,6 +37,18 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
   return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void split_tf32_trunc(float x, uint32_t& hi,
+                                                 uint32_t& lo) {
+  hi = __float_as_uint(x);
+  lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u));
 }
 
 __device__ __forceinline__ void mma_tf32_m16n8k8(float d[4],

@@ -65,9 +65,10 @@ SIGNATURES = {
     "vpaas_flash_attention":
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "vpaas_decode_attention":
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+         _P],
     "vpaas_ssd_scan":
-        [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

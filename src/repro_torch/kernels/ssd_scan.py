@@ -1,12 +1,15 @@
 """K8: the Mamba2 SSD chunked scan as a hand-written CUDA kernel.
 
 Port of the Pallas kernel ``repro.kernels.ssd_scan.ssd_scan`` (source:
-``csrc/ssd_scan.cu``): one block per (head, batch row) walks the chunks in
-order with the (p, n) state in shared memory and returns ``y`` and the final
-state.  The sequence's tail past ``s`` acts as the plain version's zero
-padding without any padded copy.  The plain PyTorch version is
-:func:`ssd_scan_ref` (``ref.ssd_scan``); the kernel agrees with it within
-``testing.SSD_ATOL``.
+``csrc/ssd_scan.cu``), returning ``y`` and the final state.  Where p and n
+are multiples of 8 a call runs three device kernels on the tensor cores:
+each 64-step tile's part of its chunk's state, the state recurrence
+across chunks, then 64-row output tiles in parallel; the parts and the
+states go through a workspace.  Other shapes take one CUDA-core kernel
+that walks the chunks in order.  The sequence's tail past ``s`` acts as the plain
+version's zero padding without any padded copy.  The plain PyTorch version
+is :func:`ssd_scan_ref` (``ref.ssd_scan``); the kernel agrees with it
+within ``testing.SSD_RTOL`` of the output's scale.
 """
 from __future__ import annotations
 
@@ -16,12 +19,17 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-launches = 0          # kernel launches since the last reset (ops.py)
+launches = 0          # wrapper calls that launched the kernels (ops.py)
 
 ssd_scan_ref = ref.ssd_scan
 
-MAX_HEAD_DIM = 64     # p: four 16-wide column groups per thread
-MAX_STATE = 128       # n: eight 16-wide column groups per thread
+MAX_HEAD_DIM = 64     # p
+MAX_STATE = 128       # n
+
+
+def path(p: int, n: int) -> str:
+    """Which kernel the launcher runs for head dim ``p`` and state ``n``."""
+    return "tensor cores" if p % 8 == 0 and n % 8 == 0 else "CUDA cores"
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -51,10 +59,19 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y = torch.empty_like(x)
     fin = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     if b and h:
+        ws = None
+        if path(p, n) == "tensor cores":
+            # each 64-step tile's part of its chunk's state (the first then
+            # holds the state entering the chunk) and each chunk's decay
+            nc, tiles = -(-s // chunk), -(-chunk // 64)
+            ws = torch.empty(b * nc * h * (tiles * p * n + 1),
+                             dtype=torch.float32, device=x.device)
         _build.launch("vpaas_ssd_scan", x.data_ptr(), dt.data_ptr(),
                       A.data_ptr(), B.data_ptr(), C.data_ptr(),
                       None if initial_state is None
                       else initial_state.data_ptr(),
-                      y.data_ptr(), fin.data_ptr(), b, s, h, p, n, chunk)
+                      y.data_ptr(), fin.data_ptr(),
+                      None if ws is None else ws.data_ptr(),
+                      b, s, h, p, n, chunk)
         launches += 1
     return y, fin

@@ -140,3 +140,74 @@ def test_ptxas_summary_names_bool_template_instances():
         "ptxas info    : Used 40 registers, used 1 barriers"])
     assert [line.split(":")[0] for line in chip_smoke.ptxas_summary(log)] \
         == ["onevsall_kernel<0>", "onevsall_kernel<1>"]
+
+
+def test_decode_bytes_count_each_valid_k_and_v_row_once():
+    # zamba2's decode: 4 slots x 32 heads x d = 112; K and V of all 512
+    # slots are 58.7 MB, the path's lengths read 45.1 MB: 13.5 us
+    full = 4 * 2 * 4 * 512 * 32 * 112
+    assert full == 58_720_256
+    nbytes = chip_smoke.decode_nbytes(4, 32, 32, 112, [385, 390, 395, 399],
+                                      512, None)
+    rows = 385 + 390 + 395 + 399
+    assert nbytes == 4 * (2 * 4 * 32 * 112 + 2 * rows * 32 * 112) + 16
+    assert nbytes == 45_101_072
+    ms, by = chip_smoke.bound_ms(nbytes, 0.0)
+    assert by == "bytes" and ms == pytest.approx(0.013463, abs=1e-6)
+    # a window reads only its last slots; an empty row and a length past
+    # the cache read none and S
+    assert chip_smoke.decode_nbytes(1, 2, 1, 8, [100], 512, 64) == \
+        4 * (2 * 2 * 8 + 2 * 64 * 8) + 4
+    assert chip_smoke.decode_nbytes(2, 2, 1, 8, [0, 600], 512, None) == \
+        4 * (2 * 2 * 2 * 8 + 2 * 512 * 8) + 8
+
+
+def test_ssd_tensor_core_ops_count_the_chunked_products():
+    # zamba2's prefill: chunks of 256 and 128 steps; the causal triangles
+    # hold 256 * 257 / 2 + 128 * 129 / 2 pairs; per head C B^T and W U
+    # take 2n + 2p flops a pair, the chunk states and the incoming term
+    # 2pn a step each: 1.885 GFLOP over 112 heads
+    pairs = 256 * 257 // 2 + 128 * 129 // 2
+    assert pairs == 41_152
+    mma, other = chip_smoke.ssd_tc_ops(1, 384, 112, 64, 64, 256)
+    assert mma == 112 * (2 * (64 + 64) * pairs + 4 * 384 * 64 * 64)
+    assert mma == 1_884_553_216
+    assert other == 112 * (3 * pairs + 384 * (4 * 64 + 5) + 2 * 64 * 64 * 2)
+    # three TF32 products per fp32 one at 495 TFLOP/s, the rest at 67:
+    # 11.82 us, above the 7.2 us of its 24.2 MB
+    nbytes = 4 * (2 * 384 * 112 * 64 + 384 * 112 + 112 + 2 * 384 * 64
+                  + 112 * 64 * 64)
+    ms, by = chip_smoke.tc_bound_ms(nbytes, mma, other)
+    assert by == "operations"
+    assert ms == pytest.approx(3 * mma / 495e9 + other / 67e9, rel=1e-12)
+    assert ms == pytest.approx(0.011823, abs=1e-6)
+    # one chunk holding the whole sequence: a single triangle
+    assert chip_smoke.ssd_tc_ops(2, 10, 3, 8, 16, 64)[0] == \
+        2 * 3 * (2 * 24 * 55 + 4 * 10 * 8 * 16)
+
+
+def test_device_kernels_lists_each_kernel_per_call():
+    events = _events().key_averages()
+    names, kinds = chip_smoke.device_kernels(events, reps=1)
+    assert names == [("sgemm", 1.0), ("Memcpy HtoD", 1.0)]
+    assert kinds == 2
+
+
+def test_device_time_per_call_survives_dropped_events():
+    # ten calls of two kernels (2 us and 3 us); the profiler kept 9 of the
+    # first kernel's 10 events: 5 us per call, not 4.8
+    kw = dict(thread=0, use_device="cuda", stack=[])
+    events = []
+    for i in range(19):
+        name, us = ("a", 2) if i < 9 else ("b", 3)
+        events.append(FunctionEvent(id=i, name=name, start_us=10 * i,
+                                    end_us=10 * i + us,
+                                    device_type=DeviceType.CUDA, **kw))
+    events = EventList(events, use_device="cuda")
+    events._build_tree()
+    avgs = events.key_averages()
+    assert sum(chip_smoke._self_device_us(e) for e in avgs) / 10 == 4.8
+    assert chip_smoke.device_us_per_call(avgs, 10) == pytest.approx(5.0)
+    # the host op's own figure is not counted, as in the plain sum
+    assert chip_smoke.device_us_per_call(_events().key_averages(), 1) == \
+        10.0

@@ -369,6 +369,67 @@ def test_ssd_scan_kernel_matches_plain(cuda, case):
     assert rel_err(fin.cpu(), fin_ref.cpu()) <= SSD_RTOL
 
 
+ZAMBA2_DECODE = (4, 512, 32, 32, 112, [385, 390, 395, 399])
+ZAMBA2_PREFILL = (1, 384, 112, 64, 64, 256)
+
+
+def _zamba2_decode(cuda):
+    b, S, n_q, n_kv, d, clen = ZAMBA2_DECODE
+    q, kc, vc = _t(decode_case(b, S, n_q, n_kv, d), cuda)
+    return q, kc, vc, torch.as_tensor(clen, dtype=torch.int32, device=cuda)
+
+
+def _zamba2_prefill(cuda):
+    b, s, h, p, n, _ = ZAMBA2_PREFILL
+    x, dt, A, B, C, st = ssd_case(b, s, h, p, n, True, weak=True)
+    return _t((x, dt, A, B, C, st), cuda)
+
+
+def test_decode_and_ssd_kernels_are_bit_identical_run_to_run(cuda):
+    # the split-KV partials and the SSD's chunk states merge in a fixed
+    # order, with no float atomics
+    q, kc, vc, cl = _zamba2_decode(cuda)
+    assert da.splits(4, 512, 32, None) == (64, 8)
+    first = da.decode_attention(q, kc, vc, cl)
+    assert all(torch.equal(da.decode_attention(q, kc, vc, cl), first)
+               for _ in range(3))
+    x, dt, A, B, C, st = _zamba2_prefill(cuda)
+    chunk = ZAMBA2_PREFILL[-1]
+    assert sk.path(64, 64) == "tensor cores"
+    y, fin = sk.ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=st)
+    for _ in range(3):
+        y2, fin2 = sk.ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=st)
+        assert torch.equal(y2, y) and torch.equal(fin2, fin)
+
+
+def test_decode_and_ssd_kernels_replay_in_a_cuda_graph(cuda):
+    # both launchers run several kernels and allocate a workspace per call:
+    # captured once, a replay recomputes from the inputs' new values
+    q, kc, vc, cl = _zamba2_decode(cuda)
+    x, dt, A, B, C, st = _zamba2_prefill(cuda)
+    chunk = ZAMBA2_PREFILL[-1]
+    da.decode_attention(q, kc, vc, cl)             # warm-up off the graph
+    sk.ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=st)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da.decode_attention(q, kc, vc, cl)
+        y, fin = sk.ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=st)
+    q.mul_(-0.5)
+    vc.add_(1.0)
+    cl.sub_(7)
+    x.mul_(0.5)
+    st.mul_(-1.0)
+    graph.replay()
+    assert _sync_err(out, da.decode_attention_ref(q, kc, vc, cl)) \
+        <= ATTN_ATOL
+    y_ref, fin_ref = sk.ssd_scan_ref(x, dt, A, B, C, chunk=chunk,
+                                     initial_state=st)
+    torch.cuda.synchronize()
+    assert rel_err(y.cpu(), y_ref.cpu()) <= SSD_RTOL
+    assert rel_err(fin.cpu(), fin_ref.cpu()) <= SSD_RTOL
+
+
 def test_llm_kernels_reject_bad_operands(cuda):
     q, k, v = _t(attention_case(1, 8, 8, 2, 1, 32), cuda)
     with pytest.raises(ValueError, match="window"):

@@ -2,22 +2,23 @@
 
 Each ``src/repro_torch/csrc/*.cu`` compiles with the host C++ compiler
 against a small emulation of the CUDA runtime written below: a block's
-threads run as ``std::thread``s, ``__syncthreads``/``__syncwarp`` are
-barriers, warp shuffles go through a per-warp buffer, shared memory starts
-as NaNs (so a read before a write shows), and each ``<<<...>>>`` launch
-becomes a call that runs the grid block by block.  The primitives of
-``csrc/primitives.cuh`` have host versions here: ``mma.sync`` m16n8k8 tf32
-gathers the warp's fragments through a per-warp buffer in the PTX ISA's
-layout and sums each output's eight exact products in double,
-``cvt.rna.tf32`` rounds the bits, ``cp.async`` copies at once (commit and
-wait do nothing).  The Python wrappers then
-call the C launchers exactly as on the card, on CPU tensors, and the
-results are held against the plain versions with the on-card tolerances.
-This checks each kernel's indexing, masking and arithmetic here (a
-missing barrier shows only when the threads happen to race); what only
-``nvcc`` and the card can show (compile errors, registers, shared-memory
-limits, races, speed) stays with tests/test_torch_cuda.py and
-``chip_smoke.py``.
+threads run as fibers on one host thread, each running until it reaches
+``__syncthreads``/``__syncwarp`` (so a thread that reads what a later
+thread writes without a barrier between them reads it too early), warp
+shuffles go through a per-warp buffer, shared memory starts as NaNs (so a
+read before a write shows), and each ``<<<...>>>`` launch becomes a call
+that runs the grid's blocks, several host threads at a time.  The
+primitives of ``csrc/primitives.cuh`` have host versions here:
+``mma.sync`` m16n8k8 tf32 gathers the warp's fragments through a per-warp
+buffer in the PTX ISA's layout and sums each output's eight exact products
+in double, ``cvt.rna.tf32`` rounds the bits, ``cp.async`` copies at once
+(commit and wait do nothing).  The Python wrappers then call the C
+launchers exactly as on the card, on CPU tensors, and the results are held
+against the plain versions with the on-card tolerances.  This checks each
+kernel's indexing, masking and arithmetic here; what only ``nvcc`` and the
+card can show (compile errors, registers, shared-memory limits, races
+between threads that run at once, speed) stays with
+tests/test_torch_cuda.py and ``chip_smoke.py``.
 """
 import ctypes
 import re
@@ -49,9 +50,11 @@ from repro_torch.testing import (ATTN_ATOL, DECODE_CASES, FILTER_KW,
 
 EMU_HEADER = r"""
 #pragma once
-#include <barrier>
+#include <atomic>
 #include <cmath>
 #include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <functional>
 #include <memory>
@@ -82,8 +85,32 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 // ex2.approx of the rounded product, as the card computes __expf
 inline float __expf(float x) { return std::exp2(x * 1.44269504f); }
-struct EmuBlock { std::barrier<>* bar;
-  std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
+// A block's threads are fibers on one host thread, switched only at the
+// barriers (emu_swap saves the callee-saved registers and the stack
+// pointer, x86-64 System V): a warp's 32 threads meet twice per emulated
+// mma or shuffle, and an OS thread per GPU thread made each meeting a
+// round of futex sleeps and wake-ups.  Independent blocks of a grid run on
+// several host threads at once.
+extern "C" void emu_swap(void** save_sp, void* new_sp);
+asm(".text\n.p2align 4\n.globl emu_swap\n.hidden emu_swap\n"
+    ".type emu_swap,@function\nemu_swap:\n"
+    "  pushq %rbp\n  pushq %rbx\n  pushq %r12\n  pushq %r13\n"
+    "  pushq %r14\n  pushq %r15\n  movq %rsp, (%rdi)\n  movq %rsi, %rsp\n"
+    "  popq %r15\n  popq %r14\n  popq %r13\n  popq %r12\n  popq %rbx\n"
+    "  popq %rbp\n  ret\n.size emu_swap, .-emu_swap\n");
+struct EmuFiber { void* sp = nullptr; std::unique_ptr<char[]> stack;
+  const unsigned* wait_gen = nullptr; unsigned wait_val = 0; bool done = false; };
+struct EmuWorker { void* sched_sp = nullptr; EmuFiber* cur = nullptr;
+  const std::function<void()>* fn = nullptr; std::vector<EmuFiber> fibers; };
+inline thread_local EmuWorker* emu_w;
+struct EmuBarrier { int n; int count = 0; unsigned gen = 0;
+  explicit EmuBarrier(int n) : n(n) {}
+  void arrive_and_wait() {
+    if (++count == n) { count = 0; ++gen; return; }
+    EmuFiber* f = emu_w->cur; f->wait_gen = &gen; f->wait_val = gen;
+    emu_swap(&f->sp, emu_w->sched_sp); } };
+struct EmuBlock { EmuBarrier* bar;
+  std::vector<std::unique_ptr<EmuBarrier>> warp_bar;
   std::vector<double> xchg; std::vector<uint32_t> mma;
   std::vector<char> dyn; };
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
@@ -106,27 +133,59 @@ template <class T> T __shfl_up_sync(unsigned, T v, int d) {
   int s = (int)(threadIdx.x % 32) - d;
   T r = emu_xchg(v, s < 0 ? (int)(threadIdx.x % 32) : s);
   return s < 0 ? v : r; }
+inline void emu_fiber_main() {
+  EmuWorker* w = emu_w; (*w->fn)(); w->cur->done = true;
+  emu_swap(&w->cur->sp, w->sched_sp);
+  __builtin_unreachable(); }
+constexpr size_t kEmuStack = 128 << 10;
+// Run one block: every fiber until it blocks at a barrier or ends, round
+// and round; a round in which none can run is a deadlock.
+inline void emu_run_block(EmuWorker& w, int nt) {
+  for (int t = 0; t < nt; ++t) {
+    EmuFiber& f = w.fibers[t];
+    if (!f.stack) f.stack.reset(new char[kEmuStack]);
+    uintptr_t top = (reinterpret_cast<uintptr_t>(f.stack.get()) + kEmuStack)
+                    & ~uintptr_t(15);
+    void** sp = reinterpret_cast<void**>(top);
+    *--sp = nullptr;                       // entry sees rsp = 8 mod 16
+    *--sp = reinterpret_cast<void*>(&emu_fiber_main);
+    for (int r = 0; r < 6; ++r) *--sp = nullptr;
+    f.sp = sp; f.wait_gen = nullptr; f.done = false; }
+  for (int live = nt; live > 0;) {
+    bool ran = false;
+    for (int t = 0; t < nt; ++t) {
+      EmuFiber& f = w.fibers[t];
+      if (f.done || (f.wait_gen && *f.wait_gen == f.wait_val)) continue;
+      f.wait_gen = nullptr; w.cur = &f; threadIdx = dim3(t);
+      emu_swap(&w.sched_sp, f.sp);
+      ran = true;
+      if (f.done) --live; }
+    if (!ran) { std::fprintf(stderr, "emulated block deadlocked\n");
+                std::abort(); } } }
 inline void emu_launch(dim3 g, dim3 b, size_t smem, std::function<void()> fn) {
-  int nt = b.x * b.y * b.z;
-  for (unsigned bz = 0; bz < g.z; ++bz)
-  for (unsigned by = 0; by < g.y; ++by)
-  for (unsigned bx = 0; bx < g.x; ++bx) {
-    EmuBlock blk; std::barrier<> bar(nt); blk.bar = &bar;
-    for (int w = 0; w < (nt + 31) / 32; ++w)
-      blk.warp_bar.emplace_back(new std::barrier<>(32));
+  const int nt = b.x * b.y * b.z;
+  const long nblocks = (long)g.x * g.y * g.z;
+  std::atomic<long> next{0};
+  auto work = [&] {
+    EmuWorker w; w.fn = &fn; w.fibers.resize(nt); emu_w = &w;
+    EmuBlock blk; EmuBarrier bar(nt); blk.bar = &bar;
+    for (int i = 0; i < (nt + 31) / 32; ++i)
+      blk.warp_bar.emplace_back(new EmuBarrier(32));
     blk.xchg.assign(((nt + 31) / 32) * 32, 0.0);
     blk.mma.assign(((nt + 31) / 32) * 32 * 6, 0u);
-    blk.dyn.assign(smem + 16, 0);
-    float nan = NAN;
-    for (size_t i = 0; i + 4 <= blk.dyn.size(); i += 4)
-      std::memcpy(&blk.dyn[i], &nan, 4);
-    std::vector<std::thread> ts;
-    for (int t = 0; t < nt; ++t)
-      ts.emplace_back([&, t, bx, by, bz] {
-        threadIdx = dim3(t); blockIdx = dim3(bx, by, bz); blockDim = b;
-        gridDim = g; emu_blk = &blk; fn(); });
-    for (auto& th : ts) th.join();
-  } }
+    blk.dyn.resize(smem + 16);
+    emu_blk = &blk; blockDim = b; gridDim = g;
+    for (long i; (i = next++) < nblocks;) {
+      float nan = NAN;
+      for (size_t k = 0; k + 4 <= blk.dyn.size(); k += 4)
+        std::memcpy(&blk.dyn[k], &nan, 4);
+      blockIdx = dim3(i % g.x, i / g.x % g.y, i / ((long)g.x * g.y));
+      emu_run_block(w, nt); } };
+  const long nw = std::min<long>(nblocks, 8);
+  std::vector<std::thread> ts;
+  for (long i = 1; i < nw; ++i) ts.emplace_back(work);
+  if (nblocks > 0) work();
+  for (auto& th : ts) th.join(); }
 #define EMU_DYN_SMEM(T, name) T* name = reinterpret_cast<T*>(emu_blk->dyn.data())
 // csrc/primitives.cuh
 inline float __uint_as_float(uint32_t u) {
@@ -137,6 +196,11 @@ inline uint32_t tf32_rna(float x) {       // round half away from zero
   uint32_t u = __float_as_uint(x);
   if ((u & 0x7f800000u) == 0x7f800000u) return u;          // inf, nan
   return (u + 0x1000u) & 0xffffe000u; }
+inline void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x); lo = tf32_rna(x - __uint_as_float(hi)); }
+inline void split_tf32_trunc(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x);
+  lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u)); }
 inline void mma_tf32_m16n8k8(float d[4], const uint32_t a[4],
                              const uint32_t b[2]) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
@@ -173,7 +237,8 @@ def _to_cpp(src: str) -> str:
     src = src.replace('#include "primitives.cuh"', "")   # in cuda_emu.h
     src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
                  r"EMU_DYN_SMEM(\1, \2);", src)
-    src = src.replace("__shared__", "static")   # one block runs at a time
+    # a block's threads share their host thread
+    src = src.replace("__shared__", "static thread_local")
 
     def launch(m):
         cfg = [p.strip() for p in re.split(r",(?![^()]*\))", m.group(2))]
@@ -413,3 +478,61 @@ def test_ssd_scan_source_matches_plain(emulated, case):
                                   initial_state=st)
     assert rel_err(y, y_ref) <= SSD_RTOL
     assert rel_err(fin, fin_ref) <= SSD_RTOL
+
+
+# (case, splits of each row's valid slots): the wrapper cuts the longest
+# valid length it knows (S, or the window) into splits of >= 64 slots
+@pytest.mark.parametrize("case,nsplit", [
+    # a full row over four splits
+    ((1, 256, 4, 2, 64, [256], None, None), 4),
+    # a window of 150: row 0's 40 slots leave splits 1 and 2 empty, row 1
+    # reads [106, 256) in three
+    ((2, 256, 4, 2, 64, [40, 256], 150, None), 3),
+    # cache_len 0 (the mean of V) beside a full row
+    ((2, 128, 4, 4, 32, [0, 128], None, None), 2),
+    # a group of 16: two blocks of 8 q-heads per kv-head
+    ((2, 96, 16, 1, 64, [96, 40], None, None), 2),
+    # d = 36, padded to 40 in shared memory
+    ((2, 100, 6, 2, 36, [100, 77], None, 20.0), 2),
+    # d = 37: 4-byte copies
+    ((1, 140, 3, 3, 37, [130], None, None), 3),
+    # 256 (row, kv-head) pairs: splits of 128 slots, four tiles each, so
+    # the double-buffered ring refills
+    ((4, 512, 64, 64, 8, [512, 300, 1, 130], None, None), 4)],
+    ids=["three-plus-splits", "window-empty-splits", "empty-row", "group16",
+         "d36", "d37", "ring-refills"])
+def test_decode_attention_source_splits_rows(emulated, case, nsplit):
+    b, S, n_q, n_kv, d, clen, window, cap = case
+    assert da.splits(b, S, n_kv, window)[1] == nsplit
+    q, kc, vc = _t(decode_case(b, S, n_q, n_kv, d, seed=1))
+    cl = torch.as_tensor(np.asarray(clen, np.int32))
+    kw = dict(window=window, softcap=cap)
+    got = da.decode_attention(q, kc, vc, cl, **kw)
+    want = ref.decode_attention(q, kc, vc, cl, **kw)
+    assert float((got - want).abs().max()) <= ATTN_ATOL
+    # the splits merge in a fixed order: the same bits on a second launch
+    assert torch.equal(da.decode_attention(q, kc, vc, cl, **kw), got)
+
+
+@pytest.mark.parametrize("case,path", [
+    ((1, 200, 3, 16, 32, 64, True, False), "tensor cores"),    # 4 chunks
+    ((1, 150, 2, 64, 64, 64, True, False), "tensor cores"),    # zamba2's p, n
+    ((1, 250, 2, 16, 16, 100, True, True), "tensor cores"),    # Q = 100
+    ((1, 100, 2, 64, 128, 64, True, False), "tensor cores"),   # mamba2's n
+    ((2, 37, 4, 4, 4, 16, True, False), "CUDA cores"),
+    ((1, 90, 2, 12, 20, 32, True, False), "CUDA cores")],
+    ids=["four-chunks", "p64-n64-chunk64", "chunk100", "p64-n128", "p4-n4",
+         "p12-n20"])
+def test_ssd_scan_source_paths(emulated, case, path):
+    b, s, h, p, n, chunk, init, weak = case
+    assert sk.path(p, n) == path
+    x, dt, A, B, C, st = _t(ssd_case(b, s, h, p, n, init, seed=2,
+                                     weak=weak))
+    y, fin = sk.ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=st)
+    y_ref, fin_ref = ref.ssd_scan(x, dt, A, B, C, chunk=chunk,
+                                  initial_state=st)
+    assert rel_err(y, y_ref) <= SSD_RTOL
+    assert rel_err(fin, fin_ref) <= SSD_RTOL
+    # no atomics: the same bits on a second launch
+    y2, fin2 = sk.ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=st)
+    assert torch.equal(y2, y) and torch.equal(fin2, fin)

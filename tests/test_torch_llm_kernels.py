@@ -122,3 +122,30 @@ def test_ssd_step_plain_matches_jax_and_continues_the_scan():
                                     Ct[:, -1], fin_head)
     assert rel_err(y_last.numpy(), y_all[:, -1].numpy()) <= SSD_RTOL
     assert rel_err(fin_last.numpy(), fin_all.numpy()) <= SSD_RTOL
+
+
+@pytest.mark.parametrize("args,want", [
+    ((4, 512, 32, None), (64, 8)),      # zamba2's decode: 1,024 blocks
+    ((4, 512, 16, 64), (64, 1)),        # a window of 64: one split
+    ((1, 32768, 8, None), (256, 128)),  # a long cache: splits of 256
+    ((8, 4096, 128, None), (4096, 1)),  # 1,024 (row, kv-head) pairs
+    ((2, 100, 3, None), (64, 2))])      # splits of at least 64 slots
+def test_decode_splits_follow_the_longest_known_length(args, want):
+    # K7's wrapper cuts the longest valid length it knows without reading
+    # the device (S, or a shorter window) into whole 32-slot tiles, aiming
+    # at ~1,024 blocks
+    from repro_torch.kernels import decode_attention as da
+    per, nsplit = da.splits(*args)
+    assert (per, nsplit) == want
+    longest = min(args[1], args[3] or args[1])
+    assert per % 32 == 0 and per * nsplit >= longest > per * (nsplit - 1)
+
+
+@pytest.mark.parametrize("p,n,path", [(64, 64, "tensor cores"),
+                                      (64, 128, "tensor cores"),
+                                      (32, 16, "tensor cores"),
+                                      (4, 4, "CUDA cores"),
+                                      (64, 20, "CUDA cores")])
+def test_ssd_scan_path_is_chosen_by_shape(p, n, path):
+    from repro_torch.kernels import ssd_scan as sk
+    assert sk.path(p, n) == path
