@@ -27,7 +27,7 @@ and power limit, one JSON object describing the kernels, and
 ``{"ok": true, "device": {...}}``.
 
 ``--parent DIR`` names another checkout (the parent commit unpacked with
-``git archive``): its K7 and K8 phases then run in a subprocess before and
+``git archive``): its K2 and K5 phases then run in a subprocess before and
 after this tree's, on the same card, and their device times are printed
 beside this tree's.
 
@@ -105,25 +105,30 @@ def _self_device_us(event) -> float:
     return 0.0
 
 
-def device_us_per_call(avgs, reps: int) -> float:
+def device_us_per_call(avgs, reps: int, once: bool = False) -> float:
     """Device time of one call from a profile of ``reps`` identical calls:
     each kernel's mean duration times its launches per call, rounded to a
     whole number.  The profiler can drop a few kernel events of a window
     (3 of 20 in a run of K7, 3 of 30 of K8); dividing the plain sum by
-    ``reps`` would count them as time the card did not spend."""
+    ``reps`` would count them as time the card did not spend.  With
+    ``once`` (a call known to launch each of its kernels once) it is the
+    sum of the kernels' mean durations, whatever share of the events the
+    profiler kept (on an H100 it once kept 6 of 30 events of a K5 run)."""
     total = 0.0
     for e in avgs:
         us = _self_device_us(e)
         if us > 0:
-            per_call = round(e.count / reps) or e.count / reps
+            per_call = 1 if once else (round(e.count / reps)
+                                       or e.count / reps)
             total += us / e.count * per_call
     return total
 
 
-def profile_device(torch, fn, reps: int = 1):
+def profile_device(torch, fn, reps: int = 1, once: bool = False):
     """Run ``fn`` ``reps`` times under torch.profiler (CUPTI); return the
     device time per call in ms and the key averages (None when the
-    profiler recorded no device time)."""
+    profiler recorded no device time); ``once`` as in
+    :func:`device_us_per_call`."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -133,7 +138,7 @@ def profile_device(torch, fn, reps: int = 1):
             fn()
         torch.cuda.synchronize()
     avgs = prof.key_averages()
-    total_us = device_us_per_call(avgs, reps)
+    total_us = device_us_per_call(avgs, reps, once)
     return (total_us / 1e3 if total_us > 0 else None), avgs
 
 
@@ -161,21 +166,24 @@ def host_us(torch, fn, calls: int = 1000) -> float:
     return us
 
 
-def measure(torch, fn, reps: int = 30):
+def measure(torch, fn, reps: int = 30, once: bool = False):
     """(per-call time from CUDA events, device time per call from the
     profiler).  The first includes the host's launch path whenever the
     card waits for it; the second is the kernels' own execution time."""
-    return time_ms(torch, fn, reps), profile_device(torch, fn, reps)[0]
+    return (time_ms(torch, fn, reps),
+            profile_device(torch, fn, reps, once)[0])
 
 
-def versus_library(torch, kernel, library, reps: int = 30):
+def versus_library(torch, kernel, library, reps: int = 30,
+                   once: bool = False):
     """A kernel and its library yardstick timed in turns (kernel, library,
-    library, kernel), each with its device time from the profiler:
+    library, kernel), each with its device time from the profiler (the
+    kernel's with ``once`` as in :func:`device_us_per_call`):
     ((kernel ms per call, device ms), (library ms, device ms), turns)."""
     turns = in_turns({"kernel": kernel, "library": library},
                      lambda fn: time_ms(torch, fn, reps))
     return ((statistics.mean(turns["kernel"]),
-             profile_device(torch, kernel, reps)[0]),
+             profile_device(torch, kernel, reps, once)[0]),
             (statistics.mean(turns["library"]),
              profile_device(torch, library, reps)[0]), turns)
 
@@ -295,23 +303,50 @@ def crop_tap_pixels(np, boxes, idxs, hw, out_hw) -> int:
     return int(touched.sum())
 
 
-def phase_crop_gather(torch, np, card):
+def crop_grid_sample(torch, frames, boxes, idx_t, out_hw):
+    """The library yardstick's inputs and call: one ``grid_sample`` over
+    the bucket rows' frames, with the gather and the sample grid built
+    outside the timed call."""
     import torch.nn.functional as F
+    f, n = boxes.shape[:2]
+    b = idx_t.shape[1]
+    fi = idx_t[0].long().clamp(0, f - 1)
+    bx = boxes[fi, idx_t[1].long().clamp(0, n - 1)]
+    lin_y = torch.linspace(0, 1, out_hw[0], device="cuda")
+    lin_x = torch.linspace(0, 1, out_hw[1], device="cuda")
+    gy = (bx[:, 1:2] + (bx[:, 3:4] - bx[:, 1:2]) * lin_y) * 2 - 1
+    gx = (bx[:, 0:1] + (bx[:, 2:3] - bx[:, 0:1]) * lin_x) * 2 - 1
+    grid = torch.stack([gx[:, None, :].expand(b, *out_hw),
+                        gy[:, :, None].expand(b, *out_hw)], -1)
+    src = frames.permute(0, 3, 1, 2)[fi].contiguous()
+    return lambda: F.grid_sample(src, grid, mode="bilinear",
+                                 padding_mode="zeros", align_corners=True)
 
+
+CROP_FRAMES, CROP_BOXES, CROP_HW, CROP_OUT = 32, 256, (128, 128), (40, 40)
+
+
+def crop_inputs(torch, np, b, n_valid, rng):
+    """Frames and boxes of the K2 phase and a bucket of ``b`` rows, the
+    first ``n_valid`` valid, the rest out-of-bounds pad rows."""
+    idxs = np.zeros((3, b), np.int32)
+    idxs[0] = CROP_FRAMES
+    idxs[0, :n_valid] = rng.integers(0, CROP_FRAMES, n_valid)
+    idxs[1, :n_valid] = rng.integers(0, CROP_BOXES, n_valid)
+    return idxs, torch.as_tensor(idxs, device="cuda")
+
+
+def phase_crop_gather(torch, np, card):
     from repro_torch.kernels import crop_gather as cg
     from repro_torch.testing import rand_boxes
-    f, n, hw, out_hw = 32, 256, (128, 128), (40, 40)
+    f, n, hw, out_hw = CROP_FRAMES, CROP_BOXES, CROP_HW, CROP_OUT
     rng = np.random.default_rng(SEED + 1)
     frames = torch.as_tensor(rng.random((f, *hw, 3), dtype=np.float32),
                              device="cuda")
     boxes = torch.as_tensor(rand_boxes(rng, (f, n)), device="cuda")
     main_row = None
     for b, n_valid in ((4, 2), (128, 100), (200, 200)):
-        idxs = np.zeros((3, b), np.int32)
-        idxs[0] = f                                 # out-of-bounds pad rows
-        idxs[0, :n_valid] = rng.integers(0, f, n_valid)
-        idxs[1, :n_valid] = rng.integers(0, n, n_valid)
-        idx_t = torch.as_tensor(idxs, device="cuda")
+        idxs, idx_t = crop_inputs(torch, np, b, n_valid, rng)
         got = cg.crop_gather(frames, boxes, idx_t, out_hw=out_hw)
         want = cg.crop_gather_ref(frames, boxes, idx_t, out_hw=out_hw)
         torch.cuda.synchronize()
@@ -319,24 +354,13 @@ def phase_crop_gather(torch, np, card):
             raise AssertionError(
                 f"K2 crops at B={b} differ from the plain version: max abs "
                 f"{float((got - want).abs().max())}")
-        timed = measure(torch, lambda: cg.crop_gather(frames, boxes, idx_t,
-                                                      out_hw=out_hw))
+        timed, lib, turns = versus_library(
+            torch, lambda: cg.crop_gather(frames, boxes, idx_t,
+                                          out_hw=out_hw),
+            crop_grid_sample(torch, frames, boxes, idx_t, out_hw),
+            once=True)
         plain = measure(torch, lambda: cg.crop_gather_ref(
             frames, boxes, idx_t, out_hw=out_hw))
-        # library yardstick: one grid_sample over the gathered frames, with
-        # the gather and the sample grid built outside the timed call
-        fi = idx_t[0].long().clamp(0, f - 1)
-        bx = boxes[fi, idx_t[1].long().clamp(0, n - 1)]
-        lin_y = torch.linspace(0, 1, out_hw[0], device="cuda")
-        lin_x = torch.linspace(0, 1, out_hw[1], device="cuda")
-        gy = (bx[:, 1:2] + (bx[:, 3:4] - bx[:, 1:2]) * lin_y) * 2 - 1
-        gx = (bx[:, 0:1] + (bx[:, 2:3] - bx[:, 0:1]) * lin_x) * 2 - 1
-        grid = torch.stack([gx[:, None, :].expand(b, *out_hw),
-                            gy[:, :, None].expand(b, *out_hw)], -1)
-        src = frames.permute(0, 3, 1, 2)[fi].contiguous()
-        lib = time_ms(torch, lambda: F.grid_sample(
-            src, grid, mode="bilinear", padding_mode="zeros",
-            align_corners=True))
         out_el = b * out_hw[0] * out_hw[1] * 3
         # read bytes: each distinct in-frame tap pixel once, plus the boxes,
         # the index rows and the sample grid
@@ -347,12 +371,63 @@ def phase_crop_gather(torch, np, card):
         row = _row("crop_gather", "src/repro_torch/csrc/crop_gather.cu",
                    "src/repro/kernels/crop_gather.py:42",
                    f"B={b} F={f} 128x128x3 -> 40x40x3", 0.0, timed, plain,
-                   lib, nbytes, ops)
-        _report(f"K2 crop_gather B={b} ({n_valid} valid) F={f}: bit-equal",
-                row, card, "grid_sample")
+                   lib[0], nbytes, ops)
+        row.update(library_device_ms=lib[1], turns_ms=turns)
+        tag = f"K2 crop_gather B={b} ({n_valid} valid) F={f}"
+        _report(f"{tag}: bit-equal", row, card, "grid_sample")
+        _report_turns(tag, turns, lib, "grid_sample", card)
         if b == 128:                       # the path's largest bucket
             main_row = row
+    main_row["host_us"] = phase_k2_host_path(torch, np, card)
     return main_row
+
+
+def phase_k2_host_path(torch, np, card, calls: int = 1000):
+    """Where K2's call time goes on the host at B = 128: the wrapper, the
+    shared launch path ``_build.launch`` alone, the bare ctypes call with
+    the stream handle read once, the operand check and the output's
+    allocation alone, and ``grid_sample`` on its prebuilt inputs, in
+    microseconds per call over ``calls`` calls, in turns."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import crop_gather as cg
+    from repro_torch.testing import rand_boxes
+    f, n, hw, (oh, ow) = CROP_FRAMES, CROP_BOXES, CROP_HW, CROP_OUT
+    b = 128
+    rng = np.random.default_rng(SEED + 1)
+    frames = torch.as_tensor(rng.random((f, *hw, 3), dtype=np.float32),
+                             device="cuda")
+    boxes = torch.as_tensor(rand_boxes(rng, (f, n)), device="cuda")
+    _, idx_t = crop_inputs(torch, np, b, 100, rng)
+    out = cg.crop_gather(frames, boxes, idx_t, out_hw=(oh, ow))
+    lin_y, lin_x = (torch.as_tensor(np.linspace(0, 1, k, dtype=np.float32),
+                                    device="cuda") for k in (oh, ow))
+    sizes = cg.CropArgs(lin_y.data_ptr(), lin_x.data_ptr(), b, f, *hw, 3, n,
+                        oh, ow)
+    name = "vpaas_crop_gather"
+    import ctypes
+    args = (frames.data_ptr(), boxes.data_ptr(), idx_t.data_ptr(),
+            out.data_ptr(), ctypes.addressof(sizes))
+    bare = getattr(_build.library(), name)
+    stream = torch.cuda.current_stream().cuda_stream
+    operands = (("frames", frames, torch.float32, None),
+                ("boxes", boxes, torch.float32, (f, n, 4)),
+                ("idxs", idx_t, torch.int32, None))
+    turns = in_turns({
+        "wrapper": lambda: cg.crop_gather(frames, boxes, idx_t,
+                                          out_hw=(oh, ow)),
+        "_build.launch": lambda: _build.launch(name, *args),
+        "bare ctypes call": lambda: bare(*args, stream),
+        "check_operands": lambda: _build.check_operands(*operands),
+        "new_empty": lambda: frames.new_empty((b, oh, ow, 3)),
+        "grid_sample": crop_grid_sample(torch, frames, boxes, idx_t,
+                                        (oh, ow))},
+        lambda fn: host_us(torch, fn, calls))
+    us = {what: statistics.mean(t) for what, t in turns.items()}
+    print(f"K2 host path B={b} {oh}x{ow}x3, us per call over {calls} calls "
+          f"(two turns): " + ", ".join(f"{what} {t:.2f}"
+                                       for what, t in us.items())
+          + f" [{card}]")
+    return us
 
 
 def phase_onevsall(torch, np, card):
@@ -440,15 +515,23 @@ def phase_k3_host_path(torch, np, card, calls: int = 1000):
     return us
 
 
-# K5 at the learner's shape (one row per step), one full label-budget
-# replay, the trainer's max_buffer, and a ragged case
+# K5's one step: one row (the learner's step), one full label-budget
+# buffer, the trainer's max_buffer, and a ragged case
 UPDATE_SHAPES = ((1, 129, 8), (256, 129, 8), (2048, 129, 8), (130, 17, 10))
+# K5's replay: a round's buffer on the plane (its rounds replay 16 to 64
+# instances), the inline learner's mean buffer (473 instances over 17
+# updates), and the label budget; the learning path's 2 passes
+REPLAY_SHAPES = ((16, 129, 8), (28, 129, 8), (64, 129, 8), (256, 129, 8))
+REPLAY_PASSES = 2
 
 
-def update_tile_bytes(c: int) -> int:
-    """The K5 launcher's dynamic shared memory: one tile of residuals,
-    max(1, min(32, 256 // C)) rows of C floats."""
-    return 4 * c * max(1, min(32, 256 // c))
+def update_smem_bytes(d1: int, c: int) -> int:
+    """The K5 step kernel's dynamic shared memory: a tile's x rows and
+    residuals, and W at an odd row stride when it fits beside them."""
+    from repro_torch.kernels import onevsall_update as ou
+    tile = 4 * ou.tile_rows(d1, c) * (d1 + c)
+    w = 4 * d1 * (c | 1)
+    return tile + (w if tile + w <= ou.MAX_SMEM else 0)
 
 
 def phase_onevsall_update(torch, np, card):
@@ -457,45 +540,117 @@ def phase_onevsall_update(torch, np, card):
     from repro_torch.testing import (UPDATE_ETA, UPDATE_RTOL, rel_err,
                                      update_case)
     ptxas = [line for line in ptxas_summary(_build.build_log)
-             if line.startswith("onevsall_update_kernel")]
-    main_row = None
+             if line.startswith("onevsall_update")]
+    rows = []
     for b, d1, c in UPDATE_SHAPES:
         x, y, w = (torch.as_tensor(a, device="cuda")
                    for a in update_case(b, d1, c, seed=SEED))
         got = ou.onevsall_update(x, y, w, eta=UPDATE_ETA)
-        again = ou.onevsall_update(x, y, w, eta=UPDATE_ETA)
         want = ou.onevsall_update_ref(x, y, w, eta=UPDATE_ETA)
         torch.cuda.synchronize()
-        if not torch.equal(got, again):
-            raise AssertionError(f"K5 at B={b}: two launches on the same "
-                                 "inputs differ")
+        for _ in range(3):
+            if not torch.equal(ou.onevsall_update(x, y, w, eta=UPDATE_ETA),
+                               got):
+                raise AssertionError(f"K5 at B={b}: two launches on the "
+                                     "same inputs differ")
         err = float((got - want).abs().max())
         rel = rel_err(got.cpu(), want.cpu())
         if not (rel <= UPDATE_RTOL and bool(torch.isfinite(got).all())):
             raise AssertionError(f"K5 at B={b} D1={d1} C={c}: error {rel} "
                                  f"of the output scale exceeds {UPDATE_RTOL}")
-        timed = measure(torch, lambda: ou.onevsall_update(x, y, w,
-                                                          eta=UPDATE_ETA))
-        plain = measure(torch, lambda: ou.onevsall_update_ref(
-            x, y, w, eta=UPDATE_ETA))
         # library yardstick: the same function as a cuBLAS addmm over a
         # matmul, a sigmoid and a subtraction (four launches, not one call)
-        lib = time_ms(torch, lambda: torch.addmm(
-            w, x.t(), torch.sigmoid(x @ w) - y, alpha=-UPDATE_ETA))
+        timed, lib, turns = versus_library(
+            torch, lambda: ou.onevsall_update(x, y, w, eta=UPDATE_ETA),
+            lambda: torch.addmm(w, x.t(), torch.sigmoid(x @ w) - y,
+                                alpha=-UPDATE_ETA), once=True)
+        plain = measure(torch, lambda: ou.onevsall_update_ref(
+            x, y, w, eta=UPDATE_ETA))
         nbytes = 4 * (b * d1 + b * c + 2 * d1 * c)
         ops = 4 * b * d1 * c + 2 * d1 * c
         row = _row("onevsall_update",
                    "src/repro_torch/csrc/onevsall_update.cu",
                    "src/repro/kernels/onevsall.py:86", f"B={b} D1={d1} C={c}",
-                   err, timed, plain, lib, nbytes, ops)
-        _report(f"K5 onevsall_update B={b} D1={d1} C={c}: max abs err "
-                f"{err:.3e} ({rel:.2e} of the output scale), bit-identical "
-                f"run to run, {update_tile_bytes(c)} B dyn. smem", row, card,
+                   err, timed, plain, lib[0], nbytes, ops)
+        row.update(library_device_ms=lib[1], turns_ms=turns)
+        tiles = -(-b // ou.tile_rows(d1, c))
+        tag = f"K5 onevsall_update B={b} D1={d1} C={c}"
+        _report(f"{tag}: max abs err {err:.3e} ({rel:.2e} of the output "
+                f"scale), bit-identical run to run, {tiles} tile(s)"
+                + (" + combine" if tiles > 1 else "")
+                + f", {update_smem_bytes(d1, c)} B dyn. smem", row, card,
                 "cuBLAS composition addmm(w, x^T, sigmoid(x w) - y)")
-        if main_row is None:                  # the learner's shape
-            main_row = row
+        _report_turns(tag, turns, lib, "addmm composition", card)
+        rows.append(row)
     for line in ptxas:
         print(f"  K5 ptxas: {line}")
+    return rows
+
+
+def phase_onevsall_replay(torch, np, card):
+    """K5's replay on the card: one launch per buffer, bit-equal to the
+    loop of one-row launches and within LEARN_RTOL of the plain loop;
+    its time per call and per step beside the loop of one-row launches'
+    and the plain loop's.  Returns the row of the plane's largest round."""
+    from repro_torch.kernels import onevsall_update as ou
+    from repro_torch.testing import (LEARN_RTOL, UPDATE_ETA, rel_err,
+                                     update_case)
+    passes, main_row = REPLAY_PASSES, None
+    for n, d1, c in REPLAY_SHAPES:
+        xs, ys, w = (torch.as_tensor(a, device="cuda")
+                     for a in update_case(n, d1, c, seed=SEED + 5))
+        steps = n * passes
+
+        def loop():
+            v = w
+            for _ in range(passes):
+                for i in range(n):
+                    v = ou.onevsall_update(xs[i:i + 1], ys[i:i + 1], v,
+                                           eta=UPDATE_ETA)
+            return v
+
+        def replay():
+            return ou.onevsall_replay(xs, ys, w, eta=UPDATE_ETA,
+                                      passes=passes)
+
+        got, by_loop = replay(), loop()
+        want = ou.onevsall_replay_ref(xs, ys, w, eta=UPDATE_ETA,
+                                      passes=passes)
+        torch.cuda.synchronize()
+        if not (torch.equal(got, by_loop) and torch.equal(replay(), got)):
+            raise AssertionError(f"K5 replay N={n}: not bit-equal to the "
+                                 "loop of one-row launches or to itself")
+        err = float((got - want).abs().max())
+        rel = rel_err(got.cpu(), want.cpu())
+        if not (rel <= LEARN_RTOL and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"K5 replay N={n}: error {rel} of the "
+                                 f"output scale exceeds {LEARN_RTOL}")
+        timed = measure(torch, replay, once=True)
+        by_steps = measure(torch, loop, reps=5)
+        plain = measure(torch, lambda: ou.onevsall_replay_ref(
+            xs, ys, w, eta=UPDATE_ETA, passes=passes), reps=3)
+        nbytes = 4 * (n * d1 + n * c + 2 * d1 * c)
+        ops = steps * (4 * d1 * c + 2 * d1 * c)
+        row = _row("onevsall_update",
+                   "src/repro_torch/csrc/onevsall_update.cu",
+                   "src/repro/kernels/onevsall.py:86",
+                   f"replay N={n} passes={passes} D1={d1} C={c}", err,
+                   timed, plain, None, nbytes, ops)
+        per_step = (None if timed[1] is None
+                    else timed[1] * 1e3 / steps)
+        row.update(steps_per_call=steps, device_us_per_step=per_step,
+                   single_step_launches_ms=by_steps[0],
+                   single_step_launches_device_ms=by_steps[1])
+        _report(f"K5 replay N={n} x {passes} passes ({steps} steps) D1={d1} "
+                f"C={c}: bit-equal to {steps} one-row launches, max abs err "
+                f"{err:.3e} ({rel:.2e} of the output scale) against the "
+                f"plain loop; "
+                + ("per step not measured" if per_step is None
+                   else f"{per_step:.3f} us per step on the device")
+                + f"; the loop of one-row launches {fmt(by_steps[0])} per "
+                f"call ({fmt(by_steps[1])} on the device)", row, card)
+        if n == 64:
+            main_row = row
     return main_row
 
 
@@ -1021,13 +1176,16 @@ class RoundTimer:
 def run_learning(torch, device, params, streams, cfg, *, inline=False):
     """One forced-adapt run of the continual-learning plane (or, with
     ``inline``, of per-stream IncrementalLearners and no plane) on
-    ``device``; launch counts zeroed just before the run, read just after."""
+    ``device``; launch counts zeroed just before the run, read just after
+    (K5's replays and steps beside them, as ``onevsall_replay`` and
+    ``onevsall_steps``)."""
     from repro_torch.configs.vpaas_video import CLASSIFIER, DETECTOR
     from repro_torch.core.coordinator import (MultiStreamCoordinator,
                                               StreamSpec)
     from repro_torch.core.hitl import OracleAnnotator
     from repro_torch.core.incremental import IncrementalLearner
     from repro_torch.core.protocol import HighLowProtocol
+    from repro_torch.kernels import onevsall_update as ou
     from repro_torch.kernels import ops
     from repro_torch.learning import ContinualLearningPlane
     from repro_torch.testing import open_episode
@@ -1061,6 +1219,7 @@ def run_learning(torch, device, params, streams, cfg, *, inline=False):
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
+        counts.update(onevsall_replay=ou.replays, onevsall_steps=ou.steps)
     return plane, multi, counts, wall, W0, rounds.times
 
 
@@ -1077,6 +1236,7 @@ def phase_learning_main_path(torch, np, card):
     s = plane.summary()
     replayed = replayed_instances(zoo, "fog-classifier[cam0]")
     steps = cfg.passes * replayed
+    n_rounds = sum(site["trainer"]["rounds"] for site in s["sites"].values())
     print(f"learning main path: {LEARN_STREAMS} streams x {LEARN_CHUNKS} "
           f"chunks x {LEARN_FRAMES} frames of drifted traffic, full "
           f"vpaas_video width, per-site plane with Eq. 9 ensemble serving, "
@@ -1085,14 +1245,20 @@ def phase_learning_main_path(torch, np, card):
           f"{sched.hot_path_stats['host_syncs']} host syncs; launches K1 "
           f"{counts['region_filter_mask_batch']}, K3 "
           f"{counts['onevsall_scores']}, K5 {counts['onevsall_update']} "
-          f"(= {cfg.passes} passes x {replayed} replayed) [{card}]")
+          f"(= {n_rounds} training rounds, {counts['onevsall_replay']} of "
+          f"them replays) running {counts['onevsall_steps']} steps (= "
+          f"{cfg.passes} passes x {replayed} replayed) [{card}]")
     print_learning_summary(s)
     print("  trainer wall per round: " + (", ".join(
         f"{t * 1e3:.2f} ms" for t in rounds) or "no round") + f" [{card}]")
-    if not counts["onevsall_update"] == steps > 0:
+    if not (counts["onevsall_update"] == counts["onevsall_replay"]
+            == n_rounds > 0 and counts["onevsall_steps"] == steps > 0):
         raise AssertionError(f"K5 launched {counts['onevsall_update']} "
-                             f"times; cam0's rounds replayed {replayed} "
-                             f"instances x {cfg.passes} passes")
+                             f"times ({counts['onevsall_replay']} replays) "
+                             f"for {n_rounds} rounds and ran "
+                             f"{counts['onevsall_steps']} steps; cam0's "
+                             f"rounds replayed {replayed} instances x "
+                             f"{cfg.passes} passes")
     for name in VIDEO_KERNELS:
         if counts[name] == 0:
             raise AssertionError(f"learning path launched no {name} kernel")
@@ -1125,15 +1291,22 @@ def phase_learning_main_path(torch, np, card):
     learners = [st.learner for st in imulti.scheduler.streams.values()]
     consumed = sum(ln.labels_used - ln.buffered for ln in learners)
     passes = learners[0].passes
+    updates = sum(ln.updates_done for ln in learners)
     print(f"inline learner (StreamSpec.learner, no plane), same workload: "
-          f"{iwall:.3f} s wall, {sum(ln.updates_done for ln in learners)} "
-          f"updates over {consumed} instances; K5 launches "
-          f"{icounts['onevsall_update']} (= {passes} passes x {consumed}) "
-          f"[{card}]")
-    if not icounts["onevsall_update"] == passes * consumed > 0:
+          f"{iwall:.3f} s wall, {updates} updates over {consumed} "
+          f"instances; K5 launches {icounts['onevsall_update']} (= "
+          f"{updates} updates) running {icounts['onevsall_steps']} steps "
+          f"(= {passes} passes x {consumed}) [{card}]")
+    if not (icounts["onevsall_update"] == icounts["onevsall_replay"]
+            == updates > 0
+            and icounts["onevsall_steps"] == passes * consumed > 0):
         raise AssertionError(f"inline learner: K5 launched "
-                             f"{icounts['onevsall_update']} times for "
-                             f"{consumed} instances x {passes} passes")
+                             f"{icounts['onevsall_update']} times and ran "
+                             f"{icounts['onevsall_steps']} steps for "
+                             f"{updates} updates of {consumed} instances x "
+                             f"{passes} passes")
+    counts.update(inline_launches=icounts["onevsall_update"],
+                  inline_steps=icounts["onevsall_steps"])
     return counts
 
 
@@ -1172,13 +1345,14 @@ def phase_learning_reference(torch, np, card):
     if not (np.isfinite(W).all() and err <= LEARN_RTOL):
         raise AssertionError(f"cam0's W: card vs CPU {err:.2e} of its scale "
                              f"(tolerance {LEARN_RTOL})")
-    k5 = runs["cuda"][2]["onevsall_update"]
+    k5 = runs["cuda"][2]
     print(f"learning card vs CPU reference, 2 streams x 2 chunks x 2 frames "
           f"at full width: labels {card_out['labels_charged']}, rounds "
           f"{card_out['rounds']}, promotions {card_out['promotions']}, "
           f"rollbacks {card_out['rollbacks']}, hot swaps "
           f"{card_out['hot_swaps']}, zoo versions and event kinds equal; "
-          f"K5 launches on the card {k5}; cam0's W within {err:.2e} of its "
+          f"K5 on the card {k5['onevsall_update']} launches, "
+          f"{k5['onevsall_steps']} steps; cam0's W within {err:.2e} of its "
           f"scale (tolerance {LEARN_RTOL}) [{card}]")
 
 
@@ -1442,15 +1616,15 @@ import chip_smoke as cs
 from repro_torch import set_reference_precision
 set_reference_precision()
 card = cs.card_line()
-cs.phase_decode_attention(torch, np, card)
-cs.phase_ssd_scan(torch, np, card)
+cs.phase_crop_gather(torch, np, card)
+cs.phase_onevsall_update(torch, np, card)
 """
 
 
 def parent_device_ms(root: str, card: str):
-    """Run the K7 and K8 phases of another checkout (the parent commit,
+    """Run the K2 and K5 phases of another checkout (the parent commit,
     unpacked with ``git archive``) in a subprocess on this card; relay its
-    lines and return the device ms of its zamba2 rows, K7 then K8."""
+    lines and return {("K2" or "K5", "B=..."): device ms per call}."""
     import re
     code = PARENT_PHASES.format(root=os.path.abspath(root),
                                 src=os.path.join(os.path.abspath(root),
@@ -1458,16 +1632,16 @@ def parent_device_ms(root: str, card: str):
     run = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=900)
     if run.returncode != 0:
-        raise RuntimeError(f"the parent's K7/K8 phases failed:\n"
+        raise RuntimeError(f"the parent's K2/K5 phases failed:\n"
                            f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
     found = {}
     for line in run.stdout.splitlines():
-        m = re.match(r"(K[78]) .*?ms per call \((\d+\.\d+) ms on the device",
-                     line)
+        m = re.match(r"(K[25]) \w+ (B=\d+)[^:]*: .*?ms per call "
+                     r"\((\d+\.\d+) ms on the device", line)
         if m:
             print(f"  parent: {line}")
-            found.setdefault(m.group(1), float(m.group(2)))
-    return found.get("K7"), found.get("K8")
+            found.setdefault((m.group(1), m.group(2)), float(m.group(3)))
+    return found
 
 
 # ---------------------------------------------------------------------------
@@ -1703,7 +1877,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR",
                     help="another checkout (e.g. the parent commit from git "
-                         "archive): its K7 and K8 phases run before and "
+                         "archive): its K2 and K5 phases run before and "
                          "after this tree's, on the same card")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -1727,24 +1901,28 @@ def main() -> int:
     for line in ptxas_summary(_build.build_log):
         print(f"  {line}")
 
-    video_rows = [phase_region_filter(torch, np, card),
-                  phase_crop_gather(torch, np, card),
+    before = parent_device_ms(args.parent, card) if args.parent else None
+    crop_row = phase_crop_gather(torch, np, card)
+    update_rows = phase_onevsall_update(torch, np, card)
+    after = parent_device_ms(args.parent, card) if args.parent else None
+    for tag, row in [("K2", crop_row)] + [("K5", r) for r in update_rows]:
+        key = (tag, row["shape"].split()[0])
+        row["parent_device_ms"] = (None if before is None
+                                   else [before.get(key), after.get(key)])
+        print(f"{tag} {row['shape']}: parent's device time "
+              + ("not measured (no --parent)" if before is None else
+                 f"{before.get(key)} ms before, {after.get(key)} ms after "
+                 f"this tree's, this tree {fmt(row['device_ms'])}")
+              + f" [{card}]")
+    update_row = phase_onevsall_replay(torch, np, card)
+    update_row["update_shapes"] = update_rows
+    video_rows = [phase_region_filter(torch, np, card), crop_row,
                   phase_onevsall(torch, np, card)]
-    update_row = phase_onevsall_update(torch, np, card)
     iou_row = phase_iou_matrix(torch, np, card)
     frame_row = phase_frame_filter(torch, np, card)
-    llm_rows = [phase_flash_attention(torch, np, card)]
-    before = parent_device_ms(args.parent, card) if args.parent else None
-    llm_rows += [phase_decode_attention(torch, np, card),
-                 phase_ssd_scan(torch, np, card)]
-    after = parent_device_ms(args.parent, card) if args.parent else None
-    for row, i in ((llm_rows[1], 0), (llm_rows[2], 1)):
-        row["parent_device_ms"] = (None if before is None
-                                   else [before[i], after[i]])
-        print(f"{row['name']} {row['shape']}: parent's device time "
-              + ("not measured (no --parent)" if before is None else
-                 f"{before[i]} ms before, {after[i]} ms after this tree's, "
-                 f"this tree {fmt(row['device_ms'])}") + f" [{card}]")
+    llm_rows = [phase_flash_attention(torch, np, card),
+                phase_decode_attention(torch, np, card),
+                phase_ssd_scan(torch, np, card)]
     phase_nms(torch, np, card)
     phase_reference(torch, np, card)
     fused_counts, sync_counts, _ = phase_main_path(torch, np, card)
@@ -1758,7 +1936,11 @@ def main() -> int:
     frame_row["launches"] = base_counts["dds"]["region_filter_mask"]
     phase_learning_reference(torch, np, card)
     learn_counts = phase_learning_main_path(torch, np, card)
-    update_row["launches"] = learn_counts["onevsall_update"]
+    update_row.update(launches=learn_counts["onevsall_update"],
+                      launches_replay=learn_counts["onevsall_replay"],
+                      steps=learn_counts["onevsall_steps"],
+                      launches_inline=learn_counts["inline_launches"],
+                      steps_inline=learn_counts["inline_steps"])
     iou_row["launches_learning"] = learn_counts["iou_matrix"]
     phase_llm_reference(torch, np, card)
     llm_counts = phase_llm_main_path(torch, np, card)

@@ -16,14 +16,16 @@ absorbed by the appended 1-feature).  Two update rules are provided:
 
 Snapshots {W_t} are ensembled with ridge weights omega per Eq. (9).
 
-PyTorch port of ``repro.core.incremental``.  Every proximal step is one
-call of the fused update K5 (``kernels.ops.onevsall_update``) on a single
-row: a launch of the CUDA kernel when W lies on the card, its plain PyTorch
-version when W lies on the CPU.  ``batch_update`` stays the reference's
-sequential scan, one step per instance per pass; batching the buffer into
-one K5 call would be a batch gradient step, another function.  The Eq. (8)
-rule has no Pallas kernel in the JAX package and stays plain PyTorch on
-both devices.  Tensors stay on the device of the W they are given.
+PyTorch port of ``repro.core.incremental``.  Every proximal step is K5's
+one-row step (``kernels.ops.onevsall_update``).  ``batch_update`` with the
+proximal rule stays the reference's sequential scan, one step per instance
+per pass, and hands the whole scan to ``kernels.ops.onevsall_replay``: on
+the card one launch that runs the steps in order and equals a loop of
+one-row launches bit for bit; on the CPU that loop of plain one-row steps.
+(One K5 call over the whole buffer would be a batch gradient step, another
+function.)  The Eq. (8) rule has no Pallas kernel in the JAX package and
+stays plain PyTorch on both devices.  Tensors stay on the device of the W
+they are given.
 """
 from __future__ import annotations
 
@@ -71,10 +73,13 @@ def batch_update(W, xs, ys, rule: str = "eq8", eta: float = 0.05,
 
     ``passes > 1`` replays the buffer (still per-instance updates; the
     paper's Eq. 8 is the single-pass case).  ``xs`` and ``ys`` move to W's
-    device once per call."""
+    device once per call; the proximal rule's scan is one K5 replay."""
     fn = {"eq8": update_eq8, "proximal": update_proximal}[rule]
     W = torch.as_tensor(W)
     xs, ys = _on(xs, W), _on(ys, W)
+    if rule == "proximal":
+        return ops.onevsall_replay(xs, ys, W, eta=eta,
+                                   passes=max(passes, 1))
     for _ in range(max(passes, 1)):
         for i in range(xs.shape[0]):
             W = fn(W, xs[i], ys[i], eta)

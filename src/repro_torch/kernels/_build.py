@@ -57,11 +57,13 @@ SIGNATURES = {
     "vpaas_iou_matrix":
         [_P, _P, _P, _I, _I, _I, _P],
     "vpaas_crop_gather":
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+        [_P, _P, _P, _P, _P, _P],
     "vpaas_onevsall_scores":
         [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "vpaas_onevsall_update":
-        [_P, _P, _P, _P, _I, _I, _I, _F, _P],
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "vpaas_onevsall_replay":
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "vpaas_flash_attention":
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "vpaas_decode_attention":

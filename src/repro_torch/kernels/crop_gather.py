@@ -7,10 +7,17 @@ crop batch directly -- only the B bucket rows pay crop cost.  Pad rows
 (frame index F) clip to the last frame.  The plain PyTorch version is
 :func:`crop_gather_ref` (``ref.crop_gather``); the kernel equals it bit for
 bit.
+
+The call is host-bound (the kernel takes a few microseconds on the card),
+so the wrapper does little per call: one validation pass over the three
+operands, one lookup of the launcher's argument struct (the sizes and the
+two sample grids on the device, kept per shape and device), the output
+from ``new_empty``, then a six-argument launch.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -21,6 +28,31 @@ launches = 0          # kernel launches since the last reset (ops.py)
 crop_gather_ref = ref.crop_gather
 
 
+class CropArgs(ctypes.Structure):
+    """``VpaasCropArgs`` of ``csrc/crop_gather.cu``."""
+    _fields_ = [("lin_y", ctypes.c_void_p), ("lin_x", ctypes.c_void_p)] + [
+        (name, ctypes.c_int) for name in ("B", "F", "H", "W", "C", "N", "OH",
+                                          "OW")]
+
+
+# (B, F, H, W, C, N, OH, OW, device index) -> (the struct's address, the
+# struct, the sample grids it points to); a flush's shapes repeat, so a few
+# entries serve a run
+_args: Dict[tuple, tuple] = {}
+MAX_CACHED = 256
+
+
+def _launch_args(key: tuple, device: torch.device) -> int:
+    if len(_args) >= MAX_CACHED:
+        _args.clear()
+    b, f, h, w, ch, n, oh, ow, _ = key
+    lin_y, lin_x = ref.crop_lin(oh, device), ref.crop_lin(ow, device)
+    args = CropArgs(lin_y.data_ptr(), lin_x.data_ptr(), b, f, h, w, ch, n,
+                    oh, ow)
+    _args[key] = (ctypes.addressof(args), args, lin_y, lin_x)
+    return _args[key][0]
+
+
 def crop_gather(frames: torch.Tensor, boxes: torch.Tensor,
                 idxs: torch.Tensor, *,
                 out_hw: Tuple[int, int]) -> torch.Tensor:
@@ -28,26 +60,23 @@ def crop_gather(frames: torch.Tensor, boxes: torch.Tensor,
     global launches
     f, h, w, ch = frames.shape
     n = boxes.shape[1]
-    b = idxs.shape[1]
-    oh, ow = out_hw
-    frames = frames.contiguous()
-    boxes = boxes.contiguous()
-    idxs = idxs.contiguous()
-    _build.check_operands(("frames", frames, torch.float32, None),
-                          ("boxes", boxes, torch.float32, (f, n, 4)),
-                          ("idxs", idxs, torch.int32, None))
     if idxs.dim() != 2 or idxs.shape[0] < 2:
         raise ValueError(f"idxs: expected (>=2, B), got {tuple(idxs.shape)}")
     if f == 0 or n == 0:
         raise ValueError("crop_gather needs at least one frame and one box")
-    lin_y = ref.crop_lin(oh, frames.device)
-    lin_x = ref.crop_lin(ow, frames.device)
-    out = torch.empty((b, oh, ow, ch), dtype=frames.dtype,
-                      device=frames.device)
+    _build.check_operands(("frames", frames, torch.float32, None),
+                          ("boxes", boxes, torch.float32, (f, n, 4)),
+                          ("idxs", idxs, torch.int32, None))
+    oh, ow = out_hw
+    b = idxs.shape[1]
+    out = frames.new_empty((b, oh, ow, ch))
     if b:
+        key = (b, f, h, w, ch, n, oh, ow, frames.get_device())
+        cached = _args.get(key)
+        args = (cached[0] if cached is not None
+                else _launch_args(key, frames.device))
         _build.launch("vpaas_crop_gather", frames.data_ptr(),
-                      boxes.data_ptr(), idxs.data_ptr(), lin_y.data_ptr(),
-                      lin_x.data_ptr(), out.data_ptr(), b, f, h, w, ch, n,
-                      oh, ow)
+                      boxes.data_ptr(), idxs.data_ptr(), out.data_ptr(),
+                      args)
         launches += 1
     return out

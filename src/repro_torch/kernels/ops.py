@@ -8,7 +8,10 @@ nothing falls back when a kernel fails to build or launch -- it raises.
 Each kernel module keeps a plain-integer launch count (``launches``), bumped
 where the kernel is launched and nowhere else; :func:`launch_counts` and
 :func:`reset_launch_counts` read and zero them, so a run can show that the
-serving path went through the kernels.
+serving path went through the kernels.  K5 also counts its replays and the
+proximal steps its launches ran (``onevsall_update.replays`` and
+``.steps``, zeroed with the launches): a replay is one launch of many
+steps.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for mod in KERNELS.values():
         mod.launches = 0
+    _ou.replays = _ou.steps = 0
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -116,6 +120,19 @@ def onevsall_update(x, y, w, *, eta: float) -> torch.Tensor:
     if _on_card(x):
         return _ou.onevsall_update(x, y, w, eta=eta)
     return _ou.onevsall_update_ref(x, y, w, eta=eta)
+
+
+def onevsall_replay(xs, ys, w, *, eta: float, passes: int = 1
+                    ) -> torch.Tensor:
+    """``passes`` passes of one-row proximal steps over xs / ys in order
+    (K5): one launch on the card; on the CPU the loop of one-row
+    :func:`onevsall_update` calls it equals bit for bit."""
+    if _on_card(xs):
+        return _ou.onevsall_replay(xs, ys, w, eta=eta, passes=passes)
+    for _ in range(passes):
+        for i in range(xs.shape[0]):
+            w = onevsall_update(xs[i][None], ys[i][None], w, eta=eta)
+    return w
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

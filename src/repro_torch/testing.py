@@ -167,6 +167,25 @@ def crop_cases() -> Dict[str, Tuple[np.ndarray, np.ndarray, np.ndarray,
     return cases
 
 
+def crop_tile_cases() -> Dict[str, Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                         Tuple[int, int]]]:
+    """K2 cases whose crop is not a whole number of the CUDA kernel's
+    128-pixel tiles: 13 x 11 = 143 pixels of 3 channels (every other bucket
+    row's output starts off 16-byte alignment) and 9 x 15 = 135 pixels of 5
+    channels (the taps load in two passes of 4 channels), each bucket with
+    out-of-bounds pad rows."""
+    cases = {}
+    for f, n, hw, ch, out_hw, seed in [(3, 6, (20, 24), 3, (13, 11), 21),
+                                       (2, 4, (16, 16), 5, (9, 15), 22)]:
+        rng = np.random.default_rng(seed)
+        frames = rng.random((f, *hw, ch), dtype=np.float32)
+        boxes = rand_boxes(rng, (f, n))
+        boxes[0, 0] = [0.0, 0.0, 1.0, 1.0]    # full frame
+        cases[f"tile-{out_hw[0]}x{out_hw[1]}x{ch}"] = (
+            frames, boxes, _plan(rng.random((f, n)) < 0.6), out_hw)
+    return cases
+
+
 # ---------------------------------------------------------------------------
 # K3 one-vs-all cases: (x, ws, widx)
 # ---------------------------------------------------------------------------

@@ -79,7 +79,8 @@ def test_versus_library_reports_both_device_times(monkeypatch):
     monkeypatch.setattr(chip_smoke, "time_ms",
                         lambda torch, fn, reps=30, warmup=5: fn())
     monkeypatch.setattr(chip_smoke, "profile_device",
-                        lambda torch, fn, reps=1: (fn() / 10, None))
+                        lambda torch, fn, reps=1, once=False:
+                        (fn() / 10, None))
     timed, lib, turns = chip_smoke.versus_library(None, lambda: 2.0,
                                                   lambda: 4.0)
     assert timed == (2.0, 0.2) and lib == (4.0, 0.4)
@@ -211,3 +212,49 @@ def test_device_time_per_call_survives_dropped_events():
     # the host op's own figure is not counted, as in the plain sum
     assert chip_smoke.device_us_per_call(_events().key_averages(), 1) == \
         10.0
+
+
+def test_parent_device_ms_reads_the_parent_k2_and_k5_lines(monkeypatch):
+    # the parent's phases print one line per shape (and, since the K2/K5
+    # redesign, an in-turns line after it, whose library device time must
+    # not be read as the kernel's)
+    lines = [
+        "K2 crop_gather B=128 (100 valid) F=32: bit-equal: kernel 0.0285 ms "
+        "per call (0.0067 ms on the device), plain 1.6810 ms (0.1837 ms on "
+        "the device), grid_sample 0.0223 ms, bound 0.001287 ms (bytes) [c]",
+        "K2 crop_gather B=128 (100 valid) F=32 in turns (kernel, "
+        "grid_sample, grid_sample, kernel): kernel 0.0300, 0.0290 ms per "
+        "call; grid_sample 0.0220, 0.0230 ms per call (0.0051 ms on the "
+        "device) [c]",
+        "K5 onevsall_update B=2048 D1=129 C=8: max abs err 2.594e-04 "
+        "(8.63e-07 of the output scale), bit-identical run to run, 1024 B "
+        "dyn. smem: kernel 0.7942 ms per call (0.7482 ms on the device), "
+        "plain 0.1250 ms (0.0168 ms on the device) [c]",
+        "K7 decode_attention b=4: kernel 0.1 ms per call (0.09 ms on the "
+        "device) [c]"]
+
+    class Run:
+        returncode, stdout, stderr = 0, "\n".join(lines), ""
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run",
+                        lambda *a, **kw: Run())
+    assert chip_smoke.parent_device_ms("build/parent", "c") == {
+        ("K2", "B=128"): 0.0067, ("K5", "B=2048"): 0.7482}
+
+
+def test_device_time_once_sums_each_kernels_mean():
+    # a call of two kernels (3 us and 1 us) profiled 30 times, of whose
+    # events the profiler kept 6 and 30: rounding 6 / 30 per call gives
+    # 0.6 us for the first, the call's known one launch each gives 4 us
+    kw = dict(thread=0, use_device="cuda", stack=[])
+    events = [FunctionEvent(id=i, name="step" if i < 6 else "combine",
+                            start_us=10 * i,
+                            end_us=10 * i + (3 if i < 6 else 1),
+                            device_type=DeviceType.CUDA, **kw)
+              for i in range(36)]
+    events = EventList(events, use_device="cuda")
+    events._build_tree()
+    avgs = events.key_averages()
+    assert chip_smoke.device_us_per_call(avgs, 30) == pytest.approx(1.6)
+    assert chip_smoke.device_us_per_call(avgs, 30, once=True) == \
+        pytest.approx(4.0)

@@ -38,7 +38,8 @@ from repro_torch.testing import (ATTN_ATOL, DECODE_CASES, FILTER_CASES,
                                  ONEVSALL_ATOL, SSD_CASES, SSD_RTOL,
                                  UPDATE_ETA, UPDATE_RTOL, CodecTap,
                                  DetectorTies, assert_baseline_results_match,
-                                 attention_case, crop_cases, decode_case,
+                                 attention_case, crop_cases,
+                                 crop_tile_cases, decode_case,
                                  filter_case, frame_filter_case, iou_case,
                                  onevsall_case, open_episode, rel_err,
                                  replayed_instances, ssd_case, update_case)
@@ -46,7 +47,7 @@ from repro_torch.video import synthetic
 
 pytestmark = pytest.mark.cuda
 
-CROP_CASES = crop_cases()
+CROP_CASES = {**crop_cases(), **crop_tile_cases()}
 
 
 @pytest.fixture
@@ -235,6 +236,51 @@ def test_onevsall_update_kernel_is_bit_identical_run_to_run(cuda):
                            first)
 
 
+@pytest.mark.parametrize("n,d1,c,passes,one_block", [
+    (16, 129, 8, 2, True), (256, 129, 8, 2, True), (37, 17, 10, 3, True),
+    (5, 65, 40, 2, True), (6, 129, 100, 2, False)])
+def test_onevsall_replay_equals_single_step_launches(cuda, n, d1, c, passes,
+                                                     one_block):
+    # one launch of the replay (a persistent block; past shared memory,
+    # the launcher's own loop) gives the bits of a loop of one-row launches
+    xs, ys, w = _t(update_case(n, d1, c, seed=5), cuda)
+    got = ou.onevsall_replay(xs, ys, w, eta=UPDATE_ETA, passes=passes)
+    loop = w
+    for _ in range(passes):
+        for i in range(n):
+            loop = ou.onevsall_update(xs[i:i + 1], ys[i:i + 1], loop,
+                                      eta=UPDATE_ETA)
+    want = ou.onevsall_replay_ref(xs, ys, w, eta=UPDATE_ETA, passes=passes)
+    torch.cuda.synchronize()
+    assert ou.replay_in_one_block(d1, c) == one_block
+    assert torch.equal(got, loop)
+    assert rel_err(got.cpu(), want.cpu()) <= LEARN_RTOL
+    assert torch.equal(ou.onevsall_replay(xs, ys, w, eta=UPDATE_ETA,
+                                          passes=passes), got)
+
+
+def test_onevsall_replay_in_a_cuda_graph(cuda):
+    # captured once, a replay of the graph recomputes the K5 replay (and a
+    # batch step through its workspace) from the inputs' new values
+    xs, ys, w = _t(update_case(64, 129, 8, seed=6), cuda)
+    xb, yb, _ = _t(update_case(300, 129, 8, seed=7), cuda)
+    ou.onevsall_replay(xs, ys, w, eta=UPDATE_ETA, passes=2)  # warm-up
+    ou.onevsall_update(xb, yb, w, eta=UPDATE_ETA)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ou.onevsall_replay(xs, ys, w, eta=UPDATE_ETA, passes=2)
+        out_b = ou.onevsall_update(xb, yb, w, eta=UPDATE_ETA)
+    xs.mul_(0.5)
+    xb.mul_(0.5)
+    w.add_(0.01)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, ou.onevsall_replay(xs, ys, w, eta=UPDATE_ETA,
+                                               passes=2))
+    assert torch.equal(out_b, ou.onevsall_update(xb, yb, w, eta=UPDATE_ETA))
+
+
 def test_learning_plane_on_the_card_matches_cpu(cuda):
     # the per-site plane with Eq. 9 ensemble serving and threshold
     # adaptation on the reduced configs: cam0's episode trains through K5
@@ -267,15 +313,21 @@ def test_learning_plane_on_the_card_matches_cpu(cuda):
         open_episode(plane, multi.scheduler, "cam0")
         ops.reset_launch_counts()
         multi.run(learn=True)
-        runs[dev] = (plane, multi.scheduler, ops.launch_counts())
-    (plane, sched, counts), (cpu_plane, cpu_sched, cpu_counts) = (
-        runs["cuda"], runs["cpu"])
+        runs[dev] = (plane, multi.scheduler, ops.launch_counts(), ou.steps)
+    (plane, sched, counts, k5_steps), (cpu_plane, cpu_sched, cpu_counts,
+                                       cpu_steps) = runs["cuda"], runs["cpu"]
+    assert cpu_steps == 0
     assert plane.summary() == cpu_plane.summary()
     assert [e["event"] for e in sched.monitor.events] == [
         e["event"] for e in cpu_sched.monitor.events]
     steps = lcfg.passes * replayed_instances(sched.graph.zoo,
                                              "fog-classifier[cam0]")
-    assert counts["onevsall_update"] == steps > 0
+    rounds = sum(site["trainer"]["rounds"]
+                 for site in plane.summary()["sites"].values())
+    # one K5 launch per training round (batch_update call), each a replay
+    # of passes x the round's buffer
+    assert counts["onevsall_update"] == rounds > 0
+    assert k5_steps == steps > 0
     assert cpu_counts == {name: 0 for name in ops.KERNELS}
     for name, st in sched.streams.items():
         assert rel_err(st.W, cpu_sched.streams[name].W) <= LEARN_RTOL
@@ -290,6 +342,21 @@ def test_kernel_rejects_bad_operands(cuda):
     with pytest.raises(ValueError, match="shape"):
         ov.onevsall_scores(*_t((x, ws), cuda),
                            torch.zeros(3, dtype=torch.int32, device=cuda))
+
+
+def test_crop_gather_rejects_bad_operands(cuda):
+    # check_operands names the operand and the fault before any pointer
+    # reaches the launcher
+    frames, boxes, idxs, out_hw = CROP_CASES["sweep-6x9"]
+    fr, bx, ix = _t((frames, boxes, idxs), cuda)
+    strided = bx.transpose(0, 1).contiguous().transpose(0, 1)
+    for args, match in [((fr.double(), bx, ix), "frames: expected"),
+                        ((fr, bx, ix.cpu()), "idxs: expected a CUDA"),
+                        ((fr, bx, ix.long()), "int32"),
+                        ((fr, bx[..., :3], ix), "shape"),
+                        ((fr, strided, ix), "contiguous")]:
+        with pytest.raises(ValueError, match=match):
+            cg.crop_gather(*args, out_hw=out_hw)
 
 
 def test_launch_lands_on_the_current_stream(cuda):

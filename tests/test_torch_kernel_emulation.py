@@ -41,11 +41,11 @@ from repro_torch.kernels import region_filter_mask as rf
 from repro_torch.kernels import ssd_scan as sk
 from repro_torch.testing import (ATTN_ATOL, DECODE_CASES, FILTER_KW,
                                  FLASH_CASES, FLASH_RAGGED_CASES, IOU_CASES,
-                                 ONEVSALL_ATOL,
-                                 SSD_CASES, SSD_RTOL, UPDATE_ETA, UPDATE_RTOL,
-                                 attention_case, crop_cases, decode_case,
-                                 filter_case, frame_filter_case, iou_case,
-                                 onevsall_case, rel_err, ssd_case,
+                                 LEARN_RTOL, ONEVSALL_ATOL, SSD_CASES,
+                                 SSD_RTOL, UPDATE_ETA, UPDATE_RTOL,
+                                 attention_case, crop_cases, crop_tile_cases,
+                                 decode_case, filter_case, frame_filter_case,
+                                 iou_case, onevsall_case, rel_err, ssd_case,
                                  update_case)
 
 EMU_HEADER = r"""
@@ -397,9 +397,15 @@ def test_frame_filter_source_matches_plain(emulated, n, m):
     assert torch.equal(got, rf.region_filter_mask_ref(*args, **FILTER_KW))
 
 
-@pytest.mark.parametrize("case", ["sweep-6x9", "oob-pad-rows", "bucket-5"])
+CROP_CASES = {**crop_cases(), **crop_tile_cases()}
+
+
+@pytest.mark.parametrize("case", sorted(CROP_CASES))
 def test_crop_gather_source_matches_plain(emulated, case):
-    frames, boxes, idxs, out_hw = crop_cases()[case]
+    # every crop case, pad rows included, and crops that are not a whole
+    # number of 128-pixel tiles (aligned and unaligned output rows, 5
+    # channels in two tap passes): bit for bit
+    frames, boxes, idxs, out_hw = CROP_CASES[case]
     args = _t((frames, boxes, idxs))
     assert torch.equal(cg.crop_gather(*args, out_hw=out_hw),
                        cg.crop_gather_ref(*args, out_hw=out_hw))
@@ -424,14 +430,56 @@ def test_onevsall_source_matches_plain(emulated, b, d, c, g):
 @pytest.mark.parametrize("b", [1, 130, 300])
 @pytest.mark.parametrize("d1,c", [(129, 8), (17, 10)])
 def test_onevsall_update_source_matches_plain(emulated, b, d1, c):
-    # the learner's single-row step, a ragged row tile (130 = 4 x 32 + 2 at
-    # C = 8; 25-row tiles at C = 10) and more rows than one tile
+    # the learner's single-row step (one block, a warp per residual) and
+    # batches split into 32-row tiles with a ragged last tile (130 = 4 x 32
+    # + 2), their parts added by the combine kernel
+    assert ou.tile_rows(d1, c) == 32
     x, y, w = _t(update_case(b, d1, c))
     got = ou.onevsall_update(x, y, w, eta=UPDATE_ETA)
     want = ou.onevsall_update_ref(x, y, w, eta=UPDATE_ETA)
     assert rel_err(got, want) <= UPDATE_RTOL
     # the same bits on a second launch: no atomics, fixed summation order
     assert torch.equal(ou.onevsall_update(x, y, w, eta=UPDATE_ETA), got)
+
+
+@pytest.mark.parametrize("b,d1,c", [
+    (3, 129, 8),                # one tile, a warp per row of 8 classes
+    (45, 33, 21),               # ragged D1 and C: three class chunks
+    (2048, 129, 8),             # the trainer's max_buffer: 64 tiles
+    (70, 129, 100)])            # W past shared memory: read from global
+def test_onevsall_update_source_shapes(emulated, b, d1, c):
+    x, y, w = _t(update_case(b, d1, c, seed=4))
+    got = ou.onevsall_update(x, y, w, eta=UPDATE_ETA)
+    assert rel_err(got, ou.onevsall_update_ref(x, y, w, eta=UPDATE_ETA)) \
+        <= UPDATE_RTOL
+    assert torch.equal(ou.onevsall_update(x, y, w, eta=UPDATE_ETA), got)
+
+
+@pytest.mark.parametrize("n,d1,c,passes,one_block", [
+    (37, 17, 10, 3, True), (50, 129, 8, 2, True), (1, 129, 8, 1, True),
+    (5, 65, 40, 2, True),       # five classes a warp
+    (6, 129, 100, 2, False)],   # W past the block's shared memory
+    ids=["ragged", "learner", "one-step", "wide", "past-smem"])
+def test_onevsall_replay_source_equals_single_steps(emulated, n, d1, c,
+                                                   passes, one_block):
+    # one launch of the replay gives the bits of a loop of one-row launches
+    # of the step kernel (the same residual and update arithmetic), and
+    # stays within the tolerance of the plain loop
+    assert ou.replay_in_one_block(d1, c) == one_block
+    xs, ys, w = _t(update_case(n, d1, c, seed=5))
+    ou.launches = ou.steps = 0
+    got = ou.onevsall_replay(xs, ys, w, eta=UPDATE_ETA, passes=passes)
+    assert (ou.launches, ou.steps) == (1, n * passes)
+    loop = w
+    for _ in range(passes):
+        for i in range(n):
+            loop = ou.onevsall_update(xs[i:i + 1], ys[i:i + 1], loop,
+                                      eta=UPDATE_ETA)
+    assert torch.equal(got, loop)
+    want = ou.onevsall_replay_ref(xs, ys, w, eta=UPDATE_ETA, passes=passes)
+    assert rel_err(got, want) <= LEARN_RTOL
+    assert torch.equal(ou.onevsall_replay(xs, ys, w, eta=UPDATE_ETA,
+                                          passes=passes), got)
 
 
 @pytest.mark.parametrize("case", FLASH_CASES + FLASH_RAGGED_CASES,

@@ -159,6 +159,26 @@ def test_batch_update_matches_jax(rule, passes, n, d):
     assert rel_err(got.numpy(), want) <= LEARN_RTOL
 
 
+@pytest.mark.parametrize("passes", [1, 2, 3])
+def test_onevsall_replay_plain_matches_jax_batch_update(passes):
+    # K5's replay's plain version (the loop of one-row plain steps) against
+    # the reference's proximal scan, at the learner's d+1 = 129, C = 8
+    xs, labels = _features(96, seed=7, d=128, c=8)
+    xs[:, :-1] /= np.sqrt(128)
+    ys = _onehot(labels, 8)
+    W0 = np.random.default_rng(8).normal(0, 0.1, (129, 8)).astype(np.float32)
+    want = jinc.batch_update(jnp.asarray(W0), jnp.asarray(xs),
+                             jnp.asarray(ys), rule="proximal", eta=UPDATE_ETA,
+                             passes=passes)
+    got = ou.onevsall_replay_ref(*map(torch.as_tensor, (xs, ys, W0)),
+                                 eta=UPDATE_ETA, passes=passes)
+    assert rel_err(got.numpy(), want) <= LEARN_RTOL
+    assert torch.equal(ops.onevsall_replay(*map(torch.as_tensor,
+                                                (xs, ys, W0)),
+                                           eta=UPDATE_ETA, passes=passes),
+                       got)
+
+
 def test_batch_update_takes_one_k5_step_per_instance_per_pass(monkeypatch):
     # the reference's sequential scan: never one batched K5 call
     calls = []
