@@ -27,9 +27,9 @@ and power limit, one JSON object describing the kernels, and
 ``{"ok": true, "device": {...}}``.
 
 ``--parent DIR`` names another checkout (the parent commit unpacked with
-``git archive``): its K2 and K5 phases then run in a subprocess before and
-after this tree's, on the same card, and their device times are printed
-beside this tree's.
+``git archive``): its K2, K5, K1 and K4b phases then run in a subprocess
+before and after this tree's, on the same card, and their device times are
+printed beside this tree's.
 
 Without a CUDA device, or without the repository's ``src/repro_torch`` next
 to it, the script exits non-zero and prints no result.
@@ -248,9 +248,67 @@ def _report(tag, row, card, lib_name=None):
           f" [{card}]")
 
 
+# valid accepted boxes a frame in the sparse cases: what NMS keeps on the
+# serving path is a few a frame (the main path's own operands are timed too)
+SPARSE_ACCEPTED = 4
+
+
+def filter_ptxas():
+    """ptxas's report of the filter kernel."""
+    from repro_torch.kernels import _build
+    return [line for line in ptxas_summary(_build.build_log)
+            if line.startswith("region_filter_kernel")]
+
+
+def filter_bound(f, n, m, n_acc):
+    """K1's / K4b's bound, computed as it was before their redesign so
+    that the rows compare across versions: every input byte once, 14
+    operations for every pair of a proposal with a valid accepted box, 5
+    per box area, 5 per proposal's terms."""
+    nbytes = f * n * (16 + 1 + 4 + 1) + f * m * (16 + 1)
+    ops = 14 * n_acc * n + 5 * f * (n + m) + 5 * f * n
+    return nbytes, ops
+
+
+def filter_sparse(torch, kernel, plain, shape: str, bound, what: str,
+                  card) -> dict:
+    """``kernel()`` on a sparse accepted set: bit-equal to ``plain()`` and
+    timed beside it; the numbers that the row keeps as ``sparse``."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{what} differs from the plain version at "
+                             f"{int((got != want).sum())} positions")
+    row = _row("region_filter_mask", "", "", shape, 0.0,
+               measure(torch, kernel, once=True), measure(torch, plain),
+               None, *bound)
+    _report(f"{what}: masks equal", row, card)
+    return {k: row[k] for k in ("ms", "device_ms", "plain_ms",
+                                "plain_device_ms", "bound_ms", "bound_by")}
+
+
+def filter_corners_on_card(torch, kernel, plain, what: str, per_frame):
+    """Every case of testing.filter_corner_cases (NaN coordinates, theta_iou
+    <= 0, empty and odd-sized accepted sets, ragged N, two passes) on the
+    card, bit-equal to the plain version (frame by frame for K4b)."""
+    from repro_torch.testing import filter_corner_cases
+    cases = filter_corner_cases()
+    for name, (arrays, kw) in cases.items():
+        args = [torch.as_tensor(a, device="cuda") for a in arrays]
+        frames = ([[a[i] for a in args] for i in range(args[0].shape[0])]
+                  if per_frame else [args])
+        for fr in frames:
+            got, want = kernel(*fr, **kw), plain(*fr, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"{what}: corner case {name} differs "
+                                     f"from the plain version")
+    return len(cases)
+
+
 def phase_region_filter(torch, np, card):
     from repro_torch.kernels import iou_filter as ik
-    from repro_torch.testing import rand_boxes
+    from repro_torch.testing import filter_case, rand_boxes
     f, n, m = 32, 256, 256
     rng = np.random.default_rng(SEED)
     t = lambda a: torch.as_tensor(a, device="cuda")  # noqa: E731
@@ -265,19 +323,93 @@ def phase_region_filter(torch, np, card):
         raise AssertionError(
             f"K1 mask differs from the plain version at "
             f"{int((got != want).sum())} of {got.numel()} positions")
+    # once: one device kernel a call, whatever share of its events the
+    # profiler keeps
     timed = measure(torch, lambda: ik.region_filter_mask_batch(
-        prop, pv, acc, av, loc, **kw))
+        prop, pv, acc, av, loc, **kw), once=True)
     plain = measure(torch, lambda: ik.region_filter_mask_batch_ref(
         prop, pv, acc, av, loc, **kw))
-    pairs = int(av.sum()) * n          # the kernel skips invalid accepted
-    nbytes = f * n * (16 + 1 + 4 + 1) + f * m * (16 + 1)
-    ops = 14 * pairs + 5 * f * (n + m) + 5 * f * n
     row = _row("region_filter_mask_batch", "src/repro_torch/csrc/iou_filter.cu",
                "src/repro/kernels/iou_filter.py:174", f"F={f} N={n} M={m}",
-               0.0, timed, plain, None, nbytes, ops)
+               0.0, timed, plain, None, *filter_bound(f, n, m, int(av.sum())))
     _report(f"K1 region_filter_mask_batch F={f} N={n} M={m}: masks equal",
             row, card)
+    # the serving path's density: SPARSE_ACCEPTED valid accepted boxes a
+    # frame, the other operands as above
+    av_s = t(np.argsort(rng.random((f, m)), -1) < SPARSE_ACCEPTED)
+    row["sparse"] = filter_sparse(
+        torch, lambda: ik.region_filter_mask_batch(
+            prop, pv, acc, av_s, loc, **kw),
+        lambda: ik.region_filter_mask_batch_ref(
+            prop, pv, acc, av_s, loc, **kw),
+        f"F={f} N={n} M={m}", filter_bound(f, n, m, int(av_s.sum())),
+        f"K1 region_filter_mask_batch sparse F={f} N={n} M={m} "
+        f"({SPARSE_ACCEPTED} valid accepted a frame)", card)
+    # ragged: N and M not multiples of a block's 8 proposals or a pass
+    args = [t(a) for a in filter_case(7, 130, 70, seed=SEED)]
+    if not torch.equal(ik.region_filter_mask_batch(*args, **kw),
+                       ik.region_filter_mask_batch_ref(*args, **kw)):
+        raise AssertionError("K1 ragged F=7 N=130 M=70 differs from the "
+                             "plain version")
+    corners = filter_corners_on_card(
+        torch, ik.region_filter_mask_batch, ik.region_filter_mask_batch_ref,
+        "K1", per_frame=False)
+    row["ptxas"] = filter_ptxas()
+    print(f"K1: ragged F=7 N=130 M=70 and {corners} corner cases (NaN "
+          f"coordinates among them) masks equal; ptxas: "
+          + "; ".join(row["ptxas"]) + f" [{card}]")
     return row
+
+
+def phase_region_filter_served(torch, card, served, row):
+    """K1 on the operands of the main path's last fused flush (``served``:
+    the arguments and thresholds that ``split_regions`` handed
+    ``ops.region_filter_mask_batch``), against its plain version and
+    timed; the numbers go into the K1 row as ``served``."""
+    from repro_torch.kernels import iou_filter as ik
+    args, kw = served
+    got = ik.region_filter_mask_batch(*args, **kw)
+    if not torch.equal(got, ik.region_filter_mask_batch_ref(*args, **kw)):
+        raise AssertionError("K1 on the main path's operands differs from "
+                             "the plain version")
+    f, n, m = args[0].shape[0], args[0].shape[1], args[2].shape[1]
+    n_prop, n_acc = int(args[1].sum()), int(args[3].sum())
+    timed = measure(torch, lambda: ik.region_filter_mask_batch(*args, **kw),
+                    once=True)
+    plain = measure(torch, lambda: ik.region_filter_mask_batch_ref(*args,
+                                                                   **kw))
+    served_row = _row("region_filter_mask_batch", "", "",
+                      f"F={f} N={n} M={m}", 0.0, timed, plain, None,
+                      *filter_bound(f, n, m, n_acc))
+    _report(f"K1 region_filter_mask_batch served F={f} N={n} M={m} (the "
+            f"last fused flush: {n_prop} valid proposals, {n_acc} valid "
+            f"accepted boxes, {int(got.sum())} kept): masks equal",
+            served_row, card)
+    row["served"] = {k: served_row[k] for k in (
+        "shape", "ms", "device_ms", "plain_ms", "plain_device_ms",
+        "bound_ms", "bound_by")}
+    row["served"].update(valid_proposals=n_prop, valid_accepted=n_acc)
+
+
+class LastCall:
+    """While a ``with`` block lasts, ``module.name`` is wrapped so that the
+    last call's arguments are kept (references, no copies); the wrapped
+    function runs once per call, as before."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.args = module, name, None
+
+    def __enter__(self):
+        self.fn = getattr(self.module, self.name)
+
+        def call(*args, **kw):
+            self.args = (args, kw)
+            return self.fn(*args, **kw)
+        setattr(self.module, self.name, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
 
 
 def crop_tap_pixels(np, boxes, idxs, hw, out_hw) -> int:
@@ -705,20 +837,34 @@ def phase_frame_filter(torch, np, card):
             raise AssertionError(
                 f"K4b at N={n} M={m}: mask differs from the plain version "
                 f"at {int((got != want).sum())} of {n} proposals")
-        timed = measure(torch, lambda: rf.region_filter_mask(*args,
-                                                             **FILTER_KW))
+        timed = measure(torch, lambda: rf.region_filter_mask(
+            *args, **FILTER_KW), once=True)
         plain = measure(torch, lambda: rf.region_filter_mask_ref(
             *args, **FILTER_KW))
-        pairs = int(args[3].sum()) * n     # the kernel skips invalid boxes
-        nbytes = n * (16 + 1 + 4 + 1) + m * (16 + 1)
-        ops = 14 * pairs + 5 * (n + m) + 5 * n
         row = _row("region_filter_mask", "src/repro_torch/csrc/iou_filter.cu",
                    "src/repro/kernels/iou_filter.py:99", f"N={n} M={m}", 0.0,
-                   timed, plain, None, nbytes, ops)
+                   timed, plain, None,
+                   *filter_bound(1, n, m, int(args[3].sum())))
         _report(f"K4b region_filter_mask N={n} M={m}: masks equal", row,
                 card)
         if main_row is None:                # the region budget
             main_row = row
+            sparse = list(args)
+            rng = np.random.default_rng(SEED + 4)
+            sparse[3] = torch.as_tensor(
+                np.argsort(rng.random(m)) < SPARSE_ACCEPTED, device="cuda")
+            row["sparse"] = filter_sparse(
+                torch, lambda: rf.region_filter_mask(*sparse, **FILTER_KW),
+                lambda: rf.region_filter_mask_ref(*sparse, **FILTER_KW),
+                f"N={n} M={m}", filter_bound(1, n, m, SPARSE_ACCEPTED),
+                f"K4b region_filter_mask sparse N={n} M={m} "
+                f"({SPARSE_ACCEPTED} valid accepted)", card)
+    corners = filter_corners_on_card(torch, rf.region_filter_mask,
+                                     rf.region_filter_mask_ref, "K4b",
+                                     per_frame=True)
+    main_row["ptxas"] = filter_ptxas()
+    print(f"K4b: {corners} corner cases frame by frame (NaN coordinates "
+          f"among them) masks equal [{card}]")
     return main_row
 
 
@@ -831,9 +977,14 @@ def phase_main_path(torch, np, card):
         run_path(torch, np, hot_path, params, warm)
     streams = make_streams(np, n_streams, n_chunks, n_frames)
     runs = {}
+    from repro_torch.kernels import ops
     for hot_path in ("fused", "sync"):
-        multi, out, results, counts, wall = run_path(torch, np, hot_path,
-                                                     params, streams)
+        # the fused run keeps its last flush's K1 operands
+        with LastCall(ops, "region_filter_mask_batch") as k1_call:
+            multi, out, results, counts, wall = run_path(
+                torch, np, hot_path, params, streams)
+        if hot_path == "fused":
+            served = k1_call.args
         frames = n_streams * n_chunks * n_frames
         hps = multi.scheduler.hot_path_stats
         print(f"main path ({hot_path}): {n_streams} streams x {n_chunks} "
@@ -870,7 +1021,7 @@ def phase_main_path(torch, np, card):
     print(f"fused vs sync: valid/labels/source equal, scores within 1e-5 "
           f"({ties} proposal(s) exempt as threshold ties) [{card}]")
     profile_main_path(torch, np, card, params, streams)
-    return fused_counts, sync_counts, runs
+    return fused_counts, sync_counts, runs, served
 
 
 def profile_main_path(torch, np, card, params, streams):
@@ -1618,13 +1769,21 @@ set_reference_precision()
 card = cs.card_line()
 cs.phase_crop_gather(torch, np, card)
 cs.phase_onevsall_update(torch, np, card)
+cs.phase_region_filter(torch, np, card)
+cs.phase_frame_filter(torch, np, card)
 """
 
 
+def parent_key(tag: str, shape: str):
+    """The key of a kernel row's parent time: K2 and K5 by their batch
+    (``B=...``), K1 and K4b by their whole shape."""
+    return tag, (shape if tag in ("K1", "K4b") else shape.split()[0])
+
+
 def parent_device_ms(root: str, card: str):
-    """Run the K2 and K5 phases of another checkout (the parent commit,
-    unpacked with ``git archive``) in a subprocess on this card; relay its
-    lines and return {("K2" or "K5", "B=..."): device ms per call}."""
+    """Run the K2, K5, K1 and K4b phases of another checkout (the parent
+    commit, unpacked with ``git archive``) in a subprocess on this card;
+    relay its lines and return {parent_key(...): device ms per call}."""
     import re
     code = PARENT_PHASES.format(root=os.path.abspath(root),
                                 src=os.path.join(os.path.abspath(root),
@@ -1632,15 +1791,17 @@ def parent_device_ms(root: str, card: str):
     run = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=900)
     if run.returncode != 0:
-        raise RuntimeError(f"the parent's K2/K5 phases failed:\n"
+        raise RuntimeError(f"the parent's K2/K5/K1/K4b phases failed:\n"
                            f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
     found = {}
     for line in run.stdout.splitlines():
-        m = re.match(r"(K[25]) \w+ (B=\d+)[^:]*: .*?ms per call "
-                     r"\((\d+\.\d+) ms on the device", line)
+        m = re.match(r"(K[125]|K4b) \w+ ((?:[A-Z]\w*=\d+)(?: [A-Z]\w*=\d+)*)"
+                     r"[^:]*: .*?ms per call \((\d+\.\d+) ms on the device",
+                     line)
         if m:
             print(f"  parent: {line}")
-            found.setdefault((m.group(1), m.group(2)), float(m.group(3)))
+            found.setdefault(parent_key(m.group(1), m.group(2)),
+                             float(m.group(3)))
     return found
 
 
@@ -1877,8 +2038,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR",
                     help="another checkout (e.g. the parent commit from git "
-                         "archive): its K2 and K5 phases run before and "
-                         "after this tree's, on the same card")
+                         "archive): its K2, K5, K1 and K4b phases run before "
+                         "and after this tree's, on the same card")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         raise SystemExit("chip_smoke.py: src/repro_torch not found next to "
@@ -1904,28 +2065,34 @@ def main() -> int:
     before = parent_device_ms(args.parent, card) if args.parent else None
     crop_row = phase_crop_gather(torch, np, card)
     update_rows = phase_onevsall_update(torch, np, card)
+    filter_row = phase_region_filter(torch, np, card)
+    frame_row = phase_frame_filter(torch, np, card)
     after = parent_device_ms(args.parent, card) if args.parent else None
-    for tag, row in [("K2", crop_row)] + [("K5", r) for r in update_rows]:
-        key = (tag, row["shape"].split()[0])
+    for tag, row in ([("K2", crop_row)] + [("K5", r) for r in update_rows]
+                     + [("K1", filter_row), ("K4b", frame_row)]):
+        key = parent_key(tag, row["shape"])
         row["parent_device_ms"] = (None if before is None
                                    else [before.get(key), after.get(key)])
+        ratio = ("" if before is None or not (
+            before.get(key) and after.get(key) and row["device_ms"]) else
+            f", {row['device_ms'] / before[key]:.3f} and "
+            f"{row['device_ms'] / after[key]:.3f} of the parent's")
         print(f"{tag} {row['shape']}: parent's device time "
               + ("not measured (no --parent)" if before is None else
                  f"{before.get(key)} ms before, {after.get(key)} ms after "
-                 f"this tree's, this tree {fmt(row['device_ms'])}")
+                 f"this tree's, this tree {fmt(row['device_ms'])}{ratio}")
               + f" [{card}]")
     update_row = phase_onevsall_replay(torch, np, card)
     update_row["update_shapes"] = update_rows
-    video_rows = [phase_region_filter(torch, np, card), crop_row,
-                  phase_onevsall(torch, np, card)]
+    video_rows = [filter_row, crop_row, phase_onevsall(torch, np, card)]
     iou_row = phase_iou_matrix(torch, np, card)
-    frame_row = phase_frame_filter(torch, np, card)
     llm_rows = [phase_flash_attention(torch, np, card),
                 phase_decode_attention(torch, np, card),
                 phase_ssd_scan(torch, np, card)]
     phase_nms(torch, np, card)
     phase_reference(torch, np, card)
-    fused_counts, sync_counts, _ = phase_main_path(torch, np, card)
+    fused_counts, sync_counts, _, served = phase_main_path(torch, np, card)
+    phase_region_filter_served(torch, card, served, filter_row)
     for row in video_rows + [iou_row]:
         row["launches"] = fused_counts[row["name"]]
         row["launches_sync"] = sync_counts[row["name"]]
@@ -1942,6 +2109,7 @@ def main() -> int:
                       launches_inline=learn_counts["inline_launches"],
                       steps_inline=learn_counts["inline_steps"])
     iou_row["launches_learning"] = learn_counts["iou_matrix"]
+    filter_row["launches_learning"] = learn_counts["region_filter_mask_batch"]
     phase_llm_reference(torch, np, card)
     llm_counts = phase_llm_main_path(torch, np, card)
     for row in llm_rows:

@@ -27,6 +27,13 @@
 // most N groups are still in flight (the caller then needs __syncthreads
 // before other threads read what this thread copied).
 //
+// fmin_nan / fmax_nan: min.NaN.f32 / max.NaN.f32 (sm_80 and later), the
+// smaller or larger operand, or a NaN when either operand is NaN: the
+// semantics of torch.minimum / torch.maximum / clamp_min and of
+// jnp.minimum / jnp.maximum.  fminf / fmaxf (min.f32 / max.f32) return the
+// other operand instead; on operands without a NaN the two give the same
+// bits.
+//
 // tests/test_torch_kernel_emulation.py replaces this header with host
 // versions of the same functions.
 #pragma once
@@ -58,6 +65,18 @@ __device__ __forceinline__ void mma_tf32_m16n8k8(float d[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ float fmin_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 __device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,

@@ -51,9 +51,9 @@ _F = ctypes.c_float
 # Python int would be passed as a 32-bit int and cut the pointer)
 SIGNATURES = {
     "vpaas_region_filter_mask_batch":
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P],
+        [_P, _P, _P, _P, _P, _P, _P, _P],
     "vpaas_region_filter_mask":
-        [_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P],
+        [_P, _P, _P, _P, _P, _P, _P, _P],
     "vpaas_iou_matrix":
         [_P, _P, _P, _I, _I, _I, _P],
     "vpaas_crop_gather":

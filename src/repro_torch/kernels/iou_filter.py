@@ -5,8 +5,17 @@ Port of the Pallas kernel ``repro.kernels.iou_filter.region_filter_mask_batch``
 per-site thresholds take the same kernel.  The plain PyTorch version is
 :func:`region_filter_mask_batch_ref` (``ref.region_filter_mask``, whose
 leading axes broadcast over frames); the kernel equals it bit for bit.
+
+The call is host-bound (the kernel takes a few microseconds on the card),
+so the wrapper does little per call: one validation pass over the five
+operands, one lookup of the launcher's argument struct (the sizes and the
+thresholds, kept per key by :func:`filter_args`, which K4b's wrapper
+shares), the output from ``new_empty``, then a seven-argument launch.
 """
 from __future__ import annotations
+
+import ctypes
+from typing import Dict
 
 import torch
 
@@ -15,6 +24,35 @@ from repro_torch.kernels import _build, ref
 launches = 0          # kernel launches since the last reset (ops.py)
 
 region_filter_mask_batch_ref = ref.region_filter_mask
+
+
+class FilterArgs(ctypes.Structure):
+    """``VpaasFilterArgs`` of ``csrc/iou_filter.cu``."""
+    _fields_ = [(name, ctypes.c_int) for name in ("F", "N", "M")] + [
+        (name, ctypes.c_float) for name in ("theta_loc", "theta_iou",
+                                            "theta_back", "frame_area")]
+
+
+# (F, N, M, the four thresholds, device index) -> (the struct's address,
+# the struct); a run's sizes and thresholds repeat, so a few entries serve
+# it
+_args: Dict[tuple, tuple] = {}
+MAX_CACHED = 256
+
+
+def filter_args(f: int, n: int, m: int, theta_loc: float, theta_iou: float,
+                theta_back: float, frame_area: float, device: int) -> int:
+    """The address of the launchers' ``VpaasFilterArgs`` for these sizes
+    and thresholds, built on first use of the key."""
+    key = (f, n, m, theta_loc, theta_iou, theta_back, frame_area, device)
+    cached = _args.get(key)
+    if cached is None:
+        if len(_args) >= MAX_CACHED:
+            _args.clear()
+        args = FilterArgs(f, n, m, theta_loc, theta_iou, theta_back,
+                          frame_area)
+        cached = _args[key] = (ctypes.addressof(args), args)
+    return cached[0]
 
 
 def region_filter_mask_batch(proposals: torch.Tensor,
@@ -38,13 +76,14 @@ def region_filter_mask_batch(proposals: torch.Tensor,
         ("accepted", accepted, torch.float32, (f, m, 4)),
         ("acc_valid", acc_valid, torch.bool, (f, m)),
         ("loc_scores", loc_scores, torch.float32, (f, n)))
-    keep = torch.empty((f, n), dtype=torch.bool, device=proposals.device)
+    keep = prop_valid.new_empty((f, n))
     if f and n:
+        args = filter_args(f, n, m, float(theta_loc), float(theta_iou),
+                           float(theta_back), float(frame_area),
+                           proposals.get_device())
         _build.launch("vpaas_region_filter_mask_batch",
                       proposals.data_ptr(), prop_valid.data_ptr(),
                       accepted.data_ptr(), acc_valid.data_ptr(),
-                      loc_scores.data_ptr(), keep.data_ptr(), f, n, m,
-                      float(theta_loc), float(theta_iou), float(theta_back),
-                      float(frame_area))
+                      loc_scores.data_ptr(), keep.data_ptr(), args)
         launches += 1
     return keep

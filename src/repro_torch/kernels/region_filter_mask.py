@@ -2,7 +2,8 @@
 
 Port of the Pallas kernel ``repro.kernels.iou_filter.region_filter_mask``
 (source: ``csrc/iou_filter.cu``, launcher ``vpaas_region_filter_mask``).
-It runs K1's per-proposal body on one frame; the framewise split
+It launches K1's kernel on one frame, with K1's argument struct
+(``iou_filter.filter_args`` at F = 1); the framewise split
 (``core.regions.split_regions_framewise``, the DDS baseline's round 1)
 launches it once per frame.  The thresholds are runtime arguments.  The
 plain PyTorch version is :func:`region_filter_mask_ref`; the kernel equals
@@ -13,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.iou_filter import filter_args
 
 launches = 0          # kernel launches since the last reset (ops.py)
 
@@ -38,13 +40,14 @@ def region_filter_mask(proposals: torch.Tensor, prop_valid: torch.Tensor,
         ("accepted", accepted, torch.float32, (m, 4)),
         ("acc_valid", acc_valid, torch.bool, (m,)),
         ("loc_scores", loc_scores, torch.float32, (n,)))
-    keep = torch.empty((n,), dtype=torch.bool, device=proposals.device)
+    keep = prop_valid.new_empty((n,))
     if n:
-        _build.launch("vpaas_region_filter_mask",
-                      proposals.data_ptr(), prop_valid.data_ptr(),
-                      accepted.data_ptr(), acc_valid.data_ptr(),
-                      loc_scores.data_ptr(), keep.data_ptr(), n, m,
-                      float(theta_loc), float(theta_iou), float(theta_back),
-                      float(frame_area))
+        args = filter_args(1, n, m, float(theta_loc), float(theta_iou),
+                           float(theta_back), float(frame_area),
+                           proposals.get_device())
+        _build.launch("vpaas_region_filter_mask", proposals.data_ptr(),
+                      prop_valid.data_ptr(), accepted.data_ptr(),
+                      acc_valid.data_ptr(), loc_scores.data_ptr(),
+                      keep.data_ptr(), args)
         launches += 1
     return keep

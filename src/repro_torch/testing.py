@@ -104,6 +104,103 @@ def frame_filter_case(n: int, m: int, seed: int = 0):
     return tuple(a[0] for a in filter_case(1, n, m, seed))
 
 
+def _valid_count(rng, f: int, m: int, k: int) -> np.ndarray:
+    """(F, M) masks with exactly ``k`` valid slots a frame, at random."""
+    av = np.zeros((f, m), bool)
+    for i in range(f):
+        av[i, rng.choice(m, k, replace=False)] = True
+    return av
+
+
+def _nan_coords(rng, boxes, mask, k: int) -> np.ndarray:
+    """``boxes`` with one NaN coordinate (each of x1, y1, x2, y2 in turn) in
+    ``k`` of the (F, N) slots where ``mask`` holds."""
+    boxes = boxes.copy()
+    slots = np.argwhere(mask)
+    for i, (f, n) in enumerate(slots[rng.choice(len(slots), k,
+                                                replace=False)]):
+        boxes[f, n, i % 4] = np.nan
+    return boxes
+
+
+def filter_corner_cases() -> Dict[str, Tuple[tuple, dict]]:
+    """name -> ((proposals (F, N, 4), prop_valid (F, N), accepted (F, M, 4),
+    acc_valid (F, M), loc (F, N)), thresholds): the region filter's exact
+    corners, for K1 whole and for K4b frame by frame.  NaN coordinates in
+    a valid accepted box, an invalid one and a proposal, and a valid
+    accepted box of NaN area (a NaN IoU or area drops the proposal in the
+    reference, as ``jnp.max`` propagates it);
+    theta_iou <= 0 (the max starts at 0, so every proposal drops); no,
+    one, and 7 / 13 / 37 valid accepted boxes a frame (not multiples of a
+    warp's 32 lanes); ragged N; an all-rejected and an all-kept
+    8-proposal tile; more accepted boxes than one staging pass (256); the
+    serving path's sparse accepted sets (a few boxes after NMS, the
+    proposals being the accepted boxes themselves) and a dense 80% case."""
+    kw = dict(FILTER_KW)
+    cases = {}
+    # the fault as first seen: the NaN box drops both proposals
+    cases["nan-first-seen"] = ((
+        np.array([[[.1, .1, .5, .5], [.2, .2, .3, .3]]], np.float32),
+        np.ones((1, 2), bool),
+        np.array([[[np.nan, .6, .9, .9], [.6, .6, .9, .9]]], np.float32),
+        np.ones((1, 2), bool), np.full((1, 2), .9, np.float32)), kw)
+    rng = np.random.default_rng(77)
+    p, pv, a, av, loc = filter_case(3, 40, 48, seed=5)
+    first = np.zeros_like(av)
+    first[0] = True                # frames 1 and 2 keep some proposals
+    cases["nan-valid-acc"] = ((p, pv, _nan_coords(rng, a, av & first, 2),
+                               av, loc), kw)
+    cases["nan-invalid-acc"] = ((p, pv, _nan_coords(rng, a, ~av, 6), av,
+                                 loc), kw)
+    # a valid accepted box of area inf x 0 = NaN: its IoU with a proposal
+    # it does not meet is 0 / NaN
+    a_inf, av_inf = a.copy(), av.copy()
+    a_inf[0, 0], av_inf[0, 0] = (0.7, 0.7, np.inf, 0.7), True
+    cases["nan-area-acc"] = ((p, pv, a_inf, av_inf, loc), kw)
+    cases["nan-proposal"] = ((_nan_coords(rng, p, pv, 8), pv, a, av, loc),
+                             kw)
+    p, pv, a, av, loc = filter_case(2, 40, 32, seed=6)
+    cases["theta-iou-zero"] = ((p, pv, a, av, loc), dict(kw, theta_iou=0.0))
+    cases["theta-iou-negative"] = ((p, pv, a, av, loc),
+                                   dict(kw, theta_iou=-0.25))
+    cases["no-valid-acc"] = ((p, pv, a, np.zeros_like(av), loc), kw)
+    # no pair to walk: only the max's initial 0 drops them
+    cases["theta-iou-zero-no-acc"] = ((p, pv, a, np.zeros_like(av), loc),
+                                      dict(kw, theta_iou=0.0))
+    for k in (1, 7, 13, 37):
+        p, pv, a, _, loc = filter_case(2, 40, 64, seed=k)
+        cases[f"acc-{k}"] = ((p, pv, a, _valid_count(rng, 2, 64, k), loc),
+                             kw)
+    cases["ragged-n"] = (filter_case(2, 13, 20, seed=8), kw)
+    # three 8-proposal tiles: all below theta_loc, all kept (small boxes
+    # far from every accepted box), mixed
+    p, pv, a, av, loc = filter_case(1, 24, 32, seed=9)
+    pv[:, :16] = True
+    loc[:, :8] = 0.1
+    loc[:, 8:16] = 0.9
+    p[:, 8:16] = rand_boxes(rng, (1, 8)) * 0.1
+    a[:] = 0.5 + rand_boxes(rng, (1, 32)) * 0.5
+    cases["tiles-rejected-kept"] = ((p, pv, a, av, loc), kw)
+    cases["two-passes"] = (filter_case(2, 20, 300, seed=10), kw)
+    p, pv, a, _, loc = filter_case(4, 256, 256, seed=11)
+    cases["sparse"] = ((p, pv, a, _valid_count(rng, 4, 256, 3), loc), kw)
+    cases["dense"] = (filter_case(4, 256, 256, seed=12), kw)
+    boxes, _, _, _, loc = filter_case(4, 256, 256, seed=13)
+    acc = _valid_count(rng, 4, 256, 5)
+    cases["serving"] = ((boxes, loc >= kw["theta_loc"], boxes, acc, loc), kw)
+    return cases
+
+
+def iou_nan_case(b: int = 2, n: int = 40, m: int = 30, seed: int = 0):
+    """``iou_case`` with NaN coordinates in a few boxes of each side: the
+    IoU of every pair that holds one is NaN, as in the reference."""
+    a, c = iou_case(b, n, m, seed)
+    rng = np.random.default_rng(seed + 99)
+    a = _nan_coords(rng, a, np.ones(a.shape[:2], bool), 4)
+    c = _nan_coords(rng, c, np.ones(c.shape[:2], bool), 4)
+    return a, c
+
+
 # ---------------------------------------------------------------------------
 # K4a IoU cases: (B, N, M) -- the JAX package's IoU sweep (B = 1) and the
 # flush's NMS shape

@@ -1,6 +1,7 @@
 """The port's kernel build and launch path (``repro_torch.kernels._build``)
 on the CPU: what names the built library, and the one-pass operand check
 that guards every pointer handed to native code."""
+import ctypes
 import shutil
 import types
 
@@ -55,3 +56,23 @@ def test_operand_check_rejects_cpu_tensors():
     x = torch.zeros(4, 3)
     with pytest.raises(ValueError, match="CUDA"):
         _build.check_operands(("x", x, torch.float32, (4, 3)))
+
+
+def test_filter_args_struct_is_cached_per_key(monkeypatch):
+    # K1's and K4b's launchers read VpaasFilterArgs (three ints, four
+    # floats); the wrappers build one per (sizes, thresholds, device) and
+    # hand its address to every launch with that key
+    from repro_torch.kernels import iou_filter as ik
+    assert ctypes.sizeof(ik.FilterArgs) == 28
+    monkeypatch.setattr(ik, "_args", {})
+    kw = (0.4, 0.3, 0.5, 1.0, 0)
+    first = ik.filter_args(32, 256, 256, *kw)
+    assert ik.filter_args(32, 256, 256, *kw) == first
+    args = ctypes.cast(first, ctypes.POINTER(ik.FilterArgs)).contents
+    assert (args.F, args.N, args.M) == (32, 256, 256)
+    assert (args.theta_iou, args.frame_area) == (pytest.approx(0.3), 1.0)
+    assert ik.filter_args(1, 256, 256, *kw) != first       # K4b's frame
+    other = ik.filter_args(32, 256, 256, 0.4, 0.5, 0.5, 1.0, 0)
+    assert other != first
+    assert ctypes.cast(other, ctypes.POINTER(ik.FilterArgs)).contents \
+        .theta_iou == 0.5

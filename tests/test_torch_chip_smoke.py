@@ -231,6 +231,20 @@ def test_parent_device_ms_reads_the_parent_k2_and_k5_lines(monkeypatch):
         "dyn. smem: kernel 0.7942 ms per call (0.7482 ms on the device), "
         "plain 0.1250 ms (0.0168 ms on the device) [c]",
         "K7 decode_attention b=4: kernel 0.1 ms per call (0.09 ms on the "
+        "device) [c]",
+        # K1 and K4b, keyed by their whole shape; the sparse lines of a
+        # tree that has them are not the rows' times
+        "K1 region_filter_mask_batch F=32 N=256 M=256: masks equal: kernel "
+        "0.0731 ms per call (0.0502 ms on the device), plain 0.7269 ms "
+        "(0.1228 ms on the device), bound 0.000352 ms (operations) [c]",
+        "K1 region_filter_mask_batch sparse F=32 N=256 M=256 (4 valid "
+        "accepted a frame): masks equal: kernel 0.0300 ms per call (0.0030 "
+        "ms on the device), plain 0.7 ms (0.1 ms on the device) [c]",
+        "K4b region_filter_mask N=256 M=256: masks equal: kernel 0.0766 ms "
+        "per call (0.0454 ms on the device), plain 0.5840 ms (0.0569 ms on "
+        "the device), bound 0.000011 ms (operations) [c]",
+        "K4b region_filter_mask N=130 M=70: masks equal: kernel 0.0700 ms "
+        "per call (0.0300 ms on the device), plain 0.5 ms (0.05 ms on the "
         "device) [c]"]
 
     class Run:
@@ -239,7 +253,14 @@ def test_parent_device_ms_reads_the_parent_k2_and_k5_lines(monkeypatch):
     monkeypatch.setattr(chip_smoke.subprocess, "run",
                         lambda *a, **kw: Run())
     assert chip_smoke.parent_device_ms("build/parent", "c") == {
-        ("K2", "B=128"): 0.0067, ("K5", "B=2048"): 0.7482}
+        ("K2", "B=128"): 0.0067, ("K5", "B=2048"): 0.7482,
+        ("K1", "F=32 N=256 M=256"): 0.0502, ("K4b", "N=256 M=256"): 0.0454,
+        ("K4b", "N=130 M=70"): 0.0300}
+    # the rows of this tree look their parent times up by the same keys
+    assert chip_smoke.parent_key("K5", "B=2048 D1=129 C=8") == \
+        ("K5", "B=2048")
+    assert chip_smoke.parent_key("K1", "F=32 N=256 M=256") == \
+        ("K1", "F=32 N=256 M=256")
 
 
 def test_device_time_once_sums_each_kernels_mean():

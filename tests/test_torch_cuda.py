@@ -40,7 +40,8 @@ from repro_torch.testing import (ATTN_ATOL, DECODE_CASES, FILTER_CASES,
                                  DetectorTies, assert_baseline_results_match,
                                  attention_case, crop_cases,
                                  crop_tile_cases, decode_case,
-                                 filter_case, frame_filter_case, iou_case,
+                                 filter_case, filter_corner_cases,
+                                 frame_filter_case, iou_case, iou_nan_case,
                                  onevsall_case, open_episode, rel_err,
                                  replayed_instances, ssd_case, update_case)
 from repro_torch.video import synthetic
@@ -88,6 +89,50 @@ def test_frame_filter_kernel_matches_plain(cuda, n, m):
     want = rf.region_filter_mask_ref(*args, **FILTER_KW)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+FILTER_CORNERS = filter_corner_cases()
+
+
+@pytest.mark.parametrize("case", sorted(FILTER_CORNERS))
+def test_region_filter_kernel_corners(cuda, case):
+    # the exactness corners (NaN coordinates, theta_iou <= 0, empty and
+    # odd-sized accepted sets, ragged N, two passes, sparse and dense): K1
+    # whole, K4b frame by frame, bit for bit
+    arrays, kw = FILTER_CORNERS[case]
+    args = _t(arrays, cuda)
+    want = ik.region_filter_mask_batch_ref(*args, **kw)
+    got = ik.region_filter_mask_batch(*args, **kw)
+    frames = [rf.region_filter_mask(*[a[f] for a in args], **kw)
+              for f in range(want.shape[0])]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(torch.stack(frames), want)
+
+
+@pytest.mark.parametrize("accepted", [4, None])
+def test_region_filter_kernel_flush_shape(cuda, accepted):
+    # the fused flush's largest shape, at the serving path's density (4
+    # valid accepted boxes a frame) and dense (80% valid)
+    arrays = list(filter_case(32, 256, 256, seed=3))
+    if accepted is not None:
+        rng = np.random.default_rng(3)
+        arrays[3] = np.argsort(rng.random((32, 256)), -1) < accepted
+    args = _t(arrays, cuda)
+    got = ik.region_filter_mask_batch(*args, **FILTER_KW)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ik.region_filter_mask_batch_ref(*args,
+                                                            **FILTER_KW))
+
+
+@pytest.mark.parametrize("b,n,m", [(2, 40, 30), (32, 256, 256)])
+def test_iou_matrix_kernel_propagates_nan(cuda, b, n, m):
+    a, c = _t(iou_nan_case(b, n, m), cuda)
+    got = im.iou_matrix(a, c)
+    want = im.iou_matrix_ref(a, c)
+    torch.cuda.synchronize()
+    assert torch.isnan(want).any()
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
 
 
 @pytest.mark.parametrize("name", ["dds", "glimpse"])

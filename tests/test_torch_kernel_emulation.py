@@ -5,19 +5,21 @@ against a small emulation of the CUDA runtime written below: a block's
 threads run as fibers on one host thread, each running until it reaches
 ``__syncthreads``/``__syncwarp`` (so a thread that reads what a later
 thread writes without a barrier between them reads it too early), warp
-shuffles go through a per-warp buffer, shared memory starts as NaNs (so a
-read before a write shows), and each ``<<<...>>>`` launch becomes a call
-that runs the grid's blocks, several host threads at a time.  The
+shuffles and votes go through a per-warp buffer, a shared ``atomicAdd`` is
+a plain add (nothing switches inside it), shared memory starts as NaNs (so
+a read before a write shows), and each ``<<<...>>>`` launch becomes a call
+that runs the grid's blocks, several host threads at a time. The
 primitives of ``csrc/primitives.cuh`` have host versions here:
 ``mma.sync`` m16n8k8 tf32 gathers the warp's fragments through a per-warp
 buffer in the PTX ISA's layout and sums each output's eight exact products
 in double, ``cvt.rna.tf32`` rounds the bits, ``cp.async`` copies at once
-(commit and wait do nothing).  The Python wrappers then call the C
-launchers exactly as on the card, on CPU tensors, and the results are held
-against the plain versions with the on-card tolerances.  This checks each
-kernel's indexing, masking and arithmetic here; what only ``nvcc`` and the
-card can show (compile errors, registers, shared-memory limits, races
-between threads that run at once, speed) stays with
+(commit and wait do nothing), ``min.NaN``/``max.NaN`` return a NaN for a
+NaN operand. The Python wrappers then call the C launchers exactly as on
+the card, on CPU tensors, and the results are held against the plain
+versions with the on-card tolerances. This checks each kernel's indexing,
+masking and arithmetic here; what only ``nvcc`` and the card can show
+(compile errors, registers, shared-memory limits, races between threads
+that run at once, speed) stays with
 tests/test_torch_cuda.py and ``chip_smoke.py``.
 """
 import ctypes
@@ -44,9 +46,10 @@ from repro_torch.testing import (ATTN_ATOL, DECODE_CASES, FILTER_KW,
                                  LEARN_RTOL, ONEVSALL_ATOL, SSD_CASES,
                                  SSD_RTOL, UPDATE_ETA, UPDATE_RTOL,
                                  attention_case, crop_cases, crop_tile_cases,
-                                 decode_case, filter_case, frame_filter_case,
-                                 iou_case, onevsall_case, rel_err, ssd_case,
-                                 update_case)
+                                 decode_case, filter_case,
+                                 filter_corner_cases, frame_filter_case,
+                                 iou_case, iou_nan_case, onevsall_case,
+                                 rel_err, ssd_case, update_case)
 
 EMU_HEADER = r"""
 #pragma once
@@ -133,6 +136,19 @@ template <class T> T __shfl_up_sync(unsigned, T v, int d) {
   int s = (int)(threadIdx.x % 32) - d;
   T r = emu_xchg(v, s < 0 ? (int)(threadIdx.x % 32) : s);
   return s < 0 ? v : r; }
+inline unsigned __ballot_sync(unsigned, int p) {
+  double* buf = emu_blk->xchg.data() + (threadIdx.x / 32) * 32;
+  buf[threadIdx.x % 32] = p ? 1.0 : 0.0;
+  __syncwarp();
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i) r |= (buf[i] != 0.0 ? 1u : 0u) << i;
+  __syncwarp();
+  return r; }
+inline int __any_sync(unsigned m, int p) { return __ballot_sync(m, p) != 0; }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+// a block's threads share a host thread and switch only at barriers, so a
+// read-modify-write of shared memory is atomic as it stands
+inline int atomicAdd(int* a, int v) { int old = *a; *a = old + v; return old; }
 inline void emu_fiber_main() {
   EmuWorker* w = emu_w; (*w->fn)(); w->cur->done = true;
   emu_swap(&w->cur->sp, w->sched_sp);
@@ -222,6 +238,11 @@ inline void mma_tf32_m16n8k8(float d[4], const uint32_t a[4],
     d[i] = (float)acc;
   }
   __syncwarp(); }
+// min.NaN / max.NaN: a NaN operand gives a NaN, else fminf / fmaxf
+inline float fmin_nan(float a, float b) {
+  return (a != a || b != b) ? NAN : std::fmin(a, b); }
+inline float fmax_nan(float a, float b) {
+  return (a != a || b != b) ? NAN : std::fmax(a, b); }
 inline void cp_async_16(void* s, const void* g, bool pred) {
   if (pred) std::memcpy(s, g, 16); else std::memset(s, 0, 16); }
 inline void cp_async_4(void* s, const void* g, bool pred) {
@@ -395,6 +416,33 @@ def test_frame_filter_source_matches_plain(emulated, n, m):
     got = rf.region_filter_mask(*args, **FILTER_KW)
     assert got.shape == (n,)
     assert torch.equal(got, rf.region_filter_mask_ref(*args, **FILTER_KW))
+
+
+FILTER_CORNERS = filter_corner_cases()
+
+
+@pytest.mark.parametrize("case", sorted(FILTER_CORNERS))
+def test_region_filter_source_corners(emulated, case):
+    # every exactness corner: K1 over the case, and K4b (the same kernel
+    # on one frame) frame by frame, bit for bit
+    arrays, kw = FILTER_CORNERS[case]
+    args = _t(arrays)
+    want = ik.region_filter_mask_batch_ref(*args, **kw)
+    assert torch.equal(ik.region_filter_mask_batch(*args, **kw), want)
+    for f in range(want.shape[0]):
+        frame = [a[f] for a in args]
+        assert torch.equal(rf.region_filter_mask(*frame, **kw), want[f])
+
+
+@pytest.mark.parametrize("b,n,m", [(2, 40, 30), (1, 13, 7)])
+def test_iou_matrix_source_propagates_nan(emulated, b, n, m):
+    # a NaN coordinate gives a NaN IoU in every pair that holds it, as in
+    # the plain version (min and max that drop a NaN gave finite values)
+    a, c = _t(iou_nan_case(b, n, m))
+    want = im.iou_matrix_ref(a, c)
+    assert torch.isnan(want).any() and not torch.isnan(want).all()
+    torch.testing.assert_close(im.iou_matrix(a, c), want, rtol=0, atol=0,
+                               equal_nan=True)
 
 
 CROP_CASES = {**crop_cases(), **crop_tile_cases()}

@@ -16,7 +16,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.testing import (CROP_ATOL, FILTER_CASES, FILTER_KW,
                                  IOU_CASES, ONEVSALL_ATOL, crop_cases,
-                                 filter_case, frame_filter_case, iou_case,
+                                 filter_case, filter_corner_cases,
+                                 frame_filter_case, iou_case, iou_nan_case,
                                  onevsall_case, rand_boxes)
 
 torch.set_num_threads(1)
@@ -88,6 +89,36 @@ def test_frame_filter_plain_matches_jax(n, m):
     got = ops.region_filter_mask(*_t(case), **FILTER_KW).numpy()
     assert got.shape == (n,) and got.dtype == np.bool_
     np.testing.assert_array_equal(got, want)
+
+
+FILTER_CORNERS = filter_corner_cases()
+
+
+@pytest.mark.parametrize("case", sorted(FILTER_CORNERS))
+def test_region_filter_plain_corners_match_jax(case):
+    # the kernels' exactness corners, NaN coordinates among them: the
+    # port's plain version (what K1 and K4b equal bit for bit) against the
+    # JAX reference frame by frame, and the Pallas kernel on the NaN cases
+    arrays, kw = FILTER_CORNERS[case]
+    frames = [[jnp.asarray(a[i]) for a in arrays]
+              for i in range(arrays[0].shape[0])]
+    want = np.stack([np.asarray(jref.region_filter_mask(*fr, **kw))
+                     for fr in frames])
+    got = ops.region_filter_mask_batch(*_t(arrays), **kw).numpy()
+    np.testing.assert_array_equal(got, want)
+    if case.startswith("nan"):
+        np.testing.assert_array_equal(got, np.stack([np.asarray(
+            jik.region_filter_mask(*fr, bn=64, bm=64, interpret=True, **kw))
+            for fr in frames]))
+
+
+def test_iou_matrix_plain_propagates_nan_as_jax():
+    a, c = iou_nan_case()
+    got = ops.iou_matrix(*_t((a, c))).numpy()
+    want = np.asarray(jref.iou_matrix(jnp.asarray(a), jnp.asarray(c)))
+    assert np.isnan(want).any()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, atol=1e-6, rtol=0)
 
 
 # ---------------------------------------------------------------------------
