@@ -27,9 +27,9 @@ and power limit, one JSON object describing the kernels, and
 ``{"ok": true, "device": {...}}``.
 
 ``--parent DIR`` names another checkout (the parent commit unpacked with
-``git archive``): its K2, K5, K1 and K4b phases then run in a subprocess
-before and after this tree's, on the same card, and their device times are
-printed beside this tree's.
+``git archive``): its K2, K5, K1, K4b and K4a phases then run in a
+subprocess before and after this tree's, on the same card, and their
+device times are printed beside this tree's.
 
 Without a CUDA device, or without the repository's ``src/repro_torch`` next
 to it, the script exits non-zero and prints no result.
@@ -54,9 +54,10 @@ TF32_FLOP_PER_S = 495e12
 
 SEED = 0
 
-# the kernels the video path runs (K4a through its two NMS per flush)
+# the kernels the video path runs (K4a and the NMS kernel through its two
+# NMS per flush)
 VIDEO_KERNELS = ("region_filter_mask_batch", "crop_gather", "onevsall_scores",
-                 "iou_matrix")
+                 "iou_matrix", "nms_greedy")
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -253,11 +254,12 @@ def _report(tag, row, card, lib_name=None):
 SPARSE_ACCEPTED = 4
 
 
-def filter_ptxas():
-    """ptxas's report of the filter kernel."""
+def kernel_ptxas(name: str):
+    """ptxas's report of one kernel (every template instance of it)."""
     from repro_torch.kernels import _build
     return [line for line in ptxas_summary(_build.build_log)
-            if line.startswith("region_filter_kernel")]
+            if line.startswith(name)]
+
 
 
 def filter_bound(f, n, m, n_acc):
@@ -354,7 +356,7 @@ def phase_region_filter(torch, np, card):
     corners = filter_corners_on_card(
         torch, ik.region_filter_mask_batch, ik.region_filter_mask_batch_ref,
         "K1", per_frame=False)
-    row["ptxas"] = filter_ptxas()
+    row["ptxas"] = kernel_ptxas("region_filter_kernel")
     print(f"K1: ragged F=7 N=130 M=70 and {corners} corner cases (NaN "
           f"coordinates among them) masks equal; ptxas: "
           + "; ".join(row["ptxas"]) + f" [{card}]")
@@ -793,9 +795,11 @@ FRAME_FILTER_SHAPES = ((256, 256), (130, 70))
 
 
 def phase_iou_matrix(torch, np, card):
+    """K4a at its three shapes, bit-equal to its plain version and timed;
+    returns the rows (the flush's NMS shape first)."""
     from repro_torch.kernels import iou_matrix as im
     from repro_torch.testing import iou_case
-    main_row = None
+    rows = []
     for b, n, m in IOU_SHAPES:
         a, c = (torch.as_tensor(x, device="cuda")
                 for x in iou_case(b, n, m, seed=SEED))
@@ -806,7 +810,8 @@ def phase_iou_matrix(torch, np, card):
             raise AssertionError(
                 f"K4a at B={b} N={n} M={m} differs from the plain version "
                 f"at {int((got != want).sum())} of {got.numel()} entries")
-        timed = measure(torch, lambda: im.iou_matrix(a, c))
+        # once: one device kernel a call
+        timed = measure(torch, lambda: im.iou_matrix(a, c), once=True)
         plain = measure(torch, lambda: im.iou_matrix_ref(a, c))
         # each box read once, the matrix written once; 13 ops per pair
         # (two overlaps, the product, the union, its floor, the division)
@@ -818,9 +823,10 @@ def phase_iou_matrix(torch, np, card):
                    f"B={b} N={n} M={m}", 0.0, timed, plain, None, nbytes,
                    ops)
         _report(f"K4a iou_matrix B={b} N={n} M={m}: bit-equal", row, card)
-        if main_row is None:                # the flush's NMS shape
-            main_row = row
-    return main_row
+        rows.append(row)
+    rows[0]["ptxas"] = kernel_ptxas("iou_matrix_kernel")
+    print("K4a ptxas: " + "; ".join(rows[0]["ptxas"]) + f" [{card}]")
+    return rows
 
 
 def phase_frame_filter(torch, np, card):
@@ -862,39 +868,135 @@ def phase_frame_filter(torch, np, card):
     corners = filter_corners_on_card(torch, rf.region_filter_mask,
                                      rf.region_filter_mask_ref, "K4b",
                                      per_frame=True)
-    main_row["ptxas"] = filter_ptxas()
+    main_row["ptxas"] = kernel_ptxas("region_filter_kernel")
     print(f"K4b: {corners} corner cases frame by frame (NaN coordinates "
           f"among them) masks equal [{card}]")
     return main_row
 
 
+NMS_REPLACES = ("src/repro/kernels/ref.py:293 nms_mask (jax.lax.fori_loop; "
+                "no Pallas kernel)")
+
+
+def nms_candidates(torch, scores, valid):
+    """Each frame's candidates, the rows the NMS kernel reads: valid boxes
+    with a score > -1e30, none in a frame with a valid NaN score."""
+    cand = (valid & (scores > -1e30)).sum(-1)
+    bad = (valid & torch.isnan(scores)).any(-1)
+    return [int(c) for c in torch.where(bad, 0, cand).reshape(-1).tolist()]
+
+
+def nms_bound(n: int, candidates):
+    """NMS's bound from the data (``candidates``: each frame's, as
+    :func:`nms_candidates` counts them): each candidate's IoU row read once
+    (4N bytes), each box's score, valid flag and keep once (6 bytes); one
+    comparison per element of those rows and one per pair of a frame's
+    candidates (their ranks).  The rows are priced at HBM's rate, though
+    K4a's default-cached stores leave the matrix in L2 for the kernel (and
+    the timing loop reads it from there): the floor from L2 is lower."""
+    rows = sum(candidates)
+    nbytes = 4 * n * rows + 6 * n * len(candidates)
+    ops = n * rows + sum(c * c for c in candidates)
+    return nbytes, ops
+
+
 def phase_nms(torch, np, card):
-    """Greedy NMS at the fused flush's shape: ``ops.nms_mask`` (K4a, then
-    the plain greedy loop) beside the plain ``ref.nms_mask``."""
+    """Greedy NMS at the fused flush's shape (F = 32, N = 256): the NMS
+    kernel alone against the plain loop on K4a's matrix, and ``ops.nms_mask``
+    (K4a, then the NMS kernel) beside the old route (K4a, then the plain
+    loop) in turns; then every case of ``testing.nms_corner_cases`` on the
+    card.  Returns the kernel's row."""
+    from repro_torch.kernels import iou_matrix as im
+    from repro_torch.kernels import nms as nm
     from repro_torch.kernels import ops, ref
-    from repro_torch.testing import rand_boxes
+    from repro_torch.testing import nms_corner_cases, rand_boxes
     f, n = 32, 256
     rng = np.random.default_rng(SEED + 3)
     boxes = torch.as_tensor(rand_boxes(rng, (f, n)), device="cuda")
     scores = torch.as_tensor(rng.random((f, n), dtype=np.float32),
                              device="cuda")
     valid = torch.as_tensor(rng.random((f, n)) > 0.5, device="cuda")
-    got = ops.nms_mask(boxes, scores, valid)
-    if not torch.equal(got, ref.nms_mask(boxes, scores, valid)):
-        raise AssertionError("NMS through K4a differs from the plain NMS")
-    # in turns (kernel, plain, plain, kernel): the greedy loop is
-    # host-bound, and the host's speed drifts within a run
-    fns = {"ops.nms_mask (K4a + greedy loop)": ops.nms_mask,
-           "ref.nms_mask (plain)": ref.nms_mask}
-    times = in_turns({what: (lambda fn=fn: fn(boxes, scores, valid))
-                      for what, fn in fns.items()},
-                     lambda fn: time_ms(torch, fn, reps=10, warmup=2))
-    for what, fn in fns.items():
-        dev, _ = profile_device(torch, lambda: fn(boxes, scores, valid))
-        print(f"{what}, {n} greedy steps, F={f} N={n}: "
-              f"{statistics.mean(times[what]):.3f} ms per call (two turns: "
-              f"{', '.join(f'{t:.3f}' for t in times[what])}; {fmt(dev)} on "
-              f"the device); masks equal [{card}]")
+    iou = im.iou_matrix(boxes, boxes)
+    got = nm.nms_greedy(iou, scores, valid)
+    if not torch.equal(got, nm.nms_greedy_ref(iou, scores, valid)):
+        raise AssertionError("the NMS kernel differs from the plain loop")
+    if not torch.equal(ops.nms_mask(boxes, scores, valid),
+                       ref.nms_mask(boxes, scores, valid)):
+        raise AssertionError("ops.nms_mask differs from the plain NMS")
+    cands = nms_candidates(torch, scores, valid)
+    timed = measure(torch, lambda: nm.nms_greedy(iou, scores, valid),
+                    once=True)
+    plain = measure(torch, lambda: nm.nms_greedy_ref(iou, scores, valid),
+                    reps=5)
+    row = _row("nms_greedy", "src/repro_torch/csrc/nms.cu", NMS_REPLACES,
+               f"F={f} N={n}", 0.0, timed, plain, None,
+               *nms_bound(n, cands))
+    row["candidates"] = sum(cands)
+    _report(f"NMS nms_greedy F={f} N={n} ({sum(cands)} candidates, "
+            f"{max(cands)} in the longest frame, {int(got.sum())} kept; the "
+            f"bound prices the rows at HBM's rate, the run reads them from "
+            f"L2): masks equal", row, card)
+    # the new route against the old one, in turns (new, old, old, new)
+    routes = {"new": lambda: ops.nms_mask(boxes, scores, valid),
+              "old": lambda: ref.nms_greedy(im.iou_matrix(boxes, boxes),
+                                            scores, valid)}
+    turns = in_turns(routes, lambda fn: time_ms(torch, fn, reps=10,
+                                                warmup=2))
+    dev = {"new": profile_device(torch, routes["new"], 10, once=True)[0],
+           "old": profile_device(torch, routes["old"])[0]}
+    row["route_ms"] = {k: statistics.mean(v) for k, v in turns.items()}
+    row["route_turns_ms"] = turns
+    row["route_device_ms"] = dev
+    print(f"ops.nms_mask F={f} N={n} in turns (new, old, old, new): new "
+          f"route (K4a + NMS kernel) {turns['new'][0]:.4f}, "
+          f"{turns['new'][1]:.4f} ms per call ({fmt(dev['new'])} on the "
+          f"device); old route (K4a + plain loop of {n} steps) "
+          f"{turns['old'][0]:.3f}, {turns['old'][1]:.3f} ms per call "
+          f"({fmt(dev['old'])} on the device); masks equal [{card}]")
+    cases = nms_corner_cases()
+    for name, (b, s_, v, thr) in cases.items():
+        args = [torch.as_tensor(a, device="cuda") for a in (b, s_, v)]
+        if not torch.equal(ops.nms_mask(*args, thr),
+                           ref.nms_mask(*args, thr)):
+            raise AssertionError(f"NMS corner case {name} differs from the "
+                                 "plain NMS")
+    row["ptxas"] = kernel_ptxas("nms_greedy_kernel")
+    print(f"NMS: {len(cases)} corner cases (ties, -0.0, NaN scores and "
+          f"coordinates, -1e30 / -inf, an IoU at the threshold and one ulp "
+          f"either side, N = 1, 37, 256) masks equal; ptxas: "
+          + "; ".join(row["ptxas"]) + f" [{card}]")
+    return row
+
+
+def phase_nms_served(torch, card, served, row):
+    """``ops.nms_mask`` on the operands of the main path's last NMS call
+    (the last fused flush's proposal NMS) against the plain NMS, and the
+    kernel timed on them; the numbers go into the NMS row as
+    ``served``."""
+    from repro_torch.kernels import iou_matrix as im
+    from repro_torch.kernels import nms as nm
+    from repro_torch.kernels import ops, ref
+    (boxes, scores, valid), kw = served
+    got = ops.nms_mask(boxes, scores, valid, **kw)
+    if not torch.equal(got, ref.nms_mask(boxes, scores, valid, **kw)):
+        raise AssertionError("NMS on the main path's operands differs from "
+                             "the plain NMS")
+    f, n = scores.shape
+    iou = im.iou_matrix(boxes, boxes)
+    cands = nms_candidates(torch, scores, valid)
+    timed = measure(torch, lambda: nm.nms_greedy(iou, scores, valid, **kw),
+                    once=True)
+    plain = measure(torch, lambda: nm.nms_greedy_ref(iou, scores, valid,
+                                                     **kw), reps=5)
+    served_row = _row("nms_greedy", "", "", f"F={f} N={n}", 0.0, timed,
+                      plain, None, *nms_bound(n, cands))
+    _report(f"NMS nms_greedy served F={f} N={n} (the last fused flush's "
+            f"proposal NMS: {sum(cands)} candidates, {int(got.sum())} "
+            f"kept): masks equal", served_row, card)
+    row["served"] = {k: served_row[k] for k in (
+        "shape", "ms", "device_ms", "plain_ms", "plain_device_ms",
+        "bound_ms", "bound_by")}
+    row["served"]["candidates"] = sum(cands)
 
 
 # ---------------------------------------------------------------------------
@@ -979,12 +1081,13 @@ def phase_main_path(torch, np, card):
     runs = {}
     from repro_torch.kernels import ops
     for hot_path in ("fused", "sync"):
-        # the fused run keeps its last flush's K1 operands
-        with LastCall(ops, "region_filter_mask_batch") as k1_call:
+        # the fused run keeps its last flush's K1 and NMS operands
+        with LastCall(ops, "region_filter_mask_batch") as k1_call, \
+                LastCall(ops, "nms_mask") as nms_call:
             multi, out, results, counts, wall = run_path(
                 torch, np, hot_path, params, streams)
         if hot_path == "fused":
-            served = k1_call.args
+            served = k1_call.args, nms_call.args
         frames = n_streams * n_chunks * n_frames
         hps = multi.scheduler.hot_path_stats
         print(f"main path ({hot_path}): {n_streams} streams x {n_chunks} "
@@ -997,9 +1100,12 @@ def phase_main_path(torch, np, card):
     for name in VIDEO_KERNELS:
         if fused_counts[name] == 0:
             raise AssertionError(f"fused path launched no {name} kernel")
-    for name in ("region_filter_mask_batch", "onevsall_scores", "iou_matrix"):
+    for name in ("region_filter_mask_batch", "onevsall_scores", "iou_matrix",
+                 "nms_greedy"):
         if sync_counts[name] == 0:
             raise AssertionError(f"sync path launched no {name} kernel")
+    for counts in (fused_counts, sync_counts):
+        check_nms_launches(counts, "main path")
     hps = runs["fused"][0].scheduler.hot_path_stats
     if hps["host_syncs"] != hps["flushes"]:
         raise AssertionError(f"fused path: {hps['host_syncs']} host syncs "
@@ -1022,6 +1128,14 @@ def phase_main_path(torch, np, card):
           f"({ties} proposal(s) exempt as threshold ties) [{card}]")
     profile_main_path(torch, np, card, params, streams)
     return fused_counts, sync_counts, runs, served
+
+
+def check_nms_launches(counts, what: str):
+    """Every ``ops.nms_mask`` on the card is one K4a and one NMS kernel
+    launch: the two counts are equal on every path."""
+    if counts["nms_greedy"] != counts["iou_matrix"]:
+        raise AssertionError(f"{what}: {counts['iou_matrix']} K4a launches "
+                             f"but {counts['nms_greedy']} NMS launches")
 
 
 def profile_main_path(torch, np, card, params, streams):
@@ -1187,6 +1301,7 @@ def phase_baselines_main_path(torch, np, card):
                   f"{ {k: v for k, v in counts.items() if v} } [{card}]")
             if counts["iou_matrix"] == 0:
                 raise AssertionError(f"{name} launched no K4a")
+            check_nms_launches(counts, f"{content}/{name}")
             if name == "dds":
                 if counts["region_filter_mask"] != frames:
                     raise AssertionError(
@@ -1246,6 +1361,7 @@ def phase_baselines_reference(torch, np, card):
                 compared += 1
     if launches["iou_matrix"] == 0 or launches["region_filter_mask"] == 0:
         raise AssertionError(f"baselines reference launches {launches}")
+    check_nms_launches(launches, "baselines reference")
     print(f"baselines card vs CPU reference, MPEG / Glimpse / CloudSeg / DDS "
           f"x {REF_CHUNKS} chunks x {REF_FRAMES} frames of each content type "
           f"at full width: "
@@ -1253,8 +1369,8 @@ def phase_baselines_reference(torch, np, card):
           f"rounds; boxes within MODEL_ATOL, bytes and latencies within "
           f"their tolerances; {exempt_n} tie position(s) exempt, {flips} "
           f"codec call(s) with a half-step tie); card launches K4a "
-          f"{launches['iou_matrix']}, K4b {launches['region_filter_mask']} "
-          f"[{card}]")
+          f"{launches['iou_matrix']}, NMS {launches['nms_greedy']}, K4b "
+          f"{launches['region_filter_mask']} [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -1394,7 +1510,8 @@ def phase_learning_main_path(torch, np, card):
           f"cam0's episode opened by hand: {wall:.3f} s wall, "
           f"{sched.hot_path_stats['flushes']} flushes, "
           f"{sched.hot_path_stats['host_syncs']} host syncs; launches K1 "
-          f"{counts['region_filter_mask_batch']}, K3 "
+          f"{counts['region_filter_mask_batch']}, K4a {counts['iou_matrix']}, "
+          f"NMS {counts['nms_greedy']}, K3 "
           f"{counts['onevsall_scores']}, K5 {counts['onevsall_update']} "
           f"(= {n_rounds} training rounds, {counts['onevsall_replay']} of "
           f"them replays) running {counts['onevsall_steps']} steps (= "
@@ -1413,6 +1530,7 @@ def phase_learning_main_path(torch, np, card):
     for name in VIDEO_KERNELS:
         if counts[name] == 0:
             raise AssertionError(f"learning path launched no {name} kernel")
+    check_nms_launches(counts, "learning path")
     for name, st in sched.streams.items():
         if name == "cam0":
             continue
@@ -1771,19 +1889,21 @@ cs.phase_crop_gather(torch, np, card)
 cs.phase_onevsall_update(torch, np, card)
 cs.phase_region_filter(torch, np, card)
 cs.phase_frame_filter(torch, np, card)
+cs.phase_iou_matrix(torch, np, card)
 """
 
 
 def parent_key(tag: str, shape: str):
     """The key of a kernel row's parent time: K2 and K5 by their batch
-    (``B=...``), K1 and K4b by their whole shape."""
-    return tag, (shape if tag in ("K1", "K4b") else shape.split()[0])
+    (``B=...``), K1, K4a and K4b by their whole shape."""
+    return tag, (shape if tag in ("K1", "K4a", "K4b") else shape.split()[0])
 
 
 def parent_device_ms(root: str, card: str):
-    """Run the K2, K5, K1 and K4b phases of another checkout (the parent
-    commit, unpacked with ``git archive``) in a subprocess on this card;
-    relay its lines and return {parent_key(...): device ms per call}."""
+    """Run the K2, K5, K1, K4b and K4a phases of another checkout (the
+    parent commit, unpacked with ``git archive``) in a subprocess on this
+    card; relay its lines and return {parent_key(...): device ms per
+    call}."""
     import re
     code = PARENT_PHASES.format(root=os.path.abspath(root),
                                 src=os.path.join(os.path.abspath(root),
@@ -1791,11 +1911,11 @@ def parent_device_ms(root: str, card: str):
     run = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=900)
     if run.returncode != 0:
-        raise RuntimeError(f"the parent's K2/K5/K1/K4b phases failed:\n"
+        raise RuntimeError(f"the parent's K2/K5/K1/K4b/K4a phases failed:\n"
                            f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
     found = {}
     for line in run.stdout.splitlines():
-        m = re.match(r"(K[125]|K4b) \w+ ((?:[A-Z]\w*=\d+)(?: [A-Z]\w*=\d+)*)"
+        m = re.match(r"(K[125]|K4[ab]) \w+ ((?:[A-Z]\w*=\d+)(?: [A-Z]\w*=\d+)*)"
                      r"[^:]*: .*?ms per call \((\d+\.\d+) ms on the device",
                      line)
         if m:
@@ -2038,8 +2158,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR",
                     help="another checkout (e.g. the parent commit from git "
-                         "archive): its K2, K5, K1 and K4b phases run before "
-                         "and after this tree's, on the same card")
+                         "archive): its K2, K5, K1, K4b and K4a phases run "
+                         "before and after this tree's, on the same card")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         raise SystemExit("chip_smoke.py: src/repro_torch not found next to "
@@ -2067,9 +2187,11 @@ def main() -> int:
     update_rows = phase_onevsall_update(torch, np, card)
     filter_row = phase_region_filter(torch, np, card)
     frame_row = phase_frame_filter(torch, np, card)
+    iou_rows = phase_iou_matrix(torch, np, card)
     after = parent_device_ms(args.parent, card) if args.parent else None
     for tag, row in ([("K2", crop_row)] + [("K5", r) for r in update_rows]
-                     + [("K1", filter_row), ("K4b", frame_row)]):
+                     + [("K1", filter_row), ("K4b", frame_row)]
+                     + [("K4a", r) for r in iou_rows]):
         key = parent_key(tag, row["shape"])
         row["parent_device_ms"] = (None if before is None
                                    else [before.get(key), after.get(key)])
@@ -2085,21 +2207,24 @@ def main() -> int:
     update_row = phase_onevsall_replay(torch, np, card)
     update_row["update_shapes"] = update_rows
     video_rows = [filter_row, crop_row, phase_onevsall(torch, np, card)]
-    iou_row = phase_iou_matrix(torch, np, card)
+    iou_row = iou_rows[0]                   # the flush's NMS shape
+    iou_row["other_shapes"] = iou_rows[1:]
     llm_rows = [phase_flash_attention(torch, np, card),
                 phase_decode_attention(torch, np, card),
                 phase_ssd_scan(torch, np, card)]
-    phase_nms(torch, np, card)
+    nms_row = phase_nms(torch, np, card)
     phase_reference(torch, np, card)
     fused_counts, sync_counts, _, served = phase_main_path(torch, np, card)
-    phase_region_filter_served(torch, card, served, filter_row)
-    for row in video_rows + [iou_row]:
+    phase_region_filter_served(torch, card, served[0], filter_row)
+    phase_nms_served(torch, card, served[1], nms_row)
+    for row in video_rows + [iou_row, nms_row]:
         row["launches"] = fused_counts[row["name"]]
         row["launches_sync"] = sync_counts[row["name"]]
     phase_baselines_reference(torch, np, card)
     base_counts = phase_baselines_main_path(torch, np, card)
-    iou_row["launches_baselines"] = {
-        name: c["iou_matrix"] for name, c in base_counts.items()}
+    for row in (iou_row, nms_row):
+        row["launches_baselines"] = {
+            name: c[row["name"]] for name, c in base_counts.items()}
     frame_row["launches"] = base_counts["dds"]["region_filter_mask"]
     phase_learning_reference(torch, np, card)
     learn_counts = phase_learning_main_path(torch, np, card)
@@ -2109,12 +2234,13 @@ def main() -> int:
                       launches_inline=learn_counts["inline_launches"],
                       steps_inline=learn_counts["inline_steps"])
     iou_row["launches_learning"] = learn_counts["iou_matrix"]
+    nms_row["launches_learning"] = learn_counts["nms_greedy"]
     filter_row["launches_learning"] = learn_counts["region_filter_mask_batch"]
     phase_llm_reference(torch, np, card)
     llm_counts = phase_llm_main_path(torch, np, card)
     for row in llm_rows:
         row["launches"] = llm_counts[row["name"]]
-    rows = video_rows + [iou_row, frame_row, update_row] + llm_rows
+    rows = video_rows + [iou_row, nms_row, frame_row, update_row] + llm_rows
     print(f"chip_smoke.py finished its checks in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -33,8 +33,8 @@ class BaselineResult:
 def threshold_detections(det, theta_loc: float = 0.5,
                          theta_cls: float = 0.5, nms_iou: float = 0.45):
     """Plain cloud-only acceptance rule (+NMS) for baseline and fallback
-    detectors: the NMS takes its IoU matrix from K4a on the card.  Returns
-    host numpy ``(boxes, labels, keep)``."""
+    detectors: on the card the NMS is K4a's IoU matrix, then the NMS
+    kernel.  Returns host numpy ``(boxes, labels, keep)``."""
     loc, probs, boxes = det["loc_scores"], det["cls_probs"], det["boxes"]
     conf = probs.amax(-1)
     labels = to_host(probs.argmax(-1)).astype(np.int64)

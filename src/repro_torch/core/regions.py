@@ -6,9 +6,9 @@ with validity masks, so a whole flush is filtered in one pass.  The filter
 runs the whole-flush region-filter kernel (K1), or the single-frame one
 (K4b) once per frame in :func:`split_regions_framewise`, and every crop
 runs the crop-gather kernel (K2), all through
-:mod:`repro_torch.kernels.ops`.  Greedy NMS (``ops.nms_mask``) takes its
-IoU matrix from the IoU kernel (K4a); its greedy loop has no Pallas kernel
-in the reference either and stays plain PyTorch on every device.
+:mod:`repro_torch.kernels.ops`.  Greedy NMS (``ops.nms_mask``) is two
+kernels on the card: the IoU matrix (K4a), then the greedy loop over it
+(``csrc/nms.cu``, which the reference runs as one ``jax.lax.fori_loop``).
 """
 from __future__ import annotations
 

@@ -45,11 +45,24 @@
 // stream.
 //
 // What bounds K4a: it writes B*N*M floats and reads only (N + M) boxes
-// per batch row, ~14 flops per pair (at NMS's (32, 256, 256): 8.4 MB
-// written, ~29 MFLOP), so the bytes bound it.  One block per (batch row,
-// 32-row tile, 128-column tile) stages both box tiles and their areas in
-// shared memory once; 128 consecutive threads then write 128 consecutive
-// floats of an output row, so every store is coalesced along M.
+// per batch row, ~14 flops and one IEEE division per pair (at NMS's (32,
+// 256, 256): 8.4 MB written, ~29 MFLOP), so the bytes bound it: 2.6 us at
+// 3.35 TB/s.  The design serves the stores and the launch path:
+//   - A block of 8 warps covers 8 rows of boxes_a x 128 columns of boxes_b
+//     (2,048 blocks at (32, 256, 256), about two waves of 132 SMs); it
+//     stages its boxes and their areas in shared memory once, a column at
+//     [c % 4][c / 4], so lane l reads its four columns 4l..4l+3 without
+//     bank conflicts.
+//   - A warp takes one row; each lane computes 4 consecutive columns and
+//     stores them as one aligned float4, so a warp writes 512 contiguous
+//     bytes.  Where M % 4 != 0 the rows do not start on 16 bytes and every
+//     store of the matrix is scalar.
+//   - A pair whose boxes do not meet skips the division (pair_iou): a
+//     zero numerator sends the IEEE division down its slow path.
+//   - Stores use the default caching: the 8.4 MB stay in the 50 MB L2 for
+//     the NMS kernel (csrc/nms.cu) that reads them next.
+//   - The sizes come in one host struct (VpaasIouArgs), cached by the
+//     wrapper, so a launch takes four arguments and the stream.
 //
 // The thresholds are runtime arguments (the Pallas kernels baked them in
 // as static values), so per-site thresholds use the same kernel.
@@ -73,14 +86,19 @@ struct VpaasFilterArgs {
   float theta_loc, theta_iou, theta_back, frame_area;
 };
 
+// K4a's sizes (kernels/iou_matrix.py's IouArgs mirrors the layout).
+struct VpaasIouArgs {
+  int B, N, M;        // batch rows, boxes_a and boxes_b a row
+};
+
 namespace {
 
 constexpr int kProps = 8;       // proposals (warps) per filter block
 constexpr int kFilterThreads = kProps * 32;
 constexpr int kTile = 256;      // accepted boxes staged per pass
-constexpr int kIouRows = 32;    // K4a: rows of boxes_a per block
-constexpr int kIouCols = 128;   // K4a: columns of boxes_b per block
-constexpr int kIouThreads = 256;
+constexpr int kIouRows = 8;     // K4a: rows of boxes_a per block, a warp each
+constexpr int kIouCols = 128;   // K4a: columns of boxes_b per block, 4 a lane
+constexpr int kIouThreads = kIouRows * 32;
 constexpr unsigned kAll = 0xffffffffu;
 
 __device__ __forceinline__ float box_area(float4 b) {
@@ -98,11 +116,15 @@ __device__ __forceinline__ void pair_overlap(float4 a, float area_a,
   den = fmax_nan((area_a + area_b) - inter, 1e-9f);
 }
 
-// IoU of one pair, in the plain version's order.
+// IoU of one pair, in the plain version's order.  Where the boxes do not
+// meet, the quotient is the intersection's zero (den > 0) or NaN (den NaN)
+// without the division: a zero numerator takes the IEEE division's slow
+// path, and in a warp of dense random boxes one such lane holds all 32.
 __device__ __forceinline__ float pair_iou(float4 a, float area_a, float4 b,
                                           float area_b) {
   float inter, den;
   pair_overlap(a, area_a, b, area_b, inter, den);
+  if (inter == 0.f) return den != den ? den : inter;
   return inter / den;
 }
 
@@ -190,36 +212,46 @@ region_filter_kernel(const float4* __restrict__ prop,
 
 __global__ void __launch_bounds__(kIouThreads)
 iou_matrix_kernel(const float4* __restrict__ a, const float4* __restrict__ b,
-                  float* __restrict__ out, int n, int m) {
+                  float* __restrict__ out, const VpaasIouArgs s) {
+  // column c of the tile at [c % 4][c / 4]: lane l's columns 4l + k at
+  // [k][l], consecutive lanes on consecutive slots
+  __shared__ float4 s_b[4][kIouCols / 4];
+  __shared__ float s_area_b[4][kIouCols / 4];
   __shared__ float4 s_a[kIouRows];
   __shared__ float s_area_a[kIouRows];
-  __shared__ float4 s_b[kIouCols];
-  __shared__ float s_area_b[kIouCols];
 
   const size_t row = blockIdx.z;
+  const int n = s.N, m = s.M;
   const int i0 = blockIdx.y * kIouRows;
   const int j0 = blockIdx.x * kIouCols;
-  const int rows = min(kIouRows, n - i0);
-  const int cols = min(kIouCols, m - j0);
-  for (int t = threadIdx.x; t < rows; t += kIouThreads) {
-    const float4 box = a[row * n + i0 + t];
-    s_a[t] = box;
-    s_area_a[t] = box_area(box);
-  }
-  for (int t = threadIdx.x; t < cols; t += kIouThreads) {
-    const float4 box = b[row * m + j0 + t];
-    s_b[t] = box;
-    s_area_b[t] = box_area(box);
+  const int t = threadIdx.x;
+  if (t < kIouCols) {
+    float4 box = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (j0 + t < m) box = b[row * m + j0 + t];
+    s_b[t % 4][t / 4] = box;
+    s_area_b[t % 4][t / 4] = box_area(box);
+  } else if (t < kIouCols + kIouRows) {
+    const int r = t - kIouCols;
+    float4 box = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (i0 + r < n) box = a[row * n + i0 + r];
+    s_a[r] = box;
+    s_area_a[r] = box_area(box);
   }
   __syncthreads();
-  const int j = threadIdx.x % kIouCols;
-  if (j >= cols) return;
-  const float4 bj = s_b[j];
-  const float area_b = s_area_b[j];
-  float* o = out + (row * n + i0) * (size_t)m + j0 + j;
-  for (int i = threadIdx.x / kIouCols; i < rows;
-       i += kIouThreads / kIouCols) {
-    o[(size_t)i * m] = pair_iou(s_a[i], s_area_a[i], bj, area_b);
+  const int r = t / 32, lane = t % 32;
+  const int i = i0 + r, j = j0 + 4 * lane;
+  if (i >= n || j >= m) return;
+  const float4 ai = s_a[r];
+  const float area_a = s_area_a[r];
+  float v[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    v[k] = pair_iou(ai, area_a, s_b[k][lane], s_area_b[k][lane]);
+  float* o = out + (row * n + i) * (size_t)m + j;
+  if (m % 4 == 0) {
+    *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    for (int k = 0; k < 4 && j + k < m; ++k) o[k] = v[k];
   }
 }
 
@@ -270,15 +302,17 @@ extern "C" int vpaas_region_filter_mask(
                        a, 1, stream);
 }
 
-// boxes_a (B, N, 4) f32, boxes_b (B, M, 4) f32 -> out (B, N, M) f32.
+// boxes_a (B, N, 4) f32, boxes_b (B, M, 4) f32 -> out (B, N, M) f32; the
+// sizes in *s.
 extern "C" int vpaas_iou_matrix(const void* boxes_a, const void* boxes_b,
-                                void* out, int B, int N, int M,
+                                void* out, const VpaasIouArgs* s,
                                 void* stream) {
-  if (B == 0 || N == 0 || M == 0) return 0;
-  dim3 grid((M + kIouCols - 1) / kIouCols, (N + kIouRows - 1) / kIouRows, B);
+  if (s->B == 0 || s->N == 0 || s->M == 0) return 0;
+  const dim3 grid((s->M + kIouCols - 1) / kIouCols,
+                  (s->N + kIouRows - 1) / kIouRows, s->B);
   iou_matrix_kernel<<<grid, kIouThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(boxes_a), static_cast<const float4*>(boxes_b),
-      static_cast<float*>(out), N, M);
+      static_cast<float*>(out), *s);
   return static_cast<int>(cudaGetLastError());
 }

@@ -38,7 +38,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = ("iou_filter.cu", "crop_gather.cu", "onevsall.cu",
            "onevsall_update.cu", "flash_attention.cu", "decode_attention.cu",
-           "ssd_scan.cu")
+           "ssd_scan.cu", "nms.cu")
 BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -55,7 +55,9 @@ SIGNATURES = {
     "vpaas_region_filter_mask":
         [_P, _P, _P, _P, _P, _P, _P, _P],
     "vpaas_iou_matrix":
-        [_P, _P, _P, _I, _I, _I, _P],
+        [_P, _P, _P, _P, _P],
+    "vpaas_nms_greedy":
+        [_P, _P, _P, _P, _P, _P, _P],
     "vpaas_crop_gather":
         [_P, _P, _P, _P, _P, _P],
     "vpaas_onevsall_scores":
@@ -172,6 +174,23 @@ def launch(fn: str, *args) -> None:
     if rc != 0:
         msg = _lib.vpaas_error_string(rc).decode()
         raise RuntimeError(f"{fn} failed to launch: CUDA error {rc} ({msg})")
+
+
+MAX_CACHED = 256      # argument structs kept per cache
+
+
+def struct_address(cache: Dict[tuple, tuple], struct, *values) -> int:
+    """The address of a launcher's argument struct ``struct(*values)``,
+    built on first use of these values and kept in ``cache`` (cleared past
+    ``MAX_CACHED`` keys): a run's sizes and thresholds repeat, so a few
+    entries serve it, and the struct outlives the launches that read it."""
+    cached = cache.get(values)
+    if cached is None:
+        if len(cache) >= MAX_CACHED:
+            cache.clear()
+        args = struct(*values)
+        cached = cache[values] = (ctypes.addressof(args), args)
+    return cached[0]
 
 
 def aligned16(t: torch.Tensor) -> torch.Tensor:

@@ -33,26 +33,16 @@ class FilterArgs(ctypes.Structure):
                                             "theta_back", "frame_area")]
 
 
-# (F, N, M, the four thresholds, device index) -> (the struct's address,
-# the struct); a run's sizes and thresholds repeat, so a few entries serve
-# it
+# (F, N, M, the four thresholds) -> (the struct's address, the struct)
 _args: Dict[tuple, tuple] = {}
-MAX_CACHED = 256
 
 
 def filter_args(f: int, n: int, m: int, theta_loc: float, theta_iou: float,
-                theta_back: float, frame_area: float, device: int) -> int:
+                theta_back: float, frame_area: float) -> int:
     """The address of the launchers' ``VpaasFilterArgs`` for these sizes
     and thresholds, built on first use of the key."""
-    key = (f, n, m, theta_loc, theta_iou, theta_back, frame_area, device)
-    cached = _args.get(key)
-    if cached is None:
-        if len(_args) >= MAX_CACHED:
-            _args.clear()
-        args = FilterArgs(f, n, m, theta_loc, theta_iou, theta_back,
-                          frame_area)
-        cached = _args[key] = (ctypes.addressof(args), args)
-    return cached[0]
+    return _build.struct_address(_args, FilterArgs, f, n, m, theta_loc,
+                                 theta_iou, theta_back, frame_area)
 
 
 def region_filter_mask_batch(proposals: torch.Tensor,
@@ -79,8 +69,7 @@ def region_filter_mask_batch(proposals: torch.Tensor,
     keep = prop_valid.new_empty((f, n))
     if f and n:
         args = filter_args(f, n, m, float(theta_loc), float(theta_iou),
-                           float(theta_back), float(frame_area),
-                           proposals.get_device())
+                           float(theta_back), float(frame_area))
         _build.launch("vpaas_region_filter_mask_batch",
                       proposals.data_ptr(), prop_valid.data_ptr(),
                       accepted.data_ptr(), acc_valid.data_ptr(),

@@ -24,6 +24,7 @@ from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import iou_filter as _ik
 from repro_torch.kernels import iou_matrix as _im
+from repro_torch.kernels import nms as _nms
 from repro_torch.kernels import onevsall as _ov
 from repro_torch.kernels import onevsall_update as _ou
 from repro_torch.kernels import ref
@@ -33,7 +34,8 @@ from repro_torch.kernels import ssd_scan as _sk
 KERNELS = {"region_filter_mask_batch": _ik, "crop_gather": _cg,
            "onevsall_scores": _ov, "iou_matrix": _im,
            "region_filter_mask": _rf, "onevsall_update": _ou,
-           "flash_attention": _fa, "decode_attention": _da, "ssd_scan": _sk}
+           "flash_attention": _fa, "decode_attention": _da, "ssd_scan": _sk,
+           "nms_greedy": _nms}
 
 
 def launch_counts() -> Dict[str, int]:
@@ -75,13 +77,20 @@ def iou_matrix(boxes_a, boxes_b) -> torch.Tensor:
     return _im.iou_matrix_ref(boxes_a, boxes_b)
 
 
+def nms_greedy(iou, scores, valid, iou_threshold: float = 0.45
+               ) -> torch.Tensor:
+    """The greedy loop of NMS over a given IoU matrix: (..., N, N),
+    (..., N), (..., N) -> (..., N) keep."""
+    if _on_card(iou):
+        return _nms.nms_greedy(iou, scores, valid, iou_threshold)
+    return _nms.nms_greedy_ref(iou, scores, valid, iou_threshold)
+
+
 def nms_mask(boxes, scores, valid, iou_threshold: float = 0.45
              ) -> torch.Tensor:
-    """Greedy NMS over the last axis: the IoU matrix through K4a, then the
-    greedy loop, which is plain PyTorch on every device (the JAX package
-    has no kernel for it either)."""
-    return ref.nms_greedy(iou_matrix(boxes, boxes), scores, valid,
-                          iou_threshold)
+    """Greedy NMS over the last axis: the IoU matrix (K4a), then the greedy
+    loop over it (the NMS kernel on the card; two launches a call)."""
+    return nms_greedy(iou_matrix(boxes, boxes), scores, valid, iou_threshold)
 
 
 def region_filter_mask(proposals, prop_valid, accepted, acc_valid,

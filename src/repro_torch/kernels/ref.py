@@ -46,9 +46,9 @@ def nms_greedy(iou: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
 
     iou (..., N, N), scores (..., N), valid (..., N) -> keep (..., N).
     The loop runs N steps on whole (..., N) tensors -- every frame of a
-    flush advances together, and nothing reads back to the host.  The JAX
-    package has no kernel for it either: it is plain PyTorch on every
-    device."""
+    flush advances together, and nothing reads back to the host.  It is the
+    plain version of the NMS kernel (``kernels/nms.py``), which runs in its
+    place on the card; the JAX package runs it as one ``fori_loop``."""
     n = iou.shape[-1]
     neg = torch.full((), NEG_INF, dtype=scores.dtype, device=scores.device)
     ar = torch.arange(n, device=iou.device)

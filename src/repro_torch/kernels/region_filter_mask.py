@@ -43,8 +43,7 @@ def region_filter_mask(proposals: torch.Tensor, prop_valid: torch.Tensor,
     keep = prop_valid.new_empty((n,))
     if n:
         args = filter_args(1, n, m, float(theta_loc), float(theta_iou),
-                           float(theta_back), float(frame_area),
-                           proposals.get_device())
+                           float(theta_back), float(frame_area))
         _build.launch("vpaas_region_filter_mask", proposals.data_ptr(),
                       prop_valid.data_ptr(), accepted.data_ptr(),
                       acc_valid.data_ptr(), loc_scores.data_ptr(),

@@ -202,6 +202,89 @@ def iou_nan_case(b: int = 2, n: int = 40, m: int = 30, seed: int = 0):
 
 
 # ---------------------------------------------------------------------------
+# greedy NMS cases: (boxes (F, N, 4), scores (F, N), valid (F, N), threshold)
+# ---------------------------------------------------------------------------
+# (d, b) with fl(d / b) at float32(0.45) and one ulp either side: the IoU of
+# [0, 0, 1, b s] and [0, 0, 1, d s] (s a power of two) is d s / b s with
+# every product and the union exact, so it rounds once to fl(d / b)
+NMS_IOU_AT_THRESHOLD = {"equal": (9, 20), "ulp-above": (686345, 1525211),
+                        "ulp-below": (471865, 1048589)}
+
+
+def _nms_case(rng, f: int, n: int, valid_frac: float):
+    return (rand_boxes(rng, (f, n)), rng.random((f, n), dtype=np.float32),
+            rng.random((f, n)) < valid_frac)
+
+
+def nms_corner_cases() -> Dict[str, Tuple[np.ndarray, np.ndarray,
+                                          np.ndarray, float]]:
+    """name -> (boxes (F, N, 4), scores (F, N), valid (F, N), threshold):
+    the greedy loop's exact corners, for ``nms_mask`` and the NMS kernel.
+    Duplicate boxes with equal scores (the first index wins); -0.0 against
+    0.0 (a tie); a valid NaN score (the frame keeps nothing) and an invalid
+    one (ignored); valid scores at -1e30 and -inf (never kept) beside +inf
+    and -9.9e29; NaN coordinates (a NaN IoU never suppresses); an IoU at
+    exactly float32(0.45) and one ulp either side; heavy ties; thresholds
+    0 and 1; all invalid; N = 1, N = 37 (not a multiple of 4 or 32) and a
+    dense N = 256."""
+    rng = np.random.default_rng(91)
+    thr = 0.45
+    cases = {}
+    boxes, scores, valid = _nms_case(rng, 2, 8, 1.0)
+    boxes[:, 1] = boxes[:, 0]
+    boxes[:, 3] = boxes[:, 4] = boxes[:, 2]
+    scores[:, 1] = scores[:, 0]
+    scores[:, 3] = scores[:, 4] = scores[:, 2]
+    cases["duplicates-equal-scores"] = (boxes, scores, valid, thr)
+    box = np.array([.2, .2, .6, .7], np.float32)
+    boxes = np.broadcast_to(box, (3, 3, 4)).copy()
+    scores = np.array([[-0.0, 0.0, 0.0], [0.0, -0.0, -0.0],
+                       [-0.0, -0.0, 0.0]], np.float32)
+    cases["negative-zero"] = (boxes, scores, np.ones((3, 3), bool), thr)
+    boxes, scores, valid = _nms_case(rng, 2, 8, 0.7)
+    valid[0, 3] = True
+    scores[0, 3] = np.nan
+    cases["nan-score-valid"] = (boxes, scores, valid, thr)
+    boxes, scores, valid = _nms_case(rng, 2, 8, 0.7)
+    valid[:, 2] = False
+    scores[:, 2] = np.nan
+    cases["nan-score-invalid"] = (boxes, scores, valid, thr)
+    boxes = rand_boxes(rng, (2, 6)) * 0.1 + np.arange(6, dtype=np.float32
+                                                       )[:, None] * 0.15
+    boxes[1, 1] = boxes[1, 0]           # a -1e30 box on a kept one
+    scores = np.array([[0.5, -1e30, -np.inf, 0.3, -9.9e29, np.inf],
+                       [0.5, -1e30, -np.inf, -1e30, 0.2, -np.inf]],
+                      np.float32)
+    cases["neg-1e30-and-inf"] = (boxes, scores, np.ones((2, 6), bool), thr)
+    boxes, scores, valid = _nms_case(rng, 2, 40, 0.8)
+    cases["nan-coords"] = (_nan_coords(rng, boxes, valid, 8), scores, valid,
+                           thr)
+    s = np.float32(2.0 ** -23)
+    boxes = np.zeros((3, 2, 4), np.float32)
+    for f, (d, b) in enumerate(NMS_IOU_AT_THRESHOLD.values()):
+        boxes[f, 0] = (0, 0, 1, b * s)
+        boxes[f, 1] = (0, 0, 1, d * s)
+    cases["iou-at-threshold"] = (boxes, np.tile(np.float32([.9, .5]), (3, 1)),
+                                 np.ones((3, 2), bool), thr)
+    boxes, _, valid = _nms_case(rng, 2, 64, 0.8)
+    scores = rng.integers(0, 4, (2, 64)).astype(np.float32) / 4
+    cases["ties"] = (boxes, scores, valid, thr)
+    cases["threshold-zero"] = (*_nms_case(rng, 2, 40, 0.8), 0.0)
+    boxes, scores, valid = _nms_case(rng, 2, 40, 0.8)
+    boxes[:, 5] = boxes[:, 6]
+    cases["threshold-one"] = (boxes, scores, valid, 1.0)
+    cases["all-invalid"] = (*_nms_case(rng, 2, 16, 0.0), thr)
+    boxes, scores, valid = _nms_case(rng, 3, 1, 1.0)
+    valid[1] = False
+    cases["n1"] = (boxes, scores, valid, thr)
+    boxes, scores, valid = _nms_case(rng, 3, 37, 0.7)
+    boxes[:, 36] = boxes[:, 0]
+    cases["n37"] = (boxes, scores, valid, thr)
+    cases["dense-256"] = (*_nms_case(rng, 4, 256, 0.9), thr)
+    return cases
+
+
+# ---------------------------------------------------------------------------
 # K4a IoU cases: (B, N, M) -- the JAX package's IoU sweep (B = 1) and the
 # flush's NMS shape
 # ---------------------------------------------------------------------------

@@ -60,19 +60,44 @@ def test_operand_check_rejects_cpu_tensors():
 
 def test_filter_args_struct_is_cached_per_key(monkeypatch):
     # K1's and K4b's launchers read VpaasFilterArgs (three ints, four
-    # floats); the wrappers build one per (sizes, thresholds, device) and
-    # hand its address to every launch with that key
+    # floats); the wrappers build one per (sizes, thresholds) and hand its
+    # address to every launch with that key
     from repro_torch.kernels import iou_filter as ik
     assert ctypes.sizeof(ik.FilterArgs) == 28
     monkeypatch.setattr(ik, "_args", {})
-    kw = (0.4, 0.3, 0.5, 1.0, 0)
+    kw = (0.4, 0.3, 0.5, 1.0)
     first = ik.filter_args(32, 256, 256, *kw)
     assert ik.filter_args(32, 256, 256, *kw) == first
     args = ctypes.cast(first, ctypes.POINTER(ik.FilterArgs)).contents
     assert (args.F, args.N, args.M) == (32, 256, 256)
     assert (args.theta_iou, args.frame_area) == (pytest.approx(0.3), 1.0)
     assert ik.filter_args(1, 256, 256, *kw) != first       # K4b's frame
-    other = ik.filter_args(32, 256, 256, 0.4, 0.5, 0.5, 1.0, 0)
+    other = ik.filter_args(32, 256, 256, 0.4, 0.5, 0.5, 1.0)
     assert other != first
     assert ctypes.cast(other, ctypes.POINTER(ik.FilterArgs)).contents \
         .theta_iou == 0.5
+
+
+@pytest.mark.parametrize("module,struct,values", [
+    ("iou_matrix", "IouArgs", (32, 256, 256)),            # B, N, M
+    ("nms", "NmsArgs", (32, 256, 0.45))])                 # F, N, threshold
+def test_launch_arg_structs_are_cached_per_key(monkeypatch, module, struct,
+                                               values):
+    # K4a's VpaasIouArgs and NMS's VpaasNmsArgs (three 4-byte fields each,
+    # as csrc/iou_filter.cu and csrc/nms.cu lay them out), one struct per
+    # key through _build.struct_address
+    import importlib
+    mod = importlib.import_module(f"repro_torch.kernels.{module}")
+    cls = getattr(mod, struct)
+    assert ctypes.sizeof(cls) == 12
+    cache = {}
+    first = _build.struct_address(cache, cls, *values)
+    assert _build.struct_address(cache, cls, *values) == first
+    got = ctypes.cast(first, ctypes.POINTER(cls)).contents
+    assert [getattr(got, name) for name, _ in cls._fields_] == \
+        pytest.approx(list(values))
+    other = _build.struct_address(cache, cls, 1, *values[1:])
+    assert other != first and len(cache) == 2
+    monkeypatch.setattr(_build, "MAX_CACHED", 2)
+    _build.struct_address(cache, cls, 2, *values[1:])      # past the cap
+    assert len(cache) == 1

@@ -5,6 +5,7 @@ import pathlib
 import sys
 
 import pytest
+import torch
 from torch.autograd import DeviceType
 from torch.autograd.profiler_util import EventList, FunctionEvent
 
@@ -245,7 +246,12 @@ def test_parent_device_ms_reads_the_parent_k2_and_k5_lines(monkeypatch):
         "the device), bound 0.000011 ms (operations) [c]",
         "K4b region_filter_mask N=130 M=70: masks equal: kernel 0.0700 ms "
         "per call (0.0300 ms on the device), plain 0.5 ms (0.05 ms on the "
-        "device) [c]"]
+        "device) [c]",
+        # K4a, keyed by its whole shape; its ptxas line is not a time
+        "K4a iou_matrix B=32 N=256 M=256: bit-equal: kernel 0.0742 ms per "
+        "call (0.0081 ms on the device), plain 0.4551 ms (0.0893 ms on the "
+        "device), bound 0.002582 ms (bytes) [c]",
+        "K4a ptxas: iou_matrix_kernel: Used 30 registers [c]"]
 
     class Run:
         returncode, stdout, stderr = 0, "\n".join(lines), ""
@@ -255,12 +261,14 @@ def test_parent_device_ms_reads_the_parent_k2_and_k5_lines(monkeypatch):
     assert chip_smoke.parent_device_ms("build/parent", "c") == {
         ("K2", "B=128"): 0.0067, ("K5", "B=2048"): 0.7482,
         ("K1", "F=32 N=256 M=256"): 0.0502, ("K4b", "N=256 M=256"): 0.0454,
-        ("K4b", "N=130 M=70"): 0.0300}
+        ("K4b", "N=130 M=70"): 0.0300, ("K4a", "B=32 N=256 M=256"): 0.0081}
     # the rows of this tree look their parent times up by the same keys
     assert chip_smoke.parent_key("K5", "B=2048 D1=129 C=8") == \
         ("K5", "B=2048")
     assert chip_smoke.parent_key("K1", "F=32 N=256 M=256") == \
         ("K1", "F=32 N=256 M=256")
+    assert chip_smoke.parent_key("K4a", "B=1 N=13 M=7") == \
+        ("K4a", "B=1 N=13 M=7")
 
 
 def test_device_time_once_sums_each_kernels_mean():
@@ -279,3 +287,51 @@ def test_device_time_once_sums_each_kernels_mean():
     assert chip_smoke.device_us_per_call(avgs, 30) == pytest.approx(1.6)
     assert chip_smoke.device_us_per_call(avgs, 30, once=True) == \
         pytest.approx(4.0)
+
+
+def test_nms_bound_counts_the_candidate_rows():
+    # the flush's shape with every box a candidate: F N N floats read
+    # (8.4 MB, 2.5 us at 3.35 TB/s) and 6 bytes a box
+    nbytes, ops = chip_smoke.nms_bound(256, [256] * 32)
+    assert nbytes == 4 * 32 * 256 * 256 + 6 * 32 * 256
+    assert ops == 32 * 256 * 256 + 32 * 256 * 256
+    ms, by = chip_smoke.bound_ms(nbytes, ops)
+    assert by == "bytes" and ms == pytest.approx(0.0025178, abs=1e-6)
+    # only the candidates' rows are read: a frame of 3 and an empty one
+    assert chip_smoke.nms_bound(10, [3, 0]) == (4 * 10 * 3 + 6 * 10 * 2,
+                                                10 * 3 + 9)
+
+
+def test_nms_candidates_follow_the_greedy_loop():
+    # valid with a score > -1e30; a frame with a valid NaN score reads no
+    # row (the loop's first step ends it); an invalid NaN is not counted
+    nan, big = float("nan"), -1e30
+    scores = torch.tensor([[0.5, big, -float("inf"), 0.1],
+                           [0.5, nan, 0.2, 0.3],
+                           [nan, 0.4, -0.0, 0.3]])
+    valid = torch.tensor([[True, True, True, True],
+                          [True, True, True, False],
+                          [False, True, True, False]])
+    assert chip_smoke.nms_candidates(torch, scores, valid) == [2, 0, 2]
+
+
+def test_kernel_row_holds_the_contract_keys_and_its_bound():
+    # the measured numbers and the bound, nothing estimated besides it
+    row = chip_smoke._row("nms_greedy", "src/x.cu", "ref.py:1", "F=32", 0.0,
+                          (0.05, 0.011), (48.0, 6.2), None,
+                          *chip_smoke.nms_bound(256, [256] * 32))
+    assert set(row) == {"name", "route", "source", "replaces", "shape",
+                        "max_abs_err", "ms", "device_ms", "plain_ms",
+                        "plain_device_ms", "bound_ms", "bound_by",
+                        "library_ms"}
+    assert row["route"] == "cuda" and row["library_ms"] is None
+    assert (row["ms"], row["device_ms"]) == (0.05, 0.011)
+    assert row["bound_by"] == "bytes"
+    assert row["bound_ms"] == pytest.approx(0.0025178, abs=1e-6)
+
+
+def test_check_nms_launches_pairs_k4a_with_the_nms_kernel():
+    chip_smoke.check_nms_launches({"iou_matrix": 14, "nms_greedy": 14}, "x")
+    with pytest.raises(AssertionError, match="14 K4a launches but 0 NMS"):
+        chip_smoke.check_nms_launches({"iou_matrix": 14, "nms_greedy": 0},
+                                      "x")

@@ -22,9 +22,11 @@ from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import iou_filter as ik
 from repro_torch.kernels import iou_matrix as im
+from repro_torch.kernels import nms as nm
 from repro_torch.kernels import onevsall as ov
 from repro_torch.kernels import onevsall_update as ou
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref
 from repro_torch.kernels import region_filter_mask as rf
 from repro_torch.kernels import ssd_scan as sk
 from repro_torch.models import schema as sch
@@ -42,7 +44,8 @@ from repro_torch.testing import (ATTN_ATOL, DECODE_CASES, FILTER_CASES,
                                  crop_tile_cases, decode_case,
                                  filter_case, filter_corner_cases,
                                  frame_filter_case, iou_case, iou_nan_case,
-                                 onevsall_case, open_episode, rel_err,
+                                 nms_corner_cases, onevsall_case,
+                                 open_episode, rand_boxes, rel_err,
                                  replayed_instances, ssd_case, update_case)
 from repro_torch.video import synthetic
 
@@ -135,6 +138,68 @@ def test_iou_matrix_kernel_propagates_nan(cuda, b, n, m):
     torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
 
 
+NMS_CORNERS = nms_corner_cases()
+
+
+@pytest.mark.parametrize("case", sorted(NMS_CORNERS))
+def test_nms_kernel_corners(cuda, case):
+    # every corner of the greedy loop: ops.nms_mask on the card (K4a, then
+    # the NMS kernel) against the plain loop on the card, mask for mask
+    boxes, scores, valid, thr = NMS_CORNERS[case]
+    args = _t((boxes, scores, valid), cuda)
+    got = ops.nms_mask(*args, thr)
+    want = ref.nms_mask(*args, thr)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("f,n,valid_frac", [(32, 256, 0.5), (32, 256, 1.0),
+                                            (3, 600, 0.6), (2, 37, 0.9)])
+def test_nms_kernel_matches_plain(cuda, f, n, valid_frac):
+    # the flush's shape at half and full density, past SHARED_N (rows in
+    # the global workspace), N % 4 != 0
+    rng = np.random.default_rng(f + n)
+    boxes, scores, valid = _t((rand_boxes(rng, (f, n)),
+                               rng.random((f, n), dtype=np.float32),
+                               rng.random((f, n)) < valid_frac), cuda)
+    iou = im.iou_matrix(boxes, boxes)
+    got = nm.nms_greedy(iou, scores, valid)
+    want = nm.nms_greedy_ref(iou, scores, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_nms_mask_on_the_card_never_runs_the_plain_loop(cuda, monkeypatch):
+    # one ops.nms_mask call is one K4a launch and one NMS kernel launch;
+    # the eager loop is not reached on a CUDA tensor
+    def plain_loop(*args, **kw):
+        raise AssertionError("the plain greedy loop ran on a CUDA tensor")
+
+    boxes, scores, valid, thr = NMS_CORNERS["dense-256"]
+    args = _t((boxes, scores, valid), cuda)
+    want = ref.nms_mask(*args, thr)
+    monkeypatch.setattr(ref, "nms_greedy", plain_loop)
+    monkeypatch.setattr(nm, "nms_greedy_ref", plain_loop)
+    ops.reset_launch_counts()
+    got = ops.nms_mask(*args, thr)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["iou_matrix"] == counts["nms_greedy"] == 1
+    assert sum(counts.values()) == 2
+    assert torch.equal(got, want)
+
+
+def test_nms_kernel_rejects_bad_operands(cuda):
+    boxes, scores, valid = _t(NMS_CORNERS["n37"][:3], cuda)
+    iou = im.iou_matrix(boxes, boxes)
+    for args, match in [((iou, scores.double(), valid), "float32"),
+                        ((iou, scores, valid.to(torch.uint8)), "bool"),
+                        ((iou, scores.cpu(), valid), "CUDA"),
+                        ((iou[:, :5, :5], scores, valid), "expected iou")]:
+        with pytest.raises(ValueError, match=match):
+            nm.nms_greedy(*args)
+
+
 @pytest.mark.parametrize("name", ["dds", "glimpse"])
 def test_baseline_chunk_on_the_card_matches_cpu(cuda, name):
     # one full-width chunk: the card's run launches K4a (and, for DDS, K4b
@@ -157,7 +222,7 @@ def test_baseline_chunk_on_the_card_matches_cpu(cuda, name):
             with CodecTap() as rec:
                 res[dev] = system.process_chunk(params, chunk.frames)
             counts = ops.launch_counts()
-            assert counts["iou_matrix"] > 0
+            assert counts["iou_matrix"] == counts["nms_greedy"] > 0
             assert counts["region_filter_mask"] == (4 if name == "dds" else 0)
             assert counts["region_filter_mask_batch"] == 0
         else:
@@ -209,13 +274,16 @@ def test_dispatch_launches_kernels_on_the_card(cuda):
     x, dt, A, B, C, _ = ssd_case(1, 8, 2, 4, 4, init=False)
     ops.ssd_scan(*_t((x, dt, A, B, C), cuda), chunk=4)
     ops.onevsall_update(*_t(update_case(1, 8, 4), cuda), eta=UPDATE_ETA)
-    ops.iou_matrix(*_t(iou_case(2, 8, 8), cuda))
+    iou = ops.iou_matrix(*_t(iou_case(2, 8, 8), cuda))
     ops.region_filter_mask(*_t(frame_filter_case(8, 8), cuda), **FILTER_KW)
+    ops.nms_greedy(iou, torch.rand(2, 8, device=cuda),
+                   torch.ones(2, 8, dtype=torch.bool, device=cuda))
     assert ops.launch_counts() == {name: 1 for name in ops.KERNELS}
     boxes, _ = _t(iou_case(2, 8, 8), cuda)
     ops.nms_mask(boxes, torch.rand(2, 8, device=cuda),
                  torch.ones(2, 8, dtype=torch.bool, device=cuda))
-    assert ops.launch_counts()["iou_matrix"] == 2    # NMS runs K4a
+    counts = ops.launch_counts()                     # NMS runs K4a, then
+    assert counts["iou_matrix"] == counts["nms_greedy"] == 2   # its kernel
 
 
 def test_fused_flush_of_64_streams_on_the_card(cuda, monkeypatch):

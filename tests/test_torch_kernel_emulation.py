@@ -5,8 +5,9 @@ against a small emulation of the CUDA runtime written below: a block's
 threads run as fibers on one host thread, each running until it reaches
 ``__syncthreads``/``__syncwarp`` (so a thread that reads what a later
 thread writes without a barrier between them reads it too early), warp
-shuffles and votes go through a per-warp buffer, a shared ``atomicAdd`` is
-a plain add (nothing switches inside it), shared memory starts as NaNs (so
+shuffles, votes and OR reductions go through a per-warp buffer, a shared
+``atomicAdd`` or ``atomicOr`` is a plain read-modify-write (nothing
+switches inside it), shared memory starts as NaNs (so
 a read before a write shows), and each ``<<<...>>>`` launch becomes a call
 that runs the grid's blocks, several host threads at a time. The
 primitives of ``csrc/primitives.cuh`` have host versions here:
@@ -37,6 +38,7 @@ from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import iou_filter as ik
 from repro_torch.kernels import iou_matrix as im
+from repro_torch.kernels import nms as nm
 from repro_torch.kernels import onevsall as ov
 from repro_torch.kernels import onevsall_update as ou
 from repro_torch.kernels import region_filter_mask as rf
@@ -48,8 +50,9 @@ from repro_torch.testing import (ATTN_ATOL, DECODE_CASES, FILTER_KW,
                                  attention_case, crop_cases, crop_tile_cases,
                                  decode_case, filter_case,
                                  filter_corner_cases, frame_filter_case,
-                                 iou_case, iou_nan_case, onevsall_case,
-                                 rel_err, ssd_case, update_case)
+                                 iou_case, iou_nan_case, nms_corner_cases,
+                                 onevsall_case, rand_boxes, rel_err,
+                                 ssd_case, update_case)
 
 EMU_HEADER = r"""
 #pragma once
@@ -145,10 +148,16 @@ inline unsigned __ballot_sync(unsigned, int p) {
   __syncwarp();
   return r; }
 inline int __any_sync(unsigned m, int p) { return __ballot_sync(m, p) != 0; }
+inline unsigned __reduce_or_sync(unsigned, unsigned v) {
+  unsigned r = 0;
+  for (int i = 0; i < 32; ++i) r |= emu_xchg(v, i);
+  return r; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 // a block's threads share a host thread and switch only at barriers, so a
 // read-modify-write of shared memory is atomic as it stands
 inline int atomicAdd(int* a, int v) { int old = *a; *a = old + v; return old; }
+inline unsigned atomicOr(unsigned* a, unsigned v) {
+  unsigned old = *a; *a = old | v; return old; }
 inline void emu_fiber_main() {
   EmuWorker* w = emu_w; (*w->fn)(); w->cur->done = true;
   emu_swap(&w->cur->sp, w->sched_sp);
@@ -434,7 +443,7 @@ def test_region_filter_source_corners(emulated, case):
         assert torch.equal(rf.region_filter_mask(*frame, **kw), want[f])
 
 
-@pytest.mark.parametrize("b,n,m", [(2, 40, 30), (1, 13, 7)])
+@pytest.mark.parametrize("b,n,m", [(2, 40, 30), (1, 13, 7), (2, 40, 32)])
 def test_iou_matrix_source_propagates_nan(emulated, b, n, m):
     # a NaN coordinate gives a NaN IoU in every pair that holds it, as in
     # the plain version (min and max that drop a NaN gave finite values)
@@ -443,6 +452,70 @@ def test_iou_matrix_source_propagates_nan(emulated, b, n, m):
     assert torch.isnan(want).any() and not torch.isnan(want).all()
     torch.testing.assert_close(im.iou_matrix(a, c), want, rtol=0, atol=0,
                                equal_nan=True)
+
+
+@pytest.mark.parametrize("b,n,m", [(3, 130, 70), (2, 9, 131), (1, 17, 5),
+                                   (2, 20, 256)])
+def test_iou_matrix_source_ragged_tiles(emulated, b, n, m):
+    # M % 4 != 0 (every store scalar) and M % 4 == 0 (float4 stores), rows
+    # and columns that are not whole 8 x 128 tiles; a (..., N, 4) batch of
+    # two leading dimensions
+    a, c = _t(iou_case(b, n, m, seed=4))
+    assert torch.equal(im.iou_matrix(a, c), im.iou_matrix_ref(a, c))
+    a4, c4 = a.reshape(1, b, n, 4), c.reshape(1, b, m, 4)
+    assert torch.equal(im.iou_matrix(a4, c4), im.iou_matrix_ref(a4, c4))
+
+
+NMS_CORNERS = nms_corner_cases()
+
+
+def _nms_on_source(boxes, scores, valid, thr=0.45):
+    """K4a, then the NMS kernel on its matrix: ops.nms_mask's card route."""
+    return nm.nms_greedy(im.iou_matrix(boxes, boxes), scores, valid, thr)
+
+
+@pytest.mark.parametrize("case", sorted(NMS_CORNERS))
+def test_nms_source_corners(emulated, case):
+    # every corner of the greedy loop, mask for mask against the plain loop
+    boxes, scores, valid, thr = _t(NMS_CORNERS[case][:3]) + [
+        NMS_CORNERS[case][3]]
+    want = ref.nms_mask(boxes, scores, valid, thr)
+    nm.launches = im.launches = 0
+    assert torch.equal(_nms_on_source(boxes, scores, valid, thr), want)
+    assert nm.launches == im.launches == 1
+
+
+@pytest.mark.parametrize("f,n,valid_frac", [
+    (3, 256, 0.5),              # the flush's shape at half density
+    (2, 100, 1.0),              # N % 32 != 0, every box a candidate
+    (2, 600, 0.6),              # past SHARED_N: rows in the workspace
+    (1, 33, 0.9)])              # N % 4 != 0: scalar row reads
+def test_nms_source_matches_plain(emulated, f, n, valid_frac):
+    rng = np.random.default_rng(f * 1000 + n)
+    boxes = rand_boxes(rng, (f, n)) * 0.6
+    scores = rng.random((f, n), dtype=np.float32)
+    # equal scores side by side: ties go to the lower index
+    scores[:, 1::7] = scores[:, ::7][:, :len(range(1, n, 7))]
+    valid = rng.random((f, n)) < valid_frac
+    args = _t((boxes, scores, valid))
+    assert (nm.workspace_words(n) > 0) == (n > nm.SHARED_N)
+    want = ref.nms_mask(*args)
+    got = _nms_on_source(*args)
+    assert torch.equal(got, want)
+    # a (..., N) batch of two leading dimensions
+    got4 = _nms_on_source(*[a.reshape(1, *a.shape) for a in args])
+    assert torch.equal(got4[0], want)
+
+
+def test_nms_source_rejects_bad_operands(emulated):
+    boxes, scores, valid, thr = _t(NMS_CORNERS["n37"][:3]) + [0.45]
+    iou = im.iou_matrix(boxes, boxes)
+    for args, match in [((iou, scores.double(), valid), "float32"),
+                        ((iou, scores, valid.to(torch.uint8)), "bool"),
+                        ((iou[:, :, :5], scores, valid), "expected iou"),
+                        ((iou, scores[:, :5], valid), "expected iou")]:
+        with pytest.raises(ValueError, match=match):
+            nm.nms_greedy(*args, thr)
 
 
 CROP_CASES = {**crop_cases(), **crop_tile_cases()}

@@ -18,7 +18,8 @@ from repro_torch.testing import (CROP_ATOL, FILTER_CASES, FILTER_KW,
                                  IOU_CASES, ONEVSALL_ATOL, crop_cases,
                                  filter_case, filter_corner_cases,
                                  frame_filter_case, iou_case, iou_nan_case,
-                                 onevsall_case, rand_boxes)
+                                 nms_corner_cases, onevsall_case,
+                                 rand_boxes)
 
 torch.set_num_threads(1)
 
@@ -198,6 +199,9 @@ def test_cpu_tensors_launch_no_kernel():
     ops.region_filter_mask(*_t(frame_filter_case(8, 8)), **FILTER_KW)
     boxes = torch.as_tensor(rand_boxes(np.random.default_rng(0), (2, 8)))
     ops.nms_mask(boxes, torch.rand(2, 8), torch.ones(2, 8, dtype=bool))
+    ops.nms_greedy(ops.iou_matrix(boxes, boxes), torch.rand(2, 8),
+                   torch.ones(2, 8, dtype=bool))
+    assert "nms_greedy" in ops.KERNELS
     assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
 
 
@@ -230,3 +234,30 @@ def test_nms_through_dispatch_matches_jax(f, n):
     got = ops.nms_mask(*_t((boxes, scores, valid)), 0.45)
     np.testing.assert_array_equal(got.numpy(), want)
     assert torch.equal(got, tref.nms_mask(*_t((boxes, scores, valid)), 0.45))
+
+
+NMS_CORNERS = nms_corner_cases()
+
+
+@pytest.mark.parametrize("case", sorted(NMS_CORNERS))
+def test_nms_plain_corners_match_jax(case):
+    # the greedy loop's exact corners (ties, -0.0, NaN scores and
+    # coordinates, -1e30 / -inf scores, an IoU at the threshold and one ulp
+    # either side, N = 1, 37, 256): the plain loop and ops.nms_mask on the
+    # CPU against the JAX greedy loop mapped over frames
+    boxes, scores, valid, thr = NMS_CORNERS[case]
+    want = np.asarray(jax.vmap(lambda b, s, v: jops.nms_mask(
+        b, s, v, iou_threshold=thr))(*map(jnp.asarray,
+                                          (boxes, scores, valid))))
+    args = _t((boxes, scores, valid))
+    got = tref.nms_mask(*args, thr)
+    assert got.shape == valid.shape and got.dtype == torch.bool
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(ops.nms_mask(*args, thr), got)
+    if case == "iou-at-threshold":
+        # the constructed IoUs are float32(0.45) and one ulp either side
+        iou = tref.iou_matrix(args[0], args[0])[:, 0, 1]
+        t = np.float32(0.45)
+        assert iou.tolist() == [t, np.nextafter(t, np.float32(1)),
+                                np.nextafter(t, np.float32(0))]
+        assert got[:, 1].tolist() == [False, False, True]
