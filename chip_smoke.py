@@ -21,10 +21,14 @@ the LLM path (``LLMServer`` over full-width ``zamba2-7b``).  Weights are
 random from a seed.  Each path's outputs are checked against the port's
 CPU path (the kernels' plain versions) on a small input: one video chunk,
 the four baselines on 2 chunks x 4 frames of each content type, a
-2-stream learning run, and ``zamba2-7b`` cut to 9 layers.  Any failed
-check raises; nothing is caught.  The last three lines are the card's name
-and power limit, one JSON object describing the kernels, and
-``{"ok": true, "device": {...}}``.
+2-stream learning run, and ``zamba2-7b`` cut to 9 layers.  Then it trains
+the three video models at full width (``repro_torch.training``; no CUDA
+kernel of the port runs there), holds three training steps on the card
+against the CPU and against a second card run, and drives the video path,
+the five policies and the learning plane once more on the trained
+weights.  Any failed check raises; nothing is caught.  The last three
+lines are the card's name and power limit, one JSON object describing
+the kernels, and ``{"ok": true, "device": {...}}``.
 
 ``--parent DIR`` names another checkout (the parent commit unpacked with
 ``git archive``): its K2, K5, K1, K4b and K4a phases then run in a
@@ -1035,21 +1039,22 @@ def make_streams(np, n_streams, n_chunks, n_frames):
              for _ in range(n_chunks)] for i in range(n_streams)]
 
 
-def run_path(torch, np, hot_path, params, streams):
+def run_path(torch, np, hot_path, params, streams, device="cuda"):
     from repro_torch.configs.vpaas_video import CLASSIFIER, DETECTOR
     from repro_torch.core.coordinator import MultiStreamCoordinator
     from repro_torch.core.protocol import HighLowProtocol
     from repro_torch.kernels import ops
     det_params, clf_params = params
     multi = MultiStreamCoordinator(
-        HighLowProtocol(DETECTOR, CLASSIFIER, device="cuda"), det_params,
+        HighLowProtocol(DETECTOR, CLASSIFIER, device=device), det_params,
         clf_params, streams, max_batch_chunks=len(streams),
-        batch_window=0.05, hot_path=hot_path, device="cuda")
-    torch.cuda.synchronize()
+        batch_window=0.05, hot_path=hot_path, device=device)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     out = multi.run(learn=False)
-    torch.cuda.synchronize()
+    sync()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     # materialize every result array (off the clock)
@@ -1252,12 +1257,16 @@ def run_policy(torch, name, system, params, chunks):
     return results, ops.launch_counts(), time.perf_counter() - t0
 
 
-def phase_baselines_main_path(torch, np, card):
+def phase_baselines_main_path(torch, np, card, params=None):
+    """The five policies on BASE_CHUNKS x BASE_FRAMES of each content type;
+    ``params`` are trained (detector, classifier) weights, or None for the
+    random ones.  Returns the launch counts per policy."""
     from repro_torch.configs.vpaas_video import CLASSIFIER, DETECTOR
     from repro_torch.core.protocol import detections_for_metrics
     from repro_torch.serving.policies import default_policies
     from repro_torch.video.metrics import F1Accumulator
-    params = video_params(torch, "cuda")
+    trained = params is not None
+    params = params if trained else video_params(torch, "cuda")
     pm = default_policies()
     systems = {name: pm.build(name, DETECTOR, CLASSIFIER, device="cuda")
                for name in POLICIES}
@@ -1268,8 +1277,11 @@ def phase_baselines_main_path(torch, np, card):
     totals = {name: {} for name in POLICIES}
     print(f"baselines main path: {BASE_CHUNKS} chunks x {BASE_FRAMES} frames"
           f" of each content type, full vpaas_video width, the five "
-          f"policies of default_policies(); F1 against the synthetic ground "
-          f"truth is meaningless with random weights [{card}]")
+          f"policies of default_policies(); "
+          + ("trained weights (F1 against the synthetic ground truth: "
+             "Fig. 9's accuracy axis)" if trained else
+             "F1 against the synthetic ground truth is meaningless with "
+             "random weights") + f" [{card}]")
     for content, chunks in data.items():
         mpeg_bytes = None
         for name in POLICIES:
@@ -1440,12 +1452,14 @@ class RoundTimer:
         return False
 
 
-def run_learning(torch, device, params, streams, cfg, *, inline=False):
-    """One forced-adapt run of the continual-learning plane (or, with
-    ``inline``, of per-stream IncrementalLearners and no plane) on
-    ``device``; launch counts zeroed just before the run, read just after
-    (K5's replays and steps beside them, as ``onevsall_replay`` and
-    ``onevsall_steps``)."""
+def run_learning(torch, device, params, streams, cfg, *, inline=False,
+                 forced=True):
+    """One run of the continual-learning plane with cam0's episode opened
+    by hand (or, with ``inline``, of per-stream IncrementalLearners and no
+    plane) on ``device``; launch counts zeroed just before the run, read
+    just after (K5's replays and steps beside them, as ``onevsall_replay``
+    and ``onevsall_steps``).  ``forced=False`` leaves the episodes to the
+    drift detector, as ``serve`` does."""
     from repro_torch.configs.vpaas_video import CLASSIFIER, DETECTOR
     from repro_torch.core.coordinator import (MultiStreamCoordinator,
                                               StreamSpec)
@@ -1473,7 +1487,7 @@ def run_learning(torch, device, params, streams, cfg, *, inline=False):
         HighLowProtocol(DETECTOR, CLASSIFIER, device=device), *params,
         streams, max_batch_chunks=len(streams), batch_window=0.05,
         learning_plane=plane, device=device)
-    if plane is not None:
+    if plane is not None and forced:
         open_episode(plane, multi.scheduler, "cam0")
     W0 = {name: st.W.copy() for name, st in multi.scheduler.streams.items()}
     if device == "cuda":
@@ -1623,6 +1637,314 @@ def phase_learning_reference(torch, np, card):
           f"K5 on the card {k5['onevsall_update']} launches, "
           f"{k5['onevsall_steps']} steps; cam0's W within {err:.2e} of its "
           f"scale (tolerance {LEARN_RTOL}) [{card}]")
+
+
+# ---------------------------------------------------------------------------
+# video-model training at full width (repro_torch.training), then the video
+# path, the five policies and the learning plane on the trained weights
+# ---------------------------------------------------------------------------
+TRAIN_SEED = 5
+# tests/test_system.py's module fixture: (model, config, steps, batch size,
+# degrade; None for the classifier, whose loop takes no such argument)
+TRAIN_RUNS = (("detector", "DETECTOR", 200, 16, True),
+              ("classifier", "CLASSIFIER", 200, 64, None),
+              ("fallback", "FALLBACK_DETECTOR", 80, 8, False))
+TRAIN_PROFILE_STEPS = 4
+TRAIN_REF_STEPS = 3
+TRAINED_DIR = os.path.join(ROOT, "build", "trained")
+
+
+def step_split(wall_s: float, host_s, device_ms) -> dict:
+    """Milliseconds per step of a training run: its wall, the host's batch
+    generation (``host_s``, one per step), the device step from its start
+    to the end of its last kernel (CUDA events, ``device_ms``), and the rest
+    (the batch's copy to the card, the codec on degraded batches, the
+    loop); and the host generation's share of the wall."""
+    n = len(device_ms)
+    if n == 0 or len(host_s) != n:
+        raise AssertionError(f"{len(host_s)} batches for {n} steps")
+    wall, host = wall_s * 1e3 / n, sum(host_s) * 1e3 / n
+    dev = sum(device_ms) / n
+    return {"steps": n, "wall_ms": wall, "host_ms": host, "device_ms": dev,
+            "other_ms": wall - host - dev, "host_share": host / wall}
+
+
+class StepSplit:
+    """Time each training step's parts: the host clock around each batch
+    the loops draw from ``training.data`` and CUDA events around each call
+    of ``train_loop.detector_step`` / ``classifier_step`` (both looked up by
+    the loops at call time, so wrapping the module attributes reaches
+    them)."""
+
+    def __init__(self, torch):
+        from repro_torch.training import data, train_loop
+        self.torch, self.host_s, self.events = torch, [], []
+        self.targets = [(data, "detector_batches"),
+                        (data, "classifier_batches"),
+                        (train_loop, "detector_step"),
+                        (train_loop, "classifier_step")]
+
+    def __enter__(self):
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.targets]
+        for mod, name, fn in self.saved:
+            wrap = self._batches if name.endswith("batches") else self._step
+            setattr(mod, name, wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+    def _batches(self, fn):
+        def batches(*args, **kw):
+            it = fn(*args, **kw)
+            while True:
+                t0 = time.perf_counter()
+                batch = next(it)
+                self.host_s.append(time.perf_counter() - t0)
+                yield batch
+        return batches
+
+    def _step(self, fn):
+        torch = self.torch
+
+        def step(*args, **kw):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self.events.append((start, end))
+            return out
+        return step
+
+    def device_ms(self):
+        self.torch.cuda.synchronize()
+        return [start.elapsed_time(end) for start, end in self.events]
+
+
+def phase_training(torch, np, card):
+    """The three video models trained on the card at full width with
+    tests/test_system.py's step counts, through ``train_detector`` /
+    ``train_classifier``: the loss must fall; the weights go through
+    ``checkpoint.save`` / ``restore`` under ``build/trained`` bit for bit.
+    Returns the restored weights by model."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import weights
+    from repro_torch.configs import vpaas_video
+    from repro_torch.training import checkpoint, train_loop
+    trained = {}
+    for name, cfg_name, steps, batch, degrade in TRAIN_RUNS:
+        cfg = getattr(vpaas_video, cfg_name)
+        kw = dict(batch_size=batch, seed=TRAIN_SEED, device="cuda")
+        if degrade is None:
+            train = train_loop.train_classifier
+        else:
+            train, kw["degrade"] = train_loop.train_detector, degrade
+        # warm-up: cuDNN's algorithm choice at these shapes, the allocator
+        train(cfg, steps=2, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with StepSplit(torch) as split:
+            t0 = time.perf_counter()
+            params, hist = train(cfg, steps=steps, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            parts = step_split(wall, split.host_s, split.device_ms())
+        peak = torch.cuda.max_memory_allocated()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            train(cfg, steps=TRAIN_PROFILE_STEPS, **kw)
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t0
+        avgs = prof.key_averages()
+        busy_ms = sum(_self_device_us(e) for e in avgs) / 1e3
+        kernels = sum(e.count for e in avgs if _self_device_us(e) > 0)
+        first, last = hist[0]["loss"], hist[-1]["loss"]
+        print(f"training {name} ({cfg.name}, full width): {steps} steps at "
+              f"batch {batch}, seed {TRAIN_SEED}"
+              + ("" if degrade is None else f", degrade={degrade}")
+              + f": {wall:.3f} s wall, {parts['wall_ms']:.2f} ms a step = "
+              f"host batch {parts['host_ms']:.2f} ({parts['host_share']:.1%})"
+              f" + device step {parts['device_ms']:.3f} (CUDA events) + "
+              f"other {parts['other_ms']:.2f}; loss {first:.4f} -> "
+              f"{last:.4f}; peak {peak / 2**20:.1f} MiB; under the profiler "
+              f"{TRAIN_PROFILE_STEPS} steps {pwall * 1e3:.1f} ms wall, device "
+              f"busy {busy_ms:.2f} ms ({busy_ms / (pwall * 1e3):.2%}) in "
+              f"{kernels / TRAIN_PROFILE_STEPS:.0f} device kernels/copies a "
+              f"step [{card}]")
+        if not (np.isfinite(last) and last < first):
+            raise AssertionError(f"{name}: loss did not fall: {hist}")
+        path = os.path.join(TRAINED_DIR, name)
+        checkpoint.save(path, params, {"steps": steps, "seed": TRAIN_SEED})
+        back = checkpoint.restore(path, params)
+        want, got = weights._flatten(params), weights._flatten(back)
+        if want.keys() != got.keys() or not all(
+                np.array_equal(got[k], want[k]) for k in want):
+            raise AssertionError(f"{name}: checkpoint round trip not "
+                                 "bit-equal")
+        trained[name] = back
+    print(f"trained weights saved and restored bit-equal under "
+          f"{os.path.relpath(TRAINED_DIR, ROOT)} [{card}]")
+    return trained
+
+
+def phase_training_reference(torch, np, card):
+    """TRAIN_REF_STEPS steps of each model's step function at full width
+    from the same initial weights and batches on the card (twice) and on
+    the port's CPU path: card runs bit-identical, card vs CPU within
+    TRAIN_RTOL (``testing.assert_train_runs_match``)."""
+    from repro_torch.testing import (TRAIN_RTOL, assert_train_runs_match,
+                                     train_run, train_runs_identical)
+    for name in ("detector", "fallback", "classifier"):
+        runs = [train_run(name, d, TRAIN_REF_STEPS, TRAIN_SEED)
+                for d in ("cuda", "cuda", "cpu")]
+        if not train_runs_identical(runs[0], runs[1]):
+            raise AssertionError(f"{name}: two card runs differ")
+        err = assert_train_runs_match(runs[0], runs[2], name)
+        print(f"training card vs CPU reference, {name} at full width, "
+              f"{TRAIN_REF_STEPS} steps: card runs bit-identical; losses "
+              f"within {err['loss']:.2e}, first gradients within "
+              f"{err['grads']:.2e}, parameters within {err['params']:.2e} "
+              f"of their scale (TRAIN_RTOL {TRAIN_RTOL}; losses "
+              + ", ".join(f"{x:.4f}" for x in runs[0][2]) + f") [{card}]")
+
+
+def detector_tie_frames(torch, np, params, chunk, device):
+    """(F,) frames of one chunk at whose re-encoded frames the detector has
+    a location or class score within THRESHOLD_TIE of the protocol's
+    thresholds: a tie there may move the split, and NMS after it, between
+    two devices."""
+    from repro_torch.configs.vpaas_video import DETECTOR
+    from repro_torch.core import protocol as pm
+    from repro_torch.models.detector import detect
+    from repro_torch.testing import THRESHOLD_TIE
+    pcfg = pm.ProtocolConfig()
+    enc = pm.encode_low(pcfg, torch.as_tensor(chunk.frames, device=device))
+    det = detect(DETECTOR, params, enc.frames)
+    loc = det["loc_scores"].cpu().numpy()
+    conf = det["cls_probs"].amax(-1).cpu().numpy()
+    return ((np.abs(loc - pcfg.theta_loc) <= THRESHOLD_TIE)
+            | (np.abs(conf - pcfg.theta_cls) <= THRESHOLD_TIE)).any(-1)
+
+
+def phase_trained_video(torch, np, card, trained, random_f1):
+    """The fused video path (8 streams x 4 chunks x 4 frames of traffic) on
+    the trained weights: F1 per stream and the accepted and candidate
+    regions per frame; F1 above the random weights' run; the same run on
+    the port's CPU path (fed the card's decoded frames through
+    ``testing.CodecTap``) equal away from ties: whole frames where the
+    detector ties a threshold, and the fog decisions compare_results
+    exempts."""
+    import types
+
+    from repro_torch.testing import CodecTap
+    n_streams, n_chunks, n_frames = 8, 4, 4
+    streams = make_streams(np, n_streams, n_chunks, n_frames)
+    from repro_torch.training.optimizer import tree_map
+    params = {"cuda": (trained["detector"], trained["classifier"])}
+    params["cpu"] = tuple(tree_map(lambda t: t.cpu(), p)
+                          for p in params["cuda"])
+    with CodecTap() as rec:
+        multi, out, results, counts, wall = run_path(
+            torch, np, "fused", params["cuda"], streams)
+    for name in VIDEO_KERNELS:
+        if counts[name] == 0:
+            raise AssertionError(f"trained fused path launched no {name}")
+    check_nms_launches(counts, "trained fused path")
+    with CodecTap(lambda kind, f, r, q, i: rec.frames[i]) as tap:
+        _, out_cpu, results_cpu, _, wall_cpu = run_path(
+            torch, np, "fused", params["cpu"], streams, device="cpu")
+    flips = tap.tie_flips()
+    acc, cand, tie_frames, fog_ties, f1_notes = [], [], 0, 0, []
+    for i, (name, res) in enumerate(results.items()):
+        stream_ties = 0
+        for j, (a, b) in enumerate(zip(res, results_cpu[name])):
+            acc += list((a.valid & (a.source == 0)).sum(-1))
+            cand += list(a.prop_valid.sum(-1))
+            keep = ~detector_tie_frames(torch, np, params["cuda"][0],
+                                        streams[i][j], "cuda")
+            tie_frames += int((~keep).sum())
+            stream_ties += int((~keep).sum())
+            cut = lambda r: types.SimpleNamespace(**{               # noqa
+                k: getattr(r, k)[keep] for k in (
+                    "boxes", "labels", "valid", "source", "fog_features",
+                    "prop_valid", "fog_scores")})
+            n = compare_results(np, cut(a), cut(b),
+                                f"trained card vs CPU {name}[{j}]", 1e-4)
+            fog_ties += n
+            stream_ties += n
+        if out[name].f1 != out_cpu[name].f1:
+            if not stream_ties:
+                raise AssertionError(f"{name}: trained F1 differs card vs "
+                                     "CPU away from ties")
+            f1_notes.append(name)
+    f1 = {name: out[name].f1["f1"] for name in out}
+    mean_f1 = float(np.mean(list(f1.values())))
+    mean_random = float(np.mean(list(random_f1.values())))
+    print(f"trained fused path: {n_streams} streams x {n_chunks} chunks x "
+          f"{n_frames} frames of traffic, {wall:.3f} s wall (CPU "
+          f"{wall_cpu:.3f} s); F1 per stream "
+          + ", ".join(f"{k} {v:.3f}" for k, v in f1.items())
+          + f" (mean {mean_f1:.3f}; random weights {mean_random:.3f}); "
+          f"accepted per frame {np.mean(acc):.2f} (min {min(acc)}, max "
+          f"{max(acc)}), candidates per frame {np.mean(cand):.2f} (min "
+          f"{min(cand)}, max {max(cand)}); launches "
+          f"{ {k: v for k, v in counts.items() if v} } [{card}]")
+    print(f"trained fused path card vs CPU: F1 equal in "
+          f"{len(f1) - len(f1_notes)} of {len(f1)} streams"
+          + (f" (differs at ties in {', '.join(f1_notes)})" if f1_notes
+             else "") + f"; results equal away from {tie_frames} detector "
+          f"tie frame(s) and {fog_ties} fog tie(s); {flips} codec call(s) "
+          f"with a half-step tie [{card}]")
+    if not mean_f1 > mean_random:
+        raise AssertionError(f"trained F1 {mean_f1:.3f} not above the "
+                             f"random weights' {mean_random:.3f}")
+    return f1
+
+
+def phase_trained_learning(torch, np, card, trained):
+    """The learning plane as ``serve --learning --per-site-learning
+    --ensemble-serving`` runs it on the trained weights (8 streams x 8
+    chunks x 4 frames; camera 0 drifts in its second half; no episode
+    opened by hand, the drift detector at serve's warm-up)."""
+    import argparse
+
+    from repro_torch.launch import serve
+    args = argparse.Namespace(
+        video_streams=8, video_chunks=8, video_frames=4, learning=True,
+        per_site_learning=True, ensemble_serving=True, label_budget=256,
+        drift_window=8)
+    cfg = serve.learning_config(args)
+    plane, multi, counts, wall, _, rounds = run_learning(
+        torch, "cuda", (trained["detector"], trained["classifier"]),
+        serve.drifted_streams(args), cfg, forced=False)
+    s = plane.summary()
+    n_rounds = sum(site["trainer"]["rounds"] for site in s["sites"].values())
+    print(f"trained learning plane ({args.video_streams} streams x "
+          f"{args.video_chunks} chunks x {args.video_frames} frames, cam0 "
+          f"drifts from chunk {args.video_chunks // 2}): {wall:.3f} s wall; "
+          f"{s['drift_events']} drift event(s), labels charged "
+          f"{s['labels_charged']} of {cfg.label_budget}, {n_rounds} "
+          f"training round(s), {s['promotions']} promotion(s), "
+          f"{s['ensemble_promotions']} ensemble promotion(s), "
+          f"{s['rollbacks']} rollback(s), {s['hot_swaps']} hot swap(s); K5 "
+          f"{counts['onevsall_update']} launches, {counts['onevsall_steps']}"
+          f" steps [{card}]")
+    serve.print_learning_summary(s)
+    if s["labels_charged"] > cfg.label_budget:
+        raise AssertionError("labels charged over the budget")
+    if counts["onevsall_update"] != n_rounds:
+        raise AssertionError(f"K5 launched {counts['onevsall_update']} "
+                             f"times for {n_rounds} rounds")
+    for name in VIDEO_KERNELS:
+        if counts[name] == 0:
+            raise AssertionError(f"trained learning run launched no {name}")
+    check_nms_launches(counts, "trained learning run")
+    return s
 
 
 # ---------------------------------------------------------------------------
@@ -2214,7 +2536,8 @@ def main() -> int:
                 phase_ssd_scan(torch, np, card)]
     nms_row = phase_nms(torch, np, card)
     phase_reference(torch, np, card)
-    fused_counts, sync_counts, _, served = phase_main_path(torch, np, card)
+    fused_counts, sync_counts, runs, served = phase_main_path(torch, np, card)
+    random_f1 = {name: out.f1["f1"] for name, out in runs["fused"][1].items()}
     phase_region_filter_served(torch, card, served[0], filter_row)
     phase_nms_served(torch, card, served[1], nms_row)
     for row in video_rows + [iou_row, nms_row]:
@@ -2236,6 +2559,13 @@ def main() -> int:
     iou_row["launches_learning"] = learn_counts["iou_matrix"]
     nms_row["launches_learning"] = learn_counts["nms_greedy"]
     filter_row["launches_learning"] = learn_counts["region_filter_mask_batch"]
+    phase_training_reference(torch, np, card)
+    trained = phase_training(torch, np, card)
+    phase_trained_video(torch, np, card, trained, random_f1)
+    phase_baselines_main_path(torch, np, card,
+                              (trained["detector"], trained["classifier"]))
+    phase_trained_learning(torch, np, card, trained)
+    del trained
     phase_llm_reference(torch, np, card)
     llm_counts = phase_llm_main_path(torch, np, card)
     for row in llm_rows:

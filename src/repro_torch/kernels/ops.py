@@ -4,6 +4,8 @@ There is no ``impl`` knob: a wrapper launches the hand-written CUDA kernel
 for a CUDA tensor and computes the plain PyTorch version only for a tensor
 that lies on the CPU.  No path runs the plain version on a CUDA tensor, and
 nothing falls back when a kernel fails to build or launch -- it raises.
+The kernels are forward only: a CUDA operand that requires grad raises
+while grad mode is on.
 
 Each kernel module keeps a plain-integer launch count (``launches``), bumped
 where the kernel is launched and nowhere else; :func:`launch_counts` and
@@ -48,8 +50,19 @@ def reset_launch_counts() -> None:
     _ou.replays = _ou.steps = 0
 
 
-def _on_card(t: torch.Tensor) -> bool:
+def _on_card(t: torch.Tensor, *operands) -> bool:
+    """True for a CUDA ``t``.  The kernels are forward only, like the
+    reference's ``pallas_call``, which has no differentiation rule: a CUDA
+    operand that requires grad while grad mode is on raises instead of
+    silently returning a result with no graph."""
     if t.is_cuda:
+        if torch.is_grad_enabled() and any(
+                x.requires_grad for x in (t, *operands)
+                if isinstance(x, torch.Tensor)):
+            raise RuntimeError(
+                "the port's CUDA kernels are forward only and cannot be "
+                "differentiated; call them under torch.no_grad() or on "
+                "tensors that do not require grad")
         return True
     if t.device.type != "cpu":
         raise ValueError(f"no kernel for device {t.device}")
@@ -63,7 +76,7 @@ def region_filter_mask_batch(proposals, prop_valid, accepted, acc_valid,
     """Whole-flush §IV.B filter over a (F, N) region grid (K1)."""
     kw = dict(theta_loc=theta_loc, theta_iou=theta_iou,
               theta_back=theta_back, frame_area=frame_area)
-    if _on_card(proposals):
+    if _on_card(proposals, accepted, loc_scores):
         return _ik.region_filter_mask_batch(proposals, prop_valid, accepted,
                                             acc_valid, loc_scores, **kw)
     return _ik.region_filter_mask_batch_ref(proposals, prop_valid, accepted,
@@ -72,7 +85,7 @@ def region_filter_mask_batch(proposals, prop_valid, accepted, acc_valid,
 
 def iou_matrix(boxes_a, boxes_b) -> torch.Tensor:
     """Pairwise IoU (K4a): (..., N, 4) x (..., M, 4) -> (..., N, M)."""
-    if _on_card(boxes_a):
+    if _on_card(boxes_a, boxes_b):
         return _im.iou_matrix(boxes_a, boxes_b)
     return _im.iou_matrix_ref(boxes_a, boxes_b)
 
@@ -81,7 +94,7 @@ def nms_greedy(iou, scores, valid, iou_threshold: float = 0.45
                ) -> torch.Tensor:
     """The greedy loop of NMS over a given IoU matrix: (..., N, N),
     (..., N), (..., N) -> (..., N) keep."""
-    if _on_card(iou):
+    if _on_card(iou, scores):
         return _nms.nms_greedy(iou, scores, valid, iou_threshold)
     return _nms.nms_greedy_ref(iou, scores, valid, iou_threshold)
 
@@ -100,7 +113,7 @@ def region_filter_mask(proposals, prop_valid, accepted, acc_valid,
     """Single-frame §IV.B filter (K4b): (N, 4) vs (M, 4) -> (N,) bool."""
     kw = dict(theta_loc=theta_loc, theta_iou=theta_iou,
               theta_back=theta_back, frame_area=frame_area)
-    if _on_card(proposals):
+    if _on_card(proposals, accepted, loc_scores):
         return _rf.region_filter_mask(proposals, prop_valid, accepted,
                                       acc_valid, loc_scores, **kw)
     return _rf.region_filter_mask_ref(proposals, prop_valid, accepted,
@@ -111,7 +124,7 @@ def crop_gather(frames, boxes, idxs, *,
                 out_hw: Tuple[int, int]) -> torch.Tensor:
     """Compacted crop gather (K2): (F,H,W,C) x (F,N,4) x (>=2,B) ->
     (B,oh,ow,C)."""
-    if _on_card(frames):
+    if _on_card(frames, boxes):
         return _cg.crop_gather(frames, boxes, idxs, out_hw=out_hw)
     return _cg.crop_gather_ref(frames, boxes, idxs, out_hw=out_hw)
 
@@ -119,14 +132,14 @@ def crop_gather(frames, boxes, idxs, *,
 def onevsall_scores(x, ws, widx: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """One-vs-all readout (K3): sigmoid(x @ ws[widx]) per row."""
-    if _on_card(x):
+    if _on_card(x, ws):
         return _ov.onevsall_scores(x, ws, widx)
     return _ov.onevsall_scores_ref(x, ws, widx)
 
 
 def onevsall_update(x, y, w, *, eta: float) -> torch.Tensor:
     """Fused proximal step (K5): w - eta * x^T (sigmoid(x w) - y)."""
-    if _on_card(x):
+    if _on_card(x, y, w):
         return _ou.onevsall_update(x, y, w, eta=eta)
     return _ou.onevsall_update_ref(x, y, w, eta=eta)
 
@@ -136,7 +149,7 @@ def onevsall_replay(xs, ys, w, *, eta: float, passes: int = 1
     """``passes`` passes of one-row proximal steps over xs / ys in order
     (K5): one launch on the card; on the CPU the loop of one-row
     :func:`onevsall_update` calls it equals bit for bit."""
-    if _on_card(xs):
+    if _on_card(xs, ys, w):
         return _ou.onevsall_replay(xs, ys, w, eta=eta, passes=passes)
     for _ in range(passes):
         for i in range(xs.shape[0]):
@@ -151,7 +164,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """GQA prefill attention (K6); ``q_offset`` an int, 0-d or (b,)."""
     kw = dict(causal=causal, window=window, softcap=softcap,
               q_offset=q_offset)
-    if _on_card(q):
+    if _on_card(q, k, v):
         return _fa.flash_attention(q, k, v, **kw)
     return _fa.flash_attention_ref(q, k, v, **kw)
 
@@ -161,7 +174,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
                      softcap: Optional[float] = None) -> torch.Tensor:
     """One token against the cache (K7); ``cache_len`` scalar or (b,)."""
     kw = dict(window=window, softcap=softcap)
-    if _on_card(q):
+    if _on_card(q, k_cache, v_cache):
         return _da.decode_attention(q, k_cache, v_cache, cache_len, **kw)
     return _da.decode_attention_ref(q, k_cache, v_cache, cache_len, **kw)
 
@@ -169,7 +182,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 64, initial_state=None):
     """Mamba2 SSD chunked scan (K8) -> (y, final_state)."""
     kw = dict(chunk=chunk, initial_state=initial_state)
-    if _on_card(x):
+    if _on_card(x, dt, A, B, C, initial_state):
         return _sk.ssd_scan(x, dt, A, B, C, **kw)
     return _sk.ssd_scan_ref(x, dt, A, B, C, **kw)
 

@@ -131,19 +131,21 @@ def serve_video(args) -> None:
         CLASSIFIER, torch.Generator().manual_seed(1), device)
     if args.learning:
         # drift detection watches oracle-verified accuracy, so it needs a
-        # *trained* classifier; reuse the benchmark artifacts when present
-        art = os.path.join(os.path.dirname(__file__), "..", "..", "..",
-                           "artifacts")
-        det_path = os.path.join(art, "det_params.npz")
-        clf_path = os.path.join(art, "clf_params.npz")
+        # *trained* classifier; use the trained models under artifacts/
+        from repro_torch.training.train_loop import ARTIFACTS
+        det_path = os.path.join(ARTIFACTS, "det_params.npz")
+        clf_path = os.path.join(ARTIFACTS, "clf_params.npz")
         if os.path.exists(det_path) and os.path.exists(clf_path):
             det_params = weights.load_npz(det_path, device)
             clf_params = weights.load_npz(clf_path, device)
         else:
             print("note: no trained artifacts/ found — with random-init "
                   "weights the drift statistic carries no signal, so the "
-                  "plane will stay in monitor state (run benchmarks first "
-                  "to train, or see benchmarks/bench_drift_recovery.py)")
+                  "plane will stay in monitor state (train them into "
+                  "artifacts/ with repro_torch.training.train_loop"
+                  ".load_or_train(), e.g. PYTHONPATH=src python -c 'from "
+                  "repro_torch.training.train_loop import load_or_train; "
+                  "load_or_train()')")
         streams = drifted_streams(args)
     else:
         streams = [[synthetic.make_chunk(np.random.default_rng(50 + i),

@@ -10,13 +10,17 @@ Every readout runs through the one-vs-all kernel
 (:func:`repro_torch.kernels.ops.onevsall_scores`): a single W, the per-crop
 stacked readouts of the compacted path, and the snapshot lineages of the
 Eq. 9 ensembles.  Crops are NHWC at this interface; parameters are the
-port's (conv weights OIHW).  The training loss waits for the training slice.
+port's (conv weights OIHW).  :func:`classifier_loss`, the backbone's
+pre-training loss, is the one readout that does not go through the kernel:
+the kernel is forward only, and the reference takes this product outside
+Pallas too.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.vpaas_video import ClassifierConfig
 from repro_torch.kernels import ops
@@ -105,6 +109,21 @@ def classify_ensemble_multi(cfg: ClassifierConfig, params,
     z = _lineage_scores(x, snaps.reshape(g * t, *snaps.shape[2:]), sidx)
     scores = torch.einsum("bt,btc->bc", omegas[widx], z)
     return {"features": x, "scores": scores}
+
+
+def classifier_loss(cfg: ClassifierConfig, params, crops: torch.Tensor,
+                    labels: torch.Tensor
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-vs-all BCE over all binary heads (backbone pre-training)."""
+    x = features(cfg, params, crops)
+    logits = x @ params["W"]
+    onehot = F.one_hot(labels.to(torch.int64), cfg.num_classes).to(x.dtype)
+    # torch.maximum splits the gradient at a tie, as jnp.maximum does
+    loss = torch.mean(torch.maximum(logits, torch.zeros_like(logits))
+                      - logits * onehot
+                      + torch.log1p(torch.exp(-torch.abs(logits))))
+    acc = torch.mean((logits.argmax(dim=-1) == labels).to(torch.float32))
+    return loss, {"acc": acc}
 
 
 def param_shapes(cfg: ClassifierConfig) -> Dict[str, Tuple[int, ...]]:

@@ -10,8 +10,8 @@ the High-Low protocol exploits:
 
 Public tensors keep the JAX package's layouts: images (b, H, W, 3) NHWC,
 boxes (b, N, 4) with the N = gh * gw cells in row-major order.  Parameters
-are the port's (see :mod:`repro_torch.weights`): conv weights OIHW.  The
-training loss waits for the training slice.
+are the port's (see :mod:`repro_torch.weights`): conv weights OIHW.
+:func:`detector_loss` is the YOLO-style training loss.
 """
 from __future__ import annotations
 
@@ -84,6 +84,68 @@ def detect(
         "cls_logits": cls_logits,
         "cls_probs": torch.softmax(cls_logits, dim=-1),
     }
+
+
+# ---------------------------------------------------------------------------
+# Training loss (per-cell assignment, YOLO-style)
+# ---------------------------------------------------------------------------
+def cell_targets(cfg: DetectorConfig, n: int, gt_boxes: torch.Tensor,
+                 gt_labels: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-cell objectness, box and label targets (b, n), (b, n, 4), (b, n)
+    from the gts whose centre falls in each cell; padding (label -1) is
+    dropped.
+
+    Where several gts share a cell the last one wins, as the reference's
+    ``.at[...].set`` scatter resolves duplicates on XLA's CPU backend:
+    the winner is picked explicitly (the highest valid gt index per cell),
+    because ``index_put_`` with duplicate indices is undefined and on CUDA
+    nondeterministic."""
+    gh, gw = cfg.grid_hw
+    b, m = gt_labels.shape
+    valid = gt_labels >= 0
+    cx = (gt_boxes[..., 0] + gt_boxes[..., 2]) / 2
+    cy = (gt_boxes[..., 1] + gt_boxes[..., 3]) / 2
+    cell = ((cy * gh).to(torch.int64).clamp(0, gh - 1) * gw
+            + (cx * gw).to(torch.int64).clamp(0, gw - 1))
+    cell = torch.where(valid, cell, n)              # padding -> column n
+    idx = torch.arange(m, device=cell.device).expand(b, m)
+    winner = torch.full((b, n + 1), -1, dtype=torch.int64,
+                        device=cell.device)
+    winner = winner.scatter_reduce(1, cell, idx, "amax")[:, :n]
+    hit = winner >= 0
+    src = winner.clamp_min(0)
+    box_t = torch.where(hit[..., None], torch.gather(
+        gt_boxes, 1, src[..., None].expand(b, n, 4)), 0.0)
+    lab_t = torch.where(hit, torch.gather(
+        gt_labels.to(torch.int64), 1, src), 0)
+    return hit.to(gt_boxes.dtype), box_t, lab_t
+
+
+def detector_loss(
+    cfg: DetectorConfig,
+    params,
+    images: torch.Tensor,          # (b, H, W, 3)
+    gt_boxes: torch.Tensor,        # (b, M, 4) xyxy in [0,1]
+    gt_labels: torch.Tensor,       # (b, M) int, -1 = padding
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    out = detect(cfg, params, images)
+    obj_t, box_t, lab_t = cell_targets(cfg, out["loc_scores"].shape[1],
+                                       gt_boxes, gt_labels)
+    n_pos = torch.clamp(obj_t.sum(), min=1.0)
+    obj = out["loc_scores"]
+    # balanced BCE: positives are ~4% of cells; normalize each class
+    # separately so objectness does not collapse toward zero
+    pos_ce = -obj_t * torch.log(obj + 1e-8)
+    neg_ce = -(1 - obj_t) * torch.log(1 - obj + 1e-8)
+    l_obj = (pos_ce.sum() / n_pos
+             + neg_ce.sum() / torch.clamp((1 - obj_t).sum(), min=1.0))
+    l_box = (obj_t[..., None] * (out["boxes"] - box_t) ** 2).sum() / n_pos
+    logp = torch.log_softmax(out["cls_logits"], dim=-1)
+    l_cls = -(obj_t * torch.take_along_dim(
+        logp, lab_t[..., None], dim=-1)[..., 0]).sum() / n_pos
+    total = l_obj + 5.0 * l_box + l_cls
+    return total, {"obj": l_obj, "box": l_box, "cls": l_cls}
 
 
 def param_shapes(cfg: DetectorConfig) -> Dict[str, Dict[str, Tuple[int, ...]]]:

@@ -72,6 +72,21 @@ SSD_RTOL = 1e-4
 LLM_RTOL = 1e-3
 # simulated latencies and byte counts derived from the codec's bytes
 LATENCY_RTOL = 1e-4
+# video-model training (losses, gradients, parameters after a few steps),
+# as a fraction of each tensor's scale (leaf_rel_err): a weight gradient
+# sums over the batch and every position (up to 16 x 64 x 64 terms) in
+# another order than XLA's or cuDNN's.  Measured on the CPU against the JAX
+# package (tests/test_torch_training.py): losses 1.6e-7 apart, gradients
+# 1.7e-6 of their leaf's scale, parameters after 3 steps 6e-8; on an H100
+# against the CPU at full width (chip_smoke.py, cuDNN's deterministic
+# algorithms): losses 3.4e-7, the detector's first gradients 3.7e-5,
+# parameters after 3 steps 5.4e-6.  Parameters get one allowance more
+# (assert_train_params_close): Adam's first step moves an entry by about
+# lr * sign(g), so an entry whose first gradient lies within its float
+# error of zero (TRAIN_RTOL of the leaf's gradient scale) may step the
+# other way on another device.  That is not a port bug; such entries may
+# differ by 2 * lr * steps
+TRAIN_RTOL = 1e-4
 # a discrete output (valid, label, source) may differ only where the float
 # that decides it lies this close to its threshold
 THRESHOLD_TIE = 1e-5
@@ -649,6 +664,110 @@ def assert_baseline_results_match(want, got, exempt: np.ndarray,
     for k, v in dataclasses.asdict(want.latency).items():
         np.testing.assert_allclose(getattr(got.latency, k), v,
                                    rtol=LATENCY_RTOL, err_msg=f"{what} {k}")
+
+
+def leaf_rel_err(got, want) -> float:
+    """max |got - want| as a share of max |want| (0 where both are 0)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    diff = float(np.abs(got - want).max(initial=0.0))
+    return diff / float(np.abs(want).max(initial=0.0)) if diff else 0.0
+
+
+def assert_train_params_close(got: Dict[str, np.ndarray],
+                              want: Dict[str, np.ndarray],
+                              grads: Dict[str, np.ndarray], lr: float,
+                              steps: int, what: str) -> float:
+    """Flat parameter trees after ``steps`` optimizer steps, within
+    TRAIN_RTOL of each leaf's scale, plus ``2 * lr * steps`` on the entries
+    whose first-step gradient (``grads``, the same keys) lies within
+    TRAIN_RTOL of its leaf's gradient scale (see TRAIN_RTOL).  Returns the
+    largest error as a share of its leaf's scale away from those entries."""
+    if not got.keys() == want.keys() == grads.keys():
+        raise AssertionError(f"{what}: the trees' keys differ")
+    worst = 0.0
+    for k in want:
+        g, w, p = (np.asarray(x, np.float64)
+                   for x in (grads[k], want[k], got[k]))
+        if p.shape != w.shape or not np.isfinite(p).all():
+            raise AssertionError(f"{what} {k}: shape {p.shape} vs {w.shape}"
+                                 " or non-finite")
+        scale = np.abs(w).max(initial=0.0)
+        near = np.abs(g) <= TRAIN_RTOL * np.abs(g).max(initial=0.0)
+        err = np.abs(p - w)
+        bound = TRAIN_RTOL * scale + np.where(near, 2 * lr * steps, 0.0)
+        if (err > bound).any():
+            raise AssertionError(f"{what} {k}: {err.max():.3e} apart, over "
+                                 f"TRAIN_RTOL ({TRAIN_RTOL}) of the scale "
+                                 f"{scale:.3e}")
+        if scale and (~near).any():
+            worst = max(worst, float(err[~near].max()) / scale)
+    return worst
+
+
+# the training loops' learning rate, and the full-width runs held card
+# against CPU: (config name, batch size) per model, tests/test_system.py's
+TRAIN_LR = 1e-3
+TRAIN_MODELS = {"detector": ("DETECTOR", 16), "fallback":
+                ("FALLBACK_DETECTOR", 8), "classifier": ("CLASSIFIER", 64)}
+
+
+def train_run(name: str, device, steps: int, seed: int = 5):
+    """``steps`` steps of one full-width video model's step function
+    (``train_loop.detector_step`` / ``classifier_step``, AdamW as the loops
+    build it) on ``device``, from the model's initial parameters drawn on
+    the CPU from ``seed`` and the loop's first clean batches.  Returns
+    ``(params, first-step grads, losses)``, the trees flat and on the
+    host (``weights._flatten``)."""
+    from repro_torch import weights
+    from repro_torch.configs import vpaas_video
+    from repro_torch.training import data, train_loop
+    from repro_torch.training.optimizer import AdamW
+    cfg_name, batch_size = TRAIN_MODELS[name]
+    cfg = getattr(vpaas_video, cfg_name)
+    gen = torch.Generator().manual_seed(seed)
+    if name == "classifier":
+        params = weights.init_classifier(cfg, gen, device)
+        batches = data.classifier_batches(cfg, batch_size, seed)
+        grads_fn, step_fn = (train_loop.classifier_grads,
+                             train_loop.classifier_step)
+    else:
+        params = weights.init_detector(cfg, gen, device)
+        batches = data.detector_batches(cfg, batch_size, seed, "all")
+        grads_fn, step_fn = train_loop.detector_grads, train_loop.detector_step
+    opt = AdamW(lr=TRAIN_LR, weight_decay=1e-4)
+    state = opt.init(params)
+    losses, grads = [], None
+    for _ in range(steps):
+        batch = train_loop.to_device(next(batches), device)
+        if grads is None:
+            grads = weights._flatten(grads_fn(cfg, params, batch)[0])
+        params, state, m = step_fn(cfg, opt, params, state, batch)
+        losses.append(float(m["loss"]))
+    return weights._flatten(params), grads, losses
+
+
+def assert_train_runs_match(got, want, what: str) -> Dict[str, float]:
+    """Two :func:`train_run` results: losses and first-step gradients
+    within TRAIN_RTOL of their scale, parameters by
+    :func:`assert_train_params_close`.  Returns the largest errors."""
+    (p, g, loss), (p0, g0, loss0) = got, want
+    err = {"loss": max(leaf_rel_err(a, b) for a, b in zip(loss, loss0)),
+           "grads": max(leaf_rel_err(g[k], g0[k]) for k in g0)}
+    if len(loss) != len(loss0) or g.keys() != g0.keys() or max(
+            err.values()) > TRAIN_RTOL:
+        raise AssertionError(f"{what}: losses or first gradients apart: "
+                             f"{err} (TRAIN_RTOL {TRAIN_RTOL})")
+    err["params"] = assert_train_params_close(p, p0, g0, TRAIN_LR,
+                                              len(loss0), what)
+    return err
+
+
+def train_runs_identical(a, b) -> bool:
+    """Two :func:`train_run` results equal bit for bit."""
+    (p, g, loss), (p0, g0, loss0) = a, b
+    return loss == loss0 and all(
+        x.keys() == y.keys() and all(np.array_equal(x[k], y[k]) for k in y)
+        for x, y in ((p, p0), (g, g0)))
 
 
 def rel_err(got, want) -> float:

@@ -18,7 +18,9 @@ Sources of weights:
 * :func:`load_npz` — the flat ``.npz`` that ``repro.training.checkpoint``
   writes (keys like ``conv0/w``, HWIO);
 * :func:`save_npz` writes the same flat format back (HWIO), so checkpoints
-  move between the two packages in both directions.
+  move between the two packages in both directions;
+  :mod:`repro_torch.training.checkpoint` restores any such tree (optimizer
+  state too) into the structure of a given one.
 
 The LLM stack's parameters (``repro_torch.models.transformer``) are a
 separate case: :func:`llm_from_numpy_tree` copies the JAX ``init_params``
@@ -30,7 +32,7 @@ from __future__ import annotations
 import json
 import math
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -90,24 +92,46 @@ def llm_from_numpy_tree(tree, device="cuda") -> Dict[str, Any]:
                                      copy=True)).to(device)
 
 
-def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+def map_with_path(fn, tree, path: Tuple[str, ...] = ()):
+    """Rebuild a nested tree with ``fn(key, leaf)`` at each leaf, ``key``
+    being the JAX checkpoint's flat key: dict keys, ``.field`` for a
+    NamedTuple's field, the index for a tuple or list, joined by ``/``
+    (``conv0/w``, ``.mu/head/b``).  ``None`` is an empty subtree."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_with_path(fn, v, path + (f".{k}",))
+                            for k, v in zip(tree._fields, tree)))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_with_path(fn, v, path + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn("/".join(path), tree)
+
+
+def _flatten(tree) -> Dict[str, np.ndarray]:
+    """Flat ``{key: array}`` of a tree, convs back to HWIO."""
     flat = {}
-    for key, val in tree.items():
-        path = f"{prefix}{key}"
-        if isinstance(val, dict):
-            flat.update(_flatten(val, path + "/"))
-        else:
-            arr = (val.detach().cpu().numpy() if isinstance(val, torch.Tensor)
-                   else np.asarray(val))
-            flat[path] = _oihw_to_hwio(arr)
+
+    def put(key, leaf):
+        arr = (leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor)
+               else np.asarray(leaf))
+        flat[key] = _oihw_to_hwio(arr)
+
+    map_with_path(put, tree)
     return flat
 
 
 def save_npz(path: str, params, metadata: Optional[Dict[str, Any]] = None
              ) -> None:
-    """Flat ``.npz`` in the JAX checkpoint's format (HWIO convs)."""
+    """Flat ``.npz`` in the JAX checkpoint's format (HWIO convs) of a
+    nested tree (params, optimizer state); a bare leaf is saved under
+    ``params``."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    tree = params if isinstance(params, dict) else {"params": params}
+    tree = (params if isinstance(params, (dict, tuple, list))
+            else {"params": params})
     np.savez(path, **_flatten(tree))
     if metadata is not None:
         with open(path + ".meta.json", "w") as f:

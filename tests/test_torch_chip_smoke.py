@@ -335,3 +335,75 @@ def test_check_nms_launches_pairs_k4a_with_the_nms_kernel():
     with pytest.raises(AssertionError, match="14 K4a launches but 0 NMS"):
         chip_smoke.check_nms_launches({"iou_matrix": 14, "nms_greedy": 0},
                                       "x")
+
+
+def test_step_split_divides_each_part_by_the_steps():
+    s = chip_smoke.step_split(2.0, [0.009] * 100, [1.0] * 100)
+    assert s["steps"] == 100
+    assert s["wall_ms"] == pytest.approx(20.0)
+    assert s["host_ms"] == pytest.approx(9.0)
+    assert s["device_ms"] == pytest.approx(1.0)
+    assert s["other_ms"] == pytest.approx(10.0)
+    assert s["host_share"] == pytest.approx(0.45)
+    with pytest.raises(AssertionError):
+        chip_smoke.step_split(1.0, [0.1] * 3, [1.0] * 4)
+
+
+def test_step_split_timer_sees_every_batch_and_step_and_restores():
+    import types
+    import time
+
+    from repro_torch.configs.vpaas_video import ClassifierConfig
+    from repro_torch.training import data, train_loop
+
+    class Event:                      # the host clock in place of CUDA's
+        def __init__(self, **kw):
+            self.t = None
+
+        def record(self):
+            self.t = time.perf_counter()
+
+        def elapsed_time(self, end):
+            return (end.t - self.t) * 1e3
+
+    fake = types.SimpleNamespace(cuda=types.SimpleNamespace(
+        Event=Event, synchronize=lambda: None))
+    saved = (data.classifier_batches, train_loop.classifier_step)
+    cfg = ClassifierConfig(name="t", crop_hw=(8, 8), widths=(4,),
+                           feature_dim=4)
+    with chip_smoke.StepSplit(fake) as split:
+        assert train_loop.classifier_step is not saved[1]
+        train_loop.train_classifier(cfg, steps=3, batch_size=2,
+                                    device="cpu")
+    assert (data.classifier_batches, train_loop.classifier_step) == saved
+    assert len(split.host_s) == 3 and all(t > 0 for t in split.host_s)
+    ms = split.device_ms()
+    assert len(ms) == 3 and all(t > 0 for t in ms)
+    assert chip_smoke.step_split(1.0, split.host_s, ms)["steps"] == 3
+
+
+def test_detector_tie_frames_flags_scores_at_a_threshold(monkeypatch):
+    import numpy as np
+
+    from repro_torch import weights
+    from repro_torch.configs.vpaas_video import DETECTOR
+    from repro_torch.models import detector
+    from repro_torch.video import synthetic
+    params = weights.init_detector(DETECTOR, torch.Generator().manual_seed(0),
+                                   "cpu")
+    chunk = synthetic.make_chunk(np.random.default_rng(0), "traffic",
+                                 num_frames=3)
+    ties = chip_smoke.detector_tie_frames(torch, np, params, chunk, "cpu")
+    assert ties.shape == (3,) and ties.dtype == bool
+    real = detector.detect
+
+    def at_threshold(cfg, p, frames):     # frame 1 scores one cell at 0.5
+        out = dict(real(cfg, p, frames))
+        loc = out["loc_scores"].clone()
+        loc[1, 7] = 0.5
+        out["loc_scores"] = loc
+        return out
+
+    monkeypatch.setattr(detector, "detect", at_threshold)
+    ties2 = chip_smoke.detector_tie_frames(torch, np, params, chunk, "cpu")
+    assert ties2[1] and (ties2 == (ties | np.eye(3, dtype=bool)[1])).all()

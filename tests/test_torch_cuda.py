@@ -655,3 +655,54 @@ def test_zamba2_smoke_served_on_the_card_matches_cpu(cuda):
     for a, b in zip(done, cpu_done):
         assert a.output == b.output
         assert abs(a.confidence - b.confidence) <= LLM_RTOL
+
+
+# ---------------------------------------------------------------------------
+# the kernels are forward only; video-model training on the card
+# ---------------------------------------------------------------------------
+def test_kernels_refuse_operands_that_require_grad(cuda):
+    x, ws, _ = onevsall_case(8, 8, 4)
+    x, ws = _t((x, ws), cuda)
+    q, k, v = _t(attention_case(1, 8, 8, 2, 1, 32), cuda)
+    xs, dt, A, B, C = _t(ssd_case(1, 8, 2, 4, 4, init=False)[:5], cuda)
+    calls = {"K3": (lambda: ops.onevsall_scores(x, ws), ws),
+             "K6": (lambda: ops.flash_attention(q, k, v), k),
+             "K8": (lambda: ops.ssd_scan(xs, dt, A, B, C, chunk=4), A)}
+    for name, (call, t) in calls.items():
+        t.requires_grad_(True)
+        ops.reset_launch_counts()
+        with pytest.raises(RuntimeError, match="forward only"):
+            call()
+        assert sum(ops.launch_counts().values()) == 0, name
+        with torch.no_grad():                   # no graph asked for: runs
+            call()
+        t.requires_grad_(False)
+        call()
+        torch.cuda.synchronize()
+        assert sum(ops.launch_counts().values()) == 2, name
+
+
+def test_classifier_loss_on_the_card_has_gradients(cuda):
+    from repro_torch.training import data, train_loop
+    set_reference_precision()
+    params = weights.init_classifier(cfg.CLASSIFIER,
+                                     torch.Generator().manual_seed(0), cuda)
+    batch = train_loop.to_device(
+        next(data.classifier_batches(cfg.CLASSIFIER, 16, 0)), cuda)
+    ops.reset_launch_counts()
+    grads, (loss, _) = train_loop.classifier_grads(cfg.CLASSIFIER, params,
+                                                   batch)
+    assert ops.launch_counts()["onevsall_scores"] == 0
+    assert torch.isfinite(loss)
+    for g in (grads["W"], grads["proj"], grads["conv0"]["w"]):
+        assert g.is_cuda and torch.isfinite(g).all() and g.abs().max() > 0
+
+
+@pytest.mark.parametrize("name", ["detector", "fallback", "classifier"])
+def test_train_step_on_the_card_matches_cpu_and_itself(cuda, name):
+    from repro_torch.testing import (assert_train_runs_match, train_run,
+                                     train_runs_identical)
+    set_reference_precision()
+    card = train_run(name, cuda, 1)
+    assert train_runs_identical(card, train_run(name, cuda, 1))
+    assert_train_runs_match(card, train_run(name, "cpu", 1), name)

@@ -43,7 +43,9 @@ def test_port_imports_with_jax_blocked():
     names = proc.stdout.split()
     for mod in ("baselines.common", "baselines.mpeg", "baselines.glimpse",
                 "baselines.cloudseg", "baselines.dds", "serving.policies",
-                "kernels.iou_matrix", "kernels.region_filter_mask"):
+                "kernels.iou_matrix", "kernels.region_filter_mask",
+                "training.checkpoint", "training.data",
+                "training.optimizer", "training.train_loop"):
         assert f"repro_torch.{mod}" in names, mod
 
 
