@@ -26,7 +26,16 @@ the three video models at full width (``repro_torch.training``; no CUDA
 kernel of the port runs there), holds three training steps on the card
 against the CPU and against a second card run, and drives the video path,
 the five policies and the learning plane once more on the trained
-weights.  Any failed check raises; nothing is caught.  The last three
+weights.  On the trained weights it then drives the sharded, claim-check
+and multi-tenant serving planes: K = 4 ``ShardedScheduler`` shards against
+one ``GraphScheduler`` (bitwise, under the oracle's conditions),
+``MultiStreamCoordinator(num_shards=, use_store=True)`` at 64 streams with
+K = 1 and 4, work stealing under a replica outage, and three tenants
+(vision, the LLM-cascade pipeline, the retail pipeline) on one 2-shard
+fleet against the same run on the CPU.  After the LLM path the big/little
+cascade (``core/cascade.py``) runs with full-width zamba2-7b as the big
+model and its 9-layer cut as the little one, and against the CPU on two
+9-layer models.  Any failed check raises; nothing is caught.  The last three
 lines are the card's name and power limit, one JSON object describing
 the kernels, and ``{"ok": true, "device": {...}}``.
 
@@ -131,20 +140,24 @@ def device_us_per_call(avgs, reps: int, once: bool = False) -> float:
 
 def profile_device(torch, fn, reps: int = 1, once: bool = False):
     """Run ``fn`` ``reps`` times under torch.profiler (CUPTI); return the
-    device time per call in ms and the key averages (None when the
-    profiler recorded no device time); ``once`` as in
-    :func:`device_us_per_call`."""
+    device time per call in ms and the key averages; ``once`` as in
+    :func:`device_us_per_call`.  A profile that recorded no device time is
+    taken once more (CUPTI has lost a whole window on an H100) before the
+    time is reported as None."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    avgs = prof.key_averages()
-    total_us = device_us_per_call(avgs, reps, once)
-    return (total_us / 1e3 if total_us > 0 else None), avgs
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        avgs = prof.key_averages()
+        total_us = device_us_per_call(avgs, reps, once)
+        if total_us > 0:
+            return total_us / 1e3, avgs
+    return None, avgs
 
 
 def in_turns(fns, timer):
@@ -1948,6 +1961,332 @@ def phase_trained_learning(torch, np, card, trained):
 
 
 # ---------------------------------------------------------------------------
+# the sharded, claim-check and multi-tenant serving planes (M9), on the
+# trained full-width video models
+# ---------------------------------------------------------------------------
+SHARD_K = 4                               # shards of the oracle and timed run
+SHARD_STREAMS, SHARD_CHUNKS, SHARD_FRAMES = 64, 2, 4
+TENANTS = ("vision", "cascade", "retail", "vision")   # one stream each
+
+
+def video_graph(params, device="cuda"):
+    from repro_torch.configs.vpaas_video import CLASSIFIER, DETECTOR
+    from repro_torch.core.protocol import HighLowProtocol
+    from repro_torch.serving.graph import VideoFunctionGraph
+    return VideoFunctionGraph(
+        HighLowProtocol(DETECTOR, CLASSIFIER, device=device), *params)
+
+
+def submit_streams(sched, streams, W, **kw):
+    """Stream i as ``cam{i}`` with its chunks submitted; returns the
+    submitted chunks by stream name."""
+    submitted = {}
+    for i, chunks in enumerate(streams):
+        st = sched.add_stream(f"cam{i}", W=W, **kw)
+        for c in chunks:
+            sched.submit(st, c, learn=False)
+        submitted[st.name] = list(chunks)
+    return submitted
+
+
+def check_same_results(sched_a, sched_b, what: str):
+    """Every stream's results bitwise equal in the two schedulers."""
+    from repro_torch.testing import results_mismatch
+    bad = {name: results_mismatch(st, sched_b.streams[name])
+           for name, st in sched_a.streams.items()}
+    bad = {k: v for k, v in bad.items() if v is not None}
+    if bad:
+        raise AssertionError(f"{what}: results differ: {bad}")
+
+
+def check_reports(rep_a, rep_b, what: str, peaks: bool = True):
+    """The simulated-clock throughput-report keys equal (the JAX package's
+    tests/test_shards.py skip list)."""
+    from repro_torch.testing import report_mismatches
+    keys = report_mismatches(rep_a, rep_b, peaks=peaks)
+    if keys:
+        raise AssertionError(f"{what}: report keys differ: "
+                             + ", ".join(f"{k} {rep_a.get(k)!r} vs "
+                                         f"{rep_b.get(k)!r}" for k in keys))
+
+
+def check_conservation(sched, submitted, what: str):
+    """Every submitted chunk finalized exactly once, in order, on its own
+    stream, and no claim left in the store."""
+    from repro_torch.testing import conservation_errors
+    bad = conservation_errors(sched.streams, submitted)
+    if bad:
+        raise AssertionError(f"{what}: chunks lost, repeated or reordered "
+                             f"on {bad}")
+    store = getattr(sched, "store", None)
+    if store is not None and store.live_refs():
+        raise AssertionError(f"{what}: live store references at the end: "
+                             f"{store.live_refs()}")
+
+
+def phase_shard_oracle(torch, np, card, params):
+    """K = SHARD_K shards against one GraphScheduler under the oracle's
+    conditions (one chunk a flush, no window, no stealing): the main path's
+    workload, per-stream results bitwise equal on the card and the
+    simulated-clock report keys equal."""
+    from repro_torch.serving.batching import CrossStreamBatcher
+    from repro_torch.serving.graph import GraphScheduler
+    from repro_torch.serving.shards import ShardedScheduler
+    streams = make_streams(np, 8, 4, 4)
+    graph = video_graph(params)
+    oracle = GraphScheduler(
+        graph, batcher=CrossStreamBatcher(max_chunks=1, window=0.0),
+        hot_path="fused")
+    sharded = ShardedScheduler(graph, num_shards=SHARD_K, steal=False,
+                               hot_path="fused")
+    walls = []
+    for sched in (oracle, sharded):
+        submitted = submit_streams(sched, streams, params[1]["W"])
+        t0 = time.perf_counter()
+        sched.drain()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        check_conservation(sched, submitted, "shard oracle")
+    check_same_results(oracle, sharded, f"{SHARD_K} shards vs one scheduler")
+    check_reports(oracle.throughput_report(), sharded.throughput_report(),
+                  f"{SHARD_K} shards vs one scheduler", peaks=False)
+    print(f"shard oracle: {SHARD_K} shards (steal off, one chunk a flush) vs "
+          f"one GraphScheduler, 8 streams x 4 chunks x 4 frames, trained "
+          f"full width: results bitwise equal per stream, simulated-clock "
+          f"report keys equal; walls {walls[0]:.3f} / {walls[1]:.3f} s "
+          f"[{card}]")
+
+
+def run_sharded(torch, params, streams, num_shards, device="cuda"):
+    """``MultiStreamCoordinator(num_shards=, use_store=True)`` over
+    ``streams``; returns (coordinator, launch counts, wall s)."""
+    from repro_torch.configs.vpaas_video import CLASSIFIER, DETECTOR
+    from repro_torch.core.coordinator import MultiStreamCoordinator
+    from repro_torch.core.protocol import HighLowProtocol
+    from repro_torch.kernels import ops
+    multi = MultiStreamCoordinator(
+        HighLowProtocol(DETECTOR, CLASSIFIER, device=device), *params,
+        streams, max_batch_chunks=8, batch_window=0.02, hot_path="fused",
+        num_shards=num_shards, use_store=True, device=device)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    multi.run(learn=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    multi.scheduler.drain()            # raises on a claim left in the store
+    return multi, counts, wall
+
+
+def phase_sharded(torch, np, card, params):
+    """The sharded coordinator with the claim-check store on, at
+    SHARD_STREAMS streams, K = 1 and K = SHARD_K in turns (1, K, K, 1: the
+    host's speed drifts within a run): conservation, no live store
+    reference, and the fleet's throughput figures.  Returns the launch
+    counts of the last K = SHARD_K run."""
+    run_sharded(torch, params, make_streams(np, SHARD_STREAMS, 1,
+                                            SHARD_FRAMES), SHARD_K)  # warm-up
+    streams = make_streams(np, SHARD_STREAMS, SHARD_CHUNKS, SHARD_FRAMES)
+    frames = SHARD_STREAMS * SHARD_CHUNKS * SHARD_FRAMES
+    turns = {1: [], SHARD_K: []}
+    for k in (1, SHARD_K, SHARD_K, 1):
+        multi, counts, wall = run_sharded(torch, params, streams, k)
+        sched = multi.scheduler
+        check_conservation(sched, {s.name: list(s.chunks)
+                                   for s in multi.specs}, f"K = {k}")
+        rep = multi.report()
+        store = rep["store"]
+        events = rep["sched_events"]
+        host = rep["sched_step_wall_s"] - rep["sched_model_wall_s"]
+        print(f"sharded coordinator K = {k} (store on, max_batch_chunks 8, "
+              f"window 0.02): {SHARD_STREAMS} streams x {SHARD_CHUNKS} chunks"
+              f" x {SHARD_FRAMES} frames, {wall:.3f} s wall, "
+              f"{frames / wall:.1f} frames/s; {events} scheduler events, "
+              f"host overhead {host / events * 1e6:.1f} us an event; "
+              f"{rep['steals']} steals; {rep['calls']} detect calls; store "
+              f"{store['puts']} puts, {store['dedup_hits']} dedup hits, "
+              f"bytes current {store['bytes_current']:.0f}, peak "
+              f"{store['bytes_peak']:.0f} (logical peak "
+              f"{store['logical_bytes_peak']:.0f}); launches "
+              f"{ {n: counts[n] for n in VIDEO_KERNELS} } [{card}]")
+        turns[k].append((wall, host / events * 1e6))
+        for name in VIDEO_KERNELS:
+            if counts[name] == 0:
+                raise AssertionError(f"sharded run K = {k} launched no "
+                                     f"{name} kernel")
+        check_nms_launches(counts, f"sharded run K = {k}")
+        if k == SHARD_K:
+            shard_counts = counts
+    print(f"sharded coordinator in turns (K = 1, {SHARD_K}, {SHARD_K}, 1): "
+          + "; ".join(
+        f"K = {k} walls {', '.join(f'{w:.3f}' for w, _ in t)} s, host "
+        f"overhead {', '.join(f'{h:.1f}' for _, h in t)} us an event"
+        for k, t in turns.items()) + f" [{card}]")
+    return shard_counts
+
+
+def phase_steal_outage(torch, np, card, params):
+    """tests/test_shards.py's work-stealing case at full width: 6 streams
+    pinned to shard 0 of 2 with the same 3 chunks (so arrivals tie and one
+    flush sees more than max_chunks), 2 replicas, replica 1 failing
+    mid-run."""
+    from repro_torch.core.bandwidth import NetworkModel
+    from repro_torch.serving.batching import CrossStreamBatcher
+    from repro_torch.serving.fault import FaultTolerantCoordinator
+    from repro_torch.serving.shards import ShardedScheduler
+    shared = make_streams(np, 1, 3, 4)[0]
+    fault = FaultTolerantCoordinator(NetworkModel())
+    fault.fail_replica(1, at=0.15)
+    sharded = ShardedScheduler(
+        video_graph(params), num_shards=2,
+        batcher_factory=lambda i: CrossStreamBatcher(max_chunks=2,
+                                                     window=0.05),
+        hot_path="fused", cloud_replicas=2, fault=fault)
+    submitted = submit_streams(sharded, [shared] * 6, params[1]["W"],
+                               shard=0)
+    sharded.drain()
+    check_conservation(sharded, submitted, "stealing under an outage")
+    rep = sharded.throughput_report()
+    failovers = [e for e in fault.events if e["event"] == "replica_failover"]
+    if not (sharded.steals > 0 and failovers
+            and rep["batch_stolen"] == rep["batch_adopted"] == sharded.steals
+            and sharded.router.load_report()["healthy"] == 1):
+        raise AssertionError(f"stealing under an outage: {sharded.steals} "
+                             f"steals, {len(failovers)} failovers, stolen "
+                             f"{rep['batch_stolen']}, adopted "
+                             f"{rep['batch_adopted']}")
+    print(f"work stealing under an outage: 6 streams pinned to shard 0 of 2,"
+          f" 3 shared chunks x 4 frames, replica 1 dies at t=0.15: "
+          f"{sharded.steals} steals (stolen = adopted), "
+          f"{len(failovers)} replica_failover event(s), "
+          f"{rep['chaos_requeues']} requeue(s), every chunk finalized once "
+          f"in order [{card}]")
+
+
+def tenancy_run(torch, params, streams, device="cuda"):
+    """tests/test_tenancy.py's three pipelines on one fleet at full width:
+    vision (GOLD, the video models), cascade (SILVER) and retail (BRONZE)
+    on a 2-shard ShardedScheduler with a CostModel.  Returns (scheduler,
+    stream states, report, launch counts)."""
+    from repro_torch.configs.vpaas_video import DETECTOR
+    from repro_torch.kernels import ops
+    from repro_torch.serving.batching import CrossStreamBatcher
+    from repro_torch.serving.shards import ShardedScheduler
+    from repro_torch.serving.tenancy import (BRONZE, GOLD, SILVER, CostModel,
+                                             Tenancy, TenantSpec,
+                                             content_pipeline,
+                                             llm_cascade_pipeline)
+    graph = video_graph(params, device)
+    cost = CostModel()
+    sched = ShardedScheduler(
+        graph, num_shards=2, cost_model=cost, hot_path="fused",
+        batcher_factory=lambda i: CrossStreamBatcher(max_chunks=4,
+                                                     window=0.05))
+    ten = Tenancy(graph, cost)
+    hw = DETECTOR.image_hw
+    ten.register(TenantSpec("vision", GOLD, weight=4.0))
+    ten.register(TenantSpec("cascade", SILVER, weight=2.0,
+                            pipeline=llm_cascade_pipeline(image_hw=hw,
+                                                          device=device)))
+    ten.register(TenantSpec("retail", BRONZE, weight=1.0,
+                            pipeline=content_pipeline(image_hw=hw,
+                                                      device=device)))
+    states = [ten.add_stream(sched, t, f"cam{i}",
+                             **({"W": params[1]["W"]} if t == "vision"
+                                else {}))
+              for i, t in enumerate(TENANTS)]
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    ops.reset_launch_counts()
+    for st, chunks in zip(states, streams):
+        for c in chunks:
+            sched.submit(st, c, learn=False)
+    t0 = time.perf_counter()
+    sched.drain()
+    sync()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    cost.close(max(s.clock for s in states))
+    check_conservation(sched, {st.name: list(c)
+                               for st, c in zip(states, streams)}, "tenancy")
+    return sched, states, sched.throughput_report(), counts, wall
+
+
+def compare_tenant_outputs(np, card_states, cpu_states):
+    """The pipeline tenants' outputs, card vs CPU: cascade answers and
+    escalations equal, retail product ids equal and scores within 1e-5.
+    Returns the chunks compared."""
+    n = 0
+    for a, b in zip(card_states, cpu_states):
+        if a.tenant.pipeline is None:
+            continue
+        for (c1, r1, _), (c2, r2, _) in zip(a.results, b.results):
+            x, y = r1.outputs, r2.outputs
+            if c1 is not c2 or x.keys() != y.keys():
+                raise AssertionError(f"{a.name}: results out of step")
+            if "answers" in x:
+                if not (np.array_equal(x["answers"], y["answers"])
+                        and x["escalated"] == y["escalated"]):
+                    raise AssertionError(f"{a.name}: cascade answers differ "
+                                         f"card vs CPU: {x} vs {y}")
+            else:
+                if not np.array_equal(x["products"], y["products"]):
+                    raise AssertionError(f"{a.name}: product ids differ card"
+                                         f" vs CPU: {x} vs {y}")
+                np.testing.assert_allclose(x["scores"], y["scores"],
+                                           atol=1e-5, err_msg=a.name)
+            n += 1
+    return n
+
+
+def phase_tenancy(torch, np, card, params):
+    """Three tenants on one 2-shard fleet at full width: the cost ledger
+    conserves (the fsum of the tenants equals the total within 1e-12), and
+    the same run on the CPU (fed the card's decoded frames) gives the
+    pipeline tenants' outputs.  Returns the card run's launch counts."""
+    import math
+
+    from repro_torch.testing import CodecTap
+    from repro_torch.training.optimizer import tree_map
+    streams = make_streams(np, len(TENANTS), 3, 4)
+    with CodecTap() as rec:
+        sched, states, rep, counts, wall = tenancy_run(torch, params,
+                                                       streams)
+    cr = rep["cost"]
+    per_tenant = math.fsum(v["total_usd"] for v in cr["tenants"].values())
+    if not abs(per_tenant - cr["total_usd"]) <= 1e-12 * cr["total_usd"]:
+        raise AssertionError(f"cost ledger: tenants sum to {per_tenant!r}, "
+                             f"fleet {cr['total_usd']!r}")
+    if sum(v["chunks"] for v in cr["tenants"].values()) != 3 * len(TENANTS):
+        raise AssertionError(f"cost ledger chunks: {cr['tenants']}")
+    cpu_params = tuple(tree_map(lambda t: t.cpu(), p) for p in params)
+    with CodecTap(lambda kind, f, r, q, i: rec.frames[i]):
+        _, cpu_states, cpu_rep, _, cpu_wall = tenancy_run(
+            torch, cpu_params, streams, device="cpu")
+    compared = compare_tenant_outputs(np, states, cpu_states)
+    for name, v in cr["tenants"].items():
+        if v["chunks"] != cpu_rep["cost"]["tenants"][name]["chunks"]:
+            raise AssertionError(f"{name}: chunks card vs CPU differ")
+    print(f"tenancy: vision GOLD + cascade SILVER + retail BRONZE, "
+          f"{len(TENANTS)} streams x 3 chunks x 4 frames on 2 shards, full "
+          f"width: {wall:.3f} s wall (CPU {cpu_wall:.3f} s); fleet "
+          f"${cr['total_usd']:.6e}, tenants' fsum equal within 1e-12; "
+          + "; ".join(f"{n} {v['chunks']} chunks {v['invocations']} "
+                      f"invocations ${v['total_usd']:.3e} SLO "
+                      f"{rep['tenants'][n]['slo_attainment']:.2f}"
+                      for n, v in sorted(cr["tenants"].items()))
+          + f"; {rep['steals']} steals; card vs CPU: {compared} pipeline "
+          f"chunks equal (answers, product ids; scores within 1e-5); "
+          f"launches { {n: counts[n] for n in VIDEO_KERNELS} } [{card}]")
+    for name in VIDEO_KERNELS:
+        if counts[name] == 0:
+            raise AssertionError(f"tenancy run launched no {name} kernel")
+    check_nms_launches(counts, "tenancy run")
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # the LLM path's kernels: K6 flash attention, K7 decode attention, K8 SSD
 # ---------------------------------------------------------------------------
 def _attn_ops_per_pair(d, softcap):
@@ -2361,9 +2700,9 @@ def phase_llm_main_path(torch, np, card):
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
           f"{ {k: counts[k] for k in want} } [{card}]")
     profile_llm(torch, np, card, cfg, params)
-    del params, server
+    del server
     torch.cuda.empty_cache()
-    return counts
+    return counts, cfg, params
 
 
 def profile_llm(torch, np, card, cfg, params):
@@ -2475,6 +2814,195 @@ def phase_llm_reference(torch, np, card):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the big/little LLM cascade (core/cascade.py) on zamba2-7b
+# ---------------------------------------------------------------------------
+CASCADE_REQUESTS, CASCADE_TOKENS = 8, 64
+
+
+def nine_layer_cut(cfg):
+    """``cfg`` cut to its prefix and one block (9 layers at zamba2-7b): the
+    cut phase_llm_reference makes, same widths and vocabulary."""
+    import dataclasses
+    return dataclasses.replace(cfg, name=cfg.name + "-9-layers",
+                               num_layers=9, num_blocks=1)
+
+
+def llm_kernel_calls(cfg):
+    """(K6, K8) launches of one forward: a flash attention per shared
+    block, an SSD scan per Mamba2 layer."""
+    return cfg.num_blocks, len(cfg.prefix_layers) + cfg.num_blocks * sum(
+        k == "ssm" for k in cfg.block_pattern)
+
+
+def cascade_tokens(np, cfg, n, s, seed):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (n, s))
+
+
+def phase_cascade(torch, np, card, cfg, params):
+    """``BigLittleCascade`` with full-width zamba2-7b as the big model and
+    its 9-layer cut (the same weights' prefix and first block) as the
+    little one, CASCADE_REQUESTS x CASCADE_TOKENS-token requests at three
+    thresholds: 1.1 (all escalate), 0.0 (none) and the median of the
+    little model's confidences (about half).  Returns the launch counts of
+    the three answers."""
+    from repro_torch.core.cascade import BigLittleCascade, CascadeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import schema as sch
+    little_cfg = nine_layer_cut(cfg)
+    little = dict(params, blocks=sch.tree_map(lambda t: t[:1],
+                                              params["blocks"]))
+    toks = cascade_tokens(np, cfg, CASCADE_REQUESTS, CASCADE_TOKENS, SEED)
+
+    def cascade(thr):
+        return BigLittleCascade(little_cfg, little, cfg, params,
+                                CascadeConfig(escalate_below=thr),
+                                device="cuda")
+
+    _, info = cascade(1.1).answer(toks)           # warm-up; both models
+    thresholds = (1.1, 0.0, float(np.median(info["confidence"])))
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    lines, rates, want = [], [], {"flash_attention": 0, "ssd_scan": 0}
+    for thr in thresholds:
+        c = cascade(thr)
+        t0 = time.perf_counter()
+        pred, info = c.answer(toks)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        st = c.stats
+        if not (pred.shape == (CASCADE_REQUESTS,)
+                and ((0 <= pred) & (pred < cfg.vocab_size)).all()
+                and np.isfinite(info["confidence"]).all()
+                and np.isfinite(c.logit_bias.cpu().numpy()).all()):
+            raise AssertionError(f"cascade at {thr}: {pred} {info}")
+        if st.adapter_updates != st.escalated:
+            raise AssertionError(f"cascade at {thr}: {st}")
+        for cut, run in ((little_cfg, True), (cfg, st.escalated > 0)):
+            k6, k8 = llm_kernel_calls(cut)
+            want["flash_attention"] += k6 * run
+            want["ssd_scan"] += k8 * run
+        rates.append(st.escalation_rate)
+        lines.append(f"threshold {thr:.6g}: escalation rate "
+                     f"{st.escalation_rate:.3f}, {st.adapter_updates} "
+                     f"adapter updates, agreement "
+                     f"{st.agreement[0] if st.agreement else None}, "
+                     f"{ms:.2f} ms per answer")
+    counts = ops.launch_counts()
+    for name, n in want.items():
+        if counts[name] != n:
+            raise AssertionError(f"cascade launched {name} {counts[name]} "
+                                 f"times, expected {n}")
+    if not (rates[0] == 1.0 and rates[1] == 0.0 and 0 < rates[2] < 1):
+        raise AssertionError(f"cascade escalation rates {rates}")
+    print(f"cascade: big {cfg.name} full width, little its 9-layer cut, "
+          f"{CASCADE_REQUESTS} requests x {CASCADE_TOKENS} tokens; "
+          + "; ".join(lines) + f"; K6 {counts['flash_attention']} and K8 "
+          f"{counts['ssd_scan']} launches [{card}]")
+    return counts
+
+
+def cascade_tie_rows(np, casc, toks, rows, escalated):
+    """Rows (of ``rows``) whose deciding logits, the little model's with
+    the bias or the big model's where the row escalated, have a top-2 gap
+    within LLM_RTOL of their scale on ``casc``'s device."""
+    import torch
+
+    from repro_torch.testing import LLM_RTOL
+    out = []
+    with torch.inference_mode():
+        t = torch.as_tensor(toks[rows], device=casc.device)
+        lil = (casc._last_logits(casc.little_cfg, casc.little_params, t)
+               [:, -1] + casc.logit_bias).cpu().numpy()
+        big = casc._last_logits(casc.big_cfg, casc.big_params,
+                                t)[:, -1].cpu().numpy()
+    for j, r in enumerate(rows):
+        x = big[j] if escalated[r] else lil[j]
+        top2 = np.sort(x)[-2:]
+        if top2[1] - top2[0] < LLM_RTOL * max(1.0, float(np.abs(x).max())):
+            out.append(r)
+    return out
+
+
+def compare_cascades(np, card, cpu, toks, what):
+    """One ``answer`` on the card and on the CPU: confidences within
+    LLM_RTOL, the escalation mask equal except within THRESHOLD_TIE of the
+    threshold, predictions equal except at top-2 ties, and the learned
+    logit bias within LLM_RTOL of its scale.  Returns the exempt rows."""
+    from repro_torch.testing import LLM_RTOL, THRESHOLD_TIE, rel_err
+    pa, ia = card.answer(toks)
+    pb, ib = cpu.answer(toks)
+    np.testing.assert_allclose(ia["confidence"], ib["confidence"],
+                               rtol=LLM_RTOL, err_msg=what)
+    near = np.abs(ib["confidence"] - cpu.ccfg.escalate_below) <= \
+        THRESHOLD_TIE
+    if ((ia["escalated"] != ib["escalated"]) & ~near).any():
+        raise AssertionError(f"{what}: escalation differs away from the "
+                             "threshold")
+    differ = [int(r) for r in np.nonzero((pa != pb) & ~near)[0]]
+    ties = cascade_tie_rows(np, cpu, toks, differ, ib["escalated"]) \
+        if differ else []
+    if set(differ) - set(ties):
+        raise AssertionError(f"{what}: predictions differ away from ties at "
+                             f"rows {sorted(set(differ) - set(ties))}")
+    err = rel_err(card.logit_bias.cpu().numpy(), cpu.logit_bias.numpy())
+    if err > LLM_RTOL:
+        raise AssertionError(f"{what}: logit bias {err:.2e} apart")
+    return int(near.sum()) + len(ties), err
+
+
+def phase_cascade_reference(torch, np, card):
+    """The cascade on the card against the port's CPU path: both models
+    zamba2-7b's 9-layer cut at full width (the little from SEED, the big
+    from SEED + 1), CASCADE_REQUESTS x CASCADE_TOKENS tokens, the shapes
+    phase_cascade runs: one answer where all escalate (on phase_cascade's
+    tokens), then one with the learned bias at the median of the little
+    model's confidences (on a second draw)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.cascade import BigLittleCascade, CascadeConfig
+    from repro_torch.models import schema as sch
+    from repro_torch.models import transformer as tfm
+    cfg = nine_layer_cut(get_config(LLM_ARCH))
+    params = {"cuda": [tfm.init_params(cfg, s, "cuda")
+                       for s in (SEED, SEED + 1)]}
+    params["cpu"] = [sch.tree_map(lambda t: t.cpu(), p)
+                     for p in params["cuda"]]
+    casc = {d: BigLittleCascade(cfg, params[d][0], cfg, params[d][1],
+                                CascadeConfig(escalate_below=1.1), device=d)
+            for d in ("cuda", "cpu")}
+    toks = [cascade_tokens(np, cfg, CASCADE_REQUESTS, CASCADE_TOKENS,
+                           SEED + s) for s in (0, 1)]
+    exempt, err1 = compare_cascades(np, casc["cuda"], casc["cpu"], toks[0],
+                                    "cascade card vs CPU, all escalate")
+    # the learned bias's confidences on the second batch, from a cascade
+    # that escalates nothing (so updates nothing)
+    probe = BigLittleCascade(cfg, params["cuda"][0], cfg, params["cuda"][1],
+                             CascadeConfig(escalate_below=0.0),
+                             device="cuda")
+    probe.logit_bias = casc["cuda"].logit_bias
+    thr = float(np.median(probe.answer(toks[1])[1]["confidence"]))
+    for c in casc.values():
+        c.ccfg = CascadeConfig(escalate_below=thr)
+    n, err2 = compare_cascades(np, casc["cuda"], casc["cpu"], toks[1],
+                               "cascade card vs CPU, learned bias")
+    sa, sb = casc["cuda"].stats, casc["cpu"].stats
+    if not exempt + n and (sa.escalated, sa.adapter_updates,
+                           sa.agreement) != (sb.escalated,
+                                             sb.adapter_updates,
+                                             sb.agreement):
+        raise AssertionError(f"cascade stats card {sa} vs CPU {sb}")
+    print(f"cascade card vs CPU reference, {cfg.name} little and big "
+          f"(seeds {SEED}, {SEED + 1}), {CASCADE_REQUESTS} requests x "
+          f"{CASCADE_TOKENS} tokens: all-escalate answer then the "
+          f"learned bias at threshold {thr:.6g}; confidences within "
+          f"LLM_RTOL, escalation masks equal, predictions equal "
+          f"({exempt + n} tie row(s) exempt), logit bias {err1:.2e} and "
+          f"{err2:.2e} of its scale apart; escalated {sb.escalated} of "
+          f"{2 * CASCADE_REQUESTS} [{card}]")
+    del params, casc, probe
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2565,11 +3093,25 @@ def main() -> int:
     phase_baselines_main_path(torch, np, card,
                               (trained["detector"], trained["classifier"]))
     phase_trained_learning(torch, np, card, trained)
-    del trained
+    served = (trained["detector"], trained["classifier"])
+    phase_shard_oracle(torch, np, card, served)
+    shard_counts = phase_sharded(torch, np, card, served)
+    phase_steal_outage(torch, np, card, served)
+    tenancy_counts = phase_tenancy(torch, np, card, served)
+    for row in video_rows + [iou_row, nms_row]:
+        row["launches_sharded"] = shard_counts[row["name"]]
+        row["launches_tenancy"] = tenancy_counts[row["name"]]
+    del trained, served
     phase_llm_reference(torch, np, card)
-    llm_counts = phase_llm_main_path(torch, np, card)
+    llm_counts, llm_cfg, llm_params = phase_llm_main_path(torch, np, card)
+    cascade_counts = phase_cascade(torch, np, card, llm_cfg, llm_params)
+    del llm_params
+    torch.cuda.empty_cache()
+    phase_cascade_reference(torch, np, card)
     for row in llm_rows:
         row["launches"] = llm_counts[row["name"]]
+        if row["name"] in ("flash_attention", "ssd_scan"):
+            row["launches_cascade"] = cascade_counts[row["name"]]
     rows = video_rows + [iou_row, nms_row, frame_row, update_row] + llm_rows
     print(f"chip_smoke.py finished its checks in "
           f"{time.perf_counter() - t_start:.1f} s")

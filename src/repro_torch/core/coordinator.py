@@ -211,7 +211,8 @@ class MultiStreamCoordinator:
                  scale_unit: Optional[str] = None,
                  hot_path: str = "fused",
                  autoscaler=None, fault: FaultTolerantCoordinator = None,
-                 learning_plane=None, device="cuda"):
+                 learning_plane=None, num_shards: int = 1,
+                 use_store: bool = False, device="cuda"):
         _check_device(protocol, device)
         self.protocol = protocol
         self.clf_params = clf_params
@@ -232,12 +233,21 @@ class MultiStreamCoordinator:
             adaptive_margin=adaptive_margin, cold_start_s=cold_start_s,
             hot_path=hot_path,
             fault=fault, fallback_fn=self._fog_fallback)
-        # the sharded scheduler (num_shards / use_store) is not ported yet
-        self.scheduler = GraphScheduler(
-            self.graph,
-            batcher=CrossStreamBatcher(max_chunks=max_batch_chunks,
-                                       window=batch_window),
-            **sched_kw)
+        if num_shards > 1 or use_store:
+            # thousand-stream mode: K per-shard event loops + claim-check
+            # ingestion over one shared replica pool (serving.shards)
+            from repro_torch.serving.shards import ShardedScheduler
+            self.scheduler = ShardedScheduler(
+                self.graph, num_shards=num_shards, use_store=use_store,
+                batcher_factory=lambda i: CrossStreamBatcher(
+                    max_chunks=max_batch_chunks, window=batch_window),
+                **sched_kw)
+        else:
+            self.scheduler = GraphScheduler(
+                self.graph,
+                batcher=CrossStreamBatcher(max_chunks=max_batch_chunks,
+                                           window=batch_window),
+                **sched_kw)
         self.plane = learning_plane
         if learning_plane is not None:
             # the continual-learning plane replaces per-stream inline HITL

@@ -19,7 +19,7 @@ cloud-detector stage runs through a :class:`CrossStreamBatcher` that packs
 frames from concurrent chunks into padded detector calls (Tangram-style
 batched serverless inference) and feeds the *real* queue depth to the
 autoscaler on every dispatch.  At fleet scale the event loop is no longer
-one heap: the JAX package's ``ShardedScheduler`` (not ported yet) runs K of
+one heap: :class:`~repro_torch.serving.shards.ShardedScheduler` runs K of
 these schedulers over disjoint stream sets on a merged timeline, and with a
 claim-check :class:`~repro_torch.serving.ingest.ArtifactStore` attached the
 queued events carry payload *references* instead of frame tensors —

@@ -39,6 +39,7 @@ from dataclasses import dataclass, field
 from typing import Any, Deque, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 __all__ = ["ClaimCheck", "ArtifactStore", "ArtifactCorrupted",
            "content_key"]
@@ -89,7 +90,10 @@ class ClaimCheck:
 
 
 def _payload_checksum(payload: Any) -> str:
-    """Content digest of a payload's host bytes (device arrays sync)."""
+    """Content digest of a payload's host bytes (a device tensor is copied
+    to the host: a sync, paid in integrity mode only)."""
+    if isinstance(payload, torch.Tensor):
+        return content_key(payload.detach().cpu().numpy())
     return content_key(np.asarray(payload))
 
 
@@ -161,7 +165,12 @@ class ArtifactStore:
         shape = tuple(getattr(payload, "shape", ()))
         dtype = getattr(payload, "dtype", None)
         if nbytes is None:
-            itemsize = np.dtype(dtype).itemsize if dtype is not None else 1
+            if isinstance(payload, torch.Tensor):
+                itemsize = payload.element_size()
+            elif dtype is not None:
+                itemsize = np.dtype(dtype).itemsize
+            else:
+                itemsize = 1
             nbytes = int(np.prod(shape, dtype=np.int64)) * itemsize if shape \
                 else int(itemsize)
         ent = self._entries.get(key)
@@ -224,7 +233,9 @@ class ArtifactStore:
 
     # -- integrity / chaos -----------------------------------------------
     def corrupt(self, key: str) -> None:
-        """Flip the stored payload's bytes in place (chaos injection).
+        """Replace the stored payload by a copy with its first 8 bytes
+        flipped, on the payload's own device and in its own dtype (chaos
+        injection); a bundle still in flight keeps the old bytes.
 
         Models bit rot / a bad storage-tier write: the claim metadata and
         refcounts are untouched, only the payload bytes change, so the
@@ -232,9 +243,16 @@ class ArtifactStore:
         ent = self._entries.get(key)
         if ent is None:
             raise KeyError(f"corrupt of absent artifact {key!r}")
-        arr = np.asarray(ent.payload).copy()
-        flat = arr.reshape(-1).view(np.uint8)
-        flat[: min(8, flat.size)] ^= 0xFF
+        if isinstance(ent.payload, torch.Tensor):
+            # a copy on the payload's own device: an in-flight bundle that
+            # still holds the old tensor keeps its bytes
+            arr = ent.payload.detach().clone().contiguous()
+            flat = arr.reshape(-1).view(torch.uint8)
+            flat[: min(8, flat.numel())] ^= 0xFF
+        else:
+            arr = np.asarray(ent.payload).copy()
+            flat = arr.reshape(-1).view(np.uint8)
+            flat[: min(8, flat.size)] ^= 0xFF
         ent.payload = arr
         self.stats["corruptions_injected"] += 1
 

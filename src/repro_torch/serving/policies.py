@@ -57,3 +57,22 @@ def default_policies() -> PolicyManager:
     pm.register("dds", lambda det_cfg, clf_cfg=None, **kw: DDSBaseline(
         det_cfg, **kw), "two-round server-driven streaming")
     return pm
+
+
+def default_tenant_pipelines() -> PolicyManager:
+    """The shipped multi-tenant pipeline catalog (tenancy.py): each entry
+    builds a :class:`~repro_torch.serving.tenancy.TenantPipeline` a tenant
+    can register on the shared serving substrate (``device=`` goes through
+    to the constructor).  ``detection`` is the default High-Low graph
+    (``pipeline=None`` in its TenantSpec)."""
+    from repro_torch.serving.tenancy import (content_pipeline,
+                                             llm_cascade_pipeline)
+
+    pm = PolicyManager()
+    pm.register("detection", lambda **kw: None,
+                "High-Low detection analytics (the paper's pipeline)")
+    pm.register("llm-cascade", lambda **kw: llm_cascade_pipeline(**kw),
+                "big/little LLM cascade; cloud billed per escalated frame")
+    pm.register("retail-content", lambda **kw: content_pipeline(**kw),
+                "Hysia-style video-to-retail embedding + catalog match")
+    return pm

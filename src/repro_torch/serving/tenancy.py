@@ -20,9 +20,13 @@ tenancy explicit:
   diverge).
 * :class:`TenantPipeline` is the shape every shipped pipeline shares:
   a batchable cloud stage (heavy model) and a per-stream fog merge stage,
-  with service-time and billing models.  (The JAX package's pipeline
-  constructors, ``llm_cascade_pipeline`` and ``content_pipeline``, are not
-  ported yet.)
+  with service-time and billing models.  Constructors:
+  :func:`llm_cascade_pipeline` (the ``examples/llm_cascade_serving.py``
+  big/little cascade — the cloud big model is billed only for frames the
+  fog little model escalates) and :func:`content_pipeline` (a Hysia-style
+  video-to-retail content match: cloud embedding + fog catalog search).
+  Their weights are drawn with numpy from the same seeds as the JAX
+  package's, so both packages hold identical weights.
 * :class:`CostModel` meters per-tenant spend on the simulated clock:
   replica-seconds at cloud/fog rates (busy time attributed per dispatch,
   provisioned-but-idle keep-alive time integrated from the router's pool
@@ -45,13 +49,16 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from repro_torch import require_device
 from repro_torch.core.bandwidth import LatencyBreakdown
+from repro_torch.core.protocol import to_host
 
 __all__ = [
     "BillingRates", "SLOClass", "GOLD", "SILVER", "BRONZE",
     "TenantPipeline", "TenantSpec", "TenantChunkResult", "CostModel",
-    "Tenancy",
+    "Tenancy", "llm_cascade_pipeline", "content_pipeline",
 ]
 
 
@@ -124,6 +131,104 @@ class TenantPipeline:
     def out_bytes(self, out: Dict[str, Any], frames: int) -> float:
         return float(self.result_bytes(out, frames)
                      if self.result_bytes is not None else 8.0 * frames)
+
+
+def _flatten_to(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Flatten (B, ...) to (B, dim), truncating or zero-padding features.
+
+    The fog encode stage may rescale frames before the cloud stage sees
+    them, so a pipeline's input width can't be assumed."""
+    flat = x.reshape(x.shape[0], -1).to(torch.float32)
+    d = flat.shape[1]
+    if d >= dim:
+        return flat[:, :dim]
+    return torch.nn.functional.pad(flat, (0, dim - d))
+
+
+def _normal(rng: np.random.Generator, shape, fan_in: int) -> np.ndarray:
+    return rng.normal(0.0, 1.0 / math.sqrt(fan_in), shape).astype(np.float32)
+
+
+def llm_cascade_pipeline(*, name: str = "llm-cascade",
+                         image_hw: Tuple[int, int] = (32, 32),
+                         d_model: int = 32, n_classes: int = 16,
+                         big_mult: int = 4, escalate_margin: float = 0.25,
+                         cloud_fps: float = 150.0, fog_fps: float = 900.0,
+                         seed: int = 7, device="cuda") -> TenantPipeline:
+    """The ``examples/llm_cascade_serving.py`` big/little cascade as a
+    tenant graph: the fog little model answers every frame and flags
+    low-margin ones; the cloud big model's (batched, speculative) answers
+    replace the flagged frames at the fog merge.  Serverless billing
+    counts only the *escalated* frames as cloud invocations — the
+    cascade's whole economic point.  The weights live on ``device``."""
+    dev = require_device(device)
+    in_dim = image_hw[0] * image_hw[1] * 3
+    rng = np.random.default_rng(seed)
+    w_in, w_little, w_big1, w_big2 = (
+        torch.as_tensor(_normal(rng, shape, shape[0]), device=dev)
+        for shape in ((in_dim, d_model), (d_model, n_classes),
+                      (d_model, d_model * big_mult),
+                      (d_model * big_mult, n_classes)))
+
+    def cloud_fn(batch) -> torch.Tensor:
+        x = _flatten_to(torch.as_tensor(batch, device=dev), in_dim) @ w_in
+        return torch.relu(x @ w_big1) @ w_big2
+
+    def fog_fn(chunk_frames, big_logits) -> Dict[str, Any]:
+        frames = torch.as_tensor(chunk_frames, device=dev)
+        lil_t = _flatten_to(frames, in_dim) @ w_in @ w_little
+        lil = lil_t.cpu().numpy()
+        probs = torch.softmax(lil_t, dim=-1).cpu().numpy()
+        top2 = np.sort(probs, axis=-1)[:, -2:]
+        margin = top2[:, 1] - top2[:, 0]
+        esc = margin < escalate_margin
+        big = to_host(big_logits)
+        logits = np.where(esc[:, None], big, lil)
+        return {"answers": logits.argmax(-1).astype(np.int32),
+                "escalated": int(esc.sum()), "frames": int(lil.shape[0])}
+
+    return TenantPipeline(
+        name=name, cloud_stage=f"cloud.tenant.{name}",
+        fog_stage=f"fog.tenant.{name}", cloud_fn=cloud_fn, fog_fn=fog_fn,
+        cloud_fps=cloud_fps, fog_fps=fog_fps,
+        billed_frames=lambda out, f: out["escalated"],
+        result_bytes=lambda out, f: 4.0 * f)
+
+
+def content_pipeline(*, name: str = "retail-content",
+                     image_hw: Tuple[int, int] = (32, 32),
+                     embed_dim: int = 24, n_products: int = 64,
+                     cloud_fps: float = 400.0, fog_fps: float = 700.0,
+                     seed: int = 11, device="cuda") -> TenantPipeline:
+    """Hysia-style video-to-retail content pipeline: a cloud embedding
+    backbone (batchable matmul) plus a fog product-catalog cosine match
+    returning the best product id + score per frame.  The weights and the
+    catalog live on ``device``."""
+    dev = require_device(device)
+    in_dim = image_hw[0] * image_hw[1] * 3
+    rng = np.random.default_rng(seed)
+    w_embed = torch.as_tensor(_normal(rng, (in_dim, embed_dim), in_dim),
+                              device=dev)
+    catalog = rng.normal(0.0, 1.0, (n_products, embed_dim)).astype(np.float32)
+    catalog /= np.linalg.norm(catalog, axis=1, keepdims=True)
+    catalog_dev = torch.as_tensor(catalog, device=dev)
+
+    def cloud_fn(batch) -> torch.Tensor:
+        x = _flatten_to(torch.as_tensor(batch, device=dev), in_dim) @ w_embed
+        return x / (torch.linalg.norm(x, dim=1, keepdim=True) + 1e-8)
+
+    def fog_fn(chunk_frames, emb_slice) -> Dict[str, Any]:
+        sims = torch.as_tensor(emb_slice, device=dev) @ catalog_dev.T
+        scores, ids = sims.max(dim=1)
+        return {"products": ids.cpu().numpy().astype(np.int32),
+                "scores": scores.cpu().numpy().astype(np.float32),
+                "frames": int(emb_slice.shape[0])}
+
+    return TenantPipeline(
+        name=name, cloud_stage=f"cloud.tenant.{name}",
+        fog_stage=f"fog.tenant.{name}", cloud_fn=cloud_fn, fog_fn=fog_fn,
+        cloud_fps=cloud_fps, fog_fps=fog_fps,
+        result_bytes=lambda out, f: 8.0 * f)
 
 
 @dataclass

@@ -3,7 +3,7 @@ tests against the JAX package and the on-card kernel tests) and
 ``chip_smoke.py``.  Each tolerance states why it is not zero."""
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -774,3 +774,60 @@ def rel_err(got, want) -> float:
     """max |got - want| as a share of max(1, max |want|)."""
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
+
+
+# ---------------------------------------------------------------------------
+# serving-plane comparisons (sharded, tenancy, chaos): results and reports
+# ---------------------------------------------------------------------------
+# throughput-report keys that read the host's clock: never compared
+REPORT_WALL_KEYS = ("wall", "per_s", "overhead")
+# keys only the sharded wrapper (or an attached store) reports
+SHARD_ONLY_KEYS = frozenset(("shards", "steals", "store", "store_spills",
+                             "batch_stolen", "batch_adopted"))
+# the ChunkResult arrays two bitwise-equal runs share
+RESULT_ARRAYS = ("boxes", "labels", "valid", "fog_features", "fog_scores")
+
+
+def report_mismatches(rep_a: dict, rep_b: dict, *, peaks: bool = True,
+                      ignore=SHARD_ONLY_KEYS) -> List[str]:
+    """Keys of two throughput reports whose values differ, past the
+    host-clock keys and ``ignore``.  ``peaks=False`` also passes the
+    partition-dependent gauges (which buffers are live at once, per-shard
+    occupancy spans, the event count), as the JAX package's sharded tests
+    do; ``sched_finalizes`` stays exact."""
+    skip = list(REPORT_WALL_KEYS)
+    if not peaks:
+        skip += ["peak", "occupancy", "sched_events"]
+    return sorted(k for k in (set(rep_a) | set(rep_b)) - set(ignore)
+                  if not any(s in k for s in skip)
+                  and rep_a.get(k) != rep_b.get(k))
+
+
+def results_mismatch(st_a, st_b, *, arrays=RESULT_ARRAYS) -> Optional[str]:
+    """None when two streams finalized the same chunk objects in the same
+    modes with bitwise-equal ``arrays``, latencies and byte counts; else
+    what differs first."""
+    if len(st_a.results) != len(st_b.results):
+        return f"{len(st_a.results)} vs {len(st_b.results)} results"
+    for i, ((c1, r1, m1), (c2, r2, m2)) in enumerate(
+            zip(st_a.results, st_b.results)):
+        if c1 is not c2 or m1 != m2:
+            return f"result {i}: chunk or mode differs"
+        for name in arrays:
+            if not np.array_equal(getattr(r1, name), getattr(r2, name)):
+                return f"result {i}: {name} differs"
+        for name in ("wan_bytes", "coord_bytes"):
+            if getattr(r1, name) != getattr(r2, name):
+                return f"result {i}: {name} differs"
+        if r1.latency.total != r2.latency.total:
+            return f"result {i}: latency differs"
+    return None
+
+
+def conservation_errors(streams: Dict[str, Any],
+                        submitted: Dict[str, List[Any]]) -> List[str]:
+    """Streams whose finalized chunks are not exactly the submitted chunk
+    objects, each once and in order (stolen, requeued or not)."""
+    return [name for name, chunks in submitted.items()
+            if [id(c) for c, _, _ in streams[name].results]
+            != [id(c) for c in chunks]]

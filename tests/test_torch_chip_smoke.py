@@ -407,3 +407,160 @@ def test_detector_tie_frames_flags_scores_at_a_threshold(monkeypatch):
     monkeypatch.setattr(detector, "detect", at_threshold)
     ties2 = chip_smoke.detector_tie_frames(torch, np, params, chunk, "cpu")
     assert ties2[1] and (ties2 == (ties | np.eye(3, dtype=bool)[1])).all()
+
+
+def test_profile_device_retries_a_profile_without_device_time(monkeypatch):
+    import contextlib
+    import types
+
+    import torch.profiler
+
+    class Prof:
+        def key_averages(self):
+            return ["avgs"]
+
+    profiles = []
+
+    @contextlib.contextmanager
+    def profile(activities):
+        profiles.append(activities)
+        yield Prof()
+
+    monkeypatch.setattr(torch.profiler, "profile", profile)
+    fake = types.SimpleNamespace(cuda=types.SimpleNamespace(
+        synchronize=lambda: None))
+    found = iter([0.0, 7000.0])
+    monkeypatch.setattr(chip_smoke, "device_us_per_call",
+                        lambda avgs, reps, once=False: next(found))
+    calls = []
+    ms, avgs = chip_smoke.profile_device(fake, lambda: calls.append(1),
+                                         reps=3)
+    assert ms == pytest.approx(7.0) and avgs == ["avgs"]
+    assert len(profiles) == 2 and len(calls) == 1 + 2 * 3
+    # two empty profiles: reported as not measured, after one retry only
+    profiles.clear()
+    monkeypatch.setattr(chip_smoke, "device_us_per_call",
+                        lambda avgs, reps, once=False: 0.0)
+    assert chip_smoke.profile_device(fake, lambda: None)[0] is None
+    assert len(profiles) == 2
+
+
+def _report(**kw):
+    rep = {"frames": 64, "sched_finalizes": 16, "sched_events": 90,
+           "wall_s": 0.5, "frames_per_s": 128.0, "hot_inflight_peak": 3,
+           "detect_occupancy": 0.5, "steals": 0, "shards": 1}
+    rep.update(kw)
+    return rep
+
+
+def test_check_reports_passes_host_clock_and_partition_keys():
+    a = _report()
+    b = _report(wall_s=0.9, frames_per_s=71.1, sched_events=120,
+                hot_inflight_peak=5, detect_occupancy=0.3, steals=2,
+                shards=4)
+    chip_smoke.check_reports(a, b, "x", peaks=False)
+    with pytest.raises(AssertionError, match="hot_inflight_peak"):
+        chip_smoke.check_reports(a, b, "x", peaks=True)
+    with pytest.raises(AssertionError, match="sched_finalizes 16 vs 15"):
+        chip_smoke.check_reports(a, _report(sched_finalizes=15), "x",
+                                 peaks=False)
+    with pytest.raises(AssertionError, match="calls"):
+        chip_smoke.check_reports(a, _report(calls=3), "x", peaks=False)
+
+
+def _sched(results, live=None):
+    import types
+    store = None if live is None else types.SimpleNamespace(
+        live_refs=lambda: live)
+    streams = {name: types.SimpleNamespace(
+        results=[(c, None, "cloud") for c in chunks])
+        for name, chunks in results.items()}
+    return types.SimpleNamespace(streams=streams, store=store)
+
+
+def test_check_conservation_wants_each_chunk_once_in_order():
+    a, b, c = object(), object(), object()
+    submitted = {"cam0": [a, b], "cam1": [c]}
+    chip_smoke.check_conservation(_sched({"cam0": [a, b], "cam1": [c]}, {}),
+                                  submitted, "x")
+    for bad in ({"cam0": [b, a], "cam1": [c]},          # reordered
+                {"cam0": [a, b, b], "cam1": [c]},       # finalized twice
+                {"cam0": [a], "cam1": [c]},             # lost
+                {"cam0": [a, b], "cam1": [a]}):         # another's chunk
+        with pytest.raises(AssertionError, match="lost, repeated"):
+            chip_smoke.check_conservation(_sched(bad), submitted, "x")
+    with pytest.raises(AssertionError, match="live store references"):
+        chip_smoke.check_conservation(
+            _sched({"cam0": [a, b], "cam1": [c]}, {"k": 1}), submitted, "x")
+
+
+def test_check_same_results_compares_every_array_and_latency():
+    import types
+
+    import numpy as np
+
+    def res(score, total=1.0):
+        return types.SimpleNamespace(
+            boxes=np.zeros((1, 2, 4)), labels=np.zeros((1, 2), int),
+            valid=np.ones((1, 2), bool), fog_features=np.zeros((1, 2, 3)),
+            fog_scores=np.full((1, 2, 2), score), wan_bytes=10.0,
+            coord_bytes=2.0, latency=types.SimpleNamespace(total=total))
+
+    chunk = object()
+
+    def sched(r):
+        return types.SimpleNamespace(streams={"cam0": types.SimpleNamespace(
+            results=[(chunk, r, "cloud")])})
+
+    chip_smoke.check_same_results(sched(res(0.25)), sched(res(0.25)), "x")
+    with pytest.raises(AssertionError, match="fog_scores differs"):
+        chip_smoke.check_same_results(sched(res(0.25)),
+                                      sched(res(np.nextafter(0.25, 1))), "x")
+    with pytest.raises(AssertionError, match="latency differs"):
+        chip_smoke.check_same_results(sched(res(0.25)),
+                                      sched(res(0.25, 1.5)), "x")
+
+
+def test_compare_tenant_outputs_holds_answers_and_products():
+    import types
+
+    import numpy as np
+    chunk = object()
+
+    def states(answers, products, scores):
+        pipe = types.SimpleNamespace()
+        casc = {"answers": np.asarray(answers, np.int32), "escalated": 1,
+                "frames": 2}
+        shop = {"products": np.asarray(products, np.int32),
+                "scores": np.asarray(scores, np.float32), "frames": 2}
+        return [types.SimpleNamespace(
+            name=name, tenant=types.SimpleNamespace(pipeline=p),
+            results=[(chunk, types.SimpleNamespace(outputs=o), "cloud")])
+            for name, p, o in (("cam0", None, None), ("cam1", pipe, casc),
+                               ("cam2", pipe, shop))]
+
+    want = states([3, 4], [7, 9], [0.5, 0.25])
+    assert chip_smoke.compare_tenant_outputs(
+        np, want, states([3, 4], [7, 9], [0.500004, 0.25])) == 2
+    with pytest.raises(AssertionError, match="cascade answers differ"):
+        chip_smoke.compare_tenant_outputs(
+            np, want, states([3, 5], [7, 9], [0.5, 0.25]))
+    with pytest.raises(AssertionError, match="product ids differ"):
+        chip_smoke.compare_tenant_outputs(
+            np, want, states([3, 4], [7, 8], [0.5, 0.25]))
+    with pytest.raises(AssertionError):
+        chip_smoke.compare_tenant_outputs(
+            np, want, states([3, 4], [7, 9], [0.5, 0.2501]))
+
+
+def test_cascade_launches_follow_the_cut():
+    from repro_torch.configs import get_config
+    cfg = get_config("zamba2-7b")
+    cut = chip_smoke.nine_layer_cut(cfg)
+    assert (cut.num_layers, cut.num_blocks) == (9, 1)
+    assert (cut.vocab_size, cut.d_model) == (cfg.vocab_size, cfg.d_model)
+    n_pre = len(cfg.prefix_layers)
+    per_block = sum(k == "ssm" for k in cfg.block_pattern)
+    assert chip_smoke.llm_kernel_calls(cfg) == (10, n_pre + 10 * per_block)
+    assert chip_smoke.llm_kernel_calls(cut) == (1, n_pre + per_block)
+    assert n_pre + len(cfg.block_pattern) == 9

@@ -706,3 +706,64 @@ def test_train_step_on_the_card_matches_cpu_and_itself(cuda, name):
     card = train_run(name, cuda, 1)
     assert train_runs_identical(card, train_run(name, cuda, 1))
     assert_train_runs_match(card, train_run(name, "cpu", 1), name)
+
+
+def test_sharded_fused_run_with_store_on_the_card_matches_cpu(cuda):
+    # K = 2 shards with the claim-check store on: the store holds the
+    # encoded frames as CUDA tensors; results within MODEL_ATOL of the CPU
+    from repro_torch.serving.ingest import ArtifactStore
+    set_reference_precision()
+    det = cfg.DetectorConfig(name="d", image_hw=(32, 32), widths=(8, 16))
+    clf = cfg.ClassifierConfig(name="c", crop_hw=(16, 16), widths=(8, 16),
+                               feature_dim=16)
+    streams = [[synthetic.make_chunk(np.random.default_rng(300 + 10 * i + j),
+                                     "traffic", num_frames=2, hw=(32, 32))
+                for j in range(2)] for i in range(6)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        multi = MultiStreamCoordinator(
+            HighLowProtocol(det, clf, device=dev),
+            weights.init_detector(det, torch.Generator().manual_seed(0), dev),
+            weights.init_classifier(clf, torch.Generator().manual_seed(1),
+                                    dev),
+            streams, max_batch_chunks=2, batch_window=0.05,
+            hot_path="fused", num_shards=2, use_store=True, device=dev)
+        ops.reset_launch_counts()
+        multi.run(learn=False)
+        multi.scheduler.drain()
+        runs[dev] = multi
+        stored = [e.payload for e in multi.scheduler.store._entries.values()]
+        assert stored and all(isinstance(p, torch.Tensor)
+                              and p.device.type == dev for p in stored)
+        if dev == "cuda":
+            assert ops.launch_counts()["region_filter_mask_batch"] > 0
+    for name, st in runs["cuda"].scheduler.streams.items():
+        other = runs["cpu"].scheduler.streams[name]
+        assert len(st.results) == len(other.results) == 2
+        for (c1, a, m1), (c2, b, m2) in zip(st.results, other.results):
+            assert c1 is c2 and m1 == m2
+            np.testing.assert_array_equal(a.prop_valid, b.prop_valid)
+            np.testing.assert_allclose(a.fog_scores, b.fog_scores,
+                                       atol=MODEL_ATOL, rtol=0)
+            np.testing.assert_allclose(a.boxes, b.boxes, atol=MODEL_ATOL,
+                                       rtol=0)
+
+
+def test_integrity_store_repairs_a_corrupted_cuda_payload(cuda):
+    from repro_torch.serving.ingest import ArtifactCorrupted, ArtifactStore
+    store = ArtifactStore(integrity=True)
+    payload = torch.rand(2, 8, 8, 3, device=cuda)
+    ref = store.put(payload, key="k0")
+    assert ref.nbytes == payload.numel() * 4 and ref.dtype == torch.float32
+    assert store.get(ref) is payload
+    store.corrupt("k0")
+    bad = store._entries["k0"].payload
+    assert bad.is_cuda and bad.dtype == payload.dtype
+    assert bad.data_ptr() != payload.data_ptr()
+    assert not torch.equal(bad, payload)
+    with pytest.raises(ArtifactCorrupted):
+        store.get(ref)
+    store.repair("k0", payload.clone())
+    assert torch.equal(store.get(ref), payload)
+    assert store.stats["corruptions_detected"] == 1
+    assert store.stats["corruptions_repaired"] == 1

@@ -22,9 +22,18 @@ import chip_smoke                  # imported, not run
 assert callable(chip_smoke.main)
 from repro_torch.baselines import (BaselineResult, CloudSegBaseline,
                                    DDSBaseline, GlimpseBaseline, MPEGBaseline)
-from repro_torch.serving.policies import default_policies
+from repro_torch.serving.policies import (default_policies,
+                                          default_tenant_pipelines)
 assert default_policies().list() == ["cloudseg", "dds", "glimpse", "mpeg",
                                      "vpaas-highlow"]
+assert default_tenant_pipelines().list() == ["detection", "llm-cascade",
+                                             "retail-content"]
+from repro_torch.core.cascade import BigLittleCascade
+from repro_torch.serving.shards import ShardedScheduler
+from repro_torch.serving.tenancy import content_pipeline, llm_cascade_pipeline
+assert not any(m == "jax" or m.startswith(("jax.", "repro."))
+               or m == "repro" for m in sys.modules
+               if sys.modules[m] is not None)
 print(" ".join(names))
 print(len(names))
 """
@@ -39,13 +48,14 @@ def test_port_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 74      # every module imported
+    assert int(proc.stdout.split()[-1]) >= 76      # every module imported
     names = proc.stdout.split()
     for mod in ("baselines.common", "baselines.mpeg", "baselines.glimpse",
                 "baselines.cloudseg", "baselines.dds", "serving.policies",
                 "kernels.iou_matrix", "kernels.region_filter_mask",
                 "training.checkpoint", "training.data",
-                "training.optimizer", "training.train_loop"):
+                "training.optimizer", "training.train_loop",
+                "serving.shards", "core.cascade"):
         assert f"repro_torch.{mod}" in names, mod
 
 
