@@ -22,7 +22,7 @@
 // 67 TFLOP/s on the CUDA cores, ~7 us with the products' 3 x 1.1 GFLOP at
 // the tensor cores' 495 TFLOP/s dense TF32.
 //
-// Design (d <= 128): both products run on the tensor cores with
+// Design (d = d_v <= 128): both products run on the tensor cores with
 // mma.sync m16n8k8 tf32 in 3xTF32 split precision, the arithmetic of
 // PyTorch's own fp32 attention on sm80+: each fp32 operand x is split into
 // hi = tf32(x) and lo = tf32(x - hi), and each 16x8x8 step sums lo*hi and
@@ -55,12 +55,18 @@
 // (148,480 B of Q and the K/V ring at d = 112), so SMs that finish light
 // tiles take the rest.
 //
-// d > 128 (gemma2's 256; no smoke path's main shape) keeps the CUDA-core
-// kernel below, chosen by d: one block per (32-row query tile, q-head,
-// batch row), four warps of eight rows, K/V tiles of 32 keys staged in
-// shared memory, one key per lane for QK^T, ceil(d/32) output columns per
-// lane for PV.  Its O accumulator would need 128 registers a lane in the
-// tensor-core layout.
+// d > 128 (gemma2's 256) and every value head dim of its own (d_v != d:
+// MLA's prefill, d = 192 and d_v = 128 at deepseek-v2-lite's width, 96 and
+// 64 in its smoke config) take the CUDA-core kernel below, chosen by the
+// shapes: one block per (32-row query tile, q-head, batch row), four warps
+// of eight rows, K/V tiles of 32 keys staged in shared memory, one key per
+// lane for QK^T over d, NC = ceil(d_v/32) output columns per lane for PV
+// (NC = 2, 4 or 8).  Its O accumulator would need 128 registers a lane in
+// the tensor-core layout at d = 256, and the tensor-core kernel's Q tile
+// and K/V ring take 250,880 B of shared memory at d = 192, past the 227 KB
+// a block may have.  At MLA's prefill (384 queries against the 512-slot
+// cache, 16 heads, 73,920 causal pairs a head) the work is ~0.76 GFLOP
+// for ~5.5 us of bytes: operations bound it, ~11 us at fp32's 67 TFLOP/s.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -72,7 +78,7 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
-// tensor-core kernel, d <= 128
+// tensor-core kernel, d = d_v <= 128
 // ---------------------------------------------------------------------------
 namespace tc {
 
@@ -409,7 +415,7 @@ int launch(const float* q, const float* k, const float* v, const int32_t* qo,
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// CUDA-core kernel, 128 < d <= 256
+// CUDA-core kernel: 128 < d <= 256, or a value head dim d_v < d
 // ---------------------------------------------------------------------------
 namespace simt {
 
@@ -419,9 +425,9 @@ constexpr int kBQ = kWarps * kRows;       // query rows per block
 constexpr int kBK = 32;                   // keys per tile: one per lane
 constexpr int kThreads = kWarps * 32;
 
-size_t smem_bytes(int D) {
+size_t smem_bytes(int D, int Dv) {
   return sizeof(float) * ((size_t)kBQ * D + (size_t)kBK * (D + 1) +
-                          (size_t)kBK * D + (size_t)kWarps * kRows * kBK);
+                          (size_t)kBK * Dv + (size_t)kWarps * kRows * kBK);
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -434,7 +440,7 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// NC = output columns per lane: d <= 32 * NC.
+// NC = output columns per lane: d_v <= 32 * NC.
 template <int NC>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_simt_kernel(const float* __restrict__ q,
@@ -442,13 +448,13 @@ flash_attention_simt_kernel(const float* __restrict__ q,
                             const float* __restrict__ v,
                             const int32_t* __restrict__ q_offset,
                             float* __restrict__ out, int Sq, int Skv, int Hq,
-                            int Hkv, int D, int causal, int window,
+                            int Hkv, int D, int Dv, int causal, int window,
                             float softcap, float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;                        // [kBQ][D]
   float* Ks = Qs + kBQ * D;                // [kBK][D + 1]
-  float* Vs = Ks + kBK * (D + 1);          // [kBK][D]
-  float* Ps = Vs + kBK * D;                // [kWarps][kRows][kBK]
+  float* Vs = Ks + kBK * (D + 1);          // [kBK][Dv]
+  float* Ps = Vs + kBK * Dv;               // [kWarps][kRows][kBK]
 
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
@@ -491,14 +497,15 @@ flash_attention_simt_kernel(const float* __restrict__ q,
       const int j = e / D;
       const int t = e - j * D;
       const int key = kt + j;
-      float kx = 0.f, vx = 0.f;
-      if (key < kv_hi) {
-        const size_t g = (((size_t)b * Skv + key) * Hkv + hk) * D + t;
-        kx = k[g];
-        vx = v[g];
-      }
-      Ks[j * (D + 1) + t] = kx;
-      Vs[j * D + t] = vx;
+      Ks[j * (D + 1) + t] =
+          key < kv_hi ? k[(((size_t)b * Skv + key) * Hkv + hk) * D + t] : 0.f;
+    }
+    for (int e = tid; e < kBK * Dv; e += kThreads) {
+      const int j = e / Dv;
+      const int t = e - j * Dv;
+      const int key = kt + j;
+      Vs[j * Dv + t] =
+          key < kv_hi ? v[(((size_t)b * Skv + key) * Hkv + hk) * Dv + t] : 0.f;
     }
     __syncthreads();
 
@@ -538,7 +545,7 @@ flash_attention_simt_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int i = 0; i < NC; ++i) {
         const int c = lane + 32 * i;
-        vx[i] = c < D ? Vs[j * D + c] : 0.f;
+        vx[i] = c < Dv ? Vs[j * Dv + c] : 0.f;
       }
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
@@ -553,7 +560,7 @@ flash_attention_simt_kernel(const float* __restrict__ q,
   for (int r = 0; r < kRows; ++r) {
     const int row = r0 + r;
     if (row >= qrows) continue;
-    float* o = out + (((size_t)b * Sq + q0 + row) * Hq + h) * D;
+    float* o = out + (((size_t)b * Sq + q0 + row) * Hq + h) * Dv;
     if (m[r] == -INFINITY) {
       // no valid key: the plain version's softmax over Skv equal -1e30
       // logits is uniform, so the row is the mean of V
@@ -561,58 +568,82 @@ flash_attention_simt_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int i = 0; i < NC; ++i) sum[i] = 0.f;
       for (int j = 0; j < Skv; ++j) {
-        const float* vr = v + (((size_t)b * Skv + j) * Hkv + hk) * D;
+        const float* vr = v + (((size_t)b * Skv + j) * Hkv + hk) * Dv;
 #pragma unroll
         for (int i = 0; i < NC; ++i) {
           const int c = lane + 32 * i;
-          if (c < D) sum[i] += vr[c];
+          if (c < Dv) sum[i] += vr[c];
         }
       }
 #pragma unroll
       for (int i = 0; i < NC; ++i) {
         const int c = lane + 32 * i;
-        if (c < D) o[c] = sum[i] / (float)Skv;
+        if (c < Dv) o[c] = sum[i] / (float)Skv;
       }
     } else {
 #pragma unroll
       for (int i = 0; i < NC; ++i) {
         const int c = lane + 32 * i;
-        if (c < D) o[c] = acc[r][i] / l[r];
+        if (c < Dv) o[c] = acc[r][i] / l[r];
       }
     }
   }
 }
 
-int launch(const float* q, const float* k, const float* v, const int32_t* qo,
-           float* out, int B, int Sq, int Skv, int Hq, int Hkv, int D,
-           int causal, int window, float softcap, float scale,
-           cudaStream_t stream) {
-  constexpr int NC = 8;                  // output columns per lane
-  const size_t smem = smem_bytes(D);
+template <int NC>
+int launch_nc(const float* q, const float* k, const float* v,
+              const int32_t* qo, float* out, int B, int Sq, int Skv, int Hq,
+              int Hkv, int D, int Dv, int causal, int window, float softcap,
+              float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes(D, Dv);
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_simt_kernel<NC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
   flash_attention_simt_kernel<NC><<<grid, kThreads, smem, stream>>>(
-      q, k, v, qo, out, Sq, Skv, Hq, Hkv, D, causal, window, softcap, scale);
+      q, k, v, qo, out, Sq, Skv, Hq, Hkv, D, Dv, causal, window, softcap,
+      scale);
   return (int)cudaGetLastError();
+}
+
+// output columns per lane: the fewest that cover d_v
+int launch(const float* q, const float* k, const float* v, const int32_t* qo,
+           float* out, int B, int Sq, int Skv, int Hq, int Hkv, int D, int Dv,
+           int causal, int window, float softcap, float scale,
+           cudaStream_t stream) {
+  if (Dv <= 64)
+    return launch_nc<2>(q, k, v, qo, out, B, Sq, Skv, Hq, Hkv, D, Dv, causal,
+                        window, softcap, scale, stream);
+  if (Dv <= 128)
+    return launch_nc<4>(q, k, v, qo, out, B, Sq, Skv, Hq, Hkv, D, Dv, causal,
+                        window, softcap, scale, stream);
+  return launch_nc<8>(q, k, v, qo, out, B, Sq, Skv, Hq, Hkv, D, Dv, causal,
+                      window, softcap, scale, stream);
 }
 
 }  // namespace simt
 
 }  // namespace
 
-// q (B, Sq, Hq, D), k and v (B, Skv, Hkv, D) f32, q_offset (B,) int32 ->
-// out (B, Sq, Hq, D).  window <= 0: none; softcap <= 0: none.
+// 1 where vpaas_flash_attention runs these head dims on the tensor cores
+// (Dv == D <= 128), 0 where it runs them on the CUDA cores
+extern "C" int vpaas_flash_attention_on_tensor_cores(int D, int Dv) {
+  return Dv == D && D <= 128;
+}
+
+// q (B, Sq, Hq, D), k (B, Skv, Hkv, D), v (B, Skv, Hkv, Dv) f32, q_offset
+// (B,) int32 -> out (B, Sq, Hq, Dv), Dv <= D <= 256.  window <= 0: none;
+// softcap <= 0: none.
 extern "C" int vpaas_flash_attention(const void* q, const void* k,
                                      const void* v, const void* q_offset,
                                      void* out, int B, int Sq, int Skv, int Hq,
-                                     int Hkv, int D, int causal, int window,
-                                     float softcap, float scale,
+                                     int Hkv, int D, int Dv, int causal,
+                                     int window, float softcap, float scale,
                                      void* stream) {
   if (B == 0 || Sq == 0) return 0;
-  if (Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > 256)
+  if (Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > 256 ||
+      Dv <= 0 || Dv > D)
     return (int)cudaErrorInvalidValue;
   const float* qf = static_cast<const float*>(q);
   const float* kf = static_cast<const float*>(k);
@@ -620,6 +651,9 @@ extern "C" int vpaas_flash_attention(const void* q, const void* k,
   const int32_t* qo = static_cast<const int32_t*>(q_offset);
   float* of = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!vpaas_flash_attention_on_tensor_cores(D, Dv))
+    return simt::launch(qf, kf, vf, qo, of, B, Sq, Skv, Hq, Hkv, D, Dv,
+                        causal, window, softcap, scale, st);
   if (D <= 32)
     return tc::launch<4>(qf, kf, vf, qo, of, B, Sq, Skv, Hq, Hkv, D, causal,
                           window, softcap, scale, st);
@@ -632,9 +666,6 @@ extern "C" int vpaas_flash_attention(const void* q, const void* k,
   if (D <= 112)
     return tc::launch<14>(qf, kf, vf, qo, of, B, Sq, Skv, Hq, Hkv, D,
                            causal, window, softcap, scale, st);
-  if (D <= 128)
-    return tc::launch<16>(qf, kf, vf, qo, of, B, Sq, Skv, Hq, Hkv, D,
-                           causal, window, softcap, scale, st);
-  return simt::launch(qf, kf, vf, qo, of, B, Sq, Skv, Hq, Hkv, D, causal,
-                      window, softcap, scale, st);
+  return tc::launch<16>(qf, kf, vf, qo, of, B, Sq, Skv, Hq, Hkv, D, causal,
+                        window, softcap, scale, st);
 }

@@ -67,12 +67,19 @@ SIGNATURES = {
     "vpaas_onevsall_replay":
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "vpaas_flash_attention":
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+         _P],
     "vpaas_decode_attention":
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
          _P],
     "vpaas_ssd_scan":
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+}
+
+# query name -> argtypes: host functions of the sources that answer what a
+# launcher would do (no stream, no launch)
+QUERIES = {
+    "vpaas_flash_attention_on_tensor_cores": [_I, _I],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -145,7 +152,7 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        for fn, argtypes in SIGNATURES.items():
+        for fn, argtypes in {**SIGNATURES, **QUERIES}.items():
             f = getattr(lib, fn)
             f.argtypes = argtypes
             f.restype = ctypes.c_int
@@ -174,6 +181,13 @@ def launch(fn: str, *args) -> None:
     if rc != 0:
         msg = _lib.vpaas_error_string(rc).decode()
         raise RuntimeError(f"{fn} failed to launch: CUDA error {rc} ({msg})")
+
+
+def query(fn: str, *args) -> int:
+    """Call one of the library's host queries (``QUERIES``)."""
+    if _lib is None:
+        library()
+    return _fns[fn](*args)
 
 
 MAX_CACHED = 256      # argument structs kept per cache

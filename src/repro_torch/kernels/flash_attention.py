@@ -3,10 +3,12 @@
 Port of the Pallas kernel ``repro.kernels.flash_attention.flash_attention``
 (source: ``csrc/flash_attention.cu``): GQA attention with an online softmax,
 causal mask, optional sliding window and logit softcap, float32, its two
-products on the tensor cores in 3xTF32 for head dims up to 128 (CUDA cores
-above).  The query offset is a device array read at run time (a scalar is
-broadcast to one entry per batch row), so the cache prefill's per-row cache
-index takes the kernel too.  The plain PyTorch version is :func:`flash_attention_ref`
+products on the tensor cores in 3xTF32 where q, k and v share a head dim
+up to 128, on the CUDA cores above it and wherever v has a head dim of its
+own (MLA's prefill: d = 192 for q and k, 128 for v).  The query offset is
+a device array read at run time (a scalar is broadcast to one entry per
+batch row), so the cache prefill's per-row cache index takes the kernel
+too.  The plain PyTorch version is :func:`flash_attention_ref`
 (``ref.flash_attention``); the kernel agrees with it within
 ``testing.ATTN_ATOL``.
 """
@@ -23,7 +25,12 @@ launches = 0          # kernel launches since the last reset (ops.py)
 flash_attention_ref = ref.flash_attention
 
 MAX_HEAD_DIM = 256
-MMA_HEAD_DIM = 128    # up to here the tensor-core kernel, above the SIMT one
+
+
+def on_tensor_cores(d: int, d_v: int) -> bool:
+    """Whether the launcher runs these head dims on its tensor-core kernel
+    (else on its CUDA-core one), as the built library answers it."""
+    return bool(_build.query("vpaas_flash_attention_on_tensor_cores", d, d_v))
 
 
 def row_array(value, b: int, device, name: str) -> torch.Tensor:
@@ -55,24 +62,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None,
                     q_offset=0) -> torch.Tensor:
-    """q (b, s_q, n_q, d), k and v (b, s_kv, n_kv, d) -> (b, s_q, n_q, d)."""
+    """q (b, s_q, n_q, d), k (b, s_kv, n_kv, d) and v (b, s_kv, n_kv, d_v)
+    -> (b, s_q, n_q, d_v), with d_v <= d; the logits are scaled by
+    d ** -0.5."""
     global launches
     b, s_q, n_q, d = q.shape
-    s_kv, n_kv = k.shape[1], k.shape[2]
+    s_kv, n_kv, d_v = k.shape[1], k.shape[2], v.shape[-1]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _build.check_operands(("q", q, torch.float32, None),
                           ("k", k, torch.float32, (b, s_kv, n_kv, d)),
-                          ("v", v, torch.float32, (b, s_kv, n_kv, d)))
-    if n_kv == 0 or n_q % n_kv or not 0 < d <= MAX_HEAD_DIM or s_kv == 0:
+                          ("v", v, torch.float32, (b, s_kv, n_kv, d_v)))
+    if (n_kv == 0 or n_q % n_kv or not 0 < d_v <= d <= MAX_HEAD_DIM
+            or s_kv == 0):
         raise ValueError(f"flash_attention: unsupported heads {n_q}/{n_kv}, "
-                         f"head dim {d} or {s_kv} keys")
+                         f"head dims {d}/{d_v} or {s_kv} keys")
     check_options(window, softcap)
     off = row_array(q_offset, b, q.device, "q_offset")
-    out = torch.empty_like(q)
+    out = q.new_empty((b, s_q, n_q, d_v))
     if b and s_q:
         _build.launch("vpaas_flash_attention", q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), off.data_ptr(), out.data_ptr(), b, s_q,
-                      s_kv, n_q, n_kv, d, int(causal), window or 0,
+                      s_kv, n_q, n_kv, d, d_v, int(causal), window or 0,
                       float(softcap or 0.0), d ** -0.5)
         launches += 1
     return out

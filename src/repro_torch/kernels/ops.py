@@ -161,7 +161,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     window: Optional[int] = None,
                     softcap: Optional[float] = None,
                     q_offset=0) -> torch.Tensor:
-    """GQA prefill attention (K6); ``q_offset`` an int, 0-d or (b,)."""
+    """GQA prefill attention (K6); ``q_offset`` an int, 0-d or (b,); v may
+    have a head dim of its own, no larger than q's and k's (MLA)."""
     kw = dict(causal=causal, window=window, softcap=softcap,
               q_offset=q_offset)
     if _on_card(q, k, v):

@@ -204,7 +204,7 @@ def _softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
 def flash_attention(
     q: torch.Tensor,            # (b, s_q, n_q, d)
     k: torch.Tensor,            # (b, s_kv, n_kv, d)
-    v: torch.Tensor,            # (b, s_kv, n_kv, d)
+    v: torch.Tensor,            # (b, s_kv, n_kv, d_v); d_v may differ (MLA)
     *,
     causal: bool = True,
     window: Optional[int] = None,

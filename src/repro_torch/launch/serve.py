@@ -6,6 +6,12 @@ from a ``torch.Generator`` on the device, seed 0):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
       --requests 8 --slots 4 --max-seq 512 --prompt-len 384
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek-v2-lite-16b-smoke --device cpu      # MoE + MLA
+
+A config with frontend context (musicgen, llama-vision) is refused, as in
+the reference: the server takes no frontend embeddings.  Drive it through
+``transformer.prefill`` / ``decode_step`` with ``ctx_embed``.
 
 Video mode (N camera streams through the function graph with cross-stream
 batched cloud inference + autoscaling):
@@ -50,8 +56,9 @@ def serve_llm(args) -> None:
 
     cfg = get_config(args.arch)
     if cfg.num_ctx_tokens:
-        raise SystemExit(f"{cfg.name} needs frontend embeddings, which the "
-                         "port does not serve yet")
+        raise SystemExit(f"{cfg.name} needs frontend embeddings, which "
+                         "LLMServer does not take; call transformer.prefill "
+                         "/ decode_step with ctx_embed instead")
     device = require_device(args.device)
     set_reference_precision()
     params = tfm.init_params(cfg, 0, device)

@@ -1,6 +1,6 @@
-"""Shared primitive layers: RMSNorm, RoPE, gated MLP, embeddings (port of
-``repro.models.layers``).  Matmul weights keep the JAX ``(in, out)`` layout:
-a projection is ``x @ w``."""
+"""Shared primitive layers: RMSNorm, RoPE, gated MLP, embeddings, softcap
+(port of ``repro.models.layers``).  Matmul weights keep the JAX
+``(in, out)`` layout: a projection is ``x @ w``."""
 from __future__ import annotations
 
 from typing import Optional
@@ -84,12 +84,17 @@ def embed(params, tokens: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def unembed(params, x: torch.Tensor,
-            softcap: Optional[float] = None) -> torch.Tensor:
+            cap: Optional[float] = None) -> torch.Tensor:
     if "lm_head" in params:
         logits = x @ params["lm_head"].to(x.dtype)
     else:
         logits = x @ params["embedding"].to(x.dtype).T
-    logits = logits.float()
-    if softcap is not None:
-        logits = softcap * torch.tanh(logits / softcap)
-    return logits
+    return softcap(logits.float(), cap)
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """``cap * tanh(x / cap)``, or ``x`` when ``cap`` is None."""
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)
+

@@ -1,5 +1,7 @@
-"""Generic decoder stack (port of ``repro.models.transformer`` for the layer
-kinds ATTN, LOCAL, SSM, SSM_FFN and SHARED_ATTN).
+"""Generic decoder stack covering every assigned architecture family (port
+of ``repro.models.transformer``: the layer kinds ATTN, LOCAL, MOE, CROSS,
+SSM, SSM_FFN and SHARED_ATTN, MLA or GQA attention, and the frontend
+context of the VLM and audio families).
 
 The layer stack is ``prefix_layers + num_blocks * block_pattern +
 suffix_layers``.  The repeated pattern keeps the JAX package's stacked
@@ -9,11 +11,10 @@ dim in Python.  Shared-weight attention blocks (zamba2) use the single
 ``shared`` parameter set at every occurrence but keep per-occurrence KV
 caches inside ``blocks/<i>``.  Parameter and cache trees keep the JAX
 package's keys, so :func:`repro_torch.weights.llm_from_numpy_tree` maps one
-onto the other.
-
-MoE, cross-attention (and its frontend embeddings) and MLA come with a
-later slice (ROADMAP M11): a config that needs them raises
-``NotImplementedError``.
+onto the other.  A config with ``num_ctx_tokens`` (cross-attention over
+frontend embeddings: llama-vision, musicgen) needs ``ctx_embed`` in every
+call, as in the reference; ``LLMServer`` takes none, so such a config runs
+through ``prefill`` / ``decode_step`` directly.
 
 Public API:
   init_params(cfg, seed, device) / init_cache(cfg, batch, max_seq, device)
@@ -31,45 +32,48 @@ import torch
 from repro_torch.configs.base import (ATTN, CROSS, LOCAL, MOE, SHARED_ATTN,
                                       SSM, SSM_FFN, ModelConfig)
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import schema as sch
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (embed, embed_schema, mlp, mlp_schema,
                                        rmsnorm, rmsnorm_schema, unembed)
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    kinds = set(cfg.prefix_layers + cfg.block_pattern + cfg.suffix_layers)
-    for what, needed in (("MoE layers", MOE in kinds),
-                         ("cross-attention layers", CROSS in kinds),
-                         ("frontend context embeddings",
-                          bool(cfg.num_ctx_tokens)),
-                         ("MLA attention layers", cfg.mla)):
-        if needed:
-            raise NotImplementedError(
-                f"{cfg.name}: {what} are not ported yet (ROADMAP M11: MoE, "
-                "cross-attention, MLA)")
+from repro_torch.models.schema import Leaf
 
 
 # ---------------------------------------------------------------------------
 # Schemas
 # ---------------------------------------------------------------------------
+def _mixer_schema(cfg: ModelConfig):
+    return attn_mod.mla_schema(cfg) if cfg.mla else attn_mod.attn_schema(cfg)
+
+
 def layer_schema(cfg: ModelConfig, kind: str):
     d = cfg.d_model
     if kind in (ATTN, LOCAL, SHARED_ATTN):
-        return {"ln": rmsnorm_schema(d), "attn": attn_mod.attn_schema(cfg),
+        return {"ln": rmsnorm_schema(d), "attn": _mixer_schema(cfg),
                 "ln2": rmsnorm_schema(d), "mlp": mlp_schema(cfg)}
+    if kind == MOE:
+        return {"ln": rmsnorm_schema(d), "attn": _mixer_schema(cfg),
+                "ln2": rmsnorm_schema(d), "moe": moe_mod.moe_schema(cfg)}
     if kind == SSM:
         return {"ln": rmsnorm_schema(d), "ssm": ssm_mod.ssm_schema(cfg)}
     if kind == SSM_FFN:
         return {"ln": rmsnorm_schema(d), "ssm": ssm_mod.ssm_schema(cfg),
                 "ln2": rmsnorm_schema(d), "mlp": mlp_schema(cfg)}
+    if kind == CROSS:
+        return {"ln": rmsnorm_schema(d), "attn": _mixer_schema(cfg),
+                "ln2": rmsnorm_schema(d),
+                "xattn": attn_mod.cross_attn_schema(cfg),
+                "ln3": rmsnorm_schema(d), "mlp": mlp_schema(cfg)}
     raise ValueError(kind)
 
 
 def layer_cache_shapes(cfg: ModelConfig, kind: str, batch: int,
                        max_seq: int):
     """Shape dict for one layer's decode cache."""
-    if kind in (ATTN, LOCAL, SHARED_ATTN):
+    if kind in (ATTN, LOCAL, MOE, CROSS, SHARED_ATTN):
+        if cfg.mla:
+            return attn_mod.mla_cache_spec(cfg, batch, max_seq)
         return attn_mod.attn_cache_spec(cfg, batch, max_seq)
     if kind in (SSM, SSM_FFN):
         return ssm_mod.ssm_cache_spec(cfg, batch)
@@ -77,8 +81,11 @@ def layer_cache_shapes(cfg: ModelConfig, kind: str, batch: int,
 
 
 def model_schema(cfg: ModelConfig):
-    check_supported(cfg)
     s: Dict[str, Any] = {"embed": embed_schema(cfg)}
+    if cfg.num_ctx_tokens:
+        ctx_dim = cfg.ctx_dim or cfg.d_model
+        s["ctx_proj"] = Leaf((ctx_dim, cfg.d_model), ("ctx", "embed"),
+                             "fan_in")
     if cfg.prefix_layers:
         s["prefix"] = {str(i): layer_schema(cfg, k)
                        for i, k in enumerate(cfg.prefix_layers)}
@@ -123,7 +130,6 @@ def _cache_shapes(cfg: ModelConfig, batch: int, max_seq: int):
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
     """Zeroed float32 decode cache (the SSM ``state`` is float32 in every
     configuration, as in the reference)."""
-    check_supported(cfg)
     return {part: {key: {name: torch.zeros(shp, dtype=torch.float32,
                                            device=device)
                          for name, shp in layer.items()}
@@ -142,8 +148,9 @@ def _write_back(dst: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]):
 # ---------------------------------------------------------------------------
 # Layer application
 # ---------------------------------------------------------------------------
-def _apply_layer(cfg: ModelConfig, kind: str, params, x, *, positions, cache,
-                 cache_index):
+def _apply_layer(cfg: ModelConfig, kind: str, params, x, *, positions, ctx,
+                 cache, cache_index, moe_groups):
+    """One layer: (x, its new cache or None, its aux loss or None)."""
     window = cfg.sliding_window if kind == LOCAL else None
     c = cache if cache else None
 
@@ -154,36 +161,49 @@ def _apply_layer(cfg: ModelConfig, kind: str, params, x, *, positions, cache,
         x = x + h
         if kind == SSM_FFN:
             x = x + mlp(params["mlp"], rmsnorm(params["ln2"], x, cfg.norm_eps))
-        return x, new_c
+        return x, new_c, None
 
-    h, new_c = attn_mod.self_attention(
-        cfg, params["attn"], rmsnorm(params["ln"], x, cfg.norm_eps),
-        positions, window=window, cache=c, cache_index=cache_index)
+    # attention-bearing kinds
+    h_in = rmsnorm(params["ln"], x, cfg.norm_eps)
+    if cfg.mla:
+        h, new_c = attn_mod.mla_attention(cfg, params["attn"], h_in,
+                                          positions, cache=c,
+                                          cache_index=cache_index)
+    else:
+        h, new_c = attn_mod.self_attention(cfg, params["attn"], h_in,
+                                           positions, window=window, cache=c,
+                                           cache_index=cache_index)
     x = x + h
-    x = x + mlp(params["mlp"], rmsnorm(params["ln2"], x, cfg.norm_eps))
-    return x, new_c
+
+    aux = None
+    if kind == CROSS:
+        x = x + attn_mod.cross_attention(
+            cfg, params["xattn"], rmsnorm(params["ln2"], x, cfg.norm_eps),
+            ctx)
+        x = x + mlp(params["mlp"], rmsnorm(params["ln3"], x, cfg.norm_eps))
+    elif kind == MOE:
+        h, aux = moe_mod.moe_apply(cfg, params["moe"],
+                                   rmsnorm(params["ln2"], x, cfg.norm_eps),
+                                   groups=moe_groups)
+        x = x + h
+    else:
+        x = x + mlp(params["mlp"], rmsnorm(params["ln2"], x, cfg.norm_eps))
+    return x, new_c, aux
 
 
-def _apply_stack(cfg: ModelConfig, kinds, layer_params, x, cache, **kw):
-    """Layers ``kinds`` (prefix or suffix), writing their caches back."""
+def _apply_layers(cfg: ModelConfig, kinds, layer_params, x, cache, aux,
+                  shared_params=None, **kw):
+    """Layers ``kinds`` (prefix, suffix or one block unit) in order, writing
+    their caches back; returns x and ``aux`` plus their aux losses."""
     for i, kind in enumerate(kinds):
+        p = shared_params if kind == SHARED_ATTN else layer_params[str(i)]
         c = cache[str(i)] if cache is not None else None
-        x, nc = _apply_layer(cfg, kind, layer_params[str(i)], x, cache=c,
-                             **kw)
+        x, nc, a = _apply_layer(cfg, kind, p, x, cache=c, **kw)
         if nc is not None:
             _write_back(c, nc)
-    return x
-
-
-def _apply_unit(cfg: ModelConfig, unit_params, shared_params, x, unit_cache,
-                **kw):
-    for i, kind in enumerate(cfg.block_pattern):
-        p = shared_params if kind == SHARED_ATTN else unit_params[str(i)]
-        c = unit_cache[str(i)] if unit_cache is not None else None
-        x, nc = _apply_layer(cfg, kind, p, x, cache=c, **kw)
-        if nc is not None:
-            _write_back(c, nc)
-    return x
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -194,14 +214,15 @@ def forward(
     params,
     tokens: torch.Tensor,                # (b, s) integer
     *,
+    ctx_embed: Optional[torch.Tensor] = None,   # (b, n_ctx, ctx_dim)
     cache: Optional[dict] = None,
     cache_index=None,                    # int, 0-d or (b,)
     positions: Optional[torch.Tensor] = None,
+    moe_groups: Tuple[int, int] = (1, 1),
     last_token_only: bool = False,       # unembed only the final position
 ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
     """Returns (logits (b,s,V) float32, cache updated in place or None,
-    aux loss (zero: no MoE layer in this slice))."""
-    check_supported(cfg)
+    the MoE layers' summed aux load-balance loss, float32 0-d)."""
     dev = tokens.device
     b, s = tokens.shape
     x = embed(params["embed"], tokens, torch.float32)
@@ -215,39 +236,54 @@ def forward(
         base = cache_index[:, None] if cache_index.dim() == 1 else cache_index
         positions = (base + torch.arange(s, device=dev)[None, :]).expand(b, s)
 
-    kw = dict(positions=positions, cache_index=cache_index)
+    ctx = None
+    if cfg.num_ctx_tokens:
+        if ctx_embed is None:
+            raise ValueError(f"{cfg.name} requires ctx_embed (frontend stub)")
+        ctx = ctx_embed.float() @ params["ctx_proj"]
+
+    aux = torch.zeros((), device=dev)
+    kw = dict(positions=positions, ctx=ctx, cache_index=cache_index,
+              moe_groups=moe_groups)
     if cfg.prefix_layers:
-        x = _apply_stack(cfg, cfg.prefix_layers, params["prefix"], x,
-                         cache["prefix"] if cache is not None else None, **kw)
+        x, aux = _apply_layers(cfg, cfg.prefix_layers, params["prefix"], x,
+                               cache["prefix"] if cache is not None else None,
+                               aux, **kw)
 
     shared = params.get("shared")
     for i in range(cfg.num_blocks):
         bp = sch.tree_map(lambda t: t[i], params["blocks"])
         bc = (sch.tree_map(lambda t: t[i], cache["blocks"])
               if cache is not None else None)
-        x = _apply_unit(cfg, bp, shared, x, bc, **kw)
+        x, aux = _apply_layers(cfg, cfg.block_pattern, bp, x, bc, aux,
+                               shared_params=shared, **kw)
 
     if cfg.suffix_layers:
-        x = _apply_stack(cfg, cfg.suffix_layers, params["suffix"], x,
-                         cache["suffix"] if cache is not None else None, **kw)
+        x, aux = _apply_layers(cfg, cfg.suffix_layers, params["suffix"], x,
+                               cache["suffix"] if cache is not None else None,
+                               aux, **kw)
 
     if last_token_only:
         x = x[:, -1:]                    # prefill: only the next-token logits
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = unembed(params["embed"], x, softcap=cfg.logit_softcap)
-    return logits, cache, torch.zeros((), device=dev)
+    logits = unembed(params["embed"], x, cap=cfg.logit_softcap)
+    return logits, cache, aux
 
 
-def decode_step(cfg: ModelConfig, params, tokens, cache, cache_index):
+def decode_step(cfg: ModelConfig, params, tokens, cache, cache_index, *,
+                ctx_embed=None, moe_groups=(1, 1)):
     """One serving decode step: (b,1) token + cache -> logits, cache."""
-    logits, cache, _ = forward(cfg, params, tokens, cache=cache,
-                               cache_index=cache_index)
+    logits, cache, _ = forward(cfg, params, tokens, ctx_embed=ctx_embed,
+                               cache=cache, cache_index=cache_index,
+                               moe_groups=moe_groups)
     return logits, cache
 
 
-def prefill(cfg: ModelConfig, params, tokens, cache):
+def prefill(cfg: ModelConfig, params, tokens, cache, *, ctx_embed=None,
+            moe_groups=(1, 1)):
     """Prefill a fresh cache with a full prompt; returns last-token logits
     and the cache."""
-    logits, cache, _ = forward(cfg, params, tokens, cache=cache,
-                               cache_index=0, last_token_only=True)
+    logits, cache, _ = forward(cfg, params, tokens, ctx_embed=ctx_embed,
+                               cache=cache, cache_index=0,
+                               moe_groups=moe_groups, last_token_only=True)
     return logits[:, -1], cache

@@ -9,6 +9,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.regions import compaction_indices
+from repro_torch.models import moe
 from repro_torch.video import codec
 
 # codec frames: a resize + DCT round trip; PyTorch and XLA sum the
@@ -63,6 +64,12 @@ ATTN_ATOL = 1e-5
 # of |cum| (cumsums summed in another order: a parallel scan, a serial
 # float sum, or a double sum rounded once)
 SSD_RTOL = 1e-4
+# MoE layer output, as a fraction of its scale (rel_err): the router's
+# and the experts' products sum d_model and moe_d_ff terms in another order
+# than XLA's, and a token's k expert rows are summed in the routed order;
+# routing itself is equal (no probability lies within float error of
+# another on the tests' inputs, and exact ties break alike)
+MOE_RTOL = 1e-5
 # LLM logits, as a fraction of the largest reference logit: float32 through
 # a whole model (SSM decays as above in every Mamba2 layer, matmuls of
 # thousands of terms summed in another order, renormalised by RMSNorm), so
@@ -434,12 +441,24 @@ FLASH_RAGGED_CASES = [
 ]
 
 
-def attention_case(b, s_q, s_kv, n_q, n_kv, d, seed=0):
-    """Unit-normal q, k, v: (b, s_q, n_q, d), (b, s_kv, n_kv, d) x 2."""
+# K6 with a value head dim of its own (MLA's prefill), every one on the
+# CUDA-core kernel: (b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window,
+# softcap, q_offset)
+FLASH_DV_CASES = [
+    (1, 40, 64, 4, 4, 192, 128, True, None, None, 8),   # deepseek's dims
+    (2, 24, 48, 4, 4, 96, 64, True, None, None, 0),     # its -smoke dims
+    (1, 37, 53, 4, 2, 96, 40, False, None, 20.0, 0),    # ragged, GQA, cap
+    (2, 33, 70, 2, 1, 64, 48, True, 16, None, [5, 30]),  # d <= 128, window
+]
+
+
+def attention_case(b, s_q, s_kv, n_q, n_kv, d, seed=0, d_v=None):
+    """Unit-normal q, k, v: (b, s_q, n_q, d), (b, s_kv, n_kv, d) and
+    (b, s_kv, n_kv, d_v), d_v = d unless given."""
     rng = np.random.default_rng(seed + 31 * s_q + d)
     return (rng.normal(size=(b, s_q, n_q, d)).astype(np.float32),
             rng.normal(size=(b, s_kv, n_kv, d)).astype(np.float32),
-            rng.normal(size=(b, s_kv, n_kv, d)).astype(np.float32))
+            rng.normal(size=(b, s_kv, n_kv, d_v or d)).astype(np.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -774,6 +793,51 @@ def rel_err(got, want) -> float:
     """max |got - want| as a share of max(1, max |want|)."""
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
+
+
+# ---------------------------------------------------------------------------
+# MoE routing near-ties (card vs CPU LLM checks)
+# ---------------------------------------------------------------------------
+# a gap between a token's k-th and (k+1)-th routing probability below this
+# share of the probabilities' scale (1) is a tie: float noise between two
+# devices' forwards can swap the two experts there, and with a capacity
+# factor the swap moves drops too
+ROUTER_TIE = 1e-5
+
+
+class RouterTap:
+    """Records every MoE layer's input while active (wraps
+    ``moe.moe_apply``, which the transformer calls through the module), so
+    that a failed check can re-run the layers' routers
+    (:func:`router_margin`)."""
+
+    def __init__(self):
+        self.calls: List[Tuple[Any, torch.Tensor, torch.Tensor]] = []
+
+    def __enter__(self):
+        self._orig = moe.moe_apply
+
+        def tapped(cfg, params, x, **kw):
+            self.calls.append((cfg, params["router"], x.detach()))
+            return self._orig(cfg, params, x, **kw)
+        moe.moe_apply = tapped
+        return self
+
+    def __exit__(self, *exc):
+        moe.moe_apply = self._orig
+        return False
+
+
+def router_margin(calls) -> float:
+    """The smallest gap between a token's k-th and (k+1)-th routing
+    probability over every token and MoE layer of ``calls`` (inf without
+    one): where it is below ROUTER_TIE, two devices may route apart."""
+    gaps = [float(torch.softmax((x @ router).float(), -1)
+                  .sort(dim=-1, descending=True).values
+                  .diff(dim=-1)[..., cfg.num_experts_per_tok - 1]
+                  .abs().min())
+            for cfg, router, x in calls]
+    return min(gaps, default=float("inf"))
 
 
 # ---------------------------------------------------------------------------

@@ -556,7 +556,7 @@ def test_compare_tenant_outputs_holds_answers_and_products():
 def test_cascade_launches_follow_the_cut():
     from repro_torch.configs import get_config
     cfg = get_config("zamba2-7b")
-    cut = chip_smoke.nine_layer_cut(cfg)
+    cut = chip_smoke.block_cut(cfg, 1)
     assert (cut.num_layers, cut.num_blocks) == (9, 1)
     assert (cut.vocab_size, cut.d_model) == (cfg.vocab_size, cfg.d_model)
     n_pre = len(cfg.prefix_layers)
@@ -564,3 +564,88 @@ def test_cascade_launches_follow_the_cut():
     assert chip_smoke.llm_kernel_calls(cfg) == (10, n_pre + 10 * per_block)
     assert chip_smoke.llm_kernel_calls(cut) == (1, n_pre + per_block)
     assert n_pre + len(cfg.block_pattern) == 9
+
+
+def test_llm_path_launches_follow_each_config():
+    # zamba2: a shared-attention K6 per block at prefill and a K7 per block
+    # at decode, a K8 per Mamba2 layer; deepseek-v2-lite: a K6 per layer at
+    # prefill (MLA's), none at decode (the absorbed einsum); musicgen: a
+    # self- and a cross-attention K6 per layer at prefill, a cross K6 and a
+    # self K7 per layer at decode
+    from repro_torch.configs import get_config
+    assert chip_smoke.path_launches(get_config("zamba2-7b"), 8, 30) == {
+        "flash_attention": 80, "decode_attention": 300, "ssd_scan": 568}
+    assert chip_smoke.path_launches(get_config("deepseek-v2-lite-16b"), 8,
+                                    30) == {"flash_attention": 27 * 8,
+                                            "decode_attention": 0,
+                                            "ssd_scan": 0}
+    assert chip_smoke.path_launches(get_config("musicgen-medium"), 1,
+                                    16) == {"flash_attention": 96 + 16 * 48,
+                                            "decode_attention": 16 * 48,
+                                            "ssd_scan": 0}
+    with pytest.raises(AssertionError, match="decode_attention 1 times"):
+        chip_smoke.check_launches({"decode_attention": 1},
+                                  {"decode_attention": 0}, "x")
+
+
+def test_block_cuts_keep_the_widths():
+    from repro_torch.configs import get_config
+    from repro_torch.models import schema as sch
+    from repro_torch.models import transformer as tfm
+    ds = get_config("deepseek-v2-lite-16b")
+    cut = chip_smoke.block_cut(ds, 2)
+    assert (cut.num_layers, cut.num_blocks) == (3, 2)
+    assert cut.prefix_layers == ds.prefix_layers == ("attn",)
+    assert (cut.d_model, cut.num_experts, cut.vocab_size) == \
+        (ds.d_model, ds.num_experts, ds.vocab_size)
+    # ~1.6 B parameters, 6.4 GB in float32, against the full model's
+    # 15.6 B (62.6 GB: it fits one 80 GB card)
+    assert sch.param_bytes(tfm.model_schema(cut)) == 4 * 1_611_544_576
+    assert sch.param_bytes(tfm.model_schema(ds)) == 4 * 15_647_881_216
+    mg = get_config("musicgen-medium")
+    assert chip_smoke.block_cut(mg, 4).num_layers == 4
+    assert sch.param_bytes(tfm.model_schema(mg)) == 4 * 2_272_617_984
+    assert chip_smoke.block_cut(get_config("zamba2-7b"), 1).name == \
+        "zamba2-7b-9-layers"
+
+
+def test_flash_bound_at_the_new_path_shapes():
+    # MLA's prefill: 73,920 causal pairs x 16 heads x (2 (192 + 128) + 5)
+    # flops, 11.4 us at 67 TFLOP/s, above the 4.7 us its 15.7 MB take
+    nbytes, ops, pairs = chip_smoke.flash_bound(1, 384, 512, 16, 16, 192,
+                                                128, True, None, None)
+    assert pairs == 384 * 385 // 2 == 73_920
+    assert ops == pairs * 16 * (2 * 192 + 2 * 128 + 5)
+    assert nbytes == 4 * (384 * 16 * 320 + 384 * 16 * 320) + 4
+    ms, by = chip_smoke.bound_ms(nbytes, ops)
+    assert by == "operations" and ms == pytest.approx(0.0113859, abs=1e-6)
+    # musicgen's cross-attention decode step reads all 256 context keys of
+    # its 4 rows: bytes bound it
+    nbytes, ops, pairs = chip_smoke.flash_bound(4, 1, 256, 24, 24, 64, 64,
+                                                False, None, None)
+    assert pairs == 4 * 256
+    assert nbytes == 4 * (4 * 24 * 128 + 4 * 256 * 24 * 128) + 16
+    assert chip_smoke.bound_ms(nbytes, ops)[1] == "bytes"
+    # musicgen's self-attention prefill: 4 rows' causal triangles, 24 heads
+    nbytes, ops, pairs = chip_smoke.flash_bound(4, 384, 512, 24, 24, 64, 64,
+                                                True, None, None)
+    assert pairs == 4 * 73_920 and ops == pairs * 24 * (4 * 64 + 5)
+    # the zamba2 prefill's bound is what it was
+    assert chip_smoke.bound_ms(*chip_smoke.flash_bound(
+        1, 384, 512, 32, 32, 112, 112, True, None, None)[:2])[0] == \
+        pytest.approx(0.015993, abs=1e-6)
+
+
+def test_kernel_phases_hold_every_llm_path_shape():
+    # each K6 and K7 shape the three LLM main paths launch at (4 slots,
+    # 384-token prompts, a 512-slot cache) is held against its plain
+    # version: zamba2's shared attention, deepseek's MLA, musicgen's self-
+    # and cross-attention
+    flash = {c[:8] for c in chip_smoke.FLASH_PATH_SHAPES}
+    assert {(1, 384, 512, 32, 32, 112, 112, True),
+            (1, 384, 512, 16, 16, 192, 128, True),
+            (4, 384, 512, 24, 24, 64, 64, True),
+            (4, 384, 256, 24, 24, 64, 64, False),
+            (4, 1, 256, 24, 24, 64, 64, False)} <= flash
+    decode = {c[:5] for c in chip_smoke.DECODE_PATH_SHAPES}
+    assert {(4, 512, 32, 32, 112), (4, 512, 24, 24, 64)} <= decode

@@ -34,7 +34,8 @@ from repro_torch.models import transformer as tfm
 from repro_torch.serving.server import LLMServer, Request
 from repro_torch.learning import ContinualLearningPlane, LearningConfig
 from repro_torch.testing import (ATTN_ATOL, DECODE_CASES, FILTER_CASES,
-                                 FILTER_KW, FLASH_CASES, FLASH_RAGGED_CASES,
+                                 FILTER_KW, FLASH_CASES, FLASH_DV_CASES,
+                                 FLASH_RAGGED_CASES,
                                  IOU_CASES,
                                  LEARN_RTOL, LLM_RTOL, MODEL_ATOL,
                                  ONEVSALL_ATOL, SSD_CASES, SSD_RTOL,
@@ -520,6 +521,28 @@ def test_flash_attention_kernel_matches_plain(cuda, case):
     assert _sync_err(got, fa.flash_attention_ref(q, k, v, **kw)) <= ATTN_ATOL
 
 
+@pytest.mark.parametrize("case", FLASH_DV_CASES + [
+    (1, 384, 512, 16, 16, 192, 128, True, None, None, 0),   # deepseek MLA
+    (2, 130, 300, 4, 4, 96, 64, True, None, None, [170, 0])])
+def test_flash_attention_kernel_takes_a_value_head_dim(cuda, case):
+    b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off = case
+    q, k, v = _t(attention_case(b, s_q, s_kv, n_q, n_kv, d, d_v=d_v), cuda)
+    kw = dict(causal=causal, window=window, softcap=cap,
+              q_offset=torch.as_tensor(off, device=cuda))
+    got = fa.flash_attention(q, k, v, **kw)
+    assert got.shape == (b, s_q, n_q, d_v)
+    assert _sync_err(got, fa.flash_attention_ref(q, k, v, **kw)) <= ATTN_ATOL
+
+
+def test_flash_attention_rejects_a_wrong_value_shape(cuda):
+    q, k, v = _t(attention_case(1, 8, 16, 2, 2, 96, d_v=64), cuda)
+    with pytest.raises(ValueError, match="v: expected shape"):
+        fa.flash_attention(q, k, v[:, :8])           # fewer keys than k
+    with pytest.raises(ValueError, match="head dims 64/96"):
+        fa.flash_attention(q[..., :64], k[..., :64],
+                           torch.zeros(1, 16, 2, 96, device=cuda))
+
+
 @pytest.mark.parametrize("case", DECODE_CASES + [
     (4, 512, 32, 32, 112, [384, 390, 1, 500], None, None),  # zamba2 decode
     (4, 512, 16, 8, 256, [384, 1, 64, 512], 64, 50.0),      # GQA/window/cap
@@ -655,6 +678,66 @@ def test_zamba2_smoke_served_on_the_card_matches_cpu(cuda):
     for a, b in zip(done, cpu_done):
         assert a.output == b.output
         assert abs(a.confidence - b.confidence) <= LLM_RTOL
+
+
+def test_deepseek_smoke_served_on_the_card_matches_cpu(cuda):
+    # MoE + MLA through LLMServer: K6 per layer per prefill (MLA's d 96 /
+    # d_v 64 on the CUDA-core kernel), no K7 (the absorbed decode)
+    set_reference_precision()
+    cfg_llm = get_config("deepseek-v2-lite-16b-smoke")
+    cpu_params = tfm.init_params(cfg_llm, 0, "cpu")
+    runs = {}
+    for dev, p in (("cpu", cpu_params),
+                   ("cuda", sch.tree_map(lambda t: t.to(cuda), cpu_params))):
+        srv = LLMServer(cfg_llm, p, num_slots=2, max_seq=64, eos_token=-1)
+        rng = np.random.default_rng(0)
+        for i in range(3):
+            srv.submit(Request(i, rng.integers(0, cfg_llm.vocab_size, 40),
+                               max_new_tokens=5))
+        ops.reset_launch_counts()
+        runs[dev] = (srv.run_until_drained(), ops.launch_counts())
+    (cpu_done, _), (done, counts) = runs["cpu"], runs["cuda"]
+    assert counts["flash_attention"] == cfg_llm.num_layers * 3
+    assert counts["decode_attention"] == counts["ssd_scan"] == 0
+    for a, b in zip(done, cpu_done):
+        assert a.output == b.output
+        assert abs(a.confidence - b.confidence) <= LLM_RTOL
+
+
+def test_musicgen_smoke_on_the_card_matches_cpu(cuda):
+    # cross-attention over stub context through prefill / decode_step: a
+    # self and a cross K6 per layer at prefill, a cross K6 and a K7 per
+    # layer at decode; both devices decode the CPU's greedy tokens
+    from repro_torch.models import stubs
+    set_reference_precision()
+    cfg_llm = get_config("musicgen-medium-smoke")
+    cpu_params = tfm.init_params(cfg_llm, 0, "cpu")
+    ctx = stubs.frontend_embeddings(cfg_llm, 2, device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg_llm.vocab_size, (2, 30)))
+    fed, out = [], {}
+    for dev in ("cpu", "cuda"):
+        p = sch.tree_map(lambda t: t.to(dev), cpu_params)
+        ops.reset_launch_counts()
+        logits, cache = tfm.prefill(cfg_llm, p, toks.to(dev),
+                                    tfm.init_cache(cfg_llm, 2, 40, dev),
+                                    ctx_embed=ctx.to(dev))
+        steps = [logits.cpu()]
+        for i in range(3):
+            if dev == "cpu":
+                fed.append(steps[-1].argmax(-1, keepdim=True))
+            logits, cache = tfm.decode_step(
+                cfg_llm, p, fed[i].to(dev), cache,
+                torch.full((2,), 30 + i, device=dev), ctx_embed=ctx.to(dev))
+            steps.append(logits[:, 0].cpu())
+        out[dev] = (steps, ops.launch_counts())
+    (want, cpu_counts), (got, counts) = out["cpu"], out["cuda"]
+    n = cfg_llm.num_layers
+    assert counts["flash_attention"] == 2 * n + 3 * n
+    assert counts["decode_attention"] == 3 * n
+    assert cpu_counts["flash_attention"] == 0
+    for g, w in zip(got, want):
+        assert rel_err(g.numpy(), w.numpy()) <= LLM_RTOL
 
 
 # ---------------------------------------------------------------------------

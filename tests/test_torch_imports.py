@@ -31,6 +31,11 @@ assert default_tenant_pipelines().list() == ["detection", "llm-cascade",
 from repro_torch.core.cascade import BigLittleCascade
 from repro_torch.serving.shards import ShardedScheduler
 from repro_torch.serving.tenancy import content_pipeline, llm_cascade_pipeline
+from repro_torch.models.attention import (cross_attention, mla_attention,
+                                          mla_cache_spec)
+from repro_torch.models.layers import softcap
+from repro_torch.models.moe import moe_apply
+from repro_torch.models.stubs import frontend_embeddings
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                or m == "repro" for m in sys.modules
                if sys.modules[m] is not None)
@@ -48,14 +53,15 @@ def test_port_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 76      # every module imported
+    assert int(proc.stdout.split()[-1]) >= 78      # every module imported
     names = proc.stdout.split()
     for mod in ("baselines.common", "baselines.mpeg", "baselines.glimpse",
                 "baselines.cloudseg", "baselines.dds", "serving.policies",
                 "kernels.iou_matrix", "kernels.region_filter_mask",
                 "training.checkpoint", "training.data",
                 "training.optimizer", "training.train_loop",
-                "serving.shards", "core.cascade"):
+                "serving.shards", "core.cascade", "models.moe",
+                "models.stubs", "models.attention", "models.transformer"):
         assert f"repro_torch.{mod}" in names, mod
 
 

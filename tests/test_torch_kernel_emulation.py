@@ -44,7 +44,8 @@ from repro_torch.kernels import onevsall_update as ou
 from repro_torch.kernels import region_filter_mask as rf
 from repro_torch.kernels import ssd_scan as sk
 from repro_torch.testing import (ATTN_ATOL, DECODE_CASES, FILTER_KW,
-                                 FLASH_CASES, FLASH_RAGGED_CASES, IOU_CASES,
+                                 FLASH_CASES, FLASH_DV_CASES,
+                                 FLASH_RAGGED_CASES, IOU_CASES,
                                  LEARN_RTOL, ONEVSALL_ATOL, SSD_CASES,
                                  SSD_RTOL, UPDATE_ETA, UPDATE_RTOL,
                                  attention_case, crop_cases, crop_tile_cases,
@@ -309,15 +310,15 @@ def _cxx():
 
 @pytest.fixture(scope="module")
 def emulated(tmp_path_factory):
-    """Compile every source; patch the wrappers' launch and operand check
-    to the emulated launchers for CPU tensors."""
+    """Compile every source; patch the wrappers' launch, query and operand
+    check to the emulated launchers for CPU tensors."""
     cxx = _cxx()
     out = tmp_path_factory.mktemp("cuda_emu")
     procs = [_compile(cxx, out, name, (_build.CSRC / name).read_text())
              for name in _build.SOURCES]
     libs = [_load(*p) for p in procs]
     fns = {}
-    for fn, argtypes in _build.SIGNATURES.items():
+    for fn, argtypes in {**_build.SIGNATURES, **_build.QUERIES}.items():
         lib = next(lib for lib in libs if hasattr(lib, fn))
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = ctypes.c_int
@@ -326,6 +327,9 @@ def emulated(tmp_path_factory):
     def launch(fn, *args):
         rc = fns[fn](*args, None)
         assert rc == 0, f"{fn} returned {rc}"
+
+    def query(fn, *args):
+        return fns[fn](*args)
 
     def check(*operands):
         # _build.check_operands without the device checks (CPU tensors)
@@ -339,6 +343,7 @@ def emulated(tmp_path_factory):
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(_build, "launch", launch)
+        mp.setattr(_build, "query", query)
         mp.setattr(_build, "check_operands", check)
         yield
 
@@ -608,9 +613,25 @@ def test_onevsall_replay_source_equals_single_steps(emulated, n, d1, c,
                              len(FLASH_CASES) + len(FLASH_RAGGED_CASES))])
 def test_flash_attention_source_matches_plain(emulated, case):
     b, s_q, s_kv, n_q, n_kv, d, causal, window, cap, off = case
+    assert fa.on_tensor_cores(d, d) == (d <= 128)
     q, k, v = _t(attention_case(b, s_q, s_kv, n_q, n_kv, d))
     kw = dict(causal=causal, window=window, softcap=cap, q_offset=off)
     got = fa.flash_attention(q, k, v, **kw)
+    assert float((got - ref.flash_attention(q, k, v, **kw)).abs().max()) \
+        <= ATTN_ATOL
+
+
+@pytest.mark.parametrize("case", FLASH_DV_CASES,
+                         ids=[f"dv{c[5]}-{c[6]}" for c in FLASH_DV_CASES])
+def test_flash_attention_source_takes_a_value_head_dim(emulated, case):
+    # MLA's prefill: v's head dim below q's and k's, on the CUDA-core kernel
+    b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off = case
+    q, k, v = _t(attention_case(b, s_q, s_kv, n_q, n_kv, d, d_v=d_v))
+    kw = dict(causal=causal, window=window, softcap=cap,
+              q_offset=torch.as_tensor(off))
+    assert not fa.on_tensor_cores(d, d_v)
+    got = fa.flash_attention(q, k, v, **kw)
+    assert got.shape == (b, s_q, n_q, d_v)
     assert float((got - ref.flash_attention(q, k, v, **kw)).abs().max()) \
         <= ATTN_ATOL
 

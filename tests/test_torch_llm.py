@@ -1,10 +1,12 @@
 """The port's LLM serving path on the CPU against the JAX package, on the
-reduced configs of the four families this slice carries (hybrid zamba2,
-pure-SSM mamba2, local/global-attention gemma2 with softcaps, GQA qwen2
-with QKV bias): the same JAX ``init_params`` weights (converted with
-``llm_from_numpy_tree``) and the same numpy tokens through ``forward``,
-``prefill`` + ``decode_step`` (a scalar and a per-slot cache index) and the
-``LLMServer`` loop.  Logits agree within ``LLM_RTOL`` of their scale."""
+reduced configs of four dense and SSM families (hybrid zamba2, pure-SSM
+mamba2, local/global-attention gemma2 with softcaps, GQA qwen2 with QKV
+bias; the MoE, MLA and cross-attention families are in
+tests/test_torch_llm_archs.py): the same JAX ``init_params`` weights
+(converted with ``llm_from_numpy_tree``) and the same numpy tokens through
+``forward``, ``prefill`` + ``decode_step`` (a scalar and a per-slot cache
+index) and the ``LLMServer`` loop.  Logits agree within ``LLM_RTOL`` of
+their scale."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -180,10 +182,21 @@ def test_llm_from_numpy_tree_keeps_every_layout():
 
 @pytest.mark.parametrize("name", sorted(set(ARCHS) - set(FAMILIES)))
 def test_other_families_run_or_name_their_milestone(name):
+    # every family of the registry runs now, MoE, MLA and cross-attention
+    # included (tests/test_torch_llm_archs.py holds those against JAX): a
+    # forward from fresh weights, with numpy context where the config
+    # takes frontend embeddings
     cfg = get_config(name).reduced()
-    kinds = set(cfg.block_pattern + cfg.prefix_layers + cfg.suffix_layers)
-    if not (cfg.mla or cfg.num_ctx_tokens or kinds & {"moe", "cross"}):
-        TT.init_cache(cfg, 1, 8, "cpu")       # a dense family: supported
-        return
-    with pytest.raises(NotImplementedError, match="M11"):
-        TT.init_params(cfg, 0, "cpu")
+    params = TT.init_params(cfg, 0, "cpu")
+    ctx = None
+    if cfg.num_ctx_tokens:
+        ctx = torch.as_tensor(np.random.default_rng(0).normal(
+            size=(2, cfg.num_ctx_tokens, cfg.ctx_dim or cfg.d_model))
+            .astype(np.float32) * 0.02)
+    logits, cache, aux = TT.forward(cfg, params,
+                                    torch.as_tensor(_tokens(cfg, (2, 9), 4)),
+                                    ctx_embed=ctx)
+    assert cache is None and logits.shape == (2, 9, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits).all())
+    assert (float(aux) > 0) == (cfg.num_experts > 0)
+    TT.init_cache(cfg, 1, 8, "cpu")

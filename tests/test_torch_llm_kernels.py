@@ -15,6 +15,7 @@ from repro.kernels.flash_attention import flash_attention as jflash
 from repro.kernels.ssd_scan import ssd_scan as jssd
 from repro_torch.kernels import ops
 from repro_torch.testing import (ATTN_ATOL, DECODE_CASES, FLASH_CASES,
+                                 FLASH_DV_CASES,
                                  SSD_CASES, SSD_RTOL, attention_case,
                                  decode_case, rel_err, ssd_case)
 
@@ -60,6 +61,29 @@ def test_flash_attention_per_row_offset_matches_jax_rows():
     for i, off in enumerate(offs):
         want = np.asarray(jref.flash_attention(
             *_j((q[i:i + 1], k[i:i + 1], v[i:i + 1])), q_offset=int(off),
+            **kw))
+        np.testing.assert_allclose(got[i:i + 1], want, atol=ATTN_ATOL,
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("case", FLASH_DV_CASES,
+                         ids=[f"dv{c[5]}-{c[6]}" for c in FLASH_DV_CASES])
+def test_flash_attention_plain_takes_a_value_head_dim_as_jax_ref(case):
+    # MLA's prefill, against the jnp oracle only: the Pallas kernel gives v
+    # and the output q's head dim (its BlockSpecs), so for d_v != d it
+    # returns a (b, s_q, n_q, d) array; a (b,) offset row by row, as above
+    b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off = case
+    q, k, v = attention_case(b, s_q, s_kv, n_q, n_kv, d, d_v=d_v)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(*_t((q, k, v)), q_offset=torch.as_tensor(off),
+                              **kw).numpy()
+    assert ops.launch_counts()["flash_attention"] == 0
+    assert got.shape == (b, s_q, n_q, d_v) and np.isfinite(got).all()
+    offs = np.broadcast_to(np.asarray(off), (b,))
+    for i in range(b):
+        want = np.asarray(jref.flash_attention(
+            *_j((q[i:i + 1], k[i:i + 1], v[i:i + 1])), q_offset=int(offs[i]),
             **kw))
         np.testing.assert_allclose(got[i:i + 1], want, atol=ATTN_ATOL,
                                    rtol=0)
