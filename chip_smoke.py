@@ -40,8 +40,14 @@ K = 1 and 4, work stealing under a replica outage, and three tenants
 fleet against the same run on the CPU.  After the zamba2 path the
 big/little cascade (``core/cascade.py``) runs with full-width zamba2-7b as
 the big model and its 9-layer cut as the little one, and against the CPU
-on two 9-layer models; the deepseek and musicgen paths come last, once
-zamba2's weights are freed.  Any failed check raises; nothing is caught.
+on two 9-layer models; the deepseek and musicgen paths come next, once
+zamba2's weights are freed.  LLM training comes last: K6 and K8 under
+autograd (the kernel forward, the plain version's VJP backward) against
+autograd of their plain versions at every test shape and the training
+shapes, one ``make_train_step`` step of zamba2-7b's 9-layer cut against
+the CPU, and ``train_llm`` on zamba2-7b at full width cut to 17 layers
+(1.604 B parameters, 4 x 512 tokens), then the same steps with remat.
+Any failed check raises; nothing is caught.
 The last three lines are the card's name and power limit, one JSON object
 describing the kernels, and ``{"ok": true, "device": {...}}``.
 
@@ -149,11 +155,11 @@ def profile_device(torch, fn, reps: int = 1, once: bool = False):
     device time per call in ms and the key averages; ``once`` as in
     :func:`device_us_per_call`.  A profile that recorded no device time is
     taken once more (CUPTI has lost a whole window on an H100) before the
-    time is reported as None."""
+    time is reported as None; a line says when the retry was needed."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    for attempt in range(2):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -161,6 +167,10 @@ def profile_device(torch, fn, reps: int = 1, once: bool = False):
             torch.cuda.synchronize()
         avgs = prof.key_averages()
         total_us = device_us_per_call(avgs, reps, once)
+        if attempt:
+            print(f"  profile_device: the profiler kept no device event of "
+                  f"a window of {reps} call(s); the retry "
+                  + ("did" if total_us > 0 else "did not either: null"))
         if total_us > 0:
             return total_us / 1e3, avgs
     return None, avgs
@@ -3253,6 +3263,491 @@ def phase_cascade_reference(torch, np, card):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# LLM training (M11.3): K6 and K8 forward on the card, their plain
+# versions' VJPs backward (kernels.ops); the step against the CPU on a
+# 9-layer cut, then train_llm on zamba2-7b at full width cut to 17 layers
+# ---------------------------------------------------------------------------
+TRAIN_LLM_BLOCKS, TRAIN_LLM_BATCH, TRAIN_LLM_SEQ = 2, 4, 512
+TRAIN_LLM_STEPS, TRAIN_LLM_REMAT_STEPS, TRAIN_LLM_LR = 6, 2, 3e-4
+TRAIN_REF_SEQ = 256
+# the K6 and K8 shapes of the training path: zamba2's shared attention and
+# Mamba2 layers at TRAIN_LLM_BATCH x TRAIN_LLM_SEQ
+ATTN_TRAIN_SHAPE = (4, 512, 512, 32, 32, 112, 112, True, None, None, 0)
+SSD_TRAIN_SHAPE = (4, 512, 112, 64, 64, 256, False, True)
+
+
+def grad_cases():
+    """(K6 cases, K8 cases) of the gradient phase: every CPU test case,
+    musicgen's cross-attention prefill, then the training path's shapes
+    (the last of each)."""
+    from repro_torch.testing import (FLASH_CASES, FLASH_DV_CASES,
+                                     FLASH_RAGGED_CASES, SSD_CASES)
+    attn = ([c[:6] + (c[5],) + c[6:] for c in FLASH_CASES
+             + FLASH_RAGGED_CASES] + FLASH_DV_CASES
+            + [(4, 384, 256, 24, 24, 64, 64, False, None, None, 0),
+               ATTN_TRAIN_SHAPE])
+    return attn, list(SSD_CASES) + [SSD_TRAIN_SHAPE]
+
+
+def _grads_against_plain(torch, call, plain, leaves, seed):
+    """(outputs, gradients) of ``call`` (through ``ops``: the Function) and
+    of ``plain`` on the same CUDA leaves, against one seeded cotangent per
+    output: {"kernel": ..., "plain": ...}."""
+    out = {}
+    for what, fn in (("kernel", call), ("plain", plain)):
+        res = fn()
+        res = res if isinstance(res, tuple) else (res,)
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        cots = [torch.randn(r.shape, generator=gen, device="cuda")
+                for r in res]
+        out[what] = ([r.detach() for r in res],
+                     torch.autograd.grad(res, leaves, cots))
+    return out
+
+
+def phase_llm_grad(torch, np, card):
+    """K6 and K8 under autograd on the card, at every grad_cases() shape:
+    the Function's forward (the kernel) within ATTN_ATOL / SSD_RTOL of the
+    plain version and its gradients (the plain version's VJP, recomputed)
+    within ATTN_VJP_RTOL / SSD_VJP_RTOL of ``torch.autograd.grad`` of the
+    plain version on the same tensors; each shape's forward kernel and
+    plain VJP timed per call.  Returns {"flash_attention": [...],
+    "ssd_scan": [...]}, one record a shape."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.testing import (ATTN_ATOL, ATTN_VJP_RTOL, SSD_RTOL,
+                                     SSD_VJP_RTOL, attention_case, rel_err,
+                                     ssd_case)
+    attn_cases, ssd_cases = grad_cases()
+    out = {"flash_attention": [], "ssd_scan": []}
+
+    def record(name, shape, fwd_err, grad_err, kernel, vjp, tol):
+        with torch.no_grad():
+            fwd_ms = time_ms(torch, kernel, reps=10, warmup=2)
+        vjp_ms = time_ms(torch, vjp, reps=10, warmup=2)
+        rec = dict(shape=shape, forward_err=fwd_err, grad_err=grad_err,
+                   forward_ms=fwd_ms, vjp_ms=vjp_ms)
+        out[name].append(rec)
+        print(f"{name} gradient {shape}: forward error {fwd_err:.3e}, "
+              f"gradients {grad_err:.3e} of their scale (tolerance {tol}); "
+              f"forward kernel {fwd_ms:.4f} ms per call, plain VJP "
+              f"{vjp_ms:.4f} ms per call [{card}]")
+
+    for b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off in \
+            attn_cases:
+        q, k, v = (torch.as_tensor(a, device="cuda").requires_grad_(True)
+                   for a in attention_case(b, s_q, s_kv, n_q, n_kv, d,
+                                           seed=SEED, d_v=d_v))
+        kw = dict(causal=causal, window=window, softcap=cap,
+                  q_offset=torch.as_tensor(off, device="cuda"))
+        ops.reset_launch_counts()
+        res = _grads_against_plain(
+            torch, lambda: ops.flash_attention(q, k, v, **kw),
+            lambda: fa.flash_attention_ref(q, k, v, **kw), (q, k, v), SEED)
+        counts = ops.launch_counts()
+        if (counts["flash_attention"], counts["flash_attention_vjp"]) != \
+                (1, 1):
+            raise AssertionError(f"K6 under autograd: {counts}")
+        (got, g_got), (want, g_want) = res["kernel"], res["plain"]
+        fwd_err = float((got[0] - want[0]).abs().max())
+        grad_err = max(rel_err(a.cpu().numpy(), w.cpu().numpy())
+                       for a, w in zip(g_got, g_want))
+        shape = (f"b={b} s_q={s_q} s_kv={s_kv} heads={n_q}/{n_kv} d={d} "
+                 f"d_v={d_v} causal={causal} window={window} softcap={cap} "
+                 f"q_offset={off}")
+        if not (fwd_err <= ATTN_ATOL and grad_err <= ATTN_VJP_RTOL and all(
+                bool(torch.isfinite(g).all()) for g in g_got)):
+            raise AssertionError(f"K6 gradient at {shape}: forward "
+                                 f"{fwd_err}, gradients {grad_err}")
+        cot = torch.randn(got[0].shape, device="cuda")
+        record("flash_attention", shape, fwd_err, grad_err,
+               lambda: ops.flash_attention(q, k, v, **kw),
+               lambda: fa.flash_attention_vjp(q, k, v, cot, **kw),
+               ATTN_VJP_RTOL)
+    for b, s, h, p, n, chunk, init, weak in ssd_cases:
+        x, dt, A, B, C, st = (None if a is None else
+                              torch.as_tensor(a, device="cuda")
+                              .requires_grad_(True) for a in
+                              ssd_case(b, s, h, p, n, init, seed=SEED,
+                                       weak=weak))
+        leaves = [t for t in (x, dt, A, B, C, st) if t is not None]
+        kw = dict(chunk=chunk, initial_state=st)
+        ops.reset_launch_counts()
+        res = _grads_against_plain(
+            torch, lambda: ops.ssd_scan(x, dt, A, B, C, **kw),
+            lambda: sk.ssd_scan_ref(x, dt, A, B, C, **kw), leaves, SEED)
+        counts = ops.launch_counts()
+        if (counts["ssd_scan"], counts["ssd_scan_vjp"]) != (1, 1):
+            raise AssertionError(f"K8 under autograd: {counts}")
+        (got, g_got), (want, g_want) = res["kernel"], res["plain"]
+        fwd_err = max(rel_err(a.cpu().numpy(), w.cpu().numpy())
+                      for a, w in zip(got, want))
+        grad_err = max(rel_err(a.cpu().numpy(), w.cpu().numpy())
+                       for a, w in zip(g_got, g_want))
+        shape = (f"b={b} s={s} h={h} p={p} n={n} chunk={chunk} "
+                 f"initial_state={init} weak_decay={weak}")
+        if not (fwd_err <= SSD_RTOL and grad_err <= SSD_VJP_RTOL and all(
+                bool(torch.isfinite(g).all()) for g in g_got)):
+            raise AssertionError(f"K8 gradient at {shape}: forward "
+                                 f"{fwd_err}, gradients {grad_err}")
+        cy, cf = (torch.randn(t.shape, device="cuda") for t in got)
+        record("ssd_scan", shape, fwd_err, grad_err,
+               lambda: ops.ssd_scan(x, dt, A, B, C, **kw),
+               lambda: sk.ssd_scan_vjp(x, dt, A, B, C, cy, cf, **kw),
+               SSD_VJP_RTOL)
+    return out
+
+
+class CaptureGrads:
+    """An optimizer that keeps the gradients of each ``update`` and hands
+    the rest to the optimizer it wraps."""
+
+    def __init__(self, opt):
+        self.opt, self.grads = opt, []
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params):
+        self.grads.append(grads)
+        return self.opt.update(grads, state, params)
+
+
+def phase_llm_train_reference(torch, np, card):
+    """One ``make_train_step`` step (AdamW at TRAIN_LLM_LR, no remat) of
+    zamba2-7b at full width cut to 9 layers, batch 1 x TRAIN_REF_SEQ tokens
+    from ``TokenStream``, on the card and on the CPU from the same numpy
+    weights (``weights.llm_from_numpy_tree``): the loss within 1e-5
+    relative, every gradient leaf and the parameters after the step
+    (``assert_train_params_close``) within LLM_GRAD_CARD_RTOL of their
+    scale.  Beside it, as a yardstick, the gradients of the plain program
+    on the card (K6 and K8 replaced by their plain versions, no kernel at
+    all) against the CPU's: the float32 program's own spread between the
+    two devices."""
+    from repro_torch import weights
+    from repro_torch.configs import get_config
+    from repro_torch.models import schema as sch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.testing import (LLM_GRAD_CARD_RTOL,
+                                     assert_train_params_close, leaf_rel_err)
+    from repro_torch.training import data, train_loop
+    from repro_torch.training.optimizer import AdamW
+    cfg = block_cut(get_config(LLM_ARCH), 1)
+    tree = sch.tree_map(lambda t: t.numpy(), tfm.init_params(cfg, SEED,
+                                                             "cpu"))
+    batch = next(iter(data.TokenStream(cfg.vocab_size, TRAIN_REF_SEQ, 1,
+                                       SEED)))
+    runs, wall = {}, {}
+    for dev in ("cuda", "cpu"):
+        params = weights.llm_from_numpy_tree(tree, dev)
+        opt = CaptureGrads(AdamW(lr=TRAIN_LLM_LR))
+        step = train_loop.make_train_step(cfg, opt, remat=False)
+        t0 = time.perf_counter()
+        new, state, m = step(params, opt.init(params),
+                             train_loop.to_device(batch, dev))
+        loss = float(m["loss"])
+        wall[dev] = time.perf_counter() - t0
+        runs[dev] = (weights._flatten(new, hwio=False),
+                     weights._flatten(opt.grads[0], hwio=False), loss)
+        del params, new, state, opt, step
+    (p, g, loss), (p0, g0, loss0) = runs["cuda"], runs["cpu"]
+    # the yardstick: the plain program's gradients on the card
+    from repro_torch.kernels import ops, ref
+    saved = ops.flash_attention, ops.ssd_scan
+    ops.flash_attention, ops.ssd_scan = ref.flash_attention, ref.ssd_scan
+    try:
+        plain = weights._flatten(train_loop.llm_grads(
+            cfg, weights.llm_from_numpy_tree(tree, "cuda"),
+            train_loop.to_device(batch, "cuda"), remat=False)[1],
+            hwio=False)
+    finally:
+        ops.flash_attention, ops.ssd_scan = saved
+    del tree
+    torch.cuda.empty_cache()
+    plain_err = max(leaf_rel_err(plain[k], g0[k]) for k in g0)
+    del plain
+    card_s, cpu_s = wall["cuda"], wall["cpu"]
+    loss_err = abs(loss - loss0) / abs(loss0)
+    errs = {k: leaf_rel_err(g[k], g0[k]) for k in g0}
+    worst = max(errs, key=errs.get)
+    if not (np.isfinite(loss) and loss_err <= 1e-5 and g.keys() == g0.keys()
+            and errs[worst] <= LLM_GRAD_CARD_RTOL):
+        raise AssertionError(f"LLM train step card vs CPU: loss {loss} vs "
+                             f"{loss0}, worst gradient {worst} "
+                             f"{errs[worst]:.3e}")
+    p_err = assert_train_params_close(p, p0, g0, TRAIN_LLM_LR, 1,
+                                      "LLM train step card vs CPU",
+                                      rtol=LLM_GRAD_CARD_RTOL)
+    print(f"LLM train step card vs CPU reference, {cfg.name} at full width "
+          f"({cfg.param_count() / 1e9:.3f} B parameters), 1 x "
+          f"{TRAIN_REF_SEQ} tokens, AdamW lr {TRAIN_LLM_LR}: loss {loss:.6f}"
+          f" ({loss_err:.2e} relative), gradients within {errs[worst]:.2e} "
+          f"of their leaf's scale (worst {worst}; LLM_GRAD_CARD_RTOL "
+          f"{LLM_GRAD_CARD_RTOL}; the plain program on the card, no "
+          f"kernel, {plain_err:.2e}), parameters within {p_err:.2e}; one "
+          f"step {card_s:.2f} s on the card, {cpu_s:.2f} s on the CPU "
+          f"[{card}]")
+    return {"loss_err": loss_err, "grad_err": errs[worst],
+            "worst_leaf": worst, "params_err": p_err,
+            "plain_on_card_grad_err": plain_err}
+
+
+class LLMStepSplit:
+    """CUDA events around each ``transformer.loss_fn`` (the forward), each
+    ``train_loop.llm_grads`` (forward and backward), each
+    ``AdamW.update`` (the optimizer) and each plain VJP of K6 and K8, and
+    the host clock around each batch ``TokenStream`` draws and each
+    ``train_loop.to_device``; every one is looked up at call time, so
+    wrapping the attributes reaches the training loop's calls."""
+
+    def __init__(self, torch):
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import ssd_scan as sk
+        from repro_torch.models import transformer as tfm
+        from repro_torch.training import data, train_loop
+        from repro_torch.training.optimizer import AdamW
+        self.torch = torch
+        self.events = {"forward": [], "grads": [], "optimizer": [],
+                       "vjp": []}
+        self.host_s = {"batch": [], "copy": []}
+        self.targets = [(tfm, "loss_fn", "forward"),
+                        (train_loop, "llm_grads", "grads"),
+                        (AdamW, "update", "optimizer"),
+                        (fa, "flash_attention_vjp", "vjp"),
+                        (sk, "ssd_scan_vjp", "vjp"),
+                        (train_loop, "to_device", "copy"),
+                        (data.TokenStream, "__iter__", "batch")]
+
+    def __enter__(self):
+        self.saved = [(o, n, getattr(o, n)) for o, n, _ in self.targets]
+        for (obj, name, fn), (_, _, part) in zip(self.saved, self.targets):
+            wrap = (self._batches if part == "batch" else self._host
+                    if part == "copy" else self._device)
+            setattr(obj, name, wrap(fn, part))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self.saved:
+            setattr(obj, name, fn)
+        return False
+
+    def _device(self, fn, part):
+        torch = self.torch
+
+        def call(*args, **kw):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            self.events[part].append((start, end))
+            return out
+        return call
+
+    def _host(self, fn, part):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            self.host_s[part].append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def _batches(self, fn, part):
+        split = self
+
+        def batches(stream):
+            it = fn(stream)
+            while True:
+                t0 = time.perf_counter()
+                batch = next(it)
+                split.host_s[part].append(time.perf_counter() - t0)
+                yield batch
+        return batches
+
+    def ms(self, steps: int) -> dict:
+        """Milliseconds per step of each part; backward = grads - forward."""
+        self.torch.cuda.synchronize()
+        out = {part: sum(s.elapsed_time(e) for s, e in ev) / steps
+               for part, ev in self.events.items()}
+        out.update({part: sum(v) * 1e3 / steps
+                    for part, v in self.host_s.items()})
+        out["backward"] = out["grads"] - out["forward"]
+        return out
+
+
+def train_launches(cfg, remat: bool) -> dict:
+    """K6, K8 and VJP counts of one training step of ``cfg``: a forward,
+    with remat the block units' forward again, and one VJP a forward
+    launch of the first pass."""
+    kinds = layer_kinds(cfg)
+    unit = list(cfg.block_pattern) * cfg.num_blocks
+    k6 = sum(k in ATTN_KINDS for k in kinds) + kinds.count("cross")
+    k8 = sum(k in ("ssm", "ssm_ffn") for k in kinds)
+    r6 = sum(k in ATTN_KINDS for k in unit) + unit.count("cross")
+    r8 = sum(k in ("ssm", "ssm_ffn") for k in unit)
+    return {"flash_attention": k6 + remat * r6,
+            "ssd_scan": k8 + remat * r8,
+            "flash_attention_vjp": k6, "ssd_scan_vjp": k8}
+
+
+def phase_llm_train_main_path(torch, np, card):
+    """``train_loop.train_llm`` on zamba2-7b at full width cut to
+    TRAIN_LLM_BLOCKS blocks (17 layers), TRAIN_LLM_BATCH x TRAIN_LLM_SEQ
+    tokens, TRAIN_LLM_STEPS steps without remat; then TRAIN_LLM_REMAT_STEPS
+    ``make_train_step`` steps with remat from the same init and batches.
+    Counts zeroed before and read after each run; the loss must fall and
+    the remat run's losses equal the first run's within LLM_RTOL.  Prints
+    the step split, tokens/s, peak memory and, from one profiled step, the
+    device-busy share and the plain VJPs' device time.  Returns the counts
+    of both runs."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.models import transformer as tfm
+    from repro_torch.testing import LLM_RTOL
+    from repro_torch.training import data, train_loop
+    from repro_torch.training.optimizer import AdamW
+    cfg = block_cut(get_config(LLM_ARCH), TRAIN_LLM_BLOCKS)
+    tokens = TRAIN_LLM_BATCH * TRAIN_LLM_SEQ
+    kw = dict(batch_size=TRAIN_LLM_BATCH, seq_len=TRAIN_LLM_SEQ,
+              lr=TRAIN_LLM_LR, seed=SEED, device="cuda")
+    print(f"LLM training: {cfg.name} at full width, "
+          f"{cfg.param_count() / 1e9:.3f} B parameters, "
+          f"{cfg.param_count() * 16 / 1e9:.1f} GB of float32 weights, "
+          f"gradients and AdamW moments [{card}]")
+    # warm-up: the allocator and cuBLAS at these shapes
+    train_loop.train_llm(cfg, steps=1, **kw)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    with LLMStepSplit(torch) as split:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, hist = train_loop.train_llm(cfg, steps=TRAIN_LLM_STEPS,
+                                            log_every=1, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[False] = ops.launch_counts()
+        parts = split.ms(TRAIN_LLM_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    if not (len(losses) == TRAIN_LLM_STEPS and np.isfinite(losses).all()
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"LLM training: the loss did not fall: {hist}")
+
+    # one profiled step from the trained weights (its own optimizer state)
+    opt = AdamW(lr=TRAIN_LLM_LR)
+    step = train_loop.make_train_step(cfg, opt, remat=False)
+    batch = train_loop.to_device(next(iter(data.TokenStream(
+        cfg.vocab_size, TRAIN_LLM_SEQ, TRAIN_LLM_BATCH, SEED))), "cuda")
+    state = opt.init(params)
+    saved = fa.flash_attention_vjp, sk.ssd_scan_vjp
+
+    def labelled(fn, name):
+        def call(*a, **k):
+            with record_function(name):
+                return fn(*a, **k)
+        return call
+    fa.flash_attention_vjp = labelled(saved[0], "plain VJP K6")
+    sk.ssd_scan_vjp = labelled(saved[1], "plain VJP K8")
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            step(params, state, batch)
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t1
+    finally:
+        fa.flash_attention_vjp, sk.ssd_scan_vjp = saved
+    del params, state, batch
+    torch.cuda.empty_cache()
+    # the VJPs' labels are spans on the device timeline, not kernels: they
+    # give the VJPs' device time and stay out of the busy sum
+    avgs = [e for e in prof.key_averages()
+            if not e.key.startswith("plain VJP")]
+    busy = sum(_self_device_us(e) for e in avgs) / 1e3
+    vjp_prof = {e.key: (getattr(e, "device_time_total", 0.0)
+                        or getattr(e, "cuda_time_total", 0.0)) / 1e3
+                for e in prof.key_averages()
+                if e.key.startswith("plain VJP")}
+    top = sorted(avgs, key=_self_device_us, reverse=True)[:6]
+
+    # remat: the same init and batches, TRAIN_LLM_REMAT_STEPS steps
+    params = tfm.init_params(cfg, SEED, "cuda")
+    opt = AdamW(lr=TRAIN_LLM_LR)
+    step = train_loop.make_train_step(cfg, opt, remat=True)
+    state, remat_losses = opt.init(params), []
+    stream = iter(data.TokenStream(cfg.vocab_size, TRAIN_LLM_SEQ,
+                                   TRAIN_LLM_BATCH, SEED))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t2 = time.perf_counter()
+    for _ in range(TRAIN_LLM_REMAT_STEPS):
+        params, state, m = step(params, state, train_loop.to_device(
+            next(stream), "cuda"))
+        remat_losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    rwall = time.perf_counter() - t2
+    runs[True] = ops.launch_counts()
+    rpeak = torch.cuda.max_memory_allocated()
+    del params, state
+    torch.cuda.empty_cache()
+    apart = max(abs(a - b) / abs(b) for a, b in zip(remat_losses, losses))
+    if apart > LLM_RTOL:
+        raise AssertionError(f"remat losses {remat_losses} vs {losses}")
+    for remat, steps in ((False, TRAIN_LLM_STEPS),
+                         (True, TRAIN_LLM_REMAT_STEPS)):
+        want = {k: n * steps for k, n in train_launches(cfg, remat).items()}
+        want.update({k: 0 for k in ops.KERNELS
+                     if k not in ("flash_attention", "ssd_scan")})
+        check_launches(runs[remat], want, f"LLM training (remat={remat})")
+    step_ms = wall * 1e3 / TRAIN_LLM_STEPS
+    vjp_ms = sum(vjp_prof.values())
+    vjp_txt = (", ".join(f"{k} {v:.2f} ms" for k, v in vjp_prof.items())
+               + f": {vjp_ms / parts['backward']:.1%} of the timed backward"
+               if vjp_ms else "not measured")
+    print(f"LLM training main path: {cfg.name} full width, "
+          f"{TRAIN_LLM_STEPS} steps of {TRAIN_LLM_BATCH} x {TRAIN_LLM_SEQ} "
+          f"tokens through train_llm (no remat): {wall:.3f} s wall, "
+          f"{step_ms:.2f} ms a step = forward {parts['forward']:.2f} + "
+          f"backward {parts['backward']:.2f} (plain VJPs "
+          f"{parts['vjp']:.2f}, {parts['vjp'] / parts['backward']:.1%} of "
+          f"it) + optimizer {parts['optimizer']:.2f} (CUDA events) + host "
+          f"batch {parts['batch']:.2f} + copy {parts['copy']:.2f}; "
+          f"{tokens * TRAIN_LLM_STEPS / wall:.1f} tokens/s; loss "
+          + " -> ".join(f"{x:.4f}" for x in losses)
+          + f"; peak memory {peak / 1e9:.2f} GB; launches a step "
+          f"{ {k: v // TRAIN_LLM_STEPS for k, v in runs[False].items() if v} }"
+          f" [{card}]")
+    rstep_ms = rwall * 1e3 / TRAIN_LLM_REMAT_STEPS
+    per_step = {k: v // TRAIN_LLM_REMAT_STEPS
+                for k, v in runs[True].items() if v}
+    print(f"  remat: {TRAIN_LLM_REMAT_STEPS} steps {rstep_ms:.2f} ms a "
+          f"step, losses " + ", ".join(f"{x:.6f}" for x in remat_losses)
+          + f" ({apart:.2e} from the first run's), peak memory "
+          f"{rpeak / 1e9:.2f} GB; launches a step {per_step} [{card}]")
+    print(f"  one step under the profiler: {pwall * 1e3:.1f} ms wall, device "
+          f"busy {busy:.2f} ms ({busy / (pwall * 1e3):.1%}), "
+          f"{sum(e.count for e in avgs if _self_device_us(e) > 0)} device "
+          f"kernels/copies; plain VJPs on the device: {vjp_txt} [{card}]")
+    print("  top device time: " + "; ".join(
+        f"{e.key[:48]} {_self_device_us(e) / 1e3:.3f} ms x{e.count}"
+        for e in top) + f" [{card}]")
+    return runs, {"step_ms": step_ms, "parts_ms": parts,
+                  "tokens_per_s": tokens * TRAIN_LLM_STEPS / wall,
+                  "losses": losses, "peak_gb": peak / 1e9,
+                  "remat_step_ms": rstep_ms, "remat_peak_gb": rpeak / 1e9,
+                  "busy_share": busy / (pwall * 1e3),
+                  "vjp_profile_ms": vjp_prof}
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3367,10 +3862,21 @@ def main() -> int:
     del moe_params
     torch.cuda.empty_cache()
     cross_counts = phase_cross_main_path(torch, np, card)
+    # LLM training, once deepseek's and musicgen's weights are freed
+    grads = phase_llm_grad(torch, np, card)
+    checks["llm_train_step"] = phase_llm_train_reference(torch, np, card)
+    train_counts, train_split = phase_llm_train_main_path(torch, np, card)
     for row in llm_rows:
         row["launches"] = llm_counts[row["name"]]
         if row["name"] in ("flash_attention", "ssd_scan"):
             row["launches_cascade"] = cascade_counts[row["name"]]
+            row["launches_training"] = {
+                "no_remat": train_counts[False][row["name"]],
+                "remat": train_counts[True][row["name"]]}
+            row["vjps_training"] = {
+                "no_remat": train_counts[False][row["name"] + "_vjp"],
+                "remat": train_counts[True][row["name"] + "_vjp"]}
+            row["gradient"] = grads[row["name"]]
         row["launches_deepseek"] = moe_counts[row["name"]]
         row["launches_musicgen"] = cross_counts[row["name"]]
     rows = video_rows + [iou_row, nms_row, frame_row, update_row] + llm_rows
@@ -3378,7 +3884,8 @@ def main() -> int:
           f"{time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows, "card": card,
-                      "llm_card_vs_cpu": checks}))
+                      "llm_card_vs_cpu": checks,
+                      "llm_training": train_split}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

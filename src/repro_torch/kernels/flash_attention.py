@@ -11,6 +11,13 @@ batch row), so the cache prefill's per-row cache index takes the kernel
 too.  The plain PyTorch version is :func:`flash_attention_ref`
 (``ref.flash_attention``); the kernel agrees with it within
 ``testing.ATTN_ATOL``.
+
+The kernel has no backward kernel, as the Pallas one has no
+differentiation rule.  :class:`FlashAttention` makes it differentiable:
+its forward launches the kernel, its backward is
+:func:`flash_attention_vjp`, the VJP of the plain version recomputed from
+the saved inputs -- the gradient ``jax.grad`` takes of the reference's
+``impl="ref"`` training path.  ``vjps`` counts those plain backward calls.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import torch
 from repro_torch.kernels import _build, ref
 
 launches = 0          # kernel launches since the last reset (ops.py)
+vjps = 0              # plain-version VJPs since the last reset (ops.py)
 
 flash_attention_ref = ref.flash_attention
 
@@ -86,3 +94,41 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       float(softcap or 0.0), d ** -0.5)
         launches += 1
     return out
+
+
+def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        d_out: torch.Tensor, *, causal: bool = True,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None, q_offset=0):
+    """(dq, dk, dv): the VJP of the plain version at (q, k, v) against the
+    cotangent ``d_out``, recomputed under autograd on the inputs' device."""
+    global vjps
+    vjps += 1
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention_ref(*leaves, causal=causal, window=window,
+                                  softcap=softcap, q_offset=q_offset)
+        return torch.autograd.grad(out, leaves, d_out)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel forward, the plain version's VJP backward."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window, softcap, q_offset):
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=softcap, q_offset=q_offset)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, softcap, q_offset = inputs
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap,
+                      q_offset=q_offset)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, d_out):
+        grads = flash_attention_vjp(*ctx.saved_tensors, d_out, **ctx.kw)
+        return tuple(g if need else None for g, need in
+                     zip(grads, ctx.needs_input_grad)) + (None,) * 4

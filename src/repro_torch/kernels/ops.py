@@ -2,18 +2,27 @@
 
 There is no ``impl`` knob: a wrapper launches the hand-written CUDA kernel
 for a CUDA tensor and computes the plain PyTorch version only for a tensor
-that lies on the CPU.  No path runs the plain version on a CUDA tensor, and
-nothing falls back when a kernel fails to build or launch -- it raises.
-The kernels are forward only: a CUDA operand that requires grad raises
-while grad mode is on.
+that lies on the CPU.  Nothing falls back when a kernel fails to build or
+launch -- it raises.
+
+The kernels are forward only, like the reference's ``pallas_call``, which
+has no differentiation rule.  Two of them sit on the LLM training path,
+and there the reference differentiates its plain version (``impl="ref"``
+under ``jax.grad``): on a CUDA operand that requires grad while grad mode
+is on, :func:`flash_attention` (K6) and :func:`ssd_scan` (K8) go through
+``FlashAttention`` / ``SSDScan``, whose forward launches the kernel and
+whose backward is the VJP of the plain version, recomputed on the card.
+That backward is the one place the plain version runs on CUDA tensors.
+Every other kernel wrapper raises on such an operand.
 
 Each kernel module keeps a plain-integer launch count (``launches``), bumped
 where the kernel is launched and nowhere else; :func:`launch_counts` and
 :func:`reset_launch_counts` read and zero them, so a run can show that the
-serving path went through the kernels.  K5 also counts its replays and the
-proximal steps its launches ran (``onevsall_update.replays`` and
-``.steps``, zeroed with the launches): a replay is one launch of many
-steps.
+serving path went through the kernels.  K6 and K8 also count their plain
+VJPs (``vjps``, reported as ``flash_attention_vjp`` and ``ssd_scan_vjp``).
+K5 also counts its replays and the proximal steps its launches ran
+(``onevsall_update.replays`` and ``.steps``, zeroed with the launches): a
+replay is one launch of many steps.
 """
 from __future__ import annotations
 
@@ -38,16 +47,26 @@ KERNELS = {"region_filter_mask_batch": _ik, "crop_gather": _cg,
            "region_filter_mask": _rf, "onevsall_update": _ou,
            "flash_attention": _fa, "decode_attention": _da, "ssd_scan": _sk,
            "nms_greedy": _nms}
+# the kernels whose backward is their plain version's VJP, by count name
+VJPS = {"flash_attention_vjp": _fa, "ssd_scan_vjp": _sk}
 
 
 def launch_counts() -> Dict[str, int]:
-    return {name: mod.launches for name, mod in KERNELS.items()}
+    return {**{name: mod.launches for name, mod in KERNELS.items()},
+            **{name: mod.vjps for name, mod in VJPS.items()}}
 
 
 def reset_launch_counts() -> None:
     for mod in KERNELS.values():
         mod.launches = 0
+    for mod in VJPS.values():
+        mod.vjps = 0
     _ou.replays = _ou.steps = 0
+
+
+def _wants_grad(*operands) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(x, torch.Tensor) and x.requires_grad for x in operands)
 
 
 def _on_card(t: torch.Tensor, *operands) -> bool:
@@ -56,9 +75,7 @@ def _on_card(t: torch.Tensor, *operands) -> bool:
     operand that requires grad while grad mode is on raises instead of
     silently returning a result with no graph."""
     if t.is_cuda:
-        if torch.is_grad_enabled() and any(
-                x.requires_grad for x in (t, *operands)
-                if isinstance(x, torch.Tensor)):
+        if _wants_grad(t, *operands):
             raise RuntimeError(
                 "the port's CUDA kernels are forward only and cannot be "
                 "differentiated; call them under torch.no_grad() or on "
@@ -162,9 +179,14 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     softcap: Optional[float] = None,
                     q_offset=0) -> torch.Tensor:
     """GQA prefill attention (K6); ``q_offset`` an int, 0-d or (b,); v may
-    have a head dim of its own, no larger than q's and k's (MLA)."""
+    have a head dim of its own, no larger than q's and k's (MLA).  On the
+    card with an operand that requires grad: the kernel forward, the plain
+    version's VJP backward."""
     kw = dict(causal=causal, window=window, softcap=softcap,
               q_offset=q_offset)
+    if q.is_cuda and _wants_grad(q, k, v):
+        return _fa.FlashAttention.apply(q, k, v, causal, window, softcap,
+                                        q_offset)
     if _on_card(q, k, v):
         return _fa.flash_attention(q, k, v, **kw)
     return _fa.flash_attention_ref(q, k, v, **kw)
@@ -181,8 +203,12 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
 
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 64, initial_state=None):
-    """Mamba2 SSD chunked scan (K8) -> (y, final_state)."""
+    """Mamba2 SSD chunked scan (K8) -> (y, final_state).  On the card with
+    an operand that requires grad: the kernel forward, the plain version's
+    VJP backward (both outputs may carry a cotangent)."""
     kw = dict(chunk=chunk, initial_state=initial_state)
+    if x.is_cuda and _wants_grad(x, dt, A, B, C, initial_state):
+        return _sk.SSDScan.apply(x, dt, A, B, C, chunk, initial_state)
     if _on_card(x, dt, A, B, C, initial_state):
         return _sk.ssd_scan(x, dt, A, B, C, **kw)
     return _sk.ssd_scan_ref(x, dt, A, B, C, **kw)

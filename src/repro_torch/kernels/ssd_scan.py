@@ -10,6 +10,14 @@ that walks the chunks in order.  The sequence's tail past ``s`` acts as the plai
 version's zero padding without any padded copy.  The plain PyTorch version
 is :func:`ssd_scan_ref` (``ref.ssd_scan``); the kernel agrees with it
 within ``testing.SSD_RTOL`` of the output's scale.
+
+There is no backward kernel, as the Pallas kernel has no differentiation
+rule.  :class:`SSDScan` makes the scan differentiable: its forward
+launches the kernel, its backward is :func:`ssd_scan_vjp`, the VJP of the
+plain version recomputed from the saved inputs (the gradient ``jax.grad``
+takes of the reference's ``impl="ref"`` training path), against the
+cotangents of both ``y`` and the final state.  ``vjps`` counts those
+plain backward calls.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ import torch
 from repro_torch.kernels import _build, ref
 
 launches = 0          # wrapper calls that launched the kernels (ops.py)
+vjps = 0              # plain-version VJPs since the last reset (ops.py)
 
 ssd_scan_ref = ref.ssd_scan
 
@@ -75,3 +84,49 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                       b, s, h, p, n, chunk)
         launches += 1
     return y, fin
+
+
+def ssd_scan_vjp(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor, d_y: torch.Tensor,
+                 d_final: torch.Tensor, *, chunk: int = 64,
+                 initial_state: Optional[torch.Tensor] = None):
+    """(dx, ddt, dA, dB, dC, d_initial_state or None): the VJP of the plain
+    version at these inputs against the cotangents of ``y`` and of the
+    final state, recomputed under autograd on the inputs' device."""
+    global vjps
+    vjps += 1
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (x, dt, A, B, C)]
+        if initial_state is not None:
+            leaves.append(initial_state.detach().requires_grad_(True))
+        y, fin = ssd_scan_ref(*leaves[:5], chunk=chunk,
+                              initial_state=leaves[5] if len(leaves) > 5
+                              else None)
+        grads = torch.autograd.grad((y, fin), leaves, (d_y, d_final))
+    return tuple(grads) + (None,) * (6 - len(grads))
+
+
+class SSDScan(torch.autograd.Function):
+    """The kernel forward, the plain version's VJP backward."""
+
+    @staticmethod
+    def forward(x, dt, A, B, C, chunk, initial_state):
+        return ssd_scan(x, dt, A, B, C, chunk=chunk,
+                        initial_state=initial_state)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, dt, A, B, C, chunk, initial_state = inputs
+        ctx.save_for_backward(x, dt, A, B, C, initial_state)
+        ctx.chunk = chunk
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, d_y, d_final):
+        x, dt, A, B, C, st = ctx.saved_tensors
+        dx, ddt, dA, dB, dC, dst = ssd_scan_vjp(
+            x, dt, A, B, C, d_y, d_final, chunk=ctx.chunk, initial_state=st)
+        need = ctx.needs_input_grad
+        return (dx if need[0] else None, ddt if need[1] else None,
+                dA if need[2] else None, dB if need[3] else None,
+                dC if need[4] else None, None, dst if need[6] else None)

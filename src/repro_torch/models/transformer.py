@@ -19,15 +19,23 @@ through ``prefill`` / ``decode_step`` directly.
 Public API:
   init_params(cfg, seed, device) / init_cache(cfg, batch, max_seq, device)
   forward(cfg, params, tokens, ...)   -> (logits, cache, aux)
+  loss_fn(cfg, params, batch, ...)    -> (total, {"ce", "aux"})
   prefill / decode_step                (the serving engine's two calls)
 
-A cache passed to ``forward`` is updated in place and returned.
+A cache passed to ``forward`` is updated in place and returned.  With
+``remat`` each block unit is rematerialised in the backward pass
+(``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` of its
+scan body; the prefix and suffix layers are not.  The reference's
+``act_constraint``, ``block_param_constraint``, ``unroll_blocks`` and
+``dtype`` arguments are sharding and dry-run hooks of the TPU-pod tooling
+(M12) and have no counterpart here: the port computes in float32.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN, CROSS, LOCAL, MOE, SHARED_ATTN,
                                       SSM, SSM_FFN, ModelConfig)
@@ -220,6 +228,7 @@ def forward(
     positions: Optional[torch.Tensor] = None,
     moe_groups: Tuple[int, int] = (1, 1),
     last_token_only: bool = False,       # unembed only the final position
+    remat: bool = False,                 # recompute each block unit backward
 ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
     """Returns (logits (b,s,V) float32, cache updated in place or None,
     the MoE layers' summed aux load-balance loss, float32 0-d)."""
@@ -251,12 +260,19 @@ def forward(
                                aux, **kw)
 
     shared = params.get("shared")
+
+    def unit(x, aux, bp, bc):
+        return _apply_layers(cfg, cfg.block_pattern, bp, x, bc, aux,
+                             shared_params=shared, **kw)
+
     for i in range(cfg.num_blocks):
         bp = sch.tree_map(lambda t: t[i], params["blocks"])
         bc = (sch.tree_map(lambda t: t[i], cache["blocks"])
               if cache is not None else None)
-        x, aux = _apply_layers(cfg, cfg.block_pattern, bp, x, bc, aux,
-                               shared_params=shared, **kw)
+        if remat:
+            x, aux = checkpoint(unit, x, aux, bp, bc, use_reentrant=False)
+        else:
+            x, aux = unit(x, aux, bp, bc)
 
     if cfg.suffix_layers:
         x, aux = _apply_layers(cfg, cfg.suffix_layers, params["suffix"], x,
@@ -268,6 +284,26 @@ def forward(
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = unembed(params["embed"], x, cap=cfg.logit_softcap)
     return logits, cache, aux
+
+
+def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
+            remat: bool = True, moe_groups: Tuple[int, int] = (1, 1)
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross-entropy of ``batch`` (``tokens``, ``labels`` (b, s),
+    optional ``ctx_embed``): the mean NLL over the positions with
+    ``labels >= 0`` (log-softmax in float32), plus ``router_aux_loss``
+    times the MoE aux loss.  Returns (total, {"ce", "aux"})."""
+    logits, _, aux = forward(cfg, params, batch["tokens"],
+                             ctx_embed=batch.get("ctx_embed"), remat=remat,
+                             moe_groups=moe_groups)
+    labels = batch["labels"]
+    mask = (labels >= 0).float()
+    safe = labels.clamp_min(0).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
+    ce = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    total = ce + cfg.router_aux_loss * aux
+    return total, {"ce": ce, "aux": aux}
 
 
 def decode_step(cfg: ModelConfig, params, tokens, cache, cache_index, *,

@@ -7,7 +7,8 @@ the two packages in both directions, optimizer state included.  ``restore``
 rebuilds against a reference tree, which fixes the structure, the dtypes
 and the device.  Convs are told apart by rank, as everywhere in
 :mod:`repro_torch.weights`: the video models' and their optimizer state's
-trees only (the LLM stack's 4-d leaves are not convs).
+trees only.  The LLM stack's 4-d leaves are not convs: save and restore an
+LLM tree with ``hwio=False``.
 """
 from __future__ import annotations
 
@@ -23,15 +24,17 @@ from repro_torch.weights import save_npz as save
 __all__ = ["save", "restore", "load_metadata"]
 
 
-def restore(path: str, like) -> Any:
+def restore(path: str, like, hwio: bool = True) -> Any:
     """Restore into the structure of ``like`` (a tree of tensors, whose
-    shapes, dtypes and devices the restored leaves take).  Raises
-    ``ValueError`` when a leaf's shape differs."""
+    shapes, dtypes and devices the restored leaves take); ``hwio=False``
+    for an LLM tree.  Raises ``ValueError`` when a leaf's shape differs."""
     if not path.endswith(".npz"):
         path = path + ".npz"
     with np.load(path) as data:
         def leaf(key, ref):
-            arr = _hwio_to_oihw(torch.from_numpy(np.array(data[key])))
+            arr = torch.from_numpy(np.array(data[key]))
+            if hwio:
+                arr = _hwio_to_oihw(arr)
             if tuple(arr.shape) != tuple(ref.shape):
                 raise ValueError(f"checkpoint shape mismatch at {key}: "
                                  f"{tuple(arr.shape)} vs {tuple(ref.shape)}")

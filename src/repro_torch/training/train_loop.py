@@ -10,11 +10,11 @@ module-level step functions, ``(cfg, opt, params, opt_state, batch) ->
 (params, opt_state, metrics)``, whose gradients come from
 ``torch.func.grad_and_value`` over the dict params.
 
-No CUDA kernel of the port runs here: the losses are convolutions and
-matmuls, as the reference's are outside Pallas.  On the card the loops
-compute in full float32 (``set_reference_precision``) and with cuDNN's
-deterministic algorithms, so a run is bit-identical to the next from the
-same seed; the detector's targets resolve shared cells explicitly
+No CUDA kernel of the port runs in the video loops: their losses are
+convolutions and matmuls, as the reference's are outside Pallas.  On the
+card the loops compute in full float32 (``set_reference_precision``) and
+with cuDNN's deterministic algorithms, so a run is bit-identical to the
+next from the same seed; the detector's targets resolve shared cells explicitly
 (``detector.cell_targets``) for the same reason.
 
 :func:`load_or_train` is the benchmarks' ``load_context``: the three
@@ -34,10 +34,12 @@ from repro_torch.configs.vpaas_video import (CLASSIFIER, DETECTOR,
                                              FALLBACK_DETECTOR,
                                              ClassifierConfig,
                                              DetectorConfig)
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models import classifier as clf_mod
 from repro_torch.models import detector as det_mod
+from repro_torch.models import transformer as tfm
 from repro_torch.training import checkpoint, data
-from repro_torch.training.optimizer import AdamW
+from repro_torch.training.optimizer import AdamW, global_norm, tree_leaves
 from repro_torch.video import codec
 
 # the codec qualities (scale, QP) the detector's degraded batches draw from
@@ -48,6 +50,75 @@ ARTIFACTS = os.path.abspath(os.path.join(os.path.dirname(__file__), "..",
                                          "..", "..", "artifacts"))
 
 
+# ---------------------------------------------------------------------------
+# LLM training
+# ---------------------------------------------------------------------------
+def _rebuild(tree, leaves):
+    """``tree``'s structure with ``leaves`` in :func:`tree_leaves` order."""
+    it = iter(leaves)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        return next(it)
+    return walk(tree)
+
+
+def llm_grads(cfg: ModelConfig, params, batch, *, remat: bool = True):
+    """``((total, {"ce", "aux"}), grads)`` of ``transformer.loss_fn`` by
+    ``torch.autograd.grad`` over the leaves of the dict ``params`` (a leaf
+    the loss does not reach gets a zero gradient)."""
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    total, parts = tfm.loss_fn(cfg, _rebuild(params, leaves), batch,
+                               remat=remat)
+    grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for t, g in zip(leaves, grads)]
+    return ((total.detach(), {k: v.detach() for k, v in parts.items()}),
+            _rebuild(params, grads))
+
+
+def make_train_step(cfg: ModelConfig, opt: AdamW, *, remat: bool = True
+                    ) -> Callable:
+    """``(params, opt_state, batch) -> (params, opt_state, {"loss", "ce",
+    "aux", "grad_norm"})``: one AdamW step on ``loss_fn``'s gradients."""
+    def train_step(params, opt_state, batch):
+        (total, parts), grads = llm_grads(cfg, params, batch, remat=remat)
+        new_params, new_opt_state = opt.update(grads, opt_state, params)
+        metrics = {"loss": total, "ce": parts["ce"], "aux": parts["aux"],
+                   "grad_norm": global_norm(grads)}
+        return new_params, new_opt_state, metrics
+
+    return train_step
+
+
+def train_llm(cfg: ModelConfig, *, steps: int, batch_size: int,
+              seq_len: int, lr: float = 3e-4, seed: int = 0,
+              log_every: int = 10, branching: int = 8, callback=None,
+              device="cuda") -> Tuple[Any, List[dict]]:
+    """Single-card training loop: ``init_params(cfg, seed)``, AdamW at
+    ``lr``, batches from ``TokenStream(vocab, seq_len, batch_size, seed,
+    branching)``, no remat; a history record every ``log_every`` steps and
+    at the last.  Returns (params, history)."""
+    device = require_device(device)
+    set_reference_precision()
+    params = tfm.init_params(cfg, seed, device)
+    opt = AdamW(lr=lr)
+    opt_state = opt.init(params)
+    step_fn = make_train_step(cfg, opt, remat=False)
+    history: List[dict] = []
+    stream = iter(data.TokenStream(cfg.vocab_size, seq_len, batch_size, seed,
+                                   branching=branching))
+    for step in range(steps):
+        batch = to_device(next(stream), device)
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        _record(history, step, steps, metrics, callback, log_every)
+    return params, history
+
+
+# ---------------------------------------------------------------------------
+# Video-model training
+# ---------------------------------------------------------------------------
 @contextlib.contextmanager
 def deterministic_cudnn():
     """cuDNN's deterministic algorithms (its default backward-weight
@@ -98,8 +169,8 @@ def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 
 
 def _record(history: List[dict], step: int, steps: int, metrics,
-            callback: Optional[Callable]) -> None:
-    if step % HISTORY_EVERY == 0 or step == steps - 1:
+            callback: Optional[Callable], every: int = HISTORY_EVERY) -> None:
+    if step % every == 0 or step == steps - 1:
         rec = {"step": step, **{k: float(v) for k, v in metrics.items()}}
         history.append(rec)
         if callback:

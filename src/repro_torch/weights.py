@@ -111,28 +111,29 @@ def map_with_path(fn, tree, path: Tuple[str, ...] = ()):
     return fn("/".join(path), tree)
 
 
-def _flatten(tree) -> Dict[str, np.ndarray]:
-    """Flat ``{key: array}`` of a tree, convs back to HWIO."""
+def _flatten(tree, hwio: bool = True) -> Dict[str, np.ndarray]:
+    """Flat ``{key: array}`` of a tree, convs back to HWIO (``hwio``; an LLM
+    tree's 4-d leaves are not convs: pass False)."""
     flat = {}
 
     def put(key, leaf):
         arr = (leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor)
                else np.asarray(leaf))
-        flat[key] = _oihw_to_hwio(arr)
+        flat[key] = _oihw_to_hwio(arr) if hwio else arr
 
     map_with_path(put, tree)
     return flat
 
 
-def save_npz(path: str, params, metadata: Optional[Dict[str, Any]] = None
-             ) -> None:
+def save_npz(path: str, params, metadata: Optional[Dict[str, Any]] = None,
+             hwio: bool = True) -> None:
     """Flat ``.npz`` in the JAX checkpoint's format (HWIO convs) of a
     nested tree (params, optimizer state); a bare leaf is saved under
-    ``params``."""
+    ``params``.  ``hwio=False`` for an LLM tree (no convs)."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tree = (params if isinstance(params, (dict, tuple, list))
             else {"params": params})
-    np.savez(path, **_flatten(tree))
+    np.savez(path, **_flatten(tree, hwio))
     if metadata is not None:
         with open(path + ".meta.json", "w") as f:
             json.dump(metadata, f, indent=2, default=str)

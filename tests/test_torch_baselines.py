@@ -96,7 +96,7 @@ def test_baseline_matches_jax(det_params, name, content):
     if name == "GlimpseBaseline":             # a frame was skipped
         assert sent < frames
     # the CPU run computed the kernels' plain versions
-    assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
+    assert ops.launch_counts() == {k: 0 for k in [*ops.KERNELS, *ops.VJPS]}
 
 
 def test_framewise_split_matches_flush_split_and_jax(det_params):

@@ -33,7 +33,8 @@ from repro_torch.models import schema as sch
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.server import LLMServer, Request
 from repro_torch.learning import ContinualLearningPlane, LearningConfig
-from repro_torch.testing import (ATTN_ATOL, DECODE_CASES, FILTER_CASES,
+from repro_torch.testing import (ATTN_ATOL, ATTN_VJP_RTOL, DECODE_CASES,
+                                 FILTER_CASES, SSD_VJP_RTOL,
                                  FILTER_KW, FLASH_CASES, FLASH_DV_CASES,
                                  FLASH_RAGGED_CASES,
                                  IOU_CASES,
@@ -53,6 +54,9 @@ from repro_torch.video import synthetic
 pytestmark = pytest.mark.cuda
 
 CROP_CASES = {**crop_cases(), **crop_tile_cases()}
+# (b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, softcap, q_offset)
+ATTN_GRAD_CASES = ([c[:6] + (c[5],) + c[6:] for c in FLASH_CASES
+                    + FLASH_RAGGED_CASES] + FLASH_DV_CASES)
 
 
 @pytest.fixture
@@ -230,7 +234,8 @@ def test_baseline_chunk_on_the_card_matches_cpu(cuda, name):
             with CodecTap(lambda kind, f, r, q, i: rec.frames[i]) as tap, \
                     DetectorTies(system.theta_loc, system.theta_cls) as ties:
                 res[dev] = system.process_chunk(params, chunk.frames)
-            assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
+            assert ops.launch_counts() == {
+                k: 0 for k in [*ops.KERNELS, *ops.VJPS]}
             tap.tie_flips()
     assert_baseline_results_match(res["cpu"], res["cuda"],
                                   ties.exempt(res["cpu"].valid.shape), name)
@@ -279,7 +284,8 @@ def test_dispatch_launches_kernels_on_the_card(cuda):
     ops.region_filter_mask(*_t(frame_filter_case(8, 8), cuda), **FILTER_KW)
     ops.nms_greedy(iou, torch.rand(2, 8, device=cuda),
                    torch.ones(2, 8, dtype=torch.bool, device=cuda))
-    assert ops.launch_counts() == {name: 1 for name in ops.KERNELS}
+    assert ops.launch_counts() == {**{name: 1 for name in ops.KERNELS},
+                                   **{name: 0 for name in ops.VJPS}}
     boxes, _ = _t(iou_case(2, 8, 8), cuda)
     ops.nms_mask(boxes, torch.rand(2, 8, device=cuda),
                  torch.ones(2, 8, dtype=torch.bool, device=cuda))
@@ -442,7 +448,7 @@ def test_learning_plane_on_the_card_matches_cpu(cuda):
     # of passes x the round's buffer
     assert counts["onevsall_update"] == rounds > 0
     assert k5_steps == steps > 0
-    assert cpu_counts == {name: 0 for name in ops.KERNELS}
+    assert cpu_counts == {name: 0 for name in [*ops.KERNELS, *ops.VJPS]}
     for name, st in sched.streams.items():
         assert rel_err(st.W, cpu_sched.streams[name].W) <= LEARN_RTOL
 
@@ -667,7 +673,8 @@ def test_zamba2_smoke_served_on_the_card_matches_cpu(cuda):
         runs[dev] = (done, ops.launch_counts(),
                      len(srv.monitor.series["active_requests"]))
     (cpu_done, cpu_counts, _), (done, counts, steps) = runs["cpu"], runs["cuda"]
-    assert cpu_counts == {name: 0 for name in ops.KERNELS}    # plain on CPU
+    assert cpu_counts == {name: 0 for name in [*ops.KERNELS,
+                                               *ops.VJPS]}   # plain on CPU
     # one shared-attention block: K6 per prefill, K7 per decode step; eight
     # Mamba2 layers: K8 eight times per prefill
     assert steps > 0
@@ -741,16 +748,19 @@ def test_musicgen_smoke_on_the_card_matches_cpu(cuda):
 
 
 # ---------------------------------------------------------------------------
-# the kernels are forward only; video-model training on the card
+# the kernels are forward only, K6 and K8 differentiable through their
+# plain versions' VJPs; training on the card
 # ---------------------------------------------------------------------------
 def test_kernels_refuse_operands_that_require_grad(cuda):
     x, ws, _ = onevsall_case(8, 8, 4)
     x, ws = _t((x, ws), cuda)
-    q, k, v = _t(attention_case(1, 8, 8, 2, 1, 32), cuda)
-    xs, dt, A, B, C = _t(ssd_case(1, 8, 2, 4, 4, init=False)[:5], cuda)
+    q, kc, vc = _t(decode_case(1, 8, 2, 1, 32), cuda)
+    fargs = _t(filter_case(1, 8, 8), cuda)
     calls = {"K3": (lambda: ops.onevsall_scores(x, ws), ws),
-             "K6": (lambda: ops.flash_attention(q, k, v), k),
-             "K8": (lambda: ops.ssd_scan(xs, dt, A, B, C, chunk=4), A)}
+             "K7": (lambda: ops.decode_attention(q, kc, vc, 4), kc),
+             "K1": (lambda: ops.region_filter_mask_batch(*fargs,
+                                                         **FILTER_KW),
+                    fargs[0])}
     for name, (call, t) in calls.items():
         t.requires_grad_(True)
         ops.reset_launch_counts()
@@ -763,6 +773,112 @@ def test_kernels_refuse_operands_that_require_grad(cuda):
         call()
         torch.cuda.synchronize()
         assert sum(ops.launch_counts().values()) == 2, name
+
+
+def _grad_check(cuda, call, plain, operands, needs, seed):
+    """``call`` (through ``ops``) and ``plain`` on the same CUDA operands,
+    ``needs`` of them requiring grad: (forward outputs, gradients) of each,
+    against one seeded cotangent per output."""
+    for t, need in zip(operands, needs):
+        if t is not None:
+            t.requires_grad_(need)
+    leaves = [t for t, need in zip(operands, needs) if need]
+    out = {}
+    for what, fn in (("kernel", call), ("plain", plain)):
+        res = fn()
+        res = res if isinstance(res, tuple) else (res,)
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        cots = [torch.randn(r.shape, generator=gen, device=cuda)
+                for r in res]
+        out[what] = ([r.detach() for r in res],
+                     torch.autograd.grad(res, leaves, cots))
+    return out
+
+
+@pytest.mark.parametrize("case", ATTN_GRAD_CASES,
+                         ids=[f"attn{i}" for i in range(len(ATTN_GRAD_CASES))])
+def test_flash_attention_gradients_on_the_card_are_the_plain_vjp(cuda, case):
+    b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off = case
+    q, k, v = _t(attention_case(b, s_q, s_kv, n_q, n_kv, d, d_v=d_v), cuda)
+    kw = dict(causal=causal, window=window, softcap=cap,
+              q_offset=torch.as_tensor(off, device=cuda))
+    ops.reset_launch_counts()
+    out = _grad_check(cuda, lambda: ops.flash_attention(q, k, v, **kw),
+                      lambda: fa.flash_attention_ref(q, k, v, **kw),
+                      (q, k, v), (True, True, True), 1)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1
+    assert counts["flash_attention_vjp"] == 1
+    (got, g_got), (want, g_want) = out["kernel"], out["plain"]
+    assert float((got[0] - want[0]).abs().max()) <= ATTN_ATOL
+    for x, w in zip(g_got, g_want):
+        assert rel_err(x.detach().cpu().numpy(),
+                       w.detach().cpu().numpy()) <= ATTN_VJP_RTOL
+
+
+@pytest.mark.parametrize("case", SSD_CASES,
+                         ids=[f"ssd{i}" for i in range(len(SSD_CASES))])
+def test_ssd_scan_gradients_on_the_card_are_the_plain_vjp(cuda, case):
+    b, s, h, p, n, chunk, init, weak = case
+    x, dt, A, B, C, st = (None if a is None else
+                          torch.as_tensor(a, device=cuda) for a in
+                          ssd_case(b, s, h, p, n, init, weak=weak))
+    operands = (x, dt, A, B, C, st)
+    needs = (True, True, True, True, True, init)
+    ops.reset_launch_counts()
+    out = _grad_check(
+        cuda, lambda: ops.ssd_scan(x, dt, A, B, C, chunk=chunk,
+                                   initial_state=st),
+        lambda: sk.ssd_scan_ref(x, dt, A, B, C, chunk=chunk,
+                                initial_state=st), operands, needs, 2)
+    counts = ops.launch_counts()
+    assert counts["ssd_scan"] == 1 and counts["ssd_scan_vjp"] == 1
+    (got, g_got), (want, g_want) = out["kernel"], out["plain"]
+    for a, w in zip(got, want):
+        assert rel_err(a.cpu().numpy(), w.cpu().numpy()) <= SSD_RTOL
+    for a, w in zip(g_got, g_want):
+        assert rel_err(a.detach().cpu().numpy(),
+                       w.detach().cpu().numpy()) <= SSD_VJP_RTOL
+
+
+def test_zamba2_smoke_train_step_on_the_card_matches_cpu(cuda):
+    # the 9-layer zamba2-smoke: one make_train_step step with remat, K6
+    # and K8 forward on the card (twice: remat recomputes the block) and
+    # their plain VJPs backward, against the same step on the CPU
+    from repro_torch.testing import (LLM_GRAD_CARD_RTOL,
+                                     assert_train_params_close, leaf_rel_err,
+                                     llm_batch)
+    from repro_torch.training import train_loop
+    from repro_torch.training.optimizer import AdamW
+    set_reference_precision()
+    cfg_llm = get_config("zamba2-7b-smoke")
+    cpu_params = tfm.init_params(cfg_llm, 0, "cpu")
+    batch = llm_batch(cfg_llm, 2, 40, seed=4)
+    runs = {}
+    for dev in ("cpu", cuda):
+        params = sch.tree_map(lambda t: t.to(dev), cpu_params)
+        opt = AdamW(lr=1e-3)
+        ops.reset_launch_counts()
+        dbatch = train_loop.to_device(batch, dev)
+        grads = train_loop.llm_grads(cfg_llm, params, dbatch)[1]
+        new, _, m = train_loop.make_train_step(cfg_llm, opt)(
+            params, opt.init(params), dbatch)
+        runs[dev] = (weights._flatten(new, hwio=False),
+                     weights._flatten(grads, hwio=False), float(m["loss"]),
+                     ops.launch_counts())
+    (p, g, loss, counts), (p0, g0, loss0, cpu_counts) = runs[cuda], runs["cpu"]
+    # two calls (llm_grads, the step), each a forward, a remat forward of
+    # the one block and a backward
+    assert counts["flash_attention"] == 2 * 2
+    assert counts["ssd_scan"] == 2 * (1 + 2 * 7)
+    assert counts["flash_attention_vjp"] == 2 * 1
+    assert counts["ssd_scan_vjp"] == 2 * 8
+    assert all(n == 0 for n in cpu_counts.values())
+    assert leaf_rel_err(loss, loss0) <= 1e-5
+    for k in g0:
+        assert leaf_rel_err(g[k], g0[k]) <= LLM_GRAD_CARD_RTOL, k
+    assert_train_params_close(p, p0, g0, 1e-3, 1, "zamba2-smoke",
+                              rtol=LLM_GRAD_CARD_RTOL)
 
 
 def test_classifier_loss_on_the_card_has_gradients(cuda):

@@ -36,6 +36,14 @@ from repro_torch.models.attention import (cross_attention, mla_attention,
 from repro_torch.models.layers import softcap
 from repro_torch.models.moe import moe_apply
 from repro_torch.models.stubs import frontend_embeddings
+from repro_torch.models.transformer import loss_fn
+from repro_torch.training.train_loop import (llm_grads, make_train_step,
+                                             train_llm)
+from repro_torch.launch.specs import arch_for_shape, make_step
+from repro_torch.launch.train import main as train_main
+from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                 flash_attention_vjp)
+from repro_torch.kernels.ssd_scan import SSDScan, ssd_scan_vjp
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                or m == "repro" for m in sys.modules
                if sys.modules[m] is not None)
@@ -53,7 +61,7 @@ def test_port_imports_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 78      # every module imported
+    assert int(proc.stdout.split()[-1]) >= 80      # every module imported
     names = proc.stdout.split()
     for mod in ("baselines.common", "baselines.mpeg", "baselines.glimpse",
                 "baselines.cloudseg", "baselines.dds", "serving.policies",
@@ -61,7 +69,8 @@ def test_port_imports_with_jax_blocked():
                 "training.checkpoint", "training.data",
                 "training.optimizer", "training.train_loop",
                 "serving.shards", "core.cascade", "models.moe",
-                "models.stubs", "models.attention", "models.transformer"):
+                "models.stubs", "models.attention", "models.transformer",
+                "launch.specs", "launch.train"):
         assert f"repro_torch.{mod}" in names, mod
 
 
