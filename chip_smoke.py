@@ -71,12 +71,6 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, fp32 outside the
-# tensor cores and dense TF32 on them -- the rates the bounds below divide by
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-TF32_FLOP_PER_S = 495e12
-
 SEED = 0
 
 # the kernels the video path runs (K4a and the NMS kernel through its two
@@ -85,8 +79,18 @@ VIDEO_KERNELS = ("region_filter_mask_batch", "crop_gather", "onevsall_scores",
                  "iou_matrix", "nms_greedy")
 
 
+def h100():
+    """The H100 SXM's peaks (NVIDIA data sheet; ``repro_torch.roofline.hw``):
+    HBM bandwidth, fp32 outside the tensor cores and dense TF32 on them --
+    the rates the bounds below divide by.  main() puts src/ on the path."""
+    from repro_torch.roofline.hw import H100
+    return H100
+
+
 def bound_ms(nbytes: float, ops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOP_PER_S
+    chip = h100()
+    t_bytes = nbytes / chip.hbm_bandwidth
+    t_ops = ops / chip.peak_flops_fp32
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -95,8 +99,10 @@ def tc_bound_ms(nbytes: float, mma_flops: float, simt_ops: float):
     """The bound of a kernel whose products run on the tensor cores in
     3xTF32 (three TF32 products for each fp32 one) and the rest on the CUDA
     cores: the larger of the bytes' time and the two units' times summed."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 3 * mma_flops / TF32_FLOP_PER_S + simt_ops / FP32_FLOP_PER_S
+    chip = h100()
+    t_bytes = nbytes / chip.hbm_bandwidth
+    t_ops = (3 * mma_flops / chip.peak_flops_tf32
+             + simt_ops / chip.peak_flops_fp32)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -2557,17 +2563,10 @@ def ssd_ops(b, s, h, p, n) -> int:
 
 def ssd_tc_ops(b, s, h, p, n, chunk):
     """(matrix-product flops, other flops) of the chunked form K8 runs on
-    the tensor cores: per (row, head), C B^T and W U on each chunk's causal
-    triangle (2n and 2p per pair), the chunk states U^T (B o decay) and the
-    incoming C S^T (2pn per step each); besides them the decay weights
-    (a difference, an exp and a product per pair), per step u = x dt and
-    its decay (2p), exp(cum_i) C S added to y (2p), the cumsum and decays
-    (5), and the recurrence across chunks (2pn per chunk)."""
-    lens = [min(chunk, s - c0) for c0 in range(0, s, chunk)]
-    pairs = sum(n_ * (n_ + 1) // 2 for n_ in lens)
-    mma = b * h * (2 * (n + p) * pairs + 4 * s * p * n)
-    other = b * h * (3 * pairs + s * (4 * p + 5) + 2 * p * n * len(lens))
-    return mma, other
+    the tensor cores (``kernels.ssd_scan.chunked_ops``, which the dry run's
+    floor charges too)."""
+    from repro_torch.kernels.ssd_scan import chunked_ops
+    return chunked_ops(b, s, h, p, n, chunk)
 
 
 def phase_ssd_scan(torch, np, card):
@@ -2681,6 +2680,305 @@ def parent_device_ms(root: str, card: str):
 # musicgen-medium (cross-attention over stub embeddings) through
 # prefill / decode_step
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# the dry run (launch/dryrun.py): every arch x shape counted on meta tensors,
+# then zamba2-7b's prefill_32k and decode_32k steps on the card
+# ---------------------------------------------------------------------------
+DRYRUN_ARCH = "zamba2-7b"
+DRYRUN_CARD_SHAPES = ("prefill_32k", "decode_32k")
+DRYRUN_WORKERS = 8
+DRYRUN_K6_REPS = 5            # timed calls of K6 at 2 x 32k (~0.46 s each)
+DRYRUN_REF_SEQ = 1024         # the 9-layer cut's card-vs-CPU steps
+INT32_LIMIT = 2 ** 31
+
+
+def _abstract_row(combo):
+    """One (arch, shape) abstract pass, in a spawned worker process."""
+    if SRC not in sys.path:
+        sys.path.insert(0, SRC)
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.launch.dryrun import run_one
+    return run_one(*combo, device="meta", verbose=False, save=False)
+
+
+def phase_dryrun_table(card):
+    """(a) The abstract pass of every arch x input shape, in a pool of
+    spawned processes; one row each.  Returns {(arch, shape): row}."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.configs import INPUT_SHAPES, list_archs
+    combos = [(a, s) for a in list_archs() for s in sorted(INPUT_SHAPES)]
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            max_workers=min(DRYRUN_WORKERS, os.cpu_count() or 1),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        rows = dict(zip(combos, pool.map(_abstract_row, combos)))
+    for (arch, shape), r in rows.items():
+        print(f"dryrun {arch} {shape}: {r['hlo_flops']:.4e} FLOP, "
+              f"{r['hlo_bytes']:.4e} B, arguments {r['arg_bytes'] / 1e9:.2f}"
+              f" GB, peak {r['peak_memory_per_device'] / 1e9:.2f} GB, fits "
+              f"{r['fits']}, largest batch {r['max_batch']}, floor "
+              f"{r['t_floor'] * 1e3:.3f} ms ({r['dominant']}), abstract "
+              f"pass {r['t_abstract_s']:.1f} s [{card}]")
+    print(f"dryrun: {len(rows)} abstract passes in "
+          f"{time.perf_counter() - t0:.1f} s ({DRYRUN_WORKERS} workers) "
+          f"[{card}]")
+    return rows
+
+
+def kernel_offsets(cfg, b_prefill: int, b_decode: int, seq: int) -> dict:
+    """The largest element count each LLM kernel indexes at the dry run's
+    card shapes (an operand, its output or its workspace)."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ssd_scan as sk
+    h, d = cfg.num_heads, cfg.head_dim
+    x = torch.empty((b_prefill, seq, cfg.n_ssm_heads, cfg.ssm_head_dim),
+                    device="meta")
+    q, kc = (torch.empty((b_decode, h, d), device="meta"),
+             torch.empty((b_decode, seq, cfg.num_kv_heads, d),
+                         device="meta"))
+    B = torch.empty((b_prefill, seq, cfg.ssm_state), device="meta")
+    return {"flash_attention": b_prefill * seq * h * d,
+            "decode_attention": max(kc.numel(), da.workspace_bytes(
+                q, kc, None) // 4),
+            "ssd_scan": max(x.numel(), sk.workspace_bytes(
+                x, B, cfg.ssm_chunk) // 4)}
+
+
+def phase_dryrun_card(torch, card, table):
+    """(b) ``dryrun.card_pass`` for DRYRUN_ARCH at full width and depth, at
+    the batch the table's abstract pass picked: launch counts zeroed just
+    before the first timed step and read just after it; the prediction
+    beside the measurement (a decode step's time the median of
+    ``dryrun.DECODE_CALLS`` calls, with the fastest and slowest).  Returns
+    {shape: the ``card`` dict}."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch.dryrun import card_pass
+    from repro_torch.launch.specs import arch_for_shape
+    cfg = get_config(DRYRUN_ARCH)
+    batches = {s: table[(DRYRUN_ARCH, s)]["max_batch"]
+               for s in DRYRUN_CARD_SHAPES}
+    if not all(batches.values()):
+        raise AssertionError(f"dryrun: no batch of {DRYRUN_ARCH} fits at "
+                             f"{batches}")
+    for shape in sorted(INPUT_SHAPES):
+        r = table[(DRYRUN_ARCH, shape)]
+        if not r["max_batch"]:
+            print(f"dryrun: {DRYRUN_ARCH} {shape} does not fit the card in "
+                  f"float32 at any batch: {r['batch1_peak_bytes'] / 1e9:.2f}"
+                  f" GB live at batch 1, {r['arg_bytes'] / 1e9:.2f} GB of "
+                  f"arguments at batch {INPUT_SHAPES[shape].global_batch} "
+                  f"[{card}]")
+    offsets = kernel_offsets(cfg, batches["prefill_32k"],
+                             batches["decode_32k"],
+                             INPUT_SHAPES["prefill_32k"].seq_len)
+    print(f"dryrun: largest element offsets at the card shapes {offsets}, "
+          f"all below 2^31 = {INT32_LIMIT} [{card}]")
+    if max(offsets.values()) >= INT32_LIMIT:
+        raise AssertionError(f"dryrun: an offset reaches 2^31: {offsets}")
+    want = {"prefill_32k": path_launches(cfg, 1, 0),
+            "decode_32k": path_launches(cfg, 0, 1)}
+    out = {}
+    for shape in DRYRUN_CARD_SHAPES:
+        torch.cuda.empty_cache()
+        full = INPUT_SHAPES[shape]
+        c = card_pass(arch_for_shape(cfg, full), full,
+                      table[(DRYRUN_ARCH, shape)])
+        check_launches(c["launches"], want[shape],
+                       f"{DRYRUN_ARCH}'s {shape} step")
+        if not c["finite"] or c["batch"] != batches[shape]:
+            raise AssertionError(f"dryrun {shape}: finite {c['finite']}, "
+                                 f"batch {c['batch']} of {batches[shape]}")
+        print(f"dryrun on the card: {DRYRUN_ARCH} {shape} at batch "
+              f"{c['batch']} of {INPUT_SHAPES[shape].global_batch}: "
+              f"{c['ms']:.3f} ms (median of {c['calls']} calls, "
+              f"{c['ms_min']:.3f}-{c['ms_max']:.3f}) against a floor of "
+              f"{c['floor_ms']:.3f} ms ({c['dominant']}; "
+              f"{c['over_floor']:.3f}x the floor); peak "
+              f"{c['peak_bytes'] / 1e9:.3f} GB measured against "
+              f"{c['predicted_peak_bytes'] / 1e9:.3f} GB predicted "
+              f"({c['peak_bytes'] / c['predicted_peak_bytes']:.4f}); "
+              f"launches {c['launches']} [{card}]")
+        c["offsets"] = offsets
+        out[shape] = c
+    return out
+
+
+def phase_dryrun_kernels(torch, np, card, batches):
+    """(c) K6, K7 and K8 at the dry run's 32k card shapes against their
+    plain versions (K6 on 256-query slices at the head and tail: its plain
+    version over all 32k queries would hold 137 GB of scores), timed with
+    their bounds and SDPA where it computes the same function (K6 over
+    DRYRUN_K6_REPS calls; the profiler can drop events of so few, which
+    the default 30 of K7 and K8 absorb).  Returns {kernel name: row}."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.testing import ATTN_ATOL, SSD_RTOL
+    cfg = get_config(DRYRUN_ARCH)
+    s = INPUT_SHAPES["prefill_32k"].seq_len
+    bp, bd = batches["prefill_32k"], batches["decode_32k"]
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    reps = DRYRUN_K6_REPS
+    rows = {}
+    # K6: causal, the full sequence; checked on 256-row query slices
+    q, k, v = randn(bp, s, h, d), randn(bp, s, kv, d), randn(bp, s, kv, d)
+    got = fa.flash_attention(q, k, v)
+    err = 0.0
+    for lo in (0, s - 256):
+        want = fa.flash_attention_ref(q[:, lo:lo + 256], k, v, q_offset=lo)
+        err = max(err, float((got[:, lo:lo + 256] - want).abs().max()))
+    del want
+    if not (err <= ATTN_ATOL and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"K6 at {bp} x {s}: max abs error {err}")
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    timed, lib, _ = versus_library(
+        torch, lambda: fa.flash_attention(q, k, v),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=h != kv), reps)
+    del qt, kt, vt, got
+    nbytes, ops, pairs = flash_bound(bp, s, s, h, kv, d, d, True, None,
+                                     None)
+    row = _row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention.py:86",
+               f"b={bp} s_q={s} s_kv={s} heads={h}/{kv} d={d} causal",
+               err, timed, (None, None), lib[0], nbytes, ops)
+    row["bound_tc_ms"], row["bound_tc_by"] = tc_bound_ms(
+        nbytes, pairs * h * 4 * d,
+        pairs * h * (_attn_ops_per_pair(d, None) - 4 * d))
+    rows["flash_attention"] = row
+    del q, k, v
+    # K8: the prefill's scan at the model's chunk
+    p_, n_, hs = cfg.ssm_head_dim, cfg.ssm_state, cfg.n_ssm_heads
+    x, dt = randn(bp, s, hs, p_), torch.rand(
+        (bp, s, hs), generator=gen, device="cuda") * 0.1
+    A, B, C = -torch.rand((hs,), generator=gen, device="cuda") - 0.5, \
+        randn(bp, s, n_, scale=0.3), randn(bp, s, n_, scale=0.3)
+    kw = dict(chunk=cfg.ssm_chunk)
+    y, fin = sk.ssd_scan(x, dt, A, B, C, **kw)
+    y_ref, fin_ref = sk.ssd_scan_ref(x, dt, A, B, C, **kw)
+    # testing.rel_err on the card: its float64 copies of 235 M elements
+    # would take seconds on the host
+    err = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+              for a, b in ((y, y_ref), (fin, fin_ref)))
+    del y_ref, fin_ref
+    if not (err <= SSD_RTOL and bool(torch.isfinite(y).all())):
+        raise AssertionError(f"K8 at {bp} x {s}: error {err}")
+    timed = measure(torch, lambda: sk.ssd_scan(x, dt, A, B, C, **kw))
+    plain = measure(torch, lambda: sk.ssd_scan_ref(x, dt, A, B, C, **kw))
+    nbytes = 4 * (2 * bp * s * hs * p_ + bp * s * hs + hs + 2 * bp * s * n_
+                  + bp * hs * p_ * n_)
+    row = _row("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+               "src/repro/kernels/ssd_scan.py:74",
+               f"b={bp} s={s} h={hs} p={p_} n={n_} chunk={cfg.ssm_chunk}",
+               err, timed, plain, None, nbytes, ssd_ops(bp, s, hs, p_, n_))
+    row["bound_tc_ms"], row["bound_tc_by"] = tc_bound_ms(
+        nbytes, *ssd_tc_ops(bp, s, hs, p_, n_, cfg.ssm_chunk))
+    rows["ssd_scan"] = row
+    del x, dt, A, B, C, y, fin
+    # K7: one token over every slot of a 32k cache
+    q, kc, vc = randn(bd, h, d), randn(bd, s, kv, d), randn(bd, s, kv, d)
+    cl = torch.full((bd,), s, dtype=torch.int32, device="cuda")
+    got = da.decode_attention(q, kc, vc, cl)
+    err = float((got - da.decode_attention_ref(q, kc, vc, cl)).abs().max())
+    if not (err <= ATTN_ATOL and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"K7 at {bd} x {s}: max abs error {err}")
+    kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
+    timed, lib, _ = versus_library(
+        torch, lambda: da.decode_attention(q, kc, vc, cl),
+        lambda: F.scaled_dot_product_attention(q[:, :, None], kt, vt,
+                                               enable_gqa=h != kv))
+    del kt, vt
+    plain = measure(torch, lambda: da.decode_attention_ref(q, kc, vc, cl))
+    row = _row("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+               "src/repro/kernels/decode_attention.py:73",
+               f"b={bd} S={s} heads={h}/{kv} d={d} lens={s}", err, timed,
+               plain, lib[0], decode_nbytes(bd, h, kv, d, [s] * bd, s, None),
+               bd * s * h * _attn_ops_per_pair(d, None))
+    rows["decode_attention"] = row
+    del q, kc, vc, got
+    torch.cuda.empty_cache()
+    for name, row in rows.items():
+        tc = ("" if "bound_tc_ms" not in row else
+              f", tensor-core bound {row['bound_tc_ms']:.6f} ms")
+        _report(f"dryrun kernel {name} {row['shape']}: error "
+                f"{row['max_abs_err']:.3e}{tc}", row, card,
+                None if row["library_ms"] is None else "sdpa")
+    return rows
+
+
+def phase_dryrun_reference(torch, np, card):
+    """(d) The prefill and decode steps of ``launch.specs.make_step`` on
+    DRYRUN_ARCH cut to 9 layers, the same weights on the card and the CPU:
+    a 1 x DRYRUN_REF_SEQ prefill, then one decode step over its cache
+    (rewriting its last slot); logits within LLM_RTOL of their scale."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs
+    from repro_torch.models import schema as sch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.testing import LLM_RTOL, rel_err
+    cfg = block_cut(get_config(DRYRUN_ARCH), 1)
+    s = DRYRUN_REF_SEQ
+    prefill = specs.make_step(cfg, ShapeConfig("p", s, 1, "prefill"))[0]
+    decode = specs.make_step(cfg, ShapeConfig("d", s, 1, "decode"))[0]
+    params = {"cuda": tfm.init_params(cfg, SEED, "cuda")}
+    params["cpu"] = sch.tree_map(lambda t: t.cpu(), params["cuda"])
+    toks = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (1, s))
+    out, counts = {}, {}
+    for dev in ("cuda", "cpu"):
+        t = torch.as_tensor(toks, device=dev)
+        ops.reset_launch_counts()
+        logits, cache = prefill(params[dev], t)
+        counts[dev, "prefill"] = ops.launch_counts()
+        ops.reset_launch_counts()
+        step, _ = decode(params[dev], t[:, -1:], cache,
+                         torch.tensor(s - 1, device=dev))
+        counts[dev, "decode"] = ops.launch_counts()
+        out[dev] = (logits.cpu().numpy(), step[:, 0].cpu().numpy())
+    check_launches(counts["cuda", "prefill"], path_launches(cfg, 1, 0),
+                   "the 9-layer prefill step")
+    check_launches(counts["cuda", "decode"], path_launches(cfg, 0, 1),
+                   "the 9-layer decode step")
+    errs = [rel_err(a, b) for a, b in zip(out["cuda"], out["cpu"])]
+    if not (max(errs) <= LLM_RTOL and np.isfinite(out["cuda"][0]).all()):
+        raise AssertionError(f"dryrun steps card vs CPU: {errs}")
+    print(f"dryrun steps card vs CPU, {cfg.name} at full width, 1 x {s}: "
+          f"prefill logits within {errs[0]:.3e}, decode {errs[1]:.3e} of "
+          f"their scale (tolerance {LLM_RTOL}) [{card}]")
+    del params
+    torch.cuda.empty_cache()
+    return {"prefill": errs[0], "decode": errs[1]}
+
+
+def phase_dryrun(torch, np, card):
+    """The dry run's phases (a)-(d); returns what the JSON line carries."""
+    table = phase_dryrun_table(card)
+    runs = phase_dryrun_card(torch, card, table)
+    kernels = phase_dryrun_kernels(
+        torch, np, card, {s: runs[s]["batch"] for s in DRYRUN_CARD_SHAPES})
+    steps = phase_dryrun_reference(torch, np, card)
+    keep = ("hlo_flops", "hlo_bytes", "arg_bytes", "peak_memory_per_device",
+            "fits", "max_batch", "batch1_peak_bytes", "t_floor", "dominant",
+            "kernel_plain_flops", "cut_t_floor", "t_abstract_s")
+    return {"table": [dict(arch=a, shape=s, **{k: r[k] for k in keep})
+                      for (a, s), r in table.items()],
+            "card": runs, "kernels": kernels, "card_vs_cpu": steps}
+
+
 LLM_ARCH = "zamba2-7b"
 MOE_ARCH = "deepseek-v2-lite-16b"
 CROSS_ARCH = "musicgen-medium"
@@ -3847,6 +4145,7 @@ def main() -> int:
         row["launches_sharded"] = shard_counts[row["name"]]
         row["launches_tenancy"] = tenancy_counts[row["name"]]
     del trained, served
+    dryrun = phase_dryrun(torch, np, card)
     phase_llm_reference(torch, np, card)
     llm_counts, llm_cfg, llm_params = phase_llm_main_path(torch, np, card)
     cascade_counts = phase_cascade(torch, np, card, llm_cfg, llm_params)
@@ -3879,13 +4178,18 @@ def main() -> int:
             row["gradient"] = grads[row["name"]]
         row["launches_deepseek"] = moe_counts[row["name"]]
         row["launches_musicgen"] = cross_counts[row["name"]]
+        row["launches_dryrun"] = {s: dryrun["card"][s]["launches"][
+            row["name"]] for s in DRYRUN_CARD_SHAPES}
+        row["dryrun_shape"] = dryrun["kernels"][row["name"]]
     rows = video_rows + [iou_row, nms_row, frame_row, update_row] + llm_rows
     print(f"chip_smoke.py finished its checks in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows, "card": card,
                       "llm_card_vs_cpu": checks,
-                      "llm_training": train_split}))
+                      "llm_training": train_split,
+                      "dryrun": {k: dryrun[k] for k in
+                                 ("table", "card", "card_vs_cpu")}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.flash_attention import (MAX_HEAD_DIM, check_options,
-                                                 row_array)
+                                                 pair_work, row_array)
 
 launches = 0          # wrapper calls that launched the kernels (ops.py)
 
@@ -41,6 +41,31 @@ def splits(b: int, S: int, n_kv: int, window: Optional[int]
     per = max(SPLIT_SLOTS, -(-longest // want))
     per = -(-per // 32) * 32                   # whole 32-slot tiles
     return per, -(-longest // per)
+
+
+def workspace_bytes(q: torch.Tensor, k_cache: torch.Tensor,
+                    window: Optional[int]) -> int:
+    """Bytes of the per-call workspace: each split's partial softmax state
+    (d + 2 floats) for every (row, query head)."""
+    b, n_q, d = q.shape
+    _, nsplit = splits(b, k_cache.shape[1], k_cache.shape[2], window)
+    return 4 * b * n_q * nsplit * (d + 2)
+
+
+def work(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+         cache_len, *, window: Optional[int] = None,
+         softcap: Optional[float] = None) -> Tuple[int, int]:
+    """(products, other) operations K7 does on these operands: each valid
+    slot (the last ``window`` of them where there is one) for every row and
+    query head.  A tensor ``cache_len`` (which has no value on meta) counts
+    the whole cache (the roofline's floor; ``roofline.analysis``)."""
+    b, n_q, d = q.shape
+    S = k_cache.shape[1]
+    rows = S if isinstance(cache_len, torch.Tensor) else min(int(cache_len),
+                                                             S)
+    if window:
+        rows = min(rows, window)
+    return pair_work(b * n_q * rows, d, v_cache.shape[-1], softcap)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -66,8 +91,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty_like(q)
     if b and n_q:
         per, nsplit = splits(b, S, n_kv, window)
-        ws = torch.empty((b, n_q, nsplit, d + 2), dtype=torch.float32,
-                         device=q.device)
+        ws = torch.empty(workspace_bytes(q, k_cache, window) // 4,
+                         dtype=torch.float32, device=q.device)
         _build.launch("vpaas_decode_attention", q.data_ptr(),
                       k_cache.data_ptr(), v_cache.data_ptr(), clen.data_ptr(),
                       ws.data_ptr(), out.data_ptr(), b, S, n_q, n_kv, d, per,

@@ -21,7 +21,7 @@ the saved inputs -- the gradient ``jax.grad`` takes of the reference's
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -64,6 +64,41 @@ def check_options(window: Optional[int], softcap: Optional[float]) -> None:
         raise ValueError(f"window must be positive, got {window}")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"softcap must be positive, got {softcap}")
+
+
+def pair_work(pairs: int, d: int, d_v: int,
+              softcap: Optional[float]) -> Tuple[int, int]:
+    """(products, other) floating-point operations of ``pairs`` (query
+    head, key) pairs: q.k and p.v (2 d + 2 d_v), and beside them the
+    scale, running max, exp and sum (5) and a softcap's division, tanh and
+    multiply (3)."""
+    return pairs * 2 * (d + d_v), pairs * (5 + (3 if softcap else 0))
+
+
+def causal_pairs(s_q: int, s_kv: int, *, causal: bool,
+                 window: Optional[int], q_offset) -> int:
+    """The (query, key) pairs of one row and head that the mask lets
+    through.  A tensor ``q_offset`` (which has no value on meta) counts the
+    queries as the last ``s_q`` positions of the keys."""
+    off = (s_kv - s_q if isinstance(q_offset, torch.Tensor)
+           else int(q_offset))
+    pos = torch.arange(s_q, dtype=torch.long) + off
+    hi = pos.clamp(max=s_kv - 1) if causal else torch.full_like(pos,
+                                                                 s_kv - 1)
+    lo = (pos - window + 1).clamp(min=0) if window else torch.zeros_like(pos)
+    return int((hi - lo + 1).clamp(min=0).sum())
+
+
+def work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+         causal: bool = True, window: Optional[int] = None,
+         softcap: Optional[float] = None, q_offset=0) -> Tuple[int, int]:
+    """(products, other) operations K6 does on these operands: every pair
+    the mask lets through, for each row and query head (the roofline's
+    floor; ``roofline.analysis``)."""
+    b, s_q, n_q, d = q.shape
+    pairs = causal_pairs(s_q, k.shape[1], causal=causal, window=window,
+                         q_offset=q_offset)
+    return pair_work(b * n_q * pairs, d, v.shape[-1], softcap)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

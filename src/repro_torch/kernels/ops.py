@@ -23,10 +23,19 @@ VJPs (``vjps``, reported as ``flash_attention_vjp`` and ``ssd_scan_vjp``).
 K5 also counts its replays and the proximal steps its launches ran
 (``onevsall_update.replays`` and ``.steps``, zeroed with the launches): a
 replay is one launch of many steps.
+
+A ``meta`` tensor takes the plain version too, as shape evaluation: it
+computes nothing, so it is no fallback.  The roofline's counters
+(:mod:`repro_torch.roofline.analysis`) run a whole step on meta tensors;
+each kernel call there runs inside a region they see (:func:`_plain`), so
+the byte and memory counts charge the kernel's operands, outputs and
+workspace and not the plain version's intermediates, and the floor K6's,
+K7's and K8's own operations (their modules' ``work``).  Every other device
+but the CPU and CUDA raises.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -51,6 +60,13 @@ KERNELS = {"region_filter_mask_batch": _ik, "crop_gather": _cg,
 VJPS = {"flash_attention_vjp": _fa, "ssd_scan_vjp": _sk}
 
 
+# the counters watching kernel calls on meta tensors; each has
+# ``kernel_enter(name)`` and ``kernel_exit(name, operands, outputs,
+# workspace_bytes, work)`` (roofline.analysis.StepCounter adds itself while
+# open)
+META_OBSERVERS: List = []
+
+
 def launch_counts() -> Dict[str, int]:
     return {**{name: mod.launches for name, mod in KERNELS.items()},
             **{name: mod.vjps for name, mod in VJPS.items()}}
@@ -70,10 +86,10 @@ def _wants_grad(*operands) -> bool:
 
 
 def _on_card(t: torch.Tensor, *operands) -> bool:
-    """True for a CUDA ``t``.  The kernels are forward only, like the
-    reference's ``pallas_call``, which has no differentiation rule: a CUDA
-    operand that requires grad while grad mode is on raises instead of
-    silently returning a result with no graph."""
+    """True for a CUDA ``t``, False for a CPU or meta one.  The kernels are
+    forward only, like the reference's ``pallas_call``, which has no
+    differentiation rule: a CUDA operand that requires grad while grad mode
+    is on raises instead of silently returning a result with no graph."""
     if t.is_cuda:
         if _wants_grad(t, *operands):
             raise RuntimeError(
@@ -81,9 +97,29 @@ def _on_card(t: torch.Tensor, *operands) -> bool:
                 "differentiated; call them under torch.no_grad() or on "
                 "tensors that do not require grad")
         return True
-    if t.device.type != "cpu":
+    if t.device.type not in ("cpu", "meta"):
         raise ValueError(f"no kernel for device {t.device}")
     return False
+
+
+def _plain(name: str, fn, *args, workspace_bytes: int = 0, work=None,
+           **kw):
+    """``fn(*args, **kw)``, the plain version of kernel ``name``.  On meta
+    tensors it runs inside a kernel region that the ``META_OBSERVERS`` see:
+    ``workspace_bytes`` is what the kernel would allocate beside its
+    outputs, and ``work(*args, **kw)`` the (products, other) operations it
+    would do (None: the plain version's count stands)."""
+    if not (args[0].is_meta and META_OBSERVERS):
+        return fn(*args, **kw)
+    operands = [a for a in (*args, *kw.values())
+                if isinstance(a, torch.Tensor)]
+    for obs in META_OBSERVERS:
+        obs.kernel_enter(name)
+    out = fn(*args, **kw)
+    counted = None if work is None else work(*args, **kw)
+    for obs in reversed(META_OBSERVERS):
+        obs.kernel_exit(name, operands, out, workspace_bytes, counted)
+    return out
 
 
 def region_filter_mask_batch(proposals, prop_valid, accepted, acc_valid,
@@ -96,15 +132,16 @@ def region_filter_mask_batch(proposals, prop_valid, accepted, acc_valid,
     if _on_card(proposals, accepted, loc_scores):
         return _ik.region_filter_mask_batch(proposals, prop_valid, accepted,
                                             acc_valid, loc_scores, **kw)
-    return _ik.region_filter_mask_batch_ref(proposals, prop_valid, accepted,
-                                            acc_valid, loc_scores, **kw)
+    return _plain("region_filter_mask_batch",
+                  _ik.region_filter_mask_batch_ref, proposals, prop_valid,
+                  accepted, acc_valid, loc_scores, **kw)
 
 
 def iou_matrix(boxes_a, boxes_b) -> torch.Tensor:
     """Pairwise IoU (K4a): (..., N, 4) x (..., M, 4) -> (..., N, M)."""
     if _on_card(boxes_a, boxes_b):
         return _im.iou_matrix(boxes_a, boxes_b)
-    return _im.iou_matrix_ref(boxes_a, boxes_b)
+    return _plain("iou_matrix", _im.iou_matrix_ref, boxes_a, boxes_b)
 
 
 def nms_greedy(iou, scores, valid, iou_threshold: float = 0.45
@@ -113,7 +150,8 @@ def nms_greedy(iou, scores, valid, iou_threshold: float = 0.45
     (..., N), (..., N) -> (..., N) keep."""
     if _on_card(iou, scores):
         return _nms.nms_greedy(iou, scores, valid, iou_threshold)
-    return _nms.nms_greedy_ref(iou, scores, valid, iou_threshold)
+    return _plain("nms_greedy", _nms.nms_greedy_ref, iou, scores, valid,
+                  iou_threshold)
 
 
 def nms_mask(boxes, scores, valid, iou_threshold: float = 0.45
@@ -133,8 +171,9 @@ def region_filter_mask(proposals, prop_valid, accepted, acc_valid,
     if _on_card(proposals, accepted, loc_scores):
         return _rf.region_filter_mask(proposals, prop_valid, accepted,
                                       acc_valid, loc_scores, **kw)
-    return _rf.region_filter_mask_ref(proposals, prop_valid, accepted,
-                                      acc_valid, loc_scores, **kw)
+    return _plain("region_filter_mask", _rf.region_filter_mask_ref,
+                  proposals, prop_valid, accepted, acc_valid, loc_scores,
+                  **kw)
 
 
 def crop_gather(frames, boxes, idxs, *,
@@ -143,7 +182,8 @@ def crop_gather(frames, boxes, idxs, *,
     (B,oh,ow,C)."""
     if _on_card(frames, boxes):
         return _cg.crop_gather(frames, boxes, idxs, out_hw=out_hw)
-    return _cg.crop_gather_ref(frames, boxes, idxs, out_hw=out_hw)
+    return _plain("crop_gather", _cg.crop_gather_ref, frames, boxes, idxs,
+                  out_hw=out_hw)
 
 
 def onevsall_scores(x, ws, widx: Optional[torch.Tensor] = None
@@ -151,14 +191,15 @@ def onevsall_scores(x, ws, widx: Optional[torch.Tensor] = None
     """One-vs-all readout (K3): sigmoid(x @ ws[widx]) per row."""
     if _on_card(x, ws):
         return _ov.onevsall_scores(x, ws, widx)
-    return _ov.onevsall_scores_ref(x, ws, widx)
+    return _plain("onevsall_scores", _ov.onevsall_scores_ref, x, ws, widx)
 
 
 def onevsall_update(x, y, w, *, eta: float) -> torch.Tensor:
     """Fused proximal step (K5): w - eta * x^T (sigmoid(x w) - y)."""
     if _on_card(x, y, w):
         return _ou.onevsall_update(x, y, w, eta=eta)
-    return _ou.onevsall_update_ref(x, y, w, eta=eta)
+    return _plain("onevsall_update", _ou.onevsall_update_ref, x, y, w,
+                  eta=eta)
 
 
 def onevsall_replay(xs, ys, w, *, eta: float, passes: int = 1
@@ -189,7 +230,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
                                         q_offset)
     if _on_card(q, k, v):
         return _fa.flash_attention(q, k, v, **kw)
-    return _fa.flash_attention_ref(q, k, v, **kw)
+    return _plain("flash_attention", _fa.flash_attention_ref, q, k, v,
+                  work=_fa.work, **kw)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *,
@@ -199,7 +241,10 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
     kw = dict(window=window, softcap=softcap)
     if _on_card(q, k_cache, v_cache):
         return _da.decode_attention(q, k_cache, v_cache, cache_len, **kw)
-    return _da.decode_attention_ref(q, k_cache, v_cache, cache_len, **kw)
+    return _plain("decode_attention", _da.decode_attention_ref, q, k_cache,
+                  v_cache, cache_len,
+                  workspace_bytes=_da.workspace_bytes(q, k_cache, window),
+                  work=_da.work, **kw)
 
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 64, initial_state=None):
@@ -211,7 +256,9 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 64, initial_state=None):
         return _sk.SSDScan.apply(x, dt, A, B, C, chunk, initial_state)
     if _on_card(x, dt, A, B, C, initial_state):
         return _sk.ssd_scan(x, dt, A, B, C, **kw)
-    return _sk.ssd_scan_ref(x, dt, A, B, C, **kw)
+    return _plain("ssd_scan", _sk.ssd_scan_ref, x, dt, A, B, C,
+                  workspace_bytes=_sk.workspace_bytes(x, B, chunk),
+                  work=_sk.work, **kw)
 
 
 def ssd_step(x, dt, A, B, C, state):

@@ -41,6 +41,43 @@ def path(p: int, n: int) -> str:
     return "tensor cores" if p % 8 == 0 and n % 8 == 0 else "CUDA cores"
 
 
+def workspace_bytes(x: torch.Tensor, B: torch.Tensor, chunk: int) -> int:
+    """Bytes of the per-call workspace of the tensor-core path: each 64-step
+    tile's part of its chunk's state (the first then holds the state
+    entering the chunk) and each chunk's decay; none on the CUDA cores."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    if path(p, n) != "tensor cores":
+        return 0
+    nc, tiles = -(-s // chunk), -(-chunk // 64)
+    return 4 * b * nc * h * (tiles * p * n + 1)
+
+
+def chunked_ops(b: int, s: int, h: int, p: int, n: int, chunk: int
+                ) -> Tuple[int, int]:
+    """(matrix-product flops, other flops) of the chunked form K8 runs:
+    per (row, head), C B^T and W U on each chunk's causal triangle (2n and
+    2p per pair), the chunk states U^T (B o decay) and the incoming C S^T
+    (2pn per step each); besides them the decay weights (a difference, an
+    exp and a product per pair), per step u = x dt and its decay (2p),
+    exp(cum_i) C S added to y (2p), the cumsum and decays (5), and the
+    recurrence across chunks (2pn per chunk)."""
+    lens = [min(chunk, s - c0) for c0 in range(0, s, chunk)]
+    pairs = sum(n_ * (n_ + 1) // 2 for n_ in lens)
+    mma = b * h * (2 * (n + p) * pairs + 4 * s * p * n)
+    other = b * h * (3 * pairs + s * (4 * p + 5) + 2 * p * n * len(lens))
+    return mma, other
+
+
+def work(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+         B: torch.Tensor, C: torch.Tensor, *, chunk: int = 64,
+         initial_state: Optional[torch.Tensor] = None) -> Tuple[int, int]:
+    """(products, other) operations K8 does on these operands
+    (:func:`chunked_ops`; the roofline's floor, ``roofline.analysis``)."""
+    b, s, h, p = x.shape
+    return chunked_ops(b, s, h, p, B.shape[-1], chunk)
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, *, chunk: int = 64,
              initial_state: Optional[torch.Tensor] = None
@@ -68,13 +105,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     y = torch.empty_like(x)
     fin = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     if b and h:
-        ws = None
-        if path(p, n) == "tensor cores":
-            # each 64-step tile's part of its chunk's state (the first then
-            # holds the state entering the chunk) and each chunk's decay
-            nc, tiles = -(-s // chunk), -(-chunk // 64)
-            ws = torch.empty(b * nc * h * (tiles * p * n + 1),
-                             dtype=torch.float32, device=x.device)
+        nws = workspace_bytes(x, B, chunk) // 4
+        ws = (torch.empty(nws, dtype=torch.float32, device=x.device)
+              if nws else None)
         _build.launch("vpaas_ssd_scan", x.data_ptr(), dt.data_ptr(),
                       A.data_ptr(), B.data_ptr(), C.data_ptr(),
                       None if initial_state is None

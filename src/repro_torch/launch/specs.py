@@ -1,22 +1,37 @@
-"""Step functions for one (arch, shape), port of the train branch of
-``repro.launch.specs``.
+"""input_specs(): meta-tensor stand-ins for every model input, plus the step
+functions and their partition specs for each (arch x shape) (port of
+``repro.launch.specs``).
 
-The reference builds each step with its shardings for a TPU mesh and
-computes in bfloat16 (``specs.COMPUTE_DTYPE``).  Here a step runs on one
-card, in float32, with no shardings; the prefill and decode steps, the
-abstract inputs (``input_specs``) and the sharding specs belong to the
-TPU-pod tooling (M12) and raise ``NotImplementedError``.
+Everything ``input_specs`` and ``make_step``'s abstract arguments hold is
+allocation-free: meta tensors of the real shapes.  The dry run
+(``launch.dryrun``) counts a step on them; the launchers and the dry run's
+card pass call the same step functions with real tensors.
+
+The reference computes in bfloat16 (``COMPUTE_DTYPE = jnp.bfloat16``) on a
+TPU mesh.  The port computes in float32, because its kernels take float32
+(bf16 parameters are ``ROADMAP.md`` queue 1 item 2), on one card: the
+specs describe the reference's layouts and place nothing.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.launch.mesh import Mesh, make_host_mesh
+from repro_torch.models import sharding as shd
+from repro_torch.models import stubs
+from repro_torch.models import transformer as tfm
+from repro_torch.models.sharding import PartitionSpec
 from repro_torch.training import train_loop
-from repro_torch.training.optimizer import AdamW, tree_map
+from repro_torch.training.optimizer import AdamW, AdamWState, tree_map
+
+COMPUTE_DTYPE = torch.float32
+# the port's index dtype for tokens and cache positions (the reference's
+# are int32)
+INDEX_DTYPE = torch.long
 
 
 def arch_for_shape(cfg: ModelConfig, shape: ShapeConfig) -> ModelConfig:
@@ -38,47 +53,134 @@ def arch_for_shape(cfg: ModelConfig, shape: ShapeConfig) -> ModelConfig:
         sliding_window=8192, num_blocks=cfg.num_blocks)
 
 
-def make_step(cfg: ModelConfig, shape: ShapeConfig, *, lr: float = 1e-4,
-              remat: bool = True, microbatch: int = 1) -> Callable:
-    """The train step ``(params, opt_state, batch) -> (params, opt_state,
-    metrics)`` on one card, AdamW at ``lr``.
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
 
-    With ``microbatch`` K > 1 dividing the global batch, the gradients of
-    K microbatches are accumulated in float32 as ``grad / K`` (and the loss
-    as ``loss / K``) before one update; the metrics are then the
-    reference's ``{"loss": total, "ce": total, "aux": 0}``.  Otherwise
-    ``{"loss": total, "ce", "aux"}``."""
-    if shape.mode != "train":
-        raise NotImplementedError(
-            f"make_step: the {shape.mode} step is part of the TPU-pod "
-            "tooling (M12), not yet ported")
-    opt = AdamW(lr=lr)
-    b = shape.global_batch
 
-    def grads_of(params, batch):
-        return train_loop.llm_grads(cfg, params, batch, remat=remat)
-
-    if microbatch > 1 and b % microbatch == 0:
-        mb = b // microbatch
-
-        def train_step(params, opt_state, batch):
-            acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                 device=p.device), params)
-            total = torch.zeros((), dtype=torch.float32,
-                                device=batch["tokens"].device)
-            for j in range(microbatch):
-                mbatch = {k: v[j * mb:(j + 1) * mb] for k, v in batch.items()}
-                (loss, _), grads = grads_of(params, mbatch)
-                acc = tree_map(lambda a, g: a + g.float() / microbatch, acc,
-                               grads)
-                total = total + loss / microbatch
-            new_params, new_opt = opt.update(acc, opt_state, params)
-            return new_params, new_opt, {"loss": total, "ce": total,
-                                         "aux": torch.zeros_like(total)}
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                *, dtype=COMPUTE_DTYPE) -> Dict[str, Any]:
+    """Abstract model inputs for one (arch, shape), as meta tensors."""
+    b, s = shape.global_batch, shape.seq_len
+    if shape.mode == "train":
+        specs = {"tokens": _meta((b, s), INDEX_DTYPE),
+                 "labels": _meta((b, s), INDEX_DTYPE)}
+    elif shape.mode == "prefill":
+        specs = {"tokens": _meta((b, s), INDEX_DTYPE)}
     else:
-        def train_step(params, opt_state, batch):
-            (total, parts), grads = grads_of(params, batch)
-            new_params, new_opt = opt.update(grads, opt_state, params)
-            return new_params, new_opt, {"loss": total, **parts}
+        # decode: ONE new token + a cache of seq_len
+        specs = {"tokens": _meta((b, 1), INDEX_DTYPE),
+                 "cache": tfm.abstract_cache(cfg, b, s, dtype),
+                 "cache_index": _meta((), INDEX_DTYPE)}
+    if cfg.num_ctx_tokens:
+        specs["ctx_embed"] = stubs.frontend_spec(cfg, b, dtype)
+    return specs
 
-    return train_step
+
+def make_step(cfg: ModelConfig, shape: ShapeConfig,
+              rules: Optional[Dict[str, Any]] = None,
+              mesh: Optional[Mesh] = None, *, lr: float = 1e-4,
+              remat: bool = True, microbatch: int = 1):
+    """Returns ``(fn, abstract_args, in_specs, out_specs)``: the step for
+    ``shape.mode``, its arguments as meta tensors, and the partition specs
+    of its arguments and results under ``rules`` (default
+    ``default_rules(shape)``) on ``mesh``, the one-card mesh (so the MoE
+    groups, which the reference takes from the mesh's axis sizes, are
+    (1, 1), and the reference's sharding constraints place nothing and are
+    not passed).
+
+    * train: ``(params, opt_state, batch) -> (params, opt_state,
+      metrics)``, AdamW at ``lr``.  With ``microbatch`` K > 1 dividing the
+      global batch, the gradients of K microbatches are accumulated in
+      float32 as ``grad / K`` (and the loss as ``loss / K``) before one
+      update; the metrics are then the reference's ``{"loss": total, "ce":
+      total, "aux": 0}``.  Otherwise ``{"loss": total, "ce", "aux"}``.
+    * prefill: ``(params, tokens[, ctx_embed]) -> (last-token logits (b,
+      V), cache)``, into a zeroed cache (``init_cache``) on the tokens'
+      device.
+    * decode: ``(params, tokens (b, 1), cache, cache_index[, ctx_embed])
+      -> (logits (b, 1, V), cache)``, the cache updated in place.
+    """
+    rules = shd.default_rules(shape) if rules is None else rules
+    mesh = make_host_mesh() if mesh is None else mesh
+    if mesh.size != 1:
+        raise NotImplementedError(f"make_step: a mesh of {mesh.size} "
+                                  "devices; the port runs on one card")
+    b, s = shape.global_batch, shape.seq_len
+
+    p_specs = tfm.param_partition_specs(cfg, rules)
+    params_abs = tfm.abstract_params(cfg, COMPUTE_DTYPE)
+    tok_spec, ctx_spec = shd.token_spec(rules), shd.ctx_spec(rules)
+    repl = PartitionSpec()
+    specs = input_specs(cfg, shape)
+
+    if shape.mode == "train":
+        opt = AdamW(lr=lr)
+
+        def grads_of(params, batch):
+            return train_loop.llm_grads(cfg, params, batch, remat=remat)
+
+        if microbatch > 1 and b % microbatch == 0:
+            mb = b // microbatch
+
+            def train_step(params, opt_state, batch):
+                acc = tree_map(lambda p: torch.zeros(
+                    p.shape, dtype=torch.float32, device=p.device), params)
+                total = torch.zeros((), dtype=torch.float32,
+                                    device=batch["tokens"].device)
+                for j in range(microbatch):
+                    mbatch = {k: v[j * mb:(j + 1) * mb]
+                              for k, v in batch.items()}
+                    (loss, _), grads = grads_of(params, mbatch)
+                    acc = tree_map(lambda a, g: a + g.float() / microbatch,
+                                   acc, grads)
+                    total = total + loss / microbatch
+                new_params, new_opt = opt.update(acc, opt_state, params)
+                return new_params, new_opt, {"loss": total, "ce": total,
+                                             "aux": torch.zeros_like(total)}
+        else:
+            def train_step(params, opt_state, batch):
+                (total, parts), grads = grads_of(params, batch)
+                new_params, new_opt = opt.update(grads, opt_state, params)
+                return new_params, new_opt, {"loss": total, **parts}
+
+        opt_abs = AdamWState(
+            _meta((), torch.int32),
+            tree_map(lambda p: _meta(p.shape, torch.float32), params_abs),
+            tree_map(lambda p: _meta(p.shape, torch.float32), params_abs))
+        opt_specs = AdamWState(repl, p_specs, p_specs)
+        batch_specs = {k: (ctx_spec if k == "ctx_embed" else tok_spec)
+                       for k in specs}
+        return (train_step, (params_abs, opt_abs, specs),
+                (p_specs, opt_specs, batch_specs),
+                (p_specs, opt_specs, repl))
+
+    cache_specs = tfm.cache_partition_specs(cfg, b, s, rules)
+    has_ctx = "ctx_embed" in specs
+
+    if shape.mode == "prefill":
+        def prefill_step(params, tokens, ctx_embed=None):
+            with torch.no_grad():
+                cache = tfm.init_cache(cfg, tokens.shape[0], s,
+                                       tokens.device)
+                return tfm.prefill(cfg, params, tokens, cache,
+                                   ctx_embed=ctx_embed)
+
+        args = (params_abs, specs["tokens"]) + (
+            (specs["ctx_embed"],) if has_ctx else ())
+        in_specs = (p_specs, tok_spec) + ((ctx_spec,) if has_ctx else ())
+        out_specs = (PartitionSpec(rules.get("act_batch"), "model"),
+                     cache_specs)
+        return prefill_step, args, in_specs, out_specs
+
+    def decode_step(params, tokens, cache, cache_index, ctx_embed=None):
+        with torch.no_grad():
+            return tfm.decode_step(cfg, params, tokens, cache, cache_index,
+                                   ctx_embed=ctx_embed)
+
+    args = (params_abs, specs["tokens"], specs["cache"],
+            specs["cache_index"]) + ((specs["ctx_embed"],) if has_ctx else ())
+    in_specs = (p_specs, tok_spec, cache_specs, repl) + (
+        (ctx_spec,) if has_ctx else ())
+    out_specs = (PartitionSpec(rules.get("act_batch"), None, "model"),
+                 cache_specs)
+    return decode_step, args, in_specs, out_specs

@@ -10,9 +10,10 @@ The step is ``launch.specs.make_step`` (remat on, ``--microbatch`` for
 gradient accumulation); batches come from ``TokenStream`` and, for a
 config with frontend context, stub embeddings seeded with the step.
 ``--device`` defaults to ``cuda``.  Gaps against the reference: only
-``--mesh host`` (one card) runs -- ``pod`` and ``multipod`` need the
-TPU-pod tooling (M12) -- and the parameters are float32, where the
-reference trains bfloat16 parameters (the port's kernels take float32).
+``--mesh host`` (one card) runs -- ``pod`` and ``multipod`` raise through
+``launch.mesh.make_production_mesh``, as they need a TPU pod of 256 or 512
+chips -- and the parameters are float32, where the reference trains
+bfloat16 parameters (the port's kernels take float32).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ import torch
 from repro_torch import require_device, set_reference_precision
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.launch.specs import make_step
 from repro_torch.models import stubs
 from repro_torch.models import transformer as tfm
@@ -49,16 +51,15 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain versions)")
     args = ap.parse_args(argv)
-    if args.mesh != "host":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: multi-chip meshes are part of the TPU-pod "
-            "tooling (M12), not yet ported; use --mesh host")
+    mesh = (make_host_mesh() if args.mesh == "host"
+            else make_production_mesh(multi_pod=args.mesh == "multipod"))
 
     device = require_device(args.device)
     set_reference_precision()
     cfg = get_config(args.arch)
     shape = ShapeConfig("custom", args.seq, args.batch, "train")
-    step_fn = make_step(cfg, shape, lr=args.lr, microbatch=args.microbatch)
+    step_fn = make_step(cfg, shape, mesh=mesh, lr=args.lr,
+                        microbatch=args.microbatch)[0]
 
     params = tfm.init_params(cfg, 0, device)
     opt_state = AdamW(lr=args.lr).init(params)

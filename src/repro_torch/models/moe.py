@@ -6,7 +6,8 @@ Tokens are partitioned into ``groups``; routing, position assignment and
 the dispatch scatter are local to a group, and each group has its own
 capacity, so the grouping decides which tokens drop.  The JAX package
 aligns the groups with its mesh's activation sharding; on one card they
-are a layout only, and its sharding hook (``constrain``) has no port.
+are a layout only, and the sharding hook ``constrain(x, kind)`` is called
+where the reference calls it, on tensors of the reference's shapes.
 
 Ties keep the reference's order: the top k come from a stable descending
 sort (``jax.lax.top_k`` puts the lower expert first among equal
@@ -67,9 +68,13 @@ def _positions_in_expert(flat_ids: torch.Tensor, e: int) -> torch.Tensor:
 
 def moe_apply(cfg: ModelConfig, params, x: torch.Tensor, *,
               capacity_factor: Optional[float] = None,
+              constrain=None,      # fn(x, kind) -> x: sharding hook
               groups: Tuple[int, int] = (1, 1)
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (b, s, d) -> (y (b, s, d), aux load-balance loss)."""
+    def cn(t, kind):
+        return constrain(t, kind) if constrain is not None else t
+
     b, s, d = x.shape
     k, e = cfg.num_experts_per_tok, cfg.num_experts
     gd = groups[0] if b % groups[0] == 0 else 1
@@ -82,6 +87,7 @@ def moe_apply(cfg: ModelConfig, params, x: torch.Tensor, *,
     # ---- group tokens as the reference's (batch, seq) sharding does ----
     xg = x.reshape(gd, b // gd, gm, s // gm, d)
     xg = xg.permute(0, 2, 1, 3, 4).reshape(g, n_loc, d)
+    xg = cn(xg, "moe_tokens")
 
     router_logits = (xg @ params["router"]).float()              # (g, n, e)
     probs = torch.softmax(router_logits, dim=-1)
@@ -99,15 +105,18 @@ def moe_apply(cfg: ModelConfig, params, x: torch.Tensor, *,
     buf = x.new_zeros((g, e * cap + 1, d))
     rows = torch.arange(g, device=x.device)[:, None]
     buf[rows, slot] = x_rep
-    xe = buf[:, :e * cap].reshape(g, e, cap, d).transpose(0, 1)
-    xe = xe.reshape(e, g * cap, d)
+    buf = cn(buf[:, :e * cap], "moe_buffer")
+    xe = buf.reshape(g, e, cap, d).transpose(0, 1)
+    xe = cn(xe.reshape(e, g * cap, d), "expert")
 
     h = (F.silu(torch.bmm(xe, params["wi_gate"]))
          * torch.bmm(xe, params["wi_up"]))
-    ye = torch.bmm(h, params["wo"])
+    h = cn(h, "expert_ff")
+    ye = cn(torch.bmm(h, params["wo"]), "expert")
 
     # ---- combine: gather each assignment's expert row, sum over k ----
     yb = ye.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d)
+    yb = cn(yb, "moe_buffer")
     safe = slot.clamp(max=e * cap - 1)
     gathered = yb.gather(1, safe[..., None].expand(g, n_loc * k, d))
     gathered = torch.where((slot < e * cap)[..., None], gathered,

@@ -1,18 +1,25 @@
-"""Parameter schema: one declaration drives init and shapes (port of
-``repro.models.schema``; the JAX package's partition specs wait for the
-sharding slice).
+"""Parameter schema: one declaration drives init, sharding specs and shapes
+(port of ``repro.models.schema``).
 
 Every layer module exposes ``schema(cfg) -> tree of Leaf``.  A ``Leaf``
 declares the parameter's shape, *logical* axis names (one per dim) and its
-initializer.  Trees are nested dicts with the JAX package's keys, so a
-parameter tree of either package maps onto the other leaf for leaf.
+initializer.  From a schema we derive:
+
+  * ``init(schema, gen, device)``      -> parameter tree (real tensors)
+  * ``abstract(schema, dtype)``        -> meta-tensor tree (dry run)
+  * ``partition_specs(schema, rules)`` -> PartitionSpec tree
+
+Trees are nested dicts with the JAX package's keys, so a parameter tree of
+either package maps onto the other leaf for leaf.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.models.sharding import PartitionSpec
 
 
 class Leaf(NamedTuple):
@@ -52,6 +59,32 @@ def init(schema, gen: torch.Generator, device="cuda",
     if isinstance(schema, Leaf):
         return _init_leaf(schema, gen, device, dtype)
     return {k: init(v, gen, device, dtype) for k, v in schema.items()}
+
+
+def is_leaf(x: Any) -> bool:
+    return isinstance(x, Leaf)
+
+
+def map_with_key(fn: Callable, schema):
+    """Apply fn(leaf) over a schema tree (empty sub-trees stay empty)."""
+    if is_leaf(schema):
+        return fn(schema)
+    return {k: map_with_key(fn, v) for k, v in schema.items()}
+
+
+def abstract(schema, dtype=torch.float32, prepend: Tuple[int, ...] = ()):
+    """Meta-tensor tree of the schema's shapes (optionally with a stacked
+    leading dim): shapes and a dtype, nothing allocated."""
+    return map_with_key(
+        lambda l: torch.empty(prepend + l.shape, dtype=dtype, device="meta"),
+        schema)
+
+
+def partition_specs(schema, rules: Dict[str, Any]):
+    """Each leaf's logical axes through ``rules`` (``models.sharding``)."""
+    return map_with_key(
+        lambda l: PartitionSpec(*(rules.get(ax) if ax is not None else None
+                                  for ax in l.axes)), schema)
 
 
 def stack(schema, n: int):

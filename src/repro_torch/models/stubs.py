@@ -34,3 +34,11 @@ def frontend_embeddings(cfg: ModelConfig, batch: int, *,
             zlib.crc32(cfg.name.encode()))
     return torch.randn((batch, cfg.num_ctx_tokens, d), generator=generator,
                        device=device) * 0.02
+
+
+def frontend_spec(cfg: ModelConfig, batch: int,
+                  dtype=torch.float32) -> torch.Tensor:
+    """The stub embeddings' shape as a meta tensor (the dry run's input)."""
+    d = cfg.ctx_dim or cfg.d_model
+    return torch.empty((batch, cfg.num_ctx_tokens, d), dtype=dtype,
+                       device="meta")

@@ -17,7 +17,9 @@ call, as in the reference; ``LLMServer`` takes none, so such a config runs
 through ``prefill`` / ``decode_step`` directly.
 
 Public API:
-  init_params(cfg, seed, device) / init_cache(cfg, batch, max_seq, device)
+  init_params(cfg, seed, device) / abstract_params / param_partition_specs
+  init_cache(cfg, batch, max_seq, device) / abstract_cache /
+      cache_partition_specs
   forward(cfg, params, tokens, ...)   -> (logits, cache, aux)
   loss_fn(cfg, params, batch, ...)    -> (total, {"ce", "aux"})
   prefill / decode_step                (the serving engine's two calls)
@@ -25,10 +27,14 @@ Public API:
 A cache passed to ``forward`` is updated in place and returned.  With
 ``remat`` each block unit is rematerialised in the backward pass
 (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint`` of its
-scan body; the prefix and suffix layers are not.  The reference's
-``act_constraint``, ``block_param_constraint``, ``unroll_blocks`` and
-``dtype`` arguments are sharding and dry-run hooks of the TPU-pod tooling
-(M12) and have no counterpart here: the port computes in float32.
+scan body; the prefix and suffix layers are not.  The sharding hooks
+``act_constraint(x, kind)`` (after each block unit, and MoE's
+``constrain``) and ``block_param_constraint(block_params)`` (before each
+block unit) are called where the reference calls them; on one card they
+place nothing, and the dry run passes none.  The reference's
+``unroll_blocks`` (a Python loop in place of its scan, for XLA's cost
+probes) is what the port always does, and its ``dtype`` has no
+counterpart: the port computes in float32.
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (embed, embed_schema, mlp, mlp_schema,
                                        rmsnorm, rmsnorm_schema, unembed)
 from repro_torch.models.schema import Leaf
+from repro_torch.models.sharding import PartitionSpec
 
 
 # ---------------------------------------------------------------------------
@@ -88,6 +95,13 @@ def layer_cache_shapes(cfg: ModelConfig, kind: str, batch: int,
     raise ValueError(kind)
 
 
+def _unit_schema(cfg: ModelConfig):
+    """One block unit's schema (unstacked); the shared-attention slot is
+    empty."""
+    return {str(i): (layer_schema(cfg, k) if k != SHARED_ATTN else {})
+            for i, k in enumerate(cfg.block_pattern)}
+
+
 def model_schema(cfg: ModelConfig):
     s: Dict[str, Any] = {"embed": embed_schema(cfg)}
     if cfg.num_ctx_tokens:
@@ -97,9 +111,7 @@ def model_schema(cfg: ModelConfig):
     if cfg.prefix_layers:
         s["prefix"] = {str(i): layer_schema(cfg, k)
                        for i, k in enumerate(cfg.prefix_layers)}
-    unit = {str(i): (layer_schema(cfg, k) if k != SHARED_ATTN else {})
-            for i, k in enumerate(cfg.block_pattern)}
-    s["blocks"] = sch.stack(unit, cfg.num_blocks)
+    s["blocks"] = sch.stack(_unit_schema(cfg), cfg.num_blocks)
     if SHARED_ATTN in cfg.block_pattern:
         s["shared"] = layer_schema(cfg, SHARED_ATTN)
     if cfg.suffix_layers:
@@ -107,6 +119,21 @@ def model_schema(cfg: ModelConfig):
                        for i, k in enumerate(cfg.suffix_layers)}
     s["final_norm"] = rmsnorm_schema(cfg.d_model)
     return s
+
+
+def abstract_params(cfg: ModelConfig, dtype=torch.float32):
+    """Meta-tensor parameter tree (shapes only)."""
+    return sch.abstract(model_schema(cfg), dtype)
+
+
+def param_partition_specs(cfg: ModelConfig, rules: Dict[str, Any]):
+    return sch.partition_specs(model_schema(cfg), rules)
+
+
+def block_unit_specs(cfg: ModelConfig, rules: Dict[str, Any]):
+    """Partition specs for ONE block unit (unstacked): the reference's
+    use-site weight resharding (two-level FSDP gather)."""
+    return sch.partition_specs(_unit_schema(cfg), rules)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
@@ -138,11 +165,54 @@ def _cache_shapes(cfg: ModelConfig, batch: int, max_seq: int):
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
     """Zeroed float32 decode cache (the SSM ``state`` is float32 in every
     configuration, as in the reference)."""
-    return {part: {key: {name: torch.zeros(shp, dtype=torch.float32,
-                                           device=device)
-                         for name, shp in layer.items()}
+    return _map_cache(
+        lambda name, shp: torch.zeros(shp, dtype=torch.float32,
+                                      device=device),
+        _cache_shapes(cfg, batch, max_seq))
+
+
+def _cache_dtype(name: str, dtype):
+    # SSM recurrent states stay float32 for numerical fidelity
+    return torch.float32 if name == "state" else dtype
+
+
+def _map_cache(fn, shapes):
+    """``fn(name, shape)`` over a tree of cache shapes."""
+    return {part: {key: {name: fn(name, shp) for name, shp in layer.items()}
                    for key, layer in layers.items()}
-            for part, layers in _cache_shapes(cfg, batch, max_seq).items()}
+            for part, layers in shapes.items()}
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                   dtype=torch.float32):
+    """Meta-tensor decode cache; the SSM ``state`` is float32 whatever
+    ``dtype`` is."""
+    return _map_cache(
+        lambda name, shp: torch.empty(shp, dtype=_cache_dtype(name, dtype),
+                                      device="meta"),
+        _cache_shapes(cfg, batch, max_seq))
+
+
+_CACHE_AXES = {
+    "k": ("cache_batch", "cache_seq", "kv_heads_cache", None),
+    "v": ("cache_batch", "cache_seq", "kv_heads_cache", None),
+    "c_kv": ("cache_batch", "cache_seq", None),
+    "k_rope": ("cache_batch", "cache_seq", None),
+    "state": ("cache_batch", "ssm_heads_cache", None, None),
+    "conv": ("cache_batch", None, "ssm_inner_cache"),
+}
+
+
+def cache_partition_specs(cfg: ModelConfig, batch: int, max_seq: int,
+                          rules: Dict[str, Any]):
+    def spec(name, shp):
+        axes = _CACHE_AXES[name]
+        entries = [rules.get(a) if a else None for a in axes]
+        if len(shp) == len(axes) + 1:      # stacked over the blocks
+            entries = [None] + entries
+        return PartitionSpec(*entries)
+
+    return _map_cache(spec, _cache_shapes(cfg, batch, max_seq))
 
 
 def _write_back(dst: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]):
@@ -157,7 +227,7 @@ def _write_back(dst: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]):
 # Layer application
 # ---------------------------------------------------------------------------
 def _apply_layer(cfg: ModelConfig, kind: str, params, x, *, positions, ctx,
-                 cache, cache_index, moe_groups):
+                 cache, cache_index, moe_groups, act_constraint=None):
     """One layer: (x, its new cache or None, its aux loss or None)."""
     window = cfg.sliding_window if kind == LOCAL else None
     c = cache if cache else None
@@ -192,6 +262,7 @@ def _apply_layer(cfg: ModelConfig, kind: str, params, x, *, positions, ctx,
     elif kind == MOE:
         h, aux = moe_mod.moe_apply(cfg, params["moe"],
                                    rmsnorm(params["ln2"], x, cfg.norm_eps),
+                                   constrain=act_constraint,
                                    groups=moe_groups)
         x = x + h
     else:
@@ -229,6 +300,8 @@ def forward(
     moe_groups: Tuple[int, int] = (1, 1),
     last_token_only: bool = False,       # unembed only the final position
     remat: bool = False,                 # recompute each block unit backward
+    act_constraint=None,                 # fn(x, kind) -> x: sharding hook
+    block_param_constraint=None,         # fn(block_params) -> block_params
 ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
     """Returns (logits (b,s,V) float32, cache updated in place or None,
     the MoE layers' summed aux load-balance loss, float32 0-d)."""
@@ -253,7 +326,7 @@ def forward(
 
     aux = torch.zeros((), device=dev)
     kw = dict(positions=positions, ctx=ctx, cache_index=cache_index,
-              moe_groups=moe_groups)
+              moe_groups=moe_groups, act_constraint=act_constraint)
     if cfg.prefix_layers:
         x, aux = _apply_layers(cfg, cfg.prefix_layers, params["prefix"], x,
                                cache["prefix"] if cache is not None else None,
@@ -262,11 +335,16 @@ def forward(
     shared = params.get("shared")
 
     def unit(x, aux, bp, bc):
-        return _apply_layers(cfg, cfg.block_pattern, bp, x, bc, aux,
-                             shared_params=shared, **kw)
+        x, aux = _apply_layers(cfg, cfg.block_pattern, bp, x, bc, aux,
+                               shared_params=shared, **kw)
+        if act_constraint is not None:
+            x = act_constraint(x, "residual")
+        return x, aux
 
     for i in range(cfg.num_blocks):
         bp = sch.tree_map(lambda t: t[i], params["blocks"])
+        if block_param_constraint is not None:
+            bp = block_param_constraint(bp)
         bc = (sch.tree_map(lambda t: t[i], cache["blocks"])
               if cache is not None else None)
         if remat:
@@ -287,7 +365,8 @@ def forward(
 
 
 def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
-            remat: bool = True, moe_groups: Tuple[int, int] = (1, 1)
+            remat: bool = True, moe_groups: Tuple[int, int] = (1, 1),
+            act_constraint=None, block_param_constraint=None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy of ``batch`` (``tokens``, ``labels`` (b, s),
     optional ``ctx_embed``): the mean NLL over the positions with
@@ -295,7 +374,9 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
     times the MoE aux loss.  Returns (total, {"ce", "aux"})."""
     logits, _, aux = forward(cfg, params, batch["tokens"],
                              ctx_embed=batch.get("ctx_embed"), remat=remat,
-                             moe_groups=moe_groups)
+                             moe_groups=moe_groups,
+                             act_constraint=act_constraint,
+                             block_param_constraint=block_param_constraint)
     labels = batch["labels"]
     mask = (labels >= 0).float()
     safe = labels.clamp_min(0).long()
@@ -307,19 +388,21 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
 
 
 def decode_step(cfg: ModelConfig, params, tokens, cache, cache_index, *,
-                ctx_embed=None, moe_groups=(1, 1)):
+                ctx_embed=None, moe_groups=(1, 1), act_constraint=None):
     """One serving decode step: (b,1) token + cache -> logits, cache."""
     logits, cache, _ = forward(cfg, params, tokens, ctx_embed=ctx_embed,
                                cache=cache, cache_index=cache_index,
-                               moe_groups=moe_groups)
+                               moe_groups=moe_groups,
+                               act_constraint=act_constraint)
     return logits, cache
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache, *, ctx_embed=None,
-            moe_groups=(1, 1)):
+            moe_groups=(1, 1), act_constraint=None):
     """Prefill a fresh cache with a full prompt; returns last-token logits
     and the cache."""
     logits, cache, _ = forward(cfg, params, tokens, ctx_embed=ctx_embed,
                                cache=cache, cache_index=0,
-                               moe_groups=moe_groups, last_token_only=True)
+                               moe_groups=moe_groups, last_token_only=True,
+                               act_constraint=act_constraint)
     return logits[:, -1], cache

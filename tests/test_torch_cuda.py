@@ -966,3 +966,63 @@ def test_integrity_store_repairs_a_corrupted_cuda_payload(cuda):
     assert torch.equal(store.get(ref), payload)
     assert store.stats["corruptions_detected"] == 1
     assert store.stats["corruptions_repaired"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the dry run's steps (launch/specs.py, launch/dryrun.py)
+# ---------------------------------------------------------------------------
+def test_prefill_and_decode_steps_on_the_card_match_cpu(cuda):
+    # make_step's prefill, then one decode step over its cache (rewriting
+    # its last slot, so it attends over all of it): K6 and K8
+    # once per attention / SSM layer of the prefill, K7 once per attention
+    # layer of the step; meta operands launch nothing
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import specs
+    set_reference_precision()
+    cfg_llm = get_config("zamba2-7b-smoke")
+    cpu_params = tfm.init_params(cfg_llm, 0, "cpu")
+    b, s = 2, 48
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg_llm.vocab_size, (b, s)))
+    prefill = specs.make_step(cfg_llm, ShapeConfig("p", s, b, "prefill"))[0]
+    decode = specs.make_step(cfg_llm, ShapeConfig("d", s, b, "decode"))[0]
+    runs = {}
+    for dev in ("cpu", cuda):
+        params = sch.tree_map(lambda t: t.to(dev), cpu_params)
+        ops.reset_launch_counts()
+        logits, cache = prefill(params, toks.to(dev))
+        pre = ops.launch_counts()
+        ops.reset_launch_counts()
+        step, _ = decode(params, toks[:, -1:].to(dev), cache,
+                         torch.tensor(s - 1, device=dev))
+        runs[dev] = (logits.cpu(), step.cpu(), pre, ops.launch_counts())
+    (l0, d0, _, _), (l1, d1, pre, dec) = runs["cpu"], runs[cuda]
+    assert pre["flash_attention"] == 1 and pre["ssd_scan"] == 8
+    assert dec["decode_attention"] == 1 and dec["ssd_scan"] == 0
+    assert rel_err(l1.numpy(), l0.numpy()) <= LLM_RTOL
+    assert rel_err(d1.numpy(), d0.numpy()) <= LLM_RTOL
+    ops.reset_launch_counts()
+    meta = torch.empty((1, 8, 2, 16), device="meta")
+    assert ops.flash_attention(meta, meta, meta).is_meta
+    assert all(n == 0 for n in ops.launch_counts().values())
+
+
+def test_dryrun_runs_a_small_cut_on_the_card(cuda):
+    # run_one on zamba2-7b-smoke (9 layers, narrow): the abstract pass,
+    # then the step on the card at the batch it picked
+    from repro_torch.launch import dryrun
+    for shape, want in (("decode_32k", {"decode_attention": 1}),
+                        ("prefill_32k", {"flash_attention": 1,
+                                         "ssd_scan": 8})):
+        r = dryrun.run_one("zamba2-7b-smoke", shape, device="cuda",
+                           verbose=False, save=False)
+        card = r["card"]
+        assert r["fits"] and card["batch"] == r["max_batch"] >= 1
+        assert {k: v for k, v in card["launches"].items() if v} == want
+        assert card["finite"] and card["ms"] > 0 and card["floor_ms"] > 0
+        assert card["peak_bytes"] > 0 and card["predicted_peak_bytes"] > 0
+        # a decode step's time is the median of DECODE_CALLS calls
+        calls = dryrun.DECODE_CALLS if shape == "decode_32k" else 1
+        assert card["calls"] == calls
+        assert card["ms_min"] <= card["ms"] <= card["ms_max"]
+        assert card["over_floor"] == card["ms"] / card["floor_ms"]

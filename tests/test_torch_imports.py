@@ -44,6 +44,19 @@ from repro_torch.launch.train import main as train_main
 from repro_torch.kernels.flash_attention import (FlashAttention,
                                                  flash_attention_vjp)
 from repro_torch.kernels.ssd_scan import SSDScan, ssd_scan_vjp
+from repro_torch.launch.dryrun import run_one
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.launch.profile import kv_cache_bytes, profile_arch
+from repro_torch.launch.specs import input_specs
+from repro_torch.models.sharding import PartitionSpec, default_rules
+from repro_torch.models.stubs import frontend_spec
+from repro_torch.models.transformer import (abstract_cache, abstract_params,
+                                            block_unit_specs,
+                                            cache_partition_specs,
+                                            param_partition_specs)
+from repro_torch.roofline.analysis import (RooflineReport, analyze_step,
+                                           collective_bytes, model_flops)
+from repro_torch.roofline.hw import H100
 assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                or m == "repro" for m in sys.modules
                if sys.modules[m] is not None)
@@ -70,7 +83,9 @@ def test_port_imports_with_jax_blocked():
                 "training.optimizer", "training.train_loop",
                 "serving.shards", "core.cascade", "models.moe",
                 "models.stubs", "models.attention", "models.transformer",
-                "launch.specs", "launch.train"):
+                "launch.specs", "launch.train", "launch.dryrun",
+                "launch.mesh", "launch.profile", "models.sharding",
+                "roofline.analysis", "roofline.hw"):
         assert f"repro_torch.{mod}" in names, mod
 
 

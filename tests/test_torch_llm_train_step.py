@@ -130,7 +130,7 @@ def test_microbatched_step_matches_one_batch_and_jax_mean_of_grads():
     batch = next(iter(data.TokenStream(tcfg.vocab_size, 32, 8, 0)))
     tbatch = train_loop.to_device(batch, "cpu")
     state = AdamW(lr=lr).init(tp)
-    out = {k: specs.make_step(tcfg, shape, lr=lr, microbatch=k)(
+    out = {k: specs.make_step(tcfg, shape, lr=lr, microbatch=k)[0](
         tp, state, tbatch) for k in (1, 4)}
     (p1, _, m1), (p4, s4, m4) = out[1], out[4]
     assert m4["ce"] is m4["loss"] and float(m4["aux"]) == 0.0
@@ -160,10 +160,20 @@ def test_microbatched_step_matches_one_batch_and_jax_mean_of_grads():
 
 
 def test_make_step_leaves_prefill_and_decode_to_the_pod_tooling():
+    # the pod tooling (launch/specs.py, M12) now builds every mode's step
+    # as the reference's (fn, abstract_args, in_specs, out_specs); only a
+    # mesh past one card raises
+    from repro_torch.launch.mesh import Mesh
     cfg = get_config("qwen2-7b").reduced()
-    for mode in ("prefill", "decode"):
-        with pytest.raises(NotImplementedError, match="M12"):
-            specs.make_step(cfg, ShapeConfig("x", 8, 1, mode))
+    for mode, n_args in (("train", 3), ("prefill", 2), ("decode", 4)):
+        fn, args, in_specs, out_specs = specs.make_step(
+            cfg, ShapeConfig("x", 8, 1, mode))
+        assert callable(fn) and len(args) == len(in_specs) == n_args
+        assert all(t.is_meta for t in args[0].values()
+                   if isinstance(t, torch.Tensor))
+    pod = Mesh(("data", "model"), (16, 16), ("tpu",) * 256)
+    with pytest.raises(NotImplementedError, match="one card"):
+        specs.make_step(cfg, ShapeConfig("x", 8, 1, "train"), mesh=pod)
 
 
 def test_arch_for_shape_slides_long_context_only():
@@ -218,9 +228,11 @@ def test_launcher_module_runs_with_ctx_on_the_cpu():
 
 
 def test_launcher_refuses_what_it_cannot_run(monkeypatch):
-    with pytest.raises(NotImplementedError, match="M12"):
-        launch_train.main(["--arch", "qwen2-7b-smoke", "--mesh", "pod",
-                           "--device", "cpu"])
+    # the production meshes raise through launch.mesh (one card)
+    for mesh, chips in (("pod", 256), ("multipod", 512)):
+        with pytest.raises(NotImplementedError, match=f"{chips} chips"):
+            launch_train.main(["--arch", "qwen2-7b-smoke", "--mesh", mesh,
+                               "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         launch_train.main(["--arch", "qwen2-7b-smoke", "--steps", "1"])
