@@ -107,6 +107,17 @@ def tc_bound_ms(nbytes: float, mma_flops: float, simt_ops: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def bf16_bound_ms(nbytes: float, mma_flops: float, other_ops: float):
+    """The bound of a kernel on bf16 operands: the bytes' time, or its
+    bf16 products at the tensor cores' bf16 rate plus its other operations
+    at fp32's rate on the CUDA cores, whichever is larger."""
+    chip = h100()
+    t_bytes = nbytes / chip.hbm_bandwidth
+    t_ops = mma_flops / chip.peak_flops_bf16 + other_ops / chip.peak_flops_fp32
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def time_ms(torch, fn, reps: int = 30, warmup: int = 5) -> float:
     """Median of ``reps`` single-call CUDA-event timings, after warm-up."""
     for _ in range(warmup):
@@ -240,17 +251,35 @@ def fmt(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
+def kernel_instance(mangled: str):
+    """A mangled entry function's kernel name with its template arguments
+    (``float``, ``bf16``, integers): the name is the ``*_kernel`` whose
+    length the digits before it give."""
+    import re
+    for m in re.finditer(r"(?=([a-z][a-z0-9_]*?_kernel))", mangled):
+        name = m.group(1)
+        if not mangled[:m.start()].endswith(str(len(name))):
+            continue
+        rest = mangled[m.start() + len(name):]
+        args = []
+        if rest.startswith("I"):
+            for tok in re.finditer(r"L[ib](-?\d+)E|(13__nv_bfloat16)|(f)",
+                                   rest[1:rest.find("EE") + 1]):
+                args.append(tok.group(1) or ("bf16" if tok.group(2)
+                                             else "float"))
+        return name + (f"<{', '.join(args)}>" if args else "")
+    return None
+
+
 def ptxas_summary(build_log: str):
     """One line per compiled kernel: its name with the template arguments,
     then ptxas's register, barrier, shared-memory and spill report."""
     import re
     name, spill = None, ""
     for line in build_log.splitlines():
-        m = re.search(r"Compiling entry function '_Z\w*?([a-z][a-z_]*_kernel)"
-                      r"(?:I((?:L[ib]-?\d+E)+)E)?", line)
+        m = re.search(r"Compiling entry function '(_Z\w+)'", line)
         if m:
-            args = re.findall(r"L[ib](-?\d+)E", m.group(2) or "")
-            name = m.group(1) + (f"<{', '.join(args)}>" if args else "")
+            name = kernel_instance(m.group(1))
         elif "spill stores" in line:
             spill = line.strip()
         elif "Used" in line and name:
@@ -2317,22 +2346,17 @@ def _attn_ops_per_pair(d, softcap, d_v=None):
     return 2 * d + 2 * (d_v or d) + 5 + (3 if softcap else 0)
 
 
-def flash_bound(b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap):
+def flash_bound(b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap,
+                size=4):
     """(bytes, operations, causal pairs of one head) K6's function needs:
-    q and the output once, each K and V row some query reads once, the
-    offsets; every (query, key) pair the mask lets through."""
+    q and the output once, each K and V row some query reads once (``size``
+    bytes a value), the offsets; every (query, key) pair the mask lets
+    through."""
     import numpy as np
-    qp = np.arange(s_q)[:, None]
-    kp = np.arange(s_kv)[None, :]
-    mask = np.ones((s_q, s_kv), bool)
-    if causal:
-        mask &= qp >= kp
-    if window is not None:
-        mask &= qp - kp < window
-    pairs = int(mask.sum()) * b
-    keys = int(mask.any(0).sum())            # cache rows any query reads
-    nbytes = 4 * (b * s_q * n_q * (d + d_v) + b * keys * n_kv * (d + d_v)) \
-        + 4 * b
+    pairs, keys = masked_pairs(np, s_q, s_kv, causal, window, 0)
+    pairs *= b
+    nbytes = size * (b * s_q * n_q * (d + d_v)
+                     + b * keys * n_kv * (d + d_v)) + 4 * b
     return nbytes, pairs * n_q * _attn_ops_per_pair(d, cap, d_v), pairs
 
 
@@ -2446,7 +2470,123 @@ def phase_flash_attention(torch, np, card):
     print(f"K6 at the {len(errors)} test-case shapes: max abs err "
           + ", ".join(f"{e['max_abs_err']:.2e}" for e in errors)
           + f" (tolerance {ATTN_ATOL}) [{card}]")
+    main_row["bf16"] = phase_flash_attention_bf16(torch, np, card)
     return main_row
+
+
+def bf16_err(got, want) -> tuple:
+    """(max abs error, error as a fraction of max(1, scale)) of a bf16
+    result against its plain version's, on the card."""
+    diff = float((got.float() - want.float()).abs().max())
+    return diff, diff / max(1.0, float(want.float().abs().max()))
+
+
+def _bf16_row(name, source, replaces, shape, errs, timed, plain, lib,
+              bound, tol):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                shape=shape, dtype="bfloat16", max_abs_err=errs[0],
+                rel_err=errs[1], tolerance=tol, ms=timed[0],
+                device_ms=timed[1], plain_ms=plain[0],
+                plain_device_ms=plain[1], bound_ms=bound[0],
+                bound_by=bound[1], library_ms=lib)
+
+
+def _bf16_report(tag, row, card):
+    lib = ("" if row["library_ms"] is None else
+           f", sdpa bf16 {fmt(row['library_ms'])} "
+           f"({fmt(row.get('library_device_ms'))} on the device)")
+    print(f"{tag}: error {row['max_abs_err']:.3e} ({row['rel_err']:.3e} of "
+          f"the scale; tolerance {row['tolerance']:.3e}); kernel "
+          f"{fmt(row['ms'])} per call ({fmt(row['device_ms'])} on the "
+          f"device), plain {fmt(row['plain_ms'])} "
+          f"({fmt(row['plain_device_ms'])} on the device){lib}, bf16 bound "
+          f"{row['bound_ms']:.6f} ms ({row['bound_by']}) [{card}]")
+
+
+def phase_flash_attention_bf16(torch, np, card):
+    """K6 on bf16 operands against its plain version (same operands), at
+    each LLM path's K6 shape and every CPU test case's: error, kernel,
+    plain and device times, the bf16 bound, and SDPA's bf16 time where it
+    computes the same function.  Returns the zamba2 prefill's row, the
+    others under ``other_shapes``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.testing import (ATTN_BF16_RTOL, FLASH_CASES,
+                                     FLASH_DV_CASES, FLASH_RAGGED_CASES,
+                                     attention_case)
+    cases = [c[:10] + (0, c[10]) for c in FLASH_PATH_SHAPES] + [
+        c[:6] + (c[5],) + c[6:] + ("test case",)
+        for c in FLASH_CASES + FLASH_RAGGED_CASES] + [
+        c + ("test case",) for c in FLASH_DV_CASES]
+    rows = []
+    for (b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off,
+         what) in cases:
+        q, k, v = (torch.as_tensor(a, device="cuda").to(torch.bfloat16)
+                   for a in attention_case(b, s_q, s_kv, n_q, n_kv, d,
+                                           seed=SEED, d_v=d_v))
+        kw = dict(causal=causal, window=window, softcap=cap,
+                  q_offset=torch.as_tensor(off, dtype=torch.int32,
+                                           device="cuda"))
+        got = fa.flash_attention(q, k, v, **kw)
+        errs = bf16_err(got, fa.flash_attention_ref(q, k, v, **kw))
+        if not (got.dtype == torch.bfloat16 and errs[1] <= ATTN_BF16_RTOL
+                and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"K6 bf16 at {what} {q.shape}: error "
+                                 f"{errs} over {ATTN_BF16_RTOL}")
+        kernel = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
+        reps = 30 if what != "test case" else 5
+        plain = measure(torch, lambda: fa.flash_attention_ref(q, k, v, **kw),
+                        reps)
+        lib_t = (None, None)
+        if cap is None and window is None and off == 0:
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            timed, lib_t, _ = versus_library(
+                torch, kernel, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal,
+                    enable_gqa=n_q != n_kv), reps)
+        else:
+            timed = measure(torch, kernel, reps)
+        # each batch row's pairs and the keys its queries read, at its own
+        # query offset
+        pairs, keys = map(sum, zip(*(
+            masked_pairs(np, s_q, s_kv, causal, window, int(o))
+            for o in np.broadcast_to(np.asarray(off), (b,)))))
+        nbytes = 2 * (b * s_q * n_q * (d + d_v) + keys * n_kv * (d + d_v)) \
+            + 4 * b
+        mma = pairs * n_q * 2 * (d + d_v)
+        other = pairs * n_q * (_attn_ops_per_pair(d, cap, d_v)
+                               - 2 * (d + d_v))
+        shape = (f"b={b} s_q={s_q} s_kv={s_kv} heads={n_q}/{n_kv} d={d} "
+                 f"d_v={d_v} causal={causal} window={window} softcap={cap} "
+                 f"q_offset={off}")
+        row = _bf16_row("flash_attention",
+                        "src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:86", shape,
+                        errs, timed, plain, lib_t[0],
+                        bf16_bound_ms(nbytes, mma, other), ATTN_BF16_RTOL)
+        row.update(what=what, tensor_cores=fa.on_tensor_cores(d, d_v),
+                   library_device_ms=lib_t[1])
+        _bf16_report(f"K6 bf16 flash_attention {what} {shape}, "
+                     + ("bf16 mma.sync" if row["tensor_cores"]
+                        else "CUDA cores"), row, card)
+        rows.append(row)
+    rows[0]["other_shapes"] = rows[1:]
+    return rows[0]
+
+
+def masked_pairs(np, s_q, s_kv, causal, window, off) -> tuple:
+    """(the (query, key) pairs of one batch row and head the mask lets
+    through, the keys some query reads) with the queries at positions
+    off .. off + s_q - 1."""
+    qp = np.arange(s_q)[:, None] + off
+    kp = np.arange(s_kv)[None, :]
+    mask = np.ones((s_q, s_kv), bool)
+    if causal:
+        mask &= qp >= kp
+    if window is not None:
+        mask &= qp - kp < window
+    return int(mask.sum()), int(mask.any(0).sum())
 
 
 def device_kernels(avgs, reps: int):
@@ -2465,11 +2605,11 @@ def decode_rows(lens, S, window) -> int:
     return sum(n - (max(0, n - window) if window else 0) for n in lens)
 
 
-def decode_nbytes(b, n_q, n_kv, d, lens, S, window) -> int:
+def decode_nbytes(b, n_q, n_kv, d, lens, S, window, size=4) -> int:
     """Bytes K7's function must move: q and the output, each valid K and V
-    row once, the lengths."""
+    row once (``size`` bytes a value), the lengths."""
     rows = decode_rows(lens, S, window)
-    return 4 * (2 * b * n_q * d + 2 * rows * n_kv * d) + 4 * b
+    return size * (2 * b * n_q * d + 2 * rows * n_kv * d) + 4 * b
 
 
 # the K7 shapes of the LLM paths: (b, S, n_q, n_kv, d, cache lengths,
@@ -2549,6 +2689,71 @@ def phase_decode_attention(torch, np, card):
                        library_kernels=[n for n, _ in sdpa_kernels])
         rows.append(row)
     rows[0]["other_shapes"] = rows[1:]
+    rows[0]["bf16"] = phase_decode_attention_bf16(torch, np, card)
+    return rows[0]
+
+
+def phase_decode_attention_bf16(torch, np, card):
+    """K7 on bf16 q and caches against its plain version, at each LLM
+    path's decode shape and every CPU test case's: error, kernel, plain
+    and device times, the bf16 bound (half the float32 bytes), and SDPA's
+    bf16 time where it computes the same function.  Returns the zamba2
+    decode's row, the others under ``other_shapes``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.testing import ATTN_BF16_RTOL, DECODE_CASES, decode_case
+    rows = []
+    for i, (b, S, n_q, n_kv, d, clen, window, cap) in enumerate(
+            list(DECODE_PATH_SHAPES) + list(DECODE_CASES)):
+        what = "path" if i < len(DECODE_PATH_SHAPES) else "test case"
+        q, kc, vc = (torch.as_tensor(a, device="cuda").to(torch.bfloat16)
+                     for a in decode_case(b, S, n_q, n_kv, d, seed=SEED))
+        cl = torch.as_tensor(np.broadcast_to(np.asarray(clen), (b,)).copy(),
+                             dtype=torch.int32, device="cuda")
+        kw = dict(window=window, softcap=cap)
+        got = da.decode_attention(q, kc, vc, cl, **kw)
+        errs = bf16_err(got, da.decode_attention_ref(q, kc, vc, cl, **kw))
+        if not (got.dtype == torch.bfloat16 and errs[1] <= ATTN_BF16_RTOL
+                and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"K7 bf16 at b={b} S={S} d={d}: error "
+                                 f"{errs} over {ATTN_BF16_RTOL}")
+        kernel = lambda: da.decode_attention(q, kc, vc, cl, **kw)  # noqa
+        reps = 30 if what == "path" else 5
+        plain = measure(torch, lambda: da.decode_attention_ref(
+            q, kc, vc, cl, **kw), reps)
+        lib_t = (None, None)
+        if cap is None and window is None:
+            valid = (torch.arange(S, device="cuda")[None, :]
+                     < cl[:, None].long())[:, None, None, :]
+            kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
+            timed, lib_t, _ = versus_library(
+                torch, kernel, lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], kt, vt, attn_mask=valid,
+                    enable_gqa=n_q != n_kv), reps)
+        else:
+            timed = measure(torch, kernel, reps)
+        lens = [int(x) for x in cl.tolist()]
+        rows_valid = decode_rows(lens, S, window)
+        nbytes = decode_nbytes(b, n_q, n_kv, d, lens, S, window, size=2)
+        shape = (f"b={b} S={S} heads={n_q}/{n_kv} d={d} lens={lens} "
+                 f"window={window} softcap={cap}")
+        row = _bf16_row(
+            "decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention.py:73", shape, errs, timed,
+            plain, lib_t[0], bf16_bound_ms(
+                nbytes, rows_valid * n_q * 4 * d,
+                rows_valid * n_q * (_attn_ops_per_pair(d, cap) - 4 * d)),
+            ATTN_BF16_RTOL)
+        row.update(what=what,
+                   library_device_ms=lib_t[1],
+                   bound_f32_ms=bound_ms(
+            decode_nbytes(b, n_q, n_kv, d, lens, S, window),
+            rows_valid * n_q * _attn_ops_per_pair(d, cap))[0])
+        _bf16_report(f"K7 bf16 decode_attention {what} {shape} (float32's "
+                     f"bound {row['bound_f32_ms']:.6f} ms)", row, card)
+        rows.append(row)
+    rows[0]["other_shapes"] = rows[1:]
     return rows[0]
 
 
@@ -2602,8 +2807,7 @@ def phase_ssd_scan(torch, np, card):
         plain = measure(torch, lambda: sk.ssd_scan_ref(x, dt, A, B, C, **kw))
         names, per_call = device_kernels(profile_device(torch, kernel, 10)[1],
                                          10)
-        nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n
-                      + (2 if init else 1) * b * h * p * n)
+        nbytes = ssd_nbytes(b, s, h, p, n, init)
         row = _row("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
                    "src/repro/kernels/ssd_scan.py:74",
                    f"b={b} s={s} h={h} p={p} n={n} chunk={chunk} "
@@ -2622,7 +2826,71 @@ def phase_ssd_scan(torch, np, card):
                 row, card)
         if main_row is None:
             main_row = row
+    main_row["bf16"] = phase_ssd_scan_bf16(torch, np, card)
     return main_row
+
+
+def ssd_nbytes(b, s, h, p, n, init, size=4) -> int:
+    """Bytes K8's function must move: x and y, B and C (``size`` bytes a
+    value), dt, A and the states (float32)."""
+    return (size * (2 * b * s * h * p + 2 * b * s * n)
+            + 4 * (b * s * h + h + (2 if init else 1) * b * h * p * n))
+
+
+def phase_ssd_scan_bf16(torch, np, card):
+    """K8 on bf16 x, B and C (dt, A and the states float32, as the Mamba2
+    layer passes them) against its plain version, at the LLM paths' three
+    shapes and every CPU test case's: error, kernel, plain and device
+    times, the bound.  Its products stay 3xTF32 (their operands are
+    float32 intermediates): the bound counts the function's operations at
+    fp32's rate, as the float32 rows do, on bf16's bytes.  Returns the
+    zamba2 prefill's row, the others under ``other_shapes``."""
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.testing import SSD_BF16_RTOL, SSD_CASES, ssd_case
+    cases = [(1, 384, 112, 64, 64, 256, False, False, "path"),
+             (1, 384, 112, 64, 64, 256, True, True, "path"),
+             (1, 384, 80, 64, 128, 256, True, False, "path")] + [
+        c + ("test case",) for c in SSD_CASES]
+    rows = []
+    for b, s, h, p, n, chunk, init, weak, what in cases:
+        x, dt, A, B, C, st = (None if a is None else
+                              torch.as_tensor(a, device="cuda") for a in
+                              ssd_case(b, s, h, p, n, init, seed=SEED,
+                                       weak=weak))
+        x, B, C = (t.to(torch.bfloat16) for t in (x, B, C))
+        kw = dict(chunk=chunk, initial_state=st)
+        y, fin = sk.ssd_scan(x, dt, A, B, C, **kw)
+        y_ref, fin_ref = sk.ssd_scan_ref(x, dt, A, B, C, **kw)
+        errs = bf16_err(y, y_ref)
+        fin_err = bf16_err(fin, fin_ref)[1]
+        if not (y.dtype == torch.bfloat16 and fin.dtype == torch.float32
+                and errs[1] <= SSD_BF16_RTOL and fin_err <= SSD_BF16_RTOL
+                and bool(torch.isfinite(y).all())):
+            raise AssertionError(f"K8 bf16 at s={s} h={h} p={p} n={n}: "
+                                 f"y {errs}, final state {fin_err}")
+        kernel = lambda: sk.ssd_scan(x, dt, A, B, C, **kw)  # noqa: E731
+        reps = 30 if what == "path" else 5
+        timed = measure(torch, kernel, reps)
+        plain = measure(torch, lambda: sk.ssd_scan_ref(x, dt, A, B, C, **kw),
+                        reps)
+        nbytes = ssd_nbytes(b, s, h, p, n, init, size=2)
+        shape = (f"b={b} s={s} h={h} p={p} n={n} chunk={chunk} "
+                 f"initial_state={init} weak_decay={weak}")
+        row = _bf16_row("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+                        "src/repro/kernels/ssd_scan.py:74", shape, errs,
+                        timed, plain, None,
+                        bound_ms(nbytes, ssd_ops(b, s, h, p, n)),
+                        SSD_BF16_RTOL)
+        mma, other = ssd_tc_ops(b, s, h, p, n, chunk)
+        row["bound_tc_ms"], row["bound_tc_by"] = tc_bound_ms(nbytes, mma,
+                                                             other)
+        row.update(what=what, path=sk.path(p, n), final_state_err=fin_err)
+        _bf16_report(f"K8 bf16 ssd_scan {what} {shape}, {row['path']} "
+                     f"path, tensor-core bound {row['bound_tc_ms']:.6f} ms, "
+                     f"final state {fin_err:.3e}", row, card)
+        rows.append(row)
+    rows[0]["other_shapes"] = rows[1:]
+    return rows[0]
 
 
 PARENT_PHASES = """
@@ -2687,8 +2955,10 @@ def parent_device_ms(root: str, card: str):
 DRYRUN_ARCH = "zamba2-7b"
 DRYRUN_CARD_SHAPES = ("prefill_32k", "decode_32k")
 DRYRUN_WORKERS = 8
-DRYRUN_K6_REPS = 5            # timed calls of K6 at 2 x 32k (~0.46 s each)
-DRYRUN_REF_SEQ = 1024         # the 9-layer cut's card-vs-CPU steps
+DRYRUN_K6_REPS = 5            # timed calls of K6 at the bf16 32k shape
+DRYRUN_K6_FP32_REPS = 3       # and of the float32 row at 2 x 32k (~0.46 s)
+DRYRUN_REF_SEQ = 512          # the 9-layer cut's card-vs-CPU bf16 steps
+DRYRUN_PEAK_RTOL = 0.005      # the card's peak against the abstract pass's
 INT32_LIMIT = 2 ** 31
 
 
@@ -2769,7 +3039,8 @@ def phase_dryrun_card(torch, card, table):
         r = table[(DRYRUN_ARCH, shape)]
         if not r["max_batch"]:
             print(f"dryrun: {DRYRUN_ARCH} {shape} does not fit the card in "
-                  f"float32 at any batch: {r['batch1_peak_bytes'] / 1e9:.2f}"
+                  f"{r['compute_dtype']} at any batch: "
+                  f"{r['batch1_peak_bytes'] / 1e9:.2f}"
                   f" GB live at batch 1, {r['arg_bytes'] / 1e9:.2f} GB of "
                   f"arguments at batch {INPUT_SHAPES[shape].global_batch} "
                   f"[{card}]")
@@ -2780,8 +3051,10 @@ def phase_dryrun_card(torch, card, table):
           f"all below 2^31 = {INT32_LIMIT} [{card}]")
     if max(offsets.values()) >= INT32_LIMIT:
         raise AssertionError(f"dryrun: an offset reaches 2^31: {offsets}")
-    want = {"prefill_32k": path_launches(cfg, 1, 0),
-            "decode_32k": path_launches(cfg, 0, 1)}
+    # every launch of the bf16 steps is a bf16 one
+    want = {shape: {**w, **{k + "_bf16": n for k, n in w.items()}}
+            for shape, w in (("prefill_32k", path_launches(cfg, 1, 0)),
+                             ("decode_32k", path_launches(cfg, 0, 1)))}
     out = {}
     for shape in DRYRUN_CARD_SHAPES:
         torch.cuda.empty_cache()
@@ -2790,9 +3063,12 @@ def phase_dryrun_card(torch, card, table):
                       table[(DRYRUN_ARCH, shape)])
         check_launches(c["launches"], want[shape],
                        f"{DRYRUN_ARCH}'s {shape} step")
-        if not c["finite"] or c["batch"] != batches[shape]:
+        peak_ratio = c["peak_bytes"] / c["predicted_peak_bytes"]
+        if not (c["finite"] and c["batch"] == batches[shape]
+                and abs(peak_ratio - 1) <= DRYRUN_PEAK_RTOL):
             raise AssertionError(f"dryrun {shape}: finite {c['finite']}, "
-                                 f"batch {c['batch']} of {batches[shape]}")
+                                 f"batch {c['batch']} of {batches[shape]}, "
+                                 f"peak {peak_ratio:.4f} of the prediction")
         print(f"dryrun on the card: {DRYRUN_ARCH} {shape} at batch "
               f"{c['batch']} of {INPUT_SHAPES[shape].global_batch}: "
               f"{c['ms']:.3f} ms (median of {c['calls']} calls, "
@@ -2809,92 +3085,120 @@ def phase_dryrun_card(torch, card, table):
 
 
 def phase_dryrun_kernels(torch, np, card, batches):
-    """(c) K6, K7 and K8 at the dry run's 32k card shapes against their
-    plain versions (K6 on 256-query slices at the head and tail: its plain
-    version over all 32k queries would hold 137 GB of scores), timed with
-    their bounds and SDPA where it computes the same function (K6 over
-    DRYRUN_K6_REPS calls; the profiler can drop events of so few, which
-    the default 30 of K7 and K8 absorb).  Returns {kernel name: row}."""
+    """(c) K6, K7 and K8 at the dry run's 32k card shapes and batches on
+    bf16 operands, the steps' own, against their plain versions (K6 on
+    256-query slices at the head and tail: its plain version over all 32k
+    queries would hold 137 GB of scores a row; K8 on the first batch row:
+    its plain version's s x s decay tensors over six rows pass 80 GB, so
+    its plain time is not measured there), timed with their bf16 bounds
+    and SDPA's bf16 time where it computes the same function (K6 over
+    DRYRUN_K6_REPS calls).  Then the float32 K6 row at 2 x 32k, the shape
+    ROADMAP queue 2 tracks against SDPA.  Returns {kernel name: row}, the
+    float32 row under "flash_attention_fp32"."""
     import torch.nn.functional as F
 
     from repro_torch.configs import INPUT_SHAPES, get_config
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as sk
-    from repro_torch.testing import ATTN_ATOL, SSD_RTOL
+    from repro_torch.testing import (ATTN_ATOL, ATTN_BF16_RTOL,
+                                     SSD_BF16_RTOL)
     cfg = get_config(DRYRUN_ARCH)
     s = INPUT_SHAPES["prefill_32k"].seq_len
     bp, bd = batches["prefill_32k"], batches["decode_32k"]
     h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    bf16 = torch.bfloat16
 
-    def randn(*shape, scale=1.0):
-        return torch.randn(shape, generator=gen, device="cuda") * scale
+    def randn(*shape, scale=1.0, dtype=bf16):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * scale).to(dtype)
 
-    reps = DRYRUN_K6_REPS
     rows = {}
-    # K6: causal, the full sequence; checked on 256-row query slices
-    q, k, v = randn(bp, s, h, d), randn(bp, s, kv, d), randn(bp, s, kv, d)
-    got = fa.flash_attention(q, k, v)
-    err = 0.0
-    for lo in (0, s - 256):
-        want = fa.flash_attention_ref(q[:, lo:lo + 256], k, v, q_offset=lo)
-        err = max(err, float((got[:, lo:lo + 256] - want).abs().max()))
-    del want
-    if not (err <= ATTN_ATOL and bool(torch.isfinite(got).all())):
-        raise AssertionError(f"K6 at {bp} x {s}: max abs error {err}")
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    timed, lib, _ = versus_library(
-        torch, lambda: fa.flash_attention(q, k, v),
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                               enable_gqa=h != kv), reps)
-    del qt, kt, vt, got
-    nbytes, ops, pairs = flash_bound(bp, s, s, h, kv, d, d, True, None,
-                                     None)
-    row = _row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-               "src/repro/kernels/flash_attention.py:86",
-               f"b={bp} s_q={s} s_kv={s} heads={h}/{kv} d={d} causal",
-               err, timed, (None, None), lib[0], nbytes, ops)
-    row["bound_tc_ms"], row["bound_tc_by"] = tc_bound_ms(
-        nbytes, pairs * h * 4 * d,
-        pairs * h * (_attn_ops_per_pair(d, None) - 4 * d))
-    rows["flash_attention"] = row
-    del q, k, v
-    # K8: the prefill's scan at the model's chunk
+
+    def k6(b, dtype, reps):
+        q, k, v = (randn(b, s, n, d, dtype=dtype) for n in (h, kv, kv))
+        got = fa.flash_attention(q, k, v)
+        err = (0.0, 0.0)
+        for lo in (0, s - 256):
+            want = fa.flash_attention_ref(q[:, lo:lo + 256], k, v,
+                                          q_offset=lo)
+            e = bf16_err(got[:, lo:lo + 256], want)
+            err = (max(err[0], e[0]), max(err[1], e[1]))
+        del want
+        # bf16 against its scale (a rounding of the output), float32
+        # absolutely, as the f32 rows
+        tol = ATTN_BF16_RTOL if dtype == bf16 else ATTN_ATOL
+        gate = err[1] if dtype == bf16 else err[0]
+        if not (gate <= tol and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"K6 {dtype} at {b} x {s}: error {err}")
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        timed, lib, _ = versus_library(
+            torch, lambda: fa.flash_attention(q, k, v),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=h != kv), reps)
+        pairs = b * s * (s + 1) // 2
+        size = 2 if dtype == bf16 else 4
+        nbytes = size * b * s * (h + kv) * 2 * d + 4 * b
+        shape = f"b={b} s_q={s} s_kv={s} heads={h}/{kv} d={d} causal"
+        if dtype == bf16:
+            row = _bf16_row(
+                "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+                "src/repro/kernels/flash_attention.py:86", shape, err, timed,
+                (None, None), lib[0], bf16_bound_ms(
+                    nbytes, pairs * h * 4 * d,
+                    pairs * h * (_attn_ops_per_pair(d, None) - 4 * d)), tol)
+        else:
+            row = _row("flash_attention",
+                       "src/repro_torch/csrc/flash_attention.cu",
+                       "src/repro/kernels/flash_attention.py:86", shape,
+                       err[0], timed, (None, None), lib[0], nbytes,
+                       pairs * h * _attn_ops_per_pair(d, None))
+            row["bound_tc_ms"], row["bound_tc_by"] = tc_bound_ms(
+                nbytes, pairs * h * 4 * d,
+                pairs * h * (_attn_ops_per_pair(d, None) - 4 * d))
+        row["library_device_ms"] = lib[1]
+        return row
+
+    rows["flash_attention"] = k6(bp, bf16, DRYRUN_K6_REPS)
+    torch.cuda.empty_cache()
+    # K8: the prefill's scan at the model's chunk, x, B and C bf16
     p_, n_, hs = cfg.ssm_head_dim, cfg.ssm_state, cfg.n_ssm_heads
     x, dt = randn(bp, s, hs, p_), torch.rand(
         (bp, s, hs), generator=gen, device="cuda") * 0.1
-    A, B, C = -torch.rand((hs,), generator=gen, device="cuda") - 0.5, \
-        randn(bp, s, n_, scale=0.3), randn(bp, s, n_, scale=0.3)
+    A = -torch.rand((hs,), generator=gen, device="cuda") - 0.5
+    B, C = randn(bp, s, n_, scale=0.3), randn(bp, s, n_, scale=0.3)
     kw = dict(chunk=cfg.ssm_chunk)
     y, fin = sk.ssd_scan(x, dt, A, B, C, **kw)
-    y_ref, fin_ref = sk.ssd_scan_ref(x, dt, A, B, C, **kw)
-    # testing.rel_err on the card: its float64 copies of 235 M elements
-    # would take seconds on the host
-    err = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
-              for a, b in ((y, y_ref), (fin, fin_ref)))
+    y_ref, fin_ref = sk.ssd_scan_ref(x[:1], dt[:1], A, B[:1], C[:1], **kw)
+    err = bf16_err(y[:1], y_ref)
+    fin_err = bf16_err(fin[:1], fin_ref)[1]
     del y_ref, fin_ref
-    if not (err <= SSD_RTOL and bool(torch.isfinite(y).all())):
-        raise AssertionError(f"K8 at {bp} x {s}: error {err}")
+    if not (err[1] <= SSD_BF16_RTOL and fin_err <= SSD_BF16_RTOL
+            and bool(torch.isfinite(y).all())):
+        raise AssertionError(f"K8 bf16 at {bp} x {s}: error {err}, final "
+                             f"state {fin_err}")
     timed = measure(torch, lambda: sk.ssd_scan(x, dt, A, B, C, **kw))
-    plain = measure(torch, lambda: sk.ssd_scan_ref(x, dt, A, B, C, **kw))
-    nbytes = 4 * (2 * bp * s * hs * p_ + bp * s * hs + hs + 2 * bp * s * n_
-                  + bp * hs * p_ * n_)
-    row = _row("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
-               "src/repro/kernels/ssd_scan.py:74",
-               f"b={bp} s={s} h={hs} p={p_} n={n_} chunk={cfg.ssm_chunk}",
-               err, timed, plain, None, nbytes, ssd_ops(bp, s, hs, p_, n_))
+    nbytes = ssd_nbytes(bp, s, hs, p_, n_, False, size=2)
+    row = _bf16_row("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+                    "src/repro/kernels/ssd_scan.py:74",
+                    f"b={bp} s={s} h={hs} p={p_} n={n_} "
+                    f"chunk={cfg.ssm_chunk} (error on row 0)", err, timed,
+                    (None, None), None,
+                    bound_ms(nbytes, ssd_ops(bp, s, hs, p_, n_)),
+                    SSD_BF16_RTOL)
     row["bound_tc_ms"], row["bound_tc_by"] = tc_bound_ms(
         nbytes, *ssd_tc_ops(bp, s, hs, p_, n_, cfg.ssm_chunk))
     rows["ssd_scan"] = row
     del x, dt, A, B, C, y, fin
-    # K7: one token over every slot of a 32k cache
+    torch.cuda.empty_cache()
+    # K7: one token over every slot of a 32k bf16 cache
     q, kc, vc = randn(bd, h, d), randn(bd, s, kv, d), randn(bd, s, kv, d)
     cl = torch.full((bd,), s, dtype=torch.int32, device="cuda")
     got = da.decode_attention(q, kc, vc, cl)
-    err = float((got - da.decode_attention_ref(q, kc, vc, cl)).abs().max())
-    if not (err <= ATTN_ATOL and bool(torch.isfinite(got).all())):
-        raise AssertionError(f"K7 at {bd} x {s}: max abs error {err}")
+    err = bf16_err(got, da.decode_attention_ref(q, kc, vc, cl))
+    if not (err[1] <= ATTN_BF16_RTOL and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"K7 bf16 at {bd} x {s}: error {err}")
     kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
     timed, lib, _ = versus_library(
         torch, lambda: da.decode_attention(q, kc, vc, cl),
@@ -2902,66 +3206,106 @@ def phase_dryrun_kernels(torch, np, card, batches):
                                                enable_gqa=h != kv))
     del kt, vt
     plain = measure(torch, lambda: da.decode_attention_ref(q, kc, vc, cl))
-    row = _row("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
-               "src/repro/kernels/decode_attention.py:73",
-               f"b={bd} S={s} heads={h}/{kv} d={d} lens={s}", err, timed,
-               plain, lib[0], decode_nbytes(bd, h, kv, d, [s] * bd, s, None),
-               bd * s * h * _attn_ops_per_pair(d, None))
+    row = _bf16_row("decode_attention",
+                    "src/repro_torch/csrc/decode_attention.cu",
+                    "src/repro/kernels/decode_attention.py:73",
+                    f"b={bd} S={s} heads={h}/{kv} d={d} lens={s}", err,
+                    timed, plain, lib[0], bf16_bound_ms(
+                        decode_nbytes(bd, h, kv, d, [s] * bd, s, None,
+                                      size=2),
+                        bd * s * h * 4 * d,
+                        bd * s * h * (_attn_ops_per_pair(d, None) - 4 * d)),
+                    ATTN_BF16_RTOL)
+    row["library_device_ms"] = lib[1]
     rows["decode_attention"] = row
     del q, kc, vc, got
     torch.cuda.empty_cache()
     for name, row in rows.items():
         tc = ("" if "bound_tc_ms" not in row else
               f", tensor-core bound {row['bound_tc_ms']:.6f} ms")
-        _report(f"dryrun kernel {name} {row['shape']}: error "
-                f"{row['max_abs_err']:.3e}{tc}", row, card,
-                None if row["library_ms"] is None else "sdpa")
+        _bf16_report(f"dryrun kernel {name} bf16 {row['shape']}{tc}", row,
+                     card)
+    fp32 = k6(2, torch.float32, DRYRUN_K6_FP32_REPS)
+    torch.cuda.empty_cache()
+    _report(f"dryrun kernel flash_attention float32 {fp32['shape']}: error "
+            f"{fp32['max_abs_err']:.3e}, tensor-core bound "
+            f"{fp32['bound_tc_ms']:.6f} ms", fp32, card, "sdpa")
+    rows["flash_attention_fp32"] = fp32
     return rows
 
 
 def phase_dryrun_reference(torch, np, card):
-    """(d) The prefill and decode steps of ``launch.specs.make_step`` on
-    DRYRUN_ARCH cut to 9 layers, the same weights on the card and the CPU:
-    a 1 x DRYRUN_REF_SEQ prefill, then one decode step over its cache
-    (rewriting its last slot); logits within LLM_RTOL of their scale."""
+    """(d) The prefill and decode steps of ``launch.specs.make_step``, in
+    bf16, on DRYRUN_ARCH cut to 9 layers, the same bf16 weights on the card
+    and the CPU: a 1 x DRYRUN_REF_SEQ prefill, then one decode step over
+    its cache (rewriting its last slot).  Each layer the card applies is
+    held to the CPU's on the CPU's own inputs (``testing.LayerTap``:
+    BF16_LLM_RTOL of its output's and its cache's scale); the logits end
+    to end are printed beside them (bf16 noise grows through a model, so
+    they are not gated) and must be finite."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import ops
     from repro_torch.launch import specs
     from repro_torch.models import schema as sch
     from repro_torch.models import transformer as tfm
-    from repro_torch.testing import LLM_RTOL, rel_err
+    from repro_torch.testing import (BF16_LLM_RTOL, LayerTap, rel_err,
+                                     replay_layers)
     cfg = block_cut(get_config(DRYRUN_ARCH), 1)
     s = DRYRUN_REF_SEQ
     prefill = specs.make_step(cfg, ShapeConfig("p", s, 1, "prefill"))[0]
     decode = specs.make_step(cfg, ShapeConfig("d", s, 1, "decode"))[0]
-    params = {"cuda": tfm.init_params(cfg, SEED, "cuda")}
+    params = {"cuda": tfm.init_params(cfg, SEED, "cuda",
+                                      specs.COMPUTE_DTYPE)}
     params["cpu"] = sch.tree_map(lambda t: t.cpu(), params["cuda"])
     toks = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (1, s))
-    out, counts = {}, {}
+    out, counts, taps, wall = {}, {}, {}, {}
     for dev in ("cuda", "cpu"):
         t = torch.as_tensor(toks, device=dev)
+        t0 = time.perf_counter()
         ops.reset_launch_counts()
-        logits, cache = prefill(params[dev], t)
+        with LayerTap() as taps[dev, "prefill"]:
+            logits, cache = prefill(params[dev], t)
         counts[dev, "prefill"] = ops.launch_counts()
         ops.reset_launch_counts()
-        step, _ = decode(params[dev], t[:, -1:], cache,
-                         torch.tensor(s - 1, device=dev))
+        with LayerTap() as taps[dev, "decode"]:
+            step, _ = decode(params[dev], t[:, -1:], cache,
+                             torch.tensor(s - 1, device=dev))
         counts[dev, "decode"] = ops.launch_counts()
-        out[dev] = (logits.cpu().numpy(), step[:, 0].cpu().numpy())
+        out[dev] = (logits.float().cpu().numpy(),
+                    step[:, 0].float().cpu().numpy())
+        wall[dev] = time.perf_counter() - t0
     check_launches(counts["cuda", "prefill"], path_launches(cfg, 1, 0),
                    "the 9-layer prefill step")
     check_launches(counts["cuda", "decode"], path_launches(cfg, 0, 1),
                    "the 9-layer decode step")
+    layer_errs = {}
+    for what in ("prefill", "decode"):
+        layer_errs[what] = replay_layers(cfg, taps["cpu", what].calls,
+                                         "cuda")
+        worst = max(max(e, c) for _, e, c in layer_errs[what])
+        if not worst <= BF16_LLM_RTOL:
+            raise AssertionError(f"dryrun {what} layers card vs CPU: "
+                                 f"{layer_errs[what]}")
+    del taps
     errs = [rel_err(a, b) for a, b in zip(out["cuda"], out["cpu"])]
-    if not (max(errs) <= LLM_RTOL and np.isfinite(out["cuda"][0]).all()):
-        raise AssertionError(f"dryrun steps card vs CPU: {errs}")
-    print(f"dryrun steps card vs CPU, {cfg.name} at full width, 1 x {s}: "
-          f"prefill logits within {errs[0]:.3e}, decode {errs[1]:.3e} of "
-          f"their scale (tolerance {LLM_RTOL}) [{card}]")
+    if not all(np.isfinite(o).all() for o in out["cuda"]):
+        raise AssertionError("dryrun steps: non-finite logits on the card")
+    worst = {w: max(max(e, c) for _, e, c in v)
+             for w, v in layer_errs.items()}
+    card_s, cpu_s = wall["cuda"], wall["cpu"]
+    print(f"dryrun steps card vs CPU in bf16, {cfg.name} at full width, 1 x "
+          f"{s}: every layer within {worst['prefill']:.3e} (prefill) and "
+          f"{worst['decode']:.3e} (decode) of its scale on the CPU's inputs "
+          f"(tolerance {BF16_LLM_RTOL}); end to end the logits "
+          f"{errs[0]:.3e} (prefill) and {errs[1]:.3e} (decode) apart (not "
+          f"gated); steps {card_s:.2f} s on the card, {cpu_s:.2f} s on the "
+          f"CPU [{card}]")
     del params
     torch.cuda.empty_cache()
-    return {"prefill": errs[0], "decode": errs[1]}
+    return {"prefill_layers": worst["prefill"],
+            "decode_layers": worst["decode"], "prefill_logits": errs[0],
+            "decode_logits": errs[1], "cpu_s": cpu_s}
 
 
 def phase_dryrun(torch, np, card):
@@ -4046,6 +4390,204 @@ def phase_llm_train_main_path(torch, np, card):
                   "vjp_profile_ms": vjp_prof}
 
 
+# the launcher's path (launch/train.py): make_step's bf16 train step
+LAUNCHER_BATCH, LAUNCHER_SEQ, LAUNCHER_STEPS, LAUNCHER_LR = 4, 512, 6, 3e-4
+# the card-vs-CPU bf16 step's tokens (the CPU's bf16 step took 39.3 s at
+# 256 on the card's host)
+LAUNCHER_REF_SEQ = 128
+
+
+def launcher_cut(card):
+    """The deepest block cut of LLM_ARCH at full width whose bf16 train
+    step (``launch.specs.make_step``: remat, AdamW; bf16 parameters, float32
+    moments) the abstract pass (``roofline.analysis.analyze_step``) puts
+    under the card's HBM at LAUNCHER_BATCH x LAUNCHER_SEQ: the peak at one
+    and two blocks (it is affine in the blocks), then passes from the
+    extrapolated cut down until one fits.  Returns (blocks, that pass's
+    report)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.specs import make_step
+    from repro_torch.roofline.analysis import analyze_step
+    from repro_torch.roofline.hw import H100
+    full = get_config(LLM_ARCH)
+    shape = ShapeConfig("launcher", LAUNCHER_SEQ, LAUNCHER_BATCH, "train")
+    reports = {}
+
+    def report(n):
+        if n not in reports:
+            cfg = block_cut(full, n)
+            fn, args, _, _ = make_step(cfg, shape, lr=LAUNCHER_LR)
+            reports[n] = analyze_step(fn, args, arch=cfg.name, shape=shape,
+                                      cfg=cfg)
+        return reports[n]
+
+    t0 = time.perf_counter()
+    p1 = report(1).peak_memory_per_device
+    slope = report(2).peak_memory_per_device - p1
+    n = max(1, min(full.num_blocks,
+                   1 + int((H100.hbm_bytes - p1) // slope)))
+    while n > 1 and report(n).peak_memory_per_device > H100.hbm_bytes:
+        n -= 1
+    rep = report(n)
+    print(f"launcher cut: {LLM_ARCH}'s bf16 train step at {LAUNCHER_BATCH} x "
+          f"{LAUNCHER_SEQ} peaks at {p1 / 1e9:.2f} GB with one block, "
+          f"{slope / 1e9:.3f} GB more a block; {n} blocks "
+          f"({len(full.prefix_layers) + n * len(full.block_pattern)} layers) "
+          f"peak at {rep.peak_memory_per_device / 1e9:.3f} GB of "
+          f"{H100.hbm_bytes / 1e9:.0f} GB ({len(reports)} abstract passes, "
+          f"{time.perf_counter() - t0:.1f} s) [{card}]")
+    return n, rep
+
+
+class GradNorms:
+    """Wraps ``AdamW.update`` (looked up at call time by make_step's step)
+    to record the global norm of each update's gradients."""
+
+    def __init__(self):
+        from repro_torch.training.optimizer import AdamW
+        self.cls, self.norms = AdamW, []
+
+    def __enter__(self):
+        from repro_torch.training.optimizer import global_norm
+        self.saved = self.cls.update
+
+        def update(opt, grads, state, params):
+            self.norms.append(float(global_norm(grads)))
+            return self.saved(opt, grads, state, params)
+        self.cls.update = update
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.update = self.saved
+        return False
+
+
+def phase_llm_launcher_reference(torch, np, card):
+    """One bf16 step of the launcher's make_step (remat, AdamW) on
+    LLM_ARCH at full width cut to 9 layers, 1 x LAUNCHER_REF_SEQ tokens, from
+    the same bf16 weights on the card and the CPU: the loss and the
+    gradients' global norm within BF16_LLM_RTOL (averages: the bf16 noise
+    that grows through the model, and moves single gradient entries far,
+    does not move them past it), the parameters bf16 after the step."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.specs import COMPUTE_DTYPE, make_step
+    from repro_torch.models import schema as sch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.testing import BF16_LLM_RTOL, leaf_rel_err
+    from repro_torch.training import data, train_loop
+    from repro_torch.training.optimizer import AdamW, tree_leaves
+    cfg = block_cut(get_config(LLM_ARCH), 1)
+    step = make_step(cfg, ShapeConfig("t", LAUNCHER_REF_SEQ, 1, "train"),
+                     lr=LAUNCHER_LR)[0]
+    cpu_params = tfm.init_params(cfg, SEED, "cpu", COMPUTE_DTYPE)
+    batch = next(iter(data.TokenStream(cfg.vocab_size, LAUNCHER_REF_SEQ, 1,
+                                       SEED)))
+    runs, wall = {}, {}
+    for dev in ("cuda", "cpu"):
+        params = sch.tree_map(lambda t: t.to(dev), cpu_params)
+        t0 = time.perf_counter()
+        with GradNorms() as norms:
+            new, state, m = step(params, AdamW(lr=LAUNCHER_LR).init(params),
+                                 train_loop.to_device(batch, dev))
+        runs[dev] = (float(m["loss"]), norms.norms[0],
+                     all(t.dtype == COMPUTE_DTYPE for t in tree_leaves(new)))
+        wall[dev] = time.perf_counter() - t0
+        del params, new, state
+    torch.cuda.empty_cache()
+    (loss, norm, kept), (loss0, norm0, _) = runs["cuda"], runs["cpu"]
+    card_s, cpu_s = wall["cuda"], wall["cpu"]
+    loss_err, norm_err = leaf_rel_err(loss, loss0), leaf_rel_err(norm, norm0)
+    if not (np.isfinite(loss) and kept and loss_err <= BF16_LLM_RTOL
+            and norm_err <= BF16_LLM_RTOL):
+        raise AssertionError(f"launcher step card vs CPU: loss {loss} vs "
+                             f"{loss0}, gradient norm {norm} vs {norm0}, "
+                             f"bf16 parameters kept {kept}")
+    print(f"launcher step card vs CPU in bf16, {cfg.name} at full width, 1 x"
+          f" {LAUNCHER_REF_SEQ} tokens: loss {loss:.6f} vs {loss0:.6f} "
+          f"({loss_err:.2e}), gradient norm {norm:.4f} vs {norm0:.4f} "
+          f"({norm_err:.2e}; tolerance {BF16_LLM_RTOL}); one step "
+          f"{card_s:.2f} s on the card, {cpu_s:.2f} s on the CPU [{card}]")
+    return {"loss_err": loss_err, "grad_norm_err": norm_err,
+            "cpu_s": cpu_s}
+
+
+def phase_llm_launcher(torch, np, card):
+    """(c) launch.train's step -- ``launch.specs.make_step`` (remat, AdamW)
+    computing in bf16 on bf16 parameters drawn as the launcher draws them
+    (``init_params(cfg, 0-seeded, device, bfloat16)``) -- on LLM_ARCH at
+    full width cut to the deepest cut that fits (:func:`launcher_cut`),
+    LAUNCHER_STEPS steps of LAUNCHER_BATCH x LAUNCHER_SEQ tokens from
+    ``TokenStream``.  The first step is the warm-up; the counts are zeroed
+    before the rest and read after them.  The loss must be finite and
+    fall; K6 and K8 launch as ``train_launches(cfg, remat=True)`` says.
+    Returns the counts and a summary."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.specs import COMPUTE_DTYPE, make_step
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import data, train_loop
+    from repro_torch.training.optimizer import AdamW, tree_leaves
+    blocks, rep = launcher_cut(card)
+    cfg = block_cut(get_config(LLM_ARCH), blocks)
+    tokens = LAUNCHER_BATCH * LAUNCHER_SEQ
+    step = make_step(cfg, ShapeConfig("t", LAUNCHER_SEQ, LAUNCHER_BATCH,
+                                      "train"), lr=LAUNCHER_LR)[0]
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = tfm.init_params(cfg, SEED, "cuda", COMPUTE_DTYPE)
+    state = AdamW(lr=LAUNCHER_LR).init(params)
+    stream = iter(data.TokenStream(cfg.vocab_size, LAUNCHER_SEQ,
+                                   LAUNCHER_BATCH, SEED))
+    losses, times = [], []
+    for i in range(LAUNCHER_STEPS):
+        if i == 1:
+            ops.reset_launch_counts()
+        batch = train_loop.to_device(next(stream), "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))          # synchronises
+        times.append(time.perf_counter() - t0)
+    counts = {**ops.launch_counts(), **ops.bf16_launch_counts()}
+    peak = torch.cuda.max_memory_allocated() - base
+    dtypes = {str(t.dtype) for t in tree_leaves(params)}
+    del params, state, batch
+    torch.cuda.empty_cache()
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"launcher: the loss did not fall: {losses}")
+    want = {k: n * (LAUNCHER_STEPS - 1)
+            for k, n in train_launches(cfg, True).items()}
+    want.update({k: 0 for k in ops.KERNELS
+                 if k not in ("flash_attention", "ssd_scan")})
+    want.update({k + "_bf16": want[k] for k in ops.KERNELS
+                 if k + "_bf16" in ops.BF16})     # every launch a bf16 one
+    check_launches(counts, want, "the launcher's bf16 train step")
+    step_ms = statistics.mean(times[1:]) * 1e3
+    predicted = rep.peak_memory_per_device
+    print(f"launcher path: launch.specs.make_step (remat, AdamW lr "
+          f"{LAUNCHER_LR}) in bf16 on {cfg.name} at full width, {blocks} "
+          f"blocks = {cfg.num_layers} layers, {cfg.param_count() / 1e9:.3f} B"
+          f" parameters ({', '.join(sorted(dtypes))}), "
+          f"{LAUNCHER_BATCH} x {LAUNCHER_SEQ} tokens: {step_ms:.1f} ms a "
+          f"step over {LAUNCHER_STEPS - 1} steps after a warm-up of "
+          f"{times[0] * 1e3:.1f} ms, {tokens / step_ms * 1e3:.1f} tokens/s; "
+          f"loss " + " -> ".join(f"{x:.4f}" for x in losses)
+          + f"; peak {peak / 1e9:.3f} GB against {predicted / 1e9:.3f} GB "
+          f"predicted ({peak / predicted:.4f}); launches a step "
+          f"{ {k: v // (LAUNCHER_STEPS - 1) for k, v in counts.items() if v} }"
+          f" [{card}]")
+    return counts, {"blocks": blocks, "layers": cfg.num_layers,
+                    "params": cfg.param_count(), "step_ms": step_ms,
+                    "tokens_per_s": tokens / step_ms * 1e3,
+                    "losses": losses, "peak_bytes": peak,
+                    "predicted_peak_bytes": predicted}
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4058,6 +4600,12 @@ def main() -> int:
         raise SystemExit("chip_smoke.py: src/repro_torch not found next to "
                          "this script; run it from a checkout of the repo")
     sys.path.insert(0, SRC)
+    # the dry run's bf16 steps fill the card to within a few GB of the
+    # abstract pass's peak; with fixed segments the caching allocator's
+    # fragmentation (9.4 GB reserved but unallocated at zamba2's 6-row
+    # prefill_32k) ran it out of memory
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -4165,6 +4713,11 @@ def main() -> int:
     grads = phase_llm_grad(torch, np, card)
     checks["llm_train_step"] = phase_llm_train_reference(torch, np, card)
     train_counts, train_split = phase_llm_train_main_path(torch, np, card)
+    # the launcher's bf16 path, deepest that fits, last: the whole card
+    checks["launcher_step_bf16"] = phase_llm_launcher_reference(torch, np,
+                                                                card)
+    launcher_counts, launcher = phase_llm_launcher(torch, np, card)
+    bf16_rows = []
     for row in llm_rows:
         row["launches"] = llm_counts[row["name"]]
         if row["name"] in ("flash_attention", "ssd_scan"):
@@ -4178,16 +4731,29 @@ def main() -> int:
             row["gradient"] = grads[row["name"]]
         row["launches_deepseek"] = moe_counts[row["name"]]
         row["launches_musicgen"] = cross_counts[row["name"]]
-        row["launches_dryrun"] = {s: dryrun["card"][s]["launches"][
-            row["name"]] for s in DRYRUN_CARD_SHAPES}
-        row["dryrun_shape"] = dryrun["kernels"][row["name"]]
-    rows = video_rows + [iou_row, nms_row, frame_row, update_row] + llm_rows
+        if row["name"] == "flash_attention":
+            row["dryrun_shape"] = dryrun["kernels"]["flash_attention_fp32"]
+        # the bf16 entry (a kernel line of its own): its launches are the
+        # bf16 paths' (the dry run's steps and the launcher's training)
+        bf = row.pop("bf16")
+        bf["name"] = row["name"] + "_bf16"
+        bf["launches_dryrun"] = {s: dryrun["card"][s]["launches"][
+            bf["name"]] for s in DRYRUN_CARD_SHAPES}
+        bf["launches"] = sum(bf["launches_dryrun"].values())
+        bf["launches_launcher"] = launcher_counts[bf["name"]]
+        if row["name"] in ("flash_attention", "ssd_scan"):
+            bf["vjps_launcher"] = launcher_counts[row["name"] + "_vjp"]
+        bf["dryrun_shape"] = dryrun["kernels"][row["name"]]
+        bf16_rows.append(bf)
+    rows = (video_rows + [iou_row, nms_row, frame_row, update_row] + llm_rows
+            + bf16_rows)
     print(f"chip_smoke.py finished its checks in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": rows, "card": card,
                       "llm_card_vs_cpu": checks,
                       "llm_training": train_split,
+                      "llm_launcher_bf16": launcher,
                       "dryrun": {k: dryrun[k] for k in
                                  ("table", "card", "card_vs_cpu")}}))
     print(json.dumps({"ok": True, "device": {

@@ -16,13 +16,18 @@ import torch
 
 
 def set_reference_precision() -> None:
-    """Make float32 mean float32 on the card.
+    """Make float32 mean float32 on the card, and bf16 products sum in
+    float32.
 
     cuDNN convolutions default to TF32 on Hopper (about three decimal
     digits); the reference computes in full float32, so serving and the
-    on-card checks turn TF32 off for both convolutions and matmuls."""
+    on-card checks turn TF32 off for both convolutions and matmuls.  A bf16
+    GEMM of cuBLAS may reduce split-K partial sums in bf16 by PyTorch's
+    default; XLA's bf16 dots accumulate in float32, so that is turned off
+    too."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def require_device(device) -> torch.device:

@@ -45,6 +45,14 @@
 //     no slot (past a short row, outside its window) writes m = -inf only
 //     and weighs nothing; a row whose splits are all empty gets the mean
 //     of V.
+//
+// bf16 q and caches (vpaas_decode_attention_bf16): the same two kernels,
+// templates over the element type.  The caches arrive by 16-byte cp.async
+// (8 values) into bf16 rows of DP + 8 values and are widened as they are
+// read (q.k reads 4 values, 8 bytes, at a time); q is widened as it is
+// staged, every sum and the workspace stay f32, the combine writes bf16.
+// A byte-bound kernel: bf16 halves its bytes (zamba2's decode: 22.5 MB,
+// 6.7 us at 3.35 TB/s).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -58,14 +66,22 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kBK = 32;                   // slots per tile: one per lane
 constexpr unsigned kFull = 0xffffffffu;
 
-// the head dim padded to 8 floats; shared K/V rows are pad_dim(D) + 4 long
+// the head dim padded to 8 elements; shared K/V rows are row_len(DP)
+// elements of the caches' type T: DP + 4 floats, DP + 8 bf16, both 16-byte
+// multiples whose quarter-warp reads of one 16-byte chunk of 8 rows fall on
+// 8 distinct bank groups (float) or 8 distinct 8-byte halves (bf16)
 __host__ __device__ constexpr int pad_dim(int D) { return (D + 7) / 8 * 8; }
+template <typename T>
+__host__ __device__ constexpr int row_len(int DP) {
+  return DP + 16 / (int)sizeof(T);
+}
 
+template <typename T>
 size_t smem_bytes(int D, int G) {
   const int DP = pad_dim(D);
-  return sizeof(float) * (4 * (size_t)kBK * (DP + 4)    // K, V: two buffers
-                          + (size_t)G * DP              // q
-                          + (size_t)kWarps * G * kBK);  // partial q.k
+  return sizeof(T) * 4 * (size_t)kBK * row_len<T>(DP)   // K, V: two buffers
+         + sizeof(float) * ((size_t)G * DP              // q
+                            + (size_t)kWarps * G * kBK);  // partial q.k
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -78,17 +94,44 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// one element global -> shared, or a zero where !ok: 4-byte cp.async for
+// float, a plain load and store for bf16 (cp.async has no 2-byte copy)
+__device__ __forceinline__ void copy_elem(float* s, const float* g, bool ok) {
+  cp_async_4(s, g, ok);
+}
+__device__ __forceinline__ void copy_elem(__nv_bfloat16* s,
+                                          const __nv_bfloat16* g, bool ok) {
+  *s = ok ? *g : from_f32<__nv_bfloat16>(0.f);
+}
+
+// four consecutive elements of a shared row (8- or 16-byte aligned) as
+// floats
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
 // Copy cache rows [t0, t0 + n) of K and V (row r at base + r * stride) into
-// shared rows of RS floats; columns D .. DP - 1 become zeros.
-__device__ __forceinline__ void stage_tile(float* ks, float* vs,
-                                           const float* kb, const float* vb,
-                                           size_t stride, int t0, int n,
-                                           int D, int DP, int RS, bool vec) {
-  if (vec) {                               // D % 4 == 0, aligned caches
-    const int C4 = DP / 4;
-    for (int e = threadIdx.x; e < n * C4; e += kThreads) {
-      const int r = e / C4;
-      const int c = 4 * (e - r * C4);
+// shared rows of RS elements; columns D .. DP - 1 become zeros.  16-byte
+// cp.async where a row is whole 16-byte chunks and the caches are aligned
+// (vec); else 4-byte cp.async for float, plain loads and stores for bf16.
+template <typename T>
+__device__ __forceinline__ void stage_tile(T* ks, T* vs, const T* kb,
+                                           const T* vb, size_t stride, int t0,
+                                           int n, int D, int DP, int RS,
+                                           bool vec) {
+  if (vec) {
+    constexpr int E = 16 / sizeof(T);      // elements per 16-byte chunk
+    const int CE = DP / E;
+    for (int e = threadIdx.x; e < n * CE; e += kThreads) {
+      const int r = e / CE;
+      const int c = E * (e - r * CE);
       const bool ok = c < D;
       const size_t off = (size_t)(t0 + r) * stride + (ok ? c : 0);
       cp_async_16(ks + r * RS + c, kb + off, ok);
@@ -100,28 +143,28 @@ __device__ __forceinline__ void stage_tile(float* ks, float* vs,
       const int c = e - r * DP;
       const bool ok = c < D;
       const size_t off = (size_t)(t0 + r) * stride + (ok ? c : 0);
-      cp_async_4(ks + r * RS + c, kb + off, ok);
-      cp_async_4(vs + r * RS + c, vb + off, ok);
+      copy_elem(ks + r * RS + c, kb + off, ok);
+      copy_elem(vs + r * RS + c, vb + off, ok);
     }
   }
 }
 
 // G = q-heads per block (>= the heads it carries).  Workspace row of (b,
 // q-head, split): acc[0, D), m at D, l at D + 1.
-template <int G>
+template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
-decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v,
                     const int32_t* __restrict__ cache_len,
                     float* __restrict__ ws, int S, int Hq, int Hkv, int D,
                     int group, int nsub, int per, int nsplit, int window,
                     float softcap, float scale) {
   extern __shared__ float4 smem4[];
   const int DP = pad_dim(D);
-  const int RS = DP + 4;
-  float* Ks = reinterpret_cast<float*>(smem4);   // [2][kBK][RS]
-  float* Vs = Ks + 2 * kBK * RS;                 // [2][kBK][RS]
-  float* Qs = Vs + 2 * kBK * RS;                 // [G][DP]
+  const int RS = row_len<T>(DP);
+  T* Ks = reinterpret_cast<T*>(smem4);           // [2][kBK][RS]
+  T* Vs = Ks + 2 * kBK * RS;                     // [2][kBK][RS]
+  float* Qs = reinterpret_cast<float*>(Vs + 2 * kBK * RS);   // [G][DP]
   float* part = Qs + G * DP;                     // [kWarps][G][kBK]
 
   const int hk = blockIdx.x / nsub;
@@ -145,11 +188,12 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
     return;
   }
 
-  const bool vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+  const bool vec = D % (16 / sizeof(T)) == 0 &&
+                   reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(v) % 16 == 0;
   const size_t stride = (size_t)Hkv * D;
-  const float* kb = k + ((size_t)b * S * Hkv + hk) * D;
-  const float* vb = v + ((size_t)b * S * Hkv + hk) * D;
+  const T* kb = k + ((size_t)b * S * Hkv + hk) * D;
+  const T* vb = v + ((size_t)b * S * Hkv + hk) * D;
   const int ntiles = (s_hi - s_lo + kBK - 1) / kBK;
   stage_tile(Ks, Vs, kb, vb, stride, s_lo, min(kBK, s_hi - s_lo), D, DP, RS,
              vec);
@@ -161,7 +205,8 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int e = tid; e < G * DP; e += kThreads) {
     const int g = e / DP;
     const int c = e - g * DP;
-    Qs[e] = (g < nh && c < D) ? q[((size_t)b * Hq + h0 + g) * D + c] : 0.f;
+    Qs[e] = (g < nh && c < D) ? to_f32(q[((size_t)b * Hq + h0 + g) * D + c])
+                              : 0.f;
   }
 
   // this warp's quarter of the head dim: 16-byte chunks [ch0, ch1), output
@@ -184,8 +229,8 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int it = 0; it < ntiles; ++it) {
     const int buf = it & 1;
     const int n = min(kBK, s_hi - s_lo - it * kBK);   // slots in the tile
-    const float* Kt = Ks + buf * kBK * RS;
-    const float* Vt = Vs + buf * kBK * RS;
+    const T* Kt = Ks + buf * kBK * RS;
+    const T* Vt = Vs + buf * kBK * RS;
     cp_async_wait<1>();                    // all groups but the newest
     __syncthreads();
 
@@ -194,9 +239,9 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int g = 0; g < G; ++g) s[g] = 0.f;
     if (lane < n) {
-      const float* kr = Kt + lane * RS;
+      const T* kr = Kt + lane * RS;
       for (int ch = ch0; ch < ch1; ++ch) {
-        const float4 kx = *reinterpret_cast<const float4*>(kr + 4 * ch);
+        const float4 kx = load4(kr + 4 * ch);
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           const float4 qx =
@@ -235,12 +280,12 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // p.v on this warp's columns
     for (int j = 0; j < n; ++j) {
-      const float* vr = Vt + j * RS;
+      const T* vr = Vt + j * RS;
       float vx[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int c = col0 + lane + 32 * i;
-        vx[i] = c < col1 ? vr[c] : 0.f;
+        vx[i] = c < col1 ? to_f32(vr[c]) : 0.f;
       }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
@@ -275,25 +320,26 @@ decode_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 decode_combine_kernel(const float* __restrict__ ws,
-                      const float* __restrict__ v, float* __restrict__ out,
+                      const T* __restrict__ v, T* __restrict__ out,
                       int S, int Hq, int Hkv, int D, int group, int nsplit) {
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const float* w = ws + ((size_t)b * Hq + h) * nsplit * (D + 2);
-  float* o = out + ((size_t)b * Hq + h) * D;
+  T* o = out + ((size_t)b * Hq + h) * D;
   float mx = -INFINITY;
   for (int sp = 0; sp < nsplit; ++sp) mx = fmaxf(mx, w[sp * (D + 2) + D]);
   if (mx == -INFINITY) {
     // no valid slot: the plain version's softmax over S equal -1e30
     // logits is uniform, so the head gets the mean of V
     const size_t stride = (size_t)Hkv * D;
-    const float* vb = v + ((size_t)b * S * Hkv + h / group) * D;
+    const T* vb = v + ((size_t)b * S * Hkv + h / group) * D;
     for (int c = threadIdx.x; c < D; c += kThreads) {
       float sum = 0.f;
-      for (int j = 0; j < S; ++j) sum += vb[j * stride + c];
-      o[c] = sum / (float)S;
+      for (int j = 0; j < S; ++j) sum += to_f32(vb[j * stride + c]);
+      o[c] = from_f32<T>(sum / (float)S);
     }
     return;
   }
@@ -307,32 +353,62 @@ decode_combine_kernel(const float* __restrict__ ws,
       num += r[c] * f;
       den += r[D + 1] * f;
     }
-    o[c] = num / den;
+    o[c] = from_f32<T>(num / den);
   }
 }
 
-template <int G>
-int launch(const float* q, const float* k, const float* v, const int32_t* cl,
-           float* ws, float* out, int B, int S, int Hq, int Hkv, int D,
+template <typename T, int G>
+int launch(const T* q, const T* k, const T* v, const int32_t* cl,
+           float* ws, T* out, int B, int S, int Hq, int Hkv, int D,
            int per, int nsplit, int window, float softcap, float scale,
            cudaStream_t stream) {
   const int group = Hq / Hkv;
   const int nsub = (group + G - 1) / G;
-  const size_t smem = smem_bytes(D, G);
+  const size_t smem = smem_bytes<T>(D, G);
   cudaError_t err = cudaFuncSetAttribute(
-      decode_split_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      decode_split_kernel<T, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(Hkv * nsub, B, nsplit);
-  decode_split_kernel<G><<<grid, kThreads, smem, stream>>>(
+  decode_split_kernel<T, G><<<grid, kThreads, smem, stream>>>(
       q, k, v, cl, ws, S, Hq, Hkv, D, group, nsub, per, nsplit, window,
       softcap, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   dim3 grid2(Hq, B);
-  decode_combine_kernel<<<grid2, kThreads, 0, stream>>>(ws, v, out, S, Hq,
-                                                        Hkv, D, group, nsplit);
+  decode_combine_kernel<T><<<grid2, kThreads, 0, stream>>>(
+      ws, v, out, S, Hq, Hkv, D, group, nsplit);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_any(const void* q, const void* k, const void* v,
+               const void* cache_len, void* ws, void* out, int B, int S,
+               int Hq, int Hkv, int D, int per, int nsplit, int window,
+               float softcap, float scale, void* stream) {
+  if (B == 0 || Hq == 0) return 0;
+  if (S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > 256 ||
+      per <= 0 || nsplit <= 0)
+    return (int)cudaErrorInvalidValue;
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const int32_t* cl = static_cast<const int32_t*>(cache_len);
+  float* wf = static_cast<float*>(ws);
+  T* ot = static_cast<T*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int group = Hq / Hkv;
+  if (group == 1)
+    return launch<T, 1>(qt, kt, vt, cl, wf, ot, B, S, Hq, Hkv, D, per,
+                        nsplit, window, softcap, scale, st);
+  if (group == 2)
+    return launch<T, 2>(qt, kt, vt, cl, wf, ot, B, S, Hq, Hkv, D, per,
+                        nsplit, window, softcap, scale, st);
+  if (group <= 4)
+    return launch<T, 4>(qt, kt, vt, cl, wf, ot, B, S, Hq, Hkv, D, per,
+                        nsplit, window, softcap, scale, st);
+  return launch<T, 8>(qt, kt, vt, cl, wf, ot, B, S, Hq, Hkv, D, per, nsplit,
+                      window, softcap, scale, st);
 }
 
 }  // namespace
@@ -347,27 +423,20 @@ extern "C" int vpaas_decode_attention(const void* q, const void* k,
                                       int Hq, int Hkv, int D, int per,
                                       int nsplit, int window, float softcap,
                                       float scale, void* stream) {
-  if (B == 0 || Hq == 0) return 0;
-  if (S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > 256 ||
-      per <= 0 || nsplit <= 0)
-    return (int)cudaErrorInvalidValue;
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  const int32_t* cl = static_cast<const int32_t*>(cache_len);
-  float* wf = static_cast<float*>(ws);
-  float* of = static_cast<float*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int group = Hq / Hkv;
-  if (group == 1)
-    return launch<1>(qf, kf, vf, cl, wf, of, B, S, Hq, Hkv, D, per, nsplit,
-                     window, softcap, scale, st);
-  if (group == 2)
-    return launch<2>(qf, kf, vf, cl, wf, of, B, S, Hq, Hkv, D, per, nsplit,
-                     window, softcap, scale, st);
-  if (group <= 4)
-    return launch<4>(qf, kf, vf, cl, wf, of, B, S, Hq, Hkv, D, per, nsplit,
-                     window, softcap, scale, st);
-  return launch<8>(qf, kf, vf, cl, wf, of, B, S, Hq, Hkv, D, per, nsplit,
-                   window, softcap, scale, st);
+  return launch_any<float>(q, k, v, cache_len, ws, out, B, S, Hq, Hkv, D,
+                           per, nsplit, window, softcap, scale, stream);
+}
+
+// The same with q, the caches and out in bf16 (the workspace stays f32).
+extern "C" int vpaas_decode_attention_bf16(const void* q, const void* k,
+                                           const void* v,
+                                           const void* cache_len, void* ws,
+                                           void* out, int B, int S, int Hq,
+                                           int Hkv, int D, int per,
+                                           int nsplit, int window,
+                                           float softcap, float scale,
+                                           void* stream) {
+  return launch_any<__nv_bfloat16>(q, k, v, cache_len, ws, out, B, S, Hq,
+                                   Hkv, D, per, nsplit, window, softcap,
+                                   scale, stream);
 }

@@ -27,6 +27,23 @@
 // most N groups are still in flight (the caller then needs __syncthreads
 // before other threads read what this thread copied).
 //
+// mma_bf16_m16n8k16: D += A (16x16, row) * B (16x8, col), bf16 in, fp32
+// accumulate.  Each 32-bit register holds two bf16 values, the lower index
+// in the low half.  Per lane (g = lane / 4, t = lane % 4), from the PTX
+// ISA's fragment layout for mma.m16n8k16 .bf16:
+//   a[0] A[g][2t, 2t+1]      a[1] A[g+8][2t, 2t+1]
+//   a[2] A[g][2t+8, 2t+9]    a[3] A[g+8][2t+8, 2t+9]
+//   b[0] B[2t, 2t+1][g]      b[1] B[2t+8, 2t+9][g]
+//   d as for m16n8k8 above.
+// The product of two bf16 values is exact in fp32.
+//
+// to_f32 / from_f32<T>: a float or __nv_bfloat16 element as float, and a
+// float as T (bf16: rounded to nearest even, as torch's and XLA's casts
+// do).  pack_bf16x2(lo, hi): two floats rounded to bf16 in one register,
+// lo in the low half.  The kernels that take bf16 operands are templates
+// over the element type T and read and write their operands only through
+// these.
+//
 // fmin_nan / fmax_nan: min.NaN.f32 / max.NaN.f32 (sm_80 and later), the
 // smaller or larger operand, or a NaN when either operand is NaN: the
 // semantics of torch.minimum / torch.maximum / clamp_min and of
@@ -37,6 +54,7 @@
 // tests/test_torch_kernel_emulation.py replaces this header with host
 // versions of the same functions.
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -65,6 +83,38 @@ __device__ __forceinline__ void mma_tf32_m16n8k8(float d[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ void mma_bf16_m16n8k16(float d[4],
+                                                  const uint32_t a[4],
+                                                  const uint32_t b[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat16 x) {
+  return (uint32_t)__bfloat16_as_ushort(x);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  return bf16_bits(__float2bfloat16_rn(lo)) |
+         (bf16_bits(__float2bfloat16_rn(hi)) << 16);
 }
 
 __device__ __forceinline__ float fmin_nan(float a, float b) {

@@ -68,6 +68,15 @@
 // chosen by shape: one block per (head, batch row), 256 threads walking
 // the chunks in order with the state in shared memory, 64 x 64 weight
 // tiles formed on the fly.
+//
+// bf16 x, B and C (vpaas_ssd_scan_bf16, the reference's Mamba2 layer on
+// its bf16 launch path; dt, A and the states stay f32): every kernel is a
+// template over the element type E.  A bf16 slab is widened to f32 as it
+// is staged into the same f32 tiles (16-byte loads of 8 values, then
+// plain stores; the ring's barriers cover them as they cover cp.async),
+// y is rounded to bf16 once, the final state stays f32.  The products
+// stay 3xTF32: their operands are f32 intermediates (dt x, the decays),
+// not bf16 values.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -120,7 +129,8 @@ size_t output_smem_bytes(int P, int N, int Q) {
 
 // Copy rows [0, nrows) of a slab (row r at src + r * stride, W floats,
 // W % 4 == 0) into shared rows of RS floats by cp.async; rows >= valid
-// become zeros.  Every thread of the block calls it; valid >= 1.
+// become zeros.  Every thread of the block calls it; valid >= 1.  A bf16
+// slab (the overload below) is converted to float as it is stored.
 __device__ __forceinline__ void stage_rows(float* dst, int RS,
                                            const float* src, size_t stride,
                                            int valid, int nrows, int W,
@@ -139,6 +149,40 @@ __device__ __forceinline__ void stage_rows(float* dst, int RS,
       const int c = e - r * W;
       const bool ok = r < valid;
       cp_async_4(dst + r * RS + c, ok ? src + r * stride + c : src, ok);
+    }
+  }
+}
+
+// The same from a bf16 slab: plain 16-byte loads of 8 values where
+// W % 8 == 0 and the slab is aligned (vec), else one value at a time,
+// each widened to float into the same float rows.  The stores are plain,
+// so the callers' cp_async_wait and __syncthreads cover them too.
+__device__ __forceinline__ void stage_rows(float* dst, int RS,
+                                           const __nv_bfloat16* src,
+                                           size_t stride, int valid,
+                                           int nrows, int W, bool vec) {
+  if (vec) {
+    const int C8 = W / 8;
+    for (int e = threadIdx.x; e < nrows * C8; e += kThreads) {
+      const int r = e / C8;
+      const int c = 8 * (e - r * C8);
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      if (r < valid) u = *reinterpret_cast<const uint4*>(src + r * stride + c);
+      float4* d = reinterpret_cast<float4*>(dst + r * RS + c);
+      d[0] = make_float4(__uint_as_float(u.x << 16),
+                         __uint_as_float(u.x & 0xffff0000u),
+                         __uint_as_float(u.y << 16),
+                         __uint_as_float(u.y & 0xffff0000u));
+      d[1] = make_float4(__uint_as_float(u.z << 16),
+                         __uint_as_float(u.z & 0xffff0000u),
+                         __uint_as_float(u.w << 16),
+                         __uint_as_float(u.w & 0xffff0000u));
+    }
+  } else {
+    for (int e = threadIdx.x; e < nrows * W; e += kThreads) {
+      const int r = e / W;
+      const int c = e - r * W;
+      dst[r * RS + c] = r < valid ? to_f32(src[r * stride + c]) : 0.f;
     }
   }
 }
@@ -175,11 +219,12 @@ __device__ void chunk_cumsum(const float* dts, float a, float* cum,
 // 1. One 64-source tile's part of its chunk's state: partial[b][c][tile][h]
 // (p x n) = sum over the tile's sources j of (u_j exp(cum_last - cum_j))
 // B_j^T; the tile-0 block also writes clast[b][c][h] = cum_last.
-// P8, N8 = p / 8, n / 8 as constants (0: read P, N at run time).
-template <int P8, int N8>
+// E = x's and B's element type (float or bf16); P8, N8 = p / 8, n / 8 as
+// constants (0: read P, N at run time).
+template <typename E, int P8, int N8>
 __global__ void __launch_bounds__(kThreads, 2)
-ssd_state_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                 const float* __restrict__ A, const float* __restrict__ Bm,
+ssd_state_kernel(const E* __restrict__ x, const float* __restrict__ dt,
+                 const float* __restrict__ A, const E* __restrict__ Bm,
                  float* __restrict__ states, float* __restrict__ clast,
                  int S, int H, int P, int N, int Q, int nc, int vec) {
   if (P8) P = 8 * P8;
@@ -320,13 +365,13 @@ ssd_state_pass_kernel(const float* __restrict__ init,
 
 // 3. 64 output rows of one chunk: the intra-chunk sum over the source
 // tiles at or below them, plus the incoming state's term.  Two blocks per
-// SM (<= 128 registers a thread).
-template <int P8, int N8>
+// SM (<= 128 registers a thread).  E: x's, B's, C's and y's element type.
+template <typename E, int P8, int N8>
 __global__ void __launch_bounds__(kThreads, 2)
-ssd_output_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                  const float* __restrict__ A, const float* __restrict__ Bm,
-                  const float* __restrict__ Cm,
-                  const float* __restrict__ states, float* __restrict__ y,
+ssd_output_kernel(const E* __restrict__ x, const float* __restrict__ dt,
+                  const float* __restrict__ A, const E* __restrict__ Bm,
+                  const E* __restrict__ Cm,
+                  const float* __restrict__ states, E* __restrict__ y,
                   int S, int H, int P, int N, int Q, int nc, int vec) {
   if (P8) P = 8 * P8;
   if (N8) N = 8 * N8;
@@ -353,8 +398,8 @@ ssd_output_kernel(const float* __restrict__ x, const float* __restrict__ dt,
   if (i0 >= L) return;
   const size_t bs = (size_t)b * S;
   const size_t xstride = (size_t)H * P;
-  const float* xc = x + ((bs + c0) * H + h) * P;
-  const float* bc = Bm + (bs + c0) * N;
+  const E* xc = x + ((bs + c0) * H + h) * P;
+  const E* bc = Bm + (bs + c0) * N;
 
   stage_rows(Cs, CS, Cm + (bs + c0 + i0) * N, N, L - i0, kT, N, vec);
   stage_rows(Ss, CS, states + (((size_t)b * nc + c) * T * H + h) * P * N, N,
@@ -558,14 +603,14 @@ ssd_output_kernel(const float* __restrict__ x, const float* __restrict__ dt,
       const int i = e < 2 ? ra : rb;
       if (i < L)
         y[((bs + c0 + i) * H + h) * P + pt * 8 + 2 * t + (e & 1)] =
-            acc[pt][e] + xs[(pt * 4 + e) * 32];
+            from_f32<E>(acc[pt][e] + xs[(pt * 4 + e) * 32]);
     }
   }
 }
 
-template <int P8, int N8>
-int run(const float* x, const float* dt, const float* A, const float* Bm,
-        const float* Cm, const float* init, float* y, float* fin, float* ws,
+template <typename E, int P8, int N8>
+int run(const E* x, const float* dt, const float* A, const E* Bm,
+        const E* Cm, const float* init, E* y, float* fin, float* ws,
         int B, int S, int H, int P, int N, int Q, cudaStream_t stream) {
   const int nc = (S + Q - 1) / Q;
   const int T = padded_chunk(Q) / kT;              // 64-row tiles per chunk
@@ -578,12 +623,12 @@ int run(const float* x, const float* dt, const float* A, const float* Bm,
   cudaError_t err;
   if (nc > 0) {
     const size_t smem = state_smem_bytes(P, N, Q);
-    err = cudaFuncSetAttribute(ssd_state_kernel<P8, N8>,
+    err = cudaFuncSetAttribute(ssd_state_kernel<E, P8, N8>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid(nc * T, H, B);
-    ssd_state_kernel<P8, N8><<<grid, kThreads, smem, stream>>>(
+    ssd_state_kernel<E, P8, N8><<<grid, kThreads, smem, stream>>>(
         x, dt, A, Bm, states, clast, S, H, P, N, Q, nc, vec);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -594,12 +639,12 @@ int run(const float* x, const float* dt, const float* A, const float* Bm,
   err = cudaGetLastError();
   if (err != cudaSuccess || nc == 0) return (int)err;
   const size_t smem = output_smem_bytes(P, N, Q);
-  err = cudaFuncSetAttribute(ssd_output_kernel<P8, N8>,
+  err = cudaFuncSetAttribute(ssd_output_kernel<E, P8, N8>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(H, T * nc, B);
-  ssd_output_kernel<P8, N8><<<grid, kThreads, smem, stream>>>(
+  ssd_output_kernel<E, P8, N8><<<grid, kThreads, smem, stream>>>(
       x, dt, A, Bm, Cm, states, y, S, H, P, N, Q, nc, vec);
   return (int)cudaGetLastError();
 }
@@ -607,18 +652,19 @@ int run(const float* x, const float* dt, const float* A, const float* Bm,
 // Mamba2's p = 64 at n = 64 (zamba2) and n = 128 take kernels compiled for
 // those shapes (loops of fixed length, no run-time guards); other multiples
 // of 8 take the same code with p and n read at run time.
-int launch(const float* x, const float* dt, const float* A, const float* Bm,
-           const float* Cm, const float* init, float* y, float* fin,
+template <typename E>
+int launch(const E* x, const float* dt, const float* A, const E* Bm,
+           const E* Cm, const float* init, E* y, float* fin,
            float* ws, int B, int S, int H, int P, int N, int Q,
            cudaStream_t stream) {
   if (P == 64 && N == 64)
-    return run<8, 8>(x, dt, A, Bm, Cm, init, y, fin, ws, B, S, H, P, N, Q,
-                     stream);
+    return run<E, 8, 8>(x, dt, A, Bm, Cm, init, y, fin, ws, B, S, H, P, N,
+                        Q, stream);
   if (P == 64 && N == 128)
-    return run<8, 16>(x, dt, A, Bm, Cm, init, y, fin, ws, B, S, H, P, N, Q,
+    return run<E, 8, 16>(x, dt, A, Bm, Cm, init, y, fin, ws, B, S, H, P, N,
+                         Q, stream);
+  return run<E, 0, 0>(x, dt, A, Bm, Cm, init, y, fin, ws, B, S, H, P, N, Q,
                       stream);
-  return run<0, 0>(x, dt, A, Bm, Cm, init, y, fin, ws, B, S, H, P, N, Q,
-                   stream);
 }
 
 }  // namespace tc
@@ -641,11 +687,13 @@ size_t smem_floats(int P, int N, int Q) {
          + 2 * (size_t)Q;                 // cum, dt (then the state decay)
 }
 
+// E: x's, B's, C's and y's element type (float or bf16)
+template <typename E>
 __global__ void __launch_bounds__(kThreads)
-ssd_simt_kernel(const float* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ A, const float* __restrict__ Bm,
-                const float* __restrict__ Cm, const float* __restrict__ init,
-                float* __restrict__ y, float* __restrict__ fin, int S, int H,
+ssd_simt_kernel(const E* __restrict__ x, const float* __restrict__ dt,
+                const float* __restrict__ A, const E* __restrict__ Bm,
+                const E* __restrict__ Cm, const float* __restrict__ init,
+                E* __restrict__ y, float* __restrict__ fin, int S, int H,
                 int P, int N, int Q) {
   extern __shared__ float smem[];
   float* st = smem;                        // [P][N + 1]
@@ -705,7 +753,7 @@ ssd_simt_kernel(const float* __restrict__ x, const float* __restrict__ dt,
         const int i = e / N;
         const int nn = e - i * N;
         Cs[i * (N + 1) + nn] =
-            i0 + i < L ? Cm[(bs + c0 + i0 + i) * N + nn] : 0.f;
+            i0 + i < L ? to_f32(Cm[(bs + c0 + i0 + i) * N + nn]) : 0.f;
       }
       float acc[4][4];
 #pragma unroll
@@ -720,13 +768,14 @@ ssd_simt_kernel(const float* __restrict__ x, const float* __restrict__ dt,
           const int j = e / N;
           const int nn = e - j * N;
           Bs[j * (N + 1) + nn] =
-              j0 + j < L ? Bm[(bs + c0 + j0 + j) * N + nn] : 0.f;
+              j0 + j < L ? to_f32(Bm[(bs + c0 + j0 + j) * N + nn]) : 0.f;
         }
         for (int e = tid; e < kT * P; e += kThreads) {
           const int j = e / P;
           const int pp = e - j * P;
           Us[e] = j0 + j < L
-                      ? x[((bs + c0 + j0 + j) * H + h) * P + pp] * dts[j0 + j]
+                      ? to_f32(x[((bs + c0 + j0 + j) * H + h) * P + pp]) *
+                            dts[j0 + j]
                       : 0.f;
         }
         __syncthreads();
@@ -805,7 +854,7 @@ ssd_simt_kernel(const float* __restrict__ x, const float* __restrict__ dt,
           const int pp = tx + 16 * c;
           if (pp < P)
             y[((bs + c0 + i0 + i) * H + h) * P + pp] =
-                acc[a][c] + din * cs[a][c];
+                from_f32<E>(acc[a][c] + din * cs[a][c]);
         }
       }
     }
@@ -834,15 +883,15 @@ ssd_simt_kernel(const float* __restrict__ x, const float* __restrict__ dt,
         const int j = e / N;
         const int nn = e - j * N;
         Bs[j * (N + 1) + nn] =
-            j0 + j < L ? Bm[(bs + c0 + j0 + j) * N + nn] : 0.f;
+            j0 + j < L ? to_f32(Bm[(bs + c0 + j0 + j) * N + nn]) : 0.f;
       }
       for (int e = tid; e < kT * P; e += kThreads) {
         const int j = e / P;
         const int pp = e - j * P;
-        Us[e] = j0 + j < L ? x[((bs + c0 + j0 + j) * H + h) * P + pp] *
-                                 (dt[(bs + c0 + j0 + j) * H + h]) *
-                                 dts[j0 + j]
-                           : 0.f;
+        Us[e] = j0 + j < L
+                    ? to_f32(x[((bs + c0 + j0 + j) * H + h) * P + pp]) *
+                          (dt[(bs + c0 + j0 + j) * H + h]) * dts[j0 + j]
+                    : 0.f;
       }
       __syncthreads();
       for (int j = 0; j < kT; ++j) {
@@ -885,38 +934,59 @@ ssd_simt_kernel(const float* __restrict__ x, const float* __restrict__ dt,
 
 }  // namespace simt
 
+template <typename E>
+int launch_any(const void* x, const void* dt, const void* A, const void* Bm,
+               const void* Cm, const void* init, void* y, void* fin,
+               void* ws, int B, int S, int H, int P, int N, int Q,
+               void* stream) {
+  if (B == 0 || H == 0) return 0;
+  if (P <= 0 || P > simt::kMaxP || N <= 0 || N > simt::kMaxN || Q <= 0)
+    return (int)cudaErrorInvalidValue;
+  const E* xt = static_cast<const E*>(x);
+  const float* dtf = static_cast<const float*>(dt);
+  const float* Af = static_cast<const float*>(A);
+  const E* Bt = static_cast<const E*>(Bm);
+  const E* Ct = static_cast<const E*>(Cm);
+  const float* initf = static_cast<const float*>(init);
+  E* yt = static_cast<E*>(y);
+  float* finf = static_cast<float*>(fin);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (P % 8 == 0 && N % 8 == 0)
+    return tc::launch(xt, dtf, Af, Bt, Ct, initf, yt, finf,
+                      static_cast<float*>(ws), B, S, H, P, N, Q, st);
+  const size_t smem = sizeof(float) * simt::smem_floats(P, N, Q);
+  cudaError_t err = cudaFuncSetAttribute(
+      simt::ssd_simt_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  simt::ssd_simt_kernel<E><<<dim3(H, B), simt::kThreads, smem, st>>>(
+      xt, dtf, Af, Bt, Ct, initf, yt, finf, S, H, P, N, Q);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x (B, S, H, P), dt (B, S, H), A (H,), Bm and Cm (B, S, N) f32, init
 // (B, H, P, N) f32 or null (zeros) -> y (B, S, H, P), fin (B, H, P, N).
 // ws: B * nc * H * (T * P * N + 1) floats (nc = ceil(S / Q), T =
-// ceil(Q / 64)) for the tensor-core path, which takes p % 8 == 0 and n % 8 == 0; unused (may be
-// null) by the CUDA-core kernel, which takes the other shapes.
+// ceil(Q / 64)) for the tensor-core path, which takes p % 8 == 0 and
+// n % 8 == 0; unused (may be null) by the CUDA-core kernel, which takes the
+// other shapes.
 extern "C" int vpaas_ssd_scan(const void* x, const void* dt, const void* A,
                               const void* Bm, const void* Cm, const void* init,
                               void* y, void* fin, void* ws, int B, int S,
                               int H, int P, int N, int Q, void* stream) {
-  if (B == 0 || H == 0) return 0;
-  if (P <= 0 || P > simt::kMaxP || N <= 0 || N > simt::kMaxN || Q <= 0)
-    return (int)cudaErrorInvalidValue;
-  const float* xf = static_cast<const float*>(x);
-  const float* dtf = static_cast<const float*>(dt);
-  const float* Af = static_cast<const float*>(A);
-  const float* Bf = static_cast<const float*>(Bm);
-  const float* Cf = static_cast<const float*>(Cm);
-  const float* initf = static_cast<const float*>(init);
-  float* yf = static_cast<float*>(y);
-  float* finf = static_cast<float*>(fin);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (P % 8 == 0 && N % 8 == 0)
-    return tc::launch(xf, dtf, Af, Bf, Cf, initf, yf, finf,
-                      static_cast<float*>(ws), B, S, H, P, N, Q, st);
-  const size_t smem = sizeof(float) * simt::smem_floats(P, N, Q);
-  cudaError_t err = cudaFuncSetAttribute(
-      simt::ssd_simt_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  simt::ssd_simt_kernel<<<dim3(H, B), simt::kThreads, smem, st>>>(
-      xf, dtf, Af, Bf, Cf, initf, yf, finf, S, H, P, N, Q);
-  return (int)cudaGetLastError();
+  return launch_any<float>(x, dt, A, Bm, Cm, init, y, fin, ws, B, S, H, P, N,
+                           Q, stream);
+}
+
+// The same with x, Bm, Cm and y in bf16; dt, A, init, fin and ws stay f32,
+// as the reference's Mamba2 layer passes them.
+extern "C" int vpaas_ssd_scan_bf16(const void* x, const void* dt,
+                                   const void* A, const void* Bm,
+                                   const void* Cm, const void* init, void* y,
+                                   void* fin, void* ws, int B, int S, int H,
+                                   int P, int N, int Q, void* stream) {
+  return launch_any<__nv_bfloat16>(x, dt, A, Bm, Cm, init, y, fin, ws, B, S,
+                                   H, P, N, Q, stream);
 }

@@ -69,10 +69,18 @@ SIGNATURES = {
     "vpaas_flash_attention":
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
          _P],
+    "vpaas_flash_attention_bf16":
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+         _P],
     "vpaas_decode_attention":
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
          _P],
+    "vpaas_decode_attention_bf16":
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+         _P],
     "vpaas_ssd_scan":
+        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "vpaas_ssd_scan_bf16":
         [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
@@ -213,20 +221,45 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-Operand = Sequence      # (name, tensor, dtype, shape or None)
+Operand = Sequence      # (name, tensor, dtype(s), shape or None)
 
 
-def check_operands(*operands: Operand) -> None:
+def check_dtypes(operands: Sequence[Operand],
+                 same: Sequence[Sequence[str]] = ()) -> None:
+    """The dtype half of :func:`check_operands`: each operand's dtype is
+    its ``dtype``, or one of them where that is a tuple of the dtypes the
+    kernel takes; the operands named in each group of ``same`` share one
+    dtype.  Nothing is converted: anything else raises."""
+    for name, t, dtype, _ in operands:
+        if isinstance(dtype, tuple):
+            if t.dtype not in dtype:
+                raise ValueError(f"{name}: expected one of "
+                                 f"{', '.join(map(str, dtype))}, got "
+                                 f"{t.dtype}")
+        elif t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if same:
+        by_name = {op[0]: op[1].dtype for op in operands}
+        for group in same:
+            got = {n: by_name[n] for n in group if n in by_name}
+            if len(set(got.values())) > 1:
+                raise ValueError("operands " + ", ".join(
+                    f"{n} ({d})" for n, d in got.items())
+                    + " must share one dtype")
+
+
+def check_operands(*operands: Operand,
+                   same: Sequence[Sequence[str]] = ()) -> None:
     """Validate a kernel's operands, in one pass, before their pointers go
     to native code: each ``(name, tensor, dtype, shape or None)`` must be a
-    contiguous CUDA tensor of that dtype (and shape) on the current device,
-    the device whose current stream :func:`launch` launches on."""
+    contiguous CUDA tensor of that dtype (or of one of a tuple of dtypes;
+    ``same`` names groups that share one: :func:`check_dtypes`), and shape,
+    on the current device, the device whose current stream :func:`launch`
+    launches on."""
     device = None
     for name, t, dtype, shape in operands:
         if not t.is_cuda:
             raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-        if t.dtype != dtype:
-            raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
         if shape is not None and t.shape != shape:
             raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                              f"got {tuple(t.shape)}")
@@ -237,3 +270,4 @@ def check_operands(*operands: Operand) -> None:
         if t.get_device() != device:
             raise ValueError(f"{name}: on cuda:{t.get_device()}, expected "
                              f"the current device cuda:{device}")
+    check_dtypes(operands, same)

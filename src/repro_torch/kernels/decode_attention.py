@@ -4,12 +4,15 @@ hand-written CUDA kernel.
 Port of the Pallas kernel ``repro.kernels.decode_attention.decode_attention``
 (source: ``csrc/decode_attention.cu``): each batch row's query attends to
 the first ``cache_len[b]`` slots of its cache (a scalar is broadcast to
-every row), with an optional window and logit softcap, GQA, float32.  A
-call runs two device kernels: one block per (kv-head group, row, split of
-the row's valid slots) writes a partial softmax state to a workspace, and a
-combine kernel merges the splits in a fixed order.  The plain PyTorch
-version is :func:`decode_attention_ref` (``ref.decode_attention``); the
-kernel agrees with it within ``testing.ATTN_ATOL``.
+every row), with an optional window and logit softcap, GQA, on float32 or
+bfloat16 operands (q and the caches of one dtype, the output in it too;
+the sums and the workspace float32).  A call runs two device kernels: one
+block per (kv-head group, row, split of the row's valid slots) writes a
+partial softmax state to a workspace, and a combine kernel merges the
+splits in a fixed order.  The plain PyTorch version is
+:func:`decode_attention_ref` (``ref.decode_attention``); the kernel agrees
+with it within ``testing.ATTN_ATOL`` (float32) or ``testing.ATTN_BF16_RTOL``
+(bfloat16).  float16 raises.
 """
 from __future__ import annotations
 
@@ -18,10 +21,12 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.flash_attention import (MAX_HEAD_DIM, check_options,
+from repro_torch.kernels.flash_attention import (DTYPES, MAX_HEAD_DIM,
+                                                 check_options, launcher,
                                                  pair_work, row_array)
 
 launches = 0          # wrapper calls that launched the kernels (ops.py)
+launches_bf16 = 0     # the launches among them on bf16 operands
 
 decode_attention_ref = ref.decode_attention
 
@@ -46,7 +51,8 @@ def splits(b: int, S: int, n_kv: int, window: Optional[int]
 def workspace_bytes(q: torch.Tensor, k_cache: torch.Tensor,
                     window: Optional[int]) -> int:
     """Bytes of the per-call workspace: each split's partial softmax state
-    (d + 2 floats) for every (row, query head)."""
+    (d + 2 floats, whatever the operands' dtype) for every (row, query
+    head)."""
     b, n_q, d = q.shape
     _, nsplit = splits(b, k_cache.shape[1], k_cache.shape[2], window)
     return 4 * b * n_q * nsplit * (d + 2)
@@ -72,17 +78,18 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len, *,
                      window: Optional[int] = None,
                      softcap: Optional[float] = None) -> torch.Tensor:
-    """q (b, n_q, d), caches (b, S, n_kv, d), cache_len scalar or (b,)
-    -> (b, n_q, d)."""
-    global launches
+    """q (b, n_q, d), caches (b, S, n_kv, d), all float32 or all bfloat16,
+    cache_len scalar or (b,) -> (b, n_q, d) in their dtype."""
+    global launches, launches_bf16
     b, n_q, d = q.shape
     S, n_kv = k_cache.shape[1], k_cache.shape[2]
     q = q.contiguous()
     k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
     _build.check_operands(
-        ("q", q, torch.float32, None),
-        ("k_cache", k_cache, torch.float32, (b, S, n_kv, d)),
-        ("v_cache", v_cache, torch.float32, (b, S, n_kv, d)))
+        ("q", q, DTYPES, None),
+        ("k_cache", k_cache, DTYPES, (b, S, n_kv, d)),
+        ("v_cache", v_cache, DTYPES, (b, S, n_kv, d)),
+        same=[("q", "k_cache", "v_cache")])
     if n_kv == 0 or n_q % n_kv or not 0 < d <= MAX_HEAD_DIM or S == 0:
         raise ValueError(f"decode_attention: unsupported heads {n_q}/{n_kv},"
                          f" head dim {d} or {S} cache slots")
@@ -93,9 +100,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         per, nsplit = splits(b, S, n_kv, window)
         ws = torch.empty(workspace_bytes(q, k_cache, window) // 4,
                          dtype=torch.float32, device=q.device)
-        _build.launch("vpaas_decode_attention", q.data_ptr(),
-                      k_cache.data_ptr(), v_cache.data_ptr(), clen.data_ptr(),
-                      ws.data_ptr(), out.data_ptr(), b, S, n_q, n_kv, d, per,
-                      nsplit, window or 0, float(softcap or 0.0), d ** -0.5)
+        _build.launch(launcher("vpaas_decode_attention", q.dtype),
+                      q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                      clen.data_ptr(), ws.data_ptr(), out.data_ptr(), b, S,
+                      n_q, n_kv, d, per, nsplit, window or 0,
+                      float(softcap or 0.0), d ** -0.5)
         launches += 1
+        launches_bf16 += q.dtype == torch.bfloat16
     return out

@@ -2,15 +2,20 @@
 
 Port of the Pallas kernel ``repro.kernels.flash_attention.flash_attention``
 (source: ``csrc/flash_attention.cu``): GQA attention with an online softmax,
-causal mask, optional sliding window and logit softcap, float32, its two
-products on the tensor cores in 3xTF32 where q, k and v share a head dim
-up to 128, on the CUDA cores above it and wherever v has a head dim of its
-own (MLA's prefill: d = 192 for q and k, 128 for v).  The query offset is
-a device array read at run time (a scalar is broadcast to one entry per
-batch row), so the cache prefill's per-row cache index takes the kernel
-too.  The plain PyTorch version is :func:`flash_attention_ref`
-(``ref.flash_attention``); the kernel agrees with it within
-``testing.ATTN_ATOL``.
+causal mask, optional sliding window and logit softcap, on float32 or
+bfloat16 operands (q, k and v of one dtype; the output in it too), with
+every sum in float32, as the Pallas kernel computes on the bf16 operands
+of the reference's launch path.  Where q, k and v share a head dim up to
+128 its two products run on the tensor cores: in 3xTF32 for float32, as
+bf16 mma.sync for bfloat16 (q.k exact in float32, p.v with p split into
+two bf16 halves); above 128 and wherever v has a head dim of its own
+(MLA's prefill: d = 192 for q and k, 128 for v) on the CUDA cores, bf16
+widened to float32 as it loads.  The query offset is a device array read
+at run time (a scalar is broadcast to one entry per batch row), so the
+cache prefill's per-row cache index takes the kernel too.  The plain
+PyTorch version is :func:`flash_attention_ref` (``ref.flash_attention``);
+the kernel agrees with it within ``testing.ATTN_ATOL`` (float32) or
+``testing.ATTN_BF16_RTOL`` (bfloat16).  float16 raises.
 
 The kernel has no backward kernel, as the Pallas one has no
 differentiation rule.  :class:`FlashAttention` makes it differentiable:
@@ -28,11 +33,21 @@ import torch
 from repro_torch.kernels import _build, ref
 
 launches = 0          # kernel launches since the last reset (ops.py)
+launches_bf16 = 0     # the launches among them on bf16 operands
 vjps = 0              # plain-version VJPs since the last reset (ops.py)
 
 flash_attention_ref = ref.flash_attention
 
 MAX_HEAD_DIM = 256
+# the operand dtypes the LLM kernels (K6, K7, K8) take, and each one's
+# launcher suffix
+DTYPES = (torch.float32, torch.bfloat16)
+_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
+
+
+def launcher(name: str, dtype: torch.dtype) -> str:
+    """The C launcher of kernel ``name`` for operands of ``dtype``."""
+    return name + _SUFFIX[dtype]
 
 
 def on_tensor_cores(d: int, d_v: int) -> bool:
@@ -105,16 +120,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None,
                     q_offset=0) -> torch.Tensor:
-    """q (b, s_q, n_q, d), k (b, s_kv, n_kv, d) and v (b, s_kv, n_kv, d_v)
-    -> (b, s_q, n_q, d_v), with d_v <= d; the logits are scaled by
-    d ** -0.5."""
-    global launches
+    """q (b, s_q, n_q, d), k (b, s_kv, n_kv, d) and v (b, s_kv, n_kv, d_v),
+    all float32 or all bfloat16, -> (b, s_q, n_q, d_v) in their dtype, with
+    d_v <= d; the logits are scaled by d ** -0.5."""
+    global launches, launches_bf16
     b, s_q, n_q, d = q.shape
     s_kv, n_kv, d_v = k.shape[1], k.shape[2], v.shape[-1]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    _build.check_operands(("q", q, torch.float32, None),
-                          ("k", k, torch.float32, (b, s_kv, n_kv, d)),
-                          ("v", v, torch.float32, (b, s_kv, n_kv, d_v)))
+    _build.check_operands(("q", q, DTYPES, None),
+                          ("k", k, DTYPES, (b, s_kv, n_kv, d)),
+                          ("v", v, DTYPES, (b, s_kv, n_kv, d_v)),
+                          same=[("q", "k", "v")])
     if (n_kv == 0 or n_q % n_kv or not 0 < d_v <= d <= MAX_HEAD_DIM
             or s_kv == 0):
         raise ValueError(f"flash_attention: unsupported heads {n_q}/{n_kv}, "
@@ -123,11 +139,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     off = row_array(q_offset, b, q.device, "q_offset")
     out = q.new_empty((b, s_q, n_q, d_v))
     if b and s_q:
-        _build.launch("vpaas_flash_attention", q.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), off.data_ptr(), out.data_ptr(), b, s_q,
-                      s_kv, n_q, n_kv, d, d_v, int(causal), window or 0,
+        _build.launch(launcher("vpaas_flash_attention", q.dtype),
+                      q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      off.data_ptr(), out.data_ptr(), b, s_q, s_kv, n_q,
+                      n_kv, d, d_v, int(causal), window or 0,
                       float(softcap or 0.0), d ** -0.5)
         launches += 1
+        launches_bf16 += q.dtype == torch.bfloat16
     return out
 
 

@@ -19,7 +19,12 @@ Each kernel module keeps a plain-integer launch count (``launches``), bumped
 where the kernel is launched and nowhere else; :func:`launch_counts` and
 :func:`reset_launch_counts` read and zero them, so a run can show that the
 serving path went through the kernels.  K6 and K8 also count their plain
-VJPs (``vjps``, reported as ``flash_attention_vjp`` and ``ssd_scan_vjp``).
+VJPs (``vjps``, reported as ``flash_attention_vjp`` and ``ssd_scan_vjp``),
+and K6, K7 and K8 the launches among theirs on bf16 operands
+(``launches_bf16``, reported by :func:`bf16_launch_counts` as
+``<name>_bf16``).  On a CUDA bf16 operand
+K6, K7 and K8 launch their bf16 kernels; float16 raises, and nothing
+converts an operand to another dtype.
 K5 also counts its replays and the proximal steps its launches ran
 (``onevsall_update.replays`` and ``.steps``, zeroed with the launches): a
 replay is one launch of many steps.
@@ -58,6 +63,9 @@ KERNELS = {"region_filter_mask_batch": _ik, "crop_gather": _cg,
            "nms_greedy": _nms}
 # the kernels whose backward is their plain version's VJP, by count name
 VJPS = {"flash_attention_vjp": _fa, "ssd_scan_vjp": _sk}
+# the kernels that take bf16 operands: their bf16 launches, by count name
+BF16 = {"flash_attention_bf16": _fa, "decode_attention_bf16": _da,
+        "ssd_scan_bf16": _sk}
 
 
 # the counters watching kernel calls on meta tensors; each has
@@ -72,11 +80,19 @@ def launch_counts() -> Dict[str, int]:
             **{name: mod.vjps for name, mod in VJPS.items()}}
 
 
+def bf16_launch_counts() -> Dict[str, int]:
+    """The launches of K6, K7 and K8 on bf16 operands (among those
+    :func:`launch_counts` counts), by ``<name>_bf16``."""
+    return {name: mod.launches_bf16 for name, mod in BF16.items()}
+
+
 def reset_launch_counts() -> None:
     for mod in KERNELS.values():
         mod.launches = 0
     for mod in VJPS.values():
         mod.vjps = 0
+    for mod in BF16.values():
+        mod.launches_bf16 = 0
     _ou.replays = _ou.steps = 0
 
 

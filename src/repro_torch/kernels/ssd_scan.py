@@ -7,9 +7,15 @@ each 64-step tile's part of its chunk's state, the state recurrence
 across chunks, then 64-row output tiles in parallel; the parts and the
 states go through a workspace.  Other shapes take one CUDA-core kernel
 that walks the chunks in order.  The sequence's tail past ``s`` acts as the plain
-version's zero padding without any padded copy.  The plain PyTorch version
-is :func:`ssd_scan_ref` (``ref.ssd_scan``); the kernel agrees with it
-within ``testing.SSD_RTOL`` of the output's scale.
+version's zero padding without any padded copy.  x, B and C are float32
+or bfloat16 (one dtype; y comes out in it); dt, A and the initial and
+final states are float32 either way, as the reference's Mamba2 layer
+passes them.  bf16 operands are widened to float32 as they load, and
+every product stays 3xTF32: its operands are float32 intermediates (dt x,
+the decays), not bf16 values.  The plain PyTorch version is
+:func:`ssd_scan_ref` (``ref.ssd_scan``); the kernel agrees with it within
+``testing.SSD_RTOL`` (float32) or ``testing.SSD_BF16_RTOL`` (bfloat16) of
+the output's scale.  float16 raises.
 
 There is no backward kernel, as the Pallas kernel has no differentiation
 rule.  :class:`SSDScan` makes the scan differentiable: its forward
@@ -26,8 +32,10 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
+from repro_torch.kernels.flash_attention import DTYPES, launcher
 
 launches = 0          # wrapper calls that launched the kernels (ops.py)
+launches_bf16 = 0     # the launches among them on bf16 operands
 vjps = 0              # plain-version VJPs since the last reset (ops.py)
 
 ssd_scan_ref = ref.ssd_scan
@@ -82,23 +90,24 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, *, chunk: int = 64,
              initial_state: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (b,s,h,p), dt (b,s,h), A (h,), B and C (b,s,n), initial_state
-    (b,h,p,n) or None -> (y (b,s,h,p), final_state (b,h,p,n))."""
-    global launches
+    """x (b,s,h,p), B and C (b,s,n) (float32 or bfloat16, one dtype), dt
+    (b,s,h), A (h,), initial_state (b,h,p,n) or None (float32) -> (y
+    (b,s,h,p) in x's dtype, final_state (b,h,p,n) float32)."""
+    global launches, launches_bf16
     b, s, h, p = x.shape
     n = B.shape[-1]
     x, dt, A = x.contiguous(), dt.contiguous(), A.contiguous()
     B, C = B.contiguous(), C.contiguous()
-    operands = [("x", x, torch.float32, None),
+    operands = [("x", x, DTYPES, None),
                 ("dt", dt, torch.float32, (b, s, h)),
                 ("A", A, torch.float32, (h,)),
-                ("B", B, torch.float32, (b, s, n)),
-                ("C", C, torch.float32, (b, s, n))]
+                ("B", B, DTYPES, (b, s, n)),
+                ("C", C, DTYPES, (b, s, n))]
     if initial_state is not None:
         initial_state = initial_state.contiguous()
         operands.append(("initial_state", initial_state, torch.float32,
                          (b, h, p, n)))
-    _build.check_operands(*operands)
+    _build.check_operands(*operands, same=[("x", "B", "C")])
     if not (0 < p <= MAX_HEAD_DIM and 0 < n <= MAX_STATE and chunk > 0):
         raise ValueError(f"ssd_scan: unsupported head dim {p}, state {n} "
                          f"or chunk {chunk}")
@@ -108,14 +117,15 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         nws = workspace_bytes(x, B, chunk) // 4
         ws = (torch.empty(nws, dtype=torch.float32, device=x.device)
               if nws else None)
-        _build.launch("vpaas_ssd_scan", x.data_ptr(), dt.data_ptr(),
-                      A.data_ptr(), B.data_ptr(), C.data_ptr(),
+        _build.launch(launcher("vpaas_ssd_scan", x.dtype), x.data_ptr(),
+                      dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
                       None if initial_state is None
                       else initial_state.data_ptr(),
                       y.data_ptr(), fin.data_ptr(),
                       None if ws is None else ws.data_ptr(),
                       b, s, h, p, n, chunk)
         launches += 1
+        launches_bf16 += x.dtype == torch.bfloat16
     return y, fin
 
 

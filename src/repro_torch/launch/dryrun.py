@@ -19,7 +19,9 @@ passes:
   batch and at batch 1 (the peak is affine in the batch), confirmed by a
   pass at it.
 * **On the card** (``device="cuda"``, where a batch >= 1 fits;
-  :func:`card_pass`): seeded random float32 parameters, the step run once
+  :func:`card_pass`): seeded random parameters, cache and context in
+  ``launch.specs.COMPUTE_DTYPE`` (bfloat16, as the abstract pass counts
+  them), the step run once
   at ``WARMUP_SEQ`` tokens to warm up, then timed (CUDA events) at that
   batch, a decode step ``DECODE_CALLS`` times: its median time and
   spread, the card's peak allocated memory, the K6 / K7 / K8 launches of
@@ -44,6 +46,7 @@ import torch
 from repro_torch import require_device, set_reference_precision
 from repro_torch.configs import INPUT_SHAPES, get_config, list_archs
 from repro_torch.kernels import ops
+from repro_torch.launch import specs
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.specs import INDEX_DTYPE, arch_for_shape, make_step
 from repro_torch.models import stubs
@@ -57,8 +60,11 @@ ARTIFACT_DIR = os.environ.get(
     os.path.join(os.path.dirname(__file__), "..", "..", "..",
                  "artifacts", "dryrun"))
 
-# the kernels of the LLM steps, by launch-count name
-STEP_KERNELS = ("flash_attention", "decode_attention", "ssd_scan")
+# the kernels of the LLM steps, by launch-count name, and their bf16
+# launches
+STEP_KERNELS = ("flash_attention", "decode_attention", "ssd_scan",
+                "flash_attention_bf16", "decode_attention_bf16",
+                "ssd_scan_bf16")
 # the warm-up call's sequence (cache) length: it loads the kernels and
 # cuBLAS's handles at a fraction of a 32k step's time
 WARMUP_SEQ = 256
@@ -101,18 +107,21 @@ def fit_batch(cfg, shape, arch: str, full: RooflineReport):
 
 def step_inputs(cfg, shape, device, params=None) -> list:
     """Real arguments of ``make_step``'s step on ``device``: ``params`` or
-    float32 parameters and tokens drawn from ``SEED``, stub context; for
-    train a fresh AdamW state and labels, for decode a zeroed cache whose
-    last slot is the one written (the step attends over all of it)."""
+    parameters in ``launch.specs.COMPUTE_DTYPE`` and tokens drawn from
+    ``SEED``, stub context in that dtype; for train a fresh AdamW state
+    and labels, for decode a zeroed cache in that dtype whose last slot is
+    the one written (the step attends over all of it)."""
+    dtype = specs.COMPUTE_DTYPE
     if params is None:
-        params = tfm.init_params(cfg, SEED, device)
+        params = tfm.init_params(cfg, SEED, device, dtype)
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     b, s = shape.global_batch, shape.seq_len
 
     def tokens(n):
         return torch.randint(0, cfg.vocab_size, (b, n), generator=gen,
                              device=device, dtype=INDEX_DTYPE)
-    ctx = (stubs.frontend_embeddings(cfg, b, generator=gen, device=device)
+    ctx = (stubs.frontend_embeddings(cfg, b, generator=gen, device=device,
+                                     dtype=dtype)
            if cfg.num_ctx_tokens else None)
     if shape.mode == "train":
         batch = {"tokens": tokens(s), "labels": tokens(s)}
@@ -121,7 +130,7 @@ def step_inputs(cfg, shape, device, params=None) -> list:
         return [params, AdamW().init(params), batch]
     real = [params, tokens(s if shape.mode == "prefill" else 1)]
     if shape.mode == "decode":
-        real += [tfm.init_cache(cfg, b, s, device),
+        real += [tfm.init_cache(cfg, b, s, device, dtype),
                  torch.tensor(s - 1, dtype=INDEX_DTYPE, device=device)]
     return real + ([ctx] if ctx is not None else [])
 
@@ -161,7 +170,7 @@ def card_pass(cfg, shape, dry: dict) -> dict:
         end.synchronize()
         times.append(start.elapsed_time(end))
         if counts is None:
-            counts = ops.launch_counts()
+            counts = {**ops.launch_counts(), **ops.bf16_launch_counts()}
         head = out[2]["loss"] if shape.mode == "train" else out[0]
         finite = finite and bool(torch.isfinite(head).all())
     floor_ms = dry["cut_t_floor"] * 1e3
@@ -243,6 +252,12 @@ def run_one(arch: str, shape_name: str, *, device: str = "cuda",
 
 
 def main(argv=None) -> None:
+    # the card pass fills the card to within a few GB of the abstract
+    # pass's peak: expandable segments keep the caching allocator's
+    # fragmentation from running it out of memory (set before the first
+    # CUDA allocation, which reads it)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None, choices=list_archs() + [None])
     ap.add_argument("--shape", default=None,

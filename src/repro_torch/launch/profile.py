@@ -6,22 +6,22 @@ step times on one H100.
   PYTHONPATH=src python -m repro_torch.launch.profile
   PYTHONPATH=src python -m repro_torch.launch.profile --arch zamba2-7b
 
-The floors divide by the peak of the port's compute dtype (float32, with
-TF32 off: ``H100.peak_flops_fp32``) and by HBM bandwidth; the weights and
-the caches are float32 (4 bytes), as the port runs them.  ``--chips``
-(default 1) spreads the totals over that many cards, as the reference
-spreads them over its pod.
+The floors divide by the peak of the steps' compute dtype
+(``launch.specs.COMPUTE_DTYPE``: bfloat16, ``H100.peak_flops_bf16``) and
+by HBM bandwidth; the weights and the caches are of that dtype (2 bytes;
+the SSM state 4), as the steps run them, and AdamW's moments float32.
+``--chips`` (default 1) spreads the totals over that many cards, as the
+reference spreads them over its pod.
 """
 from __future__ import annotations
 
 import argparse
 
 from repro_torch.configs import INPUT_SHAPES, get_config, list_archs
+from repro_torch.launch import specs
 from repro_torch.launch.specs import arch_for_shape
-from repro_torch.roofline.analysis import model_flops
+from repro_torch.roofline.analysis import DTYPE_NAME, model_flops
 from repro_torch.roofline.hw import H100
-
-BYTES = 4          # the port's float32 weights and caches
 
 
 def kv_cache_bytes(cfg, batch: int, seq: int, bytes_per: int = 2) -> int:
@@ -53,20 +53,23 @@ def profile_arch(name: str, chips: int = 1) -> None:
     n = cfg.param_count()
     na = cfg.active_param_count()
     chip = H100
+    dtype = specs.COMPUTE_DTYPE
+    nbytes = dtype.itemsize
+    label = DTYPE_NAME[dtype]
     print(f"\n== {name} [{cfg.family}] ==")
     print(f"  params {n / 1e9:.1f}B (active {na / 1e9:.1f}B), "
           f"{cfg.num_layers}L d{cfg.d_model} "
           f"{'MLA ' if cfg.mla else ''}"
           f"{'MoE ' + str(cfg.num_experts) + 'e ' if cfg.num_experts else ''}")
-    print(f"  weights fp32 {n * BYTES / 1e9:.1f} GB "
-          f"({n * BYTES / chips / 1e9:.2f} GB/card @{chips}); "
+    print(f"  weights {label} {n * nbytes / 1e9:.1f} GB "
+          f"({n * nbytes / chips / 1e9:.2f} GB/card @{chips}); "
           f"AdamW fp32 state {n * 8 / 1e9:.0f} GB "
           f"({n * 8 / chips / 1e9:.2f} GB/card)")
     for sname, shape in sorted(INPUT_SHAPES.items()):
         acfg = arch_for_shape(cfg, shape)
         mf = model_flops(acfg, shape)
-        floor = mf / (chips * chip.peak_flops_fp32)
-        kv = kv_cache_bytes(acfg, shape.global_batch, shape.seq_len, BYTES)
+        floor = mf / (chips * chip.peak_flops(label))
+        kv = kv_cache_bytes(acfg, shape.global_batch, shape.seq_len, nbytes)
         line = (f"  {sname:12s} model_flops {mf:.2e}  "
                 f"compute-floor {floor * 1e3:10.2f} ms/step")
         if shape.mode == "decode":

@@ -7,10 +7,13 @@ allocation-free: meta tensors of the real shapes.  The dry run
 (``launch.dryrun``) counts a step on them; the launchers and the dry run's
 card pass call the same step functions with real tensors.
 
-The reference computes in bfloat16 (``COMPUTE_DTYPE = jnp.bfloat16``) on a
-TPU mesh.  The port computes in float32, because its kernels take float32
-(bf16 parameters are ``ROADMAP.md`` queue 1 item 2), on one card: the
-specs describe the reference's layouts and place nothing.
+The steps compute in ``COMPUTE_DTYPE``, bfloat16 as the reference's
+(``COMPUTE_DTYPE = jnp.bfloat16``): bf16 parameters and caches (the SSM
+state float32), the kernels K6, K7 and K8 on bf16 operands, float32 sums
+and logits.  The reference runs on a TPU mesh, the port on one card: the
+specs describe the reference's layouts and place nothing.  Everything
+here reads ``COMPUTE_DTYPE`` when it is called, so a caller (a test) that
+sets it to float32 gets float32 steps.
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ from repro_torch.models.sharding import PartitionSpec
 from repro_torch.training import train_loop
 from repro_torch.training.optimizer import AdamW, AdamWState, tree_map
 
-COMPUTE_DTYPE = torch.float32
+COMPUTE_DTYPE = torch.bfloat16
 # the port's index dtype for tokens and cache positions (the reference's
 # are int32)
 INDEX_DTYPE = torch.long
@@ -58,8 +61,11 @@ def _meta(shape, dtype) -> torch.Tensor:
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig,
-                *, dtype=COMPUTE_DTYPE) -> Dict[str, Any]:
-    """Abstract model inputs for one (arch, shape), as meta tensors."""
+                *, dtype=None) -> Dict[str, Any]:
+    """Abstract model inputs for one (arch, shape), as meta tensors, the
+    cache and the frontend context in ``dtype`` (default
+    ``COMPUTE_DTYPE``)."""
+    dtype = COMPUTE_DTYPE if dtype is None else dtype
     b, s = shape.global_batch, shape.seq_len
     if shape.mode == "train":
         specs = {"tokens": _meta((b, s), INDEX_DTYPE),
@@ -99,6 +105,10 @@ def make_step(cfg: ModelConfig, shape: ShapeConfig,
       device.
     * decode: ``(params, tokens (b, 1), cache, cache_index[, ctx_embed])
       -> (logits (b, 1, V), cache)``, the cache updated in place.
+
+    Every step computes in ``COMPUTE_DTYPE`` (as read at this call), with
+    parameters, caches and context in it: the reference's ``loss_fn`` /
+    ``prefill`` / ``decode_step`` with ``dtype=COMPUTE_DTYPE``.
     """
     rules = shd.default_rules(shape) if rules is None else rules
     mesh = make_host_mesh() if mesh is None else mesh
@@ -107,17 +117,19 @@ def make_step(cfg: ModelConfig, shape: ShapeConfig,
                                   "devices; the port runs on one card")
     b, s = shape.global_batch, shape.seq_len
 
+    dtype = COMPUTE_DTYPE
     p_specs = tfm.param_partition_specs(cfg, rules)
-    params_abs = tfm.abstract_params(cfg, COMPUTE_DTYPE)
+    params_abs = tfm.abstract_params(cfg, dtype)
     tok_spec, ctx_spec = shd.token_spec(rules), shd.ctx_spec(rules)
     repl = PartitionSpec()
-    specs = input_specs(cfg, shape)
+    specs = input_specs(cfg, shape, dtype=dtype)
 
     if shape.mode == "train":
         opt = AdamW(lr=lr)
 
         def grads_of(params, batch):
-            return train_loop.llm_grads(cfg, params, batch, remat=remat)
+            return train_loop.llm_grads(cfg, params, batch, remat=remat,
+                                        dtype=dtype)
 
         if microbatch > 1 and b % microbatch == 0:
             mb = b // microbatch
@@ -161,9 +173,9 @@ def make_step(cfg: ModelConfig, shape: ShapeConfig,
         def prefill_step(params, tokens, ctx_embed=None):
             with torch.no_grad():
                 cache = tfm.init_cache(cfg, tokens.shape[0], s,
-                                       tokens.device)
+                                       tokens.device, dtype)
                 return tfm.prefill(cfg, params, tokens, cache,
-                                   ctx_embed=ctx_embed)
+                                   ctx_embed=ctx_embed, dtype=dtype)
 
         args = (params_abs, specs["tokens"]) + (
             (specs["ctx_embed"],) if has_ctx else ())
@@ -175,7 +187,7 @@ def make_step(cfg: ModelConfig, shape: ShapeConfig,
     def decode_step(params, tokens, cache, cache_index, ctx_embed=None):
         with torch.no_grad():
             return tfm.decode_step(cfg, params, tokens, cache, cache_index,
-                                   ctx_embed=ctx_embed)
+                                   ctx_embed=ctx_embed, dtype=dtype)
 
     args = (params_abs, specs["tokens"], specs["cache"],
             specs["cache_index"]) + ((specs["ctx_embed"],) if has_ctx else ())

@@ -12,8 +12,11 @@ config with frontend context, stub embeddings seeded with the step.
 ``--device`` defaults to ``cuda``.  Gaps against the reference: only
 ``--mesh host`` (one card) runs -- ``pod`` and ``multipod`` raise through
 ``launch.mesh.make_production_mesh``, as they need a TPU pod of 256 or 512
-chips -- and the parameters are float32, where the reference trains
-bfloat16 parameters (the port's kernels take float32).
+chips.  As in the reference, the parameters are bfloat16 (the AdamW
+moments float32) and the step computes in ``launch.specs.COMPUTE_DTYPE``
+(bfloat16): K6 and K8 run on bf16 operands.  ``--save`` writes the bf16
+parameters as float32 (exactly), which both packages' ``restore`` read
+back into a bf16 tree.
 """
 from __future__ import annotations
 
@@ -61,7 +64,7 @@ def main(argv=None) -> None:
     step_fn = make_step(cfg, shape, mesh=mesh, lr=args.lr,
                         microbatch=args.microbatch)[0]
 
-    params = tfm.init_params(cfg, 0, device)
+    params = tfm.init_params(cfg, 0, device, torch.bfloat16)
     opt_state = AdamW(lr=args.lr).init(params)
     stream = iter(TokenStream(cfg.vocab_size, args.seq, args.batch))
 

@@ -6,7 +6,6 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.schema import Leaf
@@ -63,8 +62,15 @@ def mlp_schema(cfg: ModelConfig, d_ff: Optional[int] = None):
     }
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)``, as ``jax.nn.silu`` computes it: in bf16 the
+    sigmoid is rounded before the product, which ``F.silu``'s one fused
+    rounding is not (about a third of a bf16 conv's outputs differ)."""
+    return x * torch.sigmoid(x)
+
+
 def mlp(params, x: torch.Tensor) -> torch.Tensor:
-    gate = F.silu(x @ params["wi_gate"])
+    gate = silu(x @ params["wi_gate"])
     return (gate * (x @ params["wi_up"])) @ params["wo"]
 
 

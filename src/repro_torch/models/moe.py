@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import mlp, mlp_schema
+from repro_torch.models.layers import mlp, mlp_schema, silu
 from repro_torch.models.schema import Leaf
 
 
@@ -109,7 +109,7 @@ def moe_apply(cfg: ModelConfig, params, x: torch.Tensor, *,
     xe = buf.reshape(g, e, cap, d).transpose(0, 1)
     xe = cn(xe.reshape(e, g * cap, d), "expert")
 
-    h = (F.silu(torch.bmm(xe, params["wi_gate"]))
+    h = (silu(torch.bmm(xe, params["wi_gate"]))
          * torch.bmm(xe, params["wi_up"]))
     h = cn(h, "expert_ff")
     ye = cn(torch.bmm(h, params["wo"]), "expert")

@@ -16,7 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import rmsnorm, rmsnorm_schema
+from repro_torch.models.layers import rmsnorm, rmsnorm_schema, silu
 from repro_torch.models.schema import Leaf
 
 
@@ -61,7 +61,7 @@ def _causal_conv(cfg: ModelConfig, params, xbc: torch.Tensor) -> torch.Tensor:
     out = pad[:, 0:s] * params["conv_w"][0]
     for i in range(1, k):
         out = out + pad[:, i:i + s] * params["conv_w"][i]
-    return F.silu(out + params["conv_b"])
+    return silu(out + params["conv_b"])
 
 
 def ssm_apply(
@@ -86,8 +86,8 @@ def ssm_apply(
     if decode:
         # roll the conv window, then one recurrent step
         window = torch.cat([cache["conv"], xbc_raw], dim=1)   # (b, K, cd)
-        conv_out = F.silu(torch.einsum("bkc,kc->bc", window, params["conv_w"])
-                          + params["conv_b"])[:, None]
+        conv_out = silu(torch.einsum("bkc,kc->bc", window, params["conv_w"])
+                        + params["conv_b"])[:, None]
         new_conv = window[:, 1:]
         xbc = conv_out
     else:
@@ -117,5 +117,5 @@ def ssm_apply(
 
     y = y + x_part * params["D"].to(y.dtype)[None, None, :, None]
     y = y.reshape(b, s, di)
-    y = rmsnorm(params["norm"], y * F.silu(z), eps=cfg.norm_eps)
+    y = rmsnorm(params["norm"], y * silu(z), eps=cfg.norm_eps)
     return y @ params["w_out"], new_cache

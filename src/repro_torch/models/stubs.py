@@ -23,9 +23,10 @@ from repro_torch.configs.base import ModelConfig
 
 def frontend_embeddings(cfg: ModelConfig, batch: int, *,
                         generator: Optional[torch.Generator] = None,
-                        device="cuda") -> torch.Tensor:
+                        device="cuda", dtype=torch.float32) -> torch.Tensor:
     """Pseudo patch / frame embeddings (batch, num_ctx_tokens, ctx_dim or
-    d_model), unit normals times 0.02 from ``generator`` (on ``device``)."""
+    d_model), unit normals from ``generator`` (on ``device``) cast to
+    ``dtype`` and times 0.02, as the reference's."""
     if not cfg.num_ctx_tokens:
         raise ValueError(f"{cfg.name} has no modality frontend")
     d = cfg.ctx_dim or cfg.d_model
@@ -33,12 +34,13 @@ def frontend_embeddings(cfg: ModelConfig, batch: int, *,
         generator = torch.Generator(device=device).manual_seed(
             zlib.crc32(cfg.name.encode()))
     return torch.randn((batch, cfg.num_ctx_tokens, d), generator=generator,
-                       device=device) * 0.02
+                       device=device).to(dtype) * 0.02
 
 
 def frontend_spec(cfg: ModelConfig, batch: int,
-                  dtype=torch.float32) -> torch.Tensor:
-    """The stub embeddings' shape as a meta tensor (the dry run's input)."""
+                  dtype=torch.bfloat16) -> torch.Tensor:
+    """The stub embeddings' shape as a meta tensor (the dry run's input),
+    bf16 by default as the reference's."""
     d = cfg.ctx_dim or cfg.d_model
     return torch.empty((batch, cfg.num_ctx_tokens, d), dtype=dtype,
                        device="meta")

@@ -17,8 +17,9 @@ call, as in the reference; ``LLMServer`` takes none, so such a config runs
 through ``prefill`` / ``decode_step`` directly.
 
 Public API:
-  init_params(cfg, seed, device) / abstract_params / param_partition_specs
-  init_cache(cfg, batch, max_seq, device) / abstract_cache /
+  init_params(cfg, seed, device, dtype) / abstract_params /
+      param_partition_specs
+  init_cache(cfg, batch, max_seq, device, dtype) / abstract_cache /
       cache_partition_specs
   forward(cfg, params, tokens, ...)   -> (logits, cache, aux)
   loss_fn(cfg, params, batch, ...)    -> (total, {"ce", "aux"})
@@ -33,8 +34,13 @@ scan body; the prefix and suffix layers are not.  The sharding hooks
 block unit) are called where the reference calls them; on one card they
 place nothing, and the dry run passes none.  The reference's
 ``unroll_blocks`` (a Python loop in place of its scan, for XLA's cost
-probes) is what the port always does, and its ``dtype`` has no
-counterpart: the port computes in float32.
+probes) is what the port always does.  ``dtype`` is the reference's: the
+compute dtype of ``forward``, ``loss_fn``, ``prefill`` and ``decode_step``
+(the embedding and the frontend context are cast to it; every other cast
+follows the parameters' and the activations' dtypes, as the reference's
+do), float32 by default as there, bfloat16 on the launch path
+(``launch.specs.COMPUTE_DTYPE``) with bf16 parameters and caches.  The
+SSM ``state`` stays float32 in every cache, as in the reference.
 """
 from __future__ import annotations
 
@@ -121,8 +127,9 @@ def model_schema(cfg: ModelConfig):
     return s
 
 
-def abstract_params(cfg: ModelConfig, dtype=torch.float32):
-    """Meta-tensor parameter tree (shapes only)."""
+def abstract_params(cfg: ModelConfig, dtype=torch.bfloat16):
+    """Meta-tensor parameter tree (shapes only), bf16 by default as the
+    reference's."""
     return sch.abstract(model_schema(cfg), dtype)
 
 
@@ -136,12 +143,13 @@ def block_unit_specs(cfg: ModelConfig, rules: Dict[str, Any]):
     return sch.partition_specs(_unit_schema(cfg), rules)
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"):
-    """Random float32 parameters from a ``torch.Generator`` on ``device``
-    seeded with ``seed`` (the JAX package's initialisers; the numbers differ
-    from ``jax.random``'s)."""
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda",
+                dtype=torch.float32):
+    """Random parameters from a ``torch.Generator`` on ``device`` seeded
+    with ``seed``, drawn in float32 and cast to ``dtype`` (the JAX
+    package's initialisers; the numbers differ from ``jax.random``'s)."""
     gen = torch.Generator(device=device).manual_seed(seed)
-    return sch.init(model_schema(cfg), gen, device)
+    return sch.init(model_schema(cfg), gen, device, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -162,11 +170,12 @@ def _cache_shapes(cfg: ModelConfig, batch: int, max_seq: int):
     return out
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda"):
-    """Zeroed float32 decode cache (the SSM ``state`` is float32 in every
-    configuration, as in the reference)."""
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device="cuda",
+               dtype=torch.float32):
+    """Zeroed decode cache in ``dtype``; the SSM ``state`` is float32
+    whatever ``dtype`` is, as in the reference."""
     return _map_cache(
-        lambda name, shp: torch.zeros(shp, dtype=torch.float32,
+        lambda name, shp: torch.zeros(shp, dtype=_cache_dtype(name, dtype),
                                       device=device),
         _cache_shapes(cfg, batch, max_seq))
 
@@ -184,9 +193,9 @@ def _map_cache(fn, shapes):
 
 
 def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int,
-                   dtype=torch.float32):
-    """Meta-tensor decode cache; the SSM ``state`` is float32 whatever
-    ``dtype`` is."""
+                   dtype=torch.bfloat16):
+    """Meta-tensor decode cache, bf16 by default as the reference's; the
+    SSM ``state`` is float32 whatever ``dtype`` is."""
     return _map_cache(
         lambda name, shp: torch.empty(shp, dtype=_cache_dtype(name, dtype),
                                       device="meta"),
@@ -302,14 +311,16 @@ def forward(
     remat: bool = False,                 # recompute each block unit backward
     act_constraint=None,                 # fn(x, kind) -> x: sharding hook
     block_param_constraint=None,         # fn(block_params) -> block_params
+    dtype=torch.float32,                 # the compute dtype
 ) -> Tuple[torch.Tensor, Optional[dict], torch.Tensor]:
     """Returns (logits (b,s,V) float32, cache updated in place or None,
     the MoE layers' summed aux load-balance loss, float32 0-d)."""
     dev = tokens.device
     b, s = tokens.shape
-    x = embed(params["embed"], tokens, torch.float32)
+    x = embed(params["embed"], tokens, dtype)
     if cfg.scale_embed:
-        x = x * (cfg.d_model ** 0.5)
+        # the reference's scale is a constant of the compute dtype
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dtype, device=dev)
 
     if cache_index is None:
         cache_index = 0
@@ -322,7 +333,7 @@ def forward(
     if cfg.num_ctx_tokens:
         if ctx_embed is None:
             raise ValueError(f"{cfg.name} requires ctx_embed (frontend stub)")
-        ctx = ctx_embed.float() @ params["ctx_proj"]
+        ctx = ctx_embed.to(dtype) @ params["ctx_proj"].to(dtype)
 
     aux = torch.zeros((), device=dev)
     kw = dict(positions=positions, ctx=ctx, cache_index=cache_index,
@@ -366,7 +377,8 @@ def forward(
 
 def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
             remat: bool = True, moe_groups: Tuple[int, int] = (1, 1),
-            act_constraint=None, block_param_constraint=None
+            act_constraint=None, block_param_constraint=None,
+            dtype=torch.float32
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross-entropy of ``batch`` (``tokens``, ``labels`` (b, s),
     optional ``ctx_embed``): the mean NLL over the positions with
@@ -376,7 +388,8 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
                              ctx_embed=batch.get("ctx_embed"), remat=remat,
                              moe_groups=moe_groups,
                              act_constraint=act_constraint,
-                             block_param_constraint=block_param_constraint)
+                             block_param_constraint=block_param_constraint,
+                             dtype=dtype)
     labels = batch["labels"]
     mask = (labels >= 0).float()
     safe = labels.clamp_min(0).long()
@@ -388,21 +401,22 @@ def loss_fn(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor], *,
 
 
 def decode_step(cfg: ModelConfig, params, tokens, cache, cache_index, *,
-                ctx_embed=None, moe_groups=(1, 1), act_constraint=None):
+                ctx_embed=None, moe_groups=(1, 1), act_constraint=None,
+                dtype=torch.float32):
     """One serving decode step: (b,1) token + cache -> logits, cache."""
     logits, cache, _ = forward(cfg, params, tokens, ctx_embed=ctx_embed,
                                cache=cache, cache_index=cache_index,
                                moe_groups=moe_groups,
-                               act_constraint=act_constraint)
+                               act_constraint=act_constraint, dtype=dtype)
     return logits, cache
 
 
 def prefill(cfg: ModelConfig, params, tokens, cache, *, ctx_embed=None,
-            moe_groups=(1, 1), act_constraint=None):
+            moe_groups=(1, 1), act_constraint=None, dtype=torch.float32):
     """Prefill a fresh cache with a full prompt; returns last-token logits
     and the cache."""
     logits, cache, _ = forward(cfg, params, tokens, ctx_embed=ctx_embed,
                                cache=cache, cache_index=0,
                                moe_groups=moe_groups, last_token_only=True,
-                               act_constraint=act_constraint)
+                               act_constraint=act_constraint, dtype=dtype)
     return logits[:, -1], cache

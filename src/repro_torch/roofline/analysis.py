@@ -29,11 +29,13 @@ version's FLOPs, as the reference's probes count ``impl="ref_unchunked"``
 (a causal attention's full s x s).  The floor does not: it takes those
 FLOPs out (``kernel_plain_flops``) and charges K6's, K7's and K8's own
 operations instead (their modules' ``work``: the pairs a causal mask lets
-through, the chunked scan), their products in 3xTF32 at the TF32 rate
-and the rest at the compute dtype's.  Its bytes and memory are the
-kernel's operands, outputs and workspace (written once, read once), so
-the plain version's s x s score matrix, which the kernel never holds, is
-neither moved nor live.
+through, the chunked scan) and the rest at the compute dtype's.  K6's and
+K7's products are charged at the bf16 tensor-core rate where their
+operands are bf16 (one product each), else in 3xTF32 at the TF32 rate;
+K8's always in 3xTF32 (its products' operands are float32
+intermediates).  Its bytes and memory are the kernel's operands, outputs
+and workspace (written once, read once), so the plain version's s x s
+score matrix, which the kernel never holds, is neither moved nor live.
 
 ``collective_bytes`` is the reference's parser of post-SPMD HLO text, kept
 for parity; a one-card step has no collectives.
@@ -51,11 +53,13 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.kernels import ops
-from repro_torch.launch.specs import COMPUTE_DTYPE
+from repro_torch.launch import specs
 from repro_torch.roofline.hw import H100, ChipSpec
 
 # the name of the steps' compute dtype in ``ChipSpec.peak_flops``
-_DTYPE_NAME = {torch.float32: "fp32"}
+DTYPE_NAME = {torch.float32: "fp32", torch.bfloat16: "bf16"}
+# the kernels whose products run as bf16 mma where their operands are bf16
+BF16_PRODUCT_KERNELS = ("flash_attention", "decode_attention")
 
 _DTYPE_BYTES = {
     "pred": 1, "s4": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2, "bf16": 2,
@@ -130,7 +134,8 @@ class RooflineReport:
     meta tensors here, see the module docstring); ``kernel_plain_flops`` is
     the part of ``hlo_flops`` counted inside kernel regions, and
     ``kernel_products`` / ``kernel_other`` the kernels' own operations
-    that the floor charges in its place."""
+    that the floor charges in its place, ``kernel_products_bf16`` the part
+    of ``kernel_products`` charged at the bf16 rate."""
     arch: str
     shape: str
     mesh: str
@@ -149,6 +154,7 @@ class RooflineReport:
     kernel_plain_flops: float = 0.0
     kernel_products: float = 0.0
     kernel_other: float = 0.0
+    kernel_products_bf16: float = 0.0
 
     chip: ChipSpec = H100
 
@@ -156,10 +162,13 @@ class RooflineReport:
     def t_compute(self) -> float:
         """The FLOPs outside the kernels and the kernels' other operations
         at the compute dtype's peak, plus the kernels' products on the
-        tensor cores in 3xTF32 (three TF32 products for each fp32 one)."""
+        tensor cores: bf16 ones at the bf16 rate, the others in 3xTF32
+        (three TF32 products for each fp32 one)."""
         rest = self.hlo_flops - self.kernel_plain_flops + self.kernel_other
+        tf32 = self.kernel_products - self.kernel_products_bf16
         return (rest / self.chip.peak_flops(self.compute_dtype)
-                + 3 * self.kernel_products / self.chip.peak_flops_tf32)
+                + self.kernel_products_bf16 / self.chip.peak_flops_bf16
+                + 3 * tf32 / self.chip.peak_flops_tf32)
 
     @property
     def t_memory(self) -> float:
@@ -265,7 +274,8 @@ class StepCounter(TorchDispatchMode):
     its outputs and workspace are live.  For a kernel that counts its own
     work, the FLOPs ``flops`` counted inside the region go to
     ``kernel_plain_flops`` and the kernel's own operations to
-    ``kernel_products`` / ``kernel_other``."""
+    ``kernel_products`` / ``kernel_other`` (and K6's and K7's products on
+    bf16 operands to ``kernel_products_bf16`` too)."""
 
     def __init__(self, flops: FlopCounterMode):
         super().__init__()
@@ -276,6 +286,7 @@ class StepCounter(TorchDispatchMode):
         self.kernel_plain_flops = 0
         self.kernel_products = 0
         self.kernel_other = 0
+        self.kernel_products_bf16 = 0
         self._flops = flops
         self._flops_at = 0
         self._depth = 0
@@ -320,6 +331,9 @@ class StepCounter(TorchDispatchMode):
                                         - self._flops_at)
             self.kernel_products += work[0]
             self.kernel_other += work[1]
+            if (name in BF16_PRODUCT_KERNELS
+                    and operands[0].dtype == torch.bfloat16):
+                self.kernel_products_bf16 += work[0]
         outs = tensors(outputs)
         out_bytes = sum(nbytes(t) for t in outs)
         self.bytes += (_unique_bytes(operands) + out_bytes
@@ -354,7 +368,8 @@ def analyze_step(fn, abstract_args, *, arch: str, shape,
                  cfg) -> RooflineReport:
     """Run ``fn(*abstract_args)`` on meta tensors and count its FLOPs,
     bytes, argument, output and peak live bytes (module docstring), for
-    one H100 computing in ``launch.specs.COMPUTE_DTYPE``.  The arguments
+    one H100 computing in ``launch.specs.COMPUTE_DTYPE`` (as it stands at
+    this call).  The arguments
     are live from the start; ``output_bytes`` counts the outputs that are
     not an argument updated in place (a decode step's cache)."""
     arg_tensors = tensors(abstract_args)
@@ -379,8 +394,9 @@ def analyze_step(fn, abstract_args, *, arch: str, shape,
         peak_memory_per_device=float(counter.peak),
         arg_bytes=float(_unique_bytes(arg_tensors)),
         output_bytes=float(_unique_bytes(new_outputs)),
-        compute_dtype=_DTYPE_NAME[COMPUTE_DTYPE],
+        compute_dtype=DTYPE_NAME[specs.COMPUTE_DTYPE],
         kernel_calls=dict(counter.kernel_calls),
         kernel_plain_flops=float(counter.kernel_plain_flops),
         kernel_products=float(counter.kernel_products),
-        kernel_other=float(counter.kernel_other))
+        kernel_other=float(counter.kernel_other),
+        kernel_products_bf16=float(counter.kernel_products_bf16))

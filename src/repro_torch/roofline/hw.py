@@ -2,11 +2,13 @@
 ``repro.roofline.hw``, retargeted from the TPU v5e to one NVIDIA H100).
 
 The figures are NVIDIA's data sheet for the H100 SXM (80 GB HBM3, 700 W):
-dense rates without sparsity.  ``peak_flops_bf16`` keeps the reference's
-field name; the port's steps compute float32 with TF32 off
-(``repro_torch.set_reference_precision``), so the roofline divides by
-``peak_flops_fp32``, and the 3xTF32 kernels' products by
-``peak_flops_tf32``.  ``ici_link_bandwidth`` is one NVLink 4 link.
+dense rates without sparsity.  The port's steps compute in bfloat16, as
+the reference's (``launch.specs.COMPUTE_DTYPE``), so the roofline divides
+their FLOPs and K6's and K7's products by ``peak_flops_bf16``, K8's 3xTF32
+products by ``peak_flops_tf32``; a step run in float32 (TF32 off,
+``repro_torch.set_reference_precision``) by ``peak_flops_fp32``, its K6
+and K7 products by the TF32 rate, three times.  ``ici_link_bandwidth`` is
+one NVLink 4 link.
 """
 from __future__ import annotations
 

@@ -64,6 +64,45 @@ ATTN_ATOL = 1e-5
 # of |cum| (cumsums summed in another order: a parallel scan, a serial
 # float sum, or a double sum rounded once)
 SSD_RTOL = 1e-4
+# the LLM kernels on bfloat16 operands against their plain versions on the
+# same bf16 operands (rel_err, as a fraction of max(1, scale)): both sum in
+# float32 and round the output to bf16 once, so a value whose float32 sum
+# lies near a rounding boundary may round one bf16 ulp apart -- 2^-7 of a
+# value in [1, 2), at most 2^-7 of the output's scale.  K6's p.v keeps p to
+# ~2^-16 (two bf16 halves), far inside that; K8 adds its float32
+# tolerance (SSD_RTOL) before the rounding.  Measured on the CPU, the
+# plain versions against the Pallas kernels in interpret mode
+# (tests/test_torch_bf16.py): K6 1.26e-3, K7 0, K8 2.51e-3; on an H100,
+# the kernels against the plain versions at every path and test-case
+# shape (chip_smoke.phase_*_bf16): K6 1.44e-3, K7 4.9e-4, K8 2.51e-3
+BF16_ULP = 2.0 ** -7
+ATTN_BF16_RTOL = BF16_ULP
+SSD_BF16_RTOL = BF16_ULP + SSD_RTOL
+# the JAX package's jnp oracles (repro.kernels.ref) round the softmax's p
+# to the operands' dtype before p.v (probs.astype(q.dtype)), where its
+# Pallas kernels keep p float32, as the port's plain versions and kernels
+# do; in bf16 the two differ by about one bf16 ulp of p in each of the
+# s_kv terms of the sum.  The reference's own bf16 tolerance for its
+# kernels against those oracles (tests/test_kernels.py) is this
+BF16_REF_RTOL = 2e-2
+# LLM forwards on bf16 parameters, the port against the JAX package at
+# dtype=bfloat16, as a fraction of max(1, scale) (rel_err): the reference's
+# own tolerance for two bf16 programs of one model (tests/test_extras.py,
+# microbatched against one batch).  Every bf16 op rounds, and the two
+# packages round at slightly other places (XLA's CPU backend expands the
+# logistic of silu into 1 / (1 + exp(-x)) with a rounding after each op,
+# and the f32 sums of a bf16 matmul run in another order), so a layer's
+# output may differ by an ulp or two of its scale: measured layer by
+# layer on identical inputs (tests/test_torch_bf16.py), at most 1.4e-2.
+# Through a whole model those differences grow as any bf16 noise does: at
+# -smoke width with random weights, one bf16 ulp added to one embedding
+# entry moves the JAX package's own logits by 1.6e-1 of their scale on
+# zamba2, 2.2e-2 on deepseek-v2-lite, 1.4e-2 on qwen2, 1.2e-2 on mamba2
+# and musicgen.  So each layer (and its cache) is held to this on the JAX
+# layer's own inputs, the loss end to end (measured 2.7e-3 at most), and
+# the logits end to end where a model is not that sensitive (qwen2
+# 1.5e-2, musicgen 1.6e-2 against the Pallas kernels in interpret mode)
+BF16_LLM_RTOL = 3e-2
 # MoE layer output, as a fraction of its scale (rel_err): the router's
 # and the experts' products sum d_model and moe_d_ff terms in another order
 # than XLA's, and a token's k expert rows are summed in the routed order;
@@ -881,6 +920,72 @@ def router_margin(calls) -> float:
                   .abs().min())
             for cfg, router, x in calls]
     return min(gaps, default=float("inf"))
+
+
+class LayerTap:
+    """Records every layer the transformer applies while active (wraps
+    ``transformer._apply_layer``, which its forward looks up at call
+    time): the layer's kind, its parameters, its inputs (the residual
+    stream, positions, context, index, and a copy of its cache as it was)
+    and its outputs, so that :func:`replay_layers` can apply each layer
+    again on another device to the very same inputs.  In bf16 a whole
+    model's rounding noise can grow past any fixed bound (BF16_LLM_RTOL);
+    one layer's does not.  Tap a forward without grad: a rematerialised
+    block would be recorded twice."""
+
+    def __init__(self):
+        self.calls: List[Dict[str, Any]] = []
+
+    def __enter__(self):
+        from repro_torch.models import transformer as tfm
+        self._tfm, self._orig = tfm, tfm._apply_layer
+
+        def copy(tree):
+            return None if not tree else {k: v.detach().clone()
+                                          for k, v in tree.items()}
+
+        def tapped(cfg, kind, params, x, *, cache, **kw):
+            before = copy(cache)
+            out = self._orig(cfg, kind, params, x, cache=cache, **kw)
+            self.calls.append(dict(kind=kind, params=params, x=x.detach(),
+                                   kw=kw, cache=before,
+                                   out=out[0].detach(),
+                                   new_cache=copy(out[1])))
+            return out
+        tfm._apply_layer = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self._tfm._apply_layer = self._orig
+        return False
+
+
+def replay_layers(cfg, calls, device) -> List[Tuple[str, float, float]]:
+    """Each layer of a :class:`LayerTap`'s ``calls`` applied again on
+    ``device`` to its recorded inputs and parameters, moved there: (kind,
+    the output's rel_err against the recorded one, the worst rel_err of
+    its new cache's tensors), each as a fraction of max(1, scale)."""
+    from repro_torch.models import transformer as tfm
+
+    def to(t):
+        if isinstance(t, dict):
+            return {k: to(v) for k, v in t.items()}
+        return t.to(device) if isinstance(t, torch.Tensor) else t
+
+    def f(t) -> np.ndarray:
+        return t.detach().float().cpu().numpy()
+
+    out = []
+    for c in calls:
+        with torch.no_grad():
+            got, got_cache, _ = tfm._apply_layer(
+                cfg, c["kind"], to(c["params"]), to(c["x"]),
+                cache=to(c["cache"]), **to(c["kw"]))
+        cache_err = max((rel_err(f(got_cache[k]), f(v))
+                         for k, v in (c["new_cache"] or {}).items()),
+                        default=0.0)
+        out.append((c["kind"], rel_err(f(got), f(c["out"])), cache_err))
+    return out
 
 
 # ---------------------------------------------------------------------------

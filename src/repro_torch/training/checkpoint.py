@@ -27,12 +27,22 @@ __all__ = ["save", "restore", "load_metadata"]
 def restore(path: str, like, hwio: bool = True) -> Any:
     """Restore into the structure of ``like`` (a tree of tensors, whose
     shapes, dtypes and devices the restored leaves take); ``hwio=False``
-    for an LLM tree.  Raises ``ValueError`` when a leaf's shape differs."""
+    for an LLM tree.  A bf16 leaf saved as float32 (``save`` of a bf16
+    tree) goes back into a bf16 ``like`` exactly, as does a bf16 leaf the
+    JAX package saved.  Raises ``ValueError`` when a leaf's shape
+    differs."""
     if not path.endswith(".npz"):
         path = path + ".npz"
     with np.load(path) as data:
         def leaf(key, ref):
-            arr = torch.from_numpy(np.array(data[key]))
+            arr = np.array(data[key])
+            if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+                # a bf16 leaf as the JAX package writes it (ml_dtypes'
+                # bfloat16 comes back from .npz as 2-byte voids)
+                arr = torch.from_numpy(arr.view(np.int16)).view(
+                    torch.bfloat16)
+            else:
+                arr = torch.from_numpy(arr)
             if hwio:
                 arr = _hwio_to_oihw(arr)
             if tuple(arr.shape) != tuple(ref.shape):

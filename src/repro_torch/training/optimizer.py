@@ -77,15 +77,24 @@ class AdamW:
     def update(self, grads, state: AdamWState, params
                ) -> Tuple[Any, AdamWState]:
         step = state.step + 1
+        scale = None
         if self.grad_clip is not None:
             scale = torch.clamp(self.grad_clip / (global_norm(grads) + 1e-9),
                                 max=1.0)
-            grads = tree_map(lambda g: g * scale, grads)
+
+        def clipped(g):
+            # float32, as the reference's bf16 gradient times its float32
+            # scale is; taken leaf by leaf, so no clipped copy of the whole
+            # tree is live at once
+            g = g.float()
+            return g if scale is None else g * scale
+
         b1, b2 = self.b1, self.b2
-        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.float(),
+        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * clipped(g),
                       state.mu, grads)
-        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * torch.square(g.float()),
-                      state.nu, grads)
+        nu = tree_map(
+            lambda v, g: b2 * v + (1 - b2) * torch.square(clipped(g)),
+            state.nu, grads)
         t = step.float()
         mu_hat_scale = 1.0 / (1 - torch.pow(b1, t))
         nu_hat_scale = 1.0 / (1 - torch.pow(b2, t))

@@ -64,13 +64,15 @@ def _rebuild(tree, leaves):
     return walk(tree)
 
 
-def llm_grads(cfg: ModelConfig, params, batch, *, remat: bool = True):
-    """``((total, {"ce", "aux"}), grads)`` of ``transformer.loss_fn`` by
-    ``torch.autograd.grad`` over the leaves of the dict ``params`` (a leaf
-    the loss does not reach gets a zero gradient)."""
+def llm_grads(cfg: ModelConfig, params, batch, *, remat: bool = True,
+              dtype=torch.float32):
+    """``((total, {"ce", "aux"}), grads)`` of ``transformer.loss_fn`` at
+    compute dtype ``dtype`` by ``torch.autograd.grad`` over the leaves of
+    the dict ``params`` (a leaf the loss does not reach gets a zero
+    gradient; each gradient in its leaf's dtype)."""
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
     total, parts = tfm.loss_fn(cfg, _rebuild(params, leaves), batch,
-                               remat=remat)
+                               remat=remat, dtype=dtype)
     grads = torch.autograd.grad(total, leaves, allow_unused=True)
     grads = [torch.zeros_like(t) if g is None else g
              for t, g in zip(leaves, grads)]

@@ -82,14 +82,20 @@ def from_numpy_tree(tree, device="cuda") -> Dict[str, Any]:
     return _hwio_to_oihw(t).to(device)
 
 
-def llm_from_numpy_tree(tree, device="cuda") -> Dict[str, Any]:
+def llm_from_numpy_tree(tree, device="cuda",
+                        dtype=torch.float32) -> Dict[str, Any]:
     """JAX-package LLM parameter (or cache) pytree -> the port's tree, every
-    leaf as a float32 tensor of the same shape; empty sub-trees stay empty
-    dicts."""
+    leaf a ``dtype`` tensor of the same shape; empty sub-trees stay empty
+    dicts.  A leaf goes through float32 (numpy has no bfloat16 of its
+    own): an ``ml_dtypes`` bf16 array widens exactly and ``dtype=
+    torch.bfloat16`` narrows it back exactly, so the reference's bf16
+    parameters arrive bit for bit."""
     if isinstance(tree, dict):
-        return {k: llm_from_numpy_tree(v, device) for k, v in tree.items()}
+        return {k: llm_from_numpy_tree(v, device, dtype)
+                for k, v in tree.items()}
     return torch.from_numpy(np.array(tree, dtype=np.float32,
-                                     copy=True)).to(device)
+                                     copy=True)).to(device=device,
+                                                    dtype=dtype)
 
 
 def map_with_path(fn, tree, path: Tuple[str, ...] = ()):
@@ -111,13 +117,21 @@ def map_with_path(fn, tree, path: Tuple[str, ...] = ()):
     return fn("/".join(path), tree)
 
 
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array; bfloat16 (which numpy lacks) as float32,
+    exactly: ``checkpoint.restore`` in either package narrows it back into
+    a bf16 tree bit for bit."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def _flatten(tree, hwio: bool = True) -> Dict[str, np.ndarray]:
     """Flat ``{key: array}`` of a tree, convs back to HWIO (``hwio``; an LLM
     tree's 4-d leaves are not convs: pass False)."""
     flat = {}
 
     def put(key, leaf):
-        arr = (leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor)
+        arr = (_numpy(leaf) if isinstance(leaf, torch.Tensor)
                else np.asarray(leaf))
         flat[key] = _oihw_to_hwio(arr) if hwio else arr
 

@@ -51,6 +51,28 @@ def test_operand_check_rejects_each_fault(monkeypatch, bad, match):
                                      (2, 3)))
 
 
+@pytest.mark.parametrize("q,k,match", [
+    (torch.bfloat16, torch.bfloat16, None),
+    (torch.float32, torch.float32, None),
+    (torch.float32, torch.bfloat16, "share one dtype"),
+    (torch.float16, torch.float16, "one of torch.float32, torch.bfloat16"),
+])
+def test_operand_check_takes_dtype_sets_and_shared_dtypes(monkeypatch, q, k,
+                                                          match):
+    # the LLM kernels take float32 or bf16 operands, the same for the
+    # operands of one group; float16 and a mix raise, nothing converts
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    both = (torch.float32, torch.bfloat16)
+    operands = (("q", _fake(dtype=q), both, None),
+                ("k", _fake(dtype=k), both, (2, 3)),
+                ("dt", _fake(), torch.float32, None))
+    if match is None:
+        _build.check_operands(*operands, same=[("q", "k")])
+    else:
+        with pytest.raises(ValueError, match=match):
+            _build.check_operands(*operands, same=[("q", "k")])
+
+
 def test_operand_check_rejects_cpu_tensors():
     # what the on-card rejection tests see for a tensor left on the host
     x = torch.zeros(4, 3)

@@ -144,6 +144,25 @@ def test_ptxas_summary_names_bool_template_instances():
         == ["onevsall_kernel<0>", "onevsall_kernel<1>"]
 
 
+@pytest.mark.parametrize("mangled,want", [
+    ("_ZN51_GLOBAL__N__04cf38d3_18_flash_attention_cu_0ee807be4tc1627flash_"
+     "attention_bf16_kernelILi8EEEvPK13__nv_bfloat16S4_S4_PKiPS2_iiiiiiiff",
+     "flash_attention_bf16_kernel<8>"),
+    ("_ZN44_GLOBAL__N__184f87bf_11_ssd_scan_cu_d85401322tc17ssd_output_kernel"
+     "I13__nv_bfloat16Li8ELi8EEEvPKT_PKfS7_S5_S5_S7_PS3_iiiiiii",
+     "ssd_output_kernel<bf16, 8, 8>"),
+    ("_ZN44_GLOBAL__N__184f87bf_11_ssd_scan_cu_d85401322tc16ssd_state_kernel"
+     "IfLi0ELi0EEEvPKT_PKfS6_S4_PfS7_iiiiiii", "ssd_state_kernel<float, 0, 0>"),
+    ("_ZN12_GLOBAL__N_121decode_combine_kernelIfEEvPKfPKT_PS3_iiiiii",
+     "decode_combine_kernel<float>"),
+    ("_ZN12_GLOBAL__N_121ssd_state_pass_kernelEPKfPfS1_S2_iiiiii",
+     "ssd_state_pass_kernel")])
+def test_kernel_instance_names_type_and_value_arguments(mangled, want):
+    # the bf16 instances: a type argument (float or __nv_bfloat16) before
+    # the integers, and a digit inside the kernel's own name
+    assert chip_smoke.kernel_instance(mangled) == want
+
+
 def test_decode_bytes_count_each_valid_k_and_v_row_once():
     # zamba2's decode: 4 slots x 32 heads x d = 112; K and V of all 512
     # slots are 58.7 MB, the path's lengths read 45.1 MB: 13.5 us

@@ -33,7 +33,8 @@ from repro_torch.models import schema as sch
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.server import LLMServer, Request
 from repro_torch.learning import ContinualLearningPlane, LearningConfig
-from repro_torch.testing import (ATTN_ATOL, ATTN_VJP_RTOL, DECODE_CASES,
+from repro_torch.testing import (ATTN_ATOL, ATTN_BF16_RTOL, ATTN_VJP_RTOL,
+                                 DECODE_CASES, SSD_BF16_RTOL,
                                  FILTER_CASES, SSD_VJP_RTOL,
                                  FILTER_KW, FLASH_CASES, FLASH_DV_CASES,
                                  FLASH_RAGGED_CASES,
@@ -639,6 +640,204 @@ def test_decode_and_ssd_kernels_replay_in_a_cuda_graph(cuda):
     assert rel_err(fin.cpu(), fin_ref.cpu()) <= SSD_RTOL
 
 
+# ---------------------------------------------------------------------------
+# K6, K7 and K8 on bf16 operands (the launch path's compute dtype)
+# ---------------------------------------------------------------------------
+BF = torch.bfloat16
+
+
+def _bf(arrays, device):
+    return [None if a is None else torch.as_tensor(a, device=device).to(BF)
+            for a in arrays]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES + FLASH_RAGGED_CASES + [
+    (1, 384, 512, 32, 32, 112, True, None, None, 0),      # zamba2 prefill
+    (1, 128, 192, 8, 4, 256, True, 64, 50.0, 0),          # CUDA cores
+    (3, 24, 64, 4, 2, 64, True, 20, 30.0, [0, 17, 40]),   # per-row offset
+    (1, 384, 512, 32, 16, 128, True, 64, 50.0, 0),        # d = 128
+    (2, 130, 300, 8, 2, 96, True, None, None, [170, 0])])
+def test_flash_attention_bf16_kernels_match_plain(cuda, case):
+    # d <= 128 on the bf16 mma.sync kernel, d = 256 on the CUDA cores
+    b, s_q, s_kv, n_q, n_kv, d, causal, window, cap, off = case
+    q, k, v = _bf(attention_case(b, s_q, s_kv, n_q, n_kv, d), cuda)
+    kw = dict(causal=causal, window=window, softcap=cap,
+              q_offset=torch.as_tensor(off, device=cuda))
+    assert fa.on_tensor_cores(d, d) == (d <= 128)
+    fa.launches = 0
+    got = fa.flash_attention(q, k, v, **kw)
+    assert got.dtype == BF and fa.launches == 1
+    want = fa.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert rel_err(got.float().cpu(), want.float().cpu()) <= ATTN_BF16_RTOL
+
+
+@pytest.mark.parametrize("case", FLASH_DV_CASES + [
+    (1, 384, 512, 16, 16, 192, 128, True, None, None, 0)])  # deepseek MLA
+def test_flash_attention_bf16_kernel_takes_a_value_head_dim(cuda, case):
+    b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off = case
+    q, k, v = _bf(attention_case(b, s_q, s_kv, n_q, n_kv, d, d_v=d_v), cuda)
+    kw = dict(causal=causal, window=window, softcap=cap,
+              q_offset=torch.as_tensor(off, device=cuda))
+    got = fa.flash_attention(q, k, v, **kw)
+    assert got.dtype == BF and got.shape == (b, s_q, n_q, d_v)
+    want = fa.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert rel_err(got.float().cpu(), want.float().cpu()) <= ATTN_BF16_RTOL
+
+
+@pytest.mark.parametrize("case", DECODE_CASES + [
+    (4, 512, 32, 32, 112, [384, 390, 1, 500], None, None),  # zamba2 decode
+    (4, 512, 16, 8, 256, [384, 1, 64, 512], 64, 50.0),
+    (2, 96, 16, 1, 36, [96, 40], None, None)])              # d % 8 != 0
+def test_decode_attention_bf16_kernel_matches_plain(cuda, case):
+    b, S, n_q, n_kv, d, clen, window, cap = case
+    q, kc, vc = _bf(decode_case(b, S, n_q, n_kv, d), cuda)
+    cl = torch.as_tensor(clen, dtype=torch.int32, device=cuda)
+    kw = dict(window=window, softcap=cap)
+    got = da.decode_attention(q, kc, vc, cl, **kw)
+    assert got.dtype == BF
+    want = da.decode_attention_ref(q, kc, vc, cl, **kw)
+    torch.cuda.synchronize()
+    assert rel_err(got.float().cpu(), want.float().cpu()) <= ATTN_BF16_RTOL
+    assert torch.equal(da.decode_attention(q, kc, vc, cl, **kw), got)
+
+
+@pytest.mark.parametrize("case", SSD_CASES + [
+    (1, 384, 112, 64, 64, 256, False, False),     # zamba2 prefill
+    (2, 300, 8, 64, 128, 256, True, False)])      # mamba2's state width
+def test_ssd_scan_bf16_kernel_matches_plain(cuda, case):
+    # x, B and C bf16; dt, A and the states float32
+    b, s, h, p, n, chunk, init, weak = case
+    x, dt, A, B, C, st = ssd_case(b, s, h, p, n, init, weak=weak)
+    x, B, C = _bf((x, B, C), cuda)
+    dt, A = _t((dt, A), cuda)
+    st = None if st is None else torch.as_tensor(st, device=cuda)
+    y, fin = sk.ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=st)
+    assert y.dtype == BF and fin.dtype == torch.float32
+    y_ref, fin_ref = sk.ssd_scan_ref(x, dt, A, B, C, chunk=chunk,
+                                     initial_state=st)
+    torch.cuda.synchronize()
+    assert rel_err(y.float().cpu(), y_ref.float().cpu()) <= SSD_BF16_RTOL
+    assert rel_err(fin.cpu(), fin_ref.cpu()) <= SSD_RTOL
+    y2, fin2 = sk.ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=st)
+    assert torch.equal(y2, y) and torch.equal(fin2, fin)
+
+
+def test_llm_kernels_refuse_float16_and_mixed_operands(cuda):
+    # nothing converts: float16, or bf16 beside float32 where the kernel
+    # wants one dtype, raises before a launch
+    q, k, v = _t(attention_case(1, 16, 16, 2, 1, 32), cuda)
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="bfloat16"):
+        ops.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="share one dtype"):
+        ops.flash_attention(q.to(BF), k, v)
+    qd, kc, vc = _t(decode_case(1, 32, 2, 1, 32), cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ops.decode_attention(qd.half(), kc.half(), vc.half(), 8)
+    x, dt, A, B, C = _t(ssd_case(1, 32, 2, 8, 8, False)[:5], cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        ops.ssd_scan(x.half(), dt, A, B.half(), C.half(), chunk=16)
+    with pytest.raises(ValueError, match="float32"):
+        ops.ssd_scan(x.to(BF), dt.to(BF), A, B.to(BF), C.to(BF), chunk=16)
+    assert all(n == 0 for n in ops.launch_counts().values())
+
+
+@pytest.mark.parametrize("case", ATTN_GRAD_CASES[:5] + ATTN_GRAD_CASES[-2:],
+                         ids=[f"attn{i}" for i in range(7)])
+def test_flash_attention_bf16_gradients_are_the_plain_vjp(cuda, case):
+    b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off = case
+    q, k, v = _bf(attention_case(b, s_q, s_kv, n_q, n_kv, d, d_v=d_v), cuda)
+    kw = dict(causal=causal, window=window, softcap=cap,
+              q_offset=torch.as_tensor(off, device=cuda))
+    ops.reset_launch_counts()
+    out = _grad_check(cuda, lambda: ops.flash_attention(q, k, v, **kw),
+                      lambda: fa.flash_attention_ref(q, k, v, **kw),
+                      (q, k, v), (True, True, True), 1)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1
+    assert counts["flash_attention_vjp"] == 1
+    (got, g_got), (want, g_want) = out["kernel"], out["plain"]
+    assert got[0].dtype == BF
+    assert rel_err(got[0].float().cpu(), want[0].float().cpu()) \
+        <= ATTN_BF16_RTOL
+    # the backward is the plain version's VJP itself, on the same bf16
+    # operands and cotangent: the same bits
+    for x, w in zip(g_got, g_want):
+        assert x.dtype == BF and torch.equal(x, w)
+
+
+@pytest.mark.parametrize("case", SSD_CASES,
+                         ids=[f"ssd{i}" for i in range(len(SSD_CASES))])
+def test_ssd_scan_bf16_gradients_are_the_plain_vjp(cuda, case):
+    b, s, h, p, n, chunk, init, weak = case
+    x, dt, A, B, C, st = ssd_case(b, s, h, p, n, init, weak=weak)
+    x, B, C = _bf((x, B, C), cuda)
+    dt, A = _t((dt, A), cuda)
+    st = None if st is None else torch.as_tensor(st, device=cuda)
+    operands = (x, dt, A, B, C, st)
+    needs = (True, True, True, True, True, init)
+    ops.reset_launch_counts()
+    out = _grad_check(
+        cuda, lambda: ops.ssd_scan(x, dt, A, B, C, chunk=chunk,
+                                   initial_state=st),
+        lambda: sk.ssd_scan_ref(x, dt, A, B, C, chunk=chunk,
+                                initial_state=st), operands, needs, 2)
+    counts = ops.launch_counts()
+    assert counts["ssd_scan"] == 1 and counts["ssd_scan_vjp"] == 1
+    (got, g_got), (want, g_want) = out["kernel"], out["plain"]
+    assert rel_err(got[0].float().cpu(), want[0].float().cpu()) \
+        <= SSD_BF16_RTOL
+    assert rel_err(got[1].cpu(), want[1].cpu()) <= SSD_RTOL
+    for a, w in zip(g_got, g_want):
+        assert a.dtype == w.dtype and torch.equal(a, w)
+
+
+def test_bf16_make_step_train_step_runs_on_the_card(cuda):
+    # the launcher's step (make_step, remat, AdamW) on bf16 parameters of
+    # qwen2-smoke and zamba2-smoke: K6 and K8 launched on bf16 operands,
+    # their VJPs behind them; the loss finite and on the card what it is
+    # on the CPU (an average: bf16 noise in the logits does not move it
+    # past BF16_LLM_RTOL); the parameters stay bf16, the moments float32
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import specs
+    from repro_torch.testing import BF16_LLM_RTOL, leaf_rel_err, llm_batch
+    from repro_torch.training import train_loop
+    from repro_torch.training.optimizer import AdamW, tree_leaves
+    set_reference_precision()
+    assert specs.COMPUTE_DTYPE == BF
+    for name, want in (("qwen2-7b-smoke", {"flash_attention": 2 * 2,
+                                          "flash_attention_bf16": 2 * 2,
+                                          "flash_attention_vjp": 2}),
+                       ("zamba2-7b-smoke", {"flash_attention": 2,
+                                            "flash_attention_bf16": 2,
+                                            "ssd_scan": 15,
+                                            "ssd_scan_bf16": 15,
+                                            "flash_attention_vjp": 1,
+                                            "ssd_scan_vjp": 8})):
+        cfg_llm = get_config(name)
+        cpu_params = tfm.init_params(cfg_llm, 0, "cpu", BF)
+        batch = llm_batch(cfg_llm, 2, 40, seed=4)
+        fn = specs.make_step(cfg_llm, ShapeConfig("t", 40, 2, "train"),
+                             lr=1e-3)[0]
+        losses = {}
+        for dev in ("cpu", cuda):
+            params = sch.tree_map(lambda t: t.to(dev), cpu_params)
+            ops.reset_launch_counts()
+            new, state, m = fn(params, AdamW(lr=1e-3).init(params),
+                               train_loop.to_device(batch, dev))
+            losses[dev] = float(m["loss"])
+            counts = {**ops.launch_counts(), **ops.bf16_launch_counts()}
+            if dev != "cpu":
+                assert {k: v for k, v in counts.items() if v} == want, name
+                assert all(t.dtype == BF for t in tree_leaves(new))
+                assert all(t.dtype == torch.float32
+                           for t in tree_leaves(state.mu))
+        assert np.isfinite(losses[cuda])
+        assert leaf_rel_err(losses[cuda], losses["cpu"]) <= BF16_LLM_RTOL
+
+
 def test_llm_kernels_reject_bad_operands(cuda):
     q, k, v = _t(attention_case(1, 8, 8, 2, 1, 32), cuda)
     with pytest.raises(ValueError, match="window"):
@@ -971,36 +1170,57 @@ def test_integrity_store_repairs_a_corrupted_cuda_payload(cuda):
 # ---------------------------------------------------------------------------
 # the dry run's steps (launch/specs.py, launch/dryrun.py)
 # ---------------------------------------------------------------------------
-def test_prefill_and_decode_steps_on_the_card_match_cpu(cuda):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_and_decode_steps_on_the_card_match_cpu(cuda, monkeypatch,
+                                                        dtype):
     # make_step's prefill, then one decode step over its cache (rewriting
     # its last slot, so it attends over all of it): K6 and K8
     # once per attention / SSM layer of the prefill, K7 once per attention
-    # layer of the step; meta operands launch nothing
+    # layer of the step; meta operands launch nothing.  In float32 (set
+    # here) the logits agree end to end; in bf16 (the default) each layer
+    # the card applies agrees with the CPU's on the CPU's own inputs
+    # (testing.LayerTap: bf16 noise grows through the random-weight
+    # zamba2-smoke past any fixed bound) and the logits are finite
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import specs
+    from repro_torch.testing import BF16_LLM_RTOL, LayerTap, replay_layers
+    dtype = getattr(torch, dtype)
+    monkeypatch.setattr(specs, "COMPUTE_DTYPE", dtype)
     set_reference_precision()
     cfg_llm = get_config("zamba2-7b-smoke")
-    cpu_params = tfm.init_params(cfg_llm, 0, "cpu")
+    cpu_params = tfm.init_params(cfg_llm, 0, "cpu", dtype)
     b, s = 2, 48
     toks = torch.as_tensor(np.random.default_rng(2).integers(
         0, cfg_llm.vocab_size, (b, s)))
     prefill = specs.make_step(cfg_llm, ShapeConfig("p", s, b, "prefill"))[0]
     decode = specs.make_step(cfg_llm, ShapeConfig("d", s, b, "decode"))[0]
-    runs = {}
+    runs, taps = {}, {"prefill": LayerTap(), "decode": LayerTap()}
     for dev in ("cpu", cuda):
         params = sch.tree_map(lambda t: t.to(dev), cpu_params)
         ops.reset_launch_counts()
-        logits, cache = prefill(params, toks.to(dev))
+        with taps["prefill"] if dev == "cpu" else LayerTap():
+            logits, cache = prefill(params, toks.to(dev))
         pre = ops.launch_counts()
         ops.reset_launch_counts()
-        step, _ = decode(params, toks[:, -1:].to(dev), cache,
-                         torch.tensor(s - 1, device=dev))
-        runs[dev] = (logits.cpu(), step.cpu(), pre, ops.launch_counts())
+        with taps["decode"] if dev == "cpu" else LayerTap():
+            step, _ = decode(params, toks[:, -1:].to(dev), cache,
+                             torch.tensor(s - 1, device=dev))
+        runs[dev] = (logits.float().cpu(), step.float().cpu(), pre,
+                     ops.launch_counts())
     (l0, d0, _, _), (l1, d1, pre, dec) = runs["cpu"], runs[cuda]
     assert pre["flash_attention"] == 1 and pre["ssd_scan"] == 8
     assert dec["decode_attention"] == 1 and dec["ssd_scan"] == 0
-    assert rel_err(l1.numpy(), l0.numpy()) <= LLM_RTOL
-    assert rel_err(d1.numpy(), d0.numpy()) <= LLM_RTOL
+    if dtype == torch.float32:
+        assert rel_err(l1.numpy(), l0.numpy()) <= LLM_RTOL
+        assert rel_err(d1.numpy(), d0.numpy()) <= LLM_RTOL
+    else:
+        assert torch.isfinite(l1).all() and torch.isfinite(d1).all()
+        for what, tap in taps.items():
+            assert len(tap.calls) == 9, what
+            for i, (kind, err, cache_err) in enumerate(
+                    replay_layers(cfg_llm, tap.calls, cuda)):
+                assert max(err, cache_err) <= BF16_LLM_RTOL, \
+                    f"{what} layer {i} ({kind}): {err:.2e}, {cache_err:.2e}"
     ops.reset_launch_counts()
     meta = torch.empty((1, 8, 2, 16), device="meta")
     assert ops.flash_attention(meta, meta, meta).is_meta
@@ -1009,11 +1229,14 @@ def test_prefill_and_decode_steps_on_the_card_match_cpu(cuda):
 
 def test_dryrun_runs_a_small_cut_on_the_card(cuda):
     # run_one on zamba2-7b-smoke (9 layers, narrow): the abstract pass,
-    # then the step on the card at the batch it picked
+    # then the step on the card at the batch it picked, in bf16 (every
+    # launch a bf16 one)
     from repro_torch.launch import dryrun
-    for shape, want in (("decode_32k", {"decode_attention": 1}),
+    for shape, want in (("decode_32k", {"decode_attention": 1,
+                                        "decode_attention_bf16": 1}),
                         ("prefill_32k", {"flash_attention": 1,
-                                         "ssd_scan": 8})):
+                                         "flash_attention_bf16": 1,
+                                         "ssd_scan": 8, "ssd_scan_bf16": 8})):
         r = dryrun.run_one("zamba2-7b-smoke", shape, device="cuda",
                            verbose=False, save=False)
         card = r["card"]

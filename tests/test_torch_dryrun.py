@@ -37,14 +37,26 @@ from repro_torch.models import transformer as TT
 from repro_torch.roofline.analysis import analyze_step
 from repro_torch.roofline.hw import H100
 from repro_torch.testing import LLM_RTOL, rel_err
+from test_torch_bf16 import assert_layers_match_jax
 
 torch.set_num_threads(1)
 
 FLOP_BAND = (0.93, 1.0)
 
 
-def meta(*shape, grad=False):
-    return torch.empty(shape, device="meta").requires_grad_(grad)
+def meta(*shape, grad=False, dtype=torch.float32):
+    return torch.empty(shape, device="meta",
+                       dtype=dtype).requires_grad_(grad)
+
+
+@pytest.fixture(params=["float32", "bfloat16"])
+def compute_dtype(request, monkeypatch):
+    """The steps' compute dtype, set in ``launch.specs`` for the test:
+    bfloat16 is the reference's and the default, float32 the port's
+    earlier one (its expectations unchanged)."""
+    dtype = getattr(torch, request.param)
+    monkeypatch.setattr(specs, "COMPUTE_DTYPE", dtype)
+    return dtype
 
 
 # ---------------------------------------------------------------------------
@@ -96,42 +108,54 @@ def test_meta_operands_that_require_grad_take_the_plain_path():
 # ---------------------------------------------------------------------------
 # the counters
 # ---------------------------------------------------------------------------
-def test_a_kernel_is_charged_as_the_kernel_not_its_plain_version():
+def test_a_kernel_is_charged_as_the_kernel_not_its_plain_version(
+        compute_dtype):
     # the plain K6 materialises b x heads x s x s scores; the region
-    # charges q, k, v and the output, and counts the plain FLOPs
+    # charges q, k, v and the output, and counts the plain FLOPs; bf16
+    # operands are 2 bytes each and their products run at the bf16 rate
     b, s, h, d = 1, 4096, 8, 64
     shape = ShapeConfig("t", s, b, "prefill")
     cfg = get_config("qwen2-7b-smoke")
+    size = compute_dtype.itemsize
 
     def step(q, k, v):
         return ops.flash_attention(q, k, v)
 
-    args = (meta(b, s, h, d), meta(b, s, h, d), meta(b, s, h, d))
+    args = tuple(meta(b, s, h, d, dtype=compute_dtype) for _ in range(3))
     rep = analyze_step(step, args, arch="t", shape=shape, cfg=cfg)
-    operand = 4 * b * s * h * d
-    scores = 4 * b * h * s * s
+    operand = size * b * s * h * d
+    scores = size * b * h * s * s
     assert rep.kernel_calls == {"flash_attention": 1}
     assert rep.hlo_bytes == 4 * operand
     assert rep.peak_memory_per_device == 4 * operand < scores
     assert rep.arg_bytes == 3 * operand and rep.output_bytes == operand
     assert rep.hlo_flops == 2 * 2 * b * h * s * s * d      # q.k and p.v
     # the floor takes the plain s x s out and charges the causal pairs,
-    # their products in 3xTF32
+    # their products in 3xTF32 on float32, at the bf16 rate on bf16
     pairs = b * h * s * (s + 1) // 2
     assert rep.kernel_plain_flops == rep.hlo_flops
     assert rep.kernel_products == pairs * 4 * d
     assert rep.kernel_other == pairs * 5
-    assert rep.t_compute == pytest.approx(
-        pairs * 5 / H100.peak_flops_fp32
-        + 3 * pairs * 4 * d / H100.peak_flops_tf32, rel=1e-12)
-    # K7's and K8's workspaces are written, read and live
-    q, kc = meta(2, 8, 32), meta(2, 256, 2, 32)
+    if compute_dtype == torch.float32:
+        assert rep.compute_dtype == "fp32" and rep.kernel_products_bf16 == 0
+        assert rep.t_compute == pytest.approx(
+            pairs * 5 / H100.peak_flops_fp32
+            + 3 * pairs * 4 * d / H100.peak_flops_tf32, rel=1e-12)
+    else:
+        assert rep.compute_dtype == "bf16"
+        assert rep.kernel_products_bf16 == rep.kernel_products
+        assert rep.t_compute == pytest.approx(
+            (pairs * 5 + pairs * 4 * d) / H100.peak_flops_bf16, rel=1e-12)
+    # K7's and K8's workspaces (float32 either way) are written, read and
+    # live
+    q, kc = meta(2, 8, 32, dtype=compute_dtype), meta(2, 256, 2, 32,
+                                                      dtype=compute_dtype)
     rep = analyze_step(lambda q, k, v: ops.decode_attention(q, k, v, 200),
-                       (q, kc, meta(2, 256, 2, 32)), arch="t", shape=shape,
-                       cfg=cfg)
+                       (q, kc, meta(2, 256, 2, 32, dtype=compute_dtype)),
+                       arch="t", shape=shape, cfg=cfg)
     ws = da.workspace_bytes(q, kc, None)
-    assert ws > 0
-    assert rep.hlo_bytes == 4 * (2 * 8 * 32 * 2 + 2 * 2 * 256 * 2 * 32) \
+    assert ws == 4 * 2 * 8 * da.splits(2, 256, 2, None)[1] * (32 + 2)
+    assert rep.hlo_bytes == size * (2 * 8 * 32 * 2 + 2 * 2 * 256 * 2 * 32) \
         + 2 * ws
 
 
@@ -262,7 +286,9 @@ def _paths(tree, prefix=""):
 
 
 @pytest.mark.parametrize("name", STEP_ARCHS)
-def test_prefill_and_decode_steps_match_jax(name):
+def test_prefill_and_decode_steps_match_jax(name, compute_dtype):
+    if compute_dtype == torch.bfloat16:
+        return _bf16_steps_match_jax(name)
     jcfg, tcfg = jax_config(name).reduced(), get_config(name).reduced()
     jp = JT.init_params(jcfg, jax.random.PRNGKey(0))
     tp = weights.llm_from_numpy_tree(jax.tree.map(np.asarray, jp), "cpu")
@@ -317,27 +343,110 @@ def test_prefill_and_decode_steps_match_jax(name):
         assert rel_err(got[k].numpy(), want[k]) <= LLM_RTOL, k
 
 
+def _bf16_steps_match_jax(name):
+    """The bf16 steps: make_step's prefill and decode are the model's own
+    bf16 ``prefill`` / ``decode_step`` (bit for bit, caches bf16 but the
+    SSM state), and those are held to the JAX package's bf16 steps layer
+    by layer (tests/test_torch_bf16.py's walk, BF16_LLM_RTOL)."""
+    jcfg, tcfg = jax_config(name).reduced(), get_config(name).reduced()
+    bf = torch.bfloat16
+    jp = JT.init_params(jcfg, jax.random.PRNGKey(0), jnp.bfloat16)
+    tp = weights.llm_from_numpy_tree(jax.tree.map(np.asarray, jp), "cpu",
+                                     bf)
+    rng = np.random.default_rng(5)
+    b, s = 2, 24
+    toks = rng.integers(0, jcfg.vocab_size, (b, s)).astype(np.int32)
+    ctx = None
+    if jcfg.num_ctx_tokens:
+        ctx = (rng.normal(size=(b, jcfg.num_ctx_tokens,
+                                jcfg.ctx_dim or jcfg.d_model)) * 0.02
+               ).astype(np.float32)
+    jctx = None if ctx is None else jnp.asarray(ctx)
+    tctx = None if ctx is None else torch.as_tensor(ctx).to(bf)
+    extra_t = () if ctx is None else (tctx,)
+    ttoks = torch.as_tensor(toks).long()
+
+    prefill, pargs, _, _ = specs.make_step(tcfg, ShapeConfig("p", s, b,
+                                                             "prefill"))
+    assert pargs[0]["final_norm"]["scale"].dtype == bf
+    tl, tc = prefill(tp, ttoks, *extra_t)
+    with torch.no_grad():
+        ol, oc = TT.prefill(tcfg, tp, ttoks, TT.init_cache(tcfg, b, s, "cpu",
+                                                           bf),
+                            ctx_embed=tctx, dtype=bf)
+    assert tl.shape == (b, tcfg.padded_vocab) and torch.equal(tl, ol)
+    for k, t in _leaves(tc).items():
+        assert t.dtype == (torch.float32 if k.endswith("state") else bf), k
+        assert torch.equal(t, _leaves(oc)[k]), k
+    assert_layers_match_jax(tcfg, tp, lambda: JT.prefill(
+        jcfg, jp, jnp.asarray(toks), JT.init_cache(jcfg, b, s, jnp.bfloat16),
+        ctx_embed=jctx, dtype=jnp.bfloat16, unroll_blocks=True,
+        impl="ref")[0])
+
+    S, idx = 40, 31
+    decode, dargs, _, _ = specs.make_step(tcfg, ShapeConfig("d", S, b,
+                                                            "decode"))
+    cache_np = {k: (rng.normal(size=tuple(t.shape)) * 0.5).astype(np.float32)
+                for k, t in _leaves(dargs[2]).items()}
+    flat_j = jax.tree_util.tree_flatten_with_path(
+        JT.init_cache(jcfg, b, S, jnp.bfloat16))
+    jcache = jax.tree_util.tree_unflatten(flat_j[1], [
+        jnp.asarray(cache_np["".join(f"/{p.key}" for p in path)]
+                    ).astype(leaf.dtype) for path, leaf in flat_j[0]])
+    caches = [TT.init_cache(tcfg, b, S, "cpu", bf) for _ in range(2)]
+    for cache in caches:
+        for k, t in _leaves(cache).items():
+            t.copy_(torch.as_tensor(cache_np[k]))
+    nxt = rng.integers(0, jcfg.vocab_size, (b, 1)).astype(np.int32)
+    tnxt = torch.as_tensor(nxt).long()
+    tl, tc = decode(tp, tnxt, caches[0], torch.tensor(idx), *extra_t)
+    with torch.no_grad():
+        ol, oc = TT.decode_step(tcfg, tp, tnxt, caches[1], torch.tensor(idx),
+                                ctx_embed=tctx, dtype=bf)
+    assert tc is caches[0] and torch.equal(tl, ol)
+    for k, t in _leaves(tc).items():
+        assert torch.equal(t, _leaves(oc)[k]), k
+    assert_layers_match_jax(tcfg, tp, lambda: JT.decode_step(
+        jcfg, jp, jnp.asarray(nxt), jcache, jnp.int32(idx), ctx_embed=jctx,
+        dtype=jnp.bfloat16, unroll_blocks=True, impl="interpret")[0])
+
+
 # ---------------------------------------------------------------------------
 # the dry run
 # ---------------------------------------------------------------------------
-@pytest.fixture(scope="module")
-def zamba2_dryrun():
-    return {s: dryrun.run_one("zamba2-7b", s, device="meta", verbose=False,
-                              save=False) for s in sorted(INPUT_SHAPES)}
+@pytest.fixture(scope="module", params=["float32", "bfloat16"])
+def zamba2_dryrun(request):
+    """(compute dtype, {shape: run_one's dict}): the dry run at bfloat16,
+    the reference's compute dtype and the default, and at float32."""
+    dtype = getattr(torch, request.param)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(specs, "COMPUTE_DTYPE", dtype)
+        return dtype, {s: dryrun.run_one("zamba2-7b", s, device="meta",
+                                         verbose=False, save=False)
+                       for s in sorted(INPUT_SHAPES)}
 
 
 @pytest.mark.parametrize("shape", sorted(INPUT_SHAPES))
 def test_dryrun_reports_every_shape(zamba2_dryrun, shape):
-    r = zamba2_dryrun[shape]
+    dtype, runs = zamba2_dryrun
+    r = runs[shape]
+    assert r["compute_dtype"] == {torch.float32: "fp32",
+                                  torch.bfloat16: "bf16"}[dtype]
     assert r["hlo_flops"] > 0 and r["hlo_bytes"] > 0
     assert r["dominant"] in ("compute", "memory")
     assert r["coll_bytes"] == 0 and r["chips"] == 1
     assert r["t_floor"] == max(r["t_compute"], r["t_memory"])
     assert 0 < r["kernel_plain_flops"] < r["hlo_flops"]
+    # the rest at the compute dtype's peak, K6's and K7's products at the
+    # bf16 rate on bf16 operands, every other product in 3xTF32
+    bf16 = r["kernel_products_bf16"]
+    assert bf16 == 0 if dtype == torch.float32 else bf16 > 0
     assert r["t_compute"] == pytest.approx(
         (r["hlo_flops"] - r["kernel_plain_flops"] + r["kernel_other"])
-        / H100.peak_flops_fp32
-        + 3 * r["kernel_products"] / H100.peak_flops_tf32, rel=1e-12)
+        / H100.peak_flops(r["compute_dtype"])
+        + bf16 / H100.peak_flops_bf16
+        + 3 * (r["kernel_products"] - bf16) / H100.peak_flops_tf32,
+        rel=1e-12)
     assert "card" not in r
     mode = INPUT_SHAPES[shape].mode
     want = {"train": {"ssd_scan", "flash_attention"},
@@ -347,40 +456,48 @@ def test_dryrun_reports_every_shape(zamba2_dryrun, shape):
 
 
 def test_dryrun_fit_flags_match_the_hand_count(zamba2_dryrun):
+    dtype, runs = zamba2_dryrun
+    size = dtype.itemsize
     cfg = get_config("zamba2-7b")
-    params = sch.param_bytes(TT.model_schema(cfg))
-    # train: fp32 weights, gradients and both AdamW moments alone pass the
-    # card (95.5 GB), so no batch fits
-    assert 16 * cfg.param_count() > H100.hbm_bytes
-    train = zamba2_dryrun["train_4k"]
+    params = sch.param_bytes(TT.model_schema(cfg), size)
+    moments = sch.param_bytes(TT.model_schema(cfg), 4)       # float32
+    # train: the weights, their gradients, both float32 AdamW moments and
+    # the new weights alone pass the card (119 GB in fp32, 83.6 GB in
+    # bf16), so no batch fits
+    assert (3 * size + 8) * cfg.param_count() > H100.hbm_bytes
+    train = runs["train_4k"]
     assert not train["fits"] and train["max_batch"] == 0
     # weights, both moments, AdamW's step, int64 tokens and labels
-    assert train["arg_bytes"] == 3 * params + 4 + 2 * 8 * 256 * 4096
+    assert train["arg_bytes"] == params + 2 * moments + 4 \
+        + 2 * 8 * 256 * 4096
     # at batch 1 the weights, gradients, moments and new weights are live
-    assert train["batch1_peak_bytes"] > 5 * params
+    assert train["batch1_peak_bytes"] > 3 * params + 2 * moments
     # decode: the weights and one 32k-slot cache per slot; nothing else
     # of size stays live, so the batch is what the card holds of slots
-    slot = profile.kv_cache_bytes(cfg, 1, 32768, 4)
+    slot = profile.kv_cache_bytes(cfg, 1, 32768, size)
     hand = int((H100.hbm_bytes - params) // slot)
-    dec = zamba2_dryrun["decode_32k"]
+    dec = runs["decode_32k"]
     assert not dec["fits"] and dec["max_batch"] == hand >= 2
     assert dec["arg_bytes"] == params + 128 * slot + 128 * 8 + 8
     assert dec["output_bytes"] < 1e8                 # the cache is in place
     # long_500k: a 524,288-slot cache of one slot does not fit
-    lng = zamba2_dryrun["long_500k"]
+    lng = runs["long_500k"]
     assert lng["max_batch"] == 0
     assert lng["batch1_peak_bytes"] == lng["peak_memory_per_device"]
-    assert params + profile.kv_cache_bytes(cfg, 1, 524288, 4) \
+    assert params + profile.kv_cache_bytes(cfg, 1, 524288, size) \
         > H100.hbm_bytes
 
 
-def test_dryrun_prefill_peak_holds_no_score_matrix(zamba2_dryrun):
-    # K6's plain version would hold b x 32 heads x s x s floats (137 GB a
-    # row at 32k); the kernel region leaves it out of the peak
+def test_dryrun_prefill_peak_holds_no_score_matrix(zamba2_dryrun,
+                                                   monkeypatch):
+    # K6's plain version would hold b x 32 heads x s x s values (137 GB a
+    # row at 32k in fp32); the kernel region leaves it out of the peak
+    dtype, runs = zamba2_dryrun
+    monkeypatch.setattr(specs, "COMPUTE_DTYPE", dtype)
     cfg = get_config("zamba2-7b")
-    r = zamba2_dryrun["prefill_32k"]
+    r = runs["prefill_32k"]
     s = INPUT_SHAPES["prefill_32k"].seq_len
-    scores = 4 * cfg.num_heads * s * s
+    scores = dtype.itemsize * cfg.num_heads * s * s
     assert r["kernel_calls"] == {"ssd_scan": 71, "flash_attention": 10}
     assert 1 <= r["max_batch"] < 32
     cut = dryrun.abstract_pass(cfg, dataclasses.replace(
@@ -391,10 +508,12 @@ def test_dryrun_prefill_peak_holds_no_score_matrix(zamba2_dryrun):
 
 def test_dryrun_floor_charges_the_kernels_own_work(zamba2_dryrun):
     # prefill_32k: K6's causal pairs (not the plain s x s) in 10 calls and
-    # K8's chunked scan in 71, their products in 3xTF32; the floor is
-    # below the plain program's FLOPs at the fp32 rate
+    # K8's chunked scan in 71, K8's products in 3xTF32 and K6's too on
+    # float32, K6's at the bf16 rate on bf16; the floor is below the plain
+    # program's FLOPs at the compute dtype's rate
+    dtype, runs = zamba2_dryrun
     cfg = get_config("zamba2-7b")
-    r = zamba2_dryrun["prefill_32k"]
+    r = runs["prefill_32k"]
     shape = INPUT_SHAPES["prefill_32k"]
     b, s = shape.global_batch, shape.seq_len
     k6 = fa.pair_work(b * cfg.num_heads * s * (s + 1) // 2, cfg.head_dim,
@@ -402,12 +521,18 @@ def test_dryrun_floor_charges_the_kernels_own_work(zamba2_dryrun):
     k8 = sk.chunked_ops(b, s, cfg.n_ssm_heads, cfg.ssm_head_dim,
                         cfg.ssm_state, cfg.ssm_chunk)
     assert r["kernel_products"] == 10 * k6[0] + 71 * k8[0]
+    assert r["kernel_products_bf16"] == (10 * k6[0] if dtype == torch.bfloat16
+                                         else 0)
     assert r["kernel_other"] == 10 * k6[1] + 71 * k8[1]
     assert r["kernel_plain_flops"] > 10 * 2 * k6[0]       # the full s x s
-    assert r["t_compute"] < r["hlo_flops"] / H100.peak_flops_fp32
-    # the cut batch's floor is what the card pass is held to
+    assert r["t_compute"] < r["hlo_flops"] / H100.peak_flops(
+        r["compute_dtype"])
+    # the cut batch's floor is what the card pass is held to: in fp32 the
+    # GEMMs' FLOPs at 67 TFLOP/s bound it, in bf16 (989.4 TFLOP/s) the
+    # eager program's bytes
     assert r["cut_t_floor"] < r["t_floor"]
-    assert r["cut_dominant"] == "compute"
+    assert r["cut_dominant"] == ("memory" if dtype == torch.bfloat16
+                                 else "compute")
     assert 0 < r["cut_peak_bytes"] <= H100.hbm_bytes
 
 
@@ -432,10 +557,11 @@ def test_dryrun_card_pass_needs_the_card(monkeypatch):
                        verbose=False)
 
 
-def test_profile_cli_prints_every_shape(capsys):
+def test_profile_cli_prints_every_shape(capsys, compute_dtype):
     profile.main(["--arch", "zamba2-7b"])
     out = capsys.readouterr().out
-    assert "weights fp32 23.9 GB" in out
+    assert {torch.float32: "weights fp32 23.9 GB",
+            torch.bfloat16: "weights bf16 11.9 GB"}[compute_dtype] in out
     for shape in INPUT_SHAPES:
         assert shape in out
 

@@ -11,9 +11,10 @@ switches inside it), shared memory starts as NaNs (so
 a read before a write shows), and each ``<<<...>>>`` launch becomes a call
 that runs the grid's blocks, several host threads at a time. The
 primitives of ``csrc/primitives.cuh`` have host versions here:
-``mma.sync`` m16n8k8 tf32 gathers the warp's fragments through a per-warp
-buffer in the PTX ISA's layout and sums each output's eight exact products
-in double, ``cvt.rna.tf32`` rounds the bits, ``cp.async`` copies at once
+``mma.sync`` m16n8k8 tf32 and m16n8k16 bf16 gather the warp's fragments
+through a per-warp buffer in the PTX ISA's layout and sum each output's
+exact products in double, ``cvt.rna.tf32`` rounds the bits, bf16 is its
+16 bits with round-to-nearest-even conversions, ``cp.async`` copies at once
 (commit and wait do nothing), ``min.NaN``/``max.NaN`` return a NaN for a
 NaN operand. The Python wrappers then call the C launchers exactly as on
 the card, on CPU tensors, and the results are held against the plain
@@ -43,7 +44,8 @@ from repro_torch.kernels import onevsall as ov
 from repro_torch.kernels import onevsall_update as ou
 from repro_torch.kernels import region_filter_mask as rf
 from repro_torch.kernels import ssd_scan as sk
-from repro_torch.testing import (ATTN_ATOL, DECODE_CASES, FILTER_KW,
+from repro_torch.testing import (ATTN_ATOL, ATTN_BF16_RTOL, DECODE_CASES,
+                                 FILTER_KW, SSD_BF16_RTOL,
                                  FLASH_CASES, FLASH_DV_CASES,
                                  FLASH_RAGGED_CASES, IOU_CASES,
                                  LEARN_RTOL, ONEVSALL_ATOL, SSD_CASES,
@@ -79,6 +81,23 @@ struct dim3 { unsigned x, y, z;
 struct float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) {
   return float4{a, b, c, d}; }
+struct uint2 { unsigned x, y; };
+struct uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
+  return uint4{a, b, c, d}; }
+// cuda_bf16.h: the bits of a bf16, float conversions rounded to nearest
+// even (a NaN stays a quiet NaN), as the card's and torch's
+struct __nv_bfloat16 { uint16_t x; };
+inline float __bfloat162float(__nv_bfloat16 h) {
+  uint32_t u = (uint32_t)h.x << 16; float f; std::memcpy(&f, &u, 4);
+  return f; }
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  uint32_t u; std::memcpy(&u, &f, 4);
+  if ((u & 0x7fffffffu) > 0x7f800000u)
+    return __nv_bfloat16{(uint16_t)((u >> 16) | 0x40u)};
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return __nv_bfloat16{(uint16_t)(u >> 16)}; }
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) { return h.x; }
 typedef int cudaError_t; typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
        cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
@@ -248,6 +267,39 @@ inline void mma_tf32_m16n8k8(float d[4], const uint32_t a[4],
     d[i] = (float)acc;
   }
   __syncwarp(); }
+// mma.m16n8k16 bf16: A[r][k] in lane (r % 8) * 4 + (k % 8) / 2, register
+// r / 8 + 2 (k / 8); B[k][n] in lane n * 4 + (k % 8) / 2, register k / 8;
+// each value in the low (even k) or high (odd k) half of its register;
+// the products are exact, summed in double
+inline void mma_bf16_m16n8k16(float d[4], const uint32_t a[4],
+                              const uint32_t b[2]) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  uint32_t* buf = emu_blk->mma.data() + (threadIdx.x / 32) * 32 * 6;
+  for (int i = 0; i < 4; ++i) buf[lane * 6 + i] = a[i];
+  buf[lane * 6 + 4] = b[0]; buf[lane * 6 + 5] = b[1];
+  __syncwarp();
+  auto half = [](uint32_t u, int k) {
+    return (double)__uint_as_float(k % 2 ? (u & 0xffff0000u) : (u << 16)); };
+  for (int i = 0; i < 4; ++i) {
+    const int r = g + 8 * (i / 2), c = 2 * t + i % 2;
+    double acc = d[i];
+    for (int k = 0; k < 16; ++k)
+      acc += half(buf[((r % 8) * 4 + (k % 8) / 2) * 6 + r / 8 + 2 * (k / 8)],
+                  k) *
+             half(buf[(c * 4 + (k % 8) / 2) * 6 + 4 + k / 8], k);
+    d[i] = (float)acc;
+  }
+  __syncwarp(); }
+inline float to_f32(float x) { return x; }
+inline float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <class T> T from_f32(float x);
+template <> inline float from_f32<float>(float x) { return x; }
+template <> inline __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x); }
+inline uint32_t bf16_bits(__nv_bfloat16 x) { return x.x; }
+inline uint32_t pack_bf16x2(float lo, float hi) {
+  return bf16_bits(__float2bfloat16_rn(lo)) |
+         (bf16_bits(__float2bfloat16_rn(hi)) << 16); }
 // min.NaN / max.NaN: a NaN operand gives a NaN, else fminf / fmaxf
 inline float fmin_nan(float a, float b) {
   return (a != a || b != b) ? NAN : std::fmin(a, b); }
@@ -331,11 +383,10 @@ def emulated(tmp_path_factory):
     def query(fn, *args):
         return fns[fn](*args)
 
-    def check(*operands):
+    def check(*operands, same=()):
         # _build.check_operands without the device checks (CPU tensors)
+        _build.check_dtypes(operands, same)
         for name, t, dtype, shape in operands:
-            if t.dtype != dtype:
-                raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
             if shape is not None and tuple(t.shape) != tuple(shape):
                 raise ValueError(f"{name}: expected shape {tuple(shape)}")
             if not t.is_contiguous():
@@ -401,6 +452,56 @@ def test_emulated_mma_tf32_matches_numpy(tmp_path):
     assert list(r.view(np.float32)[0, :4]) == [1 + 2.0 ** -10,
                                                -(1 + 2.0 ** -10), 1.0, 3.0]
     want = c.astype(np.float64) + _tf32(a).astype(np.float64) @ b
+    np.testing.assert_allclose(d, want.astype(np.float32), rtol=0, atol=1e-6)
+
+
+MMA_BF16_PROBE = r"""
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include "primitives.cuh"
+// one warp: bf16 pairs of row-major A (16x16) and B (16x8) packed in the
+// layout csrc/primitives.cuh states, D = C + A B stored row-major
+__global__ void mma_bf16_probe_kernel(const float* A, const float* B,
+                                      const float* C, float* D) {
+  const int lane = threadIdx.x, g = lane / 4, t = lane % 4;
+  const uint32_t a[4] = {
+      pack_bf16x2(A[g * 16 + 2 * t], A[g * 16 + 2 * t + 1]),
+      pack_bf16x2(A[(g + 8) * 16 + 2 * t], A[(g + 8) * 16 + 2 * t + 1]),
+      pack_bf16x2(A[g * 16 + 2 * t + 8], A[g * 16 + 2 * t + 9]),
+      pack_bf16x2(A[(g + 8) * 16 + 2 * t + 8], A[(g + 8) * 16 + 2 * t + 9])};
+  const uint32_t b[2] = {
+      pack_bf16x2(B[(2 * t) * 8 + g], B[(2 * t + 1) * 8 + g]),
+      pack_bf16x2(B[(2 * t + 8) * 8 + g], B[(2 * t + 9) * 8 + g])};
+  float d[4] = {C[g * 8 + 2 * t], C[g * 8 + 2 * t + 1],
+                C[(g + 8) * 8 + 2 * t], C[(g + 8) * 8 + 2 * t + 1]};
+  mma_bf16_m16n8k16(d, a, b);
+  D[g * 8 + 2 * t] = d[0];
+  D[g * 8 + 2 * t + 1] = d[1];
+  D[(g + 8) * 8 + 2 * t] = d[2];
+  D[(g + 8) * 8 + 2 * t + 1] = d[3];
+}
+extern "C" int mma_bf16_probe(const float* A, const float* B,
+                              const float* C, float* D) {
+  mma_bf16_probe_kernel<<<1, 32>>>(A, B, C, D);
+  return 0;
+}
+"""
+
+
+def test_emulated_mma_bf16_matches_numpy(tmp_path):
+    # the operands rounded to bf16 (nearest even) by pack_bf16x2, their
+    # products summed exactly onto C
+    lib = _load(*_compile(_cxx(), tmp_path, "mma_bf16_probe.cu",
+                          MMA_BF16_PROBE))
+    rng = np.random.default_rng(4)
+    a = rng.normal(size=(16, 16)).astype(np.float32)
+    b = rng.normal(size=(16, 8)).astype(np.float32)
+    c = rng.normal(size=(16, 8)).astype(np.float32)
+    d = np.empty((16, 8), np.float32)
+    ptr = lambda x: x.ctypes.data_as(ctypes.c_void_p)     # noqa: E731
+    assert lib.mma_bf16_probe(ptr(a), ptr(b), ptr(c), ptr(d)) == 0
+    bf = lambda x: torch.as_tensor(x).to(torch.bfloat16).double().numpy()  # noqa: E731,E501
+    want = c.astype(np.float64) + bf(a) @ bf(b)
     np.testing.assert_allclose(d, want.astype(np.float32), rtol=0, atol=1e-6)
 
 
@@ -668,6 +769,84 @@ def test_ssd_scan_source_matches_plain(emulated, case):
                                   initial_state=st)
     assert rel_err(y, y_ref) <= SSD_RTOL
     assert rel_err(fin, fin_ref) <= SSD_RTOL
+
+
+def _bf16(arrays):
+    return [None if a is None else torch.as_tensor(a).to(torch.bfloat16)
+            for a in arrays]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES + FLASH_RAGGED_CASES,
+                         ids=[f"flash{i}" for i in range(
+                             len(FLASH_CASES) + len(FLASH_RAGGED_CASES))])
+def test_flash_attention_source_takes_bf16(emulated, case):
+    # the bf16 launcher: the mma.sync bf16 kernel for d <= 128 (p split
+    # into two bf16 halves), the CUDA-core kernel above; out in bf16
+    b, s_q, s_kv, n_q, n_kv, d, causal, window, cap, off = case
+    q, k, v = _bf16(attention_case(b, s_q, s_kv, n_q, n_kv, d))
+    kw = dict(causal=causal, window=window, softcap=cap, q_offset=off)
+    got = fa.flash_attention(q, k, v, **kw)
+    assert got.dtype == torch.bfloat16
+    assert rel_err(got.float(), ref.flash_attention(q, k, v, **kw).float()) \
+        <= ATTN_BF16_RTOL
+
+
+@pytest.mark.parametrize("case", FLASH_DV_CASES,
+                         ids=[f"dv{c[5]}-{c[6]}" for c in FLASH_DV_CASES])
+def test_flash_attention_source_takes_bf16_value_head_dims(emulated, case):
+    b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off = case
+    q, k, v = _bf16(attention_case(b, s_q, s_kv, n_q, n_kv, d, d_v=d_v))
+    kw = dict(causal=causal, window=window, softcap=cap,
+              q_offset=torch.as_tensor(off))
+    got = fa.flash_attention(q, k, v, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, s_q, n_q, d_v)
+    assert rel_err(got.float(), ref.flash_attention(q, k, v, **kw).float()) \
+        <= ATTN_BF16_RTOL
+
+
+@pytest.mark.parametrize("case", DECODE_CASES + [
+    (2, 96, 16, 1, 36, [96, 40], None, None)],    # d % 8 != 0: plain copies
+    ids=[f"decode{i}" for i in range(len(DECODE_CASES) + 1)])
+def test_decode_attention_source_takes_bf16(emulated, case):
+    b, S, n_q, n_kv, d, clen, window, cap = case
+    q, kc, vc = _bf16(decode_case(b, S, n_q, n_kv, d))
+    cl = torch.as_tensor(np.asarray(clen, np.int32))
+    kw = dict(window=window, softcap=cap)
+    got = da.decode_attention(q, kc, vc, cl, **kw)
+    assert got.dtype == torch.bfloat16
+    want = ref.decode_attention(q, kc, vc, cl, **kw)
+    assert rel_err(got.float(), want.float()) <= ATTN_BF16_RTOL
+
+
+@pytest.mark.parametrize("case", SSD_CASES + [(1, 70, 1, 32, 128, 64, True, False)],
+                         ids=[f"ssd{i}" for i in range(len(SSD_CASES) + 1)])
+def test_ssd_scan_source_takes_bf16(emulated, case):
+    # x, B and C bf16 (y comes out bf16); dt, A and the states float32
+    b, s, h, p, n, chunk, init, weak = case
+    x, dt, A, B, C, st = _t(ssd_case(b, s, h, p, n, init, weak=weak))
+    x, B, C = (t.to(torch.bfloat16) for t in (x, B, C))
+    y, fin = sk.ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=st)
+    assert y.dtype == torch.bfloat16 and fin.dtype == torch.float32
+    y_ref, fin_ref = ref.ssd_scan(x, dt, A, B, C, chunk=chunk,
+                                  initial_state=st)
+    assert rel_err(y.float(), y_ref.float()) <= SSD_BF16_RTOL
+    assert rel_err(fin, fin_ref) <= SSD_RTOL
+
+
+def test_llm_sources_refuse_float16_and_mixed_dtypes(emulated):
+    q, k, v = _t(attention_case(1, 16, 16, 2, 1, 32))
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="share one dtype"):
+        fa.flash_attention(q.to(torch.bfloat16), k, v)
+    qd, kc, vc = _t(decode_case(1, 32, 2, 1, 32))
+    with pytest.raises(ValueError, match="share one dtype"):
+        da.decode_attention(qd, kc.to(torch.bfloat16), vc, 8)
+    x, dt, A, B, C, st = _t(ssd_case(1, 32, 2, 8, 8, True))
+    with pytest.raises(ValueError, match="share one dtype"):
+        sk.ssd_scan(x.to(torch.bfloat16), dt, A, B, C, chunk=16)
+    with pytest.raises(ValueError, match="float32"):
+        sk.ssd_scan(x, dt.to(torch.bfloat16), A, B, C, chunk=16)
 
 
 # (case, splits of each row's valid slots): the wrapper cuts the longest

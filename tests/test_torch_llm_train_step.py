@@ -28,10 +28,11 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import specs
 from repro_torch.launch import train as launch_train
 from repro_torch.models import transformer as TT
-from repro_torch.testing import (LLM_GRAD_RTOL, assert_train_params_close,
-                                 leaf_rel_err, llm_batch)
+from repro_torch.testing import (BF16_LLM_RTOL, LLM_GRAD_RTOL,
+                                 assert_train_params_close, leaf_rel_err,
+                                 llm_batch)
 from repro_torch.training import checkpoint, data, train_loop
-from repro_torch.training.optimizer import AdamW
+from repro_torch.training.optimizer import AdamW, tree_leaves
 
 torch.set_num_threads(1)
 
@@ -123,8 +124,21 @@ def test_remat_equals_no_remat(name):
         np.testing.assert_array_equal(f1[k], f0[k], err_msg=k)
 
 
-def test_microbatched_step_matches_one_batch_and_jax_mean_of_grads():
-    jcfg, tcfg, jp, tp = _models("qwen2-7b")
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_microbatched_step_matches_one_batch_and_jax_mean_of_grads(
+        monkeypatch, dtype):
+    # make_step at its compute dtype: float32 (set here) on float32
+    # parameters within LLM_GRAD_RTOL, or bfloat16 (the reference's) on
+    # the JAX package's bf16 parameters within BF16_LLM_RTOL, against the
+    # reference's accumulation at the same dtype
+    tdtype, jdtype = getattr(torch, dtype), getattr(jnp, dtype)
+    rtol = LLM_GRAD_RTOL if dtype == "float32" else BF16_LLM_RTOL
+    monkeypatch.setattr(specs, "COMPUTE_DTYPE", tdtype)
+    jcfg = jax_config("qwen2-7b").reduced()
+    tcfg = get_config("qwen2-7b").reduced()
+    jp = JT.init_params(jcfg, jax.random.PRNGKey(0), jdtype)
+    tp = weights.llm_from_numpy_tree(jax.tree.map(np.asarray, jp), "cpu",
+                                     tdtype)
     shape = ShapeConfig("t", 32, 8, "train")
     lr = 1e-3
     batch = next(iter(data.TokenStream(tcfg.vocab_size, 32, 8, 0)))
@@ -135,16 +149,17 @@ def test_microbatched_step_matches_one_batch_and_jax_mean_of_grads():
     (p1, _, m1), (p4, s4, m4) = out[1], out[4]
     assert m4["ce"] is m4["loss"] and float(m4["aux"]) == 0.0
     assert set(m1) == {"loss", "ce", "aux"}
-    assert leaf_rel_err(float(m4["loss"]), float(m1["loss"])) \
-        <= LLM_GRAD_RTOL
-    grads = flat(train_loop.llm_grads(tcfg, tp, tbatch)[1])
+    assert leaf_rel_err(float(m4["loss"]), float(m1["loss"])) <= rtol
+    assert all(t.dtype == tdtype for t in tree_leaves(p4))
+    grads = flat(train_loop.llm_grads(tcfg, tp, tbatch, dtype=tdtype)[1])
     assert_train_params_close(flat(p4), flat(p1), grads, lr, 1,
-                              "microbatch 4 vs 1", rtol=LLM_GRAD_RTOL)
+                              "microbatch 4 vs 1", rtol=rtol)
     # the reference's accumulation by hand: the mean of the microbatches'
     # float32 gradients, then one AdamW update
     acc, total = None, 0.0
     grad_fn = jax.jit(jax.value_and_grad(
-        lambda p, mb: JT.loss_fn(jcfg, p, mb, remat=True), has_aux=True))
+        lambda p, mb: JT.loss_fn(jcfg, p, mb, remat=True, dtype=jdtype),
+        has_aux=True))
     for j in range(4):
         mb = {k: jnp.asarray(v[2 * j:2 * j + 2]) for k, v in batch.items()}
         (loss, _), g = grad_fn(jp, mb)
@@ -153,9 +168,9 @@ def test_microbatched_step_matches_one_batch_and_jax_mean_of_grads():
         total += float(loss) / 4
     jopt_ = jopt.AdamW(lr=lr)
     jp4, _ = jopt_.update(acc, jopt_.init(jp), jp)
-    assert leaf_rel_err(float(m4["loss"]), total) <= LLM_GRAD_RTOL
+    assert leaf_rel_err(float(m4["loss"]), total) <= rtol
     assert_train_params_close(flat(p4), flat(jp4), flat(acc), lr, 1,
-                              "microbatch 4 vs JAX", rtol=LLM_GRAD_RTOL)
+                              "microbatch 4 vs JAX", rtol=rtol)
     assert int(s4.step) == 1
 
 

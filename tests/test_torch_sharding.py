@@ -129,39 +129,55 @@ def test_param_unit_and_cache_specs_match_jax(arch):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("arch", ARCHS)
 def test_abstract_params_cache_and_inputs_match_jax(arch):
+    # the defaults are the reference's (bfloat16), and an explicit float32
+    # gives float32 on both sides
     jcfg, tcfg = jax_config(arch), get_config(arch)
-    assert_same_abstract(TT.abstract_params(tcfg),
+    assert_same_abstract(TT.abstract_params(tcfg, torch.float32),
                          JT.abstract_params(jcfg, jnp.float32))
-    assert_same_abstract(TT.abstract_params(tcfg, torch.bfloat16),
-                         JT.abstract_params(jcfg))
+    assert_same_abstract(TT.abstract_params(tcfg), JT.abstract_params(jcfg))
     # the SSM state stays float32 under a bfloat16 cache
-    assert_same_abstract(TT.abstract_cache(tcfg, 3, 128, torch.bfloat16),
+    assert_same_abstract(TT.abstract_cache(tcfg, 3, 128),
                          JT.abstract_cache(jcfg, 3, 128))
+    assert_same_abstract(TT.abstract_cache(tcfg, 3, 128, torch.float32),
+                         JT.abstract_cache(jcfg, 3, 128, jnp.float32))
     for shape in SHAPES:
         jc = jspecs.arch_for_shape(jcfg, J_SHAPES[shape])
         tc = tspecs.arch_for_shape(tcfg, INPUT_SHAPES[shape])
         assert tc.name == jc.name
         assert_same_abstract(tspecs.input_specs(tc, INPUT_SHAPES[shape]),
+                             jspecs.input_specs(jc, J_SHAPES[shape]))
+        assert_same_abstract(tspecs.input_specs(tc, INPUT_SHAPES[shape],
+                                                dtype=torch.float32),
                              jspecs.input_specs(jc, J_SHAPES[shape],
                                                 dtype=jnp.float32))
     if tcfg.num_ctx_tokens:
-        got, want = tstubs.frontend_spec(tcfg, 5), jstubs.frontend_spec(
-            jcfg, 5, jnp.float32)
-        assert got.is_meta and tuple(got.shape) == want.shape
-        assert got.dtype == torch.float32
+        for got, want in ((tstubs.frontend_spec(tcfg, 5),
+                           jstubs.frontend_spec(jcfg, 5)),
+                          (tstubs.frontend_spec(tcfg, 5, torch.float32),
+                           jstubs.frontend_spec(jcfg, 5, jnp.float32))):
+            assert got.is_meta and tuple(got.shape) == want.shape
+            assert got.dtype == DTYPES[jnp.dtype(want.dtype)]
 
 
-def test_make_step_abstract_args_and_specs_follow_the_reference():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_make_step_abstract_args_and_specs_follow_the_reference(
+        monkeypatch, dtype):
     # the train step's arguments (params, AdamW state, batch) and specs,
-    # and the decode step's cache and index, have the reference's trees
+    # and the decode step's cache and index, have the reference's trees,
+    # at the compute dtype make_step reads (bfloat16 as the reference's;
+    # float32 where a caller sets it)
+    tdtype, jdtype = getattr(torch, dtype), getattr(jnp, dtype)
+    monkeypatch.setattr(tspecs, "COMPUTE_DTYPE", tdtype)
     tcfg = get_config("deepseek-v2-lite-16b")
     jcfg = jax_config("deepseek-v2-lite-16b")
     sh = INPUT_SHAPES["train_4k"]
     rules = tshd.default_rules(sh)
     _, args, in_specs, out_specs = tspecs.make_step(tcfg, sh, rules)
-    want = JT.abstract_params(jcfg, jnp.float32)
-    assert_same_abstract(args[0], want)
-    assert_same_abstract(args[1].mu, want)
+    assert_same_abstract(args[0], JT.abstract_params(jcfg, jdtype))
+    # AdamW's moments are float32 whatever the parameters' dtype
+    moments = JT.abstract_params(jcfg, jnp.float32)
+    assert_same_abstract(args[1].mu, moments)
+    assert_same_abstract(args[1].nu, moments)
     assert args[1].step.dtype == torch.int32 and args[1].step.is_meta
     assert set(args[2]) == {"tokens", "labels"}
     assert tuple(in_specs[2]["tokens"]) == tuple(jshd.token_spec(rules))
@@ -172,7 +188,7 @@ def test_make_step_abstract_args_and_specs_follow_the_reference():
     rules = tshd.default_rules(sh)
     _, args, in_specs, out_specs = tspecs.make_step(tcfg, sh, rules)
     assert_same_abstract(args[2], jspecs.input_specs(
-        jcfg, J_SHAPES["decode_32k"], dtype=jnp.float32)["cache"])
+        jcfg, J_SHAPES["decode_32k"], dtype=jdtype)["cache"])
     assert tuple(args[3].shape) == () and args[3].is_meta
     assert_same_specs(in_specs[2], JT.cache_partition_specs(
         jcfg, sh.global_batch, sh.seq_len, rules))
