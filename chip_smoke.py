@@ -2475,10 +2475,12 @@ def phase_flash_attention(torch, np, card):
 
 
 def bf16_err(got, want) -> tuple:
-    """(max abs error, error as a fraction of max(1, scale)) of a bf16
-    result against its plain version's, on the card."""
+    """(max abs error, ``testing.bf16_err``: the error as a share of the
+    largest value in its row, with no floor) of a bf16 result against its
+    plain version's, on the card."""
+    from repro_torch.testing import bf16_err as row_err
     diff = float((got.float() - want.float()).abs().max())
-    return diff, diff / max(1.0, float(want.float().abs().max()))
+    return diff, row_err(got, want)
 
 
 def _bf16_row(name, source, replaces, shape, errs, timed, plain, lib,
@@ -2496,7 +2498,8 @@ def _bf16_report(tag, row, card):
            f", sdpa bf16 {fmt(row['library_ms'])} "
            f"({fmt(row.get('library_device_ms'))} on the device)")
     print(f"{tag}: error {row['max_abs_err']:.3e} ({row['rel_err']:.3e} of "
-          f"the scale; tolerance {row['tolerance']:.3e}); kernel "
+          f"its row's largest value; tolerance {row['tolerance']:.3e}); "
+          f"kernel "
           f"{fmt(row['ms'])} per call ({fmt(row['device_ms'])} on the "
           f"device), plain {fmt(row['plain_ms'])} "
           f"({fmt(row['plain_device_ms'])} on the device){lib}, bf16 bound "
@@ -2846,7 +2849,8 @@ def phase_ssd_scan_bf16(torch, np, card):
     fp32's rate, as the float32 rows do, on bf16's bytes.  Returns the
     zamba2 prefill's row, the others under ``other_shapes``."""
     from repro_torch.kernels import ssd_scan as sk
-    from repro_torch.testing import SSD_BF16_RTOL, SSD_CASES, ssd_case
+    from repro_torch.testing import (SSD_BF16_RTOL, SSD_CASES, SSD_RTOL,
+                                     rel_err, ssd_case)
     cases = [(1, 384, 112, 64, 64, 256, False, False, "path"),
              (1, 384, 112, 64, 64, 256, True, True, "path"),
              (1, 384, 80, 64, 128, 256, True, False, "path")] + [
@@ -2862,9 +2866,10 @@ def phase_ssd_scan_bf16(torch, np, card):
         y, fin = sk.ssd_scan(x, dt, A, B, C, **kw)
         y_ref, fin_ref = sk.ssd_scan_ref(x, dt, A, B, C, **kw)
         errs = bf16_err(y, y_ref)
-        fin_err = bf16_err(fin, fin_ref)[1]
+        # the final state is float32: held as the float32 rows hold it
+        fin_err = rel_err(fin.cpu(), fin_ref.cpu())
         if not (y.dtype == torch.bfloat16 and fin.dtype == torch.float32
-                and errs[1] <= SSD_BF16_RTOL and fin_err <= SSD_BF16_RTOL
+                and errs[1] <= SSD_BF16_RTOL and fin_err <= SSD_RTOL
                 and bool(torch.isfinite(y).all())):
             raise AssertionError(f"K8 bf16 at s={s} h={h} p={p} n={n}: "
                                  f"y {errs}, final state {fin_err}")
@@ -3088,9 +3093,9 @@ def phase_dryrun_kernels(torch, np, card, batches):
     """(c) K6, K7 and K8 at the dry run's 32k card shapes and batches on
     bf16 operands, the steps' own, against their plain versions (K6 on
     256-query slices at the head and tail: its plain version over all 32k
-    queries would hold 137 GB of scores a row; K8 on the first batch row:
-    its plain version's s x s decay tensors over six rows pass 80 GB, so
-    its plain time is not measured there), timed with their bf16 bounds
+    queries would hold 137 GB of scores a row; K8 row by row: its plain
+    version's s x s decay tensors over six rows pass 80 GB, so its plain
+    time is not measured there), timed with their bf16 bounds
     and SDPA's bf16 time where it computes the same function (K6 over
     DRYRUN_K6_REPS calls).  Then the float32 K6 row at 2 x 32k, the shape
     ROADMAP queue 2 tracks against SDPA.  Returns {kernel name: row}, the
@@ -3102,7 +3107,7 @@ def phase_dryrun_kernels(torch, np, card, batches):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as sk
     from repro_torch.testing import (ATTN_ATOL, ATTN_BF16_RTOL,
-                                     SSD_BF16_RTOL)
+                                     SSD_BF16_RTOL, SSD_RTOL, rel_err)
     cfg = get_config(DRYRUN_ARCH)
     s = INPUT_SHAPES["prefill_32k"].seq_len
     bp, bd = batches["prefill_32k"], batches["decode_32k"]
@@ -3170,11 +3175,16 @@ def phase_dryrun_kernels(torch, np, card, batches):
     B, C = randn(bp, s, n_, scale=0.3), randn(bp, s, n_, scale=0.3)
     kw = dict(chunk=cfg.ssm_chunk)
     y, fin = sk.ssd_scan(x, dt, A, B, C, **kw)
-    y_ref, fin_ref = sk.ssd_scan_ref(x[:1], dt[:1], A, B[:1], C[:1], **kw)
-    err = bf16_err(y[:1], y_ref)
-    fin_err = bf16_err(fin[:1], fin_ref)[1]
-    del y_ref, fin_ref
-    if not (err[1] <= SSD_BF16_RTOL and fin_err <= SSD_BF16_RTOL
+    err, fin_err, t0 = (0.0, 0.0), 0.0, time.perf_counter()
+    for r in range(bp):
+        y_ref, fin_ref = sk.ssd_scan_ref(x[r:r + 1], dt[r:r + 1], A,
+                                         B[r:r + 1], C[r:r + 1], **kw)
+        e = bf16_err(y[r:r + 1], y_ref)
+        err = (max(err[0], e[0]), max(err[1], e[1]))
+        fin_err = max(fin_err, rel_err(fin[r:r + 1].cpu(), fin_ref.cpu()))
+        del y_ref, fin_ref
+    ref_s = time.perf_counter() - t0
+    if not (err[1] <= SSD_BF16_RTOL and fin_err <= SSD_RTOL
             and bool(torch.isfinite(y).all())):
         raise AssertionError(f"K8 bf16 at {bp} x {s}: error {err}, final "
                              f"state {fin_err}")
@@ -3183,12 +3193,13 @@ def phase_dryrun_kernels(torch, np, card, batches):
     row = _bf16_row("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
                     "src/repro/kernels/ssd_scan.py:74",
                     f"b={bp} s={s} h={hs} p={p_} n={n_} "
-                    f"chunk={cfg.ssm_chunk} (error on row 0)", err, timed,
+                    f"chunk={cfg.ssm_chunk} (error row by row)", err, timed,
                     (None, None), None,
                     bound_ms(nbytes, ssd_ops(bp, s, hs, p_, n_)),
                     SSD_BF16_RTOL)
     row["bound_tc_ms"], row["bound_tc_by"] = tc_bound_ms(
         nbytes, *ssd_tc_ops(bp, s, hs, p_, n_, cfg.ssm_chunk))
+    row.update(final_state_err=fin_err, reference_s=ref_s)
     rows["ssd_scan"] = row
     del x, dt, A, B, C, y, fin
     torch.cuda.empty_cache()
@@ -3223,6 +3234,9 @@ def phase_dryrun_kernels(torch, np, card, batches):
     for name, row in rows.items():
         tc = ("" if "bound_tc_ms" not in row else
               f", tensor-core bound {row['bound_tc_ms']:.6f} ms")
+        if "final_state_err" in row:
+            tc += (f", final state {row['final_state_err']:.3e} (tolerance "
+                   f"{SSD_RTOL}), plain versions {row['reference_s']:.1f} s")
         _bf16_report(f"dryrun kernel {name} bf16 {row['shape']}{tc}", row,
                      card)
     fp32 = k6(2, torch.float32, DRYRUN_K6_FP32_REPS)
@@ -4442,11 +4456,12 @@ def launcher_cut(card):
 
 class GradNorms:
     """Wraps ``AdamW.update`` (looked up at call time by make_step's step)
-    to record the global norm of each update's gradients."""
+    to record the global norm of each update's gradients and, with
+    ``keep``, the gradients themselves (the tree, where they lie)."""
 
-    def __init__(self):
+    def __init__(self, keep: bool = False):
         from repro_torch.training.optimizer import AdamW
-        self.cls, self.norms = AdamW, []
+        self.cls, self.keep, self.norms, self.grads = AdamW, keep, [], []
 
     def __enter__(self):
         from repro_torch.training.optimizer import global_norm
@@ -4454,6 +4469,8 @@ class GradNorms:
 
         def update(opt, grads, state, params):
             self.norms.append(float(global_norm(grads)))
+            if self.keep:
+                self.grads.append(grads)
             return self.saved(opt, grads, state, params)
         self.cls.update = update
         return self
@@ -4463,19 +4480,75 @@ class GradNorms:
         return False
 
 
+def flat_leaves(tree) -> dict:
+    """``{checkpoint key: tensor}`` of a tree, the tensors where they lie
+    (``weights.map_with_path``'s keys, as ``weights._flatten``'s)."""
+    from repro_torch import weights
+    flat = {}
+    weights.map_with_path(lambda k, t: flat.__setitem__(k, t), tree)
+    return flat
+
+
+def leaf_l2_err(got, want) -> float:
+    """||got - want|| / ||want|| of one gradient leaf, in float64 on
+    ``got``'s device: its size and its direction at once (0 where both
+    are 0)."""
+    got, want = got.double(), want.to(got.device).double()
+    diff = float(got.sub(want).norm())
+    return diff / float(want.norm()) if diff else 0.0
+
+
+def bf16_update_ulps(got: dict, want: dict, lr: float) -> tuple:
+    """Flat bf16 parameter trees after one optimizer step from the same
+    parameters and gradients on two devices, compared on ``got``'s
+    device: (the largest difference of an entry in bf16 ulps of the
+    larger of the two, after 2^-16 lr of float32 rounding in the update is
+    taken off; the share of entries that differ at all)."""
+    worst, differ, total = 0.0, 0, 0
+    for k, w in want.items():
+        a = got[k].float()
+        w = w.to(a.device).float()
+        if a.shape != w.shape or not bool(a.isfinite().all()):
+            raise AssertionError(f"launcher step parameters {k}: shape "
+                                 f"{tuple(a.shape)} vs {tuple(w.shape)} or "
+                                 f"non-finite")
+        diff = (a - w).abs()
+        differ, total = differ + int((diff > 0).sum()), total + diff.numel()
+        over = (diff - 2.0 ** -16 * lr).clamp(min=0.0)
+        ulp = BF16_ULP_OF * a.abs().maximum(w.abs())
+        ulps = (over / ulp).masked_fill(over == 0, 0.0)
+        worst = max(worst, float(ulps.max()) if ulps.numel() else 0.0)
+    return worst, differ / max(1, total)
+
+
+# a bf16 value's ulp as a share of the value: 2^-7 at most
+BF16_ULP_OF = 2.0 ** -7
+
+
 def phase_llm_launcher_reference(torch, np, card):
     """One bf16 step of the launcher's make_step (remat, AdamW) on
-    LLM_ARCH at full width cut to 9 layers, 1 x LAUNCHER_REF_SEQ tokens, from
-    the same bf16 weights on the card and the CPU: the loss and the
-    gradients' global norm within BF16_LLM_RTOL (averages: the bf16 noise
-    that grows through the model, and moves single gradient entries far,
-    does not move them past it), the parameters bf16 after the step."""
+    LLM_ARCH at full width cut to 9 layers, 1 x LAUNCHER_REF_SEQ tokens,
+    from the same bf16 weights on the card and the CPU.  The loss and the
+    gradients' global norm agree within BF16_LLM_RTOL.  Every gradient
+    leaf agrees within BF16_GRAD_RTOL of its own norm
+    (:func:`leaf_l2_err`, its size and direction: a missing leaf is 1 off,
+    a reversed one 2), and the median leaf's norm within BF16_LLM_RTOL: the
+    global norm, which the embedding fills, shows neither.  The
+    parameters after the step are bf16 and are what AdamW makes on the CPU
+    from the card's own gradients, within one bf16 ulp an entry
+    (:func:`bf16_update_ulps`).  Beside it, as a yardstick, the step's
+    gradients on the card with K6 and K8 replaced by their plain versions
+    (no kernel at all) against the CPU's: the bf16 program's own spread
+    between the two devices, which a single bf16 rounding anywhere in the
+    9 layers feeds.  The comparisons run on the card."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import ops, ref
     from repro_torch.launch.specs import COMPUTE_DTYPE, make_step
     from repro_torch.models import schema as sch
     from repro_torch.models import transformer as tfm
-    from repro_torch.testing import BF16_LLM_RTOL, leaf_rel_err
+    from repro_torch.testing import (BF16_GRAD_RTOL, BF16_LLM_RTOL,
+                                     leaf_rel_err)
     from repro_torch.training import data, train_loop
     from repro_torch.training.optimizer import AdamW, tree_leaves
     cfg = block_cut(get_config(LLM_ARCH), 1)
@@ -4484,33 +4557,82 @@ def phase_llm_launcher_reference(torch, np, card):
     cpu_params = tfm.init_params(cfg, SEED, "cpu", COMPUTE_DTYPE)
     batch = next(iter(data.TokenStream(cfg.vocab_size, LAUNCHER_REF_SEQ, 1,
                                        SEED)))
-    runs, wall = {}, {}
-    for dev in ("cuda", "cpu"):
+
+    def run(dev):
         params = sch.tree_map(lambda t: t.to(dev), cpu_params)
         t0 = time.perf_counter()
-        with GradNorms() as norms:
-            new, state, m = step(params, AdamW(lr=LAUNCHER_LR).init(params),
-                                 train_loop.to_device(batch, dev))
-        runs[dev] = (float(m["loss"]), norms.norms[0],
-                     all(t.dtype == COMPUTE_DTYPE for t in tree_leaves(new)))
-        wall[dev] = time.perf_counter() - t0
-        del params, new, state
-    torch.cuda.empty_cache()
-    (loss, norm, kept), (loss0, norm0, _) = runs["cuda"], runs["cpu"]
-    card_s, cpu_s = wall["cuda"], wall["cpu"]
+        with GradNorms(keep=True) as tap:
+            new, _, m = step(params, AdamW(lr=LAUNCHER_LR).init(params),
+                             train_loop.to_device(batch, dev))
+            loss = float(m["loss"])
+        wall = time.perf_counter() - t0
+        return dict(loss=loss, norm=tap.norms[0], grads=tap.grads[0],
+                    params=flat_leaves(new),
+                    kept=all(t.dtype == COMPUTE_DTYPE
+                             for t in tree_leaves(new)), wall=wall)
+
+    card_run, cpu_run = run("cuda"), run("cpu")
+    saved = ops.flash_attention, ops.ssd_scan
+    ops.flash_attention, ops.ssd_scan = ref.flash_attention, ref.ssd_scan
+    try:
+        plain_g = flat_leaves(run("cuda")["grads"])
+    finally:
+        ops.flash_attention, ops.ssd_scan = saved
+    g, g0 = flat_leaves(card_run["grads"]), flat_leaves(cpu_run["grads"])
+    loss, loss0 = card_run["loss"], cpu_run["loss"]
+    norm, norm0 = card_run["norm"], cpu_run["norm"]
     loss_err, norm_err = leaf_rel_err(loss, loss0), leaf_rel_err(norm, norm0)
-    if not (np.isfinite(loss) and kept and loss_err <= BF16_LLM_RTOL
-            and norm_err <= BF16_LLM_RTOL):
-        raise AssertionError(f"launcher step card vs CPU: loss {loss} vs "
-                             f"{loss0}, gradient norm {norm} vs {norm0}, "
-                             f"bf16 parameters kept {kept}")
+    same_keys = g.keys() == g0.keys()
+    errs = {k: leaf_l2_err(g[k], g0[k]) for k in g0}
+    worst = max(errs, key=errs.get)
+    plain = {k: leaf_l2_err(plain_g[k], g0[k]) for k in g0}
+    plain_worst = max(plain, key=plain.get)
+    del plain_g
+    norms = [leaf_rel_err(float(g[k].double().norm()),
+                          float(g0[k].to(g[k].device).double().norm()))
+             for k in g0]
+    median_l2 = float(np.median(list(errs.values())))
+    median_norm = float(np.median(norms))
+    # AdamW on the CPU, from the card's gradients and the same parameters
+    opt = AdamW(lr=LAUNCHER_LR)
+    want = flat_leaves(opt.update(
+        sch.tree_map(lambda t: t.to("cpu"), card_run["grads"]),
+        opt.init(cpu_params), cpu_params)[0])
+    ulps, differ = bf16_update_ulps(card_run["params"], want, LAUNCHER_LR)
+    del want, g, card_run["grads"], card_run["params"]
+    torch.cuda.empty_cache()
     print(f"launcher step card vs CPU in bf16, {cfg.name} at full width, 1 x"
           f" {LAUNCHER_REF_SEQ} tokens: loss {loss:.6f} vs {loss0:.6f} "
           f"({loss_err:.2e}), gradient norm {norm:.4f} vs {norm0:.4f} "
-          f"({norm_err:.2e}; tolerance {BF16_LLM_RTOL}); one step "
-          f"{card_s:.2f} s on the card, {cpu_s:.2f} s on the CPU [{card}]")
+          f"({norm_err:.2e}; tolerance {BF16_LLM_RTOL}); {len(errs)} "
+          f"gradient leaves within {errs[worst]:.3e} of their norm (worst "
+          f"{worst}; median {median_l2:.3e}; BF16_GRAD_RTOL "
+          f"{BF16_GRAD_RTOL}), their norms within {max(norms):.3e} (median "
+          f"{median_norm:.3e}; tolerance {BF16_LLM_RTOL}); the plain "
+          f"program on the card, no kernel, {plain[plain_worst]:.3e} (worst "
+          f"{plain_worst}; median "
+          f"{float(np.median(list(plain.values()))):.3e}); the card's "
+          f"parameters after the step AdamW's on the CPU from its gradients "
+          f"within {ulps:.3f} bf16 ulp ({differ:.3e} of the entries differ);"
+          f" one step {card_run['wall']:.2f} s on the card, "
+          f"{cpu_run['wall']:.2f} s on the CPU [{card}]")
+    if not (np.isfinite(loss) and card_run["kept"] and same_keys
+            and loss_err <= BF16_LLM_RTOL
+            and norm_err <= BF16_LLM_RTOL and errs[worst] <= BF16_GRAD_RTOL
+            and median_norm <= BF16_LLM_RTOL and ulps <= 1.0):
+        raise AssertionError(f"launcher step card vs CPU: loss {loss} vs "
+                             f"{loss0}, gradient norm {norm} vs {norm0}, "
+                             f"worst gradient leaf {worst} {errs[worst]:.3e}"
+                             f", median leaf norm {median_norm:.3e}, "
+                             f"parameters {ulps:.3f} ulp, bf16 parameters "
+                             f"kept {card_run['kept']}")
     return {"loss_err": loss_err, "grad_norm_err": norm_err,
-            "cpu_s": cpu_s}
+            "grad_err": errs[worst], "worst_leaf": worst,
+            "grad_err_median": median_l2, "leaf_norm_err": max(norms),
+            "leaf_norm_err_median": median_norm, "params_ulps": ulps,
+            "params_differ": differ,
+            "plain_on_card_grad_err": plain[plain_worst],
+            "cpu_s": cpu_run["wall"]}
 
 
 def phase_llm_launcher(torch, np, card):

@@ -248,6 +248,17 @@ def check_dtypes(operands: Sequence[Operand],
                     + " must share one dtype")
 
 
+# the operand dtypes the LLM kernels (K6, K7, K8) take, and each one's
+# launcher suffix
+DTYPES = (torch.float32, torch.bfloat16)
+_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
+
+
+def launcher(name: str, dtype: torch.dtype) -> str:
+    """The C launcher of kernel ``name`` for operands of ``dtype``."""
+    return name + _SUFFIX[dtype]
+
+
 def check_operands(*operands: Operand,
                    same: Sequence[Sequence[str]] = ()) -> None:
     """Validate a kernel's operands, in one pass, before their pointers go

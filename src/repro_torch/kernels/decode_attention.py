@@ -21,8 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.flash_attention import (DTYPES, MAX_HEAD_DIM,
-                                                 check_options, launcher,
+from repro_torch.kernels.flash_attention import (MAX_HEAD_DIM, check_options,
                                                  pair_work, row_array)
 
 launches = 0          # wrapper calls that launched the kernels (ops.py)
@@ -60,18 +59,20 @@ def workspace_bytes(q: torch.Tensor, k_cache: torch.Tensor,
 
 def work(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
          cache_len, *, window: Optional[int] = None,
-         softcap: Optional[float] = None) -> Tuple[int, int]:
-    """(products, other) operations K7 does on these operands: each valid
-    slot (the last ``window`` of them where there is one) for every row and
-    query head.  A tensor ``cache_len`` (which has no value on meta) counts
-    the whole cache (the roofline's floor; ``roofline.analysis``)."""
+         softcap: Optional[float] = None) -> Tuple[int, int, int]:
+    """(products, other, bf16 products) operations K7 does on these
+    operands: each valid slot (the last ``window`` of them where there is
+    one) for every row and query head.  A tensor ``cache_len`` (which has
+    no value on meta) counts the whole cache (the roofline's floor;
+    ``roofline.analysis``)."""
     b, n_q, d = q.shape
     S = k_cache.shape[1]
     rows = S if isinstance(cache_len, torch.Tensor) else min(int(cache_len),
                                                              S)
     if window:
         rows = min(rows, window)
-    return pair_work(b * n_q * rows, d, v_cache.shape[-1], softcap)
+    return pair_work(b * n_q * rows, d, v_cache.shape[-1], softcap,
+                     q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -86,9 +87,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     q = q.contiguous()
     k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
     _build.check_operands(
-        ("q", q, DTYPES, None),
-        ("k_cache", k_cache, DTYPES, (b, S, n_kv, d)),
-        ("v_cache", v_cache, DTYPES, (b, S, n_kv, d)),
+        ("q", q, _build.DTYPES, None),
+        ("k_cache", k_cache, _build.DTYPES, (b, S, n_kv, d)),
+        ("v_cache", v_cache, _build.DTYPES, (b, S, n_kv, d)),
         same=[("q", "k_cache", "v_cache")])
     if n_kv == 0 or n_q % n_kv or not 0 < d <= MAX_HEAD_DIM or S == 0:
         raise ValueError(f"decode_attention: unsupported heads {n_q}/{n_kv},"
@@ -100,7 +101,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         per, nsplit = splits(b, S, n_kv, window)
         ws = torch.empty(workspace_bytes(q, k_cache, window) // 4,
                          dtype=torch.float32, device=q.device)
-        _build.launch(launcher("vpaas_decode_attention", q.dtype),
+        _build.launch(_build.launcher("vpaas_decode_attention", q.dtype),
                       q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                       clen.data_ptr(), ws.data_ptr(), out.data_ptr(), b, S,
                       n_q, n_kv, d, per, nsplit, window or 0,

@@ -39,15 +39,6 @@ vjps = 0              # plain-version VJPs since the last reset (ops.py)
 flash_attention_ref = ref.flash_attention
 
 MAX_HEAD_DIM = 256
-# the operand dtypes the LLM kernels (K6, K7, K8) take, and each one's
-# launcher suffix
-DTYPES = (torch.float32, torch.bfloat16)
-_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
-
-
-def launcher(name: str, dtype: torch.dtype) -> str:
-    """The C launcher of kernel ``name`` for operands of ``dtype``."""
-    return name + _SUFFIX[dtype]
 
 
 def on_tensor_cores(d: int, d_v: int) -> bool:
@@ -81,13 +72,17 @@ def check_options(window: Optional[int], softcap: Optional[float]) -> None:
         raise ValueError(f"softcap must be positive, got {softcap}")
 
 
-def pair_work(pairs: int, d: int, d_v: int,
-              softcap: Optional[float]) -> Tuple[int, int]:
-    """(products, other) floating-point operations of ``pairs`` (query
-    head, key) pairs: q.k and p.v (2 d + 2 d_v), and beside them the
-    scale, running max, exp and sum (5) and a softcap's division, tanh and
-    multiply (3)."""
-    return pairs * 2 * (d + d_v), pairs * (5 + (3 if softcap else 0))
+def pair_work(pairs: int, d: int, d_v: int, softcap: Optional[float],
+              dtype: torch.dtype = torch.float32) -> Tuple[int, int, int]:
+    """(products, other, bf16 products) floating-point operations of
+    ``pairs`` (query head, key) pairs on operands of ``dtype``: q.k and p.v
+    (2 d + 2 d_v), and beside them the scale, running max, exp and sum (5)
+    and a softcap's division, tanh and multiply (3).  The products of bf16
+    operands are all bf16 products: the least time charges them at the bf16
+    tensor-core rate, whichever unit a kernel runs them on."""
+    products = pairs * 2 * (d + d_v)
+    return (products, pairs * (5 + (3 if softcap else 0)),
+            products if dtype == torch.bfloat16 else 0)
 
 
 def causal_pairs(s_q: int, s_kv: int, *, causal: bool,
@@ -106,14 +101,15 @@ def causal_pairs(s_q: int, s_kv: int, *, causal: bool,
 
 def work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
          causal: bool = True, window: Optional[int] = None,
-         softcap: Optional[float] = None, q_offset=0) -> Tuple[int, int]:
-    """(products, other) operations K6 does on these operands: every pair
-    the mask lets through, for each row and query head (the roofline's
-    floor; ``roofline.analysis``)."""
+         softcap: Optional[float] = None,
+         q_offset=0) -> Tuple[int, int, int]:
+    """(products, other, bf16 products) operations K6 does on these
+    operands: every pair the mask lets through, for each row and query head
+    (the roofline's floor; ``roofline.analysis``)."""
     b, s_q, n_q, d = q.shape
     pairs = causal_pairs(s_q, k.shape[1], causal=causal, window=window,
                          q_offset=q_offset)
-    return pair_work(b * n_q * pairs, d, v.shape[-1], softcap)
+    return pair_work(b * n_q * pairs, d, v.shape[-1], softcap, q.dtype)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -127,9 +123,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, s_q, n_q, d = q.shape
     s_kv, n_kv, d_v = k.shape[1], k.shape[2], v.shape[-1]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    _build.check_operands(("q", q, DTYPES, None),
-                          ("k", k, DTYPES, (b, s_kv, n_kv, d)),
-                          ("v", v, DTYPES, (b, s_kv, n_kv, d_v)),
+    _build.check_operands(("q", q, _build.DTYPES, None),
+                          ("k", k, _build.DTYPES, (b, s_kv, n_kv, d)),
+                          ("v", v, _build.DTYPES, (b, s_kv, n_kv, d_v)),
                           same=[("q", "k", "v")])
     if (n_kv == 0 or n_q % n_kv or not 0 < d_v <= d <= MAX_HEAD_DIM
             or s_kv == 0):
@@ -139,7 +135,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     off = row_array(q_offset, b, q.device, "q_offset")
     out = q.new_empty((b, s_q, n_q, d_v))
     if b and s_q:
-        _build.launch(launcher("vpaas_flash_attention", q.dtype),
+        _build.launch(_build.launcher("vpaas_flash_attention", q.dtype),
                       q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       off.data_ptr(), out.data_ptr(), b, s_q, s_kv, n_q,
                       n_kv, d, d_v, int(causal), window or 0,

@@ -123,8 +123,8 @@ def _plain(name: str, fn, *args, workspace_bytes: int = 0, work=None,
     """``fn(*args, **kw)``, the plain version of kernel ``name``.  On meta
     tensors it runs inside a kernel region that the ``META_OBSERVERS`` see:
     ``workspace_bytes`` is what the kernel would allocate beside its
-    outputs, and ``work(*args, **kw)`` the (products, other) operations it
-    would do (None: the plain version's count stands)."""
+    outputs, and ``work(*args, **kw)`` the (products, other, bf16 products)
+    operations it would do (None: the plain version's count stands)."""
     if not (args[0].is_meta and META_OBSERVERS):
         return fn(*args, **kw)
     operands = [a for a in (*args, *kw.values())

@@ -32,7 +32,6 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build, ref
-from repro_torch.kernels.flash_attention import DTYPES, launcher
 
 launches = 0          # wrapper calls that launched the kernels (ops.py)
 launches_bf16 = 0     # the launches among them on bf16 operands
@@ -79,11 +78,14 @@ def chunked_ops(b: int, s: int, h: int, p: int, n: int, chunk: int
 
 def work(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
          B: torch.Tensor, C: torch.Tensor, *, chunk: int = 64,
-         initial_state: Optional[torch.Tensor] = None) -> Tuple[int, int]:
-    """(products, other) operations K8 does on these operands
-    (:func:`chunked_ops`; the roofline's floor, ``roofline.analysis``)."""
+         initial_state: Optional[torch.Tensor] = None
+         ) -> Tuple[int, int, int]:
+    """(products, other, bf16 products) operations K8 does on these
+    operands (:func:`chunked_ops`; the roofline's floor,
+    ``roofline.analysis``).  None of its products is a bf16 one, whatever
+    x's dtype: their operands are float32 intermediates (dt x, decays)."""
     b, s, h, p = x.shape
-    return chunked_ops(b, s, h, p, B.shape[-1], chunk)
+    return (*chunked_ops(b, s, h, p, B.shape[-1], chunk), 0)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -98,11 +100,11 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     n = B.shape[-1]
     x, dt, A = x.contiguous(), dt.contiguous(), A.contiguous()
     B, C = B.contiguous(), C.contiguous()
-    operands = [("x", x, DTYPES, None),
+    operands = [("x", x, _build.DTYPES, None),
                 ("dt", dt, torch.float32, (b, s, h)),
                 ("A", A, torch.float32, (h,)),
-                ("B", B, DTYPES, (b, s, n)),
-                ("C", C, DTYPES, (b, s, n))]
+                ("B", B, _build.DTYPES, (b, s, n)),
+                ("C", C, _build.DTYPES, (b, s, n))]
     if initial_state is not None:
         initial_state = initial_state.contiguous()
         operands.append(("initial_state", initial_state, torch.float32,
@@ -117,8 +119,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         nws = workspace_bytes(x, B, chunk) // 4
         ws = (torch.empty(nws, dtype=torch.float32, device=x.device)
               if nws else None)
-        _build.launch(launcher("vpaas_ssd_scan", x.dtype), x.data_ptr(),
-                      dt.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+        _build.launch(_build.launcher("vpaas_ssd_scan", x.dtype),
+                      x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                      B.data_ptr(), C.data_ptr(),
                       None if initial_state is None
                       else initial_state.data_ptr(),
                       y.data_ptr(), fin.data_ptr(),

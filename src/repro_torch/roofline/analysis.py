@@ -29,10 +29,11 @@ version's FLOPs, as the reference's probes count ``impl="ref_unchunked"``
 (a causal attention's full s x s).  The floor does not: it takes those
 FLOPs out (``kernel_plain_flops``) and charges K6's, K7's and K8's own
 operations instead (their modules' ``work``: the pairs a causal mask lets
-through, the chunked scan) and the rest at the compute dtype's.  K6's and
-K7's products are charged at the bf16 tensor-core rate where their
-operands are bf16 (one product each), else in 3xTF32 at the TF32 rate;
-K8's always in 3xTF32 (its products' operands are float32
+through, the chunked scan) and the rest at the compute dtype's.  A
+kernel's ``work`` also says how many of its products are bf16 ones: those
+are charged at the bf16 tensor-core rate (one product each), the rest in
+3xTF32 at the TF32 rate.  K6's and K7's are bf16 ones where their
+operands are bf16; K8's never are (their operands are float32
 intermediates).  Its bytes and memory are the kernel's operands, outputs
 and workspace (written once, read once), so the plain version's s x s
 score matrix, which the kernel never holds, is neither moved nor live.
@@ -58,8 +59,6 @@ from repro_torch.roofline.hw import H100, ChipSpec
 
 # the name of the steps' compute dtype in ``ChipSpec.peak_flops``
 DTYPE_NAME = {torch.float32: "fp32", torch.bfloat16: "bf16"}
-# the kernels whose products run as bf16 mma where their operands are bf16
-BF16_PRODUCT_KERNELS = ("flash_attention", "decode_attention")
 
 _DTYPE_BYTES = {
     "pred": 1, "s4": 1, "s8": 1, "u8": 1, "s16": 2, "u16": 2, "bf16": 2,
@@ -274,8 +273,9 @@ class StepCounter(TorchDispatchMode):
     its outputs and workspace are live.  For a kernel that counts its own
     work, the FLOPs ``flops`` counted inside the region go to
     ``kernel_plain_flops`` and the kernel's own operations to
-    ``kernel_products`` / ``kernel_other`` (and K6's and K7's products on
-    bf16 operands to ``kernel_products_bf16`` too)."""
+    ``kernel_products`` / ``kernel_other``, and those of its products that
+    are bf16 ones to ``kernel_products_bf16`` too (each kernel's ``work``
+    says which)."""
 
     def __init__(self, flops: FlopCounterMode):
         super().__init__()
@@ -331,9 +331,7 @@ class StepCounter(TorchDispatchMode):
                                         - self._flops_at)
             self.kernel_products += work[0]
             self.kernel_other += work[1]
-            if (name in BF16_PRODUCT_KERNELS
-                    and operands[0].dtype == torch.bfloat16):
-                self.kernel_products_bf16 += work[0]
+            self.kernel_products_bf16 += work[2]
         outs = tensors(outputs)
         out_bytes = sum(nbytes(t) for t in outs)
         self.bytes += (_unique_bytes(operands) + out_bytes

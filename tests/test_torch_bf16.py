@@ -9,9 +9,9 @@ held against the same plain versions on the card by
 tests/test_torch_cuda.py.
 
 Tolerances (``repro_torch.testing``): ``ATTN_BF16_RTOL`` and
-``SSD_BF16_RTOL`` (one bf16 ulp of the output's scale) against the Pallas
-kernels, measured at most 1.26e-3 (K6), 0 (K7, bit for bit) and 2.51e-3
-(K8); ``BF16_REF_RTOL`` against the jnp oracles, which round p to bf16
+``SSD_BF16_RTOL`` (one bf16 ulp of each output row's largest value,
+``bf16_err``) against the Pallas kernels, measured at most 2.36e-3 (K6),
+0 (K7, bit for bit) and 6.17e-3 (K8); ``BF16_REF_RTOL`` against the jnp oracles, which round p to bf16
 (measured 5.75e-3 for K6, 5.46e-3 for K7); ``BF16_LLM_RTOL`` for the
 models: layer by layer on the JAX layer's own inputs, the loss end to
 end, and the logits end to end for the two families whose bf16 noise
@@ -47,8 +47,8 @@ from repro_torch.testing import (ATTN_BF16_RTOL, BF16_LLM_RTOL, BF16_REF_RTOL,
                                  FLASH_RAGGED_CASES, SSD_BF16_RTOL,
                                  SSD_CASES, SSD_RTOL,
                                  assert_train_params_close, attention_case,
-                                 decode_case, leaf_rel_err, llm_batch,
-                                 rel_err, ssd_case)
+                                 bf16_err, decode_case, leaf_rel_err,
+                                 llm_batch, rel_err, ssd_case)
 from repro_torch.training import checkpoint
 from repro_torch.training.optimizer import AdamW
 
@@ -103,7 +103,7 @@ def test_flash_attention_bf16_plain_matches_pallas(case):
     got = ops.flash_attention(*_tb(arrays), **kw)
     assert ops.launch_counts()["flash_attention"] == 0     # plain on CPU
     assert got.dtype == BF and got.shape == (b, s_q, n_q, d)
-    assert rel_err(_f(got), _f(want_kernel)) <= ATTN_BF16_RTOL
+    assert bf16_err(_f(got), _f(want_kernel)) <= ATTN_BF16_RTOL
     assert rel_err(_f(got), _f(want_ref)) <= BF16_REF_RTOL
 
 
@@ -138,7 +138,7 @@ def test_decode_attention_bf16_plain_matches_pallas(case):
     want_ref = jref.decode_attention(*_jb(arrays), jnp.asarray(cl), **kw)
     got = ops.decode_attention(*_tb(arrays), torch.as_tensor(cl), **kw)
     assert got.dtype == BF and got.shape == (b, n_q, d)
-    assert rel_err(_f(got), _f(want_kernel)) <= ATTN_BF16_RTOL
+    assert bf16_err(_f(got), _f(want_kernel)) <= ATTN_BF16_RTOL
     assert rel_err(_f(got), _f(want_ref)) <= BF16_REF_RTOL
 
 
@@ -163,7 +163,7 @@ def test_ssd_scan_bf16_plain_matches_pallas(case):
     assert y.dtype == BF and fin.dtype == torch.float32
     assert y_k.dtype == jnp.bfloat16
     for want_y, want_fin in ((y_k, fin_k), (y_r, fin_r)):
-        assert rel_err(_f(y), _f(want_y)) <= SSD_BF16_RTOL
+        assert bf16_err(_f(y), _f(want_y)) <= SSD_BF16_RTOL
         assert rel_err(_f(fin), _f(want_fin)) <= SSD_RTOL
 
 

@@ -34,7 +34,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.serving.server import LLMServer, Request
 from repro_torch.learning import ContinualLearningPlane, LearningConfig
 from repro_torch.testing import (ATTN_ATOL, ATTN_BF16_RTOL, ATTN_VJP_RTOL,
-                                 DECODE_CASES, SSD_BF16_RTOL,
+                                 DECODE_CASES, SSD_BF16_RTOL, bf16_err,
                                  FILTER_CASES, SSD_VJP_RTOL,
                                  FILTER_KW, FLASH_CASES, FLASH_DV_CASES,
                                  FLASH_RAGGED_CASES,
@@ -669,7 +669,7 @@ def test_flash_attention_bf16_kernels_match_plain(cuda, case):
     assert got.dtype == BF and fa.launches == 1
     want = fa.flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert rel_err(got.float().cpu(), want.float().cpu()) <= ATTN_BF16_RTOL
+    assert bf16_err(got, want) <= ATTN_BF16_RTOL
 
 
 @pytest.mark.parametrize("case", FLASH_DV_CASES + [
@@ -683,7 +683,7 @@ def test_flash_attention_bf16_kernel_takes_a_value_head_dim(cuda, case):
     assert got.dtype == BF and got.shape == (b, s_q, n_q, d_v)
     want = fa.flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert rel_err(got.float().cpu(), want.float().cpu()) <= ATTN_BF16_RTOL
+    assert bf16_err(got, want) <= ATTN_BF16_RTOL
 
 
 @pytest.mark.parametrize("case", DECODE_CASES + [
@@ -699,7 +699,7 @@ def test_decode_attention_bf16_kernel_matches_plain(cuda, case):
     assert got.dtype == BF
     want = da.decode_attention_ref(q, kc, vc, cl, **kw)
     torch.cuda.synchronize()
-    assert rel_err(got.float().cpu(), want.float().cpu()) <= ATTN_BF16_RTOL
+    assert bf16_err(got, want) <= ATTN_BF16_RTOL
     assert torch.equal(da.decode_attention(q, kc, vc, cl, **kw), got)
 
 
@@ -718,7 +718,7 @@ def test_ssd_scan_bf16_kernel_matches_plain(cuda, case):
     y_ref, fin_ref = sk.ssd_scan_ref(x, dt, A, B, C, chunk=chunk,
                                      initial_state=st)
     torch.cuda.synchronize()
-    assert rel_err(y.float().cpu(), y_ref.float().cpu()) <= SSD_BF16_RTOL
+    assert bf16_err(y, y_ref) <= SSD_BF16_RTOL
     assert rel_err(fin.cpu(), fin_ref.cpu()) <= SSD_RTOL
     y2, fin2 = sk.ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=st)
     assert torch.equal(y2, y) and torch.equal(fin2, fin)
@@ -760,8 +760,7 @@ def test_flash_attention_bf16_gradients_are_the_plain_vjp(cuda, case):
     assert counts["flash_attention_vjp"] == 1
     (got, g_got), (want, g_want) = out["kernel"], out["plain"]
     assert got[0].dtype == BF
-    assert rel_err(got[0].float().cpu(), want[0].float().cpu()) \
-        <= ATTN_BF16_RTOL
+    assert bf16_err(got[0], want[0]) <= ATTN_BF16_RTOL
     # the backward is the plain version's VJP itself, on the same bf16
     # operands and cotangent: the same bits
     for x, w in zip(g_got, g_want):
@@ -787,8 +786,7 @@ def test_ssd_scan_bf16_gradients_are_the_plain_vjp(cuda, case):
     counts = ops.launch_counts()
     assert counts["ssd_scan"] == 1 and counts["ssd_scan_vjp"] == 1
     (got, g_got), (want, g_want) = out["kernel"], out["plain"]
-    assert rel_err(got[0].float().cpu(), want[0].float().cpu()) \
-        <= SSD_BF16_RTOL
+    assert bf16_err(got[0], want[0]) <= SSD_BF16_RTOL
     assert rel_err(got[1].cpu(), want[1].cpu()) <= SSD_RTOL
     for a, w in zip(g_got, g_want):
         assert a.dtype == w.dtype and torch.equal(a, w)

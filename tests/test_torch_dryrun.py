@@ -210,7 +210,7 @@ def test_kernel_work_counts_each_kernels_own_operations():
     pairs = fa.causal_pairs(16, 80, causal=True, window=None, q_offset=64)
     assert fa.work(q, k, v, q_offset=meta(2).long()) == fa.work(
         q, k, v, q_offset=64) == (2 * 8 * pairs * 2 * (32 + 16),
-                                  2 * 8 * pairs * 5)
+                                  2 * 8 * pairs * 5, 0)
     assert fa.work(q, k, v, softcap=30.0, q_offset=64)[1] == \
         2 * 8 * pairs * 8
     qd, kc = meta(2, 8, 32), meta(2, 256, 2, 32)
@@ -222,7 +222,7 @@ def test_kernel_work_counts_each_kernels_own_operations():
         2 * 8 * 256, 32, 32, None)
     x, B = meta(2, 100, 4, 8), meta(2, 100, 16)
     assert sk.work(x, meta(2, 100, 4), meta(4), B, B, chunk=32) == \
-        sk.chunked_ops(2, 100, 4, 8, 16, 32)
+        (*sk.chunked_ops(2, 100, 4, 8, 16, 32), 0)
     # the decode step's K7: the plain version's einsums count what the
     # kernel's products are, at a full cache
     rep = analyze_step(lambda q, k: ops.decode_attention(q, k, k, 256),
