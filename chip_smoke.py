@@ -148,35 +148,41 @@ def _self_device_us(event) -> float:
     return 0.0
 
 
-def device_us_per_call(avgs, reps: int, once: bool = False) -> float:
+def device_us_per_call(avgs, reps: int, once: bool = False):
     """Device time of one call from a profile of ``reps`` identical calls:
-    each kernel's mean duration times its launches per call, rounded to a
-    whole number.  The profiler can drop a few kernel events of a window
-    (3 of 20 in a run of K7, 3 of 30 of K8); dividing the plain sum by
-    ``reps`` would count them as time the card did not spend.  With
-    ``once`` (a call known to launch each of its kernels once) it is the
-    sum of the kernels' mean durations, whatever share of the events the
-    profiler kept (on an H100 it once kept 6 of 30 events of a K5 run)."""
+    each kernel's mean duration times its launches per call, or None (not
+    measured) where the window lost events.  A kernel's launches per call
+    are 1 with ``once`` (a call known to launch each of its kernels once),
+    else its events over ``reps`` rounded up; a kernel with fewer events
+    than ``reps`` times that lost some.  The profiler drops events (3 of 20
+    in a run of K7, 6 of 30 of K5, 4 of 5 of K6 at 32k on an H100), and
+    scaling a kernel's time by the share it kept printed K6 at a fifth of
+    its time."""
     total = 0.0
     for e in avgs:
         us = _self_device_us(e)
         if us > 0:
-            per_call = 1 if once else (round(e.count / reps)
-                                       or e.count / reps)
+            per_call = 1 if once else -(-e.count // reps)
+            if e.count < reps * per_call:
+                return None
             total += us / e.count * per_call
     return total
+
+
+PROFILE_ATTEMPTS = 3     # windows profiled before a device time is null
 
 
 def profile_device(torch, fn, reps: int = 1, once: bool = False):
     """Run ``fn`` ``reps`` times under torch.profiler (CUPTI); return the
     device time per call in ms and the key averages; ``once`` as in
-    :func:`device_us_per_call`.  A profile that recorded no device time is
-    taken once more (CUPTI has lost a whole window on an H100) before the
-    time is reported as None; a line says when the retry was needed."""
+    :func:`device_us_per_call`.  A window that recorded no device time
+    (CUPTI has lost a whole window on an H100) or lost some events is
+    taken again, up to PROFILE_ATTEMPTS windows, before the time is
+    reported as None; a line says when a retry was needed."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for attempt in range(2):
+    for attempt in range(PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -185,10 +191,11 @@ def profile_device(torch, fn, reps: int = 1, once: bool = False):
         avgs = prof.key_averages()
         total_us = device_us_per_call(avgs, reps, once)
         if attempt:
-            print(f"  profile_device: the profiler kept no device event of "
-                  f"a window of {reps} call(s); the retry "
-                  + ("did" if total_us > 0 else "did not either: null"))
-        if total_us > 0:
+            print(f"  profile_device: retry {attempt} of a window of {reps} "
+                  f"call(s) whose profile lost device events: "
+                  + ("complete" if total_us else "lost events again"
+                     + (": null" if attempt + 1 == PROFILE_ATTEMPTS else "")))
+        if total_us:
             return total_us / 1e3, avgs
     return None, avgs
 
@@ -239,12 +246,14 @@ def versus_library(torch, kernel, library, reps: int = 30,
              profile_device(torch, library, reps)[0]), turns)
 
 
-def _report_turns(tag, turns, lib_timed, lib_name, card):
+def _report_turns(tag, turns, row, lib_name, card):
+    """The turns' per-call times and the library's device time, as
+    :func:`flag_below_bound` left it in ``row``."""
     k, lib = turns["kernel"], turns["library"]
     print(f"{tag} in turns (kernel, {lib_name}, {lib_name}, kernel): kernel "
           f"{k[0]:.4f}, {k[1]:.4f} ms per call; {lib_name} {lib[0]:.4f}, "
-          f"{lib[1]:.4f} ms per call ({fmt(lib_timed[1])} on the device) "
-          f"[{card}]")
+          f"{lib[1]:.4f} ms per call ({fmt(row.get('library_device_ms'))} "
+          f"on the device) [{card}]")
 
 
 def fmt(ms) -> str:
@@ -307,14 +316,35 @@ def _row(name, source, replaces, shape, err, timed, plain, lib, nbytes, ops):
                 library_ms=lib)
 
 
+DEVICE_KEYS = ("device_ms", "plain_device_ms", "library_device_ms")
+
+
+def flag_below_bound(row) -> str:
+    """Each device time of ``row`` (kernel, plain version, library) that
+    reads below the row's least bound (``bound_ms``, or ``bound_tc_ms``
+    where that is lower) moves to ``<key>_below_bound`` and reads None: no
+    call computes the function faster than its bound, so such a reading is
+    the timer's fault, not a time.  Returns the note the row's line adds."""
+    bound = min(row["bound_ms"], row.get("bound_tc_ms") or row["bound_ms"])
+    notes = []
+    for key in DEVICE_KEYS:
+        ms = row.get(key)
+        if ms is not None and ms < bound:
+            row[key], row[key + "_below_bound"] = None, ms
+            notes.append(f"{key} read {ms:.6f} ms, below the bound "
+                         f"{bound:.6f} ms: not a time")
+    return "".join(f"; {n}" for n in notes)
+
+
 def _report(tag, row, card, lib_name=None):
+    flags = flag_below_bound(row)
     lib = ("" if lib_name is None else
            f", {lib_name} {fmt(row['library_ms'])}")
     print(f"{tag}: kernel {fmt(row['ms'])} per call "
           f"({fmt(row['device_ms'])} on the device), plain "
           f"{fmt(row['plain_ms'])} ({fmt(row['plain_device_ms'])} on the "
           f"device){lib}, bound {row['bound_ms']:.6f} ms ({row['bound_by']})"
-          f" [{card}]")
+          f"{flags} [{card}]")
 
 
 # valid accepted boxes a frame in the sparse cases: what NMS keeps on the
@@ -577,7 +607,7 @@ def phase_crop_gather(torch, np, card):
         row.update(library_device_ms=lib[1], turns_ms=turns)
         tag = f"K2 crop_gather B={b} ({n_valid} valid) F={f}"
         _report(f"{tag}: bit-equal", row, card, "grid_sample")
-        _report_turns(tag, turns, lib, "grid_sample", card)
+        _report_turns(tag, turns, row, "grid_sample", card)
         if b == 128:                       # the path's largest bucket
             main_row = row
     main_row["host_us"] = phase_k2_host_path(torch, np, card)
@@ -672,12 +702,13 @@ def phase_onevsall(torch, np, card):
                    f"B={b} G={g} D1={d1} C={c}", err, timed, plain,
                    None if lib is None else lib[0], nbytes, ops)
         tag = f"K3 onevsall_scores B={b} G={g} D1={d1} C={c}"
+        if g == 1:
+            row.update(library_device_ms=lib[1], turns_ms=turns)
         _report(f"{tag}: max abs err {err:.3e}", row, card,
                 "sigmoid(mm)" if g == 1 else None)
         if g == 1:                          # the full-budget classify batch
-            _report_turns(tag, turns, lib, "sigmoid(mm)", card)
-            row.update(library_device_ms=lib[1], turns_ms=turns,
-                       host_us=phase_k3_host_path(torch, np, card))
+            _report_turns(tag, turns, row, "sigmoid(mm)", card)
+            row["host_us"] = phase_k3_host_path(torch, np, card)
             main_row = row
     return main_row
 
@@ -782,7 +813,7 @@ def phase_onevsall_update(torch, np, card):
                 + (" + combine" if tiles > 1 else "")
                 + f", {update_smem_bytes(d1, c)} B dyn. smem", row, card,
                 "cuBLAS composition addmm(w, x^T, sigmoid(x w) - y)")
-        _report_turns(tag, turns, lib, "addmm composition", card)
+        _report_turns(tag, turns, row, "addmm composition", card)
         rows.append(row)
     for line in ptxas:
         print(f"  K5 ptxas: {line}")
@@ -2360,6 +2391,49 @@ def flash_bound(b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap,
     return nbytes, pairs * n_q * _attn_ops_per_pair(d, cap, d_v), pairs
 
 
+def flash_tc_bound(nbytes, head_pairs, d, d_v, cap):
+    """K6's float32 bound with its products on the tensor cores: q.k and
+    p.v (2 (d + d_v) a (query head, key) pair, as
+    ``flash_attention.pair_work`` counts them) in 3xTF32, the softmax on
+    the CUDA cores (:func:`tc_bound_ms`)."""
+    mma = head_pairs * 2 * (d + d_v)
+    return tc_bound_ms(nbytes, mma, head_pairs
+                       * _attn_ops_per_pair(d, cap, d_v) - mma)
+
+
+def k6_instance(fa, b, s_q, n_q, d, d_v, dtype) -> str:
+    """The name (as ptxas reports it) of the K6 kernel instance that the
+    launcher runs on these operands: its dispatch's head-dim steps, the
+    routes and the bf16 block rows asked of the built library.  Where this
+    run built the library, ptxas must have named that instance."""
+    name = _k6_instance(fa, b, s_q, n_q, d, d_v, dtype)
+    from repro_torch.kernels import _build
+    if _build.build_log and not kernel_ptxas(name + ":"):
+        raise AssertionError(f"K6 routes {d}/{d_v} {dtype} to {name}, "
+                             f"which ptxas did not compile")
+    return name
+
+
+def _k6_instance(fa, b, s_q, n_q, d, d_v, dtype) -> str:
+    import torch
+    if dtype == torch.bfloat16 and fa.on_tensor_cores(d, d_v, dtype):
+        dp = -(-d // 8) * 8
+        nkt = next(n for n in (2, 4, 6, 7, 8) if 16 * n >= dp)
+        nwg = fa.block_rows(b, s_q, n_q) // 64
+        return f"flash_attention_wgmma_kernel<{nwg}, {nkt}>"
+    if dtype == torch.float32 and fa.on_tensor_cores(d, d_v):
+        if d == d_v:
+            ndt = nvt = next(n for n in (4, 8, 12, 14, 16) if 8 * n >= d)
+        else:
+            ndt = next(n for n in (8, 12, 16, 24) if 8 * n >= d)
+            nvt = 8 if d_v <= 64 else 16
+        rw = 4 if d <= 128 else 2          # row warps: 32-row blocks past 128
+        return f"flash_attention_mma_kernel<{ndt}, {nvt}, {rw}>"
+    nc = 2 if d_v <= 64 else 4 if d_v <= 128 else 8
+    elem = "bf16" if dtype == torch.bfloat16 else "float"
+    return f"flash_attention_simt_kernel<{elem}, {nc}>"
+
+
 # the K6 shapes of the LLM paths, q_offset 0: (b, s_q, s_kv, n_q, n_kv, d,
 # d_v, causal, window, softcap, what)
 FLASH_PATH_SHAPES = (
@@ -2388,7 +2462,8 @@ def phase_flash_attention(torch, np, card):
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.testing import (ATTN_ATOL, FLASH_CASES, FLASH_DV_CASES,
-                                     FLASH_RAGGED_CASES, attention_case)
+                                     FLASH_EDGE_CASES, FLASH_RAGGED_CASES,
+                                     attention_case)
     rows = []
     for (b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap,
          what) in FLASH_PATH_SHAPES:
@@ -2414,9 +2489,9 @@ def phase_flash_attention(torch, np, card):
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             timed, lib, turns = versus_library(
                 torch, kernel, lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=causal))
+                    qt, kt, vt, is_causal=causal), once=True)
         else:
-            timed = measure(torch, kernel)
+            timed = measure(torch, kernel, once=True)
         nbytes, ops, pairs = flash_bound(b, s_q, s_kv, n_q, n_kv, d, d_v,
                                          causal, window, cap)
         row = _row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -2427,21 +2502,20 @@ def phase_flash_attention(torch, np, card):
                    None if lib is None else lib[0], nbytes, ops)
         tc = ", CUDA cores"
         if fa.on_tensor_cores(d, d_v):
-            # the products (QK^T and PV, 4d per pair) on the tensor cores in
-            # 3xTF32, the softmax on the CUDA cores
-            row["bound_tc_ms"], row["bound_tc_by"] = tc_bound_ms(
-                nbytes, pairs * n_q * 4 * d,
-                pairs * n_q * (_attn_ops_per_pair(d, cap) - 4 * d))
+            row["bound_tc_ms"], row["bound_tc_by"] = flash_tc_bound(
+                nbytes, pairs * n_q, d, d_v, cap)
             tc = (f", tensor-core bound {row['bound_tc_ms']:.6f} ms "
                   f"({row['bound_tc_by']})")
+        row["kernel"] = k6_instance(fa, b, s_q, n_q, d, d_v, q.dtype)
         tag = (f"K6 flash_attention {what} s_q={s_q} s_kv={s_kv} "
                f"{n_q}/{n_kv} heads d={d} d_v={d_v} causal={causal} "
                f"window={window} softcap={cap}")
-        _report(f"{tag}: max abs err {err:.3e}{tc}", row, card,
-                "sdpa" if lib is not None else None)
         if turns is not None:
-            _report_turns(tag, turns, lib, "sdpa", card)
             row.update(library_device_ms=lib[1], turns_ms=turns)
+        _report(f"{tag}: {row['kernel']}, max abs err {err:.3e}{tc}", row,
+                card, "sdpa" if lib is not None else None)
+        if turns is not None:
+            _report_turns(tag, turns, row, "sdpa", card)
         row["what"] = what
         rows.append(row)
     main_row = rows[0]
@@ -2450,7 +2524,8 @@ def phase_flash_attention(torch, np, card):
     # tight against its 3xTF32 products: ROADMAP queue 3)
     errors = []
     cases = [c[:6] + (c[5],) + c[6:]          # d_v = d
-             for c in FLASH_CASES + FLASH_RAGGED_CASES] + FLASH_DV_CASES
+             for c in FLASH_CASES + FLASH_RAGGED_CASES] + FLASH_DV_CASES \
+        + FLASH_EDGE_CASES
     for b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off in cases:
         q, k, v = (torch.as_tensor(a, device="cuda") for a in
                    attention_case(b, s_q, s_kv, n_q, n_kv, d, d_v=d_v))
@@ -2465,7 +2540,9 @@ def phase_flash_attention(torch, np, card):
             raise AssertionError(f"K6 at the test case {shape}: max abs "
                                  f"error {err} exceeds {ATTN_ATOL}")
         errors.append({"shape": shape, "max_abs_err": err,
-                       "tensor_cores": fa.on_tensor_cores(d, d_v)})
+                       "tensor_cores": fa.on_tensor_cores(d, d_v),
+                       "kernel": k6_instance(fa, b, s_q, n_q, d, d_v,
+                                             q.dtype)})
     main_row["case_errors"] = errors
     print(f"K6 at the {len(errors)} test-case shapes: max abs err "
           + ", ".join(f"{e['max_abs_err']:.2e}" for e in errors)
@@ -2494,6 +2571,7 @@ def _bf16_row(name, source, replaces, shape, errs, timed, plain, lib,
 
 
 def _bf16_report(tag, row, card):
+    flags = flag_below_bound(row)
     lib = ("" if row["library_ms"] is None else
            f", sdpa bf16 {fmt(row['library_ms'])} "
            f"({fmt(row.get('library_device_ms'))} on the device)")
@@ -2503,7 +2581,7 @@ def _bf16_report(tag, row, card):
           f"{fmt(row['ms'])} per call ({fmt(row['device_ms'])} on the "
           f"device), plain {fmt(row['plain_ms'])} "
           f"({fmt(row['plain_device_ms'])} on the device){lib}, bf16 bound "
-          f"{row['bound_ms']:.6f} ms ({row['bound_by']}) [{card}]")
+          f"{row['bound_ms']:.6f} ms ({row['bound_by']}){flags} [{card}]")
 
 
 def phase_flash_attention_bf16(torch, np, card):
@@ -2516,12 +2594,13 @@ def phase_flash_attention_bf16(torch, np, card):
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.testing import (ATTN_BF16_RTOL, FLASH_CASES,
-                                     FLASH_DV_CASES, FLASH_RAGGED_CASES,
-                                     attention_case)
+                                     FLASH_DV_CASES, FLASH_EDGE_CASES,
+                                     FLASH_RAGGED_CASES, attention_case)
     cases = [c[:10] + (0, c[10]) for c in FLASH_PATH_SHAPES] + [
         c[:6] + (c[5],) + c[6:] + ("test case",)
         for c in FLASH_CASES + FLASH_RAGGED_CASES] + [
-        c + ("test case",) for c in FLASH_DV_CASES]
+        c + ("test case",) for c in FLASH_DV_CASES] + [
+        c + ("tile edge",) for c in FLASH_EDGE_CASES]
     rows = []
     for (b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off,
          what) in cases:
@@ -2538,18 +2617,20 @@ def phase_flash_attention_bf16(torch, np, card):
             raise AssertionError(f"K6 bf16 at {what} {q.shape}: error "
                                  f"{errs} over {ATTN_BF16_RTOL}")
         kernel = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
-        reps = 30 if what != "test case" else 5
+        reps = 30 if what not in ("test case", "tile edge") else 5
         plain = measure(torch, lambda: fa.flash_attention_ref(q, k, v, **kw),
                         reps)
+        # one kernel a call, unless the wrapper pads d for TMA first
+        once = fa.tma_ready(q, k, v) or d != d_v or d > 128
         lib_t = (None, None)
         if cap is None and window is None and off == 0:
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             timed, lib_t, _ = versus_library(
                 torch, kernel, lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=causal,
-                    enable_gqa=n_q != n_kv), reps)
+                    enable_gqa=n_q != n_kv), reps, once=once)
         else:
-            timed = measure(torch, kernel, reps)
+            timed = measure(torch, kernel, reps, once=once)
         # each batch row's pairs and the keys its queries read, at its own
         # query offset
         pairs, keys = map(sum, zip(*(
@@ -2568,11 +2649,12 @@ def phase_flash_attention_bf16(torch, np, card):
                         "src/repro/kernels/flash_attention.py:86", shape,
                         errs, timed, plain, lib_t[0],
                         bf16_bound_ms(nbytes, mma, other), ATTN_BF16_RTOL)
-        row.update(what=what, tensor_cores=fa.on_tensor_cores(d, d_v),
+        row.update(what=what,
+                   tensor_cores=fa.on_tensor_cores(d, d_v, q.dtype),
+                   kernel=k6_instance(fa, b, s_q, n_q, d, d_v, q.dtype),
                    library_device_ms=lib_t[1])
         _bf16_report(f"K6 bf16 flash_attention {what} {shape}, "
-                     + ("bf16 mma.sync" if row["tensor_cores"]
-                        else "CUDA cores"), row, card)
+                     f"{row['kernel']}", row, card)
         rows.append(row)
     rows[0]["other_shapes"] = rows[1:]
     return rows[0]
@@ -2680,16 +2762,17 @@ def phase_decode_attention(torch, np, card):
         row.update(splits=nsplit, device_kernels_per_call=per_call)
         tag = (f"K7 decode_attention b={b} S={S} {n_q}/{n_kv} heads d={d} "
                f"window={window} softcap={cap}")
+        if turns is not None:
+            row.update(library_device_ms=lib[1], turns_ms=turns,
+                       library_kernels=[n for n, _ in sdpa_kernels])
         _report(f"{tag}: max abs err {err:.3e}, {nsplit} splits of {per} "
                 f"slots, {per_call:g} device kernels per call "
                 f"({', '.join(n[:40] for n, _ in names)})", row, card,
                 "sdpa" if lib is not None else None)
         if turns is not None:
-            _report_turns(tag, turns, lib, "sdpa", card)
+            _report_turns(tag, turns, row, "sdpa", card)
             print("  sdpa's device kernels: " + "; ".join(
                 f"{n[:80]} x{c:g}" for n, c in sdpa_kernels))
-            row.update(library_device_ms=lib[1], turns_ms=turns,
-                       library_kernels=[n for n, _ in sdpa_kernels])
         rows.append(row)
     rows[0]["other_shapes"] = rows[1:]
     rows[0]["bf16"] = phase_decode_attention_bf16(torch, np, card)
@@ -3138,10 +3221,11 @@ def phase_dryrun_kernels(torch, np, card, batches):
         if not (gate <= tol and bool(torch.isfinite(got).all())):
             raise AssertionError(f"K6 {dtype} at {b} x {s}: error {err}")
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        timed, lib, _ = versus_library(
+        timed, lib, turns = versus_library(
             torch, lambda: fa.flash_attention(q, k, v),
             lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=h != kv), reps)
+                qt, kt, vt, is_causal=True, enable_gqa=h != kv), reps,
+            once=True)
         pairs = b * s * (s + 1) // 2
         size = 2 if dtype == bf16 else 4
         nbytes = size * b * s * (h + kv) * 2 * d + 4 * b
@@ -3151,18 +3235,19 @@ def phase_dryrun_kernels(torch, np, card, batches):
                 "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                 "src/repro/kernels/flash_attention.py:86", shape, err, timed,
                 (None, None), lib[0], bf16_bound_ms(
-                    nbytes, pairs * h * 4 * d,
-                    pairs * h * (_attn_ops_per_pair(d, None) - 4 * d)), tol)
+                    nbytes, pairs * h * 2 * (d + d),
+                    pairs * h * (_attn_ops_per_pair(d, None, d)
+                                 - 2 * (d + d))), tol)
         else:
             row = _row("flash_attention",
                        "src/repro_torch/csrc/flash_attention.cu",
                        "src/repro/kernels/flash_attention.py:86", shape,
                        err[0], timed, (None, None), lib[0], nbytes,
-                       pairs * h * _attn_ops_per_pair(d, None))
-            row["bound_tc_ms"], row["bound_tc_by"] = tc_bound_ms(
-                nbytes, pairs * h * 4 * d,
-                pairs * h * (_attn_ops_per_pair(d, None) - 4 * d))
-        row["library_device_ms"] = lib[1]
+                       pairs * h * _attn_ops_per_pair(d, None, d))
+            row["bound_tc_ms"], row["bound_tc_by"] = flash_tc_bound(
+                nbytes, pairs * h, d, d, None)
+        row.update(library_device_ms=lib[1], turns_ms=turns,
+                   kernel=k6_instance(fa, b, s, h, d, d, dtype))
         return row
 
     rows["flash_attention"] = k6(bp, bf16, DRYRUN_K6_REPS)
@@ -3188,7 +3273,8 @@ def phase_dryrun_kernels(torch, np, card, batches):
             and bool(torch.isfinite(y).all())):
         raise AssertionError(f"K8 bf16 at {bp} x {s}: error {err}, final "
                              f"state {fin_err}")
-    timed = measure(torch, lambda: sk.ssd_scan(x, dt, A, B, C, **kw))
+    timed = measure(torch, lambda: sk.ssd_scan(x, dt, A, B, C, **kw),
+                    once=True)
     nbytes = ssd_nbytes(bp, s, hs, p_, n_, False, size=2)
     row = _bf16_row("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
                     "src/repro/kernels/ssd_scan.py:74",
@@ -3214,7 +3300,8 @@ def phase_dryrun_kernels(torch, np, card, batches):
     timed, lib, _ = versus_library(
         torch, lambda: da.decode_attention(q, kc, vc, cl),
         lambda: F.scaled_dot_product_attention(q[:, :, None], kt, vt,
-                                               enable_gqa=h != kv))
+                                               enable_gqa=h != kv),
+        once=True)
     del kt, vt
     plain = measure(torch, lambda: da.decode_attention_ref(q, kc, vc, cl))
     row = _bf16_row("decode_attention",
@@ -3237,13 +3324,19 @@ def phase_dryrun_kernels(torch, np, card, batches):
         if "final_state_err" in row:
             tc += (f", final state {row['final_state_err']:.3e} (tolerance "
                    f"{SSD_RTOL}), plain versions {row['reference_s']:.1f} s")
-        _bf16_report(f"dryrun kernel {name} bf16 {row['shape']}{tc}", row,
-                     card)
+        kernel = f", {row['kernel']}" if "kernel" in row else ""
+        _bf16_report(f"dryrun kernel {name} bf16 {row['shape']}{kernel}{tc}",
+                     row, card)
+        if "turns_ms" in row:
+            _report_turns(f"dryrun kernel {name} bf16 {row['shape']}",
+                          row["turns_ms"], row, "sdpa bf16", card)
     fp32 = k6(2, torch.float32, DRYRUN_K6_FP32_REPS)
     torch.cuda.empty_cache()
-    _report(f"dryrun kernel flash_attention float32 {fp32['shape']}: error "
-            f"{fp32['max_abs_err']:.3e}, tensor-core bound "
-            f"{fp32['bound_tc_ms']:.6f} ms", fp32, card, "sdpa")
+    _report(f"dryrun kernel flash_attention float32 {fp32['shape']}, "
+            f"{fp32['kernel']}: error {fp32['max_abs_err']:.3e}, tensor-core "
+            f"bound {fp32['bound_tc_ms']:.6f} ms", fp32, card, "sdpa")
+    _report_turns(f"dryrun kernel flash_attention float32 {fp32['shape']}",
+                  fp32["turns_ms"], fp32, "sdpa", card)
     rows["flash_attention_fp32"] = fp32
     return rows
 

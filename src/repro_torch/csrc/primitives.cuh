@@ -40,7 +40,7 @@
 // to_f32 / from_f32<T>: a float or __nv_bfloat16 element as float, and a
 // float as T (bf16: rounded to nearest even, as torch's and XLA's casts
 // do).  pack_bf16x2(lo, hi): two floats rounded to bf16 in one register,
-// lo in the low half.  The kernels that take bf16 operands are templates
+// lo in the low half, by one conversion instruction.  The kernels that take bf16 operands are templates
 // over the element type T and read and write their operands only through
 // these.
 //
@@ -50,6 +50,55 @@
 // jnp.minimum / jnp.maximum.  fminf / fmaxf (min.f32 / max.f32) return the
 // other operand instead; on operands without a NaN the two give the same
 // bits.
+//
+// Hopper (sm_90a) primitives of the bf16 flash attention kernel:
+//
+// smem_u32(p): the shared-window address of a generic pointer into shared
+// memory (what every PTX operand below that names shared memory takes).
+//
+// mbar_*: an mbarrier, 8 bytes of shared memory.  mbar_init(bar, n) arms it
+// for n arrivals (one thread, then mbar_init_fence and __syncthreads);
+// mbar_arrive counts one; mbar_arrive_expect_tx counts one and adds bytes
+// that asynchronous copies must still deliver.  A phase completes when its
+// arrivals are in and its bytes delivered; mbar_wait(bar, parity) returns
+// once the phase of that parity has completed (the phase before the first
+// counts as complete for parity 1, so a producer's first wait on an empty
+// slot passes).
+//
+// tma_load_4d(dst, map, bar, c0..c3): cp.async.bulk.tensor of one box of a
+// 4-d tensor map (built on the host by cuTensorMapEncodeTiled) at element
+// coordinates c0..c3, innermost first, into shared memory at dst (1024-byte
+// aligned for the 128-byte swizzle); elements outside the tensor are
+// zeros; the box's bytes are delivered to bar.  With the 128-byte swizzle
+// a box row is 128 bytes, stored with its 16-byte chunk c at chunk
+// c ^ (row % 8): the address bits [4, 7) are XORed with bits [7, 10).
+//
+// wgmma_desc(p, lbo, sbo): a wgmma shared-memory matrix descriptor for the
+// 128-byte swizzle: start address p, leading and stride byte offsets.  The
+// tensor core reads the unswizzled address it computes through the same
+// XOR, so a K-major operand (rows of 128 bytes, 8-row groups sbo apart)
+// advances along K by adding bytes to p within a row, and an MN-major one
+// (B[k][n] at k's 128-byte row, n's 64-element block lbo apart, 8-row k
+// groups sbo apart) advances along K by whole rows.
+//
+// wgmma_m64n96k16_ss(d, da, db, acc): D (64 x 96, fp32) = A (64 x 16,
+// bf16, K-major, descriptor da) * B (16 x 96, bf16, stored as B^T:
+// K-major, descriptor db), plus D if acc.  wgmma_m64nNk16_rs<N>(d, a, db):
+// D (64 x N) += A (registers) * B (descriptor, MN-major: the transposed-B
+// bit), N = 32, 64, 96, 112 or 128 (past 64, B's second 64-column block
+// is lbo bytes on).
+// Both are warpgroup-wide (4 warps) and asynchronous: wgmma_fence before
+// the first of a batch (after the registers they read were written),
+// wgmma_commit after it, wgmma_wait<0> before D is read; fence_regs keeps
+// the compiler from moving register reads and writes across those.  Per
+// thread t of the warpgroup (warp w = t / 32, g = t % 32 / 4, q = t % 4):
+//   d[4j + e]: D[16 w + g + 8 (e / 2)][8 j + 2 q + e % 2], j < N / 8
+//   a[0] A[16 w + g][2q, 2q+1]      a[1] A[16 w + g + 8][2q, 2q+1]
+//   a[2] A[16 w + g][2q+8, 2q+9]    a[3] A[16 w + g + 8][2q+8, 2q+9]
+// (the accumulator of one 64 x 16 slice of D is the A fragment of the next
+// product's 16-wide k step as it stands).
+//
+// ex2_approx: ex2.approx.ftz.f32, 2^x.
 //
 // tests/test_torch_kernel_emulation.py replaces this header with host
 // versions of the same functions.
@@ -112,9 +161,21 @@ __device__ __forceinline__ uint32_t bf16_bits(__nv_bfloat16 x) {
   return (uint32_t)__bfloat16_as_ushort(x);
 }
 
+// one cvt.rn.bf16x2.f32 (its first source goes to the upper half)
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  return bf16_bits(__float2bfloat16_rn(lo)) |
-         (bf16_bits(__float2bfloat16_rn(hi)) << 16);
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// the upper 16 bits of lo and of hi in one register (prmt): two floats
+// cut to bf16 toward zero, lo's in the low half
+__device__ __forceinline__ uint32_t upper_halves(float lo, float hi) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, 0x7632;"
+      : "=r"(r)
+      : "r"(__float_as_uint(lo)), "r"(__float_as_uint(hi)));
+  return r;
 }
 
 __device__ __forceinline__ float fmin_nan(float a, float b) {
@@ -153,3 +214,220 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, int parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(ok)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// a wait of 2^35 cycles (~19 s) is a deadlock: trap, so that the launch
+// fails with an error instead of holding the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1ll << 35)) __trap();
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3ffffu) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         (1ull << 62);                  // layout type 1: 128-byte swizzle
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define VPAAS_F8(d, i)                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+__device__ __forceinline__ void wgmma_m64n96k16_ss(float* d, uint64_t da,
+                                                   uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47}, %48, %49, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : VPAAS_F8(d, 0), VPAAS_F8(d, 8), VPAAS_F8(d, 16), VPAAS_F8(d, 24),
+        VPAAS_F8(d, 32), VPAAS_F8(d, 40)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_m64nNk16_rs(float* d,
+                                                  const uint32_t a[4],
+                                                  uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_m64nNk16_rs<32>(float* d,
+                                                      const uint32_t a[4],
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : VPAAS_F8(d, 0), VPAAS_F8(d, 8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_m64nNk16_rs<64>(float* d,
+                                                      const uint32_t a[4],
+                                                      uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : VPAAS_F8(d, 0), VPAAS_F8(d, 8), VPAAS_F8(d, 16), VPAAS_F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_m64nNk16_rs<96>(float* d,
+                                                       const uint32_t a[4],
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, "
+      "1, 1, 1;\n"
+      "}\n"
+      : VPAAS_F8(d, 0), VPAAS_F8(d, 8), VPAAS_F8(d, 16), VPAAS_F8(d, 24),
+        VPAAS_F8(d, 32), VPAAS_F8(d, 40)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_m64nNk16_rs<112>(float* d,
+                                                       const uint32_t a[4],
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n"
+      "}\n"
+      : VPAAS_F8(d, 0), VPAAS_F8(d, 8), VPAAS_F8(d, 16), VPAAS_F8(d, 24),
+        VPAAS_F8(d, 32), VPAAS_F8(d, 40), VPAAS_F8(d, 48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_m64nNk16_rs<128>(float* d,
+                                                       const uint32_t a[4],
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, "
+      "%67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : VPAAS_F8(d, 0), VPAAS_F8(d, 8), VPAAS_F8(d, 16), VPAAS_F8(d, 24),
+        VPAAS_F8(d, 32), VPAAS_F8(d, 40), VPAAS_F8(d, 48), VPAAS_F8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef VPAAS_F8

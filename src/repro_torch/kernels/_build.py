@@ -87,7 +87,8 @@ SIGNATURES = {
 # query name -> argtypes: host functions of the sources that answer what a
 # launcher would do (no stream, no launch)
 QUERIES = {
-    "vpaas_flash_attention_on_tensor_cores": [_I, _I],
+    "vpaas_flash_attention_on_tensor_cores": [_I, _I, _I],
+    "vpaas_flash_attention_bf16_block_rows": [_I, _I, _I],
 }
 
 _lib: Optional[ctypes.CDLL] = None

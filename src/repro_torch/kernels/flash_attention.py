@@ -5,12 +5,17 @@ Port of the Pallas kernel ``repro.kernels.flash_attention.flash_attention``
 causal mask, optional sliding window and logit softcap, on float32 or
 bfloat16 operands (q, k and v of one dtype; the output in it too), with
 every sum in float32, as the Pallas kernel computes on the bf16 operands
-of the reference's launch path.  Where q, k and v share a head dim up to
-128 its two products run on the tensor cores: in 3xTF32 for float32, as
-bf16 mma.sync for bfloat16 (q.k exact in float32, p.v with p split into
-two bf16 halves); above 128 and wherever v has a head dim of its own
-(MLA's prefill: d = 192 for q and k, 128 for v) on the CUDA cores, bf16
-widened to float32 as it loads.  The query offset is a device array read
+of the reference's launch path.  float32 runs its two products on the
+tensor cores in 3xTF32 up to d = 192 and d_v = 128 (MLA's prefill: 192 for
+q and k, 128 for v); bfloat16 where q, k and v share a head dim up to 128,
+as wgmma on TMA tiles (q.k exact in float32, p.v with p split into two
+bf16 halves; :func:`block_rows` says how many query rows a block takes).
+Larger head dims, and a value head dim of its own in bfloat16, run on the
+CUDA cores (bf16 widened to float32 as it loads).  The bf16 tensor-core
+kernel loads by TMA, whose row strides are multiples of 16 bytes: a head
+dim that is not a multiple of 8, or an operand that is not 16-byte aligned,
+is copied into zero-padded tensors first (:func:`tma_ready`).  The query
+offset is a device array read
 at run time (a scalar is broadcast to one entry per batch row), so the
 cache prefill's per-row cache index takes the kernel too.  The plain
 PyTorch version is :func:`flash_attention_ref` (``ref.flash_attention``);
@@ -41,10 +46,28 @@ flash_attention_ref = ref.flash_attention
 MAX_HEAD_DIM = 256
 
 
-def on_tensor_cores(d: int, d_v: int) -> bool:
-    """Whether the launcher runs these head dims on its tensor-core kernel
-    (else on its CUDA-core one), as the built library answers it."""
-    return bool(_build.query("vpaas_flash_attention_on_tensor_cores", d, d_v))
+def on_tensor_cores(d: int, d_v: int,
+                    dtype: torch.dtype = torch.float32) -> bool:
+    """Whether the launcher runs these head dims on operands of ``dtype``
+    on a tensor-core kernel (else on its CUDA-core one), as the built
+    library answers it."""
+    return bool(_build.query("vpaas_flash_attention_on_tensor_cores", d, d_v,
+                             int(dtype == torch.bfloat16)))
+
+
+def block_rows(b: int, s_q: int, n_q: int) -> int:
+    """The query rows a block of the bf16 tensor-core kernel takes at this
+    grid: 128 (two consumer warpgroups), or 64 where 128-row blocks would
+    not put one on every SM of the card."""
+    return _build.query("vpaas_flash_attention_bf16_block_rows", b, s_q, n_q)
+
+
+def tma_ready(*tensors: torch.Tensor) -> bool:
+    """Whether the bf16 tensor-core kernel's TMA can read these (b, s, n,
+    d) operands as they are: d a multiple of 8 (row strides of 16 bytes)
+    and every pointer 16-byte aligned."""
+    return all(t.shape[-1] % 8 == 0 and t.data_ptr() % 16 == 0
+               for t in tensors)
 
 
 def row_array(value, b: int, device, name: str) -> torch.Tensor:
@@ -122,6 +145,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     global launches, launches_bf16
     b, s_q, n_q, d = q.shape
     s_kv, n_kv, d_v = k.shape[1], k.shape[2], v.shape[-1]
+    v_dim = d_v
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _build.check_operands(("q", q, _build.DTYPES, None),
                           ("k", k, _build.DTYPES, (b, s_kv, n_kv, d)),
@@ -133,16 +157,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"head dims {d}/{d_v} or {s_kv} keys")
     check_options(window, softcap)
     off = row_array(q_offset, b, q.device, "q_offset")
+    scale = d ** -0.5
+    padded = (q.dtype == torch.bfloat16 and not tma_ready(q, k, v)
+              and on_tensor_cores(d, d_v, q.dtype))
+    if padded:                  # zero columns add nothing to q.k or p.v
+        dp = -(-d // 8) * 8
+        q, k, v = (torch.nn.functional.pad(t, (0, dp - d)) for t in (q, k, v))
+        d = d_v = dp
     out = q.new_empty((b, s_q, n_q, d_v))
     if b and s_q:
         _build.launch(_build.launcher("vpaas_flash_attention", q.dtype),
                       q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       off.data_ptr(), out.data_ptr(), b, s_q, s_kv, n_q,
                       n_kv, d, d_v, int(causal), window or 0,
-                      float(softcap or 0.0), d ** -0.5)
+                      float(softcap or 0.0), scale)
         launches += 1
         launches_bf16 += q.dtype == torch.bfloat16
-    return out
+    return out[..., :v_dim].contiguous() if padded else out
 
 
 def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

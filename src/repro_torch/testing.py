@@ -518,14 +518,33 @@ FLASH_RAGGED_CASES = [
 ]
 
 
-# K6 with a value head dim of its own (MLA's prefill), every one on the
-# CUDA-core kernel: (b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window,
-# softcap, q_offset)
+# K6 with a value head dim of its own (MLA's prefill): on the 3xTF32
+# tensor-core kernel in float32, on the CUDA-core kernel in bf16:
+# (b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, softcap, q_offset)
 FLASH_DV_CASES = [
     (1, 40, 64, 4, 4, 192, 128, True, None, None, 8),   # deepseek's dims
     (2, 24, 48, 4, 4, 96, 64, True, None, None, 0),     # its -smoke dims
     (1, 37, 53, 4, 2, 96, 40, False, None, 20.0, 0),    # ragged, GQA, cap
     (2, 33, 70, 2, 1, 64, 48, True, 16, None, [5, 30]),  # d <= 128, window
+]
+
+
+# K6 at the edges of the tensor-core kernels' tiles (query tiles of 32, 64
+# and 128 rows, key tiles of 64 and 96, 64-column TMA boxes), in
+# FLASH_DV_CASES' layout: s_q = 1
+# with per-row offsets; s_q and s_kv off every tile size; d = 18, 36 and
+# 112 (zero-padded columns); rows with no valid key beside rows with some
+# in one tile; a window that closes whole key tiles; GQA groups of 1, 2
+# and 4; MLA's 192 / 128 and its -smoke 96 / 64
+FLASH_EDGE_CASES = [
+    (2, 1, 300, 8, 2, 112, 112, True, None, None, [299, 100]),
+    (1, 200, 333, 4, 4, 18, 18, True, None, None, 133),
+    (2, 129, 257, 8, 4, 36, 36, False, None, 20.0, 0),
+    (1, 300, 700, 8, 2, 112, 112, True, 100, None, 400),
+    (1, 130, 200, 4, 2, 112, 112, True, 32, None, 180),
+    (1, 257, 513, 16, 4, 128, 128, True, None, 30.0, 256),
+    (1, 200, 264, 16, 16, 192, 128, True, None, None, 64),
+    (2, 100, 300, 16, 16, 96, 64, True, None, None, [200, 0]),
 ]
 
 

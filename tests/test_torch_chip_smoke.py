@@ -214,24 +214,50 @@ def test_device_kernels_lists_each_kernel_per_call():
     assert kinds == 2
 
 
-def test_device_time_per_call_survives_dropped_events():
-    # ten calls of two kernels (2 us and 3 us); the profiler kept 9 of the
-    # first kernel's 10 events: 5 us per call, not 4.8
+def _window(counts_us):
+    """Key averages of a profile whose kernels (name -> (events kept, us
+    each)) ran as listed."""
     kw = dict(thread=0, use_device="cuda", stack=[])
-    events = []
-    for i in range(19):
-        name, us = ("a", 2) if i < 9 else ("b", 3)
-        events.append(FunctionEvent(id=i, name=name, start_us=10 * i,
-                                    end_us=10 * i + us,
-                                    device_type=DeviceType.CUDA, **kw))
+    events, i = [], 0
+    for name, (n, us) in counts_us.items():
+        for _ in range(n):
+            events.append(FunctionEvent(id=i, name=name, start_us=10 * i,
+                                        end_us=10 * i + us,
+                                        device_type=DeviceType.CUDA, **kw))
+            i += 1
     events = EventList(events, use_device="cuda")
     events._build_tree()
-    avgs = events.key_averages()
-    assert sum(chip_smoke._self_device_us(e) for e in avgs) / 10 == 4.8
-    assert chip_smoke.device_us_per_call(avgs, 10) == pytest.approx(5.0)
+    return events.key_averages()
+
+
+@pytest.mark.parametrize("kept,want", [
+    # ten calls of two kernels (2 us and 3 us), every event kept: 5 us
+    ({"a": (10, 2), "b": (10, 3)}, 5.0),
+    # a kernel launched twice a call: its 20 events are 2 a call
+    ({"a": (20, 2), "b": (10, 3)}, 7.0),
+    # the profiler kept 9 of the first kernel's 10 events: the window lost
+    # events, so the time is not measured (it was 4.8 as a plain sum over
+    # 10 calls, 5.0 with the kept events' mean)
+    ({"a": (9, 2), "b": (10, 3)}, None),
+    # 19 of a twice-a-call kernel's 20
+    ({"a": (19, 2), "b": (10, 3)}, None)])
+def test_device_time_per_call_survives_dropped_events(kept, want):
+    got = chip_smoke.device_us_per_call(_window(kept), 10)
+    assert got == (None if want is None else pytest.approx(want))
     # the host op's own figure is not counted, as in the plain sum
     assert chip_smoke.device_us_per_call(_events().key_averages(), 1) == \
         10.0
+
+
+def test_device_time_per_call_is_null_for_one_event_of_five():
+    # K6 at 6 x 32k on an H100: 5 calls of a 406 ms kernel of
+    # which the profiler kept one event; scaling by 1 / 5 printed 81 ms
+    avgs = _window({"flash_attention_bf16_kernel": (1, 406000)})
+    assert chip_smoke.device_us_per_call(avgs, 5) is None
+    assert chip_smoke.device_us_per_call(avgs, 5, once=True) is None
+    assert chip_smoke.device_us_per_call(
+        _window({"flash_attention_bf16_kernel": (5, 406000)}), 5,
+        once=True) == pytest.approx(406000)
 
 
 def test_parent_device_ms_reads_the_parent_k2_and_k5_lines(monkeypatch):
@@ -290,22 +316,65 @@ def test_parent_device_ms_reads_the_parent_k2_and_k5_lines(monkeypatch):
         ("K4a", "B=1 N=13 M=7")
 
 
-def test_device_time_once_sums_each_kernels_mean():
-    # a call of two kernels (3 us and 1 us) profiled 30 times, of whose
-    # events the profiler kept 6 and 30: rounding 6 / 30 per call gives
-    # 0.6 us for the first, the call's known one launch each gives 4 us
-    kw = dict(thread=0, use_device="cuda", stack=[])
-    events = [FunctionEvent(id=i, name="step" if i < 6 else "combine",
-                            start_us=10 * i,
-                            end_us=10 * i + (3 if i < 6 else 1),
-                            device_type=DeviceType.CUDA, **kw)
-              for i in range(36)]
-    events = EventList(events, use_device="cuda")
-    events._build_tree()
-    avgs = events.key_averages()
-    assert chip_smoke.device_us_per_call(avgs, 30) == pytest.approx(1.6)
-    assert chip_smoke.device_us_per_call(avgs, 30, once=True) == \
-        pytest.approx(4.0)
+@pytest.mark.parametrize("kept,want", [
+    # a call of two kernels (3 us and 1 us), each launched once, profiled
+    # 30 times with every event kept: 4 us
+    ({"step": (30, 3), "combine": (30, 1)}, 4.0),
+    # the profiler kept 6 of the first kernel's 30 events: not measured
+    # (rounding 6 / 30 per call gave 1.6 us, the kept events' mean 4.0)
+    ({"step": (6, 3), "combine": (30, 1)}, None),
+    # 1 of 5: not measured either
+    ({"step": (1, 3), "combine": (30, 1)}, None)])
+def test_device_time_once_sums_each_kernels_mean(kept, want):
+    got = chip_smoke.device_us_per_call(_window(kept), 30, once=True)
+    assert got == (None if want is None else pytest.approx(want))
+
+
+@pytest.mark.parametrize("device,lib,tc,flagged", [
+    (0.5, 0.4, None, ()),                      # both above the bound
+    (0.05, 0.4, None, ("device_ms",)),          # the kernel below it
+    (0.5, 0.08, None, ("library_device_ms",)),  # the library below it
+    # the tensor-core bound is the least bound where the row has one
+    (0.06, 0.4, 0.05, ()),
+    (0.04, 0.4, 0.05, ("device_ms",))])
+def test_device_time_below_its_bound_is_flagged(device, lib, tc, flagged):
+    row = dict(bound_ms=0.1, device_ms=device, plain_device_ms=0.9,
+               library_device_ms=lib)
+    if tc is not None:
+        row["bound_tc_ms"] = tc
+    note = chip_smoke.flag_below_bound(row)
+    for key, ms in (("device_ms", device), ("library_device_ms", lib)):
+        if key in flagged:
+            assert row[key] is None and row[key + "_below_bound"] == ms
+            assert f"{key} read {ms:.6f} ms, below the bound" in note
+        else:
+            assert row[key] == ms and key + "_below_bound" not in row
+    assert row["plain_device_ms"] == 0.9
+    assert (note == "") == (not flagged)
+
+
+def test_profile_device_retries_a_window_that_lost_events(monkeypatch):
+    # the first two windows lost events, the third is whole
+    windows = iter([{"k": (4, 2)}, {"k": (3, 2)}, {"k": (5, 2)}])
+
+    class Prof:
+        def __enter__(self):
+            self.avgs = _window(next(windows))
+            return self
+
+        def __exit__(self, *a):
+            return False
+
+        def key_averages(self):
+            return self.avgs
+
+    import torch.profiler
+    monkeypatch.setattr(torch.profiler, "profile", lambda **kw: Prof())
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    ms, _ = chip_smoke.profile_device(torch, lambda: None, reps=5)
+    assert ms == pytest.approx(0.002)
+    windows = iter([{"k": (4, 2)}] * chip_smoke.PROFILE_ATTEMPTS)
+    assert chip_smoke.profile_device(torch, lambda: None, reps=5)[0] is None
 
 
 def test_nms_bound_counts_the_candidate_rows():
@@ -456,12 +525,13 @@ def test_profile_device_retries_a_profile_without_device_time(monkeypatch):
                                          reps=3)
     assert ms == pytest.approx(7.0) and avgs == ["avgs"]
     assert len(profiles) == 2 and len(calls) == 1 + 2 * 3
-    # two empty profiles: reported as not measured, after one retry only
+    # empty profiles: reported as not measured, after PROFILE_ATTEMPTS
+    # windows (a window that lost events is retried the same way)
     profiles.clear()
     monkeypatch.setattr(chip_smoke, "device_us_per_call",
                         lambda avgs, reps, once=False: 0.0)
     assert chip_smoke.profile_device(fake, lambda: None)[0] is None
-    assert len(profiles) == 2
+    assert len(profiles) == chip_smoke.PROFILE_ATTEMPTS == 3
 
 
 def _report(**kw):
@@ -653,6 +723,52 @@ def test_flash_bound_at_the_new_path_shapes():
     assert chip_smoke.bound_ms(*chip_smoke.flash_bound(
         1, 384, 512, 32, 32, 112, 112, True, None, None)[:2])[0] == \
         pytest.approx(0.015993, abs=1e-6)
+
+
+def test_flash_tensor_core_bound_counts_d_plus_d_v_products():
+    # MLA's prefill on the tensor cores: 2 (192 + 128) products a pair in
+    # 3xTF32 (4.59 us) and 5 softmax operations (0.09 us) are below the
+    # 4.69 us of its 15.7 MB: bytes bound it (4 d = 768 products a pair
+    # charged 1.2x the work)
+    nbytes, ops, pairs = chip_smoke.flash_bound(1, 384, 512, 16, 16, 192,
+                                                128, True, None, None)
+    ms, by = chip_smoke.flash_tc_bound(nbytes, pairs * 16, 192, 128, None)
+    assert by == "bytes" and ms == pytest.approx(nbytes / 3.35e9)
+    mma = pairs * 16 * 640
+    assert chip_smoke.flash_tc_bound(1, pairs * 16, 192, 128, None)[0] == \
+        pytest.approx(3 * mma / 495e9 + pairs * 16 * 5 / 67e9, rel=1e-12)
+    # d = d_v: 4 d, as before; a softcap's 3 operations go to the CUDA cores
+    assert chip_smoke.flash_tc_bound(1, 10, 112, 112, 30.0)[0] == \
+        pytest.approx(3 * 10 * 448 / 495e9 + 10 * 8 / 67e9, rel=1e-12)
+
+
+def test_k6_instance_follows_the_launcher_routes(monkeypatch):
+    # the ptxas names the K6 rows carry, from the routes the library
+    # answers (stubbed as the card's library answers them)
+    import types
+    fa = types.SimpleNamespace(
+        on_tensor_cores=lambda d, d_v, dtype=torch.float32: (
+            d == d_v and d <= 128 if dtype == torch.bfloat16
+            else d <= 192 and d_v <= 128),
+        block_rows=lambda b, s_q, n_q: 64 if b * n_q * -(-s_q // 128) < 132
+        else 128)
+    bf, f32 = torch.bfloat16, torch.float32
+    assert chip_smoke._k6_instance(fa, 6, 32768, 32, 112, 112, bf) == \
+        "flash_attention_wgmma_kernel<2, 7>"
+    assert chip_smoke._k6_instance(fa, 1, 384, 32, 112, 112, bf) == \
+        "flash_attention_wgmma_kernel<1, 7>"
+    assert chip_smoke._k6_instance(fa, 1, 65, 2, 18, 18, bf) == \
+        "flash_attention_wgmma_kernel<1, 2>"
+    assert chip_smoke._k6_instance(fa, 1, 384, 16, 192, 128, bf) == \
+        "flash_attention_simt_kernel<bf16, 4>"
+    assert chip_smoke._k6_instance(fa, 1, 384, 16, 192, 128, f32) == \
+        "flash_attention_mma_kernel<24, 16, 2>"
+    assert chip_smoke._k6_instance(fa, 2, 24, 4, 96, 64, f32) == \
+        "flash_attention_mma_kernel<12, 8, 4>"
+    assert chip_smoke._k6_instance(fa, 1, 384, 32, 112, 112, f32) == \
+        "flash_attention_mma_kernel<14, 14, 4>"
+    assert chip_smoke._k6_instance(fa, 1, 384, 32, 256, 256, f32) == \
+        "flash_attention_simt_kernel<float, 8>"
 
 
 def test_kernel_phases_hold_every_llm_path_shape():

@@ -37,7 +37,7 @@ from repro_torch.testing import (ATTN_ATOL, ATTN_BF16_RTOL, ATTN_VJP_RTOL,
                                  DECODE_CASES, SSD_BF16_RTOL, bf16_err,
                                  FILTER_CASES, SSD_VJP_RTOL,
                                  FILTER_KW, FLASH_CASES, FLASH_DV_CASES,
-                                 FLASH_RAGGED_CASES,
+                                 FLASH_EDGE_CASES, FLASH_RAGGED_CASES,
                                  IOU_CASES,
                                  LEARN_RTOL, LLM_RTOL, MODEL_ATOL,
                                  ONEVSALL_ATOL, SSD_CASES, SSD_RTOL,
@@ -532,13 +532,65 @@ def test_flash_attention_kernel_matches_plain(cuda, case):
     (1, 384, 512, 16, 16, 192, 128, True, None, None, 0),   # deepseek MLA
     (2, 130, 300, 4, 4, 96, 64, True, None, None, [170, 0])])
 def test_flash_attention_kernel_takes_a_value_head_dim(cuda, case):
+    # on the 3xTF32 tensor-core kernel, QK and V each at its own width
     b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off = case
+    assert fa.on_tensor_cores(d, d_v)
     q, k, v = _t(attention_case(b, s_q, s_kv, n_q, n_kv, d, d_v=d_v), cuda)
     kw = dict(causal=causal, window=window, softcap=cap,
               q_offset=torch.as_tensor(off, device=cuda))
     got = fa.flash_attention(q, k, v, **kw)
     assert got.shape == (b, s_q, n_q, d_v)
     assert _sync_err(got, fa.flash_attention_ref(q, k, v, **kw)) <= ATTN_ATOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_EDGE_CASES,
+                         ids=[f"edge{i}" for i in range(len(FLASH_EDGE_CASES))])
+def test_flash_attention_kernels_at_tile_edges(cuda, case, dtype):
+    # the tensor-core kernels' tile edges (testing.FLASH_EDGE_CASES), each
+    # dtype within its tolerance
+    b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off = case
+    q, k, v = (t.to(dtype) for t in
+               _t(attention_case(b, s_q, s_kv, n_q, n_kv, d, d_v=d_v), cuda))
+    kw = dict(causal=causal, window=window, softcap=cap,
+              q_offset=torch.as_tensor(off, device=cuda))
+    got = fa.flash_attention(q, k, v, **kw)
+    want = fa.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (b, s_q, n_q, d_v) and got.dtype == dtype
+    if dtype == torch.float32:
+        assert _sync_err(got, want) <= ATTN_ATOL
+    else:
+        assert bf16_err(got, want) <= ATTN_BF16_RTOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_replays_in_a_cuda_graph(cuda, dtype):
+    # K6 at zamba2's cache prefill, captured once: a replay recomputes from
+    # the inputs' new values (the bf16 kernel's tensor maps hold the
+    # operands' addresses, which a graph keeps)
+    q, k, v = (t.to(dtype) for t in
+               _t(attention_case(1, 384, 512, 32, 32, 112), cuda))
+    off = torch.zeros((), dtype=torch.int32, device=cuda)
+    fa.flash_attention(q, k, v, q_offset=off)      # warm-up off the graph
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    fa.launches = 0
+    with torch.cuda.graph(graph):
+        out = fa.flash_attention(q, k, v, q_offset=off)
+    assert fa.launches == 1
+    q.mul_(-0.5)
+    v.add_(1.0)
+    off.fill_(128)
+    graph.replay()
+    want = fa.flash_attention_ref(q, k, v, q_offset=off)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        assert _sync_err(out, want) <= ATTN_ATOL
+    else:
+        assert bf16_err(out, want) <= ATTN_BF16_RTOL
 
 
 def test_flash_attention_rejects_a_wrong_value_shape(cuda):
@@ -658,12 +710,12 @@ def _bf(arrays, device):
     (1, 384, 512, 32, 16, 128, True, 64, 50.0, 0),        # d = 128
     (2, 130, 300, 8, 2, 96, True, None, None, [170, 0])])
 def test_flash_attention_bf16_kernels_match_plain(cuda, case):
-    # d <= 128 on the bf16 mma.sync kernel, d = 256 on the CUDA cores
+    # d <= 128 on the bf16 wgmma kernel, d = 256 on the CUDA cores
     b, s_q, s_kv, n_q, n_kv, d, causal, window, cap, off = case
     q, k, v = _bf(attention_case(b, s_q, s_kv, n_q, n_kv, d), cuda)
     kw = dict(causal=causal, window=window, softcap=cap,
               q_offset=torch.as_tensor(off, device=cuda))
-    assert fa.on_tensor_cores(d, d) == (d <= 128)
+    assert fa.on_tensor_cores(d, d, BF) == (d <= 128)
     fa.launches = 0
     got = fa.flash_attention(q, k, v, **kw)
     assert got.dtype == BF and fa.launches == 1
@@ -675,7 +727,9 @@ def test_flash_attention_bf16_kernels_match_plain(cuda, case):
 @pytest.mark.parametrize("case", FLASH_DV_CASES + [
     (1, 384, 512, 16, 16, 192, 128, True, None, None, 0)])  # deepseek MLA
 def test_flash_attention_bf16_kernel_takes_a_value_head_dim(cuda, case):
+    # bf16 with d_v != d stays on the CUDA-core kernel
     b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off = case
+    assert not fa.on_tensor_cores(d, d_v, BF)
     q, k, v = _bf(attention_case(b, s_q, s_kv, n_q, n_kv, d, d_v=d_v), cuda)
     kw = dict(causal=causal, window=window, softcap=cap,
               q_offset=torch.as_tensor(off, device=cuda))

@@ -47,10 +47,12 @@ from repro_torch.kernels import ssd_scan as sk
 from repro_torch.testing import (ATTN_ATOL, ATTN_BF16_RTOL, DECODE_CASES,
                                  FILTER_KW, SSD_BF16_RTOL,
                                  FLASH_CASES, FLASH_DV_CASES,
+                                 FLASH_EDGE_CASES,
                                  FLASH_RAGGED_CASES, IOU_CASES,
                                  LEARN_RTOL, ONEVSALL_ATOL, SSD_CASES,
                                  SSD_RTOL, UPDATE_ETA, UPDATE_RTOL,
-                                 attention_case, crop_cases, crop_tile_cases,
+                                 attention_case, bf16_err, crop_cases,
+                                 crop_tile_cases,
                                  decode_case, filter_case,
                                  filter_corner_cases, frame_filter_case,
                                  iou_case, iou_nan_case, nms_corner_cases,
@@ -111,6 +113,8 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 // ex2.approx of the rounded product, as the card computes __expf
 inline float __expf(float x) { return std::exp2(x * 1.44269504f); }
+[[noreturn]] inline void __trap() {
+  std::fprintf(stderr, "kernel trapped\n"); std::abort(); }
 // A block's threads are fibers on one host thread, switched only at the
 // barriers (emu_swap saves the callee-saved registers and the stack
 // pointer, x86-64 System V): a warp's 32 threads meet twice per emulated
@@ -136,8 +140,8 @@ struct EmuBarrier { int n; int count = 0; unsigned gen = 0;
     EmuFiber* f = emu_w->cur; f->wait_gen = &gen; f->wait_val = gen;
     emu_swap(&f->sp, emu_w->sched_sp); } };
 struct EmuBlock { EmuBarrier* bar;
-  std::vector<std::unique_ptr<EmuBarrier>> warp_bar;
-  std::vector<double> xchg; std::vector<uint32_t> mma;
+  std::vector<std::unique_ptr<EmuBarrier>> warp_bar, wg_bar;
+  std::vector<double> xchg; std::vector<uint32_t> mma, wgx;
   std::vector<char> dyn; };
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline thread_local EmuBlock* emu_blk;
@@ -178,6 +182,9 @@ inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int atomicAdd(int* a, int v) { int old = *a; *a = old + v; return old; }
 inline unsigned atomicOr(unsigned* a, unsigned v) {
   unsigned old = *a; *a = old | v; return old; }
+// a fiber that waits on an mbarrier gives the others a turn
+inline void emu_yield() {
+  EmuFiber* f = emu_w->cur; emu_swap(&f->sp, emu_w->sched_sp); }
 inline void emu_fiber_main() {
   EmuWorker* w = emu_w; (*w->fn)(); w->cur->done = true;
   emu_swap(&w->cur->sp, w->sched_sp);
@@ -216,6 +223,9 @@ inline void emu_launch(dim3 g, dim3 b, size_t smem, std::function<void()> fn) {
     EmuBlock blk; EmuBarrier bar(nt); blk.bar = &bar;
     for (int i = 0; i < (nt + 31) / 32; ++i)
       blk.warp_bar.emplace_back(new EmuBarrier(32));
+    for (int i = 0; i < (nt + 127) / 128; ++i)
+      blk.wg_bar.emplace_back(new EmuBarrier(std::min(128, nt - 128 * i)));
+    blk.wgx.assign(((nt + 127) / 128) * 128 * 4, 0u);
     blk.xchg.assign(((nt + 31) / 32) * 32, 0.0);
     blk.mma.assign(((nt + 31) / 32) * 32 * 6, 0u);
     blk.dyn.resize(smem + 16);
@@ -297,6 +307,8 @@ template <> inline float from_f32<float>(float x) { return x; }
 template <> inline __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x); }
 inline uint32_t bf16_bits(__nv_bfloat16 x) { return x.x; }
+inline uint32_t upper_halves(float lo, float hi) {
+  return (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xffff0000u); }
 inline uint32_t pack_bf16x2(float lo, float hi) {
   return bf16_bits(__float2bfloat16_rn(lo)) |
          (bf16_bits(__float2bfloat16_rn(hi)) << 16); }
@@ -311,6 +323,175 @@ inline void cp_async_4(void* s, const void* g, bool pred) {
   if (pred) std::memcpy(s, g, 4); else std::memset(s, 0, 4); }
 inline void cp_async_commit() {}
 template <int N> void cp_async_wait() {}
+// Hopper: shared memory is the block's dynamic buffer and a shared address
+// is an offset into it
+inline float ex2_approx(float x) { return std::exp2(x); }
+inline uint32_t smem_u32(const void* p) {
+  return (uint32_t)((const char*)p - emu_blk->dyn.data()); }
+inline char* emu_smem(uint32_t a) { return emu_blk->dyn.data() + a; }
+inline uint32_t emu_swz128(uint32_t a) { return a ^ (((a >> 7) & 7u) << 4); }
+// an mbarrier: its arrivals a phase, those still missing, bytes still due
+// and the phase's parity (in the 8 bytes of the card's object)
+struct EmuMbar { uint16_t expected; uint16_t pending; int32_t tx : 31;
+                 uint32_t phase : 1; };
+static_assert(sizeof(EmuMbar) == 8, "an mbarrier is 8 bytes");
+inline EmuMbar* emu_mbar(uint64_t* bar) {
+  return reinterpret_cast<EmuMbar*>(bar); }
+inline void emu_mbar_settle(EmuMbar* b) {
+  if (b->pending == 0 && b->tx == 0) {
+    b->phase ^= 1u; b->pending = b->expected; } }
+inline void mbar_init(uint64_t* bar, unsigned n) {
+  EmuMbar* b = emu_mbar(bar); b->expected = b->pending = (uint16_t)n;
+  b->tx = 0; b->phase = 0; }
+inline void mbar_init_fence() {}
+inline void mbar_arrive(uint64_t* bar) {
+  EmuMbar* b = emu_mbar(bar);
+  if (b->pending == 0) { std::fprintf(stderr, "mbarrier over-arrived\n");
+                         std::abort(); }
+  --b->pending; emu_mbar_settle(b); }
+inline void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
+  emu_mbar(bar)->tx += (int32_t)bytes; mbar_arrive(bar); }
+inline void emu_mbar_complete_tx(uint64_t* bar, unsigned bytes) {
+  EmuMbar* b = emu_mbar(bar); b->tx -= (int32_t)bytes; emu_mbar_settle(b); }
+inline void mbar_wait(uint64_t* bar, int parity) {
+  for (long spins = 0; (int)emu_mbar(bar)->phase == parity; ++spins) {
+    if (spins > (1L << 20)) {
+      std::fprintf(stderr, "emulated mbarrier wait never completed\n");
+      std::abort(); }
+    emu_yield(); } }
+// cuda.h's tensor map, filled by the emulated cuTensorMapEncodeTiled with
+// its own arguments, after the checks cuTensorMapEncodeTiled makes
+typedef int CUresult; enum { CUDA_SUCCESS = 0 };
+typedef uint32_t cuuint32_t; typedef uint64_t cuuint64_t;
+struct alignas(64) CUtensorMap { unsigned long long opaque[16]; };
+typedef int CUtensorMapDataType; typedef int CUtensorMapInterleave;
+typedef int CUtensorMapSwizzle; typedef int CUtensorMapL2promotion;
+typedef int CUtensorMapFloatOOBfill;
+enum { CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 = 9, CU_TENSOR_MAP_INTERLEAVE_NONE = 0,
+       CU_TENSOR_MAP_SWIZZLE_128B = 3, CU_TENSOR_MAP_L2_PROMOTION_L2_128B = 2,
+       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE = 0 };
+struct EmuMap { const char* base; int rank, elem, swizzle;
+  uint32_t box[4]; uint64_t dim[4], stride[4]; };
+static_assert(sizeof(EmuMap) <= sizeof(CUtensorMap), "fits the map");
+inline CUresult emu_encode_tiled(
+    CUtensorMap* map, CUtensorMapDataType dt, cuuint32_t rank, void* addr,
+    const cuuint64_t* dim, const cuuint64_t* strides, const cuuint32_t* box,
+    const cuuint32_t* estr, CUtensorMapInterleave il, CUtensorMapSwizzle sw,
+    CUtensorMapL2promotion, CUtensorMapFloatOOBfill fill) {
+  if (dt != CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 || rank < 1 || rank > 4 ||
+      il != CU_TENSOR_MAP_INTERLEAVE_NONE || fill != 0 ||
+      (uintptr_t)addr % 16 != 0) return 1;
+  EmuMap m{}; m.base = (const char*)addr; m.rank = (int)rank; m.elem = 2;
+  m.swizzle = sw;
+  for (cuuint32_t i = 0; i < rank; ++i) {
+    if (box[i] < 1 || box[i] > 256 || estr[i] != 1)
+      return 1;
+    m.box[i] = box[i]; m.dim[i] = dim[i];
+    m.stride[i] = i ? strides[i - 1] : 2;
+    if (i && (strides[i - 1] % 16 != 0 || strides[i - 1] >= (1ull << 40)))
+      return 1; }
+  if (sw == CU_TENSOR_MAP_SWIZZLE_128B && box[0] * 2 != 128) return 1;
+  std::memcpy(map, &m, sizeof m);
+  return CUDA_SUCCESS; }
+typedef int cudaDriverEntryPointQueryResult;
+enum { cudaEnableDefault = 0, cudaDriverEntryPointSuccess = 0,
+       cudaDevAttrMultiProcessorCount = 16, cudaErrorNotSupported = 801 };
+#define CUDART_VERSION 12080
+inline int cudaGetDriverEntryPointByVersion(
+    const char* sym, void** fn, unsigned, unsigned long long,
+    cudaDriverEntryPointQueryResult* res) {
+  *fn = std::strcmp(sym, "cuTensorMapEncodeTiled") == 0
+            ? reinterpret_cast<void*>(&emu_encode_tiled) : nullptr;
+  if (res) *res = *fn ? 0 : 1;
+  return *fn ? 0 : 1; }
+// the card's SM count, which K6's launcher reads to size its blocks
+// (emu_set_sm_count changes it for a test)
+inline int emu_sm_count = 132;
+extern "C" void emu_set_sm_count(int n) { emu_sm_count = n; }
+inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+inline int cudaDeviceGetAttribute(int* v, int attr, int) {
+  *v = attr == cudaDevAttrMultiProcessorCount ? emu_sm_count : 0;
+  return 0; }
+// the box at coordinates c, row-major with dimension 0 innermost, stored
+// through the 128-byte swizzle; outside the tensor, zeros
+inline void tma_load_4d(void* dst, const void* map, uint64_t* bar, int c0,
+                        int c1, int c2, int c3) {
+  const EmuMap& m = *static_cast<const EmuMap*>(map);
+  const uint32_t a0 = smem_u32(dst);
+  if (m.swizzle == CU_TENSOR_MAP_SWIZZLE_128B && a0 % 1024 != 0) {
+    std::fprintf(stderr, "swizzled TMA box not 1024-byte aligned\n");
+    std::abort(); }
+  const long c[4] = {c0, c1, c2, c3};
+  uint32_t box[4] = {1, 1, 1, 1}; uint64_t dim[4] = {1, 1, 1, 1};
+  for (int i = 0; i < m.rank; ++i) { box[i] = m.box[i]; dim[i] = m.dim[i]; }
+  uint32_t e = 0;
+  for (uint32_t i3 = 0; i3 < box[3]; ++i3)
+    for (uint32_t i2 = 0; i2 < box[2]; ++i2)
+      for (uint32_t i1 = 0; i1 < box[1]; ++i1)
+        for (uint32_t i0 = 0; i0 < box[0]; ++i0, ++e) {
+          const long g[4] = {c[0] + i0, c[1] + i1, c[2] + i2, c[3] + i3};
+          bool in = true; size_t off = 0;
+          for (int i = 0; i < 4; ++i) {
+            in = in && g[i] >= 0 && (uint64_t)g[i] < dim[i];
+            if (i < m.rank) off += (size_t)g[i] * m.stride[i]; }
+          uint32_t a = a0 + e * 2;
+          if (m.swizzle == CU_TENSOR_MAP_SWIZZLE_128B) a = emu_swz128(a);
+          if (in) std::memcpy(emu_smem(a), m.base + off, 2);
+          else std::memset(emu_smem(a), 0, 2); }
+  emu_mbar_complete_tx(bar, e * 2); }
+inline uint64_t wgmma_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3ffffu) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         (1ull << 62); }
+inline void wgmma_fence() {}
+inline void wgmma_commit() {}
+template <int N> void wgmma_wait() {}
+template <int N> void fence_regs(float*) {}
+// one bf16 of shared memory as the tensor core reads it through a 128-byte
+// swizzle descriptor: K-major (row r at its 128-byte row of an 8-row group
+// sbo apart, k within it) or MN-major (k at its row, n's 64-element block
+// lbo apart)
+inline double emu_desc_at(uint64_t desc, int mn, int k, bool mn_major) {
+  if ((desc >> 62) != 1 || ((desc >> 49) & 7) != 0) {
+    std::fprintf(stderr, "wgmma descriptor is not 128-byte swizzled\n");
+    std::abort(); }
+  const uint32_t start = (uint32_t)(desc & 0x3fff) << 4;
+  const uint32_t lbo = (uint32_t)((desc >> 16) & 0x3fff) << 4;
+  const uint32_t sbo = (uint32_t)((desc >> 32) & 0x3fff) << 4;
+  const uint32_t a = mn_major
+      ? start + (mn / 64) * lbo + (k / 8) * sbo + (k % 8) * 128 + 2 * (mn % 64)
+      : start + (mn / 8) * sbo + (mn % 8) * 128 + 2 * k;
+  __nv_bfloat16 h; std::memcpy(&h, emu_smem(emu_swz128(a)), 2);
+  return (double)__bfloat162float(h); }
+// D (64 x N) = [D +] A B over k < 16, each product exact and summed in
+// double; A from descriptor da (K-major) or from the warpgroup's registers
+// (exchanged through a per-warpgroup buffer in the fragment layout)
+template <int N>
+inline void emu_wgmma(float* d, const uint32_t* a, uint64_t da, uint64_t db,
+                      bool b_mn_major, bool acc) {
+  const int t = threadIdx.x % 128, w = t / 32, g = t % 32 / 4, q = t % 4;
+  uint32_t* buf = emu_blk->wgx.data() + (threadIdx.x / 128) * 128 * 4;
+  EmuBarrier* bar = emu_blk->wg_bar[threadIdx.x / 128].get();
+  if (a) { for (int i = 0; i < 4; ++i) buf[t * 4 + i] = a[i];
+           bar->arrive_and_wait(); }
+  auto A = [&](int r, int k) {
+    if (!a) return emu_desc_at(da, r, k, false);
+    const uint32_t u = buf[((r / 16) * 32 + (r % 8) * 4 + (k % 8) / 2) * 4 +
+                           (r % 16) / 8 + 2 * (k / 8)];
+    return (double)__uint_as_float(k % 2 ? (u & 0xffff0000u) : (u << 16)); };
+  for (int j = 0; j < N / 8; ++j)
+    for (int e = 0; e < 4; ++e) {
+      const int r = 16 * w + g + 8 * (e / 2), c = 8 * j + 2 * q + e % 2;
+      double s = acc ? d[4 * j + e] : 0.0;
+      for (int k = 0; k < 16; ++k)
+        s += A(r, k) * emu_desc_at(db, c, k, b_mn_major);
+      d[4 * j + e] = (float)s; }
+  if (a) bar->arrive_and_wait(); }
+inline void wgmma_m64n96k16_ss(float* d, uint64_t da, uint64_t db, int acc) {
+  emu_wgmma<96>(d, nullptr, da, db, false, acc != 0); }
+template <int N>
+void wgmma_m64nNk16_rs(float* d, const uint32_t a[4], uint64_t db) {
+  emu_wgmma<N>(d, a, 0, db, true, true); }
 """
 
 
@@ -318,7 +499,9 @@ def _to_cpp(src: str) -> str:
     """A .cu source as C++ for the emulation header."""
     src = src.replace("#include <cuda_runtime.h>", '#include "cuda_emu.h"')
     src = src.replace('#include "primitives.cuh"', "")   # in cuda_emu.h
-    src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
+    src = src.replace("#include <cuda.h>", "")            # in cuda_emu.h
+    src = src.replace("__grid_constant__ ", "")
+    src = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?(\w+) (\w+)\[\];",
                  r"EMU_DYN_SMEM(\1, \2);", src)
     # a block's threads share their host thread
     src = src.replace("__shared__", "static thread_local")
@@ -380,6 +563,12 @@ def emulated(tmp_path_factory):
         rc = fns[fn](*args, None)
         assert rc == 0, f"{fn} returned {rc}"
 
+    # the SM count K6's bf16 launcher sizes its blocks by (the card's 132
+    # unless a test sets it)
+    flash = next(lib for lib in libs
+                 if hasattr(lib, "vpaas_flash_attention_bf16"))
+    flash.emu_set_sm_count.argtypes = [ctypes.c_int]
+
     def query(fn, *args):
         return fns[fn](*args)
 
@@ -396,7 +585,8 @@ def emulated(tmp_path_factory):
         mp.setattr(_build, "launch", launch)
         mp.setattr(_build, "query", query)
         mp.setattr(_build, "check_operands", check)
-        yield
+        yield flash.emu_set_sm_count
+        flash.emu_set_sm_count(132)
 
 
 MMA_PROBE = r"""
@@ -714,7 +904,7 @@ def test_onevsall_replay_source_equals_single_steps(emulated, n, d1, c,
                              len(FLASH_CASES) + len(FLASH_RAGGED_CASES))])
 def test_flash_attention_source_matches_plain(emulated, case):
     b, s_q, s_kv, n_q, n_kv, d, causal, window, cap, off = case
-    assert fa.on_tensor_cores(d, d) == (d <= 128)
+    assert fa.on_tensor_cores(d, d) == (d <= 192)
     q, k, v = _t(attention_case(b, s_q, s_kv, n_q, n_kv, d))
     kw = dict(causal=causal, window=window, softcap=cap, q_offset=off)
     got = fa.flash_attention(q, k, v, **kw)
@@ -725,16 +915,40 @@ def test_flash_attention_source_matches_plain(emulated, case):
 @pytest.mark.parametrize("case", FLASH_DV_CASES,
                          ids=[f"dv{c[5]}-{c[6]}" for c in FLASH_DV_CASES])
 def test_flash_attention_source_takes_a_value_head_dim(emulated, case):
-    # MLA's prefill: v's head dim below q's and k's, on the CUDA-core kernel
+    # MLA's prefill: v's head dim below q's and k's, on the 3xTF32 tensor-
+    # core kernel (QK and V each at its own padded width)
     b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off = case
     q, k, v = _t(attention_case(b, s_q, s_kv, n_q, n_kv, d, d_v=d_v))
     kw = dict(causal=causal, window=window, softcap=cap,
               q_offset=torch.as_tensor(off))
-    assert not fa.on_tensor_cores(d, d_v)
+    assert fa.on_tensor_cores(d, d_v)
     got = fa.flash_attention(q, k, v, **kw)
     assert got.shape == (b, s_q, n_q, d_v)
     assert float((got - ref.flash_attention(q, k, v, **kw)).abs().max()) \
         <= ATTN_ATOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_EDGE_CASES,
+                         ids=[f"edge{i}" for i in range(len(FLASH_EDGE_CASES))])
+def test_flash_attention_source_at_tile_edges(emulated, case, dtype):
+    # float32 on the 3xTF32 kernel, bf16 on the wgmma kernel where d = d_v
+    # (the CUDA-core kernel for MLA's dims), each within its card tolerance
+    b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off = case
+    q, k, v = (t.to(dtype) for t in
+               _t(attention_case(b, s_q, s_kv, n_q, n_kv, d, d_v=d_v)))
+    kw = dict(causal=causal, window=window, softcap=cap,
+              q_offset=torch.as_tensor(off))
+    assert fa.on_tensor_cores(d, d_v, dtype) == (
+        dtype == torch.float32 or d == d_v)
+    got = fa.flash_attention(q, k, v, **kw)
+    want = ref.flash_attention(q, k, v, **kw)
+    assert got.shape == (b, s_q, n_q, d_v) and got.dtype == dtype
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= ATTN_ATOL
+    else:
+        assert bf16_err(got, want) <= ATTN_BF16_RTOL
 
 
 def test_flash_attention_source_takes_per_row_offsets(emulated):
@@ -776,25 +990,36 @@ def _bf16(arrays):
             for a in arrays]
 
 
+@pytest.mark.parametrize("sms", [132, 1], ids=["sms132", "sms1"])
 @pytest.mark.parametrize("case", FLASH_CASES + FLASH_RAGGED_CASES,
                          ids=[f"flash{i}" for i in range(
                              len(FLASH_CASES) + len(FLASH_RAGGED_CASES))])
-def test_flash_attention_source_takes_bf16(emulated, case):
-    # the bf16 launcher: the mma.sync bf16 kernel for d <= 128 (p split
-    # into two bf16 halves), the CUDA-core kernel above; out in bf16
+def test_flash_attention_source_takes_bf16(emulated, case, sms):
+    # the bf16 launcher: the wgmma kernel on TMA tiles for d <= 128 (p
+    # split into two bf16 halves; d = 18 and 36 padded to a multiple of 8
+    # by the wrapper), the CUDA-core kernel above; out in bf16.  On the
+    # card's 132 SMs these small grids take 64-row blocks (one consumer
+    # warpgroup), on 1 SM 128-row blocks (two)
     b, s_q, s_kv, n_q, n_kv, d, causal, window, cap, off = case
+    emulated(sms)
+    assert fa.on_tensor_cores(d, d, torch.bfloat16) == (d <= 128)
+    assert fa.block_rows(b, s_q, n_q) == (64 if sms == 132 else 128)
     q, k, v = _bf16(attention_case(b, s_q, s_kv, n_q, n_kv, d))
     kw = dict(causal=causal, window=window, softcap=cap, q_offset=off)
+    fa.launches = 0
     got = fa.flash_attention(q, k, v, **kw)
-    assert got.dtype == torch.bfloat16
-    assert rel_err(got.float(), ref.flash_attention(q, k, v, **kw).float()) \
+    assert got.dtype == torch.bfloat16 and got.shape == (b, s_q, n_q, d)
+    assert fa.launches == 1
+    assert bf16_err(got, ref.flash_attention(q, k, v, **kw)) \
         <= ATTN_BF16_RTOL
 
 
 @pytest.mark.parametrize("case", FLASH_DV_CASES,
                          ids=[f"dv{c[5]}-{c[6]}" for c in FLASH_DV_CASES])
 def test_flash_attention_source_takes_bf16_value_head_dims(emulated, case):
+    # bf16 with d_v != d stays on the CUDA-core kernel
     b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off = case
+    assert not fa.on_tensor_cores(d, d_v, torch.bfloat16)
     q, k, v = _bf16(attention_case(b, s_q, s_kv, n_q, n_kv, d, d_v=d_v))
     kw = dict(causal=causal, window=window, softcap=cap,
               q_offset=torch.as_tensor(off))
