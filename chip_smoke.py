@@ -95,13 +95,16 @@ def bound_ms(nbytes: float, ops: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def tc_bound_ms(nbytes: float, mma_flops: float, simt_ops: float):
+def tc_bound_ms(nbytes: float, mma_flops: float, simt_ops: float,
+                bf16_flops: float = 0.0):
     """The bound of a kernel whose products run on the tensor cores in
-    3xTF32 (three TF32 products for each fp32 one) and the rest on the CUDA
-    cores: the larger of the bytes' time and the two units' times summed."""
+    3xTF32 (three TF32 products for each fp32 one), ``bf16_flops`` of them
+    as bf16 products at bf16's rate, and the rest on the CUDA cores: the
+    larger of the bytes' time and the units' times summed."""
     chip = h100()
     t_bytes = nbytes / chip.hbm_bandwidth
-    t_ops = (3 * mma_flops / chip.peak_flops_tf32
+    t_ops = (3 * (mma_flops - bf16_flops) / chip.peak_flops_tf32
+             + bf16_flops / chip.peak_flops_bf16
              + simt_ops / chip.peak_flops_fp32)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -2434,6 +2437,74 @@ def _k6_instance(fa, b, s_q, n_q, d, d_v, dtype) -> str:
     return f"flash_attention_simt_kernel<{elem}, {nc}>"
 
 
+def k7_instance(da, q, kc, vc) -> str:
+    """The name (as ptxas reports it) of the K7 split kernel instance that
+    the launcher runs on these operands: the bf16 TMA kernel by its
+    head-dim steps where :func:`decode_attention.on_tma` takes them, else
+    the split kernel by element type and q-heads a block.  Where this run
+    built the library, ptxas must have named that instance."""
+    import torch
+    d, group = q.shape[-1], q.shape[1] // kc.shape[2]
+    if da.on_tma(q, kc, vc):
+        name = ("decode_tma_kernel<"
+                f"{next(n for n in (2, 4, 6, 7, 8) if 16 * n >= d)}>")
+    else:
+        g = 1 if group == 1 else 2 if group == 2 else 4 if group <= 4 else 8
+        elem = "bf16" if q.dtype == torch.bfloat16 else "float"
+        name = f"decode_split_kernel<{elem}, {g}>"
+    return _built(name)
+
+
+def k8_instances(sk, p, n, dtype) -> list:
+    """The names of the K8 kernel instances that the launcher runs for head
+    dim ``p``, state ``n`` and x's ``dtype``, in launch order."""
+    import torch
+    elem = "bf16" if dtype == torch.bfloat16 else "float"
+    if sk.path(p, n) != "tensor cores":
+        return [_built(f"ssd_simt_kernel<{elem}>")]
+    pn = {(64, 64): "8, 8", (64, 128): "8, 16"}.get((p, n), "0, 0")
+    return [_built(f"ssd_state_kernel<{elem}, {pn}>"),
+            _built("ssd_state_pass_kernel<4>"),     # aligned operands
+            _built(f"ssd_output_kernel<{elem}, {pn}>")]
+
+
+def k7_tma_smem(d: int) -> int:
+    """Dynamic shared memory of K7's bf16 TMA kernel at head dim ``d``
+    (``csrc/decode_attention.cu`` ``tma::Tile``): a 64 KB ring of K and V
+    stages (a 64-column box of 4 heads x 16 slots, 8 KB, per 64 columns
+    of the padded head dim) and its mbarriers, asked as 120 KB so that one
+    block holds an SM."""
+    nkt = next(n for n in (2, 4, 6, 7, 8) if 16 * n >= d)
+    stages = 65536 // (2 * -(-16 * nkt // 64) * 8192)
+    return max(65536 + 16 * stages, 120 << 10)
+
+
+def k8_smem(p: int, n: int, chunk: int, bf16: bool) -> dict:
+    """Dynamic shared memory of K8's state and output kernels
+    (``csrc/ssd_scan.cu`` ``tc::state_smem_bytes`` / ``output_smem_bytes``:
+    bf16 tiles at half the bytes, row strides as there)."""
+    e = 2 if bf16 else 4
+    rows = (lambda w: w + 8) if bf16 else (lambda w: w + 4)
+    cols = ((lambda w: -(-w // 64) * 64 + 16) if bf16 else
+            (lambda w: w if w % 16 else w + 8))
+    qp = -(-chunk // 64) * 64
+    return {"state": e * 2 * 64 * (cols(p) + cols(n)) + 4 * 2 * qp + 8 * 8,
+            "output": e * (3 * 64 * rows(n) + 2 * 64 * rows(p))
+            + 4 * (p * (n + 4) + 2 * qp) + 8 * 8}
+
+
+def _built(name: str) -> str:
+    from repro_torch.kernels import _build
+    if _build.build_log and not kernel_ptxas(name + ":"):
+        raise AssertionError(f"{name}: ptxas did not compile it")
+    return name
+
+
+def instance_ptxas(names) -> list:
+    """ptxas's register, shared-memory and spill line of each instance."""
+    return [line for name in names for line in kernel_ptxas(name + ":")]
+
+
 # the K6 shapes of the LLM paths, q_offset 0: (b, s_q, s_kv, n_q, n_kv, d,
 # d_v, causal, window, softcap, what)
 FLASH_PATH_SHAPES = (
@@ -2808,15 +2879,15 @@ def phase_decode_attention_bf16(torch, np, card):
         reps = 30 if what == "path" else 5
         plain = measure(torch, lambda: da.decode_attention_ref(
             q, kc, vc, cl, **kw), reps)
-        lib_t = (None, None)
+        lib_t, turns = (None, None), None
         if cap is None and window is None:
             valid = (torch.arange(S, device="cuda")[None, :]
                      < cl[:, None].long())[:, None, None, :]
             kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
-            timed, lib_t, _ = versus_library(
+            timed, lib_t, turns = versus_library(
                 torch, kernel, lambda: F.scaled_dot_product_attention(
                     q[:, :, None], kt, vt, attn_mask=valid,
-                    enable_gqa=n_q != n_kv), reps)
+                    enable_gqa=n_q != n_kv), reps, once=True)
         else:
             timed = measure(torch, kernel, reps)
         lens = [int(x) for x in cl.tolist()]
@@ -2831,13 +2902,24 @@ def phase_decode_attention_bf16(torch, np, card):
                 nbytes, rows_valid * n_q * 4 * d,
                 rows_valid * n_q * (_attn_ops_per_pair(d, cap) - 4 * d)),
             ATTN_BF16_RTOL)
+        kernel_name = k7_instance(da, q, kc, vc)
         row.update(what=what,
-                   library_device_ms=lib_t[1],
+                   library_device_ms=lib_t[1], kernel=kernel_name,
+                   ptxas=instance_ptxas([kernel_name]),
+                   dynamic_smem=(k7_tma_smem(d) if da.on_tma(q, kc, vc)
+                                 else None),
                    bound_f32_ms=bound_ms(
             decode_nbytes(b, n_q, n_kv, d, lens, S, window),
             rows_valid * n_q * _attn_ops_per_pair(d, cap))[0])
-        _bf16_report(f"K7 bf16 decode_attention {what} {shape} (float32's "
-                     f"bound {row['bound_f32_ms']:.6f} ms)", row, card)
+        smem = ("" if row["dynamic_smem"] is None else
+                f", {row['dynamic_smem']:,} B dyn. smem")
+        _bf16_report(f"K7 bf16 decode_attention {what} {shape}, "
+                     f"{kernel_name}{smem} (float32's bound "
+                     f"{row['bound_f32_ms']:.6f} ms)", row, card)
+        if turns is not None:
+            row["turns_ms"] = turns
+            _report_turns(f"K7 bf16 decode_attention {what} {shape}", turns,
+                          row, "sdpa bf16", card)
         rows.append(row)
     rows[0]["other_shapes"] = rows[1:]
     return rows[0]
@@ -2853,9 +2935,9 @@ def ssd_ops(b, s, h, p, n) -> int:
 
 
 def ssd_tc_ops(b, s, h, p, n, chunk):
-    """(matrix-product flops, other flops) of the chunked form K8 runs on
-    the tensor cores (``kernels.ssd_scan.chunked_ops``, which the dry run's
-    floor charges too)."""
+    """(matrix-product flops, other flops, C B^T's flops) of the chunked
+    form K8 runs on the tensor cores (``kernels.ssd_scan.chunked_ops``,
+    which the dry run's floor charges too)."""
     from repro_torch.kernels.ssd_scan import chunked_ops
     return chunked_ops(b, s, h, p, n, chunk)
 
@@ -2899,7 +2981,7 @@ def phase_ssd_scan(torch, np, card):
                    f"b={b} s={s} h={h} p={p} n={n} chunk={chunk} "
                    f"initial_state={init} weak_decay={weak}", err, timed,
                    plain, None, nbytes, ssd_ops(b, s, h, p, n))
-        mma, other = ssd_tc_ops(b, s, h, p, n, chunk)
+        mma, other, _ = ssd_tc_ops(b, s, h, p, n, chunk)
         row["bound_tc_ms"], row["bound_tc_by"] = tc_bound_ms(nbytes, mma,
                                                              other)
         row.update(path=sk.path(p, n), device_kernels_per_call=per_call)
@@ -2927,10 +3009,11 @@ def phase_ssd_scan_bf16(torch, np, card):
     """K8 on bf16 x, B and C (dt, A and the states float32, as the Mamba2
     layer passes them) against its plain version, at the LLM paths' three
     shapes and every CPU test case's: error, kernel, plain and device
-    times, the bound.  Its products stay 3xTF32 (their operands are
-    float32 intermediates): the bound counts the function's operations at
-    fp32's rate, as the float32 rows do, on bf16's bytes.  Returns the
-    zamba2 prefill's row, the others under ``other_shapes``."""
+    times, the bound: the function's operations at fp32's rate, as the
+    float32 rows count them, on bf16's bytes, and the tensor-core bound
+    with C B^T (bf16 operands) at bf16's rate and the other products
+    (float32 intermediates) in 3xTF32.  Returns the zamba2 prefill's row,
+    the others under ``other_shapes``."""
     from repro_torch.kernels import ssd_scan as sk
     from repro_torch.testing import (SSD_BF16_RTOL, SSD_CASES, SSD_RTOL,
                                      rel_err, ssd_case)
@@ -2969,16 +3052,112 @@ def phase_ssd_scan_bf16(torch, np, card):
                         timed, plain, None,
                         bound_ms(nbytes, ssd_ops(b, s, h, p, n)),
                         SSD_BF16_RTOL)
-        mma, other = ssd_tc_ops(b, s, h, p, n, chunk)
+        mma, other, cbt = ssd_tc_ops(b, s, h, p, n, chunk)
         row["bound_tc_ms"], row["bound_tc_by"] = tc_bound_ms(nbytes, mma,
-                                                             other)
-        row.update(what=what, path=sk.path(p, n), final_state_err=fin_err)
+                                                             other, cbt)
+        names = k8_instances(sk, p, n, x.dtype)
+        row.update(what=what, path=sk.path(p, n), final_state_err=fin_err,
+                   kernels=names, ptxas=instance_ptxas(names),
+                   dynamic_smem=(k8_smem(p, n, chunk, True)
+                                 if sk.path(p, n) == "tensor cores"
+                                 else None))
+        smem = ("" if row["dynamic_smem"] is None else
+                ", dyn. smem " + ", ".join(
+                    f"{k} {v:,} B" for k, v in row["dynamic_smem"].items()))
         _bf16_report(f"K8 bf16 ssd_scan {what} {shape}, {row['path']} "
-                     f"path, tensor-core bound {row['bound_tc_ms']:.6f} ms, "
-                     f"final state {fin_err:.3e}", row, card)
+                     f"path ({', '.join(names)}{smem}), tensor-core bound "
+                     f"{row['bound_tc_ms']:.6f} ms, final state "
+                     f"{fin_err:.3e}", row, card)
         rows.append(row)
     rows[0]["other_shapes"] = rows[1:]
     return rows[0]
+
+
+SPLIT_REPS = 10      # timed calls a split by device kernel takes the median of
+
+
+def kernel_split(torch, fn, names, reps: int = SPLIT_REPS) -> dict:
+    """The device time of each of a launcher's device kernels (``names``,
+    in launch order) from CUDA events that the launcher records between
+    them (``_build.time_next_launch``): {name: median ms over ``reps``
+    calls}, their sum under "total".  It loses no event in a long window,
+    where the profiler lost every window of K7 and K8 at 32k."""
+    from repro_torch.kernels import _build
+    fn()
+    torch.cuda.synchronize()
+    times = {n: [] for n in (*names, "total")}
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(names) + 1)]
+        for e in ev:                     # each gets its handle
+            e.record()
+        torch.cuda.synchronize()
+        _build.time_next_launch(ev)
+        fn()
+        got = _build.launch_events_recorded()
+        if got != len(ev):
+            raise AssertionError(f"kernel_split: the launcher recorded {got}"
+                                 f" of {len(ev)} events for {names}")
+        ev[-1].synchronize()
+        for i, n in enumerate(names):
+            times[n].append(ev[i].elapsed_time(ev[i + 1]))
+        times["total"].append(ev[0].elapsed_time(ev[-1]))
+    return {n: statistics.median(v) for n, v in times.items()}
+
+
+K7_KERNELS = ("split", "combine")
+K8_KERNELS = ("state", "pass", "output")
+
+
+def phase_llm_kernel_split(torch, card, batches) -> dict:
+    """K7 and K8 split by device kernel (:func:`kernel_split`), in bf16 and
+    float32, at the dry run's 32k card shapes (``batches``: K7 over every
+    slot of a 32k cache, K8 over 32k steps at zamba2's chunk) and at the
+    serving shapes (zamba2's decode, 4 slots at 385-399 of 512; its
+    384-token prefill).  Returns {"<kernel> <dtype> <shape>": split}."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ssd_scan as sk
+    cfg = get_config(DRYRUN_ARCH)
+    s32 = INPUT_SHAPES["prefill_32k"].seq_len
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p_, n_, hs = cfg.ssm_head_dim, cfg.ssm_state, cfg.n_ssm_heads
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "float32"
+        for b, S, lens in ((batches["decode_32k"], s32, None),
+                           (4, 512, [385, 390, 395, 399])):
+            q = torch.randn((b, h, d), generator=gen, device="cuda").to(dtype)
+            kc, vc = (torch.randn((b, S, kv, d), generator=gen,
+                                  device="cuda").to(dtype) for _ in "kv")
+            cl = torch.as_tensor(lens or [S] * b, dtype=torch.int32,
+                                 device="cuda")
+            key = f"K7 {tag} b={b} S={S} heads={h}/{kv} d={d}"
+            out[key] = kernel_split(
+                torch, lambda: da.decode_attention(q, kc, vc, cl), K7_KERNELS)
+            del q, kc, vc
+            torch.cuda.empty_cache()
+        for b, s in ((batches["prefill_32k"], s32), (1, 384)):
+            x = torch.randn((b, s, hs, p_), generator=gen,
+                            device="cuda").to(dtype)
+            dt = torch.rand((b, s, hs), generator=gen, device="cuda") * 0.1
+            A = -torch.rand((hs,), generator=gen, device="cuda") - 0.5
+            B, C = ((torch.randn((b, s, n_), generator=gen, device="cuda")
+                     * 0.3).to(dtype) for _ in "BC")
+            key = (f"K8 {tag} b={b} s={s} h={hs} p={p_} n={n_} "
+                   f"chunk={cfg.ssm_chunk}")
+            out[key] = kernel_split(
+                torch, lambda: sk.ssd_scan(x, dt, A, B, C,
+                                           chunk=cfg.ssm_chunk), K8_KERNELS)
+            del x, dt, A, B, C
+            torch.cuda.empty_cache()
+    for key, split in out.items():
+        print(f"split by device kernel, {key}: " + ", ".join(
+            f"{n} {ms:.4f} ms" for n, ms in split.items())
+            + f" (median of {SPLIT_REPS} calls, CUDA events the launcher "
+              f"records between its kernels) [{card}]")
+    return out
 
 
 PARENT_PHASES = """
@@ -2990,12 +3169,53 @@ import chip_smoke as cs
 from repro_torch import set_reference_precision
 set_reference_precision()
 card = cs.card_line()
-cs.phase_crop_gather(torch, np, card)
-cs.phase_onevsall_update(torch, np, card)
-cs.phase_region_filter(torch, np, card)
-cs.phase_frame_filter(torch, np, card)
-cs.phase_iou_matrix(torch, np, card)
+{calls}
 """
+# the parent's phases that --parent runs before and after this tree's: the
+# video kernels' (their device times matched by parent_key), then K7's and
+# K8's (their lines relayed)
+PARENT_VIDEO = ("phase_crop_gather", "phase_onevsall_update",
+                "phase_region_filter", "phase_frame_filter",
+                "phase_iou_matrix")
+PARENT_LLM = ("phase_decode_attention", "phase_ssd_scan")
+
+
+def run_parent(root: str, phases, raw: bool = False) -> str:
+    """Run ``phases`` of another checkout (the parent commit, unpacked with
+    ``git archive``) in a subprocess on this card (``raw``: lines of code
+    to run there instead); return its output."""
+    code = PARENT_PHASES.format(
+        root=os.path.abspath(root), src=os.path.join(os.path.abspath(root),
+                                                     "src"),
+        calls="\n".join(phases if raw else (f"cs.{name}(torch, np, card)"
+                                             for name in phases)))
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=900)
+    if run.returncode != 0:
+        raise RuntimeError(f"the parent's {', '.join(phases)} failed:\n"
+                           f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+    return run.stdout
+
+
+def relay_parent_llm(root: str, when: str) -> None:
+    """The parent's K7 and K8 rows (float32 and bf16), relayed."""
+    for line in run_parent(root, PARENT_LLM).splitlines():
+        if line.startswith(("K7", "K8")):
+            print(f"  parent ({when} this tree's): {line}")
+
+
+def relay_parent_steps(root: str, when: str) -> None:
+    """The parent's dry-run card steps (DRYRUN_ARCH at the 32k card
+    shapes, at the batches its abstract pass picks), relayed."""
+    code = ("from repro_torch.launch.dryrun import run_one",
+            "from repro_torch.configs import INPUT_SHAPES",
+            "table = {(cs.DRYRUN_ARCH, s): run_one(cs.DRYRUN_ARCH, s, "
+            "device='meta', verbose=False, save=False) for s in "
+            "INPUT_SHAPES}",
+            "cs.phase_dryrun_card(torch, card, table)")
+    for line in run_parent(root, code, raw=True).splitlines():
+        if line.startswith("dryrun on the card"):
+            print(f"  parent ({when} this tree's): {line}")
 
 
 def parent_key(tag: str, shape: str):
@@ -3010,16 +3230,8 @@ def parent_device_ms(root: str, card: str):
     card; relay its lines and return {parent_key(...): device ms per
     call}."""
     import re
-    code = PARENT_PHASES.format(root=os.path.abspath(root),
-                                src=os.path.join(os.path.abspath(root),
-                                                 "src"))
-    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=900)
-    if run.returncode != 0:
-        raise RuntimeError(f"the parent's K2/K5/K1/K4b/K4a phases failed:\n"
-                           f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
     found = {}
-    for line in run.stdout.splitlines():
+    for line in run_parent(root, PARENT_VIDEO).splitlines():
         m = re.match(r"(K[125]|K4[ab]) \w+ ((?:[A-Z]\w*=\d+)(?: [A-Z]\w*=\d+)*)"
                      r"[^:]*: .*?ms per call \((\d+\.\d+) ms on the device",
                      line)
@@ -3283,9 +3495,11 @@ def phase_dryrun_kernels(torch, np, card, batches):
                     (None, None), None,
                     bound_ms(nbytes, ssd_ops(bp, s, hs, p_, n_)),
                     SSD_BF16_RTOL)
+    # C B^T at bf16's rate, the other products in 3xTF32
     row["bound_tc_ms"], row["bound_tc_by"] = tc_bound_ms(
         nbytes, *ssd_tc_ops(bp, s, hs, p_, n_, cfg.ssm_chunk))
-    row.update(final_state_err=fin_err, reference_s=ref_s)
+    row.update(final_state_err=fin_err, reference_s=ref_s,
+               kernel=", ".join(k8_instances(sk, p_, n_, bf16)))
     rows["ssd_scan"] = row
     del x, dt, A, B, C, y, fin
     torch.cuda.empty_cache()
@@ -3297,7 +3511,7 @@ def phase_dryrun_kernels(torch, np, card, batches):
     if not (err[1] <= ATTN_BF16_RTOL and bool(torch.isfinite(got).all())):
         raise AssertionError(f"K7 bf16 at {bd} x {s}: error {err}")
     kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
-    timed, lib, _ = versus_library(
+    timed, lib, turns = versus_library(
         torch, lambda: da.decode_attention(q, kc, vc, cl),
         lambda: F.scaled_dot_product_attention(q[:, :, None], kt, vt,
                                                enable_gqa=h != kv),
@@ -3314,7 +3528,8 @@ def phase_dryrun_kernels(torch, np, card, batches):
                         bd * s * h * 4 * d,
                         bd * s * h * (_attn_ops_per_pair(d, None) - 4 * d)),
                     ATTN_BF16_RTOL)
-    row["library_device_ms"] = lib[1]
+    row.update(library_device_ms=lib[1], turns_ms=turns,
+               kernel=k7_instance(da, q, kc, vc))
     rows["decode_attention"] = row
     del q, kc, vc, got
     torch.cuda.empty_cache()
@@ -3419,8 +3634,9 @@ def phase_dryrun(torch, np, card):
     """The dry run's phases (a)-(d); returns what the JSON line carries."""
     table = phase_dryrun_table(card)
     runs = phase_dryrun_card(torch, card, table)
-    kernels = phase_dryrun_kernels(
-        torch, np, card, {s: runs[s]["batch"] for s in DRYRUN_CARD_SHAPES})
+    batches = {s: runs[s]["batch"] for s in DRYRUN_CARD_SHAPES}
+    kernels = phase_dryrun_kernels(torch, np, card, batches)
+    kernels["split"] = phase_llm_kernel_split(torch, card, batches)
     steps = phase_dryrun_reference(torch, np, card)
     keep = ("hlo_flops", "hlo_bytes", "arg_bytes", "peak_memory_per_device",
             "fits", "max_batch", "batch1_peak_bytes", "t_floor", "dominant",
@@ -4803,13 +5019,44 @@ def phase_llm_launcher(torch, np, card):
                     "predicted_peak_bytes": predicted}
 
 
+# the dry run's batches on an 80 GB H100 (its table, PR 26), for --only
+DRYRUN_BATCHES = {"prefill_32k": 6, "decode_32k": 14}
+ONLY_PHASES = {
+    "split": lambda torch, np, card: phase_llm_kernel_split(
+        torch, card, DRYRUN_BATCHES),
+    "k7": phase_decode_attention,
+    "k8": phase_ssd_scan,
+    "dryrun_kernels": lambda torch, np, card: phase_dryrun_kernels(
+        torch, np, card, DRYRUN_BATCHES),
+    "dryrun_steps": lambda torch, np, card: phase_dryrun_card(
+        torch, card, dryrun_card_table()),
+}
+
+
+def dryrun_card_table() -> dict:
+    """The abstract passes that phase_dryrun_card reads: DRYRUN_ARCH at
+    every input shape (in this process)."""
+    from repro_torch.configs import INPUT_SHAPES
+    from repro_torch.launch.dryrun import run_one
+    return {(DRYRUN_ARCH, s): run_one(DRYRUN_ARCH, s, device="meta",
+                                      verbose=False, save=False)
+            for s in INPUT_SHAPES}
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", metavar="DIR",
                     help="another checkout (e.g. the parent commit from git "
-                         "archive): its K2, K5, K1, K4b and K4a phases run "
-                         "before and after this tree's, on the same card")
+                         "archive): its K2, K5, K1, K4b and K4a phases, and "
+                         "its K7 and K8 phases, run before and after this "
+                         "tree's, on the same card")
+    ap.add_argument("--only", nargs="+", choices=sorted(ONLY_PHASES),
+                    help="build, then run only these phases and stop (no "
+                         "contract line): a probe of K7 and K8 (the dry-run "
+                         "kernels at DRYRUN_BATCHES) or of the dry run's "
+                         "card steps; with --parent the parent's K7 / K8 "
+                         "rows or card steps run before and after")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         raise SystemExit("chip_smoke.py: src/repro_torch not found next to "
@@ -4838,6 +5085,19 @@ def main() -> int:
     for line in ptxas_summary(_build.build_log):
         print(f"  {line}")
 
+    if args.only:
+        relays = [] if not args.parent else (
+            ([relay_parent_llm] if {"k7", "k8"} & set(args.only) else [])
+            + ([relay_parent_steps] if "dryrun_steps" in args.only else []))
+        for relay in relays:
+            relay(args.parent, "before")
+        for name in args.only:
+            ONLY_PHASES[name](torch, np, card)
+        for relay in relays:
+            relay(args.parent, "after")
+        print(f"chip_smoke.py --only {' '.join(args.only)} finished in "
+              f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     before = parent_device_ms(args.parent, card) if args.parent else None
     crop_row = phase_crop_gather(torch, np, card)
     update_rows = phase_onevsall_update(torch, np, card)
@@ -4865,9 +5125,13 @@ def main() -> int:
     video_rows = [filter_row, crop_row, phase_onevsall(torch, np, card)]
     iou_row = iou_rows[0]                   # the flush's NMS shape
     iou_row["other_shapes"] = iou_rows[1:]
+    if args.parent:
+        relay_parent_llm(args.parent, "before")
     llm_rows = [phase_flash_attention(torch, np, card),
                 phase_decode_attention(torch, np, card),
                 phase_ssd_scan(torch, np, card)]
+    if args.parent:
+        relay_parent_llm(args.parent, "after")
     nms_row = phase_nms(torch, np, card)
     phase_reference(torch, np, card)
     fused_counts, sync_counts, runs, served = phase_main_path(torch, np, card)
@@ -4959,6 +5223,14 @@ def main() -> int:
         if row["name"] in ("flash_attention", "ssd_scan"):
             bf["vjps_launcher"] = launcher_counts[row["name"] + "_vjp"]
         bf["dryrun_shape"] = dryrun["kernels"][row["name"]]
+        # K7's and K8's split by device kernel, at 32k and serving shapes
+        tag = {"decode_attention": "K7", "ssd_scan": "K8"}.get(row["name"])
+        for r, dt in ((row, "float32"), (bf, "bf16")):
+            if tag:
+                r["split_ms"] = {
+                    key: split for key, split in
+                    dryrun["kernels"]["split"].items()
+                    if key.startswith(f"{tag} {dt} ")}
         bf16_rows.append(bf)
     rows = (video_rows + [iou_row, nms_row, frame_row, update_row] + llm_rows
             + bf16_rows)

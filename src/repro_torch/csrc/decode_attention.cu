@@ -46,17 +46,47 @@
 //     and weighs nothing; a row whose splits are all empty gets the mean
 //     of V.
 //
-// bf16 q and caches (vpaas_decode_attention_bf16): the same two kernels,
-// templates over the element type.  The caches arrive by 16-byte cp.async
-// (8 values) into bf16 rows of DP + 8 values and are widened as they are
-// read (q.k reads 4 values, 8 bytes, at a time); q is widened as it is
-// staged, every sum and the workspace stay f32, the combine writes bf16.
-// A byte-bound kernel: bf16 halves its bytes (zamba2's decode: 22.5 MB,
-// 6.7 us at 3.35 TB/s).
+// bf16 q and caches (vpaas_decode_attention_bf16), the reference's launch
+// path: a byte-bound kernel whose bytes bf16 halves (zamba2's decode_32k,
+// 14 rows x 32,768 slots x 32 kv-heads x d = 112: 6.58 GB, 1.963 ms at
+// 3.35 TB/s).  Designed for Hopper where d % 8 == 0, d <= 128 and the
+// caches are 16-byte aligned (decode_tma_kernel, namespace tma):
+//  - A block takes 4 consecutive kv-heads, one a warp.  TMA brings their
+//    K and V rows of 16 slots (a 4-d tensor map over the caches as (B, H,
+//    S, D), host.cuh; one 64-column box per 64 columns of d, 128-byte
+//    swizzled, zeros past d) into a 64 KB ring with full and empty
+//    mbarriers (2 stages of 32 KB at d = 112), thread 0 refilling a stage
+//    as the warps release it; one block an SM.  The 4 heads' rows of a
+//    slot lie side by side in the (B, S, H, D) caches, so a tile reads 896
+//    contiguous bytes a slot: tiles of 64 slots of one head (224 bytes a
+//    slot, 7 KB apart) ran 1.6x slower on the card (PERF.md, PR 27).
+//  - Both products run on the tensor cores (mma.sync m16n8k16 bf16, f32
+//    accumulation): S^T = Q K^T with the warp's q-heads (its kv-head's
+//    GQA group, padded with zeros) as the mma's 16 rows and K's B
+//    fragments by ldmatrix from the swizzled tile, and O += P V with P's
+//    two bf16 halves (hi and the rest, ~16 bits of p, as K6) as the A
+//    fragments straight from S's accumulators and V's by ldmatrix.trans.
+//    bf16 x bf16 products are exact in f32, so against the CUDA-core loop
+//    (q.k one lane a slot, p.v a 32-step shuffle loop) only the order of
+//    the sums moves.
+//  - Each warp runs its own online softmax over its head's slots: no
+//    barrier inside the loop, no merge at the end; it writes the split's
+//    workspace rows, which the float32 form's combine kernel merges in
+//    split order (bit-identical run to run).
+//  - The grid is sized to the card: the wrapper asks the library for the
+//    SMs x resident blocks an SM of the instance
+//    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and cuts each row's
+//    longest possible length into whole tiles, as few splits as fill
+//    whole waves to >= 90%; it reads no cache_len from the device.
+// Other bf16 operands (d % 8 != 0, d > 128, an unaligned cache) take the
+// float32 design as a template over the element type: the caches by
+// 16-byte cp.async into bf16 rows of DP + 8 values, widened as they are
+// read.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "host.cuh"
 #include "primitives.cuh"
 
 namespace {
@@ -370,22 +400,378 @@ int launch(const T* q, const T* k, const T* v, const int32_t* cl,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(Hkv * nsub, B, nsplit);
+  record_launch_event(0, stream);
   decode_split_kernel<T, G><<<grid, kThreads, smem, stream>>>(
       q, k, v, cl, ws, S, Hq, Hkv, D, group, nsub, per, nsplit, window,
       softcap, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  record_launch_event(1, stream);
   dim3 grid2(Hq, B);
   decode_combine_kernel<T><<<grid2, kThreads, 0, stream>>>(
       ws, v, out, S, Hq, Hkv, D, group, nsplit);
-  return (int)cudaGetLastError();
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return record_launch_event(2, stream);
 }
 
+// ---------------------------------------------------------------------------
+// bf16, d % 8 == 0, d <= 128, k and v 16-byte aligned: TMA tiles, mma.sync
+// ---------------------------------------------------------------------------
+namespace tma {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWarps = 4;        // one kv-head a warp
+constexpr int kBlock = 32 * kWarps;   // threads a block
+constexpr int kSlots = 16;       // slots a tile, of each of the block's heads
+constexpr unsigned kRing = 64 << 10;     // bytes of K and V in flight a block
+constexpr unsigned kOneBlock = 120 << 10;  // shared memory that holds an SM
+constexpr int kHeads = 16;       // q-heads a warp: the mma's M
+constexpr int kRow = 128;        // bytes of a swizzled box row: 64 bf16
+constexpr float kLog2e = 1.4426950408889634f;
+
+// NKT 16-column steps of the head dim (d <= 16 NKT, zeros past d).  Shared
+// memory, 1024-byte aligned: STAGES stages of K then V, each NB boxes of
+// kWarps heads x 16 slots x 64 columns (8 KB, 128-byte swizzled; warp w's
+// 16 rows are rows 16 w ..), then the barriers: a 64 KB ring (2 stages at
+// d > 64, 4 below), and the block asks for kOneBlock so that it holds its
+// SM alone.  On the card at 14 x 32k, one block an SM with 64 KB in flight
+// ran faster than two or three blocks an SM with 128-192 KB: the more
+// streams of 896-byte rows 7 KB apart, the lower HBM's rate.
+template <int NKT>
+struct Tile {
+  static constexpr int NB = (16 * NKT + 63) / 64;
+  static constexpr unsigned BOX = kWarps * kSlots * kRow;
+  static constexpr unsigned KV_BYTES = NB * BOX;      // K or V of a stage
+  static constexpr unsigned STAGE = 2 * KV_BYTES;
+  static constexpr int STAGES = kRing / STAGE;
+  static constexpr unsigned OFF_BAR = STAGES * STAGE;
+  static constexpr unsigned SMEM = OFF_BAR + 8 * 2 * STAGES > kOneBlock
+                                       ? OFF_BAR + 8 * 2 * STAGES
+                                       : kOneBlock;
+};
+
+// the shared address of (row r, column c) of a tile's swizzled boxes
+__device__ __forceinline__ const uint8_t* at(const uint8_t* tile, int r,
+                                             int c) {
+  return tile + (c / 64) * (kWarps * kSlots * kRow) + r * kRow +
+         ((((c % 64) / 8) ^ (r % 8)) << 4);
+}
+
+// One block per (4 consecutive kv-heads, group of up to 16 q-heads of each,
+// batch row, split of the row's valid slots [s_lo, s_hi)).  Thread 0 issues
+// the TMA loads of K and V tiles -- the 4 heads' rows of 16 slots, which lie
+// side by side in the (B, S, H, D) caches, so a tile reads 4 x 224 bytes a
+// slot at d = 112 -- into the ring (Tile; full and empty mbarriers),
+// refilling a stage once every warp has released it.  Warp w
+// takes kv-head 4 blockIdx + w with its own online softmax: S^T = Q K^T as
+// mma.sync m16n8k16 (its q-heads as the 16 rows, zero past them; two
+// 8-slot blocks; K by ldmatrix), then O += P V (P's two bf16 halves as the
+// A fragments straight from S's accumulators, V by ldmatrix.trans), and at
+// the end writes its heads' (acc, m, l) to the split's workspace rows, as
+// the float32 kernel's.
+template <int NKT>
+__global__ void __launch_bounds__(kBlock)
+decode_tma_kernel(const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const bf16* __restrict__ q,
+                  const int32_t* __restrict__ cache_len,
+                  float* __restrict__ ws, int S, int Hq, int Hkv, int D,
+                  int group, int nsub, int per, int nsplit, int window,
+                  float softcap, float scale) {
+  using T = Tile<NKT>;
+  extern __shared__ __align__(1024) uint8_t smem[];
+  if (smem_u32(smem) % 1024 != 0) __trap();
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + T::OFF_BAR);
+  uint64_t* empty = full + T::STAGES;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int hk0 = blockIdx.x / nsub * kWarps;   // the block's first kv-head
+  const int sub = blockIdx.x % nsub;
+  const int hk = hk0 + warp;                    // this warp's
+  const int h0 = hk * group + sub * kHeads;     // its first q-head
+  const int nh = hk < Hkv ? min(kHeads, group - sub * kHeads) : 0;
+  const int b = blockIdx.y;
+  const int sp = blockIdx.z;
+  const int clen = cache_len[b];
+  const int lo = window > 0 ? max(0, clen - window) : 0;
+  const int hi = min(clen, S);
+  const int s_lo = lo + sp * per;          // this split: [s_lo, s_hi)
+  const int s_hi = min(hi, s_lo + per);
+  const size_t wrow = (size_t)nsplit * (D + 2);
+  float* wsb = ws + ((size_t)b * Hq + h0) * wrow + (size_t)sp * (D + 2);
+  if (s_lo >= s_hi) {                      // nothing here: weighs 0
+    if (lane < nh) wsb[lane * wrow + D] = -INFINITY;
+    return;
+  }
+  const int ntiles = (s_hi - s_lo + kSlots - 1) / kSlots;
+
+  auto load_tile = [&](int i) {
+    const int st = i % T::STAGES;
+    mbar_arrive_expect_tx(&full[st], T::STAGE);
+    uint8_t* ks = smem + st * T::STAGE;
+    const int t0 = s_lo + i * kSlots;
+    for (int x = 0; x < T::NB; ++x) {
+      tma_load_4d(ks + x * T::BOX, &tk, &full[st], 64 * x, t0, hk0, b);
+      tma_load_4d(ks + T::KV_BYTES + x * T::BOX, &tv, &full[st], 64 * x, t0,
+                  hk0, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < T::STAGES; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], kWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int i = 0; i < min(T::STAGES, ntiles); ++i) load_tile(i);
+
+  // Q as the A fragments of S^T's k steps: rows g, g + 8 (q-heads),
+  // columns 2t, 2t + 1 and 2t + 8, 2t + 9 of the step
+  uint32_t qa[NKT][4];
+  {
+    const bf16* qb = q + ((size_t)b * Hq + h0) * D;
+    auto qv = [&](int r, int c) -> uint32_t {
+      return r < nh && c < D ? bf16_bits(qb[r * D + c]) : 0u;
+    };
+#pragma unroll
+    for (int kk = 0; kk < NKT; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = g + 8 * (i & 1);
+        const int c = 16 * kk + 2 * t + 8 * (i >> 1);
+        qa[kk][i] = qv(r, c) | (qv(r, c + 1) << 16);
+      }
+  }
+  // ldmatrix's row addresses: lane l reads row l % 8 of matrix l / 8; for
+  // K the matrices are (slots +0, columns +0), (+0, +8), (+8, +0),
+  // (+8, +8), for V (+0, +0), (+8, +0), (+0, +8), (+8, +8); the warp's
+  // rows are its head's 16 slots
+  const int mi = lane / 8;
+  const int r0 = kSlots * warp;
+  const int k_row = r0 + 8 * (mi >> 1) + lane % 8;
+  const int k_col = 8 * (mi & 1);
+  const int v_row = r0 + 8 * (mi & 1) + lane % 8;
+  const int v_col = 8 * (mi >> 1);
+
+  float o[2 * NKT][4];                     // O: 16 q-heads x 16 NKT, f32
+#pragma unroll
+  for (int n = 0; n < 2 * NKT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};     // q-heads g, g + 8
+  float l[2] = {0.f, 0.f};
+
+  for (int i = 0; i < ntiles; ++i) {
+    const int st = i % T::STAGES;
+    mbar_wait(&full[st], (i / T::STAGES) & 1);
+    const uint8_t* Kt = smem + st * T::STAGE;
+    const uint8_t* Vt = Kt + T::KV_BYTES;
+
+    // S^T: sc[j][e] is q-head g + 8 (e / 2), slot 8 j + 2t + e % 2
+    float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kk = 0; kk < NKT; ++kk) {
+      uint32_t kf[4];
+      ldsm_x4(kf, at(Kt, k_row, 16 * kk + k_col));
+      const uint32_t b0[2] = {kf[0], kf[1]};
+      const uint32_t b1[2] = {kf[2], kf[3]};
+      mma_bf16_m16n8k16(sc[0], qa[kk], b0);
+      mma_bf16_m16n8k16(sc[1], qa[kk], b1);
+    }
+
+    // scale, softcap, the split's end; the online softmax of q-heads g and
+    // g + 8 (logits scaled as the plain version's, exponentials by ex2)
+    const int slot0 = s_lo + i * kSlots + 2 * t;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[j][e] * scale;
+        if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+        x = slot0 + 8 * j + (e & 1) < s_hi ? x : -INFINITY;
+        sc[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float msc[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      msc[r] = m_new == -INFINITY ? 0.f : m_new * kLog2e;
+      alpha[r] = m_new == m[r] ? 1.f
+                               : ex2_approx(fmaf(m[r], kLog2e, -msc[r]));
+      m[r] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2_approx(fmaf(sc[j][e], kLog2e, -msc[e >> 1]));
+        sc[j][e] = p;
+        sum[e >> 1] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      sum[r] += __shfl_xor_sync(kFull, sum[r], 1);
+      sum[r] += __shfl_xor_sync(kFull, sum[r], 2);
+      l[r] = fmaf(l[r], alpha[r], sum[r]);
+    }
+    if (__any_sync(kFull, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int n = 0; n < 2 * NKT; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
+    }
+
+    // P (16 q-heads x 16 slots) as A fragments, two bf16 halves
+    uint32_t phi[4], plo[4];
+    split_bf16x2(sc[0][0], sc[0][1], phi[0], plo[0]);   // head g, slots 2t
+    split_bf16x2(sc[0][2], sc[0][3], phi[1], plo[1]);   // head g + 8
+    split_bf16x2(sc[1][0], sc[1][1], phi[2], plo[2]);   // slots 2t + 8
+    split_bf16x2(sc[1][2], sc[1][3], phi[3], plo[3]);
+#pragma unroll
+    for (int kk = 0; kk < NKT; ++kk) {
+      uint32_t vf[4];
+      ldsm_x4_trans(vf, at(Vt, v_row, 16 * kk + v_col));
+      const uint32_t b0[2] = {vf[0], vf[1]};
+      const uint32_t b1[2] = {vf[2], vf[3]};
+      mma_bf16_m16n8k16(o[2 * kk], plo, b0);
+      mma_bf16_m16n8k16(o[2 * kk + 1], plo, b1);
+      mma_bf16_m16n8k16(o[2 * kk], phi, b0);
+      mma_bf16_m16n8k16(o[2 * kk + 1], phi, b1);
+    }
+
+    // release the stage; thread 0 refills it once every warp has
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+    if (threadIdx.x == 0 && i + T::STAGES < ntiles) {
+      mbar_wait(&empty[st], (i / T::STAGES) & 1);
+      load_tile(i + T::STAGES);
+    }
+  }
+
+  // this warp's q-heads' workspace rows: (acc over d, m, l)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int head = g + 8 * r;
+    if (head >= nh) continue;
+    float* w = wsb + head * wrow;
+#pragma unroll
+    for (int n = 0; n < 2 * NKT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * n + 2 * t + e;
+        if (c < D) w[c] = o[n][2 * r + e];
+      }
+    if (t == 0) {
+      w[D] = m[r];
+      w[D + 1] = l[r];
+    }
+  }
+}
+
+template <int NKT>
+int launch(const bf16* q, const bf16* k, const bf16* v, const int32_t* cl,
+           float* ws, bf16* out, int B, int S, int Hq, int Hkv, int D,
+           int per, int nsplit, int window, float softcap, float scale,
+           cudaStream_t stream) {
+  using T = Tile<NKT>;
+  CUtensorMap tk, tv;
+  int err = tensor_map_heads(&tk, k, D, Hkv, S, B, kSlots, kWarps);
+  if (err == 0) err = tensor_map_heads(&tv, v, D, Hkv, S, B, kSlots, kWarps);
+  if (err != 0) return err;
+  err = (int)cudaFuncSetAttribute(decode_tma_kernel<NKT>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)T::SMEM);
+  if (err != 0) return err;
+  const int group = Hq / Hkv;
+  const int nsub = (group + kHeads - 1) / kHeads;
+  dim3 grid((Hkv + kWarps - 1) / kWarps * nsub, B, nsplit);
+  record_launch_event(0, stream);
+  decode_tma_kernel<NKT><<<grid, kBlock, T::SMEM, stream>>>(
+      tk, tv, q, cl, ws, S, Hq, Hkv, D, group, nsub, per, nsplit, window,
+      softcap, scale);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  record_launch_event(1, stream);
+  dim3 grid2(Hq, B);
+  decode_combine_kernel<bf16><<<grid2, kThreads, 0, stream>>>(
+      ws, v, out, S, Hq, Hkv, D, group, nsplit);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return record_launch_event(2, stream);
+}
+
+// whether the launcher takes these operands on this kernel
+bool takes(int D, const void* k, const void* v) {
+  return D % 8 == 0 && D <= 128 &&
+         reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(v) % 16 == 0;
+}
+
+// the instance: NKT by the head dim (32, 64, 96, 112, 128)
+#define VPAAS_TMA_INSTANCES(X) \
+  if (D <= 32) X(2);           \
+  if (D <= 64) X(4);           \
+  if (D <= 96) X(6);           \
+  if (D <= 112) X(7);          \
+  X(8)
+
+int dispatch(const bf16* q, const bf16* k, const bf16* v, const int32_t* cl,
+             float* ws, bf16* out, int B, int S, int Hq, int Hkv, int D,
+             int per, int nsplit, int window, float softcap, float scale,
+             cudaStream_t st) {
+#define VPAAS_TMA(NKT)                                                     \
+  return launch<NKT>(q, k, v, cl, ws, out, B, S, Hq, Hkv, D, per, nsplit, \
+                     window, softcap, scale, st)
+  VPAAS_TMA_INSTANCES(VPAAS_TMA);
+#undef VPAAS_TMA
+}
+
+// blocks of the instance for head dim D resident on the whole card (the
+// blocks an SM, asked once an instance, times the device's SMs)
+int resident(int D) {
+  static int per_sm[9] = {0};              // by NKT
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != 0 ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != 0)
+    return 0;
+#define VPAAS_TMA(NKT)                                                      \
+  do {                                                                      \
+    if (per_sm[NKT] == 0 &&                                                 \
+        (cudaFuncSetAttribute(decode_tma_kernel<NKT>,                       \
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,  \
+                              (int)Tile<NKT>::SMEM) != 0 ||                 \
+         cudaOccupancyMaxActiveBlocksPerMultiprocessor(                     \
+             &per_sm[NKT], decode_tma_kernel<NKT>, kBlock,                  \
+             Tile<NKT>::SMEM) != 0))                                        \
+      return 0;                                                             \
+    return sms * per_sm[NKT];                                               \
+  } while (0)
+  VPAAS_TMA_INSTANCES(VPAAS_TMA);
+#undef VPAAS_TMA
+}
+#undef VPAAS_TMA_INSTANCES
+
+}  // namespace tma
+
 template <typename T>
-int launch_any(const void* q, const void* k, const void* v,
-               const void* cache_len, void* ws, void* out, int B, int S,
-               int Hq, int Hkv, int D, int per, int nsplit, int window,
-               float softcap, float scale, void* stream) {
+int dispatch(const void* q, const void* k, const void* v,
+             const void* cache_len, void* ws, void* out, int B, int S,
+             int Hq, int Hkv, int D, int per, int nsplit, int window,
+             float softcap, float scale, void* stream) {
   if (B == 0 || Hq == 0) return 0;
   if (S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > 256 ||
       per <= 0 || nsplit <= 0)
@@ -397,6 +783,11 @@ int launch_any(const void* q, const void* k, const void* v,
   float* wf = static_cast<float*>(ws);
   T* ot = static_cast<T*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (sizeof(T) == 2) {
+    if (tma::takes(D, k, v))
+      return tma::dispatch(qt, kt, vt, cl, wf, ot, B, S, Hq, Hkv, D, per,
+                           nsplit, window, softcap, scale, st);
+  }
   const int group = Hq / Hkv;
   if (group == 1)
     return launch<T, 1>(qt, kt, vt, cl, wf, ot, B, S, Hq, Hkv, D, per,
@@ -411,7 +802,42 @@ int launch_any(const void* q, const void* k, const void* v,
                       window, softcap, scale, st);
 }
 
+template <typename T>
+int launch_any(const void* q, const void* k, const void* v,
+               const void* cache_len, void* ws, void* out, int B, int S,
+               int Hq, int Hkv, int D, int per, int nsplit, int window,
+               float softcap, float scale, void* stream) {
+  const int err = dispatch<T>(q, k, v, cache_len, ws, out, B, S, Hq, Hkv, D,
+                              per, nsplit, window, softcap, scale, stream);
+  end_launch_events();
+  return err;
+}
+
 }  // namespace
+
+// Launch timing (host.cuh): the next launch of K7's or K8's launcher
+// records n (<= 8) of these events, one before each of its device kernels
+// and one after the last.
+extern "C" int vpaas_time_next_launch(void* const* events, int n) {
+  if (n < 0 || n > kMaxLaunchEvents) return (int)cudaErrorInvalidValue;
+  LaunchEvents& e = launch_events();
+  for (int i = 0; i < n; ++i) e.ev[i] = static_cast<cudaEvent_t>(events[i]);
+  e.n = n;
+  e.recorded = 0;
+  return 0;
+}
+
+// the events the last timed launch recorded
+extern "C" int vpaas_launch_events_recorded() {
+  return launch_events().recorded;
+}
+
+// SMs x resident blocks a SM of the bf16 TMA kernel for head dim D (what
+// the wrapper sizes its splits by), or 0 where the launcher runs the bf16
+// operands of head dim D on the other kernel.
+extern "C" int vpaas_decode_attention_bf16_resident(int D) {
+  return D % 8 == 0 && D <= 128 ? tma::resident(D) : 0;
+}
 
 // q (B, Hq, D), k and v caches (B, S, Hkv, D) f32, cache_len (B,) int32,
 // workspace (B, Hq, nsplit, D + 2) f32 -> out (B, Hq, D).  A row's valid

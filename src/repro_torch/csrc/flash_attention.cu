@@ -113,13 +113,11 @@
 // memory, one key per lane for QK^T over d, NC = ceil(d_v/32) output
 // columns per lane for PV (NC = 2, 4 or 8).  It is a template over the
 // element type: bf16 widens to f32 as it is staged.
-#include <cuda.h>   // CUtensorMap and its enums; libcuda is not linked
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include <mutex>
-
+#include "host.cuh"
 #include "primitives.cuh"
 
 namespace {
@@ -549,20 +547,10 @@ struct Tile {
   static constexpr unsigned SMEM = OFF_BAR + 8 * (1 + 2 * STAGES);
 };
 
-// two floats as bf16 pairs hi = bf16(x) and lo = bf16(x - hi): P V as
-// hi V + lo V keeps about 16 bits of each probability, where one bf16
-// would keep 8 (the Pallas kernel's p is fp32).  hi is rounded to nearest
-// (one packed conversion a pair), lo, below half an ulp of hi, is cut to
-// its upper 16 bits (one byte permute): p keeps ~16 bits, within 2^-16 of
-// itself.  Conversions run on the special-function unit beside ex2: with
-// one a value they held it longer than the products held the tensor
-// cores
-__device__ __forceinline__ void split_bf16x2(float x0, float x1,
-                                             uint32_t& hi, uint32_t& lo) {
-  hi = pack_bf16x2(x0, x1);
-  lo = upper_halves(x0 - __uint_as_float(hi << 16),
-                    x1 - __uint_as_float(hi & 0xffff0000u));
-}
+// P V takes p as two bf16 halves (split_bf16x2, primitives.cuh), one
+// packed conversion a pair: conversions run on the special-function unit
+// beside ex2, and with one a value they held it longer than the products
+// held the tensor cores
 
 // S = Q K^T for one 96-key tile, issued (not waited): sc[4 J + e] is the
 // warpgroup's row 16 warp + g + 8 (e / 2), key 8 J + 2 t + e % 2; one
@@ -887,78 +875,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// cuTensorMapEncodeTiled, found through the CUDA runtime's entry-point
-// query (the library links no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    const int err = (int)cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
-#else
-    const int err = (int)cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
-#endif
-    return err == 0 && res == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
-  }();
-  return fn;
-}
-
-// The tensor map of a (B, S, H, D) bf16 tensor's rows of one head as boxes
-// of 64 columns x `rows` rows, 128-byte swizzled, zeros outside; kept per
-// (pointer, shape, box) in a small cache, the maps of a run's shapes and
-// buffers repeating call to call.
-struct MapKey {
-  const void* base;
-  int D, H, S, B, rows;
-  bool operator==(const MapKey& o) const {
-    return base == o.base && D == o.D && H == o.H && S == o.S && B == o.B &&
-           rows == o.rows;
-  }
-};
-
-int tensor_map(CUtensorMap* map, const void* base, int D, int H, int S,
-               int B, int rows) {
-  constexpr int kCache = 32;
-  static std::mutex mu;
-  static MapKey keys[kCache];
-  static CUtensorMap maps[kCache];
-  static int used = 0, next = 0;
-  const MapKey key{base, D, H, S, B, rows};
-  std::lock_guard<std::mutex> lock(mu);
-  for (int i = 0; i < used; ++i)
-    if (keys[i] == key) {
-      *map = maps[i];
-      return 0;
-    }
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {2ull * D, 2ull * D * H, 2ull * D * H * S};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
-  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-             const_cast<void*>(base), dims, strides, box, ones,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return (int)cudaErrorInvalidValue;
-  keys[next] = key;
-  maps[next] = *map;
-  next = (next + 1) % kCache;
-  used = used < kCache ? used + 1 : kCache;
-  return 0;
-}
+// (tensor_map: host.cuh)
 
 // consumer warpgroups a block: two (128 query rows) unless the grid of
 // 128-row blocks would leave SMs without a block, then one (64 rows)

@@ -44,6 +44,20 @@
 // over the element type T and read and write their operands only through
 // these.
 //
+// split_bf16x2(x0, x1, hi, lo): two floats as bf16 pairs hi = bf16(x) and
+// lo = bf16(x - hi): a product P V taken as hi V + lo V keeps about 16 bits
+// of each p, where one bf16 would keep 8.  hi is rounded to nearest (one
+// packed conversion a pair), lo, below half an ulp of hi, is cut to its
+// upper 16 bits (one byte permute): p keeps ~16 bits, within 2^-16 of
+// itself.
+//
+// ldsm_x4(r, p) / ldsm_x4_trans(r, p): ldmatrix.sync.aligned.m8n8.x4 of
+// four 8 x 8 b16 matrices from shared memory.  Lane l gives the address of
+// row l % 8 of matrix l / 8 (16 contiguous bytes); r[i] receives matrix
+// i's row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1 (the A/B fragment
+// layout of mma.m16n8k16), or with .trans its column l / 4, rows 2 (l % 4)
+// and 2 (l % 4) + 1 (the B fragment of a row-major K x N operand).
+//
 // fmin_nan / fmax_nan: min.NaN.f32 / max.NaN.f32 (sm_80 and later), the
 // smaller or larger operand, or a NaN when either operand is NaN: the
 // semantics of torch.minimum / torch.maximum / clamp_min and of
@@ -176,6 +190,28 @@ __device__ __forceinline__ uint32_t upper_halves(float lo, float hi) {
       : "=r"(r)
       : "r"(__float_as_uint(lo)), "r"(__float_as_uint(hi)));
   return r;
+}
+
+__device__ __forceinline__ void split_bf16x2(float x0, float x1,
+                                             uint32_t& hi, uint32_t& lo) {
+  hi = pack_bf16x2(x0, x1);
+  lo = upper_halves(x0 - __uint_as_float(hi << 16),
+                    x1 - __uint_as_float(hi & 0xffff0000u));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(static_cast<unsigned>(__cvta_generic_to_shared(p))));
 }
 
 __device__ __forceinline__ float fmin_nan(float a, float b) {

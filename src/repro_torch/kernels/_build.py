@@ -89,6 +89,9 @@ SIGNATURES = {
 QUERIES = {
     "vpaas_flash_attention_on_tensor_cores": [_I, _I, _I],
     "vpaas_flash_attention_bf16_block_rows": [_I, _I, _I],
+    "vpaas_decode_attention_bf16_resident": [_I],
+    "vpaas_time_next_launch": [_P, _I],
+    "vpaas_launch_events_recorded": [],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -197,6 +200,25 @@ def query(fn: str, *args) -> int:
     if _lib is None:
         library()
     return _fns[fn](*args)
+
+
+def time_next_launch(events: Sequence) -> None:
+    """Hand the next launch of K7's or K8's launcher these CUDA events
+    (``torch.cuda.Event(enable_timing=True)``, each recorded once so that
+    it has its handle): it records one before each of its device kernels
+    and one after the last (``csrc/host.cuh``), so the gaps between them
+    are its kernels' device times.  :func:`launch_events_recorded` then
+    says how many it recorded."""
+    handles = (ctypes.c_void_p * len(events))(*(e.cuda_event
+                                                 for e in events))
+    if query("vpaas_time_next_launch", handles, len(events)) != 0:
+        raise ValueError(f"at most 8 launch events, got {len(events)}")
+
+
+def launch_events_recorded() -> int:
+    """The events the last launch handed some by :func:`time_next_launch`
+    recorded."""
+    return query("vpaas_launch_events_recorded")
 
 
 MAX_CACHED = 256      # argument structs kept per cache

@@ -9,7 +9,12 @@ bfloat16 operands (q and the caches of one dtype, the output in it too;
 the sums and the workspace float32).  A call runs two device kernels: one
 block per (kv-head group, row, split of the row's valid slots) writes a
 partial softmax state to a workspace, and a combine kernel merges the
-splits in a fixed order.  The plain PyTorch version is
+splits in a fixed order.  bfloat16 caches whose head dim is a multiple of
+8 up to 128, 16-byte aligned (:func:`on_tma`), take the split kernel that
+loads K and V tiles by TMA and runs q.k and p.v on the tensor cores; its
+splits fill the card's resident blocks in whole waves
+(:func:`resident_blocks`, :func:`splits`).  Other operands take the
+float32 design (bf16 widened as it loads).  The plain PyTorch version is
 :func:`decode_attention_ref` (``ref.decode_attention``); the kernel agrees
 with it within ``testing.ATTN_ATOL`` (float32) or ``testing.ATTN_BF16_RTOL``
 (bfloat16).  float16 raises.
@@ -22,7 +27,8 @@ import torch
 
 from repro_torch.kernels import _build, ref
 from repro_torch.kernels.flash_attention import (MAX_HEAD_DIM, check_options,
-                                                 pair_work, row_array)
+                                                 pair_work, row_array,
+                                                 tma_ready)
 
 launches = 0          # wrapper calls that launched the kernels (ops.py)
 launches_bf16 = 0     # the launches among them on bf16 operands
@@ -31,27 +37,76 @@ decode_attention_ref = ref.decode_attention
 
 SPLIT_SLOTS = 64      # fewest slots a split takes: two 32-slot tiles
 TARGET_BLOCKS = 1024  # blocks a call aims at: ~8 per SM of an H100's 132
+TMA_TILE = 16         # slots a tile of the bf16 TMA kernel
+TMA_KV_HEADS = 4      # kv-heads a block of it (one a warp)
+TMA_HEADS = 16        # q-heads of a kv-head a block takes (the mma's rows)
+TMA_MAX_DIM = 128     # the largest head dim it takes
+WAVE_FILL = 0.9       # the share of the last wave's blocks its splits want
 
 
-def splits(b: int, S: int, n_kv: int, window: Optional[int]
+def splits(b: int, S: int, n_kv: int, window: Optional[int],
+           resident: Optional[int] = None, nsub: int = 1
            ) -> Tuple[int, int]:
     """(slots per split, number of splits) for a call.  The longest valid
     length the host knows without reading ``cache_len`` from the device is
-    ``S``, or the window where it is shorter; it is cut into splits of at
-    least ``SPLIT_SLOTS`` slots, as many as bring the grid to about
-    ``TARGET_BLOCKS`` blocks."""
+    ``S``, or the window where it is shorter.  With ``resident`` (the
+    card's SMs times the bf16 TMA kernel's resident blocks an SM) it is cut
+    into whole 16-slot tiles, as few splits as bring the blocks of each
+    split index (``b`` x groups of 4 kv-heads x ``nsub`` groups of 16
+    q-heads) to whole waves of ``resident`` blocks, the last at least
+    ``WAVE_FILL`` full (else the fullest).
+    Without (the float32 kernel), into splits of at least ``SPLIT_SLOTS``
+    slots, as many as bring the grid to about ``TARGET_BLOCKS`` blocks."""
     longest = min(S, window) if window else S
-    want = -(-TARGET_BLOCKS // max(1, b * n_kv))
-    per = max(SPLIT_SLOTS, -(-longest // want))
-    per = -(-per // 32) * 32                   # whole 32-slot tiles
+    if resident is None:
+        want = -(-TARGET_BLOCKS // max(1, b * n_kv))
+        per = max(SPLIT_SLOTS, -(-longest // want))
+        per = -(-per // 32) * 32               # whole 32-slot tiles
+        return per, -(-longest // per)
+    tiles = -(-longest // TMA_TILE)
+    pairs = max(1, b * -(-n_kv // TMA_KV_HEADS) * nsub)
+    best, best_fill = 1, 0.0
+    for n in range(1, tiles + 1):
+        blocks = pairs * n
+        fill = blocks / (-(-blocks // resident) * resident)
+        if fill > best_fill:
+            best, best_fill = n, fill
+        if fill >= WAVE_FILL:
+            break
+    per = -(-tiles // best) * TMA_TILE
     return per, -(-longest // per)
+
+
+def on_tma(q: torch.Tensor, k_cache: torch.Tensor,
+           v_cache: torch.Tensor) -> bool:
+    """Whether the launcher runs these operands on the bf16 TMA kernel:
+    bfloat16, a head dim that is a multiple of 8 up to ``TMA_MAX_DIM``,
+    the caches 16-byte aligned (the launcher's own test)."""
+    return (q.dtype == torch.bfloat16 and q.shape[-1] <= TMA_MAX_DIM
+            and tma_ready(k_cache, v_cache))
+
+
+def resident_blocks(d: int) -> int:
+    """The card's SMs times the blocks of the bf16 TMA kernel for head dim
+    ``d`` that one SM holds at once, as the built library answers it
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); raises where the
+    library takes no such kernel for ``d`` or the query failed."""
+    n = _build.query("vpaas_decode_attention_bf16_resident", d)
+    if n <= 0:
+        raise RuntimeError(f"decode_attention: no resident blocks of the "
+                           f"bf16 TMA kernel at head dim {d}")
+    return n
 
 
 def workspace_bytes(q: torch.Tensor, k_cache: torch.Tensor,
                     window: Optional[int]) -> int:
     """Bytes of the per-call workspace: each split's partial softmax state
     (d + 2 floats, whatever the operands' dtype) for every (row, query
-    head)."""
+    head), at the float32 kernel's splits.  The dry run charges this; on
+    the card the bf16 TMA kernel's splits follow the card's residency
+    (:func:`decode_attention` allocates for them), a workspace of the same
+    order: (d + 2) floats a split and head against the caches' 2 d bf16
+    values a slot."""
     b, n_q, d = q.shape
     _, nsplit = splits(b, k_cache.shape[1], k_cache.shape[2], window)
     return 4 * b * n_q * nsplit * (d + 2)
@@ -98,9 +153,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     clen = row_array(cache_len, b, q.device, "cache_len")
     out = torch.empty_like(q)
     if b and n_q:
-        per, nsplit = splits(b, S, n_kv, window)
-        ws = torch.empty(workspace_bytes(q, k_cache, window) // 4,
-                         dtype=torch.float32, device=q.device)
+        if on_tma(q, k_cache, v_cache):
+            per, nsplit = splits(b, S, n_kv, window, resident_blocks(d),
+                                 -(-(n_q // n_kv) // TMA_HEADS))
+        else:
+            per, nsplit = splits(b, S, n_kv, window)
+        ws = torch.empty(b * n_q * nsplit * (d + 2), dtype=torch.float32,
+                         device=q.device)
         _build.launch(_build.launcher("vpaas_decode_attention", q.dtype),
                       q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                       clen.data_ptr(), ws.data_ptr(), out.data_ptr(), b, S,

@@ -3,16 +3,19 @@
 Port of the Pallas kernel ``repro.kernels.ssd_scan.ssd_scan`` (source:
 ``csrc/ssd_scan.cu``), returning ``y`` and the final state.  Where p and n
 are multiples of 8 a call runs three device kernels on the tensor cores:
-each 64-step tile's part of its chunk's state, the state recurrence
-across chunks, then 64-row output tiles in parallel; the parts and the
-states go through a workspace.  Other shapes take one CUDA-core kernel
-that walks the chunks in order.  The sequence's tail past ``s`` acts as the plain
-version's zero padding without any padded copy.  x, B and C are float32
-or bfloat16 (one dtype; y comes out in it); dt, A and the initial and
-final states are float32 either way, as the reference's Mamba2 layer
-passes them.  bf16 operands are widened to float32 as they load, and
-every product stays 3xTF32: its operands are float32 intermediates (dt x,
-the decays), not bf16 values.  The plain PyTorch version is
+each chunk's state (its 64-step tiles summed on chip), the state
+recurrence across chunks, then 64-row output tiles in parallel; one state
+per chunk goes through a workspace.  Other shapes take one CUDA-core
+kernel that walks the chunks in order.  The sequence's tail past ``s``
+acts as the plain version's zero padding without any padded copy.  x, B
+and C are float32 or bfloat16 (one dtype; y comes out in it); dt, A and
+the initial and final states are float32 either way, as the reference's
+Mamba2 layer passes them.  float32 runs every product in 3xTF32.  bf16
+operands stay bf16 in shared memory: C B^T, a product of bf16 values, is
+one bf16 product; the others have a float32 operand (W, dt x with its
+decay, the states) and keep its 3xTF32 split, the bf16 operand exact in
+tf32 (:func:`work` counts C B^T as the bf16 product).  The plain PyTorch
+version is
 :func:`ssd_scan_ref` (``ref.ssd_scan``); the kernel agrees with it within
 ``testing.SSD_RTOL`` (float32) or ``testing.SSD_BF16_RTOL`` (bfloat16) of
 the output's scale.  float16 raises.
@@ -49,31 +52,30 @@ def path(p: int, n: int) -> str:
 
 
 def workspace_bytes(x: torch.Tensor, B: torch.Tensor, chunk: int) -> int:
-    """Bytes of the per-call workspace of the tensor-core path: each 64-step
-    tile's part of its chunk's state (the first then holds the state
-    entering the chunk) and each chunk's decay; none on the CUDA cores."""
+    """Bytes of the per-call workspace of the tensor-core path: each
+    chunk's state (then the state entering the chunk) and decay, float32;
+    none on the CUDA cores."""
     b, s, h, p = x.shape
     n = B.shape[-1]
     if path(p, n) != "tensor cores":
         return 0
-    nc, tiles = -(-s // chunk), -(-chunk // 64)
-    return 4 * b * nc * h * (tiles * p * n + 1)
+    return 4 * b * -(-s // chunk) * h * (p * n + 1)
 
 
 def chunked_ops(b: int, s: int, h: int, p: int, n: int, chunk: int
-                ) -> Tuple[int, int]:
-    """(matrix-product flops, other flops) of the chunked form K8 runs:
-    per (row, head), C B^T and W U on each chunk's causal triangle (2n and
-    2p per pair), the chunk states U^T (B o decay) and the incoming C S^T
-    (2pn per step each); besides them the decay weights (a difference, an
-    exp and a product per pair), per step u = x dt and its decay (2p),
-    exp(cum_i) C S added to y (2p), the cumsum and decays (5), and the
-    recurrence across chunks (2pn per chunk)."""
+                ) -> Tuple[int, int, int]:
+    """(matrix-product flops, other flops, the C B^T part of the products)
+    of the chunked form K8 runs: per (row, head), C B^T and W U on each
+    chunk's causal triangle (2n and 2p per pair), the chunk states U^T (B o
+    decay) and the incoming C S^T (2pn per step each); besides them the
+    decay weights (a difference, an exp and a product per pair), per step
+    u = x dt and its decay (2p), exp(cum_i) C S added to y (2p), the cumsum
+    and decays (5), and the recurrence across chunks (2pn per chunk)."""
     lens = [min(chunk, s - c0) for c0 in range(0, s, chunk)]
     pairs = sum(n_ * (n_ + 1) // 2 for n_ in lens)
     mma = b * h * (2 * (n + p) * pairs + 4 * s * p * n)
     other = b * h * (3 * pairs + s * (4 * p + 5) + 2 * p * n * len(lens))
-    return mma, other
+    return mma, other, b * h * 2 * n * pairs
 
 
 def work(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -82,10 +84,12 @@ def work(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
          ) -> Tuple[int, int, int]:
     """(products, other, bf16 products) operations K8 does on these
     operands (:func:`chunked_ops`; the roofline's floor,
-    ``roofline.analysis``).  None of its products is a bf16 one, whatever
-    x's dtype: their operands are float32 intermediates (dt x, decays)."""
+    ``roofline.analysis``).  On bf16 x, B and C its bf16 product is C B^T,
+    whose operands are bf16 values; the others' operands are float32
+    intermediates (dt x, the decays, W, the states)."""
     b, s, h, p = x.shape
-    return (*chunked_ops(b, s, h, p, B.shape[-1], chunk), 0)
+    mma, other, cbt = chunked_ops(b, s, h, p, B.shape[-1], chunk)
+    return mma, other, cbt if x.dtype == torch.bfloat16 else 0
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -522,13 +522,15 @@ def test_roofline_charges_bf16_products_at_the_bf16_rate():
     assert rep.t_compute == pytest.approx(
         pairs * 5 / H100.peak_flops_bf16
         + pairs * 4 * d / H100.peak_flops_bf16, rel=1e-12)
-    # K8's products stay 3xTF32 on bf16 operands
+    # K8 on bf16 operands: C B^T (bf16 values, 2n a causal pair) at the
+    # bf16 rate, its other products (float32 intermediates) in 3xTF32
     x, B = meta(1, 256, 4, 64), meta(1, 256, 64)
     dt = torch.empty(1, 256, 4, device="meta")
     A = torch.empty(4, device="meta")
     rep = analyze_step(lambda *a: ops.ssd_scan(*a, chunk=64),
                        (x, dt, A, B, B), arch="t", shape=shape, cfg=cfg)
-    assert rep.kernel_products > 0 and rep.kernel_products_bf16 == 0
+    cbt = 4 * 2 * 64 * 4 * (64 * 65 // 2)
+    assert rep.kernel_products > rep.kernel_products_bf16 == cbt
 
 
 def test_compute_dtype_is_read_when_a_step_is_made(monkeypatch):

@@ -190,9 +190,10 @@ def test_ssd_tensor_core_ops_count_the_chunked_products():
     # 2pn a step each: 1.885 GFLOP over 112 heads
     pairs = 256 * 257 // 2 + 128 * 129 // 2
     assert pairs == 41_152
-    mma, other = chip_smoke.ssd_tc_ops(1, 384, 112, 64, 64, 256)
+    mma, other, cbt = chip_smoke.ssd_tc_ops(1, 384, 112, 64, 64, 256)
     assert mma == 112 * (2 * (64 + 64) * pairs + 4 * 384 * 64 * 64)
     assert mma == 1_884_553_216
+    assert cbt == 112 * 2 * 64 * pairs        # C B^T, bf16 on bf16 operands
     assert other == 112 * (3 * pairs + 384 * (4 * 64 + 5) + 2 * 64 * 64 * 2)
     # three TF32 products per fp32 one at 495 TFLOP/s, the rest at 67:
     # 11.82 us, above the 7.2 us of its 24.2 MB
@@ -202,6 +203,12 @@ def test_ssd_tensor_core_ops_count_the_chunked_products():
     assert by == "operations"
     assert ms == pytest.approx(3 * mma / 495e9 + other / 67e9, rel=1e-12)
     assert ms == pytest.approx(0.011823, abs=1e-6)
+    # bf16 operands: C B^T at bf16's 989.4 TFLOP/s, the rest in 3xTF32
+    ms16, by16 = chip_smoke.tc_bound_ms(nbytes, mma, other, cbt)
+    assert by16 == "operations"
+    assert ms16 == pytest.approx(3 * (mma - cbt) / 495e9 + cbt / 989.4e9
+                                 + other / 67e9, rel=1e-12)
+    assert ms16 < ms
     # one chunk holding the whole sequence: a single triangle
     assert chip_smoke.ssd_tc_ops(2, 10, 3, 8, 16, 64)[0] == \
         2 * 3 * (2 * 24 * 55 + 4 * 10 * 8 * 16)
@@ -258,6 +265,33 @@ def test_device_time_per_call_is_null_for_one_event_of_five():
     assert chip_smoke.device_us_per_call(
         _window({"flash_attention_bf16_kernel": (5, 406000)}), 5,
         once=True) == pytest.approx(406000)
+
+
+def test_parent_llm_rows_are_relayed(monkeypatch, capsys):
+    # --parent runs the parent's K7 and K8 phases in a subprocess and
+    # relays their rows (float32 and bf16), nothing else
+    seen = {}
+
+    class Run:
+        returncode, stderr = 0, ""
+        stdout = "\n".join([
+            "K7 decode_attention b=4 S=512: kernel 0.07 ms per call (0.0230 "
+            "ms on the device) [c]",
+            "K8 bf16 ssd_scan path b=1 s=384: kernel 0.14 ms per call "
+            "(0.0807 ms on the device) [c]",
+            "  decode_split_kernel<float, 1>: Used 64 registers"])
+
+    def run(cmd, **kw):
+        seen["code"] = cmd[-1]
+        return Run()
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run", run)
+    chip_smoke.relay_parent_llm("build/parent", "before")
+    assert "cs.phase_decode_attention(torch, np, card)" in seen["code"]
+    assert "cs.phase_ssd_scan(torch, np, card)" in seen["code"]
+    out = capsys.readouterr().out.splitlines()
+    assert out == ["  parent (before this tree's): " + line
+                   for line in Run.stdout.splitlines()[:2]]
 
 
 def test_parent_device_ms_reads_the_parent_k2_and_k5_lines(monkeypatch):
@@ -784,3 +818,17 @@ def test_kernel_phases_hold_every_llm_path_shape():
             (4, 1, 256, 24, 24, 64, 64, False)} <= flash
     decode = {c[:5] for c in chip_smoke.DECODE_PATH_SHAPES}
     assert {(4, 512, 32, 32, 112), (4, 512, 24, 24, 64)} <= decode
+
+
+def test_dynamic_smem_of_the_k7_and_k8_instances():
+    # K7's bf16 TMA kernel: a 64 KB ring of (K + V) stages of 64-column
+    # boxes of 4 heads x 16 slots, asked as 120 KB: one block an SM
+    assert chip_smoke.k7_tma_smem(112) == chip_smoke.k7_tma_smem(64) \
+        == 122_880
+    # K8 at zamba2's p = n = 64, chunk 256: the float32 output kernel's
+    # 106,560 B, the state kernel's double-buffered tiles, and the bf16
+    # tiles at half their bytes
+    f32 = chip_smoke.k8_smem(64, 64, 256, False)
+    b16 = chip_smoke.k8_smem(64, 64, 256, True)
+    assert f32 == {"state": 75_840, "output": 106_560}
+    assert b16 == {"state": 43_072, "output": 65_600}

@@ -618,7 +618,11 @@ def test_decode_attention_kernel_matches_plain(cuda, case):
 
 @pytest.mark.parametrize("case", SSD_CASES + [
     (1, 384, 112, 64, 64, 256, False, False),     # zamba2 prefill
-    (2, 300, 8, 64, 128, 256, True, False)])      # mamba2's state width
+    (2, 300, 8, 64, 128, 256, True, False),       # mamba2's state width
+    (1, 250, 2, 16, 16, 100, True, True),         # chunk 100
+    (2, 300, 2, 64, 64, 256, True, True),         # 4 source tiles a chunk
+    (1, 130, 2, 64, 128, 256, False, True),       # n 128, 3 tiles
+    (1, 90, 2, 16, 24, 32, True, False)])         # n % 16 == 8
 def test_ssd_scan_kernel_matches_plain(cuda, case):
     b, s, h, p, n, chunk, init, weak = case
     x, dt, A, B, C, st = ssd_case(b, s, h, p, n, init, weak=weak)
@@ -740,10 +744,28 @@ def test_flash_attention_bf16_kernel_takes_a_value_head_dim(cuda, case):
     assert bf16_err(got, want) <= ATTN_BF16_RTOL
 
 
+# the bf16 TMA kernel's cases (every CPU emulation case of
+# test_decode_attention_source_bf16_tma, which fixes the SM count there)
+DECODE_TMA_CASES = [
+    (1, 640, 4, 4, 64, [640], None, None),           # the ring wraps
+    (2, 590, 8, 2, 112, [590, 333], None, None),     # partial last stage
+    (2, 512, 4, 2, 64, [40, 512], 150, None),        # empty window splits
+    (3, 200, 6, 3, 32, [1, 150, 200], None, 30.0),   # softcap, d = 32
+    (2, 300, 8, 2, 128, [300, 150], 70, None),       # d = 128, a window
+    (2, 96, 4, 2, 64, [0, 96], None, None),          # an empty row
+    (2, 160, 2, 2, 112, [160, 77], None, None),      # group 1
+    (2, 160, 4, 2, 112, [160, 77], None, None),      # group 2
+    (1, 130, 8, 2, 64, [130], None, None),           # group 4
+    (1, 130, 16, 2, 64, [130], None, 20.0),          # group 8
+    (2, 96, 16, 1, 64, [96, 40], None, None),        # group 16
+    (1, 70, 32, 1, 64, [70], None, None)]            # group 32
+
+
 @pytest.mark.parametrize("case", DECODE_CASES + [
     (4, 512, 32, 32, 112, [384, 390, 1, 500], None, None),  # zamba2 decode
     (4, 512, 16, 8, 256, [384, 1, 64, 512], 64, 50.0),
-    (2, 96, 16, 1, 36, [96, 40], None, None)])              # d % 8 != 0
+    (2, 96, 16, 1, 36, [96, 40], None, None)]               # d % 8 != 0
+    + DECODE_TMA_CASES)
 def test_decode_attention_bf16_kernel_matches_plain(cuda, case):
     b, S, n_q, n_kv, d, clen, window, cap = case
     q, kc, vc = _bf(decode_case(b, S, n_q, n_kv, d), cuda)
@@ -759,7 +781,11 @@ def test_decode_attention_bf16_kernel_matches_plain(cuda, case):
 
 @pytest.mark.parametrize("case", SSD_CASES + [
     (1, 384, 112, 64, 64, 256, False, False),     # zamba2 prefill
-    (2, 300, 8, 64, 128, 256, True, False)])      # mamba2's state width
+    (2, 300, 8, 64, 128, 256, True, False),       # mamba2's state width
+    (1, 250, 2, 16, 16, 100, True, True),         # chunk 100
+    (2, 300, 2, 64, 64, 256, True, True),         # 4 source tiles a chunk
+    (1, 130, 2, 64, 128, 256, False, True),       # n 128, 3 tiles
+    (1, 90, 2, 16, 24, 32, True, False)])         # n % 16 == 8
 def test_ssd_scan_bf16_kernel_matches_plain(cuda, case):
     # x, B and C bf16; dt, A and the states float32
     b, s, h, p, n, chunk, init, weak = case
@@ -776,6 +802,74 @@ def test_ssd_scan_bf16_kernel_matches_plain(cuda, case):
     assert rel_err(fin.cpu(), fin_ref.cpu()) <= SSD_RTOL
     y2, fin2 = sk.ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=st)
     assert torch.equal(y2, y) and torch.equal(fin2, fin)
+
+
+def test_decode_attention_bf16_splits_fill_the_card(cuda):
+    # the TMA kernel's splits: whole waves of the card's resident blocks
+    q, kc, vc, cl = _zamba2_decode(cuda)
+    q, kc, vc = (t.to(BF) for t in (q, kc, vc))
+    assert da.on_tma(q, kc, vc)
+    resident = da.resident_blocks(112)
+    props = torch.cuda.get_device_properties(cuda)
+    assert resident > 0 and resident % props.multi_processor_count == 0
+    per, nsplit = da.splits(4, 512, 32, None, resident)
+    blocks = 4 * 32 * nsplit
+    assert per % 64 == 0 and blocks <= resident * -(-blocks // resident)
+    assert blocks / (resident * -(-blocks // resident)) >= da.WAVE_FILL
+
+
+def test_decode_and_ssd_bf16_kernels_replay_in_a_cuda_graph(cuda):
+    # the bf16 launchers (K7's TMA maps hold the caches' addresses): a
+    # replay of the captured calls recomputes from the inputs' new values
+    q, kc, vc, cl = _zamba2_decode(cuda)
+    q, kc, vc = (t.to(BF) for t in (q, kc, vc))
+    x, dt, A, B, C, st = _zamba2_prefill(cuda)
+    x, B, C = (t.to(BF) for t in (x, B, C))
+    chunk = ZAMBA2_PREFILL[-1]
+    da.decode_attention(q, kc, vc, cl)             # warm-up off the graph
+    sk.ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=st)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = da.decode_attention(q, kc, vc, cl)
+        y, fin = sk.ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=st)
+    q.mul_(-0.5)
+    vc.add_(1.0)
+    cl.sub_(7)
+    x.mul_(0.5)
+    st.mul_(-1.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert bf16_err(out, da.decode_attention_ref(q, kc, vc, cl)) \
+        <= ATTN_BF16_RTOL
+    y_ref, fin_ref = sk.ssd_scan_ref(x, dt, A, B, C, chunk=chunk,
+                                     initial_state=st)
+    torch.cuda.synchronize()
+    assert bf16_err(y, y_ref) <= SSD_BF16_RTOL
+    assert rel_err(fin.cpu(), fin_ref.cpu()) <= SSD_RTOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF], ids=["f32", "bf16"])
+def test_decode_and_ssd_launchers_record_timing_events(cuda, dtype):
+    # handed events, K7's launcher records 3 (split, combine) and K8's 4
+    # (state, pass, output); the next launch records none
+    from repro_torch.kernels import _build
+    q, kc, vc, cl = _zamba2_decode(cuda)
+    x, dt, A, B, C, st = _zamba2_prefill(cuda)
+    q, kc, vc, x, B, C = (t.to(dtype) for t in (q, kc, vc, x, B, C))
+    for call, n in ((lambda: da.decode_attention(q, kc, vc, cl), 3),
+                    (lambda: sk.ssd_scan(x, dt, A, B, C, chunk=256), 4)):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+        for e in ev:
+            e.record()
+        torch.cuda.synchronize()
+        _build.time_next_launch(ev)
+        call()
+        assert _build.launch_events_recorded() == n
+        ev[-1].synchronize()
+        assert all(ev[i].elapsed_time(ev[i + 1]) > 0 for i in range(n - 1))
+        call()
+        assert _build.launch_events_recorded() == n   # the last timed one
 
 
 def test_llm_kernels_refuse_float16_and_mixed_operands(cuda):

@@ -221,8 +221,15 @@ def test_kernel_work_counts_each_kernels_own_operations():
     assert da.work(qd, kc, kc, meta(2).long()) == fa.pair_work(
         2 * 8 * 256, 32, 32, None)
     x, B = meta(2, 100, 4, 8), meta(2, 100, 16)
+    mma, other, cbt = sk.chunked_ops(2, 100, 4, 8, 16, 32)
     assert sk.work(x, meta(2, 100, 4), meta(4), B, B, chunk=32) == \
-        (*sk.chunked_ops(2, 100, 4, 8, 16, 32), 0)
+        (mma, other, 0)
+    # bf16 x, B and C: C B^T (2n a causal pair) is a bf16 product
+    x16, B16 = x.to(torch.bfloat16), B.to(torch.bfloat16)
+    pairs = 32 * 33 // 2 * 3 + 4 * 5 // 2
+    assert cbt == 2 * 4 * 2 * 16 * pairs
+    assert sk.work(x16, meta(2, 100, 4), meta(4), B16, B16, chunk=32) == \
+        (mma, other, cbt)
     # the decode step's K7: the plain version's einsums count what the
     # kernel's products are, at a full cache
     rep = analyze_step(lambda q, k: ops.decode_attention(q, k, k, 256),
@@ -509,8 +516,8 @@ def test_dryrun_prefill_peak_holds_no_score_matrix(zamba2_dryrun,
 def test_dryrun_floor_charges_the_kernels_own_work(zamba2_dryrun):
     # prefill_32k: K6's causal pairs (not the plain s x s) in 10 calls and
     # K8's chunked scan in 71, K8's products in 3xTF32 and K6's too on
-    # float32, K6's at the bf16 rate on bf16; the floor is below the plain
-    # program's FLOPs at the compute dtype's rate
+    # float32, K6's and K8's C B^T at the bf16 rate on bf16; the floor is
+    # below the plain program's FLOPs at the compute dtype's rate
     dtype, runs = zamba2_dryrun
     cfg = get_config("zamba2-7b")
     r = runs["prefill_32k"]
@@ -521,8 +528,8 @@ def test_dryrun_floor_charges_the_kernels_own_work(zamba2_dryrun):
     k8 = sk.chunked_ops(b, s, cfg.n_ssm_heads, cfg.ssm_head_dim,
                         cfg.ssm_state, cfg.ssm_chunk)
     assert r["kernel_products"] == 10 * k6[0] + 71 * k8[0]
-    assert r["kernel_products_bf16"] == (10 * k6[0] if dtype == torch.bfloat16
-                                         else 0)
+    assert r["kernel_products_bf16"] == (10 * k6[0] + 71 * k8[2]
+                                         if dtype == torch.bfloat16 else 0)
     assert r["kernel_other"] == 10 * k6[1] + 71 * k8[1]
     assert r["kernel_plain_flops"] > 10 * 2 * k6[0]       # the full s x s
     assert r["t_compute"] < r["hlo_flops"] / H100.peak_flops(

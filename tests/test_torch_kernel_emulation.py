@@ -100,7 +100,9 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
   u += 0x7fffu + ((u >> 16) & 1u);
   return __nv_bfloat16{(uint16_t)(u >> 16)}; }
 inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) { return h.x; }
-typedef int cudaError_t; typedef void* cudaStream_t;
+typedef int cudaError_t; typedef void* cudaStream_t; typedef void* cudaEvent_t;
+// a launcher's timing events (csrc/host.cuh) record nothing here
+inline int cudaEventRecord(cudaEvent_t, cudaStream_t) { return 0; }
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
        cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline int cudaGetLastError() { return 0; }
@@ -312,6 +314,32 @@ inline uint32_t upper_halves(float lo, float hi) {
 inline uint32_t pack_bf16x2(float lo, float hi) {
   return bf16_bits(__float2bfloat16_rn(lo)) |
          (bf16_bits(__float2bfloat16_rn(hi)) << 16); }
+inline void split_bf16x2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  hi = pack_bf16x2(x0, x1);
+  lo = upper_halves(x0 - __uint_as_float(hi << 16),
+                    x1 - __uint_as_float(hi & 0xffff0000u)); }
+// ldmatrix x4: the warp's 32 row addresses through the per-warp buffer;
+// register i of lane l is matrix i's row l / 4, columns 2 (l % 4), +1, or
+// with .trans its column l / 4, rows 2 (l % 4), +1
+inline uint32_t emu_smem_addr(const void* p);
+inline void emu_ldsm(uint32_t r[4], const void* p, bool trans) {
+  const int lane = threadIdx.x % 32;
+  uint32_t* buf = emu_blk->mma.data() + (threadIdx.x / 32) * 32 * 6;
+  buf[lane * 6] = emu_smem_addr(p);
+  __syncwarp();
+  for (int i = 0; i < 4; ++i) {
+    uint32_t v = 0;
+    for (int e = 0; e < 2; ++e) {
+      const int row = trans ? 2 * (lane % 4) + e : lane / 4;
+      const int col = trans ? lane / 4 : 2 * (lane % 4) + e;
+      uint16_t h; std::memcpy(&h, emu_blk->dyn.data() +
+                              buf[(i * 8 + row) * 6] + 2 * col, 2);
+      v |= (uint32_t)h << (16 * e); }
+    r[i] = v; }
+  __syncwarp(); }
+inline void ldsm_x4(uint32_t r[4], const void* p) { emu_ldsm(r, p, false); }
+inline void ldsm_x4_trans(uint32_t r[4], const void* p) {
+  emu_ldsm(r, p, true); }
 // min.NaN / max.NaN: a NaN operand gives a NaN, else fminf / fmaxf
 inline float fmin_nan(float a, float b) {
   return (a != a || b != b) ? NAN : std::fmin(a, b); }
@@ -328,6 +356,7 @@ template <int N> void cp_async_wait() {}
 inline float ex2_approx(float x) { return std::exp2(x); }
 inline uint32_t smem_u32(const void* p) {
   return (uint32_t)((const char*)p - emu_blk->dyn.data()); }
+inline uint32_t emu_smem_addr(const void* p) { return smem_u32(p); }
 inline char* emu_smem(uint32_t a) { return emu_blk->dyn.data() + a; }
 inline uint32_t emu_swz128(uint32_t a) { return a ^ (((a >> 7) & 7u) << 4); }
 // an mbarrier: its arrivals a phase, those still missing, bytes still due
@@ -409,6 +438,13 @@ inline int cudaGetDriverEntryPointByVersion(
 inline int emu_sm_count = 132;
 extern "C" void emu_set_sm_count(int n) { emu_sm_count = n; }
 inline int cudaGetDevice(int* d) { *d = 0; return 0; }
+// an SM's 228 KB of shared memory (1 KB of it reserved a block) and 2,048
+// threads, shared by the resident blocks
+template <class T>
+int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, T*, int threads,
+                                                  size_t smem) {
+  *n = std::max(1, std::min(2048 / threads, (int)(233472 / (smem + 1024))));
+  return 0; }
 inline int cudaDeviceGetAttribute(int* v, int attr, int) {
   *v = attr == cudaDevAttrMultiProcessorCount ? emu_sm_count : 0;
   return 0; }
@@ -521,6 +557,10 @@ def _compile(cxx, out, name, source):
     header = out / "cuda_emu.h"
     if not header.exists():        # other compiles may be reading it
         header.write_text(EMU_HEADER)
+        # the sources' other headers (host code), as C++ for this header
+        for cuh in _build.CSRC.glob("*.cuh"):
+            if cuh.name != "primitives.cuh":
+                (out / cuh.name).write_text(_to_cpp(cuh.read_text()))
     cpp = out / name.replace(".cu", ".cpp")
     cpp.write_text(_to_cpp(source))
     lib = out / ("lib" + name.replace(".cu", ".so"))
@@ -563,11 +603,14 @@ def emulated(tmp_path_factory):
         rc = fns[fn](*args, None)
         assert rc == 0, f"{fn} returned {rc}"
 
-    # the SM count K6's bf16 launcher sizes its blocks by (the card's 132
-    # unless a test sets it)
-    flash = next(lib for lib in libs
-                 if hasattr(lib, "vpaas_flash_attention_bf16"))
-    flash.emu_set_sm_count.argtypes = [ctypes.c_int]
+    # the SM count K6's bf16 launcher sizes its blocks by and K7's bf16
+    # wrapper its splits (the card's 132 unless a test sets it)
+    for lib in libs:
+        lib.emu_set_sm_count.argtypes = [ctypes.c_int]
+
+    def set_sm_count(n):
+        for lib in libs:
+            lib.emu_set_sm_count(n)
 
     def query(fn, *args):
         return fns[fn](*args)
@@ -585,8 +628,8 @@ def emulated(tmp_path_factory):
         mp.setattr(_build, "launch", launch)
         mp.setattr(_build, "query", query)
         mp.setattr(_build, "check_operands", check)
-        yield flash.emu_set_sm_count
-        flash.emu_set_sm_count(132)
+        yield set_sm_count
+        set_sm_count(132)
 
 
 MMA_PROBE = r"""
@@ -1130,3 +1173,135 @@ def test_ssd_scan_source_paths(emulated, case, path):
     # no atomics: the same bits on a second launch
     y2, fin2 = sk.ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=st)
     assert torch.equal(y2, y) and torch.equal(fin2, fin)
+
+
+# K7's bf16 kernel on TMA tiles: (case, SMs of the emulated card).  A
+# 64 KB ring of tiles of 16 slots of each of a block's 4 kv-heads (4
+# stages at d <= 64, 2 above); a warp carries up to 16 q-heads of its
+# kv-head
+@pytest.mark.parametrize("case,sms", [
+    # one split of 40 tiles: the ring wraps ten times
+    ((1, 640, 4, 4, 64, [640], None, None), 1),
+    # 36 tiles and 14 slots: a partial last tile in a partial last stage
+    ((2, 590, 8, 2, 112, [590, 333], None, None), 1),
+    # a window of 150 in three splits: row 0's 40 slots leave two empty
+    ((2, 512, 4, 2, 64, [40, 512], 150, None), 132),
+    # softcap, a row of one slot, d = 32
+    ((3, 200, 6, 3, 32, [1, 150, 200], None, 30.0), 132),
+    # d = 128 (two 64-column boxes), a window that starts mid-tile
+    ((2, 300, 8, 2, 128, [300, 150], 70, None), 2),
+    # an empty row (the mean of V) beside a full one
+    ((2, 96, 4, 2, 64, [0, 96], None, None), 132),
+    # GQA groups of 1, 2, 4, 8, 16 (one block) and 32 (two blocks)
+    ((2, 160, 2, 2, 112, [160, 77], None, None), 1),
+    ((2, 160, 4, 2, 112, [160, 77], None, None), 1),
+    ((1, 130, 8, 2, 64, [130], None, None), 132),
+    ((1, 130, 16, 2, 64, [130], None, 20.0), 132),
+    ((2, 96, 16, 1, 64, [96, 40], None, None), 132),
+    ((1, 70, 32, 1, 64, [70], None, None), 132)],
+    ids=["ring-wraps", "partial-last-stage", "window-empty-splits",
+         "softcap-d32", "d128-window", "empty-row", "group1", "group2",
+         "group4", "group8", "group16", "group32"])
+def test_decode_attention_source_bf16_tma(emulated, case, sms):
+    b, S, n_q, n_kv, d, clen, window, cap = case
+    emulated(sms)
+    q, kc, vc = _bf16(decode_case(b, S, n_q, n_kv, d, seed=3))
+    assert da.on_tma(q, kc, vc)
+    cl = torch.as_tensor(np.asarray(clen, np.int32))
+    kw = dict(window=window, softcap=cap)
+    da.launches = da.launches_bf16 = 0
+    got = da.decode_attention(q, kc, vc, cl, **kw)
+    assert da.launches == da.launches_bf16 == 1 and got.dtype == torch.bfloat16
+    assert bf16_err(got, ref.decode_attention(q, kc, vc, cl, **kw)) \
+        <= ATTN_BF16_RTOL
+    # the splits merge in a fixed order: the same bits on a second launch
+    assert torch.equal(da.decode_attention(q, kc, vc, cl, **kw), got)
+
+
+def test_decode_attention_source_bf16_keeps_the_other_kernel(emulated):
+    # d % 8 != 0 (TMA's 16-byte rows), d > 128 and caches that are not
+    # 16-byte aligned stay on the float32 design with bf16 widened as it
+    # loads, chosen by shape and address
+    for b, S, n_q, n_kv, d, clen, cap, shift in [
+            (2, 96, 16, 1, 36, [96, 40], None, 0),
+            (1, 64, 4, 2, 256, [64], 50.0, 0),
+            (2, 80, 4, 2, 64, [80, 33], None, 1)]:
+        q, kc, vc = _bf16(decode_case(b, S, n_q, n_kv, d, seed=4))
+        if shift:                 # the same values 2 bytes off alignment
+            kc, vc = (torch.cat([t.new_zeros(shift), t.flatten()])[shift:]
+                      .view(t.shape) for t in (kc, vc))
+            assert kc.data_ptr() % 16 and vc.data_ptr() % 16
+        assert not da.on_tma(q, kc, vc)
+        cl = torch.as_tensor(np.asarray(clen, np.int32))
+        got = da.decode_attention(q, kc, vc, cl, softcap=cap)
+        assert bf16_err(got, ref.decode_attention(q, kc, vc, cl,
+                                                  softcap=cap)) \
+            <= ATTN_BF16_RTOL
+        assert torch.equal(da.decode_attention(q, kc, vc, cl, softcap=cap),
+                           got)
+
+
+@pytest.mark.parametrize("d,sms,per_sm", [(112, 132, 1), (64, 132, 1),
+                                          (128, 1, 1), (32, 7, 1)])
+def test_decode_attention_source_bf16_resident_blocks(emulated, d, sms,
+                                                      per_sm):
+    # the wrapper's residency query: SMs x the blocks of one SM's shared
+    # memory (the emulated occupancy: 228 KB, 1 KB reserved a block); the
+    # kernel asks for 120 KB, so one block holds an SM
+    emulated(sms)
+    assert da.resident_blocks(d) == sms * per_sm
+    assert _build.query("vpaas_decode_attention_bf16_resident", 36) == 0
+    assert _build.query("vpaas_decode_attention_bf16_resident", 256) == 0
+
+
+# (case, path): x, B and C bf16 through the tensor-core kernels (each
+# chunk's source tiles summed on chip), or the CUDA-core kernel
+@pytest.mark.parametrize("case", [
+    (1, 200, 3, 16, 32, 64, True, False),       # 4 chunks
+    (1, 150, 2, 64, 64, 64, True, False),       # zamba2's p, n
+    (1, 250, 2, 16, 16, 100, True, True),       # chunk 100
+    (2, 300, 2, 64, 64, 256, True, True),       # 4 source tiles a chunk
+    (1, 100, 2, 64, 128, 64, True, False),      # mamba2's n
+    (1, 130, 2, 64, 128, 256, False, True),     # n 128, 3 tiles, no state
+    (1, 90, 2, 16, 24, 32, True, False)],       # n % 16 == 8
+    ids=["four-chunks", "p64-n64-chunk64", "chunk100", "four-tiles",
+         "p64-n128", "p64-n128-3tiles", "n24"])
+def test_ssd_scan_source_bf16_tensor_cores(emulated, case):
+    b, s, h, p, n, chunk, init, weak = case
+    assert sk.path(p, n) == "tensor cores"
+    x, dt, A, B, C, st = _t(ssd_case(b, s, h, p, n, init, seed=5,
+                                     weak=weak))
+    x, B, C = (t.to(torch.bfloat16) for t in (x, B, C))
+    y, fin = sk.ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=st)
+    y_ref, fin_ref = ref.ssd_scan(x, dt, A, B, C, chunk=chunk,
+                                  initial_state=st)
+    assert bf16_err(y, y_ref) <= SSD_BF16_RTOL
+    assert rel_err(fin, fin_ref) <= SSD_RTOL
+    # no atomics: the same bits on a second launch
+    y2, fin2 = sk.ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=st)
+    assert torch.equal(y2, y) and torch.equal(fin2, fin)
+
+
+def test_ssd_scan_source_pass_takes_unaligned_states(emulated):
+    # an initial state 4 bytes off a 16-byte boundary takes the pass's
+    # one-element loads: the same bits as the aligned state's 16-byte ones
+    b, s, h, p, n, chunk = 1, 300, 2, 64, 64, 256
+    x, dt, A, B, C, st = _t(ssd_case(b, s, h, p, n, True, seed=6))
+    x, B, C = (t.to(torch.bfloat16) for t in (x, B, C))
+    off = torch.cat([st.new_zeros(1), st.flatten()])[1:].view(st.shape)
+    assert off.data_ptr() % 16 and torch.equal(off, st)
+    y, fin = sk.ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=st)
+    y2, fin2 = sk.ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=off)
+    assert torch.equal(y2, y) and torch.equal(fin2, fin)
+
+
+def test_ssd_scan_workspace_holds_one_state_a_chunk():
+    # the chunk's source tiles are summed on chip: one p x n float32 state
+    # and one decay a (row, chunk, head); none on the CUDA cores
+    x, B = (torch.empty(shape, device="meta")
+            for shape in ((6, 32768, 112, 64), (6, 32768, 64)))
+    assert sk.workspace_bytes(x, B, 256) == 4 * 6 * 128 * 112 * (64 * 64 + 1)
+    assert sk.workspace_bytes(x, B, 256) < 1.5e9
+    assert sk.workspace_bytes(torch.empty(1, 10, 2, 4),
+                              torch.empty(1, 10, 4), 4) == 0
+
