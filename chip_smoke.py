@@ -96,14 +96,17 @@ def bound_ms(nbytes: float, ops: float):
 
 
 def tc_bound_ms(nbytes: float, mma_flops: float, simt_ops: float,
-                bf16_flops: float = 0.0):
+                bf16_flops: float = 0.0, tf32x2_flops: float = 0.0):
     """The bound of a kernel whose products run on the tensor cores in
     3xTF32 (three TF32 products for each fp32 one), ``bf16_flops`` of them
-    as bf16 products at bf16's rate, and the rest on the CUDA cores: the
-    larger of the bytes' time and the units' times summed."""
+    as bf16 products at bf16's rate, ``tf32x2_flops`` of them (one operand
+    a bf16 value, exact in tf32) as two TF32 products each, and the rest
+    on the CUDA cores: the larger of the bytes' time and the units' times
+    summed."""
     chip = h100()
     t_bytes = nbytes / chip.hbm_bandwidth
-    t_ops = (3 * (mma_flops - bf16_flops) / chip.peak_flops_tf32
+    x3 = mma_flops - bf16_flops - tf32x2_flops
+    t_ops = ((3 * x3 + 2 * tf32x2_flops) / chip.peak_flops_tf32
              + bf16_flops / chip.peak_flops_bf16
              + simt_ops / chip.peak_flops_fp32)
     return (max(t_bytes, t_ops) * 1e3,
@@ -2631,6 +2634,22 @@ def bf16_err(got, want) -> tuple:
     return diff, row_err(got, want)
 
 
+def bf16_steps(torch, got, want32) -> dict:
+    """How far a bf16 result lies from its float32 plain version: the
+    outputs equal to ``want32`` rounded to bf16, one bf16 step from it and
+    further (``steps``), and the largest |got - want32| in bf16 ulps of
+    ``want32`` (``max_ulps``; rounding alone gives at most 0.5)."""
+    def ordered(t):                       # bf16 bits as integers in order
+        i = t.view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    steps = (ordered(got) - ordered(want32.to(torch.bfloat16))).abs()
+    ulp = torch.ldexp(torch.ones_like(want32), torch.frexp(want32)[1] - 8)
+    return {"steps": {"0": int((steps == 0).sum()),
+                      "1": int((steps == 1).sum()),
+                      ">1": int((steps > 1).sum())},
+            "max_ulps": float(((got.float() - want32).abs() / ulp).max())}
+
+
 def _bf16_row(name, source, replaces, shape, errs, timed, plain, lib,
               bound, tol):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -2922,6 +2941,7 @@ def phase_decode_attention_bf16(torch, np, card):
                           row, "sdpa bf16", card)
         rows.append(row)
     rows[0]["other_shapes"] = rows[1:]
+    rows[0]["host_us"] = phase_k7_host(torch, card)
     return rows[0]
 
 
@@ -2934,12 +2954,14 @@ def ssd_ops(b, s, h, p, n) -> int:
     return b * h * s * (5 * p * n + p + 2)
 
 
-def ssd_tc_ops(b, s, h, p, n, chunk):
-    """(matrix-product flops, other flops, C B^T's flops) of the chunked
-    form K8 runs on the tensor cores (``kernels.ssd_scan.chunked_ops``,
-    which the dry run's floor charges too)."""
-    from repro_torch.kernels.ssd_scan import chunked_ops
-    return chunked_ops(b, s, h, p, n, chunk)
+def ssd_tc_ops(b, s, h, p, n, chunk, bf16=False):
+    """(matrix-product flops, other flops, bf16 products, products with
+    one bf16 operand) of the chunked form K8 runs on the tensor cores
+    (``kernels.ssd_scan.chunked_work``, which the dry run's floor charges
+    too): on bf16 operands C B^T is one bf16 product and each other
+    product two TF32 ones."""
+    from repro_torch.kernels.ssd_scan import chunked_work
+    return chunked_work(b, s, h, p, n, chunk, bf16)
 
 
 def phase_ssd_scan(torch, np, card):
@@ -2981,7 +3003,7 @@ def phase_ssd_scan(torch, np, card):
                    f"b={b} s={s} h={h} p={p} n={n} chunk={chunk} "
                    f"initial_state={init} weak_decay={weak}", err, timed,
                    plain, None, nbytes, ssd_ops(b, s, h, p, n))
-        mma, other, _ = ssd_tc_ops(b, s, h, p, n, chunk)
+        mma, other, _, _ = ssd_tc_ops(b, s, h, p, n, chunk)
         row["bound_tc_ms"], row["bound_tc_by"] = tc_bound_ms(nbytes, mma,
                                                              other)
         row.update(path=sk.path(p, n), device_kernels_per_call=per_call)
@@ -3011,9 +3033,9 @@ def phase_ssd_scan_bf16(torch, np, card):
     shapes and every CPU test case's: error, kernel, plain and device
     times, the bound: the function's operations at fp32's rate, as the
     float32 rows count them, on bf16's bytes, and the tensor-core bound
-    with C B^T (bf16 operands) at bf16's rate and the other products
-    (float32 intermediates) in 3xTF32.  Returns the zamba2 prefill's row,
-    the others under ``other_shapes``."""
+    with C B^T (bf16 operands) at bf16's rate and the other products (a
+    float32 operand beside a bf16 one) as two TF32 products each.  Returns
+    the zamba2 prefill's row, the others under ``other_shapes``."""
     from repro_torch.kernels import ssd_scan as sk
     from repro_torch.testing import (SSD_BF16_RTOL, SSD_CASES, SSD_RTOL,
                                      rel_err, ssd_case)
@@ -3052,9 +3074,8 @@ def phase_ssd_scan_bf16(torch, np, card):
                         timed, plain, None,
                         bound_ms(nbytes, ssd_ops(b, s, h, p, n)),
                         SSD_BF16_RTOL)
-        mma, other, cbt = ssd_tc_ops(b, s, h, p, n, chunk)
-        row["bound_tc_ms"], row["bound_tc_by"] = tc_bound_ms(nbytes, mma,
-                                                             other, cbt)
+        row["bound_tc_ms"], row["bound_tc_by"] = tc_bound_ms(
+            nbytes, *ssd_tc_ops(b, s, h, p, n, chunk, bf16=True))
         names = k8_instances(sk, p, n, x.dtype)
         row.update(what=what, path=sk.path(p, n), final_state_err=fin_err,
                    kernels=names, ptxas=instance_ptxas(names),
@@ -3162,7 +3183,7 @@ def phase_llm_kernel_split(torch, card, batches) -> dict:
 
 PARENT_PHASES = """
 import sys
-sys.path[:0] = [{root!r}, {src!r}]
+sys.path[:0] = [{script!r}, {src!r}]
 import numpy as np
 import torch
 import chip_smoke as cs
@@ -3178,17 +3199,25 @@ PARENT_VIDEO = ("phase_crop_gather", "phase_onevsall_update",
                 "phase_region_filter", "phase_frame_filter",
                 "phase_iou_matrix")
 PARENT_LLM = ("phase_decode_attention", "phase_ssd_scan")
+# host-bound probes that --only runs in a process of their own, on this
+# tree's package and with --parent on the parent's (they read only the
+# package's entry points), by the start of their lines: a fresh process
+# for each, so that the two trees' host times compare
+PROBES = {"phase_k7_host": "K7 bf16 host",
+          "phase_decode_step": "decode_32k step"}
 
 
-def run_parent(root: str, phases, raw: bool = False) -> str:
+def run_parent(root: str, phases, own: bool = False) -> str:
     """Run ``phases`` of another checkout (the parent commit, unpacked with
-    ``git archive``) in a subprocess on this card (``raw``: lines of code
-    to run there instead); return its output."""
+    ``git archive``) in a subprocess on this card; return its output.
+    ``own``: this script's phases (each called with torch and card) on the
+    other checkout's package, its ``src/`` first on the path."""
     code = PARENT_PHASES.format(
-        root=os.path.abspath(root), src=os.path.join(os.path.abspath(root),
-                                                     "src"),
-        calls="\n".join(phases if raw else (f"cs.{name}(torch, np, card)"
-                                             for name in phases)))
+        script=ROOT if own else os.path.abspath(root),
+        src=os.path.join(os.path.abspath(root), "src"),
+        calls="\n".join(f"cs.{name}(torch, card)" if own
+                        else f"cs.{name}(torch, np, card)"
+                        for name in phases))
     run = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=900)
     if run.returncode != 0:
@@ -3204,18 +3233,12 @@ def relay_parent_llm(root: str, when: str) -> None:
             print(f"  parent ({when} this tree's): {line}")
 
 
-def relay_parent_steps(root: str, when: str) -> None:
-    """The parent's dry-run card steps (DRYRUN_ARCH at the 32k card
-    shapes, at the batches its abstract pass picks), relayed."""
-    code = ("from repro_torch.launch.dryrun import run_one",
-            "from repro_torch.configs import INPUT_SHAPES",
-            "table = {(cs.DRYRUN_ARCH, s): run_one(cs.DRYRUN_ARCH, s, "
-            "device='meta', verbose=False, save=False) for s in "
-            "INPUT_SHAPES}",
-            "cs.phase_dryrun_card(torch, card, table)")
-    for line in run_parent(root, code, raw=True).splitlines():
-        if line.startswith("dryrun on the card"):
-            print(f"  parent ({when} this tree's): {line}")
+def relay_probes(root: str, label: str, probes) -> None:
+    """This script's ``probes`` (of PROBES) on ``root``'s package, in a
+    process of their own, their lines relayed under ``label``."""
+    for line in run_parent(root, probes, own=True).splitlines():
+        if line.startswith(tuple(PROBES.values())):
+            print(f"  {label}: {line}")
 
 
 def parent_key(tag: str, shape: str):
@@ -3314,9 +3337,16 @@ def kernel_offsets(cfg, b_prefill: int, b_decode: int, seq: int) -> dict:
     B = torch.empty((b_prefill, seq, cfg.ssm_state), device="meta")
     return {"flash_attention": b_prefill * seq * h * d,
             "decode_attention": max(kc.numel(), da.workspace_bytes(
-                q, kc, None) // 4),
+                q, kc, kc, None, da.H100_RESIDENT) // 4),
             "ssd_scan": max(x.numel(), sk.workspace_bytes(
                 x, B, cfg.ssm_chunk) // 4)}
+
+
+def card_batches(table) -> dict:
+    """The batch of DRYRUN_ARCH that its abstract pass in ``table`` picked
+    at each card shape: the largest that fits the card."""
+    return {s: table[(DRYRUN_ARCH, s)]["max_batch"]
+            for s in DRYRUN_CARD_SHAPES}
 
 
 def phase_dryrun_card(torch, card, table):
@@ -3330,8 +3360,7 @@ def phase_dryrun_card(torch, card, table):
     from repro_torch.launch.dryrun import card_pass
     from repro_torch.launch.specs import arch_for_shape
     cfg = get_config(DRYRUN_ARCH)
-    batches = {s: table[(DRYRUN_ARCH, s)]["max_batch"]
-               for s in DRYRUN_CARD_SHAPES}
+    batches = card_batches(table)
     if not all(batches.values()):
         raise AssertionError(f"dryrun: no batch of {DRYRUN_ARCH} fits at "
                              f"{batches}")
@@ -3495,9 +3524,9 @@ def phase_dryrun_kernels(torch, np, card, batches):
                     (None, None), None,
                     bound_ms(nbytes, ssd_ops(bp, s, hs, p_, n_)),
                     SSD_BF16_RTOL)
-    # C B^T at bf16's rate, the other products in 3xTF32
+    # C B^T at bf16's rate, the other products as two TF32 ones
     row["bound_tc_ms"], row["bound_tc_by"] = tc_bound_ms(
-        nbytes, *ssd_tc_ops(bp, s, hs, p_, n_, cfg.ssm_chunk))
+        nbytes, *ssd_tc_ops(bp, s, hs, p_, n_, cfg.ssm_chunk, bf16=True))
     row.update(final_state_err=fin_err, reference_s=ref_s,
                kernel=", ".join(k8_instances(sk, p_, n_, bf16)))
     rows["ssd_scan"] = row
@@ -3510,6 +3539,9 @@ def phase_dryrun_kernels(torch, np, card, batches):
     err = bf16_err(got, da.decode_attention_ref(q, kc, vc, cl))
     if not (err[1] <= ATTN_BF16_RTOL and bool(torch.isfinite(got).all())):
         raise AssertionError(f"K7 bf16 at {bd} x {s}: error {err}")
+    # the plain version before its rounding to bf16 (a float32 q)
+    steps = bf16_steps(torch, got, da.decode_attention_ref(q.float(), kc,
+                                                           vc, cl))
     kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
     timed, lib, turns = versus_library(
         torch, lambda: da.decode_attention(q, kc, vc, cl),
@@ -3529,7 +3561,7 @@ def phase_dryrun_kernels(torch, np, card, batches):
                         bd * s * h * (_attn_ops_per_pair(d, None) - 4 * d)),
                     ATTN_BF16_RTOL)
     row.update(library_device_ms=lib[1], turns_ms=turns,
-               kernel=k7_instance(da, q, kc, vc))
+               kernel=k7_instance(da, q, kc, vc), **steps)
     rows["decode_attention"] = row
     del q, kc, vc, got
     torch.cuda.empty_cache()
@@ -3539,6 +3571,9 @@ def phase_dryrun_kernels(torch, np, card, batches):
         if "final_state_err" in row:
             tc += (f", final state {row['final_state_err']:.3e} (tolerance "
                    f"{SSD_RTOL}), plain versions {row['reference_s']:.1f} s")
+        if "steps" in row:
+            tc += (f", bf16 steps from the float32 plain version rounded "
+                   f"{row['steps']}, largest {row['max_ulps']:.3f} ulps")
         kernel = f", {row['kernel']}" if "kernel" in row else ""
         _bf16_report(f"dryrun kernel {name} bf16 {row['shape']}{kernel}{tc}",
                      row, card)
@@ -3630,10 +3665,133 @@ def phase_dryrun_reference(torch, np, card):
             "decode_logits": errs[1], "cpu_s": cpu_s}
 
 
+def busy_us(spans) -> float:
+    """The time the union of sorted (start, end, ...) spans covers."""
+    busy, reach = 0.0, None
+    for start, end, *_ in spans:
+        lo = start if reach is None else max(start, reach)
+        busy += max(0.0, end - lo)
+        reach = end if reach is None else max(reach, end)
+    return busy
+
+
+K7_HOST_CALLS = 1000       # calls a K7 host-time window
+DECODE_TRACE_CALLS = 3     # decode_32k steps traced, one window each
+
+
+def phase_k7_host(torch, card) -> dict:
+    """Host microseconds to issue one bf16 K7 call at zamba2's decode shape
+    (4 x 512 slots, 399 valid, 32/32 heads, d 112; :func:`host_us`, the
+    card idle behind it): the wrapper's checks, its split plan, the
+    workspace and the launch.  Where the package caches its plan
+    (``decode_attention.plan``), also with the caches cleared before each
+    call (the wrapper's per-call work without them), the two in turns.
+    Reads only the package's entry points, so --parent runs it on the
+    parent's.  Returns {variant: [turn times]}."""
+    from repro_torch.kernels import decode_attention as da
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, kc, vc = (torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for shape in ((4, 32, 112), (4, 512, 32, 112),
+                                      (4, 512, 32, 112)))
+    cl = torch.full((4,), 399, dtype=torch.int32, device="cuda")
+    fns = {"as is": lambda: da.decode_attention(q, kc, vc, cl)}
+    if hasattr(da, "plan"):
+        def cleared():
+            da.splits.cache_clear()
+            da.resident_blocks.cache_clear()
+            return da.decode_attention(q, kc, vc, cl)
+        fns["caches cleared"] = cleared
+    turns = in_turns(fns, lambda fn: host_us(torch, fn, K7_HOST_CALLS))
+    print("K7 bf16 host time per call at 4 x 512, d 112: " + "; ".join(
+        f"{name} " + ", ".join(f"{us:.2f}" for us in t) + " us"
+        for name, t in turns.items())
+        + f" (turns of {K7_HOST_CALLS} calls) [{card}]")
+    return turns
+
+
+def phase_decode_step(torch, card, row=None) -> dict:
+    """DRYRUN_ARCH's decode_32k step on the card at the batch its abstract
+    pass (``row``, run here where None) picks, made as ``dryrun.card_pass``
+    makes it: ``dryrun.DECODE_CALLS`` calls, each from an idle card, timed
+    by CUDA events beside the host's time to issue it; then
+    DECODE_TRACE_CALLS calls, each in a profiler window of its own: the
+    device's busy time (the union of its kernels' spans), its share of
+    the untraced median (the rest is the card idle, waiting for the host),
+    and K7's kernels' time.  Reads only ``launch.dryrun``'s entry points,
+    so --parent runs it on the parent's package.  Returns the figures."""
+    import dataclasses
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import arch_for_shape
+    full = INPUT_SHAPES["decode_32k"]
+    if row is None:
+        row = dryrun.run_one(DRYRUN_ARCH, "decode_32k", device="meta",
+                             verbose=False, save=False)
+    cfg = arch_for_shape(get_config(DRYRUN_ARCH), full)
+    shape = dataclasses.replace(full, global_batch=row["max_batch"])
+    torch.cuda.empty_cache()
+    real = dryrun.step_inputs(cfg, shape, torch.device("cuda"))
+    fn = dryrun.make_step(cfg, shape)[0]
+    fn(*real)                                 # warm-up
+    host, dev = [], []
+    for _ in range(dryrun.DECODE_CALLS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        fn(*real)
+        end.record()
+        host.append((time.perf_counter() - t0) * 1e3)
+        end.synchronize()
+        dev.append(start.elapsed_time(end))
+    median = statistics.median(dev)
+    traced = []
+    for _ in range(DECODE_TRACE_CALLS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn(*real)
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        k7 = [sp for sp in spans if any(
+            k in sp[2] for k in ("decode_tma_kernel", "decode_split_kernel",
+                                 "decode_combine_kernel"))]
+        traced.append({"kernels": len(spans),
+                       "busy_ms": busy_us(spans) / 1e3,
+                       "span_ms": ((spans[-1][1] - spans[0][0]) / 1e3
+                                   if spans else 0.0),
+                       "k7_ms": busy_us(k7) / 1e3})
+    del real
+    torch.cuda.empty_cache()
+    busy = statistics.median(t["busy_ms"] for t in traced)
+    out = {"batch": shape.global_batch, "ms": median, "ms_all": dev,
+           "host_ms": statistics.median(host), "traced": traced,
+           "busy_ms": busy, "idle_share": 1 - busy / median}
+    print(f"decode_32k step of {DRYRUN_ARCH} at batch {shape.global_batch}: "
+          f"{median:.3f} ms (median of {len(dev)} calls, "
+          f"{min(dev):.3f}-{max(dev):.3f}), the host issues a call in "
+          f"{out['host_ms']:.3f} ms (median); traced calls "
+          + "; ".join(f"{t['kernels']} kernels, busy {t['busy_ms']:.3f} ms "
+                      f"of a {t['span_ms']:.3f} ms span, K7 "
+                      f"{t['k7_ms']:.3f} ms" for t in traced)
+          + f"; the card busy {busy:.3f} ms of the median, idle "
+          f"{out['idle_share']:.1%} [{card}]")
+    return out
+
+
 def phase_dryrun(torch, np, card):
     """The dry run's phases (a)-(d); returns what the JSON line carries."""
     table = phase_dryrun_table(card)
     runs = phase_dryrun_card(torch, card, table)
+    runs["decode_32k"]["trace"] = phase_decode_step(
+        torch, card, table[(DRYRUN_ARCH, "decode_32k")])
     batches = {s: runs[s]["batch"] for s in DRYRUN_CARD_SHAPES}
     kernels = phase_dryrun_kernels(torch, np, card, batches)
     kernels["split"] = phase_llm_kernel_split(torch, card, batches)
@@ -5019,28 +5177,32 @@ def phase_llm_launcher(torch, np, card):
                     "predicted_peak_bytes": predicted}
 
 
-# the dry run's batches on an 80 GB H100 (its table, PR 26), for --only
-DRYRUN_BATCHES = {"prefill_32k": 6, "decode_32k": 14}
-ONLY_PHASES = {
-    "split": lambda torch, np, card: phase_llm_kernel_split(
-        torch, card, DRYRUN_BATCHES),
-    "k7": phase_decode_attention,
-    "k8": phase_ssd_scan,
-    "dryrun_kernels": lambda torch, np, card: phase_dryrun_kernels(
-        torch, np, card, DRYRUN_BATCHES),
-    "dryrun_steps": lambda torch, np, card: phase_dryrun_card(
-        torch, card, dryrun_card_table()),
-}
-
-
-def dryrun_card_table() -> dict:
+def dryrun_card_table(shapes=None) -> dict:
     """The abstract passes that phase_dryrun_card reads: DRYRUN_ARCH at
-    every input shape (in this process)."""
+    ``shapes`` (every input shape where None), in this process."""
     from repro_torch.configs import INPUT_SHAPES
     from repro_torch.launch.dryrun import run_one
     return {(DRYRUN_ARCH, s): run_one(DRYRUN_ARCH, s, device="meta",
                                       verbose=False, save=False)
-            for s in INPUT_SHAPES}
+            for s in shapes or INPUT_SHAPES}
+
+
+# --only: phases run alone after the build, each with (torch, np, card)
+ONLY_PHASES = {
+    "split": lambda torch, np, card: phase_llm_kernel_split(
+        torch, card, card_batches(dryrun_card_table(DRYRUN_CARD_SHAPES))),
+    "k7": phase_decode_attention,
+    "k8": phase_ssd_scan,
+    "dryrun_kernels": lambda torch, np, card: phase_dryrun_kernels(
+        torch, np, card,
+        card_batches(dryrun_card_table(DRYRUN_CARD_SHAPES))),
+    "dryrun_steps": lambda torch, np, card: phase_dryrun_card(
+        torch, card, dryrun_card_table()),
+    "k7_host": lambda torch, np, card: relay_probes(ROOT, "this tree",
+                                                    ["phase_k7_host"]),
+    "decode_step": lambda torch, np, card: relay_probes(
+        ROOT, "this tree", ["phase_decode_step"]),
+}
 
 
 def main() -> int:
@@ -5053,10 +5215,10 @@ def main() -> int:
                          "tree's, on the same card")
     ap.add_argument("--only", nargs="+", choices=sorted(ONLY_PHASES),
                     help="build, then run only these phases and stop (no "
-                         "contract line): a probe of K7 and K8 (the dry-run "
-                         "kernels at DRYRUN_BATCHES) or of the dry run's "
-                         "card steps; with --parent the parent's K7 / K8 "
-                         "rows or card steps run before and after")
+                         "contract line); with --parent the parent's K7 / "
+                         "K8 rows (k7, k8) and this script's probes on its "
+                         "package (k7_host, decode_step) run before and "
+                         "after")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         raise SystemExit("chip_smoke.py: src/repro_torch not found next to "
@@ -5086,15 +5248,18 @@ def main() -> int:
         print(f"  {line}")
 
     if args.only:
-        relays = [] if not args.parent else (
-            ([relay_parent_llm] if {"k7", "k8"} & set(args.only) else [])
-            + ([relay_parent_steps] if "dryrun_steps" in args.only else []))
-        for relay in relays:
-            relay(args.parent, "before")
+        probes = [f"phase_{n}" for n in args.only if f"phase_{n}" in PROBES]
+
+        def relay(when):
+            if args.parent and {"k7", "k8"} & set(args.only):
+                relay_parent_llm(args.parent, when)
+            if args.parent and probes:
+                relay_probes(args.parent, f"parent ({when} this tree's)",
+                             probes)
+        relay("before")
         for name in args.only:
             ONLY_PHASES[name](torch, np, card)
-        for relay in relays:
-            relay(args.parent, "after")
+        relay("after")
         print(f"chip_smoke.py --only {' '.join(args.only)} finished in "
               f"{time.perf_counter() - t_start:.1f} s")
         return 0

@@ -66,9 +66,14 @@
 //    fragments by ldmatrix from the swizzled tile, and O += P V with P's
 //    two bf16 halves (hi and the rest, ~16 bits of p, as K6) as the A
 //    fragments straight from S's accumulators and V's by ldmatrix.trans.
-//    bf16 x bf16 products are exact in f32, so against the CUDA-core loop
-//    (q.k one lane a slot, p.v a 32-step shuffle loop) only the order of
-//    the sums moves.
+//    q.k's bf16 x bf16 products are exact in f32, so there only the order
+//    of the sums moves against the CUDA-core loop (q.k one lane a slot,
+//    p.v a 32-step shuffle loop, p in f32).  p.v keeps about 16 of p's 24
+//    bits (the lo half is cut, not rounded): each term loses up to 2^-16
+//    of itself, far below a bf16 step of its row's largest output, but an
+//    output much smaller than that (V's values cancelling in the sum) can
+//    move by several of its own steps; the error is held per row, to
+//    ATTN_BF16_RTOL of the row's largest value.
 //  - Each warp runs its own online softmax over its head's slots: no
 //    barrier inside the loop, no merge at the end; it writes the split's
 //    workspace rows, which the float32 form's combine kernel merges in

@@ -12,8 +12,8 @@ partial softmax state to a workspace, and a combine kernel merges the
 splits in a fixed order.  bfloat16 caches whose head dim is a multiple of
 8 up to 128, 16-byte aligned (:func:`on_tma`), take the split kernel that
 loads K and V tiles by TMA and runs q.k and p.v on the tensor cores; its
-splits fill the card's resident blocks in whole waves
-(:func:`resident_blocks`, :func:`splits`).  Other operands take the
+splits fill the card's resident blocks in whole waves (:func:`plan`, which
+also sizes the workspace, :func:`workspace_bytes`).  Other operands take the
 float32 design (bf16 widened as it loads).  The plain PyTorch version is
 :func:`decode_attention_ref` (``ref.decode_attention``); the kernel agrees
 with it within ``testing.ATTN_ATOL`` (float32) or ``testing.ATTN_BF16_RTOL``
@@ -21,6 +21,7 @@ with it within ``testing.ATTN_ATOL`` (float32) or ``testing.ATTN_BF16_RTOL``
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -29,6 +30,7 @@ from repro_torch.kernels import _build, ref
 from repro_torch.kernels.flash_attention import (MAX_HEAD_DIM, check_options,
                                                  pair_work, row_array,
                                                  tma_ready)
+from repro_torch.roofline.hw import H100
 
 launches = 0          # wrapper calls that launched the kernels (ops.py)
 launches_bf16 = 0     # the launches among them on bf16 operands
@@ -42,8 +44,12 @@ TMA_KV_HEADS = 4      # kv-heads a block of it (one a warp)
 TMA_HEADS = 16        # q-heads of a kv-head a block takes (the mma's rows)
 TMA_MAX_DIM = 128     # the largest head dim it takes
 WAVE_FILL = 0.9       # the share of the last wave's blocks its splits want
+TMA_BLOCKS_PER_SM = 1  # a block asks for 120 KB of shared memory
+# the TMA kernel's resident blocks on an H100, which the dry run plans by
+H100_RESIDENT = H100.sms * TMA_BLOCKS_PER_SM
 
 
+@functools.lru_cache(maxsize=None)
 def splits(b: int, S: int, n_kv: int, window: Optional[int],
            resident: Optional[int] = None, nsub: int = 1
            ) -> Tuple[int, int]:
@@ -86,11 +92,13 @@ def on_tma(q: torch.Tensor, k_cache: torch.Tensor,
             and tma_ready(k_cache, v_cache))
 
 
-def resident_blocks(d: int) -> int:
+@functools.lru_cache(maxsize=None)
+def resident_blocks(d: int, device: int = -1) -> int:
     """The card's SMs times the blocks of the bf16 TMA kernel for head dim
-    ``d`` that one SM holds at once, as the built library answers it
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); raises where the
-    library takes no such kernel for ``d`` or the query failed."""
+    ``d`` that one SM holds at once, as the built library answers it for
+    the current device (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    asked once a (head dim, ``device``); raises where the library takes no
+    such kernel for ``d`` or the query failed."""
     n = _build.query("vpaas_decode_attention_bf16_resident", d)
     if n <= 0:
         raise RuntimeError(f"decode_attention: no resident blocks of the "
@@ -98,28 +106,44 @@ def resident_blocks(d: int) -> int:
     return n
 
 
+def plan(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+         window: Optional[int], resident: Optional[int] = None
+         ) -> Tuple[int, int]:
+    """(slots per split, number of splits) the launcher runs these operands
+    with (:func:`splits`): on the bf16 TMA kernel (:func:`on_tma`) in whole
+    waves of ``resident`` blocks, the card's (:func:`resident_blocks`)
+    where None; else the float32 design's."""
+    b, n_q, d = q.shape
+    S, n_kv = k_cache.shape[1], k_cache.shape[2]
+    if not on_tma(q, k_cache, v_cache):
+        return splits(b, S, n_kv, window)
+    if resident is None:
+        resident = resident_blocks(d, q.get_device())
+    return splits(b, S, n_kv, window, resident,
+                  -(-(n_q // n_kv) // TMA_HEADS))
+
+
 def workspace_bytes(q: torch.Tensor, k_cache: torch.Tensor,
-                    window: Optional[int]) -> int:
+                    v_cache: torch.Tensor, window: Optional[int],
+                    resident: Optional[int] = None) -> int:
     """Bytes of the per-call workspace: each split's partial softmax state
     (d + 2 floats, whatever the operands' dtype) for every (row, query
-    head), at the float32 kernel's splits.  The dry run charges this; on
-    the card the bf16 TMA kernel's splits follow the card's residency
-    (:func:`decode_attention` allocates for them), a workspace of the same
-    order: (d + 2) floats a split and head against the caches' 2 d bf16
-    values a slot."""
+    head), at :func:`plan`'s splits (the dry run passes
+    ``H100_RESIDENT``)."""
     b, n_q, d = q.shape
-    _, nsplit = splits(b, k_cache.shape[1], k_cache.shape[2], window)
+    _, nsplit = plan(q, k_cache, v_cache, window, resident)
     return 4 * b * n_q * nsplit * (d + 2)
 
 
 def work(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
          cache_len, *, window: Optional[int] = None,
-         softcap: Optional[float] = None) -> Tuple[int, int, int]:
-    """(products, other, bf16 products) operations K7 does on these
-    operands: each valid slot (the last ``window`` of them where there is
-    one) for every row and query head.  A tensor ``cache_len`` (which has
-    no value on meta) counts the whole cache (the roofline's floor;
-    ``roofline.analysis``)."""
+         softcap: Optional[float] = None) -> Tuple[int, int, int, int]:
+    """(products, other, bf16 products, products with one bf16 operand:
+    :func:`~repro_torch.kernels.flash_attention.pair_work`) operations K7
+    does on these operands: each valid slot (the last ``window`` of them
+    where there is one) for every row and query head.  A tensor
+    ``cache_len`` (which has no value on meta) counts the whole cache (the
+    roofline's floor; ``roofline.analysis``)."""
     b, n_q, d = q.shape
     S = k_cache.shape[1]
     rows = S if isinstance(cache_len, torch.Tensor) else min(int(cache_len),
@@ -153,13 +177,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     clen = row_array(cache_len, b, q.device, "cache_len")
     out = torch.empty_like(q)
     if b and n_q:
-        if on_tma(q, k_cache, v_cache):
-            per, nsplit = splits(b, S, n_kv, window, resident_blocks(d),
-                                 -(-(n_q // n_kv) // TMA_HEADS))
-        else:
-            per, nsplit = splits(b, S, n_kv, window)
-        ws = torch.empty(b * n_q * nsplit * (d + 2), dtype=torch.float32,
-                         device=q.device)
+        per, nsplit = plan(q, k_cache, v_cache, window)
+        ws = torch.empty(workspace_bytes(q, k_cache, v_cache, window) // 4,
+                         dtype=torch.float32, device=q.device)
         _build.launch(_build.launcher("vpaas_decode_attention", q.dtype),
                       q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                       clen.data_ptr(), ws.data_ptr(), out.data_ptr(), b, S,

@@ -96,16 +96,18 @@ def check_options(window: Optional[int], softcap: Optional[float]) -> None:
 
 
 def pair_work(pairs: int, d: int, d_v: int, softcap: Optional[float],
-              dtype: torch.dtype = torch.float32) -> Tuple[int, int, int]:
-    """(products, other, bf16 products) floating-point operations of
-    ``pairs`` (query head, key) pairs on operands of ``dtype``: q.k and p.v
-    (2 d + 2 d_v), and beside them the scale, running max, exp and sum (5)
-    and a softcap's division, tanh and multiply (3).  The products of bf16
-    operands are all bf16 products: the least time charges them at the bf16
-    tensor-core rate, whichever unit a kernel runs them on."""
+              dtype: torch.dtype = torch.float32
+              ) -> Tuple[int, int, int, int]:
+    """(products, other, bf16 products, products with one bf16 operand)
+    floating-point operations of ``pairs`` (query head, key) pairs on
+    operands of ``dtype``: q.k and p.v (2 d + 2 d_v), and beside them the
+    scale, running max, exp and sum (5) and a softcap's division, tanh and
+    multiply (3).  The products of bf16 operands are all bf16 products: the
+    least time charges them at the bf16 tensor-core rate, whichever unit a
+    kernel runs them on; none has one bf16 operand only."""
     products = pairs * 2 * (d + d_v)
     return (products, pairs * (5 + (3 if softcap else 0)),
-            products if dtype == torch.bfloat16 else 0)
+            products if dtype == torch.bfloat16 else 0, 0)
 
 
 def causal_pairs(s_q: int, s_kv: int, *, causal: bool,
@@ -125,8 +127,9 @@ def causal_pairs(s_q: int, s_kv: int, *, causal: bool,
 def work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
          causal: bool = True, window: Optional[int] = None,
          softcap: Optional[float] = None,
-         q_offset=0) -> Tuple[int, int, int]:
-    """(products, other, bf16 products) operations K6 does on these
+         q_offset=0) -> Tuple[int, int, int, int]:
+    """(products, other, bf16 products, products with one bf16 operand:
+    :func:`pair_work`) operations K6 does on these
     operands: every pair the mask lets through, for each row and query head
     (the roofline's floor; ``roofline.analysis``)."""
     b, s_q, n_q, d = q.shape

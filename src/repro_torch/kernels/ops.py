@@ -123,8 +123,9 @@ def _plain(name: str, fn, *args, workspace_bytes: int = 0, work=None,
     """``fn(*args, **kw)``, the plain version of kernel ``name``.  On meta
     tensors it runs inside a kernel region that the ``META_OBSERVERS`` see:
     ``workspace_bytes`` is what the kernel would allocate beside its
-    outputs, and ``work(*args, **kw)`` the (products, other, bf16 products)
-    operations it would do (None: the plain version's count stands)."""
+    outputs, and ``work(*args, **kw)`` the (products, other, bf16 products,
+    products with one bf16 operand) operations it would do (None: the plain
+    version's count stands)."""
     if not (args[0].is_meta and META_OBSERVERS):
         return fn(*args, **kw)
     operands = [a for a in (*args, *kw.values())
@@ -259,7 +260,8 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
         return _da.decode_attention(q, k_cache, v_cache, cache_len, **kw)
     return _plain("decode_attention", _da.decode_attention_ref, q, k_cache,
                   v_cache, cache_len,
-                  workspace_bytes=_da.workspace_bytes(q, k_cache, window),
+                  workspace_bytes=_da.workspace_bytes(
+                      q, k_cache, v_cache, window, _da.H100_RESIDENT),
                   work=_da.work, **kw)
 
 

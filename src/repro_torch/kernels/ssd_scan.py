@@ -12,10 +12,11 @@ and C are float32 or bfloat16 (one dtype; y comes out in it); dt, A and
 the initial and final states are float32 either way, as the reference's
 Mamba2 layer passes them.  float32 runs every product in 3xTF32.  bf16
 operands stay bf16 in shared memory: C B^T, a product of bf16 values, is
-one bf16 product; the others have a float32 operand (W, dt x with its
-decay, the states) and keep its 3xTF32 split, the bf16 operand exact in
-tf32 (:func:`work` counts C B^T as the bf16 product).  The plain PyTorch
-version is
+one bf16 product; each of the others has a float32 operand (W with dt,
+x dt with its decay, the states) beside a bf16 one (x, B, C): a bf16
+value is exact in tf32, so it takes two TF32 products where 3xTF32 takes
+three (:func:`work` counts C B^T as the bf16 product, the others as
+products with one bf16 operand).  The plain PyTorch version is
 :func:`ssd_scan_ref` (``ref.ssd_scan``); the kernel agrees with it within
 ``testing.SSD_RTOL`` (float32) or ``testing.SSD_BF16_RTOL`` (bfloat16) of
 the output's scale.  float16 raises.
@@ -81,15 +82,26 @@ def chunked_ops(b: int, s: int, h: int, p: int, n: int, chunk: int
 def work(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
          B: torch.Tensor, C: torch.Tensor, *, chunk: int = 64,
          initial_state: Optional[torch.Tensor] = None
-         ) -> Tuple[int, int, int]:
-    """(products, other, bf16 products) operations K8 does on these
-    operands (:func:`chunked_ops`; the roofline's floor,
-    ``roofline.analysis``).  On bf16 x, B and C its bf16 product is C B^T,
-    whose operands are bf16 values; the others' operands are float32
-    intermediates (dt x, the decays, W, the states)."""
+         ) -> Tuple[int, int, int, int]:
+    """(products, other, bf16 products, products with one bf16 operand)
+    operations K8 does on these operands (:func:`chunked_ops`; the
+    roofline's floor, ``roofline.analysis``).  On bf16 x, B and C its bf16
+    product is C B^T, whose operands are bf16 values; each of the others
+    has one float32 operand (W with dt, x dt with its decay, the states)
+    and one bf16 one (x, B, C).  On float32 every product is a 3xTF32
+    one."""
     b, s, h, p = x.shape
-    mma, other, cbt = chunked_ops(b, s, h, p, B.shape[-1], chunk)
-    return mma, other, cbt if x.dtype == torch.bfloat16 else 0
+    return chunked_work(b, s, h, p, B.shape[-1], chunk,
+                        x.dtype == torch.bfloat16)
+
+
+def chunked_work(b: int, s: int, h: int, p: int, n: int, chunk: int,
+                 bf16: bool) -> Tuple[int, int, int, int]:
+    """:func:`work` from the shapes: :func:`chunked_ops` with C B^T as the
+    bf16 products and the others as products with one bf16 operand where
+    ``bf16``, every product a 3xTF32 one where not."""
+    mma, other, cbt = chunked_ops(b, s, h, p, n, chunk)
+    return (mma, other, cbt, mma - cbt) if bf16 else (mma, other, 0, 0)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -31,12 +31,15 @@ FLOPs out (``kernel_plain_flops``) and charges K6's, K7's and K8's own
 operations instead (their modules' ``work``: the pairs a causal mask lets
 through, the chunked scan) and the rest at the compute dtype's.  A
 kernel's ``work`` also says how many of its products are bf16 ones: those
-are charged at the bf16 tensor-core rate (one product each), the rest in
-3xTF32 at the TF32 rate.  K6's and K7's are bf16 ones where their
-operands are bf16; K8's never are (their operands are float32
-intermediates).  Its bytes and memory are the kernel's operands, outputs
-and workspace (written once, read once), so the plain version's s x s
-score matrix, which the kernel never holds, is neither moved nor live.
+are charged at the bf16 tensor-core rate (one product each); and how many
+have one bf16 operand beside a float32 one: a bf16 value is exact in
+tf32, so those take two TF32 products each; the rest take three (3xTF32)
+at the TF32 rate.  K6's and K7's are bf16 ones where their operands are
+bf16; on bf16 operands K8's C B^T is a bf16 one and its other products
+(a float32 intermediate times x, B or C) have one bf16 operand.  Its
+bytes and memory are the kernel's operands, outputs and workspace
+(written once, read once), so the plain version's s x s score matrix,
+which the kernel never holds, is neither moved nor live.
 
 ``collective_bytes`` is the reference's parser of post-SPMD HLO text, kept
 for parity; a one-card step has no collectives.
@@ -134,7 +137,9 @@ class RooflineReport:
     the part of ``hlo_flops`` counted inside kernel regions, and
     ``kernel_products`` / ``kernel_other`` the kernels' own operations
     that the floor charges in its place, ``kernel_products_bf16`` the part
-    of ``kernel_products`` charged at the bf16 rate."""
+    of ``kernel_products`` charged at the bf16 rate and
+    ``kernel_products_tf32x2`` the part with one bf16 operand, charged as
+    two TF32 products each."""
     arch: str
     shape: str
     mesh: str
@@ -154,6 +159,7 @@ class RooflineReport:
     kernel_products: float = 0.0
     kernel_other: float = 0.0
     kernel_products_bf16: float = 0.0
+    kernel_products_tf32x2: float = 0.0
 
     chip: ChipSpec = H100
 
@@ -161,13 +167,15 @@ class RooflineReport:
     def t_compute(self) -> float:
         """The FLOPs outside the kernels and the kernels' other operations
         at the compute dtype's peak, plus the kernels' products on the
-        tensor cores: bf16 ones at the bf16 rate, the others in 3xTF32
-        (three TF32 products for each fp32 one)."""
+        tensor cores: bf16 ones at the bf16 rate, those with one bf16
+        operand as two TF32 products, the others in 3xTF32 (three TF32
+        products for each fp32 one)."""
         rest = self.hlo_flops - self.kernel_plain_flops + self.kernel_other
-        tf32 = self.kernel_products - self.kernel_products_bf16
+        x2 = self.kernel_products_tf32x2
+        x3 = self.kernel_products - self.kernel_products_bf16 - x2
         return (rest / self.chip.peak_flops(self.compute_dtype)
                 + self.kernel_products_bf16 / self.chip.peak_flops_bf16
-                + 3 * tf32 / self.chip.peak_flops_tf32)
+                + (2 * x2 + 3 * x3) / self.chip.peak_flops_tf32)
 
     @property
     def t_memory(self) -> float:
@@ -274,8 +282,9 @@ class StepCounter(TorchDispatchMode):
     work, the FLOPs ``flops`` counted inside the region go to
     ``kernel_plain_flops`` and the kernel's own operations to
     ``kernel_products`` / ``kernel_other``, and those of its products that
-    are bf16 ones to ``kernel_products_bf16`` too (each kernel's ``work``
-    says which)."""
+    are bf16 ones to ``kernel_products_bf16`` too and those with one bf16
+    operand to ``kernel_products_tf32x2`` (each kernel's ``work`` says
+    which)."""
 
     def __init__(self, flops: FlopCounterMode):
         super().__init__()
@@ -287,6 +296,7 @@ class StepCounter(TorchDispatchMode):
         self.kernel_products = 0
         self.kernel_other = 0
         self.kernel_products_bf16 = 0
+        self.kernel_products_tf32x2 = 0
         self._flops = flops
         self._flops_at = 0
         self._depth = 0
@@ -332,6 +342,7 @@ class StepCounter(TorchDispatchMode):
             self.kernel_products += work[0]
             self.kernel_other += work[1]
             self.kernel_products_bf16 += work[2]
+            self.kernel_products_tf32x2 += work[3]
         outs = tensors(outputs)
         out_bytes = sum(nbytes(t) for t in outs)
         self.bytes += (_unique_bytes(operands) + out_bytes
@@ -397,4 +408,5 @@ def analyze_step(fn, abstract_args, *, arch: str, shape,
         kernel_plain_flops=float(counter.kernel_plain_flops),
         kernel_products=float(counter.kernel_products),
         kernel_other=float(counter.kernel_other),
-        kernel_products_bf16=float(counter.kernel_products_bf16))
+        kernel_products_bf16=float(counter.kernel_products_bf16),
+        kernel_products_tf32x2=float(counter.kernel_products_tf32x2))

@@ -24,6 +24,7 @@ class ChipSpec:
     ici_link_bandwidth: float    # bytes/s per link
     peak_flops_tf32: float = 0.0     # FLOP/s, dense TF32 tensor cores
     peak_flops_fp32: float = 0.0     # FLOP/s, fp32 outside the tensor cores
+    sms: int = 0                     # streaming multiprocessors per chip
 
     def peak_flops(self, dtype: str) -> float:
         """The peak for a step's compute dtype: ``bf16``, ``tf32`` or
@@ -40,4 +41,5 @@ H100 = ChipSpec(
     ici_link_bandwidth=50e9,
     peak_flops_tf32=495e12,
     peak_flops_fp32=67e12,
+    sms=132,
 )

@@ -523,7 +523,7 @@ def test_roofline_charges_bf16_products_at_the_bf16_rate():
         pairs * 5 / H100.peak_flops_bf16
         + pairs * 4 * d / H100.peak_flops_bf16, rel=1e-12)
     # K8 on bf16 operands: C B^T (bf16 values, 2n a causal pair) at the
-    # bf16 rate, its other products (float32 intermediates) in 3xTF32
+    # bf16 rate, its other products (one bf16 operand) as two TF32 ones
     x, B = meta(1, 256, 4, 64), meta(1, 256, 64)
     dt = torch.empty(1, 256, 4, device="meta")
     A = torch.empty(4, device="meta")
@@ -531,6 +531,7 @@ def test_roofline_charges_bf16_products_at_the_bf16_rate():
                        (x, dt, A, B, B), arch="t", shape=shape, cfg=cfg)
     cbt = 4 * 2 * 64 * 4 * (64 * 65 // 2)
     assert rep.kernel_products > rep.kernel_products_bf16 == cbt
+    assert rep.kernel_products_tf32x2 == rep.kernel_products - cbt
 
 
 def test_compute_dtype_is_read_when_a_step_is_made(monkeypatch):

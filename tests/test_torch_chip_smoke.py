@@ -190,10 +190,16 @@ def test_ssd_tensor_core_ops_count_the_chunked_products():
     # 2pn a step each: 1.885 GFLOP over 112 heads
     pairs = 256 * 257 // 2 + 128 * 129 // 2
     assert pairs == 41_152
-    mma, other, cbt = chip_smoke.ssd_tc_ops(1, 384, 112, 64, 64, 256)
+    mma, other, bf16, x2 = chip_smoke.ssd_tc_ops(1, 384, 112, 64, 64, 256)
     assert mma == 112 * (2 * (64 + 64) * pairs + 4 * 384 * 64 * 64)
     assert mma == 1_884_553_216
-    assert cbt == 112 * 2 * 64 * pairs        # C B^T, bf16 on bf16 operands
+    assert bf16 == x2 == 0                    # float32: all in 3xTF32
+    # bf16 operands: C B^T a bf16 product, each other product one bf16
+    # operand beside a float32 one
+    _, _, cbt, x2 = chip_smoke.ssd_tc_ops(1, 384, 112, 64, 64, 256,
+                                           bf16=True)
+    assert cbt == 112 * 2 * 64 * pairs
+    assert x2 == mma - cbt
     assert other == 112 * (3 * pairs + 384 * (4 * 64 + 5) + 2 * 64 * 64 * 2)
     # three TF32 products per fp32 one at 495 TFLOP/s, the rest at 67:
     # 11.82 us, above the 7.2 us of its 24.2 MB
@@ -203,12 +209,18 @@ def test_ssd_tensor_core_ops_count_the_chunked_products():
     assert by == "operations"
     assert ms == pytest.approx(3 * mma / 495e9 + other / 67e9, rel=1e-12)
     assert ms == pytest.approx(0.011823, abs=1e-6)
-    # bf16 operands: C B^T at bf16's 989.4 TFLOP/s, the rest in 3xTF32
-    ms16, by16 = chip_smoke.tc_bound_ms(nbytes, mma, other, cbt)
+    # bf16 operands: C B^T at bf16's 989.4 TFLOP/s, the rest as two TF32
+    # products each (the bf16 operand is exact in tf32): 6.23 us, above
+    # the 3.9 us of its 13.1 MB
+    nbytes16 = chip_smoke.ssd_nbytes(1, 384, 112, 64, 64, False, size=2)
+    assert nbytes16 == nbytes - 2 * (2 * 384 * 112 * 64 + 2 * 384 * 64)
+    ms16, by16 = chip_smoke.tc_bound_ms(nbytes16, mma, other, cbt, x2)
     assert by16 == "operations"
-    assert ms16 == pytest.approx(3 * (mma - cbt) / 495e9 + cbt / 989.4e9
+    assert ms16 == pytest.approx(2 * (mma - cbt) / 495e9 + cbt / 989.4e9
                                  + other / 67e9, rel=1e-12)
-    assert ms16 < ms
+    assert ms16 == pytest.approx(0.006228, abs=1e-6)
+    # C B^T alone at bf16's rate, the rest in 3xTF32, would read 8.84 us
+    assert ms16 < chip_smoke.tc_bound_ms(nbytes16, mma, other, cbt)[0] < ms
     # one chunk holding the whole sequence: a single triangle
     assert chip_smoke.ssd_tc_ops(2, 10, 3, 8, 16, 64)[0] == \
         2 * 3 * (2 * 24 * 55 + 4 * 10 * 8 * 16)
@@ -832,3 +844,29 @@ def test_dynamic_smem_of_the_k7_and_k8_instances():
     b16 = chip_smoke.k8_smem(64, 64, 256, True)
     assert f32 == {"state": 75_840, "output": 106_560}
     assert b16 == {"state": 43_072, "output": 65_600}
+
+
+@pytest.mark.parametrize("spans,want", [
+    ([], 0.0),
+    ([(0, 2, "a"), (5, 6, "b")], 3.0),                 # apart
+    ([(0, 4, "a"), (1, 2, "b"), (3, 7, "c")], 7.0),     # nested, overlapping
+    ([(0, 1, "a"), (1, 3, "b")], 3.0)])                # touching
+def test_busy_time_is_the_union_of_the_kernels_spans(spans, want):
+    # the decode step's device busy time: kernels of two streams overlap,
+    # and a kernel inside another adds nothing
+    assert chip_smoke.busy_us(spans) == want
+
+
+def test_bf16_steps_count_how_far_a_result_lies_from_its_rounding():
+    # rounding the float32 value gives 0 steps and at most half an ulp; a
+    # value pushed across one rounding boundary is one step away
+    want = torch.tensor([1.0, -3.0, 0.1, 1000.0])
+    steps = chip_smoke.bf16_steps(torch, want.to(torch.bfloat16), want)
+    assert steps["steps"] == {"0": 4, "1": 0, ">1": 0}
+    assert steps["max_ulps"] <= 0.5
+    got = want.to(torch.bfloat16)
+    got[1] = torch.tensor(-3.0 - 2 ** -6).to(torch.bfloat16)   # 1 ulp at 2
+    got[3] = torch.tensor(1000.0 + 3 * 4).to(torch.bfloat16)   # 3 at 512
+    steps = chip_smoke.bf16_steps(torch, got, want)
+    assert steps["steps"] == {"0": 2, "1": 1, ">1": 1}
+    assert steps["max_ulps"] == pytest.approx(3.0)

@@ -153,8 +153,13 @@ def test_a_kernel_is_charged_as_the_kernel_not_its_plain_version(
     rep = analyze_step(lambda q, k, v: ops.decode_attention(q, k, v, 200),
                        (q, kc, meta(2, 256, 2, 32, dtype=compute_dtype)),
                        arch="t", shape=shape, cfg=cfg)
-    ws = da.workspace_bytes(q, kc, None)
-    assert ws == 4 * 2 * 8 * da.splits(2, 256, 2, None)[1] * (32 + 2)
+    # at the splits the card runs: bf16's TMA kernel fills an H100's 132
+    # resident blocks as far as 16 tiles of 16 slots go (2 blocks a split)
+    ws = da.workspace_bytes(q, kc, kc, None, da.H100_RESIDENT)
+    _, nsplit = da.plan(q, kc, kc, None, da.H100_RESIDENT)
+    assert nsplit == (16 if compute_dtype == torch.bfloat16
+                      else da.splits(2, 256, 2, None)[1])
+    assert ws == 4 * 2 * 8 * nsplit * (32 + 2)
     assert rep.hlo_bytes == size * (2 * 8 * 32 * 2 + 2 * 2 * 256 * 2 * 32) \
         + 2 * ws
 
@@ -210,7 +215,7 @@ def test_kernel_work_counts_each_kernels_own_operations():
     pairs = fa.causal_pairs(16, 80, causal=True, window=None, q_offset=64)
     assert fa.work(q, k, v, q_offset=meta(2).long()) == fa.work(
         q, k, v, q_offset=64) == (2 * 8 * pairs * 2 * (32 + 16),
-                                  2 * 8 * pairs * 5, 0)
+                                  2 * 8 * pairs * 5, 0, 0)
     assert fa.work(q, k, v, softcap=30.0, q_offset=64)[1] == \
         2 * 8 * pairs * 8
     qd, kc = meta(2, 8, 32), meta(2, 256, 2, 32)
@@ -223,13 +228,14 @@ def test_kernel_work_counts_each_kernels_own_operations():
     x, B = meta(2, 100, 4, 8), meta(2, 100, 16)
     mma, other, cbt = sk.chunked_ops(2, 100, 4, 8, 16, 32)
     assert sk.work(x, meta(2, 100, 4), meta(4), B, B, chunk=32) == \
-        (mma, other, 0)
-    # bf16 x, B and C: C B^T (2n a causal pair) is a bf16 product
+        (mma, other, 0, 0)
+    # bf16 x, B and C: C B^T (2n a causal pair) is a bf16 product, each
+    # other product has one bf16 operand
     x16, B16 = x.to(torch.bfloat16), B.to(torch.bfloat16)
     pairs = 32 * 33 // 2 * 3 + 4 * 5 // 2
     assert cbt == 2 * 4 * 2 * 16 * pairs
     assert sk.work(x16, meta(2, 100, 4), meta(4), B16, B16, chunk=32) == \
-        (mma, other, cbt)
+        (mma, other, cbt, mma - cbt)
     # the decode step's K7: the plain version's einsums count what the
     # kernel's products are, at a full cache
     rep = analyze_step(lambda q, k: ops.decode_attention(q, k, k, 256),
@@ -445,15 +451,17 @@ def test_dryrun_reports_every_shape(zamba2_dryrun, shape):
     assert r["t_floor"] == max(r["t_compute"], r["t_memory"])
     assert 0 < r["kernel_plain_flops"] < r["hlo_flops"]
     # the rest at the compute dtype's peak, K6's and K7's products at the
-    # bf16 rate on bf16 operands, every other product in 3xTF32
+    # bf16 rate on bf16 operands, products with one bf16 operand (K8's
+    # besides C B^T) as two TF32 ones, every other product in 3xTF32
     bf16 = r["kernel_products_bf16"]
-    assert bf16 == 0 if dtype == torch.float32 else bf16 > 0
+    x2 = r["kernel_products_tf32x2"]
+    assert bf16 == x2 == 0 if dtype == torch.float32 else bf16 > 0
     assert r["t_compute"] == pytest.approx(
         (r["hlo_flops"] - r["kernel_plain_flops"] + r["kernel_other"])
         / H100.peak_flops(r["compute_dtype"])
         + bf16 / H100.peak_flops_bf16
-        + 3 * (r["kernel_products"] - bf16) / H100.peak_flops_tf32,
-        rel=1e-12)
+        + (2 * x2 + 3 * (r["kernel_products"] - bf16 - x2))
+        / H100.peak_flops_tf32, rel=1e-12)
     assert "card" not in r
     mode = INPUT_SHAPES[shape].mode
     want = {"train": {"ssd_scan", "flash_attention"},
@@ -516,8 +524,9 @@ def test_dryrun_prefill_peak_holds_no_score_matrix(zamba2_dryrun,
 def test_dryrun_floor_charges_the_kernels_own_work(zamba2_dryrun):
     # prefill_32k: K6's causal pairs (not the plain s x s) in 10 calls and
     # K8's chunked scan in 71, K8's products in 3xTF32 and K6's too on
-    # float32, K6's and K8's C B^T at the bf16 rate on bf16; the floor is
-    # below the plain program's FLOPs at the compute dtype's rate
+    # float32, K6's and K8's C B^T at the bf16 rate on bf16 and K8's other
+    # products as two TF32 ones; the floor is below the plain program's
+    # FLOPs at the compute dtype's rate
     dtype, runs = zamba2_dryrun
     cfg = get_config("zamba2-7b")
     r = runs["prefill_32k"]
@@ -530,6 +539,8 @@ def test_dryrun_floor_charges_the_kernels_own_work(zamba2_dryrun):
     assert r["kernel_products"] == 10 * k6[0] + 71 * k8[0]
     assert r["kernel_products_bf16"] == (10 * k6[0] + 71 * k8[2]
                                          if dtype == torch.bfloat16 else 0)
+    assert r["kernel_products_tf32x2"] == (71 * (k8[0] - k8[2])
+                                           if dtype == torch.bfloat16 else 0)
     assert r["kernel_other"] == 10 * k6[1] + 71 * k8[1]
     assert r["kernel_plain_flops"] > 10 * 2 * k6[0]       # the full s x s
     assert r["t_compute"] < r["hlo_flops"] / H100.peak_flops(

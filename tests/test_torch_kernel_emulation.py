@@ -611,6 +611,7 @@ def emulated(tmp_path_factory):
     def set_sm_count(n):
         for lib in libs:
             lib.emu_set_sm_count(n)
+        da.resident_blocks.cache_clear()      # asked once a head dim
 
     def query(fn, *args):
         return fns[fn](*args)
