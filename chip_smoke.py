@@ -2424,7 +2424,7 @@ def _k6_instance(fa, b, s_q, n_q, d, d_v, dtype) -> str:
     import torch
     if dtype == torch.bfloat16 and fa.on_tensor_cores(d, d_v, dtype):
         dp = -(-d // 8) * 8
-        nkt = next(n for n in (2, 4, 6, 7, 8) if 16 * n >= dp)
+        nkt = next(n for n in (2, 4, 6, 7, 8, 16) if 16 * n >= dp)
         nwg = fa.block_rows(b, s_q, n_q) // 64
         return f"flash_attention_wgmma_kernel<{nwg}, {nkt}>"
     if dtype == torch.float32 and fa.on_tensor_cores(d, d_v):
@@ -2450,7 +2450,7 @@ def k7_instance(da, q, kc, vc) -> str:
     d, group = q.shape[-1], q.shape[1] // kc.shape[2]
     if da.on_tma(q, kc, vc):
         name = ("decode_tma_kernel<"
-                f"{next(n for n in (2, 4, 6, 7, 8) if 16 * n >= d)}>")
+                f"{next(n for n in (2, 4, 6, 7, 8, 16) if 16 * n >= d)}>")
     else:
         g = 1 if group == 1 else 2 if group == 2 else 4 if group <= 4 else 8
         elem = "bf16" if q.dtype == torch.bfloat16 else "float"
@@ -2475,11 +2475,15 @@ def k7_tma_smem(d: int) -> int:
     """Dynamic shared memory of K7's bf16 TMA kernel at head dim ``d``
     (``csrc/decode_attention.cu`` ``tma::Tile``): a 64 KB ring of K and V
     stages (a 64-column box of 4 heads x 16 slots, 8 KB, per 64 columns
-    of the padded head dim) and its mbarriers, asked as 120 KB so that one
-    block holds an SM."""
-    nkt = next(n for n in (2, 4, 6, 7, 8) if 16 * n >= d)
-    stages = 65536 // (2 * -(-16 * nkt // 64) * 8192)
-    return max(65536 + 16 * stages, 120 << 10)
+    of the padded head dim; three 64 KB stages at d = 256) and its
+    mbarriers, past d = 128 Q's fragments (4 warps x 16 k steps x 32 lanes
+    x 16 bytes), asked as at least 120 KB so that one block holds an
+    SM."""
+    nkt = next(n for n in (2, 4, 6, 7, 8, 16) if 16 * n >= d)
+    stage = 2 * -(-16 * nkt // 64) * 8192
+    stages = 65536 // stage if stage < 65536 else 3
+    q = 4 * nkt * 32 * 16 if nkt > 8 else 0
+    return max(stages * stage + 16 * stages + q, 120 << 10)
 
 
 def k8_smem(p: int, n: int, chunk: int, bf16: bool) -> dict:
@@ -2515,6 +2519,10 @@ FLASH_PATH_SHAPES = (
      "zamba2 cache prefill"),
     (1, 384, 512, 32, 16, 256, 256, True, 64, 50.0,
      "GQA, window and softcap at d = 256"),
+    (1, 384, 512, 16, 8, 256, 256, True, None, 50.0,
+     "gemma2 cache prefill, global layer"),
+    (1, 384, 512, 16, 8, 256, 256, True, 4096, 50.0,
+     "gemma2 cache prefill, LOCAL layer"),
     (1, 384, 512, 16, 16, 192, 128, True, None, None,
      "deepseek-v2-lite MLA cache prefill"),
     (4, 384, 512, 24, 24, 64, 64, True, None, None,
@@ -2790,11 +2798,13 @@ def decode_nbytes(b, n_q, n_kv, d, lens, S, window, size=4) -> int:
 # the K7 shapes of the LLM paths: (b, S, n_q, n_kv, d, cache lengths,
 # window, softcap); four slots at the main paths' decode lengths (zamba2's
 # d = 112 and musicgen's self-attention at d = 64), then GQA / window /
-# softcap at d = 256
+# softcap at d = 256, then gemma2-9b's global and LOCAL layers
 DECODE_PATH_SHAPES = (
     (4, 512, 32, 32, 112, [385, 390, 395, 399], None, None),
     (4, 512, 24, 24, 64, [385, 390, 395, 399], None, None),
     (4, 512, 32, 16, 256, [385, 390, 395, 399], 64, 50.0),
+    (4, 512, 16, 8, 256, [385, 390, 395, 399], None, 50.0),
+    (4, 512, 16, 8, 256, [385, 390, 395, 399], 4096, 50.0),
 )
 
 
@@ -3204,7 +3214,8 @@ PARENT_LLM = ("phase_decode_attention", "phase_ssd_scan")
 # package's entry points), by the start of their lines: a fresh process
 # for each, so that the two trees' host times compare
 PROBES = {"phase_k7_host": "K7 bf16 host",
-          "phase_decode_step": "decode_32k step"}
+          "phase_decode_step": "decode_32k step",
+          "phase_gemma2_32k": "gemma2 32k"}
 
 
 def run_parent(root: str, phases, own: bool = False) -> str:
@@ -3323,34 +3334,36 @@ def phase_dryrun_table(card):
 
 def kernel_offsets(cfg, b_prefill: int, b_decode: int, seq: int) -> dict:
     """The largest element count each LLM kernel indexes at the dry run's
-    card shapes (an operand, its output or its workspace)."""
+    card shapes (an operand, its output or its workspace; K8's only where
+    ``cfg`` has Mamba2 layers)."""
     import torch
 
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ssd_scan as sk
     h, d = cfg.num_heads, cfg.head_dim
-    x = torch.empty((b_prefill, seq, cfg.n_ssm_heads, cfg.ssm_head_dim),
-                    device="meta")
     q, kc = (torch.empty((b_decode, h, d), device="meta"),
              torch.empty((b_decode, seq, cfg.num_kv_heads, d),
                          device="meta"))
-    B = torch.empty((b_prefill, seq, cfg.ssm_state), device="meta")
-    return {"flash_attention": b_prefill * seq * h * d,
-            "decode_attention": max(kc.numel(), da.workspace_bytes(
-                q, kc, kc, None, da.H100_RESIDENT) // 4),
-            "ssd_scan": max(x.numel(), sk.workspace_bytes(
-                x, B, cfg.ssm_chunk) // 4)}
+    out = {"flash_attention": b_prefill * seq * h * d,
+           "decode_attention": max(kc.numel(), da.workspace_bytes(
+               q, kc, kc, None, da.H100_RESIDENT) // 4)}
+    if cfg.ssm_state:
+        x = torch.empty((b_prefill, seq, cfg.n_ssm_heads, cfg.ssm_head_dim),
+                        device="meta")
+        B = torch.empty((b_prefill, seq, cfg.ssm_state), device="meta")
+        out["ssd_scan"] = max(x.numel(), sk.workspace_bytes(
+            x, B, cfg.ssm_chunk) // 4)
+    return out
 
 
-def card_batches(table) -> dict:
-    """The batch of DRYRUN_ARCH that its abstract pass in ``table`` picked
-    at each card shape: the largest that fits the card."""
-    return {s: table[(DRYRUN_ARCH, s)]["max_batch"]
-            for s in DRYRUN_CARD_SHAPES}
+def card_batches(table, arch: str = DRYRUN_ARCH) -> dict:
+    """The batch of ``arch`` that its abstract pass in ``table`` picked at
+    each card shape: the largest that fits the card."""
+    return {s: table[(arch, s)]["max_batch"] for s in DRYRUN_CARD_SHAPES}
 
 
-def phase_dryrun_card(torch, card, table):
-    """(b) ``dryrun.card_pass`` for DRYRUN_ARCH at full width and depth, at
+def phase_dryrun_card(torch, card, table, arch: str = DRYRUN_ARCH):
+    """(b) ``dryrun.card_pass`` for ``arch`` at full width and depth, at
     the batch the table's abstract pass picked: launch counts zeroed just
     before the first timed step and read just after it; the prediction
     beside the measurement (a decode step's time the median of
@@ -3359,15 +3372,15 @@ def phase_dryrun_card(torch, card, table):
     from repro_torch.configs import INPUT_SHAPES, get_config
     from repro_torch.launch.dryrun import card_pass
     from repro_torch.launch.specs import arch_for_shape
-    cfg = get_config(DRYRUN_ARCH)
-    batches = card_batches(table)
+    cfg = get_config(arch)
+    batches = card_batches(table, arch)
     if not all(batches.values()):
-        raise AssertionError(f"dryrun: no batch of {DRYRUN_ARCH} fits at "
+        raise AssertionError(f"dryrun: no batch of {arch} fits at "
                              f"{batches}")
     for shape in sorted(INPUT_SHAPES):
-        r = table[(DRYRUN_ARCH, shape)]
+        r = table[(arch, shape)]
         if not r["max_batch"]:
-            print(f"dryrun: {DRYRUN_ARCH} {shape} does not fit the card in "
+            print(f"dryrun: {arch} {shape} does not fit the card in "
                   f"{r['compute_dtype']} at any batch: "
                   f"{r['batch1_peak_bytes'] / 1e9:.2f}"
                   f" GB live at batch 1, {r['arg_bytes'] / 1e9:.2f} GB of "
@@ -3388,17 +3401,15 @@ def phase_dryrun_card(torch, card, table):
     for shape in DRYRUN_CARD_SHAPES:
         torch.cuda.empty_cache()
         full = INPUT_SHAPES[shape]
-        c = card_pass(arch_for_shape(cfg, full), full,
-                      table[(DRYRUN_ARCH, shape)])
-        check_launches(c["launches"], want[shape],
-                       f"{DRYRUN_ARCH}'s {shape} step")
+        c = card_pass(arch_for_shape(cfg, full), full, table[(arch, shape)])
+        check_launches(c["launches"], want[shape], f"{arch}'s {shape} step")
         peak_ratio = c["peak_bytes"] / c["predicted_peak_bytes"]
         if not (c["finite"] and c["batch"] == batches[shape]
                 and abs(peak_ratio - 1) <= DRYRUN_PEAK_RTOL):
             raise AssertionError(f"dryrun {shape}: finite {c['finite']}, "
                                  f"batch {c['batch']} of {batches[shape]}, "
                                  f"peak {peak_ratio:.4f} of the prediction")
-        print(f"dryrun on the card: {DRYRUN_ARCH} {shape} at batch "
+        print(f"dryrun on the card: {arch} {shape} at batch "
               f"{c['batch']} of {INPUT_SHAPES[shape].global_batch}: "
               f"{c['ms']:.3f} ms (median of {c['calls']} calls, "
               f"{c['ms_min']:.3f}-{c['ms_max']:.3f}) against a floor of "
@@ -3591,10 +3602,11 @@ def phase_dryrun_kernels(torch, np, card, batches):
     return rows
 
 
-def phase_dryrun_reference(torch, np, card):
+def phase_dryrun_reference(torch, np, card, arch: str = DRYRUN_ARCH):
     """(d) The prefill and decode steps of ``launch.specs.make_step``, in
-    bf16, on DRYRUN_ARCH cut to 9 layers, the same bf16 weights on the card
-    and the CPU: a 1 x DRYRUN_REF_SEQ prefill, then one decode step over
+    bf16, on ``arch`` cut to one block (zamba2-7b: 9 layers; gemma2-9b: a
+    LOCAL and a global layer), the same bf16 weights on the card and the
+    CPU: a 1 x DRYRUN_REF_SEQ prefill, then one decode step over
     its cache (rewriting its last slot).  Each layer the card applies is
     held to the CPU's on the CPU's own inputs (``testing.LayerTap``:
     BF16_LLM_RTOL of its output's and its cache's scale); the logits end
@@ -3608,7 +3620,7 @@ def phase_dryrun_reference(torch, np, card):
     from repro_torch.models import transformer as tfm
     from repro_torch.testing import (BF16_LLM_RTOL, LayerTap, rel_err,
                                      replay_layers)
-    cfg = block_cut(get_config(DRYRUN_ARCH), 1)
+    cfg = block_cut(get_config(arch), 1)
     s = DRYRUN_REF_SEQ
     prefill = specs.make_step(cfg, ShapeConfig("p", s, 1, "prefill"))[0]
     decode = specs.make_step(cfg, ShapeConfig("d", s, 1, "decode"))[0]
@@ -3633,9 +3645,9 @@ def phase_dryrun_reference(torch, np, card):
                     step[:, 0].float().cpu().numpy())
         wall[dev] = time.perf_counter() - t0
     check_launches(counts["cuda", "prefill"], path_launches(cfg, 1, 0),
-                   "the 9-layer prefill step")
+                   f"{cfg.name}'s prefill step")
     check_launches(counts["cuda", "decode"], path_launches(cfg, 0, 1),
-                   "the 9-layer decode step")
+                   f"{cfg.name}'s decode step")
     layer_errs = {}
     for what in ("prefill", "decode"):
         layer_errs[what] = replay_layers(cfg, taps["cpu", what].calls,
@@ -3707,6 +3719,161 @@ def phase_k7_host(torch, card) -> dict:
         for name, t in turns.items())
         + f" (turns of {K7_HOST_CALLS} calls) [{card}]")
     return turns
+
+
+GEMMA_ARCH = "gemma2-9b"
+GEMMA_K6_REPS = 3          # timed calls of a K6 case at 32k (on the CUDA
+                           # cores a global layer's call took seconds)
+
+
+def gemma2_32k_cases(cfg, batches):
+    """gemma2-9b's K6 and K7 calls at the dry run's 32k card shapes
+    (``batches``: prefill_32k's rows, decode_32k's slots): one global
+    layer's and one LOCAL layer's (its sliding window), each with the
+    attention softcap: [(kernel, layer, batch, window)]."""
+    return [(kernel, layer, batches[shape], window)
+            for kernel, shape in (("K6", "prefill_32k"), ("K7", "decode_32k"))
+            for layer, window in (("global", None),
+                                  ("LOCAL", cfg.sliding_window))]
+
+
+def gemma2_bound(cfg, kernel, b, s, window):
+    """(bytes, bf16 products, other operations, :func:`bf16_bound_ms`) of
+    one of gemma2's K6 (b x s causal, queries at positions 0 .. s - 1) or
+    K7 (b slots over s valid slots) calls: q, the output and every K and V
+    row some query reads once, in bf16; every (query head, key) pair the
+    mask lets through."""
+    from repro_torch.kernels.flash_attention import causal_pairs
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if kernel == "K6":
+        pairs = b * h * causal_pairs(s, s, causal=True, window=window,
+                                     q_offset=0)
+        nbytes = 2 * (b * s * h * 2 * d + b * s * kv * 2 * d) + 4 * b
+    else:
+        pairs = h * decode_rows([s] * b, s, window)
+        nbytes = decode_nbytes(b, h, kv, d, [s] * b, s, window, size=2)
+    mma = pairs * 4 * d
+    other = pairs * (_attn_ops_per_pair(d, cfg.attn_logit_softcap) - 4 * d)
+    return nbytes, mma, other, bf16_bound_ms(nbytes, mma, other)
+
+
+def phase_gemma2_32k(torch, card, batches=None, check=False) -> dict:
+    """K6 and K7 on bf16 operands at gemma2-9b's 32k card shapes
+    (:func:`gemma2_32k_cases`; the batches its abstract passes pick where
+    None): each timed by CUDA events in turns with SDPA's bf16 at the same
+    shape without the softcap and the window (K and V repeated to the
+    q-heads) -- not the same function: no single PyTorch call computes
+    attention with a softcap -- beside its bf16 bound, and its device time
+    (K6's one kernel from the profiler; K7's two from the events its
+    launcher records, :func:`kernel_split`), since a call's time also
+    holds the host's launch path.  Reads only the package's entry points,
+    so --parent runs it on the parent's package.
+    With ``check`` (the dry run's phase (c) for gemma2) each result is
+    first held against its plain version on the same operands, as
+    :func:`phase_dryrun_kernels` holds zamba2's (K6 on 256-query slices at
+    the head and the tail), and the row names its kernel instance.
+    Returns {"<kernel> <layer>": figures}."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.testing import ATTN_BF16_RTOL
+    cfg = get_config(GEMMA_ARCH)
+    if batches is None:
+        from repro_torch.launch.dryrun import run_one
+        batches = {shape: run_one(GEMMA_ARCH, shape, device="meta",
+                                  verbose=False, save=False)["max_batch"]
+                   for shape in DRYRUN_CARD_SHAPES}
+    s = INPUT_SHAPES["prefill_32k"].seq_len
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    cap, bf16 = cfg.attn_logit_softcap, torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf16)
+
+    def heads(t):                        # (b, s, kv, d) -> (b, h, s, d)
+        return t.repeat_interleave(h // kv, 2).transpose(1, 2).contiguous()
+
+    out = {}
+    for kernel, layer, b, window in gemma2_32k_cases(cfg, batches):
+        torch.cuda.empty_cache()
+        row = {}
+        if kernel == "K6":
+            q, k, v = randn(b, s, h, d), randn(b, s, kv, d), randn(b, s, kv,
+                                                                    d)
+            fn = lambda: fa.flash_attention(  # noqa: E731
+                q, k, v, window=window, softcap=cap)
+            qt, kt, vt = q.transpose(1, 2).contiguous(), heads(k), heads(v)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=True)
+            reps, warmup = GEMMA_K6_REPS, 1
+            route = ("wgmma" if fa.on_tensor_cores(d, d, bf16)
+                     else "CUDA cores")
+            shape = f"b={b} s_q={s} s_kv={s} heads={h}/{kv} d={d} causal"
+            if check:
+                got, err = fn(), (0.0, 0.0)
+                for lo in (0, max(0, s - 256)):
+                    e = bf16_err(got[:, lo:lo + 256], fa.flash_attention_ref(
+                        q[:, lo:lo + 256], k, v, window=window, softcap=cap,
+                        q_offset=lo))
+                    err = (max(err[0], e[0]), max(err[1], e[1]))
+                row["kernel"] = k6_instance(fa, b, s, h, d, d, bf16)
+        else:
+            q, k, v = randn(b, h, d), randn(b, s, kv, d), randn(b, s, kv, d)
+            cl = torch.full((b,), s, dtype=torch.int32, device="cuda")
+            fn = lambda: da.decode_attention(  # noqa: E731
+                q, k, v, cl, window=window, softcap=cap)
+            qt, kt, vt = q[:, :, None], heads(k), heads(v)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt)
+            reps, warmup = 30, 5
+            route = "TMA" if da.on_tma(q, k, v) else "split"
+            shape = f"b={b} S={s} heads={h}/{kv} d={d} lens={s}"
+            if check:
+                got = fn()
+                err = bf16_err(got, da.decode_attention_ref(
+                    q, k, v, cl, window=window, softcap=cap))
+                row["kernel"] = k7_instance(da, q, k, v)
+        if check:
+            if not (err[1] <= ATTN_BF16_RTOL
+                    and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"gemma2 {kernel} bf16 {layer} at "
+                                     f"{shape}: error {err}")
+            row.update(max_abs_err=err[0], rel_err=err[1],
+                       tolerance=ATTN_BF16_RTOL)
+            del got
+        nbytes, mma, other, (bound, by) = gemma2_bound(cfg, kernel, b, s,
+                                                       window)
+        turns = in_turns({"kernel": fn, "library": lib},
+                         lambda f: time_ms(torch, f, reps, warmup))
+        if kernel == "K6":
+            device = profile_device(torch, fn, 1, once=True)[0]
+        else:
+            row["split_ms"] = kernel_split(torch, fn, K7_KERNELS)
+            device = row["split_ms"]["total"]
+        row.update(shape=shape, window=window, softcap=cap, route=route,
+                   ms=statistics.mean(turns["kernel"]), turns_ms=turns,
+                   device_ms=device, bound_ms=bound, bound_by=by,
+                   bytes=nbytes, bf16_products=mma, other_ops=other)
+        out[f"{kernel} {layer}"] = row
+        checked = ("" if not check else
+                   f", {row['kernel']}: error {row['max_abs_err']:.3e} "
+                   f"({row['rel_err']:.3e} of its row's largest value; "
+                   f"tolerance {ATTN_BF16_RTOL:.3e})")
+        print(f"gemma2 32k {kernel} bf16 {layer} layer ({shape} window "
+              f"{window} softcap {cap}) on the {route} kernel{checked}: "
+              + ", ".join(f"{t:.4f}" for t in turns["kernel"])
+              + " ms per call in turns with SDPA's bf16 without the softcap"
+              " and window (not the same function) "
+              + ", ".join(f"{t:.4f}" for t in turns["library"])
+              + f" ms; the kernel {fmt(device)} on the device; bound "
+              f"{bound:.6f} ms ({by}; {nbytes:.4e} B, "
+              f"{mma:.4e} bf16 products, {other:.4e} other) [{card}]")
+        del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_decode_step(torch, card, row=None) -> dict:
@@ -3787,7 +3954,9 @@ def phase_decode_step(torch, card, row=None) -> dict:
 
 
 def phase_dryrun(torch, np, card):
-    """The dry run's phases (a)-(d); returns what the JSON line carries."""
+    """The dry run's phases (a)-(d), for DRYRUN_ARCH and then GEMMA_ARCH
+    (its steps, K6 and K7 at its 32k shapes, its one-block cut); returns
+    what the JSON line carries."""
     table = phase_dryrun_table(card)
     runs = phase_dryrun_card(torch, card, table)
     runs["decode_32k"]["trace"] = phase_decode_step(
@@ -3796,12 +3965,18 @@ def phase_dryrun(torch, np, card):
     kernels = phase_dryrun_kernels(torch, np, card, batches)
     kernels["split"] = phase_llm_kernel_split(torch, card, batches)
     steps = phase_dryrun_reference(torch, np, card)
+    gemma = phase_dryrun_card(torch, card, table, GEMMA_ARCH)
+    kernels["gemma2"] = phase_gemma2_32k(
+        torch, card, {s: gemma[s]["batch"] for s in DRYRUN_CARD_SHAPES},
+        check=True)
+    gemma_steps = phase_dryrun_reference(torch, np, card, GEMMA_ARCH)
     keep = ("hlo_flops", "hlo_bytes", "arg_bytes", "peak_memory_per_device",
             "fits", "max_batch", "batch1_peak_bytes", "t_floor", "dominant",
             "kernel_plain_flops", "cut_t_floor", "t_abstract_s")
     return {"table": [dict(arch=a, shape=s, **{k: r[k] for k in keep})
                       for (a, s), r in table.items()],
-            "card": runs, "kernels": kernels, "card_vs_cpu": steps}
+            "card": runs, "kernels": kernels, "card_vs_cpu": steps,
+            "card_gemma2": gemma, "card_vs_cpu_gemma2": gemma_steps}
 
 
 LLM_ARCH = "zamba2-7b"
@@ -4120,6 +4295,14 @@ def phase_llm_reference(torch, np, card):
     from repro_torch.configs import get_config
     return llm_reference(torch, np, card,
                          block_cut(get_config(LLM_ARCH), 1))
+
+
+def phase_gemma2_reference(torch, np, card):
+    """gemma2-9b at full width cut to two blocks (two LOCAL and two global
+    layers), float32, card against CPU."""
+    from repro_torch.configs import get_config
+    return llm_reference(torch, np, card,
+                         block_cut(get_config(GEMMA_ARCH), 2))
 
 
 def phase_moe_reference(torch, np, card):
@@ -5177,14 +5360,28 @@ def phase_llm_launcher(torch, np, card):
                     "predicted_peak_bytes": predicted}
 
 
-def dryrun_card_table(shapes=None) -> dict:
-    """The abstract passes that phase_dryrun_card reads: DRYRUN_ARCH at
+def dryrun_card_table(shapes=None, arch: str = DRYRUN_ARCH) -> dict:
+    """The abstract passes that phase_dryrun_card reads: ``arch`` at
     ``shapes`` (every input shape where None), in this process."""
     from repro_torch.configs import INPUT_SHAPES
     from repro_torch.launch.dryrun import run_one
-    return {(DRYRUN_ARCH, s): run_one(DRYRUN_ARCH, s, device="meta",
-                                      verbose=False, save=False)
+    return {(arch, s): run_one(arch, s, device="meta", verbose=False,
+                               save=False)
             for s in shapes or INPUT_SHAPES}
+
+
+def phase_gemma2(torch, np, card):
+    """gemma2-9b's card phases alone (``--only gemma2``): its bf16 dry-run
+    steps, K6 and K7 at its 32k shapes against their plain versions, its
+    one-block bf16 cut and its two-block float32 cut against the CPU, and
+    its float32 serving path."""
+    gemma = phase_dryrun_card(torch, card, dryrun_card_table(
+        arch=GEMMA_ARCH), GEMMA_ARCH)
+    phase_gemma2_32k(torch, card, {s: gemma[s]["batch"]
+                                   for s in DRYRUN_CARD_SHAPES}, check=True)
+    phase_dryrun_reference(torch, np, card, GEMMA_ARCH)
+    phase_gemma2_reference(torch, np, card)
+    phase_llm_main_path(torch, np, card, GEMMA_ARCH)
 
 
 # --only: phases run alone after the build, each with (torch, np, card)
@@ -5202,6 +5399,9 @@ ONLY_PHASES = {
                                                     ["phase_k7_host"]),
     "decode_step": lambda torch, np, card: relay_probes(
         ROOT, "this tree", ["phase_decode_step"]),
+    "gemma2_32k": lambda torch, np, card: relay_probes(
+        ROOT, "this tree", ["phase_gemma2_32k"]),
+    "gemma2": phase_gemma2,
 }
 
 
@@ -5347,12 +5547,19 @@ def main() -> int:
     # the MoE + MLA and cross-attention paths, once zamba2's weights are
     # freed: deepseek-v2-lite's 61.9 GB leave ~18 GB of the card
     checks = {MOE_ARCH: phase_moe_reference(torch, np, card),
-              CROSS_ARCH: phase_cross_reference(torch, np, card)}
+              CROSS_ARCH: phase_cross_reference(torch, np, card),
+              GEMMA_ARCH: phase_gemma2_reference(torch, np, card)}
     moe_counts, _, moe_params = phase_llm_main_path(torch, np, card,
                                                     MOE_ARCH)
     del moe_params
     torch.cuda.empty_cache()
     cross_counts = phase_cross_main_path(torch, np, card)
+    # gemma2-9b (LOCAL / global attention, softcaps, d = 256) served in
+    # float32 once musicgen's weights are freed: its 37 GB
+    gemma_counts, _, gemma_params = phase_llm_main_path(torch, np, card,
+                                                        GEMMA_ARCH)
+    del gemma_params
+    torch.cuda.empty_cache()
     # LLM training, once deepseek's and musicgen's weights are freed
     grads = phase_llm_grad(torch, np, card)
     checks["llm_train_step"] = phase_llm_train_reference(torch, np, card)
@@ -5375,6 +5582,7 @@ def main() -> int:
             row["gradient"] = grads[row["name"]]
         row["launches_deepseek"] = moe_counts[row["name"]]
         row["launches_musicgen"] = cross_counts[row["name"]]
+        row["launches_gemma2"] = gemma_counts[row["name"]]
         if row["name"] == "flash_attention":
             row["dryrun_shape"] = dryrun["kernels"]["flash_attention_fp32"]
         # the bf16 entry (a kernel line of its own): its launches are the
@@ -5383,11 +5591,20 @@ def main() -> int:
         bf["name"] = row["name"] + "_bf16"
         bf["launches_dryrun"] = {s: dryrun["card"][s]["launches"][
             bf["name"]] for s in DRYRUN_CARD_SHAPES}
-        bf["launches"] = sum(bf["launches_dryrun"].values())
+        bf["launches_dryrun_gemma2"] = {s: dryrun["card_gemma2"][s][
+            "launches"][bf["name"]] for s in DRYRUN_CARD_SHAPES}
+        bf["launches"] = sum(bf["launches_dryrun"].values()) + sum(
+            bf["launches_dryrun_gemma2"].values())
         bf["launches_launcher"] = launcher_counts[bf["name"]]
         if row["name"] in ("flash_attention", "ssd_scan"):
             bf["vjps_launcher"] = launcher_counts[row["name"] + "_vjp"]
         bf["dryrun_shape"] = dryrun["kernels"][row["name"]]
+        tag = {"flash_attention": "K6", "decode_attention": "K7"}.get(
+            row["name"])
+        if tag:
+            bf["dryrun_gemma2"] = {
+                key: r for key, r in dryrun["kernels"]["gemma2"].items()
+                if key.startswith(tag)}
         # K7's and K8's split by device kernel, at 32k and serving shapes
         tag = {"decode_attention": "K7", "ssd_scan": "K8"}.get(row["name"])
         for r, dt in ((row, "float32"), (bf, "bf16")):
@@ -5407,7 +5624,8 @@ def main() -> int:
                       "llm_training": train_split,
                       "llm_launcher_bf16": launcher,
                       "dryrun": {k: dryrun[k] for k in
-                                 ("table", "card", "card_vs_cpu")}}))
+                                 ("table", "card", "card_vs_cpu",
+                                  "card_gemma2", "card_vs_cpu_gemma2")}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

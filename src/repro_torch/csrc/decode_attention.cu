@@ -49,7 +49,7 @@
 // bf16 q and caches (vpaas_decode_attention_bf16), the reference's launch
 // path: a byte-bound kernel whose bytes bf16 halves (zamba2's decode_32k,
 // 14 rows x 32,768 slots x 32 kv-heads x d = 112: 6.58 GB, 1.963 ms at
-// 3.35 TB/s).  Designed for Hopper where d % 8 == 0, d <= 128 and the
+// 3.35 TB/s).  Designed for Hopper where d % 8 == 0, d <= 256 and the
 // caches are 16-byte aligned (decode_tma_kernel, namespace tma):
 //  - A block takes 4 consecutive kv-heads, one a warp.  TMA brings their
 //    K and V rows of 16 slots (a 4-d tensor map over the caches as (B, H,
@@ -83,7 +83,13 @@
 //    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and cuts each row's
 //    longest possible length into whole tiles, as few splits as fill
 //    whole waves to >= 90%; it reads no cache_len from the device.
-// Other bf16 operands (d % 8 != 0, d > 128, an unaligned cache) take the
+//  - At d = 256 (gemma2-9b: decode_32k at 5 slots, 16 q-heads over 8
+//    kv-heads, a global layer reading 1.34 GB of K and V, 0.40 ms at HBM's
+//    rate) a stage of 16 slots of 4 heads is 64 KB of K and V, and the
+//    ring holds three; O takes 128 registers a lane (16 padded q-heads x 256
+//    columns, of which gemma2's group of 2 fills 2 rows), so Q's fragments
+//    wait in shared memory, not in 64 more registers.
+// Other bf16 operands (d % 8 != 0, d > 256, an unaligned cache) take the
 // float32 design as a template over the element type: the caches by
 // 16-byte cp.async into bf16 rows of DP + 8 values, widened as they are
 // read.
@@ -421,7 +427,7 @@ int launch(const T* q, const T* k, const T* v, const int32_t* cl,
 }
 
 // ---------------------------------------------------------------------------
-// bf16, d % 8 == 0, d <= 128, k and v 16-byte aligned: TMA tiles, mma.sync
+// bf16, d % 8 == 0, d <= 256, k and v 16-byte aligned: TMA tiles, mma.sync
 // ---------------------------------------------------------------------------
 namespace tma {
 
@@ -443,18 +449,24 @@ constexpr float kLog2e = 1.4426950408889634f;
 // d > 64, 4 below), and the block asks for kOneBlock so that it holds its
 // SM alone.  On the card at 14 x 32k, one block an SM with 64 KB in flight
 // ran faster than two or three blocks an SM with 128-192 KB: the more
-// streams of 896-byte rows 7 KB apart, the lower HBM's rate.
+// streams of 896-byte rows 7 KB apart, the lower HBM's rate.  At d = 256
+// (NKT 16) a stage is 64 KB: the ring holds three (192 KB), and Q's A
+// fragments (Q_SHARED: kWarps x NKT x 32 lanes x 16 bytes, 32 KB) follow
+// the barriers, one 16-byte read a lane a k step: in registers they would
+// be 64 a lane beside O's 128.
 template <int NKT>
 struct Tile {
   static constexpr int NB = (16 * NKT + 63) / 64;
   static constexpr unsigned BOX = kWarps * kSlots * kRow;
   static constexpr unsigned KV_BYTES = NB * BOX;      // K or V of a stage
   static constexpr unsigned STAGE = 2 * KV_BYTES;
-  static constexpr int STAGES = kRing / STAGE;
+  static constexpr int STAGES = STAGE < kRing ? kRing / STAGE : 3;
   static constexpr unsigned OFF_BAR = STAGES * STAGE;
-  static constexpr unsigned SMEM = OFF_BAR + 8 * 2 * STAGES > kOneBlock
-                                       ? OFF_BAR + 8 * 2 * STAGES
-                                       : kOneBlock;
+  static constexpr bool Q_SHARED = NKT > 8;
+  static constexpr unsigned OFF_Q = OFF_BAR + 16 * STAGES;   // 16-aligned
+  static constexpr unsigned END =
+      OFF_Q + (Q_SHARED ? kWarps * NKT * 32 * 16 : 0);
+  static constexpr unsigned SMEM = END > kOneBlock ? END : kOneBlock;
 };
 
 // the shared address of (row r, column c) of a tile's swizzled boxes
@@ -538,21 +550,33 @@ decode_tma_kernel(const __grid_constant__ CUtensorMap tk,
     for (int i = 0; i < min(T::STAGES, ntiles); ++i) load_tile(i);
 
   // Q as the A fragments of S^T's k steps: rows g, g + 8 (q-heads),
-  // columns 2t, 2t + 1 and 2t + 8, 2t + 9 of the step
-  uint32_t qa[NKT][4];
+  // columns 2t, 2t + 1 and 2t + 8, 2t + 9 of the step; in registers, or
+  // past d = 128 in this warp's shared rows, a lane's four 16 bytes apart
+  // from the next lane's
+  uint32_t qa[T::Q_SHARED ? 1 : NKT][4];
+  uint4* qs = reinterpret_cast<uint4*>(smem + T::OFF_Q) + warp * NKT * 32;
   {
     const bf16* qb = q + ((size_t)b * Hq + h0) * D;
     auto qv = [&](int r, int c) -> uint32_t {
       return r < nh && c < D ? bf16_bits(qb[r * D + c]) : 0u;
     };
 #pragma unroll
-    for (int kk = 0; kk < NKT; ++kk)
+    for (int kk = 0; kk < NKT; ++kk) {
+      uint32_t f[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = g + 8 * (i & 1);
         const int c = 16 * kk + 2 * t + 8 * (i >> 1);
-        qa[kk][i] = qv(r, c) | (qv(r, c + 1) << 16);
+        f[i] = qv(r, c) | (qv(r, c + 1) << 16);
       }
+      if constexpr (T::Q_SHARED) {
+        qs[kk * 32 + lane] = make_uint4(f[0], f[1], f[2], f[3]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qa[kk][i] = f[i];
+      }
+    }
+    if constexpr (T::Q_SHARED) __syncwarp();
   }
   // ldmatrix's row addresses: lane l reads row l % 8 of matrix l / 8; for
   // K the matrices are (slots +0, columns +0), (+0, +8), (+8, +0),
@@ -587,8 +611,15 @@ decode_tma_kernel(const __grid_constant__ CUtensorMap tk,
       ldsm_x4(kf, at(Kt, k_row, 16 * kk + k_col));
       const uint32_t b0[2] = {kf[0], kf[1]};
       const uint32_t b1[2] = {kf[2], kf[3]};
-      mma_bf16_m16n8k16(sc[0], qa[kk], b0);
-      mma_bf16_m16n8k16(sc[1], qa[kk], b1);
+      if constexpr (T::Q_SHARED) {
+        const uint4 u = qs[kk * 32 + lane];
+        const uint32_t a[4] = {u.x, u.y, u.z, u.w};
+        mma_bf16_m16n8k16(sc[0], a, b0);
+        mma_bf16_m16n8k16(sc[1], a, b1);
+      } else {
+        mma_bf16_m16n8k16(sc[0], qa[kk], b0);
+        mma_bf16_m16n8k16(sc[1], qa[kk], b1);
+      }
     }
 
     // scale, softcap, the split's end; the online softmax of q-heads g and
@@ -721,18 +752,19 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const int32_t* cl,
 
 // whether the launcher takes these operands on this kernel
 bool takes(int D, const void* k, const void* v) {
-  return D % 8 == 0 && D <= 128 &&
+  return D % 8 == 0 && D <= 256 &&
          reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
          reinterpret_cast<uintptr_t>(v) % 16 == 0;
 }
 
-// the instance: NKT by the head dim (32, 64, 96, 112, 128)
+// the instance: NKT by the head dim (32, 64, 96, 112, 128, 256)
 #define VPAAS_TMA_INSTANCES(X) \
   if (D <= 32) X(2);           \
   if (D <= 64) X(4);           \
   if (D <= 96) X(6);           \
   if (D <= 112) X(7);          \
-  X(8)
+  if (D <= 128) X(8);          \
+  X(16)
 
 int dispatch(const bf16* q, const bf16* k, const bf16* v, const int32_t* cl,
              float* ws, bf16* out, int B, int S, int Hq, int Hkv, int D,
@@ -748,7 +780,7 @@ int dispatch(const bf16* q, const bf16* k, const bf16* v, const int32_t* cl,
 // blocks of the instance for head dim D resident on the whole card (the
 // blocks an SM, asked once an instance, times the device's SMs)
 int resident(int D) {
-  static int per_sm[9] = {0};              // by NKT
+  static int per_sm[17] = {0};             // by NKT
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != 0 ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != 0)
@@ -841,7 +873,7 @@ extern "C" int vpaas_launch_events_recorded() {
 // the wrapper sizes its splits by), or 0 where the launcher runs the bf16
 // operands of head dim D on the other kernel.
 extern "C" int vpaas_decode_attention_bf16_resident(int D) {
-  return D % 8 == 0 && D <= 128 ? tma::resident(D) : 0;
+  return D % 8 == 0 && D <= 256 ? tma::resident(D) : 0;
 }
 
 // q (B, Hq, D), k and v caches (B, S, Hkv, D) f32, cache_len (B,) int32,

@@ -59,7 +59,7 @@
 // (148,480 B of Q and the K/V ring at d = 112), so SMs that finish light
 // tiles take the rest.
 //
-// bf16 operands, d = d_v <= 128 (vpaas_flash_attention_bf16: the
+// bf16 operands, d = d_v <= 256 (vpaas_flash_attention_bf16: the
 // reference's launch path computes in bf16, and its Pallas kernel loads
 // bf16 and sums in f32): flash_attention_wgmma_kernel, Hopper's shape of a
 // flash attention.  A block is NWG consumer warpgroups of 64 query rows of
@@ -89,9 +89,11 @@
 // tile i's softmax and P fragments (two register buffers, swapped tile
 // by tile) are made while that P V is on the tensor cores.  The softmax
 // is what bounds it: the common tile's loop carries no branch (a
-// per-element softcap or mask test, predicated, issued its tanhf for
-// every element), and O's rescale is skipped where no row of a warp
-// raised its running max.  Tiles the mask closes for a warpgroup's 64
+// per-element softcap or mask test, predicated, issued its tanh for
+// every element), a softcap's tanh is two special-function operations
+// (tanh_fast: ex2 and rcp, ~1e-7 absolute, where tanhf is a longer
+// sequence), and O's rescale is skipped where no row of a warp raised
+// its running max.  Tiles the mask closes for a warpgroup's 64
 // rows are skipped; only tiles the mask or the end of the keys cut are
 // masked.  The grid (query tile, q-head, batch row) runs a head's query
 // tiles together, heaviest causal tiles first, so the blocks in flight
@@ -103,11 +105,28 @@
 // output is rounded to bf16 once.  At 6 x 32k (32 heads, d 112, causal)
 // its products, with P V twice, are 6.9e13 flop: ~70 ms at the bf16
 // tensor-core rate; its bound (the products once) is 54.4 ms.
+// 128 < d <= 256 (gemma2's 256: NKT = 16, four 64-column boxes, P V's N
+// 256, the largest wgmma takes) changes four things.  A 96-key stage of
+// K and V would be 96 KB, so tiles are 64 keys (S by m64n64k16), 64 KB a
+// stage, two stages: Q 64 KB + 128 KB at 128 rows, one block an SM.  With
+// two stages a refill issued once every warp is done with a tile's K and
+// V comes just before the tile is needed (131 ms a global layer at
+// gemma2's prefill_32k on an H100), so K and V have rings of their own
+// (SPLIT), each
+// stage with a full mbarrier and a release count: the warp whose release
+// completes the count refills the stage, K once its S is computed, V once
+// its P V is, and each load leads its use by about a tile (79 ms).  O's
+// 64 x 256 floats are 128 registers a thread, so p's fragments have one
+// buffer, not two: tile i's softmax still runs while tile i - 1's P V is
+// on the tensor cores, but its fragments are made after that product has
+// read the buffer.  At gemma2's prefill_32k (3 x 32,768, 16 q-heads, 8
+// kv-heads, causal, softcap 50) a global layer's products are 2.64e13
+// flop, 26.7 ms at the bf16 rate (P V twice: 40.0).
 //
-// d > 192 or d_v > 128 (gemma2's 256) in float32, and every d > 128 or
-// d_v != d in bf16 (MLA's 192 / 128: its Q tile and 128-key K/V ring,
-// 48 + 2 x (48 + 32) KB, would fit, but the kernel's 64-column boxes and
-// PV's N do not reach 192; queued), take the CUDA-core kernel below,
+// d > 192 or d_v > 128 (gemma2's 256) in float32, and d_v != d in bf16
+// (MLA's 192 / 128: its Q tile and 128-key K/V ring, 48 + 2 x (48 + 32)
+// KB, would fit, but the kernel's PV takes N = d; queued), take the
+// CUDA-core kernel below,
 // chosen by the shapes: one block per (32-row query tile, q-head, batch
 // row), four warps of eight rows, K/V tiles of 32 keys staged in shared
 // memory, one key per lane for QK^T over d, NC = ceil(d_v/32) output
@@ -515,36 +534,46 @@ int dispatch(const float* q, const float* k, const float* v,
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// bf16 operands, d = d_v <= 128: wgmma on TMA tiles (sm_90a)
+// bf16 operands, d = d_v <= 256: wgmma on TMA tiles (sm_90a)
 // ---------------------------------------------------------------------------
 namespace wg {
 
 using bf16 = __nv_bfloat16;
 
 constexpr int kRowsWG = 64;      // query rows of one consumer warpgroup
-constexpr int kBN = 96;          // keys a tile
 constexpr int kRow = 128;        // bytes of a swizzled row: 64 bf16 columns
 constexpr float kLog2e = 1.4426950408889634f;
 
 // NWG consumer warpgroups (64 query rows each) and NKT 16-column steps of
 // the head dim (padded with zeros to DP = 16 NKT: QK's k steps, PV's N).
-// Shared memory, 1024-byte aligned: Q [NB][BM][64], then the ring's K and
-// V stages, each [NB][kBN][64], then the barriers; NB 64-column boxes.
+// Shared memory, 1024-byte aligned: Q [NB][BM][64], then the K and V
+// stages, each [NB][BN][64], then the barriers (Q's, then two a stage:
+// K's and V's full, or its full and its empty) and the release counts;
+// NB 64-column boxes.
 template <int NWG, int NKT>
 struct Tile {
   static constexpr int DP = 16 * NKT;
   static constexpr int NB = (DP + 63) / 64;
   static constexpr int BM = kRowsWG * NWG;
   static constexpr int kThreads = 128 * NWG;
+  // keys a tile: 96 up to d = 128; 64 past it, where a 96-key stage of K
+  // and V (96 KB at d = 256) would leave no room for two beside Q
+  static constexpr int BN = DP <= 128 ? 96 : 64;
   // K/V tiles in flight: 4 for one block an SM (224 KB), 2 for 64-row
-  // blocks, two of which share an SM (2 x 112 KB)
-  static constexpr int STAGES = NWG == 2 ? 4 : 2;
+  // blocks, two of which share an SM (2 x 112 KB); past d = 128 two, one
+  // block an SM (Q 64 KB + 2 x 64 KB at 128 rows, 32 KB + 128 KB at 64)
+  static constexpr int STAGES = NWG == 2 && DP <= 128 ? 4 : 2;
+  // past d = 128 K and V have rings of their own, released by count (the
+  // kernel below); up to it a stage holds a tile's K and V, refilled by
+  // thread 0 (split rings ran 7% slower at 6 x 32k, d = 112)
+  static constexpr bool SPLIT = DP > 128;
   static constexpr unsigned Q_BYTES = NB * BM * kRow;
-  static constexpr unsigned KV_BYTES = NB * kBN * kRow;  // K or V, a stage
+  static constexpr unsigned KV_BYTES = NB * BN * kRow;   // K or V, a stage
   static constexpr unsigned OFF_K = Q_BYTES;
   static constexpr unsigned OFF_V = OFF_K + STAGES * KV_BYTES;
   static constexpr unsigned OFF_BAR = OFF_V + STAGES * KV_BYTES;
-  static constexpr unsigned SMEM = OFF_BAR + 8 * (1 + 2 * STAGES);
+  static constexpr unsigned OFF_CNT = OFF_BAR + 8 * (1 + 2 * STAGES);
+  static constexpr unsigned SMEM = OFF_CNT + 4 * 2 * STAGES;
 };
 
 // P V takes p as two bf16 halves (split_bf16x2, primitives.cuh), one
@@ -552,12 +581,12 @@ struct Tile {
 // beside ex2, and with one a value they held it longer than the products
 // held the tensor cores
 
-// S = Q K^T for one 96-key tile, issued (not waited): sc[4 J + e] is the
+// S = Q K^T for one BN-key tile, issued (not waited): sc[4 J + e] is the
 // warpgroup's row 16 warp + g + 8 (e / 2), key 8 J + 2 t + e % 2; one
-// m64n96k16 wgmma a 16-column step (128-key tiles, 3 stages, measured no
-// faster at 32k)
-template <int NKT, int BM>
-__device__ __forceinline__ void issue_qk(float (&sc)[kBN / 2],
+// m64nBNk16 wgmma a 16-column step (128-key tiles, 3 stages, measured no
+// faster at 32k and d = 112)
+template <int NKT, int BM, int BN>
+__device__ __forceinline__ void issue_qk(float (&sc)[BN / 2],
                                          const uint8_t* Qc,
                                          const uint8_t* Kt) {
   wgmma_fence();
@@ -566,8 +595,11 @@ __device__ __forceinline__ void issue_qk(float (&sc)[kBN / 2],
     const uint64_t da =
         wgmma_desc(Qc + (kk / 4) * BM * kRow + (kk % 4) * 32, 16, 1024);
     const uint64_t db =
-        wgmma_desc(Kt + (kk / 4) * kBN * kRow + (kk % 4) * 32, 16, 1024);
-    wgmma_m64n96k16_ss(sc, da, db, kk > 0);
+        wgmma_desc(Kt + (kk / 4) * BN * kRow + (kk % 4) * 32, 16, 1024);
+    if constexpr (BN == 96)
+      wgmma_m64n96k16_ss(sc, da, db, kk > 0);
+    else
+      wgmma_m64n64k16_ss(sc, da, db, kk > 0);
   }
   wgmma_commit();
 }
@@ -575,18 +607,19 @@ __device__ __forceinline__ void issue_qk(float (&sc)[kBN / 2],
 // O += P V for one tile, issued (not waited): P's two bf16 halves are the
 // A fragments of the 16-key steps (the accumulator pairs of S as they
 // stand); V (keys x head dim, head dim contiguous) is B with the
-// transposed bit, its two 64-column boxes one 64 x DP product a half
-// (the descriptor's leading byte offset steps from box to box)
-template <int DP>
+// transposed bit, its 64-column boxes (two at d <= 128, four at 256) one
+// 64 x DP product a half (the descriptor's leading byte offset, a box's
+// BN rows, steps from box to box)
+template <int DP, int BN>
 __device__ __forceinline__ void issue_pv(float* o,
-                                         const uint32_t (&phi)[kBN / 4],
-                                         const uint32_t (&plo)[kBN / 4],
+                                         const uint32_t (&phi)[BN / 4],
+                                         const uint32_t (&plo)[BN / 4],
                                          const uint8_t* Vt) {
   fence_regs<DP / 2>(o);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk) {
-    const uint64_t db = wgmma_desc(Vt + kk * 16 * kRow, kBN * kRow, 1024);
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    const uint64_t db = wgmma_desc(Vt + kk * 16 * kRow, BN * kRow, 1024);
     wgmma_m64nNk16_rs<DP>(o, plo + 4 * kk, db);
     wgmma_m64nNk16_rs<DP>(o, phi + 4 * kk, db);
   }
@@ -604,13 +637,20 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              int Hkv, int D, int causal, int window,
                              float softcap, float scale) {
   using T = Tile<NWG, NKT>;
+  constexpr int BN = T::BN;
   // the 128-byte swizzle repeats every 1024 bytes: TMA and wgmma address
   // the tiles from a 1024-byte aligned base
   extern __shared__ __align__(1024) uint8_t smem[];
   if (smem_u32(smem) % 1024 != 0) __trap();
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + T::OFF_BAR);
-  uint64_t* full = q_full + 1;            // [STAGES]: K and V landed
-  uint64_t* empty = full + T::STAGES;     // [STAGES]: every warp done
+  // [STAGES] each: SPLIT, a K tile and a V tile landed; else a tile's K
+  // and V landed, and every warp done with it
+  uint64_t* kfull = q_full + 1;
+  uint64_t* vfull = kfull + T::STAGES;
+  // [STAGES] each (SPLIT): the warps' releases of a K (V) stage, counted
+  // up ever
+  uint32_t* kcnt = reinterpret_cast<uint32_t*>(smem + T::OFF_CNT);
+  uint32_t* vcnt = kcnt + T::STAGES;
 
   // query tiles vary fastest, heaviest first, so that the blocks in flight
   // read one head's K and V from L2
@@ -628,26 +668,31 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   int kv_hi = Skv;
   if (causal) kv_hi = min(Skv, pos_hi + 1);
   if (window > 0) kv_lo = max(0, pos_lo - window + 1);
-  const int ntiles = kv_lo < kv_hi ? (kv_hi - kv_lo + kBN - 1) / kBN : 0;
+  const int ntiles = kv_lo < kv_hi ? (kv_hi - kv_lo + BN - 1) / BN : 0;
 
-  // thread 0 issues every TMA load: Q and the first STAGES tiles now,
-  // each later tile into the stage whose tile every warp has released
-  auto load_tile = [&](int i) {
+  // tile i's K (k), V (v) or both into stage i % STAGES by TMA, landing on
+  // the stage's K (or, SPLIT, V) full barrier: thread 0 loads Q and the
+  // first STAGES tiles, then each stage is refilled as release says
+  auto load = [&](int i, bool k, bool v) {
     const int s = i % T::STAGES;
-    mbar_arrive_expect_tx(&full[s], 2 * T::KV_BYTES);
-    const int k0 = kv_lo + i * kBN;
-    uint8_t* ks = smem + T::OFF_K + s * T::KV_BYTES;
-    uint8_t* vs = smem + T::OFF_V + s * T::KV_BYTES;
+    uint64_t* bar = (T::SPLIT && v ? vfull : kfull) + s;
+    mbar_arrive_expect_tx(bar, (k + v) * T::KV_BYTES);
     for (int x = 0; x < T::NB; ++x) {
-      tma_load_4d(ks + x * kBN * kRow, &tk, &full[s], 64 * x, hk, k0, b);
-      tma_load_4d(vs + x * kBN * kRow, &tv, &full[s], 64 * x, hk, k0, b);
+      const int at = s * T::KV_BYTES + x * BN * kRow;
+      if (k)
+        tma_load_4d(smem + T::OFF_K + at, &tk, bar, 64 * x, hk,
+                    kv_lo + i * BN, b);
+      if (v)
+        tma_load_4d(smem + T::OFF_V + at, &tv, bar, 64 * x, hk,
+                    kv_lo + i * BN, b);
     }
   };
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
     for (int s = 0; s < T::STAGES; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 4 * NWG);
+      mbar_init(&kfull[s], 1);
+      mbar_init(&vfull[s], T::SPLIT ? 1 : 4 * NWG);
+      kcnt[s] = vcnt[s] = 0;
     }
     mbar_init_fence();
   }
@@ -656,7 +701,14 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_arrive_expect_tx(q_full, T::Q_BYTES);
     for (int x = 0; x < T::NB; ++x)
       tma_load_4d(smem + x * T::BM * kRow, &tq, q_full, 64 * x, h, q0, b);
-    for (int i = 0; i < min(T::STAGES, ntiles); ++i) load_tile(i);
+    for (int i = 0; i < min(T::STAGES, ntiles); ++i) {
+      if constexpr (T::SPLIT) {
+        load(i, true, false);
+        load(i, false, true);
+      } else {
+        load(i, true, true);
+      }
+    }
   }
 
   // consumer warpgroup c: query rows 64 c .. 64 c + 63 of the block
@@ -671,6 +723,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const int qp[2] = {wpos_lo + 16 * warp + g, wpos_lo + 16 * warp + g + 8};
   // the logit's factor inside 2^(.): raw q.k scaled, or a capped logit
   const float mult = softcap > 0.f ? kLog2e : scale * kLog2e;
+  const float cap_in = softcap > 0.f ? scale / softcap : 0.f;
   const uint8_t* Qc = smem + r0 * kRow;
   auto k_tile = [&](int i) {
     return smem + T::OFF_K + (i % T::STAGES) * T::KV_BYTES;
@@ -683,9 +736,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   // released as they land
   int i_lo = 0, i_hi = ntiles;
   while (i_lo < i_hi && window > 0 &&
-         wpos_lo - (kv_lo + i_lo * kBN + kBN - 1) >= window)
+         wpos_lo - (kv_lo + i_lo * BN + BN - 1) >= window)
     ++i_lo;
-  while (i_hi > i_lo && causal && wpos_hi < kv_lo + (i_hi - 1) * kBN)
+  while (i_hi > i_lo && causal && wpos_hi < kv_lo + (i_hi - 1) * BN)
     --i_hi;
 
   float o[T::DP / 2];                    // O: 64 rows x DP, fp32
@@ -694,28 +747,31 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
   float alpha[2] = {1.f, 1.f};
-  float sc[kBN / 2];                     // S, then P, of one tile
-  // P's two halves as A fragments, two buffers: tile i's are made while
-  // tile i - 1's feed the tensor cores
-  uint32_t phi0[kBN / 4], plo0[kBN / 4], phi1[kBN / 4], plo1[kBN / 4];
+  float sc[BN / 2];                     // S, then P, of one tile
+  // P's two halves as A fragments, two buffers up to d = 128: tile i's
+  // are made while tile i - 1's feed the tensor cores.  Past it one: O's
+  // 64 x 256 floats take 128 registers a thread, and a second buffer
+  // would pass the 255 a thread may have
+  constexpr bool kTwoBuffers = T::DP <= 128;
+  uint32_t phi0[BN / 4], plo0[BN / 4], phi1[BN / 4], plo1[BN / 4];
 
   // softcap, mask (only tiles the mask or the end of the keys cut) and the
   // online softmax of tile i's S, in place: sc becomes p; alpha the factor
   // of the running O and l
   auto softmax = [&](int i) {
-    const int k0 = kv_lo + i * kBN;
-    const bool cut = k0 + kBN > Skv || (causal && k0 + kBN - 1 > wpos_lo) ||
+    const int k0 = kv_lo + i * BN;
+    const bool cut = k0 + BN > Skv || (causal && k0 + BN - 1 > wpos_lo) ||
                      (window > 0 && wpos_hi - k0 >= window);
     float mx[2] = {-INFINITY, -INFINITY};
     if (softcap > 0.f || cut) {
       // the branches stay out of the common tile's loop: ptxas predicates
-      // them, and a predicated tanhf is issued for every element
+      // them, and a predicated tanh is issued for every element
 #pragma unroll
-      for (int J = 0; J < kBN / 8; ++J)
+      for (int J = 0; J < BN / 8; ++J)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float x = sc[4 * J + e];
-          if (softcap > 0.f) x = softcap * tanhf(x * scale / softcap);
+          if (softcap > 0.f) x = softcap * tanh_fast(x * cap_in);
           if (cut) {
             const int key = k0 + 8 * J + 2 * t + (e & 1);
             const int p = qp[e >> 1];
@@ -728,7 +784,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         }
     } else {
 #pragma unroll
-      for (int J = 0; J < kBN / 8; ++J)
+      for (int J = 0; J < BN / 8; ++J)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * J + e]);
@@ -744,7 +800,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       m[r] = m_new;
     }
 #pragma unroll
-    for (int J = 0; J < kBN / 8; ++J)
+    for (int J = 0; J < BN / 8; ++J)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float p = ex2_approx(fmaf(sc[4 * J + e], mult, -msc[e >> 1]));
@@ -759,10 +815,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     }
   };
   // p (in sc) as the PV product's A fragments, two bf16 halves
-  auto to_fragments = [&](uint32_t (&phi)[kBN / 4],
-                          uint32_t (&plo)[kBN / 4]) {
+  auto to_fragments = [&](uint32_t (&phi)[BN / 4],
+                          uint32_t (&plo)[BN / 4]) {
 #pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
+    for (int kk = 0; kk < BN / 16; ++kk) {
       const float* p = sc + 8 * kk;
       split_bf16x2(p[0], p[1], phi[4 * kk], plo[4 * kk]);          // row g
       split_bf16x2(p[2], p[3], phi[4 * kk + 1], plo[4 * kk + 1]);  // g + 8
@@ -782,70 +838,118 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       o[4 * J + 3] *= alpha[1];
     }
   };
-  auto land = [&](int i) {
-    mbar_wait(&full[i % T::STAGES], (i / T::STAGES) & 1);
+  // tile i's K (is_v false) or V has landed; without SPLIT, V landed
+  // with K
+  auto land = [&](int i, bool is_v) {
+    if (T::SPLIT || !is_v)
+      mbar_wait((is_v ? vfull : kfull) + i % T::STAGES,
+                (i / T::STAGES) & 1);
   };
-  auto release = [&](int i) {
-    if (lane == 0) mbar_arrive(&empty[i % T::STAGES]);
-    if (threadIdx.x == 0 && i + T::STAGES < ntiles) {
-      mbar_wait(&empty[i % T::STAGES], (i / T::STAGES) & 1);
-      load_tile(i + T::STAGES);
+  // this warp is done with tile i's K (V: S and P V are done with the
+  // tile).  SPLIT: it counts itself out of the stage, and the warp that
+  // brings the count to the block's 4 NWG warps (the counts only grow: no
+  // reset to order) refills the stage with tile i + STAGES; its
+  // wgmma_wait has completed every read of the stage, and the load is
+  // issued only after the count is read.  No warp waits for another, and
+  // K is released once S is computed, V once P V is, so each load leads
+  // its use by about a tile.  Else thread 0 refills a stage once every
+  // warp has released its V
+  auto release = [&](int i, bool is_v) {
+    const int s = i % T::STAGES;
+    if constexpr (T::SPLIT) {
+      __syncwarp();
+      if (lane == 0 &&
+          (atomicAdd((is_v ? vcnt : kcnt) + s, 1u) + 1) % (4 * NWG) == 0 &&
+          i + T::STAGES < ntiles)
+        load(i + T::STAGES, !is_v, is_v);
+    } else if (is_v) {
+      if (lane == 0) mbar_arrive(&vfull[s]);
+      if (threadIdx.x == 0 && i + T::STAGES < ntiles) {
+        mbar_wait(&vfull[s], (i / T::STAGES) & 1);
+        load(i + T::STAGES, true, true);
+      }
     }
+  };
+  auto skip = [&](int i) {          // a tile no row of this warpgroup sees
+    land(i, false);
+    release(i, false);
+    land(i, true);
+    release(i, true);
   };
 
   mbar_wait(q_full, 0);
-  for (int i = 0; i < i_lo; ++i) {
-    land(i);
-    release(i);
-  }
+  for (int i = 0; i < i_lo; ++i) skip(i);
   // software pipeline: tile i's S is issued with tile i - 1's P V, and
   // its softmax and P's fragments are made while that product is on the
   // tensor cores
-  auto step = [&](int i, uint32_t (&phi)[kBN / 4], uint32_t (&plo)[kBN / 4],
-                  uint32_t (&prev_hi)[kBN / 4],
-                  uint32_t (&prev_lo)[kBN / 4]) {
-    land(i);
-    issue_qk<NKT, T::BM>(sc, Qc, k_tile(i));
+  auto step = [&](int i, uint32_t (&phi)[BN / 4], uint32_t (&plo)[BN / 4],
+                  uint32_t (&prev_hi)[BN / 4],
+                  uint32_t (&prev_lo)[BN / 4]) {
+    land(i, false);
+    issue_qk<NKT, T::BM, BN>(sc, Qc, k_tile(i));
     rescale();                        // O to tile i - 1's running max
-    issue_pv<T::DP>(o, prev_hi, prev_lo, v_tile(i - 1));
+    land(i - 1, true);
+    issue_pv<T::DP, BN>(o, prev_hi, prev_lo, v_tile(i - 1));
     wgmma_wait<1>();                  // S of tile i
-    fence_regs<kBN / 2>(sc);
+    fence_regs<BN / 2>(sc);
+    release(i, false);
     softmax(i);
     to_fragments(phi, plo);
     wgmma_wait<0>();                  // P V of tile i - 1
     fence_regs<T::DP / 2>(o);
-    release(i - 1);
+    release(i - 1, true);
   };
-  auto last_pv = [&](uint32_t (&phi)[kBN / 4], uint32_t (&plo)[kBN / 4]) {
+  auto last_pv = [&](uint32_t (&phi)[BN / 4], uint32_t (&plo)[BN / 4]) {
     rescale();
-    issue_pv<T::DP>(o, phi, plo, v_tile(i_hi - 1));
+    land(i_hi - 1, true);
+    issue_pv<T::DP, BN>(o, phi, plo, v_tile(i_hi - 1));
     wgmma_wait<0>();
     fence_regs<T::DP / 2>(o);
-    release(i_hi - 1);
+    release(i_hi - 1, true);
+  };
+  // one buffer: tile i's softmax runs while tile i - 1's P V is on the
+  // tensor cores, its fragments are made once that product has read p
+  auto step1 = [&](int i) {
+    land(i, false);
+    issue_qk<NKT, T::BM, BN>(sc, Qc, k_tile(i));
+    rescale();
+    land(i - 1, true);
+    issue_pv<T::DP, BN>(o, phi0, plo0, v_tile(i - 1));
+    wgmma_wait<1>();
+    fence_regs<BN / 2>(sc);
+    release(i, false);
+    softmax(i);
+    wgmma_wait<0>();
+    fence_regs<T::DP / 2>(o);
+    to_fragments(phi0, plo0);
+    release(i - 1, true);
   };
   if (i_lo < i_hi) {
-    land(i_lo);
-    issue_qk<NKT, T::BM>(sc, Qc, k_tile(i_lo));
+    land(i_lo, false);
+    issue_qk<NKT, T::BM, BN>(sc, Qc, k_tile(i_lo));
     wgmma_wait<0>();
-    fence_regs<kBN / 2>(sc);
+    fence_regs<BN / 2>(sc);
+    release(i_lo, false);
     softmax(i_lo);
     to_fragments(phi0, plo0);
     int i = i_lo + 1;
-    for (; i + 1 < i_hi; i += 2) {    // two tiles a turn: the buffers swap
-      step(i, phi1, plo1, phi0, plo0);
-      step(i + 1, phi0, plo0, phi1, plo1);
-    }
-    if (i < i_hi) {
-      step(i, phi1, plo1, phi0, plo0);
-      last_pv(phi1, plo1);
+    if constexpr (kTwoBuffers) {
+      for (; i + 1 < i_hi; i += 2) {  // two tiles a turn: the buffers swap
+        step(i, phi1, plo1, phi0, plo0);
+        step(i + 1, phi0, plo0, phi1, plo1);
+      }
+      if (i < i_hi) {
+        step(i, phi1, plo1, phi0, plo0);
+        last_pv(phi1, plo1);
+      } else {
+        last_pv(phi0, plo0);
+      }
     } else {
+      for (; i < i_hi; ++i) step1(i);
       last_pv(phi0, plo0);
     }
   }
-  for (int i = i_hi; i < ntiles; ++i) {
-    land(i);
-    release(i);
-  }
+  for (int i = i_hi; i < ntiles; ++i) skip(i);
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -895,8 +999,8 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const int32_t* qo,
   using T = Tile<NWG, NKT>;
   CUtensorMap tq, tk, tv;
   int err = tensor_map(&tq, q, D, Hq, Sq, B, T::BM);
-  if (err == 0) err = tensor_map(&tk, k, D, Hkv, Skv, B, kBN);
-  if (err == 0) err = tensor_map(&tv, v, D, Hkv, Skv, B, kBN);
+  if (err == 0) err = tensor_map(&tk, k, D, Hkv, Skv, B, T::BN);
+  if (err == 0) err = tensor_map(&tv, v, D, Hkv, Skv, B, T::BN);
   if (err != 0) return err;
   err = (int)cudaFuncSetAttribute(flash_attention_wgmma_kernel<NWG, NKT>,
                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -910,7 +1014,8 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const int32_t* qo,
   return (int)cudaGetLastError();
 }
 
-// the instance: NKT by the head dim (32, 64, 96, 112, 128), NWG by the grid
+// the instance: NKT by the head dim (32, 64, 96, 112, 128, 256), NWG by
+// the grid
 int dispatch(const bf16* q, const bf16* k, const bf16* v, const int32_t* qo,
              bf16* out, int B, int Sq, int Skv, int Hq, int Hkv, int D,
              int causal, int window, float softcap, float scale,
@@ -925,14 +1030,15 @@ int dispatch(const bf16* q, const bf16* k, const bf16* v, const int32_t* qo,
   if (D <= 64) VPAAS_WG(4);
   if (D <= 96) VPAAS_WG(6);
   if (D <= 112) VPAAS_WG(7);
-  VPAAS_WG(8);
+  if (D <= 128) VPAAS_WG(8);
+  VPAAS_WG(16);
 #undef VPAAS_WG
 }
 
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
-// CUDA-core kernel: 128 < d <= 256, or a value head dim d_v < d
+// CUDA-core kernel: float32 past d = 192 or d_v = 128, bf16 with d_v < d
 // ---------------------------------------------------------------------------
 namespace simt {
 
@@ -1152,10 +1258,10 @@ int launch(const T* q, const T* k, const T* v, const int32_t* qo, T* out,
 
 // 1 where the launcher runs these head dims on the tensor cores, 0 where
 // on the CUDA cores: float32 (bf16 = 0) up to d = 192 and d_v = 128, bf16
-// where d = d_v <= 128
+// where d = d_v <= 256
 extern "C" int vpaas_flash_attention_on_tensor_cores(int D, int Dv,
                                                      int bf16) {
-  return bf16 ? Dv == D && D <= 128 : D <= 192 && Dv <= 128 && Dv <= D;
+  return bf16 ? Dv == D && D <= 256 : D <= 192 && Dv <= 128 && Dv <= D;
 }
 
 // the query rows of a block of the bf16 tensor-core kernel at this grid

@@ -97,10 +97,11 @@
 //
 // wgmma_m64n96k16_ss(d, da, db, acc): D (64 x 96, fp32) = A (64 x 16,
 // bf16, K-major, descriptor da) * B (16 x 96, bf16, stored as B^T:
-// K-major, descriptor db), plus D if acc.  wgmma_m64nNk16_rs<N>(d, a, db):
-// D (64 x N) += A (registers) * B (descriptor, MN-major: the transposed-B
-// bit), N = 32, 64, 96, 112 or 128 (past 64, B's second 64-column block
-// is lbo bytes on).
+// K-major, descriptor db), plus D if acc; wgmma_m64n64k16_ss the same
+// with N = 64.  wgmma_m64nNk16_rs<N>(d, a, db): D (64 x N) += A
+// (registers) * B (descriptor, MN-major: the transposed-B bit), N = 32,
+// 64, 96, 112, 128 or 256 (past 64, B's next 64-column block is lbo bytes
+// on: N = 256 reads four).
 // Both are warpgroup-wide (4 warps) and asynchronous: wgmma_fence before
 // the first of a batch (after the registers they read were written),
 // wgmma_commit after it, wgmma_wait<0> before D is read; fence_regs keeps
@@ -112,7 +113,11 @@
 // (the accumulator of one 64 x 16 slice of D is the A fragment of the next
 // product's 16-wide k step as it stands).
 //
-// ex2_approx: ex2.approx.ftz.f32, 2^x.
+// ex2_approx: ex2.approx.ftz.f32, 2^x.  tanh_fast(y): 1 - 2 / (1 +
+// e^(2y)) from ex2.approx and rcp.approx (two special-function operations
+// where tanhf takes a longer sequence): within ~1e-7 of tanh(y) absolutely
+// (the cancellation near 0 costs relative digits there, not absolute
+// ones), +-1 at the ends.
 //
 // tests/test_torch_kernel_emulation.py replaces this header with host
 // versions of the same functions.
@@ -257,6 +262,16 @@ __device__ __forceinline__ float ex2_approx(float x) {
   return r;
 }
 
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ float tanh_fast(float y) {
+  return 1.f - 2.f * rcp_approx(1.f + ex2_approx(y * 2.8853900817779268f));
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -367,6 +382,21 @@ __device__ __forceinline__ void wgmma_m64n96k16_ss(float* d, uint64_t da,
       : "l"(da), "l"(db), "r"(acc));
 }
 
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t da,
+                                                   uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : VPAAS_F8(d, 0), VPAAS_F8(d, 8), VPAAS_F8(d, 16), VPAAS_F8(d, 24)
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_m64nNk16_rs(float* d,
                                                   const uint32_t a[4],
@@ -463,6 +493,35 @@ __device__ __forceinline__ void wgmma_m64nNk16_rs<128>(float* d,
       "}\n"
       : VPAAS_F8(d, 0), VPAAS_F8(d, 8), VPAAS_F8(d, 16), VPAAS_F8(d, 24),
         VPAAS_F8(d, 32), VPAAS_F8(d, 40), VPAAS_F8(d, 48), VPAAS_F8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_m64nNk16_rs<256>(float* d,
+                                                       const uint32_t a[4],
+                                                       uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, {%128, %129, %130, "
+      "%131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : VPAAS_F8(d, 0), VPAAS_F8(d, 8), VPAAS_F8(d, 16), VPAAS_F8(d, 24),
+        VPAAS_F8(d, 32), VPAAS_F8(d, 40), VPAAS_F8(d, 48), VPAAS_F8(d, 56),
+        VPAAS_F8(d, 64), VPAAS_F8(d, 72), VPAAS_F8(d, 80), VPAAS_F8(d, 88),
+        VPAAS_F8(d, 96), VPAAS_F8(d, 104), VPAAS_F8(d, 112), VPAAS_F8(d, 120)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 

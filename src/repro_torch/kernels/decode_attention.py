@@ -10,7 +10,7 @@ the sums and the workspace float32).  A call runs two device kernels: one
 block per (kv-head group, row, split of the row's valid slots) writes a
 partial softmax state to a workspace, and a combine kernel merges the
 splits in a fixed order.  bfloat16 caches whose head dim is a multiple of
-8 up to 128, 16-byte aligned (:func:`on_tma`), take the split kernel that
+8 up to 256, 16-byte aligned (:func:`on_tma`), take the split kernel that
 loads K and V tiles by TMA and runs q.k and p.v on the tensor cores; its
 splits fill the card's resident blocks in whole waves (:func:`plan`, which
 also sizes the workspace, :func:`workspace_bytes`).  Other operands take the
@@ -42,9 +42,10 @@ TARGET_BLOCKS = 1024  # blocks a call aims at: ~8 per SM of an H100's 132
 TMA_TILE = 16         # slots a tile of the bf16 TMA kernel
 TMA_KV_HEADS = 4      # kv-heads a block of it (one a warp)
 TMA_HEADS = 16        # q-heads of a kv-head a block takes (the mma's rows)
-TMA_MAX_DIM = 128     # the largest head dim it takes
+TMA_MAX_DIM = 256     # the largest head dim it takes
 WAVE_FILL = 0.9       # the share of the last wave's blocks its splits want
-TMA_BLOCKS_PER_SM = 1  # a block asks for 120 KB of shared memory
+TMA_BLOCKS_PER_SM = 1  # a block asks for 120 KB of shared memory (224 at
+                       # d > 128)
 # the TMA kernel's resident blocks on an H100, which the dry run plans by
 H100_RESIDENT = H100.sms * TMA_BLOCKS_PER_SM
 

@@ -7,11 +7,11 @@ bfloat16 operands (q, k and v of one dtype; the output in it too), with
 every sum in float32, as the Pallas kernel computes on the bf16 operands
 of the reference's launch path.  float32 runs its two products on the
 tensor cores in 3xTF32 up to d = 192 and d_v = 128 (MLA's prefill: 192 for
-q and k, 128 for v); bfloat16 where q, k and v share a head dim up to 128,
-as wgmma on TMA tiles (q.k exact in float32, p.v with p split into two
-bf16 halves; :func:`block_rows` says how many query rows a block takes).
-Larger head dims, and a value head dim of its own in bfloat16, run on the
-CUDA cores (bf16 widened to float32 as it loads).  The bf16 tensor-core
+q and k, 128 for v); bfloat16 where q, k and v share a head dim up to 256
+(gemma2's), as wgmma on TMA tiles (q.k exact in float32, p.v with p split
+into two bf16 halves; :func:`block_rows` says how many query rows a block
+takes).  Larger float32 head dims, and a value head dim of its own in
+bfloat16, run on the CUDA cores (bf16 widened to float32 as it loads).  The bf16 tensor-core
 kernel loads by TMA, whose row strides are multiples of 16 bytes: a head
 dim that is not a multiple of 8, or an operand that is not 16-byte aligned,
 is copied into zero-padded tensors first (:func:`tma_ready`).  The query

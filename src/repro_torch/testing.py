@@ -535,7 +535,9 @@ FLASH_DV_CASES = [
 # with per-row offsets; s_q and s_kv off every tile size; d = 18, 36 and
 # 112 (zero-padded columns); rows with no valid key beside rows with some
 # in one tile; a window that closes whole key tiles; GQA groups of 1, 2
-# and 4; MLA's 192 / 128 and its -smoke 96 / 64
+# and 4; MLA's 192 / 128 and its -smoke 96 / 64; gemma2-9b's d = 256
+# (16 q-heads over 8, causal, a window shorter than s_kv, softcap 50;
+# s_q past a 128-row block, s_kv past 64-key tiles)
 FLASH_EDGE_CASES = [
     (2, 1, 300, 8, 2, 112, 112, True, None, None, [299, 100]),
     (1, 200, 333, 4, 4, 18, 18, True, None, None, 133),
@@ -545,6 +547,7 @@ FLASH_EDGE_CASES = [
     (1, 257, 513, 16, 4, 128, 128, True, None, 30.0, 256),
     (1, 200, 264, 16, 16, 192, 128, True, None, None, 64),
     (2, 100, 300, 16, 16, 96, 64, True, None, None, [200, 0]),
+    (1, 130, 200, 16, 8, 256, 256, True, 72, 50.0, 70),
 ]
 
 
@@ -566,6 +569,7 @@ DECODE_CASES = [
     (2, 160, 4, 4, 112, 100, 32, None),                 # scalar len, window
     (1, 64, 4, 2, 256, [64], None, 50.0),               # d=256
     (2, 32, 2, 1, 64, [0, 5], None, None),              # an empty row
+    (2, 160, 16, 8, 256, [160, 61], 48, 50.0),          # gemma2's d, window
 ]
 
 

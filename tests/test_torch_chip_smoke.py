@@ -794,7 +794,7 @@ def test_k6_instance_follows_the_launcher_routes(monkeypatch):
     import types
     fa = types.SimpleNamespace(
         on_tensor_cores=lambda d, d_v, dtype=torch.float32: (
-            d == d_v and d <= 128 if dtype == torch.bfloat16
+            d == d_v and d <= 256 if dtype == torch.bfloat16
             else d <= 192 and d_v <= 128),
         block_rows=lambda b, s_q, n_q: 64 if b * n_q * -(-s_q // 128) < 132
         else 128)
@@ -815,6 +815,12 @@ def test_k6_instance_follows_the_launcher_routes(monkeypatch):
         "flash_attention_mma_kernel<14, 14, 4>"
     assert chip_smoke._k6_instance(fa, 1, 384, 32, 256, 256, f32) == \
         "flash_attention_simt_kernel<float, 8>"
+    # gemma2-9b's d = 256 in bf16: the wgmma kernel at NKT 16, 128-row
+    # blocks at prefill_32k, 64-row ones at the 384-token serving prefill
+    assert chip_smoke._k6_instance(fa, 3, 32768, 16, 256, 256, bf) == \
+        "flash_attention_wgmma_kernel<2, 16>"
+    assert chip_smoke._k6_instance(fa, 1, 384, 16, 256, 256, bf) == \
+        "flash_attention_wgmma_kernel<1, 16>"
 
 
 def test_kernel_phases_hold_every_llm_path_shape():
@@ -830,6 +836,13 @@ def test_kernel_phases_hold_every_llm_path_shape():
             (4, 1, 256, 24, 24, 64, 64, False)} <= flash
     decode = {c[:5] for c in chip_smoke.DECODE_PATH_SHAPES}
     assert {(4, 512, 32, 32, 112), (4, 512, 24, 24, 64)} <= decode
+    # gemma2-9b's global and LOCAL layers (window 4096, softcap 50)
+    flash = {c[:10] for c in chip_smoke.FLASH_PATH_SHAPES}
+    assert {(1, 384, 512, 16, 8, 256, 256, True, None, 50.0),
+            (1, 384, 512, 16, 8, 256, 256, True, 4096, 50.0)} <= flash
+    decode = {c[:5] + c[6:] for c in chip_smoke.DECODE_PATH_SHAPES}
+    assert {(4, 512, 16, 8, 256, None, 50.0),
+            (4, 512, 16, 8, 256, 4096, 50.0)} <= decode
 
 
 def test_dynamic_smem_of_the_k7_and_k8_instances():
@@ -837,6 +850,11 @@ def test_dynamic_smem_of_the_k7_and_k8_instances():
     # boxes of 4 heads x 16 slots, asked as 120 KB: one block an SM
     assert chip_smoke.k7_tma_smem(112) == chip_smoke.k7_tma_smem(64) \
         == 122_880
+    # d = 256: three 64 KB stages, their mbarriers, and Q's fragments (4
+    # warps x 16 k steps x 32 lanes x 16 bytes): one block an SM, within
+    # the 227 KB a block may have
+    assert chip_smoke.k7_tma_smem(256) == 3 * 65_536 + 48 + 32_768 \
+        == 229_424 <= 232_448
     # K8 at zamba2's p = n = 64, chunk 256: the float32 output kernel's
     # 106,560 B, the state kernel's double-buffered tiles, and the bf16
     # tiles at half their bytes
@@ -870,3 +888,78 @@ def test_bf16_steps_count_how_far_a_result_lies_from_its_rounding():
     steps = chip_smoke.bf16_steps(torch, got, want)
     assert steps["steps"] == {"0": 2, "1": 1, ">1": 1}
     assert steps["max_ulps"] == pytest.approx(3.0)
+
+
+def test_gemma2_bounds_at_its_32k_and_serving_shapes():
+    # gemma2-9b (16 q-heads over 8, d 256, softcap 50) at prefill_32k's 3
+    # rows and decode_32k's 5 slots, worked out by hand: a global layer's
+    # K6 has 3 x 16 x 32,768 x 32,769 / 2 causal pairs, each 2 (256 + 256)
+    # bf16 products and 5 + 3 other operations; a LOCAL layer's (window
+    # 4096) 3 x 16 x (4096 x 4097 / 2 + 28,672 x 4096); K7 reads every K and
+    # V row of its slots (the window's last 4096 on a LOCAL layer) once
+    from repro_torch.configs import get_config
+    cfg = get_config("gemma2-9b")
+    pairs = 3 * 16 * 32768 * 32769 // 2
+    assert pairs == 25_770_590_208
+    nbytes, mma, other, (ms, by) = chip_smoke.gemma2_bound(cfg, "K6", 3,
+                                                           32768, None)
+    assert nbytes == 2 * (3 * 32768 * 16 * 512 + 3 * 32768 * 8 * 512) + 12
+    assert (mma, other) == (pairs * 1024, pairs * 8)
+    assert by == "operations" and ms == pytest.approx(
+        (pairs * 1024 / 989.4e12 + pairs * 8 / 67e12) * 1e3, rel=1e-12)
+    assert ms == pytest.approx(29.748891, abs=1e-6)
+    local = 3 * 16 * (4096 * 4097 // 2 + (32768 - 4096) * 4096)
+    _, mma, _, (ms, by) = chip_smoke.gemma2_bound(cfg, "K6", 3, 32768, 4096)
+    assert mma == local * 1024 and by == "operations"
+    assert ms == pytest.approx(6.972297, abs=1e-6)
+    nbytes, mma, _, (ms, by) = chip_smoke.gemma2_bound(cfg, "K7", 5, 32768,
+                                                       None)
+    assert nbytes == 2 * (2 * 5 * 16 * 256 + 2 * 5 * 32768 * 8 * 256) + 20
+    assert mma == 5 * 32768 * 16 * 1024 and by == "bytes"
+    assert ms == pytest.approx(1_342_259_220 / 3.35e9, rel=1e-12)
+    nbytes, _, _, (ms, by) = chip_smoke.gemma2_bound(cfg, "K7", 5, 32768,
+                                                     4096)
+    assert nbytes == 167_854_100 and by == "bytes"
+    assert ms == pytest.approx(0.050106, abs=1e-6)
+    # the float32 serving shapes: a 384-token prompt into a 512-slot cache
+    # (73,920 causal pairs, 16 heads, operations at 67 TFLOP/s) and four
+    # slots at 385-399 of 512 (1,569 valid rows)
+    nbytes, ops, pairs = chip_smoke.flash_bound(1, 384, 512, 16, 8, 256,
+                                                256, True, None, 50.0)
+    assert pairs == 73_920 and ops == pairs * 16 * (1024 + 8)
+    assert nbytes == 4 * (384 * 16 * 512 + 384 * 8 * 512) + 4
+    ms, by = chip_smoke.bound_ms(nbytes, ops)
+    assert by == "operations" and ms == pytest.approx(0.0182174, abs=1e-6)
+    lens = [385, 390, 395, 399]
+    assert chip_smoke.decode_nbytes(4, 16, 8, 256, lens, 512, None) == \
+        4 * (2 * 4 * 16 * 256 + 2 * sum(lens) * 8 * 256) + 16
+
+
+def test_gemma2_32k_cases_take_a_global_and_a_local_layer():
+    from repro_torch.configs import get_config
+    cases = chip_smoke.gemma2_32k_cases(
+        get_config("gemma2-9b"), {"prefill_32k": 3, "decode_32k": 5})
+    assert cases == [("K6", "global", 3, None), ("K6", "LOCAL", 3, 4096),
+                     ("K7", "global", 5, None), ("K7", "LOCAL", 5, 4096)]
+
+
+def test_gemma2_phases_are_wired_in():
+    # the full run: gemma2's bf16 dry-run steps, K6 and K7 at its 32k shapes
+    # against their plain versions and its one-block cut inside the dry
+    # run; its two-block float32 cut against the CPU and its float32
+    # serving path after deepseek's and musicgen's; --only runs the probe
+    # and the gemma2 phases alone
+    import inspect
+    dry = inspect.getsource(chip_smoke.phase_dryrun)
+    assert "phase_dryrun_card(torch, card, table, GEMMA_ARCH)" in dry
+    assert "phase_gemma2_32k(" in dry and "check=True" in dry
+    assert "phase_dryrun_reference(torch, np, card, GEMMA_ARCH)" in dry
+    main = inspect.getsource(chip_smoke.main)
+    assert "GEMMA_ARCH: phase_gemma2_reference(torch, np, card)" in main
+    assert main.index("cross_counts = phase_cross_main_path") < main.index(
+        "gemma_counts, _, gemma_params = phase_llm_main_path")
+    assert chip_smoke.GEMMA_ARCH == "gemma2-9b"
+    assert {"gemma2", "gemma2_32k"} <= set(chip_smoke.ONLY_PHASES)
+    assert chip_smoke.PROBES["phase_gemma2_32k"] == "gemma2 32k"
+    ref = inspect.getsource(chip_smoke.phase_gemma2_reference)
+    assert "block_cut(get_config(GEMMA_ARCH), 2)" in ref

@@ -709,17 +709,19 @@ def _bf(arrays, device):
 
 @pytest.mark.parametrize("case", FLASH_CASES + FLASH_RAGGED_CASES + [
     (1, 384, 512, 32, 32, 112, True, None, None, 0),      # zamba2 prefill
-    (1, 128, 192, 8, 4, 256, True, 64, 50.0, 0),          # CUDA cores
+    (1, 128, 192, 8, 4, 256, True, 64, 50.0, 0),          # d = 256
     (3, 24, 64, 4, 2, 64, True, 20, 30.0, [0, 17, 40]),   # per-row offset
     (1, 384, 512, 32, 16, 128, True, 64, 50.0, 0),        # d = 128
-    (2, 130, 300, 8, 2, 96, True, None, None, [170, 0])])
+    (2, 130, 300, 8, 2, 96, True, None, None, [170, 0]),
+    (1, 384, 512, 16, 8, 256, True, None, 50.0, 0),       # gemma2 prefill
+    (2, 300, 700, 16, 8, 256, True, 256, 50.0, [400, 0])])
 def test_flash_attention_bf16_kernels_match_plain(cuda, case):
-    # d <= 128 on the bf16 wgmma kernel, d = 256 on the CUDA cores
+    # every d = d_v up to 256 on the bf16 wgmma kernel
     b, s_q, s_kv, n_q, n_kv, d, causal, window, cap, off = case
     q, k, v = _bf(attention_case(b, s_q, s_kv, n_q, n_kv, d), cuda)
     kw = dict(causal=causal, window=window, softcap=cap,
               q_offset=torch.as_tensor(off, device=cuda))
-    assert fa.on_tensor_cores(d, d, BF) == (d <= 128)
+    assert fa.on_tensor_cores(d, d, BF)
     fa.launches = 0
     got = fa.flash_attention(q, k, v, **kw)
     assert got.dtype == BF and fa.launches == 1
@@ -758,17 +760,22 @@ DECODE_TMA_CASES = [
     (1, 130, 8, 2, 64, [130], None, None),           # group 4
     (1, 130, 16, 2, 64, [130], None, 20.0),          # group 8
     (2, 96, 16, 1, 64, [96, 40], None, None),        # group 16
-    (1, 70, 32, 1, 64, [70], None, None)]            # group 32
+    (1, 70, 32, 1, 64, [70], None, None),            # group 32
+    (2, 150, 16, 8, 256, [150, 61], 48, 50.0),       # d = 256, a window
+    (1, 200, 16, 8, 256, [200], None, 50.0)]         # d = 256
 
 
 @pytest.mark.parametrize("case", DECODE_CASES + [
     (4, 512, 32, 32, 112, [384, 390, 1, 500], None, None),  # zamba2 decode
     (4, 512, 16, 8, 256, [384, 1, 64, 512], 64, 50.0),
+    (4, 512, 16, 8, 256, [385, 390, 395, 399], None, 50.0),  # gemma2 decode
     (2, 96, 16, 1, 36, [96, 40], None, None)]               # d % 8 != 0
     + DECODE_TMA_CASES)
 def test_decode_attention_bf16_kernel_matches_plain(cuda, case):
+    # d % 8 == 0 (every d up to 256) on the TMA kernel, d = 36 on the other
     b, S, n_q, n_kv, d, clen, window, cap = case
     q, kc, vc = _bf(decode_case(b, S, n_q, n_kv, d), cuda)
+    assert da.on_tma(q, kc, vc) == (d % 8 == 0)
     cl = torch.as_tensor(clen, dtype=torch.int32, device=cuda)
     kw = dict(window=window, softcap=cap)
     got = da.decode_attention(q, kc, vc, cl, **kw)
@@ -802,6 +809,23 @@ def test_ssd_scan_bf16_kernel_matches_plain(cuda, case):
     assert rel_err(fin.cpu(), fin_ref.cpu()) <= SSD_RTOL
     y2, fin2 = sk.ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=st)
     assert torch.equal(y2, y) and torch.equal(fin2, fin)
+
+
+def test_bf16_head_dim_256_runs_on_the_hopper_kernels(cuda):
+    # gemma2-9b's d = 256 in bf16: K6 on the wgmma kernel, K7 on the TMA
+    # kernel (whose library answers a resident count), neither on the
+    # CUDA-core kernels; its decode_32k splits fill the card
+    assert fa.on_tensor_cores(256, 256, BF)
+    props = torch.cuda.get_device_properties(cuda)
+    assert da.resident_blocks(256) == \
+        props.multi_processor_count * da.TMA_BLOCKS_PER_SM
+    q, kc, vc = _bf(decode_case(5, 64, 16, 8, 256), cuda)
+    assert da.on_tma(q, kc, vc)
+    per, nsplit = da.splits(5, 32768, 8, None, da.resident_blocks(256))
+    blocks = 5 * 2 * nsplit
+    assert per % 16 == 0 and per * nsplit >= 32768
+    assert blocks / (da.resident_blocks(256)
+                     * -(-blocks // da.resident_blocks(256))) >= da.WAVE_FILL
 
 
 def test_decode_attention_bf16_splits_fill_the_card(cuda):

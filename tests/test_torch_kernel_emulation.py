@@ -182,6 +182,8 @@ inline int __popc(unsigned x) { return __builtin_popcount(x); }
 // a block's threads share a host thread and switch only at barriers, so a
 // read-modify-write of shared memory is atomic as it stands
 inline int atomicAdd(int* a, int v) { int old = *a; *a = old + v; return old; }
+inline unsigned atomicAdd(unsigned* a, unsigned v) {
+  unsigned old = *a; *a = old + v; return old; }
 inline unsigned atomicOr(unsigned* a, unsigned v) {
   unsigned old = *a; *a = old | v; return old; }
 // a fiber that waits on an mbarrier gives the others a turn
@@ -354,6 +356,9 @@ template <int N> void cp_async_wait() {}
 // Hopper: shared memory is the block's dynamic buffer and a shared address
 // is an offset into it
 inline float ex2_approx(float x) { return std::exp2(x); }
+inline float rcp_approx(float x) { return 1.f / x; }
+inline float tanh_fast(float y) {
+  return 1.f - 2.f * rcp_approx(1.f + ex2_approx(y * 2.8853900817779268f)); }
 inline uint32_t smem_u32(const void* p) {
   return (uint32_t)((const char*)p - emu_blk->dyn.data()); }
 inline uint32_t emu_smem_addr(const void* p) { return smem_u32(p); }
@@ -525,6 +530,8 @@ inline void emu_wgmma(float* d, const uint32_t* a, uint64_t da, uint64_t db,
   if (a) bar->arrive_and_wait(); }
 inline void wgmma_m64n96k16_ss(float* d, uint64_t da, uint64_t db, int acc) {
   emu_wgmma<96>(d, nullptr, da, db, false, acc != 0); }
+inline void wgmma_m64n64k16_ss(float* d, uint64_t da, uint64_t db, int acc) {
+  emu_wgmma<64>(d, nullptr, da, db, false, acc != 0); }
 template <int N>
 void wgmma_m64nNk16_rs(float* d, const uint32_t a[4], uint64_t db) {
   emu_wgmma<N>(d, a, 0, db, true, true); }
@@ -977,15 +984,16 @@ def test_flash_attention_source_takes_a_value_head_dim(emulated, case):
 @pytest.mark.parametrize("case", FLASH_EDGE_CASES,
                          ids=[f"edge{i}" for i in range(len(FLASH_EDGE_CASES))])
 def test_flash_attention_source_at_tile_edges(emulated, case, dtype):
-    # float32 on the 3xTF32 kernel, bf16 on the wgmma kernel where d = d_v
-    # (the CUDA-core kernel for MLA's dims), each within its card tolerance
+    # float32 on the 3xTF32 kernel up to d = 192 and d_v = 128 (gemma2's
+    # 256 on the CUDA cores), bf16 on the wgmma kernel where d = d_v (the
+    # CUDA-core kernel for MLA's dims), each within its card tolerance
     b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off = case
     q, k, v = (t.to(dtype) for t in
                _t(attention_case(b, s_q, s_kv, n_q, n_kv, d, d_v=d_v)))
     kw = dict(causal=causal, window=window, softcap=cap,
               q_offset=torch.as_tensor(off))
     assert fa.on_tensor_cores(d, d_v, dtype) == (
-        dtype == torch.float32 or d == d_v)
+        d <= 192 and d_v <= 128 if dtype == torch.float32 else d == d_v)
     got = fa.flash_attention(q, k, v, **kw)
     want = ref.flash_attention(q, k, v, **kw)
     assert got.shape == (b, s_q, n_q, d_v) and got.dtype == dtype
@@ -1039,14 +1047,15 @@ def _bf16(arrays):
                          ids=[f"flash{i}" for i in range(
                              len(FLASH_CASES) + len(FLASH_RAGGED_CASES))])
 def test_flash_attention_source_takes_bf16(emulated, case, sms):
-    # the bf16 launcher: the wgmma kernel on TMA tiles for d <= 128 (p
-    # split into two bf16 halves; d = 18 and 36 padded to a multiple of 8
-    # by the wrapper), the CUDA-core kernel above; out in bf16.  On the
-    # card's 132 SMs these small grids take 64-row blocks (one consumer
-    # warpgroup), on 1 SM 128-row blocks (two)
+    # the bf16 launcher: the wgmma kernel on TMA tiles for every d = d_v
+    # up to 256 (p split into two bf16 halves; d = 18 and 36 padded to a
+    # multiple of 8 by the wrapper; 64-key tiles and one buffer of p's
+    # fragments at d = 256); out in bf16.  On the card's 132 SMs these
+    # small grids take 64-row blocks (one consumer warpgroup), on 1 SM
+    # 128-row blocks (two)
     b, s_q, s_kv, n_q, n_kv, d, causal, window, cap, off = case
     emulated(sms)
-    assert fa.on_tensor_cores(d, d, torch.bfloat16) == (d <= 128)
+    assert fa.on_tensor_cores(d, d, torch.bfloat16)
     assert fa.block_rows(b, s_q, n_q) == (64 if sms == 132 else 128)
     q, k, v = _bf16(attention_case(b, s_q, s_kv, n_q, n_kv, d))
     kw = dict(causal=causal, window=window, softcap=cap, q_offset=off)
@@ -1199,10 +1208,16 @@ def test_ssd_scan_source_paths(emulated, case, path):
     ((1, 130, 8, 2, 64, [130], None, None), 132),
     ((1, 130, 16, 2, 64, [130], None, 20.0), 132),
     ((2, 96, 16, 1, 64, [96, 40], None, None), 132),
-    ((1, 70, 32, 1, 64, [70], None, None), 132)],
+    ((1, 70, 32, 1, 64, [70], None, None), 132),
+    # gemma2-9b's d = 256 (two 64 KB stages, Q's fragments in shared
+    # memory), GQA 2, softcap 50, a window shorter than the cache; on 1 SM
+    # a split's tiles wrap the ring
+    ((2, 150, 16, 8, 256, [150, 61], 48, 50.0), 1),
+    ((1, 200, 16, 8, 256, [200], None, 50.0), 132)],
     ids=["ring-wraps", "partial-last-stage", "window-empty-splits",
          "softcap-d32", "d128-window", "empty-row", "group1", "group2",
-         "group4", "group8", "group16", "group32"])
+         "group4", "group8", "group16", "group32", "d256-window",
+         "d256-global"])
 def test_decode_attention_source_bf16_tma(emulated, case, sms):
     b, S, n_q, n_kv, d, clen, window, cap = case
     emulated(sms)
@@ -1220,12 +1235,12 @@ def test_decode_attention_source_bf16_tma(emulated, case, sms):
 
 
 def test_decode_attention_source_bf16_keeps_the_other_kernel(emulated):
-    # d % 8 != 0 (TMA's 16-byte rows), d > 128 and caches that are not
-    # 16-byte aligned stay on the float32 design with bf16 widened as it
-    # loads, chosen by shape and address
+    # d % 8 != 0 (TMA's 16-byte rows) and caches that are not 16-byte
+    # aligned stay on the float32 design with bf16 widened as it loads,
+    # chosen by shape and address
     for b, S, n_q, n_kv, d, clen, cap, shift in [
             (2, 96, 16, 1, 36, [96, 40], None, 0),
-            (1, 64, 4, 2, 256, [64], 50.0, 0),
+            (1, 64, 4, 2, 256, [64], 50.0, 1),
             (2, 80, 4, 2, 64, [80, 33], None, 1)]:
         q, kc, vc = _bf16(decode_case(b, S, n_q, n_kv, d, seed=4))
         if shift:                 # the same values 2 bytes off alignment
@@ -1243,16 +1258,16 @@ def test_decode_attention_source_bf16_keeps_the_other_kernel(emulated):
 
 
 @pytest.mark.parametrize("d,sms,per_sm", [(112, 132, 1), (64, 132, 1),
-                                          (128, 1, 1), (32, 7, 1)])
+                                          (128, 1, 1), (32, 7, 1),
+                                          (256, 132, 1)])
 def test_decode_attention_source_bf16_resident_blocks(emulated, d, sms,
                                                       per_sm):
     # the wrapper's residency query: SMs x the blocks of one SM's shared
     # memory (the emulated occupancy: 228 KB, 1 KB reserved a block); the
-    # kernel asks for 120 KB, so one block holds an SM
+    # kernel asks for 120 KB (160 KB at d = 256), so one block holds an SM
     emulated(sms)
     assert da.resident_blocks(d) == sms * per_sm
     assert _build.query("vpaas_decode_attention_bf16_resident", 36) == 0
-    assert _build.query("vpaas_decode_attention_bf16_resident", 256) == 0
 
 
 # (case, path): x, B and C bf16 through the tensor-core kernels (each

@@ -109,6 +109,52 @@ def test_decode_attention_plain_matches_jax(case):
 
 
 # ---------------------------------------------------------------------------
+# gemma2-9b's attention: d = 256, 16 q-heads over 8 kv-heads, softcap 50,
+# global layers and LOCAL ones (a window shorter than the sequence), at
+# small lengths
+# ---------------------------------------------------------------------------
+GEMMA2_FLASH = [
+    (1, 96, 96, 16, 8, 256, True, None, 50.0, 0),     # global prefill
+    (1, 96, 96, 16, 8, 256, True, 40, 50.0, 0),       # LOCAL prefill
+    (2, 32, 128, 16, 8, 256, True, 40, 50.0, 96),     # LOCAL cache prefill
+]
+GEMMA2_DECODE = [
+    (2, 128, 16, 8, 256, [128, 77], None, 50.0),      # global
+    (2, 128, 16, 8, 256, [128, 77], 40, 50.0),        # LOCAL
+]
+
+
+@pytest.mark.parametrize("case", GEMMA2_FLASH,
+                         ids=["global", "local", "local-offset"])
+def test_flash_attention_plain_matches_jax_at_gemma2_dims(case):
+    b, s_q, s_kv, n_q, n_kv, d, causal, window, cap, off = case
+    q, k, v = attention_case(b, s_q, s_kv, n_q, n_kv, d, seed=7)
+    kw = dict(causal=causal, window=window, softcap=cap, q_offset=off)
+    want = np.asarray(jref.flash_attention(*_j((q, k, v)), **kw))
+    want_kernel = np.asarray(jflash(*_j((q, k, v)), bq=16, bk=16,
+                                    interpret=True, **kw))
+    got = ops.flash_attention(*_t((q, k, v)), **kw).numpy()
+    assert got.shape == (b, s_q, n_q, d) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=ATTN_ATOL, rtol=0)
+    np.testing.assert_allclose(got, want_kernel, atol=ATTN_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("case", GEMMA2_DECODE, ids=["global", "local"])
+def test_decode_attention_plain_matches_jax_at_gemma2_dims(case):
+    b, S, n_q, n_kv, d, clen, window, cap = case
+    q, kc, vc = decode_case(b, S, n_q, n_kv, d, seed=7)
+    cl = np.asarray(clen, np.int32)
+    kw = dict(window=window, softcap=cap)
+    want = np.asarray(jref.decode_attention(*_j((q, kc, vc, cl)), **kw))
+    want_kernel = np.asarray(jdecode(*_j((q, kc, vc, cl)), bk=32,
+                                     interpret=True, **kw))
+    got = ops.decode_attention(*_t((q, kc, vc, cl)), **kw).numpy()
+    assert got.shape == (b, n_q, d) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=ATTN_ATOL, rtol=0)
+    np.testing.assert_allclose(got, want_kernel, atol=ATTN_ATOL, rtol=0)
+
+
+# ---------------------------------------------------------------------------
 # K8 SSD scan and the plain decode step
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("case", SSD_CASES,
