@@ -266,6 +266,21 @@ def fmt(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
+def report_uncapped(tag, row, timed, nocap, turns, card):
+    """A K6 or K7 row's yardstick where no PyTorch call computes its
+    function: SDPA on the same operands without the softcap and the
+    window, in turns with the kernel (:func:`versus_library`), kept apart
+    from ``library_ms`` (which stays None) as not the same function."""
+    row.update(sdpa_uncapped_ms=nocap[0], sdpa_uncapped_device_ms=nocap[1],
+               sdpa_uncapped_turns_ms=turns)
+    k, lib = turns["kernel"], turns["library"]
+    print(f"{tag} in turns with SDPA without the softcap and the window "
+          f"(not the same function): kernel {k[0]:.4f}, {k[1]:.4f} ms per "
+          f"call ({fmt(timed[1])} on the device), SDPA {lib[0]:.4f}, "
+          f"{lib[1]:.4f} ms per call ({fmt(nocap[1])} on the device) "
+          f"[{card}]")
+
+
 def kernel_instance(mangled: str):
     """A mangled entry function's kernel name with its template arguments
     (``float``, ``bf16``, integers): the name is the ``*_kernel`` whose
@@ -2428,6 +2443,8 @@ def _k6_instance(fa, b, s_q, n_q, d, d_v, dtype) -> str:
         nwg = fa.block_rows(b, s_q, n_q) // 64
         return f"flash_attention_wgmma_kernel<{nwg}, {nkt}>"
     if dtype == torch.float32 and fa.on_tensor_cores(d, d_v):
+        if d == d_v and d > 128:           # 32-row blocks of column warps
+            return "flash_attention_cols_kernel"
         if d == d_v:
             ndt = nvt = next(n for n in (4, 8, 12, 14, 16) if 8 * n >= d)
         else:
@@ -2443,14 +2460,18 @@ def _k6_instance(fa, b, s_q, n_q, d, d_v, dtype) -> str:
 def k7_instance(da, q, kc, vc) -> str:
     """The name (as ptxas reports it) of the K7 split kernel instance that
     the launcher runs on these operands: the bf16 TMA kernel by its
-    head-dim steps where :func:`decode_attention.on_tma` takes them, else
-    the split kernel by element type and q-heads a block.  Where this run
-    built the library, ptxas must have named that instance."""
+    head-dim steps where :func:`decode_attention.on_tma` takes them, the
+    float32 bulk kernel by the q-heads a warp carries where
+    :func:`decode_attention.on_bulk` does, else the split kernel by element
+    type and q-heads a block.  Where this run built the library, ptxas
+    must have named that instance."""
     import torch
     d, group = q.shape[-1], q.shape[1] // kc.shape[2]
     if da.on_tma(q, kc, vc):
         name = ("decode_tma_kernel<"
                 f"{next(n for n in (2, 4, 6, 7, 8, 16) if 16 * n >= d)}>")
+    elif da.on_bulk(q, kc, vc):
+        name = f"decode_bulk_kernel<{group if group <= 2 else 4}>"
     else:
         g = 1 if group == 1 else 2 if group == 2 else 4 if group <= 4 else 8
         elem = "bf16" if q.dtype == torch.bfloat16 else "float"
@@ -2545,7 +2566,7 @@ def phase_flash_attention(torch, np, card):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.testing import (ATTN_ATOL, FLASH_CASES, FLASH_DV_CASES,
                                      FLASH_EDGE_CASES, FLASH_RAGGED_CASES,
-                                     attention_case)
+                                     FLASH_WIDE_CASES, attention_case)
     rows = []
     for (b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap,
          what) in FLASH_PATH_SHAPES:
@@ -2563,17 +2584,26 @@ def phase_flash_attention(torch, np, card):
                                  f"{ATTN_ATOL}")
         kernel = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
         plain = measure(torch, lambda: fa.flash_attention_ref(q, k, v, **kw))
-        lib = turns = None
+        lib = turns = nocap = None
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         if cap is None and window is None:
             # the same function: causal from the top-left corner is
             # q_offset 0, and SDPA takes a value head dim of its own;
             # (b, heads, seq, d) layout made outside the timing
-            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             timed, lib, turns = versus_library(
                 torch, kernel, lambda: F.scaled_dot_product_attention(
                     qt, kt, vt, is_causal=causal), once=True)
+        elif d > 128:
+            # SDPA without the softcap and the window: not the same
+            # function (no single PyTorch call computes attention with a
+            # softcap), the d = 256 rows' yardstick, as the bf16 rows'
+            timed, nocap, turns = versus_library(
+                torch, kernel, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=n_q != n_kv),
+                once=True)
         else:
             timed = measure(torch, kernel, once=True)
+        del qt, kt, vt
         nbytes, ops, pairs = flash_bound(b, s_q, s_kv, n_q, n_kv, d, d_v,
                                          causal, window, cap)
         row = _row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
@@ -2589,15 +2619,18 @@ def phase_flash_attention(torch, np, card):
             tc = (f", tensor-core bound {row['bound_tc_ms']:.6f} ms "
                   f"({row['bound_tc_by']})")
         row["kernel"] = k6_instance(fa, b, s_q, n_q, d, d_v, q.dtype)
+        row["ptxas"] = instance_ptxas([row["kernel"]])
         tag = (f"K6 flash_attention {what} s_q={s_q} s_kv={s_kv} "
                f"{n_q}/{n_kv} heads d={d} d_v={d_v} causal={causal} "
                f"window={window} softcap={cap}")
-        if turns is not None:
+        if lib is not None:
             row.update(library_device_ms=lib[1], turns_ms=turns)
         _report(f"{tag}: {row['kernel']}, max abs err {err:.3e}{tc}", row,
                 card, "sdpa" if lib is not None else None)
-        if turns is not None:
+        if lib is not None:
             _report_turns(tag, turns, row, "sdpa", card)
+        if nocap is not None:
+            report_uncapped(tag, row, timed, nocap, turns, card)
         row["what"] = what
         rows.append(row)
     main_row = rows[0]
@@ -2607,7 +2640,7 @@ def phase_flash_attention(torch, np, card):
     errors = []
     cases = [c[:6] + (c[5],) + c[6:]          # d_v = d
              for c in FLASH_CASES + FLASH_RAGGED_CASES] + FLASH_DV_CASES \
-        + FLASH_EDGE_CASES
+        + FLASH_EDGE_CASES + FLASH_WIDE_CASES
     for b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off in cases:
         q, k, v = (torch.as_tensor(a, device="cuda") for a in
                    attention_case(b, s_q, s_kv, n_q, n_kv, d, d_v=d_v))
@@ -2815,7 +2848,8 @@ def phase_decode_attention(torch, np, card):
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention as da
-    from repro_torch.testing import ATTN_ATOL, decode_case
+    from repro_torch.testing import (ATTN_ATOL, DECODE_CASES,
+                                     DECODE_WIDE_CASES, decode_case)
     rows = []
     for b, S, n_q, n_kv, d, clen, window, cap in DECODE_PATH_SHAPES:
         q, kc, vc = (torch.as_tensor(a, device="cuda") for a in
@@ -2834,20 +2868,26 @@ def phase_decode_attention(torch, np, card):
         kernel = lambda: da.decode_attention(q, kc, vc, cl, **kw)  # noqa: E731
         plain = measure(torch, lambda: da.decode_attention_ref(q, kc, vc, cl,
                                                                **kw))
-        lib = turns = sdpa_kernels = None
+        lib = turns = sdpa_kernels = nocap = None
+        valid = (torch.arange(S, device="cuda")[None, :]
+                 < cl[:, None].long())[:, None, None, :]
+        qt = q[:, :, None, :]
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
         if cap is None and window is None:
-            valid = (torch.arange(S, device="cuda")[None, :]
-                     < cl[:, None].long())[:, None, None, :]
-            qt = q[:, :, None, :]
-            kt, vt = (t.transpose(1, 2).contiguous() for t in (kc, vc))
             sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, kt, vt, attn_mask=valid)
             timed, lib, turns = versus_library(torch, kernel, sdpa)
             # SDPA picks its backend itself for an fp32 boolean mask
             sdpa_kernels = device_kernels(profile_device(torch, sdpa, 10)[1],
                                           10)[0]
+        elif d > 128:
+            # without the softcap and the window: not the same function
+            timed, nocap, turns = versus_library(
+                torch, kernel, lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=valid, enable_gqa=n_q != n_kv))
         else:
             timed = measure(torch, kernel)
+        del qt, kt, vt
         names, per_call = device_kernels(profile_device(torch, kernel, 10)[1],
                                          10)
         nbytes = decode_nbytes(b, n_q, n_kv, d, clen, S, window)
@@ -2858,23 +2898,55 @@ def phase_decode_attention(torch, np, card):
                    f"b={b} S={S} heads={n_q}/{n_kv} d={d} lens={clen} "
                    f"window={window} softcap={cap}", err, timed, plain,
                    None if lib is None else lib[0], nbytes, ops)
-        per, nsplit = da.splits(b, S, n_kv, window)
-        row.update(splits=nsplit, device_kernels_per_call=per_call)
+        per, nsplit = da.plan(q, kc, vc, window)
+        row.update(splits=nsplit, device_kernels_per_call=per_call,
+                   kernel=k7_instance(da, q, kc, vc))
+        row["ptxas"] = instance_ptxas([row["kernel"]])
         tag = (f"K7 decode_attention b={b} S={S} {n_q}/{n_kv} heads d={d} "
                f"window={window} softcap={cap}")
-        if turns is not None:
+        if lib is not None:
             row.update(library_device_ms=lib[1], turns_ms=turns,
                        library_kernels=[n for n, _ in sdpa_kernels])
-        _report(f"{tag}: max abs err {err:.3e}, {nsplit} splits of {per} "
-                f"slots, {per_call:g} device kernels per call "
-                f"({', '.join(n[:40] for n, _ in names)})", row, card,
+        _report(f"{tag}: {row['kernel']}, max abs err {err:.3e}, {nsplit} "
+                f"splits of {per} slots, {per_call:g} device kernels per "
+                f"call ({', '.join(n[:40] for n, _ in names)})", row, card,
                 "sdpa" if lib is not None else None)
-        if turns is not None:
+        if lib is not None:
             _report_turns(tag, turns, row, "sdpa", card)
             print("  sdpa's device kernels: " + "; ".join(
                 f"{n[:80]} x{c:g}" for n, c in sdpa_kernels))
+        if nocap is not None:
+            report_uncapped(tag, row, timed, nocap, turns, card)
         rows.append(row)
     rows[0]["other_shapes"] = rows[1:]
+    # the error at every shape of the CPU tests' cases (the bulk kernel's
+    # at several emulated card sizes: here on this card's plan), each
+    # bit-identical on a second call
+    errors = []
+    for b, S, n_q, n_kv, d, clen, window, cap in DECODE_CASES + [
+            c for c, _ in DECODE_WIDE_CASES]:
+        q, kc, vc = (torch.as_tensor(a, device="cuda") for a in
+                     decode_case(b, S, n_q, n_kv, d, seed=SEED))
+        cl = torch.as_tensor(np.broadcast_to(np.asarray(clen), (b,)).copy(),
+                             dtype=torch.int32, device="cuda")
+        kw = dict(window=window, softcap=cap)
+        got = da.decode_attention(q, kc, vc, cl, **kw)
+        err = float((got - da.decode_attention_ref(q, kc, vc, cl, **kw))
+                    .abs().max())
+        shape = (f"b={b} S={S} heads={n_q}/{n_kv} d={d} lens={clen} "
+                 f"window={window} softcap={cap}")
+        if not (err <= ATTN_ATOL and torch.equal(
+                da.decode_attention(q, kc, vc, cl, **kw), got)):
+            raise AssertionError(f"K7 at the test case {shape}: max abs "
+                                 f"error {err} (tolerance {ATTN_ATOL}) or "
+                                 f"not bit-identical run to run")
+        errors.append({"shape": shape, "max_abs_err": err,
+                       "kernel": k7_instance(da, q, kc, vc)})
+    rows[0]["case_errors"] = errors
+    print(f"K7 at the {len(errors)} test-case shapes: max abs err "
+          + ", ".join(f"{e['max_abs_err']:.2e}" for e in errors)
+          + f" (tolerance {ATTN_ATOL}), each bit-identical on a second "
+            f"call [{card}]")
     rows[0]["bf16"] = phase_decode_attention_bf16(torch, np, card)
     return rows[0]
 
@@ -3203,19 +3275,21 @@ card = cs.card_line()
 {calls}
 """
 # the parent's phases that --parent runs before and after this tree's: the
-# video kernels' (their device times matched by parent_key), then K7's and
-# K8's (their lines relayed)
+# video kernels' (their device times matched by parent_key), then K6's,
+# K7's and K8's (their lines relayed; --only k6 / k7 / k8 runs those named)
 PARENT_VIDEO = ("phase_crop_gather", "phase_onevsall_update",
                 "phase_region_filter", "phase_frame_filter",
                 "phase_iou_matrix")
-PARENT_LLM = ("phase_decode_attention", "phase_ssd_scan")
+PARENT_LLM = {"k6": "phase_flash_attention", "k7": "phase_decode_attention",
+              "k8": "phase_ssd_scan"}
 # host-bound probes that --only runs in a process of their own, on this
 # tree's package and with --parent on the parent's (they read only the
 # package's entry points), by the start of their lines: a fresh process
 # for each, so that the two trees' host times compare
 PROBES = {"phase_k7_host": "K7 bf16 host",
           "phase_decode_step": "decode_32k step",
-          "phase_gemma2_32k": "gemma2 32k"}
+          "phase_gemma2_32k": "gemma2 32k",
+          "phase_gemma2_serve": "gemma2 serve"}
 
 
 def run_parent(root: str, phases, own: bool = False) -> str:
@@ -3237,10 +3311,12 @@ def run_parent(root: str, phases, own: bool = False) -> str:
     return run.stdout
 
 
-def relay_parent_llm(root: str, when: str) -> None:
-    """The parent's K7 and K8 rows (float32 and bf16), relayed."""
-    for line in run_parent(root, PARENT_LLM).splitlines():
-        if line.startswith(("K7", "K8")):
+def relay_parent_llm(root: str, when: str, only=None) -> None:
+    """The parent's K6, K7 and K8 rows (float32 and bf16), or those of
+    ``only`` (names of PARENT_LLM), relayed."""
+    phases = [p for n, p in PARENT_LLM.items() if only is None or n in only]
+    for line in run_parent(root, phases).splitlines():
+        if line.startswith(("K6", "K7", "K8")):
             print(f"  parent ({when} this tree's): {line}")
 
 
@@ -4081,7 +4157,8 @@ def draw_full_width(torch, card, cfg):
 def phase_llm_main_path(torch, np, card, arch=LLM_ARCH):
     """``arch`` at full width behind ``LLMServer``: LLM_REQUESTS prompts
     through LLM_SLOTS slots, launch counts zeroed just before and read just
-    after; returns (counts, cfg, params)."""
+    after; returns (counts, cfg, params, figures): prefill and decode ms
+    (medians), tokens/s, wall s and profile_llm's traced (wall, busy) ms."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import transformer as tfm
@@ -4134,16 +4211,20 @@ def phase_llm_main_path(torch, np, card, arch=LLM_ARCH):
           f"{steps}, min {min(dec) * 1e3:.2f}); peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
           f"{ {k: counts[k] for k in want} } [{card}]")
-    profile_llm(torch, np, card, cfg, params)
+    figures = dict(
+        prefill_ms=statistics.median(pre) * 1e3,
+        decode_ms=statistics.median(dec) * 1e3, tokens_per_s=tokens / wall,
+        wall_s=wall, profile=profile_llm(torch, np, card, cfg, params))
     del server
     torch.cuda.empty_cache()
-    return counts, cfg, params
+    return counts, cfg, params, figures
 
 
-def profile_llm(torch, np, card, cfg, params, ctx=None):
+def profile_llm(torch, np, card, cfg, params, ctx=None) -> dict:
     """Where one prefill and one 4-slot decode step spend the card's time
     (their wall time is inflated by the tracing; the shares count).  A ctx
-    config takes ``ctx`` (LLM_SLOTS rows; the prefill the first)."""
+    config takes ``ctx`` (LLM_SLOTS rows; the prefill the first).  Returns
+    {"prefill" / "decode step": (traced wall ms, device busy ms)}."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import transformer as tfm
@@ -4154,6 +4235,7 @@ def profile_llm(torch, np, card, cfg, params, ctx=None):
     last = torch.zeros((LLM_SLOTS, 1), dtype=torch.long, device="cuda")
     idx = torch.full((LLM_SLOTS,), LLM_PROMPT, device="cuda")
     first = None if ctx is None else ctx[:1]
+    out = {}
     for what, fn in (
             ("prefill", lambda: tfm.prefill(
                 cfg, params, toks, tfm.init_cache(cfg, 1, LLM_MAX_SEQ,
@@ -4178,6 +4260,8 @@ def profile_llm(torch, np, card, cfg, params, ctx=None):
         print("  top device time: " + "; ".join(
             f"{e.key[:48]} {_self_device_us(e) / 1e3:.3f} ms x{e.count}"
             for e in top))
+        out[what] = (wall * 1e3, busy)
+    return out
 
 
 def llm_reference(torch, np, card, cfg, ctx=None):
@@ -4303,6 +4387,31 @@ def phase_gemma2_reference(torch, np, card):
     from repro_torch.configs import get_config
     return llm_reference(torch, np, card,
                          block_cut(get_config(GEMMA_ARCH), 2))
+
+
+def phase_gemma2_serve(torch, card) -> dict:
+    """gemma2-9b's float32 serving path alone (``--only gemma2_serve``; with
+    --parent on each tree's package, each in a process of its own): its
+    two-block cut against the CPU, then the full width behind LLMServer,
+    summed up in one line: prefill ms a request, decode ms a step,
+    tokens/s, the device's busy share of a traced prefill and decode step,
+    the K6 and K7 launches."""
+    import numpy as np
+    check = phase_gemma2_reference(torch, np, card)
+    counts, _, params, got = phase_llm_main_path(torch, np, card, GEMMA_ARCH)
+    del params
+    torch.cuda.empty_cache()
+    busy = {what: b / w for what, (w, b) in got["profile"].items()}
+    print(f"gemma2 serve float32: prefill {got['prefill_ms']:.2f} ms a "
+          f"request, decode {got['decode_ms']:.2f} ms a step, "
+          f"{got['tokens_per_s']:.2f} tokens/s; device busy "
+          f"{busy['prefill']:.1%} of a traced prefill, "
+          f"{busy['decode step']:.1%} of a decode step; launches K6 "
+          f"{counts['flash_attention']}, K7 {counts['decode_attention']}; "
+          f"the cut against the CPU within {check['worst']:.2e}, greedy "
+          f"tokens equal at {check['compared'] - check['ties']} of "
+          f"{check['compared']} [{card}]")
+    return got
 
 
 def phase_moe_reference(torch, np, card):
@@ -5388,6 +5497,7 @@ def phase_gemma2(torch, np, card):
 ONLY_PHASES = {
     "split": lambda torch, np, card: phase_llm_kernel_split(
         torch, card, card_batches(dryrun_card_table(DRYRUN_CARD_SHAPES))),
+    "k6": phase_flash_attention,
     "k7": phase_decode_attention,
     "k8": phase_ssd_scan,
     "dryrun_kernels": lambda torch, np, card: phase_dryrun_kernels(
@@ -5402,6 +5512,8 @@ ONLY_PHASES = {
     "gemma2_32k": lambda torch, np, card: relay_probes(
         ROOT, "this tree", ["phase_gemma2_32k"]),
     "gemma2": phase_gemma2,
+    "gemma2_serve": lambda torch, np, card: relay_probes(
+        ROOT, "this tree", ["phase_gemma2_serve"]),
 }
 
 
@@ -5411,14 +5523,14 @@ def main() -> int:
     ap.add_argument("--parent", metavar="DIR",
                     help="another checkout (e.g. the parent commit from git "
                          "archive): its K2, K5, K1, K4b and K4a phases, and "
-                         "its K7 and K8 phases, run before and after this "
-                         "tree's, on the same card")
+                         "its K6, K7 and K8 phases, run before and after "
+                         "this tree's, on the same card")
     ap.add_argument("--only", nargs="+", choices=sorted(ONLY_PHASES),
                     help="build, then run only these phases and stop (no "
-                         "contract line); with --parent the parent's K7 / "
-                         "K8 rows (k7, k8) and this script's probes on its "
-                         "package (k7_host, decode_step) run before and "
-                         "after")
+                         "contract line); with --parent the parent's K6 / "
+                         "K7 / K8 rows (k6, k7, k8) and this script's "
+                         "probes on its package (k7_host, decode_step, "
+                         "gemma2_32k, gemma2_serve) run before and after")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         raise SystemExit("chip_smoke.py: src/repro_torch not found next to "
@@ -5451,8 +5563,8 @@ def main() -> int:
         probes = [f"phase_{n}" for n in args.only if f"phase_{n}" in PROBES]
 
         def relay(when):
-            if args.parent and {"k7", "k8"} & set(args.only):
-                relay_parent_llm(args.parent, when)
+            if args.parent and set(PARENT_LLM) & set(args.only):
+                relay_parent_llm(args.parent, when, args.only)
             if args.parent and probes:
                 relay_probes(args.parent, f"parent ({when} this tree's)",
                              probes)
@@ -5539,7 +5651,7 @@ def main() -> int:
     del trained, served
     dryrun = phase_dryrun(torch, np, card)
     phase_llm_reference(torch, np, card)
-    llm_counts, llm_cfg, llm_params = phase_llm_main_path(torch, np, card)
+    llm_counts, llm_cfg, llm_params, _ = phase_llm_main_path(torch, np, card)
     cascade_counts = phase_cascade(torch, np, card, llm_cfg, llm_params)
     del llm_params
     torch.cuda.empty_cache()
@@ -5549,14 +5661,14 @@ def main() -> int:
     checks = {MOE_ARCH: phase_moe_reference(torch, np, card),
               CROSS_ARCH: phase_cross_reference(torch, np, card),
               GEMMA_ARCH: phase_gemma2_reference(torch, np, card)}
-    moe_counts, _, moe_params = phase_llm_main_path(torch, np, card,
+    moe_counts, _, moe_params, _ = phase_llm_main_path(torch, np, card,
                                                     MOE_ARCH)
     del moe_params
     torch.cuda.empty_cache()
     cross_counts = phase_cross_main_path(torch, np, card)
     # gemma2-9b (LOCAL / global attention, softcaps, d = 256) served in
     # float32 once musicgen's weights are freed: its 37 GB
-    gemma_counts, _, gemma_params = phase_llm_main_path(torch, np, card,
+    gemma_counts, _, gemma_params, _ = phase_llm_main_path(torch, np, card,
                                                         GEMMA_ARCH)
     del gemma_params
     torch.cuda.empty_cache()

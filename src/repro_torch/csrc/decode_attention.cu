@@ -19,7 +19,8 @@
 // every SM, which one block per (kv-head, row) -- 128 blocks of 4 warps,
 // each walking ~400 slots one dependent step at a time -- never had.
 //
-// The design: two kernels from one launcher.
+// The first float32 design (d <= 128, or d % 4 != 0, or unaligned
+// caches): two kernels from one launcher.
 //  1. decode_split_kernel, grid (kv-head group, batch row, split): a row's
 //     valid slots [lo, hi) are cut into splits of `per` slots (the wrapper
 //     picks per and nsplit from the longest valid length the host knows
@@ -45,6 +46,52 @@
 //     no slot (past a short row, outside its window) writes m = -inf only
 //     and weighs nothing; a row whose splits are all empty gets the mean
 //     of V.
+//
+// float32 at 128 < d <= 256, d % 4 == 0, aligned caches (gemma2-9b's
+// serving decode: 4 slots at 385-399 of 512, 16 q-heads over 8 kv-heads,
+// 25.7 MB of K and V a call, 7.7 us at 3.35 TB/s), decode_bulk_kernel,
+// namespace bulk.  The split kernel there was bound by how it read: 8
+// splits of 64 slots, 256 blocks of 136 KB (one an SM: 1.94 waves, split 7
+// empty and split 6 nearly so at every row), each streaming one kv-head's
+// 1 KB rows, 8 KB apart in the (B, S, H, D) caches, then a second launch
+// to combine.  The design mends each:
+//  - A block takes 4 consecutive kv-heads, one a warp: a slot's K (and V)
+//    rows of the 4 lie side by side, 4 KB contiguous, and one
+//    cp.async.bulk copies them (no tensor map: a row is one contiguous
+//    run).  Lanes of warp 0 issue a tile's 8 slots of K and of V at once
+//    into a ring of three 64 KB stages with full and empty mbarriers; 192
+//    KB asked, one block an SM.
+//  - The splits fill one wave of the card's resident blocks (the wrapper
+//    plans by the library's occupancy answer, decode_attention.bulk_splits:
+//    a row's merge waits for its last split, so a second wave would hold
+//    it back): 16 splits of 32 slots at gemma2's decode, 128 blocks on 132
+//    SMs, each with three of its four tiles in flight from its start.
+//  - q.k and p.v stay on the CUDA cores in exact fp32 FMAs: at a GQA
+//    group of 2 the function does half an FMA a byte, so bytes bound it.
+//    Lane l holds 8 of d's columns; a tile's 8 slots x G heads of partial
+//    dot products are reduce-scattered across the warp (16 shuffles at G
+//    = 2, where a sum into every lane took 80), so each logit is capped
+//    and exponentiated by its own lanes, not by all 32, and p goes to the
+//    lanes by a shuffle.  The slot loops have no branch: a branch a slot
+//    left the logits in local memory and each load waiting on the last
+//    slot's products, several times as long a tile (a globaltimer trace
+//    of each block's steps, on the card).
+//  - One launch: each block writes its split's (acc, m, l) as the split
+//    kernel does, then counts itself in (one acq_rel atomic on a counter
+//    of its (row, block column) in device memory, by thread 0 after a
+//    barrier, where a fence in every thread held each block up); the
+//    block that
+//    completes the count merges the row's splits in split order, as the
+//    combine kernel does, and sets the counter back to 0 for the next
+//    launch.  Its thread 0 asks for the splits' rows at once: one
+//    cp.async.bulk a head into the free ring (16-byte rows of d + 4
+//    floats), one trip to L2 where a load a split had each wait for the
+//    last.  The merge's loops of run-time length stay rolled and
+//    the mean of V is out of line: it runs once a block on cold code.
+//    The merge's order never depends on which block is last, so the
+//    result is bit-identical run to run, and the counters start every
+//    launch at 0 (a CUDA graph replays it as it is); calls on one device
+//    share the counters, so they must not run on two streams at once.
 //
 // bf16 q and caches (vpaas_decode_attention_bf16), the reference's launch
 // path: a byte-bound kernel whose bytes bf16 halves (zamba2's decode_32k,
@@ -804,6 +851,542 @@ int resident(int D) {
 
 }  // namespace tma
 
+// ---------------------------------------------------------------------------
+// float32, 128 < d <= 256, d % 4 == 0, aligned caches: bulk copies of
+// contiguous multi-head tiles, the combine in the split's last block
+// ---------------------------------------------------------------------------
+namespace bulk {
+
+constexpr int kWarps = 4;        // one kv-head a warp
+constexpr int kBlock = 32 * kWarps;
+constexpr int kSlots = 8;        // slots a tile, of each of the block's heads
+constexpr int kStages = 3;       // tiles in flight
+constexpr int kMaxD = 256;
+constexpr int kCols = 2;         // float4 column chunks a lane: 8 columns
+constexpr int kMaxCounters = 1 << 16;
+
+// arrivals a (batch row, block column) of the grid, zero between launches:
+// the block whose arrival completes its row's splits merges them and sets
+// the count back to 0
+__device__ unsigned arrivals[kMaxCounters];
+
+// shared memory: kStages stages of K then V, each kSlots x kWarps rows of D
+// floats (slot-major, the heads of a slot side by side, as in the cache;
+// the merge's workspace rows once they are read), then a full and an empty
+// mbarrier a stage, the merge's mbarrier and the last-block flag
+constexpr unsigned kStageFloats = 2 * kSlots * kWarps * kMaxD;
+constexpr unsigned kOffBar = kStages * kStageFloats * 4;
+constexpr unsigned kSmem = kOffBar + 16 * kStages + 16;
+
+// A warp sum of N values a lane, reduce-scattered (V values at the start):
+// at the step of offset O = 16 N / V a lane keeps the half of its values
+// whose index bit matches its lane bit O and adds its partner's half, so
+// after log2(V) steps s[0] is value lane >> (5 - log2 V) summed over the
+// lanes of those bits.  Values are picked by value (two loads, then a
+// select): a select of array elements kept s in local memory.
+template <int N, int V>
+__device__ __forceinline__ void reduce_scatter(float* s, int lane) {
+  if constexpr (N > 1) {
+    constexpr int H = N / 2;
+    constexpr int O = 16 * N / V;
+    const bool upper = (lane & O) != 0;
+#pragma unroll
+    for (int u = 0; u < H; ++u) {
+      const float lo = s[u], hi = s[u + H];
+      const float theirs = __shfl_xor_sync(kFull, upper ? lo : hi, O);
+      s[u] = (upper ? hi : lo) + theirs;
+    }
+    reduce_scatter<H, V>(s, lane);
+  }
+}
+
+// a float4 of a shared row, or zeros where ok is false (no branch: the
+// address is read either way, so it must lie inside the ring)
+__device__ __forceinline__ float4 load4_or_zero(const float* p, bool ok) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  return make_float4(ok ? x.x : 0.f, ok ? x.y : 0.f, ok ? x.z : 0.f,
+                     ok ? x.w : 0.f);
+}
+
+// A head with no valid slot: the plain version's softmax over S equal
+// -1e30 logits is uniform, so it gets the mean of V (the lane's columns;
+// out of line: no path has such a row, and its loops unrolled into the
+// merge made the code that runs cold much longer)
+__device__ __noinline__ void mean_of_v(float* o, const float* __restrict__ v,
+                                       int b, int S, int Hkv, int D, int hk,
+                                       const int (&col)[kCols]) {
+#pragma unroll 1
+  for (int c = 0; c < kCols; ++c)
+#pragma unroll 1
+    for (int e = 0; e < 4; ++e) {
+      if (col[c] >= D) continue;
+      const float* vc = v + ((size_t)b * S * Hkv + hk) * D + col[c] + e;
+      float sum = 0.f;
+#pragma unroll 1
+      for (int j = 0; j < S; ++j) sum += vc[(size_t)j * Hkv * D];
+      o[col[c] + e] = sum / (float)S;
+    }
+}
+
+// The workspace rows of splits [x0, x0 + ch) of the block's q-heads into
+// the ring, by one cp.async.bulk a head (a head's splits are contiguous),
+// delivered to bar (one thread)
+__device__ __forceinline__ void merge_load(float* smem, uint64_t* bar,
+                                           const float* __restrict__ ws,
+                                           int b, int Hq, int D, int group,
+                                           int hk0, int nkv, int sub, int nh,
+                                           int G, int nsplit, int x0, int ch,
+                                           int ch_max) {
+  const int W = D + 4;
+  mbar_arrive_expect_tx(bar, 4u * nkv * nh * ch * W);
+#pragma unroll 1
+  for (int u = 0; u < nkv; ++u)
+#pragma unroll 1
+    for (int g = 0; g < nh; ++g)
+      bulk_load(smem + (size_t)((u * G + g) * ch_max) * W,
+                ws + (((size_t)b * Hq + (hk0 + u) * group + sub * G + g) *
+                      nsplit + x0) * W,
+                4u * ch * W, bar);
+}
+
+// The merge of a row's splits for the block's q-heads, by every thread of
+// the row's last block: each split weighted by exp(m - max m), in split
+// order, as decode_combine_kernel (bit-identical run to run).  The splits'
+// workspace rows (acc, m, l and two floats of padding: 16-byte rows) come
+// into the free ring a chunk of splits at a time (merge_load: one trip to
+// L2; thread 0 issued the first chunk's as soon as its atomic said the
+// block is last).  Then warp w takes its kv-head's q-heads: lane x reads
+// split x's m for the chunk's max and leaves the split's weight in the
+// row's padding, and every lane adds its 8 columns split by split, its
+// heads side by side and the shared reads of several splits in flight.
+// Where a later chunk raises the max, the sums so far are scaled down to
+// it first.
+template <int G>
+__device__ __forceinline__ void merge(float* smem, uint64_t* bar,
+                                      const float* __restrict__ ws,
+                                      const float* __restrict__ v,
+                                      float* __restrict__ out, int b, int S,
+                                      int Hq, int Hkv, int D, int group,
+                                      int hk0, int nkv, int sub, int nh,
+                                      int nsplit, const int (&col)[kCols]) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int W = D + 4;                            // a workspace row
+  const int ch_max = kStages * kStageFloats / (kWarps * G * W);
+  const int hk = hk0 + warp;
+  const int h0 = hk * group + sub * G;
+  float mx[G], num[G][4 * kCols], den[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    mx[g] = -INFINITY;
+    den[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4 * kCols; ++e) num[g][e] = 0.f;
+  }
+  const float* r0[G];
+  for (int x0 = 0, phase = 0; x0 < nsplit; x0 += ch_max, phase ^= 1) {
+    const int ch = min(ch_max, nsplit - x0);
+    if (x0 > 0) {
+      __syncthreads();                 // the last chunk is read
+      if (threadIdx.x == 0)
+        merge_load(smem, bar, ws, b, Hq, D, group, hk0, nkv, sub, nh, G,
+                   nsplit, x0, ch, ch_max);
+    }
+    mbar_wait(bar, phase);
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float* r = smem + (size_t)((warp * G + g) * ch_max) * W;
+      r0[g] = r;
+      if (g >= nh) continue;
+      // (loops of a run-time length stay rolled: the merge runs once a
+      // block, and unrolled code is fetched cold)
+      float cmx = -INFINITY;
+#pragma unroll 1
+      for (int x = lane; x < ch; x += 32) cmx = fmaxf(cmx, r[x * W + D]);
+      const float m_new = fmaxf(mx[g], warp_max(cmx));
+      if (m_new != mx[g] && mx[g] != -INFINITY) {
+        const float scale = expf(mx[g] - m_new);
+#pragma unroll
+        for (int e = 0; e < 4 * kCols; ++e) num[g][e] *= scale;
+        den[g] *= scale;
+      }
+      mx[g] = m_new;
+      // split x's weight (0 where empty) into its row's padding
+#pragma unroll 1
+      for (int x = lane; x < ch; x += 32) {
+        const float ms = r[x * W + D];
+        r[x * W + D + 2] = ms == -INFINITY ? 0.f : expf(ms - m_new);
+      }
+    }
+    __syncwarp();
+#pragma unroll 2
+    for (int x = 0; x < ch; ++x) {
+      float f[G], l[G];
+      float4 a[G][kCols];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float* r = r0[g] + x * W;
+        f[g] = g < nh ? r[D + 2] : 0.f;
+        l[g] = r[D + 1];
+#pragma unroll
+        for (int c = 0; c < kCols; ++c)
+          // zeros for an empty split's stale acc (its weight is 0, and 0
+          // times a stale inf or NaN is not), and column 0 where the
+          // lane's columns pass d: past the last row lies the end of
+          // shared memory
+          a[g][c] = load4_or_zero(r + (col[c] < D ? col[c] : 0),
+                                  col[c] < D && f[g] != 0.f);
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          num[g][4 * c] += a[g][c].x * f[g];
+          num[g][4 * c + 1] += a[g][c].y * f[g];
+          num[g][4 * c + 2] += a[g][c].z * f[g];
+          num[g][4 * c + 3] += a[g][c].w * f[g];
+        }
+        den[g] += f[g] != 0.f ? l[g] * f[g] : 0.f;
+      }
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    if (g >= nh) continue;
+    float* o = out + ((size_t)b * Hq + h0 + g) * D;
+    if (mx[g] == -INFINITY) {
+      mean_of_v(o, v, b, S, Hkv, D, hk, col);
+      continue;
+    }
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (col[c] < D) o[col[c] + e] = num[g][4 * c + e] / den[g];
+  }
+}
+
+// G = q-heads a warp carries (its kv-head's group, or a part of it).  One
+// block per (kWarps consecutive kv-heads, group part, batch row, split of
+// the row's valid slots [s_lo, s_hi)).  Lanes 0 .. n - 1 of warp 0 copy
+// slot j's K row of the block's heads (nkv x D floats, contiguous in the
+// (B, S, H, D) cache) by one cp.async.bulk each, lanes 8 .. 8 + n - 1 its
+// V row, into a ring of kStages tiles with full and empty mbarriers.  Warp
+// w takes kv-head hk0 + w: lane l holds columns [4 l, 4 l + 4) and [128 +
+// 4 l, 128 + 4 l + 4) of q, K, V and O.  A tile's kSlots x G dot products
+// are the lanes' partial sums reduce-scattered (reduce_scatter): each ends
+// in the lanes of one value, which cap, mask and exponentiate it once, and
+// each lane takes the p it needs for p.v by a shuffle.  Slots past the
+// tile's end are read and masked, not branched around.  The split's (acc,
+// m, l) go to the workspace, as the split kernel's; then the block counts
+// itself in, and the one that completes its (row, block column)'s nsplit
+// arrivals merges the splits in split order for the block's q-heads
+// (merge), as decode_combine_kernel does (bit-identical run to run: the
+// order does not depend on which block is last).
+template <int G>
+__global__ void __launch_bounds__(kBlock, 1)
+decode_bulk_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const int32_t* __restrict__ cache_len,
+                   float* __restrict__ ws, float* __restrict__ out, int S,
+                   int Hq, int Hkv, int D, int group, int nsub, int per,
+                   int nsplit, int window, float softcap, float scale) {
+  // a tile's (slot, head) logits, kSlots * G of them, and the lane bits
+  // below a value's index once they are reduce-scattered (see below)
+  constexpr int V = kSlots * G;
+  constexpr int LV = V == 8 ? 3 : V == 16 ? 4 : 5;
+  constexpr int SH = 5 - LV;
+  constexpr int LG = G == 1 ? 0 : G == 2 ? 1 : 2;
+  static_assert(V == 1 << LV && G == 1 << LG, "whole lane bits");
+  extern __shared__ __align__(16) float smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      reinterpret_cast<uint8_t*>(smem) + kOffBar);
+  uint64_t* empty = full + kStages;
+  uint64_t* merged = empty + kStages;             // the merge's loads
+  int* last = reinterpret_cast<int*>(merged + 1);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int hk0 = blockIdx.x / nsub * kWarps;     // the block's first kv-head
+  const int sub = blockIdx.x % nsub;
+  const int nkv = min(kWarps, Hkv - hk0);         // kv-heads it loads
+  const int hk = hk0 + warp;                      // this warp's
+  const int h0 = hk * group + sub * G;            // its first q-head
+  const int nh = warp < nkv ? min(G, group - sub * G) : 0;
+  const int b = blockIdx.y;
+  const int sp = blockIdx.z;
+
+  // this lane's columns of q (zeros past D and past the warp's heads),
+  // asked before cache_len so that the two loads overlap
+  const int col[kCols] = {4 * lane, 128 + 4 * lane};
+  float qr[G][4 * kCols];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        qr[g][4 * c + e] =
+            g < nh && col[c] < D
+                ? q[((size_t)b * Hq + h0 + g) * D + col[c] + e] : 0.f;
+
+  const int clen = cache_len[b];
+  const int lo = window > 0 ? max(0, clen - window) : 0;
+  const int hi = min(clen, S);
+  const int s_lo = lo + sp * per;                 // this split
+  const int s_hi = min(hi, s_lo + per);
+  const int ntiles = s_lo < s_hi ? (s_hi - s_lo + kSlots - 1) / kSlots : 0;
+  const size_t wrow = (size_t)nsplit * (D + 4);
+  const unsigned row_bytes = 4u * nkv * D;        // a slot of the block
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], kWarps);
+    }
+    mbar_init(merged, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  // tile i into stage i % kStages (warp 0)
+  auto load_tile = [&](int i) {
+    const int st = i % kStages;
+    const int t0 = s_lo + i * kSlots;
+    const int n = min(kSlots, s_hi - t0);
+    if (lane == 0) mbar_arrive_expect_tx(&full[st], 2 * n * row_bytes);
+    __syncwarp();
+    const int j = lane % kSlots;
+    if (lane < 2 * kSlots && j < n) {
+      const float* src = (lane < kSlots ? k : v) +
+                         (((size_t)b * S + t0 + j) * Hkv + hk0) * D;
+      float* dst = smem + st * kStageFloats +
+                   (lane < kSlots ? 0 : kStageFloats / 2) +
+                   j * kWarps * D;
+      bulk_load(dst, src, row_bytes, &full[st]);
+    }
+  };
+  if (warp == 0)
+    for (int i = 0; i < min(kStages, ntiles); ++i) load_tile(i);
+
+  // the running max and sum of this lane's head (g_own, below), which the
+  // lanes of one head hold alike; acc the lane's columns of every head
+  const int idx = lane >> SH;                     // its (slot, head) value
+  const int j_own = idx >> LG;
+  const int g_own = idx & (G - 1);
+  float m_own = -INFINITY, l_own = 0.f;
+  float acc[G][4 * kCols];
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int e = 0; e < 4 * kCols; ++e) acc[g][e] = 0.f;
+
+  for (int i = 0; i < ntiles; ++i) {
+    const int st = i % kStages;
+    const int n = min(kSlots, s_hi - s_lo - i * kSlots);   // slots in it
+    mbar_wait(&full[st], (i / kStages) & 1);
+    if (nh > 0) {                        // warp-uniform
+      const float* Kt = smem + st * kStageFloats + warp * D;
+      const float* Vt = Kt + kStageFloats / 2;
+      // q.k of each (slot j, head g) as s[G j + g]: the lane's 8 products.
+      // Every slot of the tile is read, with no branch a slot (branches
+      // kept s in local memory and each load behind the last slot's
+      // products): slots past n read what the stage held before, and the
+      // softmax masks their logits
+      float s[V];
+#pragma unroll
+      for (int j = 0; j < kSlots; ++j) {
+#pragma unroll
+        for (int g = 0; g < G; ++g) s[G * j + g] = 0.f;
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          const float4 kx = load4_or_zero(Kt + j * kWarps * D + col[c],
+                                          col[c] < D);
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            float& x = s[G * j + g];
+            x = fmaf(qr[g][4 * c], kx.x, x);
+            x = fmaf(qr[g][4 * c + 1], kx.y, x);
+            x = fmaf(qr[g][4 * c + 2], kx.z, x);
+            x = fmaf(qr[g][4 * c + 3], kx.w, x);
+          }
+        }
+      }
+      // the warp sums, reduce-scattered (value idx = lane >> SH), then
+      // the last SH steps add the lanes below (lanes of one value agree
+      // bit for bit)
+      reduce_scatter<V, V>(s, lane);
+#pragma unroll
+      for (int o = (1 << SH) >> 1; o > 0; o >>= 1)
+        s[0] += __shfl_xor_sync(kFull, s[0], o);
+      // the online softmax step of head g_own over the tile's slots (one
+      // logit a lane: capped and exponentiated once), across the lane bits
+      // of the slot index
+      float x = s[0] * scale;
+      if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+      const bool valid = j_own < n;
+      x = valid ? x : -INFINITY;
+      float mx = x;
+#pragma unroll
+      for (int o = 1 << (SH + LG); o < 32; o <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+      const float m_new = fmaxf(m_own, mx);    // finite: slot 0 is valid
+      const float alpha = expf(m_own - m_new);
+      const float p = valid ? expf(x - m_new) : 0.f;
+      float sum = p;
+#pragma unroll
+      for (int o = 1 << (SH + LG); o < 32; o <<= 1)
+        sum += __shfl_xor_sync(kFull, sum, o);
+      l_own = l_own * alpha + sum;
+      m_own = m_new;
+      // p.v on the lane's columns, slots in order: each head's factor and
+      // p from a lane that holds it
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float a = __shfl_sync(kFull, alpha, g << SH);
+#pragma unroll
+        for (int e = 0; e < 4 * kCols; ++e) acc[g][e] *= a;
+      }
+#pragma unroll
+      for (int j = 0; j < kSlots; ++j) {
+        float pj[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g)
+          pj[g] = __shfl_sync(kFull, p, (G * j + g) << SH);
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          // a slot past n holds what the stage held before: zeros instead
+          // (p is 0 there, and 0 times a stale inf or NaN is not)
+          const float4 vx = load4_or_zero(Vt + j * kWarps * D + col[c],
+                                          col[c] < D && j < n);
+#pragma unroll
+          for (int g = 0; g < G; ++g) {
+            acc[g][4 * c] = fmaf(pj[g], vx.x, acc[g][4 * c]);
+            acc[g][4 * c + 1] = fmaf(pj[g], vx.y, acc[g][4 * c + 1]);
+            acc[g][4 * c + 2] = fmaf(pj[g], vx.z, acc[g][4 * c + 2]);
+            acc[g][4 * c + 3] = fmaf(pj[g], vx.w, acc[g][4 * c + 3]);
+          }
+        }
+      }
+    }
+    // release the stage; warp 0 refills it once every warp has
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+    if (warp == 0 && i + kStages < ntiles) {
+      mbar_wait(&empty[st], (i / kStages) & 1);
+      load_tile(i + kStages);
+    }
+  }
+
+  // the split's workspace rows: (acc over d, m, l); m = -inf where empty
+  float* wsb = ws + ((size_t)b * Hq + h0) * wrow + (size_t)sp * (D + 4);
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const float mg = __shfl_sync(kFull, m_own, g << SH);
+    const float lg = __shfl_sync(kFull, l_own, g << SH);
+    if (g >= nh) continue;
+    float* w = wsb + g * wrow;
+    if (ntiles > 0)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col[c] < D) w[col[c] + e] = acc[g][4 * c + e];
+    if (lane == 0) {
+      w[D] = mg;
+      w[D + 1] = lg;
+    }
+  }
+
+  // count the block in; the last of the row's nsplit merges.  The block's
+  // rows are released by its thread 0 after the barrier (an acq_rel atomic
+  // at device scope, where a fence in every thread was slower), and the
+  // last block's thread 0 acquires the others' by the same atomic, orders
+  // its bulk copies after them and asks for the first chunk at once
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned* cnt = &arrivals[(size_t)b * gridDim.x + blockIdx.x];
+    *last = atomic_add_acq_rel_gpu(cnt, 1u) == (unsigned)nsplit - 1;
+    if (*last) {
+      *cnt = 0;
+      fence_proxy_async_global();
+      const int ch_max = kStages * kStageFloats / (kWarps * G * (D + 4));
+      merge_load(smem, merged, ws, b, Hq, D, group, hk0, nkv, sub, nh, G,
+                 nsplit, 0, min(nsplit, ch_max), ch_max);
+    }
+  }
+  __syncthreads();
+  if (!*last) return;
+  merge<G>(smem, merged, ws, v, out, b, S, Hq, Hkv, D, group, hk0, nkv, sub,
+           nh, nsplit, col);
+}
+
+template <int G>
+int launch_g(const float* q, const float* k, const float* v,
+             const int32_t* cl, float* ws, float* out, int B, int S, int Hq,
+             int Hkv, int D, int per, int nsplit, int window, float softcap,
+             float scale, cudaStream_t stream) {
+  const int group = Hq / Hkv;
+  const int nsub = (group + G - 1) / G;
+  dim3 grid((Hkv + kWarps - 1) / kWarps * nsub, B, nsplit);
+  if ((size_t)B * grid.x > (size_t)kMaxCounters)
+    return (int)cudaErrorInvalidValue;
+  int err = (int)cudaFuncSetAttribute(
+      decode_bulk_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kSmem);
+  if (err != 0) return err;
+  record_launch_event(0, stream);
+  decode_bulk_kernel<G><<<grid, kBlock, kSmem, stream>>>(
+      q, k, v, cl, ws, out, S, Hq, Hkv, D, group, nsub, per, nsplit, window,
+      softcap, scale);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return record_launch_event(1, stream);
+}
+
+// q-heads a warp carries: the kv-head's whole group up to 2, else 4 a
+// block of the grid's group parts
+int launch(const float* q, const float* k, const float* v, const int32_t* cl,
+           float* ws, float* out, int B, int S, int Hq, int Hkv, int D,
+           int per, int nsplit, int window, float softcap, float scale,
+           cudaStream_t stream) {
+  const int group = Hq / Hkv;
+  if (group == 1)
+    return launch_g<1>(q, k, v, cl, ws, out, B, S, Hq, Hkv, D, per, nsplit,
+                       window, softcap, scale, stream);
+  if (group == 2)
+    return launch_g<2>(q, k, v, cl, ws, out, B, S, Hq, Hkv, D, per, nsplit,
+                       window, softcap, scale, stream);
+  return launch_g<4>(q, k, v, cl, ws, out, B, S, Hq, Hkv, D, per, nsplit,
+                     window, softcap, scale, stream);
+}
+
+
+// whether the launcher takes these float32 operands on this kernel
+bool takes(int D, const void* k, const void* v) {
+  return D > 128 && D <= kMaxD && D % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(v) % 16 == 0;
+}
+
+// blocks of the kernel resident on the whole card (as tma::resident)
+int resident() {
+  static int per_sm = 0;
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != 0 ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != 0)
+    return 0;
+  if (per_sm == 0 &&
+      (cudaFuncSetAttribute(decode_bulk_kernel<4>,
+                            cudaFuncAttributeMaxDynamicSharedMemorySize,
+                            (int)kSmem) != 0 ||
+       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, decode_bulk_kernel<4>, kBlock, kSmem) != 0))
+    return 0;
+  return sms * per_sm;
+}
+
+}  // namespace bulk
+
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v,
              const void* cache_len, void* ws, void* out, int B, int S,
@@ -824,6 +1407,10 @@ int dispatch(const void* q, const void* k, const void* v,
     if (tma::takes(D, k, v))
       return tma::dispatch(qt, kt, vt, cl, wf, ot, B, S, Hq, Hkv, D, per,
                            nsplit, window, softcap, scale, st);
+  } else {
+    if (bulk::takes(D, k, v))
+      return bulk::launch(qt, kt, vt, cl, wf, ot, B, S, Hq, Hkv, D, per,
+                          nsplit, window, softcap, scale, st);
   }
   const int group = Hq / Hkv;
   if (group == 1)
@@ -876,8 +1463,16 @@ extern "C" int vpaas_decode_attention_bf16_resident(int D) {
   return D % 8 == 0 && D <= 256 ? tma::resident(D) : 0;
 }
 
+// SMs x resident blocks an SM of the float32 bulk kernel (what the wrapper
+// sizes its splits by), or 0 where the launcher runs float32 operands of
+// head dim D on the split kernel.
+extern "C" int vpaas_decode_attention_resident(int D) {
+  return D > 128 && D <= 256 && D % 4 == 0 ? bulk::resident() : 0;
+}
+
 // q (B, Hq, D), k and v caches (B, S, Hkv, D) f32, cache_len (B,) int32,
-// workspace (B, Hq, nsplit, D + 2) f32 -> out (B, Hq, D).  A row's valid
+// workspace (B, Hq, nsplit, D + 2) f32 (D + 4 where the bulk kernel takes
+// the operands) -> out (B, Hq, D).  A row's valid
 // slots are cut into nsplit splits of `per` slots.  window <= 0: none;
 // softcap <= 0: none.
 extern "C" int vpaas_decode_attention(const void* q, const void* k,

@@ -20,7 +20,9 @@
 // a 512-slot cache, 32 heads, d = 112) the causal work is ~1.1 GFLOP
 // against ~20 MB of Q/K/V/O, so operations bound it: ~16 us at fp32's
 // 67 TFLOP/s on the CUDA cores, ~7 us with the products' 3 x 1.1 GFLOP at
-// the tensor cores' 495 TFLOP/s dense TF32.
+// the tensor cores' 495 TFLOP/s dense TF32.  gemma2-9b's float32 serving
+// prefill (1 x 384 over 512, 16 q-heads over 8, d = 256, softcap 50) is
+// 1.21 GFLOP: 18.2 us on the CUDA cores, 7.5 us in 3xTF32.
 //
 // Design (float32, d <= 192, d_v <= 128): both products run on the tensor
 // cores with mma.sync m16n8k8 tf32 in 3xTF32 split precision, the
@@ -58,6 +60,46 @@
 // first: 6 x 32 = 192 blocks at the zamba2 prefill, one per SM at a time
 // (148,480 B of Q and the K/V ring at d = 112), so SMs that finish light
 // tiles take the rest.
+//
+// float32 at 128 < d = d_v <= 256 (gemma2's 256): flash_attention_cols_kernel,
+// the same 3xTF32 arithmetic with the work cut by columns.  The kernel
+// above cannot take it: at 64-key tiles Q (33 KB) and K and V rings of 133
+// KB each pass the 227 KB a block may have, and a warp of 16 rows holding
+// O's 16 x 256 floats (128 registers a lane) beside S, Q's and K's split
+// fragments would spill; the CUDA-core kernel it fell to ran the products
+// as scalar FMAs with a shared load each, staged K and V with plain loads
+// between two barriers a tile, and ran at 17x its bound (0.312 ms on an
+// H100 80GB HBM3 at 700 W, PERF.md).  Here a block
+// takes 32 query rows of one (batch row, q-head) with 8 warps: two row
+// groups of 16 rows x four column warps, and column warp cw owns head-dim
+// columns [64 cw, 64 cw + 64) of Q, K, V and O.  Q's split halves for its
+// 16 rows x 64 columns live in registers for the whole block (64 a lane),
+// O's slice is 32 a lane.  K and V come in 32-key tiles by cp.async into
+// a double-buffered ring at the row stride above: Q 33,280 B + 2 x 33,280
+// (K) + 2 x 33,280 (V) = 166,400 B, one block an SM, 12 x 16 = 192 blocks
+// at the serving prefill, heaviest causal tiles first.  A tile takes three
+// steps inside a row group (its 4 warps meet at a named barrier, bar.sync
+// 1 + group, 128 threads, so the two row groups do not wait for each
+// other): (1) each warp sums S over its 64 columns for all 32 keys (four
+// 8-key groups, hi*hi and the cross terms in accumulators of their own,
+// eight independent mma chains) and leaves the partials in shared memory
+// (over Q's rows, free once Q is in registers); (2) column warp cw adds
+// key group cw's four partials in warp order, scales, caps (tanhf: each
+// logit is capped once in the block, 4 a lane a tile) and masks them;
+// (3) every warp reads the tile's 16 x 32 logits, runs the online softmax
+// on them (the same values in the same order in all four warps, so m and
+// l agree bit for bit; exponentials by ex2.approx with explicit fmaf) and
+// adds P V for its 64 columns with p split into hi / lo, key groups the
+// mask closes for all 16 rows skipped, a tile closed to the row group
+// skipped whole.  Every product runs once: S's K-dimension and P V's
+// N-dimension are both split by column, so no warp repeats another's
+// mma.  What bounds it is latency: with 188 registers a thread and 166 KB
+// a block it holds one block (two warps a scheduler) an SM, and a tile's
+// steps wait on each other: the exchange, the capped softmax and the
+// tile's barrier and copies leave the tensor cores idle for much of each
+// tile (a clock64 trace of one warp a block, on the card).  Rounding hi
+// by an integer add instead of cvt.rna ran faster at a larger error and
+// was not kept.
 //
 // bf16 operands, d = d_v <= 256 (vpaas_flash_attention_bf16: the
 // reference's launch path computes in bf16, and its Pallas kernel loads
@@ -123,10 +165,10 @@
 // kv-heads, causal, softcap 50) a global layer's products are 2.64e13
 // flop, 26.7 ms at the bf16 rate (P V twice: 40.0).
 //
-// d > 192 or d_v > 128 (gemma2's 256) in float32, and d_v != d in bf16
-// (MLA's 192 / 128: its Q tile and 128-key K/V ring, 48 + 2 x (48 + 32)
-// KB, would fit, but the kernel's PV takes N = d; queued), take the
-// CUDA-core kernel below,
+// A float32 value head dim of its own past d = 192 or d_v = 128 (no path
+// has one), and d_v != d in bf16 (MLA's 192 / 128: its Q tile and 128-key
+// K/V ring, 48 + 2 x (48 + 32) KB, would fit, but the kernel's PV takes
+// N = d; queued), take the CUDA-core kernel below,
 // chosen by the shapes: one block per (32-row query tile, q-head, batch
 // row), four warps of eight rows, K/V tiles of 32 keys staged in shared
 // memory, one key per lane for QK^T over d, NC = ceil(d_v/32) output
@@ -144,7 +186,7 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
-// tensor-core kernel, d = d_v <= 128
+// tensor-core kernels, float32: d <= 192 and d_v <= 128; d = d_v <= 256
 // ---------------------------------------------------------------------------
 namespace tc {
 
@@ -494,6 +536,335 @@ int launch(const float* q, const float* k, const float* v, const int32_t* qo,
   flash_attention_mma_kernel<NDT, NVT, RW><<<grid, kThreads, smem, stream>>>(
       q, k, v, qo, out, Sq, Skv, Hq, Hkv, D, Dv, causal, window, softcap,
       scale);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// 128 < d = d_v <= 256: O's columns split across warps
+// ---------------------------------------------------------------------------
+constexpr int kColWarps = 4;                 // warps a row group
+constexpr int kColRows = 32;                 // query rows a block: 2 x 16
+constexpr int kColKeys = 32;                 // keys a tile: 4 groups of 8
+constexpr int kColDP = 256;                  // the padded head dim
+constexpr int kColDQ = kColDP / kColWarps;   // a warp's quarter of it
+constexpr int kColNK = kColDQ / 8;           // its 8-column steps
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kColWarps * 2 * 32 == kThreads, "two row groups of 4 warps");
+
+// Q's rows (the partial-S and S exchange once Q is in registers), then the
+// K and V rings, each row at row_stride(kColDP) floats
+size_t cols_smem_bytes() {
+  return sizeof(float) * (size_t)row_stride(kColDP) *
+         (kColRows + 4 * kColKeys);
+}
+
+// A block: 32 query rows of one (batch row, q-head), 8 warps.  Warp w is
+// row group rg = w / 4 (rows 16 rg ..) and column warp cw = w % 4, which
+// owns head-dim columns [64 cw, 64 cw + 64) of Q, K, V and O.  A 32-key
+// tile: (1) each warp sums S over its columns for the tile's 32 keys
+// (Q's split halves in registers, K's split from shared memory) and
+// leaves the partial sums in X; (2) after its row group's named barrier,
+// warp cw adds the four partials of key group cw in warp order, scales,
+// caps and masks them into Y; (3) after the next, every warp of the row
+// group reads the whole tile's S from Y, runs the same online softmax on
+// it (so m and l agree bit for bit across the four) and adds P V for its
+// 64 columns.  The two row groups meet only at the tile's __syncthreads.
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_cols_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const int32_t* __restrict__ q_offset,
+                            float* __restrict__ out, int Sq, int Skv, int Hq,
+                            int Hkv, int D, int causal, int window,
+                            float softcap, float scale) {
+  constexpr int S = row_stride(kColDP);
+  extern __shared__ float4 smem4[];
+  float* Qs = reinterpret_cast<float*>(smem4);            // [kColRows][S]
+  float* Ks = Qs + kColRows * S;                          // [2][kColKeys][S]
+  float* Vs = Ks + 2 * kColKeys * S;                      // [2][kColKeys][S]
+  // over Q's rows once they are in registers: X [2][4 cw][4 j][32] and Y
+  // [2][4 j][32], float4 a lane (a fragment of 4 accumulators)
+  float4* X = smem4;
+  float4* Y = X + 2 * kColWarps * 4 * 32;
+  static_assert(2 * kColWarps * 5 * 32 * 4 <= kColRows * S, "fits Q's rows");
+
+  const int h = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kColRows;   // heaviest first
+  const int b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const int warp = threadIdx.x / 32;
+  const int rg = warp / kColWarps;
+  const int cw = warp % kColWarps;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int c0 = kColDQ * cw;                 // the warp's first column
+  const int off = q_offset[b];
+  const int qrows = min(kColRows, Sq - q0);
+
+  const int pos_lo = off + q0;
+  const int pos_hi = off + q0 + qrows - 1;
+  int kv_lo = 0;
+  int kv_hi = Skv;
+  if (causal) kv_hi = min(Skv, pos_hi + 1);
+  if (window > 0) kv_lo = max(0, pos_lo - window + 1);
+
+  const bool vec = D % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  const size_t kv_stride = (size_t)Hkv * D;
+  const float* kb = k + ((size_t)b * Skv * Hkv + hk) * D;     // key 0
+  const float* vb = v + ((size_t)b * Skv * Hkv + hk) * D;
+
+  stage_rows<kColDP>(Qs, q + (((size_t)b * Sq + q0) * Hq + h) * D,
+                     (size_t)Hq * D, qrows, kColRows, D, vec);
+  if (kv_lo < kv_hi) {
+    const int n = min(kColKeys, kv_hi - kv_lo);
+    stage_rows<kColDP>(Ks, kb + kv_lo * kv_stride, kv_stride, n, kColKeys, D,
+                       vec);
+    stage_rows<kColDP>(Vs, vb + kv_lo * kv_stride, kv_stride, n, kColKeys, D,
+                       vec);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // Q's A fragments of this warp's rows and columns, split once: rows g and
+  // g + 8 of the row group, columns c0 + 8 kk + t and + 4
+  const int r0 = 16 * rg;
+  uint32_t qhi[kColNK][4], qlo[kColNK][4];
+#pragma unroll
+  for (int kk = 0; kk < kColNK; ++kk) {
+    const float* qa = Qs + (r0 + g) * S + c0 + 8 * kk + t;
+    split_tf32(qa[0], qhi[kk][0], qlo[kk][0]);
+    split_tf32(qa[8 * S], qhi[kk][1], qlo[kk][1]);
+    split_tf32(qa[4], qhi[kk][2], qlo[kk][2]);
+    split_tf32(qa[8 * S + 4], qhi[kk][3], qlo[kk][3]);
+  }
+
+  const int wpos_lo = off + q0 + r0;               // the row group's
+  const int wpos_hi = wpos_lo + 15;                // query positions
+  const int qp[2] = {wpos_lo + g, wpos_lo + g + 8};  // this lane's rows
+  float o[kColNK][4];
+#pragma unroll
+  for (int dt = 0; dt < kColNK; ++dt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float4* xs = X + rg * kColWarps * 4 * 32;        // the row group's X, Y
+  float4* ys = Y + rg * 4 * 32;
+
+  int buf = 0;
+  for (int kt = kv_lo; kt < kv_hi; kt += kColKeys, buf ^= 1) {
+    const int nxt = kt + kColKeys;
+    if (nxt < kv_hi) {             // the next tile loads during this one
+      const int n = min(kColKeys, kv_hi - nxt);
+      stage_rows<kColDP>(Ks + (buf ^ 1) * kColKeys * S,
+                         kb + nxt * kv_stride, kv_stride, n, kColKeys, D,
+                         vec);
+      stage_rows<kColDP>(Vs + (buf ^ 1) * kColKeys * S,
+                         vb + nxt * kv_stride, kv_stride, n, kColKeys, D,
+                         vec);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();            // every group but the newest: this tile
+    __syncthreads();
+
+    // key group j (keys kt + 8 j ..) seen by some row of the row group;
+    // a tile none of its rows sees is skipped by all four warps
+    auto open = [&](int j) {
+      const int kg = kt + 8 * j;
+      return kg < kv_hi && !(causal && wpos_hi < kg) &&
+             !(window > 0 && wpos_lo - (kg + 7) >= window);
+    };
+    if (open(0) || open(1) || open(2) || open(3)) {
+      const float* Kt = Ks + buf * kColKeys * S + c0;
+      const float* Vt = Vs + buf * kColKeys * S + c0;
+
+      // (1) S over this warp's columns: sp the hi*hi terms, sx the cross
+      // terms, each key group its own accumulators
+      float sp[4][4], sx[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sp[j][e] = sx[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kColNK; ++kk) {
+        uint32_t bhi[4][2], blo[4][2];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float* ka = Kt + (8 * j + g) * S + 8 * kk + t;
+          split_tf32(ka[0], bhi[j][0], blo[j][0]);    // K[key g][t]
+          split_tf32(ka[4], bhi[j][1], blo[j][1]);    // K[key g][t + 4]
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_tf32_m16n8k8(sx[j], qlo[kk], bhi[j]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_tf32_m16n8k8(sp[j], qhi[kk], bhi[j]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_tf32_m16n8k8(sx[j], qhi[kk], blo[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        xs[(cw * 4 + j) * 32 + lane] =
+            make_float4(sp[j][0] + sx[j][0], sp[j][1] + sx[j][1],
+                        sp[j][2] + sx[j][2], sp[j][3] + sx[j][3]);
+      bar_sync(1 + rg, 32 * kColWarps);
+
+      // (2) key group cw's S: the four partials in warp order, scaled,
+      // capped (each logit once in the block: tanhf), masked
+      if (open(cw)) {
+        float x[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int w = 0; w < kColWarps; ++w) {
+          const float4 p = xs[(w * 4 + cw) * 32 + lane];
+          x[0] += p.x;
+          x[1] += p.y;
+          x[2] += p.z;
+          x[3] += p.w;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float y = x[e] * scale;
+          if (softcap > 0.f) y = softcap * tanhf(y / softcap);
+          const int key = kt + 8 * cw + 2 * t + (e & 1);
+          const int p = qp[e >> 1];
+          const bool ok = key < kv_hi && (!causal || p >= key) &&
+                          (window <= 0 || p - key < window);
+          x[e] = ok ? y : -INFINITY;
+        }
+        ys[cw * 32 + lane] = make_float4(x[0], x[1], x[2], x[3]);
+      }
+      bar_sync(1 + rg, 32 * kColWarps);
+
+      // (3) the tile's S, the online softmax, O += P V on this warp's
+      // columns; s[j][e] is row qp[e / 2], key kt + 8 j + 2 t + e % 2
+      float s[4][4];
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float4 y = make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+        if (open(j)) y = ys[j * 32 + lane];
+        s[j][0] = y.x;
+        s[j][1] = y.y;
+        s[j][2] = y.z;
+        s[j][3] = y.w;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+      float msc[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        msc[i] = m_new == -INFINITY ? 0.f : m_new * kLog2e;
+        alpha[i] = m_new == m[i] ? 1.f
+                                 : ex2_approx(fmaf(m[i], kLog2e, -msc[i]));
+        m[i] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2_approx(fmaf(s[j][e], kLog2e, -msc[e >> 1]));
+          s[j][e] = p;
+          sum[e >> 1] += p;
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        sum[i] += __shfl_xor_sync(kFull, sum[i], 1);
+        sum[i] += __shfl_xor_sync(kFull, sum[i], 2);
+        l[i] = fmaf(l[i], alpha[i], sum[i]);
+      }
+      if (__any_sync(kFull, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+        for (int dt = 0; dt < kColNK; ++dt) {
+          o[dt][0] *= alpha[0];
+          o[dt][1] *= alpha[0];
+          o[dt][2] *= alpha[1];
+          o[dt][3] *= alpha[1];
+        }
+      }
+
+      // O += P V, key step j: A-fragment column t is key 2t, column t + 4
+      // key 2t + 1 (the accumulator's own pair), and V's B fragment rows
+      // follow the same order; four of the warp's 8-column tiles a batch
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (!open(j)) continue;
+        uint32_t ahi[4], alo[4];
+        split_tf32(s[j][0], ahi[0], alo[0]);          // P[g][2t]
+        split_tf32(s[j][2], ahi[1], alo[1]);          // P[g + 8][2t]
+        split_tf32(s[j][1], ahi[2], alo[2]);          // P[g][2t + 1]
+        split_tf32(s[j][3], ahi[3], alo[3]);          // P[g + 8][2t + 1]
+        const float* va = Vt + (8 * j + 2 * t) * S + g;
+#pragma unroll
+        for (int d0 = 0; d0 < kColNK; d0 += 4) {
+          uint32_t bhi[4][2], blo[4][2];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const float* vu = va + (d0 + u) * 8;
+            split_tf32(vu[0], bhi[u][0], blo[u][0]);  // V[key 2t][col g]
+            split_tf32(vu[S], bhi[u][1], blo[u][1]);  // V[key 2t + 1][g]
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            mma_tf32_m16n8k8(o[d0 + u], alo, bhi[u]);
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            mma_tf32_m16n8k8(o[d0 + u], ahi, blo[u]);
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            mma_tf32_m16n8k8(o[d0 + u], ahi, bhi[u]);
+        }
+      }
+    }
+    __syncthreads();               // this buffer, X and Y refill next
+  }
+  cp_async_wait<0>();              // no copy outlives the block
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = r0 + g + 8 * i;
+    if (row >= qrows) continue;
+    float* orow = out + (((size_t)b * Sq + q0 + row) * Hq + h) * D;
+    if (m[i] == -INFINITY) {
+      // no valid key: the plain version's softmax over Skv equal -1e30
+      // logits is uniform, so the row is the mean of V
+      for (int dt = 0; dt < kColNK; ++dt)
+        for (int e = 0; e < 2; ++e) {
+          const int c = c0 + 8 * dt + 2 * t + e;
+          if (c >= D) continue;
+          float acc = 0.f;
+          for (int j = 0; j < Skv; ++j) acc += vb[j * kv_stride + c];
+          orow[c] = acc / (float)Skv;
+        }
+    } else {
+#pragma unroll
+      for (int dt = 0; dt < kColNK; ++dt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = c0 + 8 * dt + 2 * t + e;
+          if (c < D) orow[c] = o[dt][2 * i + e] / l[i];
+        }
+    }
+  }
+}
+
+int launch_cols(const float* q, const float* k, const float* v,
+                const int32_t* qo, float* out, int B, int Sq, int Skv, int Hq,
+                int Hkv, int D, int causal, int window, float softcap,
+                float scale, cudaStream_t stream) {
+  const size_t smem = cols_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_cols_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(Hq, (Sq + kColRows - 1) / kColRows, B);
+  flash_attention_cols_kernel<<<grid, kThreads, smem, stream>>>(
+      q, k, v, qo, out, Sq, Skv, Hq, Hkv, D, causal, window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1038,7 +1409,8 @@ int dispatch(const bf16* q, const bf16* k, const bf16* v, const int32_t* qo,
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
-// CUDA-core kernel: float32 past d = 192 or d_v = 128, bf16 with d_v < d
+// CUDA-core kernel: float32 d_v != d past d = 192 or d_v = 128, bf16 with
+// d_v < d
 // ---------------------------------------------------------------------------
 namespace simt {
 
@@ -1256,12 +1628,16 @@ int launch(const T* q, const T* k, const T* v, const int32_t* qo, T* out,
 
 }  // namespace
 
+// the float32 column-warp kernel's head dims: 128 < d = d_v <= 256
+static bool on_cols(int D, int Dv) { return Dv == D && D > 128 && D <= 256; }
+
 // 1 where the launcher runs these head dims on the tensor cores, 0 where
-// on the CUDA cores: float32 (bf16 = 0) up to d = 192 and d_v = 128, bf16
-// where d = d_v <= 256
+// on the CUDA cores: float32 (bf16 = 0) up to d = 192 and d_v = 128, and
+// d = d_v up to 256; bf16 where d = d_v <= 256
 extern "C" int vpaas_flash_attention_on_tensor_cores(int D, int Dv,
                                                      int bf16) {
-  return bf16 ? Dv == D && D <= 256 : D <= 192 && Dv <= 128 && Dv <= D;
+  return bf16 ? Dv == D && D <= 256
+              : (D <= 192 && Dv <= 128 && Dv <= D) || on_cols(D, Dv);
 }
 
 // the query rows of a block of the bf16 tensor-core kernel at this grid
@@ -1294,6 +1670,9 @@ extern "C" int vpaas_flash_attention(const void* q, const void* k,
   if (!vpaas_flash_attention_on_tensor_cores(D, Dv, 0))
     return simt::launch(qf, kf, vf, qo, of, B, Sq, Skv, Hq, Hkv, D, Dv,
                         causal, window, softcap, scale, st);
+  if (on_cols(D, Dv))
+    return tc::launch_cols(qf, kf, vf, qo, of, B, Sq, Skv, Hq, Hkv, D, causal,
+                           window, softcap, scale, st);
   return tc::dispatch(qf, kf, vf, qo, of, B, Sq, Skv, Hq, Hkv, D, Dv, causal,
                       window, softcap, scale, st);
 }

@@ -119,6 +119,21 @@
 // (the cancellation near 0 costs relative digits there, not absolute
 // ones), +-1 at the ends.
 //
+// bar_sync(id, n): bar.sync on named barrier id (1-15; 0 is
+// __syncthreads'), which completes once n threads (whole warps) have
+// reached it: a group of warps meets without stopping the block's others.
+//
+// bulk_load(dst, src, bytes, bar): cp.async.bulk of `bytes` contiguous
+// bytes (a multiple of 16, both addresses 16-byte aligned) from global to
+// shared memory, delivered to mbarrier bar (sm_90): one instruction a copy,
+// no tensor map.  atomic_add_acq_rel_gpu(p, v): atomicAdd as
+// atom.acq_rel.gpu: it releases the calling thread's earlier writes (and,
+// after a __syncthreads, its block's, as a semaphore's release does) to the
+// device, and acquires what other threads released before the value it
+// reads.  fence_proxy_async_global: fence.proxy.async.global, which
+// orders this thread's view of global memory (written by other blocks, made
+// visible to it by fences and an atomic) before its bulk copies read it.
+//
 // tests/test_torch_kernel_emulation.py replaces this header with host
 // versions of the same functions.
 #pragma once
@@ -332,6 +347,33 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
           smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ unsigned atomic_add_acq_rel_gpu(unsigned* p,
+                                                           unsigned v) {
+  unsigned old;
+  asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], %2;"
+               : "=r"(old)
+               : "l"(p), "r"(v)
+               : "memory");
+  return old;
+}
+
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 

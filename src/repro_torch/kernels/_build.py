@@ -90,6 +90,7 @@ QUERIES = {
     "vpaas_flash_attention_on_tensor_cores": [_I, _I, _I],
     "vpaas_flash_attention_bf16_block_rows": [_I, _I, _I],
     "vpaas_decode_attention_bf16_resident": [_I],
+    "vpaas_decode_attention_resident": [_I],
     "vpaas_time_next_launch": [_P, _I],
     "vpaas_launch_events_recorded": [],
 }

@@ -7,11 +7,15 @@ bfloat16 operands (q, k and v of one dtype; the output in it too), with
 every sum in float32, as the Pallas kernel computes on the bf16 operands
 of the reference's launch path.  float32 runs its two products on the
 tensor cores in 3xTF32 up to d = 192 and d_v = 128 (MLA's prefill: 192 for
-q and k, 128 for v); bfloat16 where q, k and v share a head dim up to 256
-(gemma2's), as wgmma on TMA tiles (q.k exact in float32, p.v with p split
-into two bf16 halves; :func:`block_rows` says how many query rows a block
-takes).  Larger float32 head dims, and a value head dim of its own in
-bfloat16, run on the CUDA cores (bf16 widened to float32 as it loads).  The bf16 tensor-core
+q and k, 128 for v), and where q, k and v share a head dim up to 256
+(gemma2's float32 serving prefill: past 128 a kernel whose warps each take
+a quarter of the head dim, since O's 16 x 256 floats would not fit one
+warp's registers beside S); bfloat16 where q, k and v share a head dim up
+to 256, as wgmma on TMA tiles (q.k exact in float32, p.v with p split into
+two bf16 halves; :func:`block_rows` says how many query rows a block
+takes).  A float32 value head dim of its own past 192 / 128, and one in
+bfloat16, run on the CUDA cores (bf16 widened to float32 as it loads).
+The bf16 tensor-core
 kernel loads by TMA, whose row strides are multiples of 16 bytes: a head
 dim that is not a multiple of 8, or an operand that is not 16-byte aligned,
 is copied into zero-padded tensors first (:func:`tma_ready`).  The query

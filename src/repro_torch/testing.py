@@ -551,6 +551,25 @@ FLASH_EDGE_CASES = [
 ]
 
 
+# K6 in float32 past d = 128 (the column-warp kernel: 32-row blocks, 32-key
+# tiles, each warp a 64-column quarter of the padded 256), in
+# FLASH_EDGE_CASES' layout: s_q and s_kv off the 32-row and 32-key tiles;
+# GQA groups of 1, 2 and 4; a window that closes whole tiles for a row
+# group; softcap 50; rows with no valid key beside rows with some;
+# per-row offsets; d = 200 (zero columns past it) and d = 130 (4-byte
+# copies)
+FLASH_WIDE_CASES = [
+    (1, 45, 77, 4, 2, 256, 256, True, None, None, 0),
+    (2, 33, 70, 4, 4, 256, 256, True, None, 50.0, 0),
+    (1, 40, 96, 8, 2, 256, 256, False, None, 50.0, 0),
+    (1, 64, 200, 4, 2, 256, 256, True, 40, 50.0, 120),
+    (1, 40, 64, 4, 2, 256, 256, True, 4, 50.0, 50),
+    (3, 24, 64, 4, 2, 256, 256, True, 20, 30.0, [0, 17, 40]),
+    (1, 35, 50, 2, 1, 200, 200, True, None, None, 10),
+    (1, 20, 37, 2, 2, 130, 130, False, 16, None, 20),
+]
+
+
 def attention_case(b, s_q, s_kv, n_q, n_kv, d, seed=0, d_v=None):
     """Unit-normal q, k, v: (b, s_q, n_q, d), (b, s_kv, n_kv, d) and
     (b, s_kv, n_kv, d_v), d_v = d unless given."""
@@ -570,6 +589,29 @@ DECODE_CASES = [
     (1, 64, 4, 2, 256, [64], None, 50.0),               # d=256
     (2, 32, 2, 1, 64, [0, 5], None, None),              # an empty row
     (2, 160, 16, 8, 256, [160, 61], 48, 50.0),          # gemma2's d, window
+]
+
+
+# K7 in float32 past d = 128 (the bulk kernel: tiles of 8 slots of 4
+# kv-heads, the splits merged by each row's last block): (case, SMs of an
+# emulated card, which size the splits).  Lengths 1 and S; a window that
+# leaves splits empty; an empty row (the mean of V); several waves of
+# splits (5 SMs); GQA groups of 1, 4 and 8 (two group parts a kv-head);
+# 2 kv-heads (half a block); d = 192 and 132; more splits than the merge
+# takes into shared memory at once (38 of 23 at a group of 2, 25 of 11 at
+# a group of 4)
+DECODE_WIDE_CASES = [
+    ((1, 300, 4, 2, 256, [290], None, 50.0), 132),
+    ((1, 200, 8, 2, 256, [190], None, None), 132),
+    ((2, 100, 4, 2, 256, [1, 100], None, None), 132),
+    ((2, 256, 16, 8, 256, [40, 256], 100, 50.0), 132),
+    ((2, 64, 4, 2, 256, [0, 64], None, None), 132),
+    ((2, 200, 16, 8, 256, [200, 123], None, 50.0), 5),
+    ((1, 64, 8, 8, 256, [60], None, None), 132),
+    ((1, 96, 16, 4, 256, [96], 50, None), 3),
+    ((1, 80, 16, 2, 256, [77], None, 30.0), 132),
+    ((2, 90, 6, 3, 192, [90, 45], None, None), 2),
+    ((1, 70, 4, 4, 132, [70], None, 50.0), 132),
 ]
 
 

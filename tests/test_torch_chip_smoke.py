@@ -306,6 +306,54 @@ def test_parent_llm_rows_are_relayed(monkeypatch, capsys):
                    for line in Run.stdout.splitlines()[:2]]
 
 
+def test_parent_k6_rows_are_relayed_and_only_runs_those_named(monkeypatch,
+                                                              capsys):
+    # --parent relays the parent's K6 rows too; with --only k6 k7 the
+    # parent runs just those two phases
+    seen = {}
+
+    class Run:
+        returncode, stderr = 0, ""
+        stdout = "\n".join([
+            "K6 flash_attention gemma2 cache prefill, global layer: kernel "
+            "0.3368 ms per call (0.3120 ms on the device) [c]",
+            "K7 decode_attention b=4 S=512: kernel 0.08 ms per call [c]",
+            "built x"])
+
+    def run(cmd, **kw):
+        seen["code"] = cmd[-1]
+        return Run()
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run", run)
+    chip_smoke.relay_parent_llm("build/parent", "after", ["k6", "k7"])
+    assert "cs.phase_flash_attention(torch, np, card)" in seen["code"]
+    assert "cs.phase_decode_attention(torch, np, card)" in seen["code"]
+    assert "phase_ssd_scan" not in seen["code"]
+    out = capsys.readouterr().out.splitlines()
+    assert out == ["  parent (after this tree's): " + line
+                   for line in Run.stdout.splitlines()[:2]]
+    chip_smoke.relay_parent_llm("build/parent", "before")
+    assert all(f"cs.{p}(torch, np, card)" in seen["code"]
+               for p in chip_smoke.PARENT_LLM.values())
+
+
+def test_k7_instance_names_the_float32_bulk_kernel():
+    # float32 past d = 128 runs decode_bulk_kernel<G> (G: a group of 1 or
+    # 2 whole, else 4 q-heads a warp); d = 112 and d % 4 != 0 keep the
+    # split kernel
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.testing import decode_case
+    for (n_q, n_kv, d), want in {
+            (16, 8, 256): "decode_bulk_kernel<2>",
+            (8, 8, 192): "decode_bulk_kernel<1>",
+            (16, 2, 256): "decode_bulk_kernel<4>",
+            (32, 32, 112): "decode_split_kernel<float, 1>",
+            (4, 2, 130): "decode_split_kernel<float, 2>"}.items():
+        q, kc, vc = (torch.as_tensor(a) for a in
+                     decode_case(1, 8, n_q, n_kv, d))
+        assert chip_smoke.k7_instance(da, q, kc, vc) == want
+
+
 def test_parent_device_ms_reads_the_parent_k2_and_k5_lines(monkeypatch):
     # the parent's phases print one line per shape (and, since the K2/K5
     # redesign, an in-turns line after it, whose library device time must
@@ -795,7 +843,7 @@ def test_k6_instance_follows_the_launcher_routes(monkeypatch):
     fa = types.SimpleNamespace(
         on_tensor_cores=lambda d, d_v, dtype=torch.float32: (
             d == d_v and d <= 256 if dtype == torch.bfloat16
-            else d <= 192 and d_v <= 128),
+            else (d <= 192 and d_v <= 128) or (d == d_v and d <= 256)),
         block_rows=lambda b, s_q, n_q: 64 if b * n_q * -(-s_q // 128) < 132
         else 128)
     bf, f32 = torch.bfloat16, torch.float32
@@ -813,8 +861,16 @@ def test_k6_instance_follows_the_launcher_routes(monkeypatch):
         "flash_attention_mma_kernel<12, 8, 4>"
     assert chip_smoke._k6_instance(fa, 1, 384, 32, 112, 112, f32) == \
         "flash_attention_mma_kernel<14, 14, 4>"
+    # gemma2-9b's d = 256 in float32: the column-warp 3xTF32 kernel (was
+    # the CUDA-core flash_attention_simt_kernel<float, 8>), as every
+    # float32 d = d_v past 128
     assert chip_smoke._k6_instance(fa, 1, 384, 32, 256, 256, f32) == \
-        "flash_attention_simt_kernel<float, 8>"
+        "flash_attention_cols_kernel"
+    assert chip_smoke._k6_instance(fa, 1, 40, 4, 130, 130, f32) == \
+        "flash_attention_cols_kernel"
+    # float32 d_v != d past MLA's 192 / 128 stays on the CUDA cores
+    assert chip_smoke._k6_instance(fa, 1, 384, 16, 256, 128, f32) == \
+        "flash_attention_simt_kernel<float, 4>"
     # gemma2-9b's d = 256 in bf16: the wgmma kernel at NKT 16, 128-row
     # blocks at prefill_32k, 64-row ones at the 384-token serving prefill
     assert chip_smoke._k6_instance(fa, 3, 32768, 16, 256, 256, bf) == \
@@ -957,9 +1013,18 @@ def test_gemma2_phases_are_wired_in():
     main = inspect.getsource(chip_smoke.main)
     assert "GEMMA_ARCH: phase_gemma2_reference(torch, np, card)" in main
     assert main.index("cross_counts = phase_cross_main_path") < main.index(
-        "gemma_counts, _, gemma_params = phase_llm_main_path")
+        "gemma_counts, _, gemma_params, _ = phase_llm_main_path")
     assert chip_smoke.GEMMA_ARCH == "gemma2-9b"
-    assert {"gemma2", "gemma2_32k"} <= set(chip_smoke.ONLY_PHASES)
+    assert {"gemma2", "gemma2_32k", "gemma2_serve", "k6"} <= set(
+        chip_smoke.ONLY_PHASES)
+    assert chip_smoke.ONLY_PHASES["k6"] is chip_smoke.phase_flash_attention
     assert chip_smoke.PROBES["phase_gemma2_32k"] == "gemma2 32k"
+    # the float32 serving probe: the cut against the CPU, then the served
+    # path, one summary line a tree
+    assert chip_smoke.PROBES["phase_gemma2_serve"] == "gemma2 serve"
+    serve = inspect.getsource(chip_smoke.phase_gemma2_serve)
+    assert serve.index("phase_gemma2_reference(") < serve.index(
+        "phase_llm_main_path(torch, np, card, GEMMA_ARCH)")
+    assert 'print(f"gemma2 serve float32: ' in serve
     ref = inspect.getsource(chip_smoke.phase_gemma2_reference)
     assert "block_cut(get_config(GEMMA_ARCH), 2)" in ref

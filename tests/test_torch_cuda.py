@@ -34,7 +34,8 @@ from repro_torch.models import transformer as tfm
 from repro_torch.serving.server import LLMServer, Request
 from repro_torch.learning import ContinualLearningPlane, LearningConfig
 from repro_torch.testing import (ATTN_ATOL, ATTN_BF16_RTOL, ATTN_VJP_RTOL,
-                                 DECODE_CASES, SSD_BF16_RTOL, bf16_err,
+                                 DECODE_CASES, DECODE_WIDE_CASES,
+                                 FLASH_WIDE_CASES, SSD_BF16_RTOL, bf16_err,
                                  FILTER_CASES, SSD_VJP_RTOL,
                                  FILTER_KW, FLASH_CASES, FLASH_DV_CASES,
                                  FLASH_EDGE_CASES, FLASH_RAGGED_CASES,
@@ -694,6 +695,140 @@ def test_decode_and_ssd_kernels_replay_in_a_cuda_graph(cuda):
     torch.cuda.synchronize()
     assert rel_err(y.cpu(), y_ref.cpu()) <= SSD_RTOL
     assert rel_err(fin.cpu(), fin_ref.cpu()) <= SSD_RTOL
+
+
+# ---------------------------------------------------------------------------
+# K6 and K7 in float32 past d = 128: the column-warp and bulk kernels, at
+# gemma2-9b's serving shapes and every d > 128 case
+# ---------------------------------------------------------------------------
+# (b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, softcap, q_offset)
+GEMMA2_PREFILLS = [(1, 384, 512, 16, 8, 256, 256, True, None, 50.0, 0),
+                   (1, 384, 512, 16, 8, 256, 256, True, 4096, 50.0, 0),
+                   (1, 384, 512, 32, 16, 256, 256, True, 64, 50.0, 0)]
+WIDE_FLASH = (GEMMA2_PREFILLS + FLASH_WIDE_CASES
+              + [c[:6] + (c[5],) + c[6:] for c in FLASH_CASES
+                 + FLASH_RAGGED_CASES if c[5] > 128]
+              + [c for c in FLASH_EDGE_CASES if c[5] > 128 and c[5] == c[6]])
+# (b, S, n_q, n_kv, d, cache_len, window, softcap)
+GEMMA2_DECODES = [(4, 512, 16, 8, 256, [385, 390, 395, 399], None, 50.0),
+                  (4, 512, 16, 8, 256, [385, 390, 395, 399], 4096, 50.0),
+                  (4, 512, 32, 16, 256, [385, 390, 395, 399], 64, 50.0)]
+WIDE_DECODE = (GEMMA2_DECODES + [c for c, _ in DECODE_WIDE_CASES]
+               + [c for c in DECODE_CASES if c[4] > 128])
+
+
+@pytest.mark.parametrize("case", WIDE_FLASH,
+                         ids=[f"wide{i}" for i in range(len(WIDE_FLASH))])
+def test_flash_attention_column_warps_match_plain(cuda, case):
+    # float32 K6 past d = 128 on the column-warp 3xTF32 kernel: within
+    # ATTN_ATOL of the plain version, the same bits on a second call
+    b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off = case
+    assert fa.on_tensor_cores(d, d_v)
+    q, k, v = _t(attention_case(b, s_q, s_kv, n_q, n_kv, d), cuda)
+    kw = dict(causal=causal, window=window, softcap=cap,
+              q_offset=torch.as_tensor(off, device=cuda))
+    fa.launches = 0
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.launches == 1
+    assert _sync_err(got, fa.flash_attention_ref(q, k, v, **kw)) <= ATTN_ATOL
+    assert torch.equal(fa.flash_attention(q, k, v, **kw), got)
+
+
+@pytest.mark.parametrize("case", WIDE_DECODE,
+                         ids=[f"wide{i}" for i in range(len(WIDE_DECODE))])
+def test_decode_attention_bulk_kernel_matches_plain(cuda, case):
+    # float32 K7 past d = 128 on the bulk kernel (one launch, the splits
+    # merged by each row's last block): within ATTN_ATOL, bit-identical
+    # run to run
+    b, S, n_q, n_kv, d, clen, window, cap = case
+    q, kc, vc = _t(decode_case(b, S, n_q, n_kv, d), cuda)
+    assert da.on_bulk(q, kc, vc)
+    cl = torch.as_tensor(np.broadcast_to(np.asarray(clen), (b,)).copy(),
+                         dtype=torch.int32, device=cuda)
+    kw = dict(window=window, softcap=cap)
+    da.launches = 0
+    got = da.decode_attention(q, kc, vc, cl, **kw)
+    assert da.launches == 1
+    assert _sync_err(got, da.decode_attention_ref(q, kc, vc, cl, **kw)) \
+        <= ATTN_ATOL
+    assert all(torch.equal(da.decode_attention(q, kc, vc, cl, **kw), got)
+               for _ in range(3))
+
+
+def test_decode_attention_bulk_splits_fill_the_card(cuda):
+    # one 192 KB block an SM; gemma2's serving decode (4 rows x 2 blocks of
+    # 4 kv-heads) in one wave: 16 splits of 32 slots, 128 blocks on the
+    # 132 SMs
+    q, kc, vc = _t(decode_case(4, 512, 16, 8, 256), cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert da.resident_blocks(256, q.get_device(), torch.float32) == sms
+    assert da.plan(q, kc, vc, None) == da.bulk_splits(4, 512, 8, None, sms)
+    if sms == 132:
+        assert da.plan(q, kc, vc, None) == (32, 16)
+
+
+def test_wide_attention_kernels_replay_in_a_cuda_graph(cuda):
+    # gemma2's float32 prefill and decode step, captured once after a
+    # warm-up: a replay recomputes from the inputs' new values (the bulk
+    # kernel's arrival counts are back at 0 after every launch)
+    b, s_q, s_kv, n_q, n_kv, d, _, causal, window, cap, _ = GEMMA2_PREFILLS[0]
+    q, k, v = _t(attention_case(b, s_q, s_kv, n_q, n_kv, d), cuda)
+    off = torch.zeros((), dtype=torch.int32, device=cuda)
+    fkw = dict(causal=causal, window=window, softcap=cap, q_offset=off)
+    b, S, n_q, n_kv, d, clen, window, cap = GEMMA2_DECODES[0]
+    qd, kc, vc = _t(decode_case(b, S, n_q, n_kv, d), cuda)
+    cl = torch.as_tensor(clen, dtype=torch.int32, device=cuda)
+    dkw = dict(window=window, softcap=cap)
+    fa.flash_attention(q, k, v, **fkw)             # warm-up off the graph
+    da.decode_attention(qd, kc, vc, cl, **dkw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    fa.launches = da.launches = 0
+    with torch.cuda.graph(graph):
+        out = fa.flash_attention(q, k, v, **fkw)
+        dout = da.decode_attention(qd, kc, vc, cl, **dkw)
+    assert fa.launches == da.launches == 1
+    # new values as the zamba2 graph test's, then new queries and lengths
+    # again: the second replay also needs the arrival counts back at 0
+    q.mul_(-0.5)
+    v.add_(1.0)
+    off.fill_(64)
+    vc.add_(1.0)
+    for _ in range(2):
+        qd.mul_(-0.5)
+        cl.sub_(7)
+        graph.replay()
+        assert _sync_err(out, fa.flash_attention_ref(q, k, v, **fkw)) \
+            <= ATTN_ATOL
+        assert _sync_err(dout, da.decode_attention_ref(qd, kc, vc, cl,
+                                                       **dkw)) <= ATTN_ATOL
+
+
+def test_wide_attention_kernels_refuse_operands_that_require_grad(cuda):
+    # K7 is forward only: a d = 256 cache that requires grad raises through
+    # ops and launches nothing; K6 takes such operands only through
+    # FlashAttention (the kernel forward, the plain VJP backward)
+    q, kc, vc = _t(decode_case(2, 64, 4, 2, 256), cuda)
+    kc.requires_grad_(True)
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="forward only"):
+        ops.decode_attention(q, kc, vc, 40, softcap=50.0)
+    assert sum(ops.launch_counts().values()) == 0
+    with torch.no_grad():
+        ops.decode_attention(q, kc, vc, 40, softcap=50.0)
+    assert ops.launch_counts()["decode_attention"] == 1
+    qf, k, v = _t(attention_case(1, 40, 64, 4, 2, 256), cuda)
+    k.requires_grad_(True)
+    ops.reset_launch_counts()
+    out = ops.flash_attention(qf, k, v, softcap=50.0)
+    assert out.requires_grad
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1
+    assert counts["flash_attention_vjp"] == 0
+    out.sum().backward()
+    assert ops.launch_counts()["flash_attention_vjp"] == 1
+    torch.cuda.synchronize()
+    assert k.grad is not None and bool(torch.isfinite(k.grad).all())
 
 
 # ---------------------------------------------------------------------------

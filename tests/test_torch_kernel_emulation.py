@@ -45,7 +45,8 @@ from repro_torch.kernels import onevsall_update as ou
 from repro_torch.kernels import region_filter_mask as rf
 from repro_torch.kernels import ssd_scan as sk
 from repro_torch.testing import (ATTN_ATOL, ATTN_BF16_RTOL, DECODE_CASES,
-                                 FILTER_KW, SSD_BF16_RTOL,
+                                 DECODE_WIDE_CASES, FILTER_KW,
+                                 FLASH_WIDE_CASES, SSD_BF16_RTOL,
                                  FLASH_CASES, FLASH_DV_CASES,
                                  FLASH_EDGE_CASES,
                                  FLASH_RAGGED_CASES, IOU_CASES,
@@ -76,6 +77,7 @@ using std::max; using std::min;
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __restrict__
 #define __launch_bounds__(...)
 struct dim3 { unsigned x, y, z;
@@ -83,6 +85,8 @@ struct dim3 { unsigned x, y, z;
 struct float4 { float x, y, z, w; };
 inline float4 make_float4(float a, float b, float c, float d) {
   return float4{a, b, c, d}; }
+struct float2 { float x, y; };
+inline float2 make_float2(float a, float b) { return float2{a, b}; }
 struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
@@ -142,7 +146,7 @@ struct EmuBarrier { int n; int count = 0; unsigned gen = 0;
     EmuFiber* f = emu_w->cur; f->wait_gen = &gen; f->wait_val = gen;
     emu_swap(&f->sp, emu_w->sched_sp); } };
 struct EmuBlock { EmuBarrier* bar;
-  std::vector<std::unique_ptr<EmuBarrier>> warp_bar, wg_bar;
+  std::vector<std::unique_ptr<EmuBarrier>> warp_bar, wg_bar, named_bar;
   std::vector<double> xchg; std::vector<uint32_t> mma, wgx;
   std::vector<char> dyn; };
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
@@ -150,6 +154,14 @@ inline thread_local EmuBlock* emu_blk;
 inline void __syncthreads() { emu_blk->bar->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) {
   emu_blk->warp_bar[threadIdx.x / 32]->arrive_and_wait(); }
+// bar.sync id, n: named barrier id of the block, completed by n threads
+inline void bar_sync(int id, int n) {
+  auto& bars = emu_blk->named_bar;
+  if ((int)bars.size() <= id) bars.resize(id + 1);
+  if (!bars[id]) bars[id].reset(new EmuBarrier(n));
+  if (bars[id]->n != n) { std::fprintf(stderr, "named barrier %d: %d threads"
+                          " then %d\n", id, bars[id]->n, n); std::abort(); }
+  bars[id]->arrive_and_wait(); }
 template <class T> T emu_xchg(T v, int src) {
   double* buf = emu_blk->xchg.data() + (threadIdx.x / 32) * 32;
   double d = 0; std::memcpy(&d, &v, sizeof(T)); buf[threadIdx.x % 32] = d;
@@ -180,10 +192,17 @@ inline unsigned __reduce_or_sync(unsigned, unsigned v) {
   return r; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 // a block's threads share a host thread and switch only at barriers, so a
-// read-modify-write of shared memory is atomic as it stands
-inline int atomicAdd(int* a, int v) { int old = *a; *a = old + v; return old; }
+// read-modify-write of shared memory is atomic as it stands; the blocks of
+// a grid run on several host threads, so one of global memory is a host
+// atomic (and a fence a host fence)
+inline int atomicAdd(int* a, int v) {
+  return __atomic_fetch_add(a, v, __ATOMIC_SEQ_CST); }
 inline unsigned atomicAdd(unsigned* a, unsigned v) {
-  unsigned old = *a; *a = old + v; return old; }
+  return __atomic_fetch_add(a, v, __ATOMIC_SEQ_CST); }
+inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
+inline unsigned atomic_add_acq_rel_gpu(unsigned* p, unsigned v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_ACQ_REL); }
+template <class T> T __ldcg(const T* p) { return *p; }
 inline unsigned atomicOr(unsigned* a, unsigned v) {
   unsigned old = *a; *a = old | v; return old; }
 // a fiber that waits on an mbarrier gives the others a turn
@@ -233,6 +252,7 @@ inline void emu_launch(dim3 g, dim3 b, size_t smem, std::function<void()> fn) {
     blk.xchg.assign(((nt + 31) / 32) * 32, 0.0);
     blk.mma.assign(((nt + 31) / 32) * 32 * 6, 0u);
     blk.dyn.resize(smem + 16);
+    blk.named_bar.clear();
     emu_blk = &blk; blockDim = b; gridDim = g;
     for (long i; (i = next++) < nblocks;) {
       float nan = NAN;
@@ -387,6 +407,14 @@ inline void mbar_arrive_expect_tx(uint64_t* bar, unsigned bytes) {
   emu_mbar(bar)->tx += (int32_t)bytes; mbar_arrive(bar); }
 inline void emu_mbar_complete_tx(uint64_t* bar, unsigned bytes) {
   EmuMbar* b = emu_mbar(bar); b->tx -= (int32_t)bytes; emu_mbar_settle(b); }
+inline void fence_proxy_async_global() {}
+// cp.async.bulk: the bytes at once, delivered to the barrier
+inline void bulk_load(void* dst, const void* src, unsigned bytes,
+                      uint64_t* bar) {
+  if (smem_u32(dst) % 16 || (uintptr_t)src % 16 || bytes % 16) {
+    std::fprintf(stderr, "cp.async.bulk not 16-byte aligned\n");
+    std::abort(); }
+  std::memcpy(dst, src, bytes); emu_mbar_complete_tx(bar, bytes); }
 inline void mbar_wait(uint64_t* bar, int parity) {
   for (long spins = 0; (int)emu_mbar(bar)->phase == parity; ++spins) {
     if (spins > (1L << 20)) {
@@ -955,7 +983,9 @@ def test_onevsall_replay_source_equals_single_steps(emulated, n, d1, c,
                              len(FLASH_CASES) + len(FLASH_RAGGED_CASES))])
 def test_flash_attention_source_matches_plain(emulated, case):
     b, s_q, s_kv, n_q, n_kv, d, causal, window, cap, off = case
-    assert fa.on_tensor_cores(d, d) == (d <= 192)
+    # float32 with d = d_v: the 3xTF32 kernels at every head dim up to 256
+    # (the column-warp kernel past 128)
+    assert fa.on_tensor_cores(d, d)
     q, k, v = _t(attention_case(b, s_q, s_kv, n_q, n_kv, d))
     kw = dict(causal=causal, window=window, softcap=cap, q_offset=off)
     got = fa.flash_attention(q, k, v, **kw)
@@ -984,16 +1014,18 @@ def test_flash_attention_source_takes_a_value_head_dim(emulated, case):
 @pytest.mark.parametrize("case", FLASH_EDGE_CASES,
                          ids=[f"edge{i}" for i in range(len(FLASH_EDGE_CASES))])
 def test_flash_attention_source_at_tile_edges(emulated, case, dtype):
-    # float32 on the 3xTF32 kernel up to d = 192 and d_v = 128 (gemma2's
-    # 256 on the CUDA cores), bf16 on the wgmma kernel where d = d_v (the
-    # CUDA-core kernel for MLA's dims), each within its card tolerance
+    # float32 on the 3xTF32 kernels up to d = 192 and d_v = 128 and where
+    # d = d_v up to 256 (gemma2's 256 on the column-warp kernel), bf16 on
+    # the wgmma kernel where d = d_v (the CUDA-core kernel for MLA's dims),
+    # each within its card tolerance
     b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off = case
     q, k, v = (t.to(dtype) for t in
                _t(attention_case(b, s_q, s_kv, n_q, n_kv, d, d_v=d_v)))
     kw = dict(causal=causal, window=window, softcap=cap,
               q_offset=torch.as_tensor(off))
     assert fa.on_tensor_cores(d, d_v, dtype) == (
-        d <= 192 and d_v <= 128 if dtype == torch.float32 else d == d_v)
+        (d <= 192 and d_v <= 128) or d == d_v if dtype == torch.float32
+        else d == d_v)
     got = fa.flash_attention(q, k, v, **kw)
     want = ref.flash_attention(q, k, v, **kw)
     assert got.shape == (b, s_q, n_q, d_v) and got.dtype == dtype
@@ -1012,6 +1044,24 @@ def test_flash_attention_source_takes_per_row_offsets(emulated):
         <= ATTN_ATOL
 
 
+@pytest.mark.parametrize("case", FLASH_WIDE_CASES,
+                         ids=[f"wide{i}" for i in range(len(FLASH_WIDE_CASES))])
+def test_flash_attention_source_column_warps(emulated, case):
+    # float32 past d = 128 on the column-warp kernel: every case within
+    # ATTN_ATOL of the plain version, one launch, the same bits again
+    b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off = case
+    assert fa.on_tensor_cores(d, d_v)
+    q, k, v = _t(attention_case(b, s_q, s_kv, n_q, n_kv, d, seed=7))
+    kw = dict(causal=causal, window=window, softcap=cap,
+              q_offset=torch.as_tensor(off))
+    fa.launches = 0
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.launches == 1 and got.shape == (b, s_q, n_q, d)
+    assert float((got - ref.flash_attention(q, k, v, **kw)).abs().max()) \
+        <= ATTN_ATOL
+    assert torch.equal(fa.flash_attention(q, k, v, **kw), got)
+
+
 @pytest.mark.parametrize("case", DECODE_CASES + [
     (2, 96, 16, 1, 64, [96, 40], None, None)],         # a group of 16
     ids=[f"decode{i}" for i in range(len(DECODE_CASES) + 1)])
@@ -1023,6 +1073,85 @@ def test_decode_attention_source_matches_plain(emulated, case):
     got = da.decode_attention(q, kc, vc, cl, **kw)
     want = ref.decode_attention(q, kc, vc, cl, **kw)
     assert float((got - want).abs().max()) <= ATTN_ATOL
+
+
+@pytest.mark.parametrize("case,sms", DECODE_WIDE_CASES,
+                         ids=[f"wide{i}" for i in range(len(DECODE_WIDE_CASES))])
+def test_decode_attention_source_bulk_tiles(emulated, case, sms):
+    # float32 past d = 128 on the bulk kernel, splits in whole waves of the
+    # emulated card's resident blocks (one an SM), the splits merged by
+    # each row's last block: within ATTN_ATOL, one launch, and the same
+    # bits on a second launch (which also needs the arrival counts back
+    # at 0)
+    b, S, n_q, n_kv, d, clen, window, cap = case
+    emulated(sms)
+    q, kc, vc = _t(decode_case(b, S, n_q, n_kv, d, seed=8))
+    assert da.on_bulk(q, kc, vc) and not da.on_tma(q, kc, vc)
+    assert da.resident_blocks(d, -1, torch.float32) == sms
+    cl = torch.as_tensor(np.asarray(clen, np.int32))
+    kw = dict(window=window, softcap=cap)
+    da.launches = 0
+    got = da.decode_attention(q, kc, vc, cl, **kw)
+    assert da.launches == 1 and got.shape == q.shape
+    assert float((got - ref.decode_attention(q, kc, vc, cl, **kw))
+                 .abs().max()) <= ATTN_ATOL
+    assert torch.equal(da.decode_attention(q, kc, vc, cl, **kw), got)
+
+
+def test_decode_attention_source_bulk_routes():
+    # the bulk kernel takes float32 at 128 < d <= 256 with d % 4 == 0 and
+    # aligned caches; the rest keeps the split kernel, chosen by shape and
+    # address, and asks no residency of the library
+    def ops(d, shift=0):
+        q, kc, vc = _t(decode_case(1, 32, 2, 1, d))
+        if shift:
+            kc = torch.cat([kc.new_zeros(shift), kc.flatten()])[shift:] \
+                .view(kc.shape)
+        return q, kc, vc
+    assert da.on_bulk(*ops(256)) and da.on_bulk(*ops(132))
+    assert not da.on_bulk(*ops(128)) and not da.on_bulk(*ops(130))
+    assert not da.on_bulk(*ops(256, shift=1))
+    q, kc, vc = ops(256)
+    assert not da.on_bulk(q.to(torch.bfloat16), kc.to(torch.bfloat16),
+                          vc.to(torch.bfloat16))
+    assert da.plan(*ops(112), None) == da.splits(1, 32, 1, None)
+
+
+@pytest.mark.parametrize("args,want", [
+    # gemma2's serving decode: 4 rows x 2 blocks of 4 kv-heads, one wave of
+    # 16 splits of 32 slots (128 blocks on 132 SMs)
+    ((4, 512, 8, None, 132), (32, 16)),
+    # its decode_32k at 5 slots: 13 splits of 2,528 (130 blocks)
+    ((5, 32768, 8, None, 132), (2528, 13)),
+    # a window of 100: 13 tiles of 8 slots, one split each
+    ((2, 4096, 8, 100, 132), (8, 13)),
+    # more (row, block) pairs than resident blocks: one split
+    ((200, 512, 8, None, 132), (512, 1)),
+    # group parts: 2 a kv-head halve the splits
+    ((2, 512, 8, None, 132, 2), (32, 16))])
+def test_decode_attention_bulk_splits_take_one_wave(args, want):
+    # the float32 bulk kernel's plan: whole 8-slot tiles, as many splits
+    # as one wave of resident blocks holds (a row's merge waits for its
+    # last split)
+    per, nsplit = da.bulk_splits(*args)
+    assert (per, nsplit) == want
+    b, S, n_kv, window, resident = args[:5]
+    nsub = args[5] if len(args) > 5 else 1
+    longest = min(S, window or S)
+    assert per % da.BULK_TILE == 0
+    assert per * nsplit >= longest > per * (nsplit - 1)
+    assert b * -(-n_kv // 4) * nsub * nsplit <= max(resident,
+                                                    b * -(-n_kv // 4) * nsub)
+
+
+@pytest.mark.parametrize("d,sms", [(256, 132), (192, 7), (132, 1)])
+def test_decode_attention_source_bulk_resident_blocks(emulated, d, sms):
+    # the float32 kernel asks for 192 KB: one block an SM; none below
+    # d = 129 or at d % 4 != 0
+    emulated(sms)
+    assert da.resident_blocks(d, -1, torch.float32) == sms
+    assert _build.query("vpaas_decode_attention_resident", 128) == 0
+    assert _build.query("vpaas_decode_attention_resident", 130) == 0
 
 
 @pytest.mark.parametrize("case", SSD_CASES + [(1, 70, 1, 32, 128, 64, True, False)],
