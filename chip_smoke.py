@@ -2438,10 +2438,12 @@ def k6_instance(fa, b, s_q, n_q, d, d_v, dtype) -> str:
 def _k6_instance(fa, b, s_q, n_q, d, d_v, dtype) -> str:
     import torch
     if dtype == torch.bfloat16 and fa.on_tensor_cores(d, d_v, dtype):
+        nwg = fa.block_rows(b, s_q, n_q) // 64
+        if d > 128 and d_v < d:            # MLA's value head dim
+            return f"flash_attention_wgmma_kernel<{nwg}, 12, 8>"
         dp = -(-d // 8) * 8
         nkt = next(n for n in (2, 4, 6, 7, 8, 16) if 16 * n >= dp)
-        nwg = fa.block_rows(b, s_q, n_q) // 64
-        return f"flash_attention_wgmma_kernel<{nwg}, {nkt}>"
+        return f"flash_attention_wgmma_kernel<{nwg}, {nkt}, {nkt}>"
     if dtype == torch.float32 and fa.on_tensor_cores(d, d_v):
         if d == d_v and d > 128:           # 32-row blocks of column warps
             return "flash_attention_cols_kernel"
@@ -3289,7 +3291,8 @@ PARENT_LLM = {"k6": "phase_flash_attention", "k7": "phase_decode_attention",
 PROBES = {"phase_k7_host": "K7 bf16 host",
           "phase_decode_step": "decode_32k step",
           "phase_gemma2_32k": "gemma2 32k",
-          "phase_gemma2_serve": "gemma2 serve"}
+          "phase_gemma2_serve": "gemma2 serve",
+          "phase_deepseek_32k": "deepseek 32k"}
 
 
 def run_parent(root: str, phases, own: bool = False) -> str:
@@ -3410,19 +3413,23 @@ def phase_dryrun_table(card):
 
 def kernel_offsets(cfg, b_prefill: int, b_decode: int, seq: int) -> dict:
     """The largest element count each LLM kernel indexes at the dry run's
-    card shapes (an operand, its output or its workspace; K8's only where
-    ``cfg`` has Mamba2 layers)."""
+    card shapes (an operand, its output or its workspace): K6's q at its
+    q / k head dim (MLA's head_dim + rope_head_dim); K7's only where
+    ``cfg`` decodes by it (not MLA's absorbed decode), K8's only where it
+    has Mamba2 layers."""
     import torch
 
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ssd_scan as sk
     h, d = cfg.num_heads, cfg.head_dim
-    q, kc = (torch.empty((b_decode, h, d), device="meta"),
-             torch.empty((b_decode, seq, cfg.num_kv_heads, d),
-                         device="meta"))
-    out = {"flash_attention": b_prefill * seq * h * d,
-           "decode_attention": max(kc.numel(), da.workspace_bytes(
-               q, kc, kc, None, da.H100_RESIDENT) // 4)}
+    d_qk = d + cfg.rope_head_dim if cfg.mla else d
+    out = {"flash_attention": b_prefill * seq * h * d_qk}
+    if decode_kernel_calls(cfg)[1]:
+        q, kc = (torch.empty((b_decode, h, d), device="meta"),
+                 torch.empty((b_decode, seq, cfg.num_kv_heads, d),
+                             device="meta"))
+        out["decode_attention"] = max(kc.numel(), da.workspace_bytes(
+            q, kc, kc, None, da.H100_RESIDENT) // 4)
     if cfg.ssm_state:
         x = torch.empty((b_prefill, seq, cfg.n_ssm_heads, cfg.ssm_head_dim),
                         device="meta")
@@ -3681,20 +3688,25 @@ def phase_dryrun_kernels(torch, np, card, batches):
 def phase_dryrun_reference(torch, np, card, arch: str = DRYRUN_ARCH):
     """(d) The prefill and decode steps of ``launch.specs.make_step``, in
     bf16, on ``arch`` cut to one block (zamba2-7b: 9 layers; gemma2-9b: a
-    LOCAL and a global layer), the same bf16 weights on the card and the
-    CPU: a 1 x DRYRUN_REF_SEQ prefill, then one decode step over
-    its cache (rewriting its last slot).  Each layer the card applies is
-    held to the CPU's on the CPU's own inputs (``testing.LayerTap``:
-    BF16_LLM_RTOL of its output's and its cache's scale); the logits end
-    to end are printed beside them (bf16 noise grows through a model, so
-    they are not gated) and must be finite."""
+    LOCAL and a global layer; deepseek-v2-lite-16b: the dense layer and a
+    MoE layer), the same bf16 weights on the card and the CPU: a 1 x
+    DRYRUN_REF_SEQ prefill, then one decode step over its cache (rewriting
+    its last slot).  Each layer the card applies is held to the CPU's on
+    the CPU's own inputs (``testing.LayerTap``: BF16_LLM_RTOL of its
+    output's and its cache's scale); a MoE layer's tokens that the card
+    routes apart from the CPU at a bf16 router tie are exempt from its
+    output's comparison and counted (``testing.route_exempt``: a tie within
+    ROUTER_TIE_BF16 of the token's largest |logit|, and the drops it moves
+    behind it); the logits end to end are printed beside them (bf16 noise
+    grows through a model, so they are not gated) and must be finite."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import ops
     from repro_torch.launch import specs
     from repro_torch.models import schema as sch
     from repro_torch.models import transformer as tfm
-    from repro_torch.testing import (BF16_LLM_RTOL, LayerTap, rel_err,
+    from repro_torch.testing import (BF16_LLM_RTOL, ROUTER_TIE_BF16,
+                                     LayerTap, RouterTap, rel_err,
                                      replay_layers)
     cfg = block_cut(get_config(arch), 1)
     s = DRYRUN_REF_SEQ
@@ -3704,16 +3716,18 @@ def phase_dryrun_reference(torch, np, card, arch: str = DRYRUN_ARCH):
                                       specs.COMPUTE_DTYPE)}
     params["cpu"] = sch.tree_map(lambda t: t.cpu(), params["cuda"])
     toks = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (1, s))
-    out, counts, taps, wall = {}, {}, {}, {}
+    out, counts, taps, routers, wall = {}, {}, {}, {}, {}
     for dev in ("cuda", "cpu"):
         t = torch.as_tensor(toks, device=dev)
         t0 = time.perf_counter()
         ops.reset_launch_counts()
-        with LayerTap() as taps[dev, "prefill"]:
+        with LayerTap() as taps[dev, "prefill"], \
+                RouterTap() as routers[dev, "prefill"]:
             logits, cache = prefill(params[dev], t)
         counts[dev, "prefill"] = ops.launch_counts()
         ops.reset_launch_counts()
-        with LayerTap() as taps[dev, "decode"]:
+        with LayerTap() as taps[dev, "decode"], \
+                RouterTap() as routers[dev, "decode"]:
             step, _ = decode(params[dev], t[:, -1:], cache,
                              torch.tensor(s - 1, device=dev))
         counts[dev, "decode"] = ops.launch_counts()
@@ -3724,25 +3738,34 @@ def phase_dryrun_reference(torch, np, card, arch: str = DRYRUN_ARCH):
                    f"{cfg.name}'s prefill step")
     check_launches(counts["cuda", "decode"], path_launches(cfg, 0, 1),
                    f"{cfg.name}'s decode step")
-    layer_errs = {}
+    layer_errs, exempt = {}, {}
     for what in ("prefill", "decode"):
-        layer_errs[what] = replay_layers(cfg, taps["cpu", what].calls,
-                                         "cuda")
-        worst = max(max(e, c) for _, e, c in layer_errs[what])
+        layer_errs[what] = replay_layers(
+            cfg, taps["cpu", what].calls, "cuda",
+            routers["cpu", what].calls if cfg.num_experts else None)
+        worst = max(max(e, c) for _, e, c, _ in layer_errs[what])
         if not worst <= BF16_LLM_RTOL:
             raise AssertionError(f"dryrun {what} layers card vs CPU: "
                                  f"{layer_errs[what]}")
-    del taps
+        exempt[what] = {n: sum(x.get(n, 0) for *_, x in layer_errs[what])
+                        for n in ("ties", "moved", "near")}
+    del taps, routers
     errs = [rel_err(a, b) for a, b in zip(out["cuda"], out["cpu"])]
     if not all(np.isfinite(o).all() for o in out["cuda"]):
         raise AssertionError("dryrun steps: non-finite logits on the card")
-    worst = {w: max(max(e, c) for _, e, c in v)
+    worst = {w: max(max(e, c) for _, e, c, _ in v)
              for w, v in layer_errs.items()}
     card_s, cpu_s = wall["cuda"], wall["cpu"]
+    ties = ("" if not cfg.num_experts else
+            "; MoE tokens exempt at bf16 router ties (k-th and (k+1)-th "
+            f"logits within {ROUTER_TIE_BF16} of the token's largest): "
+            + ", ".join(f"{w} {x['ties']} routed apart and {x['moved']} "
+                        f"drop(s) moved behind them, of {x['near']} token(s)"
+                        f" at a tie" for w, x in exempt.items()))
     print(f"dryrun steps card vs CPU in bf16, {cfg.name} at full width, 1 x "
           f"{s}: every layer within {worst['prefill']:.3e} (prefill) and "
           f"{worst['decode']:.3e} (decode) of its scale on the CPU's inputs "
-          f"(tolerance {BF16_LLM_RTOL}); end to end the logits "
+          f"(tolerance {BF16_LLM_RTOL}){ties}; end to end the logits "
           f"{errs[0]:.3e} (prefill) and {errs[1]:.3e} (decode) apart (not "
           f"gated); steps {card_s:.2f} s on the card, {cpu_s:.2f} s on the "
           f"CPU [{card}]")
@@ -3750,7 +3773,8 @@ def phase_dryrun_reference(torch, np, card, arch: str = DRYRUN_ARCH):
     torch.cuda.empty_cache()
     return {"prefill_layers": worst["prefill"],
             "decode_layers": worst["decode"], "prefill_logits": errs[0],
-            "decode_logits": errs[1], "cpu_s": cpu_s}
+            "decode_logits": errs[1], "cpu_s": cpu_s,
+            "router_exempt": exempt if cfg.num_experts else None}
 
 
 def busy_us(spans) -> float:
@@ -3819,17 +3843,29 @@ def gemma2_bound(cfg, kernel, b, s, window):
     K7 (b slots over s valid slots) calls: q, the output and every K and V
     row some query reads once, in bf16; every (query head, key) pair the
     mask lets through."""
-    from repro_torch.kernels.flash_attention import causal_pairs
     h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if kernel == "K6":
-        pairs = b * h * causal_pairs(s, s, causal=True, window=window,
-                                     q_offset=0)
-        nbytes = 2 * (b * s * h * 2 * d + b * s * kv * 2 * d) + 4 * b
-    else:
-        pairs = h * decode_rows([s] * b, s, window)
-        nbytes = decode_nbytes(b, h, kv, d, [s] * b, s, window, size=2)
+        return k6_causal_bound(b, s, h, kv, d, d, window,
+                               cfg.attn_logit_softcap)
+    pairs = h * decode_rows([s] * b, s, window)
+    nbytes = decode_nbytes(b, h, kv, d, [s] * b, s, window, size=2)
     mma = pairs * 4 * d
     other = pairs * (_attn_ops_per_pair(d, cfg.attn_logit_softcap) - 4 * d)
+    return nbytes, mma, other, bf16_bound_ms(nbytes, mma, other)
+
+
+def k6_causal_bound(b, s, h, kv, d, d_v, window=None, cap=None):
+    """(bytes, bf16 products, other operations, :func:`bf16_bound_ms`) of
+    a bf16 K6 call at b x s causal (queries at positions 0 .. s - 1): q,
+    k, v and the output once each, and the offsets; every (query head,
+    key) pair the mask lets through: 2 (d + d_v) products, and the
+    softmax's and a softcap's operations."""
+    from repro_torch.kernels.flash_attention import causal_pairs
+    pairs = b * h * causal_pairs(s, s, causal=True, window=window,
+                                 q_offset=0)
+    nbytes = 2 * (b * s * h * (d + d_v) + b * s * kv * (d + d_v)) + 4 * b
+    mma = pairs * 2 * (d + d_v)
+    other = pairs * (_attn_ops_per_pair(d, cap, d_v) - 2 * (d + d_v))
     return nbytes, mma, other, bf16_bound_ms(nbytes, mma, other)
 
 
@@ -3952,6 +3988,120 @@ def phase_gemma2_32k(torch, card, batches=None, check=False) -> dict:
     return out
 
 
+def mla_k6_dims(cfg):
+    """(q-heads, kv-heads, q / k head dim, v head dim) of an MLA config's
+    K6 calls (``models.attention.mla_attention``'s prefill): every head its
+    own kv-head, q and k at head_dim + rope_head_dim, v at head_dim."""
+    return (cfg.num_heads, cfg.num_heads, cfg.head_dim + cfg.rope_head_dim,
+            cfg.head_dim)
+
+
+def phase_deepseek_32k(torch, card, batches=None, check=False) -> dict:
+    """K6 on bf16 operands at deepseek-v2-lite-16b's prefill_32k (MLA:
+    :func:`mla_k6_dims`, causal; the rows its abstract pass picks where
+    ``batches`` is None), timed by CUDA events in turns with SDPA's bf16 on
+    the same function (its memory-efficient backend, the fused one that
+    takes d_v != d; the math one would hold the scores, 412 GB at 6 rows),
+    GEMMA_K6_REPS calls a turn, beside its bf16 bound and its device time
+    from the profiler.  On the CUDA-core kernel (the parent's route: ~5 s a
+    call) one call after one warm-up, without SDPA or the profiler.  Reads
+    only the package's entry points, so --parent runs it on the parent's
+    package.  With ``check`` (``phase_deepseek``) the result is first held
+    against the plain version on 256-query slices at the head and the tail
+    (the plain version over all 32k queries would hold the scores) and the
+    row names its kernel instance.  Returns the row."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.testing import ATTN_BF16_RTOL
+    cfg = get_config(MOE_ARCH)
+    if batches is None:
+        from repro_torch.launch.dryrun import run_one
+        batches = {"prefill_32k": run_one(
+            MOE_ARCH, "prefill_32k", device="meta", verbose=False,
+            save=False)["max_batch"]}
+    b, s = batches["prefill_32k"], INPUT_SHAPES["prefill_32k"].seq_len
+    h, kv, d, d_v = mla_k6_dims(cfg)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v = (torch.randn((b, s, n, w), generator=gen,
+                           device="cuda").to(bf16)
+               for n, w in ((h, d), (kv, d), (kv, d_v)))
+    fn = lambda: fa.flash_attention(q, k, v)  # noqa: E731
+    on_tc = fa.on_tensor_cores(d, d_v, bf16)
+    route = "wgmma" if on_tc else "CUDA cores"
+    shape = f"b={b} s_q={s} s_kv={s} heads={h}/{kv} d={d} d_v={d_v} causal"
+    row, checked = {}, ""
+    if check:
+        got, err = fn(), (0.0, 0.0)
+        for lo in (0, s - 256):
+            e = bf16_err(got[:, lo:lo + 256], fa.flash_attention_ref(
+                q[:, lo:lo + 256], k, v, q_offset=lo))
+            err = (max(err[0], e[0]), max(err[1], e[1]))
+        if not (err[1] <= ATTN_BF16_RTOL
+                and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"deepseek K6 bf16 at {shape}: error {err}")
+        del got
+        row.update(kernel=k6_instance(fa, b, s, h, d, d_v, bf16),
+                   max_abs_err=err[0], rel_err=err[1],
+                   tolerance=ATTN_BF16_RTOL)
+        checked = (f", {row['kernel']}: error {err[0]:.3e} ({err[1]:.3e} "
+                   f"of its row's largest value; tolerance "
+                   f"{ATTN_BF16_RTOL:.3e})")
+    nbytes, mma, other, (bound, by) = k6_causal_bound(b, s, h, kv, d, d_v)
+    if on_tc:
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def lib():
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True)
+        turns = in_turns({"kernel": fn, "library": lib},
+                         lambda f: time_ms(torch, f, GEMMA_K6_REPS, 1))
+        ms, lib_ms = (statistics.mean(turns[n]) for n in ("kernel",
+                                                           "library"))
+        device = profile_device(torch, fn, 1, once=True)[0]
+        lib_device = profile_device(torch, lib, 1)[0]
+        del qt, kt, vt
+        timed = (", ".join(f"{t:.4f}" for t in turns["kernel"])
+                 + " ms per call in turns with SDPA's bf16 (memory-efficient"
+                 " backend) " + ", ".join(f"{t:.4f}" for t in turns["library"])
+                 + f" ms ({fmt(lib_device)} on the device); the kernel "
+                 f"{fmt(device)} on the device")
+    else:
+        turns, lib_ms, device, lib_device = None, None, None, None
+        ms = time_ms(torch, fn, 1, 1)
+        timed = f"{ms:.4f} ms for one call after one warm-up"
+    row.update(shape=shape, route=route, ms=ms, turns_ms=turns,
+               device_ms=device, library_ms=lib_ms,
+               library_device_ms=lib_device, bound_ms=bound, bound_by=by,
+               bytes=nbytes, bf16_products=mma, other_ops=other)
+    print(f"deepseek 32k K6 bf16 MLA ({shape}) on the {route} kernel"
+          f"{checked}: {timed}; bound {bound:.6f} ms ({by}; {nbytes:.4e} B, "
+          f"{mma:.4e} bf16 products, {other:.4e} other) [{card}]")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_deepseek(torch, np, card, table=None) -> dict:
+    """deepseek-v2-lite-16b's card phases (``--only deepseek``; in the full
+    run after gemma2-9b's, on the dry run's ``table``): its bf16 dry-run
+    steps at full width and depth, K6 at its prefill_32k shape against its
+    plain version (``phase_deepseek_32k(check=True)``), and its one-block
+    bf16 cut (the dense layer and a MoE layer) against the CPU layer by
+    layer.  Returns {"card": steps, "k6": row, "card_vs_cpu": cut}."""
+    runs = phase_dryrun_card(torch, card, table or dryrun_card_table(
+        arch=MOE_ARCH), MOE_ARCH)
+    k6 = phase_deepseek_32k(torch, card, {s: runs[s]["batch"]
+                                          for s in DRYRUN_CARD_SHAPES},
+                            check=True)
+    steps = phase_dryrun_reference(torch, np, card, MOE_ARCH)
+    return {"card": runs, "k6": k6, "card_vs_cpu": steps}
+
+
 def phase_decode_step(torch, card, row=None) -> dict:
     """DRYRUN_ARCH's decode_32k step on the card at the batch its abstract
     pass (``row``, run here where None) picks, made as ``dryrun.card_pass``
@@ -4030,9 +4180,10 @@ def phase_decode_step(torch, card, row=None) -> dict:
 
 
 def phase_dryrun(torch, np, card):
-    """The dry run's phases (a)-(d), for DRYRUN_ARCH and then GEMMA_ARCH
-    (its steps, K6 and K7 at its 32k shapes, its one-block cut); returns
-    what the JSON line carries."""
+    """The dry run's phases (a)-(d), for DRYRUN_ARCH, then GEMMA_ARCH (its
+    steps, K6 and K7 at its 32k shapes, its one-block cut) and MOE_ARCH
+    (its steps, K6 at its 32k shape, its one-block cut:
+    :func:`phase_deepseek`); returns what the JSON line carries."""
     table = phase_dryrun_table(card)
     runs = phase_dryrun_card(torch, card, table)
     runs["decode_32k"]["trace"] = phase_decode_step(
@@ -4046,13 +4197,17 @@ def phase_dryrun(torch, np, card):
         torch, card, {s: gemma[s]["batch"] for s in DRYRUN_CARD_SHAPES},
         check=True)
     gemma_steps = phase_dryrun_reference(torch, np, card, GEMMA_ARCH)
+    deepseek = phase_deepseek(torch, np, card, table)
+    kernels["deepseek"] = deepseek["k6"]
     keep = ("hlo_flops", "hlo_bytes", "arg_bytes", "peak_memory_per_device",
             "fits", "max_batch", "batch1_peak_bytes", "t_floor", "dominant",
             "kernel_plain_flops", "cut_t_floor", "t_abstract_s")
     return {"table": [dict(arch=a, shape=s, **{k: r[k] for k in keep})
                       for (a, s), r in table.items()],
             "card": runs, "kernels": kernels, "card_vs_cpu": steps,
-            "card_gemma2": gemma, "card_vs_cpu_gemma2": gemma_steps}
+            "card_gemma2": gemma, "card_vs_cpu_gemma2": gemma_steps,
+            "card_deepseek": deepseek["card"],
+            "card_vs_cpu_deepseek": deepseek["card_vs_cpu"]}
 
 
 LLM_ARCH = "zamba2-7b"
@@ -5514,6 +5669,9 @@ ONLY_PHASES = {
     "gemma2": phase_gemma2,
     "gemma2_serve": lambda torch, np, card: relay_probes(
         ROOT, "this tree", ["phase_gemma2_serve"]),
+    "deepseek": phase_deepseek,
+    "deepseek_32k": lambda torch, np, card: relay_probes(
+        ROOT, "this tree", ["phase_deepseek_32k"]),
 }
 
 
@@ -5530,7 +5688,8 @@ def main() -> int:
                          "contract line); with --parent the parent's K6 / "
                          "K7 / K8 rows (k6, k7, k8) and this script's "
                          "probes on its package (k7_host, decode_step, "
-                         "gemma2_32k, gemma2_serve) run before and after")
+                         "gemma2_32k, gemma2_serve, deepseek_32k) run "
+                         "before and after")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         raise SystemExit("chip_smoke.py: src/repro_torch not found next to "
@@ -5703,10 +5862,11 @@ def main() -> int:
         bf["name"] = row["name"] + "_bf16"
         bf["launches_dryrun"] = {s: dryrun["card"][s]["launches"][
             bf["name"]] for s in DRYRUN_CARD_SHAPES}
-        bf["launches_dryrun_gemma2"] = {s: dryrun["card_gemma2"][s][
-            "launches"][bf["name"]] for s in DRYRUN_CARD_SHAPES}
-        bf["launches"] = sum(bf["launches_dryrun"].values()) + sum(
-            bf["launches_dryrun_gemma2"].values())
+        for arch in ("gemma2", "deepseek"):
+            bf[f"launches_dryrun_{arch}"] = {s: dryrun[f"card_{arch}"][s][
+                "launches"][bf["name"]] for s in DRYRUN_CARD_SHAPES}
+        bf["launches"] = sum(sum(bf[f"launches_dryrun{a}"].values())
+                             for a in ("", "_gemma2", "_deepseek"))
         bf["launches_launcher"] = launcher_counts[bf["name"]]
         if row["name"] in ("flash_attention", "ssd_scan"):
             bf["vjps_launcher"] = launcher_counts[row["name"] + "_vjp"]
@@ -5717,6 +5877,8 @@ def main() -> int:
             bf["dryrun_gemma2"] = {
                 key: r for key, r in dryrun["kernels"]["gemma2"].items()
                 if key.startswith(tag)}
+        if tag == "K6":          # MLA's d 192 over d_v 128: <NWG, 12, 8>
+            bf["dryrun_deepseek"] = dryrun["kernels"]["deepseek"]
         # K7's and K8's split by device kernel, at 32k and serving shapes
         tag = {"decode_attention": "K7", "ssd_scan": "K8"}.get(row["name"])
         for r, dt in ((row, "float32"), (bf, "bf16")):
@@ -5737,7 +5899,9 @@ def main() -> int:
                       "llm_launcher_bf16": launcher,
                       "dryrun": {k: dryrun[k] for k in
                                  ("table", "card", "card_vs_cpu",
-                                  "card_gemma2", "card_vs_cpu_gemma2")}}))
+                                  "card_gemma2", "card_vs_cpu_gemma2",
+                                  "card_deepseek",
+                                  "card_vs_cpu_deepseek")}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

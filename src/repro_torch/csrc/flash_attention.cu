@@ -101,7 +101,8 @@
 // by an integer add instead of cvt.rna ran faster at a larger error and
 // was not kept.
 //
-// bf16 operands, d = d_v <= 256 (vpaas_flash_attention_bf16: the
+// bf16 operands, d = d_v <= 256 and d <= 192 over d_v <= 128
+// (vpaas_flash_attention_bf16: the
 // reference's launch path computes in bf16, and its Pallas kernel loads
 // bf16 and sums in f32): flash_attention_wgmma_kernel, Hopper's shape of a
 // flash attention.  A block is NWG consumer warpgroups of 64 query rows of
@@ -164,11 +165,22 @@
 // read the buffer.  At gemma2's prefill_32k (3 x 32,768, 16 q-heads, 8
 // kv-heads, causal, softcap 50) a global layer's products are 2.64e13
 // flop, 26.7 ms at the bf16 rate (P V twice: 40.0).
+// A value head dim of its own (MLA's d = 192 over d_v = 128: NKT = 12,
+// NVT = 8) gives the tile a second width: S = Q K^T takes 12 k-steps over
+// Q's and K's three 64-column boxes, P V is m64n128k16 over V's two, and
+// O holds 64 x 128 floats (64 registers a thread, so p's fragments keep
+// two buffers).  Tiles are 96 keys as up to d = 128, in split rings
+// released by count as past it: a stage is 36 KB of K and 24 KB of V, so
+// two fit beside Q's 48 KB (168 KB at 128 rows, one block an SM; four
+// stages of 64-key tiles, 208 KB, ran 10% slower).  Where d_v < d <=
+// 128 the d = d_v instance runs with V at its own width: V's boxes past
+// d_v are not loaded, and O's columns past d_v, which they feed, are not
+// stored.  At deepseek-v2-lite's
+// prefill_32k (6 x 32,768, 16 heads, causal) a call's products are
+// 3.3e13 flop, 33 ms at the bf16 rate (P V twice: 46).
 //
-// A float32 value head dim of its own past d = 192 or d_v = 128 (no path
-// has one), and d_v != d in bf16 (MLA's 192 / 128: its Q tile and 128-key
-// K/V ring, 48 + 2 x (48 + 32) KB, would fit, but the kernel's PV takes
-// N = d; queued), take the CUDA-core kernel below,
+// A value head dim of its own past d = 192 or d_v = 128 (no path has
+// one) takes the CUDA-core kernel below,
 // chosen by the shapes: one block per (32-row query tile, q-head, batch
 // row), four warps of eight rows, K/V tiles of 32 keys staged in shared
 // memory, one key per lane for QK^T over d, NC = ceil(d_v/32) output
@@ -905,7 +917,8 @@ int dispatch(const float* q, const float* k, const float* v,
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// bf16 operands, d = d_v <= 256: wgmma on TMA tiles (sm_90a)
+// bf16 operands, d = d_v <= 256 or d <= 192 over d_v <= 128: wgmma on TMA
+// tiles (sm_90a)
 // ---------------------------------------------------------------------------
 namespace wg {
 
@@ -915,36 +928,46 @@ constexpr int kRowsWG = 64;      // query rows of one consumer warpgroup
 constexpr int kRow = 128;        // bytes of a swizzled row: 64 bf16 columns
 constexpr float kLog2e = 1.4426950408889634f;
 
-// NWG consumer warpgroups (64 query rows each) and NKT 16-column steps of
-// the head dim (padded with zeros to DP = 16 NKT: QK's k steps, PV's N).
-// Shared memory, 1024-byte aligned: Q [NB][BM][64], then the K and V
-// stages, each [NB][BN][64], then the barriers (Q's, then two a stage:
-// K's and V's full, or its full and its empty) and the release counts;
-// NB 64-column boxes.
-template <int NWG, int NKT>
+// NWG consumer warpgroups (64 query rows each), NKT 16-column steps of
+// q's and k's head dim (padded with zeros to DP = 16 NKT: QK's k steps)
+// and NVT of v's (DV = 16 NVT: PV's N; NVT = NKT where d_v = d, and where
+// d_v < d <= 128, v's columns past d_v then unread).  Shared memory,
+// 1024-byte aligned: Q [NB][BM][64], then the K stages, each [NB][BN][64],
+// and the V stages, each [NBV][BN][64], then the barriers (Q's, then two a
+// stage: K's and V's full, or its full and its empty) and the release
+// counts; NB (NBV) 64-column boxes.
+template <int NWG, int NKT, int NVT>
 struct Tile {
   static constexpr int DP = 16 * NKT;
+  static constexpr int DV = 16 * NVT;
   static constexpr int NB = (DP + 63) / 64;
+  static constexpr int NBV = (DV + 63) / 64;
   static constexpr int BM = kRowsWG * NWG;
   static constexpr int kThreads = 128 * NWG;
-  // keys a tile: 96 up to d = 128; 64 past it, where a 96-key stage of K
-  // and V (96 KB at d = 256) would leave no room for two beside Q
-  static constexpr int BN = DP <= 128 ? 96 : 64;
+  // keys a tile: 96 up to d_v = 128 (MLA's d = 192 included: a 96-key
+  // stage of K and V is 60 KB there); 64 at d_v = 256, where it would be
+  // 96 KB and leave no room for two beside Q
+  static constexpr int BN = DV <= 128 ? 96 : 64;
   // K/V tiles in flight: 4 for one block an SM (224 KB), 2 for 64-row
   // blocks, two of which share an SM (2 x 112 KB); past d = 128 two, one
-  // block an SM (Q 64 KB + 2 x 64 KB at 128 rows, 32 KB + 128 KB at 64)
+  // block an SM (Q 64 KB + 2 x 64 KB at d_v = 256, 48 KB + 2 x 60 KB at
+  // MLA's 192 / 128, 128 rows; 32 + 128 KB, 24 + 120 KB at 64).  At MLA's
+  // 6 x 32k on an H100, 96-key tiles in two stages ran 10% faster than
+  // 64-key ones in three or four (PERF.md)
   static constexpr int STAGES = NWG == 2 && DP <= 128 ? 4 : 2;
   // past d = 128 K and V have rings of their own, released by count (the
   // kernel below); up to it a stage holds a tile's K and V, refilled by
   // thread 0 (split rings ran 7% slower at 6 x 32k, d = 112)
   static constexpr bool SPLIT = DP > 128;
   static constexpr unsigned Q_BYTES = NB * BM * kRow;
-  static constexpr unsigned KV_BYTES = NB * BN * kRow;   // K or V, a stage
+  static constexpr unsigned K_BYTES = NB * BN * kRow;    // K, a stage
+  static constexpr unsigned V_BYTES = NBV * BN * kRow;   // V, a stage
   static constexpr unsigned OFF_K = Q_BYTES;
-  static constexpr unsigned OFF_V = OFF_K + STAGES * KV_BYTES;
-  static constexpr unsigned OFF_BAR = OFF_V + STAGES * KV_BYTES;
+  static constexpr unsigned OFF_V = OFF_K + STAGES * K_BYTES;
+  static constexpr unsigned OFF_BAR = OFF_V + STAGES * V_BYTES;
   static constexpr unsigned OFF_CNT = OFF_BAR + 8 * (1 + 2 * STAGES);
   static constexpr unsigned SMEM = OFF_CNT + 4 * 2 * STAGES;
+  static_assert(SMEM <= 232448, "past the 227 KB a block may have");
 };
 
 // P V takes p as two bf16 halves (split_bf16x2, primitives.cuh), one
@@ -978,36 +1001,36 @@ __device__ __forceinline__ void issue_qk(float (&sc)[BN / 2],
 // O += P V for one tile, issued (not waited): P's two bf16 halves are the
 // A fragments of the 16-key steps (the accumulator pairs of S as they
 // stand); V (keys x head dim, head dim contiguous) is B with the
-// transposed bit, its 64-column boxes (two at d <= 128, four at 256) one
-// 64 x DP product a half (the descriptor's leading byte offset, a box's
-// BN rows, steps from box to box)
-template <int DP, int BN>
+// transposed bit, its 64-column boxes (two at d_v <= 128, four at 256)
+// one 64 x DV product a half (the descriptor's leading byte offset, a
+// box's BN rows, steps from box to box)
+template <int DV, int BN>
 __device__ __forceinline__ void issue_pv(float* o,
                                          const uint32_t (&phi)[BN / 4],
                                          const uint32_t (&plo)[BN / 4],
                                          const uint8_t* Vt) {
-  fence_regs<DP / 2>(o);
+  fence_regs<DV / 2>(o);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < BN / 16; ++kk) {
     const uint64_t db = wgmma_desc(Vt + kk * 16 * kRow, BN * kRow, 1024);
-    wgmma_m64nNk16_rs<DP>(o, plo + 4 * kk, db);
-    wgmma_m64nNk16_rs<DP>(o, phi + 4 * kk, db);
+    wgmma_m64nNk16_rs<DV>(o, plo + 4 * kk, db);
+    wgmma_m64nNk16_rs<DV>(o, phi + 4 * kk, db);
   }
   wgmma_commit();
 }
 
-template <int NWG, int NKT>
-__global__ void __launch_bounds__(Tile<NWG, NKT>::kThreads, 3 - NWG)
+template <int NWG, int NKT, int NVT>
+__global__ void __launch_bounds__(Tile<NWG, NKT, NVT>::kThreads, 3 - NWG)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
                              const bf16* __restrict__ v,
                              const int32_t* __restrict__ q_offset,
                              bf16* __restrict__ out, int Sq, int Skv, int Hq,
-                             int Hkv, int D, int causal, int window,
+                             int Hkv, int Dv, int causal, int window,
                              float softcap, float scale) {
-  using T = Tile<NWG, NKT>;
+  using T = Tile<NWG, NKT, NVT>;
   constexpr int BN = T::BN;
   // the 128-byte swizzle repeats every 1024 bytes: TMA and wgmma address
   // the tiles from a 1024-byte aligned base
@@ -1043,20 +1066,23 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
   // tile i's K (k), V (v) or both into stage i % STAGES by TMA, landing on
   // the stage's K (or, SPLIT, V) full barrier: thread 0 loads Q and the
-  // first STAGES tiles, then each stage is refilled as release says
+  // first STAGES tiles, then each stage is refilled as release says.  V's
+  // boxes that hold no column below d_v are not loaded: they feed only
+  // columns of O past d_v, which are never stored
+  const int nbv = (Dv + 63) / 64;
   auto load = [&](int i, bool k, bool v) {
     const int s = i % T::STAGES;
     uint64_t* bar = (T::SPLIT && v ? vfull : kfull) + s;
-    mbar_arrive_expect_tx(bar, (k + v) * T::KV_BYTES);
-    for (int x = 0; x < T::NB; ++x) {
-      const int at = s * T::KV_BYTES + x * BN * kRow;
-      if (k)
-        tma_load_4d(smem + T::OFF_K + at, &tk, bar, 64 * x, hk,
-                    kv_lo + i * BN, b);
-      if (v)
-        tma_load_4d(smem + T::OFF_V + at, &tv, bar, 64 * x, hk,
-                    kv_lo + i * BN, b);
-    }
+    mbar_arrive_expect_tx(bar, (k ? T::K_BYTES : 0u) +
+                                   (v ? nbv * BN * kRow : 0u));
+    if (k)
+      for (int x = 0; x < T::NB; ++x)
+        tma_load_4d(smem + T::OFF_K + s * T::K_BYTES + x * BN * kRow, &tk,
+                    bar, 64 * x, hk, kv_lo + i * BN, b);
+    if (v)
+      for (int x = 0; x < nbv; ++x)
+        tma_load_4d(smem + T::OFF_V + s * T::V_BYTES + x * BN * kRow, &tv,
+                    bar, 64 * x, hk, kv_lo + i * BN, b);
   };
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -1097,10 +1123,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const float cap_in = softcap > 0.f ? scale / softcap : 0.f;
   const uint8_t* Qc = smem + r0 * kRow;
   auto k_tile = [&](int i) {
-    return smem + T::OFF_K + (i % T::STAGES) * T::KV_BYTES;
+    return smem + T::OFF_K + (i % T::STAGES) * T::K_BYTES;
   };
   auto v_tile = [&](int i) {
-    return smem + T::OFF_V + (i % T::STAGES) * T::KV_BYTES;
+    return smem + T::OFF_V + (i % T::STAGES) * T::V_BYTES;
   };
   // the tiles the mask leaves open to some of these 64 rows: [i_lo, i_hi)
   // (a window closes a prefix, causality a suffix); the others are
@@ -1112,18 +1138,18 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   while (i_hi > i_lo && causal && wpos_hi < kv_lo + (i_hi - 1) * BN)
     --i_hi;
 
-  float o[T::DP / 2];                    // O: 64 rows x DP, fp32
+  float o[T::DV / 2];                    // O: 64 rows x DV, fp32
 #pragma unroll
-  for (int i = 0; i < T::DP / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < T::DV / 2; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
   float alpha[2] = {1.f, 1.f};
   float sc[BN / 2];                     // S, then P, of one tile
-  // P's two halves as A fragments, two buffers up to d = 128: tile i's
+  // P's two halves as A fragments, two buffers up to d_v = 128: tile i's
   // are made while tile i - 1's feed the tensor cores.  Past it one: O's
   // 64 x 256 floats take 128 registers a thread, and a second buffer
   // would pass the 255 a thread may have
-  constexpr bool kTwoBuffers = T::DP <= 128;
+  constexpr bool kTwoBuffers = T::DV <= 128;
   uint32_t phi0[BN / 4], plo0[BN / 4], phi1[BN / 4], plo1[BN / 4];
 
   // softcap, mask (only tiles the mask or the end of the keys cut) and the
@@ -1202,7 +1228,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   auto rescale = [&]() {
     if (!__any_sync(kFull, alpha[0] != 1.f || alpha[1] != 1.f)) return;
 #pragma unroll
-    for (int J = 0; J < T::DP / 8; ++J) {
+    for (int J = 0; J < T::DV / 8; ++J) {
       o[4 * J] *= alpha[0];
       o[4 * J + 1] *= alpha[0];
       o[4 * J + 2] *= alpha[1];
@@ -1260,22 +1286,22 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     issue_qk<NKT, T::BM, BN>(sc, Qc, k_tile(i));
     rescale();                        // O to tile i - 1's running max
     land(i - 1, true);
-    issue_pv<T::DP, BN>(o, prev_hi, prev_lo, v_tile(i - 1));
+    issue_pv<T::DV, BN>(o, prev_hi, prev_lo, v_tile(i - 1));
     wgmma_wait<1>();                  // S of tile i
     fence_regs<BN / 2>(sc);
     release(i, false);
     softmax(i);
     to_fragments(phi, plo);
     wgmma_wait<0>();                  // P V of tile i - 1
-    fence_regs<T::DP / 2>(o);
+    fence_regs<T::DV / 2>(o);
     release(i - 1, true);
   };
   auto last_pv = [&](uint32_t (&phi)[BN / 4], uint32_t (&plo)[BN / 4]) {
     rescale();
     land(i_hi - 1, true);
-    issue_pv<T::DP, BN>(o, phi, plo, v_tile(i_hi - 1));
+    issue_pv<T::DV, BN>(o, phi, plo, v_tile(i_hi - 1));
     wgmma_wait<0>();
-    fence_regs<T::DP / 2>(o);
+    fence_regs<T::DV / 2>(o);
     release(i_hi - 1, true);
   };
   // one buffer: tile i's softmax runs while tile i - 1's P V is on the
@@ -1285,13 +1311,13 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     issue_qk<NKT, T::BM, BN>(sc, Qc, k_tile(i));
     rescale();
     land(i - 1, true);
-    issue_pv<T::DP, BN>(o, phi0, plo0, v_tile(i - 1));
+    issue_pv<T::DV, BN>(o, phi0, plo0, v_tile(i - 1));
     wgmma_wait<1>();
     fence_regs<BN / 2>(sc);
     release(i, false);
     softmax(i);
     wgmma_wait<0>();
-    fence_regs<T::DP / 2>(o);
+    fence_regs<T::DV / 2>(o);
     to_fragments(phi0, plo0);
     release(i - 1, true);
   };
@@ -1326,23 +1352,23 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   for (int r = 0; r < 2; ++r) {
     const int row = r0 + 16 * warp + g + 8 * r;
     if (row >= qrows) continue;
-    bf16* orow = out + (((size_t)b * Sq + q0 + row) * Hq + h) * D;
+    bf16* orow = out + (((size_t)b * Sq + q0 + row) * Hq + h) * Dv;
     if (m[r] == -INFINITY) {
       // no valid key: the mean of V, as the plain version's uniform
       // softmax over Skv equal -1e30 logits
-      const bf16* vb = v + ((size_t)b * Skv * Hkv + hk) * D;
-      for (int col = 2 * t; col < D; col += 8)
-        for (int e = 0; e < 2 && col + e < D; ++e) {
+      const bf16* vb = v + ((size_t)b * Skv * Hkv + hk) * Dv;
+      for (int col = 2 * t; col < Dv; col += 8)
+        for (int e = 0; e < 2 && col + e < Dv; ++e) {
           float acc = 0.f;
           for (int j = 0; j < Skv; ++j)
-            acc += to_f32(vb[(size_t)j * Hkv * D + col + e]);
+            acc += to_f32(vb[(size_t)j * Hkv * Dv + col + e]);
           orow[col + e] = from_f32<bf16>(acc / (float)Skv);
         }
     } else {
 #pragma unroll
-      for (int J = 0; J < T::DP / 8; ++J) {
-        const int col = 8 * J + 2 * t;          // D is even
-        if (col < D)
+      for (int J = 0; J < T::DV / 8; ++J) {
+        const int col = 8 * J + 2 * t;          // d_v is even
+        if (col < Dv)
           *reinterpret_cast<uint32_t*>(orow + col) = pack_bf16x2(
               o[4 * J + 2 * r] / l[r], o[4 * J + 2 * r + 1] / l[r]);
       }
@@ -1362,55 +1388,57 @@ int warpgroups(int B, int Sq, int Hq) {
   return (long)Hq * B * ((Sq + 127) / 128) < sms ? 1 : 2;
 }
 
-template <int NWG, int NKT>
+template <int NWG, int NKT, int NVT>
 int launch(const bf16* q, const bf16* k, const bf16* v, const int32_t* qo,
-           bf16* out, int B, int Sq, int Skv, int Hq, int Hkv, int D,
+           bf16* out, int B, int Sq, int Skv, int Hq, int Hkv, int D, int Dv,
            int causal, int window, float softcap, float scale,
            cudaStream_t stream) {
-  using T = Tile<NWG, NKT>;
+  using T = Tile<NWG, NKT, NVT>;
   CUtensorMap tq, tk, tv;
   int err = tensor_map(&tq, q, D, Hq, Sq, B, T::BM);
   if (err == 0) err = tensor_map(&tk, k, D, Hkv, Skv, B, T::BN);
-  if (err == 0) err = tensor_map(&tv, v, D, Hkv, Skv, B, T::BN);
+  if (err == 0) err = tensor_map(&tv, v, Dv, Hkv, Skv, B, T::BN);
   if (err != 0) return err;
-  err = (int)cudaFuncSetAttribute(flash_attention_wgmma_kernel<NWG, NKT>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)T::SMEM);
+  err = (int)cudaFuncSetAttribute(
+      flash_attention_wgmma_kernel<NWG, NKT, NVT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
   if (err != 0) return err;
   dim3 grid((Sq + T::BM - 1) / T::BM, Hq, B);
-  flash_attention_wgmma_kernel<NWG, NKT><<<grid, T::kThreads, T::SMEM,
-                                           stream>>>(
-      tq, tk, tv, v, qo, out, Sq, Skv, Hq, Hkv, D, causal, window, softcap,
+  flash_attention_wgmma_kernel<NWG, NKT, NVT><<<grid, T::kThreads, T::SMEM,
+                                                stream>>>(
+      tq, tk, tv, v, qo, out, Sq, Skv, Hq, Hkv, Dv, causal, window, softcap,
       scale);
   return (int)cudaGetLastError();
 }
 
-// the instance: NKT by the head dim (32, 64, 96, 112, 128, 256), NWG by
-// the grid
+// the instance: NKT by the head dim (32, 64, 96, 112, 128, 256) with NVT =
+// NKT, and MLA's d <= 192 over d_v <= 128 at <12, 8>; NWG by the grid
 int dispatch(const bf16* q, const bf16* k, const bf16* v, const int32_t* qo,
              bf16* out, int B, int Sq, int Skv, int Hq, int Hkv, int D,
-             int causal, int window, float softcap, float scale,
+             int Dv, int causal, int window, float softcap, float scale,
              cudaStream_t st) {
-#define VPAAS_WG(NKT)                                                      \
+#define VPAAS_WG(NKT, NVT)                                                 \
   return warpgroups(B, Sq, Hq) == 1                                        \
-             ? launch<1, NKT>(q, k, v, qo, out, B, Sq, Skv, Hq, Hkv, D,    \
-                              causal, window, softcap, scale, st)          \
-             : launch<2, NKT>(q, k, v, qo, out, B, Sq, Skv, Hq, Hkv, D,    \
-                              causal, window, softcap, scale, st)
-  if (D <= 32) VPAAS_WG(2);
-  if (D <= 64) VPAAS_WG(4);
-  if (D <= 96) VPAAS_WG(6);
-  if (D <= 112) VPAAS_WG(7);
-  if (D <= 128) VPAAS_WG(8);
-  VPAAS_WG(16);
+             ? launch<1, NKT, NVT>(q, k, v, qo, out, B, Sq, Skv, Hq, Hkv,  \
+                                   D, Dv, causal, window, softcap, scale,  \
+                                   st)                                     \
+             : launch<2, NKT, NVT>(q, k, v, qo, out, B, Sq, Skv, Hq, Hkv,  \
+                                   D, Dv, causal, window, softcap, scale,  \
+                                   st)
+  if (D > 128 && Dv < D) VPAAS_WG(12, 8);
+  if (D <= 32) VPAAS_WG(2, 2);
+  if (D <= 64) VPAAS_WG(4, 4);
+  if (D <= 96) VPAAS_WG(6, 6);
+  if (D <= 112) VPAAS_WG(7, 7);
+  if (D <= 128) VPAAS_WG(8, 8);
+  VPAAS_WG(16, 16);
 #undef VPAAS_WG
 }
 
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
-// CUDA-core kernel: float32 d_v != d past d = 192 or d_v = 128, bf16 with
-// d_v < d
+// CUDA-core kernel: d_v != d past d = 192 or d_v = 128
 // ---------------------------------------------------------------------------
 namespace simt {
 
@@ -1632,12 +1660,12 @@ int launch(const T* q, const T* k, const T* v, const int32_t* qo, T* out,
 static bool on_cols(int D, int Dv) { return Dv == D && D > 128 && D <= 256; }
 
 // 1 where the launcher runs these head dims on the tensor cores, 0 where
-// on the CUDA cores: float32 (bf16 = 0) up to d = 192 and d_v = 128, and
-// d = d_v up to 256; bf16 where d = d_v <= 256
+// on the CUDA cores: up to d = 192 and d_v = 128 (MLA's prefill), and
+// where d = d_v up to 256, in float32 and bf16 alike
 extern "C" int vpaas_flash_attention_on_tensor_cores(int D, int Dv,
                                                      int bf16) {
-  return bf16 ? Dv == D && D <= 256
-              : (D <= 192 && Dv <= 128 && Dv <= D) || on_cols(D, Dv);
+  return (D <= 192 && Dv <= 128 && Dv <= D) ||
+         (bf16 ? Dv == D && D <= 256 : on_cols(D, Dv));
 }
 
 // the query rows of a block of the bf16 tensor-core kernel at this grid
@@ -1648,9 +1676,9 @@ extern "C" int vpaas_flash_attention_bf16_block_rows(int B, int Sq, int Hq) {
 // q (B, Sq, Hq, D), k (B, Skv, Hkv, D), v (B, Skv, Hkv, Dv) f32, q_offset
 // (B,) int32 -> out (B, Sq, Hq, Dv), Dv <= D <= 256.  window <= 0: none;
 // softcap <= 0: none.  vpaas_flash_attention_bf16 (below) takes the same
-// arguments with q, k, v and out in bf16; on its tensor-core kernel D is a
-// multiple of 8 and every operand 16-byte aligned (TMA's strides), which
-// the wrapper arranges.
+// arguments with q, k, v and out in bf16; on its tensor-core kernel D and
+// Dv are multiples of 8 and every operand 16-byte aligned (TMA's
+// strides), which the wrapper arranges.
 extern "C" int vpaas_flash_attention(const void* q, const void* k,
                                      const void* v, const void* q_offset,
                                      void* out, int B, int Sq, int Skv, int Hq,
@@ -1698,7 +1726,7 @@ extern "C" int vpaas_flash_attention_bf16(const void* q, const void* k,
   if (!vpaas_flash_attention_on_tensor_cores(D, Dv, 1))
     return simt::launch(qh, kh, vh, qo, oh, B, Sq, Skv, Hq, Hkv, D, Dv,
                         causal, window, softcap, scale, st);
-  if (D % 8 != 0) return (int)cudaErrorInvalidValue;
-  return wg::dispatch(qh, kh, vh, qo, oh, B, Sq, Skv, Hq, Hkv, D, causal,
+  if (D % 8 != 0 || Dv % 8 != 0) return (int)cudaErrorInvalidValue;
+  return wg::dispatch(qh, kh, vh, qo, oh, B, Sq, Skv, Hq, Hkv, D, Dv, causal,
                       window, softcap, scale, st);
 }

@@ -10,15 +10,15 @@ tensor cores in 3xTF32 up to d = 192 and d_v = 128 (MLA's prefill: 192 for
 q and k, 128 for v), and where q, k and v share a head dim up to 256
 (gemma2's float32 serving prefill: past 128 a kernel whose warps each take
 a quarter of the head dim, since O's 16 x 256 floats would not fit one
-warp's registers beside S); bfloat16 where q, k and v share a head dim up
-to 256, as wgmma on TMA tiles (q.k exact in float32, p.v with p split into
-two bf16 halves; :func:`block_rows` says how many query rows a block
-takes).  A float32 value head dim of its own past 192 / 128, and one in
-bfloat16, run on the CUDA cores (bf16 widened to float32 as it loads).
-The bf16 tensor-core
-kernel loads by TMA, whose row strides are multiples of 16 bytes: a head
-dim that is not a multiple of 8, or an operand that is not 16-byte aligned,
-is copied into zero-padded tensors first (:func:`tma_ready`).  The query
+warp's registers beside S); bfloat16 on the same head dims as wgmma on TMA
+tiles (q.k exact in float32, p.v with p split into two bf16 halves; MLA's
+192 / 128 with v at its own width; :func:`block_rows` says how many query
+rows a block takes).  A value head dim of its own past 192 / 128 runs on
+the CUDA cores (bf16 widened to float32 as it loads).  The bf16
+tensor-core kernel loads by TMA, whose row strides are multiples of 16
+bytes: a head dim that is not a multiple of 8, or an operand that is not
+16-byte aligned, is copied into zero-padded tensors first (q and k to d,
+v to d_v, each rounded up to 8: :func:`tma_ready`).  The query
 offset is a device array read
 at run time (a scalar is broadcast to one entry per batch row), so the
 cache prefill's per-row cache index takes the kernel too.  The plain
@@ -168,9 +168,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     padded = (q.dtype == torch.bfloat16 and not tma_ready(q, k, v)
               and on_tensor_cores(d, d_v, q.dtype))
     if padded:                  # zero columns add nothing to q.k or p.v
-        dp = -(-d // 8) * 8
-        q, k, v = (torch.nn.functional.pad(t, (0, dp - d)) for t in (q, k, v))
-        d = d_v = dp
+        pad = torch.nn.functional.pad
+        dp, d_vp = -(-d // 8) * 8, -(-d_v // 8) * 8
+        q, k = pad(q, (0, dp - d)), pad(k, (0, dp - d))
+        v = pad(v, (0, d_vp - d_v))
+        d, d_v = dp, d_vp
     out = q.new_empty((b, s_q, n_q, d_v))
     if b and s_q:
         _build.launch(_build.launcher("vpaas_flash_attention", q.dtype),

@@ -66,6 +66,34 @@ def _positions_in_expert(flat_ids: torch.Tensor, e: int) -> torch.Tensor:
     return torch.empty_like(flat_ids).scatter_(-1, order, pos_sorted)
 
 
+def group_split(b: int, s: int, groups: Tuple[int, int]) -> Tuple[int, int]:
+    """The (batch, sequence) split of b x s tokens into ``groups``: a split
+    that does not divide its axis is dropped."""
+    return (groups[0] if b % groups[0] == 0 else 1,
+            groups[1] if s % groups[1] == 0 else 1)
+
+
+def route(cfg: ModelConfig, router: torch.Tensor, xg: torch.Tensor,
+          cap: int):
+    """Top-k routing of grouped tokens xg (g, n, d) at ``cap`` tokens an
+    expert and group: (probs (g, n, e), gate (g, n, k) renormalised over
+    the k, expert_ids (g, n, k) in rank order, slot (g, n k): expert * cap
+    + its position there, or e * cap where the assignment is dropped)."""
+    g, n, _ = xg.shape
+    k, e = cfg.num_experts_per_tok, cfg.num_experts
+    router_logits = (xg @ router).float()                        # (g, n, e)
+    probs = torch.softmax(router_logits, dim=-1)
+    gate, expert_ids = probs.sort(dim=-1, descending=True, stable=True)
+    gate, expert_ids = gate[..., :k], expert_ids[..., :k]        # (g, n, k)
+    gate = gate / gate.sum(-1, keepdim=True)                     # qwen3 norm
+
+    flat_ids = expert_ids.reshape(g, n * k)
+    pos = _positions_in_expert(flat_ids, e)
+    slot = torch.where(pos < cap, flat_ids * cap + pos,
+                       torch.full_like(pos, e * cap))            # drop tail
+    return probs, gate, expert_ids, slot
+
+
 def moe_apply(cfg: ModelConfig, params, x: torch.Tensor, *,
               capacity_factor: Optional[float] = None,
               constrain=None,      # fn(x, kind) -> x: sharding hook
@@ -77,8 +105,7 @@ def moe_apply(cfg: ModelConfig, params, x: torch.Tensor, *,
 
     b, s, d = x.shape
     k, e = cfg.num_experts_per_tok, cfg.num_experts
-    gd = groups[0] if b % groups[0] == 0 else 1
-    gm = groups[1] if s % groups[1] == 0 else 1
+    gd, gm = group_split(b, s, groups)
     g = gd * gm
     n_loc = (b // gd) * (s // gm)
     cf = capacity_factor or cfg.moe_capacity_factor
@@ -89,16 +116,7 @@ def moe_apply(cfg: ModelConfig, params, x: torch.Tensor, *,
     xg = xg.permute(0, 2, 1, 3, 4).reshape(g, n_loc, d)
     xg = cn(xg, "moe_tokens")
 
-    router_logits = (xg @ params["router"]).float()              # (g, n, e)
-    probs = torch.softmax(router_logits, dim=-1)
-    gate, expert_ids = probs.sort(dim=-1, descending=True, stable=True)
-    gate, expert_ids = gate[..., :k], expert_ids[..., :k]        # (g, n, k)
-    gate = gate / gate.sum(-1, keepdim=True)                     # qwen3 norm
-
-    flat_ids = expert_ids.reshape(g, n_loc * k)
-    pos = _positions_in_expert(flat_ids, e)
-    slot = torch.where(pos < cap, flat_ids * cap + pos,
-                       torch.full_like(pos, e * cap))            # drop tail
+    probs, gate, expert_ids, slot = route(cfg, params["router"], xg, cap)
 
     # ---- dispatch: slots are distinct except the drop row, cut off ----
     x_rep = xg.repeat_interleave(k, dim=1)                       # (g, n*k, d)

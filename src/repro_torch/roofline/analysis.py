@@ -266,6 +266,24 @@ _SCATTER = {_ATEN.index_put_.default, _ATEN._index_put_impl_.default,
             _ATEN.index_copy_.default, _ATEN.scatter_.src,
             _ATEN.scatter_.value, _ATEN.scatter_add_.default,
             _ATEN.index_add_.default}
+# sums in float32 whose CUDA kernel, past 2^31 - 1 elements (64-bit
+# indexing: the reduction runs as sub-iterations), accumulates each output
+# in a float32 buffer of the output's size while the output is narrower
+# (bf16: PyTorch's Reduce.cuh AccumulationBuffer): live during the op
+# (1.61 GB at deepseek-v2-lite's prefill_32k, its MoE combine's sum over
+# 6 x 196,608 x 2048 bf16 values, measured on an H100)
+_REDUCE_F32 = {_ATEN.sum.dim_IntList, _ATEN.sum.default, _ATEN.mean.dim,
+               _ATEN.mean.default}
+INDEX32_LIMIT = 2 ** 31 - 1
+
+
+def reduce_buffer_bytes(func, operands, results) -> int:
+    """The bytes of the float32 accumulation buffer that ``func``'s CUDA
+    kernel holds beside ``results`` (``_REDUCE_F32``), or 0."""
+    if (func not in _REDUCE_F32 or not operands
+            or operands[0].numel() <= INDEX32_LIMIT):
+        return 0
+    return sum(4 * t.numel() for t in results if t.element_size() < 4)
 
 
 class StepCounter(TorchDispatchMode):
@@ -370,6 +388,9 @@ class StepCounter(TorchDispatchMode):
                                + sum(nbytes(t) for t in results))
         for t in results:
             self.track(t)
+        if func not in _ALLOCATE:
+            self.peak = max(self.peak, self.live + reduce_buffer_bytes(
+                func, operands, results))
         return out
 
 

@@ -519,13 +519,27 @@ FLASH_RAGGED_CASES = [
 
 
 # K6 with a value head dim of its own (MLA's prefill): on the 3xTF32
-# tensor-core kernel in float32, on the CUDA-core kernel in bf16:
+# tensor-core kernel in float32, on the wgmma kernel in bf16:
 # (b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, softcap, q_offset)
 FLASH_DV_CASES = [
     (1, 40, 64, 4, 4, 192, 128, True, None, None, 8),   # deepseek's dims
     (2, 24, 48, 4, 4, 96, 64, True, None, None, 0),     # its -smoke dims
     (1, 37, 53, 4, 2, 96, 40, False, None, 20.0, 0),    # ragged, GQA, cap
     (2, 33, 70, 2, 1, 64, 48, True, 16, None, [5, 30]),  # d <= 128, window
+]
+
+
+# K6's bf16 wgmma kernel at a value head dim of its own, in
+# FLASH_DV_CASES' layout: deepseek's 192 / 128 with s_q and s_kv off the
+# 64-row and 64-key tiles and a query offset; GQA, a window that closes
+# whole key tiles, a softcap and per-row offsets; unaligned dims that the
+# wrapper pads, q and k to d and v to d_v rounded up to 8 (188 / 100 to
+# 192 / 104; 90 / 60, -smoke's shape, to 96 / 64)
+FLASH_MLA_CASES = [
+    (1, 130, 200, 8, 8, 192, 128, True, None, None, 70),
+    (2, 70, 150, 4, 2, 192, 128, True, 40, 30.0, [80, 0]),
+    (1, 65, 97, 4, 4, 188, 100, True, None, None, 32),
+    (2, 33, 70, 4, 2, 90, 60, True, None, None, [37, 0]),
 ]
 
 
@@ -978,22 +992,31 @@ def bf16_err(got, want) -> float:
 # devices' forwards can swap the two experts there, and with a capacity
 # factor the swap moves drops too
 ROUTER_TIE = 1e-5
+# the same for bf16 router logits, as a share of a token's largest |logit|:
+# the logits are rounded to bf16 (7 fraction bits: neighbours 2^-8 to 2^-7
+# of a value apart), and the card's and the CPU's f32 sums of a logit, and
+# the inputs their layers hand the router, differ by an ulp or a few; 2^-5
+# is four ulps at the top of the largest logit's binade
+ROUTER_TIE_BF16 = 2.0 ** -5
 
 
 class RouterTap:
-    """Records every MoE layer's input while active (wraps
-    ``moe.moe_apply``, which the transformer calls through the module), so
-    that a failed check can re-run the layers' routers
-    (:func:`router_margin`)."""
+    """Records every MoE layer's router, input and options while active
+    (wraps ``moe.moe_apply``, which the transformer calls through the
+    module), so that a failed check can re-run the layers' routers
+    (:func:`router_margin`, :func:`route_exempt`)."""
 
     def __init__(self):
-        self.calls: List[Tuple[Any, torch.Tensor, torch.Tensor]] = []
+        self.calls: List[Tuple[Any, torch.Tensor, torch.Tensor, dict]] = []
 
     def __enter__(self):
         self._orig = moe.moe_apply
 
         def tapped(cfg, params, x, **kw):
-            self.calls.append((cfg, params["router"], x.detach()))
+            self.calls.append((cfg, params["router"], x.detach(),
+                               {n: kw[n] for n in ("groups",
+                                                   "capacity_factor")
+                                if n in kw}))
             return self._orig(cfg, params, x, **kw)
         moe.moe_apply = tapped
         return self
@@ -1011,8 +1034,64 @@ def router_margin(calls) -> float:
                   .sort(dim=-1, descending=True).values
                   .diff(dim=-1)[..., cfg.num_experts_per_tok - 1]
                   .abs().min())
-            for cfg, router, x in calls]
+            for cfg, router, x, _ in calls]
     return min(gaps, default=float("inf"))
+
+
+def moe_routing(cfg, router, x, groups=(1, 1), capacity_factor=None):
+    """How ``moe.moe_apply`` routes x (b, s, d), in its groups' token
+    order: (router logits (g, n, e) in float32, experts (g, n, k) in rank
+    order, kept (g, n, k): within the expert's capacity; g groups of n
+    tokens, ``moe.group_split``).  The routing is ``moe.route``'s own."""
+    b, s, d = x.shape
+    gd, gm = moe.group_split(b, s, groups)
+    n = (b // gd) * (s // gm)
+    cap = moe.capacity(cfg, n, capacity_factor or cfg.moe_capacity_factor)
+    xg = x.reshape(gd, b // gd, gm, s // gm, d).permute(0, 2, 1, 3, 4)
+    xg = xg.reshape(gd * gm, n, d)
+    _, _, ids, slot = moe.route(cfg, router, xg, cap)
+    kept = (slot < cfg.num_experts * cap).reshape(ids.shape)
+    return (xg @ router).float(), ids, kept
+
+
+def route_exempt(cfg, want_call, got_call) -> Tuple[torch.Tensor, dict]:
+    """The tokens of one MoE layer that two devices route apart, from
+    two :class:`RouterTap` calls of it (``want_call`` the reference's):
+    (a (b, s) bool mask of them, on the CPU; counts).  A token whose
+    experts differ (``ties``) must have its k-th and (k+1)-th router logits
+    within ROUTER_TIE_BF16 of its largest |logit| of each other on the
+    reference; a token with the same experts but another one dropped
+    (``moved``) must come after such a tie in its group, whose assignment
+    moved the expert's capacity.  Else this raises.  ``near``: the
+    reference's tokens at a tie, routed apart or not."""
+    (_, router, x, kw), (_, router_g, x_g, kw_g) = want_call, got_call
+    logits, ids, kept = (t.cpu() for t in moe_routing(cfg, router, x, **kw))
+    _, ids_g, kept_g = (t.cpu() for t in moe_routing(cfg, router_g, x_g,
+                                                      **kw_g))
+    k = cfg.num_experts_per_tok
+    top = logits.sort(dim=-1, descending=True).values
+    near = (top[..., k - 1] - top[..., k]
+            <= ROUTER_TIE_BF16 * logits.abs().amax(-1))
+    tie = (ids.sort(-1).values != ids_g.sort(-1).values).any(-1)
+    kept_by_expert = [torch.zeros(logits.shape, dtype=torch.bool).scatter(
+        -1, i, m) for i, m in ((ids, kept), (ids_g, kept_g))]
+    moved = (kept_by_expert[0] != kept_by_expert[1]).any(-1) & ~tie
+    if (tie & ~near).any():
+        raise AssertionError(f"MoE tokens {torch.nonzero(tie & ~near)} "
+                             "(group, token) routed apart away from a bf16 "
+                             "tie")
+    n = tie.shape[1]
+    first_tie = torch.where(tie.any(-1), tie.int().argmax(-1),
+                            torch.full(tie.shape[:1], n))
+    if (moved & (torch.arange(n)[None] <= first_tie[:, None])).any():
+        raise AssertionError("MoE tokens dropped apart with no routing tie "
+                             "before them in their group")
+    b, s, _ = x.shape
+    gd, gm = moe.group_split(b, s, kw.get("groups", (1, 1)))
+    mask = (tie | moved).reshape(gd, gm, b // gd, s // gm)
+    return mask.permute(0, 2, 1, 3).reshape(b, s), {
+        "ties": int(tie.sum()), "moved": int(moved.sum()),
+        "near": int(near.sum())}
 
 
 class LayerTap:
@@ -1053,11 +1132,17 @@ class LayerTap:
         return False
 
 
-def replay_layers(cfg, calls, device) -> List[Tuple[str, float, float]]:
+def replay_layers(cfg, calls, device, routers=None
+                  ) -> List[Tuple[str, float, float, dict]]:
     """Each layer of a :class:`LayerTap`'s ``calls`` applied again on
     ``device`` to its recorded inputs and parameters, moved there: (kind,
     the output's rel_err against the recorded one, the worst rel_err of
-    its new cache's tensors), each as a fraction of max(1, scale)."""
+    its new cache's tensors, each as a fraction of max(1, scale); the
+    tokens exempt from the first).  ``routers``: a :class:`RouterTap`'s
+    calls of the same forward, one a MoE layer in order; a MoE layer's
+    tokens that the replay routes apart from the recorded routing at a
+    bf16 tie are then exempt (:func:`route_exempt`: its counts, empty for
+    other layers)."""
     from repro_torch.models import transformer as tfm
 
     def to(t):
@@ -1068,16 +1153,22 @@ def replay_layers(cfg, calls, device) -> List[Tuple[str, float, float]]:
     def f(t) -> np.ndarray:
         return t.detach().float().cpu().numpy()
 
+    routed = iter(routers or ())
     out = []
     for c in calls:
-        with torch.no_grad():
+        with torch.no_grad(), RouterTap() as tap:
             got, got_cache, _ = tfm._apply_layer(
                 cfg, c["kind"], to(c["params"]), to(c["x"]),
                 cache=to(c["cache"]), **to(c["kw"]))
         cache_err = max((rel_err(f(got_cache[k]), f(v))
                          for k, v in (c["new_cache"] or {}).items()),
                         default=0.0)
-        out.append((c["kind"], rel_err(f(got), f(c["out"])), cache_err))
+        got, want, exempt = f(got), f(c["out"]), {}
+        if routers is not None and tap.calls:
+            mask, exempt = route_exempt(cfg, next(routed), tap.calls[0])
+            got, want = got[~mask.numpy()], want[~mask.numpy()]
+        err = rel_err(got, want) if want.size else 0.0
+        out.append((c["kind"], err, cache_err, exempt))
     return out
 
 

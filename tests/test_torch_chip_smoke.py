@@ -842,18 +842,27 @@ def test_k6_instance_follows_the_launcher_routes(monkeypatch):
     import types
     fa = types.SimpleNamespace(
         on_tensor_cores=lambda d, d_v, dtype=torch.float32: (
-            d == d_v and d <= 256 if dtype == torch.bfloat16
-            else (d <= 192 and d_v <= 128) or (d == d_v and d <= 256)),
+            (d <= 192 and d_v <= 128) or (d == d_v and d <= 256)),
         block_rows=lambda b, s_q, n_q: 64 if b * n_q * -(-s_q // 128) < 132
         else 128)
     bf, f32 = torch.bfloat16, torch.float32
     assert chip_smoke._k6_instance(fa, 6, 32768, 32, 112, 112, bf) == \
-        "flash_attention_wgmma_kernel<2, 7>"
+        "flash_attention_wgmma_kernel<2, 7, 7>"
     assert chip_smoke._k6_instance(fa, 1, 384, 32, 112, 112, bf) == \
-        "flash_attention_wgmma_kernel<1, 7>"
+        "flash_attention_wgmma_kernel<1, 7, 7>"
     assert chip_smoke._k6_instance(fa, 1, 65, 2, 18, 18, bf) == \
-        "flash_attention_wgmma_kernel<1, 2>"
+        "flash_attention_wgmma_kernel<1, 2, 2>"
+    # MLA's d 192 over d_v 128 in bf16: the wgmma kernel's <NWG, 12, 8>
+    # (was the CUDA-core flash_attention_simt_kernel<bf16, 4>), 128-row
+    # blocks at deepseek's prefill_32k; -smoke's 96 / 64 the d = d_v
+    # instance with V at its own width; past 192 / 128 the CUDA cores
     assert chip_smoke._k6_instance(fa, 1, 384, 16, 192, 128, bf) == \
+        "flash_attention_wgmma_kernel<1, 12, 8>"
+    assert chip_smoke._k6_instance(fa, 6, 32768, 16, 192, 128, bf) == \
+        "flash_attention_wgmma_kernel<2, 12, 8>"
+    assert chip_smoke._k6_instance(fa, 2, 24, 4, 96, 64, bf) == \
+        "flash_attention_wgmma_kernel<1, 6, 6>"
+    assert chip_smoke._k6_instance(fa, 1, 384, 16, 256, 128, bf) == \
         "flash_attention_simt_kernel<bf16, 4>"
     assert chip_smoke._k6_instance(fa, 1, 384, 16, 192, 128, f32) == \
         "flash_attention_mma_kernel<24, 16, 2>"
@@ -874,9 +883,9 @@ def test_k6_instance_follows_the_launcher_routes(monkeypatch):
     # gemma2-9b's d = 256 in bf16: the wgmma kernel at NKT 16, 128-row
     # blocks at prefill_32k, 64-row ones at the 384-token serving prefill
     assert chip_smoke._k6_instance(fa, 3, 32768, 16, 256, 256, bf) == \
-        "flash_attention_wgmma_kernel<2, 16>"
+        "flash_attention_wgmma_kernel<2, 16, 16>"
     assert chip_smoke._k6_instance(fa, 1, 384, 16, 256, 256, bf) == \
-        "flash_attention_wgmma_kernel<1, 16>"
+        "flash_attention_wgmma_kernel<1, 16, 16>"
 
 
 def test_kernel_phases_hold_every_llm_path_shape():
@@ -1028,3 +1037,77 @@ def test_gemma2_phases_are_wired_in():
     assert 'print(f"gemma2 serve float32: ' in serve
     ref = inspect.getsource(chip_smoke.phase_gemma2_reference)
     assert "block_cut(get_config(GEMMA_ARCH), 2)" in ref
+
+
+def test_deepseek_k6_bound_at_its_32k_shape():
+    # deepseek-v2-lite-16b's MLA prefill at prefill_32k's 6 rows, worked
+    # out by hand: q and k at 128 + 64 = 192, v at 128, 16 heads each their
+    # own kv-head; 6 x 16 x 32,768 x 32,769 / 2 causal pairs, each
+    # 2 (192 + 128) bf16 products and 5 softmax operations; q, k, v and
+    # the output once in bf16 (4.03 GB): the products bound it
+    from repro_torch.configs import get_config
+    cfg = get_config("deepseek-v2-lite-16b")
+    assert chip_smoke.mla_k6_dims(cfg) == (16, 16, 192, 128)
+    pairs = 6 * 16 * 32768 * 32769 // 2
+    assert pairs == 51_541_180_416
+    nbytes, mma, other, (ms, by) = chip_smoke.k6_causal_bound(
+        6, 32768, *chip_smoke.mla_k6_dims(cfg))
+    assert nbytes == 2 * 2 * 6 * 32768 * 16 * 320 + 24 == 4_026_531_864
+    assert (mma, other) == (pairs * 640, pairs * 5)
+    assert by == "operations" and ms == pytest.approx(
+        (pairs * 640 / 989.4e12 + pairs * 5 / 67e12) * 1e3, rel=1e-12)
+    assert ms == pytest.approx(37.186114, abs=1e-6)
+    # -smoke: 64 + 32 over 64, 4 heads
+    assert chip_smoke.mla_k6_dims(get_config(
+        "deepseek-v2-lite-16b-smoke")) == (4, 4, 96, 64)
+
+
+def test_kernel_offsets_follow_each_configs_kernels():
+    # K6's q at MLA's 192 (not head_dim's 128); K7's caches and workspace
+    # only where the config decodes by K7 (not MLA's absorbed decode); K8's
+    # only with Mamba2 layers.  Each stays below 2^31 at its card batches
+    from repro_torch.configs import get_config
+    got = chip_smoke.kernel_offsets(get_config("deepseek-v2-lite-16b"), 6,
+                                    44, 32768)
+    assert got == {"flash_attention": 6 * 32768 * 16 * 192}
+    got = chip_smoke.kernel_offsets(get_config("gemma2-9b"), 3, 5, 32768)
+    assert set(got) == {"flash_attention", "decode_attention"}
+    assert got["flash_attention"] == 3 * 32768 * 16 * 256
+    assert got["decode_attention"] >= 5 * 32768 * 8 * 256
+    got = chip_smoke.kernel_offsets(get_config("zamba2-7b"), 6, 14, 32768)
+    assert set(got) == {"flash_attention", "decode_attention", "ssd_scan"}
+    assert max(got.values()) < chip_smoke.INT32_LIMIT
+
+
+def test_deepseek_phases_are_wired_in():
+    # the full run: deepseek's bf16 dry-run steps, K6 at its 32k shape
+    # against its plain version and its one-block cut, after gemma2's, on
+    # the dry run's table; --only deepseek runs them alone, --only
+    # deepseek_32k the timing probe (with --parent on the parent's package
+    # too); K6's bf16 row carries its launches and its 32k row
+    import inspect
+    dry = inspect.getsource(chip_smoke.phase_dryrun)
+    assert dry.index("phase_dryrun_reference(torch, np, card, GEMMA_ARCH)") \
+        < dry.index("phase_deepseek(torch, np, card, table)")
+    phase = inspect.getsource(chip_smoke.phase_deepseek)
+    assert phase.index("MOE_ARCH), MOE_ARCH)") < phase.index(
+        "k6 = phase_deepseek_32k(") < phase.index(
+        "phase_dryrun_reference(torch, np, card, MOE_ARCH)")
+    assert "check=True" in phase
+    assert chip_smoke.MOE_ARCH == "deepseek-v2-lite-16b"
+    assert chip_smoke.ONLY_PHASES["deepseek"] is chip_smoke.phase_deepseek
+    assert "deepseek_32k" in chip_smoke.ONLY_PHASES
+    assert chip_smoke.PROBES["phase_deepseek_32k"] == "deepseek 32k"
+    probe = inspect.getsource(chip_smoke.phase_deepseek_32k)
+    assert 'print(f"deepseek 32k K6 bf16 MLA' in probe
+    assert "SDPBackend.EFFICIENT_ATTENTION" in probe
+    main = inspect.getsource(chip_smoke.main)
+    assert 'bf["dryrun_deepseek"] = dryrun["kernels"]["deepseek"]' in main
+    assert '"card_deepseek",' in main
+    # deepseek's K6 launches: 27 a prefill (one a layer), no K7 or K8
+    from repro_torch.configs import get_config
+    cfg = get_config("deepseek-v2-lite-16b")
+    assert chip_smoke.path_launches(cfg, 1, 0) == {
+        "flash_attention": 27, "decode_attention": 0, "ssd_scan": 0}
+    assert chip_smoke.path_launches(cfg, 0, 1) == {
+        "flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}

@@ -38,8 +38,8 @@ from repro_torch.testing import (ATTN_ATOL, ATTN_BF16_RTOL, ATTN_VJP_RTOL,
                                  FLASH_WIDE_CASES, SSD_BF16_RTOL, bf16_err,
                                  FILTER_CASES, SSD_VJP_RTOL,
                                  FILTER_KW, FLASH_CASES, FLASH_DV_CASES,
-                                 FLASH_EDGE_CASES, FLASH_RAGGED_CASES,
-                                 IOU_CASES,
+                                 FLASH_EDGE_CASES, FLASH_MLA_CASES,
+                                 FLASH_RAGGED_CASES, IOU_CASES,
                                  LEARN_RTOL, LLM_RTOL, MODEL_ATOL,
                                  ONEVSALL_ATOL, SSD_CASES, SSD_RTOL,
                                  UPDATE_ETA, UPDATE_RTOL, CodecTap,
@@ -868,9 +868,30 @@ def test_flash_attention_bf16_kernels_match_plain(cuda, case):
 @pytest.mark.parametrize("case", FLASH_DV_CASES + [
     (1, 384, 512, 16, 16, 192, 128, True, None, None, 0)])  # deepseek MLA
 def test_flash_attention_bf16_kernel_takes_a_value_head_dim(cuda, case):
-    # bf16 with d_v != d stays on the CUDA-core kernel
+    # bf16 with d_v < d on the wgmma kernel (MLA's 192 / 128 at <NWG, 12,
+    # 8>), one launch a call
     b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off = case
-    assert not fa.on_tensor_cores(d, d_v, BF)
+    assert fa.on_tensor_cores(d, d_v, BF)
+    q, k, v = _bf(attention_case(b, s_q, s_kv, n_q, n_kv, d, d_v=d_v), cuda)
+    kw = dict(causal=causal, window=window, softcap=cap,
+              q_offset=torch.as_tensor(off, device=cuda))
+    fa.launches = 0
+    got = fa.flash_attention(q, k, v, **kw)
+    assert got.dtype == BF and got.shape == (b, s_q, n_q, d_v)
+    assert fa.launches == 1
+    want = fa.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert bf16_err(got, want) <= ATTN_BF16_RTOL
+
+
+@pytest.mark.parametrize("case", FLASH_MLA_CASES + [
+    (6, 1024, 1024, 16, 16, 192, 128, True, None, None, 0)],  # 128-row blocks
+    ids=[f"mla{i}" for i in range(len(FLASH_MLA_CASES) + 1)])
+def test_flash_attention_bf16_mla_kernel_at_tile_edges(cuda, case):
+    # MLA's value head dim on the wgmma kernel at its tile edges and at
+    # unaligned dims (padded by the wrapper), and on two warpgroups
+    b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off = case
+    assert fa.on_tensor_cores(d, d_v, BF)
     q, k, v = _bf(attention_case(b, s_q, s_kv, n_q, n_kv, d, d_v=d_v), cuda)
     kw = dict(causal=causal, window=window, softcap=cap,
               q_offset=torch.as_tensor(off, device=cuda))
@@ -879,6 +900,28 @@ def test_flash_attention_bf16_kernel_takes_a_value_head_dim(cuda, case):
     want = fa.flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     assert bf16_err(got, want) <= ATTN_BF16_RTOL
+
+
+def test_flash_attention_bf16_mla_replays_in_a_cuda_graph(cuda):
+    # MLA's bf16 prefill (d 192 over d_v 128) captured once: a replay
+    # recomputes from the inputs' new values
+    q, k, v = _bf(attention_case(1, 384, 512, 16, 16, 192, d_v=128), cuda)
+    off = torch.zeros((), dtype=torch.int32, device=cuda)
+    fa.flash_attention(q, k, v, q_offset=off)      # warm-up off the graph
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    fa.launches = 0
+    with torch.cuda.graph(graph):
+        out = fa.flash_attention(q, k, v, q_offset=off)
+    assert fa.launches == 1
+    q.mul_(-0.5)
+    v.add_(1.0)
+    off.fill_(128)
+    graph.replay()
+    want = fa.flash_attention_ref(q, k, v, q_offset=off)
+    torch.cuda.synchronize()
+    assert out.shape == (1, 384, 16, 128)
+    assert bf16_err(out, want) <= ATTN_BF16_RTOL
 
 
 # the bf16 TMA kernel's cases (every CPU emulation case of
@@ -1526,7 +1569,7 @@ def test_prefill_and_decode_steps_on_the_card_match_cpu(cuda, monkeypatch,
         assert torch.isfinite(l1).all() and torch.isfinite(d1).all()
         for what, tap in taps.items():
             assert len(tap.calls) == 9, what
-            for i, (kind, err, cache_err) in enumerate(
+            for i, (kind, err, cache_err, _) in enumerate(
                     replay_layers(cfg_llm, tap.calls, cuda)):
                 assert max(err, cache_err) <= BF16_LLM_RTOL, \
                     f"{what} layer {i} ({kind}): {err:.2e}, {cache_err:.2e}"

@@ -190,6 +190,26 @@ def test_the_byte_counter_follows_the_eager_program():
     assert rep.kernel_calls == {}
 
 
+def test_the_peak_holds_a_large_bf16_sums_float32_buffer():
+    # past 2^31 - 1 elements a CUDA sum into bf16 accumulates in a float32
+    # buffer of the output's size (deepseek-v2-lite's MoE combine at
+    # prefill_32k: 1.61 GB on an H100); a float32 output or a smaller
+    # input holds none
+    cfg = get_config("qwen2-7b-smoke")
+    shape = ShapeConfig("t", 8, 1, "prefill")
+
+    def step(x):
+        return x.sum(dim=1)
+
+    for n, dtype, extra in ((2 ** 31, torch.bfloat16, 4 * 2 ** 30),
+                            (2 ** 30, torch.bfloat16, 0),
+                            (2 ** 31, torch.float32, 0)):
+        x = torch.empty((2 ** 30, n // 2 ** 30), dtype=dtype, device="meta")
+        rep = analyze_step(step, (x,), arch="t", shape=shape, cfg=cfg)
+        out = 2 ** 30 * x.element_size()
+        assert rep.peak_memory_per_device == rep.arg_bytes + out + extra
+
+
 @pytest.mark.parametrize("s_q,s_kv,causal,window,q_offset", [
     (64, 64, True, None, 0), (16, 80, True, None, 64),
     (16, 80, True, 24, 64), (48, 48, True, 8, 0), (32, 40, False, None, 0),

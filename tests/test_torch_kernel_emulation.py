@@ -48,7 +48,7 @@ from repro_torch.testing import (ATTN_ATOL, ATTN_BF16_RTOL, DECODE_CASES,
                                  DECODE_WIDE_CASES, FILTER_KW,
                                  FLASH_WIDE_CASES, SSD_BF16_RTOL,
                                  FLASH_CASES, FLASH_DV_CASES,
-                                 FLASH_EDGE_CASES,
+                                 FLASH_EDGE_CASES, FLASH_MLA_CASES,
                                  FLASH_RAGGED_CASES, IOU_CASES,
                                  LEARN_RTOL, ONEVSALL_ATOL, SSD_CASES,
                                  SSD_RTOL, UPDATE_ETA, UPDATE_RTOL,
@@ -1014,18 +1014,17 @@ def test_flash_attention_source_takes_a_value_head_dim(emulated, case):
 @pytest.mark.parametrize("case", FLASH_EDGE_CASES,
                          ids=[f"edge{i}" for i in range(len(FLASH_EDGE_CASES))])
 def test_flash_attention_source_at_tile_edges(emulated, case, dtype):
-    # float32 on the 3xTF32 kernels up to d = 192 and d_v = 128 and where
-    # d = d_v up to 256 (gemma2's 256 on the column-warp kernel), bf16 on
-    # the wgmma kernel where d = d_v (the CUDA-core kernel for MLA's dims),
-    # each within its card tolerance
+    # float32 on the 3xTF32 kernels and bf16 on the wgmma kernel, both up
+    # to d = 192 and d_v = 128 (MLA's dims) and where d = d_v up to 256
+    # (gemma2's 256; float32 on the column-warp kernel), each within its
+    # card tolerance
     b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off = case
     q, k, v = (t.to(dtype) for t in
                _t(attention_case(b, s_q, s_kv, n_q, n_kv, d, d_v=d_v)))
     kw = dict(causal=causal, window=window, softcap=cap,
               q_offset=torch.as_tensor(off))
     assert fa.on_tensor_cores(d, d_v, dtype) == (
-        (d <= 192 and d_v <= 128) or d == d_v if dtype == torch.float32
-        else d == d_v)
+        (d <= 192 and d_v <= 128) or d == d_v)
     got = fa.flash_attention(q, k, v, **kw)
     want = ref.flash_attention(q, k, v, **kw)
     assert got.shape == (b, s_q, n_q, d_v) and got.dtype == dtype
@@ -1199,15 +1198,43 @@ def test_flash_attention_source_takes_bf16(emulated, case, sms):
 @pytest.mark.parametrize("case", FLASH_DV_CASES,
                          ids=[f"dv{c[5]}-{c[6]}" for c in FLASH_DV_CASES])
 def test_flash_attention_source_takes_bf16_value_head_dims(emulated, case):
-    # bf16 with d_v != d stays on the CUDA-core kernel
+    # bf16 with d_v < d on the wgmma kernel: MLA's 192 / 128 at <NWG, 12,
+    # 8>, d <= 128 (-smoke's 96 / 64) on the d = d_v instance with V at its
+    # own width
     b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off = case
-    assert not fa.on_tensor_cores(d, d_v, torch.bfloat16)
+    assert fa.on_tensor_cores(d, d_v, torch.bfloat16)
     q, k, v = _bf16(attention_case(b, s_q, s_kv, n_q, n_kv, d, d_v=d_v))
     kw = dict(causal=causal, window=window, softcap=cap,
               q_offset=torch.as_tensor(off))
+    fa.launches = 0
     got = fa.flash_attention(q, k, v, **kw)
     assert got.dtype == torch.bfloat16 and got.shape == (b, s_q, n_q, d_v)
-    assert rel_err(got.float(), ref.flash_attention(q, k, v, **kw).float()) \
+    assert fa.launches == 1
+    assert bf16_err(got, ref.flash_attention(q, k, v, **kw)) \
+        <= ATTN_BF16_RTOL
+
+
+@pytest.mark.parametrize("sms", [132, 1], ids=["sms132", "sms1"])
+@pytest.mark.parametrize("case", FLASH_MLA_CASES,
+                         ids=[f"mla{i}" for i in range(len(FLASH_MLA_CASES))])
+def test_flash_attention_source_takes_bf16_mla_tiles(emulated, case, sms):
+    # MLA's value head dim on the bf16 wgmma kernel at the edges of its
+    # tiles, on one and on two consumer warpgroups (four-stage K and V
+    # rings at 128 rows), and at unaligned dims the wrapper pads (q and k
+    # to d, v to d_v, each rounded up to 8)
+    b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off = case
+    emulated(sms)
+    assert fa.on_tensor_cores(d, d_v, torch.bfloat16)
+    assert fa.block_rows(b, s_q, n_q) == (64 if sms == 132 else 128)
+    q, k, v = _bf16(attention_case(b, s_q, s_kv, n_q, n_kv, d, d_v=d_v))
+    assert fa.tma_ready(q, k, v) == (d % 8 == 0 and d_v % 8 == 0)
+    kw = dict(causal=causal, window=window, softcap=cap,
+              q_offset=torch.as_tensor(off))
+    fa.launches = 0
+    got = fa.flash_attention(q, k, v, **kw)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, s_q, n_q, d_v)
+    assert fa.launches == 1
+    assert bf16_err(got, ref.flash_attention(q, k, v, **kw)) \
         <= ATTN_BF16_RTOL
 
 

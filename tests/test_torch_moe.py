@@ -206,3 +206,89 @@ def test_router_tap_finds_a_routing_tie():
     assert router_margin(tap.calls[:1]) > ROUTER_TIE
     assert router_margin(tap.calls[1:]) < ROUTER_TIE
     assert router_margin([]) == float("inf")
+
+
+def _tie_calls(card_rows=None, card_cf=None):
+    """Two RouterTap-style calls of one MoE layer: 4 experts, top 2, an
+    identity router (a token's logits are its x), 8 tokens at capacity 4
+    an expert.  The reference's token 1 has experts 1 and 2 at a near-tie
+    (1.0 against 0.99); ``card_rows`` replaces rows of the other call's
+    x, ``card_cf`` its capacity factor."""
+    import types
+    cfg = types.SimpleNamespace(num_experts=4, num_experts_per_tok=2,
+                                moe_capacity_factor=1.0)
+    x = torch.tensor([[3, 2, 0, -1], [3, 1.0, 0.99, -1], [2, 3, -1, -2],
+                      [-1, 3, 2, -2], [-1, 3, -2, 2], [-1, -2, 3, 2],
+                      [-1, -2, 2, 3], [0, -1, -2, 3]])[None]
+    x_card = x.clone()
+    for i, row in (card_rows or {}).items():
+        x_card[0, i] = torch.tensor(row)
+    kw_card = {} if card_cf is None else {"capacity_factor": card_cf}
+    return cfg, (cfg, torch.eye(4), x, {}), (cfg, torch.eye(4), x_card,
+                                             kw_card)
+
+
+def test_moe_routing_is_the_layers_routing():
+    # testing.moe_routing routes as moe.route does inside moe_apply: the
+    # top k of the softmax in rank order, each expert's first `cap`
+    # assignments of its group kept, the groups laid out as moe_apply's
+    from repro_torch.testing import moe_routing
+    _, _, cfg, tp = _both(DEEPSEEK)
+    x = torch.as_tensor(_x(cfg, 4, 16, 1))
+    logits, ids, kept = moe_routing(cfg, tp["router"], x, groups=(2, 2),
+                                    capacity_factor=1.25)
+    assert logits.shape == (4, 16, cfg.num_experts)
+    xg = x.reshape(2, 2, 2, 8, -1).permute(0, 2, 1, 3, 4).reshape(4, 16, -1)
+    assert torch.equal(logits, xg @ tp["router"])
+    assert torch.equal(ids, torch.softmax(logits, -1).sort(
+        dim=-1, descending=True, stable=True)[1][
+            ..., :cfg.num_experts_per_tok])
+    cap = tmoe.capacity(cfg, 16, 1.25)
+    for g in range(4):
+        for e in range(cfg.num_experts):
+            hits = (ids[g] == e).reshape(-1)
+            assert int(kept[g].reshape(-1)[hits].sum()) == min(
+                int(hits.sum()), cap)
+            assert bool(kept[g].reshape(-1)[hits].cummin(0)[0].eq(
+                kept[g].reshape(-1)[hits]).all())     # the first cap kept
+    assert not kept.all()                              # some drop
+
+
+def test_route_exempt_counts_a_tie_and_the_drop_it_moves():
+    # the card swaps token 1's near-tied experts: token 1 is a tie, and
+    # expert 1, one assignment lighter, keeps token 4 (the reference drops
+    # it at capacity 4): moved.  Only they are exempt
+    from repro_torch.testing import route_exempt
+    cfg, want, got = _tie_calls({1: [3, 0.99, 1.0, -1]})
+    mask, counts = route_exempt(cfg, want, got)
+    assert counts == {"ties": 1, "moved": 1, "near": 1}
+    assert mask.shape == (1, 8)
+    assert mask[0].nonzero().reshape(-1).tolist() == [1, 4]
+    mask, counts = route_exempt(cfg, want, want)
+    assert counts == {"ties": 0, "moved": 0, "near": 1} and not mask.any()
+
+
+def test_route_exempt_refuses_routing_apart_away_from_a_tie():
+    from repro_torch.testing import route_exempt
+    cfg, want, got = _tie_calls({2: [2, -3, 3, -2]})      # a margin of 3
+    with pytest.raises(AssertionError, match="away from a bf16 tie"):
+        route_exempt(cfg, want, got)
+    cfg, want, got = _tie_calls(card_cf=2.0)               # no tie: cap 8
+    with pytest.raises(AssertionError, match="no routing tie"):
+        route_exempt(cfg, want, got)
+
+
+def test_route_exempt_maps_groups_back_to_tokens():
+    # four groups (2 x 2) of 4 tokens at capacity 2: the last group is
+    # batch row 1's positions 4-7, whose first token is the near-tie; the
+    # card's swap there moves token 7's drop (expert 2 full a token early)
+    from repro_torch.testing import route_exempt
+    cfg, (_, r, x, _), _ = _tie_calls()
+    x = torch.stack([x[0, [0, 2, 3, 5, 0, 2, 3, 5]],
+                     x[0, [0, 2, 3, 5, 1, 6, 7, 5]]])
+    x_card = x.clone()
+    x_card[1, 4] = torch.tensor([3, 0.99, 1.0, -1])
+    kw = {"groups": (2, 2)}
+    mask, counts = route_exempt(cfg, (cfg, r, x, kw), (cfg, r, x_card, kw))
+    assert counts == {"ties": 1, "moved": 1, "near": 1}
+    assert mask.nonzero().tolist() == [[1, 4], [1, 7]]
