@@ -2535,6 +2535,12 @@ def instance_ptxas(names) -> list:
     return [line for name in names for line in kernel_ptxas(name + ":")]
 
 
+def ptxas_note(lines) -> str:
+    """:func:`instance_ptxas`'s lines for a report, or why there are none
+    (a library another process built is loaded without a build log)."""
+    return "; ".join(lines) or "not in this process's build log"
+
+
 # the K6 shapes of the LLM paths, q_offset 0: (b, s_q, s_kv, n_q, n_kv, d,
 # d_v, causal, window, softcap, what)
 FLASH_PATH_SHAPES = (
@@ -3292,7 +3298,8 @@ PROBES = {"phase_k7_host": "K7 bf16 host",
           "phase_decode_step": "decode_32k step",
           "phase_gemma2_32k": "gemma2 32k",
           "phase_gemma2_serve": "gemma2 serve",
-          "phase_deepseek_32k": "deepseek 32k"}
+          "phase_deepseek_32k": "deepseek 32k",
+          "phase_mamba2_32k": "mamba2 32k"}
 
 
 def run_parent(root: str, phases, own: bool = False) -> str:
@@ -3373,6 +3380,11 @@ DRYRUN_K6_FP32_REPS = 3       # and of the float32 row at 2 x 32k (~0.46 s)
 DRYRUN_REF_SEQ = 512          # the 9-layer cut's card-vs-CPU bf16 steps
 DRYRUN_PEAK_RTOL = 0.005      # the card's peak against the abstract pass's
 INT32_LIMIT = 2 ** 31
+# kernels whose element offsets are 64-bit and have run past 2^31 elements
+# on the card against their plain version
+# (tests/test_torch_cuda.py::test_ssd_scan_kernel_past_2_31_elements): K8.
+# K6's and K7's counts stay held below 2^31
+OFFSETS_64BIT = ("ssd_scan",)
 
 
 def _abstract_row(combo):
@@ -3414,7 +3426,8 @@ def phase_dryrun_table(card):
 def kernel_offsets(cfg, b_prefill: int, b_decode: int, seq: int) -> dict:
     """The largest element count each LLM kernel indexes at the dry run's
     card shapes (an operand, its output or its workspace): K6's q at its
-    q / k head dim (MLA's head_dim + rope_head_dim); K7's only where
+    q / k head dim (MLA's head_dim + rope_head_dim), only where ``cfg``
+    prefills by it (not mamba2's attention-free layers); K7's only where
     ``cfg`` decodes by it (not MLA's absorbed decode), K8's only where it
     has Mamba2 layers."""
     import torch
@@ -3423,7 +3436,9 @@ def kernel_offsets(cfg, b_prefill: int, b_decode: int, seq: int) -> dict:
     from repro_torch.kernels import ssd_scan as sk
     h, d = cfg.num_heads, cfg.head_dim
     d_qk = d + cfg.rope_head_dim if cfg.mla else d
-    out = {"flash_attention": b_prefill * seq * h * d_qk}
+    out = {}
+    if llm_kernel_calls(cfg)[0]:
+        out["flash_attention"] = b_prefill * seq * h * d_qk
     if decode_kernel_calls(cfg)[1]:
         q, kc = (torch.empty((b_decode, h, d), device="meta"),
                  torch.empty((b_decode, seq, cfg.num_kv_heads, d),
@@ -3439,10 +3454,28 @@ def kernel_offsets(cfg, b_prefill: int, b_decode: int, seq: int) -> dict:
     return out
 
 
+def check_offsets(offsets: dict) -> None:
+    """Raise where a kernel outside OFFSETS_64BIT would index 2^31 elements
+    or more."""
+    over = {k: n for k, n in offsets.items()
+            if n >= INT32_LIMIT and k not in OFFSETS_64BIT}
+    if over:
+        raise AssertionError(f"dryrun: an offset reaches 2^31: {over} of "
+                             f"{offsets}")
+
+
+def card_shapes(arch: str) -> tuple:
+    """The input shapes ``arch``'s card pass runs: DRYRUN_CARD_SHAPES, and
+    for MAMBA_ARCH long_500k too (a decode step over its positionless
+    state at batch 1, which its abstract pass fits)."""
+    return DRYRUN_CARD_SHAPES + (("long_500k",) if arch == MAMBA_ARCH
+                                 else ())
+
+
 def card_batches(table, arch: str = DRYRUN_ARCH) -> dict:
     """The batch of ``arch`` that its abstract pass in ``table`` picked at
-    each card shape: the largest that fits the card."""
-    return {s: table[(arch, s)]["max_batch"] for s in DRYRUN_CARD_SHAPES}
+    each of its card shapes: the largest that fits the card."""
+    return {s: table[(arch, s)]["max_batch"] for s in card_shapes(arch)}
 
 
 def phase_dryrun_card(torch, card, table, arch: str = DRYRUN_ARCH):
@@ -3472,16 +3505,18 @@ def phase_dryrun_card(torch, card, table, arch: str = DRYRUN_ARCH):
     offsets = kernel_offsets(cfg, batches["prefill_32k"],
                              batches["decode_32k"],
                              INPUT_SHAPES["prefill_32k"].seq_len)
-    print(f"dryrun: largest element offsets at the card shapes {offsets}, "
-          f"all below 2^31 = {INT32_LIMIT} [{card}]")
-    if max(offsets.values()) >= INT32_LIMIT:
-        raise AssertionError(f"dryrun: an offset reaches 2^31: {offsets}")
+    check_offsets(offsets)
+    print(f"dryrun: largest element offsets at the card shapes {offsets}; "
+          f"past 2^31 = {INT32_LIMIT} only where 64-bit offsets are proven "
+          f"on the card ({', '.join(OFFSETS_64BIT)}) [{card}]")
     # every launch of the bf16 steps is a bf16 one
-    want = {shape: {**w, **{k + "_bf16": n for k, n in w.items()}}
-            for shape, w in (("prefill_32k", path_launches(cfg, 1, 0)),
-                             ("decode_32k", path_launches(cfg, 0, 1)))}
+    want = {}
+    for shape in card_shapes(arch):
+        w = (path_launches(cfg, 1, 0) if INPUT_SHAPES[shape].mode
+             == "prefill" else path_launches(cfg, 0, 1))
+        want[shape] = {**w, **{k + "_bf16": n for k, n in w.items()}}
     out = {}
-    for shape in DRYRUN_CARD_SHAPES:
+    for shape in card_shapes(arch):
         torch.cuda.empty_cache()
         full = INPUT_SHAPES[shape]
         c = card_pass(arch_for_shape(cfg, full), full, table[(arch, shape)])
@@ -3685,11 +3720,13 @@ def phase_dryrun_kernels(torch, np, card, batches):
     return rows
 
 
-def phase_dryrun_reference(torch, np, card, arch: str = DRYRUN_ARCH):
+def phase_dryrun_reference(torch, np, card, arch: str = DRYRUN_ARCH,
+                           blocks: int = 1):
     """(d) The prefill and decode steps of ``launch.specs.make_step``, in
-    bf16, on ``arch`` cut to one block (zamba2-7b: 9 layers; gemma2-9b: a
-    LOCAL and a global layer; deepseek-v2-lite-16b: the dense layer and a
-    MoE layer), the same bf16 weights on the card and the CPU: a 1 x
+    bf16, on ``arch`` cut to ``blocks`` blocks (one: zamba2-7b 9 layers;
+    gemma2-9b a LOCAL and a global layer; deepseek-v2-lite-16b the dense
+    layer and a MoE layer; mamba2-2.7b takes MAMBA_REF_BLOCKS Mamba2
+    layers), the same bf16 weights on the card and the CPU: a 1 x
     DRYRUN_REF_SEQ prefill, then one decode step over its cache (rewriting
     its last slot).  Each layer the card applies is held to the CPU's on
     the CPU's own inputs (``testing.LayerTap``: BF16_LLM_RTOL of its
@@ -3708,7 +3745,7 @@ def phase_dryrun_reference(torch, np, card, arch: str = DRYRUN_ARCH):
     from repro_torch.testing import (BF16_LLM_RTOL, ROUTER_TIE_BF16,
                                      LayerTap, RouterTap, rel_err,
                                      replay_layers)
-    cfg = block_cut(get_config(arch), 1)
+    cfg = block_cut(get_config(arch), blocks)
     s = DRYRUN_REF_SEQ
     prefill = specs.make_step(cfg, ShapeConfig("p", s, 1, "prefill"))[0]
     decode = specs.make_step(cfg, ShapeConfig("d", s, 1, "decode"))[0]
@@ -4102,6 +4139,223 @@ def phase_deepseek(torch, np, card, table=None) -> dict:
     return {"card": runs, "k6": k6, "card_vs_cpu": steps}
 
 
+MAMBA_32K_REPS = 3         # timed calls of K8 a turn at mamba2's 32k shape
+MAMBA_REF_BLOCKS = 2       # Mamba2 layers of its bf16 and float32 cuts
+
+
+def mamba2_k8_dims(cfg):
+    """(heads, head dim p, state n, chunk) of a Mamba2 config's K8 calls."""
+    return cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
+
+
+def phase_mamba2_32k(torch, card, batches=None, check=False) -> dict:
+    """K8 on bf16 x, B and C (dt, A and the states float32, as the Mamba2
+    layer passes them) at mamba2-2.7b's prefill_32k (:func:`mamba2_k8_dims`;
+    the rows its abstract pass picks where ``batches`` is None: 18, whose x
+    holds 3.02e9 elements, past 2^31), timed by CUDA events in two turns of
+    MAMBA_32K_REPS calls, split by the launcher's events into its state,
+    pass and output kernels (:func:`kernel_split`), beside its bounds (the
+    function's operations at fp32's rate on bf16's bytes; the tensor-core
+    bound with C B^T at bf16's rate and the other products as two TF32
+    ones).  No library call computes it.  Reads only the package's entry
+    points, so --parent runs it on the parent's package.  With ``check``
+    (``phase_mamba2``) the result is first held against the plain version
+    on the first and the last row (the plain version over every row would
+    hold 18 rows' chunk decays), the last row's x lying wholly past element
+    2^31, and the row names its kernel instances and their ptxas lines.
+    Returns the row."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.testing import SSD_BF16_RTOL, SSD_RTOL, rel_err
+    cfg = get_config(MAMBA_ARCH)
+    if batches is None:
+        from repro_torch.launch.dryrun import run_one
+        batches = {"prefill_32k": run_one(
+            MAMBA_ARCH, "prefill_32k", device="meta", verbose=False,
+            save=False)["max_batch"]}
+    b, s = batches["prefill_32k"], INPUT_SHAPES["prefill_32k"].seq_len
+    h, p, n, chunk = mamba2_k8_dims(cfg)
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((b, s, h, p), generator=gen, device="cuda").to(bf16)
+    dt = torch.rand((b, s, h), generator=gen, device="cuda") * 0.1
+    A = -torch.rand((h,), generator=gen, device="cuda") - 0.5
+    B, C = ((torch.randn((b, s, n), generator=gen, device="cuda")
+             * 0.3).to(bf16) for _ in "BC")
+    fn = lambda: sk.ssd_scan(x, dt, A, B, C, chunk=chunk)  # noqa: E731
+    shape = f"b={b} s={s} h={h} p={p} n={n} chunk={chunk}"
+    row, checked = {}, ""
+    if check:
+        y, fin = fn()
+        err, fin_err, plain_ms = (0.0, 0.0), 0.0, []
+        rows = sorted({0, b - 1})
+        for r in rows:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            y_ref, fin_ref = sk.ssd_scan_ref(
+                x[r:r + 1], dt[r:r + 1], A, B[r:r + 1], C[r:r + 1],
+                chunk=chunk)
+            end.record()
+            end.synchronize()
+            plain_ms.append(start.elapsed_time(end))
+            e = bf16_err(y[r:r + 1], y_ref)
+            err = (max(err[0], e[0]), max(err[1], e[1]))
+            fin_err = max(fin_err, rel_err(fin[r:r + 1].cpu(),
+                                           fin_ref.cpu()))
+            del y_ref, fin_ref
+        if not (err[1] <= SSD_BF16_RTOL and fin_err <= SSD_RTOL
+                and bool(torch.isfinite(y).all())):
+            raise AssertionError(f"mamba2 K8 bf16 at {shape}: error {err}, "
+                                 f"final state {fin_err}")
+        del y, fin
+        names = k8_instances(sk, p, n, bf16)
+        first = (b - 1) * s * h * p
+        row.update(kernels=names, ptxas=instance_ptxas(names),
+                   dynamic_smem=k8_smem(p, n, chunk, True),
+                   max_abs_err=err[0], rel_err=err[1],
+                   tolerance=SSD_BF16_RTOL, final_state_err=fin_err,
+                   checked_rows=rows, last_row_first_element=first,
+                   plain_row_ms=plain_ms)
+        checked = (f", {', '.join(names)}: rows {rows} against the plain "
+                   f"version (row {b - 1} from element {first:,}, "
+                   f"{'past' if first >= INT32_LIMIT else 'below'} 2^31): "
+                   f"error {err[0]:.3e} ({err[1]:.3e} of its row's largest "
+                   f"value; tolerance {SSD_BF16_RTOL:.3e}), final state "
+                   f"{fin_err:.3e} (tolerance {SSD_RTOL}); the plain version"
+                   " " + ", ".join(f"{t:.1f}" for t in plain_ms)
+                   + " ms a row; ptxas " + ptxas_note(row["ptxas"]))
+    turns = in_turns({"kernel": fn},
+                     lambda f: time_ms(torch, f, MAMBA_32K_REPS, 1))["kernel"]
+    split = kernel_split(torch, fn, K8_KERNELS)
+    nbytes = ssd_nbytes(b, s, h, p, n, False, size=2)
+    bound, by = bound_ms(nbytes, ssd_ops(b, s, h, p, n))
+    mma, other, mma_bf16, tf32x2 = ssd_tc_ops(b, s, h, p, n, chunk,
+                                              bf16=True)
+    bound_tc, by_tc = tc_bound_ms(nbytes, mma, other, mma_bf16, tf32x2)
+    ms = statistics.mean(turns)
+    row.update(name="ssd_scan", route="cuda", shape=shape,
+               source="src/repro_torch/csrc/ssd_scan.cu",
+               replaces="src/repro/kernels/ssd_scan.py:74", ms=ms,
+               turns_ms=turns, device_ms=split["total"], split_ms=split,
+               plain_ms=None, bound_ms=bound, bound_by=by,
+               bound_tc_ms=bound_tc, bound_tc_by=by_tc, bytes=nbytes,
+               bf16_products=mma_bf16, tf32x2_products=tf32x2,
+               other_ops=other, library_ms=None)
+    print(f"mamba2 32k K8 bf16 ({shape}){checked}: "
+          + ", ".join(f"{t:.4f}" for t in turns)
+          + f" ms per call in turns ({MAMBA_32K_REPS} calls a turn); by the "
+          f"launcher's events state {split['state']:.4f} + pass "
+          f"{split['pass']:.4f} + output {split['output']:.4f} = "
+          f"{split['total']:.4f} ms on the device; bound {bound:.6f} ms "
+          f"({by}), tensor-core bound {bound_tc:.6f} ms ({by_tc}; "
+          f"{nbytes:.4e} B, {mma_bf16:.4e} bf16 products, {tf32x2:.4e} "
+          f"products with one bf16 operand, {other:.4e} other); library: "
+          f"none computes it [{card}]")
+    del x, dt, A, B, C
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_mamba2_serve_k8(torch, card) -> dict:
+    """K8 in float32 at mamba2-2.7b's served prefill (1 x LLM_PROMPT steps,
+    80 heads, p 64, n 128, chunk 256, the fresh cache's zero state as the
+    initial state, as ``LLMServer``'s prefill passes it): held against its
+    plain version, timed with its device time, split by the launcher's
+    events, beside its bounds, its instances and their ptxas lines.
+    Returns the row."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.testing import SSD_RTOL, rel_err, ssd_case
+    h, p, n, chunk = mamba2_k8_dims(get_config(MAMBA_ARCH))
+    s = LLM_PROMPT
+    x, dt, A, B, C, _ = (torch.as_tensor(a, device="cuda") for a in
+                         ssd_case(1, s, h, p, n, True, seed=SEED, weak=True))
+    kw = dict(chunk=chunk, initial_state=torch.zeros((1, h, p, n),
+                                                     device="cuda"))
+    kernel = lambda: sk.ssd_scan(x, dt, A, B, C, **kw)  # noqa: E731
+    y, fin = kernel()
+    y_ref, fin_ref = sk.ssd_scan_ref(x, dt, A, B, C, **kw)
+    err = max(rel_err(y.cpu(), y_ref.cpu()), rel_err(fin.cpu(),
+                                                     fin_ref.cpu()))
+    if not (err <= SSD_RTOL and bool(torch.isfinite(y).all())):
+        raise AssertionError(f"mamba2 K8 float32 at the serving shape: "
+                             f"error {err}")
+    nbytes = ssd_nbytes(1, s, h, p, n, True)
+    shape = f"b=1 s={s} h={h} p={p} n={n} chunk={chunk} initial_state=zeros"
+    row = _row("ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+               "src/repro/kernels/ssd_scan.py:74", shape, err,
+               measure(torch, kernel),
+               measure(torch, lambda: sk.ssd_scan_ref(x, dt, A, B, C, **kw)),
+               None, nbytes, ssd_ops(1, s, h, p, n))
+    mma, other, _, _ = ssd_tc_ops(1, s, h, p, n, chunk)
+    row["bound_tc_ms"], row["bound_tc_by"] = tc_bound_ms(nbytes, mma, other)
+    names = k8_instances(sk, p, n, torch.float32)
+    row.update(kernels=names, ptxas=instance_ptxas(names),
+               dynamic_smem=k8_smem(p, n, chunk, False),
+               split_ms=kernel_split(torch, kernel, K8_KERNELS))
+    _report(f"mamba2 serve K8 float32 ({shape}), {', '.join(names)} (dyn. "
+            f"smem " + ", ".join(f"{k} {v:,} B" for k, v in
+                                  row["dynamic_smem"].items())
+            + f"): error {err:.3e} of the output scale, tensor-core bound "
+            f"{row['bound_tc_ms']:.6f} ms ({row['bound_tc_by']}), by the "
+            "launcher's events " + ", ".join(
+                f"{k} {v:.4f}" for k, v in row["split_ms"].items())
+            + " ms; ptxas " + ptxas_note(row["ptxas"]), row, card)
+    return row
+
+
+def phase_mamba2_serve(torch, np, card) -> dict:
+    """mamba2-2.7b served in float32: its MAMBA_REF_BLOCKS-layer cut
+    against the CPU (``llm_reference``), the full width behind
+    ``LLMServer`` (``phase_llm_main_path``), then K8 at the serving shape,
+    summed up in one line: prefill ms a request, decode ms a step,
+    tokens/s, the device's busy share of a traced prefill and decode step,
+    the K8 launches.  Returns {"counts", "figures", "card_vs_cpu", "k8"}."""
+    from repro_torch.configs import get_config
+    check = llm_reference(torch, np, card,
+                          block_cut(get_config(MAMBA_ARCH),
+                                    MAMBA_REF_BLOCKS))
+    counts, _, params, got = phase_llm_main_path(torch, np, card,
+                                                 MAMBA_ARCH)
+    del params
+    torch.cuda.empty_cache()
+    k8 = phase_mamba2_serve_k8(torch, card)
+    busy = {what: b / w for what, (w, b) in got["profile"].items()}
+    print(f"mamba2 serve float32: prefill {got['prefill_ms']:.2f} ms a "
+          f"request, decode {got['decode_ms']:.2f} ms a step, "
+          f"{got['tokens_per_s']:.2f} tokens/s; device busy "
+          f"{busy['prefill']:.1%} of a traced prefill, "
+          f"{busy['decode step']:.1%} of a decode step; launches K8 "
+          f"{counts['ssd_scan']}, K6 {counts['flash_attention']}, K7 "
+          f"{counts['decode_attention']}; the cut against the CPU within "
+          f"{check['worst']:.2e}, greedy tokens equal at "
+          f"{check['compared'] - check['ties']} of {check['compared']} "
+          f"[{card}]")
+    return {"counts": counts, "figures": got, "card_vs_cpu": check,
+            "k8": k8}
+
+
+def phase_mamba2(torch, np, card, table=None) -> dict:
+    """mamba2-2.7b's card phases (``--only mamba2``; in the full run after
+    deepseek-v2-lite-16b's, on the dry run's ``table``): its bf16 dry-run
+    steps at full width and depth (prefill_32k, decode_32k and long_500k:
+    :func:`card_shapes`), K8 at its prefill_32k shape against its plain
+    version (``phase_mamba2_32k(check=True)``), its MAMBA_REF_BLOCKS-layer
+    bf16 cut against the CPU layer by layer, then its float32 serving path
+    (:func:`phase_mamba2_serve`).  Returns {"card": steps, "k8": row,
+    "card_vs_cpu": cut, "serve": the serving path's}."""
+    runs = phase_dryrun_card(torch, card, table or dryrun_card_table(
+        arch=MAMBA_ARCH), MAMBA_ARCH)
+    k8 = phase_mamba2_32k(torch, card, {s: runs[s]["batch"]
+                                        for s in card_shapes(MAMBA_ARCH)},
+                          check=True)
+    steps = phase_dryrun_reference(torch, np, card, MAMBA_ARCH,
+                                   MAMBA_REF_BLOCKS)
+    serve = phase_mamba2_serve(torch, np, card)
+    return {"card": runs, "k8": k8, "card_vs_cpu": steps, "serve": serve}
+
+
 def phase_decode_step(torch, card, row=None) -> dict:
     """DRYRUN_ARCH's decode_32k step on the card at the batch its abstract
     pass (``row``, run here where None) picks, made as ``dryrun.card_pass``
@@ -4181,9 +4435,11 @@ def phase_decode_step(torch, card, row=None) -> dict:
 
 def phase_dryrun(torch, np, card):
     """The dry run's phases (a)-(d), for DRYRUN_ARCH, then GEMMA_ARCH (its
-    steps, K6 and K7 at its 32k shapes, its one-block cut) and MOE_ARCH
-    (its steps, K6 at its 32k shape, its one-block cut:
-    :func:`phase_deepseek`); returns what the JSON line carries."""
+    steps, K6 and K7 at its 32k shapes, its one-block cut), MOE_ARCH (its
+    steps, K6 at its 32k shape, its one-block cut: :func:`phase_deepseek`)
+    and MAMBA_ARCH (its steps, K8 at its 32k shape, its cut, and its
+    float32 serving path: :func:`phase_mamba2`); returns what the JSON line
+    carries."""
     table = phase_dryrun_table(card)
     runs = phase_dryrun_card(torch, card, table)
     runs["decode_32k"]["trace"] = phase_decode_step(
@@ -4199,6 +4455,8 @@ def phase_dryrun(torch, np, card):
     gemma_steps = phase_dryrun_reference(torch, np, card, GEMMA_ARCH)
     deepseek = phase_deepseek(torch, np, card, table)
     kernels["deepseek"] = deepseek["k6"]
+    mamba = phase_mamba2(torch, np, card, table)
+    kernels["mamba2"] = mamba["k8"]
     keep = ("hlo_flops", "hlo_bytes", "arg_bytes", "peak_memory_per_device",
             "fits", "max_batch", "batch1_peak_bytes", "t_floor", "dominant",
             "kernel_plain_flops", "cut_t_floor", "t_abstract_s")
@@ -4207,11 +4465,15 @@ def phase_dryrun(torch, np, card):
             "card": runs, "kernels": kernels, "card_vs_cpu": steps,
             "card_gemma2": gemma, "card_vs_cpu_gemma2": gemma_steps,
             "card_deepseek": deepseek["card"],
-            "card_vs_cpu_deepseek": deepseek["card_vs_cpu"]}
+            "card_vs_cpu_deepseek": deepseek["card_vs_cpu"],
+            "card_mamba2": mamba["card"],
+            "card_vs_cpu_mamba2": mamba["card_vs_cpu"],
+            "mamba2_serve": mamba["serve"]}
 
 
 LLM_ARCH = "zamba2-7b"
 MOE_ARCH = "deepseek-v2-lite-16b"
+MAMBA_ARCH = "mamba2-2.7b"
 CROSS_ARCH = "musicgen-medium"
 LLM_SLOTS, LLM_MAX_SEQ, LLM_REQUESTS, LLM_PROMPT, LLM_NEW = 4, 512, 8, 384, 16
 ATTN_KINDS = ("attn", "local", "moe", "cross", "shared_attn")
@@ -5672,6 +5934,9 @@ ONLY_PHASES = {
     "deepseek": phase_deepseek,
     "deepseek_32k": lambda torch, np, card: relay_probes(
         ROOT, "this tree", ["phase_deepseek_32k"]),
+    "mamba2": phase_mamba2,
+    "mamba2_32k": lambda torch, np, card: relay_probes(
+        ROOT, "this tree", ["phase_mamba2_32k"]),
 }
 
 
@@ -5688,8 +5953,8 @@ def main() -> int:
                          "contract line); with --parent the parent's K6 / "
                          "K7 / K8 rows (k6, k7, k8) and this script's "
                          "probes on its package (k7_host, decode_step, "
-                         "gemma2_32k, gemma2_serve, deepseek_32k) run "
-                         "before and after")
+                         "gemma2_32k, gemma2_serve, deepseek_32k, "
+                         "mamba2_32k) run before and after")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         raise SystemExit("chip_smoke.py: src/repro_torch not found next to "
@@ -5817,7 +6082,8 @@ def main() -> int:
     phase_cascade_reference(torch, np, card)
     # the MoE + MLA and cross-attention paths, once zamba2's weights are
     # freed: deepseek-v2-lite's 61.9 GB leave ~18 GB of the card
-    checks = {MOE_ARCH: phase_moe_reference(torch, np, card),
+    checks = {MAMBA_ARCH: dryrun["mamba2_serve"]["card_vs_cpu"],
+              MOE_ARCH: phase_moe_reference(torch, np, card),
               CROSS_ARCH: phase_cross_reference(torch, np, card),
               GEMMA_ARCH: phase_gemma2_reference(torch, np, card)}
     moe_counts, _, moe_params, _ = phase_llm_main_path(torch, np, card,
@@ -5852,6 +6118,10 @@ def main() -> int:
                 "remat": train_counts[True][row["name"] + "_vjp"]}
             row["gradient"] = grads[row["name"]]
         row["launches_deepseek"] = moe_counts[row["name"]]
+        row["launches_mamba2"] = dryrun["mamba2_serve"]["counts"][
+            row["name"]]
+        if row["name"] == "ssd_scan":    # <float, 8, 16> as mamba2 serves
+            row["mamba2_serving_shape"] = dryrun["mamba2_serve"]["k8"]
         row["launches_musicgen"] = cross_counts[row["name"]]
         row["launches_gemma2"] = gemma_counts[row["name"]]
         if row["name"] == "flash_attention":
@@ -5862,11 +6132,13 @@ def main() -> int:
         bf["name"] = row["name"] + "_bf16"
         bf["launches_dryrun"] = {s: dryrun["card"][s]["launches"][
             bf["name"]] for s in DRYRUN_CARD_SHAPES}
-        for arch in ("gemma2", "deepseek"):
+        for arch, name in (("gemma2", GEMMA_ARCH), ("deepseek", MOE_ARCH),
+                           ("mamba2", MAMBA_ARCH)):
             bf[f"launches_dryrun_{arch}"] = {s: dryrun[f"card_{arch}"][s][
-                "launches"][bf["name"]] for s in DRYRUN_CARD_SHAPES}
+                "launches"][bf["name"]] for s in card_shapes(name)}
         bf["launches"] = sum(sum(bf[f"launches_dryrun{a}"].values())
-                             for a in ("", "_gemma2", "_deepseek"))
+                             for a in ("", "_gemma2", "_deepseek",
+                                       "_mamba2"))
         bf["launches_launcher"] = launcher_counts[bf["name"]]
         if row["name"] in ("flash_attention", "ssd_scan"):
             bf["vjps_launcher"] = launcher_counts[row["name"] + "_vjp"]
@@ -5879,6 +6151,8 @@ def main() -> int:
                 if key.startswith(tag)}
         if tag == "K6":          # MLA's d 192 over d_v 128: <NWG, 12, 8>
             bf["dryrun_deepseek"] = dryrun["kernels"]["deepseek"]
+        if row["name"] == "ssd_scan":    # n 128 at 18 x 32k: <bf16, 8, 16>
+            bf["dryrun_mamba2"] = dryrun["kernels"]["mamba2"]
         # K7's and K8's split by device kernel, at 32k and serving shapes
         tag = {"decode_attention": "K7", "ssd_scan": "K8"}.get(row["name"])
         for r, dt in ((row, "float32"), (bf, "bf16")):
@@ -5901,7 +6175,8 @@ def main() -> int:
                                  ("table", "card", "card_vs_cpu",
                                   "card_gemma2", "card_vs_cpu_gemma2",
                                   "card_deepseek",
-                                  "card_vs_cpu_deepseek")}}))
+                                  "card_vs_cpu_deepseek", "card_mamba2",
+                                  "card_vs_cpu_mamba2")}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -766,6 +766,14 @@ def test_llm_path_launches_follow_each_config():
                                     16) == {"flash_attention": 96 + 16 * 48,
                                             "decode_attention": 16 * 48,
                                             "ssd_scan": 0}
+    # mamba2-2.7b: a K8 per Mamba2 layer at prefill, no K6 or K7 anywhere,
+    # and its decode step (the plain recurrent ssd_step) launches nothing
+    mamba2 = get_config("mamba2-2.7b")
+    assert chip_smoke.path_launches(mamba2, 1, 0) == {
+        "flash_attention": 0, "decode_attention": 0, "ssd_scan": 64}
+    assert chip_smoke.path_launches(mamba2, 0, 1) == {
+        "flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
+    assert chip_smoke.path_launches(mamba2, 8, 30)["ssd_scan"] == 8 * 64
     with pytest.raises(AssertionError, match="decode_attention 1 times"):
         chip_smoke.check_launches({"decode_attention": 1},
                                   {"decode_attention": 0}, "x")
@@ -1111,3 +1119,113 @@ def test_deepseek_phases_are_wired_in():
         "flash_attention": 27, "decode_attention": 0, "ssd_scan": 0}
     assert chip_smoke.path_launches(cfg, 0, 1) == {
         "flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
+
+
+def test_offsets_past_2_31_pass_for_k8_only():
+    # mamba2-2.7b at prefill_32k's 18 rows: K8's x holds 18 x 32,768 x 80
+    # x 64 = 3.02e9 elements (its workspace 18 x 128 chunks x 80 heads x
+    # (64 x 128 + 1) floats, fewer), past 2^31; K8's offsets are 64-bit and
+    # proven there on the card, so the gate lets it through.  K6's and K7's
+    # counts past 2^31 still raise
+    from repro_torch.configs import get_config
+    got = chip_smoke.kernel_offsets(get_config("mamba2-2.7b"), 18, 128,
+                                    32768)
+    assert got == {"ssd_scan": 18 * 32768 * 80 * 64}
+    assert got["ssd_scan"] == 3_019_898_880
+    assert got["ssd_scan"] > chip_smoke.INT32_LIMIT
+    assert chip_smoke.OFFSETS_64BIT == ("ssd_scan",)
+    chip_smoke.check_offsets(got)
+    for name in ("flash_attention", "decode_attention"):
+        with pytest.raises(AssertionError, match=f"reaches 2\\^31.*{name}"):
+            chip_smoke.check_offsets({**got, name: chip_smoke.INT32_LIMIT})
+        chip_smoke.check_offsets({**got, name: chip_smoke.INT32_LIMIT - 1})
+    # zamba2 at 40 rows of 32k: K6's q holds 4.70e9 elements
+    big = chip_smoke.kernel_offsets(get_config("zamba2-7b"), 40, 14, 32768)
+    assert big["flash_attention"] == 40 * 32768 * 32 * 112
+    with pytest.raises(AssertionError, match="flash_attention"):
+        chip_smoke.check_offsets(big)
+    chip_smoke.check_offsets(chip_smoke.kernel_offsets(
+        get_config("zamba2-7b"), 6, 14, 32768))
+
+
+def test_card_shapes_take_long_500k_for_mamba2_only():
+    assert chip_smoke.MAMBA_ARCH == "mamba2-2.7b"
+    for arch in (chip_smoke.DRYRUN_ARCH, chip_smoke.GEMMA_ARCH,
+                 chip_smoke.MOE_ARCH):
+        assert chip_smoke.card_shapes(arch) == ("prefill_32k", "decode_32k")
+    assert chip_smoke.card_shapes("mamba2-2.7b") == (
+        "prefill_32k", "decode_32k", "long_500k")
+    # the batches its abstract pass picked (ISSUE table: 18, 128, 1)
+    table = {("mamba2-2.7b", s): {"max_batch": b} for s, b in (
+        ("prefill_32k", 18), ("decode_32k", 128), ("long_500k", 1),
+        ("train_4k", 0))}
+    assert chip_smoke.card_batches(table, "mamba2-2.7b") == {
+        "prefill_32k": 18, "decode_32k": 128, "long_500k": 1}
+
+
+def test_mamba2_k8_bound_at_its_32k_shape():
+    # K8 at 18 x 32,768, 80 heads, p 64, n 128, chunk 256 in bf16: x and y
+    # bf16 (2 x 6.04 GB), B and C bf16, dt, A and the final state float32:
+    # 12.62 GB, 3.77 ms at HBM's rate; the function's 5pn + p + 2
+    # operations a (row, head, step) at fp32's rate bound it (28.89 ms);
+    # on the tensor cores C B^T's 1.55e12 bf16 products, 2.32e12 products
+    # with one bf16 operand (two TF32 each) and 3.35e10 other operations
+    from repro_torch.configs import get_config
+    h, p, n, chunk = chip_smoke.mamba2_k8_dims(get_config("mamba2-2.7b"))
+    assert (h, p, n, chunk) == (80, 64, 128, 256)
+    nbytes = chip_smoke.ssd_nbytes(18, 32768, h, p, n, False, size=2)
+    assert nbytes == 12_617_515_328
+    mma, other, bf16, tf32x2 = chip_smoke.ssd_tc_ops(18, 32768, h, p, n,
+                                                     chunk, bf16=True)
+    assert (bf16, tf32x2, other) == (1_552_228_024_320, 2_322_302_238_720,
+                                     33_525_596_160)
+    assert mma == bf16 + tf32x2
+    ms, by = chip_smoke.bound_ms(nbytes, chip_smoke.ssd_ops(18, 32768, h, p,
+                                                           n))
+    assert by == "operations" and ms == pytest.approx(28.893277, abs=1e-6)
+    ms, by = chip_smoke.tc_bound_ms(nbytes, mma, other, bf16, tf32x2)
+    assert by == "operations" and ms == pytest.approx(11.452279, abs=1e-6)
+    # the float32 output kernel at n 128 asks 172,096 B: one block an SM
+    assert chip_smoke.k8_smem(p, n, chunk, False)["output"] == 172_096
+
+
+def test_mamba2_phases_are_wired_in():
+    # the full run: mamba2's bf16 dry-run steps, K8 at its 32k shape
+    # against its plain version, its cut layer by layer and its float32
+    # serving path, after deepseek's, on the dry run's table; --only mamba2
+    # runs them alone, --only mamba2_32k the timing probe (with --parent on
+    # the parent's package too); K8's rows carry its launches and shapes
+    import inspect
+    dry = inspect.getsource(chip_smoke.phase_dryrun)
+    assert dry.index("phase_deepseek(torch, np, card, table)") < dry.index(
+        "phase_mamba2(torch, np, card, table)")
+    assert '"card_mamba2": mamba["card"]' in dry
+    assert '"card_vs_cpu_mamba2": mamba["card_vs_cpu"]' in dry
+    phase = inspect.getsource(chip_smoke.phase_mamba2)
+    assert phase.index("MAMBA_ARCH), MAMBA_ARCH)") < phase.index(
+        "k8 = phase_mamba2_32k(") < phase.index(
+        "phase_dryrun_reference(torch, np, card, MAMBA_ARCH,") < \
+        phase.index("phase_mamba2_serve(torch, np, card)")
+    assert "check=True" in phase
+    serve = inspect.getsource(chip_smoke.phase_mamba2_serve)
+    assert serve.index("llm_reference(") < serve.index(
+        "phase_llm_main_path(torch, np, card,") < serve.index(
+        "phase_mamba2_serve_k8(torch, card)")
+    assert 'print(f"mamba2 serve float32: ' in serve
+    assert chip_smoke.ONLY_PHASES["mamba2"] is chip_smoke.phase_mamba2
+    assert "mamba2_32k" in chip_smoke.ONLY_PHASES
+    assert chip_smoke.PROBES["phase_mamba2_32k"] == "mamba2 32k"
+    probe = inspect.getsource(chip_smoke.phase_mamba2_32k)
+    assert 'print(f"mamba2 32k K8 bf16' in probe
+    assert "kernel_split(torch, fn, K8_KERNELS)" in probe
+    main = inspect.getsource(chip_smoke.main)
+    assert 'bf["dryrun_mamba2"] = dryrun["kernels"]["mamba2"]' in main
+    assert '"card_mamba2",' in main and '"card_vs_cpu_mamba2")' in main
+    assert 'row["mamba2_serving_shape"]' in main
+    # its cuts: MAMBA_REF_BLOCKS Mamba2 layers at full width
+    from repro_torch.configs import get_config
+    cut = chip_smoke.block_cut(get_config("mamba2-2.7b"),
+                               chip_smoke.MAMBA_REF_BLOCKS)
+    assert (cut.num_layers, cut.d_model, cut.n_ssm_heads, cut.vocab_size) \
+        == (2, 2560, 80, 50280)
+    assert chip_smoke.llm_kernel_calls(cut) == (0, 2)

@@ -636,6 +636,46 @@ def test_ssd_scan_kernel_matches_plain(cuda, case):
     assert rel_err(fin.cpu(), fin_ref.cpu()) <= SSD_RTOL
 
 
+# mamba2-2.7b's K8 shape at 14 rows of 32,768 steps: x and y hold 14 x
+# 32,768 x 80 x 64 = 2.35e9 elements, past 2^31; row 12 crosses element
+# 2^31 and row 13 (from element 2,181,038,080) lies wholly past it
+SSD_PAST_2_31 = (14, 32768, 80, 64, 128, 256)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_ssd_scan_kernel_past_2_31_elements(cuda, dtype):
+    # y and the final state of rows 0, 12 and 13 against the plain version
+    # run on that row alone (with its own initial state): every global
+    # offset of the state, pass and output kernels past 2^31 elements
+    b, s, h, p, n, chunk = SSD_PAST_2_31
+    assert (b - 1) * s * h * p > 2 ** 31 > (b - 2) * s * h * p
+    kind = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((b, s, h, p), generator=gen, device=cuda).to(kind)
+    dt = torch.rand((b, s, h), generator=gen, device=cuda) * 0.1
+    A = -torch.rand((h,), generator=gen, device=cuda) - 0.5
+    B, C = ((torch.randn((b, s, n), generator=gen, device=cuda) * 0.3
+             ).to(kind) for _ in "BC")
+    st = torch.randn((b, h, p, n), generator=gen, device=cuda) * 0.1
+    assert sk.path(p, n) == "tensor cores"
+    y, fin = sk.ssd_scan(x, dt, A, B, C, chunk=chunk, initial_state=st)
+    assert y.dtype == kind and y.numel() > 2 ** 31
+    for r in (0, b - 2, b - 1):
+        y_ref, fin_ref = sk.ssd_scan_ref(
+            x[r:r + 1], dt[r:r + 1], A, B[r:r + 1], C[r:r + 1], chunk=chunk,
+            initial_state=st[r:r + 1])
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(y[r]).all())
+        if kind == BF:
+            assert bf16_err(y[r:r + 1], y_ref) <= SSD_BF16_RTOL, r
+        else:
+            scale = max(1.0, float(y_ref.abs().max()))
+            assert _sync_err(y[r:r + 1], y_ref) / scale <= SSD_RTOL, r
+        scale = max(1.0, float(fin_ref.abs().max()))
+        assert _sync_err(fin[r:r + 1], fin_ref) / scale <= SSD_RTOL, r
+        del y_ref, fin_ref
+
+
 ZAMBA2_DECODE = (4, 512, 32, 32, 112, [385, 390, 395, 399])
 ZAMBA2_PREFILL = (1, 384, 112, 64, 64, 256)
 
