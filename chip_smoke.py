@@ -37,7 +37,14 @@ one ``GraphScheduler`` (bitwise, under the oracle's conditions),
 ``MultiStreamCoordinator(num_shards=, use_store=True)`` at 64 streams with
 K = 1 and 4, work stealing under a replica outage, and three tenants
 (vision, the LLM-cascade pipeline, the retail pipeline) on one 2-shard
-fleet against the same run on the CPU.  After the zamba2 path the
+fleet against the same run on the CPU.  The one-card dry run
+(``launch/dryrun.py``) then counts every arch x input shape on meta
+tensors and runs the bf16 steps of zamba2-7b, gemma2-9b,
+deepseek-v2-lite-16b, mamba2-2.7b, qwen2-7b and starcoder2-7b on the card
+at full width and depth (the last three's long_500k too), each arch's
+kernels at its 32k shapes and its cut against the CPU; mamba2-2.7b,
+qwen2-7b and starcoder2-7b are served there in float32 behind
+``LLMServer`` too.  After the zamba2 path the
 big/little cascade (``core/cascade.py``) runs with full-width zamba2-7b as
 the big model and its 9-layer cut as the little one, and against the CPU
 on two 9-layer models; the deepseek and musicgen paths come next, once
@@ -67,11 +74,20 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
 SEED = 0
+T_START = time.perf_counter()   # main() resets it before the build
+
+
+def lap(what: str) -> None:
+    """Print how far into the run ``what`` ended: the time limit covers
+    the whole script, so a run shows where its time goes."""
+    print(f"chip_smoke.py: {what} done at "
+          f"{time.perf_counter() - T_START:.1f} s")
 
 # the kernels the video path runs (K4a and the NMS kernel through its two
 # NMS per flush)
@@ -239,17 +255,85 @@ def measure(torch, fn, reps: int = 30, once: bool = False):
 
 
 def versus_library(torch, kernel, library, reps: int = 30,
-                   once: bool = False):
+                   once: bool = False, warmup: int = 5):
     """A kernel and its library yardstick timed in turns (kernel, library,
     library, kernel), each with its device time from the profiler (the
     kernel's with ``once`` as in :func:`device_us_per_call`):
     ((kernel ms per call, device ms), (library ms, device ms), turns)."""
     turns = in_turns({"kernel": kernel, "library": library},
-                     lambda fn: time_ms(torch, fn, reps))
+                     lambda fn: time_ms(torch, fn, reps, warmup))
     return ((statistics.mean(turns["kernel"]),
              profile_device(torch, kernel, reps, once)[0]),
             (statistics.mean(turns["library"]),
              profile_device(torch, library, reps)[0]), turns)
+
+
+def time_with_events(torch, fn, names, reps: int, warmup: int = 5):
+    """:func:`time_ms` of ``fn``, each timed call handing its launcher the
+    events of :func:`kernel_split` around its device kernels ``names``
+    (``_build.time_next_launch``): (median ms a call, {name: median device
+    ms, "total": their sum's median}), the second None where the launcher
+    recorded none (a package whose launcher predates them).  The events
+    lie between the call's own start and end, so a call's device time
+    cannot pass its wall time."""
+    from repro_torch.kernels import _build
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times, gaps = [], {n: [] for n in (*names, "total")}
+    for _ in range(reps):
+        start, end, *ev = (torch.cuda.Event(enable_timing=True)
+                           for _ in range(len(names) + 3))
+        if gaps is not None:
+            for e in ev:                     # each gets its handle
+                e.record()
+            _build.time_next_launch(ev)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        if gaps is None:
+            continue
+        got = _build.launch_events_recorded()
+        if got == 0:
+            _build.time_next_launch([])      # no later launch records them
+            gaps = None
+            continue
+        if got != len(ev):
+            raise AssertionError(f"time_with_events: the launcher recorded "
+                                 f"{got} of {len(ev)} events for {names}")
+        for i, n in enumerate(names):
+            gaps[n].append(ev[i].elapsed_time(ev[i + 1]))
+        gaps["total"].append(ev[0].elapsed_time(ev[-1]))
+    return statistics.median(times), (
+        None if gaps is None
+        else {n: statistics.median(v) for n, v in gaps.items()})
+
+
+def event_turns(torch, fns, names, reps: int, warmup: int = 5):
+    """:func:`in_turns` of ``fns`` by :func:`time_ms`, the calls of
+    ``fns["kernel"]`` by :func:`time_with_events` (its device kernels
+    ``names``), so that its device time comes from the very calls whose
+    wall time the turns hold.  Returns (turns, split, source): split
+    {name: ms, "total": ms}, each the mean of the turns' medians as the
+    row's ms is, from "events"; where the launcher records none (another
+    checkout's package, run by --parent) {"total": the profiler's figure
+    for one call}, from "profiler"."""
+    device = []
+
+    def timer(fn):
+        if fn is not fns["kernel"]:
+            return time_ms(torch, fn, reps, warmup)
+        ms, split = time_with_events(torch, fn, names, reps, warmup)
+        device.append(split)
+        return ms
+    turns = in_turns(fns, timer)
+    if None in device:
+        return turns, {"total": profile_device(torch, fns["kernel"], 1,
+                                               once=True)[0]}, "profiler"
+    return turns, {n: statistics.mean(d[n] for d in device)
+                   for n in device[0]}, "events"
 
 
 def _report_turns(tag, turns, row, lib_name, card):
@@ -2459,6 +2543,13 @@ def _k6_instance(fa, b, s_q, n_q, d, d_v, dtype) -> str:
     return f"flash_attention_simt_kernel<{elem}, {nc}>"
 
 
+def split_heads(group: int) -> int:
+    """The q-heads a block of K7's split kernel carries for a GQA group
+    (``csrc/decode_attention.cu`` dispatch: 1, 2, 4 or 8; a larger group
+    in parts of 8)."""
+    return 1 if group == 1 else 2 if group == 2 else 4 if group <= 4 else 8
+
+
 def k7_instance(da, q, kc, vc) -> str:
     """The name (as ptxas reports it) of the K7 split kernel instance that
     the launcher runs on these operands: the bf16 TMA kernel by its
@@ -2475,9 +2566,8 @@ def k7_instance(da, q, kc, vc) -> str:
     elif da.on_bulk(q, kc, vc):
         name = f"decode_bulk_kernel<{group if group <= 2 else 4}>"
     else:
-        g = 1 if group == 1 else 2 if group == 2 else 4 if group <= 4 else 8
         elem = "bf16" if q.dtype == torch.bfloat16 else "float"
-        name = f"decode_split_kernel<{elem}, {g}>"
+        name = f"decode_split_kernel<{elem}, {split_heads(group)}>"
     return _built(name)
 
 
@@ -3216,6 +3306,7 @@ def kernel_split(torch, fn, names, reps: int = SPLIT_REPS) -> dict:
     return {n: statistics.median(v) for n, v in times.items()}
 
 
+K6_KERNELS = ("attention",)
 K7_KERNELS = ("split", "combine")
 K8_KERNELS = ("state", "pass", "output")
 
@@ -3299,7 +3390,9 @@ PROBES = {"phase_k7_host": "K7 bf16 host",
           "phase_gemma2_32k": "gemma2 32k",
           "phase_gemma2_serve": "gemma2 serve",
           "phase_deepseek_32k": "deepseek 32k",
-          "phase_mamba2_32k": "mamba2 32k"}
+          "phase_mamba2_32k": "mamba2 32k",
+          "phase_qwen2_32k": "qwen2 32k",
+          "phase_starcoder2_32k": "starcoder2 32k"}
 
 
 def run_parent(root: str, phases, own: bool = False) -> str:
@@ -3397,19 +3490,33 @@ def _abstract_row(combo):
     return run_one(*combo, device="meta", verbose=False, save=False)
 
 
-def phase_dryrun_table(card):
-    """(a) The abstract pass of every arch x input shape, in a pool of
-    spawned processes; one row each.  Returns {(arch, shape): row}."""
+def start_dryrun_table():
+    """Start (a), the abstract pass of every arch x input shape, in a pool
+    of spawned processes, and the launcher's cut (:func:`launcher_cut`)
+    first among them.  They need no card, so main() starts them beside
+    the kernels' build, whose nvcc processes leave cores idle, and
+    :func:`phase_dryrun_table` collects them.  Returns (pool, combos,
+    futures, start time, the launcher cut's future)."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
     from repro_torch.configs import INPUT_SHAPES, list_archs
     combos = [(a, s) for a in list_archs() for s in sorted(INPUT_SHAPES)]
-    t0 = time.perf_counter()
-    with ProcessPoolExecutor(
-            max_workers=min(DRYRUN_WORKERS, os.cpu_count() or 1),
-            mp_context=multiprocessing.get_context("spawn")) as pool:
-        rows = dict(zip(combos, pool.map(_abstract_row, combos)))
+    pool = ProcessPoolExecutor(
+        max_workers=min(DRYRUN_WORKERS, os.cpu_count() or 1),
+        mp_context=multiprocessing.get_context("spawn"))
+    cut = pool.submit(launcher_cut)
+    return (pool, combos, [pool.submit(_abstract_row, c) for c in combos],
+            time.perf_counter(), cut)
+
+
+def phase_dryrun_table(card, started):
+    """(a) The abstract passes :func:`start_dryrun_table` started
+    (``started``), collected, one row each, and the pool shut down.
+    Returns {(arch, shape): row}."""
+    pool, combos, futures, t0, _ = started
+    with pool:
+        rows = {c: f.result() for c, f in zip(combos, futures)}
     for (arch, shape), r in rows.items():
         print(f"dryrun {arch} {shape}: {r['hlo_flops']:.4e} FLOP, "
               f"{r['hlo_bytes']:.4e} B, arguments {r['arg_bytes'] / 1e9:.2f}"
@@ -3423,34 +3530,44 @@ def phase_dryrun_table(card):
     return rows
 
 
-def kernel_offsets(cfg, b_prefill: int, b_decode: int, seq: int) -> dict:
-    """The largest element count each LLM kernel indexes at the dry run's
-    card shapes (an operand, its output or its workspace): K6's q at its
-    q / k head dim (MLA's head_dim + rope_head_dim), only where ``cfg``
-    prefills by it (not mamba2's attention-free layers); K7's only where
-    ``cfg`` decodes by it (not MLA's absorbed decode), K8's only where it
-    has Mamba2 layers."""
+def kernel_offsets(cfg, batches: dict) -> dict:
+    """The largest element count each LLM kernel indexes at ``cfg``'s card
+    shapes (``batches``: shape name -> batch; each shape at its own
+    ``seq_len``, long_500k's 524,288 slots in its ``arch_for_shape``
+    variant), over an operand, its output or its workspace: K6's q at its q
+    / k head dim (MLA's head_dim + rope_head_dim) and K8's x and workspace
+    at each prefill shape, only where ``cfg`` prefills by them (not
+    mamba2's attention-free layers; K8 only with Mamba2 layers); K7's
+    caches and workspace (at the most splits: no window) at each decode
+    shape, only where ``cfg`` decodes by it (not MLA's absorbed decode)."""
     import torch
 
+    from repro_torch.configs import INPUT_SHAPES
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ssd_scan as sk
+    from repro_torch.launch.specs import arch_for_shape
     h, d = cfg.num_heads, cfg.head_dim
     d_qk = d + cfg.rope_head_dim if cfg.mla else d
     out = {}
-    if llm_kernel_calls(cfg)[0]:
-        out["flash_attention"] = b_prefill * seq * h * d_qk
-    if decode_kernel_calls(cfg)[1]:
-        q, kc = (torch.empty((b_decode, h, d), device="meta"),
-                 torch.empty((b_decode, seq, cfg.num_kv_heads, d),
-                             device="meta"))
-        out["decode_attention"] = max(kc.numel(), da.workspace_bytes(
-            q, kc, kc, None, da.H100_RESIDENT) // 4)
-    if cfg.ssm_state:
-        x = torch.empty((b_prefill, seq, cfg.n_ssm_heads, cfg.ssm_head_dim),
-                        device="meta")
-        B = torch.empty((b_prefill, seq, cfg.ssm_state), device="meta")
-        out["ssd_scan"] = max(x.numel(), sk.workspace_bytes(
-            x, B, cfg.ssm_chunk) // 4)
+
+    def keep(name, n):
+        out[name] = max(out.get(name, 0), n)
+    for shape, b in batches.items():
+        full = INPUT_SHAPES[shape]
+        c, seq = arch_for_shape(cfg, full), full.seq_len
+        if full.mode == "prefill" and llm_kernel_calls(c)[0]:
+            keep("flash_attention", b * seq * h * d_qk)
+        if full.mode == "decode" and decode_kernel_calls(c)[1]:
+            q, kc = (torch.empty((b, h, d), device="meta"),
+                     torch.empty((b, seq, c.num_kv_heads, d), device="meta"))
+            keep("decode_attention", max(kc.numel(), da.workspace_bytes(
+                q, kc, kc, None, da.H100_RESIDENT) // 4))
+        if full.mode == "prefill" and c.ssm_state:
+            x = torch.empty((b, seq, c.n_ssm_heads, c.ssm_head_dim),
+                            device="meta")
+            B = torch.empty((b, seq, c.ssm_state), device="meta")
+            keep("ssd_scan", max(x.numel(), sk.workspace_bytes(
+                x, B, c.ssm_chunk) // 4))
     return out
 
 
@@ -3466,10 +3583,12 @@ def check_offsets(offsets: dict) -> None:
 
 def card_shapes(arch: str) -> tuple:
     """The input shapes ``arch``'s card pass runs: DRYRUN_CARD_SHAPES, and
-    for MAMBA_ARCH long_500k too (a decode step over its positionless
-    state at batch 1, which its abstract pass fits)."""
-    return DRYRUN_CARD_SHAPES + (("long_500k",) if arch == MAMBA_ARCH
-                                 else ())
+    for MAMBA_ARCH and DENSE_ARCHS long_500k too (a decode step at batch 1,
+    which their abstract passes fit: over mamba2's positionless state; over
+    the dense archs' 524,288-slot cache, their ``+sliding`` variant's
+    8192-slot window)."""
+    return DRYRUN_CARD_SHAPES + (("long_500k",) if arch in (
+        MAMBA_ARCH,) + DENSE_ARCHS else ())
 
 
 def card_batches(table, arch: str = DRYRUN_ARCH) -> dict:
@@ -3502,9 +3621,7 @@ def phase_dryrun_card(torch, card, table, arch: str = DRYRUN_ARCH):
                   f" GB live at batch 1, {r['arg_bytes'] / 1e9:.2f} GB of "
                   f"arguments at batch {INPUT_SHAPES[shape].global_batch} "
                   f"[{card}]")
-    offsets = kernel_offsets(cfg, batches["prefill_32k"],
-                             batches["decode_32k"],
-                             INPUT_SHAPES["prefill_32k"].seq_len)
+    offsets = kernel_offsets(cfg, batches)
     check_offsets(offsets)
     print(f"dryrun: largest element offsets at the card shapes {offsets}; "
           f"past 2^31 = {INT32_LIMIT} only where 64-bit offsets are proven "
@@ -3591,11 +3708,14 @@ def phase_dryrun_kernels(torch, np, card, batches):
         if not (gate <= tol and bool(torch.isfinite(got).all())):
             raise AssertionError(f"K6 {dtype} at {b} x {s}: error {err}")
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        timed, lib, turns = versus_library(
-            torch, lambda: fa.flash_attention(q, k, v),
-            lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=h != kv), reps,
-            once=True)
+        fns = {"kernel": lambda: fa.flash_attention(q, k, v),
+               "library": lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True, enable_gqa=h != kv)}
+        turns, split, source = event_turns(torch, fns, K6_KERNELS, reps,
+                                           warmup=1)
+        timed = (statistics.mean(turns["kernel"]), split["total"])
+        lib = (statistics.mean(turns["library"]),
+               profile_device(torch, fns["library"], reps)[0])
         pairs = b * s * (s + 1) // 2
         size = 2 if dtype == bf16 else 4
         nbytes = size * b * s * (h + kv) * 2 * d + 4 * b
@@ -3617,7 +3737,8 @@ def phase_dryrun_kernels(torch, np, card, batches):
             row["bound_tc_ms"], row["bound_tc_by"] = flash_tc_bound(
                 nbytes, pairs * h, d, d, None)
         row.update(library_device_ms=lib[1], turns_ms=turns,
-                   kernel=k6_instance(fa, b, s, h, d, d, dtype))
+                   kernel=k6_instance(fa, b, s, h, d, d, dtype),
+                   device_from=source)
         return row
 
     rows["flash_attention"] = k6(bp, bf16, DRYRUN_K6_REPS)
@@ -3683,11 +3804,8 @@ def phase_dryrun_kernels(torch, np, card, batches):
                     "src/repro_torch/csrc/decode_attention.cu",
                     "src/repro/kernels/decode_attention.py:73",
                     f"b={bd} S={s} heads={h}/{kv} d={d} lens={s}", err,
-                    timed, plain, lib[0], bf16_bound_ms(
-                        decode_nbytes(bd, h, kv, d, [s] * bd, s, None,
-                                      size=2),
-                        bd * s * h * 4 * d,
-                        bd * s * h * (_attn_ops_per_pair(d, None) - 4 * d)),
+                    timed, plain, lib[0],
+                    k7_bound(bd, h, kv, d, [s] * bd, s, None)[3],
                     ATTN_BF16_RTOL)
     row.update(library_device_ms=lib[1], turns_ms=turns,
                kernel=k7_instance(da, q, kc, vc), **steps)
@@ -3884,11 +4002,8 @@ def gemma2_bound(cfg, kernel, b, s, window):
     if kernel == "K6":
         return k6_causal_bound(b, s, h, kv, d, d, window,
                                cfg.attn_logit_softcap)
-    pairs = h * decode_rows([s] * b, s, window)
-    nbytes = decode_nbytes(b, h, kv, d, [s] * b, s, window, size=2)
-    mma = pairs * 4 * d
-    other = pairs * (_attn_ops_per_pair(d, cfg.attn_logit_softcap) - 4 * d)
-    return nbytes, mma, other, bf16_bound_ms(nbytes, mma, other)
+    return k7_bound(b, h, kv, d, [s] * b, s, window,
+                    cap=cfg.attn_logit_softcap)
 
 
 def k6_causal_bound(b, s, h, kv, d, d_v, window=None, cap=None):
@@ -3913,10 +4028,10 @@ def phase_gemma2_32k(torch, card, batches=None, check=False) -> dict:
     shape without the softcap and the window (K and V repeated to the
     q-heads) -- not the same function: no single PyTorch call computes
     attention with a softcap -- beside its bf16 bound, and its device time
-    (K6's one kernel from the profiler; K7's two from the events its
-    launcher records, :func:`kernel_split`), since a call's time also
-    holds the host's launch path.  Reads only the package's entry points,
-    so --parent runs it on the parent's package.
+    from the events its launcher records in the timed calls themselves
+    (:func:`event_turns`: K6's one kernel, K7's two), since a call's
+    time also holds the host's launch path.  Reads only the package's
+    entry points, so --parent runs it on the parent's package.
     With ``check`` (the dry run's phase (c) for gemma2) each result is
     first held against its plain version on the same operands, as
     :func:`phase_dryrun_kernels` holds zamba2's (K6 on 256-query slices at
@@ -3995,13 +4110,12 @@ def phase_gemma2_32k(torch, card, batches=None, check=False) -> dict:
             del got
         nbytes, mma, other, (bound, by) = gemma2_bound(cfg, kernel, b, s,
                                                        window)
-        turns = in_turns({"kernel": fn, "library": lib},
-                         lambda f: time_ms(torch, f, reps, warmup))
-        if kernel == "K6":
-            device = profile_device(torch, fn, 1, once=True)[0]
-        else:
-            row["split_ms"] = kernel_split(torch, fn, K7_KERNELS)
-            device = row["split_ms"]["total"]
+        turns, split, row["device_from"] = event_turns(
+            torch, {"kernel": fn, "library": lib},
+            K6_KERNELS if kernel == "K6" else K7_KERNELS, reps, warmup)
+        if kernel == "K7":
+            row["split_ms"] = split
+        device = split["total"]
         row.update(shape=shape, window=window, softcap=cap, route=route,
                    ms=statistics.mean(turns["kernel"]), turns_ms=turns,
                    device_ms=device, bound_ms=bound, bound_by=by,
@@ -4040,7 +4154,9 @@ def phase_deepseek_32k(torch, card, batches=None, check=False) -> dict:
     the same function (its memory-efficient backend, the fused one that
     takes d_v != d; the math one would hold the scores, 412 GB at 6 rows),
     GEMMA_K6_REPS calls a turn, beside its bf16 bound and its device time
-    from the profiler.  On the CUDA-core kernel (the parent's route: ~5 s a
+    from the launcher's events in those calls (:func:`event_turns`).  On
+    the CUDA-core
+    kernel (the parent's route: ~5 s a
     call) one call after one warm-up, without SDPA or the profiler.  Reads
     only the package's entry points, so --parent runs it on the parent's
     package.  With ``check`` (``phase_deepseek``) the result is first held
@@ -4095,11 +4211,12 @@ def phase_deepseek_32k(torch, card, batches=None, check=False) -> dict:
             with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
                 return F.scaled_dot_product_attention(qt, kt, vt,
                                                       is_causal=True)
-        turns = in_turns({"kernel": fn, "library": lib},
-                         lambda f: time_ms(torch, f, GEMMA_K6_REPS, 1))
+        turns, split, row["device_from"] = event_turns(
+            torch, {"kernel": fn, "library": lib}, K6_KERNELS,
+            GEMMA_K6_REPS, 1)
         ms, lib_ms = (statistics.mean(turns[n]) for n in ("kernel",
                                                            "library"))
-        device = profile_device(torch, fn, 1, once=True)[0]
+        device = split["total"]
         lib_device = profile_device(torch, lib, 1)[0]
         del qt, kt, vt
         timed = (", ".join(f"{t:.4f}" for t in turns["kernel"])
@@ -4356,6 +4473,382 @@ def phase_mamba2(torch, np, card, table=None) -> dict:
     return {"card": runs, "k8": k8, "card_vs_cpu": steps, "serve": serve}
 
 
+# ---------------------------------------------------------------------------
+# the dense GQA decoders (DENSE_ARCHS: qwen2-7b, starcoder2-7b): QKV bias,
+# RoPE theta 1e6, head dim 128, 28 / 36 q-heads over 4 kv-heads (GQA
+# groups 7 and 9); one set of phases over both
+# ---------------------------------------------------------------------------
+DENSE_REF_BLOCKS = 2         # layers of their bf16 and float32 cuts
+DENSE_K6_REPS = 3            # timed calls of K6 a turn at a 32k shape
+# a long_500k cache length inside the first 8192-slot window (the step at
+# cache index 4,096): the window's start clamps at slot 0
+DENSE_EARLY_LEN = 4097
+# the fused SDPA backends tried, in this order, for the library's time at
+# the 32k shapes (the math one would hold the scores: 1.35 TB at qwen2's 9
+# rows); at the serving shapes the math one after them
+SDPA_FUSED = ("FLASH_ATTENTION", "CUDNN_ATTENTION", "EFFICIENT_ATTENTION")
+
+
+def dense_tag(arch: str) -> str:
+    """The short name of a dense arch in phase names, selectors and JSON
+    keys: qwen2-7b -> qwen2, starcoder2-7b -> starcoder2."""
+    return arch.split("-")[0]
+
+
+def sdpa_call(torch, args, backends=SDPA_FUSED, **kw):
+    """(backend name, a call): ``F.scaled_dot_product_attention(*args,
+    **kw)`` under the first of ``backends`` (``SDPBackend`` names) that
+    takes these operands, so that a row names the backend it timed."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for name in backends:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+
+        def call(backend=backend):
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(*args, **kw)
+        try:
+            with warnings.catch_warnings():   # each refusal warns why
+                warnings.simplefilter("ignore")
+                call()
+        except RuntimeError:
+            continue
+        torch.cuda.synchronize()
+        return name.lower(), call
+    raise AssertionError(f"no SDPA backend of {backends} takes these "
+                         "operands")
+
+
+def k7_bound(b, h, kv, d, lens, S, window, size=2, cap=None):
+    """(bytes, products, other operations, bound ms and by) of a K7 call
+    over ``lens`` valid slots of S (the last ``window`` of them where there
+    is one): q, the output and each valid K and V row once (``size`` bytes
+    a value); q.k and p.v (4d a pair) and the softmax's operations for
+    every (query head, valid slot) pair; bf16's bound with the products at
+    bf16's rate (``size`` 2), else float32's on the CUDA cores."""
+    pairs = h * decode_rows(lens, S, window)
+    nbytes = decode_nbytes(b, h, kv, d, lens, S, window, size=size)
+    mma = pairs * 4 * d
+    other = pairs * (_attn_ops_per_pair(d, cap) - 4 * d)
+    bound = (bf16_bound_ms(nbytes, mma, other) if size == 2
+             else bound_ms(nbytes, mma + other))
+    return nbytes, mma, other, bound
+
+
+def dense_k7_cases(batches):
+    """The K7 calls of a dense arch's bf16 decode steps: decode_32k's
+    slots over every slot of a 32k cache; long_500k's one row over a
+    524,288-slot cache at cache index 524,287, windowed at the ``+sliding``
+    variant's 8192 slots (the window's tiles from slot 516,096), and at an
+    index inside the first window: [(key, batch, S, window, length)]."""
+    from repro_torch.configs import INPUT_SHAPES
+    s32, s500 = (INPUT_SHAPES[s].seq_len for s in ("decode_32k", "long_500k"))
+    return [("K7 decode_32k", batches["decode_32k"], s32, None, s32),
+            ("K7 long_500k", batches["long_500k"], s500, 8192, s500),
+            ("K7 long_500k early", batches["long_500k"], s500, 8192,
+             DENSE_EARLY_LEN)]
+
+
+def phase_dense_32k(torch, card, arch, batches=None, check=False) -> dict:
+    """K6 and K7 on bf16 operands at a dense arch's card shapes (the
+    batches its abstract passes pick where ``batches`` is None): K6 at
+    prefill_32k (causal, d 128, its GQA group), K7 at the cases of
+    :func:`dense_k7_cases` over random cache contents; each timed by CUDA
+    events in turns with SDPA's bf16 on the same function (K6
+    ``is_causal=True, enable_gqa=True``; K7 over the valid slots, the
+    window's alone), the backend named; its device time from the events
+    its launcher records in the timed calls themselves
+    (:func:`event_turns`); beside its bf16 bound.  Reads only the
+    package's entry points, so --parent runs it on the parent's package.
+    With ``check``
+    (:func:`phase_dense`) each result is first held against its plain
+    version (K6 on 256-query slices at the head and the tail, every batch
+    row, so the last rows of the last row too) and the row names its
+    kernel instance and its ptxas line.  Returns {case key: row}."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.testing import ATTN_BF16_RTOL
+    cfg, tag = get_config(arch), dense_tag(arch)
+    if batches is None:
+        from repro_torch.launch.dryrun import run_one
+        batches = {shape: run_one(arch, shape, device="meta", verbose=False,
+                                  save=False)["max_batch"]
+                   for shape in card_shapes(arch)}
+    s = INPUT_SHAPES["prefill_32k"].seq_len
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(bf16)
+
+    cases = [("K6 prefill_32k", batches["prefill_32k"], s, None, s)]
+    cases += dense_k7_cases(batches)
+    out = {}
+    for key, b, S, window, length in cases:
+        torch.cuda.empty_cache()
+        row = {}
+        if key.startswith("K6"):
+            q, k, v = randn(b, s, h, d), randn(b, s, kv, d), randn(b, s, kv,
+                                                                    d)
+            fn = lambda: fa.flash_attention(q, k, v)  # noqa: E731
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            backend, lib = sdpa_call(torch, (qt, kt, vt), is_causal=True,
+                                     enable_gqa=True)
+            reps, warmup = DENSE_K6_REPS, 1
+            shape = f"b={b} s_q={s} s_kv={s} heads={h}/{kv} d={d} causal"
+            nbytes, mma, other, (bound, by) = k6_causal_bound(b, s, h, kv, d,
+                                                              d)
+            if check:
+                got, err, plain = fn(), (0.0, 0.0), []
+                for lo in (0, s - 256):
+                    t0 = time.perf_counter()
+                    want = fa.flash_attention_ref(q[:, lo:lo + 256], k, v,
+                                                  q_offset=lo)
+                    torch.cuda.synchronize()
+                    plain.append((time.perf_counter() - t0) * 1e3)
+                    e = bf16_err(got[:, lo:lo + 256], want)
+                    err = (max(err[0], e[0]), max(err[1], e[1]))
+                    del want
+                row.update(kernel=k6_instance(fa, b, s, h, d, d, bf16),
+                           plain_slice_ms=plain)
+        else:
+            q, k, v = randn(b, h, d), randn(b, S, kv, d), randn(b, S, kv, d)
+            cl = torch.full((b,), length, dtype=torch.int32, device="cuda")
+            fn = lambda: da.decode_attention(  # noqa: E731
+                q, k, v, cl, window=window)
+            lo = max(0, length - window) if window else 0
+            qt = q[:, :, None]
+            kt, vt = (t[:, lo:length].transpose(1, 2).contiguous()
+                      for t in (k, v))
+            backend, lib = sdpa_call(torch, (qt, kt, vt), enable_gqa=True)
+            reps, warmup = 30, 5
+            shape = (f"b={b} S={S} heads={h}/{kv} d={d} lens={length} "
+                     f"window={window}")
+            nbytes, mma, other, (bound, by) = k7_bound(b, h, kv, d,
+                                                       [length] * b, S,
+                                                       window)
+            if check:
+                got = fn()
+                err = bf16_err(got, da.decode_attention_ref(
+                    q, k, v, cl, window=window))
+                row.update(kernel=k7_instance(da, q, k, v),
+                           splits=da.plan(q, k, v, window))
+        if check:
+            if not (err[1] <= ATTN_BF16_RTOL
+                    and bool(torch.isfinite(got).all())):
+                raise AssertionError(f"{tag} {key} bf16 at {shape}: error "
+                                     f"{err}")
+            row.update(max_abs_err=err[0], rel_err=err[1],
+                       tolerance=ATTN_BF16_RTOL,
+                       ptxas=instance_ptxas([row["kernel"]]))
+            del got
+        turns, split, row["device_from"] = event_turns(
+            torch, {"kernel": fn, "library": lib},
+            K6_KERNELS if key.startswith("K6") else K7_KERNELS, reps,
+            warmup)
+        if key.startswith("K7"):
+            row["split_ms"] = split
+        device = split["total"]
+        row.update(name="flash_attention_bf16" if key.startswith("K6")
+                   else "decode_attention_bf16", route="cuda", shape=shape,
+                   window=window, ms=statistics.mean(turns["kernel"]),
+                   turns_ms=turns, device_ms=device, plain_ms=None,
+                   library_ms=statistics.mean(turns["library"]),
+                   library_backend=backend, bound_ms=bound, bound_by=by,
+                   bytes=nbytes, bf16_products=mma, other_ops=other)
+        out[key] = row
+        checked = ("" if not check else
+                   f", {row['kernel']}: error {row['max_abs_err']:.3e} "
+                   f"({row['rel_err']:.3e} of its row's largest value; "
+                   f"tolerance {ATTN_BF16_RTOL:.3e}); ptxas "
+                   + ptxas_note(row["ptxas"]))
+        if check and "splits" in row:
+            checked += f"; splits {row['splits']}"
+        if check and "plain_slice_ms" in row:
+            checked += ("; the plain version " + ", ".join(
+                f"{t:.1f}" for t in row["plain_slice_ms"])
+                + " ms a 256-query slice")
+        print(f"{tag} 32k {key} bf16 ({shape}){checked}: "
+              + ", ".join(f"{t:.4f}" for t in turns["kernel"])
+              + f" ms per call in turns with SDPA's bf16 ({backend}) "
+              + ", ".join(f"{t:.4f}" for t in turns["library"])
+              + f" ms; the kernel {fmt(device)} on the device (launch "
+              f"events); bound {bound:.6f} ms ({by}; {nbytes:.4e} B, "
+              f"{mma:.4e} bf16 products, {other:.4e} other) [{card}]")
+        del q, k, v, qt, kt, vt, fn, lib
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_qwen2_32k(torch, card, batches=None, check=False) -> dict:
+    """:func:`phase_dense_32k` for qwen2-7b (``--only qwen2_32k``)."""
+    return phase_dense_32k(torch, card, "qwen2-7b", batches, check)
+
+
+def phase_starcoder2_32k(torch, card, batches=None, check=False) -> dict:
+    """:func:`phase_dense_32k` for starcoder2-7b (``--only
+    starcoder2_32k``)."""
+    return phase_dense_32k(torch, card, "starcoder2-7b", batches, check)
+
+
+def phase_dense_serve_kernels(torch, card, arch) -> dict:
+    """K6 and K7 in float32 at a dense arch's serving shapes, as
+    ``LLMServer`` calls them: K6's cache prefill (1 x LLM_PROMPT queries
+    over LLM_MAX_SEQ slots, causal from position 0), K7's decode step
+    (LLM_SLOTS slots at 385-399 valid of LLM_MAX_SEQ); each held against
+    its plain version, timed with its device time from its launcher's
+    events and the plain version's from the profiler, in turns with SDPA
+    on the same function (K7: a mask of the valid slots), beside its bound
+    (K6: 3xTF32 on the tensor cores too), its instance and ptxas line.
+    For K7 its q-heads a block, blocks and blocks that carry one q-head
+    (a GQA group past 8 takes a second block a kv-head), as the launcher
+    recorded them (``decode_attention.split_grid``), and its instance held
+    to the heads it launched.  Returns {"K6", "K7": row}."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.testing import ATTN_ATOL
+    cfg, tag = get_config(arch), dense_tag(arch)
+    h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def finish(name, row, kernel, plain, args, extra="", **kw):
+        """Hold ``kernel`` to ``plain``, time both, SDPA on ``args`` in
+        turns with the kernel, and report the row."""
+        err = float((kernel() - plain()).abs().max())
+        if not err <= ATTN_ATOL:
+            raise AssertionError(f"{tag} {name} float32 at the serving "
+                                 f"shape: error {err}")
+        backend, lib = sdpa_call(torch, args, SDPA_FUSED + ("MATH",), **kw)
+        turns = in_turns({"kernel": kernel, "library": lib},
+                         lambda f: time_ms(torch, f))
+        plain_ms = measure(torch, plain)
+        row.update(max_abs_err=err, ms=statistics.mean(turns["kernel"]),
+                   plain_ms=plain_ms[0], plain_device_ms=plain_ms[1],
+                   turns_ms=turns, library_ms=statistics.mean(
+                       turns["library"]), library_backend=backend,
+                   ptxas=instance_ptxas([row["kernel"]]))
+        _report(f"{tag} serve {name} float32 ({row['shape']}), "
+                f"{row['kernel']}: error {err:.3e}{extra}; in turns kernel "
+                + ", ".join(f"{t:.4f}" for t in turns["kernel"])
+                + f", SDPA ({backend}) "
+                + ", ".join(f"{t:.4f}" for t in turns["library"])
+                + " ms; ptxas " + ptxas_note(row["ptxas"]), row, card,
+                "sdpa")
+        return row
+
+    out = {}
+    s_q, S = LLM_PROMPT, LLM_MAX_SEQ
+    q, k, v = randn(1, s_q, h, d), randn(1, S, kv, d), randn(1, S, kv, d)
+    kernel = lambda: fa.flash_attention(q, k, v)  # noqa: E731
+    nbytes, ops, pairs = flash_bound(1, s_q, S, h, kv, d, d, True, None,
+                                     None)
+    row = dict(name="flash_attention", route="cuda",
+               source="src/repro_torch/csrc/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention.py:86",
+               shape=f"b=1 s_q={s_q} s_kv={S} heads={h}/{kv} d={d} causal",
+               device_ms=kernel_split(torch, kernel, K6_KERNELS)["total"],
+               kernel=k6_instance(fa, 1, s_q, h, d, d, torch.float32))
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops)
+    row["bound_tc_ms"], row["bound_tc_by"] = flash_tc_bound(
+        nbytes, pairs * h, d, d, None)
+    out["K6"] = finish(
+        "K6", row, kernel, lambda: fa.flash_attention_ref(q, k, v),
+        tuple(t.transpose(1, 2).contiguous() for t in (q, k, v)),
+        f", tensor-core bound {row['bound_tc_ms']:.6f} ms "
+        f"({row['bound_tc_by']})", is_causal=True, enable_gqa=True)
+    del q, k, v, kernel
+    b, lens = LLM_SLOTS, [385, 390, 395, 399]
+    q, k, v = randn(b, h, d), randn(b, S, kv, d), randn(b, S, kv, d)
+    cl = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
+    kernel = lambda: da.decode_attention(q, k, v, cl)  # noqa: E731
+    split = kernel_split(torch, kernel, K7_KERNELS)
+    # the grid as the launcher set it up for the calls just timed
+    grid = da.split_grid()
+    nbytes, mma, other, (bound, by) = k7_bound(b, h, kv, d, lens, S, None,
+                                               size=4)
+    row = dict(name="decode_attention", route="cuda",
+               source="src/repro_torch/csrc/decode_attention.cu",
+               replaces="src/repro/kernels/decode_attention.py:73",
+               shape=f"b={b} S={S} heads={h}/{kv} d={d} lens={lens}",
+               device_ms=split["total"], split_ms=split, bound_ms=bound,
+               bound_by=by, kernel=k7_instance(da, q, k, v), **grid)
+    if row["kernel"] != (f"decode_split_kernel<float, "
+                         f"{grid['heads_a_block']}>"):
+        raise AssertionError(f"{tag} serve K7: the launcher ran "
+                             f"{grid['heads_a_block']} q-heads a block, "
+                             f"not {row['kernel']}'s")
+    mask = (torch.arange(S, device="cuda")[None, :] < cl[:, None])[
+        :, None, None, :]
+    out["K7"] = finish(
+        "K7", row, kernel, lambda: da.decode_attention_ref(q, k, v, cl),
+        (q[:, :, None], *(t.transpose(1, 2).contiguous() for t in (k, v))),
+        f", split {split['split']:.4f} + combine {split['combine']:.4f} ms "
+        f"on the device by the launcher's events; {row['one_head_blocks']} "
+        f"of its {row['blocks']} split blocks carry one q-head",
+        attn_mask=mask, enable_gqa=True)
+    del q, k, v, kernel, mask
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dense_serve(torch, np, card, arch) -> dict:
+    """A dense arch served in float32: its DENSE_REF_BLOCKS-layer cut
+    against the CPU (``llm_reference``: logits within LLM_RTOL, greedy
+    tokens equal), the full width behind ``LLMServer``
+    (``phase_llm_main_path``), then K6 and K7 at the serving shapes
+    (:func:`phase_dense_serve_kernels`), summed up in one line: prefill ms
+    a request, decode ms a step, tokens/s, the device's busy share of a
+    traced prefill and decode step, the K6 and K7 launches.  Returns
+    {"counts", "figures", "card_vs_cpu", "kernels"}."""
+    from repro_torch.configs import get_config
+    check = llm_reference(torch, np, card,
+                          block_cut(get_config(arch), DENSE_REF_BLOCKS))
+    counts, _, params, got = phase_llm_main_path(torch, np, card, arch)
+    del params
+    torch.cuda.empty_cache()
+    kernels = phase_dense_serve_kernels(torch, card, arch)
+    busy = {what: b / w for what, (w, b) in got["profile"].items()}
+    print(f"{dense_tag(arch)} serve float32: prefill {got['prefill_ms']:.2f} "
+          f"ms a request, decode {got['decode_ms']:.2f} ms a step, "
+          f"{got['tokens_per_s']:.2f} tokens/s; device busy "
+          f"{busy['prefill']:.1%} of a traced prefill, "
+          f"{busy['decode step']:.1%} of a decode step; launches K6 "
+          f"{counts['flash_attention']}, K7 {counts['decode_attention']}; "
+          f"the cut against the CPU within {check['worst']:.2e}, greedy "
+          f"tokens equal at {check['compared'] - check['ties']} of "
+          f"{check['compared']} [{card}]")
+    return {"counts": counts, "figures": got, "card_vs_cpu": check,
+            "kernels": kernels}
+
+
+def phase_dense(torch, np, card, arch, table=None) -> dict:
+    """A dense arch's card phases (``--only qwen2`` / ``starcoder2``; in
+    the full run after mamba2-2.7b's, on the dry run's ``table``): its bf16
+    dry-run steps at full width and depth (prefill_32k, decode_32k and
+    long_500k: :func:`card_shapes`), K6 and K7 at those shapes against
+    their plain versions (``phase_dense_32k(check=True)``), its
+    DENSE_REF_BLOCKS-layer bf16 cut against the CPU layer by layer, then
+    its float32 serving path (:func:`phase_dense_serve`).  Returns
+    {"card": steps, "kernels": rows, "card_vs_cpu": cut, "serve": the
+    serving path's}."""
+    runs = phase_dryrun_card(torch, card, table or dryrun_card_table(
+        arch=arch), arch)
+    kernels = phase_dense_32k(torch, card, arch, {
+        s: runs[s]["batch"] for s in card_shapes(arch)}, check=True)
+    steps = phase_dryrun_reference(torch, np, card, arch, DENSE_REF_BLOCKS)
+    serve = phase_dense_serve(torch, np, card, arch)
+    return {"card": runs, "kernels": kernels, "card_vs_cpu": steps,
+            "serve": serve}
+
+
 def phase_decode_step(torch, card, row=None) -> dict:
     """DRYRUN_ARCH's decode_32k step on the card at the batch its abstract
     pass (``row``, run here where None) picks, made as ``dryrun.card_pass``
@@ -4433,14 +4926,15 @@ def phase_decode_step(torch, card, row=None) -> dict:
     return out
 
 
-def phase_dryrun(torch, np, card):
+def phase_dryrun(torch, np, card, table):
     """The dry run's phases (a)-(d), for DRYRUN_ARCH, then GEMMA_ARCH (its
     steps, K6 and K7 at its 32k shapes, its one-block cut), MOE_ARCH (its
     steps, K6 at its 32k shape, its one-block cut: :func:`phase_deepseek`)
-    and MAMBA_ARCH (its steps, K8 at its 32k shape, its cut, and its
-    float32 serving path: :func:`phase_mamba2`); returns what the JSON line
-    carries."""
-    table = phase_dryrun_table(card)
+    MAMBA_ARCH (its steps, K8 at its 32k shape, its cut, and its float32
+    serving path: :func:`phase_mamba2`) and each of DENSE_ARCHS (its steps,
+    K6 and K7 at its card shapes, its cut, its float32 serving path:
+    :func:`phase_dense`), on ``table`` (:func:`phase_dryrun_table`'s);
+    returns what the JSON line carries."""
     runs = phase_dryrun_card(torch, card, table)
     runs["decode_32k"]["trace"] = phase_decode_step(
         torch, card, table[(DRYRUN_ARCH, "decode_32k")])
@@ -4448,15 +4942,28 @@ def phase_dryrun(torch, np, card):
     kernels = phase_dryrun_kernels(torch, np, card, batches)
     kernels["split"] = phase_llm_kernel_split(torch, card, batches)
     steps = phase_dryrun_reference(torch, np, card)
+    lap(f"the dry run's table and {DRYRUN_ARCH}")
     gemma = phase_dryrun_card(torch, card, table, GEMMA_ARCH)
     kernels["gemma2"] = phase_gemma2_32k(
         torch, card, {s: gemma[s]["batch"] for s in DRYRUN_CARD_SHAPES},
         check=True)
     gemma_steps = phase_dryrun_reference(torch, np, card, GEMMA_ARCH)
+    lap(f"the dry run of {GEMMA_ARCH}")
     deepseek = phase_deepseek(torch, np, card, table)
     kernels["deepseek"] = deepseek["k6"]
+    lap(f"the dry run of {MOE_ARCH}")
     mamba = phase_mamba2(torch, np, card, table)
     kernels["mamba2"] = mamba["k8"]
+    lap(f"the dry run and serving of {MAMBA_ARCH}")
+    dense = {}
+    for arch in DENSE_ARCHS:
+        tag = dense_tag(arch)
+        got = phase_dense(torch, np, card, arch, table)
+        kernels[tag] = got["kernels"]
+        dense.update({f"card_{tag}": got["card"],
+                      f"card_vs_cpu_{tag}": got["card_vs_cpu"],
+                      f"{tag}_serve": got["serve"]})
+        lap(f"the dry run and serving of {arch}")
     keep = ("hlo_flops", "hlo_bytes", "arg_bytes", "peak_memory_per_device",
             "fits", "max_batch", "batch1_peak_bytes", "t_floor", "dominant",
             "kernel_plain_flops", "cut_t_floor", "t_abstract_s")
@@ -4468,12 +4975,13 @@ def phase_dryrun(torch, np, card):
             "card_vs_cpu_deepseek": deepseek["card_vs_cpu"],
             "card_mamba2": mamba["card"],
             "card_vs_cpu_mamba2": mamba["card_vs_cpu"],
-            "mamba2_serve": mamba["serve"]}
+            "mamba2_serve": mamba["serve"], **dense}
 
 
 LLM_ARCH = "zamba2-7b"
 MOE_ARCH = "deepseek-v2-lite-16b"
 MAMBA_ARCH = "mamba2-2.7b"
+DENSE_ARCHS = ("qwen2-7b", "starcoder2-7b")
 CROSS_ARCH = "musicgen-medium"
 LLM_SLOTS, LLM_MAX_SEQ, LLM_REQUESTS, LLM_PROMPT, LLM_NEW = 4, 512, 8, 384, 16
 ATTN_KINDS = ("attn", "local", "moe", "cross", "shared_attn")
@@ -5267,8 +5775,9 @@ def phase_llm_train_reference(torch, np, card):
     from repro_torch.training import data, train_loop
     from repro_torch.training.optimizer import AdamW
     cfg = block_cut(get_config(LLM_ARCH), 1)
-    tree = sch.tree_map(lambda t: t.numpy(), tfm.init_params(cfg, SEED,
-                                                             "cpu"))
+    # drawn on the card (the host takes ~12 s for 1 B parameters)
+    tree = sch.tree_map(lambda t: t.cpu().numpy(), tfm.init_params(
+        cfg, SEED, "cuda"))
     batch = next(iter(data.TokenStream(cfg.vocab_size, TRAIN_REF_SEQ, 1,
                                        SEED)))
     runs, wall = {}, {}
@@ -5281,8 +5790,8 @@ def phase_llm_train_reference(torch, np, card):
                              train_loop.to_device(batch, dev))
         loss = float(m["loss"])
         wall[dev] = time.perf_counter() - t0
-        runs[dev] = (weights._flatten(new, hwio=False),
-                     weights._flatten(opt.grads[0], hwio=False), loss)
+        # the leaves where they lie: compared on the card, in float64
+        runs[dev] = (flat_leaves(new), flat_leaves(opt.grads[0]), loss)
         del params, new, state, opt, step
     (p, g, loss), (p0, g0, loss0) = runs["cuda"], runs["cpu"]
     # the yardstick: the plain program's gradients on the card
@@ -5290,10 +5799,9 @@ def phase_llm_train_reference(torch, np, card):
     saved = ops.flash_attention, ops.ssd_scan
     ops.flash_attention, ops.ssd_scan = ref.flash_attention, ref.ssd_scan
     try:
-        plain = weights._flatten(train_loop.llm_grads(
+        plain = flat_leaves(train_loop.llm_grads(
             cfg, weights.llm_from_numpy_tree(tree, "cuda"),
-            train_loop.to_device(batch, "cuda"), remat=False)[1],
-            hwio=False)
+            train_loop.to_device(batch, "cuda"), remat=False)[1])
     finally:
         ops.flash_attention, ops.ssd_scan = saved
     del tree
@@ -5312,6 +5820,8 @@ def phase_llm_train_reference(torch, np, card):
     p_err = assert_train_params_close(p, p0, g0, TRAIN_LLM_LR, 1,
                                       "LLM train step card vs CPU",
                                       rtol=LLM_GRAD_CARD_RTOL)
+    del p, g, p0, g0, runs
+    torch.cuda.empty_cache()
     print(f"LLM train step card vs CPU reference, {cfg.name} at full width "
           f"({cfg.param_count() / 1e9:.3f} B parameters), 1 x "
           f"{TRAIN_REF_SEQ} tokens, AdamW lr {TRAIN_LLM_LR}: loss {loss:.6f}"
@@ -5587,14 +6097,19 @@ LAUNCHER_BATCH, LAUNCHER_SEQ, LAUNCHER_STEPS, LAUNCHER_LR = 4, 512, 6, 3e-4
 LAUNCHER_REF_SEQ = 128
 
 
-def launcher_cut(card):
+def launcher_cut():
     """The deepest block cut of LLM_ARCH at full width whose bf16 train
     step (``launch.specs.make_step``: remat, AdamW; bf16 parameters, float32
     moments) the abstract pass (``roofline.analysis.analyze_step``) puts
     under the card's HBM at LAUNCHER_BATCH x LAUNCHER_SEQ: the peak at one
     and two blocks (it is affine in the blocks), then passes from the
-    extrapolated cut down until one fits.  Returns (blocks, that pass's
-    report)."""
+    extrapolated cut down until one fits.  It needs no card, so
+    :func:`start_dryrun_table` runs it in its pool beside the build.
+    Returns (blocks, {blocks: peak bytes} of every pass, seconds)."""
+    if SRC not in sys.path:
+        sys.path.insert(0, SRC)
+    import torch
+    torch.set_num_threads(1)
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.specs import make_step
@@ -5602,32 +6117,42 @@ def launcher_cut(card):
     from repro_torch.roofline.hw import H100
     full = get_config(LLM_ARCH)
     shape = ShapeConfig("launcher", LAUNCHER_SEQ, LAUNCHER_BATCH, "train")
-    reports = {}
+    peaks = {}
 
-    def report(n):
-        if n not in reports:
+    def peak(n):
+        if n not in peaks:
             cfg = block_cut(full, n)
             fn, args, _, _ = make_step(cfg, shape, lr=LAUNCHER_LR)
-            reports[n] = analyze_step(fn, args, arch=cfg.name, shape=shape,
-                                      cfg=cfg)
-        return reports[n]
+            peaks[n] = analyze_step(fn, args, arch=cfg.name, shape=shape,
+                                    cfg=cfg).peak_memory_per_device
+        return peaks[n]
 
     t0 = time.perf_counter()
-    p1 = report(1).peak_memory_per_device
-    slope = report(2).peak_memory_per_device - p1
+    p1 = peak(1)
+    slope = peak(2) - p1
     n = max(1, min(full.num_blocks,
                    1 + int((H100.hbm_bytes - p1) // slope)))
-    while n > 1 and report(n).peak_memory_per_device > H100.hbm_bytes:
+    while n > 1 and peak(n) > H100.hbm_bytes:
         n -= 1
-    rep = report(n)
+    peak(n)
+    return n, peaks, time.perf_counter() - t0
+
+
+def report_launcher_cut(card, cut) -> float:
+    """Print :func:`launcher_cut`'s result ``cut``; returns the chosen
+    cut's predicted peak in bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.roofline.hw import H100
+    full = get_config(LLM_ARCH)
+    n, peaks, seconds = cut
     print(f"launcher cut: {LLM_ARCH}'s bf16 train step at {LAUNCHER_BATCH} x "
-          f"{LAUNCHER_SEQ} peaks at {p1 / 1e9:.2f} GB with one block, "
-          f"{slope / 1e9:.3f} GB more a block; {n} blocks "
+          f"{LAUNCHER_SEQ} peaks at {peaks[1] / 1e9:.2f} GB with one block, "
+          f"{(peaks[2] - peaks[1]) / 1e9:.3f} GB more a block; {n} blocks "
           f"({len(full.prefix_layers) + n * len(full.block_pattern)} layers) "
-          f"peak at {rep.peak_memory_per_device / 1e9:.3f} GB of "
-          f"{H100.hbm_bytes / 1e9:.0f} GB ({len(reports)} abstract passes, "
-          f"{time.perf_counter() - t0:.1f} s) [{card}]")
-    return n, rep
+          f"peak at {peaks[n] / 1e9:.3f} GB of "
+          f"{H100.hbm_bytes / 1e9:.0f} GB ({len(peaks)} abstract passes, "
+          f"{seconds:.1f} s beside the build) [{card}]")
+    return peaks[n]
 
 
 class GradNorms:
@@ -5730,7 +6255,9 @@ def phase_llm_launcher_reference(torch, np, card):
     cfg = block_cut(get_config(LLM_ARCH), 1)
     step = make_step(cfg, ShapeConfig("t", LAUNCHER_REF_SEQ, 1, "train"),
                      lr=LAUNCHER_LR)[0]
-    cpu_params = tfm.init_params(cfg, SEED, "cpu", COMPUTE_DTYPE)
+    # drawn on the card (the host takes ~12 s for 1 B parameters)
+    cpu_params = sch.tree_map(lambda t: t.cpu(), tfm.init_params(
+        cfg, SEED, "cuda", COMPUTE_DTYPE))
     batch = next(iter(data.TokenStream(cfg.vocab_size, LAUNCHER_REF_SEQ, 1,
                                        SEED)))
 
@@ -5770,10 +6297,11 @@ def phase_llm_launcher_reference(torch, np, card):
     median_l2 = float(np.median(list(errs.values())))
     median_norm = float(np.median(norms))
     # AdamW on the CPU, from the card's gradients and the same parameters
-    opt = AdamW(lr=LAUNCHER_LR)
+    opt, t0 = AdamW(lr=LAUNCHER_LR), time.perf_counter()
     want = flat_leaves(opt.update(
         sch.tree_map(lambda t: t.to("cpu"), card_run["grads"]),
         opt.init(cpu_params), cpu_params)[0])
+    adamw_s = time.perf_counter() - t0
     ulps, differ = bf16_update_ulps(card_run["params"], want, LAUNCHER_LR)
     del want, g, card_run["grads"], card_run["params"]
     torch.cuda.empty_cache()
@@ -5791,7 +6319,8 @@ def phase_llm_launcher_reference(torch, np, card):
           f"parameters after the step AdamW's on the CPU from its gradients "
           f"within {ulps:.3f} bf16 ulp ({differ:.3e} of the entries differ);"
           f" one step {card_run['wall']:.2f} s on the card, "
-          f"{cpu_run['wall']:.2f} s on the CPU [{card}]")
+          f"{cpu_run['wall']:.2f} s on the CPU, AdamW from the card's "
+          f"gradients {adamw_s:.2f} s on the CPU [{card}]")
     if not (np.isfinite(loss) and card_run["kept"] and same_keys
             and loss_err <= BF16_LLM_RTOL
             and norm_err <= BF16_LLM_RTOL and errs[worst] <= BF16_GRAD_RTOL
@@ -5808,14 +6337,15 @@ def phase_llm_launcher_reference(torch, np, card):
             "leaf_norm_err_median": median_norm, "params_ulps": ulps,
             "params_differ": differ,
             "plain_on_card_grad_err": plain[plain_worst],
-            "cpu_s": cpu_run["wall"]}
+            "cpu_s": cpu_run["wall"], "cpu_adamw_s": adamw_s}
 
 
-def phase_llm_launcher(torch, np, card):
+def phase_llm_launcher(torch, np, card, cut):
     """(c) launch.train's step -- ``launch.specs.make_step`` (remat, AdamW)
     computing in bf16 on bf16 parameters drawn as the launcher draws them
     (``init_params(cfg, 0-seeded, device, bfloat16)``) -- on LLM_ARCH at
-    full width cut to the deepest cut that fits (:func:`launcher_cut`),
+    full width cut to the deepest cut that fits (:func:`launcher_cut`'s
+    ``cut``),
     LAUNCHER_STEPS steps of LAUNCHER_BATCH x LAUNCHER_SEQ tokens from
     ``TokenStream``.  The first step is the warm-up; the counts are zeroed
     before the rest and read after them.  The loss must be finite and
@@ -5828,7 +6358,8 @@ def phase_llm_launcher(torch, np, card):
     from repro_torch.models import transformer as tfm
     from repro_torch.training import data, train_loop
     from repro_torch.training.optimizer import AdamW, tree_leaves
-    blocks, rep = launcher_cut(card)
+    predicted = report_launcher_cut(card, cut)
+    blocks = cut[0]
     cfg = block_cut(get_config(LLM_ARCH), blocks)
     tokens = LAUNCHER_BATCH * LAUNCHER_SEQ
     step = make_step(cfg, ShapeConfig("t", LAUNCHER_SEQ, LAUNCHER_BATCH,
@@ -5866,7 +6397,6 @@ def phase_llm_launcher(torch, np, card):
                  if k + "_bf16" in ops.BF16})     # every launch a bf16 one
     check_launches(counts, want, "the launcher's bf16 train step")
     step_ms = statistics.mean(times[1:]) * 1e3
-    predicted = rep.peak_memory_per_device
     print(f"launcher path: launch.specs.make_step (remat, AdamW lr "
           f"{LAUNCHER_LR}) in bf16 on {cfg.name} at full width, {blocks} "
           f"blocks = {cfg.num_layers} layers, {cfg.param_count() / 1e9:.3f} B"
@@ -5937,6 +6467,14 @@ ONLY_PHASES = {
     "mamba2": phase_mamba2,
     "mamba2_32k": lambda torch, np, card: relay_probes(
         ROOT, "this tree", ["phase_mamba2_32k"]),
+    "qwen2": lambda torch, np, card: phase_dense(torch, np, card,
+                                                 "qwen2-7b"),
+    "qwen2_32k": lambda torch, np, card: relay_probes(
+        ROOT, "this tree", ["phase_qwen2_32k"]),
+    "starcoder2": lambda torch, np, card: phase_dense(torch, np, card,
+                                                      "starcoder2-7b"),
+    "starcoder2_32k": lambda torch, np, card: relay_probes(
+        ROOT, "this tree", ["phase_starcoder2_32k"]),
 }
 
 
@@ -5954,7 +6492,8 @@ def main() -> int:
                          "K7 / K8 rows (k6, k7, k8) and this script's "
                          "probes on its package (k7_host, decode_step, "
                          "gemma2_32k, gemma2_serve, deepseek_32k, "
-                         "mamba2_32k) run before and after")
+                         "mamba2_32k, qwen2_32k, starcoder2_32k) run "
+                         "before and after")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         raise SystemExit("chip_smoke.py: src/repro_torch not found next to "
@@ -5974,14 +6513,26 @@ def main() -> int:
     from repro_torch import set_reference_precision
     from repro_torch.kernels import _build
 
-    t_start = time.perf_counter()
+    global T_START
+    t_start = T_START = time.perf_counter()
     card = card_line()
     set_reference_precision()
-    _build.library()
+    # the dry run's abstract passes beside the build, collected before any
+    # timed phase starts
+    started = None if args.only else start_dryrun_table()
+    try:
+        _build.library()
+    except BaseException:
+        if started:
+            started[0].shutdown(wait=False, cancel_futures=True)
+        raise
     print(f"built {_build.build()} in "
           f"{time.perf_counter() - t_start:.1f} s [{card}]")
     for line in ptxas_summary(_build.build_log):
         print(f"  {line}")
+    table = None if args.only else phase_dryrun_table(card, started)
+    if table is not None:
+        lap("the kernels' build and the dry run's abstract passes")
 
     if args.only:
         probes = [f"phase_{n}" for n in args.only if f"phase_{n}" in PROBES]
@@ -6034,6 +6585,7 @@ def main() -> int:
     if args.parent:
         relay_parent_llm(args.parent, "after")
     nms_row = phase_nms(torch, np, card)
+    lap("the kernel phases")
     phase_reference(torch, np, card)
     fused_counts, sync_counts, runs, served = phase_main_path(torch, np, card)
     random_f1 = {name: out.f1["f1"] for name, out in runs["fused"][1].items()}
@@ -6048,6 +6600,7 @@ def main() -> int:
         row["launches_baselines"] = {
             name: c[row["name"]] for name, c in base_counts.items()}
     frame_row["launches"] = base_counts["dds"]["region_filter_mask"]
+    lap("the video path and the baselines")
     phase_learning_reference(torch, np, card)
     learn_counts = phase_learning_main_path(torch, np, card)
     update_row.update(launches=learn_counts["onevsall_update"],
@@ -6058,6 +6611,7 @@ def main() -> int:
     iou_row["launches_learning"] = learn_counts["iou_matrix"]
     nms_row["launches_learning"] = learn_counts["nms_greedy"]
     filter_row["launches_learning"] = learn_counts["region_filter_mask_batch"]
+    lap("the learning plane")
     phase_training_reference(torch, np, card)
     trained = phase_training(torch, np, card)
     phase_trained_video(torch, np, card, trained, random_f1)
@@ -6065,6 +6619,7 @@ def main() -> int:
                               (trained["detector"], trained["classifier"]))
     phase_trained_learning(torch, np, card, trained)
     served = (trained["detector"], trained["classifier"])
+    lap("training and the trained paths")
     phase_shard_oracle(torch, np, card, served)
     shard_counts = phase_sharded(torch, np, card, served)
     phase_steal_outage(torch, np, card, served)
@@ -6073,16 +6628,20 @@ def main() -> int:
         row["launches_sharded"] = shard_counts[row["name"]]
         row["launches_tenancy"] = tenancy_counts[row["name"]]
     del trained, served
-    dryrun = phase_dryrun(torch, np, card)
+    lap("the serving planes")
+    dryrun = phase_dryrun(torch, np, card, table)
     phase_llm_reference(torch, np, card)
     llm_counts, llm_cfg, llm_params, _ = phase_llm_main_path(torch, np, card)
     cascade_counts = phase_cascade(torch, np, card, llm_cfg, llm_params)
     del llm_params
     torch.cuda.empty_cache()
     phase_cascade_reference(torch, np, card)
+    lap(f"{LLM_ARCH}'s serving path and the cascade")
     # the MoE + MLA and cross-attention paths, once zamba2's weights are
     # freed: deepseek-v2-lite's 61.9 GB leave ~18 GB of the card
-    checks = {MAMBA_ARCH: dryrun["mamba2_serve"]["card_vs_cpu"],
+    checks = {**{arch: dryrun[f"{dense_tag(arch)}_serve"]["card_vs_cpu"]
+                 for arch in DENSE_ARCHS},
+              MAMBA_ARCH: dryrun["mamba2_serve"]["card_vs_cpu"],
               MOE_ARCH: phase_moe_reference(torch, np, card),
               CROSS_ARCH: phase_cross_reference(torch, np, card),
               GEMMA_ARCH: phase_gemma2_reference(torch, np, card)}
@@ -6097,14 +6656,17 @@ def main() -> int:
                                                         GEMMA_ARCH)
     del gemma_params
     torch.cuda.empty_cache()
+    lap("the MoE, cross-attention and gemma2 serving paths")
     # LLM training, once deepseek's and musicgen's weights are freed
     grads = phase_llm_grad(torch, np, card)
     checks["llm_train_step"] = phase_llm_train_reference(torch, np, card)
     train_counts, train_split = phase_llm_train_main_path(torch, np, card)
     # the launcher's bf16 path, deepest that fits, last: the whole card
+    lap("LLM training")
     checks["launcher_step_bf16"] = phase_llm_launcher_reference(torch, np,
                                                                 card)
-    launcher_counts, launcher = phase_llm_launcher(torch, np, card)
+    launcher_counts, launcher = phase_llm_launcher(torch, np, card,
+                                                   started[4].result())
     bf16_rows = []
     for row in llm_rows:
         row["launches"] = llm_counts[row["name"]]
@@ -6122,6 +6684,14 @@ def main() -> int:
             row["name"]]
         if row["name"] == "ssd_scan":    # <float, 8, 16> as mamba2 serves
             row["mamba2_serving_shape"] = dryrun["mamba2_serve"]["k8"]
+        for arch in DENSE_ARCHS:         # d 128 at GQA groups 7 and 9
+            tag = dense_tag(arch)
+            serve = dryrun[f"{tag}_serve"]
+            row[f"launches_{tag}"] = serve["counts"][row["name"]]
+            key = {"flash_attention": "K6", "decode_attention": "K7"}.get(
+                row["name"])
+            if key:
+                row[f"{tag}_serving_shape"] = serve["kernels"][key]
         row["launches_musicgen"] = cross_counts[row["name"]]
         row["launches_gemma2"] = gemma_counts[row["name"]]
         if row["name"] == "flash_attention":
@@ -6132,13 +6702,15 @@ def main() -> int:
         bf["name"] = row["name"] + "_bf16"
         bf["launches_dryrun"] = {s: dryrun["card"][s]["launches"][
             bf["name"]] for s in DRYRUN_CARD_SHAPES}
-        for arch, name in (("gemma2", GEMMA_ARCH), ("deepseek", MOE_ARCH),
-                           ("mamba2", MAMBA_ARCH)):
+        archs = (("gemma2", GEMMA_ARCH), ("deepseek", MOE_ARCH),
+                 ("mamba2", MAMBA_ARCH)) + tuple(
+                     (dense_tag(a), a) for a in DENSE_ARCHS)
+        for arch, name in archs:
             bf[f"launches_dryrun_{arch}"] = {s: dryrun[f"card_{arch}"][s][
                 "launches"][bf["name"]] for s in card_shapes(name)}
         bf["launches"] = sum(sum(bf[f"launches_dryrun{a}"].values())
-                             for a in ("", "_gemma2", "_deepseek",
-                                       "_mamba2"))
+                             for a in ("",) + tuple(
+                                 f"_{arch}" for arch, _ in archs))
         bf["launches_launcher"] = launcher_counts[bf["name"]]
         if row["name"] in ("flash_attention", "ssd_scan"):
             bf["vjps_launcher"] = launcher_counts[row["name"] + "_vjp"]
@@ -6151,6 +6723,11 @@ def main() -> int:
                 if key.startswith(tag)}
         if tag == "K6":          # MLA's d 192 over d_v 128: <NWG, 12, 8>
             bf["dryrun_deepseek"] = dryrun["kernels"]["deepseek"]
+        if tag:                  # d 128 at GQA groups 7 and 9
+            for arch in DENSE_ARCHS:
+                bf[f"dryrun_{dense_tag(arch)}"] = {
+                    key: r for key, r in dryrun["kernels"][
+                        dense_tag(arch)].items() if key.startswith(tag)}
         if row["name"] == "ssd_scan":    # n 128 at 18 x 32k: <bf16, 8, 16>
             bf["dryrun_mamba2"] = dryrun["kernels"]["mamba2"]
         # K7's and K8's split by device kernel, at 32k and serving shapes
@@ -6176,7 +6753,10 @@ def main() -> int:
                                   "card_gemma2", "card_vs_cpu_gemma2",
                                   "card_deepseek",
                                   "card_vs_cpu_deepseek", "card_mamba2",
-                                  "card_vs_cpu_mamba2")}}))
+                                  "card_vs_cpu_mamba2") + tuple(
+                                      f"{k}_{dense_tag(a)}"
+                                      for a in DENSE_ARCHS
+                                      for k in ("card", "card_vs_cpu"))}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -445,6 +445,18 @@ decode_combine_kernel(const float* __restrict__ ws,
   }
 }
 
+// The split kernel's last launch as its launcher set it up: q-heads a
+// block (G), blocks in its grid, and those of them whose part of a
+// kv-head's group holds one q-head (vpaas_decode_attention_split_grid).
+struct SplitGrid {
+  int heads = 0, blocks = 0, one_head_blocks = 0;
+};
+
+inline SplitGrid& split_grid() {
+  static SplitGrid g;
+  return g;
+}
+
 template <typename T, int G>
 int launch(const T* q, const T* k, const T* v, const int32_t* cl,
            float* ws, T* out, int B, int S, int Hq, int Hkv, int D,
@@ -458,6 +470,11 @@ int launch(const T* q, const T* k, const T* v, const int32_t* cl,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(Hkv * nsub, B, nsplit);
+  // a kv-head's group in nsub parts of G q-heads, the last of the rest
+  const int last = group - (nsub - 1) * G;
+  const int one = G == 1 ? nsub : last == 1;
+  split_grid() = {G, (int)(grid.x * grid.y * grid.z),
+                  one * Hkv * B * nsplit};
   record_launch_event(0, stream);
   decode_split_kernel<T, G><<<grid, kThreads, smem, stream>>>(
       q, k, v, cl, ws, S, Hq, Hkv, D, group, nsub, per, nsplit, window,
@@ -1439,7 +1456,7 @@ int launch_any(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// Launch timing (host.cuh): the next launch of K7's or K8's launcher
+// Launch timing (host.cuh): the next launch of K6's, K7's or K8's launcher
 // records n (<= 8) of these events, one before each of its device kernels
 // and one after the last.
 extern "C" int vpaas_time_next_launch(void* const* events, int n) {
@@ -1468,6 +1485,16 @@ extern "C" int vpaas_decode_attention_bf16_resident(int D) {
 // head dim D on the split kernel.
 extern "C" int vpaas_decode_attention_resident(int D) {
   return D > 128 && D <= 256 && D % 4 == 0 ? bulk::resident() : 0;
+}
+
+// The split kernel's last launch (float32 or bf16 operands that neither
+// the TMA nor the bulk kernel takes): field 0 its q-heads a block, 1 the
+// blocks of its grid, 2 those blocks that carry one q-head; 0 before any
+// such launch, -1 for another field.
+extern "C" int vpaas_decode_attention_split_grid(int field) {
+  const SplitGrid& g = split_grid();
+  return field == 0 ? g.heads : field == 1 ? g.blocks
+         : field == 2 ? g.one_head_blocks : -1;
 }
 
 // q (B, Hq, D), k and v caches (B, S, Hkv, D) f32, cache_len (B,) int32,

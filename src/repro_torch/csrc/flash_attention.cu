@@ -186,6 +186,15 @@
 // memory, one key per lane for QK^T over d, NC = ceil(d_v/32) output
 // columns per lane for PV (NC = 2, 4 or 8).  It is a template over the
 // element type: bf16 widens to f32 as it is staged.
+//
+// This source is compiled twice: as itself (the float32 kernels,
+// vpaas_flash_attention and the route query), and with VPAAS_FLASH_BF16
+// defined as flash_attention_bf16.cu (the bf16 wgmma kernels,
+// vpaas_flash_attention_bf16 and the block-rows query); the CUDA-core
+// kernel's instances follow each half's element type.  The build runs one
+// nvcc a source, all together, and this file as one source was the
+// build's longest (~95 s of nvcc for sm_90a on an 8-core host; the
+// bf16 half alone ~100 s on a slower one, the float32 half ~40 s).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -197,6 +206,7 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 
+#ifndef VPAAS_FLASH_BF16
 // ---------------------------------------------------------------------------
 // tensor-core kernels, float32: d <= 192 and d_v <= 128; d = d_v <= 256
 // ---------------------------------------------------------------------------
@@ -545,10 +555,13 @@ int launch(const float* q, const float* k, const float* v, const int32_t* qo,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(Hq, (Sq + BQ - 1) / BQ, B);
+  record_launch_event(0, stream);
   flash_attention_mma_kernel<NDT, NVT, RW><<<grid, kThreads, smem, stream>>>(
       q, k, v, qo, out, Sq, Skv, Hq, Hkv, D, Dv, causal, window, softcap,
       scale);
-  return (int)cudaGetLastError();
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return record_launch_event(1, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -875,9 +888,12 @@ int launch_cols(const float* q, const float* k, const float* v,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(Hq, (Sq + kColRows - 1) / kColRows, B);
+  record_launch_event(0, stream);
   flash_attention_cols_kernel<<<grid, kThreads, smem, stream>>>(
       q, k, v, qo, out, Sq, Skv, Hq, Hkv, D, causal, window, softcap, scale);
-  return (int)cudaGetLastError();
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return record_launch_event(1, stream);
 }
 
 // the instance for these head dims: d = d_v at the widths of the LLM
@@ -915,7 +931,9 @@ int dispatch(const float* q, const float* k, const float* v,
 }
 
 }  // namespace tc
+#endif  // !VPAAS_FLASH_BF16
 
+#ifdef VPAAS_FLASH_BF16
 // ---------------------------------------------------------------------------
 // bf16 operands, d = d_v <= 256 or d <= 192 over d_v <= 128: wgmma on TMA
 // tiles (sm_90a)
@@ -1404,11 +1422,14 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const int32_t* qo,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::SMEM);
   if (err != 0) return err;
   dim3 grid((Sq + T::BM - 1) / T::BM, Hq, B);
+  record_launch_event(0, stream);
   flash_attention_wgmma_kernel<NWG, NKT, NVT><<<grid, T::kThreads, T::SMEM,
                                                 stream>>>(
       tq, tk, tv, v, qo, out, Sq, Skv, Hq, Hkv, Dv, causal, window, softcap,
       scale);
-  return (int)cudaGetLastError();
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return record_launch_event(1, stream);
 }
 
 // the instance: NKT by the head dim (32, 64, 96, 112, 128, 256) with NVT =
@@ -1436,6 +1457,7 @@ int dispatch(const bf16* q, const bf16* k, const bf16* v, const int32_t* qo,
 }
 
 }  // namespace wg
+#endif  // VPAAS_FLASH_BF16
 
 // ---------------------------------------------------------------------------
 // CUDA-core kernel: d_v != d past d = 192 or d_v = 128
@@ -1631,10 +1653,13 @@ int launch_nc(const T* q, const T* k, const T* v,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + kBQ - 1) / kBQ, Hq, B);
+  record_launch_event(0, stream);
   flash_attention_simt_kernel<T, NC><<<grid, kThreads, smem, stream>>>(
       q, k, v, qo, out, Sq, Skv, Hq, Hkv, D, Dv, causal, window, softcap,
       scale);
-  return (int)cudaGetLastError();
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return record_launch_event(1, stream);
 }
 
 // output columns per lane: the fewest that cover d_v
@@ -1659,32 +1684,39 @@ int launch(const T* q, const T* k, const T* v, const int32_t* qo, T* out,
 // the float32 column-warp kernel's head dims: 128 < d = d_v <= 256
 static bool on_cols(int D, int Dv) { return Dv == D && D > 128 && D <= 256; }
 
-// 1 where the launcher runs these head dims on the tensor cores, 0 where
-// on the CUDA cores: up to d = 192 and d_v = 128 (MLA's prefill), and
-// where d = d_v up to 256, in float32 and bf16 alike
-extern "C" int vpaas_flash_attention_on_tensor_cores(int D, int Dv,
-                                                     int bf16) {
+// whether the launcher runs these head dims on the tensor cores (else on
+// the CUDA cores): up to d = 192 and d_v = 128 (MLA's prefill), and where
+// d = d_v up to 256, in float32 and bf16 alike
+static bool on_tensor_cores(int D, int Dv, int bf16) {
   return (D <= 192 && Dv <= 128 && Dv <= D) ||
          (bf16 ? Dv == D && D <= 256 : on_cols(D, Dv));
 }
 
+#ifndef VPAAS_FLASH_BF16
+extern "C" int vpaas_flash_attention_on_tensor_cores(int D, int Dv,
+                                                     int bf16) {
+  return on_tensor_cores(D, Dv, bf16);
+}
+#else
 // the query rows of a block of the bf16 tensor-core kernel at this grid
 extern "C" int vpaas_flash_attention_bf16_block_rows(int B, int Sq, int Hq) {
   return wg::kRowsWG * wg::warpgroups(B, Sq, Hq);
 }
+#endif
 
 // q (B, Sq, Hq, D), k (B, Skv, Hkv, D), v (B, Skv, Hkv, Dv) f32, q_offset
 // (B,) int32 -> out (B, Sq, Hq, Dv), Dv <= D <= 256.  window <= 0: none;
 // softcap <= 0: none.  vpaas_flash_attention_bf16 (below) takes the same
 // arguments with q, k, v and out in bf16; on its tensor-core kernel D and
 // Dv are multiples of 8 and every operand 16-byte aligned (TMA's
-// strides), which the wrapper arranges.
-extern "C" int vpaas_flash_attention(const void* q, const void* k,
-                                     const void* v, const void* q_offset,
-                                     void* out, int B, int Sq, int Skv, int Hq,
-                                     int Hkv, int D, int Dv, int causal,
-                                     int window, float softcap, float scale,
-                                     void* stream) {
+// strides), which the wrapper arranges.  Each launcher records the
+// events a caller handed it (host.cuh: vpaas_time_next_launch) before and
+// after its one device kernel, whichever of the four kernels it runs.
+#ifndef VPAAS_FLASH_BF16
+static int run_f32(const void* q, const void* k, const void* v,
+                   const void* q_offset, void* out, int B, int Sq, int Skv,
+                   int Hq, int Hkv, int D, int Dv, int causal, int window,
+                   float softcap, float scale, void* stream) {
   if (B == 0 || Sq == 0) return 0;
   if (Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > 256 ||
       Dv <= 0 || Dv > D)
@@ -1695,7 +1727,7 @@ extern "C" int vpaas_flash_attention(const void* q, const void* k,
   const int32_t* qo = static_cast<const int32_t*>(q_offset);
   float* of = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!vpaas_flash_attention_on_tensor_cores(D, Dv, 0))
+  if (!on_tensor_cores(D, Dv, 0))
     return simt::launch(qf, kf, vf, qo, of, B, Sq, Skv, Hq, Hkv, D, Dv,
                         causal, window, softcap, scale, st);
   if (on_cols(D, Dv))
@@ -1705,13 +1737,22 @@ extern "C" int vpaas_flash_attention(const void* q, const void* k,
                       window, softcap, scale, st);
 }
 
-extern "C" int vpaas_flash_attention_bf16(const void* q, const void* k,
-                                          const void* v, const void* q_offset,
-                                          void* out, int B, int Sq, int Skv,
-                                          int Hq, int Hkv, int D, int Dv,
-                                          int causal, int window,
-                                          float softcap, float scale,
-                                          void* stream) {
+extern "C" int vpaas_flash_attention(const void* q, const void* k,
+                                     const void* v, const void* q_offset,
+                                     void* out, int B, int Sq, int Skv, int Hq,
+                                     int Hkv, int D, int Dv, int causal,
+                                     int window, float softcap, float scale,
+                                     void* stream) {
+  const int err = run_f32(q, k, v, q_offset, out, B, Sq, Skv, Hq, Hkv, D, Dv,
+                          causal, window, softcap, scale, stream);
+  end_launch_events();
+  return err;
+}
+#else
+static int run_bf16(const void* q, const void* k, const void* v,
+                    const void* q_offset, void* out, int B, int Sq, int Skv,
+                    int Hq, int Hkv, int D, int Dv, int causal, int window,
+                    float softcap, float scale, void* stream) {
   using wg::bf16;
   if (B == 0 || Sq == 0) return 0;
   if (Skv <= 0 || Hkv <= 0 || Hq % Hkv != 0 || D <= 0 || D > 256 ||
@@ -1723,10 +1764,24 @@ extern "C" int vpaas_flash_attention_bf16(const void* q, const void* k,
   const int32_t* qo = static_cast<const int32_t*>(q_offset);
   bf16* oh = static_cast<bf16*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!vpaas_flash_attention_on_tensor_cores(D, Dv, 1))
+  if (!on_tensor_cores(D, Dv, 1))
     return simt::launch(qh, kh, vh, qo, oh, B, Sq, Skv, Hq, Hkv, D, Dv,
                         causal, window, softcap, scale, st);
   if (D % 8 != 0 || Dv % 8 != 0) return (int)cudaErrorInvalidValue;
   return wg::dispatch(qh, kh, vh, qo, oh, B, Sq, Skv, Hq, Hkv, D, Dv, causal,
                       window, softcap, scale, st);
 }
+
+extern "C" int vpaas_flash_attention_bf16(const void* q, const void* k,
+                                          const void* v, const void* q_offset,
+                                          void* out, int B, int Sq, int Skv,
+                                          int Hq, int Hkv, int D, int Dv,
+                                          int causal, int window,
+                                          float softcap, float scale,
+                                          void* stream) {
+  const int err = run_bf16(q, k, v, q_offset, out, B, Sq, Skv, Hq, Hkv, D,
+                           Dv, causal, window, softcap, scale, stream);
+  end_launch_events();
+  return err;
+}
+#endif  // VPAAS_FLASH_BF16

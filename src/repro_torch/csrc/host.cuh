@@ -10,7 +10,7 @@
 // maps of a run's shapes and buffers repeating call to call.
 //
 // Launch timing: vpaas_time_next_launch(events, n) hands the next launch of
-// K7's or K8's launcher n CUDA events (cudaEvent_t handles, at most
+// K6's, K7's or K8's launcher n CUDA events (cudaEvent_t handles, at most
 // kMaxLaunchEvents).  That launcher records event i on its stream before
 // its i-th device kernel and the next one after its last, so the gaps
 // between consecutive events are its kernels' device times, then forgets

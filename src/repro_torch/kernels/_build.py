@@ -37,8 +37,9 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = ("iou_filter.cu", "crop_gather.cu", "onevsall.cu",
-           "onevsall_update.cu", "flash_attention.cu", "decode_attention.cu",
-           "ssd_scan.cu", "nms.cu")
+           "onevsall_update.cu", "flash_attention.cu",
+           "flash_attention_bf16.cu", "decode_attention.cu", "ssd_scan.cu",
+           "nms.cu")
 BUILD_DIR = _PKG.parent.parent / "build" / "repro_torch"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -91,6 +92,7 @@ QUERIES = {
     "vpaas_flash_attention_bf16_block_rows": [_I, _I, _I],
     "vpaas_decode_attention_bf16_resident": [_I],
     "vpaas_decode_attention_resident": [_I],
+    "vpaas_decode_attention_split_grid": [_I],
     "vpaas_time_next_launch": [_P, _I],
     "vpaas_launch_events_recorded": [],
 }
@@ -204,7 +206,7 @@ def query(fn: str, *args) -> int:
 
 
 def time_next_launch(events: Sequence) -> None:
-    """Hand the next launch of K7's or K8's launcher these CUDA events
+    """Hand the next launch of K6's, K7's or K8's launcher these CUDA events
     (``torch.cuda.Event(enable_timing=True)``, each recorded once so that
     it has its handle): it records one before each of its device kernels
     and one after the last (``csrc/host.cuh``), so the gaps between them

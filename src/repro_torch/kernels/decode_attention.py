@@ -153,6 +153,19 @@ def resident_blocks(d: int, device: int = -1,
     return n
 
 
+SPLIT_GRID = ("heads_a_block", "blocks", "one_head_blocks")
+
+
+def split_grid() -> dict:
+    """The split kernel's last launch as its launcher set it up, read from
+    the built library: its q-heads a block, the blocks of its grid, and
+    those of them that carry one q-head (a group past the block's heads
+    is cut into parts, the last of the rest).  All 0 before any launch of
+    the split kernel; the TMA and bulk kernels leave it as it was."""
+    return {name: _build.query("vpaas_decode_attention_split_grid", i)
+            for i, name in enumerate(SPLIT_GRID)}
+
+
 def plan(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
          window: Optional[int], resident: Optional[int] = None
          ) -> Tuple[int, int]:

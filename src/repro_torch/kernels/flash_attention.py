@@ -24,7 +24,10 @@ at run time (a scalar is broadcast to one entry per batch row), so the
 cache prefill's per-row cache index takes the kernel too.  The plain
 PyTorch version is :func:`flash_attention_ref` (``ref.flash_attention``);
 the kernel agrees with it within ``testing.ATTN_ATOL`` (float32) or
-``testing.ATTN_BF16_RTOL`` (bfloat16).  float16 raises.
+``testing.ATTN_BF16_RTOL`` (bfloat16).  float16 raises.  Every route is
+one device kernel a call, which records the CUDA events
+``_build.time_next_launch`` hands it before and after that kernel, so
+the gap between them is the call's device time.
 
 The kernel has no backward kernel, as the Pallas one has no
 differentiation rule.  :class:`FlashAttention` makes it differentiable:

@@ -629,6 +629,32 @@ DECODE_WIDE_CASES = [
 ]
 
 
+# K6 and K7 at the dense GQA decoders' head layouts: qwen2-7b's 28 q-heads
+# over 4 kv-heads (a group of 7) and starcoder2-7b's 36 over 4 (a group of
+# 9: past the float32 split kernel's 8 q-heads a block, so a kv-head takes
+# a block of 8 and one of 1), head dim 128, at small lengths.  K6 in
+# FLASH_CASES' layout: a prefill, a cache prefill at an offset, and a
+# window (the long_500k variant's LOCAL layers) that closes whole tiles;
+# K7 in DECODE_CASES' layout: per-row lengths (a row of one slot), a
+# window that ends at the cache's last slot (long_500k's step) and a length
+# inside the first window
+FLASH_DENSE_CASES = [
+    (1, 70, 70, 28, 4, 128, True, None, None, 0),
+    (2, 33, 97, 36, 4, 128, True, None, None, 64),
+    (1, 65, 130, 36, 4, 128, True, 48, None, 65),
+]
+DECODE_DENSE_CASES = [
+    (2, 160, 28, 4, 128, [160, 77], None, None),
+    (2, 160, 36, 4, 128, [150, 1], None, None),
+    (1, 320, 36, 4, 128, [320], 72, None),
+    (1, 320, 28, 4, 128, [40], 72, None),
+]
+FLASH_DENSE_IDS = ["qwen2-prefill", "starcoder2-cache-prefill",
+                   "starcoder2-window"]
+DECODE_DENSE_IDS = ["qwen2", "starcoder2", "starcoder2-window-end",
+                    "qwen2-first-window"]
+
+
 def decode_case(b, S, n_q, n_kv, d, seed=0):
     """Unit-normal q (b, n_q, d) and caches (b, S, n_kv, d)."""
     rng = np.random.default_rng(seed + 17 * S + d)
@@ -857,11 +883,25 @@ def assert_baseline_results_match(want, got, exempt: np.ndarray,
                                    rtol=LATENCY_RTOL, err_msg=f"{what} {k}")
 
 
+def _f64(x, device=None) -> torch.Tensor:
+    """``x`` (a tensor, a numpy array or a number) as a float64 tensor on
+    ``device`` (a tensor's own where None)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device or x.device, torch.float64)
+    return torch.tensor(np.asarray(x, np.float64), device=device)
+
+
 def leaf_rel_err(got, want) -> float:
-    """max |got - want| as a share of max |want| (0 where both are 0)."""
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    diff = float(np.abs(got - want).max(initial=0.0))
-    return diff / float(np.abs(want).max(initial=0.0)) if diff else 0.0
+    """max |got - want| as a share of max |want| (0 where both are 0), in
+    float64 on ``got``'s device where it is a tensor, else on the host (a
+    card compares a full-width model's leaves in seconds, the host in
+    minutes)."""
+    got = _f64(got)
+    want = _f64(want, got.device)
+    if not got.numel():
+        return 0.0
+    diff = float((got - want).abs().max())
+    return diff / float(want.abs().max()) if diff else 0.0
 
 
 def assert_train_params_close(got: Dict[str, np.ndarray],
@@ -876,24 +916,28 @@ def assert_train_params_close(got: Dict[str, np.ndarray],
     the gradients' own tolerance: TRAIN_RTOL for the video models,
     LLM_GRAD_RTOL for an LLM (a zero-initialised leaf after one step is
     ``lr`` times its gradient).  Returns the largest error as a share of
-    its leaf's scale away from those entries."""
+    its leaf's scale away from those entries.  Each leaf is compared in
+    float64 where ``got``'s lies (as :func:`leaf_rel_err`): tensors on
+    their device, numpy arrays on the host."""
     if not got.keys() == want.keys() == grads.keys():
         raise AssertionError(f"{what}: the trees' keys differ")
     worst = 0.0
     for k in want:
-        g, w, p = (np.asarray(x, np.float64)
-                   for x in (grads[k], want[k], got[k]))
-        if p.shape != w.shape or not np.isfinite(p).all():
-            raise AssertionError(f"{what} {k}: shape {p.shape} vs {w.shape}"
-                                 " or non-finite")
-        scale = np.abs(w).max(initial=0.0)
-        near = np.abs(g) <= rtol * np.abs(g).max(initial=0.0)
-        err = np.abs(p - w)
-        bound = rtol * scale + np.where(near, 2 * lr * steps, 0.0)
-        if (err > bound).any():
-            raise AssertionError(f"{what} {k}: {err.max():.3e} apart, over "
-                                 f"{rtol} of the scale {scale:.3e}")
-        if scale and (~near).any():
+        p = _f64(got[k])
+        g, w = _f64(grads[k], p.device), _f64(want[k], p.device)
+        if p.shape != w.shape or not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"{what} {k}: shape {tuple(p.shape)} vs "
+                                 f"{tuple(w.shape)} or non-finite")
+        if not p.numel():
+            continue
+        scale = float(w.abs().max())
+        near = g.abs() <= rtol * float(g.abs().max())
+        err = (p - w).abs()
+        bound = rtol * scale + torch.where(near, 2 * lr * steps, 0.0)
+        if bool((err > bound).any()):
+            raise AssertionError(f"{what} {k}: {float(err.max()):.3e} apart,"
+                                 f" over {rtol} of the scale {scale:.3e}")
+        if scale and bool((~near).any()):
             worst = max(worst, float(err[~near].max()) / scale)
     return worst
 

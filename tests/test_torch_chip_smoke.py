@@ -1075,14 +1075,16 @@ def test_kernel_offsets_follow_each_configs_kernels():
     # only where the config decodes by K7 (not MLA's absorbed decode); K8's
     # only with Mamba2 layers.  Each stays below 2^31 at its card batches
     from repro_torch.configs import get_config
-    got = chip_smoke.kernel_offsets(get_config("deepseek-v2-lite-16b"), 6,
-                                    44, 32768)
+    got = chip_smoke.kernel_offsets(get_config("deepseek-v2-lite-16b"),
+                                    {"prefill_32k": 6, "decode_32k": 44})
     assert got == {"flash_attention": 6 * 32768 * 16 * 192}
-    got = chip_smoke.kernel_offsets(get_config("gemma2-9b"), 3, 5, 32768)
+    got = chip_smoke.kernel_offsets(get_config("gemma2-9b"),
+                                    {"prefill_32k": 3, "decode_32k": 5})
     assert set(got) == {"flash_attention", "decode_attention"}
     assert got["flash_attention"] == 3 * 32768 * 16 * 256
     assert got["decode_attention"] >= 5 * 32768 * 8 * 256
-    got = chip_smoke.kernel_offsets(get_config("zamba2-7b"), 6, 14, 32768)
+    got = chip_smoke.kernel_offsets(get_config("zamba2-7b"),
+                                    {"prefill_32k": 6, "decode_32k": 14})
     assert set(got) == {"flash_attention", "decode_attention", "ssd_scan"}
     assert max(got.values()) < chip_smoke.INT32_LIMIT
 
@@ -1128,8 +1130,8 @@ def test_offsets_past_2_31_pass_for_k8_only():
     # proven there on the card, so the gate lets it through.  K6's and K7's
     # counts past 2^31 still raise
     from repro_torch.configs import get_config
-    got = chip_smoke.kernel_offsets(get_config("mamba2-2.7b"), 18, 128,
-                                    32768)
+    got = chip_smoke.kernel_offsets(get_config("mamba2-2.7b"), {
+        "prefill_32k": 18, "decode_32k": 128, "long_500k": 1})
     assert got == {"ssd_scan": 18 * 32768 * 80 * 64}
     assert got["ssd_scan"] == 3_019_898_880
     assert got["ssd_scan"] > chip_smoke.INT32_LIMIT
@@ -1140,12 +1142,13 @@ def test_offsets_past_2_31_pass_for_k8_only():
             chip_smoke.check_offsets({**got, name: chip_smoke.INT32_LIMIT})
         chip_smoke.check_offsets({**got, name: chip_smoke.INT32_LIMIT - 1})
     # zamba2 at 40 rows of 32k: K6's q holds 4.70e9 elements
-    big = chip_smoke.kernel_offsets(get_config("zamba2-7b"), 40, 14, 32768)
+    big = chip_smoke.kernel_offsets(get_config("zamba2-7b"),
+                                    {"prefill_32k": 40, "decode_32k": 14})
     assert big["flash_attention"] == 40 * 32768 * 32 * 112
     with pytest.raises(AssertionError, match="flash_attention"):
         chip_smoke.check_offsets(big)
     chip_smoke.check_offsets(chip_smoke.kernel_offsets(
-        get_config("zamba2-7b"), 6, 14, 32768))
+        get_config("zamba2-7b"), {"prefill_32k": 6, "decode_32k": 14}))
 
 
 def test_card_shapes_take_long_500k_for_mamba2_only():
@@ -1229,3 +1232,276 @@ def test_mamba2_phases_are_wired_in():
     assert (cut.num_layers, cut.d_model, cut.n_ssm_heads, cut.vocab_size) \
         == (2, 2560, 80, 50280)
     assert chip_smoke.llm_kernel_calls(cut) == (0, 2)
+
+
+def test_card_shapes_take_long_500k_for_mamba2_and_the_dense_archs():
+    # long_500k on the card for the archs whose abstract pass fits it at
+    # batch 1: mamba2-2.7b and the dense GQA decoders (their +sliding
+    # variant); zamba2, gemma2 and deepseek keep the two 32k shapes
+    from repro_torch.configs import list_archs
+    assert chip_smoke.DENSE_ARCHS == ("qwen2-7b", "starcoder2-7b")
+    long = {a for a in list_archs()
+            if "long_500k" in chip_smoke.card_shapes(a)}
+    assert long == {"mamba2-2.7b", "qwen2-7b", "starcoder2-7b"}
+    for arch in (chip_smoke.DRYRUN_ARCH, chip_smoke.GEMMA_ARCH,
+                 chip_smoke.MOE_ARCH):
+        assert chip_smoke.card_shapes(arch) == ("prefill_32k", "decode_32k")
+    # the batches their abstract passes pick (qwen2 9, 34, 1; starcoder2
+    # 8, 27, 1)
+    for arch, (bp, bd) in (("qwen2-7b", (9, 34)), ("starcoder2-7b", (8, 27))):
+        table = {(arch, s): {"max_batch": b} for s, b in (
+            ("prefill_32k", bp), ("decode_32k", bd), ("long_500k", 1),
+            ("train_4k", 0))}
+        assert chip_smoke.card_batches(table, arch) == {
+            "prefill_32k": bp, "decode_32k": bd, "long_500k": 1}
+
+
+def test_kernel_offsets_count_each_card_shape_at_its_own_length():
+    # K6's q at prefill_32k's rows, K7's caches at decode_32k's slots and at
+    # long_500k's one row of 524,288 slots (a 32k count would read 1/16 of
+    # it); every count below 2^31, so K6 and K7 stay gated there
+    from repro_torch.configs import get_config
+    qwen2, sc2 = get_config("qwen2-7b"), get_config("starcoder2-7b")
+    got = chip_smoke.kernel_offsets(qwen2, {"prefill_32k": 9,
+                                            "decode_32k": 34,
+                                            "long_500k": 1})
+    assert got == {"flash_attention": 9 * 32768 * 28 * 128,
+                   "decode_attention": 34 * 32768 * 4 * 128}
+    assert got["flash_attention"] == 1_056_964_608
+    got = chip_smoke.kernel_offsets(sc2, {"prefill_32k": 8,
+                                          "decode_32k": 27,
+                                          "long_500k": 1})
+    assert got == {"flash_attention": 8 * 32768 * 36 * 128,
+                   "decode_attention": 27 * 32768 * 4 * 128}
+    for cfg in (qwen2, sc2):
+        assert chip_smoke.kernel_offsets(cfg, {"long_500k": 1}) == {
+            "decode_attention": 524288 * 4 * 128}
+        chip_smoke.check_offsets(chip_smoke.kernel_offsets(cfg, {
+            "prefill_32k": 9, "decode_32k": 34, "long_500k": 1}))
+    assert "flash_attention" not in chip_smoke.OFFSETS_64BIT
+    assert "decode_attention" not in chip_smoke.OFFSETS_64BIT
+    # 19 rows of qwen2's prefill would pass 2^31 and raise
+    with pytest.raises(AssertionError, match="flash_attention"):
+        chip_smoke.check_offsets(chip_smoke.kernel_offsets(
+            qwen2, {"prefill_32k": 19}))
+
+
+def test_dense_path_launches_follow_their_layers():
+    # a K6 a layer at prefill, a K7 a layer at decode (the long_500k
+    # variant's LOCAL layers too), no K8; the serving path's totals
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch.specs import arch_for_shape
+    for arch, n in (("qwen2-7b", 28), ("starcoder2-7b", 32)):
+        cfg = get_config(arch)
+        assert chip_smoke.path_launches(cfg, 1, 0) == {
+            "flash_attention": n, "decode_attention": 0, "ssd_scan": 0}
+        assert chip_smoke.path_launches(cfg, 0, 1) == {
+            "flash_attention": 0, "decode_attention": n, "ssd_scan": 0}
+        slid = arch_for_shape(cfg, INPUT_SHAPES["long_500k"])
+        assert chip_smoke.path_launches(slid, 0, 1) == \
+            chip_smoke.path_launches(cfg, 0, 1)
+        assert chip_smoke.path_launches(cfg, 8, 30) == {
+            "flash_attention": 8 * n, "decode_attention": 30 * n,
+            "ssd_scan": 0}
+
+
+def test_dense_kernel_instances_in_both_dtypes():
+    # bf16 K6 at the 32k prefills: 128-row blocks of the wgmma kernel at d
+    # 128; float32 K6 at the serving prefill: the 3xTF32 kernel; bf16 K7:
+    # the TMA kernel at NKT 8; float32 K7 at d 128 (not the bulk kernel,
+    # which takes d > 128): the split kernel's 8 q-heads a block
+    import types
+    fa = types.SimpleNamespace(
+        on_tensor_cores=lambda d, d_v, dtype=torch.float32: (
+            (d <= 192 and d_v <= 128) or (d == d_v and d <= 256)),
+        block_rows=lambda b, s_q, n_q: 64 if b * n_q * -(-s_q // 128) < 132
+        else 128)
+    bf, f32 = torch.bfloat16, torch.float32
+    for b, h in ((9, 28), (8, 36)):
+        assert chip_smoke._k6_instance(fa, b, 32768, h, 128, 128, bf) == \
+            "flash_attention_wgmma_kernel<2, 8, 8>"
+        assert chip_smoke._k6_instance(fa, 1, 384, h, 128, 128, f32) == \
+            "flash_attention_mma_kernel<16, 16, 4>"
+    da = types.SimpleNamespace(
+        on_tma=lambda q, k, v: q.dtype == bf and q.shape[-1] <= 256,
+        on_bulk=lambda q, k, v: q.dtype == f32 and q.shape[-1] > 128)
+    for h in (28, 36):
+        for dtype, want in ((bf, "decode_tma_kernel<8>"),
+                            (f32, "decode_split_kernel<float, 8>")):
+            q = torch.empty((4, h, 128), dtype=dtype)
+            kc = torch.empty((4, 16, 4, 128), dtype=dtype)
+            assert chip_smoke.k7_instance(da, q, kc, kc) == want
+
+
+def test_dense_bounds_at_their_card_shapes():
+    # bf16 K6 at 9 x 32,768 (qwen2, 28 / 4 heads) and 8 x 32,768
+    # (starcoder2, 36 / 4), causal, d 128: operations bound them; K7 at
+    # decode_32k's slots and long_500k's 8192-slot window: bytes
+    ms = {}
+    for key, (b, h) in {"qwen2": (9, 28), "starcoder2": (8, 36)}.items():
+        nbytes, mma, other, (bound, by) = chip_smoke.k6_causal_bound(
+            b, 32768, h, 4, 128, 128)
+        assert by == "operations"
+        ms[key] = (bound, mma, nbytes)
+    assert ms["qwen2"][0] == pytest.approx(80.110176, abs=1e-6)
+    assert ms["qwen2"][1] == 69_271_346_479_104
+    assert ms["qwen2"][2] == 4_831_838_244
+    assert ms["starcoder2"][0] == pytest.approx(91.554487, abs=1e-6)
+    assert ms["starcoder2"][1] == 79_167_253_118_976
+    nbytes, _, _, (bound, by) = chip_smoke.k7_bound(
+        34, 28, 4, 128, [32768] * 34, 32768, None)
+    assert (nbytes, by) == (2_282_188_936, "bytes")
+    assert bound == pytest.approx(0.681250, abs=1e-6)
+    nbytes, _, _, (bound, by) = chip_smoke.k7_bound(
+        27, 36, 4, 128, [32768] * 27, 32768, None)
+    assert (nbytes, by) == (1_812_437_100, "bytes")
+    assert bound == pytest.approx(0.541026, abs=1e-6)
+    nbytes, _, _, (_, by) = chip_smoke.k7_bound(1, 28, 4, 128, [524288],
+                                                524288, 8192)
+    assert (nbytes, by) == (16_791_556, "bytes")    # the window's rows only
+    # the long_500k cases: the window's tiles from slot 516,096, and a
+    # length inside the first window
+    cases = chip_smoke.dense_k7_cases({"decode_32k": 34, "long_500k": 1})
+    assert cases == [("K7 decode_32k", 34, 32768, None, 32768),
+                     ("K7 long_500k", 1, 524288, 8192, 524288),
+                     ("K7 long_500k early", 1, 524288, 8192, 4097)]
+    assert 524288 - 8192 == 516_096
+
+
+class _ClockEvent:
+    """A CUDA event on a fake clock (``_ClockEvent.now``, in ms)."""
+    now = 0.0
+
+    def __init__(self, **kw):
+        self.t = None
+
+    def record(self):
+        self.t = _ClockEvent.now
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, other):
+        return other.t - self.t
+
+
+def test_k6_device_ms_reads_the_launchers_events(monkeypatch):
+    # K6's device time comes from the events its launcher records inside
+    # the very calls the turns time (event_turns): each call 3 ms of wall,
+    # 2 of them its kernel's, so the device time cannot pass the wall
+    # time; a launcher that records none (an older package): the handed
+    # events are withdrawn and the profiler's one-call figure stands
+    from repro_torch.kernels import _build
+    handed, records = [], [True]
+    monkeypatch.setattr(torch.cuda, "Event", _ClockEvent)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(_build, "time_next_launch",
+                        lambda ev: handed.append(list(ev)))
+    monkeypatch.setattr(_build, "launch_events_recorded",
+                        lambda: len(handed[-1]) if records[0] else 0)
+    monkeypatch.setattr(chip_smoke, "profile_device",
+                        lambda torch, fn, reps, once: (3.5, []))
+
+    def kernel():                   # the launcher: its events around 2 ms
+        _ClockEvent.now += 0.5
+        if records[0] and handed and handed[-1]:
+            handed[-1][0].record()
+        _ClockEvent.now += 2.0
+        if records[0] and handed and handed[-1]:
+            handed[-1][1].record()
+        _ClockEvent.now += 0.5
+
+    def library():
+        _ClockEvent.now += 1.0
+    turns, split, source = chip_smoke.event_turns(
+        torch, {"kernel": kernel, "library": library},
+        chip_smoke.K6_KERNELS, reps=3, warmup=1)
+    assert turns == {"kernel": [3.0, 3.0], "library": [1.0, 1.0]}
+    assert split == {"attention": 2.0, "total": 2.0} and source == "events"
+    assert len(handed) == 6 and all(len(ev) == 2 for ev in handed)
+    records[0] = False
+    handed.clear()
+    turns, split, source = chip_smoke.event_turns(
+        torch, {"kernel": kernel, "library": library},
+        chip_smoke.K6_KERNELS, reps=3, warmup=1)
+    assert turns["kernel"] == [3.0, 3.0]
+    assert split == {"total": 3.5} and source == "profiler"
+    assert [len(ev) for ev in handed] == [2, 0, 2, 0]
+    assert chip_smoke.K6_KERNELS == ("attention",)
+
+
+def test_dense_phases_are_wired_in():
+    # the full run: each dense arch's bf16 dry-run steps, K6 and K7 at its
+    # card shapes against their plain versions, its cut layer by layer and
+    # its float32 serving path, after mamba2's, on the dry run's table;
+    # --only qwen2 / starcoder2 run them alone, --only qwen2_32k /
+    # starcoder2_32k the timing probe (with --parent on the parent's
+    # package too); the 32k K6 rows take their device time from the
+    # launcher's events
+    import inspect
+    dry = inspect.getsource(chip_smoke.phase_dryrun)
+    assert dry.index("phase_mamba2(torch, np, card, table)") < dry.index(
+        "phase_dense(torch, np, card, arch, table)")
+    assert 'f"card_{tag}": got["card"]' in dry
+    assert 'f"card_vs_cpu_{tag}": got["card_vs_cpu"]' in dry
+    assert 'f"{tag}_serve": got["serve"]' in dry
+    phase = inspect.getsource(chip_smoke.phase_dense)
+    assert phase.index("arch=arch), arch)") < phase.index(
+        "phase_dense_32k(torch, card, arch,") < phase.index(
+        "phase_dryrun_reference(torch, np, card, arch,") < \
+        phase.index("phase_dense_serve(torch, np, card, arch)")
+    assert "check=True" in phase
+    serve = inspect.getsource(chip_smoke.phase_dense_serve)
+    assert serve.index("llm_reference(") < serve.index(
+        "phase_llm_main_path(torch, np, card, arch)") < serve.index(
+        "phase_dense_serve_kernels(torch, card, arch)")
+    for tag in ("qwen2", "starcoder2"):
+        assert tag in chip_smoke.ONLY_PHASES
+        assert tag + "_32k" in chip_smoke.ONLY_PHASES
+        assert chip_smoke.PROBES[f"phase_{tag}_32k"] == f"{tag} 32k"
+        assert callable(getattr(chip_smoke, f"phase_{tag}_32k"))
+    probe = inspect.getsource(chip_smoke.phase_dense_32k)
+    assert 'print(f"{tag} 32k {key} bf16' in probe
+    assert "K6_KERNELS if key.startswith(\"K6\") else K7_KERNELS" in probe
+    for fn in (chip_smoke.phase_dense_32k, chip_smoke.phase_gemma2_32k,
+               chip_smoke.phase_deepseek_32k,
+               chip_smoke.phase_dryrun_kernels):
+        assert "event_turns(" in inspect.getsource(fn)
+    main = inspect.getsource(chip_smoke.main)
+    assert 'row[f"{tag}_serving_shape"]' in main
+    assert 'bf[f"dryrun_{dense_tag(arch)}"]' in main
+    # their cuts: DENSE_REF_BLOCKS layers at full width
+    from repro_torch.configs import get_config
+    for arch, width, vocab in (("qwen2-7b", 3584, 152064),
+                               ("starcoder2-7b", 4608, 49152)):
+        cut = chip_smoke.block_cut(get_config(arch),
+                                   chip_smoke.DENSE_REF_BLOCKS)
+        assert (cut.num_layers, cut.d_model, cut.vocab_size) == (2, width,
+                                                                 vocab)
+        assert chip_smoke.llm_kernel_calls(cut) == (2, 0)
+    assert chip_smoke.dense_tag("starcoder2-7b") == "starcoder2"
+
+
+def test_launcher_cut_runs_beside_the_build(monkeypatch, capsys):
+    # the launcher's cut is abstract passes alone (no card): it runs in the
+    # dry run's spawned pool, submitted first, and main() hands its result
+    # to the launcher's phase; on a smoke config the card's HBM holds every
+    # block, so the cut is the config's own
+    import inspect
+    start = inspect.getsource(chip_smoke.start_dryrun_table)
+    assert start.index("pool.submit(launcher_cut)") < start.index(
+        "pool.submit(_abstract_row, c)")
+    assert "started[4].result()" in inspect.getsource(chip_smoke.main)
+    monkeypatch.setattr(chip_smoke, "LLM_ARCH", "zamba2-7b-smoke")
+    monkeypatch.setattr(chip_smoke, "LAUNCHER_BATCH", 1)
+    monkeypatch.setattr(chip_smoke, "LAUNCHER_SEQ", 32)
+    threads = torch.get_num_threads()
+    try:
+        cut = chip_smoke.launcher_cut()
+    finally:
+        torch.set_num_threads(threads)
+    n, peaks, seconds = cut
+    assert n == 1 and sorted(peaks) == [1, 2] and seconds > 0
+    assert 0 < peaks[1] < peaks[2]
+    assert chip_smoke.report_launcher_cut("card", cut) == peaks[1]
+    assert "1 blocks (9 layers)" in capsys.readouterr().out

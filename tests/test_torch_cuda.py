@@ -35,6 +35,8 @@ from repro_torch.serving.server import LLMServer, Request
 from repro_torch.learning import ContinualLearningPlane, LearningConfig
 from repro_torch.testing import (ATTN_ATOL, ATTN_BF16_RTOL, ATTN_VJP_RTOL,
                                  DECODE_CASES, DECODE_WIDE_CASES,
+                                 DECODE_DENSE_CASES, DECODE_DENSE_IDS,
+                                 FLASH_DENSE_CASES, FLASH_DENSE_IDS,
                                  FLASH_WIDE_CASES, SSD_BF16_RTOL, bf16_err,
                                  FILTER_CASES, SSD_VJP_RTOL,
                                  FILTER_KW, FLASH_CASES, FLASH_DV_CASES,
@@ -1116,6 +1118,69 @@ def test_decode_and_ssd_launchers_record_timing_events(cuda, dtype):
         assert all(ev[i].elapsed_time(ev[i + 1]) > 0 for i in range(n - 1))
         call()
         assert _build.launch_events_recorded() == n   # the last timed one
+
+
+@pytest.mark.parametrize("route,dtype,d,d_v", [
+    ("mma", torch.float32, 128, 128), ("cols", torch.float32, 256, 256),
+    ("wgmma", BF, 128, 128), ("simt", BF, 256, 128)])
+def test_flash_attention_launchers_record_timing_events(cuda, route, dtype,
+                                                        d, d_v):
+    # handed two events, each K6 launcher (3xTF32 mma, column warps,
+    # wgmma, CUDA cores) records one before and one after its one device
+    # kernel; the next, untimed launch records none
+    from repro_torch.kernels import _build
+    assert fa.on_tensor_cores(d, d_v, dtype) == (route != "simt")
+    q, k, v = (t.to(dtype) for t in _t(attention_case(
+        2, 200, 300, 8, 2, d, d_v=d_v), cuda))
+    call = lambda: fa.flash_attention(q, k, v, q_offset=100)  # noqa: E731
+    call()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for e in ev:
+        e.record()
+    torch.cuda.synchronize()
+    _build.time_next_launch(ev)
+    call()
+    assert _build.launch_events_recorded() == 2
+    ev[-1].synchronize()
+    assert ev[0].elapsed_time(ev[1]) > 0
+    call()
+    assert _build.launch_events_recorded() == 2   # the last timed one
+    _build.time_next_launch([])                     # nothing handed: none
+    call()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_DENSE_CASES, ids=FLASH_DENSE_IDS)
+def test_flash_attention_kernels_at_dense_heads(cuda, case, dtype):
+    # qwen2-7b's and starcoder2-7b's GQA groups of 7 and 9 at d = 128
+    b, s_q, s_kv, n_q, n_kv, d, causal, window, cap, off = case
+    q, k, v = (t.to(dtype) for t in _t(attention_case(
+        b, s_q, s_kv, n_q, n_kv, d, seed=11), cuda))
+    kw = dict(causal=causal, window=window, softcap=cap, q_offset=off)
+    got = fa.flash_attention(q, k, v, **kw)
+    want = fa.flash_attention_ref(q, k, v, **kw)
+    if dtype == BF:
+        assert bf16_err(got, want) <= ATTN_BF16_RTOL
+    else:
+        assert _sync_err(got, want) <= ATTN_ATOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", DECODE_DENSE_CASES, ids=DECODE_DENSE_IDS)
+def test_decode_attention_kernels_at_dense_heads(cuda, case, dtype):
+    b, S, n_q, n_kv, d, clen, window, cap = case
+    q, kc, vc = (t.to(dtype) for t in _t(decode_case(b, S, n_q, n_kv, d,
+                                                     seed=11), cuda))
+    cl = torch.as_tensor(clen, dtype=torch.int32, device=cuda)
+    kw = dict(window=window, softcap=cap)
+    got = da.decode_attention(q, kc, vc, cl, **kw)
+    want = da.decode_attention_ref(q, kc, vc, cl, **kw)
+    if dtype == BF:
+        assert bf16_err(got, want) <= ATTN_BF16_RTOL
+    else:
+        assert _sync_err(got, want) <= ATTN_ATOL
+    assert torch.equal(da.decode_attention(q, kc, vc, cl, **kw), got)
 
 
 def test_llm_kernels_refuse_float16_and_mixed_operands(cuda):

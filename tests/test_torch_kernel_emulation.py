@@ -45,6 +45,8 @@ from repro_torch.kernels import onevsall_update as ou
 from repro_torch.kernels import region_filter_mask as rf
 from repro_torch.kernels import ssd_scan as sk
 from repro_torch.testing import (ATTN_ATOL, ATTN_BF16_RTOL, DECODE_CASES,
+                                 DECODE_DENSE_CASES, DECODE_DENSE_IDS,
+                                 FLASH_DENSE_CASES, FLASH_DENSE_IDS,
                                  DECODE_WIDE_CASES, FILTER_KW,
                                  FLASH_WIDE_CASES, SSD_BF16_RTOL,
                                  FLASH_CASES, FLASH_DV_CASES,
@@ -592,8 +594,10 @@ def _compile(cxx, out, name, source):
     header = out / "cuda_emu.h"
     if not header.exists():        # other compiles may be reading it
         header.write_text(EMU_HEADER)
-        # the sources' other headers (host code), as C++ for this header
-        for cuh in _build.CSRC.glob("*.cuh"):
+        # the sources' other headers (host code), and the sources that
+        # another includes (flash_attention_bf16.cu), as C++ for this
+        # header
+        for cuh in (*_build.CSRC.glob("*.cuh"), *_build.CSRC.glob("*.cu")):
             if cuh.name != "primitives.cuh":
                 (out / cuh.name).write_text(_to_cpp(cuh.read_text()))
     cpp = out / name.replace(".cu", ".cpp")
@@ -1388,6 +1392,70 @@ def test_decode_attention_source_bf16_tma(emulated, case, sms):
         <= ATTN_BF16_RTOL
     # the splits merge in a fixed order: the same bits on a second launch
     assert torch.equal(da.decode_attention(q, kc, vc, cl, **kw), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_DENSE_CASES, ids=FLASH_DENSE_IDS)
+def test_flash_attention_source_at_dense_heads(emulated, case, dtype):
+    # qwen2-7b's and starcoder2-7b's GQA groups of 7 and 9 at d = 128:
+    # float32 on the 3xTF32 kernel <16, 16, 4>, bf16 on the wgmma kernel
+    # <NWG, 8, 8>, each within its card tolerance, one launch
+    b, s_q, s_kv, n_q, n_kv, d, causal, window, cap, off = case
+    arrays = attention_case(b, s_q, s_kv, n_q, n_kv, d, seed=11)
+    q, k, v = _bf16(arrays) if dtype == torch.bfloat16 else _t(arrays)
+    kw = dict(causal=causal, window=window, softcap=cap, q_offset=off)
+    assert fa.on_tensor_cores(d, d, dtype)
+    fa.launches = 0
+    got = fa.flash_attention(q, k, v, **kw)
+    want = ref.flash_attention(q, k, v, **kw)
+    assert fa.launches == 1 and got.dtype == dtype
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= ATTN_ATOL
+    else:
+        assert bf16_err(got, want) <= ATTN_BF16_RTOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", DECODE_DENSE_CASES, ids=DECODE_DENSE_IDS)
+def test_decode_attention_source_at_dense_heads(emulated, case, dtype):
+    # groups of 7 and 9 at d = 128: float32 on the split kernel's blocks of
+    # 8 q-heads (a group of 9 in parts of 8 and 1), bf16 on the TMA
+    # kernel's 16 mma rows a warp (7 or 9 of them q-heads); the window's
+    # tiles from its first slot; the same bits on a second launch
+    b, S, n_q, n_kv, d, clen, window, cap = case
+    arrays = decode_case(b, S, n_q, n_kv, d, seed=11)
+    q, kc, vc = _bf16(arrays) if dtype == torch.bfloat16 else _t(arrays)
+    assert da.on_tma(q, kc, vc) == (dtype == torch.bfloat16)
+    assert not da.on_bulk(q, kc, vc)
+    cl = torch.as_tensor(np.asarray(clen, np.int32))
+    kw = dict(window=window, softcap=cap)
+    da.launches = 0
+    got = da.decode_attention(q, kc, vc, cl, **kw)
+    want = ref.decode_attention(q, kc, vc, cl, **kw)
+    assert da.launches == 1 and got.dtype == dtype
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= ATTN_ATOL
+    else:
+        assert bf16_err(got, want) <= ATTN_BF16_RTOL
+    assert torch.equal(da.decode_attention(q, kc, vc, cl, **kw), got)
+
+
+@pytest.mark.parametrize("case", DECODE_DENSE_CASES, ids=DECODE_DENSE_IDS)
+def test_decode_attention_split_grid_is_the_launchers(emulated, case):
+    # the float32 split kernel's grid as its launcher records it: blocks of
+    # 8 q-heads, a group of 9 in a block of 8 and a block of 1 a kv-head,
+    # each (kv-head, row, split) one block; a group of 7 in one block
+    b, S, n_q, n_kv, d, clen, window, cap = case
+    q, kc, vc = _t(decode_case(b, S, n_q, n_kv, d, seed=11))
+    cl = torch.as_tensor(np.asarray(clen, np.int32))
+    da.decode_attention(q, kc, vc, cl, window=window, softcap=cap)
+    group, (_, nsplit) = n_q // n_kv, da.plan(q, kc, vc, window)
+    parts = -(-group // 8)
+    assert da.split_grid() == {
+        "heads_a_block": 8, "blocks": n_kv * parts * b * nsplit,
+        "one_head_blocks": n_kv * b * nsplit if group % 8 == 1 else 0}
 
 
 def test_decode_attention_source_bf16_keeps_the_other_kernel(emulated):

@@ -1,7 +1,7 @@
 """The port's LLM serving path on the CPU against the JAX package, on the
-reduced configs of four dense and SSM families (hybrid zamba2, pure-SSM
-mamba2, local/global-attention gemma2 with softcaps, GQA qwen2 with QKV
-bias; the MoE, MLA and cross-attention families are in
+reduced configs of five dense and SSM families (hybrid zamba2, pure-SSM
+mamba2, local/global-attention gemma2 with softcaps, GQA qwen2 and
+starcoder2 with QKV bias; the MoE, MLA and cross-attention families are in
 tests/test_torch_llm_archs.py): the same JAX ``init_params`` weights
 (converted with ``llm_from_numpy_tree``) and the same numpy tokens through
 ``forward``, ``prefill`` + ``decode_step`` (a scalar and a per-slot cache
@@ -28,7 +28,8 @@ from repro_torch.testing import LLM_RTOL, rel_err
 
 torch.set_num_threads(1)
 
-FAMILIES = ["zamba2-7b", "mamba2-2.7b", "gemma2-9b", "qwen2-7b"]
+FAMILIES = ["zamba2-7b", "mamba2-2.7b", "gemma2-9b", "qwen2-7b",
+            "starcoder2-7b"]
 
 
 @pytest.fixture(scope="module", params=FAMILIES)
@@ -180,7 +181,10 @@ def test_llm_from_numpy_tree_keeps_every_layout():
         np.testing.assert_array_equal(t.numpy(), np.asarray(a))
 
 
-@pytest.mark.parametrize("name", sorted(set(ARCHS) - set(FAMILIES)))
+# starcoder2-7b, compared above since it joined FAMILIES, keeps its
+# fresh-weight forward here too
+@pytest.mark.parametrize("name", sorted(set(ARCHS) - set(FAMILIES)
+                                        | {"starcoder2-7b"}))
 def test_other_families_run_or_name_their_milestone(name):
     # every family of the registry runs now, MoE, MLA and cross-attention
     # included (tests/test_torch_llm_archs.py holds those against JAX): a
