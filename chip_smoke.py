@@ -40,11 +40,12 @@ K = 1 and 4, work stealing under a replica outage, and three tenants
 fleet against the same run on the CPU.  The one-card dry run
 (``launch/dryrun.py``) then counts every arch x input shape on meta
 tensors and runs the bf16 steps of zamba2-7b, gemma2-9b,
-deepseek-v2-lite-16b, mamba2-2.7b, qwen2-7b and starcoder2-7b on the card
-at full width and depth (the last three's long_500k too), each arch's
-kernels at its 32k shapes and its cut against the CPU; mamba2-2.7b,
-qwen2-7b and starcoder2-7b are served there in float32 behind
-``LLMServer`` too.  After the zamba2 path the
+deepseek-v2-lite-16b, mamba2-2.7b, qwen2-7b, starcoder2-7b and
+musicgen-medium on the card at full width and depth (long_500k of
+deepseek, mamba2, qwen2 and starcoder2 too; musicgen's train_4k, a bf16
+train step with remat and AdamW), each arch's kernels at its 32k shapes
+and its cut against the CPU; mamba2-2.7b, qwen2-7b and starcoder2-7b are
+served there in float32 behind ``LLMServer`` too.  After the zamba2 path the
 big/little cascade (``core/cascade.py``) runs with full-width zamba2-7b as
 the big model and its 9-layer cut as the little one, and against the CPU
 on two 9-layer models; the deepseek and musicgen paths come next, once
@@ -52,8 +53,8 @@ zamba2's weights are freed.  LLM training comes last: K6 and K8 under
 autograd (the kernel forward, the plain version's VJP backward) against
 autograd of their plain versions at every test shape and the training
 shapes, one ``make_train_step`` step of zamba2-7b's 9-layer cut against
-the CPU, and ``train_llm`` on zamba2-7b at full width cut to 17 layers
-(1.604 B parameters, 4 x 512 tokens), then the same steps with remat.
+the CPU, and ``train_llm`` on zamba2-7b at full width cut to 9 layers
+(4 x 512 tokens), then the same steps with remat.
 Any failed check raises; nothing is caught.
 The last three lines are the card's name and power limit, one JSON object
 describing the kernels, and ``{"ok": true, "device": {...}}``.
@@ -3392,7 +3393,8 @@ PROBES = {"phase_k7_host": "K7 bf16 host",
           "phase_deepseek_32k": "deepseek 32k",
           "phase_mamba2_32k": "mamba2 32k",
           "phase_qwen2_32k": "qwen2 32k",
-          "phase_starcoder2_32k": "starcoder2 32k"}
+          "phase_starcoder2_32k": "starcoder2 32k",
+          "phase_musicgen_32k": "musicgen 32k"}
 
 
 def run_parent(root: str, phases, own: bool = False) -> str:
@@ -3536,10 +3538,11 @@ def kernel_offsets(cfg, batches: dict) -> dict:
     ``seq_len``, long_500k's 524,288 slots in its ``arch_for_shape``
     variant), over an operand, its output or its workspace: K6's q at its q
     / k head dim (MLA's head_dim + rope_head_dim) and K8's x and workspace
-    at each prefill shape, only where ``cfg`` prefills by them (not
-    mamba2's attention-free layers; K8 only with Mamba2 layers); K7's
-    caches and workspace (at the most splits: no window) at each decode
-    shape, only where ``cfg`` decodes by it (not MLA's absorbed decode)."""
+    at each prefill and train shape (a train step's forward), only where
+    ``cfg`` runs them there (not mamba2's attention-free layers; K8 only
+    with Mamba2 layers); K7's caches and workspace (at the most splits: no
+    window) at each decode shape, only where ``cfg`` decodes by it (not
+    MLA's absorbed decode)."""
     import torch
 
     from repro_torch.configs import INPUT_SHAPES
@@ -3555,14 +3558,15 @@ def kernel_offsets(cfg, batches: dict) -> dict:
     for shape, b in batches.items():
         full = INPUT_SHAPES[shape]
         c, seq = arch_for_shape(cfg, full), full.seq_len
-        if full.mode == "prefill" and llm_kernel_calls(c)[0]:
+        forward = full.mode in ("prefill", "train")
+        if forward and llm_kernel_calls(c)[0]:
             keep("flash_attention", b * seq * h * d_qk)
         if full.mode == "decode" and decode_kernel_calls(c)[1]:
             q, kc = (torch.empty((b, h, d), device="meta"),
                      torch.empty((b, seq, c.num_kv_heads, d), device="meta"))
             keep("decode_attention", max(kc.numel(), da.workspace_bytes(
                 q, kc, kc, None, da.H100_RESIDENT) // 4))
-        if full.mode == "prefill" and c.ssm_state:
+        if forward and c.ssm_state:
             x = torch.empty((b, seq, c.n_ssm_heads, c.ssm_head_dim),
                             device="meta")
             B = torch.empty((b, seq, c.ssm_state), device="meta")
@@ -3582,13 +3586,31 @@ def check_offsets(offsets: dict) -> None:
 
 
 def card_shapes(arch: str) -> tuple:
-    """The input shapes ``arch``'s card pass runs: DRYRUN_CARD_SHAPES, and
-    for MAMBA_ARCH and DENSE_ARCHS long_500k too (a decode step at batch 1,
-    which their abstract passes fit: over mamba2's positionless state; over
-    the dense archs' 524,288-slot cache, their ``+sliding`` variant's
-    8192-slot window)."""
-    return DRYRUN_CARD_SHAPES + (("long_500k",) if arch in (
-        MAMBA_ARCH,) + DENSE_ARCHS else ())
+    """The input shapes ``arch``'s card pass runs: DRYRUN_CARD_SHAPES; for
+    MAMBA_ARCH, MOE_ARCH and DENSE_ARCHS long_500k too (a decode step at
+    batch 1, which their abstract passes fit: over mamba2's positionless
+    state; over deepseek's 524,288-slot latent cache and the dense archs'
+    524,288-slot cache, in their ``+sliding`` variants); for CROSS_ARCH
+    train_4k (the one arch whose train step fits the card; its long_500k
+    fits no batch)."""
+    return (DRYRUN_CARD_SHAPES
+            + (("long_500k",) if arch in (MAMBA_ARCH, MOE_ARCH) + DENSE_ARCHS
+               else ())
+            + (("train_4k",) if arch == CROSS_ARCH else ()))
+
+
+def step_launches(cfg, mode: str) -> dict:
+    """The K6, K7 and K8 launches and plain VJPs of one bf16 dry-run step
+    of ``cfg`` in ``mode``: a prefill's or a decode step's
+    (:func:`path_launches`, no VJP), a train step's with remat
+    (:func:`train_launches`, no K7); every launch a bf16 one."""
+    if mode == "train":
+        w = {**train_launches(cfg, remat=True), "decode_attention": 0}
+    else:
+        w = {"flash_attention_vjp": 0, "ssd_scan_vjp": 0,
+             **path_launches(cfg, mode == "prefill", mode == "decode")}
+    return {**w, **{k + "_bf16": n for k, n in w.items()
+                    if not k.endswith("_vjp")}}
 
 
 def card_batches(table, arch: str = DRYRUN_ARCH) -> dict:
@@ -3626,12 +3648,8 @@ def phase_dryrun_card(torch, card, table, arch: str = DRYRUN_ARCH):
     print(f"dryrun: largest element offsets at the card shapes {offsets}; "
           f"past 2^31 = {INT32_LIMIT} only where 64-bit offsets are proven "
           f"on the card ({', '.join(OFFSETS_64BIT)}) [{card}]")
-    # every launch of the bf16 steps is a bf16 one
-    want = {}
-    for shape in card_shapes(arch):
-        w = (path_launches(cfg, 1, 0) if INPUT_SHAPES[shape].mode
-             == "prefill" else path_launches(cfg, 0, 1))
-        want[shape] = {**w, **{k + "_bf16": n for k, n in w.items()}}
+    want = {s: step_launches(cfg, INPUT_SHAPES[s].mode)
+            for s in card_shapes(arch)}
     out = {}
     for shape in card_shapes(arch):
         torch.cuda.empty_cache()
@@ -3846,14 +3864,16 @@ def phase_dryrun_reference(torch, np, card, arch: str = DRYRUN_ARCH,
     layer and a MoE layer; mamba2-2.7b takes MAMBA_REF_BLOCKS Mamba2
     layers), the same bf16 weights on the card and the CPU: a 1 x
     DRYRUN_REF_SEQ prefill, then one decode step over its cache (rewriting
-    its last slot).  Each layer the card applies is held to the CPU's on
-    the CPU's own inputs (``testing.LayerTap``: BF16_LLM_RTOL of its
-    output's and its cache's scale); a MoE layer's tokens that the card
-    routes apart from the CPU at a bf16 router tie are exempt from its
-    output's comparison and counted (``testing.route_exempt``: a tie within
-    ROUTER_TIE_BF16 of the token's largest |logit|, and the drops it moves
-    behind it); the logits end to end are printed beside them (bf16 noise
-    grows through a model, so they are not gated) and must be finite."""
+    its last slot); a config with context (musicgen-medium) takes the
+    same bf16 stub context embeddings on both.  Each layer the card
+    applies is held to the CPU's on the CPU's own inputs
+    (``testing.LayerTap``: BF16_LLM_RTOL of its output's and its cache's
+    scale); a MoE layer's tokens that the card routes apart from the CPU
+    at a bf16 router tie are exempt from its output's comparison and
+    counted (``testing.route_exempt``: a tie within ROUTER_TIE_BF16 of the
+    token's largest |logit|, and the drops it moves behind it); the logits
+    end to end are printed beside them (bf16 noise grows through a model,
+    so they are not gated) and must be finite."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import ops
@@ -3864,6 +3884,9 @@ def phase_dryrun_reference(torch, np, card, arch: str = DRYRUN_ARCH,
                                      LayerTap, RouterTap, rel_err,
                                      replay_layers)
     cfg = block_cut(get_config(arch), blocks)
+    ctx = {"cuda": cross_context(torch, cfg, 1, specs.COMPUTE_DTYPE)
+           if cfg.num_ctx_tokens else None}
+    ctx["cpu"] = None if ctx["cuda"] is None else ctx["cuda"].cpu()
     s = DRYRUN_REF_SEQ
     prefill = specs.make_step(cfg, ShapeConfig("p", s, 1, "prefill"))[0]
     decode = specs.make_step(cfg, ShapeConfig("d", s, 1, "decode"))[0]
@@ -3878,13 +3901,13 @@ def phase_dryrun_reference(torch, np, card, arch: str = DRYRUN_ARCH,
         ops.reset_launch_counts()
         with LayerTap() as taps[dev, "prefill"], \
                 RouterTap() as routers[dev, "prefill"]:
-            logits, cache = prefill(params[dev], t)
+            logits, cache = prefill(params[dev], t, ctx[dev])
         counts[dev, "prefill"] = ops.launch_counts()
         ops.reset_launch_counts()
         with LayerTap() as taps[dev, "decode"], \
                 RouterTap() as routers[dev, "decode"]:
             step, _ = decode(params[dev], t[:, -1:], cache,
-                             torch.tensor(s - 1, device=dev))
+                             torch.tensor(s - 1, device=dev), ctx[dev])
         counts[dev, "decode"] = ops.launch_counts()
         out[dev] = (logits.float().cpu().numpy(),
                     step[:, 0].float().cpu().numpy())
@@ -4538,35 +4561,70 @@ def k7_bound(b, h, kv, d, lens, S, window, size=2, cap=None):
 
 
 def dense_k7_cases(batches):
-    """The K7 calls of a dense arch's bf16 decode steps: decode_32k's
-    slots over every slot of a 32k cache; long_500k's one row over a
-    524,288-slot cache at cache index 524,287, windowed at the ``+sliding``
-    variant's 8192 slots (the window's tiles from slot 516,096), and at an
-    index inside the first window: [(key, batch, S, window, length)]."""
+    """The K7 calls of a decoder's bf16 decode steps: decode_32k's slots
+    over every slot of a 32k cache; where it runs long_500k (the dense
+    archs), its one row over a 524,288-slot cache at cache index 524,287,
+    windowed at the ``+sliding`` variant's 8192 slots (the window's tiles
+    from slot 516,096), and at an index inside the first window: [(key,
+    batch, S, window, length)]."""
     from repro_torch.configs import INPUT_SHAPES
     s32, s500 = (INPUT_SHAPES[s].seq_len for s in ("decode_32k", "long_500k"))
-    return [("K7 decode_32k", batches["decode_32k"], s32, None, s32),
-            ("K7 long_500k", batches["long_500k"], s500, 8192, s500),
-            ("K7 long_500k early", batches["long_500k"], s500, 8192,
-             DENSE_EARLY_LEN)]
+    cases = [("K7 decode_32k", batches["decode_32k"], s32, None, s32)]
+    if "long_500k" in batches:
+        cases += [("K7 long_500k", batches["long_500k"], s500, 8192, s500),
+                  ("K7 long_500k early", batches["long_500k"], s500, 8192,
+                   DENSE_EARLY_LEN)]
+    return cases
+
+
+def k6_32k_cases(cfg, batches):
+    """The K6 calls of a decoder's bf16 steps at its 32k card shapes:
+    prefill_32k's causal self-attention; with context (musicgen-medium)
+    also its cross-attention over the num_ctx_tokens context keys at
+    prefill_32k and at decode_32k's one token a slot: [(key, batch, s_q,
+    s_kv, causal)]."""
+    from repro_torch.configs import INPUT_SHAPES
+    s, n = INPUT_SHAPES["prefill_32k"].seq_len, cfg.num_ctx_tokens
+    bp = batches["prefill_32k"]
+    if not n:
+        return [("K6 prefill_32k", bp, s, s, True)]
+    return [("K6 self prefill_32k", bp, s, s, True),
+            ("K6 cross prefill_32k", bp, s, n, False),
+            ("K6 cross decode_32k", batches["decode_32k"], 1, n, False)]
+
+
+def k6_cross_bound(b, s_q, s_kv, h, kv, d):
+    """(bytes, bf16 products, other operations, :func:`bf16_bound_ms`) of
+    a bf16 K6 call of b x s_q queries over all s_kv keys (non-causal:
+    cross-attention over the context): q, k, v and the output once each,
+    the offsets; every (query head, key) pair: 4d products and the
+    softmax's operations."""
+    nbytes, _, pairs = flash_bound(b, s_q, s_kv, h, kv, d, d, False, None,
+                                   None, size=2)
+    mma = pairs * h * 4 * d
+    other = pairs * h * (_attn_ops_per_pair(d, None, d) - 4 * d)
+    return nbytes, mma, other, bf16_bound_ms(nbytes, mma, other)
 
 
 def phase_dense_32k(torch, card, arch, batches=None, check=False) -> dict:
-    """K6 and K7 on bf16 operands at a dense arch's card shapes (the
-    batches its abstract passes pick where ``batches`` is None): K6 at
-    prefill_32k (causal, d 128, its GQA group), K7 at the cases of
+    """K6 and K7 on bf16 operands at a decoder's card shapes (a dense
+    arch's or CROSS_ARCH's; the batches its abstract passes pick where
+    ``batches`` is None): K6 at the cases of :func:`k6_32k_cases` (the
+    causal prefill, d 128 at its GQA group; musicgen's self-attention and
+    its cross-attention at d 64 over 24 / 24 heads), K7 at the cases of
     :func:`dense_k7_cases` over random cache contents; each timed by CUDA
     events in turns with SDPA's bf16 on the same function (K6
-    ``is_causal=True, enable_gqa=True``; K7 over the valid slots, the
-    window's alone), the backend named; its device time from the events
-    its launcher records in the timed calls themselves
+    ``is_causal`` as the case, ``enable_gqa`` under GQA; K7 over the
+    valid slots, the window's alone), the backend named; its device time
+    from the events its launcher records in the timed calls themselves
     (:func:`event_turns`); beside its bf16 bound.  Reads only the
     package's entry points, so --parent runs it on the parent's package.
     With ``check``
-    (:func:`phase_dense`) each result is first held against its plain
-    version (K6 on 256-query slices at the head and the tail, every batch
-    row, so the last rows of the last row too) and the row names its
-    kernel instance and its ptxas line.  Returns {case key: row}."""
+    (:func:`phase_dense`, :func:`phase_musicgen`) each result is first held
+    against its plain version (a causal K6 on 256-query slices at the head
+    and the tail, every batch row, so the last rows of the last row too; a
+    cross-attention K6 whole) and the row names its kernel instance and its
+    ptxas line.  Returns {case key: row}."""
     from repro_torch.configs import INPUT_SHAPES, get_config
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
@@ -4576,8 +4634,9 @@ def phase_dense_32k(torch, card, arch, batches=None, check=False) -> dict:
         from repro_torch.launch.dryrun import run_one
         batches = {shape: run_one(arch, shape, device="meta", verbose=False,
                                   save=False)["max_batch"]
-                   for shape in card_shapes(arch)}
-    s = INPUT_SHAPES["prefill_32k"].seq_len
+                   for shape in card_shapes(arch)
+                   if INPUT_SHAPES[shape].mode == "decode"
+                   or shape == "prefill_32k"}
     h, kv, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     bf16 = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -4585,37 +4644,44 @@ def phase_dense_32k(torch, card, arch, batches=None, check=False) -> dict:
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(bf16)
 
-    cases = [("K6 prefill_32k", batches["prefill_32k"], s, None, s)]
-    cases += dense_k7_cases(batches)
+    cases = k6_32k_cases(cfg, batches) + dense_k7_cases(batches)
     out = {}
-    for key, b, S, window, length in cases:
+    for key, b, *case in cases:
         torch.cuda.empty_cache()
-        row = {}
+        row, window = {}, None
         if key.startswith("K6"):
-            q, k, v = randn(b, s, h, d), randn(b, s, kv, d), randn(b, s, kv,
-                                                                    d)
-            fn = lambda: fa.flash_attention(q, k, v)  # noqa: E731
+            s_q, s_kv, causal = case
+            q, k, v = (randn(b, s_q, h, d), randn(b, s_kv, kv, d),
+                       randn(b, s_kv, kv, d))
+            fn = lambda: fa.flash_attention(  # noqa: E731
+                q, k, v, causal=causal)
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            backend, lib = sdpa_call(torch, (qt, kt, vt), is_causal=True,
-                                     enable_gqa=True)
-            reps, warmup = DENSE_K6_REPS, 1
-            shape = f"b={b} s_q={s} s_kv={s} heads={h}/{kv} d={d} causal"
-            nbytes, mma, other, (bound, by) = k6_causal_bound(b, s, h, kv, d,
-                                                              d)
+            backend, lib = sdpa_call(torch, (qt, kt, vt), is_causal=causal,
+                                     enable_gqa=h != kv)
+            reps, warmup = ((DENSE_K6_REPS, 1) if s_q * s_kv > 1 << 24
+                            else (30, 5))
+            shape = (f"b={b} s_q={s_q} s_kv={s_kv} heads={h}/{kv} d={d} "
+                     + ("causal" if causal else "non-causal"))
+            nbytes, mma, other, (bound, by) = (
+                k6_causal_bound(b, s_q, h, kv, d, d) if causal else
+                k6_cross_bound(b, s_q, s_kv, h, kv, d))
             if check:
                 got, err, plain = fn(), (0.0, 0.0), []
-                for lo in (0, s - 256):
+                # causal: 256-query slices (the whole scores pass 80 GB)
+                for lo, n in (((0, 256), (s_q - 256, 256)) if causal
+                              else ((0, s_q),)):
                     t0 = time.perf_counter()
-                    want = fa.flash_attention_ref(q[:, lo:lo + 256], k, v,
-                                                  q_offset=lo)
+                    want = fa.flash_attention_ref(q[:, lo:lo + n], k, v,
+                                                  causal=causal, q_offset=lo)
                     torch.cuda.synchronize()
                     plain.append((time.perf_counter() - t0) * 1e3)
-                    e = bf16_err(got[:, lo:lo + 256], want)
+                    e = bf16_err(got[:, lo:lo + n], want)
                     err = (max(err[0], e[0]), max(err[1], e[1]))
                     del want
-                row.update(kernel=k6_instance(fa, b, s, h, d, d, bf16),
+                row.update(kernel=k6_instance(fa, b, s_q, h, d, d, bf16),
                            plain_slice_ms=plain)
         else:
+            S, window, length = case
             q, k, v = randn(b, h, d), randn(b, S, kv, d), randn(b, S, kv, d)
             cl = torch.full((b,), length, dtype=torch.int32, device="cuda")
             fn = lambda: da.decode_attention(  # noqa: E731
@@ -4624,7 +4690,8 @@ def phase_dense_32k(torch, card, arch, batches=None, check=False) -> dict:
             qt = q[:, :, None]
             kt, vt = (t[:, lo:length].transpose(1, 2).contiguous()
                       for t in (k, v))
-            backend, lib = sdpa_call(torch, (qt, kt, vt), enable_gqa=True)
+            backend, lib = sdpa_call(torch, (qt, kt, vt),
+                                     enable_gqa=h != kv)
             reps, warmup = 30, 5
             shape = (f"b={b} S={S} heads={h}/{kv} d={d} lens={length} "
                      f"window={window}")
@@ -4671,7 +4738,8 @@ def phase_dense_32k(torch, card, arch, batches=None, check=False) -> dict:
         if check and "plain_slice_ms" in row:
             checked += ("; the plain version " + ", ".join(
                 f"{t:.1f}" for t in row["plain_slice_ms"])
-                + " ms a 256-query slice")
+                + (" ms a 256-query slice" if len(row["plain_slice_ms"]) > 1
+                   else " ms"))
         print(f"{tag} 32k {key} bf16 ({shape}){checked}: "
               + ", ".join(f"{t:.4f}" for t in turns["kernel"])
               + f" ms per call in turns with SDPA's bf16 ({backend}) "
@@ -4849,6 +4917,44 @@ def phase_dense(torch, np, card, arch, table=None) -> dict:
             "serve": serve}
 
 
+# ---------------------------------------------------------------------------
+# musicgen-medium (CROSS_ARCH): 48 layers of self-attention, cross-attention
+# over 256 context tokens and an FFN, 24 / 24 heads at d 64; its bf16 steps
+# at prefill_32k, decode_32k and train_4k
+# ---------------------------------------------------------------------------
+MUSICGEN_REF_BLOCKS = 2      # layers of its bf16 cuts (steps, train step)
+
+
+def phase_musicgen_32k(torch, card, batches=None, check=False) -> dict:
+    """:func:`phase_dense_32k` for musicgen-medium (``--only
+    musicgen_32k``): K6's self-attention at prefill_32k, its
+    cross-attention over the context at prefill_32k and decode_32k, K7 at
+    decode_32k."""
+    return phase_dense_32k(torch, card, CROSS_ARCH, batches, check)
+
+
+def phase_musicgen(torch, np, card, table=None) -> dict:
+    """musicgen-medium's card phases (``--only musicgen``; in the full run
+    after the dense archs', on the dry run's ``table``): its bf16 dry-run
+    steps at full width and depth (prefill_32k, decode_32k and train_4k:
+    :func:`card_shapes`), K6 and K7 at those shapes against their plain
+    versions (``phase_musicgen_32k(check=True)``), then its
+    MUSICGEN_REF_BLOCKS-layer bf16 cut against the CPU: its prefill and
+    decode steps layer by layer, and one train step (remat, AdamW) held
+    as the launcher's (:func:`phase_llm_launcher_reference`), the context
+    on both.  Returns {"card": steps, "kernels": rows, "card_vs_cpu":
+    {the cut's steps..., "train": its train step}}."""
+    runs = phase_dryrun_card(torch, card, table or dryrun_card_table(
+        arch=CROSS_ARCH), CROSS_ARCH)
+    kernels = phase_musicgen_32k(torch, card, {
+        s: runs[s]["batch"] for s in DRYRUN_CARD_SHAPES}, check=True)
+    steps = phase_dryrun_reference(torch, np, card, CROSS_ARCH,
+                                   MUSICGEN_REF_BLOCKS)
+    steps["train"] = phase_llm_launcher_reference(torch, np, card, CROSS_ARCH,
+                                                  MUSICGEN_REF_BLOCKS)
+    return {"card": runs, "kernels": kernels, "card_vs_cpu": steps}
+
+
 def phase_decode_step(torch, card, row=None) -> dict:
     """DRYRUN_ARCH's decode_32k step on the card at the batch its abstract
     pass (``row``, run here where None) picks, made as ``dryrun.card_pass``
@@ -4929,12 +5035,14 @@ def phase_decode_step(torch, card, row=None) -> dict:
 def phase_dryrun(torch, np, card, table):
     """The dry run's phases (a)-(d), for DRYRUN_ARCH, then GEMMA_ARCH (its
     steps, K6 and K7 at its 32k shapes, its one-block cut), MOE_ARCH (its
-    steps, K6 at its 32k shape, its one-block cut: :func:`phase_deepseek`)
-    MAMBA_ARCH (its steps, K8 at its 32k shape, its cut, and its float32
-    serving path: :func:`phase_mamba2`) and each of DENSE_ARCHS (its steps,
-    K6 and K7 at its card shapes, its cut, its float32 serving path:
-    :func:`phase_dense`), on ``table`` (:func:`phase_dryrun_table`'s);
-    returns what the JSON line carries."""
+    steps, long_500k's too, K6 at its 32k shape, its one-block cut:
+    :func:`phase_deepseek`), MAMBA_ARCH (its steps, K8 at its 32k shape,
+    its cut, and its float32 serving path: :func:`phase_mamba2`), each of
+    DENSE_ARCHS (its steps, K6 and K7 at its card shapes, its cut, its
+    float32 serving path: :func:`phase_dense`) and CROSS_ARCH (its steps,
+    train_4k's too, K6 and K7 at its card shapes, its cut's steps and
+    train step: :func:`phase_musicgen`), on ``table``
+    (:func:`phase_dryrun_table`'s); returns what the JSON line carries."""
     runs = phase_dryrun_card(torch, card, table)
     runs["decode_32k"]["trace"] = phase_decode_step(
         torch, card, table[(DRYRUN_ARCH, "decode_32k")])
@@ -4964,6 +5072,9 @@ def phase_dryrun(torch, np, card, table):
                       f"card_vs_cpu_{tag}": got["card_vs_cpu"],
                       f"{tag}_serve": got["serve"]})
         lap(f"the dry run and serving of {arch}")
+    musicgen = phase_musicgen(torch, np, card, table)
+    kernels["musicgen"] = musicgen["kernels"]
+    lap(f"the dry run of {CROSS_ARCH}")
     keep = ("hlo_flops", "hlo_bytes", "arg_bytes", "peak_memory_per_device",
             "fits", "max_batch", "batch1_peak_bytes", "t_floor", "dominant",
             "kernel_plain_flops", "cut_t_floor", "t_abstract_s")
@@ -4975,7 +5086,9 @@ def phase_dryrun(torch, np, card, table):
             "card_vs_cpu_deepseek": deepseek["card_vs_cpu"],
             "card_mamba2": mamba["card"],
             "card_vs_cpu_mamba2": mamba["card_vs_cpu"],
-            "mamba2_serve": mamba["serve"], **dense}
+            "mamba2_serve": mamba["serve"],
+            "card_musicgen": musicgen["card"],
+            "card_vs_cpu_musicgen": musicgen["card_vs_cpu"], **dense}
 
 
 LLM_ARCH = "zamba2-7b"
@@ -5346,13 +5459,13 @@ def phase_moe_reference(torch, np, card):
     return llm_reference(torch, np, card, block_cut(get_config(MOE_ARCH), 2))
 
 
-def cross_context(torch, cfg, n: int):
+def cross_context(torch, cfg, n: int, dtype=None):
     """Stub frontend embeddings (n, num_ctx_tokens, ctx_dim) on the card,
-    from SEED."""
+    from SEED (float32, or ``dtype``)."""
     from repro_torch.models import stubs
     return stubs.frontend_embeddings(
         cfg, n, generator=torch.Generator(device="cuda").manual_seed(SEED),
-        device="cuda")
+        device="cuda", dtype=dtype or torch.float32)
 
 
 def phase_cross_reference(torch, np, card):
@@ -5606,9 +5719,11 @@ def phase_cascade_reference(torch, np, card):
 # ---------------------------------------------------------------------------
 # LLM training (M11.3): K6 and K8 forward on the card, their plain
 # versions' VJPs backward (kernels.ops); the step against the CPU on a
-# 9-layer cut, then train_llm on zamba2-7b at full width cut to 17 layers
+# 9-layer cut, then train_llm on zamba2-7b at full width cut to 9 layers
 # ---------------------------------------------------------------------------
-TRAIN_LLM_BLOCKS, TRAIN_LLM_BATCH, TRAIN_LLM_SEQ = 2, 4, 512
+# one block (9 layers: Mamba2 layers and the shared attention, so both
+# kernels and both plain VJPs run), for the script's time limit
+TRAIN_LLM_BLOCKS, TRAIN_LLM_BATCH, TRAIN_LLM_SEQ = 1, 4, 512
 TRAIN_LLM_STEPS, TRAIN_LLM_REMAT_STEPS, TRAIN_LLM_LR = 6, 2, 3e-4
 TRAIN_REF_SEQ = 256
 # the K6 and K8 shapes of the training path: zamba2's shared attention and
@@ -5758,14 +5873,16 @@ class CaptureGrads:
 def phase_llm_train_reference(torch, np, card):
     """One ``make_train_step`` step (AdamW at TRAIN_LLM_LR, no remat) of
     zamba2-7b at full width cut to 9 layers, batch 1 x TRAIN_REF_SEQ tokens
-    from ``TokenStream``, on the card and on the CPU from the same numpy
-    weights (``weights.llm_from_numpy_tree``): the loss within 1e-5
-    relative, every gradient leaf and the parameters after the step
-    (``assert_train_params_close``) within LLM_GRAD_CARD_RTOL of their
-    scale.  Beside it, as a yardstick, the gradients of the plain program
-    on the card (K6 and K8 replaced by their plain versions, no kernel at
-    all) against the CPU's: the float32 program's own spread between the
-    two devices."""
+    from ``TokenStream``, on the card, and its loss and gradients
+    (``llm_grads``, as the step computes them) on the CPU, from the same
+    numpy weights (``weights.llm_from_numpy_tree``): the loss within 1e-5
+    relative, every gradient leaf within LLM_GRAD_CARD_RTOL of its scale,
+    and the parameters after the step (``assert_train_params_close``)
+    within LLM_GRAD_CARD_RTOL of what AdamW makes from the CPU's gradients
+    (:func:`adamw_first_step`, in float64 on the card).  Beside it, as a
+    yardstick, the gradients of the plain program on the card (K6 and K8
+    replaced by their plain versions, no kernel at all) against the CPU's:
+    the float32 program's own spread between the two devices."""
     from repro_torch import weights
     from repro_torch.configs import get_config
     from repro_torch.models import schema as sch
@@ -5780,20 +5897,28 @@ def phase_llm_train_reference(torch, np, card):
         cfg, SEED, "cuda"))
     batch = next(iter(data.TokenStream(cfg.vocab_size, TRAIN_REF_SEQ, 1,
                                        SEED)))
-    runs, wall = {}, {}
-    for dev in ("cuda", "cpu"):
-        params = weights.llm_from_numpy_tree(tree, dev)
-        opt = CaptureGrads(AdamW(lr=TRAIN_LLM_LR))
-        step = train_loop.make_train_step(cfg, opt, remat=False)
-        t0 = time.perf_counter()
-        new, state, m = step(params, opt.init(params),
-                             train_loop.to_device(batch, dev))
-        loss = float(m["loss"])
-        wall[dev] = time.perf_counter() - t0
-        # the leaves where they lie: compared on the card, in float64
-        runs[dev] = (flat_leaves(new), flat_leaves(opt.grads[0]), loss)
-        del params, new, state, opt, step
-    (p, g, loss), (p0, g0, loss0) = runs["cuda"], runs["cpu"]
+    params = weights.llm_from_numpy_tree(tree, "cuda")
+    opt = CaptureGrads(AdamW(lr=TRAIN_LLM_LR))
+    step = train_loop.make_train_step(cfg, opt, remat=False)
+    t0 = time.perf_counter()
+    new, state, m = step(params, opt.init(params),
+                         train_loop.to_device(batch, "cuda"))
+    loss = float(m["loss"])
+    card_s = time.perf_counter() - t0
+    # the leaves where they lie: compared on the card, in float64
+    p, g = flat_leaves(new), flat_leaves(opt.grads[0])
+    del params, new, state, opt, step
+    t0 = time.perf_counter()
+    (loss0, _), grads0 = train_loop.llm_grads(
+        cfg, weights.llm_from_numpy_tree(tree, "cpu"),
+        train_loop.to_device(batch, "cpu"), remat=False)
+    loss0, g0 = float(loss0), flat_leaves(grads0)
+    cpu_s = time.perf_counter() - t0
+    # AdamW's step from the CPU's gradients, on the card
+    p0 = adamw_first_step(AdamW(lr=TRAIN_LLM_LR),
+                          {k: t.to("cuda") for k, t in g0.items()},
+                          flat_leaves(weights.llm_from_numpy_tree(tree,
+                                                                  "cuda")))
     # the yardstick: the plain program's gradients on the card
     from repro_torch.kernels import ops, ref
     saved = ops.flash_attention, ops.ssd_scan
@@ -5808,7 +5933,6 @@ def phase_llm_train_reference(torch, np, card):
     torch.cuda.empty_cache()
     plain_err = max(leaf_rel_err(plain[k], g0[k]) for k in g0)
     del plain
-    card_s, cpu_s = wall["cuda"], wall["cpu"]
     loss_err = abs(loss - loss0) / abs(loss0)
     errs = {k: leaf_rel_err(g[k], g0[k]) for k in g0}
     worst = max(errs, key=errs.get)
@@ -5820,7 +5944,7 @@ def phase_llm_train_reference(torch, np, card):
     p_err = assert_train_params_close(p, p0, g0, TRAIN_LLM_LR, 1,
                                       "LLM train step card vs CPU",
                                       rtol=LLM_GRAD_CARD_RTOL)
-    del p, g, p0, g0, runs
+    del p, g, p0, g0
     torch.cuda.empty_cache()
     print(f"LLM train step card vs CPU reference, {cfg.name} at full width "
           f"({cfg.param_count() / 1e9:.3f} B parameters), 1 x "
@@ -5828,9 +5952,9 @@ def phase_llm_train_reference(torch, np, card):
           f" ({loss_err:.2e} relative), gradients within {errs[worst]:.2e} "
           f"of their leaf's scale (worst {worst}; LLM_GRAD_CARD_RTOL "
           f"{LLM_GRAD_CARD_RTOL}; the plain program on the card, no "
-          f"kernel, {plain_err:.2e}), parameters within {p_err:.2e}; one "
-          f"step {card_s:.2f} s on the card, {cpu_s:.2f} s on the CPU "
-          f"[{card}]")
+          f"kernel, {plain_err:.2e}), parameters within {p_err:.2e} of "
+          f"AdamW's from the CPU's gradients; one step {card_s:.2f} s on the"
+          f" card, its gradients {cpu_s:.2f} s on the CPU [{card}]")
     return {"loss_err": loss_err, "grad_err": errs[worst],
             "worst_leaf": worst, "params_err": p_err,
             "plain_on_card_grad_err": plain_err}
@@ -5936,7 +6060,7 @@ def train_launches(cfg, remat: bool) -> dict:
 
 def phase_llm_train_main_path(torch, np, card):
     """``train_loop.train_llm`` on zamba2-7b at full width cut to
-    TRAIN_LLM_BLOCKS blocks (17 layers), TRAIN_LLM_BATCH x TRAIN_LLM_SEQ
+    TRAIN_LLM_BLOCKS blocks (9 layers), TRAIN_LLM_BATCH x TRAIN_LLM_SEQ
     tokens, TRAIN_LLM_STEPS steps without remat; then TRAIN_LLM_REMAT_STEPS
     ``make_train_step`` steps with remat from the same init and batches.
     Counts zeroed before and read after each run; the loss must fall and
@@ -6226,22 +6350,51 @@ def bf16_update_ulps(got: dict, want: dict, lr: float) -> tuple:
 BF16_ULP_OF = 2.0 ** -7
 
 
-def phase_llm_launcher_reference(torch, np, card):
-    """One bf16 step of the launcher's make_step (remat, AdamW) on
-    LLM_ARCH at full width cut to 9 layers, 1 x LAUNCHER_REF_SEQ tokens,
-    from the same bf16 weights on the card and the CPU.  The loss and the
-    gradients' global norm agree within BF16_LLM_RTOL.  Every gradient
-    leaf agrees within BF16_GRAD_RTOL of its own norm
-    (:func:`leaf_l2_err`, its size and direction: a missing leaf is 1 off,
-    a reversed one 2), and the median leaf's norm within BF16_LLM_RTOL: the
-    global norm, which the embedding fills, shows neither.  The
-    parameters after the step are bf16 and are what AdamW makes on the CPU
-    from the card's own gradients, within one bf16 ulp an entry
-    (:func:`bf16_update_ulps`).  Beside it, as a yardstick, the step's
-    gradients on the card with K6 and K8 replaced by their plain versions
-    (no kernel at all) against the CPU's: the bf16 program's own spread
-    between the two devices, which a single bf16 rounding anywhere in the
-    9 layers feeds.  The comparisons run on the card."""
+def adamw_first_step(opt, grads: dict, params: dict) -> dict:
+    """The parameters after ``opt``'s (an ``AdamW`` with a float lr) first
+    step from zero moments, from flat {key: tensor} trees of gradients and
+    parameters: AdamW's formula written out again (the global-norm clip,
+    the bias-corrected moments, eps, the decoupled weight decay) in
+    float64 on the gradients' device, leaf by leaf, each rounded once to
+    its parameter's dtype.  The oracle that :func:`bf16_update_ulps` holds
+    a step's own float32 AdamW to: it checks the update's arithmetic from
+    the same gradients, on the card."""
+    import torch
+    norm = sum(float(g.double().square().sum()) for g in grads.values())
+    scale = (1.0 if opt.grad_clip is None
+             else min(1.0, opt.grad_clip / (norm ** 0.5 + 1e-9)))
+    out = {}
+    for k, p in params.items():
+        g = grads[k].to(torch.float64) * scale
+        p64 = p.to(g.device, torch.float64)
+        m_hat = (1 - opt.b1) * g / (1 - opt.b1)
+        v_hat = (1 - opt.b2) * g.square() / (1 - opt.b2)
+        u = m_hat / (v_hat.sqrt() + opt.eps) + opt.weight_decay * p64
+        out[k] = (p64 - opt.lr * u).to(p.dtype)
+    return out
+
+
+def phase_llm_launcher_reference(torch, np, card, arch: str = LLM_ARCH,
+                                 blocks: int = 1):
+    """One bf16 step of the launcher's make_step (remat, AdamW) on ``arch``
+    at full width cut to ``blocks`` blocks (LLM_ARCH: 9 layers), 1 x
+    LAUNCHER_REF_SEQ tokens (and a config's stub context), from the same
+    bf16 weights on the card and the CPU.  The loss and the gradients'
+    global norm agree within BF16_LLM_RTOL.  Every gradient leaf agrees
+    within BF16_GRAD_RTOL of its own norm (:func:`leaf_l2_err`, its size
+    and direction: a missing leaf is 1 off, a reversed one 2), and the
+    median leaf's norm within BF16_LLM_RTOL: the global norm, which the
+    embedding fills, shows neither.  With context, the leaves that take it
+    (``ctx_proj`` and the cross-attention's K and V projections) must get
+    a finite, non-zero gradient on both.  The parameters after the step
+    are bf16 and are what AdamW makes from the card's own gradients
+    (:func:`adamw_first_step`, in float64 on the card), within one bf16 ulp
+    an entry (:func:`bf16_update_ulps`); the CPU computes the step's loss
+    and gradients only.  Beside it, as a yardstick, the step's gradients
+    on the card with K6 and K8 replaced by their plain versions (no kernel
+    at all) against the CPU's: the bf16 program's own spread between the
+    two devices, which a single bf16 rounding anywhere in the cut feeds.
+    The comparisons run on the card."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.kernels import ops, ref
@@ -6251,8 +6404,8 @@ def phase_llm_launcher_reference(torch, np, card):
     from repro_torch.testing import (BF16_GRAD_RTOL, BF16_LLM_RTOL,
                                      leaf_rel_err)
     from repro_torch.training import data, train_loop
-    from repro_torch.training.optimizer import AdamW, tree_leaves
-    cfg = block_cut(get_config(LLM_ARCH), 1)
+    from repro_torch.training.optimizer import AdamW, global_norm, tree_leaves
+    cfg = block_cut(get_config(arch), blocks)
     step = make_step(cfg, ShapeConfig("t", LAUNCHER_REF_SEQ, 1, "train"),
                      lr=LAUNCHER_LR)[0]
     # drawn on the card (the host takes ~12 s for 1 B parameters)
@@ -6260,10 +6413,23 @@ def phase_llm_launcher_reference(torch, np, card):
         cfg, SEED, "cuda", COMPUTE_DTYPE))
     batch = next(iter(data.TokenStream(cfg.vocab_size, LAUNCHER_REF_SEQ, 1,
                                        SEED)))
+    if cfg.num_ctx_tokens:
+        batch["ctx_embed"] = cross_context(torch, cfg, 1,
+                                           COMPUTE_DTYPE).cpu()
 
-    def run(dev):
+    def run(dev, update=True):
+        """The step on ``dev``: make_step's, AdamW and all, or (not
+        ``update``) its loss and gradients alone, as its train step
+        computes them (``llm_grads``, remat, the compute dtype): the
+        parameters after the step are held on the card only."""
         params = sch.tree_map(lambda t: t.to(dev), cpu_params)
         t0 = time.perf_counter()
+        if not update:
+            (total, _), grads = train_loop.llm_grads(
+                cfg, params, train_loop.to_device(batch, dev), remat=True,
+                dtype=COMPUTE_DTYPE)
+            return dict(loss=float(total), norm=float(global_norm(grads)),
+                        grads=grads, wall=time.perf_counter() - t0)
         with GradNorms(keep=True) as tap:
             new, _, m = step(params, AdamW(lr=LAUNCHER_LR).init(params),
                              train_loop.to_device(batch, dev))
@@ -6274,11 +6440,11 @@ def phase_llm_launcher_reference(torch, np, card):
                     kept=all(t.dtype == COMPUTE_DTYPE
                              for t in tree_leaves(new)), wall=wall)
 
-    card_run, cpu_run = run("cuda"), run("cpu")
+    card_run, cpu_run = run("cuda"), run("cpu", update=False)
     saved = ops.flash_attention, ops.ssd_scan
     ops.flash_attention, ops.ssd_scan = ref.flash_attention, ref.ssd_scan
     try:
-        plain_g = flat_leaves(run("cuda")["grads"])
+        plain_g = flat_leaves(run("cuda", update=False)["grads"])
     finally:
         ops.flash_attention, ops.ssd_scan = saved
     g, g0 = flat_leaves(card_run["grads"]), flat_leaves(cpu_run["grads"])
@@ -6296,15 +6462,22 @@ def phase_llm_launcher_reference(torch, np, card):
              for k in g0]
     median_l2 = float(np.median(list(errs.values())))
     median_norm = float(np.median(norms))
-    # AdamW on the CPU, from the card's gradients and the same parameters
-    opt, t0 = AdamW(lr=LAUNCHER_LR), time.perf_counter()
-    want = flat_leaves(opt.update(
-        sch.tree_map(lambda t: t.to("cpu"), card_run["grads"]),
-        opt.init(cpu_params), cpu_params)[0])
+    # the leaves the context reaches: a gradient on both devices
+    ctx_leaves = sorted(k for k in g0 if k == "ctx_proj"
+                        or k.endswith(("xattn/wk", "xattn/wv")))
+    reached = all(bool(t[k].isfinite().all()) and float(t[k].abs().max()) > 0
+                  for k in ctx_leaves for t in (g, g0))
+    # AdamW's oracle from the card's gradients and the same parameters
+    t0 = time.perf_counter()
+    want = adamw_first_step(AdamW(lr=LAUNCHER_LR), g,
+                            flat_leaves(cpu_params))
     adamw_s = time.perf_counter() - t0
     ulps, differ = bf16_update_ulps(card_run["params"], want, LAUNCHER_LR)
     del want, g, card_run["grads"], card_run["params"]
     torch.cuda.empty_cache()
+    ctx_note = ("" if not ctx_leaves else
+                f"; the context's leaves {', '.join(ctx_leaves)} reached on "
+                f"both: {reached}")
     print(f"launcher step card vs CPU in bf16, {cfg.name} at full width, 1 x"
           f" {LAUNCHER_REF_SEQ} tokens: loss {loss:.6f} vs {loss0:.6f} "
           f"({loss_err:.2e}), gradient norm {norm:.4f} vs {norm0:.4f} "
@@ -6312,17 +6485,18 @@ def phase_llm_launcher_reference(torch, np, card):
           f"gradient leaves within {errs[worst]:.3e} of their norm (worst "
           f"{worst}; median {median_l2:.3e}; BF16_GRAD_RTOL "
           f"{BF16_GRAD_RTOL}), their norms within {max(norms):.3e} (median "
-          f"{median_norm:.3e}; tolerance {BF16_LLM_RTOL}); the plain "
-          f"program on the card, no kernel, {plain[plain_worst]:.3e} (worst "
-          f"{plain_worst}; median "
+          f"{median_norm:.3e}; tolerance {BF16_LLM_RTOL}){ctx_note}; the "
+          f"plain program on the card, no kernel, {plain[plain_worst]:.3e} "
+          f"(worst {plain_worst}; median "
           f"{float(np.median(list(plain.values()))):.3e}); the card's "
-          f"parameters after the step AdamW's on the CPU from its gradients "
-          f"within {ulps:.3f} bf16 ulp ({differ:.3e} of the entries differ);"
-          f" one step {card_run['wall']:.2f} s on the card, "
-          f"{cpu_run['wall']:.2f} s on the CPU, AdamW from the card's "
-          f"gradients {adamw_s:.2f} s on the CPU [{card}]")
+          f"parameters after the step AdamW's (its float64 oracle on the "
+          f"card) from its gradients within {ulps:.3f} bf16 ulp "
+          f"({differ:.3e} of the entries differ); one step "
+          f"{card_run['wall']:.2f} s on the card, its gradients "
+          f"{cpu_run['wall']:.2f} s on the CPU, the oracle {adamw_s:.2f} s "
+          f"[{card}]")
     if not (np.isfinite(loss) and card_run["kept"] and same_keys
-            and loss_err <= BF16_LLM_RTOL
+            and reached and loss_err <= BF16_LLM_RTOL
             and norm_err <= BF16_LLM_RTOL and errs[worst] <= BF16_GRAD_RTOL
             and median_norm <= BF16_LLM_RTOL and ulps <= 1.0):
         raise AssertionError(f"launcher step card vs CPU: loss {loss} vs "
@@ -6330,14 +6504,15 @@ def phase_llm_launcher_reference(torch, np, card):
                              f"worst gradient leaf {worst} {errs[worst]:.3e}"
                              f", median leaf norm {median_norm:.3e}, "
                              f"parameters {ulps:.3f} ulp, bf16 parameters "
-                             f"kept {card_run['kept']}")
+                             f"kept {card_run['kept']}, the context's leaves"
+                             f" reached {reached}")
     return {"loss_err": loss_err, "grad_norm_err": norm_err,
             "grad_err": errs[worst], "worst_leaf": worst,
             "grad_err_median": median_l2, "leaf_norm_err": max(norms),
             "leaf_norm_err_median": median_norm, "params_ulps": ulps,
             "params_differ": differ,
             "plain_on_card_grad_err": plain[plain_worst],
-            "cpu_s": cpu_run["wall"], "cpu_adamw_s": adamw_s}
+            "cpu_s": cpu_run["wall"], "adamw_oracle_s": adamw_s}
 
 
 def phase_llm_launcher(torch, np, card, cut):
@@ -6475,6 +6650,9 @@ ONLY_PHASES = {
                                                       "starcoder2-7b"),
     "starcoder2_32k": lambda torch, np, card: relay_probes(
         ROOT, "this tree", ["phase_starcoder2_32k"]),
+    "musicgen": phase_musicgen,
+    "musicgen_32k": lambda torch, np, card: relay_probes(
+        ROOT, "this tree", ["phase_musicgen_32k"]),
 }
 
 
@@ -6492,7 +6670,8 @@ def main() -> int:
                          "K7 / K8 rows (k6, k7, k8) and this script's "
                          "probes on its package (k7_host, decode_step, "
                          "gemma2_32k, gemma2_serve, deepseek_32k, "
-                         "mamba2_32k, qwen2_32k, starcoder2_32k) run "
+                         "mamba2_32k, qwen2_32k, starcoder2_32k, "
+                         "musicgen_32k) run "
                          "before and after")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -6704,7 +6883,7 @@ def main() -> int:
             bf["name"]] for s in DRYRUN_CARD_SHAPES}
         archs = (("gemma2", GEMMA_ARCH), ("deepseek", MOE_ARCH),
                  ("mamba2", MAMBA_ARCH)) + tuple(
-                     (dense_tag(a), a) for a in DENSE_ARCHS)
+                     (dense_tag(a), a) for a in DENSE_ARCHS + (CROSS_ARCH,))
         for arch, name in archs:
             bf[f"launches_dryrun_{arch}"] = {s: dryrun[f"card_{arch}"][s][
                 "launches"][bf["name"]] for s in card_shapes(name)}
@@ -6723,8 +6902,8 @@ def main() -> int:
                 if key.startswith(tag)}
         if tag == "K6":          # MLA's d 192 over d_v 128: <NWG, 12, 8>
             bf["dryrun_deepseek"] = dryrun["kernels"]["deepseek"]
-        if tag:                  # d 128 at GQA groups 7 and 9
-            for arch in DENSE_ARCHS:
+        if tag:                  # d 128 at GQA groups 7 and 9, d 64 at 24
+            for arch in DENSE_ARCHS + (CROSS_ARCH,):
                 bf[f"dryrun_{dense_tag(arch)}"] = {
                     key: r for key, r in dryrun["kernels"][
                         dense_tag(arch)].items() if key.startswith(tag)}
@@ -6755,7 +6934,7 @@ def main() -> int:
                                   "card_vs_cpu_deepseek", "card_mamba2",
                                   "card_vs_cpu_mamba2") + tuple(
                                       f"{k}_{dense_tag(a)}"
-                                      for a in DENSE_ARCHS
+                                      for a in DENSE_ARCHS + (CROSS_ARCH,)
                                       for k in ("card", "card_vs_cpu"))}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

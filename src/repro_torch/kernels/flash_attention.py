@@ -195,7 +195,7 @@ def flash_attention_vjp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv): the VJP of the plain version at (q, k, v) against the
     cotangent ``d_out``, recomputed under autograd on the inputs' device."""
     global vjps
-    vjps += 1
+    vjps += not q.is_meta          # the dry run's count on meta runs none
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         out = flash_attention_ref(*leaves, causal=causal, window=window,

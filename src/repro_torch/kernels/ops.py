@@ -35,8 +35,14 @@ computes nothing, so it is no fallback.  The roofline's counters
 each kernel call there runs inside a region they see (:func:`_plain`), so
 the byte and memory counts charge the kernel's operands, outputs and
 workspace and not the plain version's intermediates, and the floor K6's,
-K7's and K8's own operations (their modules' ``work``).  Every other device
-but the CPU and CUDA raises.
+K7's and K8's own operations (their modules' ``work``).  A meta operand of
+K6 or K8 that requires grad goes through the card's Function with that
+region as its forward (``_MetaFlashAttention``, ``_MetaSSDScan``): the
+backward then recomputes the plain version's VJP outside the region, so
+the counters see what the card holds and moves there (the recomputed
+forward's score or decay tensors), and the forward's intermediates stay
+uncounted, as the card never holds them.  Every other device but the CPU
+and CUDA raises.
 """
 from __future__ import annotations
 
@@ -137,6 +143,29 @@ def _plain(name: str, fn, *args, workspace_bytes: int = 0, work=None,
     for obs in reversed(META_OBSERVERS):
         obs.kernel_exit(name, operands, out, workspace_bytes, counted)
     return out
+
+
+class _MetaFlashAttention(_fa.FlashAttention):
+    """``FlashAttention`` on meta tensors: the kernel region forward, the
+    plain version's VJP recomputed backward (not counted as a VJP: meta
+    runs nothing)."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window, softcap, q_offset):
+        return _plain("flash_attention", _fa.flash_attention_ref, q, k, v,
+                      work=_fa.work, causal=causal, window=window,
+                      softcap=softcap, q_offset=q_offset)
+
+
+class _MetaSSDScan(_sk.SSDScan):
+    """``SSDScan`` on meta tensors, as :class:`_MetaFlashAttention`."""
+
+    @staticmethod
+    def forward(x, dt, A, B, C, chunk, initial_state):
+        return _plain("ssd_scan", _sk.ssd_scan_ref, x, dt, A, B, C,
+                      workspace_bytes=_sk.workspace_bytes(x, B, chunk),
+                      work=_sk.work, chunk=chunk,
+                      initial_state=initial_state)
 
 
 def region_filter_mask_batch(proposals, prop_valid, accepted, acc_valid,
@@ -242,9 +271,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
     version's VJP backward."""
     kw = dict(causal=causal, window=window, softcap=softcap,
               q_offset=q_offset)
-    if q.is_cuda and _wants_grad(q, k, v):
-        return _fa.FlashAttention.apply(q, k, v, causal, window, softcap,
-                                        q_offset)
+    if (q.is_cuda or q.is_meta) and _wants_grad(q, k, v):
+        fn = _fa.FlashAttention if q.is_cuda else _MetaFlashAttention
+        return fn.apply(q, k, v, causal, window, softcap, q_offset)
     if _on_card(q, k, v):
         return _fa.flash_attention(q, k, v, **kw)
     return _plain("flash_attention", _fa.flash_attention_ref, q, k, v,
@@ -270,8 +299,10 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 64, initial_state=None):
     an operand that requires grad: the kernel forward, the plain version's
     VJP backward (both outputs may carry a cotangent)."""
     kw = dict(chunk=chunk, initial_state=initial_state)
-    if x.is_cuda and _wants_grad(x, dt, A, B, C, initial_state):
-        return _sk.SSDScan.apply(x, dt, A, B, C, chunk, initial_state)
+    if (x.is_cuda or x.is_meta) and _wants_grad(x, dt, A, B, C,
+                                                initial_state):
+        fn = _sk.SSDScan if x.is_cuda else _MetaSSDScan
+        return fn.apply(x, dt, A, B, C, chunk, initial_state)
     if _on_card(x, dt, A, B, C, initial_state):
         return _sk.ssd_scan(x, dt, A, B, C, **kw)
     return _plain("ssd_scan", _sk.ssd_scan_ref, x, dt, A, B, C,

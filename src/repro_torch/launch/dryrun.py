@@ -65,6 +65,8 @@ ARTIFACT_DIR = os.environ.get(
 STEP_KERNELS = ("flash_attention", "decode_attention", "ssd_scan",
                 "flash_attention_bf16", "decode_attention_bf16",
                 "ssd_scan_bf16")
+# the plain VJPs a train step runs backward of K6's and K8's launches
+STEP_VJPS = ("flash_attention_vjp", "ssd_scan_vjp")
 # the warm-up call's sequence (cache) length: it loads the kernels and
 # cuBLAS's handles at a fraction of a 32k step's time
 WARMUP_SEQ = 256
@@ -85,7 +87,13 @@ def abstract_pass(cfg, shape, arch: str) -> RooflineReport:
 def fit_batch(cfg, shape, arch: str, full: RooflineReport):
     """(largest global batch <= shape's whose peak fits the card's HBM, or
     0; the report at that batch, or None; the report at batch 1, or None
-    where the full batch fits)."""
+    where the full batch fits).  The batch is extrapolated from the peaks
+    at batch 1 and the full batch and confirmed by a pass at it (down
+    while it does not fit).  A train step's peak is not affine in the
+    batch: at small batches the AdamW update's, the same at any batch,
+    lies above the backward's, so the extrapolation from batch 1 falls
+    short; while the found batch's own peak leaves a row's extrapolated
+    slope under the HBM, the next batch is tried (up while it fits)."""
     hbm, big = H100.hbm_bytes, shape.global_batch
     if full.peak_memory_per_device <= hbm:
         return big, full, None
@@ -95,22 +103,34 @@ def fit_batch(cfg, shape, arch: str, full: RooflineReport):
         return 0, None, one
     slope = (full.peak_memory_per_device - one.peak_memory_per_device) \
         / (big - 1)
+
+    def at(b):
+        return abstract_pass(cfg, dataclasses.replace(shape, global_batch=b),
+                             arch)
     b = min(big - 1, 1 + int((hbm - one.peak_memory_per_device) // slope))
+    rep = one
     while b > 1:
-        rep = abstract_pass(cfg, dataclasses.replace(shape, global_batch=b),
-                            arch)
+        rep = at(b)
         if rep.peak_memory_per_device <= hbm:
-            return b, rep, one
+            break
         b -= 1
-    return 1, one, one
+    else:
+        b, rep = 1, one
+    while b < big - 1 and rep.peak_memory_per_device + slope <= hbm:
+        nxt = at(b + 1)
+        if nxt.peak_memory_per_device > hbm:
+            break
+        b, rep = b + 1, nxt
+    return b, rep, one
 
 
-def step_inputs(cfg, shape, device, params=None) -> list:
+def step_inputs(cfg, shape, device, params=None, opt_state=None) -> list:
     """Real arguments of ``make_step``'s step on ``device``: ``params`` or
     parameters in ``launch.specs.COMPUTE_DTYPE`` and tokens drawn from
-    ``SEED``, stub context in that dtype; for train a fresh AdamW state
-    and labels, for decode a zeroed cache in that dtype whose last slot is
-    the one written (the step attends over all of it)."""
+    ``SEED``, stub context in that dtype; for train ``opt_state`` or a
+    fresh AdamW state, and labels; for decode a zeroed cache in that dtype
+    whose last slot is the one written (the step attends over all of
+    it)."""
     dtype = specs.COMPUTE_DTYPE
     if params is None:
         params = tfm.init_params(cfg, SEED, device, dtype)
@@ -127,7 +147,8 @@ def step_inputs(cfg, shape, device, params=None) -> list:
         batch = {"tokens": tokens(s), "labels": tokens(s)}
         if ctx is not None:
             batch["ctx_embed"] = ctx
-        return [params, AdamW().init(params), batch]
+        return [params, AdamW().init(params) if opt_state is None
+                else opt_state, batch]
     real = [params, tokens(s if shape.mode == "prefill" else 1)]
     if shape.mode == "decode":
         real += [tfm.init_cache(cfg, b, s, device, dtype),
@@ -144,8 +165,11 @@ def card_pass(cfg, shape, dry: dict) -> dict:
     fastest and slowest calls; the peak allocated bytes (above what was
     allocated before the step's arguments were made: the prediction counts
     the arguments and what the step adds); the launch counts of the first
-    timed call; whether its logits (train: the loss) are finite; and
-    beside them the prediction: the peak and the floor at that batch."""
+    timed call (a train step's plain VJPs too); whether its logits (train:
+    the loss) are finite; and beside them the prediction: the peak and the
+    floor at that batch.  A train step warms up on the timed call's AdamW
+    state (the step makes a new one and leaves it as it was): a second
+    state beside it would pass the card's HBM."""
     device = require_device("cuda")
     set_reference_precision()
     b = dry["max_batch"]
@@ -154,7 +178,9 @@ def card_pass(cfg, shape, dry: dict) -> dict:
     base = torch.cuda.memory_allocated(device)
     real = step_inputs(cfg, shape, device)
     warm = dataclasses.replace(shape, seq_len=min(shape.seq_len, WARMUP_SEQ))
-    make_step(cfg, warm)[0](*step_inputs(cfg, warm, device, real[0]))
+    make_step(cfg, warm)[0](*step_inputs(
+        cfg, warm, device, real[0],
+        real[1] if shape.mode == "train" else None))
     fn = make_step(cfg, shape)[0]
     torch.cuda.synchronize(device)
     torch.cuda.empty_cache()
@@ -178,7 +204,7 @@ def card_pass(cfg, shape, dry: dict) -> dict:
     result = {"batch": b, "ms": ms, "ms_min": min(times),
               "ms_max": max(times), "calls": len(times),
               "peak_bytes": torch.cuda.max_memory_allocated(device) - base,
-              "launches": {k: counts[k] for k in STEP_KERNELS},
+              "launches": {k: counts[k] for k in STEP_KERNELS + STEP_VJPS},
               "out_shape": list(head.shape), "finite": finite,
               "predicted_peak_bytes": dry["cut_peak_bytes"],
               "floor_ms": floor_ms, "dominant": dry["cut_dominant"],

@@ -21,7 +21,9 @@ and counts what the eager program does:
     operand and result bytes of each aten op.  That is the traffic of the
     eager program, op by op; it is not XLA's count after fusion;
   * argument bytes, output bytes and a peak of live bytes, by following
-    each storage from the op that makes it until Python frees it.
+    each storage from the op that makes it until Python frees it, and the
+    temporaries two CUDA kernels hold during their op (a float32 sum's
+    buffer past 2^31 elements, the softmax backward's ``grad * output``).
 
 A kernel call (``kernels.ops``) on meta runs its plain version inside a
 kernel region (``ops.META_OBSERVERS``).  ``hlo_flops`` counts the plain
@@ -286,6 +288,23 @@ def reduce_buffer_bytes(func, operands, results) -> int:
     return sum(4 * t.numel() for t in results if t.element_size() < 4)
 
 
+# PyTorch's CUDA softmax backward (SoftMax.cu, softmax_backward_cuda_out)
+# forms grad * output, a temporary of the gradient's size, before its
+# kernel: live beside the result during the op (8.05 GB in the plain K6
+# VJP of musicgen-medium's train_4k at 5 rows, its float32 scores of 5 x
+# 24 x 4,096^2, measured on an H100: the step's peak read 1.1286 of the
+# prediction without it)
+_SOFTMAX_BACKWARD = {_ATEN._softmax_backward_data.default}
+
+
+def softmax_buffer_bytes(func, operands) -> int:
+    """The bytes of the ``grad * output`` temporary that ``func``'s CUDA
+    kernel holds beside its result (``_SOFTMAX_BACKWARD``), or 0."""
+    if func not in _SOFTMAX_BACKWARD or not operands:
+        return 0
+    return nbytes(operands[0])
+
+
 class StepCounter(TorchDispatchMode):
     """Bytes moved and live bytes of an eager step on meta tensors.
 
@@ -390,7 +409,8 @@ class StepCounter(TorchDispatchMode):
             self.track(t)
         if func not in _ALLOCATE:
             self.peak = max(self.peak, self.live + reduce_buffer_bytes(
-                func, operands, results))
+                func, operands, results) + softmax_buffer_bytes(
+                func, operands))
         return out
 
 

@@ -406,7 +406,7 @@ def _same_abstract(got, want):
 @pytest.mark.parametrize("arch,shape", [
     ("zamba2-7b", "prefill_32k"), ("zamba2-7b", "decode_32k"),
     ("deepseek-v2-lite-16b", "train_4k"), ("musicgen-medium", "decode_32k"),
-    ("musicgen-medium", "prefill_32k")])
+    ("musicgen-medium", "prefill_32k"), ("musicgen-medium", "train_4k")])
 def test_make_step_abstract_args_are_the_references_in_bf16(arch, shape):
     tcfg, jcfg = get_config(arch), jax_config(arch)
     from repro.configs import INPUT_SHAPES as J_SHAPES

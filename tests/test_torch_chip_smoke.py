@@ -1152,9 +1152,11 @@ def test_offsets_past_2_31_pass_for_k8_only():
 
 
 def test_card_shapes_take_long_500k_for_mamba2_only():
+    # zamba2 and gemma2 keep the two 32k shapes; mamba2 adds long_500k
+    # (deepseek and the dense archs do too, musicgen train_4k: the tests
+    # below)
     assert chip_smoke.MAMBA_ARCH == "mamba2-2.7b"
-    for arch in (chip_smoke.DRYRUN_ARCH, chip_smoke.GEMMA_ARCH,
-                 chip_smoke.MOE_ARCH):
+    for arch in (chip_smoke.DRYRUN_ARCH, chip_smoke.GEMMA_ARCH):
         assert chip_smoke.card_shapes(arch) == ("prefill_32k", "decode_32k")
     assert chip_smoke.card_shapes("mamba2-2.7b") == (
         "prefill_32k", "decode_32k", "long_500k")
@@ -1236,16 +1238,19 @@ def test_mamba2_phases_are_wired_in():
 
 def test_card_shapes_take_long_500k_for_mamba2_and_the_dense_archs():
     # long_500k on the card for the archs whose abstract pass fits it at
-    # batch 1: mamba2-2.7b and the dense GQA decoders (their +sliding
-    # variant); zamba2, gemma2 and deepseek keep the two 32k shapes
+    # batch 1: mamba2-2.7b, the dense GQA decoders (their +sliding
+    # variant) and deepseek-v2-lite-16b (its 524,288-slot latent cache);
+    # zamba2 and gemma2 keep the two 32k shapes
     from repro_torch.configs import list_archs
     assert chip_smoke.DENSE_ARCHS == ("qwen2-7b", "starcoder2-7b")
     long = {a for a in list_archs()
             if "long_500k" in chip_smoke.card_shapes(a)}
-    assert long == {"mamba2-2.7b", "qwen2-7b", "starcoder2-7b"}
-    for arch in (chip_smoke.DRYRUN_ARCH, chip_smoke.GEMMA_ARCH,
-                 chip_smoke.MOE_ARCH):
+    assert long == {"mamba2-2.7b", "qwen2-7b", "starcoder2-7b",
+                    "deepseek-v2-lite-16b"}
+    for arch in (chip_smoke.DRYRUN_ARCH, chip_smoke.GEMMA_ARCH):
         assert chip_smoke.card_shapes(arch) == ("prefill_32k", "decode_32k")
+    assert chip_smoke.card_shapes(chip_smoke.MOE_ARCH) == (
+        "prefill_32k", "decode_32k", "long_500k")
     # the batches their abstract passes pick (qwen2 9, 34, 1; starcoder2
     # 8, 27, 1)
     for arch, (bp, bd) in (("qwen2-7b", (9, 34)), ("starcoder2-7b", (8, 27))):
@@ -1505,3 +1510,197 @@ def test_launcher_cut_runs_beside_the_build(monkeypatch, capsys):
     assert 0 < peaks[1] < peaks[2]
     assert chip_smoke.report_launcher_cut("card", cut) == peaks[1]
     assert "1 blocks (9 layers)" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# musicgen-medium's bf16 steps on the card, deepseek's long_500k, the cuts
+# ---------------------------------------------------------------------------
+def test_musicgen_card_shapes_and_step_launches():
+    # prefill_32k, decode_32k and the first train step on the card (its
+    # long_500k fits no batch); the launches each step must make, every
+    # one a bf16 one: 48 cross layers, a self- and a cross-attention K6 a
+    # layer at prefill, a K7 and a cross K6 at decode, and at train the
+    # forward's 96 again under remat with one plain VJP a first-pass launch
+    from repro_torch.configs import get_config
+    assert chip_smoke.CROSS_ARCH == "musicgen-medium"
+    assert chip_smoke.card_shapes("musicgen-medium") == (
+        "prefill_32k", "decode_32k", "train_4k")
+    table = {("musicgen-medium", s): {"max_batch": b} for s, b in (
+        ("prefill_32k", 6), ("decode_32k", 7), ("train_4k", 7),
+        ("long_500k", 0))}
+    assert chip_smoke.card_batches(table, "musicgen-medium") == {
+        "prefill_32k": 6, "decode_32k": 7, "train_4k": 7}
+    cfg = get_config("musicgen-medium")
+    none = {k: 0 for k in ("ssd_scan", "ssd_scan_bf16")}
+    assert chip_smoke.step_launches(cfg, "train") == {
+        "flash_attention": 192, "flash_attention_bf16": 192,
+        "flash_attention_vjp": 96, "ssd_scan_vjp": 0, "decode_attention": 0,
+        "decode_attention_bf16": 0, **none}
+    assert chip_smoke.train_launches(cfg, remat=False) == {
+        "flash_attention": 96, "ssd_scan": 0, "flash_attention_vjp": 96,
+        "ssd_scan_vjp": 0}
+    assert chip_smoke.step_launches(cfg, "prefill") == {
+        "flash_attention": 96, "flash_attention_bf16": 96,
+        "decode_attention": 0, "decode_attention_bf16": 0,
+        "flash_attention_vjp": 0, "ssd_scan_vjp": 0, **none}
+    assert chip_smoke.step_launches(cfg, "decode") == {
+        "flash_attention": 48, "flash_attention_bf16": 48,
+        "decode_attention": 48, "decode_attention_bf16": 48,
+        "flash_attention_vjp": 0, "ssd_scan_vjp": 0, **none}
+
+
+def test_deepseek_long_500k_launches_nothing():
+    # MLA's absorbed decode over the +sliding variant's 524,288-slot latent
+    # cache: no K6, K7 or K8, and no K7 offset to gate
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.launch.specs import arch_for_shape
+    cfg = arch_for_shape(get_config("deepseek-v2-lite-16b"),
+                         INPUT_SHAPES["long_500k"])
+    assert set(chip_smoke.step_launches(cfg, "decode").values()) == {0}
+    assert chip_smoke.kernel_offsets(get_config("deepseek-v2-lite-16b"),
+                                     {"long_500k": 1}) == {}
+
+
+def test_kernel_offsets_at_musicgens_card_batches():
+    # K6's q at prefill_32k's 6 rows (the train step's 7 x 4,096 is
+    # smaller) and K7's caches at decode_32k's 7 slots: below 2^31
+    from repro_torch.configs import get_config
+    cfg = get_config("musicgen-medium")
+    got = chip_smoke.kernel_offsets(cfg, {"prefill_32k": 6,
+                                          "decode_32k": 7, "train_4k": 7})
+    assert got == {"flash_attention": 6 * 32768 * 24 * 64,
+                   "decode_attention": 7 * 32768 * 24 * 64}
+    assert got == {"flash_attention": 301_989_888,
+                   "decode_attention": 352_321_536}
+    assert chip_smoke.kernel_offsets(cfg, {"train_4k": 7}) == {
+        "flash_attention": 7 * 4096 * 24 * 64}
+    chip_smoke.check_offsets(got)
+
+
+def test_musicgen_bounds_at_its_card_shapes():
+    # K6's causal self-attention at 6 x 32,768 (24 / 24 heads, d 64):
+    # 20.00 ms of bf16 products and 5.77 of softmax operations; its
+    # cross-attention over 256 context keys by operations too; its decode
+    # step (one query a slot) and K7 over 7 x 32,768 slots by bytes
+    nbytes, mma, other, (bound, by) = chip_smoke.k6_causal_bound(
+        6, 32768, 24, 24, 64, 64)
+    assert by == "operations"
+    assert bound == pytest.approx(25.773389, abs=1e-6)
+    assert mma / 989.4e12 * 1e3 == pytest.approx(20.00, abs=0.01)
+    nbytes, mma, other, (bound, by) = chip_smoke.k6_cross_bound(
+        6, 32768, 256, 24, 24, 64)
+    assert (by, mma) == ("operations", 6 * 32768 * 256 * 24 * 4 * 64)
+    assert nbytes == 2 * 6 * 24 * 64 * 2 * (32768 + 256) + 4 * 6
+    assert bound == pytest.approx(0.402697, abs=1e-6)
+    assert chip_smoke.k6_cross_bound(7, 1, 256, 24, 24, 64)[3][1] == "bytes"
+    nbytes, _, _, (bound, by) = chip_smoke.k7_bound(
+        7, 24, 24, 64, [32768] * 7, 32768, None)
+    assert (nbytes, by) == (1_409_329_180, "bytes")
+    assert bound == pytest.approx(0.420695, abs=1e-6)
+
+
+def test_k6_32k_cases_follow_the_context():
+    # musicgen: its self-attention at prefill_32k, the cross-attention
+    # over its 256 context keys at prefill_32k and at decode_32k's one
+    # token a slot, K7 at decode_32k only; a dense arch: its causal
+    # prefill, and long_500k's K7 cases where it runs that shape
+    from repro_torch.configs import get_config
+    got = chip_smoke.k6_32k_cases(get_config("musicgen-medium"),
+                                  {"prefill_32k": 6, "decode_32k": 7})
+    assert got == [("K6 self prefill_32k", 6, 32768, 32768, True),
+                   ("K6 cross prefill_32k", 6, 32768, 256, False),
+                   ("K6 cross decode_32k", 7, 1, 256, False)]
+    assert chip_smoke.dense_k7_cases({"prefill_32k": 6, "decode_32k": 7}) \
+        == [("K7 decode_32k", 7, 32768, None, 32768)]
+    assert chip_smoke.k6_32k_cases(get_config("qwen2-7b"), {
+        "prefill_32k": 9, "decode_32k": 34}) == [
+        ("K6 prefill_32k", 9, 32768, 32768, True)]
+    assert len(chip_smoke.dense_k7_cases({"decode_32k": 34,
+                                          "long_500k": 1})) == 3
+
+
+def test_musicgen_phases_are_wired_in():
+    # the full run: musicgen's bf16 steps, K6 and K7 at its card shapes
+    # against their plain versions, its 2-layer cut's steps layer by layer
+    # and its train step, after the dense archs', on the dry run's table;
+    # --only musicgen alone, --only musicgen_32k the timing probe; the
+    # JSON line's dryrun and K6 / K7 bf16 rows carry them
+    import inspect
+    dry = inspect.getsource(chip_smoke.phase_dryrun)
+    assert dry.index("phase_dense(torch, np, card, arch, table)") < \
+        dry.index("phase_musicgen(torch, np, card, table)")
+    assert '"card_musicgen": musicgen["card"]' in dry
+    assert '"card_vs_cpu_musicgen": musicgen["card_vs_cpu"]' in dry
+    phase = inspect.getsource(chip_smoke.phase_musicgen)
+    assert phase.index("CROSS_ARCH), CROSS_ARCH)") < phase.index(
+        "phase_musicgen_32k(torch, card,") < phase.index(
+        "phase_dryrun_reference(torch, np, card, CROSS_ARCH,") < \
+        phase.index("phase_llm_launcher_reference(torch, np, card, "
+                    "CROSS_ARCH,")
+    assert "check=True" in phase
+    assert chip_smoke.ONLY_PHASES["musicgen"] is chip_smoke.phase_musicgen
+    assert "musicgen_32k" in chip_smoke.ONLY_PHASES
+    assert chip_smoke.PROBES["phase_musicgen_32k"] == "musicgen 32k"
+    assert chip_smoke.dense_tag("musicgen-medium") == "musicgen"
+    main = inspect.getsource(chip_smoke.main)
+    assert "DENSE_ARCHS + (CROSS_ARCH,)" in main
+    ref = inspect.getsource(chip_smoke.phase_dryrun_reference)
+    assert "prefill(params[dev], t, ctx[dev])" in ref
+    # its cuts: MUSICGEN_REF_BLOCKS cross layers at full width
+    from repro_torch.configs import get_config
+    cut = chip_smoke.block_cut(get_config("musicgen-medium"),
+                               chip_smoke.MUSICGEN_REF_BLOCKS)
+    assert (cut.num_layers, cut.d_model, cut.num_ctx_tokens) == (2, 1536,
+                                                                 256)
+    assert chip_smoke.llm_kernel_calls(cut) == (4, 0)
+
+
+def test_adamw_first_step_is_adamws_update():
+    # the float64 oracle of the launcher checks against AdamW's own
+    # float32 update from the same gradients: within one bf16 ulp an entry
+    # (a float32 result can round to bf16 the other way at a tie), with
+    # the global-norm clip active and not
+    from repro_torch.training.optimizer import AdamW
+    gen = torch.Generator().manual_seed(0)
+    params = {"a": torch.randn(64, 32, generator=gen).to(torch.bfloat16),
+              "b": torch.randn(7, generator=gen).to(torch.bfloat16)}
+    for scale in (1e-3, 10.0):                    # unclipped, clipped
+        grads = {k: (scale * torch.randn(p.shape, generator=gen)).to(
+            torch.bfloat16) for k, p in params.items()}
+        opt = AdamW(lr=3e-4)
+        want = opt.update(grads, opt.init(params), params)[0]
+        got = chip_smoke.adamw_first_step(opt, grads, params)
+        assert got.keys() == want.keys()
+        assert all(got[k].dtype == torch.bfloat16 for k in got)
+        ulps, differ = chip_smoke.bf16_update_ulps(got, want, 3e-4)
+        assert ulps <= 1.0 and differ < 0.01
+        assert any(not torch.equal(got[k], params[k]) for k in got)
+
+
+def test_the_cuts_keep_every_check():
+    # the time the musicgen block takes comes from earlier paths, each
+    # check kept: train_llm on one block of zamba2-7b (9 layers: its
+    # Mamba2 layers and its shared attention, so K6 and K8 and both plain
+    # VJPs still launch); the launcher check's and the float32 train
+    # check's CPU side computes the step's loss and gradients only, and
+    # AdamW's step (the launcher's from the card's gradients, the float32
+    # one from the CPU's) is its float64 oracle on the card
+    import inspect
+    from repro_torch.configs import get_config
+    assert chip_smoke.TRAIN_LLM_BLOCKS == 1
+    cut = chip_smoke.block_cut(get_config("zamba2-7b"),
+                               chip_smoke.TRAIN_LLM_BLOCKS)
+    assert cut.num_layers == 9 and "shared_attn" in chip_smoke.layer_kinds(
+        cut)
+    assert chip_smoke.train_launches(cut, remat=True) == {
+        "flash_attention": 2, "ssd_scan": 15, "flash_attention_vjp": 1,
+        "ssd_scan_vjp": 8}
+    ref = inspect.getsource(chip_smoke.phase_llm_launcher_reference)
+    assert "adamw_first_step(AdamW(lr=LAUNCHER_LR), g," in ref
+    assert 'run("cpu", update=False)' in ref
+    assert "opt.update(" not in ref
+    assert "ulps <= 1.0" in ref and "BF16_GRAD_RTOL" in ref
+    fp32 = inspect.getsource(chip_smoke.phase_llm_train_reference)
+    assert "adamw_first_step(AdamW(lr=TRAIN_LLM_LR)," in fp32
+    assert "assert_train_params_close(p, p0, g0," in fp32
+    assert fp32.count("make_train_step(") == 1          # the card's step

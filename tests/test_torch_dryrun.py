@@ -164,6 +164,89 @@ def test_a_kernel_is_charged_as_the_kernel_not_its_plain_version(
         + 2 * ws
 
 
+def test_a_meta_backward_holds_what_the_cards_recomputed_vjp_holds():
+    # on the card K6's and K8's backward recompute their plain version
+    # under autograd before its VJP (flash_attention_vjp, ssd_scan_vjp),
+    # and the kernel forward holds none of its intermediates.  On meta the
+    # same Function runs with the kernel region as its forward: the
+    # forward's peak stays below one float32 score tensor, the backward's
+    # holds the recomputed probabilities beside their cotangent, the
+    # logits' and the CUDA softmax backward's grad * output (the plain
+    # version differentiated in place of the kernel held 2.125 score
+    # tensors at most: its saved probabilities went uncounted)
+    b, s, h, d = 1, 512, 4, 16
+    shape = ShapeConfig("t", s, b, "train")
+    cfg = get_config("qwen2-7b-smoke")
+    scores = 4 * b * h * s * s
+
+    def forward(q, k, v):
+        return ops.flash_attention(q, k, v)
+
+    def backward(q, k, v):
+        return torch.autograd.grad(ops.flash_attention(q, k, v).sum(),
+                                   (q, k, v))
+
+    def args():
+        return tuple(meta(b, s, h, d, grad=True) for _ in range(3))
+    out = forward(*args())
+    assert isinstance(out.grad_fn, ops._MetaFlashAttention._backward_cls)
+    fwd = analyze_step(forward, args(), arch="t", shape=shape, cfg=cfg)
+    assert fwd.peak_memory_per_device < scores
+    bwd = analyze_step(backward, args(), arch="t", shape=shape, cfg=cfg)
+    assert bwd.peak_memory_per_device >= 4 * scores
+    assert bwd.kernel_calls == {"flash_attention": 1}
+    x = meta(1, 64, 2, 8, grad=True)
+    y, _ = ops.ssd_scan(x, meta(1, 64, 2), meta(2), meta(1, 64, 8),
+                        meta(1, 64, 8), chunk=16)
+    assert isinstance(y.grad_fn, ops._MetaSSDScan._backward_cls)
+    assert all(n == 0 for n in ops.launch_counts().values())
+
+
+def test_a_train_card_pass_warms_up_on_its_own_adamw_state(monkeypatch):
+    # a second AdamW state (float32, twice the parameters) beside the
+    # step's would pass the card at musicgen's train_4k: the warm-up step
+    # takes the timed step's; its launches and plain VJPs are counted
+    from repro_torch.training.optimizer import AdamW
+    cfg = get_config("musicgen-medium-smoke")
+    shape = ShapeConfig("train_4k", 16, 2, "train")
+    params = TT.init_params(cfg, 0, "cpu", specs.COMPUTE_DTYPE)
+    state = AdamW().init(params)
+    real = dryrun.step_inputs(cfg, shape, "cpu", params, state)
+    assert real[0] is params and real[1] is state
+    assert set(real[2]) == {"tokens", "labels", "ctx_embed"}
+    inits = []
+    monkeypatch.setattr(AdamW, "init", lambda self, p, _init=AdamW.init: (
+        inits.append(1), _init(self, p))[1])
+    monkeypatch.setattr(dryrun, "require_device",
+                        lambda _: torch.device("cpu"))
+    for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "cpu")
+
+    class Event:
+        def __init__(self, **kw):
+            pass
+
+        def record(self):
+            pass
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, other):
+            return 1.0
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    dry = {"max_batch": 2, "cut_t_floor": 1e-3, "cut_peak_bytes": 1,
+           "cut_dominant": "memory"}
+    got = dryrun.card_pass(cfg, shape, dry)
+    assert len(inits) == 1                  # the timed step's state only
+    assert got["finite"] and got["calls"] == 1 and got["batch"] == 2
+    assert set(got["launches"]) == set(dryrun.STEP_KERNELS
+                                       + dryrun.STEP_VJPS)
+
+
 def test_the_byte_counter_follows_the_eager_program():
     # an op moves its operands and result; a view nothing; a scatter into
     # a cache its values twice; a freed tensor leaves the live set
@@ -208,6 +291,60 @@ def test_the_peak_holds_a_large_bf16_sums_float32_buffer():
         rep = analyze_step(step, (x,), arch="t", shape=shape, cfg=cfg)
         out = 2 ** 30 * x.element_size()
         assert rep.peak_memory_per_device == rep.arg_bytes + out + extra
+
+
+def test_the_peak_holds_the_softmax_backwards_product():
+    # PyTorch's CUDA softmax backward forms grad * output, the gradient's
+    # size, beside its result (8.05 GB of float32 scores in musicgen's
+    # train_4k VJP at 5 rows on an H100); the forward holds none
+    cfg = get_config("qwen2-7b-smoke")
+    shape = ShapeConfig("t", 8, 1, "train")
+    x = meta(64, 256, grad=True)
+    n = 4 * 64 * 256
+
+    def forward(x):
+        return torch.softmax(x, -1)
+
+    def backward(x):
+        return torch.autograd.grad(torch.softmax(x, -1), x,
+                                   torch.ones_like(x))
+    rep = analyze_step(forward, (x,), arch="t", shape=shape, cfg=cfg)
+    assert rep.peak_memory_per_device == 2 * n
+    rep = analyze_step(backward, (x,), arch="t", shape=shape, cfg=cfg)
+    # x, the saved output, the cotangent, the result and the product
+    assert rep.peak_memory_per_device == 5 * n
+
+
+@pytest.mark.parametrize("kind", ["affine", "train"])
+def test_fit_batch_finds_the_largest_batch_that_fits(monkeypatch, kind):
+    # a prefill's or a decode step's peak is affine in the batch: the
+    # extrapolation from batch 1 and the full batch is the largest, and
+    # one pass confirms it.  A train step's is the AdamW update's (the
+    # same at any batch) until the backward's passes it: from batch 1 the
+    # extrapolation falls short, and the batches above are tried while they
+    # fit (musicgen-medium's train_4k: 4 from batch 1, 7 in truth)
+    gb = 1e9
+    peak = {"affine": lambda b: 20 * gb + 3 * gb * b,
+            "train": lambda b: max(56.3 * gb, 27.4 * gb + 7.2 * gb * b)}[
+                kind]
+    passes = []
+
+    def fake_pass(cfg, shape, arch):
+        passes.append(shape.global_batch)
+        return SimpleNamespace(peak_memory_per_device=peak(
+            shape.global_batch))
+    monkeypatch.setattr(dryrun, "abstract_pass", fake_pass)
+    shape = ShapeConfig("t", 8, 256, "train")
+    full = fake_pass(None, shape, "t")
+    b, rep, one = dryrun.fit_batch(None, shape, "t", full)
+    largest = max(n for n in range(1, 256) if peak(n) <= H100.hbm_bytes)
+    assert b == largest == {"affine": 20, "train": 7}[kind]
+    assert rep.peak_memory_per_device == peak(b)
+    assert one.peak_memory_per_device == peak(1)
+    # affine: the full batch, batch 1, the pick; train: then up while a
+    # row's extrapolated slope still fits beside the last pass's peak
+    assert passes == {"affine": [256, 1, 20],
+                      "train": [256, 1, 4, 5, 6, 7]}[kind]
 
 
 @pytest.mark.parametrize("s_q,s_kv,causal,window,q_offset", [
