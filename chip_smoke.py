@@ -2521,27 +2521,7 @@ def k6_instance(fa, b, s_q, n_q, d, d_v, dtype) -> str:
 
 
 def _k6_instance(fa, b, s_q, n_q, d, d_v, dtype) -> str:
-    import torch
-    if dtype == torch.bfloat16 and fa.on_tensor_cores(d, d_v, dtype):
-        nwg = fa.block_rows(b, s_q, n_q) // 64
-        if d > 128 and d_v < d:            # MLA's value head dim
-            return f"flash_attention_wgmma_kernel<{nwg}, 12, 8>"
-        dp = -(-d // 8) * 8
-        nkt = next(n for n in (2, 4, 6, 7, 8, 16) if 16 * n >= dp)
-        return f"flash_attention_wgmma_kernel<{nwg}, {nkt}, {nkt}>"
-    if dtype == torch.float32 and fa.on_tensor_cores(d, d_v):
-        if d == d_v and d > 128:           # 32-row blocks of column warps
-            return "flash_attention_cols_kernel"
-        if d == d_v:
-            ndt = nvt = next(n for n in (4, 8, 12, 14, 16) if 8 * n >= d)
-        else:
-            ndt = next(n for n in (8, 12, 16, 24) if 8 * n >= d)
-            nvt = 8 if d_v <= 64 else 16
-        rw = 4 if d <= 128 else 2          # row warps: 32-row blocks past 128
-        return f"flash_attention_mma_kernel<{ndt}, {nvt}, {rw}>"
-    nc = 2 if d_v <= 64 else 4 if d_v <= 128 else 8
-    elem = "bf16" if dtype == torch.bfloat16 else "float"
-    return f"flash_attention_simt_kernel<{elem}, {nc}>"
+    return fa.instance(b, s_q, n_q, d, d_v, dtype)
 
 
 def split_heads(group: int) -> int:
@@ -2824,13 +2804,15 @@ def phase_flash_attention_bf16(torch, np, card):
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.testing import (ATTN_BF16_RTOL, FLASH_CASES,
-                                     FLASH_DV_CASES, FLASH_EDGE_CASES,
-                                     FLASH_RAGGED_CASES, attention_case)
+                                     FLASH_D64_CASES, FLASH_DV_CASES,
+                                     FLASH_EDGE_CASES, FLASH_RAGGED_CASES,
+                                     attention_case)
     cases = [c[:10] + (0, c[10]) for c in FLASH_PATH_SHAPES] + [
         c[:6] + (c[5],) + c[6:] + ("test case",)
         for c in FLASH_CASES + FLASH_RAGGED_CASES] + [
         c + ("test case",) for c in FLASH_DV_CASES] + [
-        c + ("tile edge",) for c in FLASH_EDGE_CASES]
+        c + ("tile edge",) for c in FLASH_EDGE_CASES] + [
+        c + ("d <= 64 case",) for c in FLASH_D64_CASES]
     rows = []
     for (b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off,
          what) in cases:
@@ -2847,7 +2829,8 @@ def phase_flash_attention_bf16(torch, np, card):
             raise AssertionError(f"K6 bf16 at {what} {q.shape}: error "
                                  f"{errs} over {ATTN_BF16_RTOL}")
         kernel = lambda: fa.flash_attention(q, k, v, **kw)  # noqa: E731
-        reps = 30 if what not in ("test case", "tile edge") else 5
+        reps = 30 if what not in ("test case", "tile edge",
+                                  "d <= 64 case") else 5
         plain = measure(torch, lambda: fa.flash_attention_ref(q, k, v, **kw),
                         reps)
         # one kernel a call, unless the wrapper pads d for TMA first
@@ -3656,6 +3639,12 @@ def phase_dryrun_card(torch, card, table, arch: str = DRYRUN_ARCH):
         full = INPUT_SHAPES[shape]
         c = card_pass(arch_for_shape(cfg, full), full, table[(arch, shape)])
         check_launches(c["launches"], want[shape], f"{arch}'s {shape} step")
+        # K6 at d <= 64 runs its own kernels: every bf16 K6 launch of such
+        # an arch, none of another's
+        d64 = want[shape]["flash_attention_bf16"] if cfg.head_dim <= 64 else 0
+        check_launches({"flash_attention_bf16_d64": c["launches_d64"]},
+                       {"flash_attention_bf16_d64": d64},
+                       f"{arch}'s {shape} step")
         peak_ratio = c["peak_bytes"] / c["predicted_peak_bytes"]
         if not (c["finite"] and c["batch"] == batches[shape]
                 and abs(peak_ratio - 1) <= DRYRUN_PEAK_RTOL):
@@ -6656,6 +6645,31 @@ ONLY_PHASES = {
 }
 
 
+D64_SHAPE = "musicgen self-attention cache prefill"
+
+
+def d64_entry(bf, dryrun) -> dict:
+    """K6's bf16 kernels at d <= 64 as a kernel line of their own
+    (``flash_attention_bf16_d64``): the numbers of the bf16 K6 phase's
+    musicgen self-attention row (D64_SHAPE: 4 x 384 over 512, d 64), the
+    instances its d <= 64 rows ran, musicgen's 32k rows, and the launches
+    of musicgen's dry-run steps, which every one of their bf16 K6 calls
+    makes on these kernels (``phase_dryrun_card`` checks it)."""
+    base = next(r for r in bf["other_shapes"] if r["what"] == D64_SHAPE)
+    entry = {k: v for k, v in base.items() if k != "what"}
+    runs = dryrun[f"card_{dense_tag(CROSS_ARCH)}"]
+    launches = {s: runs[s]["launches_d64"] for s in card_shapes(CROSS_ARCH)}
+    entry.update(
+        name="flash_attention_bf16_d64", launches=sum(launches.values()),
+        launches_dryrun_musicgen=launches,
+        kernels=sorted({r["kernel"] for r in [bf] + bf["other_shapes"]
+                        if r["kernel"].startswith(
+                            ("flash_attention_ws_kernel",
+                             "flash_attention_row_kernel"))}),
+        dryrun_musicgen=bf[f"dryrun_{dense_tag(CROSS_ARCH)}"])
+    return entry
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -6846,7 +6860,7 @@ def main() -> int:
                                                                 card)
     launcher_counts, launcher = phase_llm_launcher(torch, np, card,
                                                    started[4].result())
-    bf16_rows = []
+    bf16_rows, d64_rows = [], []
     for row in llm_rows:
         row["launches"] = llm_counts[row["name"]]
         if row["name"] in ("flash_attention", "ssd_scan"):
@@ -6909,6 +6923,8 @@ def main() -> int:
                         dense_tag(arch)].items() if key.startswith(tag)}
         if row["name"] == "ssd_scan":    # n 128 at 18 x 32k: <bf16, 8, 16>
             bf["dryrun_mamba2"] = dryrun["kernels"]["mamba2"]
+        if tag == "K6":
+            d64_rows.append(d64_entry(bf, dryrun))
         # K7's and K8's split by device kernel, at 32k and serving shapes
         tag = {"decode_attention": "K7", "ssd_scan": "K8"}.get(row["name"])
         for r, dt in ((row, "float32"), (bf, "bf16")):
@@ -6919,7 +6935,7 @@ def main() -> int:
                     if key.startswith(f"{tag} {dt} ")}
         bf16_rows.append(bf)
     rows = (video_rows + [iou_row, nms_row, frame_row, update_row] + llm_rows
-            + bf16_rows)
+            + bf16_rows + d64_rows)
     print(f"chip_smoke.py finished its checks in "
           f"{time.perf_counter() - t_start:.1f} s")
     print(card)

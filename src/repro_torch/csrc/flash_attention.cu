@@ -178,6 +178,14 @@
 // stored.  At deepseek-v2-lite's
 // prefill_32k (6 x 32,768, 16 heads, causal) a call's products are
 // 3.3e13 flop, 33 ms at the bf16 rate (P V twice: 46).
+// d_v <= d <= 64 (musicgen-medium's 64; 18 to 36 zero-padded) takes
+// flash_attention_ws_kernel instead (its notes are at the kernel): a
+// persistent grid of one block an SM, a producer warpgroup issuing every
+// TMA load and three consumer warpgroups over 192-row work items, 64-key
+// tiles; one query row (s_q = 1) takes flash_attention_row_kernel.  At
+// musicgen's prefill_32k self-attention (6 x 32,768, 24 heads, causal) a
+// call's products, with P V twice, are 2.97e13 flop: 30.0 ms at the bf16
+// rate; its bound (the products once) is 25.8 ms.
 //
 // A value head dim of its own past d = 192 or d_v = 128 (no path has
 // one) takes the CUDA-core kernel below,
@@ -190,7 +198,7 @@
 // This source is compiled twice: as itself (the float32 kernels,
 // vpaas_flash_attention and the route query), and with VPAAS_FLASH_BF16
 // defined as flash_attention_bf16.cu (the bf16 wgmma kernels,
-// vpaas_flash_attention_bf16 and the block-rows query); the CUDA-core
+// vpaas_flash_attention_bf16, the block-rows and kernel queries); the CUDA-core
 // kernel's instances follow each half's element type.  The build runs one
 // nvcc a source, all together, and this file as one source was the
 // build's longest (~95 s of nvcc for sm_90a on an 8-core host; the
@@ -198,6 +206,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
 
 #include "host.cuh"
 #include "primitives.cuh"
@@ -1038,6 +1048,21 @@ __device__ __forceinline__ void issue_pv(float* o,
   wgmma_commit();
 }
 
+// S = Q K^T for one 64-key tile with Q's A fragments in registers (qa[kk]:
+// the 16-column step kk), K read K-major from shared memory as issue_qk
+// reads it; issued, not waited
+template <int NKT>
+__device__ __forceinline__ void issue_qk_rs(float (&sc)[32],
+                                            const uint32_t (&qa)[NKT][4],
+                                            const uint8_t* Kt) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NKT; ++kk)
+    wgmma_m64n64k16_rs_k(sc, qa[kk], wgmma_desc(Kt + (kk % 4) * 32, 16, 1024),
+                         kk > 0);
+  wgmma_commit();
+}
+
 template <int NWG, int NKT, int NVT>
 __global__ void __launch_bounds__(Tile<NWG, NKT, NVT>::kThreads, 3 - NWG)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -1396,14 +1421,19 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
 // (tensor_map: host.cuh)
 
-// consumer warpgroups a block: two (128 query rows) unless the grid of
-// 128-row blocks would leave SMs without a block, then one (64 rows)
-int warpgroups(int B, int Sq, int Hq) {
+// the card's SMs (132 if it cannot be asked)
+int sm_count() {
   int dev = 0, sms = 0;
   if (cudaGetDevice(&dev) != 0 ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != 0)
     sms = 132;
-  return (long)Hq * B * ((Sq + 127) / 128) < sms ? 1 : 2;
+  return sms;
+}
+
+// consumer warpgroups a block: two (128 query rows) unless the grid of
+// 128-row blocks would leave SMs without a block, then one (64 rows)
+int warpgroups(int B, int Sq, int Hq) {
+  return (long)Hq * B * ((Sq + 127) / 128) < sm_count() ? 1 : 2;
 }
 
 template <int NWG, int NKT, int NVT>
@@ -1432,8 +1462,591 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const int32_t* qo,
   return record_launch_event(1, stream);
 }
 
-// the instance: NKT by the head dim (32, 64, 96, 112, 128, 256) with NVT =
-// NKT, and MLA's d <= 192 over d_v <= 128 at <12, 8>; NWG by the grid
+// ---------------------------------------------------------------------------
+// bf16 at d_v <= d <= 64 (musicgen-medium's d 64): a persistent,
+// warp-specialised kernel (flash_attention_ws_kernel), and one query row a
+// (batch row, q-head) on a kernel of its own (flash_attention_row_kernel)
+// ---------------------------------------------------------------------------
+// At d 64 a score costs the tensor cores 384 bf16 operations (q.k 128, P V
+// twice 256: p's two halves) and the CUDA cores some seven instructions
+// (max, scale, ex2, sum, the split into two bf16 halves), so the kernel
+// keeps the tensor cores fed from several warpgroups at once, where the
+// kernel above runs the two by turns inside each of its two.  Here a block
+// holds one SM (512 threads: a producer warpgroup and three consumer
+// warpgroups of 64 query rows) and walks the work items (192-row query
+// tile, q-head, batch row) in a static order, blockIdx.x + k gridDim.x,
+// each (batch row, q-head)'s tiles heaviest first and the (batch row,
+// q-head)s one after another, so that the blocks in flight read one head's
+// K and V from L2; a CUDA graph replays the order with no counter to
+// reset, and the kernel needs no workspace.
+// - Producer: one thread issues every TMA load (Q into two buffers, K and V
+//   tiles into rings of their own) and waits only on "empty" barriers; its
+//   warpgroup gives up its registers (setmaxnreg) to the consumers.  A
+//   consumer warpgroup frees a stage by one arrival once its product has
+//   read it; no consumer waits for a refill by another.
+// - Inside a consumer tile i's S is issued with tile i - 1's P V, and
+//   tile i's softmax runs while that product does; the three consumers'
+//   products and softmaxes interleave as the warp schedulers find them
+//   ready.  Taking turns through named barriers (FlashAttention-3's
+//   ping-pong) measured slower here at two consumers and at three, and
+//   exponentials moved onto the FMA pipe by a polynomial slowed it too: the
+//   schedulers' issue slots, not the special-function unit, are what the
+//   softmax competes for.
+// - Q's A fragments live in registers (read once an item, the buffer freed
+//   at once); p's fragments in one buffer, made once tile i - 1's P V has
+//   read the last ones: 128 registers a thread, no spill.
+// - The next item's Q and first tiles load while the current item
+//   computes; its epilogue (O / l to bf16, stored from registers) overlaps
+//   the other warpgroups' products.
+// - Key tiles of BN = 64 keys: 256 context keys are whole tiles, so no tile
+//   of a whole context takes the masked branch.
+// One query row (s_q = 1: a decode step's cross-attention) would fill one
+// of a tile's 192 rows; flash_attention_row_kernel takes it instead: a
+// block a (batch row, q-head), its warps splitting the valid keys (one
+// range at s_q = 1), each key's q.k on one lane, P V a column pair a lane,
+// the warps' partial softmaxes merged at the end.  Bytes bound it.
+struct WsTile {
+  static constexpr int NC = 3;                  // consumer warpgroups
+  static constexpr int BM = kRowsWG * NC;       // query rows an item
+  static constexpr int BN = 64;                 // keys a tile
+  static constexpr int kThreads = 128 * (1 + NC);
+  static constexpr int STAGES = 8;
+  static constexpr unsigned Q_BYTES = BM * kRow;   // one 64-column box
+  static constexpr unsigned T_BYTES = BN * kRow;   // a K or a V tile
+  static constexpr unsigned OFF_K = 2 * Q_BYTES;   // after Q's two buffers
+  static constexpr unsigned OFF_V = OFF_K + STAGES * T_BYTES;
+  static constexpr unsigned OFF_BAR = OFF_V + STAGES * T_BYTES;
+  // Q full and empty (2 each), then K full, K empty, V full, V empty
+  static constexpr unsigned SMEM = OFF_BAR + 8 * (4 + 4 * STAGES);
+  static_assert(SMEM <= 232448, "past the 227 KB a block may have");
+};
+
+// setmaxnreg: the producer warpgroup keeps 40 registers a thread, the
+// three consumers take the rest of the SM's 65,536: 152 each
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = ((65536 / 128 - kProducerRegs) / 3) / 8 * 8;
+
+// work item idx: (the first query row, q-head, batch row)
+struct WsItem {
+  int q0, h, b;
+};
+
+__device__ __forceinline__ WsItem ws_item(int idx, int nqt, int Hq, int BM) {
+  const int bh = idx / nqt;
+  return {(nqt - 1 - (idx - bh * nqt)) * BM, bh % Hq, bh / Hq};
+}
+
+// the keys some row of an item may attend start at *lo; returns its tiles
+__device__ __forceinline__ int ws_tiles(int q0, int qrows, int off, int Skv,
+                                        int causal, int window, int BN,
+                                        int* lo) {
+  int kv_lo = 0, kv_hi = Skv;
+  if (causal) kv_hi = min(Skv, off + q0 + qrows);
+  if (window > 0) kv_lo = max(0, off + q0 - window + 1);
+  *lo = kv_lo;
+  return kv_lo < kv_hi ? (kv_hi - kv_lo + BN - 1) / BN : 0;
+}
+
+template <int NKT>
+__global__ void __launch_bounds__(WsTile::kThreads, 1)
+flash_attention_ws_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const bf16* __restrict__ v,
+                          const int32_t* __restrict__ q_offset,
+                          bf16* __restrict__ out, int B, int Sq, int Skv,
+                          int Hq, int Hkv, int Dv, int causal, int window,
+                          float softcap, float scale) {
+  using T = WsTile;
+  constexpr int DV = 16 * NKT;
+  constexpr int BN = T::BN;
+  constexpr int S = T::STAGES;
+  constexpr int NC = T::NC;
+  extern __shared__ __align__(1024) uint8_t smem[];
+  if (smem_u32(smem) % 1024 != 0) __trap();
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + T::OFF_BAR);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* k_full = q_full + 4;
+  uint64_t* k_empty = k_full + S;
+  uint64_t* v_full = k_empty + S;
+  uint64_t* v_empty = v_full + S;
+  const int nqt = (Sq + T::BM - 1) / T::BM;
+  const int items = nqt * Hq * B;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], NC);      // one arrival a consumer
+    }
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&k_empty[s], NC);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&v_empty[s], NC);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // the warpgroup, read from lane 0 so that the compiler sees it uniform
+  // across the warp (setmaxnreg wants its warpgroup converged)
+  const int wg_idx = __shfl_sync(kFull, (int)threadIdx.x / 128, 0);
+  if (wg_idx == 0) {
+    // the producer: item n's Q into buffer n % 2, then its tiles, tile t
+    // of the block's run into stage t % S, each once its buffer is free
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x != 0) return;
+    int t = 0, n = 0;
+    for (int idx = blockIdx.x; idx < items; idx += gridDim.x, ++n) {
+      const WsItem it = ws_item(idx, nqt, Hq, T::BM);
+      const int hk = it.h / (Hq / Hkv);
+      int lo;
+      const int ntiles = ws_tiles(it.q0, min(T::BM, Sq - it.q0),
+                                  __ldg(q_offset + it.b), Skv, causal,
+                                  window, BN, &lo);
+      const int qb = n & 1;
+      mbar_wait(&q_empty[qb], ((n >> 1) & 1) ^ 1);
+      mbar_arrive_expect_tx(&q_full[qb], T::Q_BYTES);
+      tma_load_4d(smem + qb * T::Q_BYTES, &tq, &q_full[qb], 0, it.h, it.q0,
+                  it.b);
+      for (int i = 0; i < ntiles; ++i, ++t) {
+        const int s = t % S, parity = ((t / S) & 1) ^ 1;
+        mbar_wait(&k_empty[s], parity);
+        mbar_arrive_expect_tx(&k_full[s], T::T_BYTES);
+        tma_load_4d(smem + T::OFF_K + s * T::T_BYTES, &tk, &k_full[s], 0, hk,
+                    lo + i * BN, it.b);
+        mbar_wait(&v_empty[s], parity);
+        mbar_arrive_expect_tx(&v_full[s], T::T_BYTES);
+        tma_load_4d(smem + T::OFF_V + s * T::T_BYTES, &tv, &v_full[s], 0, hk,
+                    lo + i * BN, it.b);
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  // consumer c: query rows 64 c .. 64 c + 63 of each item
+  const int c = wg_idx - 1;
+  const bool lead = threadIdx.x % 128 == 0;     // its arrivals' thread
+  const int warp = threadIdx.x / 32 % 4;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int r0 = kRowsWG * c;
+  const float mult = softcap > 0.f ? kLog2e : scale * kLog2e;
+  const float cap_in = softcap > 0.f ? scale / softcap : 0.f;
+  auto k_tile = [&](int t) {
+    return smem + T::OFF_K + (t % S) * T::T_BYTES;
+  };
+  auto v_tile = [&](int t) {
+    return smem + T::OFF_V + (t % S) * T::T_BYTES;
+  };
+
+  float o[DV / 2];                      // O: 64 rows x DV, fp32
+  float sc[BN / 2];                     // S, then P, of one tile
+  uint32_t phi[BN / 4], plo[BN / 4];    // P's two bf16 halves, A fragments
+  uint32_t qa[NKT][4];                  // Q's A fragments
+  float m[2], l[2], alpha[2];
+  int t = 0, n = 0;
+  for (int idx = blockIdx.x; idx < items; idx += gridDim.x, ++n) {
+    const WsItem it = ws_item(idx, nqt, Hq, T::BM);
+    const int hk = it.h / (Hq / Hkv);
+    const int off = __ldg(q_offset + it.b);
+    const int qrows = min(T::BM, Sq - it.q0);
+    int kv_lo;
+    const int ntiles = ws_tiles(it.q0, qrows, off, Skv, causal, window, BN,
+                                &kv_lo);
+    const int wpos_lo = off + it.q0 + r0;       // this consumer's positions
+    const int wpos_hi = wpos_lo + kRowsWG - 1;
+    const int qp[2] = {wpos_lo + 16 * warp + g, wpos_lo + 16 * warp + g + 8};
+    const int qb = n & 1;
+#pragma unroll
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
+    for (int r = 0; r < 2; ++r) {
+      m[r] = -INFINITY;
+      l[r] = 0.f;
+      alpha[r] = 1.f;
+    }
+
+    // softcap, mask (only tiles the mask or the end of the keys cut) and
+    // the online softmax of tile i's S, in place: sc becomes p; alpha the
+    // factor of the running O and l
+    auto softmax = [&](int i) {
+      const int k0 = kv_lo + i * BN;
+      const bool cut = k0 + BN > Skv || (causal && k0 + BN - 1 > wpos_lo) ||
+                       (window > 0 && wpos_hi - k0 >= window);
+      float mx[2] = {-INFINITY, -INFINITY};
+      if (softcap > 0.f || cut) {
+#pragma unroll
+        for (int J = 0; J < BN / 8; ++J)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x = sc[4 * J + e];
+            if (softcap > 0.f) x = softcap * tanh_fast(x * cap_in);
+            if (cut) {
+              const int key = k0 + 8 * J + 2 * t4 + (e & 1);
+              const int p = qp[e >> 1];
+              const bool ok = key < Skv && (!causal || p >= key) &&
+                              (window <= 0 || p - key < window);
+              x = ok ? x : -INFINITY;
+            }
+            sc[4 * J + e] = x;
+            mx[e >> 1] = fmaxf(mx[e >> 1], x);
+          }
+      } else {
+#pragma unroll
+        for (int J = 0; J < BN / 8; ++J)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            mx[e >> 1] = fmaxf(mx[e >> 1], sc[4 * J + e]);
+      }
+      float msc[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        msc[r] = m_new == -INFINITY ? 0.f : m_new * mult;
+        alpha[r] =
+            m_new == m[r] ? 1.f : ex2_approx(fmaf(m[r], mult, -msc[r]));
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int J = 0; J < BN / 8; ++J)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2_approx(fmaf(sc[4 * J + e], mult, -msc[e >> 1]));
+          sc[4 * J + e] = p;
+          sum[e >> 1] += p;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(kFull, sum[r], 1);
+        sum[r] += __shfl_xor_sync(kFull, sum[r], 2);
+        l[r] = fmaf(l[r], alpha[r], sum[r]);
+      }
+    };
+    // p (in sc) as P V's A fragments, two bf16 halves, fenced: left to
+    // itself the compiler sinks them past the waits after them
+    auto to_fragments = [&]() {
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        const float* p = sc + 8 * kk;
+        split_bf16x2(p[0], p[1], phi[4 * kk], plo[4 * kk]);
+        split_bf16x2(p[2], p[3], phi[4 * kk + 1], plo[4 * kk + 1]);
+        split_bf16x2(p[4], p[5], phi[4 * kk + 2], plo[4 * kk + 2]);
+        split_bf16x2(p[6], p[7], phi[4 * kk + 3], plo[4 * kk + 3]);
+      }
+      fence_regs<BN / 4>(phi);
+      fence_regs<BN / 4>(plo);
+      fence_regs<2>(l);
+    };
+    // O *= alpha, skipped where no row of the warp raised its running max
+    auto rescale = [&]() {
+      if (!__any_sync(kFull, alpha[0] != 1.f || alpha[1] != 1.f)) return;
+#pragma unroll
+      for (int J = 0; J < DV / 8; ++J) {
+        o[4 * J] *= alpha[0];
+        o[4 * J + 1] *= alpha[0];
+        o[4 * J + 2] *= alpha[1];
+        o[4 * J + 3] *= alpha[1];
+      }
+    };
+    auto land = [&](uint64_t* full, int t) {
+      mbar_wait(full + t % S, (t / S) & 1);
+    };
+    auto release = [&](uint64_t* empty, int t) {
+      if (lead) mbar_arrive(empty + t % S);
+    };
+    auto pv = [&](int i) {              // P V of tile i, issued
+      rescale();                        // O to tile i's running max
+      land(v_full, t + i);
+      issue_pv<DV, BN>(o, phi, plo, v_tile(t + i));
+    };
+    auto pv_done = [&](int i) {
+      wgmma_wait<0>();
+      fence_regs<DV / 2>(o);
+      release(v_empty, t + i);
+    };
+
+    // this thread's Q fragments, read through the 128-byte swizzle (row
+    // r's 16-byte chunk c at chunk c ^ (r % 8)): Q's tile is read once an
+    // item, S runs from registers, and the buffer is free at once
+    mbar_wait(&q_full[qb], (n >> 1) & 1);
+    if (ntiles > 0) {
+      const uint8_t* Qc = smem + qb * T::Q_BYTES + r0 * kRow;
+#pragma unroll
+      for (int kk = 0; kk < NKT; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = 16 * warp + g + 8 * (e & 1);
+          const int byte = 2 * (16 * kk + 2 * t4 + 8 * (e >> 1));
+          qa[kk][e] = *reinterpret_cast<const uint32_t*>(
+              Qc + row * kRow + ((((byte >> 4) ^ (row & 7)) << 4) |
+                                 (byte & 15)));
+        }
+    }
+    if (lead) mbar_arrive(&q_empty[qb]);        // free for item n + 2
+    if (ntiles > 0) {
+      land(k_full, t);
+      issue_qk_rs<NKT>(sc, qa, k_tile(t));
+      wgmma_wait<0>();
+      fence_regs<BN / 2>(sc);
+      release(k_empty, t);
+      softmax(0);
+      to_fragments();
+      for (int i = 1; i < ntiles; ++i) {
+        // S of tile i issued with P V of tile i - 1; tile i's softmax runs
+        // while that product does, its fragments made once it is done
+        land(k_full, t + i);
+        issue_qk_rs<NKT>(sc, qa, k_tile(t + i));
+        pv(i - 1);
+        wgmma_wait<1>();              // S of tile i
+        fence_regs<BN / 2>(sc);
+        release(k_empty, t + i);
+        softmax(i);
+        pv_done(i - 1);
+        to_fragments();
+      }
+      pv(ntiles - 1);
+      pv_done(ntiles - 1);
+    }
+    t += ntiles;
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 16 * warp + g + 8 * r;
+      if (row >= qrows) continue;
+      bf16* orow = out + (((size_t)it.b * Sq + it.q0 + row) * Hq + it.h) * Dv;
+      if (m[r] == -INFINITY) {
+        // no valid key: the mean of V, as the plain version's uniform
+        // softmax over Skv equal -1e30 logits
+        const bf16* vb = v + ((size_t)it.b * Skv * Hkv + hk) * Dv;
+        for (int col = 2 * t4; col < Dv; col += 8)
+          for (int e = 0; e < 2 && col + e < Dv; ++e) {
+            float acc = 0.f;
+            for (int j = 0; j < Skv; ++j)
+              acc += to_f32(vb[(size_t)j * Hkv * Dv + col + e]);
+            orow[col + e] = from_f32<bf16>(acc / (float)Skv);
+          }
+      } else {
+        const float inv = 1.f / l[r];   // one division a row, not a value
+#pragma unroll
+        for (int J = 0; J < DV / 8; ++J) {
+          const int col = 8 * J + 2 * t4;       // d_v is even
+          if (col < Dv)
+            *reinterpret_cast<uint32_t*>(orow + col) = pack_bf16x2(
+                o[4 * J + 2 * r] * inv, o[4 * J + 2 * r + 1] * inv);
+        }
+      }
+    }
+  }
+}
+
+constexpr int kRowWarps = 8;
+
+// bf16x2 (a register's two halves) as floats: a bf16 is a float's upper
+// 16 bits
+__device__ __forceinline__ float bf16_lo(uint32_t u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+// q (B, 1, Hq, D), k (B, Skv, Hkv, D), v (B, Skv, Hkv, Dv), D and Dv
+// multiples of 8 up to 16 NKT, rows 16-byte aligned (the wrapper's
+// padding): one block a (head, batch row)
+template <int NKT>
+__global__ void __launch_bounds__(32 * kRowWarps)
+flash_attention_row_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v,
+                           const int32_t* __restrict__ q_offset,
+                           bf16* __restrict__ out, int Skv, int Hq, int Hkv,
+                           int D, int Dv, int causal, int window,
+                           float softcap, float scale) {
+  constexpr int DP = 16 * NKT;
+  __shared__ float part_m[kRowWarps], part_l[kRowWarps];
+  __shared__ float part_o[kRowWarps][DP];
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int hk = h / (Hq / Hkv);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int pos = q_offset[b];
+  // one query: its valid keys are one range
+  const int lo = window > 0 ? max(0, pos - window + 1) : 0;
+  const int hi = causal ? min(Skv, pos + 1) : Skv;
+  const float mult = softcap > 0.f ? kLog2e : scale * kLog2e;
+  const float cap_in = softcap > 0.f ? scale / softcap : 0.f;
+  float qf[DP];
+  const bf16* qrow = q + ((size_t)b * Hq + h) * D;
+#pragma unroll
+  for (int c = 0; c < DP / 8; ++c) {
+    uint4 u = make_uint4(0u, 0u, 0u, 0u);
+    if (8 * c < D) u = *reinterpret_cast<const uint4*>(qrow + 8 * c);
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      qf[8 * c + 2 * i] = bf16_lo(w[i]);
+      qf[8 * c + 2 * i + 1] = bf16_hi(w[i]);
+    }
+  }
+  const size_t kstride = (size_t)Hkv * D;
+  const size_t vstride = (size_t)Hkv * Dv;
+  const bf16* kb = k + ((size_t)b * Skv * Hkv + hk) * D;
+  const bf16* vb = v + ((size_t)b * Skv * Hkv + hk) * Dv;
+  const int col = 2 * lane;             // this lane's two columns of O
+  float m = -INFINITY, l = 0.f, o0 = 0.f, o1 = 0.f;
+  // warp w takes keys lo + 32 w + 32 kRowWarps i + lane
+  for (int j0 = lo + 32 * warp; j0 < hi; j0 += 32 * kRowWarps) {
+    const int key = j0 + lane;
+    float x = -INFINITY;
+    if (key < hi) {
+      const uint4* kr = reinterpret_cast<const uint4*>(kb + key * kstride);
+      float s = 0.f;
+#pragma unroll
+      for (int c = 0; c < DP / 8; ++c)
+        if (8 * c < D) {
+          const uint4 u = kr[c];
+          const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            s = fmaf(qf[8 * c + 2 * i], bf16_lo(w[i]), s);
+            s = fmaf(qf[8 * c + 2 * i + 1], bf16_hi(w[i]), s);
+          }
+        }
+      x = softcap > 0.f ? softcap * tanh_fast(s * cap_in) : s;
+    }
+    float mx = x;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, d));
+    const float m_new = fmaxf(m, mx);     // finite: key j0 is valid
+    const float msc = m_new * mult;
+    const float alpha = ex2_approx(fmaf(m, mult, -msc));   // 0 from -inf
+    const float p = ex2_approx(fmaf(x, mult, -msc));
+    float sum = p;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) sum += __shfl_xor_sync(kFull, sum, d);
+    l = fmaf(l, alpha, sum);
+    o0 *= alpha;
+    o1 *= alpha;
+    m = m_new;
+    const int nk = min(32, hi - j0);
+#pragma unroll 8
+    for (int jj = 0; jj < nk; ++jj) {
+      const float pj = __shfl_sync(kFull, p, jj);
+      if (col < Dv) {
+        const uint32_t u = *reinterpret_cast<const uint32_t*>(
+            vb + (j0 + jj) * vstride + col);
+        o0 = fmaf(pj, bf16_lo(u), o0);
+        o1 = fmaf(pj, bf16_hi(u), o1);
+      }
+    }
+  }
+  if (lane == 0) {
+    part_m[warp] = m;
+    part_l[warp] = l;
+  }
+  if (col < DP) {
+    part_o[warp][col] = o0;
+    part_o[warp][col + 1] = o1;
+  }
+  __syncthreads();
+  if (warp != 0 || col >= Dv) return;   // d_v is even
+  float mx = -INFINITY;
+  for (int w = 0; w < kRowWarps; ++w) mx = fmaxf(mx, part_m[w]);
+  bf16* orow = out + ((size_t)b * Hq + h) * Dv;
+  if (mx == -INFINITY) {
+    // no valid key: the mean of V, as the plain version's uniform
+    // softmax over Skv equal -1e30 logits
+    float a0 = 0.f, a1 = 0.f;
+    for (int j = 0; j < Skv; ++j) {
+      a0 += to_f32(vb[(size_t)j * vstride + col]);
+      a1 += to_f32(vb[(size_t)j * vstride + col + 1]);
+    }
+    orow[col] = from_f32<bf16>(a0 / (float)Skv);
+    orow[col + 1] = from_f32<bf16>(a1 / (float)Skv);
+    return;
+  }
+  const float msc = mx * mult;
+  float lsum = 0.f, a0 = 0.f, a1 = 0.f;
+  for (int w = 0; w < kRowWarps; ++w) {
+    const float a = ex2_approx(fmaf(part_m[w], mult, -msc));  // 0 if empty
+    lsum = fmaf(part_l[w], a, lsum);
+    a0 = fmaf(part_o[w][col], a, a0);
+    a1 = fmaf(part_o[w][col + 1], a, a1);
+  }
+  *reinterpret_cast<uint32_t*>(orow + col) =
+      pack_bf16x2(a0 / lsum, a1 / lsum);
+}
+
+// the dynamic shared memory a kernel asks, set once a device
+template <class K>
+int allow_smem(std::atomic<unsigned>& ready, K* kernel, int bytes) {
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err != 0) return err;
+  if (dev < 32 && (ready.load() >> dev & 1u)) return 0;
+  err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == 0 && dev < 32) ready.fetch_or(1u << dev);
+  return err;
+}
+
+template <int NKT>
+int launch_ws(const bf16* q, const bf16* k, const bf16* v, const int32_t* qo,
+              bf16* out, int B, int Sq, int Skv, int Hq, int Hkv, int D,
+              int Dv, int causal, int window, float softcap, float scale,
+              cudaStream_t stream) {
+  using T = WsTile;
+  CUtensorMap tq, tk, tv;
+  int err = tensor_map(&tq, q, D, Hq, Sq, B, T::BM);
+  if (err == 0) err = tensor_map(&tk, k, D, Hkv, Skv, B, T::BN);
+  if (err == 0) err = tensor_map(&tv, v, Dv, Hkv, Skv, B, T::BN);
+  if (err != 0) return err;
+  static std::atomic<unsigned> ready{0};
+  err = allow_smem(ready, flash_attention_ws_kernel<NKT>, (int)T::SMEM);
+  if (err != 0) return err;
+  const long items = (long)((Sq + T::BM - 1) / T::BM) * Hq * B;
+  const long sms = sm_count();
+  const int grid = (int)(items < sms ? items : sms);
+  record_launch_event(0, stream);
+  flash_attention_ws_kernel<NKT><<<grid, T::kThreads, T::SMEM, stream>>>(
+      tq, tk, tv, v, qo, out, B, Sq, Skv, Hq, Hkv, Dv, causal, window,
+      softcap, scale);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return record_launch_event(1, stream);
+}
+
+template <int NKT>
+int launch_row(const bf16* q, const bf16* k, const bf16* v,
+               const int32_t* qo, bf16* out, int B, int Skv, int Hq, int Hkv,
+               int D, int Dv, int causal, int window, float softcap,
+               float scale, cudaStream_t stream) {
+  dim3 grid(Hq, B);
+  record_launch_event(0, stream);
+  flash_attention_row_kernel<NKT><<<grid, 32 * kRowWarps, 0, stream>>>(
+      q, k, v, qo, out, Skv, Hq, Hkv, D, Dv, causal, window, softcap, scale);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return record_launch_event(1, stream);
+}
+
+// the d <= 64 kernel of a launch: 0 none (d > 64), kWsKernel the
+// persistent kernel, kRowKernel one query row a block
+constexpr int kWsKernel = 3;
+constexpr int kRowKernel = 4;
+inline int small_d_kernel(int D, int Sq) {
+  return D > 64 ? 0 : Sq == 1 ? kRowKernel : kWsKernel;
+}
+
+// the instance: d <= 64 on the kernels above (one query row or the
+// persistent kernel, NKT 2 or 4); else NKT by the head dim (96, 112, 128,
+// 256) with NVT = NKT, and MLA's d <= 192 over d_v <= 128 at <12, 8>; NWG
+// by the grid
 int dispatch(const bf16* q, const bf16* k, const bf16* v, const int32_t* qo,
              bf16* out, int B, int Sq, int Skv, int Hq, int Hkv, int D,
              int Dv, int causal, int window, float softcap, float scale,
@@ -1447,8 +2060,20 @@ int dispatch(const bf16* q, const bf16* k, const bf16* v, const int32_t* qo,
                                    D, Dv, causal, window, softcap, scale,  \
                                    st)
   if (D > 128 && Dv < D) VPAAS_WG(12, 8);
-  if (D <= 32) VPAAS_WG(2, 2);
-  if (D <= 64) VPAAS_WG(4, 4);
+  switch (small_d_kernel(D, Sq)) {
+    case kRowKernel:
+      return D <= 32 ? launch_row<2>(q, k, v, qo, out, B, Skv, Hq, Hkv, D,
+                                     Dv, causal, window, softcap, scale, st)
+                     : launch_row<4>(q, k, v, qo, out, B, Skv, Hq, Hkv, D,
+                                     Dv, causal, window, softcap, scale, st);
+    case kWsKernel:
+      return D <= 32 ? launch_ws<2>(q, k, v, qo, out, B, Sq, Skv, Hq, Hkv,
+                                    D, Dv, causal, window, softcap, scale,
+                                    st)
+                     : launch_ws<4>(q, k, v, qo, out, B, Sq, Skv, Hq, Hkv,
+                                    D, Dv, causal, window, softcap, scale,
+                                    st);
+  }
   if (D <= 96) VPAAS_WG(6, 6);
   if (D <= 112) VPAAS_WG(7, 7);
   if (D <= 128) VPAAS_WG(8, 8);
@@ -1701,6 +2326,16 @@ extern "C" int vpaas_flash_attention_on_tensor_cores(int D, int Dv,
 // the query rows of a block of the bf16 tensor-core kernel at this grid
 extern "C" int vpaas_flash_attention_bf16_block_rows(int B, int Sq, int Hq) {
   return wg::kRowsWG * wg::warpgroups(B, Sq, Hq);
+}
+
+// the bf16 kernel the launcher runs on these (padded) head dims: 0 the
+// CUDA-core kernel, 1 or 2 the wgmma kernel at that NWG, 3 the persistent
+// d <= 64 kernel, 4 its one-row kernel (s_q = 1)
+extern "C" int vpaas_flash_attention_bf16_kernel(int B, int Sq, int Hq, int D,
+                                                 int Dv) {
+  if (!on_tensor_cores(D, Dv, 1)) return 0;
+  const int small = wg::small_d_kernel(D, Sq);
+  return small != 0 ? small : wg::warpgroups(B, Sq, Hq);
 }
 #endif
 

@@ -101,11 +101,15 @@
 // with N = 64.  wgmma_m64nNk16_rs<N>(d, a, db): D (64 x N) += A
 // (registers) * B (descriptor, MN-major: the transposed-B bit), N = 32,
 // 64, 96, 112, 128 or 256 (past 64, B's next 64-column block is lbo bytes
-// on: N = 256 reads four).
+// on: N = 256 reads four).  wgmma_m64n64k16_rs_k(d, a, db, acc): D = A
+// (registers) * B (64 columns, descriptor, K-major, as the _ss forms read
+// it), plus D if acc.
 // Both are warpgroup-wide (4 warps) and asynchronous: wgmma_fence before
 // the first of a batch (after the registers they read were written),
-// wgmma_commit after it, wgmma_wait<0> before D is read; fence_regs keeps
-// the compiler from moving register reads and writes across those.  Per
+// wgmma_commit after it, wgmma_wait<0> before D is read; fence_regs (float
+// or uint32_t registers) keeps the compiler from moving register reads and
+// writes across those: a value fenced before a wait or a barrier is
+// computed before it.  Per
 // thread t of the warpgroup (warp w = t / 32, g = t % 32 / 4, q = t % 4):
 //   d[4j + e]: D[16 w + g + 8 (e / 2)][8 j + 2 q + e % 2], j < N / 8
 //   a[0] A[16 w + g][2q, 2q+1]      a[1] A[16 w + g + 8][2q, 2q+1]
@@ -122,6 +126,12 @@
 // bar_sync(id, n): bar.sync on named barrier id (1-15; 0 is
 // __syncthreads'), which completes once n threads (whole warps) have
 // reached it: a group of warps meets without stopping the block's others.
+//
+// setmaxnreg_dec<N>() / setmaxnreg_inc<N>(): setmaxnreg.dec / .inc
+// .sync.aligned (sm_90a), executed by every thread of a warpgroup: the
+// warpgroup's registers a thread drop to N (returned to the block's pool)
+// or rise to N (taken from it, waiting until they are free); N a multiple
+// of 8 in [24, 256].
 //
 // bulk_load(dst, src, bytes, bar): cp.async.bulk of `bytes` contiguous
 // bytes (a multiple of 16, both addresses 16-byte aligned) from global to
@@ -354,6 +364,16 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
 }
 
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
+}
+
 __device__ __forceinline__ unsigned atomic_add_acq_rel_gpu(unsigned* p,
                                                            unsigned v) {
   unsigned old;
@@ -403,6 +423,12 @@ __device__ __forceinline__ void fence_regs(float* r) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
 #define VPAAS_F8(d, i)                                                   \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
@@ -437,6 +463,22 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t da,
       "}\n"
       : VPAAS_F8(d, 0), VPAAS_F8(d, 8), VPAAS_F8(d, 16), VPAAS_F8(d, 24)
       : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_m64n64k16_rs_k(float* d,
+                                                     const uint32_t a[4],
+                                                     uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : VPAAS_F8(d, 0), VPAAS_F8(d, 8), VPAAS_F8(d, 16), VPAAS_F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
 template <int N>

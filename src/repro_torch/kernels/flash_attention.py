@@ -13,7 +13,9 @@ a quarter of the head dim, since O's 16 x 256 floats would not fit one
 warp's registers beside S); bfloat16 on the same head dims as wgmma on TMA
 tiles (q.k exact in float32, p.v with p split into two bf16 halves; MLA's
 192 / 128 with v at its own width; :func:`block_rows` says how many query
-rows a block takes).  A value head dim of its own past 192 / 128 runs on
+rows a block takes); at d <= 64 a persistent warp-specialised kernel, and
+one query row (s_q = 1) a kernel of its own (:func:`instance` names the
+kernel a call runs).  A value head dim of its own past 192 / 128 runs on
 the CUDA cores (bf16 widened to float32 as it loads).  The bf16
 tensor-core kernel loads by TMA, whose row strides are multiples of 16
 bytes: a head dim that is not a multiple of 8, or an operand that is not
@@ -46,6 +48,7 @@ from repro_torch.kernels import _build, ref
 
 launches = 0          # kernel launches since the last reset (ops.py)
 launches_bf16 = 0     # the launches among them on bf16 operands
+launches_d64 = 0      # those among them on the d <= 64 kernels
 vjps = 0              # plain-version VJPs since the last reset (ops.py)
 
 flash_attention_ref = ref.flash_attention
@@ -60,6 +63,52 @@ def on_tensor_cores(d: int, d_v: int,
     library answers it."""
     return bool(_build.query("vpaas_flash_attention_on_tensor_cores", d, d_v,
                              int(dtype == torch.bfloat16)))
+
+
+# vpaas_flash_attention_bf16_kernel's answers past the wgmma kernel's NWG
+_WS_KERNEL, _ROW_KERNEL = 3, 4
+
+
+def _nkt(d: int) -> int:
+    """The wgmma kernels' 16-column steps of a (padded) head dim."""
+    return next(n for n in (2, 4, 6, 7, 8, 16) if 16 * n >= d)
+
+
+def instance(b: int, s_q: int, n_q: int, d: int, d_v: int,
+             dtype: torch.dtype = torch.bfloat16) -> str:
+    """The name (as ptxas reports it) of the kernel instance the launcher
+    runs on (b, s_q, n_q, d) queries and values of head dim ``d_v`` in
+    ``dtype``: in bf16 the route the built library answers
+    (``vpaas_flash_attention_bf16_kernel``: at d <= 64 the persistent
+    kernel, or the one-row kernel at s_q = 1; else the wgmma kernel by its
+    block's warpgroups, or the CUDA-core kernel), in float32 its dispatch's
+    head-dim steps."""
+    if dtype == torch.bfloat16:
+        dp, d_vp = -(-d // 8) * 8, -(-d_v // 8) * 8
+        route = _build.query("vpaas_flash_attention_bf16_kernel", b, s_q,
+                             n_q, dp, d_vp)
+        if route == _WS_KERNEL:
+            return f"flash_attention_ws_kernel<{_nkt(dp)}>"
+        if route == _ROW_KERNEL:
+            return f"flash_attention_row_kernel<{_nkt(dp)}>"
+        if route:
+            if d > 128 and d_v < d:            # MLA's value head dim
+                return f"flash_attention_wgmma_kernel<{route}, 12, 8>"
+            return (f"flash_attention_wgmma_kernel<{route}, {_nkt(dp)}, "
+                    f"{_nkt(dp)}>")
+    elif on_tensor_cores(d, d_v):
+        if d == d_v and d > 128:           # 32-row blocks of column warps
+            return "flash_attention_cols_kernel"
+        if d == d_v:
+            ndt = nvt = next(n for n in (4, 8, 12, 14, 16) if 8 * n >= d)
+        else:
+            ndt = next(n for n in (8, 12, 16, 24) if 8 * n >= d)
+            nvt = 8 if d_v <= 64 else 16
+        rw = 4 if d <= 128 else 2          # row warps: 32-row blocks past 128
+        return f"flash_attention_mma_kernel<{ndt}, {nvt}, {rw}>"
+    nc = 2 if d_v <= 64 else 4 if d_v <= 128 else 8
+    elem = "bf16" if dtype == torch.bfloat16 else "float"
+    return f"flash_attention_simt_kernel<{elem}, {nc}>"
 
 
 def block_rows(b: int, s_q: int, n_q: int) -> int:
@@ -77,12 +126,32 @@ def tma_ready(*tensors: torch.Tensor) -> bool:
                for t in tensors)
 
 
+# (value, b, device) -> the (b,) int32 tensor of an int offset: made once,
+# since copying a host int to the card waits for the stream
+_ROWS: dict = {}
+MAX_ROWS = 64
+
+
 def row_array(value, b: int, device, name: str) -> torch.Tensor:
     """An int, 0-d or (b,) integer tensor as a contiguous (b,) int32 tensor
-    on ``device`` (one entry per batch row)."""
+    on ``device`` (one entry per batch row).  An int's tensor is kept for
+    the next call with the same int, batch and device (the kernels only
+    read it)."""
     if (isinstance(value, torch.Tensor) and value.dtype == torch.int32
             and value.device == device and value.numel() == 1 and b == 1):
         return value.reshape(1)      # the prefill's own case: no copy
+    if isinstance(value, int) and not isinstance(value, bool):
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            # a graph's fill runs only on replay: not kept for other calls
+            return torch.full((b,), value, dtype=torch.int32, device=device)
+        key = (value, b, device)
+        rows = _ROWS.get(key)
+        if rows is None:
+            if len(_ROWS) >= MAX_ROWS:
+                _ROWS.clear()
+            rows = _ROWS[key] = torch.full((b,), value, dtype=torch.int32,
+                                           device=device)
+        return rows
     t = torch.as_tensor(value, device=device)
     if t.is_floating_point():
         raise ValueError(f"{name}: expected integers, got {t.dtype}")
@@ -152,7 +221,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q (b, s_q, n_q, d), k (b, s_kv, n_kv, d) and v (b, s_kv, n_kv, d_v),
     all float32 or all bfloat16, -> (b, s_q, n_q, d_v) in their dtype, with
     d_v <= d; the logits are scaled by d ** -0.5."""
-    global launches, launches_bf16
+    global launches, launches_bf16, launches_d64
     b, s_q, n_q, d = q.shape
     s_kv, n_kv, d_v = k.shape[1], k.shape[2], v.shape[-1]
     v_dim = d_v
@@ -185,6 +254,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       float(softcap or 0.0), scale)
         launches += 1
         launches_bf16 += q.dtype == torch.bfloat16
+        launches_d64 += q.dtype == torch.bfloat16 and d <= 64
     return out[..., :v_dim].contiguous() if padded else out
 
 

@@ -92,6 +92,12 @@ def bf16_launch_counts() -> Dict[str, int]:
     return {name: mod.launches_bf16 for name, mod in BF16.items()}
 
 
+def d64_launch_counts() -> Dict[str, int]:
+    """K6's bf16 launches at d <= 64 (among ``flash_attention_bf16``'s):
+    the persistent kernel's and the one-row kernel's."""
+    return {"flash_attention_bf16_d64": _fa.launches_d64}
+
+
 def reset_launch_counts() -> None:
     for mod in KERNELS.values():
         mod.launches = 0
@@ -99,6 +105,7 @@ def reset_launch_counts() -> None:
         mod.vjps = 0
     for mod in BF16.values():
         mod.launches_bf16 = 0
+    _fa.launches_d64 = 0
     _ou.replays = _ou.steps = 0
 
 

@@ -196,7 +196,8 @@ def card_pass(cfg, shape, dry: dict) -> dict:
         end.synchronize()
         times.append(start.elapsed_time(end))
         if counts is None:
-            counts = {**ops.launch_counts(), **ops.bf16_launch_counts()}
+            counts = {**ops.launch_counts(), **ops.bf16_launch_counts(),
+                      **ops.d64_launch_counts()}
         head = out[2]["loss"] if shape.mode == "train" else out[0]
         finite = finite and bool(torch.isfinite(head).all())
     floor_ms = dry["cut_t_floor"] * 1e3
@@ -205,6 +206,7 @@ def card_pass(cfg, shape, dry: dict) -> dict:
               "ms_max": max(times), "calls": len(times),
               "peak_bytes": torch.cuda.max_memory_allocated(device) - base,
               "launches": {k: counts[k] for k in STEP_KERNELS + STEP_VJPS},
+              "launches_d64": counts["flash_attention_bf16_d64"],
               "out_shape": list(head.shape), "finite": finite,
               "predicted_peak_bytes": dry["cut_peak_bytes"],
               "floor_ms": floor_ms, "dominant": dry["cut_dominant"],

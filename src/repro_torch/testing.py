@@ -584,6 +584,37 @@ FLASH_WIDE_CASES = [
 ]
 
 
+# K6's bf16 kernels at d <= 64 (the persistent kernel: 192-row work items
+# of three consumer warpgroups, 64-key tiles; the one-row kernel at s_q =
+# 1), in FLASH_EDGE_CASES' layout: MHA 4 / 4 at d 64, causal, s_q and s_kv
+# off every tile size; non-causal over 256, 200 and 300 keys (the context
+# of a cross-attention: 256 is four whole tiles); s_q = 1 with per-row
+# offsets (GQA, a window and softcap, a row with no valid key), and
+# musicgen's cross decode shape; a window that closes whole tiles; a
+# softcap; rows with no valid key beside rows with some; d 18, 32 and 36
+# (zero-padded columns) and d_v 48 under d 64
+FLASH_D64_CASES = [
+    (2, 200, 333, 4, 4, 64, 64, True, None, None, 133),
+    (2, 130, 256, 4, 4, 64, 64, False, None, None, 0),
+    (1, 70, 200, 4, 4, 64, 64, False, None, None, 0),
+    (1, 129, 300, 4, 2, 64, 64, False, None, None, 0),
+    (3, 1, 300, 4, 2, 64, 64, True, None, None, [299, 100, 0]),
+    (2, 1, 300, 4, 4, 64, 64, True, 50, 30.0, [299, 400]),
+    (2, 1, 256, 4, 4, 64, 64, False, None, None, 0),
+    (1, 300, 700, 4, 2, 64, 64, True, 100, None, 400),
+    (2, 129, 257, 4, 4, 64, 64, False, None, 20.0, 0),
+    (1, 16, 16, 2, 1, 64, 64, True, 4, None, 14),
+    (1, 65, 97, 2, 1, 18, 18, True, 24, 15.0, 33),
+    (2, 70, 45, 4, 2, 32, 32, True, None, None, 0),
+    (2, 129, 257, 8, 4, 36, 36, False, None, 20.0, 0),
+    (2, 33, 70, 2, 1, 64, 48, True, 16, None, [5, 30]),
+]
+FLASH_D64_IDS = ["causal-ragged", "cross-256", "cross-200", "cross-300",
+                 "row-offsets", "row-window-cap-empty", "row-cross-256",
+                 "window-tiles", "softcap", "empty-rows", "d18", "d32",
+                 "d36", "dv48"]
+
+
 def attention_case(b, s_q, s_kv, n_q, n_kv, d, seed=0, d_v=None):
     """Unit-normal q, k, v: (b, s_q, n_q, d), (b, s_kv, n_kv, d) and
     (b, s_kv, n_kv, d_v), d_v = d unless given."""

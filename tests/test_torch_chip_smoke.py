@@ -844,22 +844,46 @@ def test_flash_tensor_core_bound_counts_d_plus_d_v_products():
         pytest.approx(3 * 10 * 448 / 495e9 + 10 * 8 / 67e9, rel=1e-12)
 
 
+def _k6_routes(monkeypatch):
+    """The K6 wrapper with the library's route queries stubbed as the
+    card's library answers them: in bf16 the d <= 64 kernels (the
+    persistent one, the one-row one at s_q = 1), else the wgmma kernel by
+    its block's warpgroups."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+
+    def on_tc(d, d_v):
+        return (d <= 192 and d_v <= 128) or (d == d_v and d <= 256)
+
+    def query(fn, *args):
+        if fn == "vpaas_flash_attention_on_tensor_cores":
+            return int(on_tc(*args[:2]))
+        assert fn == "vpaas_flash_attention_bf16_kernel"
+        b, s_q, n_q, d, d_v = args
+        if not on_tc(d, d_v):
+            return 0
+        if d <= 64:
+            return 4 if s_q == 1 else 3
+        return 1 if b * n_q * -(-s_q // 128) < 132 else 2
+    monkeypatch.setattr(_build, "query", query)
+    return fa
+
+
 def test_k6_instance_follows_the_launcher_routes(monkeypatch):
     # the ptxas names the K6 rows carry, from the routes the library
-    # answers (stubbed as the card's library answers them)
-    import types
-    fa = types.SimpleNamespace(
-        on_tensor_cores=lambda d, d_v, dtype=torch.float32: (
-            (d <= 192 and d_v <= 128) or (d == d_v and d <= 256)),
-        block_rows=lambda b, s_q, n_q: 64 if b * n_q * -(-s_q // 128) < 132
-        else 128)
+    # answers
+    fa = _k6_routes(monkeypatch)
     bf, f32 = torch.bfloat16, torch.float32
+    assert chip_smoke._k6_instance(fa, 6, 32768, 24, 64, 64, bf) == \
+        "flash_attention_ws_kernel<4>"
+    assert chip_smoke._k6_instance(fa, 7, 1, 24, 64, 64, bf) == \
+        "flash_attention_row_kernel<4>"
     assert chip_smoke._k6_instance(fa, 6, 32768, 32, 112, 112, bf) == \
         "flash_attention_wgmma_kernel<2, 7, 7>"
     assert chip_smoke._k6_instance(fa, 1, 384, 32, 112, 112, bf) == \
         "flash_attention_wgmma_kernel<1, 7, 7>"
     assert chip_smoke._k6_instance(fa, 1, 65, 2, 18, 18, bf) == \
-        "flash_attention_wgmma_kernel<1, 2, 2>"
+        "flash_attention_ws_kernel<2>"
     # MLA's d 192 over d_v 128 in bf16: the wgmma kernel's <NWG, 12, 8>
     # (was the CUDA-core flash_attention_simt_kernel<bf16, 4>), 128-row
     # blocks at deepseek's prefill_32k; -smoke's 96 / 64 the d = d_v
@@ -1310,17 +1334,13 @@ def test_dense_path_launches_follow_their_layers():
             "ssd_scan": 0}
 
 
-def test_dense_kernel_instances_in_both_dtypes():
+def test_dense_kernel_instances_in_both_dtypes(monkeypatch):
     # bf16 K6 at the 32k prefills: 128-row blocks of the wgmma kernel at d
     # 128; float32 K6 at the serving prefill: the 3xTF32 kernel; bf16 K7:
     # the TMA kernel at NKT 8; float32 K7 at d 128 (not the bulk kernel,
     # which takes d > 128): the split kernel's 8 q-heads a block
     import types
-    fa = types.SimpleNamespace(
-        on_tensor_cores=lambda d, d_v, dtype=torch.float32: (
-            (d <= 192 and d_v <= 128) or (d == d_v and d <= 256)),
-        block_rows=lambda b, s_q, n_q: 64 if b * n_q * -(-s_q // 128) < 132
-        else 128)
+    fa = _k6_routes(monkeypatch)
     bf, f32 = torch.bfloat16, torch.float32
     for b, h in ((9, 28), (8, 36)):
         assert chip_smoke._k6_instance(fa, b, 32768, h, 128, 128, bf) == \
@@ -1704,3 +1724,34 @@ def test_the_cuts_keep_every_check():
     assert "adamw_first_step(AdamW(lr=TRAIN_LLM_LR)," in fp32
     assert "assert_train_params_close(p, p0, g0," in fp32
     assert fp32.count("make_train_step(") == 1          # the card's step
+
+
+def test_d64_entry_is_a_kernel_line_of_its_own():
+    # K6's bf16 kernels at d <= 64 as a kernel line of their own: the bf16
+    # K6 phase's musicgen serving row's numbers, the d <= 64 instances its
+    # rows ran, and the d <= 64 launches of musicgen's dry-run steps
+    keys = dict(route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:86",
+                launches=None, max_abs_err=3e-3, ms=0.1, plain_ms=0.4,
+                bound_ms=0.03, bound_by="operations", library_ms=0.09)
+    bf = dict(keys, name="flash_attention_bf16", what="zamba2 cache prefill",
+              kernel="flash_attention_wgmma_kernel<1, 7, 7>",
+              dryrun_musicgen={"prefill_32k": 1.0})
+    bf["other_shapes"] = [
+        dict(keys, what=chip_smoke.D64_SHAPE, ms=0.05,
+             kernel="flash_attention_ws_kernel<4>"),
+        dict(keys, what="musicgen cross-attention decode step",
+             kernel="flash_attention_row_kernel<4>"),
+        dict(keys, what="deepseek-v2-lite MLA cache prefill",
+             kernel="flash_attention_wgmma_kernel<1, 12, 8>")]
+    shapes = chip_smoke.card_shapes(chip_smoke.CROSS_ARCH)
+    dryrun = {"card_musicgen": {s: {"launches_d64": 48 + i}
+                                for i, s in enumerate(shapes)}}
+    entry = chip_smoke.d64_entry(bf, dryrun)
+    assert entry["name"] == "flash_attention_bf16_d64"
+    assert entry["ms"] == 0.05 and "what" not in entry
+    assert entry["launches"] == sum(48 + i for i in range(len(shapes)))
+    assert entry["kernels"] == ["flash_attention_row_kernel<4>",
+                                "flash_attention_ws_kernel<4>"]
+    assert entry["dryrun_musicgen"] == {"prefill_32k": 1.0}
+    assert set(keys) <= set(entry)

@@ -37,6 +37,7 @@ from repro_torch.testing import (ATTN_ATOL, ATTN_BF16_RTOL, ATTN_VJP_RTOL,
                                  DECODE_CASES, DECODE_WIDE_CASES,
                                  DECODE_DENSE_CASES, DECODE_DENSE_IDS,
                                  FLASH_DENSE_CASES, FLASH_DENSE_IDS,
+                                 FLASH_D64_CASES, FLASH_D64_IDS,
                                  FLASH_WIDE_CASES, SSD_BF16_RTOL, bf16_err,
                                  FILTER_CASES, SSD_VJP_RTOL,
                                  FILTER_KW, FLASH_CASES, FLASH_DV_CASES,
@@ -964,6 +965,82 @@ def test_flash_attention_bf16_mla_replays_in_a_cuda_graph(cuda):
     torch.cuda.synchronize()
     assert out.shape == (1, 384, 16, 128)
     assert bf16_err(out, want) <= ATTN_BF16_RTOL
+
+
+@pytest.mark.parametrize("case", FLASH_D64_CASES + [
+    # musicgen-medium's 24 / 24 heads at d 64: its causal self-attention
+    # (a few rows of prefill_32k's shape, the plain version's scores a few
+    # GB), its cross-attention over 256 context keys and its cross decode
+    (1, 2048, 2048, 24, 24, 64, 64, True, None, None, 0),
+    (2, 4096, 256, 24, 24, 64, 64, False, None, None, 0),
+    (7, 1, 256, 24, 24, 64, 64, False, None, None, 0)],
+    ids=FLASH_D64_IDS + ["musicgen-self", "musicgen-cross",
+                         "musicgen-cross-decode"])
+def test_flash_attention_bf16_d64_kernels_match_plain(cuda, case):
+    # bf16 at d <= 64: the persistent warp-specialised kernel, the one-row
+    # kernel at s_q = 1; one launch, counted as a d <= 64 one; the same
+    # bits again
+    b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off = case
+    q, k, v = _bf(attention_case(b, s_q, s_kv, n_q, n_kv, d, d_v=d_v,
+                                 seed=13), cuda)
+    kw = dict(causal=causal, window=window, softcap=cap,
+              q_offset=torch.as_tensor(off, device=cuda))
+    assert fa.instance(b, s_q, n_q, d, d_v).startswith(
+        "flash_attention_row_kernel<" if s_q == 1
+        else "flash_attention_ws_kernel<")
+    ops.reset_launch_counts()
+    got = fa.flash_attention(q, k, v, **kw)
+    assert ops.d64_launch_counts() == {"flash_attention_bf16_d64": 1}
+    assert got.dtype == BF and got.shape == (b, s_q, n_q, d_v)
+    want = fa.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert bf16_err(got, want) <= ATTN_BF16_RTOL
+    assert torch.equal(fa.flash_attention(q, k, v, **kw), got)
+
+
+@pytest.mark.parametrize("s_q", [1, 1000], ids=["row", "persistent"])
+def test_flash_attention_bf16_d64_replays_in_a_cuda_graph(cuda, s_q):
+    # the d <= 64 kernels captured once and replayed twice: the same result
+    # both times (the persistent kernel's static order of work items needs
+    # nothing reset between replays), and a replay recomputes from the
+    # inputs' new values
+    q, k, v = _bf(attention_case(2, s_q, 600, 24, 24, 64), cuda)
+    off = torch.full((2,), 600 - s_q, dtype=torch.int32, device=cuda)
+    fa.flash_attention(q, k, v, q_offset=off)      # warm-up off the graph
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    fa.launches_d64 = 0
+    with torch.cuda.graph(graph):
+        out = fa.flash_attention(q, k, v, q_offset=off)
+    assert fa.launches_d64 == 1
+    graph.replay()
+    first = out.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, first)
+    assert bf16_err(first, fa.flash_attention_ref(q, k, v, q_offset=off)) \
+        <= ATTN_BF16_RTOL
+    q.mul_(-0.5)
+    v.add_(1.0)
+    graph.replay()
+    want = fa.flash_attention_ref(q, k, v, q_offset=off)
+    torch.cuda.synchronize()
+    assert bf16_err(out, want) <= ATTN_BF16_RTOL
+
+
+@pytest.mark.parametrize("args,want", [
+    ((6, 32768, 32, 112, 112), "flash_attention_wgmma_kernel<2, 7, 7>"),
+    ((1, 384, 32, 112, 112), "flash_attention_wgmma_kernel<1, 7, 7>"),
+    ((2, 1, 8, 112, 112), "flash_attention_wgmma_kernel<1, 7, 7>"),
+    ((9, 32768, 28, 128, 128), "flash_attention_wgmma_kernel<2, 8, 8>"),
+    ((6, 32768, 16, 192, 128), "flash_attention_wgmma_kernel<2, 12, 8>"),
+    ((3, 32768, 16, 256, 256), "flash_attention_wgmma_kernel<2, 16, 16>"),
+    ((6, 32768, 24, 64, 64), "flash_attention_ws_kernel<4>"),
+    ((7, 1, 24, 64, 64), "flash_attention_row_kernel<4>")])
+def test_flash_attention_bf16_instances_on_the_card(cuda, args, want):
+    # the built library's routes: d 112, d 128, MLA and d 256 keep their
+    # wgmma instances; d <= 64 takes the new kernels
+    assert fa.instance(*args) == want
 
 
 # the bf16 TMA kernel's cases (every CPU emulation case of

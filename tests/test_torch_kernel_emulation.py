@@ -47,6 +47,7 @@ from repro_torch.kernels import ssd_scan as sk
 from repro_torch.testing import (ATTN_ATOL, ATTN_BF16_RTOL, DECODE_CASES,
                                  DECODE_DENSE_CASES, DECODE_DENSE_IDS,
                                  FLASH_DENSE_CASES, FLASH_DENSE_IDS,
+                                 FLASH_D64_CASES, FLASH_D64_IDS,
                                  DECODE_WIDE_CASES, FILTER_KW,
                                  FLASH_WIDE_CASES, SSD_BF16_RTOL,
                                  FLASH_CASES, FLASH_DV_CASES,
@@ -164,6 +165,9 @@ inline void bar_sync(int id, int n) {
   if (bars[id]->n != n) { std::fprintf(stderr, "named barrier %d: %d threads"
                           " then %d\n", id, bars[id]->n, n); std::abort(); }
   bars[id]->arrive_and_wait(); }
+// setmaxnreg: a register budget, nothing to emulate
+template <int N> void setmaxnreg_dec() {}
+template <int N> void setmaxnreg_inc() {}
 template <class T> T emu_xchg(T v, int src) {
   double* buf = emu_blk->xchg.data() + (threadIdx.x / 32) * 32;
   double d = 0; std::memcpy(&d, &v, sizeof(T)); buf[threadIdx.x % 32] = d;
@@ -518,6 +522,7 @@ inline void wgmma_fence() {}
 inline void wgmma_commit() {}
 template <int N> void wgmma_wait() {}
 template <int N> void fence_regs(float*) {}
+template <int N> void fence_regs(uint32_t*) {}
 // one bf16 of shared memory as the tensor core reads it through a 128-byte
 // swizzle descriptor: K-major (row r at its 128-byte row of an 8-row group
 // sbo apart, k within it) or MN-major (k at its row, n's 64-element block
@@ -562,6 +567,9 @@ inline void wgmma_m64n96k16_ss(float* d, uint64_t da, uint64_t db, int acc) {
   emu_wgmma<96>(d, nullptr, da, db, false, acc != 0); }
 inline void wgmma_m64n64k16_ss(float* d, uint64_t da, uint64_t db, int acc) {
   emu_wgmma<64>(d, nullptr, da, db, false, acc != 0); }
+inline void wgmma_m64n64k16_rs_k(float* d, const uint32_t a[4], uint64_t db,
+                                 int acc) {
+  emu_wgmma<64>(d, a, 0, db, false, acc != 0); }
 template <int N>
 void wgmma_m64nNk16_rs(float* d, const uint32_t a[4], uint64_t db) {
   emu_wgmma<N>(d, a, 0, db, true, true); }
@@ -1180,11 +1188,12 @@ def _bf16(arrays):
                              len(FLASH_CASES) + len(FLASH_RAGGED_CASES))])
 def test_flash_attention_source_takes_bf16(emulated, case, sms):
     # the bf16 launcher: the wgmma kernel on TMA tiles for every d = d_v
-    # up to 256 (p split into two bf16 halves; d = 18 and 36 padded to a
-    # multiple of 8 by the wrapper; 64-key tiles and one buffer of p's
-    # fragments at d = 256); out in bf16.  On the card's 132 SMs these
-    # small grids take 64-row blocks (one consumer warpgroup), on 1 SM
-    # 128-row blocks (two)
+    # past 64 up to 256, the persistent kernel at d <= 64 (p split into two
+    # bf16 halves; d = 18 and 36 padded to a multiple of 8 by the wrapper;
+    # 64-key tiles and one buffer of p's fragments at d = 256); out in
+    # bf16.  On the card's 132 SMs these small grids take 64-row blocks of
+    # the wgmma kernel (one consumer warpgroup), on 1 SM 128-row blocks
+    # (two); on 1 SM one persistent block takes every work item
     b, s_q, s_kv, n_q, n_kv, d, causal, window, cap, off = case
     emulated(sms)
     assert fa.on_tensor_cores(d, d, torch.bfloat16)
@@ -1394,6 +1403,63 @@ def test_decode_attention_source_bf16_tma(emulated, case, sms):
     assert torch.equal(da.decode_attention(q, kc, vc, cl, **kw), got)
 
 
+# on 1 SM the one persistent block takes every work item of a case, 4 to
+# 16 of each case with 3 or more (the ring and Q's two buffers wrap across
+# items)
+@pytest.mark.parametrize("sms", [132, 1], ids=["sms132", "sms1"])
+@pytest.mark.parametrize("case", FLASH_D64_CASES, ids=FLASH_D64_IDS)
+def test_flash_attention_source_d64_kernels(emulated, case, sms):
+    # bf16 at d <= 64: the persistent warp-specialised kernel (a producer
+    # warp, three consumer warpgroups), or the one-row kernel at s_q = 1;
+    # within ATTN_BF16_RTOL of the plain
+    # version, one launch counted as a d <= 64 one, the same bits again
+    b, s_q, s_kv, n_q, n_kv, d, d_v, causal, window, cap, off = case
+    emulated(sms)
+    q, k, v = _bf16(attention_case(b, s_q, s_kv, n_q, n_kv, d, d_v=d_v,
+                                   seed=13))
+    kw = dict(causal=causal, window=window, softcap=cap,
+              q_offset=torch.as_tensor(off))
+    want_kernel = ("flash_attention_row_kernel" if s_q == 1
+                   else "flash_attention_ws_kernel")
+    assert fa.instance(b, s_q, n_q, d, d_v).startswith(want_kernel + "<")
+    fa.launches = fa.launches_bf16 = fa.launches_d64 = 0
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.launches == fa.launches_bf16 == fa.launches_d64 == 1
+    assert got.dtype == torch.bfloat16 and got.shape == (b, s_q, n_q, d_v)
+    assert bf16_err(got, ref.flash_attention(q, k, v, **kw)) \
+        <= ATTN_BF16_RTOL
+    assert torch.equal(fa.flash_attention(q, k, v, **kw), got)
+
+
+@pytest.mark.parametrize("args,want", [
+    # musicgen-medium at d 64: prefill_32k's self- and cross-attention, its
+    # decode step's cross-attention, the serving prefill
+    ((6, 32768, 24, 64, 64), "flash_attention_ws_kernel<4>"),
+    ((7, 1, 24, 64, 64), "flash_attention_row_kernel<4>"),
+    ((4, 384, 24, 64, 64), "flash_attention_ws_kernel<4>"),
+    # d <= 32 (padded to 24 or 32), d 36, d_v under d
+    ((2, 70, 4, 32, 32), "flash_attention_ws_kernel<2>"),
+    ((1, 65, 2, 18, 18), "flash_attention_ws_kernel<2>"),
+    ((2, 1, 4, 18, 18), "flash_attention_row_kernel<2>"),
+    ((2, 1, 8, 36, 36), "flash_attention_row_kernel<4>"),
+    ((2, 33, 2, 64, 48), "flash_attention_ws_kernel<4>"),
+    # past d 64 the wgmma kernel, unchanged, at s_q = 1 too
+    ((2, 1, 8, 112, 112), "flash_attention_wgmma_kernel<1, 7, 7>"),
+    ((6, 32768, 32, 112, 112), "flash_attention_wgmma_kernel<2, 7, 7>"),
+    ((9, 32768, 28, 128, 128), "flash_attention_wgmma_kernel<2, 8, 8>"),
+    ((6, 32768, 16, 192, 128), "flash_attention_wgmma_kernel<2, 12, 8>"),
+    ((3, 32768, 16, 256, 256), "flash_attention_wgmma_kernel<2, 16, 16>"),
+    ((1, 384, 16, 256, 192), "flash_attention_simt_kernel<bf16, 8>")])
+def test_flash_attention_bf16_routes(emulated, args, want):
+    # the bf16 launcher's kernel by (d, s_q), as the built library answers
+    # it; float32 keeps its 3xTF32 kernel at d 64, s_q = 1 included
+    emulated(132)
+    assert fa.instance(*args) == want
+    for s_q in (1, 384):
+        assert fa.instance(4, s_q, 24, 64, 64, torch.float32) == \
+            "flash_attention_mma_kernel<8, 8, 4>"
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", FLASH_DENSE_CASES, ids=FLASH_DENSE_IDS)
@@ -1545,3 +1611,19 @@ def test_ssd_scan_workspace_holds_one_state_a_chunk():
     assert sk.workspace_bytes(torch.empty(1, 10, 2, 4),
                               torch.empty(1, 10, 4), 4) == 0
 
+
+
+def test_row_array_keeps_an_ints_rows():
+    # an int offset's (b,) int32 rows are made once for the same int, batch
+    # and device and handed to the next call (the kernels only read them);
+    # tensors are converted on every call
+    cpu = torch.device("cpu")
+    rows = fa.row_array(7, 3, cpu, "q_offset")
+    assert rows.dtype == torch.int32 and rows.tolist() == [7, 7, 7]
+    assert fa.row_array(7, 3, cpu, "q_offset") is rows
+    assert fa.row_array(8, 3, cpu, "q_offset").tolist() == [8, 8, 8]
+    assert fa.row_array(7, 2, cpu, "q_offset").tolist() == [7, 7]
+    t = torch.tensor([1, 2, 3])
+    assert fa.row_array(t, 3, cpu, "q_offset").tolist() == [1, 2, 3]
+    assert fa.row_array(t, 3, cpu, "q_offset") is not \
+        fa.row_array(t, 3, cpu, "q_offset")
